@@ -9,13 +9,17 @@ kernel's plain PyTorch version runs instead.
 
 Ported so far: the serving path (prefill through the FA2 forward kernel,
 int8 paged-KV decode through the paged decode kernel, the continuous-
-batching DecodeEngine).  This package imports torch and numpy, never jax.
+batching DecodeEngine) and the training path (the FA2 backward kernels
+behind a differentiable flash_attention, the loss, the SGD-momentum and
+AdamW train steps).  This package imports torch and numpy, never jax.
 """
 
 __version__ = "0.1.0"
 
 from cuda_flash_attention_tpu_torch._device import resolve_device  # noqa: F401
 from cuda_flash_attention_tpu_torch.kernels.attention import (  # noqa: F401
+    BlockSizes,
+    fa2_backward,
     flash_attention,
     flash_attention_with_lse,
 )

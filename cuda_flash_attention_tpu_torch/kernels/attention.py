@@ -1,15 +1,19 @@
-"""Public FlashAttention-2 forward API: validation, padding, dispatch.
+"""Public FlashAttention-2 API: validation, padding, dispatch, autograd.
 
-Counterpart of the forward half of cuda_flash_attention_tpu/kernels/
-attention.py.  q/k/v are [B, H, S, D]; k/v may carry fewer heads than q
-(GQA, query heads ordered KV-head-major).  Sequences are zero-padded to the
-block grid, the forward kernel B1 runs, and the padding is sliced off.
+Counterpart of cuda_flash_attention_tpu/kernels/attention.py.  q/k/v are
+[B, H, S, D]; k/v may carry fewer heads than q (GQA, query heads ordered
+KV-head-major).  Sequences are zero-padded to the block grid, the forward
+kernel B1 runs, and the padding is sliced off.  `flash_attention` is
+differentiable: a torch.autograd.Function takes the place of the JAX
+custom_vjp (attention.py:255-348).  Its forward saves the padded (q, k, v,
+o, lse); its backward gets dO zero-padded from the slice's own backward and
+runs either the fused kernel B2 or the split pair B3 + B4
+(kernels/fa2_backward.py), by the JAX route rule `_use_fused_bwd`.
 
 Two routes of the JAX API do not apply here: the small-fp32 XLA route (its
 crossover was measured on a TPU; on CUDA the kernel is always taken) and the
 small-shape kernel B8 (not ported; GQA prefill never takes it).  Sliding
 windows, attention sinks and segment ids are not ported yet and raise.
-No autograd: this slice serves, it does not train.
 """
 
 from __future__ import annotations
@@ -17,12 +21,44 @@ from __future__ import annotations
 import torch
 
 from cuda_flash_attention_tpu_torch.kernels.common import (
+    BlockSizes,
+    cdiv,
+    fit_block,
     pad_to_block,
     seq_pad_quantum,
 )
+from cuda_flash_attention_tpu_torch.kernels.fa2_backward import (
+    fa2_backward_dkv_aligned,
+    fa2_backward_dq_aligned,
+    fa2_backward_fused_aligned,
+    fused_kv_tile,
+)
 from cuda_flash_attention_tpu_torch.kernels.fa2_forward import fa2_forward_aligned
 
-__all__ = ["flash_attention", "flash_attention_with_lse"]
+__all__ = ["BlockSizes", "flash_attention", "flash_attention_with_lse",
+           "fa2_backward"]
+
+# The JAX route rule: the fused backward B2 writes dQ as per-KV-slice fp32
+# partials; above 8 slices the split pair's recompute is cheaper than the
+# partials' traffic, and above 1 GiB of partials the fused route is refused
+# outright.
+_FUSED_BWD_MAX_KV_SLICES = 8
+_FUSED_BWD_MAX_DQPART_BYTES = 1 << 30
+
+
+def _use_fused_bwd(q, k, bk_dkv: int, tile_dtype=None) -> bool:
+    """JAX attention.py:50-62 on padded q/k.  The slice count is the JAX
+    one (KV slices of `bk_dkv` rows); the byte cap applies to the buffer
+    that the port's B2 allocates, one fp32 slice of q's size per
+    `fused_kv_tile` KV rows (128 with bf16 tiles, 64 in fp32), which is
+    larger than the JAX buffer.  The JAX window clause is left out: windows
+    are not ported and raise before this point."""
+    if k.shape[2] // bk_dkv > _FUSED_BWD_MAX_KV_SLICES:
+        return False
+    slices = cdiv(k.shape[2], fused_kv_tile(q.dtype, tile_dtype))
+    dq_part_bytes = 4 * q.shape[0] * q.shape[1] * slices * q.shape[2] * q.shape[3]
+    return dq_part_bytes <= _FUSED_BWD_MAX_DQPART_BYTES
+
 
 _IN_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -77,8 +113,10 @@ def _check_window(window, sinks, causal, q_len, kv_len):
         raise ValueError("attention sinks require a sliding window")
 
 
-def _forward(q, k, v, causal, sm_scale, tile_dtype, q_segment_ids,
+def _prepare(q, k, v, causal, sm_scale, tile_dtype, q_segment_ids,
              kv_segment_ids, window, sinks):
+    """Validate and pad: (q, k, v padded and contiguous, sm_scale, q_len,
+    kv_len)."""
     _validate_shapes(q, k, v)
     _validate_dtypes(q, k, v, tile_dtype)
     if q_segment_ids is not None or kv_segment_ids is not None:
@@ -90,29 +128,101 @@ def _forward(q, k, v, causal, sm_scale, tile_dtype, q_segment_ids,
     q_pad = pad_to_block(q, 2, seq_pad_quantum(q_len, q.dtype)).contiguous()
     k_pad = pad_to_block(k, 2, seq_pad_quantum(kv_len, k.dtype)).contiguous()
     v_pad = pad_to_block(v, 2, seq_pad_quantum(kv_len, v.dtype)).contiguous()
-    o, lse = fa2_forward_aligned(q_pad, k_pad, v_pad, causal=causal,
-                                 sm_scale=float(sm_scale), kv_len=kv_len,
-                                 tile_dtype=tile_dtype)
-    return o[:, :, :q_len], lse[:, :, :q_len]
+    return q_pad, k_pad, v_pad, float(sm_scale), q_len, kv_len
+
+
+def _backward(q, k, v, o, lse, do, kv_len, causal, sm_scale, block_sizes,
+              tile_dtype):
+    """dQ, dK, dV over padded inputs: B2, or B3 + B4 with
+    D_i = rowsum(dO * O) as a plain fp32 reduction (the JAX package computes
+    it in XLA outside Pallas, attention.py:327-329)."""
+    do = do.contiguous()
+    kw = dict(causal=causal, sm_scale=sm_scale, kv_len=kv_len,
+              tile_dtype=tile_dtype)
+    bk_dkv = fit_block(block_sizes.block_k_dkv, k.shape[2])
+    if _use_fused_bwd(q, k, bk_dkv, tile_dtype):
+        return fa2_backward_fused_aligned(q, k, v, o, do, lse, **kw)
+    di = (o.float() * do.float()).sum(dim=-1)
+    dq = fa2_backward_dq_aligned(q, k, v, do, lse, di, **kw)
+    dk, dv = fa2_backward_dkv_aligned(q, k, v, do, lse, di, **kw)
+    return dq, dk, dv
+
+
+class _FA2(torch.autograd.Function):
+    """FA2 over padded q/k/v: forward B1, backward B2 or B3 + B4."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_len, causal, sm_scale, block_sizes,
+                tile_dtype):
+        o, lse = fa2_forward_aligned(q, k, v, causal=causal, sm_scale=sm_scale,
+                                     kv_len=kv_len, tile_dtype=tile_dtype)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (kv_len, causal, sm_scale, block_sizes, tile_dtype)
+        return o
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _backward(q, k, v, o, lse, do, *ctx.args)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = False,
-                    sm_scale: float | None = None, tile_dtype=None,
+                    sm_scale: float | None = None,
+                    block_sizes: BlockSizes | None = None, tile_dtype=None,
                     q_segment_ids=None, kv_segment_ids=None,
                     window: int | None = None, sinks: int = 0):
-    """FlashAttention-2 forward.  Returns O with q's shape and dtype.
+    """Differentiable FlashAttention-2.  Returns O with q's shape and dtype.
 
     ``tile_dtype`` (None or torch.bfloat16) is the precision of the Q/K/V/P
-    tiles inside the kernel; softmax statistics stay fp32.  None computes in
-    q's dtype."""
-    return _forward(q, k, v, causal, sm_scale, tile_dtype, q_segment_ids,
-                    kv_segment_ids, window, sinks)[0]
+    tiles inside the kernels; softmax statistics stay fp32.  None computes
+    in q's dtype.  ``block_sizes`` (default `BlockSizes.default(causal)`)
+    only picks the backward route, as the JAX rule counts its KV slices."""
+    q_pad, k_pad, v_pad, sm_scale, q_len, kv_len = _prepare(
+        q, k, v, causal, sm_scale, tile_dtype, q_segment_ids, kv_segment_ids,
+        window, sinks)
+    if block_sizes is None:
+        block_sizes = BlockSizes.default(causal)
+    o = _FA2.apply(q_pad, k_pad, v_pad, kv_len, causal, sm_scale, block_sizes,
+                   tile_dtype)
+    return o[:, :, :q_len]
 
 
 def flash_attention_with_lse(q, k, v, *, causal: bool = False,
                              sm_scale: float | None = None, tile_dtype=None,
                              q_segment_ids=None, kv_segment_ids=None,
                              window: int | None = None, sinks: int = 0):
-    """FA2 forward returning (O, logsumexp [B, H, Sq] fp32)."""
-    return _forward(q, k, v, causal, sm_scale, tile_dtype, q_segment_ids,
-                    kv_segment_ids, window, sinks)
+    """FA2 forward returning (O, logsumexp [B, H, Sq] fp32).  Not
+    differentiable, as in the JAX API: use `flash_attention` for
+    gradients."""
+    q_pad, k_pad, v_pad, sm_scale, q_len, kv_len = _prepare(
+        q, k, v, causal, sm_scale, tile_dtype, q_segment_ids, kv_segment_ids,
+        window, sinks)
+    with torch.no_grad():
+        o, lse = fa2_forward_aligned(q_pad, k_pad, v_pad, causal=causal,
+                                     sm_scale=sm_scale, kv_len=kv_len,
+                                     tile_dtype=tile_dtype)
+    return o[:, :, :q_len], lse[:, :, :q_len]
+
+
+def fa2_backward(q, k, v, o, lse, do=None, *, causal: bool = False,
+                 sm_scale: float | None = None,
+                 block_sizes: BlockSizes | None = None, tile_dtype=None,
+                 window: int | None = None):
+    """Standalone FA2 backward from forward artifacts (O, logsumexp
+    [B, Hq, Sq]), as the JAX fa2_backward (attention.py:457-523): dO
+    defaults to ones.  Returns (dQ, dK, dV)."""
+    if do is None:
+        do = torch.ones_like(o)
+    q_pad, k_pad, v_pad, sm_scale, q_len, kv_len = _prepare(
+        q, k, v, causal, sm_scale, tile_dtype, None, None, window, 0)
+    if block_sizes is None:
+        block_sizes = BlockSizes.default(causal)
+    quantum = seq_pad_quantum(q_len, q.dtype)
+    o_pad = pad_to_block(o, 2, quantum).contiguous()
+    do_pad = pad_to_block(do, 2, quantum)
+    lse_pad = pad_to_block(lse.float(), 2, quantum).contiguous()
+    dq, dk, dv = _backward(q_pad, k_pad, v_pad, o_pad, lse_pad, do_pad, kv_len,
+                           causal, sm_scale, block_sizes, tile_dtype)
+    return dq[:, :, :q_len], dk[:, :, :kv_len], dv[:, :, :kv_len]

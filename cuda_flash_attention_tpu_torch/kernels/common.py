@@ -5,6 +5,8 @@ than imported: the port never imports the JAX package."""
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 import torch.nn.functional as F
 
@@ -23,6 +25,40 @@ def cdiv(a: int, b: int) -> int:
 
 def round_up(x: int, m: int) -> int:
     return cdiv(x, m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockSizes:
+    """The JAX API's block configuration (multiples of 128 along sequence
+    dims), with its defaults and `default(causal, window)`; a window raises
+    until sliding windows are ported.
+
+    In the port it only picks the backward route: the JAX rule counts KV
+    slices of `block_k_dkv` rows (kernels/attention.py `_use_fused_bwd`).
+    The CUDA kernels keep their own tiles (csrc/*.cu), which suit the H100's
+    shared memory and registers, not these TPU-swept sizes."""
+
+    block_q: int = 2048
+    block_k: int = 2048
+    block_q_dkv: int = 512
+    block_k_dkv: int = 2048
+    block_q_dq: int = 512
+    block_k_dq: int = 2048
+
+    def __post_init__(self):
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if v % MIN_BLOCK != 0:
+                raise ValueError(f"{f.name}={v} must be a multiple of {MIN_BLOCK}")
+
+    @classmethod
+    def default(cls, causal: bool = False,
+                window: int | None = None) -> "BlockSizes":
+        if window is not None:
+            raise NotImplementedError("sliding-window attention is not ported yet")
+        if causal:
+            return cls(block_q=2048, block_k=2048, block_k_dkv=1024)
+        return cls()
 
 
 def fit_block(requested: int, padded_len: int) -> int:

@@ -1,11 +1,14 @@
-"""GQA decoder-only transformer: config, parameters and the causal forward.
+"""GQA decoder-only transformer: config, parameters, the causal forward,
+the loss and the SGD-momentum train step.
 
-Counterpart of cuda_flash_attention_tpu/models/transformer.py for serving:
-the same parameter tree (a dict with "embed", "layers" (a list of dicts),
+Counterpart of cuda_flash_attention_tpu/models/transformer.py: the same
+parameter tree (a dict with "embed", "layers" (a list of dicts),
 "final_norm" and "lm_head"; weights are [in, out] and used as x @ W), the
-same RMSNorm, half-rotation RoPE and SwiGLU.  Attention runs the FA2 forward
-kernel.  Mixture-of-experts layers, meshes, remat and training are not
-ported yet.
+same RMSNorm, half-rotation RoPE and SwiGLU.  Attention runs the FA2 kernels
+(forward B1; backward B2, or B3 + B4) through the differentiable
+`flash_attention`.  Remat "full" is torch.utils.checkpoint around each
+layer.  Mixture-of-experts layers, meshes and remat "dots" are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from cuda_flash_attention_tpu_torch._device import resolve_device
 from cuda_flash_attention_tpu_torch.kernels.attention import flash_attention
@@ -41,6 +45,10 @@ class TransformerConfig:
     # Long-context RoPE extension: "none", "linear" or "ntk".
     rope_scaling: str = "none"
     rope_scale_factor: float = 1.0
+    # Rematerialization of each layer under autograd: "none" keeps every
+    # activation; "full" recomputes the whole layer (the attention forward
+    # included) in the backward.  The JAX "dots" policy is not ported yet.
+    remat: str = "none"
 
     def __post_init__(self):
         if self.n_heads % self.n_kv_heads:
@@ -196,13 +204,92 @@ def ffn_block(x, layer, cfg: TransformerConfig):
     return x + dense(gate * up, layer["w_down"]).to(x.dtype), 0.0
 
 
-def forward(params, tokens, cfg: TransformerConfig):
-    """Causal LM forward: tokens [B, S] int -> logits [B, S, vocab] fp32."""
+def _layer(x, layer, positions, cfg: TransformerConfig, window):
+    x, _ = attention_block(x, layer, positions, cfg, window=window)
+    return ffn_block(x, layer, cfg)
+
+
+def forward(params, tokens, cfg: TransformerConfig, return_aux: bool = False):
+    """Causal LM forward: tokens [B, S] int -> logits [B, S, vocab] fp32.
+    With return_aux=True returns (logits, aux), aux being the summed router
+    loss of mixture-of-experts layers (0.0: dense layers only here)."""
+    if cfg.remat == "dots":
+        raise NotImplementedError('remat="dots" is not ported yet')
+    if cfg.remat not in ("none", "full"):
+        raise ValueError(f"unknown remat policy {cfg.remat!r}")
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     x = params["embed"][tokens].to(cfg.dtype)
+    aux_total = 0.0
     for i, layer in enumerate(params["layers"]):
-        x, _ = attention_block(x, layer, positions, cfg, window=cfg.layer_window(i))
-        x, _ = ffn_block(x, layer, cfg)
+        window = cfg.layer_window(i)
+        if cfg.remat == "full" and torch.is_grad_enabled():
+            x, aux = checkpoint(_layer, x, layer, positions, cfg, window,
+                                use_reentrant=False)
+        else:
+            x, aux = _layer(x, layer, positions, cfg, window)
+        aux_total = aux_total + aux
     x = rms_norm(x, params["final_norm"])
-    return dense(x, params["lm_head"]).float()
+    logits = dense(x, params["lm_head"]).float()
+    return (logits, aux_total) if return_aux else logits
+
+
+def loss_fn(params, tokens, cfg: TransformerConfig):
+    """Next-token cross entropy (tokens [B, S + 1] serve as both input and
+    target), in the fused form logsumexp(logits) - logits[target], which
+    reduces straight off the logits instead of materialising log-softmax.
+    The JAX loss adds the mixture-of-experts router loss; dense layers have
+    none, and MoE layers raise here."""
+    logits = forward(params, tokens[:, :-1], cfg)
+    targets = tokens[:, 1:]
+    lse = torch.logsumexp(logits, dim=-1)
+    target_logit = torch.gather(logits, -1, targets[..., None])[..., 0]
+    return torch.mean(lse - target_logit)
+
+
+def tree_map(fn, tree, *rest):
+    """fn over the leaves of a parameter tree (dicts, lists, tensors) and
+    of trees of the same structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def value_and_grad(params, tokens, cfg: TransformerConfig):
+    """(loss, grads): grads is a tree like params, each leaf in its
+    parameter's dtype."""
+    leaves = tree_leaves(params)
+    with torch.enable_grad():
+        wrt = [p.detach().requires_grad_(True) for p in leaves]
+        it = iter(wrt)
+        loss = loss_fn(tree_map(lambda _: next(it), params), tokens, cfg)
+        grads = iter(torch.autograd.grad(loss, wrt))
+    return loss.detach(), tree_map(lambda _: next(grads), params)
+
+
+def make_train_step(cfg: TransformerConfig, learning_rate=1e-3):
+    """SGD-with-momentum train step (optimizer state = momentum tree):
+    step(params, opt_state, tokens) -> (params, opt_state, loss), each tree
+    new, as the JAX step returns them."""
+
+    def train_step(params, opt_state, tokens):
+        loss, grads = value_and_grad(params, tokens, cfg)
+        new_opt = tree_map(lambda m, g: 0.9 * m + g.float(), opt_state, grads)
+        new_params = tree_map(lambda p, m: (p - learning_rate * m).to(p.dtype),
+                              params, new_opt)
+        return new_params, new_opt, loss
+
+    return train_step
+
+
+def init_opt_state(params):
+    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                          device=p.device), params)

@@ -8,8 +8,13 @@ card.  This file imports no JAX, so it runs on a machine without it:
 (--noconftest skips the root conftest.py, which configures JAX.)
 Tolerances: B1 2e-2 with bf16 tiles and 2e-6 in fp32 (the JAX gates,
 tests/test_fa2_forward.py); B5 2e-2 with bf16 compute and 2e-5 in fp32
-(tests/test_decode.py); lse 1e-3 relative (1e-5 in fp32).
+(tests/test_decode.py); lse 1e-3 relative (1e-5 in fp32).  B2, B3 and B4
+within 5e-2 with bf16 tiles (the JAX bf16-tile grad gate,
+tests/test_fa2_backward.py) and 2e-5 in fp32, each error relative to the
+plain output's own max |value|.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -18,8 +23,16 @@ import torch
 from cuda_flash_attention_tpu_torch.decode import DecodeEngine
 from cuda_flash_attention_tpu_torch.decode import attention as dec_attention
 from cuda_flash_attention_tpu_torch.decode import kv_cache
-from cuda_flash_attention_tpu_torch.kernels import attention, fa2_forward
-from cuda_flash_attention_tpu_torch.models import TransformerConfig, init_params
+from cuda_flash_attention_tpu_torch.kernels import attention, fa2_backward, fa2_forward
+from cuda_flash_attention_tpu_torch.kernels.common import BlockSizes
+from cuda_flash_attention_tpu_torch.models import (
+    TransformerConfig,
+    init_params,
+    init_train_state,
+    make_optax_train_step,
+    make_optimizer,
+)
+from cuda_flash_attention_tpu_torch.models.transformer import tree_leaves
 
 pytestmark = pytest.mark.gpu
 
@@ -133,3 +146,150 @@ def test_engine_on_the_card_matches_the_cpu(cuda):
         eng = DecodeEngine(params, cfg, max_seqs=2, max_seq_len=512, device=dev)
         runs[dev] = [r.generated for r in eng.run(prompts, max_new_tokens=6)]
     assert runs[None] == runs["cpu"]
+
+
+SPLIT = BlockSizes(128, 128, 128, 128, 128, 128)
+
+
+def _rel_err(got, want) -> float:
+    got, want = got.float().cpu(), want.float().cpu()
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def _bwd_problem(dtype, tile, d, b, hq, hkv, s, causal, seed):
+    """Padded inputs as the autograd path builds them, on the CPU: q, k, v,
+    dO from numpy, O and lse from the plain forward."""
+    rng = np.random.default_rng(seed)
+    q, do = (_randn(rng, b, hq, s, d).to(dtype) for _ in range(2))
+    k, v = (_randn(rng, b, hkv, s, d).to(dtype) for _ in range(2))
+    q, k, v, sm_scale, _, kv_len = attention._prepare(
+        q, k, v, causal, None, tile, None, None, None, 0)
+    o, lse = fa2_forward.fa2_forward_plain(q, k, v, causal=causal,
+                                           sm_scale=sm_scale, kv_len=kv_len,
+                                           tile_dtype=tile)
+    do = torch.nn.functional.pad(do, (0, 0, 0, q.shape[2] - s))
+    di = (o.float() * do.float()).sum(-1)
+    kw = dict(causal=causal, sm_scale=sm_scale, kv_len=kv_len, tile_dtype=tile)
+    return dict(q=q, k=k, v=v, o=o, do=do, lse=lse, di=di), kw
+
+
+BWD_VARIANTS = pytest.mark.parametrize("dtype,tile", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, None),
+    (torch.float32, torch.bfloat16),
+], ids=["bf16", "fp32", "fp32-in-bf16-tiles"])
+BWD_SHAPES = pytest.mark.parametrize("b,hq,hkv,s,causal", [
+    (2, 16, 8, 100, True), (1, 16, 8, 512, True), (2, 4, 4, 256, False),
+    (1, 2, 1, 17, True), (1, 4, 2, 1000, True), (1, 4, 1, 300, False),
+])
+
+
+@BWD_VARIANTS
+@pytest.mark.parametrize("d", [64, 128])
+@BWD_SHAPES
+def test_fa2_backward_kernels_match_plain(cuda, dtype, tile, d, b, hq, hkv, s,
+                                          causal):
+    x, kw = _bwd_problem(dtype, tile, d, b, hq, hkv, s, causal, seed=s + d)
+    g = {n: t.to(cuda) for n, t in x.items()}
+    tol = 5e-2 if (tile is not None or dtype == torch.bfloat16) else 2e-5
+    before = (fa2_backward.fused_launches, fa2_backward.dq_launches,
+              fa2_backward.dkv_launches)
+    fused = fa2_backward.fa2_backward_fused_aligned(
+        g["q"], g["k"], g["v"], g["o"], g["do"], g["lse"], **kw)
+    dq = fa2_backward.fa2_backward_dq_aligned(
+        g["q"], g["k"], g["v"], g["do"], g["lse"], g["di"], **kw)
+    dkv = fa2_backward.fa2_backward_dkv_aligned(
+        g["q"], g["k"], g["v"], g["do"], g["lse"], g["di"], **kw)
+    torch.cuda.synchronize()
+    assert (fa2_backward.fused_launches, fa2_backward.dq_launches,
+            fa2_backward.dkv_launches) == tuple(n + 1 for n in before)
+    plain = fa2_backward.fa2_backward_fused_plain(
+        x["q"], x["k"], x["v"], x["o"], x["do"], x["lse"], **kw)
+    for got, want in zip(fused, plain):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert _rel_err(got, want) <= tol
+    assert _rel_err(dq, plain[0]) <= tol
+    assert _rel_err(dkv[0], plain[1]) <= tol
+    assert _rel_err(dkv[1], plain[2]) <= tol
+
+
+@pytest.mark.parametrize("tile", [None, torch.bfloat16], ids=["fp32", "bf16-tiles"])
+@pytest.mark.parametrize("block_sizes", [None, SPLIT], ids=["fused", "split"])
+def test_fa2_backward_bitwise_deterministic(cuda, tile, block_sizes):
+    """S 2048: the default blocks take B2, 128-row blocks (16 slices) take
+    B3 + B4; two runs give the same bits."""
+    rng = np.random.default_rng(7)
+    q = _randn(rng, 1, 4, 2048, 64).to(cuda)
+    k, v = (_randn(rng, 1, 2, 2048, 64).to(cuda) for _ in range(2))
+    w = _randn(rng, 1, 4, 2048, 64).to(cuda)
+    launches = (fa2_backward.fused_launches, fa2_backward.dq_launches)
+    runs = []
+    for _ in range(2):
+        ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        o = attention.flash_attention(*ts, causal=True, tile_dtype=tile,
+                                      block_sizes=block_sizes)
+        runs.append(torch.autograd.grad((o * w).sum(), ts))
+    fused = block_sizes is None
+    assert fa2_backward.fused_launches == launches[0] + (2 if fused else 0)
+    assert fa2_backward.dq_launches == launches[1] + (0 if fused else 2)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,tile", [(torch.bfloat16, torch.bfloat16),
+                                        (torch.float32, None)])
+def test_flash_attention_grads_on_the_card_match_the_cpu(cuda, dtype, tile):
+    rng = np.random.default_rng(8)
+    xs = [_randn(rng, 2, h, 333, 64).to(dtype) for h in (8, 4, 4)]
+    w = _randn(rng, 2, 8, 333, 64)
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        ts = [t.to(dev).requires_grad_(True) for t in xs]
+        o = attention.flash_attention(*ts, causal=True, tile_dtype=tile)
+        grads[dev.type] = torch.autograd.grad((o.float() * w.to(dev)).sum(), ts)
+    tol = 5e-2 if dtype == torch.bfloat16 else 2e-5
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        assert a.dtype == dtype and _rel_err(a, b) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_grads_unequal_lengths(cuda, dtype, causal):
+    rng = np.random.default_rng(11)
+    xs = [_randn(rng, 1, 4, 64, 64).to(dtype)] + [
+        _randn(rng, 1, 2, 200, 64).to(dtype) for _ in range(2)]
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        ts = [t.to(dev).requires_grad_(True) for t in xs]
+        o = attention.flash_attention(*ts, causal=causal)
+        grads[dev.type] = torch.autograd.grad(o.float().sum(), ts)
+    tol = 5e-2 if dtype == torch.bfloat16 else 2e-5
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        assert _rel_err(a, b) <= tol
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """One AdamW step of the tiny model in fp32: loss, grad norm and the
+    first Adam moment (linear in the gradients) on the card against the CPU."""
+    cfg = TransformerConfig.tiny(dtype=torch.float32, attn_tile_dtype=None)
+    tokens = np.random.default_rng(9).integers(0, 256, (2, 129))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = init_params(torch.Generator().manual_seed(0), cfg, device=dev)
+        opt = make_optimizer(learning_rate=1e-3, warmup_steps=1, decay_steps=4)
+        out[dev] = make_optax_train_step(cfg, opt)(init_train_state(params, opt),
+                                                   tokens)
+    (s_g, m_g), (s_c, m_c) = out["cuda"], out["cpu"]
+    for key in ("loss", "grad_norm"):
+        assert abs(m_g[key].item() - m_c[key].item()) <= 1e-4 * abs(m_c[key].item())
+    for a, b in zip(tree_leaves(s_g.opt_state.mu), tree_leaves(s_c.opt_state.mu)):
+        assert _rel_err(a, b) <= 1e-3
+
+
+def test_remat_full_reruns_the_forward_kernel(cuda):
+    cfg = dataclasses.replace(TransformerConfig.tiny(), remat="full")
+    params = init_params(torch.Generator().manual_seed(0), cfg, device="cuda")
+    opt = make_optimizer()
+    tokens = np.random.default_rng(10).integers(0, 256, (2, 129))
+    before = fa2_forward.launches
+    make_optax_train_step(cfg, opt)(init_train_state(params, opt), tokens)
+    assert fa2_forward.launches == before + 2 * cfg.n_layers
