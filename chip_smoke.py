@@ -38,7 +38,24 @@ Phases (any failure raises and the script exits non-zero):
      (the fused route); one more step with remat="full";
  10. where a train step's time goes at B4 S2048: one torch.profiler window;
  11. training at B16 S2048, where the port's dQ slices would pass 1 GiB
-     and the step takes the split route (B3 + B4): two steps, launches.
+     and the step takes the split route (B3 + B4): two steps, launches;
+ 12. kernel B6 (paged chunk attention) against its plain version at the
+     speculation shape (8 slots, T 5, ragged lengths to 2048, an inactive
+     slot; int8 and bf16 caches, bf16 and fp32 compute) and the chunked-
+     prefill shape (T 512, total lengths 512-2048), time and bound; T = 1
+     against B5;
+ 13. fp32 at base width: verify_step logits on the card against the CPU;
+     speculative greedy (k 3, a one-layer draft), a prefix-cache hit and
+     chunked prefill (chunk 512, a 1300-token prompt) each give exactly
+     the card's plain greedy tokens;
+ 14. speculative serving at TransformerConfig.base() with an int8 cache:
+     phase 5's 12 requests with k 4, a one-layer draft and prompt lookup:
+     tokens/s, acceptance, rounds, B1/B5/B6 launches, and where a round's
+     time goes (one profiled window, as phase 6);
+ 15. prefix caching: 16 requests sharing a 1024-token system prompt, TTFT
+     of the hits against an uncached engine, shared pages, launches; then
+     chunked prefill (chunk 512) on phase 5's mix: decode tokens emitted
+     while prompts prefill.
 The last line is the JSON contract line {"ok": true, "device": {...}}.
 It imports torch and the port only, never jax or the JAX package.
 """
@@ -57,6 +74,7 @@ PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}  # tensor-core bf16; fp32 FMA units
 B1_TOL = {"bf16": 2e-2, "fp32": 2e-6}
 LSE_REL_TOL = 1e-3
 B5_TOL = {"bf16": 2e-2, "fp32": 2e-5}
+B6_TOL = B5_TOL
 E2E_LOGIT_TOL = 1e-3
 # Backward kernels: error relative to the plain output's own max |value|
 # (bf16: the JAX bf16-tile grad gate, tests/test_fa2_backward.py).
@@ -162,21 +180,7 @@ def phase_b5(torch, dec_attn, kv_cache):
     rows = []
     for cache, compute in (("int8", "bf16"), ("bf16", "bf16"), ("int8", "fp32"),
                            ("bf16", "fp32")):
-        shape = (hkv, num_pages, page, d)
-        if cache == "int8":
-            def pages_of():
-                return torch.randint(-127, 128, shape, generator=gen,
-                                     device="cuda", dtype=torch.int8)
-
-            def scales_of():
-                return torch.rand(shape[:3], generator=gen, device="cuda") * 0.02 + 1e-3
-        else:
-            def pages_of():
-                return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-
-            def scales_of():
-                return torch.ones(shape[:3], device="cuda")
-        pages = kv_cache.KVPages(pages_of(), scales_of(), pages_of(), scales_of())
+        pages = random_pages(torch, kv_cache, gen, cache, (hkv, num_pages, page, d))
         cdt = torch.bfloat16 if compute == "bf16" else torch.float32
         q = torch.randn(n, hq, d, generator=gen, device="cuda").to(cdt)
         scale = d ** -0.5
@@ -197,22 +201,12 @@ def phase_b5(torch, dec_attn, kv_cache):
         plain_ms = time_ms(lambda: dec_attn.paged_decode_attention_plain(
             q, pages, page_table, lengths, sm_scale=scale, compute_dtype=cdt),
             iters=5)
-        # The function needs each cached token's K and V row and scale once
-        # (not the dead rows of a last page), plus q, out, the live page ids
-        # and the lengths.
-        tokens = int(lengths.sum().item())
-        live_pages = int(((lengths.long() + page - 1) // page).sum().item())
-        elem = pages.k_pages.element_size()
-        moved = (2 * tokens * hkv * (d * elem + 4)
-                 + nbytes(q, o_k) + live_pages * 4 + nbytes(lengths))
-        flops = 4 * tokens * hq * d
-        t_bytes = moved / HBM_BYTES_PER_S
-        t_ops = flops / PEAK_FLOPS["bf16" if compute == "bf16" else "fp32"]
+        bound_ms, bound_by, _, moved = paged_bound(
+            lengths.tolist(), 1, hq, hkv, d, pages.k_pages.element_size(), q,
+            o_k, compute)
         row = dict(cache=cache, compute=compute, n=n, max_len=2048,
                    max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                   bound_ms=max(t_bytes, t_ops) * 1e3,
-                   bound_by="bytes" if t_bytes > t_ops else "operations",
-                   gbps=moved / ms / 1e6)
+                   bound_ms=bound_ms, bound_by=bound_by, gbps=moved / ms / 1e6)
         rows.append(row)
         log("B5", json.dumps(row))
     return rows
@@ -258,21 +252,14 @@ def phase_serving(torch, np, transformer, decode, fa2, dec_attn):
                for n in rng.integers(64, 1501, 12)]
     new_tokens = 64
     torch.cuda.synchronize()
-    fa2.launches = 0
-    dec_attn.launches = 0
+    reset_serving_launches(fa2, dec_attn)
     t0 = time.perf_counter()
     reqs = eng.run(prompts, max_new_tokens=new_tokens)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = {"fa2_forward": fa2.launches, "paged_decode": dec_attn.launches}
-    for r in reqs:
-        if not (r.done and len(r.generated) == new_tokens
-                and all(0 <= t < cfg.vocab_size for t in r.generated)):
-            raise AssertionError(f"serving: request {r.uid} incomplete: {r}")
-    if eng.allocator.available != eng.num_pages - 1:
-        raise AssertionError("serving: pages leaked")
-    if not all(launches.values()):
-        raise AssertionError(f"serving: a kernel of the path never ran: {launches}")
+    launches = read_serving_launches(fa2, dec_attn)
+    check_served("serving", reqs, eng, launches, ("fa2_forward", "paged_decode"),
+                 cfg.vocab_size, new_tokens)
     with torch.inference_mode():
         logits, _ = decode.prefill_forward(
             eng.params, torch.tensor([prompts[0]], device="cuda"), cfg,
@@ -291,10 +278,20 @@ def phase_serving(torch, np, transformer, decode, fa2, dec_attn):
     return res, eng
 
 
-def phase_profile(torch, np, eng):
+def reset_serving_launches(fa2, dec_attn):
+    fa2.launches = dec_attn.launches = dec_attn.chunk_launches = 0
+
+
+def read_serving_launches(fa2, dec_attn) -> dict:
+    return {"fa2_forward": fa2.launches, "paged_decode": dec_attn.launches,
+            "paged_chunk": dec_attn.chunk_launches}
+
+
+def phase_profile(torch, np, eng, label="profile"):
     """Where a decode step's time goes: eight running requests, ten steps
-    under torch.profiler, timed on the host clock over the same window (so
-    the step time includes the profiler's own host overhead)."""
+    (speculative rounds, for a speculative engine) under torch.profiler,
+    timed on the host clock over the same window (so the step time includes
+    the profiler's own host overhead)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -323,7 +320,7 @@ def phase_profile(torch, np, eng):
         kernel_launches_per_step=sum(e.count for e in kernels) / 10,
         top_kernels_ms_per_step={e.key[:48]: e.self_device_time_total / 1e4
                                  for e in top})
-    log("profile", json.dumps(res))
+    log(label, json.dumps(res))
     return res
 
 
@@ -695,6 +692,341 @@ def phase_train_profile(torch, state, step, tokens):
     return res
 
 
+def random_pages(torch, kv_cache, gen, cache, shape):
+    """A paged cache of random contents: int8 codes with small scales, or
+    bf16/fp32 values with unit scales."""
+    if cache == "int8":
+        def pages_of():
+            return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                                 dtype=torch.int8)
+
+        def scales_of():
+            return torch.rand(shape[:3], generator=gen, device="cuda") * 0.02 + 1e-3
+    else:
+        dtype = torch.bfloat16 if cache == "bf16" else torch.float32
+
+        def pages_of():
+            return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+        def scales_of():
+            return torch.ones(shape[:3], device="cuda")
+    return kv_cache.KVPages(pages_of(), scales_of(), pages_of(), scales_of())
+
+
+def paged_bound(lengths, chunk, hq, hkv, d, elem, q, out, kind):
+    """The least time of one paged attention call (B5 at chunk 1, B6): each
+    cached token's K and V row and scale once (not the dead rows of a last
+    page), q, out, the live page ids and the lengths; 4 * D FLOPs per
+    (query head, row, attended column), row t of a slot of total length L
+    attending L - T + t + 1 columns.  Returns (ms, what bounds it, FLOPs,
+    bytes)."""
+    tokens = sum(lengths)
+    live_pages = sum(-(-n // 128) for n in lengths)
+    moved = (2 * tokens * hkv * (d * elem + 4) + nbytes(q, out) + live_pages * 4
+             + 4 * len(lengths))
+    cols = sum(chunk * (n - chunk) + chunk * (chunk + 1) // 2
+               for n in lengths if n)
+    flops = 4 * d * hq * cols
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[kind]
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations",
+            flops, moved)
+
+
+def phase_b6(torch, dec_attn, kv_cache):
+    """Paged chunk kernel vs its plain version at the speculation and the
+    chunked-prefill shapes, and T = 1 against B5."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    hq, hkv, d, page = 16, 8, 64, 128
+    cases = [("spec", 5, [2048, 5, 133, 0, 777, 1500, 128, 2000], cache, compute)
+             for cache, compute in (("int8", "bf16"), ("int8", "fp32"),
+                                    ("bf16", "bf16"))]
+    cases += [("prefill", 512, [512, 1024, 1536, 2048], "int8", compute)
+              for compute in ("bf16", "fp32")]
+    rows = []
+    for shape_name, chunk, lens, cache, compute in cases:
+        n, pps = len(lens), 2048 // page
+        num_pages = n * pps + 1
+        pages = random_pages(torch, kv_cache, gen, cache, (hkv, num_pages, page, d))
+        table = (torch.randperm(num_pages - 1, generator=gen, device="cuda") + 1
+                 ).reshape(n, pps).to(torch.int32).contiguous()
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        cdt = torch.bfloat16 if compute == "bf16" else torch.float32
+        q = torch.randn(n, chunk, hq, d, generator=gen, device="cuda").to(cdt)
+        scale = d ** -0.5
+
+        def kernel():
+            return dec_attn.paged_chunk_attention(q, pages, table, lengths,
+                                                  sm_scale=scale, compute_dtype=cdt)
+
+        def plain():
+            return dec_attn.paged_chunk_attention_plain(
+                q, pages, table, lengths, sm_scale=scale, compute_dtype=cdt)
+
+        o_k, o_p = kernel(), plain()
+        torch.cuda.synchronize()
+        err = (o_k.float() - o_p.float()).abs().max().item()
+        if not err <= B6_TOL[compute]:
+            raise AssertionError(f"B6 {shape_name} {cache} cache, {compute} compute: "
+                                 f"max_abs_err {err} (tol {B6_TOL[compute]})")
+        if 0 in lens and o_k[lens.index(0)].abs().max().item() != 0.0:
+            raise AssertionError("B6: the inactive slot's output is not zero")
+        ms = time_ms(kernel)
+        plain_ms = time_ms(plain, iters=3, warmup=1)
+        bound_ms, bound_by, flops, _ = paged_bound(
+            lens, chunk, hq, hkv, d, pages.k_pages.element_size(), q, o_k,
+            compute)
+        row = dict(shape=shape_name, T=chunk, n=n, lengths=lens, cache=cache,
+                   compute=compute, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                   tflops=flops / ms / 1e9)
+        rows.append(row)
+        log("B6", json.dumps(row))
+        del o_k, o_p, pages
+    # T = 1: B6 and B5 compute one function.
+    lens = [2048, 1, 129, 0, 777, 1500, 128, 2000]
+    pages = random_pages(torch, kv_cache, gen, "int8", (hkv, 8 * 16 + 1, page, d))
+    table = torch.arange(1, 8 * 16 + 1, dtype=torch.int32, device="cuda").reshape(8, 16)
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    q = torch.randn(8, hq, d, generator=gen, device="cuda")
+    for cdt, tol in ((torch.float32, B6_TOL["fp32"]), (torch.bfloat16, B6_TOL["bf16"])):
+        one = dec_attn.paged_chunk_attention(q[:, None], pages, table, lengths,
+                                              compute_dtype=cdt)[:, 0]
+        dec = dec_attn.paged_decode_attention(q, pages, table, lengths,
+                                              compute_dtype=cdt)
+        err = (one - dec).abs().max().item()
+        log(f"B6 T=1 vs B5 ({cdt}): max_abs_err {err:.3e}")
+        if not err <= tol:
+            raise AssertionError(f"B6 T=1 differs from B5 by {err} (tol {tol})")
+    return rows
+
+
+def draft_of(params):
+    """The draft model of the repo's convention: the target's first layer
+    with the target's embed, final_norm and lm_head."""
+    return dict(params, layers=params["layers"][:1])
+
+
+def phase_spec_parity(torch, np, transformer, decode, dataclasses):
+    """fp32 at base width: verify_step on the card against the CPU, then
+    speculative greedy, a prefix-cache hit and chunked prefill each against
+    the card's plain greedy tokens."""
+    cfg = transformer.TransformerConfig.base(dtype=torch.float32,
+                                             attn_tile_dtype=None)
+    params = transformer.init_params(torch.Generator().manual_seed(0), cfg,
+                                     device="cpu")
+    rng = np.random.default_rng(12)
+    # verify_step: a 256-token paged chunk per slot, then 5-token chunks
+    # from 254 (crossing a page) and 100.
+    calls = [(rng.integers(0, cfg.vocab_size, (2, 256)), [0, 0], True),
+             (rng.integers(0, cfg.vocab_size, (2, 5)), [254, 100], False)]
+    table = np.array([[1, 2, 3], [4, 5, 6]], np.int32)
+    logits = {}
+    for dev in ("cuda", "cpu"):
+        p = transformer.tree_map(lambda w: w.to(dev), params)
+        caches = [decode.init_kv_pages(cfg.n_kv_heads, 7, 128, cfg.head_dim,
+                                       torch.float32, device=dev)
+                  for _ in range(cfg.n_layers)]
+        logits[dev] = []
+        with torch.inference_mode():
+            for tokens, first, paged in calls:
+                out, _ = decode.verify_step(
+                    p, torch.tensor(tokens, device=dev),
+                    torch.tensor(first, device=dev),
+                    caches, torch.tensor(table, device=dev),
+                    torch.ones(2, dtype=torch.bool, device=dev), cfg,
+                    paged_write=paged)
+                logits[dev].append(out.cpu())
+        del p, caches
+    diff = max((a - b).abs().max().item()
+               for a, b in zip(logits["cuda"], logits["cpu"]))
+    log(f"verify_step fp32 base: logits max |cuda - cpu| {diff:.3e}")
+    if not diff <= E2E_LOGIT_TOL:
+        raise AssertionError(
+            f"verify_step: logits differ by {diff} (tol {E2E_LOGIT_TOL})")
+
+    params = transformer.tree_map(lambda w: w.to("cuda"), params)
+    prefix = rng.integers(0, cfg.vocab_size, 256).tolist()
+    short = [prefix + rng.integers(0, cfg.vocab_size, 20).tolist(),
+             prefix + rng.integers(0, cfg.vocab_size, 30).tolist()]
+    long = rng.integers(0, cfg.vocab_size, 1300).tolist()
+    n_new = 16
+
+    def run(prompts, **kw):
+        eng = decode.DecodeEngine(params, cfg, max_seqs=2, max_seq_len=2048,
+                                  cache_dtype=torch.float32, **kw)
+        first = eng.submit(prompts[0], max_new_tokens=n_new)
+        rest = eng.run(prompts[1:], max_new_tokens=n_new)
+        while not first.done:
+            eng.step()
+        eng.step()
+        if eng.allocator.available != eng.num_pages - 1:
+            raise AssertionError(f"spec parity {kw}: pages leaked")
+        return [r.generated for r in [first] + rest], eng
+
+    prompts = short + [long]
+    plain, _ = run(prompts)
+    res = {"verify_logit_diff": diff}
+    draft_cfg = dataclasses.replace(cfg, n_layers=1)
+    for name, kw in (("speculative", dict(spec_tokens=3, draft_params=draft_of(params),
+                                          draft_cfg=draft_cfg)),
+                     ("prefix_cache", dict(prefix_cache=True)),
+                     ("chunked_prefill", dict(prefill_chunk=512))):
+        got, eng = run(prompts, **kw)
+        res[name] = dict(equal=got == plain, stats=eng.stats)
+        if got != plain:
+            raise AssertionError(
+                f"{name}: greedy tokens differ from plain: {got} vs {plain}")
+    if not (res["chunked_prefill"]["stats"]["prefill_chunks"] >= 3
+            and res["speculative"]["stats"]["spec_rounds"] > 0):
+        raise AssertionError(f"spec parity: a path did not run: {res}")
+    log("spec parity fp32 base", json.dumps(res))
+    return res
+
+
+def serving_mix(np, cfg, seed=4):
+    """Phase 5's 12 prompts of 64-1500 tokens."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+            for n in rng.integers(64, 1501, 12)]
+
+
+def check_served(name, reqs, eng, launches, need, vocab, new_tokens=None):
+    """Every request done with in-vocab tokens (new_tokens of them, where
+    given), no page leaked, and each kernel of `need` launched."""
+    for r in reqs:
+        if not (r.done and r.generated and all(0 <= t < vocab for t in r.generated)
+                and new_tokens in (None, len(r.generated))):
+            raise AssertionError(f"{name}: request {r.uid} incomplete: {r}")
+    if eng.allocator.available != eng.num_pages - 1:
+        raise AssertionError(f"{name}: pages leaked")
+    if not all(launches[k] for k in need):
+        raise AssertionError(f"{name}: a kernel of the path never ran: {launches}")
+
+
+def phase_spec_serving(torch, np, transformer, decode, fa2, dec_attn, dataclasses):
+    """Speculative serving at base width, int8 cache: phase 5's 12 requests
+    with k = 4, by a one-layer draft and by prompt lookup."""
+    cfg = transformer.TransformerConfig.base()
+    params = transformer.init_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    prompts = serving_mix(np, cfg)
+    new_tokens = 64
+    out = {}
+    for mode in ("draft", "prompt_lookup"):
+        kw = (dict(draft_params=draft_of(params),
+                   draft_cfg=dataclasses.replace(cfg, n_layers=1))
+              if mode == "draft" else dict(spec_mode="prompt_lookup"))
+        eng = decode.DecodeEngine(params, cfg, max_seqs=8, max_seq_len=2048,
+                                  cache_dtype=torch.int8, spec_tokens=4, **kw)
+        torch.cuda.synchronize()
+        reset_serving_launches(fa2, dec_attn)
+        t0 = time.perf_counter()
+        reqs = eng.run(prompts, max_new_tokens=new_tokens)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = read_serving_launches(fa2, dec_attn)
+        check_served(f"spec {mode}", reqs, eng, launches,
+                     ("fa2_forward", "paged_chunk")
+                     + (("paged_decode",) if mode == "draft" else ()), cfg.vocab_size)
+        total = sum(len(r.generated) for r in reqs)
+        out[mode] = dict(
+            requests=len(reqs), tokens=total, seconds=elapsed,
+            tokens_per_s=total / elapsed, acceptance_rate=eng.acceptance_rate,
+            rounds=eng.stats["spec_rounds"],
+            rounds_per_token=eng.stats["spec_rounds"] / total,
+            round_ms_mean=elapsed / eng.stats["spec_rounds"] * 1e3,
+            ttft_ms_median=statistics.median(r.ttft_s for r in reqs) * 1e3,
+            launches=launches)
+        log(f"spec serving {mode}", json.dumps(out[mode]))
+        if mode == "draft":
+            phase_profile(torch, np, eng, "spec profile (draft, k 4)")
+        del eng
+    return out
+
+
+def phase_prefix_chunked(torch, np, transformer, decode, fa2, dec_attn):
+    """Prefix caching on a shared 1024-token system prompt, against an
+    uncached engine; then chunked prefill on phase 5's mix."""
+    cfg = transformer.TransformerConfig.base()
+    params = transformer.init_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    rng = np.random.default_rng(13)
+    system = rng.integers(0, cfg.vocab_size, 1024).tolist()
+    prompts = [system + rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(64, 257, 16)]
+    res = {}
+    for name, kw in (("uncached", {}), ("prefix_cache", dict(prefix_cache=True))):
+        eng = decode.DecodeEngine(params, cfg, max_seqs=8, max_seq_len=2048,
+                                  cache_dtype=torch.int8, **kw)
+        torch.cuda.synchronize()
+        reset_serving_launches(fa2, dec_attn)
+        t0 = time.perf_counter()
+        # The first request outlives the others, so its prompt pages stay
+        # cached for all 15 that follow (three waves on 7 slots).
+        holder = eng.submit(prompts[0], max_new_tokens=100)
+        avail = eng.allocator.available
+        reqs = eng.submit_many(prompts[1:], max_new_tokens=32)
+        admitted = [r for r in reqs if r.slot is not None]
+        shared = [eng.allocator.refcount(p) for p in eng._slot_pages[holder.slot][:8]]
+        new_pages = (avail - eng.allocator.available) / len(admitted)
+        while not all(r.done for r in [holder] + reqs):
+            eng.step()
+        eng.step()
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = read_serving_launches(fa2, dec_attn)
+        check_served(name, [holder] + reqs, eng, launches,
+                     ("fa2_forward", "paged_decode")
+                     + (("paged_chunk",) if kw else ()), cfg.vocab_size)
+        if kw and not (eng._prefix_maps == {} and min(shared) == len(admitted) + 1):
+            raise AssertionError(f"prefix cache: shared refcounts {shared}, maps "
+                                 f"{len(eng._prefix_maps)}")
+        res[name] = dict(
+            seconds=elapsed,
+            ttft_ms_median=statistics.median(r.ttft_s for r in reqs) * 1e3,
+            ttft_ms_median_first_wave=statistics.median(
+                r.ttft_s for r in admitted) * 1e3,
+            new_pages_per_admission=new_pages, system_page_refcounts=shared,
+            launches=launches)
+        log(f"prefix {name}", json.dumps(res[name]))
+        del eng
+
+    prompts = serving_mix(np, cfg)
+    eng = decode.DecodeEngine(params, cfg, max_seqs=8, max_seq_len=2048,
+                              cache_dtype=torch.int8, prefill_chunk=512)
+    torch.cuda.synchronize()
+    reset_serving_launches(fa2, dec_attn)
+    t0 = time.perf_counter()
+    reqs = eng.submit_many(prompts, max_new_tokens=64)
+    during, chunk_steps = 0, 0
+    while not all(r.done for r in reqs):
+        running = [eng._slot_req[s] for s in np.flatnonzero(eng.active)]
+        before = sum(len(r.generated) for r in running)
+        chunking = bool(eng.prefilling.any())
+        eng.step()
+        if chunking:
+            chunk_steps += 1
+            during += sum(len(r.generated) for r in running) - before
+    eng.step()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = read_serving_launches(fa2, dec_attn)
+    check_served("chunked prefill", reqs, eng, launches,
+                 ("paged_chunk", "paged_decode"), cfg.vocab_size)
+    if not during:
+        raise AssertionError("chunked prefill: no decode token during a prefill chunk")
+    total = sum(len(r.generated) for r in reqs)
+    res["chunked_prefill"] = dict(
+        requests=len(reqs), tokens=total, seconds=elapsed,
+        tokens_per_s=total / elapsed, prefill_chunks=eng.stats["prefill_chunks"],
+        steps_with_chunks=chunk_steps, decode_tokens_during_prefill=during,
+        ttft_ms_median=statistics.median(r.ttft_s for r in reqs) * 1e3,
+        launches=launches)
+    log("chunked prefill", json.dumps(res["chunked_prefill"]))
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -726,7 +1058,8 @@ def main() -> int:
         "device", torch.cuda.get_device_name(0))
 
     t0 = time.perf_counter()
-    build_logs = _build.build("fa2_forward", "paged_decode", "fa2_backward")
+    build_logs = _build.build("fa2_forward", "paged_decode", "fa2_backward",
+                              "paged_chunk")
     log(f"phase 1: built {sorted(build_logs)} in {time.perf_counter() - t0:.1f} s")
     for name, text in build_logs.items():
         for line in text.splitlines():
@@ -771,6 +1104,25 @@ def main() -> int:
     t0 = time.perf_counter()
     split = phase_train_split(torch, np, transformer, training, fa2, bwd)
     log(f"phase 11: split-route training ok in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    b6 = phase_b6(torch, dec_attn, kv_cache)
+    log(f"phase 12: B6 ok in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    spec_parity = phase_spec_parity(torch, np, transformer, decode, dataclasses)
+    log(f"phase 13: speculative, prefix and chunked parity ok in "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    spec = phase_spec_serving(torch, np, transformer, decode, fa2, dec_attn,
+                              dataclasses)
+    log(f"phase 14: speculative serving ok in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    prefix = phase_prefix_chunked(torch, np, transformer, decode, fa2, dec_attn)
+    log(f"phase 15: prefix caching and chunked prefill ok in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # Representative shapes for the kernel line: the serving phase's largest
     # prefill (B4 S1536 bf16) and the int8 cache with bf16 compute.
@@ -814,8 +1166,27 @@ def main() -> int:
                             if x["kernel"] == name and x["kind"] == "bf16"),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
+    # B6 at the speculation shape (int8 cache, bf16 compute); its launches
+    # from the speculative, prefix-cache and chunked-prefill runs.
+    r6 = next(r for r in b6 if (r["shape"], r["cache"], r["compute"])
+              == ("spec", "int8", "bf16"))
+    r6_prefill = next(r for r in b6
+                      if (r["shape"], r["compute"]) == ("prefill", "bf16"))
+    log("B6 speculation (T5) and chunked-prefill (T512) shapes:",
+        json.dumps({"T5": r6, "T512": r6_prefill}))
+    kernels.append(dict(
+        name="paged_chunk", route="cuda",
+        source="cuda_flash_attention_tpu_torch/csrc/paged_chunk.cu",
+        replaces="cuda_flash_attention_tpu/decode/attention.py:365",
+        launches=sum(run["launches"]["paged_chunk"] for run in (
+            spec["draft"], spec["prompt_lookup"], prefix["prefix_cache"],
+            prefix["chunked_prefill"])),
+        max_abs_err=max(r["max_abs_err"] for r in b6 if r["compute"] == "bf16"),
+        ms=r6["ms"], plain_ms=r6["plain_ms"], bound_ms=r6["bound_ms"],
+        bound_by=r6["bound_by"], library_ms=None))
     log(json.dumps({"e2e_logit_diff": e2e, "train_parity": parity,
-                    "autograd": autograd, "remat": remat}))
+                    "autograd": autograd, "remat": remat,
+                    "spec_parity": spec_parity}))
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

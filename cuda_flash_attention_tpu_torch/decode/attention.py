@@ -1,12 +1,12 @@
-"""Paged decode attention: kernel B5 and its plain PyTorch version.
+"""Paged attention over the KV cache: kernels B5 (one query per slot) and
+B6 (a chunk of T queries per slot), each with its plain PyTorch version.
 
-Replaces cuda_flash_attention_tpu/decode/attention.py::paged_decode_attention
-(the Pallas TPU kernel).  One new query token per sequence slot attends over
-that slot's pages of the (int8, bf16 or fp32) paged KV cache.  The CUDA
-kernel is csrc/paged_decode.cu; its source note says what bounds it on the
-H100 (bytes) and how its design answers that.  On a CPU tensor the wrapper
-runs `paged_decode_attention_plain`; on a CUDA tensor it launches the kernel
-or raises.  Sliding windows and sinks are not ported yet.
+B5 replaces cuda_flash_attention_tpu/decode/attention.py::
+paged_decode_attention and B6 its paged_chunk_attention (the Pallas TPU
+kernels).  The CUDA kernels are csrc/paged_decode.cu and csrc/paged_chunk.cu;
+each source note says what bounds it on the H100 and how its design answers
+that.  On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
+launches its kernel or raises.  Sliding windows and sinks are not ported yet.
 """
 
 from __future__ import annotations
@@ -19,10 +19,13 @@ from cuda_flash_attention_tpu_torch.decode.kv_cache import KVPages
 from cuda_flash_attention_tpu_torch.kernels import _build
 from cuda_flash_attention_tpu_torch.kernels.common import DEFAULT_MASK_VALUE
 
-# Kernel launches since the last reset (the wrapper adds one per launch).
+# Kernel launches since the last reset (each wrapper adds one per launch):
+# B5's in `launches`, B6's in `chunk_launches`.
 launches = 0
+chunk_launches = 0
 
 _SOURCE = "paged_decode"
+_CHUNK_SOURCE = "paged_chunk"
 _HEAD_DIMS = (64, 128)
 _MAX_GROUP = 8
 _CACHE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -39,6 +42,45 @@ def _lib() -> ctypes.CDLL:
         ]
         fn.restype = ctypes.c_int
     return lib
+
+
+def _chunk_lib() -> ctypes.CDLL:
+    lib = _build.load(_CHUNK_SOURCE)
+    fn = lib.cfa_paged_chunk
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_kernel_inputs(what: str, q, pages: KVPages, page_table, lengths,
+                         group: int):
+    """Raise on what the CUDA kernels (B5, B6) do not take."""
+    cache_dtype = pages.k_pages.dtype
+    head_dim, page_size = q.shape[-1], pages.page_size
+    if (cache_dtype not in _CACHE_CODES or head_dim not in _HEAD_DIMS
+            or group > _MAX_GROUP or page_size % 128
+            or q.dtype not in _COMPUTE_DTYPES):
+        raise NotImplementedError(
+            f"{what} kernel: cache {cache_dtype}, head_dim {head_dim}, "
+            f"group {group}, page {page_size}, q {q.dtype} "
+            f"(takes int8/bf16/fp32 caches, head_dim {_HEAD_DIMS}, group <= "
+            f"{_MAX_GROUP}, page_size a multiple of 128, bf16/fp32 q)"
+        )
+    tensors = (q, pages.k_pages, pages.k_scales, pages.v_pages,
+               pages.v_scales, page_table, lengths)
+    for t in tensors:
+        if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(
+                f"{what} kernel: inputs must be contiguous, 16-byte aligned "
+                "and on one device"
+            )
+    if page_table.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise ValueError(f"{what} kernel: page_table and lengths must be int32")
+    return tensors
 
 
 def paged_decode_attention(q, pages: KVPages, page_table, lengths, *,
@@ -71,33 +113,15 @@ def paged_decode_attention(q, pages: KVPages, page_table, lengths, *,
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: unsupported device {q.device}")
     global launches
-    cache_dtype = pages.k_pages.dtype
-    if (cache_dtype not in _CACHE_CODES or head_dim not in _HEAD_DIMS
-            or n_heads // n_kv_heads > _MAX_GROUP or page_size % 128
-            or q.dtype not in _COMPUTE_DTYPES):
-        raise NotImplementedError(
-            f"paged_decode kernel: cache {cache_dtype}, head_dim {head_dim}, "
-            f"group {n_heads // n_kv_heads}, page {page_size}, q {q.dtype} "
-            f"(takes int8/bf16/fp32 caches, head_dim {_HEAD_DIMS}, group <= "
-            f"{_MAX_GROUP}, page_size a multiple of 128, bf16/fp32 q)"
-        )
-    tensors = (q, pages.k_pages, pages.k_scales, pages.v_pages,
-               pages.v_scales, page_table, lengths)
-    for t in tensors:
-        if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(
-                "paged_decode kernel: inputs must be contiguous, 16-byte "
-                "aligned and on one device"
-            )
-    if page_table.dtype != torch.int32 or lengths.dtype != torch.int32:
-        raise ValueError("paged_decode kernel: page_table and lengths must be int32")
+    tensors = _check_kernel_inputs("paged_decode", q, pages, page_table,
+                                   lengths, n_heads // n_kv_heads)
     out = torch.empty_like(q)
     lib = _lib()
     err = lib.cfa_paged_decode(
         *(t.data_ptr() for t in tensors), out.data_ptr(),
         num_seqs, n_heads, n_kv_heads, num_pages, page_size,
         page_table.shape[1], head_dim, float(sm_scale),
-        int(q.dtype == torch.bfloat16), _CACHE_CODES[cache_dtype],
+        int(q.dtype == torch.bfloat16), _CACHE_CODES[pages.k_pages.dtype],
         int(compute_dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -109,36 +133,102 @@ def paged_decode_attention(q, pages: KVPages, page_table, lengths, *,
 def paged_decode_attention_plain(q, pages: KVPages, page_table, lengths, *,
                                  sm_scale: float,
                                  compute_dtype=torch.bfloat16):
-    """The kernel's function in plain PyTorch: gather each slot's live pages
-    (dead table entries read the null page and are masked), dequantize with
-    the K scale on the score columns and the V scale on P, softmax in fp32
-    over the whole row at once, P * v_scale rounded to the compute dtype
-    before the PV product.  lengths == 0 gives zeros."""
-    n, n_heads, d = q.shape
+    """The B5 kernel's function in plain PyTorch: the chunk version's with
+    one query per slot."""
+    return paged_chunk_attention_plain(
+        q[:, None], pages, page_table, lengths, sm_scale=sm_scale,
+        compute_dtype=compute_dtype)[:, 0]
+
+
+def paged_chunk_attention(q, pages: KVPages, page_table, lengths, *,
+                          sm_scale: float | None = None,
+                          compute_dtype=torch.bfloat16,
+                          window: int | None = None, sinks: int = 0):
+    """Multi-query flash-decoding for speculative verification and chunked
+    (suffix) prefill.  q [num_seqs, T, n_heads, D] are T consecutive new
+    tokens per slot whose K/V is already in the cache (`append_chunk_kv` or
+    `write_chunk_kv_paged`); lengths [num_seqs] int32 is the TOTAL length,
+    the chunk included (0 for an inactive slot, whose output is zeros).
+    Query t attends causally up to its own position length - T + t.
+    Returns [num_seqs, T, n_heads, D] in q's dtype; ``compute_dtype`` as in
+    paged_decode_attention."""
+    if window is not None or sinks:
+        raise NotImplementedError("windowed paged chunk attention is not ported yet")
+    num_seqs, chunk, n_heads, head_dim = q.shape
+    n_kv_heads, num_pages, page_size, kv_dim = pages.k_pages.shape
+    if n_heads % n_kv_heads or kv_dim != head_dim:
+        raise ValueError(
+            f"q {tuple(q.shape)} does not fit pages {tuple(pages.k_pages.shape)}"
+        )
+    if compute_dtype not in _COMPUTE_DTYPES:
+        raise NotImplementedError(f"compute_dtype {compute_dtype} is not ported")
+    if sm_scale is None:
+        sm_scale = 1.0 / (head_dim ** 0.5)
+    if q.device.type == "cpu":
+        return paged_chunk_attention_plain(
+            q, pages, page_table, lengths, sm_scale=sm_scale,
+            compute_dtype=compute_dtype,
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_chunk_attention: unsupported device {q.device}")
+    global chunk_launches
+    tensors = _check_kernel_inputs("paged_chunk", q, pages, page_table,
+                                   lengths, n_heads // n_kv_heads)
+    out = torch.empty_like(q)
+    lib = _chunk_lib()
+    err = lib.cfa_paged_chunk(
+        *(t.data_ptr() for t in tensors), out.data_ptr(),
+        num_seqs, chunk, n_heads, n_kv_heads, num_pages, page_size,
+        page_table.shape[1], head_dim, float(sm_scale),
+        int(q.dtype == torch.bfloat16), _CACHE_CODES[pages.k_pages.dtype],
+        int(compute_dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(lib, "cfa_paged_chunk_error_string", err, "paged_chunk")
+    chunk_launches += 1
+    return out
+
+
+def paged_chunk_attention_plain(q, pages: KVPages, page_table, lengths, *,
+                                sm_scale: float,
+                                compute_dtype=torch.bfloat16):
+    """The B6 kernel's function in plain PyTorch: gather each slot's live
+    pages (dead table entries read the null page and are masked), rows
+    ordered t-major inside each KV head (row r is query r // group at
+    position length - T + r // group, which bounds its columns), the K
+    scale on the score columns and the V scale on P, softmax in fp32 over
+    the whole row at once, P * v_scale rounded to the compute dtype before
+    the PV product.  Fully masked rows (lengths == 0) give zeros."""
+    n, chunk, n_heads, d = q.shape
     hkv, _, page_size, _ = pages.k_pages.shape
     group = n_heads // hkv
+    rows = chunk * group
     pps = page_table.shape[1]
+    lengths = lengths.long()
     cols = torch.arange(pps * page_size, device=q.device)
-    keep = cols[None, :] < lengths[:, None].long()                 # [n, L]
     live = torch.arange(pps, device=q.device)[None, :] * page_size < lengths[:, None]
     ids = torch.where(live, page_table, 0).long()                   # [n, pps]
 
     def gather(x):  # [Hkv, P, page, *] -> [n, Hkv, pps * page, *]
-        g = x[:, ids]                                               # [Hkv, n, pps, page, *]
+        g = x[:, ids]                                       # [Hkv, n, pps, page, *]
         return g.transpose(0, 1).reshape(n, hkv, pps * page_size, *x.shape[3:])
 
     k = gather(pages.k_pages).to(compute_dtype).float()
     v = gather(pages.v_pages).to(compute_dtype).float()
     ks = gather(pages.k_scales)                                     # [n, Hkv, L]
     vs = gather(pages.v_scales)
-    qf = q.reshape(n, hkv, group, d).to(compute_dtype).float()
-    s = qf @ k.transpose(-1, -2)                                    # [n, Hkv, g, L]
+    qf = (q.reshape(n, chunk, hkv, group, d).transpose(1, 2)
+          .reshape(n, hkv, rows, d).to(compute_dtype).float())
+    pos = (lengths[:, None] - chunk
+           + torch.arange(rows, device=q.device)[None, :] // group)  # [n, rows]
+    keep = (cols[None, None, :] <= pos[:, :, None])[:, None]       # [n, 1, rows, L]
+    s = qf @ k.transpose(-1, -2)                                    # [n, Hkv, rows, L]
     s = s * (ks * sm_scale)[:, :, None, :]
-    mask = keep[:, None, None, :]
-    s = s + torch.where(mask, 0.0, DEFAULT_MASK_VALUE)
+    s = s + torch.where(keep, 0.0, DEFAULT_MASK_VALUE)
     m = s.amax(dim=-1, keepdim=True)
-    prob = torch.where(mask, torch.exp(s - m), 0.0)
+    prob = torch.where(keep, torch.exp(s - m), 0.0)
     l = prob.sum(dim=-1, keepdim=True)
     ps = (prob * vs[:, :, None, :]).to(compute_dtype).float()
     o = (ps @ v) * torch.where(l == 0.0, 0.0, 1.0 / l)
-    return o.reshape(n, n_heads, d).to(q.dtype)
+    return (o.reshape(n, hkv, chunk, group, d).transpose(1, 2)
+            .reshape(n, chunk, n_heads, d).to(q.dtype))

@@ -1,20 +1,33 @@
 """Decode engine: continuous batching over the paged KV cache.
 
-Counterpart of cuda_flash_attention_tpu/decode/engine.py, plain path only:
+Counterpart of cuda_flash_attention_tpu/decode/engine.py:
   * DEVICE: each step embeds every slot's last token, appends each layer's
-    new K/V to the paged cache, runs the paged decode kernel and samples,
-    for the whole batch at once; inactive slots ride along masked.
-  * HOST: the scheduler: admission queue, slot table, page allocator.
-    A request is admitted when a slot is free and the page pool can cover
-    its worst case next to every running slot's remaining growth.
+    new K/V to the paged cache, runs the paged decode kernel (B5) and
+    samples, for the whole batch at once; inactive slots ride along masked.
+  * HOST: the scheduler: admission queue, slot table, refcounted page
+    allocator.  A request is admitted when a slot is free and the page pool
+    can cover its worst case next to every running slot's remaining growth.
   * Admissions of one length bucket prefill as ONE batched causal forward
-    through the FA2 forward kernel; each prompt's K/V is then quantized
+    through the FA2 forward kernel (B1); each prompt's K/V is then quantized
     into freshly allocated pages.
+  * Chunked prefill (`prefill_chunk`): prompts longer than the chunk
+    advance one chunk per step through `verify_step` (the paged chunk
+    kernel, B6), so running decodes keep emitting a token every step.
+  * Prefix caching (`prefix_cache`): fully written prompt pages are
+    registered under their token prefix; a later prompt that starts with
+    that prefix shares the pages (refcounted) and pushes only its suffix
+    through `verify_step`.
+  * Speculative decoding (`spec_tokens`): a proposer (a draft model with its
+    own caches on the target's page table, or prompt lookup) supplies
+    spec_tokens tokens per slot, the target scores them all in one
+    `verify_step`, and the host keeps the longest accepted prefix plus one
+    target token: greedy output equals plain greedy decoding, sampled output
+    is distributed as target-only sampling (`speculative_accept`).
 
 Entry points run on the CUDA card unless `device="cpu"` is given, which
-runs the kernels' plain versions.  Not ported yet (and refused): speculative
-decoding, prefix caching, chunked prefill, decode bursts, scanned layers,
-meshes, sliding windows and sinks, logit bias and repetition penalties.
+runs the kernels' plain versions.  Not ported yet (and refused): meshes,
+decode bursts, scanned layers, sliding windows and sinks, logit bias and
+repetition penalties.
 """
 
 from __future__ import annotations
@@ -32,10 +45,17 @@ from cuda_flash_attention_tpu_torch.decode.kv_cache import (
     init_kv_pages,
     write_prompt_kv,
 )
-from cuda_flash_attention_tpu_torch.decode.model import decode_step, prefill_forward
+from cuda_flash_attention_tpu_torch.decode.model import (
+    decode_step,
+    prefill_forward,
+    verify_step,
+)
 from cuda_flash_attention_tpu_torch.decode.sampling import (
+    _categorical,
     sample_tokens,
     sample_with_logprob,
+    speculative_accept,
+    warp_logits,
 )
 from cuda_flash_attention_tpu_torch.kernels.common import cdiv
 from cuda_flash_attention_tpu_torch.models.transformer import TransformerConfig
@@ -50,6 +70,12 @@ class Request:
     generated: list[int] = dataclasses.field(default_factory=list)
     slot: int | None = None
     done: bool = False
+    # Stop sequences: generation ends when the generated tail matches one of
+    # them (the matched tokens stay in `generated`, as eos_id's does).
+    stop: tuple[tuple[int, ...], ...] | None = None
+    # Streaming: called with each token id when the host learns it (per
+    # decode step; per accepted chunk under speculation).
+    on_token: object | None = None
     # Per-token log-probabilities of the sampled tokens (engine logprobs=True).
     logprobs: list[float] = dataclasses.field(default_factory=list)
     # Host wall clock (time.monotonic): submit -> first token is TTFT.
@@ -72,6 +98,14 @@ class Request:
         return (self.finished_at - self.first_token_at) / (len(self.generated) - 1)
 
 
+def _stop_hit(tokens: list[int], stop) -> bool:
+    """True when `tokens` ends with one of the stop sequences."""
+    if not stop:
+        return False
+    return any(len(tokens) >= len(s) and tokens[-len(s):] == list(s)
+               for s in stop)
+
+
 def _not_ported(what: str):
     return NotImplementedError(f"DecodeEngine: {what} is not ported yet")
 
@@ -84,14 +118,14 @@ class DecodeEngine:
                  num_pages: int | None = None, cache_dtype=torch.int8,
                  temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
                  min_p: float = 0.0, seed: int = 0, logprobs: bool = False,
-                 device=None, mesh=None, spec_tokens: int = 0,
-                 prefix_cache: bool = False, prefill_chunk: int | None = None,
-                 scan_layers: bool = False, decode_burst: int = 1):
+                 device=None, mesh=None, draft_params=None,
+                 draft_cfg: TransformerConfig | None = None,
+                 spec_tokens: int = 0, spec_mode: str = "draft",
+                 lookup_ngram: int = 2, prefix_cache: bool = False,
+                 prefill_chunk: int | None = None, scan_layers: bool = False,
+                 decode_burst: int = 1):
         for what, unsupported in (
             ("a mesh", mesh is not None),
-            ("speculative decoding (spec_tokens)", spec_tokens),
-            ("prefix caching", prefix_cache),
-            ("chunked prefill", prefill_chunk is not None),
             ("scanned layers", scan_layers),
             ("decode bursts (decode_burst > 1)", decode_burst != 1),
             ("sliding-window attention and sinks",
@@ -103,13 +137,7 @@ class DecodeEngine:
             raise ValueError(f"page_size must be a multiple of 128; got {page_size}")
         self.device = resolve_device(device)
         self.cfg = cfg
-        # Serving holds a compute-dtype copy of the 2-D weights (decode needs
-        # no fp32 master); norm scales keep their dtype.
-        self.params = _map_params(
-            params,
-            lambda p: p.to(self.device, cfg.dtype)
-            if p.ndim >= 2 and p.is_floating_point() else p.to(self.device),
-        )
+        self.params = self._serving_copy(params, cfg)
         self.max_seqs = max_seqs
         self.page_size = page_size
         self.pages_per_seq = cdiv(max_seq_len, page_size)
@@ -127,11 +155,65 @@ class DecodeEngine:
                           cache_dtype, device=self.device)
             for _ in range(cfg.n_layers)
         ]
-        # Host-side slot state (numpy; shipped to the device each step).
+        # Chunked prefill: prompts longer than this advance one chunk per
+        # step (a multiple of the page size, so every chunk write is whole
+        # pages from a page boundary).
+        self.prefill_chunk = prefill_chunk
+        if prefill_chunk is not None and prefill_chunk % page_size:
+            raise ValueError(
+                f"prefill_chunk must be a multiple of page_size ({page_size}: "
+                f"page-aligned verify_step writes); got {prefill_chunk}"
+            )
+
+        # Speculative decoding: "draft" proposes with a small draft model
+        # (its own caches on the target's page table and allocator);
+        # "prompt_lookup" proposes the tokens that followed the most recent
+        # earlier occurrence of the history's last `lookup_ngram` tokens.
+        self.spec_tokens = int(spec_tokens)
+        self.spec_mode = spec_mode
+        self._use_draft = self.spec_tokens > 0 and spec_mode == "draft"
+        self.lookup_ngram = int(lookup_ngram)
+        if self.spec_tokens and spec_mode == "prompt_lookup":
+            if draft_params is not None or draft_cfg is not None:
+                raise ValueError("spec_mode='prompt_lookup' takes no draft model")
+            if self.lookup_ngram < 1:
+                raise ValueError("lookup_ngram must be >= 1")
+        elif self.spec_tokens and spec_mode != "draft":
+            raise ValueError(f"unknown spec_mode {spec_mode!r}")
+        if self._use_draft:
+            if draft_params is None or draft_cfg is None:
+                raise ValueError("spec_tokens > 0 requires draft_params and draft_cfg")
+            if draft_cfg.vocab_size != cfg.vocab_size:
+                raise ValueError("draft and target must share the vocab")
+            if draft_cfg.attn_window is not None or draft_cfg.attn_sinks:
+                raise _not_ported("a windowed draft model")
+            self.draft_cfg = draft_cfg
+            self.draft_params = self._serving_copy(draft_params, draft_cfg)
+            self.draft_caches = [
+                init_kv_pages(draft_cfg.n_kv_heads, num_pages, page_size,
+                              draft_cfg.head_dim, cache_dtype, device=self.device)
+                for _ in range(draft_cfg.n_layers)
+            ]
+
+        # Prefix caching: full prompt pages registered under their token
+        # prefix.  The port has one data shard, so one map each way (the JAX
+        # engine keeps one per shard under the same names); the allocator's
+        # on_last_free hook drops the entry of a page that died.
+        self.prefix_cache = bool(prefix_cache)
+        if self.prefix_cache:
+            self._prefix_maps: dict[tuple, int] = {}
+            self._page_keys: dict[int, tuple] = {}
+            self.allocator.on_last_free = self._drop_prefix_entry
+
+        # Host-side slot state (numpy; copied to the device each step).
         self.page_table = np.zeros((max_seqs, self.pages_per_seq), np.int32)
         self.lengths = np.zeros((max_seqs,), np.int32)
         self.active = np.zeros((max_seqs,), bool)
         self.last_token = np.zeros((max_seqs,), np.int32)
+        # Chunked-prefill slots hold a request and pages but stay out of
+        # `active` until their whole prompt is written.
+        self.prefilling = np.zeros((max_seqs,), bool)
+        self._prefill_pos = np.zeros((max_seqs,), np.int64)
         self._slot_req: list[Request | None] = [None] * max_seqs
         self._slot_pages: list[list[int]] = [[] for _ in range(max_seqs)]
         # Worst-case page need per occupied slot (admission reservation).
@@ -140,7 +222,100 @@ class DecodeEngine:
         self._next_uid = 0
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(seed)
-        self.stats = {"steps": 0, "tokens": 0}
+        self.stats = {"steps": 0, "tokens": 0, "spec_rounds": 0,
+                      "spec_proposed": 0, "spec_accepted": 0,
+                      "prefill_chunks": 0}
+
+    def _serving_copy(self, params, cfg: TransformerConfig):
+        """A compute-dtype copy of the 2-D weights on the engine's device
+        (decode needs no fp32 master); norm scales keep their dtype."""
+        return _map_params(
+            params,
+            lambda p: p.to(self.device, cfg.dtype)
+            if p.ndim >= 2 and p.is_floating_point() else p.to(self.device),
+        )
+
+    def _dev(self, array) -> torch.Tensor:
+        """A device COPY of host state: the host goes on mutating its numpy
+        tables while the launches that read them may still be queued."""
+        return torch.tensor(np.asarray(array), device=self.device)
+
+    # ------------------------------------------------------------------
+    # Device side
+    # ------------------------------------------------------------------
+
+    def _device_propose(self, tokens, positions, table, active):
+        """k+1 greedy draft steps: proposes d1..dk and runs the extra step
+        that feeds dk, so the draft cache holds K/V for every chunk position
+        before the next round (its output is discarded).  Returns [n, k]."""
+        k = self.spec_tokens
+        tok, out = tokens, []
+        for i in range(k + 1):
+            logits, _ = decode_step(self.draft_params, tok, positions + i,
+                                    self.draft_caches, table, active,
+                                    self.draft_cfg)
+            tok = torch.argmax(logits, dim=-1)
+            out.append(tok)
+        return torch.stack(out[:k], dim=1)
+
+    def _device_propose_sampled(self, tokens, positions, table, active):
+        """Sampled draft: k+1 warped categorical steps; returns the k
+        proposals [n, k] and the distributions they were drawn from
+        [n, k, V].  Draft and target warp alike (warp_logits), which keeps
+        the acceptance rule exact for the warped target distribution."""
+        k = self.spec_tokens
+        tok, toks, probs = tokens, [], []
+        for i in range(k + 1):
+            logits, _ = decode_step(self.draft_params, tok, positions + i,
+                                    self.draft_caches, table, active,
+                                    self.draft_cfg)
+            warped = warp_logits(logits, temperature=self.temperature,
+                                 top_k=self.top_k, top_p=self.top_p,
+                                 min_p=self.min_p)
+            tok = _categorical(warped, self._generator).long()
+            if i < k:
+                toks.append(tok)
+                probs.append(torch.softmax(warped, dim=-1))
+        return torch.stack(toks, dim=1), torch.stack(probs, dim=1)
+
+    def _device_verify(self, chunk, positions, table, active):
+        """Target side, greedy: argmax at every chunk position from one
+        chunked forward (the chunk's K/V is appended inside).  With logprobs,
+        also log_softmax at each argmax (an accepted draft i equals
+        greedy[i]; the correction or bonus is greedy[m])."""
+        logits, _ = verify_step(self.params, chunk, positions, self.caches,
+                                table, active, self.cfg)
+        greedy = torch.argmax(logits, dim=-1)
+        lp = None
+        if self.want_logprobs:
+            lp = torch.log_softmax(logits, dim=-1).gather(-1, greedy[..., None])[..., 0]
+        return greedy, lp
+
+    def _device_verify_sampled(self, chunk, positions, table, active, draft_probs):
+        """Target side, sampled: one chunked forward, then the Leviathan/Chen
+        acceptance on the device.  Returns (m accepted drafts, final token,
+        log pt_i(d_i) [n, k] and log pt_m(final) [n] under the warped target
+        distribution, or None without logprobs).  A deterministic proposer
+        (prompt lookup) passes draft_probs None: pd is one-hot at the draft,
+        and the rule stays exact."""
+        logits, _ = verify_step(self.params, chunk, positions, self.caches,
+                                table, active, self.cfg)
+        warped = warp_logits(logits.reshape(-1, logits.shape[-1]),
+                             temperature=self.temperature, top_k=self.top_k,
+                             top_p=self.top_p, min_p=self.min_p)
+        pt = torch.softmax(warped, dim=-1).reshape(logits.shape)
+        drafts = chunk[:, 1:]
+        if draft_probs is None:
+            draft_probs = torch.nn.functional.one_hot(
+                drafts, pt.shape[-1]).to(pt.dtype)
+        m, final = speculative_accept(pt, drafts, draft_probs, self._generator)
+        if not self.want_logprobs:
+            return m, final, None, None
+        logpt = torch.log(pt.clamp_min(1e-38))
+        lp_drafts = logpt[:, :-1].gather(-1, drafts[..., None])[..., 0]
+        rows = torch.arange(pt.shape[0], device=pt.device)
+        lp_final = logpt[rows, m.long()].gather(-1, final.long()[:, None])[:, 0]
+        return m, final, lp_drafts, lp_final
 
     # ------------------------------------------------------------------
     # Scheduler (host)
@@ -149,10 +324,13 @@ class DecodeEngine:
     def _validate_request(self, prompt: list[int], max_new_tokens: int):
         if not prompt:
             raise ValueError("empty prompt")
-        need = len(prompt) + max_new_tokens
+        # Speculative rounds write up to spec_tokens positions past the final
+        # length (rejected drafts' K/V): those need real table columns.
+        need = len(prompt) + max_new_tokens + self.spec_tokens
         if need > self.pages_per_seq * self.page_size:
             raise ValueError(
-                f"prompt+generation = {need} exceeds max_seq_len "
+                f"prompt+generation (+{self.spec_tokens} speculative "
+                f"overshoot) = {need} exceeds max_seq_len "
                 f"{self.pages_per_seq * self.page_size}"
             )
         worst = self._worst_pages_for(len(prompt), max_new_tokens)
@@ -168,27 +346,41 @@ class DecodeEngine:
         if logit_bias or presence_penalty or frequency_penalty:
             raise _not_ported("logit bias and repetition penalties")
 
+    @staticmethod
+    def _norm_stop(stop):
+        """Stop sequences as a tuple of non-empty int tuples."""
+        if stop is None:
+            return None
+        out = tuple(tuple(int(t) for t in s) for s in stop)
+        if not all(out):
+            raise ValueError("stop sequences must be non-empty")
+        return out
+
     def submit(self, prompt: list[int], max_new_tokens: int = 32,
-               eos_id: int | None = None, logit_bias=None,
-               presence_penalty: float = 0.0,
+               eos_id: int | None = None, stop=None, on_token=None,
+               logit_bias=None, presence_penalty: float = 0.0,
                frequency_penalty: float = 0.0) -> Request:
         """Queue a request; it is admitted as soon as a slot and pages free
-        up."""
-        return self.submit_many([prompt], max_new_tokens, eos_id, logit_bias,
-                                presence_penalty, frequency_penalty)[0]
+        up.  `stop` is an optional list of token sequences that end
+        generation; `on_token` an optional per-token streaming callback."""
+        return self.submit_many([prompt], max_new_tokens, eos_id, stop,
+                                on_token, logit_bias, presence_penalty,
+                                frequency_penalty)[0]
 
     def submit_many(self, prompts, max_new_tokens: int = 32,
-                    eos_id: int | None = None, logit_bias=None,
-                    presence_penalty: float = 0.0,
+                    eos_id: int | None = None, stop=None, on_token=None,
+                    logit_bias=None, presence_penalty: float = 0.0,
                     frequency_penalty: float = 0.0) -> list[Request]:
         """Enqueue several requests BEFORE admitting, so prompts of one
         length bucket prefill as one batched forward."""
         self._check_no_bias(logit_bias, presence_penalty, frequency_penalty)
+        stop = self._norm_stop(stop)
         reqs = []
         for p in prompts:
             p = [int(t) for t in p]
             self._validate_request(p, max_new_tokens)
             reqs.append(Request(self._next_uid, p, max_new_tokens, eos_id,
+                                stop=stop, on_token=on_token,
                                 submitted_at=time.monotonic()))
             self._next_uid += 1
             self._pending.append(reqs[-1])
@@ -200,7 +392,18 @@ class DecodeEngine:
                 if not self.active[i] and self._slot_req[i] is None]
 
     def _worst_pages_for(self, prompt_len: int, max_new_tokens: int) -> int:
-        return cdiv(prompt_len + max_new_tokens, self.page_size)
+        # Speculative chunks overshoot the final length by up to spec_tokens
+        # appended-but-rejected positions.
+        return cdiv(prompt_len + max_new_tokens + self.spec_tokens,
+                    self.page_size)
+
+    @property
+    def acceptance_rate(self) -> float | None:
+        """Fraction of proposed draft tokens the target accepted (None
+        before any speculative round)."""
+        if not self.stats["spec_proposed"]:
+            return None
+        return self.stats["spec_accepted"] / self.stats["spec_proposed"]
 
     def _budget(self) -> int:
         """Allocatable pages minus those promised to running slots but not
@@ -212,8 +415,9 @@ class DecodeEngine:
 
     def _admit(self):
         """Admit pending requests in FIFO order while a slot is free and the
-        page budget covers the head request's worst case; admissions of one
-        length bucket prefill together."""
+        page budget covers the head request's worst case.  Prefix hits
+        prefill their suffix alone, long prompts (or long suffixes) start
+        chunked prefill, and the rest prefill by length bucket."""
         free = self._free_slots()
         budget = self._budget()
         take: list[tuple[Request, int]] = []
@@ -224,6 +428,28 @@ class DecodeEngine:
                 break
             budget -= worst
             take.append((self._pending.popleft(), free.pop(0)))
+        if self.prefix_cache:
+            missed = []
+            for r, slot in take:
+                hits = self._prefix_hits(r.prompt)
+                suffix_len = len(r.prompt) - len(hits) * self.page_size
+                if not hits:
+                    missed.append((r, slot))
+                elif (self.prefill_chunk is not None
+                      and suffix_len > self.prefill_chunk):
+                    # A long uncached suffix is chunked like a long prompt.
+                    self._start_chunked_prefill(r, slot, hits)
+                else:
+                    self._prefill_with_prefix(r, slot, hits)
+            take = missed
+        if self.prefill_chunk is not None:
+            rest = []
+            for r, slot in take:
+                if len(r.prompt) > self.prefill_chunk:
+                    self._start_chunked_prefill(r, slot)
+                else:
+                    rest.append((r, slot))
+            take = rest
         # The bucket quantum covers both the FA2 block grid (128) and the
         # page size, so a prompt's K/V slice is a whole number of pages.
         quantum = max(128, self.page_size)
@@ -251,61 +477,211 @@ class DecodeEngine:
         if logprob is not None:
             req.logprobs.append(float(logprob))
         self.stats["tokens"] += 1
+        if req.on_token is not None:
+            req.on_token(tok)
+
+    def _start_decoding(self, req: Request, slot: int, first: int, logprob):
+        """A slot whose prompt is cached: emit its first token and join the
+        decode batch."""
+        req.slot = slot
+        self._slot_req[slot] = req
+        self._slot_worst[slot] = self._worst_pages_for(len(req.prompt),
+                                                       req.max_new_tokens)
+        self.prefilling[slot] = False
+        self.lengths[slot] = len(req.prompt)
+        self.active[slot] = True
+        self.last_token[slot] = first
+        self._emit(req, first, logprob)
+        if self.prefix_cache:
+            self._register_prefix(req, slot)
+        self._maybe_finish(req, first)
 
     def _prefill_batch(self, reqs: list[Request], slots: list[int],
                        pad_len: int):
         """One batched causal forward for the requests of a length bucket,
         prompts zero-padded to pad_len.  The padded tail's logits are unused
         under causal masking and its K/V is never attended (the lengths gate
-        it); decode appends overwrite it."""
+        it); decode appends overwrite it.  A draft model prefills the same
+        tokens into its own caches under the same page ids."""
         tokens = np.zeros((len(reqs), pad_len), np.int64)
         for i, r in enumerate(reqs):
             tokens[i, :len(r.prompt)] = r.prompt
         with torch.inference_mode():
-            logits, kv = prefill_forward(
-                self.params, torch.from_numpy(tokens).to(self.device), self.cfg
-            )
-            last = torch.tensor([len(r.prompt) - 1 for r in reqs],
-                                device=self.device)
+            tokens_dev = self._dev(tokens)
+            logits, kv = prefill_forward(self.params, tokens_dev, self.cfg)
+            writes = [(self.caches, kv)]
+            if self._use_draft:
+                _, draft_kv = prefill_forward(self.draft_params, tokens_dev,
+                                              self.draft_cfg)
+                writes.append((self.draft_caches, draft_kv))
+            last = self._dev([len(r.prompt) - 1 for r in reqs])
             last_logits = logits[torch.arange(len(reqs), device=self.device), last]
             firsts, first_lps = self._sample(last_logits)
             for i, (req, slot) in enumerate(zip(reqs, slots)):
-                prompt_len = len(req.prompt)
-                n_pages = cdiv(prompt_len, self.page_size)
+                n_pages = cdiv(len(req.prompt), self.page_size)
                 page_ids = self.allocator.alloc(n_pages)
                 self._slot_pages[slot] = list(page_ids)
                 self.page_table[slot, :] = 0
                 self.page_table[slot, :n_pages] = page_ids
-                ids = torch.tensor(page_ids, device=self.device)
+                ids = self._dev(page_ids)
                 kv_len = n_pages * self.page_size
-                for li, (k, v) in enumerate(kv):
-                    write_prompt_kv(self.caches[li], k[i, :kv_len], v[i, :kv_len], ids)
-                first = int(firsts[i])
-                req.slot = slot
-                self._emit(req, first,
-                           first_lps[i] if first_lps is not None else None)
-                self._slot_req[slot] = req
-                self._slot_worst[slot] = self._worst_pages_for(
-                    prompt_len, req.max_new_tokens)
-                self.lengths[slot] = prompt_len
-                self.active[slot] = True
-                self.last_token[slot] = first
-                self._maybe_finish(req, first)
+                for caches, layers in writes:
+                    for pages, (k, v) in zip(caches, layers):
+                        write_prompt_kv(pages, k[i, :kv_len], v[i, :kv_len], ids)
+                self._start_decoding(req, slot, int(firsts[i]),
+                                     first_lps[i] if first_lps is not None else None)
 
-    def _ensure_page(self, slot: int):
-        """Grow the slot's page list so position lengths[slot] is writable."""
-        needed = cdiv(int(self.lengths[slot]) + 1, self.page_size)
+    def _prefix_hits(self, prompt: list[int]) -> list[int]:
+        """The longest chain of cached pages covering this prompt's head.
+        Always leaves at least one suffix token, whose logits give the first
+        generated token."""
+        ps = self.page_size
+        n_full = len(prompt) // ps
+        if n_full and len(prompt) == n_full * ps:
+            n_full -= 1
+        hits: list[int] = []
+        for i in range(n_full):
+            pid = self._prefix_maps.get(tuple(prompt[:(i + 1) * ps]))
+            if pid is None:
+                break
+            hits.append(pid)
+        return hits
+
+    def _register_prefix(self, req: Request, slot: int):
+        """Publish the slot's pages that the prompt covers fully: all later
+        writes land at positions >= the prompt length, so their content is
+        fixed for the page's lifetime."""
+        ps = self.page_size
+        pages = self._slot_pages[slot]
+        for i in range(min(len(req.prompt) // ps, len(pages))):
+            pid = pages[i]
+            key = tuple(req.prompt[:(i + 1) * ps])
+            if pid in self._page_keys or key in self._prefix_maps:
+                continue
+            self._prefix_maps[key] = pid
+            self._page_keys[pid] = key
+
+    def _drop_prefix_entry(self, pid: int):
+        key = self._page_keys.pop(pid, None)
+        if key is not None:
+            self._prefix_maps.pop(key, None)
+
+    def _chunk_forward(self, slots: list[int], tokens: np.ndarray,
+                       first_pos: np.ndarray):
+        """verify_step with page-granular writes for the rows of `slots`
+        (chunked prefill and prefix suffixes), mirrored into the draft's
+        caches under speculation.  Returns the target's logits [rows, T, V]."""
+        with torch.inference_mode():
+            args = (self._dev(tokens), self._dev(first_pos))
+            table = self._dev(self.page_table[slots])
+            mask = torch.ones(len(slots), dtype=torch.bool, device=self.device)
+            logits, _ = verify_step(self.params, *args, self.caches, table,
+                                    mask, self.cfg, paged_write=True)
+            if self._use_draft:
+                verify_step(self.draft_params, *args, self.draft_caches, table,
+                            mask, self.draft_cfg, paged_write=True)
+        return logits
+
+    def _prefill_with_prefix(self, req: Request, slot: int, hits: list[int]):
+        """Admission of a prefix-cache hit: share the cached pages and push
+        only the uncached suffix (padded to whole pages) through one chunked
+        forward that attends the shared prefix."""
+        ps = self.page_size
+        prefix_len = len(hits) * ps
+        suffix = req.prompt[prefix_len:]
+        pad_len = cdiv(len(suffix), ps) * ps
+        self.allocator.share(hits)
+        pages = list(hits) + self.allocator.alloc(pad_len // ps)
+        self._slot_pages[slot] = pages
+        self.page_table[slot, :] = 0
+        self.page_table[slot, :len(pages)] = pages
+        tokens = np.zeros((1, pad_len), np.int64)
+        tokens[0, :len(suffix)] = suffix
+        logits = self._chunk_forward([slot], tokens, np.array([prefix_len]))
+        firsts, lps = self._sample(logits[:, len(suffix) - 1])
+        self._start_decoding(req, slot, int(firsts[0]),
+                             lps[0] if lps is not None else None)
+
+    def _start_chunked_prefill(self, req: Request, slot: int, hits=None):
+        """Admit a long prompt WITHOUT running its forward: the slot is
+        PREFILLING and step() advances it one chunk at a time while decode
+        slots keep stepping.  Pages are allocated per chunk.  With `hits`
+        (prefix-cache pages covering the prompt's head) only the suffix is
+        chunked."""
+        self.page_table[slot, :] = 0
+        self._slot_pages[slot] = list(hits or ())
+        if hits:
+            self.allocator.share(hits)
+            self.page_table[slot, :len(hits)] = hits
+        req.slot = slot
+        self._slot_req[slot] = req
+        self._slot_worst[slot] = self._worst_pages_for(len(req.prompt),
+                                                       req.max_new_tokens)
+        self.lengths[slot] = 0
+        self.active[slot] = False
+        self.prefilling[slot] = True
+        self._prefill_pos[slot] = len(hits or ()) * self.page_size
+
+    def _chunk_prefill_step(self):
+        """Advance every prefilling slot by one chunk: one verify_step per
+        distinct chunk size (full chunks, or a tail rounded up to whole
+        pages whose pad K/V is never attended and is overwritten by decode
+        appends).  A slot whose prompt completes samples its first token and
+        joins the decode batch on this same step."""
+        by_size: dict[int, list[int]] = {}
+        for s in np.flatnonzero(self.prefilling).tolist():
+            rem = len(self._slot_req[s].prompt) - int(self._prefill_pos[s])
+            size = (self.prefill_chunk if rem >= self.prefill_chunk
+                    else cdiv(rem, self.page_size) * self.page_size)
+            by_size.setdefault(size, []).append(s)
+        for size, slots in by_size.items():
+            tokens = np.zeros((len(slots), size), np.int64)
+            starts = [int(self._prefill_pos[s]) for s in slots]
+            for i, s in enumerate(slots):
+                part = self._slot_req[s].prompt[starts[i]:starts[i] + size]
+                tokens[i, :len(part)] = part
+                self._ensure_pages_upto(s, starts[i] + size)
+            logits = self._chunk_forward(slots, tokens, np.array(starts))
+            self.stats["prefill_chunks"] += 1
+            done = []
+            for i, s in enumerate(slots):
+                self._prefill_pos[s] = starts[i] + size
+                if starts[i] + size >= len(self._slot_req[s].prompt):
+                    done.append(i)
+            if not done:
+                continue
+            rows = [logits[i, len(self._slot_req[slots[i]].prompt) - 1 - starts[i]]
+                    for i in done]
+            toks, lps = self._sample(torch.stack(rows))
+            for j, i in enumerate(done):
+                self._start_decoding(self._slot_req[slots[i]], slots[i],
+                                     int(toks[j]),
+                                     lps[j] if lps is not None else None)
+
+    def _ensure_pages_upto(self, slot: int, end_pos: int):
+        """Grow the slot's page list so positions < end_pos are writable."""
+        needed = cdiv(end_pos, self.page_size)
+        # _validate_request reserves the speculative overshoot, so this never
+        # outgrows the table width.
+        assert needed <= self.pages_per_seq, (needed, self.pages_per_seq)
         pages = self._slot_pages[slot]
         while len(pages) < needed:
             (pid,) = self.allocator.alloc(1)
             pages.append(pid)
             self.page_table[slot, len(pages) - 1] = pid
 
+    def _ensure_page(self, slot: int, extra: int = 0):
+        """Grow the slot's page list so positions lengths[slot] ..
+        lengths[slot] + extra are writable (extra > 0 for speculative chunks
+        that append several tokens in one round)."""
+        self._ensure_pages_upto(slot, int(self.lengths[slot]) + extra + 1)
+
     def _maybe_finish(self, req: Request, token: int):
         if req.done:
             return
         hit_eos = req.eos_id is not None and token == req.eos_id
-        if hit_eos or len(req.generated) >= req.max_new_tokens:
+        if (hit_eos or len(req.generated) >= req.max_new_tokens
+                or _stop_hit(req.generated, req.stop)):
             req.done = True
             req.finished_at = time.monotonic()
 
@@ -320,6 +696,50 @@ class DecodeEngine:
         self._slot_worst[slot] = 0
         return req
 
+    def generate_n(self, prompt: list[int], n: int, max_new_tokens: int = 32,
+                   best_of: bool = False, max_steps: int = 10000,
+                   **kw) -> list[Request]:
+        """Best-of-n sampling: `n` independent completions of ONE prompt
+        (temperature > 0 and logprobs=True for the ranking), returned sorted
+        by total log-probability, best first (only the winner with
+        best_of=True).  With prefix_cache=True the first completion's prompt
+        pages register before the rest admit, so the other n-1 share them."""
+        if n < 1:
+            raise ValueError("n must be >= 1")
+        if n > 1 and not self.want_logprobs:
+            raise ValueError("generate_n ranking needs logprobs=True on the engine")
+        if self.prefix_cache and n > 1:
+            first = self.submit(list(prompt), max_new_tokens, **kw)
+            self.step()
+            reqs = [first] + self.submit_many([list(prompt)] * (n - 1),
+                                              max_new_tokens, **kw)
+        else:
+            reqs = self.submit_many([list(prompt)] * n, max_new_tokens, **kw)
+        steps = 0
+        while any(not r.done for r in reqs) and steps < max_steps:
+            self.step()
+            steps += 1
+        self.step()
+        reqs = sorted(reqs, key=lambda r: -sum(r.logprobs))
+        return reqs[:1] if best_of else reqs
+
+    def cancel(self, req: Request) -> bool:
+        """Abort a request: a pending one leaves the queue at once; an
+        admitted one (decoding or mid-chunked-prefill) retires at the next
+        step(), freeing its slot and pages.  False if it already finished."""
+        if req.done:
+            return False
+        req.done = True
+        req.finished_at = time.monotonic()
+        try:
+            self._pending.remove(req)
+            return True  # never admitted: nothing to release
+        except ValueError:
+            pass
+        if req.slot is not None and self._slot_req[req.slot] is req:
+            self.prefilling[req.slot] = False  # no further chunks
+        return True
+
     def _drain_finished(self, finished: list):
         """Retire done slots and admit pending requests; loop because a
         request can finish at its prefill (EOS first, or max_new_tokens=1)."""
@@ -333,31 +753,33 @@ class DecodeEngine:
                 break
 
     def step(self) -> list[Request]:
-        """One decode step for every active slot; returns the requests that
-        finished (their slots are freed and pending requests admitted)."""
+        """One engine step: a chunk of every prefilling prompt, then one
+        decode step (or one speculative round) for every active slot.
+        Returns the requests that finished (their slots are freed and
+        pending requests admitted)."""
         finished: list[Request] = []
         self._drain_finished(finished)
+        if self.prefill_chunk is not None and self.prefilling.any():
+            self._chunk_prefill_step()
+            # A request can finish at chunk completion: retire it before the
+            # decode below, or it would generate past its limit.
+            self._drain_finished(finished)
         if not self.active.any():
             return finished
-        for slot in range(self.max_seqs):
-            if self.active[slot]:
-                self._ensure_page(slot)
-        dev = self.device
+        if self.spec_tokens:
+            self._spec_round()
+            return finished
+        for slot in np.flatnonzero(self.active).tolist():
+            self._ensure_page(slot)
         with torch.inference_mode():
-            logits, self.caches = decode_step(
-                self.params,
-                torch.from_numpy(self.last_token).to(dev, torch.int64),
-                torch.from_numpy(self.lengths).to(dev, torch.int64),
-                self.caches,
-                torch.from_numpy(self.page_table).to(dev),
-                torch.from_numpy(self.active).to(dev),
-                self.cfg,
+            logits, _ = decode_step(
+                self.params, self._dev(self.last_token).long(),
+                self._dev(self.lengths).long(), self.caches,
+                self._dev(self.page_table), self._dev(self.active), self.cfg,
             )
             next_tokens, lps = self._sample(logits)
         self.stats["steps"] += 1
-        for slot in range(self.max_seqs):
-            if not self.active[slot]:
-                continue
+        for slot in np.flatnonzero(self.active).tolist():
             req = self._slot_req[slot]
             tok = int(next_tokens[slot])
             self.lengths[slot] += 1  # the KV of last_token is now cached
@@ -366,11 +788,106 @@ class DecodeEngine:
             self._maybe_finish(req, tok)
         return finished
 
+    def _lookup_proposals(self, k: int) -> np.ndarray:
+        """Prompt-lookup drafts [max_seqs, k]: for each active slot, the k
+        tokens that followed the most recent earlier occurrence of the
+        history's last `lookup_ngram` tokens (zero-padded; no match proposes
+        zeros, which the target rejects)."""
+        n = self.lookup_ngram
+        out = np.zeros((self.max_seqs, k), np.int64)
+        for slot in np.flatnonzero(self.active).tolist():
+            req = self._slot_req[slot]
+            hist = req.prompt + req.generated
+            if len(hist) <= n:
+                continue
+            pattern = hist[-n:]
+            for start in range(len(hist) - n - 1, -1, -1):
+                if hist[start:start + n] == pattern:
+                    nxt = hist[start + n:start + n + k]
+                    out[slot, :len(nxt)] = nxt
+                    break
+        return out
+
+    def _spec_round(self):
+        """One draft-and-verify round: up to spec_tokens+1 tokens per slot
+        from one target forward.  Greedy: take drafts while the target's
+        argmax agrees, then the target's own token.  Sampled: the
+        Leviathan/Chen rule.  Chunk K/V of rejected positions stays in the
+        cache unattended (the length gate) and is overwritten later."""
+        k = self.spec_tokens
+        for slot in np.flatnonzero(self.active).tolist():
+            self._ensure_page(slot, extra=k)
+        sampled = self.temperature > 0.0
+        with torch.inference_mode():
+            positions = self._dev(self.lengths).long()
+            table = self._dev(self.page_table)
+            act = self._dev(self.active)
+            last = self._dev(self.last_token).long()
+            draft_probs = None
+            if self._use_draft and sampled:
+                drafts_dev, draft_probs = self._device_propose_sampled(
+                    last, positions, table, act)
+            elif self._use_draft:
+                drafts_dev = self._device_propose(last, positions, table, act)
+            else:
+                drafts_dev = self._dev(self._lookup_proposals(k))
+            chunk = torch.cat([last[:, None], drafts_dev], dim=1)
+            drafts = drafts_dev.cpu().numpy()
+            if sampled:
+                m_d, final_d, lp_d, lp_f = self._device_verify_sampled(
+                    chunk, positions, table, act, draft_probs)
+                m_all, final_all = m_d.cpu().numpy(), final_d.cpu().numpy()
+                if self.want_logprobs:
+                    lp_drafts, lp_final = lp_d.cpu().numpy(), lp_f.cpu().numpy()
+            else:
+                greedy_d, lp_all_d = self._device_verify(chunk, positions, table, act)
+                greedy = greedy_d.cpu().numpy()
+                if self.want_logprobs:
+                    lp_all = lp_all_d.cpu().numpy()
+        self.stats["steps"] += 1
+        self.stats["spec_rounds"] += 1
+
+        for slot in np.flatnonzero(self.active).tolist():
+            req = self._slot_req[slot]
+            if sampled:
+                m = int(m_all[slot])
+                accepted = [int(t) for t in drafts[slot, :m]]
+                accepted.append(int(final_all[slot]))
+                lps = ([float(x) for x in lp_drafts[slot, :m]]
+                       + [float(lp_final[slot])] if self.want_logprobs else None)
+            else:
+                m = 0
+                while m < k and greedy[slot, m] == drafts[slot, m]:
+                    m += 1
+                accepted = [int(t) for t in drafts[slot, :m]]
+                accepted.append(int(greedy[slot, m]))  # bonus or correction
+                # Accepted draft i equals greedy[i]; the final token is
+                # greedy[m]: one logprob row covers both.
+                lps = ([float(x) for x in lp_all[slot, :m + 1]]
+                       if self.want_logprobs else None)
+            take: list[int] = []
+            for tok in accepted:
+                take.append(tok)
+                if ((req.eos_id is not None and tok == req.eos_id)
+                        or len(req.generated) + len(take) >= req.max_new_tokens
+                        or _stop_hit(req.generated + take, req.stop)):
+                    break
+            for i, tok in enumerate(take):
+                self._emit(req, tok, lps[i] if lps is not None else None)
+            self.stats["spec_proposed"] += k
+            self.stats["spec_accepted"] += m
+            # K/V is now committed for the previous last_token and the
+            # accepted drafts; the new last_token's lands next round.
+            self.lengths[slot] += len(take)
+            self.last_token[slot] = take[-1]
+            self._maybe_finish(req, take[-1])
+
     def run(self, prompts, max_new_tokens: int = 32, eos_id: int | None = None,
-            max_steps: int = 10000):
+            max_steps: int = 10000, stop=None, on_token=None):
         """Submit all prompts (batch-admitted), step until done, return the
         requests in submission order."""
-        reqs = self.submit_many(prompts, max_new_tokens, eos_id)
+        reqs = self.submit_many(prompts, max_new_tokens, eos_id, stop=stop,
+                                on_token=on_token)
         steps = 0
         while (any(not r.done for r in reqs) or self._pending) and steps < max_steps:
             self.step()

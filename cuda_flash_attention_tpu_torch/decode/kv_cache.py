@@ -110,37 +110,79 @@ def append_token_kv(pages: KVPages, k_new, v_new, page_table, positions,
 
 def write_prompt_kv(pages: KVPages, k_prompt, v_prompt, page_ids) -> KVPages:
     """Prefill write, in place: a whole prompt's K/V [prompt_len, n_kv_heads,
-    head_dim] into this slot's pages `page_ids` [prompt_len / page_size].
-    prompt_len is padded to a page multiple by the caller (the engine)."""
+    head_dim] into this slot's pages `page_ids` [prompt_len / page_size]
+    (the chunk write of one slot from position 0).  prompt_len is padded to
+    a page multiple by the caller (the engine)."""
+    dev = k_prompt.device
+    return write_chunk_kv_paged(
+        pages, k_prompt[None], v_prompt[None],
+        torch.as_tensor(page_ids, device=dev)[None],
+        torch.zeros(1, dtype=torch.long, device=dev),
+        torch.ones(1, dtype=torch.bool, device=dev))
+
+
+def append_chunk_kv(pages: KVPages, k_chunk, v_chunk, page_table, positions,
+                    active) -> KVPages:
+    """Multi-token append for speculative verification chunks, in place: T
+    consecutive tokens per slot (k_chunk/v_chunk [num_seqs, T, n_kv_heads,
+    head_dim]) from each slot's write position `positions` on, possibly
+    crossing a page boundary.  T is small (the draft length + 1), so it is
+    T single-token appends."""
+    for i in range(k_chunk.shape[1]):
+        append_token_kv(pages, k_chunk[:, i], v_chunk[:, i], page_table,
+                        positions + i, active)
+    return pages
+
+
+def write_chunk_kv_paged(pages: KVPages, k_chunk, v_chunk, page_table,
+                         first_positions, active) -> KVPages:
+    """Page-granular multi-token append for chunked (suffix) prefill, in
+    place: every slot's chunk starts on a page boundary (`first_positions`)
+    and spans whole pages (T a multiple of the page size), so each (slot,
+    page) lands in one indexed write.  Inactive slots write the reserved
+    null page 0."""
     page_size = pages.page_size
-    s = k_prompt.shape[0]
-    if s % page_size:
-        raise ValueError(f"prompt length {s} is not a multiple of the page size")
-    n = s // page_size
+    n, t, hkv, d = k_chunk.shape
+    if t % page_size:
+        raise ValueError(f"chunk length {t} is not a multiple of the page size")
+    npg = t // page_size
+    lo = (first_positions // page_size).long()
+    cols = (lo[:, None] + torch.arange(npg, device=lo.device)[None]).clamp(
+        max=page_table.shape[1] - 1)  # an inactive slot's start may be anything
+    ids = torch.where(active[:, None], page_table.long().gather(1, cols), 0)
+    ids = ids.reshape(-1)
     dtype = pages.k_pages.dtype
-    kq, ks = _quantize_rows(k_prompt, dtype)
-    vq, vs = _quantize_rows(v_prompt, dtype)
+    kq, ks = _quantize_rows(k_chunk.reshape(n * t, hkv, d), dtype)
+    vq, vs = _quantize_rows(v_chunk.reshape(n * t, hkv, d), dtype)
 
-    def to_pages(x):  # [S, Hkv, D] -> [Hkv, n, page_size, D]
-        return x.transpose(0, 1).reshape(x.shape[1], n, page_size, -1)
+    def to_pages(x):  # [n*T, Hkv, D] -> [Hkv, n*npg, page_size, D]
+        return x.transpose(0, 1).reshape(hkv, n * npg, page_size, -1)
 
-    def to_scale_pages(x):  # [S, Hkv] -> [Hkv, n, page_size]
-        return x.transpose(0, 1).reshape(x.shape[1], n, page_size)
+    def to_scale_pages(x):  # [n*T, Hkv] -> [Hkv, n*npg, page_size]
+        return x.transpose(0, 1).reshape(hkv, n * npg, page_size)
 
-    pages.k_pages[:, page_ids] = to_pages(kq)
-    pages.k_scales[:, page_ids] = to_scale_pages(ks)
-    pages.v_pages[:, page_ids] = to_pages(vq)
-    pages.v_scales[:, page_ids] = to_scale_pages(vs)
+    pages.k_pages[:, ids] = to_pages(kq)
+    pages.k_scales[:, ids] = to_scale_pages(ks)
+    pages.v_pages[:, ids] = to_pages(vq)
+    pages.v_scales[:, ids] = to_scale_pages(vs)
     return pages
 
 
 class PageAllocator:
-    """Host-side free-list page allocator.  Page 0 is reserved as the null
-    page; ids are handed out in the same order as the JAX allocator (1, 2,
-    ... first, then most recently freed first)."""
+    """Host-side refcounted free-list page allocator.  Page 0 is reserved as
+    the null page; ids are handed out in the same order as the JAX allocator
+    (1, 2, ... first, then most recently freed first).  Plain alloc/free is
+    refcount 1; `share` lets several sequences point their page tables at
+    one physical page (prefix caching), which returns to the free list when
+    its last user frees it."""
 
     def __init__(self, num_pages: int):
         self._free = list(range(num_pages - 1, 0, -1))
+        self._rc: dict[int, int] = {}
+        self.num_pages = num_pages
+        # Called with the page id when a page's last reference is freed (the
+        # engine drops the prefix-cache entry of a dead page).
+        self.on_last_free = None
 
     @property
     def available(self) -> int:
@@ -151,9 +193,30 @@ class PageAllocator:
             raise MemoryError(
                 f"KV cache out of pages: need {n}, have {len(self._free)}"
             )
-        return [self._free.pop() for _ in range(n)]
+        out = [self._free.pop() for _ in range(n)]
+        for p in out:
+            self._rc[p] = 1
+        return out
+
+    def share(self, pages) -> None:
+        """Add a reference to already-allocated pages (prefix reuse)."""
+        for p in pages:
+            if int(p) != 0:
+                self._rc[int(p)] += 1
+
+    def refcount(self, page: int) -> int:
+        return self._rc.get(int(page), 0)
 
     def free(self, pages) -> None:
         for p in pages:
-            if int(p) != 0:
-                self._free.append(int(p))
+            p = int(p)
+            if p == 0:
+                continue
+            rc = self._rc.get(p, 1) - 1
+            if rc > 0:
+                self._rc[p] = rc
+                continue
+            self._rc.pop(p, None)
+            self._free.append(p)
+            if self.on_last_free is not None:
+                self.on_last_free(p)

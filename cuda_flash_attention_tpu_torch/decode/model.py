@@ -1,18 +1,26 @@
-"""Decode-mode model functions: prefill (the K/V that fill the paged cache)
-and the single-token decode step over paged attention.
+"""Decode-mode model functions: prefill (the K/V that fill the paged cache),
+the single-token decode step and the chunked verify step over paged
+attention.
 
 Counterpart of cuda_flash_attention_tpu/decode/model.py in its per-layer
 list form (caches are a list of KVPages, params["layers"] a list).  The
-scanned (stacked) form, verify_step and meshes are not ported yet.  The
-decode step appends to the caches in place.
+decode and verify steps append to the caches in place.  Not ported yet (and
+refused): the scanned (stacked) form, meshes, sliding windows and sinks.
 """
 
 from __future__ import annotations
 
 import torch
 
-from cuda_flash_attention_tpu_torch.decode.attention import paged_decode_attention
-from cuda_flash_attention_tpu_torch.decode.kv_cache import append_token_kv
+from cuda_flash_attention_tpu_torch.decode.attention import (
+    paged_chunk_attention,
+    paged_decode_attention,
+)
+from cuda_flash_attention_tpu_torch.decode.kv_cache import (
+    append_chunk_kv,
+    append_token_kv,
+    write_chunk_kv_paged,
+)
 from cuda_flash_attention_tpu_torch.models.transformer import (
     TransformerConfig,
     attention_block,
@@ -63,6 +71,63 @@ def _decode_layer(x, layer, pages, pos2, positions, attn_lengths, page_table,
     return x
 
 
+def _compute_dtype(cfg: TransformerConfig):
+    return torch.float32 if cfg.attn_tile_dtype is None else torch.bfloat16
+
+
+def _chunk_layer(x, layer, pages, pos_t, first_positions, total_lengths,
+                 page_table, active, cfg: TransformerConfig, compute_dtype,
+                 paged_write: bool):
+    """One verification layer: T new tokens per slot [n, T, d_model]; their
+    K/V is written to `pages` (in place), then chunked paged attention reads
+    it back, each token causally bounded at its own position.
+    ``paged_write`` switches the write from T per-token appends (speculative
+    chunks: small T, any alignment) to one page-granular write (chunked and
+    suffix prefill: page-aligned start, whole pages)."""
+    n, t = x.shape[:2]
+    h = rms_norm(x, layer["attn_norm"])
+    q = dense(h, layer["wq"]).reshape(n, t, cfg.n_heads, cfg.head_dim)
+    k = dense(h, layer["wk"]).reshape(n, t, cfg.n_kv_heads, cfg.head_dim)
+    v = dense(h, layer["wv"]).reshape(n, t, cfg.n_kv_heads, cfg.head_dim)
+    q = rope(q, pos_t, *cfg.rope_args)
+    k = rope(k, pos_t, *cfg.rope_args)
+    write = write_chunk_kv_paged if paged_write else append_chunk_kv
+    write(pages, k, v, page_table, first_positions, active)
+    o = paged_chunk_attention(q.to(cfg.dtype), pages, page_table, total_lengths,
+                              compute_dtype=compute_dtype)  # [n, T, Hq, D]
+    x = x + dense(o.reshape(n, t, cfg.q_dim), layer["wo"])
+    x, _ = ffn_block(x, layer, cfg)
+    return x
+
+
+def verify_step(params, chunk_tokens, first_positions, caches, page_table,
+                active, cfg: TransformerConfig, *, paged_write: bool = False):
+    """Speculative-decoding verification: one forward scores all T chunk
+    positions while appending their K/V.  chunk_tokens [num_seqs, T] (the
+    last accepted token and T-1 drafts), first_positions [num_seqs] (write
+    position of the chunk's first token), caches a list of per-layer
+    KVPages (updated in place), page_table [num_seqs, pages_per_seq] int32,
+    active [num_seqs] bool.  Returns (logits [num_seqs, T, vocab] fp32,
+    caches).  With ``paged_write=True`` (page-aligned first_positions, T a
+    multiple of the page size) it is the chunked-prefill step: a prompt
+    chunk or a prefix-cache suffix attends everything cached before it.
+    An inactive slot has total length 0, so it attends nothing."""
+    if cfg.attn_window is not None:
+        raise NotImplementedError("windowed verification is not ported yet")
+    n, t = chunk_tokens.shape
+    x = params["embed"][chunk_tokens].to(cfg.dtype)  # [n, T, d_model]
+    first_positions = first_positions.long()
+    pos_t = first_positions[:, None] + torch.arange(t, device=x.device)[None]
+    total_lengths = torch.where(active, first_positions + t, 0).to(torch.int32)
+    compute_dtype = _compute_dtype(cfg)
+    for layer, pages in zip(params["layers"], caches):
+        x = _chunk_layer(x, layer, pages, pos_t, first_positions,
+                         total_lengths, page_table, active, cfg,
+                         compute_dtype, paged_write)
+    x = rms_norm(x, params["final_norm"])
+    return dense(x, params["lm_head"]).float(), caches
+
+
 def decode_step(params, tokens, positions, caches, page_table, active,
                 cfg: TransformerConfig):
     """One decode step for all slots.  tokens [num_seqs] (last sampled token
@@ -75,9 +140,7 @@ def decode_step(params, tokens, positions, caches, page_table, active,
     x = params["embed"][tokens].to(cfg.dtype)  # [n, d_model]
     pos2 = positions[:, None]
     attn_lengths = torch.where(active, positions + 1, 0).to(torch.int32)
-    compute_dtype = (
-        torch.float32 if cfg.attn_tile_dtype is None else torch.bfloat16
-    )
+    compute_dtype = _compute_dtype(cfg)
     for layer, pages in zip(params["layers"], caches):
         x = _decode_layer(x, layer, pages, pos2, positions, attn_lengths,
                           page_table, active, cfg, compute_dtype)

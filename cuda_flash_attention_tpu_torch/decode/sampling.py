@@ -1,5 +1,5 @@
 """Token sampling for the decode engine: greedy, temperature, top-k, top-p,
-min-p.
+min-p, and the speculative-sampling acceptance rule.
 
 Counterpart of cuda_flash_attention_tpu/decode/sampling.py.  Randomness
 comes from an explicit torch.Generator on the logits' device; it gives other
@@ -89,3 +89,36 @@ def sample_with_logprob(logits, generator: torch.Generator | None = None, *,
         tok = _categorical(warped, generator)
         lp = torch.log_softmax(warped, dim=-1)
     return tok, lp.gather(-1, tok[:, None].long())[:, 0]
+
+
+def speculative_accept(pt, drafts, draft_probs, generator: torch.Generator):
+    """Speculative-sampling acceptance (Leviathan et al.; Chen et al.):
+    accept draft d_i with probability min(1, pt_i(d_i) / pd_i(d_i)); at the
+    first rejection draw from the residual normalize(max(pt - pd, 0)); if
+    all k drafts survive, draw the bonus token from pt_k.  The emitted
+    stream is distributed exactly as target-only sampling.
+
+    pt [n, k+1, V] target probabilities at chunk positions 0..k; drafts
+    [n, k]; draft_probs [n, k, V] the distributions the drafts were drawn
+    from.  The uniforms and the final draw (Gumbel-max, as `_categorical`)
+    come from `generator`.  Returns (m [n] int32, the accepted draft count;
+    final [n] int32, the correction or bonus token after them)."""
+    n, k = drafts.shape
+    idx = drafts.long()[..., None]
+    pt_d = pt[:, :k].gather(-1, idx)[..., 0]          # target prob of each draft
+    pd_d = draft_probs.gather(-1, idx)[..., 0]
+    u = torch.rand((n, k), generator=generator, device=pt.device)
+    # accept_i <=> u < pt / pd (pd == 0 cannot occur for a drawn token; then
+    # accept iff pt > 0).
+    accept = u * pd_d.clamp_min(1e-38) < pt_d
+    m = torch.cumprod(accept.to(torch.int32), dim=1).sum(dim=1)  # leading accepts
+    # The final token's distribution: the residual at the first rejection,
+    # or pt_k when all were accepted (a zero pd row at index k covers both).
+    pd_pad = torch.cat([draft_probs, torch.zeros_like(pt[:, :1])], dim=1)
+    rows = torch.arange(n, device=pt.device)
+    pt_m, pd_m = pt[rows, m], pd_pad[rows, m]
+    residual = (pt_m - pd_m).clamp_min(0.0)
+    norm = residual.sum(dim=-1, keepdim=True)
+    residual = torch.where(norm > 0.0, residual, pt_m)  # pt == pd exactly
+    final = _categorical(torch.log(residual.clamp_min(1e-38)), generator)
+    return m.to(torch.int32), final

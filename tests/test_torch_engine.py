@@ -19,7 +19,7 @@ import torch
 from cuda_flash_attention_tpu.decode import engine as jax_engine
 from cuda_flash_attention_tpu.decode import sampling as jax_sampling
 from cuda_flash_attention_tpu.models import transformer as jax_tf
-from cuda_flash_attention_tpu_torch.decode import engine, kv_cache, sampling
+from cuda_flash_attention_tpu_torch.decode import attention, engine, kv_cache, sampling
 from cuda_flash_attention_tpu_torch.models import transformer
 from cuda_flash_attention_tpu_torch.utils.convert import params_from_numpy
 
@@ -109,12 +109,25 @@ def test_greedy_sampling_and_logprob_match_jax():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(spec_tokens=2), dict(prefix_cache=True), dict(prefill_chunk=128),
     dict(mesh=object()), dict(decode_burst=4), dict(scan_layers=True),
 ])
 def test_unported_engine_options_raise(tiny, kwargs):
     with pytest.raises(NotImplementedError):
         _port_engine(tiny, **kwargs)
+
+
+def test_windowed_draft_and_chunk_attention_raise(tiny):
+    """Windows and sinks stay refused on the speculation path too: a
+    windowed draft model, and the paged chunk attention (B6) itself."""
+    _, cfg_t, _, params_t = tiny
+    with pytest.raises(NotImplementedError):
+        _port_engine(tiny, spec_tokens=2, draft_params=params_t,
+                     draft_cfg=dataclasses.replace(cfg_t, attn_window=64))
+    pages = kv_cache.init_kv_pages(2, 3, 128, 64, device="cpu")
+    with pytest.raises(NotImplementedError):
+        attention.paged_chunk_attention(
+            torch.zeros(1, 2, 4, 64), pages, torch.ones(1, 2, dtype=torch.int32),
+            torch.full((1,), 2, dtype=torch.int32), window=64, sinks=4)
 
 
 def test_windowed_config_and_penalties_raise(tiny):

@@ -7,8 +7,8 @@ card.  This file imports no JAX, so it runs on a machine without it:
 
 (--noconftest skips the root conftest.py, which configures JAX.)
 Tolerances: B1 2e-2 with bf16 tiles and 2e-6 in fp32 (the JAX gates,
-tests/test_fa2_forward.py); B5 2e-2 with bf16 compute and 2e-5 in fp32
-(tests/test_decode.py); lse 1e-3 relative (1e-5 in fp32).  B2, B3 and B4
+tests/test_fa2_forward.py); B5 and B6 2e-2 with bf16 compute and 2e-5 in
+fp32 (tests/test_decode.py); lse 1e-3 relative (1e-5 in fp32).  B2, B3 and B4
 within 5e-2 with bf16 tiles (the JAX bf16-tile grad gate,
 tests/test_fa2_backward.py) and 2e-5 in fp32, each error relative to the
 plain output's own max |value|.
@@ -135,6 +135,78 @@ def test_paged_decode_kernel_matches_plain(cuda, cache, q_dtype, compute, d,
     assert err <= (2e-2 if compute == torch.bfloat16 else 2e-5), err
 
 
+@pytest.mark.parametrize("cache", [torch.int8, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("q_dtype,compute", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+    (torch.float32, torch.bfloat16),
+], ids=["bf16", "fp32", "fp32-q-bf16-compute"])
+@pytest.mark.parametrize("d,hq,hkv,page", [(64, 16, 8, 128), (128, 8, 8, 128),
+                                           (64, 16, 2, 256)])
+@pytest.mark.parametrize("chunk", [1, 5, 512])
+def test_paged_chunk_kernel_matches_plain(cuda, cache, q_dtype, compute, d, hq,
+                                          hkv, page, chunk):
+    """Slot 0's chunk starts at 126 (a page boundary inside the chunk at
+    128-token pages), slot 1 is inactive (exact zeros), the others long and
+    ragged.  The plain version runs on the same card tensors."""
+    rng = np.random.default_rng(d + hq + chunk)
+    lengths = torch.tensor([126 + chunk, 0, 300 + chunk, 1000 + chunk],
+                           dtype=torch.int32)
+    n, pps = len(lengths), -(-(1000 + chunk) // page)
+    num_pages = n * pps + 1
+    table = torch.from_numpy(
+        rng.permutation(np.arange(1, num_pages)).astype(np.int32)).reshape(n, pps)
+    pages = kv_cache.init_kv_pages(hkv, num_pages, page, d, cache, device="cpu")
+    for slot in range(n):
+        kv_cache.write_prompt_kv(pages, _randn(rng, pps * page, hkv, d),
+                                 _randn(rng, pps * page, hkv, d), table[slot])
+    pages = kv_cache.KVPages(*(t.to(cuda) for t in (
+        pages.k_pages, pages.k_scales, pages.v_pages, pages.v_scales)))
+    q = _randn(rng, n, chunk, hq, d).to(q_dtype).to(cuda)
+    table, lengths = table.to(cuda), lengths.to(cuda)
+    before = dec_attention.chunk_launches
+    o_k = dec_attention.paged_chunk_attention(q, pages, table, lengths,
+                                              compute_dtype=compute)
+    assert dec_attention.chunk_launches == before + 1
+    o_p = dec_attention.paged_chunk_attention_plain(
+        q, pages, table, lengths, sm_scale=d ** -0.5, compute_dtype=compute)
+    torch.cuda.synchronize()
+    assert o_k.dtype == q_dtype and o_k.shape == q.shape
+    assert not o_k[1].any() and torch.isfinite(o_k.float()).all()
+    err = (o_k.float() - o_p.float()).abs().max().item()
+    assert err <= (2e-2 if compute == torch.bfloat16 else 2e-5), err
+
+
+@pytest.mark.parametrize("cache", [torch.int8, torch.float32])
+def test_paged_chunk_of_one_equals_paged_decode(cuda, cache):
+    """T = 1: B6 and B5 compute the same function on the same inputs."""
+    rng = np.random.default_rng(3)
+    lengths = torch.tensor([1, 0, 129, 777], dtype=torch.int32, device=cuda)
+    pages = kv_cache.init_kv_pages(8, 4 * 7 + 1, 128, 64, cache, device="cpu")
+    table = torch.arange(1, 29, dtype=torch.int32).reshape(4, 7)
+    for slot in range(4):
+        kv_cache.write_prompt_kv(pages, _randn(rng, 7 * 128, 8, 64),
+                                 _randn(rng, 7 * 128, 8, 64), table[slot])
+    pages = kv_cache.KVPages(*(t.to(cuda) for t in (
+        pages.k_pages, pages.k_scales, pages.v_pages, pages.v_scales)))
+    table = table.to(cuda)
+    q = _randn(rng, 4, 16, 64).to(cuda)
+    for compute, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        one = dec_attention.paged_chunk_attention(
+            q[:, None], pages, table, lengths, compute_dtype=compute)[:, 0]
+        dec = dec_attention.paged_decode_attention(q, pages, table, lengths,
+                                                   compute_dtype=compute)
+        assert (one - dec).abs().max().item() <= tol
+
+
+def test_paged_chunk_kernel_refuses_windows(cuda):
+    pages = kv_cache.init_kv_pages(2, 3, 128, 64, device=cuda)
+    q = torch.zeros(1, 2, 4, 64, device=cuda)
+    table = torch.ones(1, 2, dtype=torch.int32, device=cuda)
+    lengths = torch.full((1,), 2, dtype=torch.int32, device=cuda)
+    with pytest.raises(NotImplementedError):
+        dec_attention.paged_chunk_attention(q, pages, table, lengths, window=64)
+
+
 def test_engine_on_the_card_matches_the_cpu(cuda):
     """Greedy tokens of the tiny model in fp32: DecodeEngine with no device
     (the card, both kernels) against device="cpu" (the plain versions)."""
@@ -146,6 +218,40 @@ def test_engine_on_the_card_matches_the_cpu(cuda):
         eng = DecodeEngine(params, cfg, max_seqs=2, max_seq_len=512, device=dev)
         runs[dev] = [r.generated for r in eng.run(prompts, max_new_tokens=6)]
     assert runs[None] == runs["cpu"]
+
+
+@pytest.mark.parametrize("feature", ["draft", "prompt_lookup", "prefix",
+                                     "chunked"])
+def test_engine_features_on_the_card_match_the_cpu(cuda, feature):
+    """Speculation (a one-layer draft; prompt lookup), prefix caching and
+    chunked prefill of the tiny model in fp32: greedy tokens on the card
+    (B1, B5, B6) equal those of device="cpu" (the plain versions) and of
+    the card's own engine without the feature."""
+    cfg = TransformerConfig.tiny(dtype=torch.float32, attn_tile_dtype=None)
+    params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    draft_cfg = dataclasses.replace(cfg, n_layers=1)
+    draft = dict(params, layers=params["layers"][:1])
+    rng = np.random.default_rng(12)
+    prefix = rng.integers(0, 256, 256).tolist()
+    prompts = [prefix + [1, 2, 3], prefix + [4, 5], rng.integers(0, 256, 300).tolist()]
+    kw = {"draft": dict(spec_tokens=3, draft_params=draft, draft_cfg=draft_cfg),
+          "prompt_lookup": dict(spec_tokens=3, spec_mode="prompt_lookup"),
+          "prefix": dict(prefix_cache=True),
+          "chunked": dict(prefill_chunk=128)}[feature]
+    runs = {}
+    for dev, opts in ((None, kw), ("cpu", kw), (None, {})):
+        eng = DecodeEngine(params, cfg, max_seqs=2, max_seq_len=512,
+                           cache_dtype=torch.float32, device=dev, **opts)
+        before = dec_attention.chunk_launches
+        # One request first: the prefix cache holds its pages while it runs.
+        first = eng.submit(prompts[0], max_new_tokens=6)
+        eng.step()
+        rest = eng.run(prompts[1:], max_new_tokens=6)
+        runs[(dev, bool(opts))] = [r.generated for r in [first] + rest]
+        if dev is None and opts:
+            assert dec_attention.chunk_launches > before
+        assert eng.allocator.available == eng.num_pages - 1
+    assert runs[(None, True)] == runs[("cpu", True)] == runs[(None, False)]
 
 
 SPLIT = BlockSizes(128, 128, 128, 128, 128, 128)
