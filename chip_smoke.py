@@ -5,7 +5,7 @@ NVIDIA card.
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
-  1. setup: the card's name and power limit; the three CUDA sources built
+  1. setup: the card's name and power limit; the six CUDA sources built
      from cuda_flash_attention_tpu_torch/csrc/ with nvcc (sm_90a), all at
      once;
   2. kernel B1 (FA2 forward) against its plain PyTorch version at the
@@ -55,8 +55,28 @@ Phases (any failure raises and the script exits non-zero):
  15. prefix caching: 16 requests sharing a 1024-token system prompt, TTFT
      of the hits against an uncached engine, shared pages, launches; then
      chunked prefill (chunk 512) on phase 5's mix: decode tokens emitted
-     while prompts prefill.
-The last line is the JSON contract line {"ok": true, "device": {...}}.
+     while prompts prefill;
+ 16. kernel B8 (small-shape FA2 forward) against its plain version at the
+     reference suite's Small-1, Edge-NonPowerOf2 and Edge-SmallSeq in fp32,
+     bf16 and fp16 tiles, causal and not, timed beside B1, the plain
+     version and SDPA on the same inputs (device time: the launches queued
+     behind a sleep kernel so that host gaps drop out); B9 (FA1) and B10
+     (naive FA2) at Small-2, Large-2 and Stress-1 in fp32; fp16 tiles of
+     B1 at Stress-1 and of B2, B3, B4 at Stress-1 and the train shape.
+     Every fp16 check holds fp16 to its own gate and the bf16
+     instantiation on the same inputs, as a control, beyond it;
+ 17. the CLI end to end on a Stress-1 data directory: fa2 forward,
+     backward and forward_backward in fp32, fp16 and bf16, fa1, fa2-naive
+     and naive forward, fa2 on an Edge-NonPowerOf2 directory (B8), one run
+     in a subprocess; every written .bin against the fp32 oracle (fp16
+     files by the fp16 gates, the bf16 run's files the control);
+ 18. the harness: the forward experiment (10 configs x fa2-naive, vanilla,
+     fa2), fa1 forward and fa2 both, fp32 at tolerance 1e-3, every row
+     printed; a FAIL row raises.  Every kernel of this path (B1, B2, B3,
+     B4, B8, B9, B10) must launch in phases 17-18; B8's, B9's and B10's
+     launches in the kernel line come from there.
+The line before the last is the kernel JSON (nine kernels); the last line
+is the JSON contract line {"ok": true, "device": {...}}.
 It imports torch and the port only, never jax or the JAX package.
 """
 
@@ -70,15 +90,15 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}  # tensor-core bf16; fp32 FMA units
-B1_TOL = {"bf16": 2e-2, "fp32": 2e-6}
+PEAK_FLOPS = {"bf16": 989e12, "fp16": 989e12, "fp32": 67e12}  # tensor cores; FMA
+B1_TOL = {"bf16": 2e-2, "fp32": 2e-6}  # fp16 tiles: FP16_REL_TOL
 LSE_REL_TOL = 1e-3
 B5_TOL = {"bf16": 2e-2, "fp32": 2e-5}
 B6_TOL = B5_TOL
 E2E_LOGIT_TOL = 1e-3
 # Backward kernels: error relative to the plain output's own max |value|
 # (bf16: the JAX bf16-tile grad gate, tests/test_fa2_backward.py).
-BWD_TOL = {"bf16": 5e-2, "fp32": 2e-5}
+BWD_TOL = {"bf16": 5e-2, "fp32": 2e-5}  # fp16: FP16_REL_TOL
 TRAIN_LOSS_TOL = 1e-4   # card vs CPU, relative
 TRAIN_GRAD_NORM_TOL = 1e-4  # card vs CPU, relative
 TRAIN_GRAD_TOL = 1e-3   # card vs CPU, of each leaf's own max |g|
@@ -332,26 +352,26 @@ def causal_pairs(sq: int, kv_len: int, causal: bool) -> int:
     return n * (n + 1) // 2 + (sq - n) * kv_len
 
 
-def library_backward_ms(torch, F, q, k, v, do, scale):
+def library_backward_ms(torch, F, q, k, v, do, scale, causal=True):
     """The backward of PyTorch's flash attention on the same inputs (K/V
     expanded to Hq): the aten flash backward op fed by its own forward, in
-    bf16; in fp32 (which that op does not take) SDPA forward+backward
-    through autograd minus SDPA forward."""
+    bf16 or fp16; in fp32 (which that op does not take) SDPA
+    forward+backward through autograd minus SDPA forward."""
     groups = q.shape[1] // k.shape[1]
     ke = k.repeat_interleave(groups, dim=1)
     ve = v.repeat_interleave(groups, dim=1)
-    if q.dtype == torch.bfloat16:
+    if q.dtype in (torch.bfloat16, torch.float16):
         out = torch.ops.aten._scaled_dot_product_flash_attention(
-            q, ke, ve, 0.0, True, False, scale=scale)
+            q, ke, ve, 0.0, causal, False, scale=scale)
         o, lse, cq, ck, mq, mk, seed, offset = out[:8]
         ms = time_ms(lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
-            do, q, ke, ve, o, lse, cq, ck, mq, mk, 0.0, True, seed, offset,
+            do, q, ke, ve, o, lse, cq, ck, mq, mk, 0.0, causal, seed, offset,
             scale=scale))
         return ms, "aten._scaled_dot_product_flash_attention_backward"
     qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, ke, ve))
 
     def fwd():
-        return F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+        return F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
                                               scale=scale)
 
     def fwd_bwd():
@@ -360,23 +380,26 @@ def library_backward_ms(torch, F, q, k, v, do, scale):
     return time_ms(fwd_bwd) - time_ms(fwd), "SDPA fwd+bwd minus fwd (autograd)"
 
 
-def bwd_problem(torch, attention, fa2, gen, dtype, b, s):
-    """Padded train-shape inputs on the card: q, k, v, dO random, O and lse
-    from kernel B1, D_i = rowsum(dO * O)."""
-    hq, hkv, d = 16, 8, 64
-    tile = torch.bfloat16 if dtype == torch.bfloat16 else None
+def bwd_problem(torch, attention, fa2, gen, dtype, b, s, hq=16, hkv=8,
+                causal=True, tile="same"):
+    """Padded inputs on the card (the train shape by default): q, k, v, dO
+    random, O and lse from kernel B1, D_i = rowsum(dO * O).  The tile type
+    is `tile`, by default bf16 for bf16 inputs and None for fp32."""
+    d = 64
+    if tile == "same":
+        tile = torch.bfloat16 if dtype == torch.bfloat16 else None
     q, do = (torch.randn(b, hq, s, d, generator=gen, device="cuda").to(dtype)
              for _ in range(2))
     k, v = (torch.randn(b, hkv, s, d, generator=gen, device="cuda").to(dtype)
             for _ in range(2))
     raw = (q, k, v, do)
     q, k, v, scale, q_len, kv_len = attention._prepare(
-        q, k, v, True, None, tile, None, None, None, 0)
-    o, lse = fa2.fa2_forward_aligned(q, k, v, causal=True, sm_scale=scale,
+        q, k, v, causal, None, tile, None, None, None, 0)
+    o, lse = fa2.fa2_forward_aligned(q, k, v, causal=causal, sm_scale=scale,
                                      kv_len=kv_len, tile_dtype=tile)
     do = torch.nn.functional.pad(do, (0, 0, 0, q.shape[2] - s)).contiguous()
     di = (o.float() * do.float()).sum(-1)
-    kw = dict(causal=True, sm_scale=scale, kv_len=kv_len, tile_dtype=tile)
+    kw = dict(causal=causal, sm_scale=scale, kv_len=kv_len, tile_dtype=tile)
     return dict(q=q, k=k, v=v, o=o, do=do, lse=lse, di=di), kw, raw
 
 
@@ -384,78 +407,98 @@ def rel_err(a, b) -> float:
     return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
 
 
+def bwd_rows(torch, F, attention, fa2, bwd, gen, kind, dtype, b, s, names,
+             **problem):
+    """B2, B3 and B4 (those of `names`) against their plain versions on one
+    problem (bwd_problem's), each timed beside its bound, the plain version
+    and the library backward.  `kind` is the tile type's name."""
+    x, kw, raw = bwd_problem(torch, attention, fa2, gen, dtype, b, s, **problem)
+    q, k, v, o, do, lse, di = (x[n] for n in ("q", "k", "v", "o", "do", "lse", "di"))
+
+    def by_batch(fn, chunk=4):
+        """The plain version over batch slices of `chunk` (its whole-row
+        score tensors take 1 GiB each at B4 S2048), joined on batch."""
+        outs = [fn(slice(lo, lo + chunk)) for lo in range(0, b, chunk)]
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+
+    calls = {
+        "fa2_backward_fused": (
+            lambda: bwd.fa2_backward_fused_aligned(q, k, v, o, do, lse, **kw),
+            lambda: by_batch(lambda i: bwd.fa2_backward_fused_plain(
+                q[i], k[i], v[i], o[i], do[i], lse[i], **kw))),
+        "fa2_backward_dq": (
+            lambda: (bwd.fa2_backward_dq_aligned(q, k, v, do, lse, di, **kw),),
+            lambda: by_batch(lambda i: (bwd.fa2_backward_dq_plain(
+                q[i], k[i], v[i], do[i], lse[i], di[i], **kw),))),
+        "fa2_backward_dkv": (
+            lambda: bwd.fa2_backward_dkv_aligned(q, k, v, do, lse, di, **kw),
+            lambda: by_batch(lambda i: bwd.fa2_backward_dkv_plain(
+                q[i], k[i], v[i], do[i], lse[i], di[i], **kw))),
+    }
+    # The library runs in the tile type (fp32 where the tiles are fp32).
+    lib_dtype = kw["tile_dtype"] or raw[0].dtype
+    lib_ms, lib_how = library_backward_ms(
+        torch, F, *(t.to(lib_dtype) for t in raw), kw["sm_scale"], kw["causal"])
+    pairs = causal_pairs(s, s, kw["causal"])
+    hq, d = q.shape[1], q.shape[3]
+    # Bytes each kernel must move: q-sized tensors (q, o, dO, dQ), K and
+    # V (or dK and dV), and the fp32 row statistics (lse, D_i).
+    io = {"q": nbytes(raw[0]), "kv": nbytes(raw[1], raw[2]),
+          "stat": b * hq * s * 4}
+    moved = {
+        "fa2_backward_fused": 4 * io["q"] + 2 * io["kv"] + io["stat"],
+        "fa2_backward_dq": 3 * io["q"] + io["kv"] + 2 * io["stat"],
+        "fa2_backward_dkv": 2 * io["q"] + 2 * io["kv"] + 2 * io["stat"],
+    }
+    rows = []
+    for name in names:
+        kernel, plain = calls[name]
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        errs = [rel_err(g, w) for g, w in zip(got, want)]
+        abs_err = max((g.float() - w.float()).abs().max().item()
+                      for g, w in zip(got, want))
+        if kind == "fp16":
+            kw["tile_dtype"] = torch.bfloat16
+            control = [rel_err(g, w) for g, w in zip(kernel(), want)]
+            kw["tile_dtype"] = torch.float16
+            for i, (err, c) in enumerate(zip(errs, control)):
+                fp16_gate(f"{name} output {i} B{b} S{s}", err, c,
+                          FP16_REL_TOL["bwd"])
+        elif not max(errs) <= BWD_TOL[kind]:
+            raise AssertionError(f"{name} {kind} B{b} S{s}: relative errors "
+                                 f"{errs} (tol {BWD_TOL[kind]})")
+        del got, want
+        ms = time_ms(kernel, iters=10)
+        plain_ms = time_ms(plain, iters=3, warmup=1)
+        flops = BWD_MATMULS[name] * 2 * b * hq * pairs * d
+        t_bytes = moved[name] / HBM_BYTES_PER_S
+        t_ops = flops / PEAK_FLOPS[kind]
+        row = dict(kernel=name, kind=kind, inputs=str(dtype)[6:], B=b, Hq=hq,
+                   Hkv=k.shape[1], S=s, causal=kw["causal"], rel_err=max(errs),
+                   max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, library=lib_how,
+                   bound_ms=max(t_bytes, t_ops) * 1e3,
+                   bound_by="bytes" if t_bytes > t_ops else "operations",
+                   tflops=flops / ms / 1e9)
+        rows.append(row)
+        log("bwd", json.dumps(row))
+    return rows
+
+
 def phase_bwd(torch, F, attention, fa2, bwd):
-    """B2, B3 and B4 against their plain versions, each timed beside its
-    bound, the plain version and the library backward."""
+    """B2, B3 and B4 against their plain versions at the train shape (B4
+    Hq16 Hkv8 S2048 causal bf16), fp32 at B1 S512, a ragged S1000, and B3
+    and B4 at B16 S2048 (the split-route training shape)."""
     gen = torch.Generator(device="cuda").manual_seed(6)
     every = ("fa2_backward_fused", "fa2_backward_dq", "fa2_backward_dkv")
     rows = []
-    # B16 S2048 is the split-route training shape (phase 11): B3 and B4 only.
     for kind, b, s, names in (("bf16", 4, 2048, every), ("fp32", 1, 512, every),
                               ("bf16", 2, 1000, every),
                               ("bf16", 16, 2048, every[1:])):
         dtype = torch.bfloat16 if kind == "bf16" else torch.float32
-        x, kw, raw = bwd_problem(torch, attention, fa2, gen, dtype, b, s)
-        q, k, v, o, do, lse, di = (x[n] for n in ("q", "k", "v", "o", "do", "lse", "di"))
-
-        def by_batch(fn, chunk=4):
-            """The plain version over batch slices of `chunk` (its whole-row
-            score tensors take 1 GiB each at B4 S2048), joined on batch."""
-            outs = [fn(slice(lo, lo + chunk)) for lo in range(0, b, chunk)]
-            return tuple(torch.cat(parts) for parts in zip(*outs))
-
-        calls = {
-            "fa2_backward_fused": (
-                lambda: bwd.fa2_backward_fused_aligned(q, k, v, o, do, lse, **kw),
-                lambda: by_batch(lambda i: bwd.fa2_backward_fused_plain(
-                    q[i], k[i], v[i], o[i], do[i], lse[i], **kw))),
-            "fa2_backward_dq": (
-                lambda: (bwd.fa2_backward_dq_aligned(q, k, v, do, lse, di, **kw),),
-                lambda: by_batch(lambda i: (bwd.fa2_backward_dq_plain(
-                    q[i], k[i], v[i], do[i], lse[i], di[i], **kw),))),
-            "fa2_backward_dkv": (
-                lambda: bwd.fa2_backward_dkv_aligned(q, k, v, do, lse, di, **kw),
-                lambda: by_batch(lambda i: bwd.fa2_backward_dkv_plain(
-                    q[i], k[i], v[i], do[i], lse[i], di[i], **kw))),
-        }
-        lib_ms, lib_how = library_backward_ms(torch, F, *raw[:3], raw[3],
-                                              kw["sm_scale"])
-        pairs = causal_pairs(s, s, True)
-        hq, d = q.shape[1], q.shape[3]
-        # Bytes each kernel must move: q-sized tensors (q, o, dO, dQ), K and
-        # V (or dK and dV), and the fp32 row statistics (lse, D_i).
-        io = {"q": nbytes(raw[0]), "kv": nbytes(raw[1], raw[2]),
-              "stat": b * hq * s * 4}
-        moved = {
-            "fa2_backward_fused": 4 * io["q"] + 2 * io["kv"] + io["stat"],
-            "fa2_backward_dq": 3 * io["q"] + io["kv"] + 2 * io["stat"],
-            "fa2_backward_dkv": 2 * io["q"] + 2 * io["kv"] + 2 * io["stat"],
-        }
-        for name in names:
-            kernel, plain = calls[name]
-            got, want = kernel(), plain()
-            torch.cuda.synchronize()
-            errs = [rel_err(g, w) for g, w in zip(got, want)]
-            abs_err = max((g.float() - w.float()).abs().max().item()
-                          for g, w in zip(got, want))
-            if not max(errs) <= BWD_TOL[kind]:
-                raise AssertionError(f"{name} {kind} B{b} S{s}: relative errors "
-                                     f"{errs} (tol {BWD_TOL[kind]})")
-            del got, want
-            ms = time_ms(kernel, iters=10)
-            plain_ms = time_ms(plain, iters=3, warmup=1)
-            flops = BWD_MATMULS[name] * 2 * b * hq * pairs * d
-            t_bytes = moved[name] / HBM_BYTES_PER_S
-            t_ops = flops / PEAK_FLOPS[kind]
-            row = dict(kernel=name, kind=kind, B=b, S=s, rel_err=max(errs),
-                       max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
-                       library_ms=lib_ms, library=lib_how,
-                       bound_ms=max(t_bytes, t_ops) * 1e3,
-                       bound_by="bytes" if t_bytes > t_ops else "operations",
-                       tflops=flops / ms / 1e9)
-            rows.append(row)
-            log("bwd", json.dumps(row))
-        del x, raw
+        rows += bwd_rows(torch, F, attention, fa2, bwd, gen, kind, dtype, b, s,
+                         names)
     return rows
 
 
@@ -1027,6 +1070,343 @@ def phase_prefix_chunked(torch, np, transformer, decode, fa2, dec_attn):
     return res
 
 
+# The reference suite's configs on this path: (batch, heads, seq) at head
+# dim 64 (bench/configs.py).
+SUITE = {"Small-1": (1, 1, 128), "Small-2": (2, 4, 256), "Large-2": (4, 12, 1024),
+         "Edge-NonPowerOf2": (8, 16, 100), "Edge-SmallSeq": (8, 16, 32),
+         "Stress-1": (8, 16, 2048)}
+BASELINE_TOL = 1e-5  # B9/B10 vs plain: FA1 re-rounds O at every KV tile
+# Phase 17 gates against the fp32 oracle, absolute (bf16 gradients:
+# relative to the oracle's max |value|, as BWD_TOL; fp16 files: relative,
+# FP16_REL_TOL, besides the absolute O gate).  The fp32 forward gate
+# is the JAX one (2e-6, set at S <= 512) grown as sqrt(S / 512): the fp32
+# kernels sum P V sequentially over S keys, whose rounding grows as
+# sqrt(S); at Stress-1 (S 2048) that is 4e-6.
+CLI_O_TOL = {"fp16": 2e-2, "bf16": 2e-2}
+CLI_GRAD_TOL = {"fp32": 1e-3}
+# fp16 tiles are gated by fp16's own readings, each error relative to the
+# reference output's max |value|: well above the fp16 kernel's error and
+# below what the bf16 instantiation gives on the same inputs, which is held
+# as the control that must fail the gate.  A kernel that ran bf16 where
+# fp16 was asked, or lost part of a tile, fails it.  Readings on one H100
+# (fp16 / bf16, against the plain fp16 version): B8 <= 8.9e-5 / >= 2.6e-3,
+# B1 at Stress-1 1.3e-4 / 7.5e-3, B2-B4 at Stress-1 <= 1.6e-4 / >= 6.0e-3.
+FP16_REL_TOL = {"B1": 1e-3, "B8": 5e-4, "bwd": 1e-3}
+# The CLI's fp16 files against the fp32 oracle, per file (fp16 / bf16 run:
+# O 4.8e-5 / 3.1e-4, dQ 8.9e-3 / 4.8e-2, dK 3.8e-4 / 2.8e-3, dV 1.4e-4 /
+# 1.3e-3).  With dO = 1 on uniform inputs dQ is a small difference of
+# nearly equal sums, so its relative error is 20-60x dK's and dV's.
+CLI_FP16_REL_TOL = {"O.bin": 1.2e-4, "dQ.bin": 2e-2, "dK.bin": 1e-3, "dV.bin": 4e-4}
+
+
+def cli_o_tol(precision: str, s: int) -> float:
+    if precision == "fp32":
+        return 2e-6 * max(1.0, s / 512) ** 0.5
+    return CLI_O_TOL[precision]
+
+
+def fp16_gate(label: str, err: float, control_err: float, tol: float) -> None:
+    """fp16 tiles' relative error `err` within `tol`, and the bf16 control's
+    `control_err` on the same inputs beyond it."""
+    log("fp16 gate", json.dumps(dict(label=label, rel_err=err,
+                                     bf16_control_rel_err=control_err, tol=tol)))
+    if not err <= tol:
+        raise AssertionError(f"{label}: fp16 relative error {err} (tol {tol})")
+    if not control_err > tol:
+        raise AssertionError(f"{label}: the bf16 control's relative error "
+                             f"{control_err} passes the fp16 gate {tol}")
+
+
+def tile_of(torch, kind):
+    return {"fp32": None, "bf16": torch.bfloat16, "fp16": torch.float16}[kind]
+
+
+def attention_bound(b, h, s, d, causal, kind, *tensors):
+    """(ms, what bounds it, FLOPs) of one attention forward: 4 * D FLOPs per
+    attending (query, key) pair, each tensor moved once."""
+    flops = 4 * b * h * causal_pairs(s, s, causal) * d
+    t_bytes = nbytes(*tensors) / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[kind]
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations",
+            flops)
+
+
+def queued_ms(torch, fn, iters: int = 20) -> float:
+    """Mean device time per call of fn with the host's launch gaps taken
+    out: a sleep kernel holds the stream while the host queues all `iters`
+    calls, so the CUDA events around them time the card running them back
+    to back.  At microsecond sizes `time_ms` measures the host's launch
+    rate instead."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)  # ~25 ms of the card's clock
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def phase_b8(torch, F, attention, fa2):
+    """B8 against its plain version at the suite's small configs, in fp32,
+    bf16 and fp16 tiles, causal and not, timed beside B1 on the same padded
+    inputs, the plain version and SDPA in the tile type."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    rows = []
+    for name in ("Small-1", "Edge-NonPowerOf2", "Edge-SmallSeq"):
+        b, h, s = SUITE[name]
+        raw = [torch.randn(b, h, s, 64, generator=gen, device="cuda")
+               for _ in range(3)]
+        for kind in ("fp32", "bf16", "fp16"):
+            tile = tile_of(torch, kind)
+            lib_in = [t.to(tile or torch.float32) for t in raw]
+            for causal in (False, True):
+                q, k, v, scale, _, kv_len = attention._prepare(
+                    *raw, causal, None, tile, None, None, None, 0)
+                if not attention._use_small_kernel(q, k):
+                    raise AssertionError(f"B8 {name}: the route does not take B8")
+                kw = dict(causal=causal, sm_scale=scale, kv_len=kv_len,
+                          tile_dtype=tile)
+                o_k, lse_k = fa2.fa2_forward_small_aligned(q, k, v, **kw)
+                o_p, lse_p = fa2.fa2_forward_small_plain(q, k, v, **kw)
+                torch.cuda.synchronize()
+                err = (o_k - o_p).abs().max().item()
+                lse_err = ((lse_k - lse_p).abs() / lse_p.abs().clamp_min(1.0)).max().item()
+                if kind == "fp16":
+                    o_c, _ = fa2.fa2_forward_small_aligned(
+                        q, k, v, **dict(kw, tile_dtype=torch.bfloat16))
+                    fp16_gate(f"B8 {name} causal={causal}", rel_err(o_k, o_p),
+                              rel_err(o_c, o_p), FP16_REL_TOL["B8"])
+                    ok = lse_err <= LSE_REL_TOL
+                else:
+                    ok = err <= B1_TOL[kind] and lse_err <= LSE_REL_TOL
+                if not ok:
+                    raise AssertionError(
+                        f"B8 {name} {kind} causal={causal}: max_abs_err {err} "
+                        f"(tol {B1_TOL.get(kind)}), lse rel err {lse_err}")
+                bound_ms, bound_by, flops = attention_bound(
+                    b, h, s, 64, causal, kind, q, k, v, o_k, lse_k)
+                # Device times with the host's launch gaps taken out: at
+                # these sizes back-to-back events time the host.
+                row = dict(
+                    config=name, kind=kind, causal=causal, B=b, H=h, S=s,
+                    S_pad=q.shape[2], max_abs_err=err, lse_rel_err=lse_err,
+                    ms=queued_ms(torch, lambda: fa2.fa2_forward_small_aligned(
+                        q, k, v, **kw)),
+                    b1_ms=queued_ms(torch, lambda: fa2.fa2_forward_aligned(
+                        q, k, v, **kw)),
+                    plain_ms=queued_ms(torch, lambda: fa2.fa2_forward_small_plain(
+                        q, k, v, **kw)),
+                    library_ms=queued_ms(torch, lambda: F.scaled_dot_product_attention(
+                        *lib_in, is_causal=causal, scale=scale)),
+                    bound_ms=bound_ms, bound_by=bound_by)
+                rows.append(row)
+                log("B8", json.dumps(row))
+    return rows
+
+
+def phase_baselines(torch, F, base):
+    """B9 and B10 against their plain versions at Small-2, Large-2 and
+    Stress-1 in fp32, with SDPA's fp32 time on the same inputs."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    rows = []
+    for name in ("Small-2", "Large-2", "Stress-1"):
+        b, h, s = SUITE[name]
+        q, k, v = (torch.randn(b, h, s, 64, generator=gen, device="cuda")
+                   for _ in range(3))
+        kw = dict(sm_scale=64 ** -0.5, kv_len=s)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=kw["sm_scale"]))
+        for which, kernel, plain in (("fa1", base.fa1_aligned, base.fa1_plain),
+                                     ("naive_fa2", base.naive_fa2_aligned,
+                                      base.naive_fa2_plain)):
+            o_k, o_p = kernel(q, k, v, **kw), plain(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = (o_k - o_p).abs().max().item()
+            if not err <= BASELINE_TOL:
+                raise AssertionError(f"{which} {name}: max_abs_err {err} "
+                                     f"(tol {BASELINE_TOL})")
+            ms = time_ms(lambda: kernel(q, k, v, **kw), iters=10)
+            bound_ms, bound_by, flops = attention_bound(b, h, s, 64, False, "fp32",
+                                                        q, k, v, o_k)
+            row = dict(kernel=which, config=name, B=b, H=h, S=s, max_abs_err=err,
+                       ms=ms, plain_ms=time_ms(lambda: plain(q, k, v, **kw),
+                                               iters=3, warmup=1),
+                       library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+                       tflops=flops / ms / 1e9)
+            rows.append(row)
+            log("baseline", json.dumps(row))
+            del o_k, o_p
+    return rows
+
+
+def phase_fp16_tiles(torch, F, attention, fa2, bwd):
+    """fp16 tiles: B1 against its plain version at Stress-1 (not causal),
+    and B2, B3, B4 at Stress-1 and at the train shape (causal), all on fp32
+    inputs: bf16 inputs give bf16 outputs, whose rounding hides the tile
+    type from the fp16 gate."""
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    b, h, s = SUITE["Stress-1"]
+    q, k, v = (torch.randn(b, h, s, 64, generator=gen, device="cuda")
+               for _ in range(3))
+    kw = dict(causal=False, sm_scale=0.125, kv_len=s, tile_dtype=torch.float16)
+    o_k, lse_k = fa2.fa2_forward_aligned(q, k, v, **kw)
+    o_p, lse_p = fa2.fa2_forward_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = (o_k - o_p).abs().max().item()
+    lse_err = ((lse_k - lse_p).abs() / lse_p.abs().clamp_min(1.0)).max().item()
+    o_c, _ = fa2.fa2_forward_aligned(q, k, v, **dict(kw, tile_dtype=torch.bfloat16))
+    fp16_gate("B1 Stress-1", rel_err(o_k, o_p), rel_err(o_c, o_p), FP16_REL_TOL["B1"])
+    del o_c
+    if not lse_err <= LSE_REL_TOL:
+        raise AssertionError(f"B1 fp16 tiles Stress-1: lse rel err {lse_err}")
+    lib_in = [t.half() for t in (q, k, v)]
+    bound_ms, bound_by, flops = attention_bound(b, h, s, 64, False, "fp16",
+                                                q, k, v, o_k, lse_k)
+    ms = time_ms(lambda: fa2.fa2_forward_aligned(q, k, v, **kw))
+    b1 = dict(kernel="fa2_forward", kind="fp16", config="Stress-1",
+              max_abs_err=err, lse_rel_err=lse_err, ms=ms,
+              plain_ms=time_ms(lambda: fa2.fa2_forward_plain(q, k, v, **kw), iters=3),
+              library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                  *lib_in, scale=0.125)),
+              bound_ms=bound_ms, bound_by=bound_by, tflops=flops / ms / 1e9)
+    log("B1 fp16", json.dumps(b1))
+    del q, k, v, o_k, o_p, lib_in
+    every = ("fa2_backward_fused", "fa2_backward_dq", "fa2_backward_dkv")
+    rows = bwd_rows(torch, F, attention, fa2, bwd, gen, "fp16", torch.float32,
+                    b, s, every, hq=h, hkv=h, causal=False, tile=torch.float16)
+    rows += bwd_rows(torch, F, attention, fa2, bwd, gen, "fp16", torch.float32,
+                     4, 2048, every, tile=torch.float16)
+    return b1, rows
+
+
+def phase_cli(torch, np, cli, io, reference, build_dir):
+    """The CLI end to end on a numpy-seeded Stress-1 data directory: fa2 in
+    every mode and precision, fa1, fa2-naive and naive forward in fp32, fa2
+    forward on an Edge-NonPowerOf2 directory (B8); one run as
+    `python -m cuda_flash_attention_tpu_torch.cli` in a subprocess.  Every
+    written file is held to the fp32 oracle."""
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(build_dir, exist_ok=True)
+    checked = []
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        def data_dir(tag, arrays):
+            path = os.path.join(tmp, tag, io.data_dir_name(*arrays[0].shape))
+            os.makedirs(path)
+            for n, a in zip("QKV", arrays):
+                io.save_binary_file(os.path.join(path, f"{n}.bin"), a)
+            return path
+
+        def oracle(arrays, chunked):
+            q, k, v = (torch.from_numpy(a).cuda() for a in arrays)
+            if chunked:
+                o, lse = reference.vanilla_attention_chunked(q, k, v, return_lse=True)
+            else:
+                o, lse = reference.vanilla_attention_with_lse(q, k, v)
+            dq, dk, dv = reference.reference_attention_grads(q, k, v, chunked=chunked)
+            return {"O.bin": o, "logsumexp.bin": lse, "dQ.bin": dq, "dK.bin": dk,
+                    "dV.bin": dv}
+
+        rel = {}  # (precision, mode, file) -> error relative to the oracle's max
+
+        def check(path, ref, names, precision, how, mode=None):
+            for name in names:
+                want = ref[name]
+                got = torch.from_numpy(io.load_binary_file(
+                    os.path.join(path, name), tuple(want.shape))).cuda()
+                err = (got - want).abs().max().item()
+                rel[(precision, mode, name)] = err / want.abs().max().item()
+                if name == "logsumexp.bin":
+                    tol = 1e-5 if precision == "fp32" else LSE_REL_TOL * want.abs().max().item()
+                elif name == "O.bin":
+                    tol = cli_o_tol(precision, want.shape[2])
+                elif precision == "bf16":
+                    tol = BWD_TOL["bf16"] * want.abs().max().item()
+                elif precision == "fp16":  # relative, by fp16_gate below
+                    continue
+                else:
+                    tol = CLI_GRAD_TOL[precision]
+                checked.append(dict(run=how, file=name, max_abs_err=err, tol=tol))
+                if not err <= tol:
+                    raise AssertionError(f"cli {how}: {name} max_abs_err {err} "
+                                         f"(tol {tol})")
+
+        rng = np.random.default_rng(17)
+        stress = [rng.random((8, 16, 2048, 64), dtype=np.float32) for _ in range(3)]
+        ref = oracle(stress, chunked=True)
+        outputs = {"forward": ("O.bin", "logsumexp.bin"),
+                   "backward": ("dQ.bin", "dK.bin", "dV.bin"),
+                   "forward_backward": ("O.bin", "logsumexp.bin", "dQ.bin",
+                                        "dK.bin", "dV.bin")}
+        for precision in ("fp32", "fp16", "bf16"):
+            path = data_dir(precision, stress)
+            for mode in ("forward", "backward", "forward_backward"):
+                argv = ["fa2", mode, precision, path]
+                if (precision, mode) == ("fp32", "forward"):
+                    proc = subprocess.run(
+                        [sys.executable, "-m", "cuda_flash_attention_tpu_torch.cli",
+                         *argv], cwd=root, capture_output=True, text=True,
+                        timeout=600, env=dict(os.environ, PYTHONPATH=root))
+                    if proc.returncode != 0:
+                        raise AssertionError(f"cli subprocess: {proc.returncode}\n"
+                                             f"{proc.stdout}\n{proc.stderr}")
+                    log("cli subprocess:", proc.stdout.strip().splitlines()[-1])
+                elif cli.main(argv) != 0:
+                    raise AssertionError(f"cli {argv}: non-zero exit")
+                check(path, ref, outputs[mode], precision, f"fa2 {mode} {precision}",
+                      mode)
+        # fp16 files against fp16's own gates, the bf16 run's same file as
+        # the control.
+        for (precision, mode, name), err in rel.items():
+            if precision == "fp16" and name != "logsumexp.bin":
+                fp16_gate(f"cli fa2 {mode} {name}", err, rel[("bf16", mode, name)],
+                          CLI_FP16_REL_TOL[name])
+        for method in ("fa1", "fa2-naive", "naive"):
+            path = data_dir(method, stress)
+            if cli.main([method, "forward", "fp32", path]) != 0:
+                raise AssertionError(f"cli {method}: non-zero exit")
+            names = ("O.bin", "logsumexp.bin") if method == "naive" else ("O.bin",)
+            if os.path.exists(os.path.join(path, "logsumexp.bin")) != (method == "naive"):
+                raise AssertionError(f"cli {method}: logsumexp.bin written wrongly")
+            check(path, ref, names, "fp32", f"{method} forward fp32")
+        del ref
+        edge = [rng.random((8, 16, 100, 64), dtype=np.float32) for _ in range(3)]
+        path = data_dir("edge", edge)
+        if cli.main(["fa2", "forward", "fp32", path]) != 0:
+            raise AssertionError("cli edge: non-zero exit")
+        check(path, oracle(edge, chunked=False), outputs["forward"], "fp32",
+              "fa2 forward fp32 Edge-NonPowerOf2")
+    worst = max(checked, key=lambda c: c["max_abs_err"] / c["tol"])
+    log("cli", json.dumps(dict(files_checked=len(checked), worst=worst)))
+    return checked
+
+
+def phase_harness(harness, configs):
+    """The reference suite through the harness on the card: the forward
+    experiment (10 configs x fa2-naive, vanilla, fa2), fa1 forward and fa2
+    both, fp32 at tolerance 1e-3.  Any FAIL row raises."""
+    cfgs = (configs.create_experiment_configs("forward")
+            + configs.create_test_configs("forward", "fa1")
+            + configs.create_test_configs("both", "fa2"))
+    h = harness.Harness(tolerance=1e-3, iters=5, warmup=1, device="cuda")
+    results = h.run(cfgs)
+    header = list(results[0].as_row())
+    log("harness csv:", ",".join(header))
+    for r in results:
+        log("harness csv:", ",".join(str(x) for x in r.as_row().values()))
+    log(h.summary())
+    failed = [r.as_row() for r in results if not r.passed]
+    if failed or len(results) != len(cfgs):
+        raise AssertionError(f"harness: {len(failed)} FAIL rows of {len(results)} "
+                             f"run ({len(cfgs)} configs): {failed[:1]}")
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -1043,11 +1423,16 @@ def main() -> int:
     import cuda_flash_attention_tpu_torch.decode as decode
     from cuda_flash_attention_tpu_torch.decode import attention as dec_attn
     from cuda_flash_attention_tpu_torch.decode import kv_cache
+    from cuda_flash_attention_tpu_torch import cli
+    from cuda_flash_attention_tpu_torch.bench import configs, harness
     from cuda_flash_attention_tpu_torch.kernels import _build, attention
+    from cuda_flash_attention_tpu_torch.kernels import baselines as base
     from cuda_flash_attention_tpu_torch.kernels import fa2_backward as bwd
     from cuda_flash_attention_tpu_torch.kernels import fa2_forward as fa2
     from cuda_flash_attention_tpu_torch.kernels.common import BlockSizes
     from cuda_flash_attention_tpu_torch.models import training, transformer
+    from cuda_flash_attention_tpu_torch.ops import reference
+    from cuda_flash_attention_tpu_torch.utils import io
 
     # fp32 means fp32: no TF32 in the plain versions' matmuls.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1059,7 +1444,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     build_logs = _build.build("fa2_forward", "paged_decode", "fa2_backward",
-                              "paged_chunk")
+                              "paged_chunk", "fa2_forward_small", "baselines")
     log(f"phase 1: built {sorted(build_logs)} in {time.perf_counter() - t0:.1f} s")
     for name, text in build_logs.items():
         for line in text.splitlines():
@@ -1123,6 +1508,37 @@ def main() -> int:
     prefix = phase_prefix_chunked(torch, np, transformer, decode, fa2, dec_attn)
     log(f"phase 15: prefix caching and chunked prefill ok in "
         f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    b8 = phase_b8(torch, F, attention, fa2)
+    baseline_rows = phase_baselines(torch, F, base)
+    b1_fp16, bwd_fp16 = phase_fp16_tiles(torch, F, attention, fa2, bwd)
+    log(f"phase 16: B8, B9, B10 and fp16 tiles ok in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    # Every kernel's launches on the reference-contract path: the CLI (this
+    # process's runs) and the harness.  B1 runs fa2 at S > 128, B2 bf16/fp16
+    # backward at Stress-1, B3 + B4 fp32 backward there (split route).
+    fa2.launches = fa2.small_launches = 0
+    bwd.fused_launches = bwd.dq_launches = bwd.dkv_launches = 0
+    base.fa1_launches = base.naive_fa2_launches = 0
+    t0 = time.perf_counter()
+    phase_cli(torch, np, cli, io, reference, str(_build.BUILD_DIR.parent))
+    log(f"phase 17: CLI ok in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_harness(harness, configs)
+    contract_launches = {"fa2_forward": fa2.launches,
+                         "fa2_forward_small": fa2.small_launches,
+                         "fa2_backward_fused": bwd.fused_launches,
+                         "fa2_backward_dq": bwd.dq_launches,
+                         "fa2_backward_dkv": bwd.dkv_launches,
+                         "fa1": base.fa1_launches,
+                         "naive_fa2": base.naive_fa2_launches}
+    log(f"phase 18: harness ok in {time.perf_counter() - t0:.1f} s; launches "
+        f"in phases 17-18: {json.dumps(contract_launches)}")
+    if not all(contract_launches.values()):
+        raise AssertionError(f"phases 17-18: a kernel never ran: {contract_launches}")
 
     # Representative shapes for the kernel line: the serving phase's largest
     # prefill (B4 S1536 bf16) and the int8 cache with bf16 compute.
@@ -1184,6 +1600,37 @@ def main() -> int:
         max_abs_err=max(r["max_abs_err"] for r in b6 if r["compute"] == "bf16"),
         ms=r6["ms"], plain_ms=r6["plain_ms"], bound_ms=r6["bound_ms"],
         bound_by=r6["bound_by"], library_ms=None))
+    # B8 at the suite's Edge-NonPowerOf2 config in fp32 (the harness's
+    # precision), beside B1 on the same inputs; B9 and B10 at Stress-1.
+    r8 = next(r for r in b8 if (r["config"], r["kind"], r["causal"])
+              == ("Edge-NonPowerOf2", "fp32", False))
+    log("B8 against B1 on the same padded inputs (device ms):", json.dumps(
+        [{k: r[k] for k in ("config", "kind", "causal", "ms", "b1_ms")}
+         for r in b8]))
+    kernels.append(dict(
+        name="fa2_forward_small", route="cuda",
+        source="cuda_flash_attention_tpu_torch/csrc/fa2_forward_small.cu",
+        replaces="cuda_flash_attention_tpu/kernels/fa2_forward.py:510",
+        launches=contract_launches["fa2_forward_small"],
+        max_abs_err=max(r["max_abs_err"] for r in b8 if r["kind"] == "fp32"),
+        ms=r8["ms"], b1_ms=r8["b1_ms"], plain_ms=r8["plain_ms"],
+        bound_ms=r8["bound_ms"], bound_by=r8["bound_by"],
+        library_ms=r8["library_ms"]))
+    for name, line in (("fa1", 110), ("naive_fa2", 230)):
+        r = next(r for r in baseline_rows
+                 if (r["kernel"], r["config"]) == (name, "Stress-1"))
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="cuda_flash_attention_tpu_torch/csrc/baselines.cu",
+            replaces=f"cuda_flash_attention_tpu/kernels/baselines.py:{line}",
+            launches=contract_launches[name],
+            max_abs_err=max(x["max_abs_err"] for x in baseline_rows
+                            if x["kernel"] == name),
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"]))
+    log("fp16 tiles:", json.dumps({"B1 Stress-1": b1_fp16, "B2-B4": [
+        {k: r[k] for k in ("kernel", "inputs", "B", "S", "causal", "ms",
+                           "bound_ms", "library_ms", "rel_err")} for r in bwd_fp16]}))
     log(json.dumps({"e2e_logit_diff": e2e, "train_parity": parity,
                     "autograd": autograd, "remat": remat,
                     "spec_parity": spec_parity}))

@@ -9,9 +9,12 @@ kernel's plain PyTorch version runs instead.
 
 Ported so far: the serving path (prefill through the FA2 forward kernel,
 int8 paged-KV decode through the paged decode kernel, the continuous-
-batching DecodeEngine) and the training path (the FA2 backward kernels
+batching DecodeEngine), the training path (the FA2 backward kernels
 behind a differentiable flash_attention, the loss, the SGD-momentum and
-AdamW train steps).  This package imports torch and numpy, never jax.
+AdamW train steps) and the reference contract (the dispatch registry, the
+CLI, the accuracy and benchmark harness, the small-shape FA2 forward and
+the FA1 / naive-FA2 baseline kernels).  This package imports torch and
+numpy, never jax.
 """
 
 __version__ = "0.1.0"

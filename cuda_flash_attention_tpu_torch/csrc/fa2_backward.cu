@@ -36,11 +36,12 @@
 //     deterministic and uses no atomicAdd.
 //   * B3: one block per (64-row Q tile, b*Hq), four warps of 16 Q rows; the
 //     KV loop stops at the diagonal tile, as the forward's does.
-//   * bf16 tiles run on mma.sync m16n8k16 with fp32 accumulation; fp32 tiles
-//     run on the FMA units (no TF32), held to IEEE fp32.
+//   * bf16 and fp16 tiles run on mma.sync m16n8k16 with fp32 accumulation;
+//     fp32 tiles run on the FMA units (no TF32), held to IEEE fp32.
 // wgmma, TMA and a pipelined ring of Q tiles are later work.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -82,10 +83,46 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+// The two 16-bit tile types of the tensor-core path: packing two fp32 values
+// (round to nearest even) and the m16n8k16 product with fp32 accumulation.
+template <typename Tt>
+struct Tile;
+
+template <>
+struct Tile<__nv_bfloat16> {
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+  // c += a (16x16, row) * b (16x8, col).
+  static __device__ __forceinline__ void mma(float* c, const uint32_t* a,
+                                             uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+};
+
+// fp16 tiles overflow above 65504 and keep P below 2^-14 as subnormals,
+// where the JAX package's fp16 emulation (a 10-bit mantissa in fp32) does
+// neither; the two agree in fp16's normal range.
+template <>
+struct Tile<__half> {
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+  static __device__ __forceinline__ void mma(float* c, const uint32_t* a,
+                                             uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -105,17 +142,7 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
       : "r"(smem_addr(p)));
 }
 
-// c += a (16x16 bf16, row) * b (16x8 bf16, col), fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Fragment addresses for ldmatrix.x4 on a bf16 shared tile with leading
+// Fragment addresses for ldmatrix.x4 on a 16-bit shared tile with leading
 // dimension ld (elements).  Fragment layouts are those of mma.m16n8k16:
 // thread (g = lane / 4, t = lane % 4) holds accumulator elements (row g,
 // cols 2t, 2t+1) and (row g + 8, cols 2t, 2t+1) of each 8-column n-tile.
@@ -138,11 +165,11 @@ __device__ __forceinline__ int b_off_kn(int lane, int ld, int n0, int k0) {
   return (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + n0 + (lane >> 4) * 8;
 }
 
-// Copy rows [row0, row0 + ROWS) of a [nrows, D] matrix into a bf16 shared
-// tile with leading dimension LD, multiplied by `scale` in fp32 before the
-// rounding.  Rows past nrows are zero.
-template <typename Tin, int D, int ROWS, int LD, int NTHREADS>
-__device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst, const Tin* src,
+// Copy rows [row0, row0 + ROWS) of a [nrows, D] matrix into a 16-bit shared
+// tile of type Tt with leading dimension LD, multiplied by `scale` in fp32
+// before the rounding.  Rows past nrows are zero.
+template <typename Tt, typename Tin, int D, int ROWS, int LD, int NTHREADS>
+__device__ __forceinline__ void stage_tile(Tt* dst, const Tin* src,
                                            int row0, int nrows, float scale) {
   constexpr int kChunks = D / 8;
   for (int i = threadIdx.x; i < ROWS * kChunks; i += NTHREADS) {
@@ -156,15 +183,15 @@ __device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst, const Tin* src,
       for (int j = 0; j < 8; ++j) x[j] = 0.f;
     }
     uint4 packed;
-    packed.x = pack_bf16(x[0] * scale, x[1] * scale);
-    packed.y = pack_bf16(x[2] * scale, x[3] * scale);
-    packed.z = pack_bf16(x[4] * scale, x[5] * scale);
-    packed.w = pack_bf16(x[6] * scale, x[7] * scale);
+    packed.x = Tile<Tt>::pack(x[0] * scale, x[1] * scale);
+    packed.y = Tile<Tt>::pack(x[2] * scale, x[3] * scale);
+    packed.z = Tile<Tt>::pack(x[4] * scale, x[5] * scale);
+    packed.w = Tile<Tt>::pack(x[6] * scale, x[7] * scale);
     *reinterpret_cast<uint4*>(dst + r * LD + c) = packed;
   }
 }
 
-// The fp32 twin of stage_bf16 (no rounding).
+// The fp32 twin of stage_tile (no rounding).
 template <int D, int ROWS, int LD, int NTHREADS>
 __device__ __forceinline__ void stage_f32(float* dst, const float* src,
                                           int row0, int nrows, float scale) {
@@ -219,12 +246,12 @@ __device__ __forceinline__ void stage_stats(float* lse2_s, float* di_s,
 }
 
 // ---------------------------------------------------------------------------
-// B2 (FUSED) and B4 with bf16 tiles on the tensor cores.  256 threads; warp
+// B2 (FUSED) and B4 with bf16 or fp16 tiles (Tt) on the tensor cores.  256 threads; warp
 // w owns KV rows [16w, 16w + 16) of the block's 128-row KV tile.  Q tiles are
 // BQ rows: 64 at D = 64, 32 at D = 128 (the S^T and dP^T accumulators shrink
 // to make room for the wider dK and dV ones).
 // ---------------------------------------------------------------------------
-template <typename Tin, int D, bool FUSED>
+template <typename Tin, typename Tt, int D, bool FUSED>
 __global__ void __launch_bounds__(256)
 bwd_kv_mma(const Tin* __restrict__ q, const Tin* __restrict__ k,
            const Tin* __restrict__ v, const Tin* __restrict__ o,
@@ -238,11 +265,11 @@ bwd_kv_mma(const Tin* __restrict__ q, const Tin* __restrict__ k,
   constexpr int RG = BQ / 16;  // dQ partial: 16-row groups of the Q tile
   constexpr int NC = D * RG / 8;  // ... and columns per warp (8 warps)
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* vs = ks + kKvRows * LD;
-  __nv_bfloat16* qs = vs + kKvRows * LD;
-  __nv_bfloat16* dos = qs + BQ * LD;
-  __nv_bfloat16* dst = dos + BQ * LD;
+  Tt* ks = reinterpret_cast<Tt*>(smem_raw);
+  Tt* vs = ks + kKvRows * LD;
+  Tt* qs = vs + kKvRows * LD;
+  Tt* dos = qs + BQ * LD;
+  Tt* dst = dos + BQ * LD;
   float* lse2_s = reinterpret_cast<float*>(dst + (FUSED ? kKvRows * LDS : 0));
   float* di_s = lse2_s + BQ;
 
@@ -259,8 +286,8 @@ bwd_kv_mma(const Tin* __restrict__ q, const Tin* __restrict__ k,
   const int groups = hq / hkv;
   const size_t kv_off = static_cast<size_t>(bh) * skv * D;
 
-  stage_bf16<Tin, D, kKvRows, LD, 256>(ks, k + kv_off, k0, skv, 1.f);
-  stage_bf16<Tin, D, kKvRows, LD, 256>(vs, v + kv_off, k0, skv, 1.f);
+  stage_tile<Tt, Tin, D, kKvRows, LD, 256>(ks, k + kv_off, k0, skv, 1.f);
+  stage_tile<Tt, Tin, D, kKvRows, LD, 256>(vs, v + kv_off, k0, skv, 1.f);
 
   float dk_acc[D / 8][4], dv_acc[D / 8][4];
 #pragma unroll
@@ -293,8 +320,8 @@ bwd_kv_mma(const Tin* __restrict__ q, const Tin* __restrict__ k,
     for (int qt = q_first; qt < n_q_tiles; ++qt) {
       const int q0 = qt * BQ;
       __syncthreads();  // the previous tile's Q, dO, dS^T and stats are used
-      stage_bf16<Tin, D, BQ, LD, 256>(qs, qp, q0, sq, qscale);
-      stage_bf16<Tin, D, BQ, LD, 256>(dos, dop, q0, sq, 1.f);
+      stage_tile<Tt, Tin, D, BQ, LD, 256>(qs, qp, q0, sq, qscale);
+      stage_tile<Tt, Tin, D, BQ, LD, 256>(dos, dop, q0, sq, 1.f);
       stage_stats<Tin, D, BQ, 256, FUSED>(lse2_s, di_s, lp, dip, op, dop, q0,
                                           sq);
       __syncthreads();
@@ -316,10 +343,10 @@ bwd_kv_mma(const Tin* __restrict__ q, const Tin* __restrict__ k,
           uint32_t bq[4], bd[4];
           ldmatrix_x4(bq, qs + b_off_nk(lane, LD, np * 16, kk * 16));
           ldmatrix_x4(bd, dos + b_off_nk(lane, LD, np * 16, kk * 16));
-          mma_bf16(st[2 * np], ka, bq[0], bq[1]);
-          mma_bf16(st[2 * np + 1], ka, bq[2], bq[3]);
-          mma_bf16(dpt[2 * np], va, bd[0], bd[1]);
-          mma_bf16(dpt[2 * np + 1], va, bd[2], bd[3]);
+          Tile<Tt>::mma(st[2 * np], ka, bq[0], bq[1]);
+          Tile<Tt>::mma(st[2 * np + 1], ka, bq[2], bq[3]);
+          Tile<Tt>::mma(dpt[2 * np], va, bd[0], bd[1]);
+          Tile<Tt>::mma(dpt[2 * np + 1], va, bd[2], bd[3]);
         }
       }
 
@@ -344,23 +371,23 @@ bwd_kv_mma(const Tin* __restrict__ q, const Tin* __restrict__ k,
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk) {
         uint32_t pa[4], sa[4];
-        pa[0] = pack_bf16(st[2 * kk][0], st[2 * kk][1]);
-        pa[1] = pack_bf16(st[2 * kk][2], st[2 * kk][3]);
-        pa[2] = pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]);
-        pa[3] = pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3]);
-        sa[0] = pack_bf16(dpt[2 * kk][0], dpt[2 * kk][1]);
-        sa[1] = pack_bf16(dpt[2 * kk][2], dpt[2 * kk][3]);
-        sa[2] = pack_bf16(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]);
-        sa[3] = pack_bf16(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3]);
+        pa[0] = Tile<Tt>::pack(st[2 * kk][0], st[2 * kk][1]);
+        pa[1] = Tile<Tt>::pack(st[2 * kk][2], st[2 * kk][3]);
+        pa[2] = Tile<Tt>::pack(st[2 * kk + 1][0], st[2 * kk + 1][1]);
+        pa[3] = Tile<Tt>::pack(st[2 * kk + 1][2], st[2 * kk + 1][3]);
+        sa[0] = Tile<Tt>::pack(dpt[2 * kk][0], dpt[2 * kk][1]);
+        sa[1] = Tile<Tt>::pack(dpt[2 * kk][2], dpt[2 * kk][3]);
+        sa[2] = Tile<Tt>::pack(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]);
+        sa[3] = Tile<Tt>::pack(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3]);
 #pragma unroll
         for (int dp = 0; dp < D / 16; ++dp) {
           uint32_t bd[4], bq[4];
           ldmatrix_x4_trans(bd, dos + b_off_kn(lane, LD, dp * 16, kk * 16));
           ldmatrix_x4_trans(bq, qs + b_off_kn(lane, LD, dp * 16, kk * 16));
-          mma_bf16(dv_acc[2 * dp], pa, bd[0], bd[1]);
-          mma_bf16(dv_acc[2 * dp + 1], pa, bd[2], bd[3]);
-          mma_bf16(dk_acc[2 * dp], sa, bq[0], bq[1]);
-          mma_bf16(dk_acc[2 * dp + 1], sa, bq[2], bq[3]);
+          Tile<Tt>::mma(dv_acc[2 * dp], pa, bd[0], bd[1]);
+          Tile<Tt>::mma(dv_acc[2 * dp + 1], pa, bd[2], bd[3]);
+          Tile<Tt>::mma(dk_acc[2 * dp], sa, bq[0], bq[1]);
+          Tile<Tt>::mma(dk_acc[2 * dp + 1], sa, bq[2], bq[3]);
         }
       }
 
@@ -372,9 +399,9 @@ bwd_kv_mma(const Tin* __restrict__ q, const Tin* __restrict__ k,
         for (int j = 0; j < BQ / 8; ++j) {
           const int c = j * 8 + t4 * 2;
           *reinterpret_cast<uint32_t*>(dst + (warp * 16 + g) * LDS + c) =
-              pack_bf16(dpt[j][0], dpt[j][1]);
+              Tile<Tt>::pack(dpt[j][0], dpt[j][1]);
           *reinterpret_cast<uint32_t*>(dst + (warp * 16 + g + 8) * LDS + c) =
-              pack_bf16(dpt[j][2], dpt[j][3]);
+              Tile<Tt>::pack(dpt[j][2], dpt[j][3]);
         }
         __syncthreads();
         const int rg = warp % RG;
@@ -393,8 +420,8 @@ bwd_kv_mma(const Tin* __restrict__ q, const Tin* __restrict__ k,
           for (int np = 0; np < NC / 16; ++np) {
             uint32_t bk[4];
             ldmatrix_x4_trans(bk, ks + b_off_kn(lane, LD, c0 + np * 16, kk * 16));
-            mma_bf16(dq[2 * np], a, bk[0], bk[1]);
-            mma_bf16(dq[2 * np + 1], a, bk[2], bk[3]);
+            Tile<Tt>::mma(dq[2 * np], a, bk[0], bk[1]);
+            Tile<Tt>::mma(dq[2 * np + 1], a, bk[2], bk[3]);
           }
         }
         const int ra = q0 + rg * 16 + g;
@@ -428,11 +455,11 @@ bwd_kv_mma(const Tin* __restrict__ q, const Tin* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// B3 with bf16 tiles on the tensor cores.  128 threads; warp w owns Q rows
+// B3 with bf16 or fp16 tiles (Tt) on the tensor cores.  128 threads; warp w owns Q rows
 // [16w, 16w + 16) of the block's 64-row Q tile; the loop walks 64-row KV
 // tiles up to the diagonal.
 // ---------------------------------------------------------------------------
-template <typename Tin, int D>
+template <typename Tin, typename Tt, int D>
 __global__ void __launch_bounds__(128)
 bwd_dq_mma(const Tin* __restrict__ q, const Tin* __restrict__ k,
            const Tin* __restrict__ v, const Tin* __restrict__ dout,
@@ -441,10 +468,10 @@ bwd_dq_mma(const Tin* __restrict__ q, const Tin* __restrict__ k,
            float qscale, float sm_scale, int causal) {
   constexpr int LD = D + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* dos = qs + kDqRows * LD;
-  __nv_bfloat16* ks = dos + kDqRows * LD;
-  __nv_bfloat16* vs = ks + kDqKv * LD;
+  Tt* qs = reinterpret_cast<Tt*>(smem_raw);
+  Tt* dos = qs + kDqRows * LD;
+  Tt* ks = dos + kDqRows * LD;
+  Tt* vs = ks + kDqKv * LD;
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -460,8 +487,8 @@ bwd_dq_mma(const Tin* __restrict__ q, const Tin* __restrict__ k,
   const Tin* kp = k + (static_cast<size_t>(b) * hkv + hk) * skv * D;
   const Tin* vp = v + (static_cast<size_t>(b) * hkv + hk) * skv * D;
 
-  stage_bf16<Tin, D, kDqRows, LD, 128>(qs, qp, q0, sq, qscale);
-  stage_bf16<Tin, D, kDqRows, LD, 128>(dos, dop, q0, sq, 1.f);
+  stage_tile<Tt, Tin, D, kDqRows, LD, 128>(qs, qp, q0, sq, qscale);
+  stage_tile<Tt, Tin, D, kDqRows, LD, 128>(dos, dop, q0, sq, 1.f);
   const int row_a = q0 + warp * 16 + g;
   const int row_b = row_a + 8;
   float lse2[2], dd[2];
@@ -483,8 +510,8 @@ bwd_dq_mma(const Tin* __restrict__ q, const Tin* __restrict__ k,
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * kDqKv;
     __syncthreads();  // every warp is done with the previous K/V tile
-    stage_bf16<Tin, D, kDqKv, LD, 128>(ks, kp, k0, skv, 1.f);
-    stage_bf16<Tin, D, kDqKv, LD, 128>(vs, vp, k0, skv, 1.f);
+    stage_tile<Tt, Tin, D, kDqKv, LD, 128>(ks, kp, k0, skv, 1.f);
+    stage_tile<Tt, Tin, D, kDqKv, LD, 128>(vs, vp, k0, skv, 1.f);
     __syncthreads();
 
     float s[kDqKv / 8][4], dp[kDqKv / 8][4];
@@ -503,10 +530,10 @@ bwd_dq_mma(const Tin* __restrict__ q, const Tin* __restrict__ k,
         uint32_t bk[4], bv[4];
         ldmatrix_x4(bk, ks + b_off_nk(lane, LD, np * 16, kk * 16));
         ldmatrix_x4(bv, vs + b_off_nk(lane, LD, np * 16, kk * 16));
-        mma_bf16(s[2 * np], qa, bk[0], bk[1]);
-        mma_bf16(s[2 * np + 1], qa, bk[2], bk[3]);
-        mma_bf16(dp[2 * np], da, bv[0], bv[1]);
-        mma_bf16(dp[2 * np + 1], da, bv[2], bv[3]);
+        Tile<Tt>::mma(s[2 * np], qa, bk[0], bk[1]);
+        Tile<Tt>::mma(s[2 * np + 1], qa, bk[2], bk[3]);
+        Tile<Tt>::mma(dp[2 * np], da, bv[0], bv[1]);
+        Tile<Tt>::mma(dp[2 * np + 1], da, bv[2], bv[3]);
       }
     }
 
@@ -528,16 +555,16 @@ bwd_dq_mma(const Tin* __restrict__ q, const Tin* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < kDqKv / 16; ++kk) {
       uint32_t sa[4];
-      sa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      sa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      sa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      sa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      sa[0] = Tile<Tt>::pack(s[2 * kk][0], s[2 * kk][1]);
+      sa[1] = Tile<Tt>::pack(s[2 * kk][2], s[2 * kk][3]);
+      sa[2] = Tile<Tt>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      sa[3] = Tile<Tt>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 #pragma unroll
       for (int dp2 = 0; dp2 < D / 16; ++dp2) {
         uint32_t bk[4];
         ldmatrix_x4_trans(bk, ks + b_off_kn(lane, LD, dp2 * 16, kk * 16));
-        mma_bf16(acc[2 * dp2], sa, bk[0], bk[1]);
-        mma_bf16(acc[2 * dp2 + 1], sa, bk[2], bk[3]);
+        Tile<Tt>::mma(acc[2 * dp2], sa, bk[0], bk[1]);
+        Tile<Tt>::mma(acc[2 * dp2 + 1], sa, bk[2], bk[3]);
       }
     }
   }
@@ -896,19 +923,19 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename Tin, int D, bool FUSED>
+template <typename Tin, typename Tt, int D, bool FUSED>
 cudaError_t launch_kv_mma(const Args& a) {
   constexpr int BQ = D == 128 ? 32 : 64;
   const size_t smem =
-      (2 * kKvRows + 2 * BQ) * (D + 8) * sizeof(__nv_bfloat16) +
-      (FUSED ? kKvRows * (BQ + 8) * sizeof(__nv_bfloat16) : 0) +
+      (2 * kKvRows + 2 * BQ) * (D + 8) * sizeof(Tt) +
+      (FUSED ? kKvRows * (BQ + 8) * sizeof(Tt) : 0) +
       2 * BQ * sizeof(float);
   static std::atomic<uint64_t> smem_set{0};
-  cudaError_t err = set_smem_once(bwd_kv_mma<Tin, D, FUSED>,
+  cudaError_t err = set_smem_once(bwd_kv_mma<Tin, Tt, D, FUSED>,
                                   static_cast<int>(smem), smem_set);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.skv + kKvRows - 1) / kKvRows, a.batch * a.hkv);
-  bwd_kv_mma<Tin, D, FUSED><<<grid, 256, smem, a.stream>>>(
+  bwd_kv_mma<Tin, Tt, D, FUSED><<<grid, 256, smem, a.stream>>>(
       static_cast<const Tin*>(a.q), static_cast<const Tin*>(a.k),
       static_cast<const Tin*>(a.v), static_cast<const Tin*>(a.o),
       static_cast<const Tin*>(a.dout), a.lse, a.di, static_cast<Tin*>(a.dk),
@@ -936,15 +963,15 @@ cudaError_t launch_kv_fp32(const Args& a) {
   return cudaGetLastError();
 }
 
-template <typename Tin, int D>
+template <typename Tin, typename Tt, int D>
 cudaError_t launch_dq_mma(const Args& a) {
-  const size_t smem = (2 * kDqRows + 2 * kDqKv) * (D + 8) * sizeof(__nv_bfloat16);
+  const size_t smem = (2 * kDqRows + 2 * kDqKv) * (D + 8) * sizeof(Tt);
   static std::atomic<uint64_t> smem_set{0};
-  cudaError_t err = set_smem_once(bwd_dq_mma<Tin, D>, static_cast<int>(smem),
-                                  smem_set);
+  cudaError_t err = set_smem_once(bwd_dq_mma<Tin, Tt, D>,
+                                  static_cast<int>(smem), smem_set);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.sq + kDqRows - 1) / kDqRows, a.batch * a.hq);
-  bwd_dq_mma<Tin, D><<<grid, 128, smem, a.stream>>>(
+  bwd_dq_mma<Tin, Tt, D><<<grid, 128, smem, a.stream>>>(
       static_cast<const Tin*>(a.q), static_cast<const Tin*>(a.k),
       static_cast<const Tin*>(a.v), static_cast<const Tin*>(a.dout), a.lse,
       a.di, static_cast<Tin*>(a.dq), a.hq, a.hkv, a.sq, a.skv, a.kv_len,
@@ -969,19 +996,34 @@ cudaError_t launch_dq_fp32(const Args& a) {
   return cudaGetLastError();
 }
 
-// in_bf16: q/k/v/o/dO and the gradients are bf16 (else fp32).  bf16_tiles:
-// tensor-core bf16 tiles (else fp32 FMA; needs fp32 inputs).
+// The tensor-core instantiations of one input type and head dim: tiles 1
+// is bf16, 2 fp16.
+template <typename Tin, int D, bool FUSED>
+int launch_kv_mma_tiles(const Args& a, int tiles) {
+  return tiles == 1 ? launch_kv_mma<Tin, __nv_bfloat16, D, FUSED>(a)
+                    : launch_kv_mma<Tin, __half, D, FUSED>(a);
+}
+
+template <typename Tin, int D>
+int launch_dq_mma_tiles(const Args& a, int tiles) {
+  return tiles == 1 ? launch_dq_mma<Tin, __nv_bfloat16, D>(a)
+                    : launch_dq_mma<Tin, __half, D>(a);
+}
+
+// in_bf16: q/k/v/o/dO and the gradients are bf16 (else fp32).  tiles: 0
+// fp32 on the FMA units (needs fp32 inputs), 1 bf16 or 2 fp16 on the tensor
+// cores.
 template <bool FUSED>
-int dispatch_kv(const Args& a, int head_dim, int in_bf16, int bf16_tiles) {
-  if (bf16_tiles) {
+int dispatch_kv(const Args& a, int head_dim, int in_bf16, int tiles) {
+  if (tiles == 1 || tiles == 2) {
     if (in_bf16) {
-      if (head_dim == 64) return launch_kv_mma<__nv_bfloat16, 64, FUSED>(a);
-      if (head_dim == 128) return launch_kv_mma<__nv_bfloat16, 128, FUSED>(a);
+      if (head_dim == 64) return launch_kv_mma_tiles<__nv_bfloat16, 64, FUSED>(a, tiles);
+      if (head_dim == 128) return launch_kv_mma_tiles<__nv_bfloat16, 128, FUSED>(a, tiles);
     } else {
-      if (head_dim == 64) return launch_kv_mma<float, 64, FUSED>(a);
-      if (head_dim == 128) return launch_kv_mma<float, 128, FUSED>(a);
+      if (head_dim == 64) return launch_kv_mma_tiles<float, 64, FUSED>(a, tiles);
+      if (head_dim == 128) return launch_kv_mma_tiles<float, 128, FUSED>(a, tiles);
     }
-  } else if (!in_bf16) {
+  } else if (tiles == 0 && !in_bf16) {
     if (head_dim == 64) return launch_kv_fp32<64, FUSED>(a);
     if (head_dim == 128) return launch_kv_fp32<128, FUSED>(a);
   }
@@ -992,10 +1034,10 @@ int dispatch_kv(const Args& a, int head_dim, int in_bf16, int bf16_tiles) {
 
 extern "C" {
 
-// Rows of the KV tile that owns one dQ slice in B2: dq_part has
-// ceil(skv / tile) slices.
-int cfa_fa2_backward_kv_tile(int bf16_tiles) {
-  return bf16_tiles ? kKvRows : kTile32;
+// Rows of the KV tile that owns one dQ slice in B2 for tile code `tiles`:
+// dq_part has ceil(skv / tile) slices.
+int cfa_fa2_backward_kv_tile(int tiles) {
+  return tiles ? kKvRows : kTile32;
 }
 
 // B2.  q, o, dout [batch, hq, sq, head_dim]; k, v, dk, dv [batch, hkv, skv,
@@ -1007,11 +1049,11 @@ int cfa_fa2_backward_fused(const void* q, const void* k, const void* v,
                            void* dk, void* dv, void* dq_part, int batch,
                            int hq, int hkv, int sq, int skv, int head_dim,
                            int kv_len, float qscale, int causal, int in_bf16,
-                           int bf16_tiles, void* stream) {
+                           int tiles, void* stream) {
   const Args a{q, k, v, o, dout, static_cast<const float*>(lse), nullptr,
                dq_part, dk, dv, batch, hq, hkv, sq, skv, kv_len, qscale, 0.f,
                causal, static_cast<cudaStream_t>(stream)};
-  return dispatch_kv<true>(a, head_dim, in_bf16, bf16_tiles);
+  return dispatch_kv<true>(a, head_dim, in_bf16, tiles);
 }
 
 // B4.  As B2 without o and dq_part, with di [batch, hq, sq] fp32 =
@@ -1020,13 +1062,13 @@ int cfa_fa2_backward_dkv(const void* q, const void* k, const void* v,
                          const void* dout, const void* lse, const void* di,
                          void* dk, void* dv, int batch, int hq, int hkv,
                          int sq, int skv, int head_dim, int kv_len,
-                         float qscale, int causal, int in_bf16, int bf16_tiles,
+                         float qscale, int causal, int in_bf16, int tiles,
                          void* stream) {
   const Args a{q, k, v, nullptr, dout, static_cast<const float*>(lse),
                static_cast<const float*>(di), nullptr, dk, dv, batch, hq, hkv,
                sq, skv, kv_len, qscale, 0.f, causal,
                static_cast<cudaStream_t>(stream)};
-  return dispatch_kv<false>(a, head_dim, in_bf16, bf16_tiles);
+  return dispatch_kv<false>(a, head_dim, in_bf16, tiles);
 }
 
 // B3.  dq like q, scaled by sm_scale.
@@ -1034,20 +1076,20 @@ int cfa_fa2_backward_dq(const void* q, const void* k, const void* v,
                         const void* dout, const void* lse, const void* di,
                         void* dq, int batch, int hq, int hkv, int sq, int skv,
                         int head_dim, int kv_len, float qscale, float sm_scale,
-                        int causal, int in_bf16, int bf16_tiles, void* stream) {
+                        int causal, int in_bf16, int tiles, void* stream) {
   const Args a{q, k, v, nullptr, dout, static_cast<const float*>(lse),
                static_cast<const float*>(di), dq, nullptr, nullptr, batch, hq,
                hkv, sq, skv, kv_len, qscale, sm_scale, causal,
                static_cast<cudaStream_t>(stream)};
-  if (bf16_tiles) {
+  if (tiles == 1 || tiles == 2) {
     if (in_bf16) {
-      if (head_dim == 64) return launch_dq_mma<__nv_bfloat16, 64>(a);
-      if (head_dim == 128) return launch_dq_mma<__nv_bfloat16, 128>(a);
+      if (head_dim == 64) return launch_dq_mma_tiles<__nv_bfloat16, 64>(a, tiles);
+      if (head_dim == 128) return launch_dq_mma_tiles<__nv_bfloat16, 128>(a, tiles);
     } else {
-      if (head_dim == 64) return launch_dq_mma<float, 64>(a);
-      if (head_dim == 128) return launch_dq_mma<float, 128>(a);
+      if (head_dim == 64) return launch_dq_mma_tiles<float, 64>(a, tiles);
+      if (head_dim == 128) return launch_dq_mma_tiles<float, 128>(a, tiles);
     }
-  } else if (!in_bf16) {
+  } else if (tiles == 0 && !in_bf16) {
     if (head_dim == 64) return launch_dq_fp32<64>(a);
     if (head_dim == 128) return launch_dq_fp32<128>(a);
   }

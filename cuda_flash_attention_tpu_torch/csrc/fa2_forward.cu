@@ -20,14 +20,15 @@
 //     tile type and held in registers as mma A fragments for the whole loop;
 //   * the loop over 64-row KV tiles runs inside the block and, under causal,
 //     stops at the diagonal tile instead of running masked iterations;
-//   * bf16 tiles run on the tensor cores (mma.sync m16n8k16, fp32
+//   * bf16 and fp16 tiles run on the tensor cores (mma.sync m16n8k16, fp32
 //     accumulate); P goes from the S accumulators straight into A fragments,
-//     rounded to bf16, without touching shared memory;
+//     rounded to the tile type, without touching shared memory;
 //   * the online softmax keeps m and l in fp32 in the exp2 domain;
 //   * fp32 tiles run on the fp32 FMA units (no TF32), held to IEEE fp32.
 // wgmma, TMA and a pipelined KV ring are later work.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -67,10 +68,46 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+// The two 16-bit tile types of the tensor-core path: packing two fp32 values
+// (round to nearest even) and the m16n8k16 product with fp32 accumulation.
+template <typename Tt>
+struct Tile;
+
+template <>
+struct Tile<__nv_bfloat16> {
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+  // c += a (16x16, row) * b (16x8, col).
+  static __device__ __forceinline__ void mma(float* c, const uint32_t* a,
+                                             uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+};
+
+// fp16 tiles overflow above 65504 and keep P below 2^-14 as subnormals,
+// where the JAX package's fp16 emulation (a 10-bit mantissa in fp32) does
+// neither; the two agree in fp16's normal range.
+template <>
+struct Tile<__half> {
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+  static __device__ __forceinline__ void mma(float* c, const uint32_t* a,
+                                             uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -90,22 +127,12 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
       : "r"(smem_addr(p)));
 }
 
-// c += a (16x16 bf16, row) * b (16x8 bf16, col), fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Copy rows [row0, row0 + ROWS) of a [nrows, D] matrix into a bf16 shared
-// tile with leading dimension LD, multiplied by `scale` in fp32 before the
-// rounding.  Rows past nrows are zero (never NaN: P is 0 there, and 0 * NaN
+// Copy rows [row0, row0 + ROWS) of a [nrows, D] matrix into a 16-bit shared
+// tile of type Tt with leading dimension LD, multiplied by `scale` in fp32
+// before the rounding.  Rows past nrows are zero (never NaN: P is 0 there, and 0 * NaN
 // would poison the PV product).
-template <typename Tin, int D, int ROWS, int LD, int NTHREADS>
-__device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst, const Tin* src,
+template <typename Tt, typename Tin, int D, int ROWS, int LD, int NTHREADS>
+__device__ __forceinline__ void stage_tile(Tt* dst, const Tin* src,
                                            int row0, int nrows, float scale) {
   constexpr int kChunks = D / 8;
   for (int i = threadIdx.x; i < ROWS * kChunks; i += NTHREADS) {
@@ -119,22 +146,22 @@ __device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst, const Tin* src,
       for (int j = 0; j < 8; ++j) x[j] = 0.f;
     }
     uint4 packed;
-    packed.x = pack_bf16(x[0] * scale, x[1] * scale);
-    packed.y = pack_bf16(x[2] * scale, x[3] * scale);
-    packed.z = pack_bf16(x[4] * scale, x[5] * scale);
-    packed.w = pack_bf16(x[6] * scale, x[7] * scale);
+    packed.x = Tile<Tt>::pack(x[0] * scale, x[1] * scale);
+    packed.y = Tile<Tt>::pack(x[2] * scale, x[3] * scale);
+    packed.z = Tile<Tt>::pack(x[4] * scale, x[5] * scale);
+    packed.w = Tile<Tt>::pack(x[6] * scale, x[7] * scale);
     *reinterpret_cast<uint4*>(dst + r * LD + c) = packed;
   }
 }
 
 // ---------------------------------------------------------------------------
-// bf16 tiles on the tensor cores.  128 threads; warp w owns Q rows
+// bf16 or fp16 tiles (Tt) on the tensor cores.  128 threads; warp w owns Q rows
 // [16w, 16w + 16) of the tile.  Fragment layouts are those of
 // mma.m16n8k16: thread (g = lane / 4, t = lane % 4) holds accumulator
 // elements (row g, cols 2t, 2t+1) and (row g + 8, cols 2t, 2t+1) of each
 // 8-column n-tile.
 // ---------------------------------------------------------------------------
-template <typename Tin, int D>
+template <typename Tin, typename Tt, int D>
 __global__ void __launch_bounds__(128)
 fa2_fwd_mma(const Tin* __restrict__ q, const Tin* __restrict__ k,
             const Tin* __restrict__ v, Tin* __restrict__ o,
@@ -142,9 +169,9 @@ fa2_fwd_mma(const Tin* __restrict__ q, const Tin* __restrict__ k,
             int kv_len, float qscale, int causal) {
   constexpr int LD = D + 8;  // 16-byte row padding: conflict-free ldmatrix
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ks = qs + kBlockM * LD;
-  __nv_bfloat16* vs = ks + kBlockN * LD;
+  Tt* qs = reinterpret_cast<Tt*>(smem_raw);
+  Tt* ks = qs + kBlockM * LD;
+  Tt* vs = ks + kBlockN * LD;
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -160,7 +187,7 @@ fa2_fwd_mma(const Tin* __restrict__ q, const Tin* __restrict__ k,
   const Tin* kp = k + (static_cast<size_t>(b) * hkv + hk) * skv * D;
   const Tin* vp = v + (static_cast<size_t>(b) * hkv + hk) * skv * D;
 
-  stage_bf16<Tin, D, kBlockM, LD, 128>(qs, qp, q0, sq, qscale);
+  stage_tile<Tt, Tin, D, kBlockM, LD, 128>(qs, qp, q0, sq, qscale);
   __syncthreads();
   uint32_t qa[D / 16][4];
 #pragma unroll
@@ -184,8 +211,8 @@ fa2_fwd_mma(const Tin* __restrict__ q, const Tin* __restrict__ k,
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * kBlockN;
     __syncthreads();  // every warp is done with the previous K/V tile
-    stage_bf16<Tin, D, kBlockN, LD, 128>(ks, kp, k0, skv, 1.f);
-    stage_bf16<Tin, D, kBlockN, LD, 128>(vs, vp, k0, skv, 1.f);
+    stage_tile<Tt, Tin, D, kBlockN, LD, 128>(ks, kp, k0, skv, 1.f);
+    stage_tile<Tt, Tin, D, kBlockN, LD, 128>(vs, vp, k0, skv, 1.f);
     __syncthreads();
 
     float s[kBlockN / 8][4];
@@ -200,8 +227,8 @@ fa2_fwd_mma(const Tin* __restrict__ q, const Tin* __restrict__ k,
         uint32_t bf[4];
         ldmatrix_x4(bf, ks + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
                             kk * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * np], qa[kk], bf[0], bf[1]);
-        mma_bf16(s[2 * np + 1], qa[kk], bf[2], bf[3]);
+        Tile<Tt>::mma(s[2 * np], qa[kk], bf[0], bf[1]);
+        Tile<Tt>::mma(s[2 * np + 1], qa[kk], bf[2], bf[3]);
       }
     }
 
@@ -262,18 +289,18 @@ fa2_fwd_mma(const Tin* __restrict__ q, const Tin* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < kBlockN / 16; ++kk) {
       uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      pa[0] = Tile<Tt>::pack(s[2 * kk][0], s[2 * kk][1]);
+      pa[1] = Tile<Tt>::pack(s[2 * kk][2], s[2 * kk][3]);
+      pa[2] = Tile<Tt>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[3] = Tile<Tt>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 #pragma unroll
       for (int dp = 0; dp < D / 16; ++dp) {
         uint32_t bf[4];
         ldmatrix_x4_trans(
             bf, vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
                     dp * 16 + (lane >> 4) * 8);
-        mma_bf16(acc[2 * dp], pa, bf[0], bf[1]);
-        mma_bf16(acc[2 * dp + 1], pa, bf[2], bf[3]);
+        Tile<Tt>::mma(acc[2 * dp], pa, bf[0], bf[1]);
+        Tile<Tt>::mma(acc[2 * dp + 1], pa, bf[2], bf[3]);
       }
     }
   }
@@ -478,17 +505,17 @@ cudaError_t set_smem_once(Kernel kernel, int smem,
   return err;
 }
 
-template <typename Tin, int D>
+template <typename Tin, typename Tt, int D>
 cudaError_t launch_mma(dim3 grid, cudaStream_t stream, const void* q,
                        const void* k, const void* v, void* o, void* lse,
                        int hq, int hkv, int sq, int skv, int kv_len,
                        float qscale, int causal) {
-  const size_t smem = (kBlockM + 2 * kBlockN) * (D + 8) * sizeof(__nv_bfloat16);
+  const size_t smem = (kBlockM + 2 * kBlockN) * (D + 8) * sizeof(Tt);
   static std::atomic<uint64_t> smem_set{0};
-  cudaError_t err = set_smem_once(fa2_fwd_mma<Tin, D>, static_cast<int>(smem),
-                                  smem_set);
+  cudaError_t err = set_smem_once(fa2_fwd_mma<Tin, Tt, D>,
+                                  static_cast<int>(smem), smem_set);
   if (err != cudaSuccess) return err;
-  fa2_fwd_mma<Tin, D><<<grid, 128, smem, stream>>>(
+  fa2_fwd_mma<Tin, Tt, D><<<grid, 128, smem, stream>>>(
       static_cast<const Tin*>(q), static_cast<const Tin*>(k),
       static_cast<const Tin*>(v), static_cast<Tin*>(o),
       static_cast<float*>(lse), hq, hkv, sq, skv, kv_len, qscale, causal);
@@ -513,43 +540,62 @@ cudaError_t launch_fp32(dim3 grid, cudaStream_t stream, const void* q,
   return cudaGetLastError();
 }
 
+// The tensor-core launch for input type Tin and tile code `tiles` (1 bf16,
+// 2 fp16).
+template <typename Tin, int D>
+cudaError_t launch_mma_tiles(int tiles, dim3 grid, cudaStream_t st,
+                             const void* q, const void* k, const void* v,
+                             void* o, void* lse, int hq, int hkv, int sq,
+                             int skv, int kv_len, float qscale, int causal) {
+  if (tiles == 1) {
+    return launch_mma<Tin, __nv_bfloat16, D>(grid, st, q, k, v, o, lse, hq,
+                                             hkv, sq, skv, kv_len, qscale,
+                                             causal);
+  }
+  return launch_mma<Tin, __half, D>(grid, st, q, k, v, o, lse, hq, hkv, sq,
+                                    skv, kv_len, qscale, causal);
+}
+
 }  // namespace
 
 extern "C" {
 
 // q [batch, hq, sq, head_dim]; k, v [batch, hkv, skv, head_dim]; o like q;
 // lse [batch, hq, sq] fp32.  All contiguous.  in_bf16: q/k/v/o are bf16
-// (else fp32).  bf16_tiles: tensor-core bf16 tiles (else fp32 FMA; needs
-// fp32 inputs).  qscale = sm_scale * log2(e).  Returns a cudaError_t.
+// (else fp32).  tiles: 0 fp32 on the FMA units (needs fp32 inputs), 1 bf16
+// or 2 fp16 on the tensor cores.  qscale = sm_scale * log2(e).  Returns a
+// cudaError_t.
 int cfa_fa2_forward(const void* q, const void* k, const void* v, void* o,
                     void* lse, int batch, int hq, int hkv, int sq, int skv,
                     int head_dim, int kv_len, float qscale, int causal,
-                    int in_bf16, int bf16_tiles, void* stream) {
+                    int in_bf16, int tiles, void* stream) {
   const dim3 grid((sq + kBlockM - 1) / kBlockM, batch * hq);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16_tiles) {
+  if (tiles == 1 || tiles == 2) {
     if (in_bf16) {
       if (head_dim == 64) {
-        return launch_mma<__nv_bfloat16, 64>(grid, st, q, k, v, o, lse, hq,
-                                             hkv, sq, skv, kv_len, qscale,
-                                             causal);
+        return launch_mma_tiles<__nv_bfloat16, 64>(
+            tiles, grid, st, q, k, v, o, lse, hq, hkv, sq, skv, kv_len, qscale,
+            causal);
       }
       if (head_dim == 128) {
-        return launch_mma<__nv_bfloat16, 128>(grid, st, q, k, v, o, lse, hq,
-                                              hkv, sq, skv, kv_len, qscale,
-                                              causal);
+        return launch_mma_tiles<__nv_bfloat16, 128>(
+            tiles, grid, st, q, k, v, o, lse, hq, hkv, sq, skv, kv_len, qscale,
+            causal);
       }
     } else {
       if (head_dim == 64) {
-        return launch_mma<float, 64>(grid, st, q, k, v, o, lse, hq, hkv, sq,
-                                     skv, kv_len, qscale, causal);
+        return launch_mma_tiles<float, 64>(tiles, grid, st, q, k, v, o, lse,
+                                           hq, hkv, sq, skv, kv_len, qscale,
+                                           causal);
       }
       if (head_dim == 128) {
-        return launch_mma<float, 128>(grid, st, q, k, v, o, lse, hq, hkv, sq,
-                                      skv, kv_len, qscale, causal);
+        return launch_mma_tiles<float, 128>(tiles, grid, st, q, k, v, o, lse,
+                                            hq, hkv, sq, skv, kv_len, qscale,
+                                            causal);
       }
     }
-  } else if (!in_bf16) {
+  } else if (tiles == 0 && !in_bf16) {
     if (head_dim == 64) {
       return launch_fp32<64>(grid, st, q, k, v, o, lse, hq, hkv, sq, skv,
                              kv_len, qscale, causal);

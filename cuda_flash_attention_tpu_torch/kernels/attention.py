@@ -2,17 +2,18 @@
 
 Counterpart of cuda_flash_attention_tpu/kernels/attention.py.  q/k/v are
 [B, H, S, D]; k/v may carry fewer heads than q (GQA, query heads ordered
-KV-head-major).  Sequences are zero-padded to the block grid, the forward
-kernel B1 runs, and the padding is sliced off.  `flash_attention` is
+KV-head-major).  Sequences are zero-padded to the block grid, a forward
+kernel runs, and the padding is sliced off.  The forward is B1, or B8 where
+the JAX package routes to its small-shape kernel (`_use_small_kernel`).  `flash_attention` is
 differentiable: a torch.autograd.Function takes the place of the JAX
 custom_vjp (attention.py:255-348).  Its forward saves the padded (q, k, v,
 o, lse); its backward gets dO zero-padded from the slice's own backward and
 runs either the fused kernel B2 or the split pair B3 + B4
 (kernels/fa2_backward.py), by the JAX route rule `_use_fused_bwd`.
 
-Two routes of the JAX API do not apply here: the small-fp32 XLA route (its
-crossover was measured on a TPU; on CUDA the kernel is always taken) and the
-small-shape kernel B8 (not ported; GQA prefill never takes it).  Sliding
+One route of the JAX API does not apply here: the small-fp32 XLA route
+(its crossover was measured on a TPU; on CUDA a kernel is always taken), so
+there is no `force_kernel` argument.  Sliding
 windows, attention sinks and segment ids are not ported yet and raise.
 """
 
@@ -21,6 +22,8 @@ from __future__ import annotations
 import torch
 
 from cuda_flash_attention_tpu_torch.kernels.common import (
+    MIN_BLOCK,
+    TILE_DTYPES,
     BlockSizes,
     cdiv,
     fit_block,
@@ -33,7 +36,10 @@ from cuda_flash_attention_tpu_torch.kernels.fa2_backward import (
     fa2_backward_fused_aligned,
     fused_kv_tile,
 )
-from cuda_flash_attention_tpu_torch.kernels.fa2_forward import fa2_forward_aligned
+from cuda_flash_attention_tpu_torch.kernels.fa2_forward import (
+    fa2_forward_aligned,
+    fa2_forward_small_aligned,
+)
 
 __all__ = ["BlockSizes", "flash_attention", "flash_attention_with_lse",
            "fa2_backward"]
@@ -50,7 +56,7 @@ def _use_fused_bwd(q, k, bk_dkv: int, tile_dtype=None) -> bool:
     """JAX attention.py:50-62 on padded q/k.  The slice count is the JAX
     one (KV slices of `bk_dkv` rows); the byte cap applies to the buffer
     that the port's B2 allocates, one fp32 slice of q's size per
-    `fused_kv_tile` KV rows (128 with bf16 tiles, 64 in fp32), which is
+    `fused_kv_tile` KV rows (128 with bf16/fp16 tiles, 64 in fp32), which is
     larger than the JAX buffer.  The JAX window clause is left out: windows
     are not ported and raise before this point."""
     if k.shape[2] // bk_dkv > _FUSED_BWD_MAX_KV_SLICES:
@@ -89,9 +95,9 @@ def _validate_dtypes(q, k, v, tile_dtype):
             f"q/k/v must share one dtype of {_IN_DTYPES}; got {q.dtype}, "
             f"{k.dtype}, {v.dtype}"
         )
-    if tile_dtype not in (None, torch.bfloat16):
+    if tile_dtype not in TILE_DTYPES:
         raise NotImplementedError(
-            f"tile_dtype must be None or torch.bfloat16; got {tile_dtype}"
+            f"tile_dtype must be one of {TILE_DTYPES}; got {tile_dtype}"
         )
 
 
@@ -131,6 +137,20 @@ def _prepare(q, k, v, causal, sm_scale, tile_dtype, q_segment_ids,
     return q_pad, k_pad, v_pad, float(sm_scale), q_len, kv_len
 
 
+def _use_small_kernel(q, k) -> bool:
+    """JAX attention.py:273-277 on padded q/k: one whole tile per head
+    (Sq = Skv <= 128) and one KV head per query head take B8."""
+    return (q.shape[2] <= MIN_BLOCK and k.shape[2] == q.shape[2]
+            and k.shape[1] == q.shape[1])
+
+
+def _forward(q, k, v, kv_len, causal, sm_scale, tile_dtype):
+    """(O, lse) over padded q/k/v by B8 or B1."""
+    fwd = fa2_forward_small_aligned if _use_small_kernel(q, k) else fa2_forward_aligned
+    return fwd(q, k, v, causal=causal, sm_scale=sm_scale, kv_len=kv_len,
+               tile_dtype=tile_dtype)
+
+
 def _backward(q, k, v, o, lse, do, kv_len, causal, sm_scale, block_sizes,
               tile_dtype):
     """dQ, dK, dV over padded inputs: B2, or B3 + B4 with
@@ -149,13 +169,12 @@ def _backward(q, k, v, o, lse, do, kv_len, causal, sm_scale, block_sizes,
 
 
 class _FA2(torch.autograd.Function):
-    """FA2 over padded q/k/v: forward B1, backward B2 or B3 + B4."""
+    """FA2 over padded q/k/v: forward B1 or B8, backward B2 or B3 + B4."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_len, causal, sm_scale, block_sizes,
                 tile_dtype):
-        o, lse = fa2_forward_aligned(q, k, v, causal=causal, sm_scale=sm_scale,
-                                     kv_len=kv_len, tile_dtype=tile_dtype)
+        o, lse = _forward(q, k, v, kv_len, causal, sm_scale, tile_dtype)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.args = (kv_len, causal, sm_scale, block_sizes, tile_dtype)
         return o
@@ -175,10 +194,11 @@ def flash_attention(q, k, v, *, causal: bool = False,
                     window: int | None = None, sinks: int = 0):
     """Differentiable FlashAttention-2.  Returns O with q's shape and dtype.
 
-    ``tile_dtype`` (None or torch.bfloat16) is the precision of the Q/K/V/P
-    tiles inside the kernels; softmax statistics stay fp32.  None computes
-    in q's dtype.  ``block_sizes`` (default `BlockSizes.default(causal)`)
-    only picks the backward route, as the JAX rule counts its KV slices."""
+    ``tile_dtype`` (None, torch.bfloat16 or torch.float16) is the precision
+    of the Q/K/V/P tiles inside the kernels; softmax statistics stay fp32.
+    None computes in q's dtype.  ``block_sizes`` (default
+    `BlockSizes.default(causal)`) only picks the backward route, as the JAX
+    rule counts its KV slices."""
     q_pad, k_pad, v_pad, sm_scale, q_len, kv_len = _prepare(
         q, k, v, causal, sm_scale, tile_dtype, q_segment_ids, kv_segment_ids,
         window, sinks)
@@ -200,9 +220,8 @@ def flash_attention_with_lse(q, k, v, *, causal: bool = False,
         q, k, v, causal, sm_scale, tile_dtype, q_segment_ids, kv_segment_ids,
         window, sinks)
     with torch.no_grad():
-        o, lse = fa2_forward_aligned(q_pad, k_pad, v_pad, causal=causal,
-                                     sm_scale=sm_scale, kv_len=kv_len,
-                                     tile_dtype=tile_dtype)
+        o, lse = _forward(q_pad, k_pad, v_pad, kv_len, causal, sm_scale,
+                          tile_dtype)
     return o[:, :, :q_len], lse[:, :, :q_len]
 
 

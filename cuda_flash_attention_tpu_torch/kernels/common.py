@@ -18,6 +18,22 @@ LN2 = 0.6931471805599453
 # on rows that are masked so far.
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
+# Tile types of the attention kernels (None computes in the input's type).
+# fp16 tiles are real fp16 on the card: above 65504 they overflow and P
+# below 2^-14 is subnormal, where the JAX package's fp16 emulation (a
+# 10-bit mantissa in fp32) does neither; in fp16's normal range they agree.
+TILE_DTYPES = (None, torch.bfloat16, torch.float16)
+# Head dims the CUDA attention kernels take; the plain versions take any.
+KERNEL_HEAD_DIMS = (64, 128)
+
+
+def tile_code(in_dtype: torch.dtype, tile_dtype) -> int:
+    """The kernels' tile argument: 0 fp32 on the FMA units, 1 bf16 or 2
+    fp16 on the tensor cores (the tile type is tile_dtype, else the input
+    type)."""
+    eff = in_dtype if tile_dtype is None else tile_dtype
+    return {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}[eff]
+
 
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)

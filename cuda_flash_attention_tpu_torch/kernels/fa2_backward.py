@@ -26,9 +26,12 @@ import torch
 
 from cuda_flash_attention_tpu_torch.kernels import _build
 from cuda_flash_attention_tpu_torch.kernels.common import (
+    KERNEL_HEAD_DIMS,
     LN2,
     LOG2E,
+    TILE_DTYPES,
     build_element_mask,
+    tile_code,
 )
 
 # Kernel launches since the last reset (each wrapper adds one per launch).
@@ -37,11 +40,11 @@ dq_launches = 0
 dkv_launches = 0
 
 _SOURCE = "fa2_backward"
-_HEAD_DIMS = (64, 128)
-# Rows of the KV tile that owns one dQ slice in B2 (the CUDA kernel's
-# kKvRows with bf16 tiles, kTile32 with fp32 tiles; the library reports its
-# own through cfa_fa2_backward_kv_tile and the wrapper checks the two agree).
-_FUSED_KV_TILE = {True: 128, False: 64}
+# Rows of the KV tile that owns one dQ slice in B2, by tile code (the CUDA
+# kernel's kKvRows with bf16 or fp16 tiles, kTile32 with fp32 tiles; the
+# library reports its own through cfa_fa2_backward_kv_tile and the wrapper
+# checks the two agree).
+_FUSED_KV_TILE = {0: 64, 1: 128, 2: 128}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -53,8 +56,8 @@ def _lib() -> ctypes.CDLL:
     if lib.cfa_fa2_backward_fused.argtypes is None:
         lib.cfa_fa2_backward_kv_tile.argtypes = [_I]
         lib.cfa_fa2_backward_kv_tile.restype = _I
-        for tile in (True, False):
-            if lib.cfa_fa2_backward_kv_tile(int(tile)) != _FUSED_KV_TILE[tile]:
+        for tile, rows in _FUSED_KV_TILE.items():
+            if lib.cfa_fa2_backward_kv_tile(tile) != rows:
                 raise RuntimeError("fa2_backward: the library's KV tile differs "
                                    "from _FUSED_KV_TILE")
         lib.cfa_fa2_backward_fused.argtypes = [_P] * 9 + [_I] * 7 + [_F] + [_I] * 3 + [_P]
@@ -68,24 +71,20 @@ def _lib() -> ctypes.CDLL:
 
 def fused_kv_tile(q_dtype: torch.dtype, tile_dtype) -> int:
     """KV rows per dQ slice of B2 for these input and tile types."""
-    return _FUSED_KV_TILE[_bf16_tiles(q_dtype, tile_dtype)]
-
-
-def _bf16_tiles(q_dtype, tile_dtype) -> bool:
-    return tile_dtype == torch.bfloat16 or q_dtype == torch.bfloat16
+    return _FUSED_KV_TILE[tile_code(q_dtype, tile_dtype)]
 
 
 def _check(name, q, k, v, tile_dtype, same, stats):
     """What every kernel takes; raises on anything else.  `same` must share
     q's dtype; `stats` are fp32."""
-    if q.dtype not in (torch.float32, torch.bfloat16) or tile_dtype not in (
-            None, torch.bfloat16):
+    if q.dtype not in (torch.float32, torch.bfloat16) or tile_dtype not in TILE_DTYPES:
         raise NotImplementedError(
-            f"{name} kernel: inputs fp32/bf16 and tiles None/bf16; got "
+            f"{name} kernel: inputs fp32/bf16 and tiles None/bf16/fp16; got "
             f"{q.dtype} with tile_dtype {tile_dtype}")
     d = q.shape[3]
-    if d not in _HEAD_DIMS:
-        raise NotImplementedError(f"{name} kernel: head_dim {d} not in {_HEAD_DIMS}")
+    if d not in KERNEL_HEAD_DIMS:
+        raise NotImplementedError(
+            f"{name} kernel: head_dim {d} not in {KERNEL_HEAD_DIMS}")
     if q.shape[0] * max(q.shape[1], k.shape[1]) > 65535:
         raise NotImplementedError(f"{name} kernel: batch * heads > 65535")
     for t in (k, v) + same:
@@ -104,7 +103,7 @@ def _common_args(q, k, kv_len, sm_scale, causal, tile_dtype):
     hkv, skv = k.shape[1], k.shape[2]
     return ((b, hq, hkv, sq, skv, d, kv_len, sm_scale * LOG2E),
             (int(causal), int(q.dtype == torch.bfloat16),
-             int(_bf16_tiles(q.dtype, tile_dtype)),
+             tile_code(q.dtype, tile_dtype),
              torch.cuda.current_stream(q.device).cuda_stream))
 
 

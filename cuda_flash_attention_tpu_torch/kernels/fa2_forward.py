@@ -1,10 +1,15 @@
-"""FlashAttention-2 forward: kernel B1 and its plain PyTorch version.
+"""FlashAttention-2 forward: kernels B1 and B8 and their plain PyTorch
+versions.
 
-Replaces cuda_flash_attention_tpu/kernels/fa2_forward.py::fa2_forward_aligned
-(the Pallas TPU kernel).  The CUDA kernel is csrc/fa2_forward.cu; its source
-note says what bounds it on the H100 and how its design answers that.  On a
-CPU tensor the wrapper runs `fa2_forward_plain`; on a CUDA tensor it launches
-the kernel or raises.
+  B1 fa2_forward_aligned        replaces cuda_flash_attention_tpu/kernels/
+                                fa2_forward.py::fa2_forward_aligned
+                                (csrc/fa2_forward.cu)
+  B8 fa2_forward_small_aligned  replaces ...::fa2_forward_small_aligned, the
+                                route for Sq = Skv <= 128 with Hq = Hkv
+                                (csrc/fa2_forward_small.cu)
+Each source note says what bounds its kernel on the H100 and how the design
+answers that.  On a CPU tensor a wrapper runs its plain version; on a CUDA
+tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -16,28 +21,58 @@ import torch
 from cuda_flash_attention_tpu_torch.kernels import _build
 from cuda_flash_attention_tpu_torch.kernels.common import (
     DEFAULT_MASK_VALUE,
+    KERNEL_HEAD_DIMS,
     LN2,
     LOG2E,
+    MIN_BLOCK,
+    TILE_DTYPES,
     build_element_mask,
+    tile_code,
 )
 
-# Kernel launches since the last reset (the wrapper adds one per launch).
-launches = 0
+# Kernel launches since the last reset (each wrapper adds one per launch).
+launches = 0        # B1
+small_launches = 0  # B8
 
-_SOURCE = "fa2_forward"
-_HEAD_DIMS = (64, 128)
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
 
 
 def _lib() -> ctypes.CDLL:
-    lib = _build.load(_SOURCE)
+    lib = _build.load("fa2_forward")
     fn = lib.cfa_fa2_forward
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
+        fn.argtypes = [_P] * 5 + [_I] * 7 + [_F, _I, _I, _I, _P]
+        fn.restype = _I
     return lib
+
+
+def _small_lib() -> ctypes.CDLL:
+    lib = _build.load("fa2_forward_small")
+    fn = lib.cfa_fa2_forward_small
+    if fn.argtypes is None:
+        fn.argtypes = [_P] * 5 + [_I] * 4 + [_F, _I, _I, _I, _P]
+        fn.restype = _I
+    return lib
+
+
+def _check_inputs(name, q, k, v, tile_dtype):
+    """What both kernels take; raises on anything else."""
+    if q.dtype not in (torch.float32, torch.bfloat16) or tile_dtype not in TILE_DTYPES:
+        raise NotImplementedError(
+            f"{name} kernel: inputs fp32/bf16 and tiles None/bf16/fp16; got "
+            f"{q.dtype} with tile_dtype {tile_dtype}"
+        )
+    if q.shape[3] not in KERNEL_HEAD_DIMS:
+        raise NotImplementedError(
+            f"{name} kernel: head_dim {q.shape[3]} not in {KERNEL_HEAD_DIMS}")
+    for t in (q, k, v):
+        if t.device != q.device or t.dtype != q.dtype or not t.is_contiguous():
+            raise ValueError(f"{name} kernel: q/k/v must be contiguous, on one "
+                             "device, of one dtype")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} kernel: inputs must be 16-byte aligned")
 
 
 def fa2_forward_aligned(q, k, v, *, causal: bool, sm_scale: float,
@@ -54,36 +89,65 @@ def fa2_forward_aligned(q, k, v, *, causal: bool, sm_scale: float,
     global launches
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    if q.dtype not in (torch.float32, torch.bfloat16) or tile_dtype not in (
-            None, torch.bfloat16):
-        raise NotImplementedError(
-            f"fa2_forward kernel: inputs fp32/bf16 and tiles None/bf16; got "
-            f"{q.dtype} with tile_dtype {tile_dtype}"
-        )
-    in_bf16 = q.dtype == torch.bfloat16
-    bf16_tiles = tile_dtype == torch.bfloat16 or in_bf16
-    if d not in _HEAD_DIMS:
-        raise NotImplementedError(f"fa2_forward kernel: head_dim {d} not in {_HEAD_DIMS}")
+    _check_inputs("fa2_forward", q, k, v, tile_dtype)
     if b * hq > 65535:
         raise NotImplementedError("fa2_forward kernel: batch * heads > 65535")
-    for t in (q, k, v):
-        if t.device != q.device or t.dtype != q.dtype or not t.is_contiguous():
-            raise ValueError("fa2_forward kernel: q/k/v must be contiguous, "
-                             "on one device, of one dtype")
-        if t.data_ptr() % 16:
-            raise ValueError("fa2_forward kernel: inputs must be 16-byte aligned")
     o = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), device=q.device, dtype=torch.float32)
     lib = _lib()
     err = lib.cfa_fa2_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         b, hq, hkv, sq, skv, d, kv_len, sm_scale * LOG2E, int(causal),
-        int(in_bf16), int(bf16_tiles),
+        int(q.dtype == torch.bfloat16), tile_code(q.dtype, tile_dtype),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, "cfa_fa2_forward_error_string", err, "fa2_forward")
     launches += 1
     return o, lse
+
+
+def fa2_forward_small_aligned(q, k, v, *, causal: bool, sm_scale: float,
+                              kv_len: int, tile_dtype=None):
+    """B8: FA2 forward over padded q/k/v [B, H, S_pad, D] with S_pad <= 128
+    and one KV head per query head, every (batch, head) pair one slot that
+    sees only its own keys.  Keys at or past `kv_len` are masked.  Returns
+    (O like q, lse [B, H, S_pad] fp32, natural log).  Its function is B1's
+    at these shapes; the kernel takes the whole row in one tile."""
+    b, h, s_pad, d = q.shape
+    if k.shape != q.shape or v.shape != q.shape or s_pad > MIN_BLOCK:
+        raise ValueError(
+            f"fa2_forward_small: q/k/v must share one [B, H, S <= {MIN_BLOCK}, "
+            f"D] shape; got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if q.device.type == "cpu":
+        return fa2_forward_small_plain(q, k, v, causal=causal,
+                                       sm_scale=sm_scale, kv_len=kv_len,
+                                       tile_dtype=tile_dtype)
+    if q.device.type != "cuda":
+        raise ValueError(f"fa2_forward_small: unsupported device {q.device}")
+    global small_launches
+    _check_inputs("fa2_forward_small", q, k, v, tile_dtype)
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, s_pad), device=q.device, dtype=torch.float32)
+    lib = _small_lib()
+    err = lib.cfa_fa2_forward_small(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        b * h, s_pad, d, kv_len, sm_scale * LOG2E, int(causal),
+        int(q.dtype == torch.bfloat16), tile_code(q.dtype, tile_dtype),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(lib, "cfa_fa2_forward_small_error_string", err,
+                 "fa2_forward_small")
+    small_launches += 1
+    return o, lse
+
+
+def fa2_forward_small_plain(q, k, v, *, causal: bool, sm_scale: float,
+                            kv_len: int, tile_dtype=None):
+    """B8's function in plain PyTorch: one exact softmax over each slot's
+    whole row, with B1's rounding points (fa2_forward_plain, which takes
+    the whole row at once too)."""
+    return fa2_forward_plain(q, k, v, causal=causal, sm_scale=sm_scale,
+                             kv_len=kv_len, tile_dtype=tile_dtype)
 
 
 def fa2_forward_plain(q, k, v, *, causal: bool, sm_scale: float,
@@ -98,7 +162,8 @@ def fa2_forward_plain(q, k, v, *, causal: bool, sm_scale: float,
 
     It takes the whole row at once rather than tile by tile, and it does not
     reproduce two bf16 details of the TPU kernel, so parity at bf16 is a
-    tolerance, not bits:
+    tolerance, not bits (and fp16 tiles here are real fp16, see
+    common.TILE_DTYPES):
       * the bf16 exp2 chain the TPU kernel uses for score tiles of at least
         2^18 elements (fa2_forward.py:84, 221);
       * the bf16-rounded rowsum that V-augmentation gives at D < 128

@@ -167,6 +167,17 @@ def _port_modules():
     return mods
 
 
+def test_import_check_covers_the_reference_contract_modules():
+    """The dispatch, CLI, harness and baseline modules are among those the
+    two checks below import and parse."""
+    mods = set(_port_modules())
+    for m in ("dispatch", "dispatch.registry", "dispatch.types", "cli",
+              "bench", "bench.__main__", "bench.configs", "bench.harness",
+              "ops.metrics", "ops.reference", "utils.io", "utils.timing",
+              "kernels.baselines", "kernels.fa2_forward"):
+        assert f"cuda_flash_attention_tpu_torch.{m}" in mods, m
+
+
 def test_port_never_imports_jax():
     """Import every module of the port (and chip_smoke) in a fresh process:
     neither jax nor the JAX package may be loaded."""

@@ -101,7 +101,7 @@ def test_cpu_tensors_never_launch_the_kernel():
           kv_segment_ids=torch.zeros(1, 32, dtype=torch.int32)),
      NotImplementedError),
     (dict(sinks=2), ValueError),
-    (dict(tile_dtype=torch.float16), NotImplementedError),
+    (dict(tile_dtype=torch.float8_e4m3fn), NotImplementedError),
 ])
 def test_unported_options_raise(kwargs, exc):
     q, k, v = (torch.from_numpy(x) for x in _inputs(1, 2, 2, 32, 64))
