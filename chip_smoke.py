@@ -5,7 +5,7 @@ NVIDIA card.
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
-  1. setup: the card's name and power limit; the six CUDA sources built
+  1. setup: the card's name and power limit; the eight CUDA sources built
      from cuda_flash_attention_tpu_torch/csrc/ with nvcc (sm_90a), all at
      once;
   2. kernel B1 (FA2 forward) against its plain PyTorch version at the
@@ -74,8 +74,28 @@ Phases (any failure raises and the script exits non-zero):
      fa2), fa1 forward and fa2 both, fp32 at tolerance 1e-3, every row
      printed; a FAIL row raises.  Every kernel of this path (B1, B2, B3,
      B4, B8, B9, B10) must launch in phases 17-18; B8's, B9's and B10's
-     launches in the kernel line come from there.
-The line before the last is the kernel JSON (nine kernels); the last line
+     launches in the kernel line come from there;
+ 19. kernel B7 (FA2 forward over quantized K/V) against its plain version
+     over int8, e4m3, e5m2 and int4 storage x bf16/fp32 compute x causal at
+     B2 Hq16 Hkv8 S1000 D64 and D128; timed at B4 Hq16 Hkv8 S2048 D64 and
+     B1 S8192 (causal bf16) beside B1 and SDPA on the dequantized bf16 K/V
+     (yardsticks, not the same function); the public quantized-KV API at
+     both shapes, whose launches are B7's in the kernel line;
+ 20. B5 and B6 on e4m3, e5m2 and int4 pages at phases 3's and 12's shapes
+     against their plain versions, times and bounds (int4 at 0.5 byte);
+ 21. quantized serving at TransformerConfig.base(): phase 5's 12 requests
+     on an int8 cache (the control), an e4m3 cache, an int4 cache, int8
+     W8A8 weights and int4 weights (int8 caches), and chunked prefill 512
+     on the int4 cache: tokens/s, mean step, TTFT, B1/B5/B6 launches; a
+     profiled window of int4-weight decode steps; fp32 card-vs-CPU parity
+     of an int4 cache with int4 weights at base width;
+ 22. QLoRA: two LoRA AdamW steps at base width, B4 S2048, on an int4 base
+     (finite loss, base bytes unchanged, adapters moved, merge_lora logits
+     within the int4 requantization budget);
+ 23. X (the D=128 rowsum probe) through its entry point at B4 H8 S2048
+     D128 bf16 (five variants beside B1 and SDPA), each variant against
+     its plain version.
+The line before the last is the kernel JSON (eleven kernels); the last line
 is the JSON contract line {"ok": true, "device": {...}}.
 It imports torch and the port only, never jax or the JAX package.
 """
@@ -1407,6 +1427,464 @@ def phase_harness(harness, configs):
     return results
 
 
+# ---------------------------------------------------------------------------
+# Phases 19-23: the quantized path.
+# ---------------------------------------------------------------------------
+
+B7_FP32_TOL = 2e-5
+STORAGES = ("int8", "e4m3", "e5m2", "int4")
+# B7's and X's bf16 outputs against their plain versions, element by element:
+# |o_k - o_p| <= BF16_RTOL * |o_p| + BF16_ATOL.  The two round to bf16 fp32
+# values that differ only in summation order, so they land one bf16 step (at
+# most 2^-7 of the value) apart.  The absolute term covers values near zero,
+# where a P rounded to the other side of a bf16 step moves a sum that cancels:
+# about 3x the largest reading on the card (H100; chip_smoke and the card
+# tests): B7 1.5e-3, from causal rows of a few keys with |P V| terms near 1
+# (non-causal 6.8e-4); X 1.6e-4.  The control that must fail it: the plain version with one 8-key
+# n-tile of V zeroed (readings 0.25 and 0.11).
+BF16_RTOL = 2.0 ** -7
+BF16_ATOL = {"B7": 4e-3, "X": 5e-4}
+# X's lse against its plain version: the largest error, and the mean over
+# rows.  v3 rounds l to bf16: sums that differ in their last fp32 bits round
+# to neighbouring bf16 values in a few rows, one step is log(1 + 2^-7) =
+# 7.8e-3; the mean stays at fp32 noise.  The control that must fail the mean
+# gate: v3's kernel lse against v0's plain lse (l not rounded).
+X_LSE_TOL = {"v3_bf16_sum": 8e-3}
+X_LSE_MAX_TOL = 2e-4
+X_LSE_MEAN_TOL = 1e-4
+# merge_lora's int4 requantization budget on logits (tests/test_quant.py:317).
+QLORA_MERGE_TOL = 0.6
+# merge_lora on the weights: every merged weight within half its own int4
+# step of base + delta (fp32 slack on top).
+QLORA_STEP_TOL = 0.5 + 1e-3
+
+
+def bf16_excess(o_k, o_p) -> float:
+    """The least BF16_ATOL under which o_k passes the bf16 gate against o_p."""
+    o_k, o_p = o_k.float(), o_p.float()
+    return ((o_k - o_p).abs() - BF16_RTOL * o_p.abs()).clamp_min(0).max().item()
+
+
+def zero_ntile(v, axis):
+    """v with one 8-key n-tile (keys 8-15 along `axis`) zeroed: the controls'
+    fault, a kernel that skips one n-tile of P V."""
+    v = v.clone()
+    v.narrow(axis, 8, 8).zero_()
+    return v
+
+
+def storage_dtype(torch, name):
+    """A storage name as the port's dtype argument ("int4" stays a string)."""
+    return {"int8": torch.int8, "e4m3": torch.float8_e4m3fn,
+            "e5m2": torch.float8_e5m2}.get(name, name)
+
+
+def quant_problem(torch, quant, fq, gen, storage, b, hq, hkv, s, d, q_dtype):
+    """Seeded q and quantized K/V on the card: (API args, B7's aligned args,
+    bf16 dequantized K/V for the yardsticks)."""
+    q = torch.randn(b, hq, s, d, generator=gen, device="cuda").to(q_dtype)
+    k, v = (torch.randn(b, hkv, s, d, generator=gen, device="cuda") for _ in range(2))
+    k_q, v_q = quant.quantize_kv(k, v, storage_dtype(torch, storage))
+    deq = [t.dequantize(torch.bfloat16) for t in (k_q, v_q)]
+    return (q, k_q, v_q), fq.aligned_inputs(q, k_q, v_q), deq
+
+
+def phase_b7(torch, F, quant, fq, fa2):
+    """B7 against its plain version over every storage x {bf16, fp32} x
+    causal at B2 Hq16 Hkv8 S1000 D64 and D128; timed at the base model's
+    attention shape (B4 Hq16 Hkv8 S2048 D64 causal bf16) and at long
+    context (B1 S8192) beside B1 and SDPA on the dequantized bf16 K/V (not
+    the same function: yardsticks of the 1-byte read); then the public API
+    at both timed shapes, whose launches are the path's."""
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    checks = []
+    for d in (64, 128):
+        for storage in STORAGES:
+            for kind in ("bf16", "fp32"):
+                cdt = torch.bfloat16 if kind == "bf16" else torch.float32
+                _, args, _ = quant_problem(torch, quant, fq, gen, storage, 2, 16, 8,
+                                           1000, d, cdt)
+                for causal in (True, False):
+                    kw = dict(causal=causal, sm_scale=d ** -0.5, kv_len=1000,
+                              compute_dtype=cdt)
+                    o_k, lse_k = fq.fa2_forward_quant_aligned(*args, **kw)
+                    o_p, lse_p = fq.fa2_forward_quant_plain(*args, **kw)
+                    torch.cuda.synchronize()
+                    o_k, o_p = o_k[:, :, :1000], o_p[:, :, :1000]
+                    err = (o_k.float() - o_p.float()).abs().max().item()
+                    excess = bf16_excess(o_k, o_p)
+                    lse_err = ((lse_k - lse_p).abs() / lse_p.abs().clamp_min(1.0)
+                               )[:, :, :1000].max().item()
+                    checks.append(dict(d=d, storage=storage, kind=kind, causal=causal,
+                                       max_abs_err=err, bf16_excess=excess,
+                                       lse_rel_err=lse_err))
+                    ok = (excess <= BF16_ATOL["B7"] if kind == "bf16"
+                          else err <= B7_FP32_TOL)
+                    if not (ok and lse_err <= LSE_REL_TOL):
+                        raise AssertionError(f"B7 {checks[-1]} (bf16 atol {BF16_ATOL['B7']}, "
+                                             f"fp32 tol {B7_FP32_TOL})")
+    log("B7 checks", json.dumps(dict(
+        n=len(checks),
+        worst_bf16=max(c["max_abs_err"] for c in checks if c["kind"] == "bf16"),
+        worst_bf16_excess=max(c["bf16_excess"] for c in checks if c["kind"] == "bf16"),
+        worst_bf16_excess_noncausal=max(c["bf16_excess"] for c in checks
+                                        if c["kind"] == "bf16" and not c["causal"]),
+        worst_fp32=max(c["max_abs_err"] for c in checks if c["kind"] == "fp32"))))
+
+    rows, api_inputs = [], []
+    for shape, (b, s) in (("base", (4, 2048)), ("long", (1, 8192))):
+        for storage in STORAGES:
+            api, args, (kd, vd) = quant_problem(torch, quant, fq, gen, storage, b, 16,
+                                                8, s, 64, torch.bfloat16)
+            kw = dict(causal=True, sm_scale=0.125, kv_len=s, compute_dtype=torch.bfloat16)
+            o_k, lse_k = fq.fa2_forward_quant_aligned(*args, **kw)
+            o_p, lse_p = fq.fa2_forward_quant_plain(*args, **kw)
+            torch.cuda.synchronize()
+            err = (o_k.float() - o_p.float()).abs().max().item()
+            excess = bf16_excess(o_k, o_p)
+            if not excess <= BF16_ATOL["B7"]:
+                raise AssertionError(f"B7 {shape} {storage}: max_abs_err {err}, "
+                                     f"bf16 excess {excess} (atol {BF16_ATOL['B7']})")
+            del o_p, lse_p
+            b1_kw = dict(causal=True, sm_scale=0.125, kv_len=s, tile_dtype=torch.bfloat16)
+            # Each tensor moved once: q, the 1-byte (int4: half-byte) K/V and
+            # their scales, O and lse.
+            bound_ms, bound_by, _ = attention_bound(b, 16, s, 64, True, "bf16",
+                                                    *args, o_k, lse_k)
+            row = dict(
+                shape=shape, B=b, S=s, storage=storage, max_abs_err=err,
+                bf16_excess=excess, ms=time_ms(lambda: fq.fa2_forward_quant_aligned(*args, **kw)),
+                plain_ms=time_ms(lambda: fq.fa2_forward_quant_plain(*args, **kw),
+                                 iters=2, warmup=1),
+                library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                b1_dequant_ms=time_ms(lambda: fa2.fa2_forward_aligned(
+                    args[0], kd, vd, **b1_kw)),
+                sdpa_dequant_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                    args[0], kd, vd, is_causal=True, scale=0.125, enable_gqa=True)))
+            row["tflops"] = 4 * b * 16 * causal_pairs(s, s, True) * 64 / row["ms"] / 1e9
+            rows.append(row)
+            log("B7", json.dumps(row))
+            api_inputs.append((api, o_k))
+            del kd, vd
+    # The public API on the timed inputs: its launches are the path's.
+    fq.launches = 0
+    for (q, k_q, v_q), o_k in api_inputs:
+        o = fq.flash_attention_quantized_kv(q, k_q, v_q, causal=True)
+        if not torch.equal(o, o_k[:, :, :q.shape[2]]):
+            raise AssertionError("B7: the public API differs from the aligned kernel")
+    api_launches = fq.launches
+    log(f"B7 public API: {api_launches} launches over {len(api_inputs)} calls")
+    if api_launches != len(api_inputs):
+        raise AssertionError(f"B7 public API launched {api_launches} times")
+
+    # The control: the plain version with one 8-key n-tile of V zeroed
+    # (non-causal, int8, D64, bf16) must fail the bf16 gate.
+    _, args, _ = quant_problem(torch, quant, fq, gen, "int8", 2, 16, 8, 1000, 64,
+                               torch.bfloat16)
+    kw = dict(causal=False, sm_scale=0.125, kv_len=1000, compute_dtype=torch.bfloat16)
+    o_p, _ = fq.fa2_forward_quant_plain(*args, **kw)
+    o_c, _ = fq.fa2_forward_quant_plain(*args[:3], zero_ntile(args[3], 2), args[4], **kw)
+    control = bf16_excess(o_c, o_p)
+    log("B7 bf16 gate control", json.dumps(dict(control_excess=control,
+                                                atol=BF16_ATOL["B7"])))
+    if not control > BF16_ATOL["B7"]:
+        raise AssertionError(f"B7: the control passed the bf16 gate ({control})")
+    return checks, rows, api_launches
+
+
+def quant_pages(torch, kv_cache, gen, cache, shape):
+    """A paged cache [Hkv, P, page, D] written by the cache's own quantizer
+    from random rows: fp8 codes flushed below the minimum normal, int4
+    packed split-half."""
+    dtype, _, packed = kv_cache._resolve_cache_dtype(storage_dtype(torch, cache),
+                                                     shape[-1])
+
+    def pair():
+        return kv_cache._quantize_rows(
+            torch.randn(shape, generator=gen, device="cuda"), dtype, packed)
+
+    (kp, ks), (vp, vs) = pair(), pair()
+    return kv_cache.KVPages(kp, ks, vp, vs)
+
+
+def phase_paged_quant(torch, dec_attn, kv_cache):
+    """B5 and B6 against their plain versions on e4m3, e5m2 and int4 pages
+    at phase 3's and phase 12's shapes, with times and bounds (int4 pages
+    counted at half a byte per element)."""
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    hq, hkv, d, page = 16, 8, 64, 128
+    cases = [("B5", 1, [2048, 1, 129, 0, 777, 1500, 128, 2000], c)
+             for c in ("bf16", "fp32")]
+    cases += [("B6 spec", 5, [2048, 5, 133, 0, 777, 1500, 128, 2000], c)
+              for c in ("bf16", "fp32")]
+    cases += [("B6 prefill", 512, [512, 1024, 1536, 2048], "bf16")]
+    rows = []
+    for cache in ("e4m3", "e5m2", "int4"):
+        elem = 0.5 if cache == "int4" else 1
+        for name, chunk, lens, compute in cases:
+            n, pps = len(lens), 2048 // page
+            num_pages = n * pps + 1
+            pages = quant_pages(torch, kv_cache, gen, cache, (hkv, num_pages, page, d))
+            table = (torch.randperm(num_pages - 1, generator=gen, device="cuda") + 1
+                     ).reshape(n, pps).to(torch.int32).contiguous()
+            lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            cdt = torch.bfloat16 if compute == "bf16" else torch.float32
+            if name == "B5":
+                q = torch.randn(n, hq, d, generator=gen, device="cuda").to(cdt)
+                kernel, plain = (dec_attn.paged_decode_attention,
+                                 dec_attn.paged_decode_attention_plain)
+            else:
+                q = torch.randn(n, chunk, hq, d, generator=gen, device="cuda").to(cdt)
+                kernel, plain = (dec_attn.paged_chunk_attention,
+                                 dec_attn.paged_chunk_attention_plain)
+            kw = dict(sm_scale=d ** -0.5, compute_dtype=cdt)
+            o_k = kernel(q, pages, table, lengths, **kw)
+            o_p = plain(q, pages, table, lengths, **kw)
+            torch.cuda.synchronize()
+            err = (o_k.float() - o_p.float()).abs().max().item()
+            if not err <= B5_TOL[compute]:
+                raise AssertionError(f"{name} {cache} {compute}: max_abs_err {err}")
+            if 0 in lens and o_k[lens.index(0)].abs().max().item() != 0.0:
+                raise AssertionError(f"{name} {cache}: the inactive slot is not zero")
+            bound_ms, bound_by, flops, moved = paged_bound(
+                lens, chunk, hq, hkv, d, elem, q, o_k, compute)
+            row = dict(kernel=name, cache=cache, compute=compute, T=chunk, lengths=lens,
+                       max_abs_err=err, ms=time_ms(lambda: kernel(q, pages, table,
+                                                                  lengths, **kw)),
+                       plain_ms=time_ms(lambda: plain(q, pages, table, lengths, **kw),
+                                        iters=3, warmup=1),
+                       library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+            row["gbps"] = moved / row["ms"] / 1e6
+            rows.append(row)
+            log("paged quant", json.dumps(row))
+            del pages, o_k, o_p
+    return rows
+
+
+def phase_quant_serving(torch, np, transformer, decode, quant, fa2, dec_attn):
+    """TransformerConfig.base() serving phase 5's 12 requests (seed 4, 8
+    slots, 64 greedy tokens) on an int8 cache (the control), (a) an e4m3
+    cache, (b) an int4 cache, (c) int8 W8A8 weights on an int8 cache, (d)
+    int4 weights on an int8 cache, and chunked prefill 512 on the int4
+    cache, with one profiled window of decode steps for (d); then fp32 at
+    base width, the card against the CPU for (b) + (d) together."""
+    cfg = transformer.TransformerConfig.base()
+    params = transformer.init_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    prompts = serving_mix(np, cfg)
+    w8a8 = quant.quantize_transformer_params(params, torch.int8, act_quant=True)
+    w4 = quant.quantize_transformer_params(params, "int4")
+    # The int8 cache first: phase 5's engine again, the control that the
+    # other modes are compared with inside this phase.
+    modes = [("int8 cache (control)", params, torch.int8, {}),
+             ("e4m3 cache", params, torch.float8_e4m3fn, {}),
+             ("int4 cache", params, "int4", {}),
+             ("w8a8 weights, int8 cache", w8a8, torch.int8, {}),
+             ("int4 weights, int8 cache", w4, torch.int8, {}),
+             ("int4 cache, chunked prefill 512", params, "int4",
+              dict(prefill_chunk=512))]
+    res = {}
+    for name, p, cache, kw in modes:
+        eng = decode.DecodeEngine(p, cfg, max_seqs=8, max_seq_len=2048,
+                                  cache_dtype=cache, **kw)
+        torch.cuda.synchronize()
+        reset_serving_launches(fa2, dec_attn)
+        t0 = time.perf_counter()
+        reqs = eng.run(prompts, max_new_tokens=64)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = read_serving_launches(fa2, dec_attn)
+        need = (("paged_chunk", "paged_decode") if kw
+                else ("fa2_forward", "paged_decode"))
+        check_served(f"quant serving {name}", reqs, eng, launches, need,
+                     cfg.vocab_size, 64)
+        total = sum(len(r.generated) for r in reqs)
+        res[name] = dict(requests=len(reqs), tokens=total, seconds=elapsed,
+                         tokens_per_s=total / elapsed,
+                         decode_step_ms_mean=elapsed / eng.stats["steps"] * 1e3,
+                         steps=eng.stats["steps"],
+                         ttft_ms_median=statistics.median(r.ttft_s for r in reqs) * 1e3,
+                         prefill_chunks=eng.stats["prefill_chunks"], launches=launches)
+        log("quant serving", name, json.dumps(res[name]))
+        if name.startswith("int4 weights"):
+            res[name]["profile"] = phase_profile(torch, np, eng,
+                                                 "quant profile (int4 weights)")
+        del eng
+    del params, w8a8, w4
+    torch.cuda.empty_cache()
+
+    # (b) + (d) in fp32 at base width: the card against the CPU.
+    cfg32 = transformer.TransformerConfig.base(dtype=torch.float32, attn_tile_dtype=None)
+    w4 = quant.quantize_transformer_params(transformer.init_params(
+        torch.Generator().manual_seed(0), cfg32, device="cpu"), "int4")
+    prompt = np.random.default_rng(3).integers(0, cfg32.vocab_size, 128).tolist()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        eng = decode.DecodeEngine(w4, cfg32, max_seqs=2, max_seq_len=256,
+                                  cache_dtype="int4", device=dev)
+        with torch.inference_mode():
+            logits, _ = decode.prefill_forward(eng.params, torch.tensor([prompt], device=dev),
+                                               cfg32)
+        (req,) = eng.run([prompt], max_new_tokens=5)
+        out[dev] = (logits.cpu(), req.generated)
+    diff = (out["cuda"][0] - out["cpu"][0]).abs().max().item()
+    res["parity_int4_cache_int4_weights_fp32"] = dict(
+        prefill_logit_diff=diff, greedy_cuda=out["cuda"][1], greedy_cpu=out["cpu"][1])
+    log("quant serving parity", json.dumps(res["parity_int4_cache_int4_weights_fp32"]))
+    if not diff <= E2E_LOGIT_TOL or out["cuda"][1] != out["cpu"][1]:
+        raise AssertionError(f"quant serving parity: logits {diff}, tokens "
+                             f"{out['cuda'][1]} vs {out['cpu'][1]}")
+    return res
+
+
+def merge_steps(torch, transformer, lora, params):
+    """(merge_lora(params), the largest distance of a merged weight from
+    base + delta, and of the base alone from it, each in units of the
+    merged weight's own int4 step, over every adapted weight)."""
+    merged = lora.merge_lora(params)
+    worst = {"merged": 0.0, "base_alone": 0.0}
+
+    def one(x, m):
+        if not isinstance(x, lora.LoRATensor):
+            return
+        base = x.base.dequantize(torch.float32)
+        delta = (x.a.float() @ x.b.float()) * x.scale
+        step = m.scales.expand(-1, m.group_size, -1).reshape(base.shape)
+        worst["merged"] = max(worst["merged"], (
+            (m.dequantize(torch.float32) - base - delta).abs() / step).max().item())
+        worst["base_alone"] = max(worst["base_alone"],
+                                  (delta.abs() / step).max().item())
+
+    transformer.tree_map(one, params, merged)
+    return merged, worst
+
+
+def phase_qlora(torch, np, transformer, training, lora, quant, fa2, bwd):
+    """Two LoRA AdamW steps at base width, B4 S2048, on an int4 base: the
+    loss finite, the base bytes unchanged, the adapters moved, merge_lora's
+    logits within the int4 requantization budget of the unmerged ones.
+    After two steps the delta is far below half an int4 step, so neither
+    the logits nor the merged codes can show it; merge_lora is also held, on
+    the weights, to base + delta within half a step, both for the trained
+    adapters and for b drawn at N(0, 0.5^2), whose delta spans several
+    steps: there a merge that dropped the delta would miss by more."""
+    cfg = transformer.TransformerConfig.base()
+    b, s = 4, 2048
+    base = quant.quantize_transformer_params(transformer.init_params(
+        torch.Generator(device="cuda").manual_seed(2), cfg, device="cuda"), "int4")
+    lp = lora.apply_lora(base, torch.Generator(device="cuda").manual_seed(3), rank=8)
+    def lora_leaves(params):
+        return [x for x in transformer.tree_leaves(params)
+                if isinstance(x, lora.LoRATensor)]
+
+    before = [x.base.values.clone() for x in lora_leaves(lp)]
+    opt = training.make_lora_optimizer(training.make_optimizer(
+        learning_rate=1e-3, warmup_steps=1, decay_steps=100), lp)
+    step = training.make_optax_train_step(cfg, opt)
+    state = training.init_train_state(lp, opt)
+    tokens = np.random.default_rng(9).integers(0, cfg.vocab_size, (b, s + 1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(fa2, bwd)
+    losses, times = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        state, metrics = step(state, tokens)
+        losses.append(metrics["loss"].item())
+        times.append(time.perf_counter() - t0)
+    launches = read_launches(fa2, bwd)
+    after = lora_leaves(state.params)
+    same_base = all(torch.equal(x0, x.base.values) for x0, x in zip(before, after))
+    moved = sum(bool(x.b.any()) for x in after)
+    with torch.no_grad():
+        probe = torch.as_tensor(tokens[:1, :256], device="cuda")
+        logits = transformer.forward(state.params, probe, cfg)
+        merged_params, trained_steps = merge_steps(torch, transformer, lora,
+                                                   state.params)
+        merged = transformer.forward(merged_params, probe, cfg)
+        del merged_params
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        big = lora.replace_adapters(state.params, [
+            t if i % 2 == 0 else 0.5 * torch.randn(t.shape, generator=gen, device="cuda")
+            for i, t in enumerate(lora.lora_adapters(state.params))])
+        _, big_steps = merge_steps(torch, transformer, lora, big)
+        del big
+    merge_diff = (logits - merged).abs().max().item()
+    res = dict(batch=b, seq=s, rank=8, losses=losses, step_ms=[t * 1e3 for t in times],
+               tokens_per_s=b * s / times[-1],
+               adapter_params=sum(t.numel() for t in lora.lora_adapters(state.params)),
+               max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               base_unchanged=same_base, adapters_moved=moved, adapters=len(after),
+               merge_logit_diff=merge_diff,
+               merge_steps={"trained": trained_steps, "large_b": big_steps},
+               launches=launches)
+    log("qlora", json.dumps(res))
+    if not (all(np.isfinite(losses)) and same_base and moved == len(after)
+            and merge_diff <= QLORA_MERGE_TOL
+            and trained_steps["merged"] <= QLORA_STEP_TOL
+            and big_steps["merged"] <= QLORA_STEP_TOL
+            and big_steps["base_alone"] > QLORA_STEP_TOL):
+        raise AssertionError(f"qlora: {res}")
+    if not (launches["fa2_forward"] and launches["fa2_backward_fused"]):
+        raise AssertionError(f"qlora: a kernel of the path never ran: {launches}")
+    return res
+
+
+def phase_x(torch, r5):
+    """X's entry point at B4 H8 S2048 D128 bf16 (its launches are the
+    path's), then each variant against its plain version on the same
+    inputs, with bounds and plain times."""
+    r5.launches = 0
+    rows = r5.main([])
+    launches = r5.launches
+    if launches < len(r5.VARIANTS):
+        raise AssertionError(f"X: {launches} launches in its entry point")
+    gen = torch.Generator(device="cuda").manual_seed(0)  # main's inputs
+    q, k, v = (torch.randn(r5.B, r5.H, r5.S, r5.D, generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    b1, sdpa = (next(r for r in rows if r["variant"] == n) for n in ("B1", "SDPA"))
+    out, lse_v3 = [], None
+    for row in rows[:len(r5.VARIANTS)]:
+        name = row["variant"]
+        o_k, lse_k = r5.fwd(q, k, v, name)
+        o_p, lse_p = r5.fwd_plain(q, k, v, name)
+        torch.cuda.synchronize()
+        err = (o_k.float() - o_p.float()).abs().max().item()
+        excess = bf16_excess(o_k, o_p)
+        lse_d = (lse_k - lse_p).abs()
+        lse_err, lse_mean = lse_d.max().item(), lse_d.mean().item()
+        tol = X_LSE_TOL.get(name, X_LSE_MAX_TOL)
+        bound_ms, bound_by, _ = attention_bound(r5.B, r5.H, r5.S, r5.D, False, "bf16",
+                                                q, k, v, o_k, lse_k)
+        if not (excess <= BF16_ATOL["X"] and lse_err <= tol and lse_mean <= X_LSE_MEAN_TOL):
+            raise AssertionError(f"X {name}: max_abs_err {err}, bf16 excess {excess}, "
+                                 f"lse err {lse_err}, mean {lse_mean}")
+        if name == "v3_bf16_sum":
+            lse_v3 = lse_k
+        out.append(dict(variant=name, ms=row["ms"], tflops=row["tflops"],
+                        err_vs_b1=row["err"], max_abs_err=err, bf16_excess=excess,
+                        lse_err=lse_err, lse_mean_err=lse_mean,
+                        plain_ms=time_ms(lambda: r5.fwd_plain(q, k, v, name),
+                                         iters=2, warmup=1),
+                        b1_ms=b1["ms"], library_ms=sdpa["ms"], bound_ms=bound_ms,
+                        bound_by=bound_by))
+        log("X", json.dumps(out[-1]))
+        del o_k, o_p
+
+    # The controls: v0's plain version with one 8-key n-tile of V zeroed
+    # must fail the bf16 gate, and v3's kernel lse against v0's plain lse
+    # (l not rounded to bf16) must fail the mean lse gate.
+    o_p, lse_p = r5.fwd_plain(q, k, v, "v0_current")
+    o_c, _ = r5.fwd_plain(q, k, zero_ntile(v, 2), "v0_current")
+    control = dict(o_excess=bf16_excess(o_c, o_p),
+                   v3_lse_mean_vs_v0=(lse_v3 - lse_p).abs().mean().item())
+    log("X gate controls", json.dumps(control))
+    if not (control["o_excess"] > BF16_ATOL["X"]
+            and control["v3_lse_mean_vs_v0"] > X_LSE_MEAN_TOL):
+        raise AssertionError(f"X: a control passed its gate: {control}")
+    return out, launches
+
+
 def main() -> int:
     import torch
 
@@ -1430,8 +1908,11 @@ def main() -> int:
     from cuda_flash_attention_tpu_torch.kernels import fa2_backward as bwd
     from cuda_flash_attention_tpu_torch.kernels import fa2_forward as fa2
     from cuda_flash_attention_tpu_torch.kernels.common import BlockSizes
-    from cuda_flash_attention_tpu_torch.models import training, transformer
+    from cuda_flash_attention_tpu_torch.kernels import fa2_forward_quant as fq
+    from cuda_flash_attention_tpu_torch import quant
+    from cuda_flash_attention_tpu_torch.models import lora, training, transformer
     from cuda_flash_attention_tpu_torch.ops import reference
+    from cuda_flash_attention_tpu_torch.scripts import r5_d128_fwd as r5
     from cuda_flash_attention_tpu_torch.utils import io
 
     # fp32 means fp32: no TF32 in the plain versions' matmuls.
@@ -1444,7 +1925,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     build_logs = _build.build("fa2_forward", "paged_decode", "fa2_backward",
-                              "paged_chunk", "fa2_forward_small", "baselines")
+                              "paged_chunk", "fa2_forward_small", "baselines",
+                              "fa2_forward_quant", "r5_d128_fwd")
     log(f"phase 1: built {sorted(build_logs)} in {time.perf_counter() - t0:.1f} s")
     for name, text in build_logs.items():
         for line in text.splitlines():
@@ -1539,6 +2021,27 @@ def main() -> int:
         f"in phases 17-18: {json.dumps(contract_launches)}")
     if not all(contract_launches.values()):
         raise AssertionError(f"phases 17-18: a kernel never ran: {contract_launches}")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    b7_checks, b7, b7_launches = phase_b7(torch, F, quant, fq, fa2)
+    log(f"phase 19: B7 ok in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    paged_quant = phase_paged_quant(torch, dec_attn, kv_cache)
+    log(f"phase 20: B5/B6 on fp8 and int4 pages ok in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    quant_serve = phase_quant_serving(torch, np, transformer, decode, quant, fa2,
+                                      dec_attn)
+    log(f"phase 21: quantized serving ok in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    qlora = phase_qlora(torch, np, transformer, training, lora, quant, fa2, bwd)
+    log(f"phase 22: QLoRA ok in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    x_rows, x_launches = phase_x(torch, r5)
+    log(f"phase 23: X ok in {time.perf_counter() - t0:.1f} s")
 
     # Representative shapes for the kernel line: the serving phase's largest
     # prefill (B4 S1536 bf16) and the int8 cache with bf16 compute.
@@ -1628,12 +2131,42 @@ def main() -> int:
                             if x["kernel"] == name),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
+    # B7 at the base model's attention shape (int8 K/V, bf16); its launches
+    # from the public API's run.  X's v0 (the shipped rowsum) with every
+    # variant's time beside it.
+    r7 = next(r for r in b7 if (r["shape"], r["storage"]) == ("base", "int8"))
+    log("B7 timed rows (base B4 S2048, long B1 S8192):", json.dumps(b7))
+    kernels.append(dict(
+        name="fa2_forward_quant", route="cuda",
+        source="cuda_flash_attention_tpu_torch/csrc/fa2_forward_quant.cu",
+        replaces="cuda_flash_attention_tpu/kernels/fa2_forward_quant.py:163",
+        launches=b7_launches,
+        max_abs_err=max(c["max_abs_err"] for c in b7_checks if c["kind"] == "bf16"),
+        ms=r7["ms"], plain_ms=r7["plain_ms"], bound_ms=r7["bound_ms"],
+        bound_by=r7["bound_by"], library_ms=None,
+        b1_dequant_ms=r7["b1_dequant_ms"], sdpa_dequant_ms=r7["sdpa_dequant_ms"]))
+    rx = x_rows[0]
+    kernels.append(dict(
+        name="r5_d128_fwd", route="cuda",
+        source="cuda_flash_attention_tpu_torch/csrc/r5_d128_fwd.cu",
+        replaces="scripts/r5_d128_fwd.py:105", launches=x_launches,
+        max_abs_err=max(r["max_abs_err"] for r in x_rows),
+        ms=rx["ms"], plain_ms=rx["plain_ms"], bound_ms=rx["bound_ms"],
+        bound_by=rx["bound_by"], library_ms=rx["library_ms"], b1_ms=rx["b1_ms"],
+        variants_ms={r["variant"]: r["ms"] for r in x_rows}))
+    # B5 and B6 also ran the quantized serving path (phase 21).
+    for k in kernels:
+        if k["name"] in ("fa2_forward", "paged_decode", "paged_chunk"):
+            k["launches_quant_serving"] = sum(
+                r["launches"][k["name"]] for n, r in quant_serve.items()
+                if "launches" in r)
     log("fp16 tiles:", json.dumps({"B1 Stress-1": b1_fp16, "B2-B4": [
         {k: r[k] for k in ("kernel", "inputs", "B", "S", "causal", "ms",
                            "bound_ms", "library_ms", "rel_err")} for r in bwd_fp16]}))
     log(json.dumps({"e2e_logit_diff": e2e, "train_parity": parity,
                     "autograd": autograd, "remat": remat,
-                    "spec_parity": spec_parity}))
+                    "spec_parity": spec_parity, "qlora": qlora,
+                    "paged_quant_rows": len(paged_quant)}))
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -13,8 +13,9 @@ batching DecodeEngine), the training path (the FA2 backward kernels
 behind a differentiable flash_attention, the loss, the SGD-momentum and
 AdamW train steps) and the reference contract (the dispatch registry, the
 CLI, the accuracy and benchmark harness, the small-shape FA2 forward and
-the FA1 / naive-FA2 baseline kernels).  This package imports torch and
-numpy, never jax.
+the FA1 / naive-FA2 baseline kernels), and the quantized path (the
+quantized-KV FA2 forward, fp8 and int4 paged caches, int8/fp8/int4 and W8A8
+weights, LoRA).  This package imports torch and numpy, never jax.
 """
 
 __version__ = "0.1.0"
@@ -25,4 +26,9 @@ from cuda_flash_attention_tpu_torch.kernels.attention import (  # noqa: F401
     fa2_backward,
     flash_attention,
     flash_attention_with_lse,
+)
+from cuda_flash_attention_tpu_torch.kernels.fa2_forward_quant import (  # noqa: F401
+    flash_attention_int8_kv,
+    flash_attention_quantized_kv,
+    flash_attention_quantized_kv_with_lse,
 )

@@ -6,7 +6,9 @@
 // T consecutive queries per sequence slot (speculative verification, chunked
 // and prefix-suffix prefill) attend over that slot's pages of the paged KV
 // cache, into which the chunk's own K/V was written first.  q and out are
-// [n, T, Hq, D]; pages [Hkv, P, page, D] of int8, bf16 or fp32 with fp32
+// [n, T, Hq, D]; pages [Hkv, P, page, D] of int8, fp8 (e4m3 / e5m2), bf16 or
+// fp32, or packed int4 [Hkv, P, page, D/2] (split-half: byte j holds element
+// j low and element j + D/2 high), with fp32
 // per-token scales [Hkv, P, page]; the page table [n, pages_per_seq] maps a
 // slot's logical pages to physical ones; lengths [n] is each slot's TOTAL
 // length, the chunk included (0 for an inactive slot, whose output is
@@ -34,8 +36,10 @@
 //     at the diagonal), so no dead page and no column past the tile's bound
 //     is moved;
 //   * 64-token K and V tiles (never crossing a page: pages are multiples of
-//     128) are staged in shared memory with 16-byte loads and dequantized in
-//     registers on the way; no dequantized page is ever written;
+//     128) are staged in shared memory with 16-byte loads of their stored
+//     width and decoded in registers on the way (fp8 by the card's exact
+//     conversion, int4 by nibble sign-extension; the scales are applied to
+//     S and P, not here); no dequantized page is ever written;
 //   * bf16 compute runs the tensor cores (mma.sync m16n8k16, fp32
 //     accumulate), P going from the S accumulators into A fragments; fp32
 //     compute runs the FMA units (no TF32).
@@ -43,11 +47,13 @@
 // (the speculation shape has n * Hkv = 64 blocks on 132 SMs) are later work.
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 namespace {
 
@@ -62,6 +68,36 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
 }
 __device__ __forceinline__ float to_float(int8_t x) {
   return static_cast<float>(x);
+}
+__device__ __forceinline__ float to_float(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);
+}
+__device__ __forceinline__ float to_float(__nv_fp8_e5m2 x) {
+  return static_cast<float>(x);
+}
+
+// A byte of packed int4 pages: two sign-extended nibbles.
+struct Int4x2 {
+  int8_t b;
+};
+
+template <typename Tc>
+constexpr bool kPacked = std::is_same<Tc, Int4x2>::value;
+// Stored bytes of one cached row of D elements.
+template <typename Tc, int D>
+constexpr int kRowBytesOf = kPacked<Tc> ? D / 2 : D * static_cast<int>(sizeof(Tc));
+
+// The 16 stored bytes at p of an int4 row as 32 floats: x[j] is element
+// c + j (the low nibble of byte j), x[16 + j] element c + D/2 + j.
+__device__ __forceinline__ void unpack16_int4(const unsigned char* p, float* x) {
+  alignas(16) uint8_t e[16];
+  *reinterpret_cast<uint4*>(e) = *reinterpret_cast<const uint4*>(p);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const uint8_t top = static_cast<uint8_t>(e[j] << 4);
+    x[j] = static_cast<float>(static_cast<int8_t>(top) >> 4);
+    x[16 + j] = static_cast<float>(static_cast<int8_t>(e[j]) >> 4);
+  }
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -119,58 +155,100 @@ __device__ __forceinline__ void load16(const T* p, float* x) {
   for (int j = 0; j < kVec; ++j) x[j] = to_float(e[j]);
 }
 
-// Stage a [kBlockN, D] tile of the cache (rows src[0 .. kBlockN) with row
-// stride D) into shared memory as bf16 with leading dimension LD, reading 16
-// bytes per thread and step.  Rows at or past `valid` are zero: their P is 0
-// and a stale NaN there would poison the PV product.
+// Stage a [kBlockN, D] tile of the cache (rows of kRowBytesOf<Tc, D> stored
+// bytes from src) into shared memory as bf16 with leading dimension LD,
+// reading 16 bytes per thread and step.  Rows at or past `valid` are zero:
+// their P is 0 and a stale NaN there would poison the PV product.
 template <typename Tc, int D, int LD, int NTHREADS>
 __device__ __forceinline__ void stage_kv_bf16(__nv_bfloat16* dst,
-                                              const Tc* src, int valid) {
-  constexpr int kVec = 16 / sizeof(Tc);
-  constexpr int kPerRow = D / kVec;
+                                              const unsigned char* src,
+                                              int valid) {
+  constexpr int kRow = kRowBytesOf<Tc, D>;
+  constexpr int kPerRow = kRow / 16;
   for (int i = threadIdx.x; i < kBlockN * kPerRow; i += NTHREADS) {
     const int r = i / kPerRow;
-    const int c = (i - r * kPerRow) * kVec;
-    float x[kVec];
-    if (r < valid) {
-      load16(src + static_cast<size_t>(r) * D + c, x);
-    } else {
+    const int cb = (i - r * kPerRow) * 16;  // byte offset in the row
+    if constexpr (kPacked<Tc>) {
+      float x[32];
+      if (r < valid) {
+        unpack16_int4(src + static_cast<size_t>(r) * kRow + cb, x);
+      } else {
 #pragma unroll
-      for (int j = 0; j < kVec; ++j) x[j] = 0.f;
-    }
-    uint32_t w[kVec / 2];
+        for (int j = 0; j < 32; ++j) x[j] = 0.f;
+      }
 #pragma unroll
-    for (int j = 0; j < kVec / 2; ++j) w[j] = pack_bf16(x[2 * j], x[2 * j + 1]);
-    __nv_bfloat16* d = dst + r * LD + c;
-    if constexpr (kVec == 16) {
-      reinterpret_cast<uint4*>(d)[0] = make_uint4(w[0], w[1], w[2], w[3]);
-      reinterpret_cast<uint4*>(d)[1] = make_uint4(w[4], w[5], w[6], w[7]);
-    } else if constexpr (kVec == 8) {
-      *reinterpret_cast<uint4*>(d) = make_uint4(w[0], w[1], w[2], w[3]);
+      for (int h = 0; h < 2; ++h) {
+        const float* xh = x + 16 * h;
+        __nv_bfloat16* d = dst + r * LD + cb + h * (D / 2);
+        reinterpret_cast<uint4*>(d)[0] = make_uint4(
+            pack_bf16(xh[0], xh[1]), pack_bf16(xh[2], xh[3]),
+            pack_bf16(xh[4], xh[5]), pack_bf16(xh[6], xh[7]));
+        reinterpret_cast<uint4*>(d)[1] = make_uint4(
+            pack_bf16(xh[8], xh[9]), pack_bf16(xh[10], xh[11]),
+            pack_bf16(xh[12], xh[13]), pack_bf16(xh[14], xh[15]));
+      }
     } else {
-      *reinterpret_cast<uint2*>(d) = make_uint2(w[0], w[1]);
+      constexpr int kVec = 16 / sizeof(Tc);
+      const int c = cb / static_cast<int>(sizeof(Tc));
+      float x[kVec];
+      if (r < valid) {
+        load16(reinterpret_cast<const Tc*>(src + static_cast<size_t>(r) * kRow + cb), x);
+      } else {
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) x[j] = 0.f;
+      }
+      uint32_t w[kVec / 2];
+#pragma unroll
+      for (int j = 0; j < kVec / 2; ++j) w[j] = pack_bf16(x[2 * j], x[2 * j + 1]);
+      __nv_bfloat16* d = dst + r * LD + c;
+      if constexpr (kVec == 16) {
+        reinterpret_cast<uint4*>(d)[0] = make_uint4(w[0], w[1], w[2], w[3]);
+        reinterpret_cast<uint4*>(d)[1] = make_uint4(w[4], w[5], w[6], w[7]);
+      } else if constexpr (kVec == 8) {
+        *reinterpret_cast<uint4*>(d) = make_uint4(w[0], w[1], w[2], w[3]);
+      } else {
+        *reinterpret_cast<uint2*>(d) = make_uint2(w[0], w[1]);
+      }
     }
   }
 }
 
 // The same into fp32 shared memory (leading dimension LD, any alignment).
 template <typename Tc, int D, int LD, int NTHREADS>
-__device__ __forceinline__ void stage_kv_fp32(float* dst, const Tc* src,
+__device__ __forceinline__ void stage_kv_fp32(float* dst,
+                                              const unsigned char* src,
                                               int valid) {
-  constexpr int kVec = 16 / sizeof(Tc);
-  constexpr int kPerRow = D / kVec;
+  constexpr int kRow = kRowBytesOf<Tc, D>;
+  constexpr int kPerRow = kRow / 16;
   for (int i = threadIdx.x; i < kBlockN * kPerRow; i += NTHREADS) {
     const int r = i / kPerRow;
-    const int c = (i - r * kPerRow) * kVec;
-    float x[kVec];
-    if (r < valid) {
-      load16(src + static_cast<size_t>(r) * D + c, x);
+    const int cb = (i - r * kPerRow) * 16;
+    if constexpr (kPacked<Tc>) {
+      float x[32];
+      if (r < valid) {
+        unpack16_int4(src + static_cast<size_t>(r) * kRow + cb, x);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 32; ++j) x[j] = 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        dst[r * LD + cb + j] = x[j];
+        dst[r * LD + cb + D / 2 + j] = x[16 + j];
+      }
     } else {
+      constexpr int kVec = 16 / sizeof(Tc);
+      const int c = cb / static_cast<int>(sizeof(Tc));
+      float x[kVec];
+      if (r < valid) {
+        load16(reinterpret_cast<const Tc*>(src + static_cast<size_t>(r) * kRow + cb), x);
+      } else {
 #pragma unroll
-      for (int j = 0; j < kVec; ++j) x[j] = 0.f;
+        for (int j = 0; j < kVec; ++j) x[j] = 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) dst[r * LD + c + j] = x[j];
     }
-#pragma unroll
-    for (int j = 0; j < kVec; ++j) dst[r * LD + c + j] = x[j];
   }
 }
 
@@ -211,8 +289,8 @@ struct Tile {
     return ((static_cast<size_t>(slot) * chunk + t) * n_heads + h) * d;
   }
 
-  // First cache row (in rows of D elements) of the kBlockN tokens from c0,
-  // which never cross a page.
+  // First cache row (a row index, in rows of one token) of the kBlockN
+  // tokens from c0, which never cross a page.
   __device__ __forceinline__ size_t cache_row(const int* page_table, int c0,
                                               int num_pages,
                                               int page_size) const {
@@ -245,6 +323,7 @@ paged_chunk_mma(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
                 int chunk, int n_heads, int num_pages, int page_size,
                 int pages_per_seq, float sm_scale) {
   constexpr int LD = D + 8;  // 16-byte row padding: conflict-free ldmatrix
+  constexpr int kRow = kRowBytesOf<Tc, D>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* ks = qs + kBlockM * LD;
@@ -298,8 +377,10 @@ paged_chunk_mma(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
     const size_t row0 = tile.cache_row(page_table, c0, num_pages, page_size);
     const int valid = tile.valid_cols(c0);
     __syncthreads();  // every warp is done with the previous K/V tile
-    stage_kv_bf16<Tc, D, LD, 128>(ks, k_pages + row0 * D, valid);
-    stage_kv_bf16<Tc, D, LD, 128>(vs, v_pages + row0 * D, valid);
+    stage_kv_bf16<Tc, D, LD, 128>(
+        ks, reinterpret_cast<const unsigned char*>(k_pages) + row0 * kRow, valid);
+    stage_kv_bf16<Tc, D, LD, 128>(
+        vs, reinterpret_cast<const unsigned char*>(v_pages) + row0 * kRow, valid);
     if (threadIdx.x < kBlockN) {
       const bool in = threadIdx.x < valid;
       ksc[threadIdx.x] = in ? k_scales[row0 + threadIdx.x] * sm_scale : 0.f;
@@ -434,6 +515,7 @@ paged_chunk_fp32(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
   constexpr int LDV = D;
   constexpr int LDP = kBlockN + 1;
   constexpr int DJ = D / 16;
+  constexpr int kRow = kRowBytesOf<Tc, D>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* qs = reinterpret_cast<float*>(smem_raw);
   float* ks = qs + kBlockM * LDQ;
@@ -470,8 +552,10 @@ paged_chunk_fp32(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
     const size_t row0 = tile.cache_row(page_table, c0, num_pages, page_size);
     const int valid = tile.valid_cols(c0);
     __syncthreads();
-    stage_kv_fp32<Tc, D, LDK, 256>(ks, k_pages + row0 * D, valid);
-    stage_kv_fp32<Tc, D, LDV, 256>(vs, v_pages + row0 * D, valid);
+    stage_kv_fp32<Tc, D, LDK, 256>(
+        ks, reinterpret_cast<const unsigned char*>(k_pages) + row0 * kRow, valid);
+    stage_kv_fp32<Tc, D, LDV, 256>(
+        vs, reinterpret_cast<const unsigned char*>(v_pages) + row0 * kRow, valid);
     if (threadIdx.x < kBlockN) {
       const bool in = threadIdx.x < valid;
       ksc[threadIdx.x] = in ? k_scales[row0 + threadIdx.x] * sm_scale : 0.f;
@@ -644,6 +728,12 @@ cudaError_t launch_cache(int cache_dtype, int head_dim, const Args& a,
       return launch_d<Tq, __nv_bfloat16>(head_dim, a, bf16_compute, st);
     case 2:
       return launch_d<Tq, int8_t>(head_dim, a, bf16_compute, st);
+    case 3:
+      return launch_d<Tq, __nv_fp8_e4m3>(head_dim, a, bf16_compute, st);
+    case 4:
+      return launch_d<Tq, __nv_fp8_e5m2>(head_dim, a, bf16_compute, st);
+    case 5:
+      return launch_d<Tq, Int4x2>(head_dim, a, bf16_compute, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -655,7 +745,8 @@ extern "C" {
 
 // q, out [num_seqs, chunk, n_heads, head_dim] (fp32, or bf16 when q_bf16);
 // k_pages, v_pages [n_kv_heads, num_pages, page_size, head_dim] of
-// cache_dtype 0 = fp32, 1 = bf16, 2 = int8; k_scales, v_scales
+// cache_dtype 0 = fp32, 1 = bf16, 2 = int8, 3 = fp8 e4m3, 4 = fp8 e5m2, or
+// 5 = int4 [.., head_dim / 2] split-half; k_scales, v_scales
 // [n_kv_heads, num_pages, page_size] fp32; page_table [num_seqs,
 // pages_per_seq] int32; lengths [num_seqs] int32, the total length with the
 // chunk.  page_size is a multiple of 128 and n_heads / n_kv_heads <= 8.

@@ -4,8 +4,10 @@
 //   cuda_flash_attention_tpu/decode/attention.py::paged_decode_attention
 //   (body _decode_kernel).
 // One query token per sequence slot attends over that slot's pages of the
-// paged KV cache: pages [Hkv, P, page, D] of int8, bf16 or fp32 with fp32
-// per-token scales [Hkv, P, page]; the page table [n, pages_per_seq] maps the
+// paged KV cache: pages [Hkv, P, page, D] of int8, fp8 (e4m3 / e5m2), bf16
+// or fp32, or packed int4 [Hkv, P, page, D/2] (split-half: byte j holds
+// element j in the low nibble and element j + D/2 in the high one), with
+// fp32 per-token scales [Hkv, P, page]; the page table [n, pages_per_seq] maps the
 // slot's logical pages to physical ones; lengths [n] gives each slot's
 // token count (0 for an inactive slot, whose output is zeros).
 //
@@ -13,12 +15,15 @@
 // used by the `group` query heads that share its KV head (2 at the base
 // model), so the kernel does ~2 * group FLOPs per cached byte against a
 // ~295 FLOP/byte ridge; the floor is the live pages' bytes (K and V plus
-// their scales) at 3.35 TB/s.  What the design does about it:
+// their scales) at 3.35 TB/s, which fp8 keeps at int8's and int4 halves.
+// What the design does about it:
 //   * one thread block per (slot, KV head); the block reads its own page ids
 //     from the table and visits only live pages (p * page < length), so a
 //     dead table entry is never dereferenced and no dead byte is moved;
 //   * a 128-token chunk of K and V is copied once into shared memory with
-//     16-byte loads and dequantized in registers: the K scale multiplies the
+//     16-byte loads in its stored width and decoded in registers (fp8 by the
+//     card's exact conversion, int4 by two nibble sign-extensions): the K
+//     scale multiplies the
 //     score column and the V scale multiplies P, as the TPU kernel does; no
 //     dequantized page is ever written;
 //   * all `group` query heads of the KV head are scored from the same staged
@@ -28,11 +33,13 @@
 // is later work.
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 namespace {
 
@@ -52,9 +59,33 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
 __device__ __forceinline__ float to_float(int8_t x) {
   return static_cast<float>(x);
 }
+__device__ __forceinline__ float to_float(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);
+}
+__device__ __forceinline__ float to_float(__nv_fp8_e5m2 x) {
+  return static_cast<float>(x);
+}
 
-// Value of a cache element in the compute type, as fp32.  int8 and bf16 are
-// exact in bf16; an fp32 cache read with bf16 compute rounds.
+// A byte of packed int4 pages: two sign-extended nibbles.
+struct Int4x2 {
+  int8_t b;
+};
+__device__ __forceinline__ float lo_nibble(int8_t b) {
+  const uint8_t top = static_cast<uint8_t>(static_cast<uint8_t>(b) << 4);
+  return static_cast<float>(static_cast<int8_t>(top) >> 4);
+}
+__device__ __forceinline__ float hi_nibble(int8_t b) {
+  return static_cast<float>(b >> 4);
+}
+
+template <typename Tc>
+constexpr bool kPacked = std::is_same<Tc, Int4x2>::value;
+// Stored bytes of one cached row of D elements.
+template <typename Tc, int D>
+constexpr int kRowBytesOf = kPacked<Tc> ? D / 2 : D * static_cast<int>(sizeof(Tc));
+
+// Value of a cache element in the compute type, as fp32.  int8, int4, fp8
+// and bf16 are exact in bf16; an fp32 cache read with bf16 compute rounds.
 template <typename Tc>
 __device__ __forceinline__ float cache_value(Tc x, bool bf16_compute) {
   const float f = to_float(x);
@@ -76,7 +107,7 @@ paged_decode_kernel(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
                     const int* __restrict__ lengths, Tq* __restrict__ out,
                     int n_heads, int num_pages, int page_size,
                     int pages_per_seq, float sm_scale, int bf16_compute) {
-  constexpr int kRowBytes = D * static_cast<int>(sizeof(Tc));
+  constexpr int kRowBytes = kRowBytesOf<Tc, D>;
   constexpr int kStride = kRowBytes + 16;  // conflict-free 16-byte row reads
   constexpr int kParts = kThreads / D;     // token partitions of the PV sum
   constexpr int kPartTokens = kThreads / kParts;
@@ -128,9 +159,9 @@ paged_decode_kernel(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
     __syncthreads();  // the previous chunk's readers are done
     {
       const unsigned char* ksrc =
-          reinterpret_cast<const unsigned char*>(k_pages + row0 * D);
+          reinterpret_cast<const unsigned char*>(k_pages) + row0 * kRowBytes;
       const unsigned char* vsrc =
-          reinterpret_cast<const unsigned char*>(v_pages + row0 * D);
+          reinterpret_cast<const unsigned char*>(v_pages) + row0 * kRowBytes;
       constexpr int kVecPerRow = kRowBytes / 16;
       for (int i = tid; i < kThreads * kVecPerRow; i += kThreads) {
         const int r = i / kVecPerRow;
@@ -150,7 +181,27 @@ paged_decode_kernel(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
     float s[kMaxGroup];
 #pragma unroll
     for (int g = 0; g < kMaxGroup; ++g) s[g] = 0.f;
-    {
+    if constexpr (kPacked<Tc>) {
+      // Byte j of the row holds elements j and j + D/2.
+      const int8_t* krow = reinterpret_cast<const int8_t*>(kbuf + tid * kStride);
+#pragma unroll 2
+      for (int b0 = 0; b0 < D / 2; b0 += 16) {
+        alignas(16) int8_t e[16];
+        *reinterpret_cast<uint4*>(e) = *reinterpret_cast<const uint4*>(krow + b0);
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const float lo = lo_nibble(e[j]);
+          const float hi = hi_nibble(e[j]);
+#pragma unroll
+          for (int g = 0; g < kMaxGroup; ++g) {
+            if (g < group) {
+              s[g] = fmaf(qf[g][b0 + j], lo, s[g]);
+              s[g] = fmaf(qf[g][b0 + j + D / 2], hi, s[g]);
+            }
+          }
+        }
+      }
+    } else {
       const Tc* krow = reinterpret_cast<const Tc*>(kbuf + tid * kStride);
       constexpr int kElemsPerVec = 16 / sizeof(Tc);
 #pragma unroll 2
@@ -200,7 +251,10 @@ paged_decode_kernel(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
     }
     __syncthreads();
 
-    const Tc* vcol = reinterpret_cast<const Tc*>(vbuf) + d;
+    // This thread's column d of the staged V rows: its byte, and for int4
+    // its nibble.
+    const unsigned char* vcol =
+        vbuf + (kPacked<Tc> ? d % (D / 2) : d * static_cast<int>(sizeof(Tc)));
 #pragma unroll
     for (int g = 0; g < kMaxGroup; ++g) {
       float sum = red_sum[g][0];
@@ -211,10 +265,13 @@ paged_decode_kernel(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
     }
 #pragma unroll 4
     for (int t = part * kPartTokens; t < (part + 1) * kPartTokens; ++t) {
-      const float vv = cache_value(
-          *reinterpret_cast<const Tc*>(reinterpret_cast<const unsigned char*>(vcol) +
-                                       t * kStride),
-          bf16c);
+      float vv;
+      if constexpr (kPacked<Tc>) {
+        const int8_t byte = *reinterpret_cast<const int8_t*>(vcol + t * kStride);
+        vv = d < D / 2 ? lo_nibble(byte) : hi_nibble(byte);
+      } else {
+        vv = cache_value(*reinterpret_cast<const Tc*>(vcol + t * kStride), bf16c);
+      }
 #pragma unroll
       for (int g = 0; g < kMaxGroup; ++g) {
         if (g < group) acc[g] = fmaf(ps[g][t], vv, acc[g]);
@@ -274,7 +331,7 @@ cudaError_t launch(int num_seqs, int n_heads, int n_kv_heads, const void* q,
                    const void* page_table, const void* lengths, void* out,
                    int num_pages, int page_size, int pages_per_seq,
                    float sm_scale, int bf16_compute, cudaStream_t stream) {
-  const size_t smem = 2 * kThreads * (D * sizeof(Tc) + 16);
+  const size_t smem = 2 * kThreads * (kRowBytesOf<Tc, D> + 16);
   static std::atomic<uint64_t> smem_set{0};
   cudaError_t err = set_smem_once(paged_decode_kernel<Tq, Tc, D>,
                                   static_cast<int>(smem), smem_set);
@@ -330,6 +387,20 @@ cudaError_t launch_cache(int cache_dtype, int head_dim, int num_seqs,
       return launch_d<Tq, int8_t>(head_dim, num_seqs, n_heads, n_kv_heads, q,
                                   kp, ks, vp, vs, pt, len, out, num_pages,
                                   page_size, pps, sm_scale, bf16_compute, st);
+    case 3:
+      return launch_d<Tq, __nv_fp8_e4m3>(head_dim, num_seqs, n_heads,
+                                         n_kv_heads, q, kp, ks, vp, vs, pt,
+                                         len, out, num_pages, page_size, pps,
+                                         sm_scale, bf16_compute, st);
+    case 4:
+      return launch_d<Tq, __nv_fp8_e5m2>(head_dim, num_seqs, n_heads,
+                                         n_kv_heads, q, kp, ks, vp, vs, pt,
+                                         len, out, num_pages, page_size, pps,
+                                         sm_scale, bf16_compute, st);
+    case 5:
+      return launch_d<Tq, Int4x2>(head_dim, num_seqs, n_heads, n_kv_heads, q,
+                                  kp, ks, vp, vs, pt, len, out, num_pages,
+                                  page_size, pps, sm_scale, bf16_compute, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -341,7 +412,8 @@ extern "C" {
 
 // q, out [num_seqs, n_heads, head_dim] (fp32, or bf16 when q_bf16);
 // k_pages, v_pages [n_kv_heads, num_pages, page_size, head_dim] of
-// cache_dtype 0 = fp32, 1 = bf16, 2 = int8; k_scales, v_scales
+// cache_dtype 0 = fp32, 1 = bf16, 2 = int8, 3 = fp8 e4m3, 4 = fp8 e5m2, or
+// 5 = int4 [.., head_dim / 2] split-half; k_scales, v_scales
 // [n_kv_heads, num_pages, page_size] fp32; page_table [num_seqs,
 // pages_per_seq] int32; lengths [num_seqs] int32.  page_size is a multiple
 // of 128 and n_heads / n_kv_heads <= 8.  Returns a cudaError_t.

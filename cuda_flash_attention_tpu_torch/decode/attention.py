@@ -7,6 +7,13 @@ kernels).  The CUDA kernels are csrc/paged_decode.cu and csrc/paged_chunk.cu;
 each source note says what bounds it on the H100 and how its design answers
 that.  On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises.  Sliding windows and sinks are not ported yet.
+
+Caches are int8, fp8 (e4m3 / e5m2), bf16, fp32 or packed int4 (int8 pages
+of width head_dim // 2, split-half).  The JAX kernels decode fp8 pages with
+a flush-to-zero bit path, exact on every code the writer emits because the
+writer flushes below the fp8 minimum normal (kv_cache._quantize_rows); the
+card's and torch's native conversions are exact on every code, so the two
+agree on every page the writer produces.
 """
 
 from __future__ import annotations
@@ -17,7 +24,11 @@ import torch
 
 from cuda_flash_attention_tpu_torch.decode.kv_cache import KVPages
 from cuda_flash_attention_tpu_torch.kernels import _build
-from cuda_flash_attention_tpu_torch.kernels.common import DEFAULT_MASK_VALUE
+from cuda_flash_attention_tpu_torch.kernels.common import (
+    DEFAULT_MASK_VALUE,
+    is_packed_int4,
+    kv_storage_cast,
+)
 
 # Kernel launches since the last reset (each wrapper adds one per launch):
 # B5's in `launches`, B6's in `chunk_launches`.
@@ -28,7 +39,10 @@ _SOURCE = "paged_decode"
 _CHUNK_SOURCE = "paged_chunk"
 _HEAD_DIMS = (64, 128)
 _MAX_GROUP = 8
-_CACHE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# The kernels' cache codes; packed int4 (int8 of width D/2) is code 5.
+_CACHE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+                torch.float8_e4m3fn: 3, torch.float8_e5m2: 4}
+_INT4_CODE = 5
 _COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -67,8 +81,8 @@ def _check_kernel_inputs(what: str, q, pages: KVPages, page_table, lengths,
         raise NotImplementedError(
             f"{what} kernel: cache {cache_dtype}, head_dim {head_dim}, "
             f"group {group}, page {page_size}, q {q.dtype} "
-            f"(takes int8/bf16/fp32 caches, head_dim {_HEAD_DIMS}, group <= "
-            f"{_MAX_GROUP}, page_size a multiple of 128, bf16/fp32 q)"
+            f"(takes int8/int4/fp8/bf16/fp32 caches, head_dim {_HEAD_DIMS}, "
+            f"group <= {_MAX_GROUP}, page_size a multiple of 128, bf16/fp32 q)"
         )
     tensors = (q, pages.k_pages, pages.k_scales, pages.v_pages,
                pages.v_scales, page_table, lengths)
@@ -81,6 +95,24 @@ def _check_kernel_inputs(what: str, q, pages: KVPages, page_table, lengths,
     if page_table.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise ValueError(f"{what} kernel: page_table and lengths must be int32")
     return tensors
+
+
+def _cache_code(pages: KVPages, head_dim: int) -> int:
+    if is_packed_int4(pages.k_pages, head_dim):
+        return _INT4_CODE
+    return _CACHE_CODES[pages.k_pages.dtype]
+
+
+def _check_fit(q, pages: KVPages):
+    """q's heads and head dim fit the pages (int4 pages store head_dim // 2
+    int8 bytes)."""
+    n_heads, head_dim = q.shape[-2], q.shape[-1]
+    n_kv_heads, kv_dim = pages.k_pages.shape[0], pages.k_pages.shape[-1]
+    if n_heads % n_kv_heads or (kv_dim != head_dim
+                                and not is_packed_int4(pages.k_pages, head_dim)):
+        raise ValueError(
+            f"q {tuple(q.shape)} does not fit pages {tuple(pages.k_pages.shape)}"
+        )
 
 
 def paged_decode_attention(q, pages: KVPages, page_table, lengths, *,
@@ -96,11 +128,8 @@ def paged_decode_attention(q, pages: KVPages, page_table, lengths, *,
     if window is not None or sinks:
         raise NotImplementedError("windowed paged decode is not ported yet")
     num_seqs, n_heads, head_dim = q.shape
-    n_kv_heads, num_pages, page_size, kv_dim = pages.k_pages.shape
-    if n_heads % n_kv_heads or kv_dim != head_dim:
-        raise ValueError(
-            f"q {tuple(q.shape)} does not fit pages {tuple(pages.k_pages.shape)}"
-        )
+    n_kv_heads, num_pages, page_size, _ = pages.k_pages.shape
+    _check_fit(q, pages)
     if compute_dtype not in _COMPUTE_DTYPES:
         raise NotImplementedError(f"compute_dtype {compute_dtype} is not ported")
     if sm_scale is None:
@@ -121,7 +150,7 @@ def paged_decode_attention(q, pages: KVPages, page_table, lengths, *,
         *(t.data_ptr() for t in tensors), out.data_ptr(),
         num_seqs, n_heads, n_kv_heads, num_pages, page_size,
         page_table.shape[1], head_dim, float(sm_scale),
-        int(q.dtype == torch.bfloat16), _CACHE_CODES[pages.k_pages.dtype],
+        int(q.dtype == torch.bfloat16), _cache_code(pages, head_dim),
         int(compute_dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -155,11 +184,8 @@ def paged_chunk_attention(q, pages: KVPages, page_table, lengths, *,
     if window is not None or sinks:
         raise NotImplementedError("windowed paged chunk attention is not ported yet")
     num_seqs, chunk, n_heads, head_dim = q.shape
-    n_kv_heads, num_pages, page_size, kv_dim = pages.k_pages.shape
-    if n_heads % n_kv_heads or kv_dim != head_dim:
-        raise ValueError(
-            f"q {tuple(q.shape)} does not fit pages {tuple(pages.k_pages.shape)}"
-        )
+    n_kv_heads, num_pages, page_size, _ = pages.k_pages.shape
+    _check_fit(q, pages)
     if compute_dtype not in _COMPUTE_DTYPES:
         raise NotImplementedError(f"compute_dtype {compute_dtype} is not ported")
     if sm_scale is None:
@@ -180,7 +206,7 @@ def paged_chunk_attention(q, pages: KVPages, page_table, lengths, *,
         *(t.data_ptr() for t in tensors), out.data_ptr(),
         num_seqs, chunk, n_heads, n_kv_heads, num_pages, page_size,
         page_table.shape[1], head_dim, float(sm_scale),
-        int(q.dtype == torch.bfloat16), _CACHE_CODES[pages.k_pages.dtype],
+        int(q.dtype == torch.bfloat16), _cache_code(pages, head_dim),
         int(compute_dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -213,8 +239,8 @@ def paged_chunk_attention_plain(q, pages: KVPages, page_table, lengths, *,
         g = x[:, ids]                                       # [Hkv, n, pps, page, *]
         return g.transpose(0, 1).reshape(n, hkv, pps * page_size, *x.shape[3:])
 
-    k = gather(pages.k_pages).to(compute_dtype).float()
-    v = gather(pages.v_pages).to(compute_dtype).float()
+    k = kv_storage_cast(gather(pages.k_pages), d, compute_dtype).float()
+    v = kv_storage_cast(gather(pages.v_pages), d, compute_dtype).float()
     ks = gather(pages.k_scales)                                     # [n, Hkv, L]
     vs = gather(pages.v_scales)
     qf = (q.reshape(n, chunk, hkv, group, d).transpose(1, 2)

@@ -58,7 +58,9 @@ from cuda_flash_attention_tpu_torch.decode.sampling import (
     warp_logits,
 )
 from cuda_flash_attention_tpu_torch.kernels.common import cdiv
+from cuda_flash_attention_tpu_torch.models.lora import LoRATensor
 from cuda_flash_attention_tpu_torch.models.transformer import TransformerConfig
+from cuda_flash_attention_tpu_torch.quant.qtensor import QuantizedTensor
 
 
 @dataclasses.dataclass
@@ -111,7 +113,11 @@ def _not_ported(what: str):
 
 
 class DecodeEngine:
-    """Continuous-batching generation over a quantized paged KV cache."""
+    """Continuous-batching generation over a quantized paged KV cache.
+    ``cache_dtype`` (target and draft caches) is torch.int8, "int4",
+    torch.float8_e4m3fn, torch.float8_e5m2, torch.bfloat16 or torch.float32;
+    params may hold QuantizedTensor (int8/fp8/int4, W8A8) and LoRATensor
+    weights."""
 
     def __init__(self, params, cfg: TransformerConfig, *, max_seqs: int = 8,
                  max_seq_len: int = 2048, page_size: int = 128,
@@ -228,12 +234,21 @@ class DecodeEngine:
 
     def _serving_copy(self, params, cfg: TransformerConfig):
         """A compute-dtype copy of the 2-D weights on the engine's device
-        (decode needs no fp32 master); norm scales keep their dtype."""
-        return _map_params(
-            params,
-            lambda p: p.to(self.device, cfg.dtype)
-            if p.ndim >= 2 and p.is_floating_point() else p.to(self.device),
-        )
+        (decode needs no fp32 master); norm scales keep their dtype.  A
+        QuantizedTensor is a leaf: its values and fp32 scales move to the
+        device unchanged, as the JAX engine keeps them (engine.py:157-174);
+        a LoRATensor's base and adapters follow the same rules."""
+        def copy(p):
+            if isinstance(p, QuantizedTensor):
+                return p.to(self.device)
+            if isinstance(p, LoRATensor):
+                return dataclasses.replace(p, base=copy(p.base), a=copy(p.a),
+                                           b=copy(p.b))
+            if p.ndim >= 2 and p.is_floating_point():
+                return p.to(self.device, cfg.dtype)
+            return p.to(self.device)
+
+        return _map_params(params, copy)
 
     def _dev(self, array) -> torch.Tensor:
         """A device COPY of host state: the host goes on mutating its numpy

@@ -2,15 +2,17 @@
 storage.
 
 Counterpart of cuda_flash_attention_tpu/decode/kv_cache.py with the same
-layout: pages [n_kv_heads, num_pages, page_size, head_dim] of int8, bf16 or
-fp32 with fp32 per-token scales [n_kv_heads, num_pages, page_size] (all ones
-for a float cache).  A page table [max_seqs, pages_per_seq] maps each slot's
-logical pages to physical ones; page 0 is the reserved null page.
+layout: pages [n_kv_heads, num_pages, page_size, head_dim] of int8, fp8
+(e4m3 / e5m2), bf16 or fp32, or packed int4 (the string "int4": int8 pages
+of width head_dim // 2, split-half: byte j holds element j in the low
+nibble and element j + head_dim // 2 in the high one), with fp32 per-token
+scales [n_kv_heads, num_pages, page_size] (all ones for a float cache).  A
+page table [max_seqs, pages_per_seq] maps each slot's logical pages to
+physical ones; page 0 is the reserved null page.
 
 Unlike the JAX package, whose arrays are immutable, the writers here update
 the cache tensors IN PLACE (indexed assignment) and return the same KVPages:
 the cache is the largest state of a server and is never copied per token.
-fp8 and int4 caches are not ported yet.
 """
 
 from __future__ import annotations
@@ -20,17 +22,32 @@ import dataclasses
 import torch
 
 from cuda_flash_attention_tpu_torch._device import resolve_device
-from cuda_flash_attention_tpu_torch.quant.qtensor import qmax_for
+from cuda_flash_attention_tpu_torch.kernels.common import is_packed_int4
+from cuda_flash_attention_tpu_torch.quant.qtensor import (
+    qmax_for,
+    quantize_rows_int4,
+)
 
 _FLOAT_CACHE_DTYPES = (torch.float32, torch.bfloat16)
-_CACHE_DTYPES = _FLOAT_CACHE_DTYPES + (torch.int8,)
+_FP8_CACHE_DTYPES = (torch.float8_e4m3fn, torch.float8_e5m2)
+_CACHE_DTYPES = _FLOAT_CACHE_DTYPES + _FP8_CACHE_DTYPES + (torch.int8, "int4")
+# The smallest normal value of each fp8 type: the writer flushes below it.
+_FP8_MIN_NORMAL = {torch.float8_e4m3fn: 2.0 ** -6, torch.float8_e5m2: 2.0 ** -14}
 
 
-def _check_cache_dtype(dtype) -> None:
+def _resolve_cache_dtype(dtype, head_dim: int):
+    """(storage dtype, stored width, packed) of a cache dtype, "int4"
+    included (int8 storage of width head_dim // 2)."""
     if dtype not in _CACHE_DTYPES:
         raise NotImplementedError(
-            f"KV cache dtype {dtype} is not ported yet (int8, bf16, fp32 are)"
+            f"KV cache dtype {dtype} is not ported (int8, int4, fp8 e4m3/e5m2, "
+            "bf16 and fp32 are)"
         )
+    if isinstance(dtype, str):
+        if head_dim % 2:
+            raise ValueError(f"int4 KV needs an even head_dim; {head_dim}")
+        return torch.int8, head_dim // 2, True
+    return dtype, head_dim, False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,9 +67,9 @@ class KVPages:
 def init_kv_pages(n_kv_heads: int, num_pages: int, page_size: int,
                   head_dim: int, dtype=torch.int8, device=None) -> KVPages:
     """Zeroed pages with unit scales on `device` (None means the card)."""
-    _check_cache_dtype(dtype)
+    dtype, width, _ = _resolve_cache_dtype(dtype, head_dim)
     device = resolve_device(device)
-    shape = (n_kv_heads, num_pages, page_size, head_dim)
+    shape = (n_kv_heads, num_pages, page_size, width)
     sshape = (n_kv_heads, num_pages, page_size)
     return KVPages(
         k_pages=torch.zeros(shape, dtype=dtype, device=device),
@@ -62,13 +79,18 @@ def init_kv_pages(n_kv_heads: int, num_pages: int, page_size: int,
     )
 
 
-def _quantize_rows(x: torch.Tensor, dtype):
+def _quantize_rows(x: torch.Tensor, dtype, packed: bool = False):
     """Per-row (last-axis) symmetric quantization -> (values, scales):
-    scale = max(amax, 1e-12) / qmax, values = round-half-even(x / scale)
-    clipped to +-qmax.  It divides by the scale (not multiplies by its
-    inverse), as the JAX writer does, so the int8 bytes agree bit for bit.
+    scale = max(amax, 1e-12) / qmax and values = x / scale, divided (not
+    multiplied by the inverse) as the JAX writer does, so the bytes agree:
+    int8 rounds half to even and clips to +-127; fp8 flushes below the fp8
+    minimum normal to 0, clips to +-qmax and casts (nearest even), as the
+    JAX writer does (kv_cache.py:180-191) so that its decode kernels may
+    take a normal-only path; ``packed`` is int4 split-half at qmax 7.
     Float caches store x cast to the cache dtype with unit scales."""
-    _check_cache_dtype(dtype)
+    if packed:
+        values, scales = quantize_rows_int4(x)
+        return values, scales[..., 0]
     if dtype in _FLOAT_CACHE_DTYPES:
         return x.to(dtype), torch.ones(x.shape[:-1], dtype=torch.float32,
                                        device=x.device)
@@ -77,8 +99,17 @@ def _quantize_rows(x: torch.Tensor, dtype):
     amax = x.abs().amax(dim=-1)
     scales = amax.clamp_min(1e-12) / qmax
     q = x / scales[..., None]
-    values = torch.round(q).clamp(-qmax, qmax).to(dtype)
+    if dtype == torch.int8:
+        values = torch.round(q).clamp(-qmax, qmax).to(dtype)
+    else:
+        q = torch.where(q.abs() < _FP8_MIN_NORMAL[dtype], 0.0, q)
+        values = q.clamp(-qmax, qmax).to(dtype)
     return values, scales
+
+
+def _packed(pages: "KVPages", x: torch.Tensor) -> bool:
+    """int4 pages store half the head dim."""
+    return is_packed_int4(pages.k_pages, x.shape[-1])
 
 
 def append_token_kv(pages: KVPages, k_new, v_new, page_table, positions,
@@ -98,9 +129,9 @@ def append_token_kv(pages: KVPages, k_new, v_new, page_table, positions,
         page_table[torch.arange(num_seqs, device=page_table.device), page_idx],
         0,
     )
-    dtype = pages.k_pages.dtype
-    kq, ks = _quantize_rows(k_new, dtype)  # [n, Hkv, D], [n, Hkv]
-    vq, vs = _quantize_rows(v_new, dtype)
+    dtype, packed = pages.k_pages.dtype, _packed(pages, k_new)
+    kq, ks = _quantize_rows(k_new, dtype, packed)  # [n, Hkv, *], [n, Hkv]
+    vq, vs = _quantize_rows(v_new, dtype, packed)
     pages.k_pages[:, page_ids, offsets] = kq.transpose(0, 1)
     pages.k_scales[:, page_ids, offsets] = ks.transpose(0, 1)
     pages.v_pages[:, page_ids, offsets] = vq.transpose(0, 1)
@@ -151,9 +182,9 @@ def write_chunk_kv_paged(pages: KVPages, k_chunk, v_chunk, page_table,
         max=page_table.shape[1] - 1)  # an inactive slot's start may be anything
     ids = torch.where(active[:, None], page_table.long().gather(1, cols), 0)
     ids = ids.reshape(-1)
-    dtype = pages.k_pages.dtype
-    kq, ks = _quantize_rows(k_chunk.reshape(n * t, hkv, d), dtype)
-    vq, vs = _quantize_rows(v_chunk.reshape(n * t, hkv, d), dtype)
+    dtype, packed = pages.k_pages.dtype, _packed(pages, k_chunk)
+    kq, ks = _quantize_rows(k_chunk.reshape(n * t, hkv, d), dtype, packed)
+    vq, vs = _quantize_rows(v_chunk.reshape(n * t, hkv, d), dtype, packed)
 
     def to_pages(x):  # [n*T, Hkv, D] -> [Hkv, n*npg, page_size, D]
         return x.transpose(0, 1).reshape(hkv, n * npg, page_size, -1)

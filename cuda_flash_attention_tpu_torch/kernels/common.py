@@ -113,6 +113,28 @@ def pad_to_block(x: torch.Tensor, axis: int, block: int) -> torch.Tensor:
     return F.pad(x, pads)
 
 
+def is_packed_int4(x: torch.Tensor, head_dim: int) -> bool:
+    """Whether x holds packed int4 K/V: int8 of width head_dim // 2."""
+    return x.dtype == torch.int8 and x.shape[-1] * 2 == head_dim
+
+
+def kv_storage_cast(x: torch.Tensor, head_dim: int,
+                    compute_dtype: torch.dtype) -> torch.Tensor:
+    """A stored K/V tile in the compute type: int4 split-half pages (width
+    head_dim // 2; byte j holds element j in the low nibble and element
+    j + head_dim // 2 in the high one, both sign-extended) are unpacked
+    first; every other storage type converts directly.
+
+    The JAX twin (kernels/common.py:407-483) widens fp8 by integer bit
+    surgery because the v5e has no fp8 convert; torch's and the card's
+    native conversions are exact on every fp8 code, so none is needed."""
+    if is_packed_int4(x, head_dim):
+        lo = ((x & 0xF) ^ 8) - 8   # the low nibble, sign-extended
+        hi = x >> 4                # arithmetic shift keeps the sign
+        x = torch.cat([lo, hi], dim=-1)
+    return x.to(compute_dtype)
+
+
 def build_element_mask(q_len: int, kv_len_pad: int, *, causal: bool,
                        kv_len: int, device) -> torch.Tensor | None:
     """Boolean keep-mask [q_len, kv_len_pad] over a whole (padded) problem,

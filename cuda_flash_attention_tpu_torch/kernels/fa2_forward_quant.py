@@ -1,0 +1,254 @@
+"""FA2 forward over quantized K/V: kernel B7, its plain PyTorch version and
+the public quantized-KV API.
+
+  B7 fa2_forward_quant_aligned  replaces cuda_flash_attention_tpu/kernels/
+                                fa2_forward_quant.py::fa2_forward_quant_aligned
+                                (csrc/fa2_forward_quant.cu)
+
+K and V are int8, fp8 (e4m3 / e5m2) or packed int4 (split-half, width D/2)
+with one fp32 scale per (batch, head, position) row; the kernel folds the K
+scale into S's columns and the V scale into P, never building a dequantized
+tile.  Scales are [B, Hkv, S] contiguous here: the JAX [B, H, 1, S]
+lane-major layout is a TPU layout.  On a CPU tensor the wrapper runs the
+plain version; on a CUDA tensor it launches the kernel or raises.  Segment
+ids and sliding windows are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from cuda_flash_attention_tpu_torch.kernels import _build
+from cuda_flash_attention_tpu_torch.kernels.attention import _check_window
+from cuda_flash_attention_tpu_torch.kernels.common import (
+    DEFAULT_MASK_VALUE,
+    KERNEL_HEAD_DIMS,
+    LN2,
+    LOG2E,
+    MIN_BLOCK,
+    is_packed_int4,
+    kv_storage_cast,
+    pad_to_block,
+)
+from cuda_flash_attention_tpu_torch.quant.qtensor import (
+    QuantizedTensor,
+    quantize_kv,
+)
+
+__all__ = ["flash_attention_quantized_kv", "flash_attention_quantized_kv_with_lse",
+           "flash_attention_int8_kv", "fa2_forward_quant_aligned",
+           "fa2_forward_quant_plain"]
+
+# Kernel launches since the last reset (the wrapper adds one per launch).
+launches = 0
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_COMPUTE_DTYPES = (torch.bfloat16, torch.float32)
+# The kernel's storage codes (int4 is int8 storage of width D/2).
+_STORAGE = {torch.int8: 0, torch.float8_e4m3fn: 1, torch.float8_e5m2: 2}
+# Rows of the plain version's score tile per step: at S 8192 x 16 heads one
+# fp32 score tensor of the whole problem would take 4 GiB.
+_PLAIN_ROWS = 1024
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("fa2_forward_quant")
+    fn = lib.cfa_fa2_forward_quant
+    if fn.argtypes is None:
+        fn.argtypes = [_P] * 7 + [_I] * 7 + [ctypes.c_float] + [_I] * 4 + [_P]
+        fn.restype = _I
+    return lib
+
+
+def _storage_code(k_vals, head_dim: int) -> int:
+    if is_packed_int4(k_vals, head_dim):
+        return 3
+    if k_vals.shape[-1] != head_dim or k_vals.dtype not in _STORAGE:
+        raise NotImplementedError(
+            f"fa2_forward_quant kernel: K/V must be int8, fp8 e4m3/e5m2 of "
+            f"width head_dim or packed int4 of width head_dim // 2; got "
+            f"{k_vals.dtype} of width {k_vals.shape[-1]} at head_dim {head_dim}")
+    return _STORAGE[k_vals.dtype]
+
+
+def fa2_forward_quant_aligned(q, k_vals, k_scales, v_vals, v_scales, *,
+                              causal: bool, sm_scale: float, kv_len: int,
+                              compute_dtype=torch.bfloat16):
+    """B7 over sequence-padded q [B, Hq, Sq, D], k/v values [B, Hkv, Skv, D]
+    (or [.., D/2] packed int4) and scales [B, Hkv, Skv] fp32 (Hq a multiple
+    of Hkv; query head h reads KV head h // (Hq // Hkv)).  Keys at or past
+    `kv_len` are masked.  Returns (O like q, lse [B, Hq, Sq] fp32, natural
+    log)."""
+    if compute_dtype not in _COMPUTE_DTYPES:
+        raise NotImplementedError(
+            f"compute_dtype {compute_dtype} is not ported (bf16, fp32 are)")
+    if q.device.type == "cpu":
+        return fa2_forward_quant_plain(
+            q, k_vals, k_scales, v_vals, v_scales, causal=causal,
+            sm_scale=sm_scale, kv_len=kv_len, compute_dtype=compute_dtype)
+    if q.device.type != "cuda":
+        raise ValueError(f"fa2_forward_quant: unsupported device {q.device}")
+    global launches
+    b, hq, sq, d = q.shape
+    hkv, skv = k_vals.shape[1], k_vals.shape[2]
+    storage = _storage_code(k_vals, d)
+    if (q.dtype not in (torch.float32, torch.bfloat16) or d not in KERNEL_HEAD_DIMS
+            or v_vals.dtype != k_vals.dtype or v_vals.shape != k_vals.shape):
+        raise NotImplementedError(
+            f"fa2_forward_quant kernel: q fp32/bf16 with head_dim in "
+            f"{KERNEL_HEAD_DIMS}, K and V of one type and shape; got q "
+            f"{q.dtype} {tuple(q.shape)}, K {k_vals.dtype} {tuple(k_vals.shape)}, "
+            f"V {v_vals.dtype} {tuple(v_vals.shape)}")
+    if b * hq > 65535:
+        raise NotImplementedError("fa2_forward_quant kernel: batch * heads > 65535")
+    tensors = (q, k_vals, k_scales, v_vals, v_scales)
+    for t in tensors:
+        if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("fa2_forward_quant kernel: inputs must be contiguous, "
+                             "16-byte aligned and on one device")
+    for s in (k_scales, v_scales):
+        if s.dtype != torch.float32 or s.shape != (b, hkv, skv):
+            raise ValueError(f"fa2_forward_quant kernel: scales must be fp32 "
+                             f"[{b}, {hkv}, {skv}]; got {s.dtype} {tuple(s.shape)}")
+    o = torch.empty_like(q)
+    lse = torch.empty((b, hq, sq), device=q.device, dtype=torch.float32)
+    lib = _lib()
+    err = lib.cfa_fa2_forward_quant(
+        *(t.data_ptr() for t in tensors), o.data_ptr(), lse.data_ptr(),
+        b, hq, hkv, sq, skv, d, kv_len, sm_scale * LOG2E, int(causal),
+        int(q.dtype == torch.bfloat16), storage,
+        int(compute_dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(lib, "cfa_fa2_forward_quant_error_string", err,
+                 "fa2_forward_quant")
+    launches += 1
+    return o, lse
+
+
+def fa2_forward_quant_plain(q, k_vals, k_scales, v_vals, v_scales, *,
+                            causal: bool, sm_scale: float, kv_len: int,
+                            compute_dtype=torch.bfloat16):
+    """B7's function in plain PyTorch, with the TPU kernel's rounding
+    points: Q scaled by sm_scale*log2(e) in fp32 and rounded to the compute
+    type; K and V decoded to it (kv_storage_cast) with no scale; S fp32,
+    times the K scale of its column, masked at DEFAULT_MASK_VALUE; exp2
+    softmax in fp32 over the whole row; P * v_scale rounded to the compute
+    type before P V; O = PV / l with l == 0 guarded, lse = m*ln2 + log(l).
+    Query rows go _PLAIN_ROWS at a time to bound the score tile."""
+    d = q.shape[-1]
+    groups = q.shape[1] // k_vals.shape[1]
+    k = kv_storage_cast(k_vals, d, compute_dtype).float()
+    v = kv_storage_cast(v_vals, d, compute_dtype).float()
+    ks, vs = k_scales.float(), v_scales.float()
+    if groups > 1:
+        k, v = (t.repeat_interleave(groups, dim=1) for t in (k, v))
+        ks, vs = (t.repeat_interleave(groups, dim=1) for t in (ks, vs))
+    cols = torch.arange(k.shape[2], device=q.device)
+    o_parts, lse_parts = [], []
+    for r0 in range(0, q.shape[2], _PLAIN_ROWS):
+        rows = torch.arange(r0, min(r0 + _PLAIN_ROWS, q.shape[2]),
+                            device=q.device)
+        qs = (q[:, :, rows].float() * (sm_scale * LOG2E)).to(compute_dtype).float()
+        s = (qs @ k.transpose(-1, -2)) * ks[:, :, None, :]
+        keep = (cols < kv_len)[None, :]
+        if causal:
+            keep = keep & (cols[None, :] <= rows[:, None])
+        s = s + torch.where(keep, 0.0, DEFAULT_MASK_VALUE)
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.where(keep, torch.exp2(s - m), 0.0)
+        l = p.sum(dim=-1, keepdim=True)
+        pv = (p * vs[:, :, None, :]).to(compute_dtype).float() @ v
+        o_parts.append((pv * torch.where(l == 0.0, 1.0, 1.0 / l)).to(q.dtype))
+        lse_parts.append((m * LN2 + torch.log(torch.where(l == 0.0, 1.0, l)))[..., 0])
+    return torch.cat(o_parts, dim=2), torch.cat(lse_parts, dim=2)
+
+
+# ---------------------------------------------------------------------------
+# Public API
+# ---------------------------------------------------------------------------
+
+
+def _validate_quant_shapes(q, k_q: QuantizedTensor, v_q: QuantizedTensor):
+    """The JAX package's checks (fa2_forward_quant.py:306-339), with its
+    error types: [B, H, S, D] shapes, K and V alike, batch and head_dim
+    agreeing (packed int4 stores head_dim // 2), GQA divisibility and
+    per-token scales [B, Hkv, Skv, 1]."""
+    if q.ndim != 4 or k_q.values.ndim != 4 or v_q.values.ndim != 4:
+        raise ValueError(
+            f"q/k/v must be [batch, heads, seq, head_dim]; got {tuple(q.shape)}, "
+            f"{tuple(k_q.values.shape)}, {tuple(v_q.values.shape)}"
+        )
+    if k_q.values.shape != v_q.values.shape:
+        raise ValueError(
+            f"k/v shape mismatch: {tuple(k_q.values.shape)} vs "
+            f"{tuple(v_q.values.shape)}"
+        )
+    kv_dim = k_q.values.shape[3]
+    packed_ok = k_q.bits == 4 and is_packed_int4(k_q.values, q.shape[3])
+    if q.shape[0] != k_q.values.shape[0] or (kv_dim != q.shape[3] and not packed_ok):
+        raise ValueError(
+            f"q and k must agree on batch/head_dim (packed int4 KV stores "
+            f"head_dim//2): {tuple(q.shape)} vs {tuple(k_q.values.shape)}"
+        )
+    if q.shape[1] % k_q.values.shape[1] != 0:
+        raise ValueError(
+            f"GQA requires query heads ({q.shape[1]}) to be a multiple of "
+            f"KV heads ({k_q.values.shape[1]})"
+        )
+    for name, t in (("k", k_q), ("v", v_q)):
+        want = (*t.values.shape[:3], 1)
+        if tuple(t.scales.shape) != want:
+            raise ValueError(
+                f"{name} scales must be per-token {want} (quantize_kv's "
+                f"axis=-1 layout); got {tuple(t.scales.shape)}"
+            )
+
+
+def aligned_inputs(q, k_q: QuantizedTensor, v_q: QuantizedTensor):
+    """B7's arguments from the API's: (q, k values, k scales [B, Hkv, S],
+    v values, v scales), each sequence zero-padded to the 128 block grid as
+    the JAX API pads, contiguous."""
+    def pad(t):
+        return pad_to_block(t, 2, MIN_BLOCK).contiguous()
+
+    return (pad(q), pad(k_q.values), pad(k_q.scales[..., 0].float()),
+            pad(v_q.values), pad(v_q.scales[..., 0].float()))
+
+
+def flash_attention_quantized_kv_with_lse(
+        q, k_q: QuantizedTensor, v_q: QuantizedTensor, *, causal: bool = False,
+        sm_scale: float | None = None, compute_dtype=torch.bfloat16, q_segment_ids=None, kv_segment_ids=None,
+        window: int | None = None):
+    """Quantized-KV FA2 forward returning (O, logsumexp [B, H, Sq] fp32).
+    q [B, Hq, Sq, D]; k_q/v_q from `quant.quantize_kv` (values [B, Hkv,
+    Skv, D], or [.., D/2] for int4; scales [B, Hkv, Skv, 1]).  GQA is
+    kernel-native.  The JAX API's block_q/block_k (TPU tile sizes) are not
+    taken: the kernel keeps its own 64-row tiles."""
+    _validate_quant_shapes(q, k_q, v_q)
+    if q_segment_ids is not None or kv_segment_ids is not None:
+        raise NotImplementedError("segment ids are not ported yet")
+    _check_window(window, 0, causal, q.shape[2], k_q.values.shape[2])
+    if sm_scale is None:
+        sm_scale = 1.0 / (q.shape[-1] ** 0.5)
+    with torch.no_grad():
+        o, lse = fa2_forward_quant_aligned(
+            *aligned_inputs(q, k_q, v_q), causal=causal,
+            sm_scale=float(sm_scale), kv_len=k_q.values.shape[2],
+            compute_dtype=compute_dtype)
+    return o[:, :, :q.shape[2]], lse[:, :, :q.shape[2]]
+
+
+def flash_attention_quantized_kv(q, k_q, v_q, **kwargs):
+    """FA2 forward over a quantized KV cache (inference; returns O)."""
+    o, _ = flash_attention_quantized_kv_with_lse(q, k_q, v_q, **kwargs)
+    return o
+
+
+def flash_attention_int8_kv(q, k, v, **kwargs):
+    """Quantize K/V to int8 per token, then attend."""
+    k_q, v_q = quantize_kv(k, v, torch.int8)
+    return flash_attention_quantized_kv(q, k_q, v_q, **kwargs)

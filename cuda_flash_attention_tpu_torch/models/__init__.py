@@ -1,7 +1,15 @@
+from cuda_flash_attention_tpu_torch.models.lora import (  # noqa: F401
+    LoRATensor,
+    apply_lora,
+    lora_trainable_mask,
+    merge_lora,
+)
 from cuda_flash_attention_tpu_torch.models.training import (  # noqa: F401
+    LoRAOptimizer,
     Optimizer,
     TrainState,
     init_train_state,
+    make_lora_optimizer,
     make_optax_train_step,
     make_optimizer,
     train_loop,

@@ -13,7 +13,8 @@ with optax's formulas, so that the same gradients give the same updates:
   add_decayed_weights:     u + weight_decay * p, on every leaf
   scale_by_learning_rate:  -lr(count) * u, the schedule read at the count
                            BEFORE the increment (the first step has lr 0)
-Meshes are not ported; orbax checkpoints wait for utils/checkpoint.py.
+make_lora_optimizer trains only LoRA adapters (models/lora.py).  Meshes
+are not ported; orbax checkpoints wait for utils/checkpoint.py.
 """
 
 from __future__ import annotations
@@ -24,9 +25,14 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from cuda_flash_attention_tpu_torch._device import resolve_device
+from cuda_flash_attention_tpu_torch.models.lora import (
+    lora_adapters,
+    replace_adapters,
+)
 from cuda_flash_attention_tpu_torch.models.transformer import (
     TransformerConfig,
     init_params,
+    loss_fn,
     tree_leaves,
     tree_map,
     value_and_grad,
@@ -115,6 +121,60 @@ class Optimizer:
     def apply_updates(params, updates):
         return tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)
 
+    @staticmethod
+    def trainable(params):
+        """The tree the step differentiates and this optimizer updates."""
+        return params
+
+    @staticmethod
+    def value_and_grad(params, tokens, cfg: TransformerConfig):
+        return value_and_grad(params, tokens, cfg)
+
+
+class LoRAOptimizer:
+    """`inner` (clipping and AdamW) on the LoRA adapters alone, as
+    make_lora_optimizer's optax chain: the step differentiates only the
+    adapters (lora_adapters order), the clip norm is theirs, optimizer
+    state exists only for them, and every frozen leaf gets a zero update,
+    so it stays the same tensor, bit for bit."""
+
+    def __init__(self, inner: Optimizer):
+        self.inner = inner
+
+    def init(self, params) -> AdamWState:
+        return self.inner.init(lora_adapters(params))
+
+    def update(self, grads, state: AdamWState, params):
+        return self.inner.update(grads, state, lora_adapters(params))
+
+    @staticmethod
+    def apply_updates(params, updates):
+        new = [(p + u).to(p.dtype) for p, u in zip(lora_adapters(params), updates)]
+        return replace_adapters(params, new)
+
+    @staticmethod
+    def trainable(params):
+        return lora_adapters(params)
+
+    @staticmethod
+    def value_and_grad(params, tokens, cfg: TransformerConfig):
+        """(loss, grads of the adapters): nothing else is differentiated."""
+        with torch.enable_grad():
+            wrt = [a.detach().requires_grad_(True) for a in lora_adapters(params)]
+            loss = loss_fn(replace_adapters(params, wrt), tokens, cfg)
+            grads = list(torch.autograd.grad(loss, wrt))
+        return loss.detach(), grads
+
+
+def make_lora_optimizer(inner: Optimizer, params) -> LoRAOptimizer:
+    """The counterpart of the JAX make_lora_optimizer (lora.py:111-123):
+    trains only the adapters of `params`.  Frozen leaves get a zero update
+    and no state; the optax.masked-only form, which passes frozen leaves'
+    raw gradients through as updates, is not ported."""
+    if not lora_adapters(params):
+        raise ValueError("make_lora_optimizer: params hold no LoRATensor")
+    return LoRAOptimizer(inner)
+
 
 def make_optimizer(learning_rate: float = 3e-4, warmup_steps: int = 100,
                    decay_steps: int = 10_000, weight_decay: float = 0.01,
@@ -137,7 +197,8 @@ def init_train_state(params, optimizer: Optimizer) -> TrainState:
 def make_optax_train_step(cfg: TransformerConfig, optimizer: Optimizer,
                           grad_accum: int = 1):
     """Returns step(state, tokens) -> (state, metrics), metrics holding
-    "loss", "grad_norm" (before clipping) and "step".  Tokens [B, S + 1]
+    "loss", "grad_norm" (before clipping, over what the optimizer trains:
+    every leaf, or a LoRA optimizer's adapters) and "step".  Tokens [B, S + 1]
     (a tensor or an integer numpy array) go to the parameters' device.
 
     ``grad_accum`` > 1 splits the batch into that many microbatches run one
@@ -146,24 +207,25 @@ def make_optax_train_step(cfg: TransformerConfig, optimizer: Optimizer,
 
     def grads_of(params, tokens):
         if grad_accum <= 1:
-            return value_and_grad(params, tokens, cfg)
+            return optimizer.value_and_grad(params, tokens, cfg)
         b = tokens.shape[0]
         if b % grad_accum:
             raise ValueError(f"batch {b} must divide into grad_accum="
                              f"{grad_accum} microbatches")
+        wrt = optimizer.trainable(params)
         loss_sum = 0.0
         g_sum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                               device=p.device), params)
+                                               device=p.device), wrt)
         for mb in tokens.reshape(grad_accum, b // grad_accum, *tokens.shape[1:]):
-            loss, g = value_and_grad(params, mb, cfg)
+            loss, g = optimizer.value_and_grad(params, mb, cfg)
             g_sum = tree_map(lambda a, x: a + x.float(), g_sum, g)
             loss_sum = loss_sum + loss
         inv = 1.0 / grad_accum
         return loss_sum * inv, tree_map(lambda g, p: (g * inv).to(p.dtype),
-                                        g_sum, params)
+                                        g_sum, wrt)
 
     def step(state: TrainState, tokens) -> tuple[TrainState, dict]:
-        device = tree_leaves(state.params)[0].device
+        device = tree_leaves(optimizer.trainable(state.params))[0].device
         tokens = torch.as_tensor(tokens).to(device=device, dtype=torch.long)
         loss, grads = grads_of(state.params, tokens)
         updates, opt_state = optimizer.update(grads, state.opt_state,

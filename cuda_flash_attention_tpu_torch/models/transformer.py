@@ -267,6 +267,11 @@ def value_and_grad(params, tokens, cfg: TransformerConfig):
     """(loss, grads): grads is a tree like params, each leaf in its
     parameter's dtype."""
     leaves = tree_leaves(params)
+    if not all(isinstance(p, torch.Tensor) for p in leaves):
+        raise NotImplementedError(
+            "gradients through QuantizedTensor or LoRATensor leaves: train "
+            "LoRA adapters with training.make_lora_optimizer; quantized "
+            "weights outside a LoRA base are not trainable in the port yet")
     with torch.enable_grad():
         wrt = [p.detach().requires_grad_(True) for p in leaves]
         it = iter(wrt)

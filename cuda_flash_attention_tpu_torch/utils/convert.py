@@ -1,13 +1,23 @@
 """Carry a parameter tree from the JAX package into the port.
 
-The caller turns the JAX arrays into numpy arrays (np.asarray on each leaf);
-this module needs neither JAX nor its package, only the tree's structure:
-dicts, lists and arrays."""
+The caller turns the JAX arrays into numpy arrays (np.asarray on each leaf)
+and the JAX package's QuantizedTensor / LoRATensor leaves into the port's
+classes holding those numpy arrays; this module needs neither JAX nor its
+package, only the tree's structure: dicts, lists, arrays and the port's
+QuantizedTensor and LoRATensor, converted field by field."""
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
+
+from cuda_flash_attention_tpu_torch.models.lora import LoRATensor
+from cuda_flash_attention_tpu_torch.quant.qtensor import QuantizedTensor
+
+# numpy has no fp8 of its own: ml_dtypes' fp8 arrays cross as their bytes.
+_FP8 = {"float8_e4m3fn": torch.float8_e4m3fn, "float8_e5m2": torch.float8_e5m2}
 
 
 def _to_tensor(a: np.ndarray, device, dtype) -> torch.Tensor:
@@ -15,6 +25,8 @@ def _to_tensor(a: np.ndarray, device, dtype) -> torch.Tensor:
     if a.dtype.name == "bfloat16":
         # numpy has no bfloat16 of its own; fp32 holds every bf16 value exactly.
         t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    elif a.dtype.name in _FP8:
+        t = torch.from_numpy(np.array(a.view(np.uint8))).view(_FP8[a.dtype.name])
     else:
         t = torch.from_numpy(np.array(a))  # a copy: JAX's buffers are read-only
     return t.to(device=device, dtype=dtype if dtype is not None else t.dtype)
@@ -22,9 +34,19 @@ def _to_tensor(a: np.ndarray, device, dtype) -> torch.Tensor:
 
 def params_from_numpy(tree, device, dtype: torch.dtype | None = None):
     """The same tree with every numpy array as a torch tensor on `device`
-    (cast to `dtype` when given).  Lists and tuples become lists."""
+    (cast to `dtype` when given).  Lists and tuples become
+    lists.  A QuantizedTensor's values and scales keep their types (fp8
+    values through a uint8 view); a LoRATensor's base converts as a leaf of
+    its own and its adapters like any array."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [params_from_numpy(v, device, dtype) for v in tree]
+    if isinstance(tree, QuantizedTensor):
+        return dataclasses.replace(tree, values=_to_tensor(tree.values, device, None),
+                                   scales=_to_tensor(tree.scales, device, None))
+    if isinstance(tree, LoRATensor):
+        return dataclasses.replace(tree, base=params_from_numpy(tree.base, device, dtype),
+                                   a=_to_tensor(tree.a, device, dtype),
+                                   b=_to_tensor(tree.b, device, dtype))
     return _to_tensor(tree, device, dtype)

@@ -168,13 +168,17 @@ def _port_modules():
 
 
 def test_import_check_covers_the_reference_contract_modules():
-    """The dispatch, CLI, harness and baseline modules are among those the
-    two checks below import and parse."""
+    """The dispatch, CLI, harness and baseline modules, and the quantized
+    path's (B7, quantization, LoRA, the X probe), are among those the two
+    checks below import and parse."""
     mods = set(_port_modules())
     for m in ("dispatch", "dispatch.registry", "dispatch.types", "cli",
               "bench", "bench.__main__", "bench.configs", "bench.harness",
               "ops.metrics", "ops.reference", "utils.io", "utils.timing",
-              "kernels.baselines", "kernels.fa2_forward"):
+              "kernels.baselines", "kernels.fa2_forward",
+              "kernels.fa2_forward_quant", "quant", "quant.qtensor",
+              "quant.linear", "models.lora", "utils.convert", "scripts",
+              "scripts.r5_d128_fwd"):
         assert f"cuda_flash_attention_tpu_torch.{m}" in mods, m
 
 

@@ -535,3 +535,162 @@ def test_harness_on_the_card_passes_and_times(cuda):
     results = Harness(iters=2, device="cuda", verbose=False).run(cfgs)
     assert [r.passed for r in results] == [True] * len(cfgs)
     assert all(r.kernel_time_ms > 0 for r in results)
+
+
+# ---------------------------------------------------------------------------
+# The quantized path: B7, B5 and B6 on fp8 and int4 pages, X.  B7 and X with
+# bf16 compute hold O element by element to one bf16 step of the value plus
+# BF16_ATOL near zero (chip_smoke.py's gate); B7 in fp32 2e-5; B5 and B6 as
+# above.  lse: B7 1e-3 relative in bf16 and 1e-5 in fp32; X 2e-4 (v3 8e-3,
+# one bf16 step of its bf16 l) and 1e-4 on the mean over rows.
+# ---------------------------------------------------------------------------
+
+BF16_RTOL = 2.0 ** -7
+BF16_ATOL = {"B7": 4e-3, "X": 5e-4}
+
+
+def _bf16_excess(o_k, o_p) -> float:
+    o_k, o_p = o_k.float(), o_p.float()
+    return ((o_k - o_p).abs() - BF16_RTOL * o_p.abs()).clamp_min(0).max().item()
+
+
+QUANT_STORAGE = [torch.int8, torch.float8_e4m3fn, torch.float8_e5m2, "int4"]
+NEW_CACHES = [torch.float8_e4m3fn, torch.float8_e5m2, "int4"]
+
+
+@pytest.mark.parametrize("storage", QUANT_STORAGE, ids=str)
+@pytest.mark.parametrize("q_dtype,compute", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+    (torch.float32, torch.bfloat16),
+], ids=["bf16", "fp32", "fp32-q-bf16-compute"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("b,hq,hkv,s", [(1, 4, 2, 200), (2, 8, 8, 384)])
+def test_fa2_forward_quant_kernel_matches_plain(cuda, storage, q_dtype, compute,
+                                                causal, d, b, hq, hkv, s):
+    from cuda_flash_attention_tpu_torch.kernels import fa2_forward_quant as fq
+    from cuda_flash_attention_tpu_torch.quant import quantize_kv
+
+    rng = np.random.default_rng(d + s + hq)
+    q = _randn(rng, b, hq, s, d).to(q_dtype).to(cuda)
+    k_q, v_q = quantize_kv(_randn(rng, b, hkv, s, d).to(cuda),
+                           _randn(rng, b, hkv, s, d).to(cuda), storage)
+    kw = dict(causal=causal, compute_dtype=compute)
+    before = fq.launches
+    o_k, lse_k = fq.flash_attention_quantized_kv_with_lse(q, k_q, v_q, **kw)
+    assert fq.launches == before + 1
+    args = (q, k_q.values, k_q.scales[..., 0].contiguous(), v_q.values,
+            v_q.scales[..., 0].contiguous())
+    o_p, lse_p = fq.fa2_forward_quant_plain(*args, causal=causal, sm_scale=d ** -0.5,
+                                            kv_len=s, compute_dtype=compute)
+    torch.cuda.synchronize()
+    assert o_k.dtype == q_dtype and o_k.shape == q.shape
+    bf16 = compute == torch.bfloat16
+    if bf16:
+        excess = _bf16_excess(o_k, o_p)
+        assert excess <= BF16_ATOL["B7"], excess
+    else:
+        assert (o_k - o_p).abs().max().item() <= 2e-5
+    lse_err = (lse_k - lse_p).abs() / (lse_p.abs().clamp_min(1.0) if bf16 else 1.0)
+    assert lse_err.max().item() <= (1e-3 if bf16 else 1e-5)
+
+
+@pytest.mark.parametrize("make", [
+    lambda q, k: (q.half(), k),                          # fp16 q
+    lambda q, k: (q[..., :32].contiguous(), k[..., :32].contiguous()),  # D 32
+    lambda q, k: (q, k.to(torch.bfloat16)),              # bf16 "storage"
+], ids=["fp16-q", "d32", "bf16-storage"])
+def test_fa2_forward_quant_kernel_refuses_what_it_does_not_take(cuda, make):
+    from cuda_flash_attention_tpu_torch.kernels import fa2_forward_quant as fq
+
+    q = torch.zeros(1, 2, 128, 64, device=cuda)
+    k = torch.zeros(1, 2, 128, 64, dtype=torch.int8, device=cuda)
+    q, k = make(q, k)
+    s = torch.ones(1, 2, 128, device=cuda)
+    with pytest.raises(NotImplementedError):
+        fq.fa2_forward_quant_aligned(q, k, s, k, s, causal=False, sm_scale=0.125,
+                                     kv_len=128)
+
+
+def _cache_pages(rng, cache, hkv, num_pages, page, d, table, n, pps, cuda):
+    pages = kv_cache.init_kv_pages(hkv, num_pages, page, d, cache, device="cpu")
+    for slot in range(n):
+        kv_cache.write_prompt_kv(pages, _randn(rng, pps * page, hkv, d),
+                                 _randn(rng, pps * page, hkv, d), table[slot])
+    return kv_cache.KVPages(*(t.to(cuda) for t in (
+        pages.k_pages, pages.k_scales, pages.v_pages, pages.v_scales)))
+
+
+@pytest.mark.parametrize("cache", NEW_CACHES, ids=str)
+@pytest.mark.parametrize("q_dtype,compute", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("d,hq,hkv", [(64, 16, 8), (128, 8, 8)])
+def test_paged_decode_kernel_on_fp8_and_int4_pages(cuda, cache, q_dtype, compute,
+                                                   d, hq, hkv):
+    rng = np.random.default_rng(d + hq)
+    lengths = torch.tensor([300, 0, 1, 128, 777, 129], dtype=torch.int32)
+    n, pps, page = len(lengths), 7, 128
+    num_pages = n * pps + 1
+    table = torch.from_numpy(
+        rng.permutation(np.arange(1, num_pages)).astype(np.int32)).reshape(n, pps)
+    pages = _cache_pages(rng, cache, hkv, num_pages, page, d, table, n, pps, cuda)
+    q = _randn(rng, n, hq, d).to(q_dtype).to(cuda)
+    table, lengths = table.to(cuda), lengths.to(cuda)
+    before = dec_attention.launches
+    o_k = dec_attention.paged_decode_attention(q, pages, table, lengths,
+                                               compute_dtype=compute)
+    assert dec_attention.launches == before + 1
+    o_p = dec_attention.paged_decode_attention_plain(
+        q, pages, table, lengths, sm_scale=d ** -0.5, compute_dtype=compute)
+    torch.cuda.synchronize()
+    assert not o_k[1].any()
+    err = (o_k.float() - o_p.float()).abs().max().item()
+    assert err <= (2e-2 if compute == torch.bfloat16 else 2e-5), err
+
+
+@pytest.mark.parametrize("cache", NEW_CACHES, ids=str)
+@pytest.mark.parametrize("compute", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("chunk", [1, 5, 512])
+def test_paged_chunk_kernel_on_fp8_and_int4_pages(cuda, cache, compute, chunk):
+    rng = np.random.default_rng(chunk)
+    d, hq, hkv, page = 64, 16, 8, 128
+    lengths = torch.tensor([126 + chunk, 0, 300 + chunk, 1000 + chunk],
+                           dtype=torch.int32)
+    n, pps = len(lengths), -(-(1000 + chunk) // page)
+    num_pages = n * pps + 1
+    table = torch.from_numpy(
+        rng.permutation(np.arange(1, num_pages)).astype(np.int32)).reshape(n, pps)
+    pages = _cache_pages(rng, cache, hkv, num_pages, page, d, table, n, pps, cuda)
+    q = _randn(rng, n, chunk, hq, d).to(compute).to(cuda)
+    table, lengths = table.to(cuda), lengths.to(cuda)
+    before = dec_attention.chunk_launches
+    o_k = dec_attention.paged_chunk_attention(q, pages, table, lengths,
+                                              compute_dtype=compute)
+    assert dec_attention.chunk_launches == before + 1
+    o_p = dec_attention.paged_chunk_attention_plain(
+        q, pages, table, lengths, sm_scale=d ** -0.5, compute_dtype=compute)
+    torch.cuda.synchronize()
+    assert not o_k[1].any() and torch.isfinite(o_k.float()).all()
+    err = (o_k.float() - o_p.float()).abs().max().item()
+    assert err <= (2e-2 if compute == torch.bfloat16 else 2e-5), err
+
+
+@pytest.mark.parametrize("variant", ["v0_current", "v1_mxu_ones", "v2_lane_part",
+                                     "v3_bf16_sum", "v4_split_kv"])
+def test_r5_probe_variants_match_plain(cuda, variant):
+    from cuda_flash_attention_tpu_torch.scripts import r5_d128_fwd as r5
+
+    rng = np.random.default_rng(5)
+    q, k, v = (_randn(rng, 2, 4, 512, 128).to(torch.bfloat16).to(cuda)
+               for _ in range(3))
+    before = r5.launches
+    o_k, lse_k = r5.fwd(q, k, v, variant)
+    assert r5.launches == before + 1
+    o_p, lse_p = r5.fwd_plain(q, k, v, variant)
+    torch.cuda.synchronize()
+    excess = _bf16_excess(o_k, o_p)
+    assert excess <= BF16_ATOL["X"], excess
+    lse_d = (lse_k - lse_p).abs()
+    assert lse_d.max().item() <= (8e-3 if variant == "v3_bf16_sum" else 2e-4)
+    assert lse_d.mean().item() <= 1e-4

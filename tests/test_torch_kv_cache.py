@@ -113,7 +113,7 @@ def test_page_allocator_hands_out_the_same_ids():
         at.alloc(at.available + 1)
 
 
-@pytest.mark.parametrize("dtype", [torch.float8_e4m3fn, torch.float16])
+@pytest.mark.parametrize("dtype", [torch.float8_e4m3fnuz, torch.float16])
 def test_unported_cache_dtypes_raise(dtype):
     with pytest.raises(NotImplementedError):
         kv_cache.init_kv_pages(1, 2, PAGE, 64, dtype, device="cpu")
