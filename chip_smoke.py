@@ -10,8 +10,10 @@ Phases (any failure raises and the script exits non-zero):
      once;
   2. kernel B1 (FA2 forward) against its plain PyTorch version at the
      serving prefill shapes (the serving run's largest, B4 S1536, included)
-     and at the train shape (B4 S2048), with its time, its bound and SDPA's
-     time;
+     and at the train shape (B4 S2048), and at the edges of its 128-row
+     wgmma tiles (scripts/b1_ab.py CASES: D 128, fp16 tiles on bf16
+     inputs, Sq != Skv, S 16 and 112, kv_len inside the last box, GQA
+     16/2), with its time, TFLOP/s, its bound and SDPA's time;
   3. kernel B5 (paged decode) against its plain version on int8 and bf16
      caches, each with bf16 and fp32 compute, ragged lengths and an
      inactive slot, time and bound;
@@ -160,51 +162,40 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def phase_b1(torch, F, fa2):
-    """FA2 forward kernel vs its plain version at the prefill shapes."""
+def phase_b1(torch, fa2, b1_ab):
+    """FA2 forward kernel vs its plain version at b1_ab.CASES: the prefill
+    shapes, the train shape (D 64 and 128, bf16 and fp16 tiles) and the
+    edges of its 128-row tiles (Sq != Skv, short S, kv_len inside the last
+    box, GQA 16/2)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    hq, hkv, d = 16, 8, 64
-    cases = [("bf16", b, s) for b in (1, 8) for s in (128, 512, 1024)]
-    # The serving phase's largest prefill: its four longest prompts
-    # (1415-1466 tokens) share one length bucket.
-    cases.append(("bf16", 4, 1536))
-    # The training forward (phase 9): B4 S2048, 12 launches a step.
-    cases.append(("bf16", 4, 2048))
-    cases.append(("fp32", 1, 512))
     rows = []
-    for kind, b, s in cases:
-        dtype = torch.bfloat16 if kind == "bf16" else torch.float32
-        tile = torch.bfloat16 if kind == "bf16" else None
-        q = torch.randn(b, hq, s, d, generator=gen, device="cuda").to(dtype)
-        k = torch.randn(b, hkv, s, d, generator=gen, device="cuda").to(dtype)
-        v = torch.randn(b, hkv, s, d, generator=gen, device="cuda").to(dtype)
-        scale = d ** -0.5
-        kw = dict(causal=True, sm_scale=scale, kv_len=s, tile_dtype=tile)
+    for case in b1_ab.CASES:
+        q, k, v, kw, flops = b1_ab.problem(case, gen)
+        kind = case["tile"] or case["dtype"]
+        tol = B1_TOL["fp32" if kind == "fp32" else "bf16"]
         o_k, lse_k = fa2.fa2_forward_aligned(q, k, v, **kw)
         o_p, lse_p = fa2.fa2_forward_plain(q, k, v, **kw)
         torch.cuda.synchronize()
         err = (o_k.float() - o_p.float()).abs().max().item()
         lse_err = ((lse_k - lse_p).abs() / lse_p.abs().clamp_min(1.0)).max().item()
-        if not (err <= B1_TOL[kind] and lse_err <= LSE_REL_TOL):
+        if not (err <= tol and lse_err <= LSE_REL_TOL):
             raise AssertionError(
-                f"B1 {kind} B{b} S{s}: max_abs_err {err} (tol {B1_TOL[kind]}), "
+                f"B1 {case['name']}: max_abs_err {err} (tol {tol}), "
                 f"lse rel err {lse_err} (tol {LSE_REL_TOL})"
             )
         ms = time_ms(lambda: fa2.fa2_forward_aligned(q, k, v, **kw))
         plain_ms = time_ms(lambda: fa2.fa2_forward_plain(q, k, v, **kw), iters=5)
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, scale=scale, enable_gqa=True))
-        pairs = s * (s + 1) // 2  # causal (row, col) pairs per head
-        flops = 4 * b * hq * pairs * d
-        moved = nbytes(q, k, v, o_k, lse_k)
-        t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / PEAK_FLOPS[kind]
-        row = dict(kind=kind, B=b, S=s, max_abs_err=err, lse_rel_err=lse_err,
-                   ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                   bound_ms=max(t_bytes, t_ops) * 1e3,
-                   bound_by="bytes" if t_bytes > t_ops else "operations",
-                   tflops=flops / ms / 1e9)
+        lib_ms = time_ms(b1_ab.sdpa_call(q, k, v, kw))
+        bound_ms, bound_by = b1_ab.bound(case, flops, q, k, v, o_k, lse_k)
+        row = dict(case=case["name"], kind=kind, inputs=case["dtype"],
+                   B=case["b"], Hq=case["hq"], Hkv=case["hkv"], Sq=case["sq"],
+                   Skv=case["skv"], D=case["d"], causal=case["causal"],
+                   max_abs_err=err, lse_rel_err=lse_err, ms=ms,
+                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, tflops=flops / ms / 1e9)
         rows.append(row)
         log("B1", json.dumps(row))
+        del q, k, v, o_k, lse_k, o_p, lse_p
     return rows
 
 
@@ -1153,21 +1144,11 @@ def attention_bound(b, h, s, d, causal, kind, *tensors):
 
 def queued_ms(torch, fn, iters: int = 20) -> float:
     """Mean device time per call of fn with the host's launch gaps taken
-    out: a sleep kernel holds the stream while the host queues all `iters`
-    calls, so the CUDA events around them time the card running them back
-    to back.  At microsecond sizes `time_ms` measures the host's launch
-    rate instead."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(50_000_000)  # ~25 ms of the card's clock
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    out (utils.timing.queued_device_benchmark).  At microsecond sizes
+    `time_ms` measures the host's launch rate instead."""
+    from cuda_flash_attention_tpu_torch.utils.timing import queued_device_benchmark
+
+    return queued_device_benchmark(fn, iters=iters) * 1e3
 
 
 def phase_b8(torch, F, attention, fa2):
@@ -1912,6 +1893,7 @@ def main() -> int:
     from cuda_flash_attention_tpu_torch import quant
     from cuda_flash_attention_tpu_torch.models import lora, training, transformer
     from cuda_flash_attention_tpu_torch.ops import reference
+    from cuda_flash_attention_tpu_torch.scripts import b1_ab
     from cuda_flash_attention_tpu_torch.scripts import r5_d128_fwd as r5
     from cuda_flash_attention_tpu_torch.utils import io
 
@@ -1930,11 +1912,12 @@ def main() -> int:
     log(f"phase 1: built {sorted(build_logs)} in {time.perf_counter() - t0:.1f} s")
     for name, text in build_logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(w in line for w in ("registers", "spill", "error",
+                                       "Performance")):
                 log(f"  ptxas {name}: {line.strip()}")
 
     t0 = time.perf_counter()
-    b1 = phase_b1(torch, F, fa2)
+    b1 = phase_b1(torch, fa2, b1_ab)
     log(f"phase 2: B1 ok in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     b5 = phase_b5(torch, dec_attn, kv_cache)
@@ -2045,8 +2028,8 @@ def main() -> int:
 
     # Representative shapes for the kernel line: the serving phase's largest
     # prefill (B4 S1536 bf16) and the int8 cache with bf16 compute.
-    r1 = next(r for r in b1 if (r["kind"], r["B"], r["S"]) == ("bf16", 4, 1536))
-    r1_train = next(r for r in b1 if (r["kind"], r["B"], r["S"]) == ("bf16", 4, 2048))
+    r1 = next(r for r in b1 if r["case"] == "B4 S1536")
+    r1_train = next(r for r in b1 if r["case"] == "train")
     log("B1 serving (B4 S1536) and training (B4 S2048) shapes:",
         json.dumps({"S1536": r1, "S2048": r1_train}))
     r5 = next(r for r in b5 if (r["cache"], r["compute"]) == ("int8", "bf16"))
@@ -2055,7 +2038,7 @@ def main() -> int:
              source="cuda_flash_attention_tpu_torch/csrc/fa2_forward.cu",
              replaces="cuda_flash_attention_tpu/kernels/fa2_forward.py:613",
              launches=serve["launches"]["fa2_forward"],
-             max_abs_err=max(r["max_abs_err"] for r in b1 if r["kind"] == "bf16"),
+             max_abs_err=max(r["max_abs_err"] for r in b1 if r["kind"] != "fp32"),
              ms=r1["ms"], plain_ms=r1["plain_ms"], bound_ms=r1["bound_ms"],
              bound_by=r1["bound_by"], library_ms=r1["library_ms"]),
         dict(name="paged_decode", route="cuda",

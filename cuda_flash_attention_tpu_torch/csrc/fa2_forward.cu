@@ -4,32 +4,61 @@
 //   cuda_flash_attention_tpu/kernels/fa2_forward.py::fa2_forward_aligned
 //   (bodies _fa2_fwd_kernel and _single_kv_attention).
 // It computes O = softmax(scale * Q K^T) V and the natural-log logsumexp per
-// query row, with causal masking, a ragged KV tail (kv_len) and GQA (query
-// head h reads KV head h / (Hq / Hkv)).  Window, sinks and segment ids are not
-// taken here; the Python wrapper refuses them.
+// query row, with causal masking from the top-left corner, a ragged KV tail
+// (kv_len) and GQA (query head h reads KV head h / (Hq / Hkv)).  Window,
+// sinks and segment ids are not taken here; the Python wrapper refuses them.
 //
-// What bounds it on the H100: tensor-core FLOPs.  Per query head, causal
-// prefill does ~2*S^2*D FLOPs against ~6*S*D bytes in bf16 (Q and O, plus
-// K and V shared by the two heads of a GQA group): ~S/3 FLOPs per byte, so
-// the serving shapes (B 1-8, Hq 16, Hkv 8, S 128-1024, D 64) sit at or above
-// the card's ~295 FLOP/byte ridge from S ~ 900 on, and the roofline there is
-// the 989 TFLOP/s of bf16 mma.  The design keeps every S and P tile on chip
-// and reads K and V once per 64-row Q tile:
-//   * one thread block per (64-row Q tile, b*Hq); four warps, 16 rows each;
-//   * the Q tile is scaled by sm_scale*log2(e) in fp32 once, rounded to the
-//     tile type and held in registers as mma A fragments for the whole loop;
-//   * the loop over 64-row KV tiles runs inside the block and, under causal,
-//     stops at the diagonal tile instead of running masked iterations;
-//   * bf16 and fp16 tiles run on the tensor cores (mma.sync m16n8k16, fp32
-//     accumulate); P goes from the S accumulators straight into A fragments,
-//     rounded to the tile type, without touching shared memory;
-//   * the online softmax keeps m and l in fp32 in the exp2 domain;
-//   * fp32 tiles run on the fp32 FMA units (no TF32), held to IEEE fp32.
-// wgmma, TMA and a pipelined KV ring are later work.
+// What bounds it on the H100: tensor-core FLOPs, and at D = 64 the exp2s
+// as much.  Per query head, causal prefill does ~2*S^2*D FLOPs against
+// ~6*S*D bytes in bf16 (Q and O, plus K and V shared by the two heads of a
+// GQA group): ~S/3 FLOPs per byte, so the serving and training shapes (Hq
+// 16, Hkv 8, S 1024-2048, D 64) sit above the card's ~295 FLOP/byte ridge,
+// and the roofline there is the 989 TFLOP/s of bf16 wgmma.  Only wgmma,
+// whose operands come from shared memory without passing through
+// registers, reaches that rate, and only if no K/V load stalls it.  And a
+// 128 x 128 score tile at D = 64 costs as many SM cycles of exp2 on the
+// special-function unit (16 a cycle) as of wgmma, so the softmax has to
+// run while the tensor cores work.  The 16-bit-tile body is built for
+// that:
+//   * one block per (128-row Q tile, b*Hq), 384 threads in three
+//     warpgroups; Q tiles are handed out longest-causal-row first;
+//   * warpgroup 0 is the producer: after `setmaxnreg.dec` one thread
+//     streams 128-row K and V tiles with TMA (`cp.async.bulk.tensor`, 3-D
+//     maps over [B*Hkv, Skv, D], so a box never crosses into the next head
+//     and rows past Skv arrive as zeros) into two rings of shared-memory
+//     stages (3 at D = 64, 2 at D = 128), K(t + 1) before V(t) as the
+//     consumers take them.  Each stage has a "full" mbarrier armed with its
+//     byte count and an "empty" one that the 8 consumer warps arrive on
+//     once the wgmma that read the stage has completed;
+//   * warpgroups 1 and 2 are the consumers, 64 Q rows each, with
+//     `setmaxnreg.inc`.  Each stages its Q once: loaded in the input type,
+//     scaled by sm_scale*log2(e) in fp32, rounded to the tile type and
+//     stored with the 128-byte swizzle that TMA gives K and V;
+//   * S = Q K^T is `wgmma.mma_async` m64n128k16 with both operands in
+//     shared memory (K-major) and fp32 accumulators; the accumulators hold,
+//     per warp, rows g and g+8 and columns 2t, 2t+1 of every 8-column
+//     group, so the online softmax (fp32, exp2 domain) keeps m and l per
+//     row with quad shuffles, and masks only on the diagonal and kv_len
+//     tail tiles;
+//   * O += P V is wgmma with A = P from registers (the S accumulators,
+//     rounded to the tile type, are exactly the A fragments) and B = the V
+//     tile read MN-major through the transpose bit; O stays fp32 in
+//     registers and is divided by l once at the end;
+//   * the softmax of tile t + 1 runs while P V(t) is on the tensor cores
+//     (S(t + 1) is issued first and waited for with wait_group 1), and the
+//     two consumers take turns to issue their products (named barriers),
+//     so that one's softmax overlaps the other's wgmma.
+// fp32 inputs with 16-bit tiles: TMA copies bytes and cannot convert, so
+// the wrapper casts K and V to the tile type before the launch (round to
+// nearest even, the rounding the plain version applies too); Q is still
+// rounded here after its scaling.  fp32 tiles run on the fp32 FMA units
+// (no TF32), held to IEEE fp32.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is found at run time
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -37,10 +66,22 @@
 
 namespace {
 
-constexpr int kBlockM = 64;  // Q rows per thread block
-constexpr int kBlockN = 64;  // KV rows per loop iteration
+constexpr int kBlockM = 64;  // fp32 body: Q rows per thread block
+constexpr int kBlockN = 64;  // fp32 body: KV rows per loop iteration
 constexpr float kMaskValue = -0.7f * 3.40282347e38f;  // DEFAULT_MASK_VALUE
 constexpr float kLn2 = 0.6931471805599453f;
+
+// 16-bit tiles: the block's Q rows, its consumers' Q rows, the KV rows of
+// one ring stage, and a swizzle atom's columns (128 bytes of 16-bit values).
+constexpr int kTileM = 128;
+constexpr int kConsumerM = 64;
+constexpr int kTileN = 128;
+constexpr int kBoxCols = 64;
+constexpr int kThreads = 384;
+// Registers per thread after setmaxnreg: 128 x 40 + 256 x 232 = 64512 of
+// the SM's 65536 (one block per SM).
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
 
 __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* x) {
   uint4 raw = *reinterpret_cast<const uint4*>(p);
@@ -68,8 +109,55 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
-// The two 16-bit tile types of the tensor-core path: packing two fp32 values
-// (round to nearest even) and the m16n8k16 product with fp32 accumulation.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---------------------------------------------------------------------------
+// wgmma.  Operand lists of the 64- and 128-column fp32 accumulators.
+// ---------------------------------------------------------------------------
+#define CFA_R32                                                              \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "   \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
+  "%30, %31"
+#define CFA_R64                                                              \
+  CFA_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "   \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "   \
+  "%58, %59, %60, %61, %62, %63"
+#define CFA_ACC8(d, i)                                                       \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),                \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define CFA_ACC32(d) CFA_ACC8(d, 0), CFA_ACC8(d, 8), CFA_ACC8(d, 16), CFA_ACC8(d, 24)
+#define CFA_ACC64(d)                                                         \
+  CFA_ACC32(d), CFA_ACC8(d, 32), CFA_ACC8(d, 40), CFA_ACC8(d, 48),           \
+      CFA_ACC8(d, 56)
+
+// d[64] (+)= A (64x16, shared, K-major) * B (16x128, shared, K-major).
+#define CFA_WGMMA_SS_N128(TY)                                                \
+  asm volatile(                                                              \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                           \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "           \
+      "{" CFA_R64 "}, %64, %65, p, 1, 1, 0, 0;\n}\n"                         \
+      : CFA_ACC64(d)                                                         \
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d))
+// d += A (64x16, registers) * B (16xN, shared, MN-major: transpose bit).
+#define CFA_WGMMA_RS_N64(TY)                                                 \
+  asm volatile(                                                              \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                           \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "            \
+      "{" CFA_R32 "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"           \
+      : CFA_ACC32(d)                                                         \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1))
+#define CFA_WGMMA_RS_N128(TY)                                                \
+  asm volatile(                                                              \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                           \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "           \
+      "{" CFA_R64 "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"           \
+      : CFA_ACC64(d)                                                         \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1))
+
+// The two 16-bit tile types: packing two fp32 values (round to nearest
+// even) and the two products with fp32 accumulation.
 template <typename Tt>
 struct Tile;
 
@@ -79,14 +167,17 @@ struct Tile<__nv_bfloat16> {
     __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
   }
-  // c += a (16x16, row) * b (16x8, col).
-  static __device__ __forceinline__ void mma(float* c, const uint32_t* a,
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  static __device__ __forceinline__ void qk(float (&d)[64], uint64_t desc_a,
+                                            uint64_t desc_b, int scale_d) {
+    CFA_WGMMA_SS_N128("bf16");
+  }
+  static __device__ __forceinline__ void pv(float (&d)[32], const uint32_t* a,
+                                            uint64_t desc_b) {
+    CFA_WGMMA_RS_N64("bf16");
+  }
+  static __device__ __forceinline__ void pv(float (&d)[64], const uint32_t* a,
+                                            uint64_t desc_b) {
+    CFA_WGMMA_RS_N128("bf16");
   }
 };
 
@@ -99,48 +190,144 @@ struct Tile<__half> {
     __half2 v = __floats2half2_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
   }
-  static __device__ __forceinline__ void mma(float* c, const uint32_t* a,
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  static __device__ __forceinline__ void qk(float (&d)[64], uint64_t desc_a,
+                                            uint64_t desc_b, int scale_d) {
+    CFA_WGMMA_SS_N128("f16");
+  }
+  static __device__ __forceinline__ void pv(float (&d)[32], const uint32_t* a,
+                                            uint64_t desc_b) {
+    CFA_WGMMA_RS_N64("f16");
+  }
+  static __device__ __forceinline__ void pv(float (&d)[64], const uint32_t* a,
+                                            uint64_t desc_b) {
+    CFA_WGMMA_RS_N128("f16");
   }
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Registers that an in-flight wgmma reads or writes: the empty asm keeps
+// the compiler from reusing them, or reading them, across the wait.
+template <int N>
+__device__ __forceinline__ void hold(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void hold(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// Shared-memory matrix descriptor with the 128-byte swizzle: start address,
+// leading and stride byte offsets (all >> 4), layout type 1 in bits 62-63.
+// Every swizzle atom (8 rows of 128 bytes) starts on a 1024-byte boundary,
+// so the base-offset field stays 0.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (uint64_t{1} << 62);
+}
+
+// ---------------------------------------------------------------------------
+// mbarriers and TMA.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
+// One box of a 3-D tensor map (coordinates innermost first) into shared
+// memory; the bytes complete a transaction on `bar`.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
 }
 
-// Copy rows [row0, row0 + ROWS) of a [nrows, D] matrix into a 16-bit shared
-// tile of type Tt with leading dimension LD, multiplied by `scale` in fp32
-// before the rounding.  Rows past nrows are zero (never NaN: P is 0 there, and 0 * NaN
-// would poison the PV product).
-template <typename Tt, typename Tin, int D, int ROWS, int LD, int NTHREADS>
-__device__ __forceinline__ void stage_tile(Tt* dst, const Tin* src,
-                                           int row0, int nrows, float scale) {
+// ---------------------------------------------------------------------------
+// bf16 or fp16 tiles (Tt) on wgmma.  Shared memory, from a 1024-byte-aligned
+// base: two consumers' Q tiles, then kStages K tiles, then kStages V tiles,
+// then the mbarriers.  A tile of R rows is D / 64 boxes of R rows x 128
+// bytes, each 128-byte-swizzled (16-byte chunk c of row r at c ^ (r % 8)).
+// ---------------------------------------------------------------------------
+template <int D>
+struct Layout {
+  static constexpr int kStages = D == 64 ? 3 : 2;
+  static constexpr int kQBox = kConsumerM * 128;  // bytes of one Q box
+  static constexpr int kKVBox = kTileN * 128;     // bytes of one K or V box
+  static constexpr int kQBytes = kQBox * (D / kBoxCols);
+  static constexpr int kKVBytes = kKVBox * (D / kBoxCols);
+  static constexpr int kK = 2 * kQBytes;
+  static constexpr int kV = kK + kStages * kKVBytes;
+  static constexpr int kBars = kV + kStages * kKVBytes;
+  // full and empty barriers of each K and V stage, and alignment slack.
+  static constexpr int kSmem = kBars + 4 * 8 * kStages + 1024;
+};
+
+// A consumer's 64 Q rows [row0, row0 + 64) of a [nrows, D] matrix, scaled
+// by `scale` in fp32 and rounded to Tt, into the swizzled Q tile.  Rows
+// past nrows are zero.
+template <typename Tt, typename Tin, int D>
+__device__ __forceinline__ void stage_q(unsigned char* dst, const Tin* src,
+                                        int row0, int nrows, float scale,
+                                        int tid) {
   constexpr int kChunks = D / 8;
-  for (int i = threadIdx.x; i < ROWS * kChunks; i += NTHREADS) {
+#pragma unroll
+  for (int it = 0; it < kConsumerM * kChunks / 128; ++it) {
+    const int i = tid + it * 128;
     const int r = i / kChunks;
-    const int c = (i - r * kChunks) * 8;
+    const int c = i - r * kChunks;
     float x[8];
     if (row0 + r < nrows) {
-      load8(src + static_cast<size_t>(row0 + r) * D + c, x);
+      load8(src + static_cast<size_t>(row0 + r) * D + c * 8, x);
     } else {
 #pragma unroll
       for (int j = 0; j < 8; ++j) x[j] = 0.f;
@@ -150,188 +337,336 @@ __device__ __forceinline__ void stage_tile(Tt* dst, const Tin* src,
     packed.y = Tile<Tt>::pack(x[2] * scale, x[3] * scale);
     packed.z = Tile<Tt>::pack(x[4] * scale, x[5] * scale);
     packed.w = Tile<Tt>::pack(x[6] * scale, x[7] * scale);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = packed;
+    const int box = c / 8;
+    const int chunk = (c % 8) ^ (r % 8);
+    *reinterpret_cast<uint4*>(dst + box * Layout<D>::kQBox + r * 128 +
+                              chunk * 16) = packed;
   }
 }
 
-// ---------------------------------------------------------------------------
-// bf16 or fp16 tiles (Tt) on the tensor cores.  128 threads; warp w owns Q rows
-// [16w, 16w + 16) of the tile.  Fragment layouts are those of
-// mma.m16n8k16: thread (g = lane / 4, t = lane % 4) holds accumulator
-// elements (row g, cols 2t, 2t+1) and (row g + 8, cols 2t, 2t+1) of each
-// 8-column n-tile.
-// ---------------------------------------------------------------------------
-template <typename Tin, typename Tt, int D>
-__global__ void __launch_bounds__(128)
-fa2_fwd_mma(const Tin* __restrict__ q, const Tin* __restrict__ k,
-            const Tin* __restrict__ v, Tin* __restrict__ o,
-            float* __restrict__ lse, int hq, int hkv, int sq, int skv,
-            int kv_len, float qscale, int causal) {
-  constexpr int LD = D + 8;  // 16-byte row padding: conflict-free ldmatrix
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Tt* qs = reinterpret_cast<Tt*>(smem_raw);
-  Tt* ks = qs + kBlockM * LD;
-  Tt* vs = ks + kBlockN * LD;
+// exp2 on the special-function unit; results below 2^-126 flush to zero.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
+// Issue S = Q K^T (not waited for): D / 16 k-steps of 32 bytes, four to a
+// 128-byte box, both operands K-major.
+template <typename Tt, int D>
+__device__ __forceinline__ void issue_qk(float (&s)[kTileN / 2], uint32_t qs,
+                                         uint32_t ks) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk % 4) * 32;
+    Tile<Tt>::qk(s, sw128_desc(qs + (kk / 4) * Layout<D>::kQBox + off, 16, 1024),
+                 sw128_desc(ks + (kk / 4) * Layout<D>::kKVBox + off, 16, 1024),
+                 kk > 0);
+  }
+  wgmma_commit();
+}
+
+// Issue O += P V (not waited for): k-step kk reads V rows [16 kk, 16 kk +
+// 16), two 8-row groups 1024 bytes apart, MN-major; the 64-column boxes
+// are kKVBox apart.
+template <typename Tt, int D>
+__device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
+                                         uint32_t (&pa)[kTileN / 16][4],
+                                         uint32_t vs) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kTileN / 16; ++kk) {
+    Tile<Tt>::pv(acc, pa[kk],
+                 sw128_desc(vs + kk * 16 * 128, Layout<D>::kKVBox, 1024));
+  }
+  wgmma_commit();
+}
+
+// The online softmax of one S tile in place (fp32, exp2 domain): with
+// kMask, scores of columns at or past kv_len or (causal) past the row take
+// kMaskValue first.  Updates m and this thread's share of l, sets alpha =
+// exp2(m_old - m_new) and leaves P in s, masked entries exactly 0.
+template <bool kMask>
+__device__ __forceinline__ void online_softmax(float (&s)[kTileN / 2],
+                                               float (&m_run)[2],
+                                               float (&l_run)[2],
+                                               float (&alpha)[2], int k0,
+                                               int row_a, int kv_len,
+                                               int causal, int t4) {
+  if (kMask) {
+#pragma unroll
+    for (int j = 0; j < kTileN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + j * 8 + t4 * 2 + (e & 1);
+        const int row = e < 2 ? row_a : row_a + 8;
+        if (col >= kv_len || (causal && col > row)) s[4 * j + e] = kMaskValue;
+      }
+    }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < kTileN / 8; ++j) {
+    mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
+    mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(m_run[i], mx[i]);
+    alpha[i] = exp2_ftz(m_run[i] - m_new);
+    m_run[i] = m_new;
+  }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < kTileN / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float p = exp2_ftz(s[4 * j + e] - m_run[e >> 1]);
+      // Exact zero for masked entries (a row masked so far has m equal to
+      // the mask value, where exp2 alone would give 1).
+      if (kMask && s[4 * j + e] == kMaskValue) p = 0.f;
+      rs[e >> 1] += p;
+      s[4 * j + e] = p;
+    }
+  }
+  l_run[0] = l_run[0] * alpha[0] + rs[0];
+  l_run[1] = l_run[1] * alpha[1] + rs[1];
+}
+
+// P in the tile type: the accumulators of column groups 2 kk and 2 kk + 1
+// are exactly the register A fragment of k-step kk.
+template <typename Tt>
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[kTileN / 16][4],
+                                       const float (&s)[kTileN / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < kTileN / 16; ++kk) {
+    pa[kk][0] = Tile<Tt>::pack(s[8 * kk], s[8 * kk + 1]);
+    pa[kk][1] = Tile<Tt>::pack(s[8 * kk + 2], s[8 * kk + 3]);
+    pa[kk][2] = Tile<Tt>::pack(s[8 * kk + 4], s[8 * kk + 5]);
+    pa[kk][3] = Tile<Tt>::pack(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+template <typename Tin, typename Tt, int D>
+__global__ void __launch_bounds__(kThreads, 1)
+fa2_fwd_wgmma(const __grid_constant__ CUtensorMap k_map,
+              const __grid_constant__ CUtensorMap v_map,
+              const Tin* __restrict__ q, Tin* __restrict__ o,
+              float* __restrict__ lse, int hq, int hkv, int sq, int kv_len,
+              float qscale, int causal) {
+  using L = Layout<D>;
+  constexpr int kStages = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t full_k = base + L::kBars;  // stage s at + 8 s
+  const uint32_t full_v = full_k + 8 * kStages;
+  const uint32_t empty_k = full_v + 8 * kStages;
+  const uint32_t empty_v = empty_k + 8 * kStages;
+
   // Causal tiles near the end of the sequence carry the most KV tiles:
   // hand them out first so the short ones fill the tail of the grid.
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockM;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTileM;
   const int bh = blockIdx.y;
   const int b = bh / hq;
   const int hk = (bh - b * hq) / (hq / hkv);
-  const Tin* qp = q + static_cast<size_t>(bh) * sq * D;
-  const Tin* kp = k + (static_cast<size_t>(b) * hkv + hk) * skv * D;
-  const Tin* vp = v + (static_cast<size_t>(b) * hkv + hk) * skv * D;
+  const int kv_end = causal ? min(kv_len, q0 + kTileM) : kv_len;
+  const int n_tiles = (kv_end + kTileN - 1) / kTileN;
 
-  stage_tile<Tt, Tin, D, kBlockM, LD, 128>(qs, qp, q0, sq, qscale);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_k + 8 * s, 1);
+      mbar_init(full_v + 8 * s, 1);
+      mbar_init(empty_k + 8 * s, 8);  // one arrival per consumer warp
+      mbar_init(empty_v + 8 * s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    ldmatrix_x4(qa[kk], qs + (warp * 16 + (lane & 15)) * LD + kk * 16 +
-                            (lane >> 4) * 8);
-  }
 
-  const int kv_end = causal ? min(kv_len, q0 + kBlockM) : kv_len;
-  const int n_tiles = (kv_end + kBlockN - 1) / kBlockN;
-  const int row_a = q0 + warp * 16 + g;
-  const int row_b = row_a + 8;
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
-  float acc[D / 8][4];
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // Producer: one thread keeps the ring full.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(&k_map))
+                   : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(&v_map))
+                   : "memory");
+      const int kv_head = b * hkv + hk;
+      // Tile t of K or V into its ring; the first pass over a ring finds
+      // every stage empty.
+      auto load = [&](const CUtensorMap* map, uint32_t ring, uint32_t full,
+                      uint32_t empty, int t) {
+        const int st = t % kStages;
+        mbar_wait(empty + 8 * st, ((t / kStages) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * st, L::kKVBytes);
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  }
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kBlockN;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    stage_tile<Tt, Tin, D, kBlockN, LD, 128>(ks, kp, k0, skv, 1.f);
-    stage_tile<Tt, Tin, D, kBlockN, LD, 128>(vs, vp, k0, skv, 1.f);
-    __syncthreads();
-
-    float s[kBlockN / 8][4];
-#pragma unroll
-    for (int j = 0; j < kBlockN / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int np = 0; np < kBlockN / 16; ++np) {
-        uint32_t bf[4];
-        ldmatrix_x4(bf, ks + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
-                            kk * 16 + ((lane >> 3) & 1) * 8);
-        Tile<Tt>::mma(s[2 * np], qa[kk], bf[0], bf[1]);
-        Tile<Tt>::mma(s[2 * np + 1], qa[kk], bf[2], bf[3]);
-      }
-    }
-
-    const bool need_mask =
-        (k0 + kBlockN > kv_len) || (causal && k0 + kBlockN - 1 > q0);
-    if (need_mask) {
-#pragma unroll
-      for (int j = 0; j < kBlockN / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = k0 + j * 8 + t4 * 2 + (e & 1);
-          const int row = e < 2 ? row_a : row_b;
-          if (col >= kv_len || (causal && col > row)) s[j][e] = kMaskValue;
+        for (int box = 0; box < D / kBoxCols; ++box) {
+          tma_load_3d(ring + st * L::kKVBytes + box * L::kKVBox, map,
+                      full + 8 * st, box * kBoxCols, t * kTileN, kv_head);
         }
+      };
+      // The consumers take K(t + 1) before V(t); so does the producer.
+      if (n_tiles > 0) load(&k_map, base + L::kK, full_k, empty_k, 0);
+      for (int t = 0; t < n_tiles; ++t) {
+        if (t + 1 < n_tiles) load(&k_map, base + L::kK, full_k, empty_k, t + 1);
+        load(&v_map, base + L::kV, full_v, empty_v, t);
       }
     }
+  } else {
+    // Consumer c: Q rows [q0 + 64 c, q0 + 64 c + 64).  Warp w of the
+    // warpgroup holds rows 16 w + g and 16 w + g + 8 of every accumulator,
+    // columns 8 j + 2 t4 and 8 j + 2 t4 + 1 of each 8-column group j.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int c = wg - 1;
+    const int tid = threadIdx.x - 128 * wg;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int t4 = lane & 3;
+    const int qc0 = q0 + kConsumerM * c;
+    stage_q<Tt, Tin, D>(smem + c * L::kQBytes,
+                        q + static_cast<size_t>(bh) * sq * D, qc0, sq, qscale,
+                        tid);
+    // Q's generic-proxy stores must be visible to wgmma (the async proxy)
+    // and complete in all four warps before the first product.
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
+    const uint32_t qs = base + c * L::kQBytes;
 
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < kBlockN / 8; ++j) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
-    }
+    const int row_a = qc0 + warp * 16 + g;
+    float m_run[2] = {-INFINITY, -INFINITY};
+    float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
     float alpha[2];
+    float acc[D / 2];
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
+    float s[kTileN / 2];
+    uint32_t pa[kTileN / 16][4];
+    auto scores = [&](int t) {
+      const int st = t % kStages;
+      mbar_wait(full_k + 8 * st, (t / kStages) & 1);
+      issue_qk<Tt, D>(s, qs, base + L::kK + st * L::kKVBytes);
+    };
+    auto softmax = [&](int t) {
+      const int k0 = t * kTileN;
+      if ((k0 + kTileN > kv_len) || (causal && k0 + kTileN - 1 > qc0)) {
+        online_softmax<true>(s, m_run, l_run, alpha, k0, row_a, kv_len,
+                             causal, t4);
+      } else {
+        online_softmax<false>(s, m_run, l_run, alpha, k0, row_a, kv_len,
+                              causal, t4);
+      }
+    };
+
+    // Tile t's P V runs on the tensor cores while the softmax of tile
+    // t + 1 runs on the other units: S(t + 1) is issued before P V(t) and
+    // waited for (wait_group 1) before it.  Every pass of the loop issues
+    // the same two groups (the last tile's P V is peeled off), so ptxas
+    // can pipeline them.
+    //
+    // The two consumers take turns to issue their products (named
+    // barriers 3 and 4, 256 threads: one consumer waits, the other
+    // arrives), so that one's softmax runs while the other's products hold
+    // the tensor cores.  Consumer 0 has the first turn.
+    auto take_turn = [&] {
+      asm volatile("bar.sync %0, 256;\n" ::"r"(3 + c) : "memory");
+    };
+    auto pass_turn = [&] {
+      asm volatile("bar.arrive %0, 256;\n" ::"r"(4 - c) : "memory");
+    };
+    if (c == 0) asm volatile("bar.arrive 3, 256;\n" ::: "memory");
+    // A K or V stage is free once this warp's product that read it has
+    // completed.
+    auto release = [&](uint32_t empty, int t) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * (t % kStages));
+    };
+    auto finish_pv = [&](int t) {
+      wgmma_wait<0>();
+      hold(acc);
+#pragma unroll
+      for (int kk = 0; kk < kTileN / 16; ++kk) hold(pa[kk]);
+      release(empty_v, t);
+    };
+    if (n_tiles > 0) {
+      take_turn();
+      scores(0);
+      pass_turn();
+      wgmma_wait<0>();
+      hold(s);
+      release(empty_k, 0);
+      softmax(0);
+      pack_p<Tt>(pa, s);
+    }
+    for (int t = 0; t + 1 < n_tiles; ++t) {
+      const int st = t % kStages;
+      take_turn();
+      scores(t + 1);
+      mbar_wait(full_v + 8 * st, (t / kStages) & 1);
+      issue_pv<Tt, D>(acc, pa, base + L::kV + st * L::kKVBytes);
+      pass_turn();
+      wgmma_wait<1>();
+      hold(s);
+      release(empty_k, t + 1);
+      softmax(t + 1);
+      finish_pv(t);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[4 * j] *= alpha[0];
+        acc[4 * j + 1] *= alpha[0];
+        acc[4 * j + 2] *= alpha[1];
+        acc[4 * j + 3] *= alpha[1];
+      }
+      pack_p<Tt>(pa, s);
+    }
+    if (n_tiles > 0) {
+      const int t = n_tiles - 1;
+      const int st = t % kStages;
+      take_turn();
+      mbar_wait(full_v + 8 * st, (t / kStages) & 1);
+      issue_pv<Tt, D>(acc, pa, base + L::kV + st * L::kKVBytes);
+      pass_turn();
+      finish_pv(t);
+    }
+    const int row_b = row_a + 8;
+
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m_run[i], mx[i]);
-      alpha[i] = exp2f(m_run[i] - m_new);
-      m_run[i] = m_new;
+      l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 1);
+      l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 2);
     }
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < kBlockN / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float p = exp2f(s[j][e] - m_run[e >> 1]);
-        // Exact zero for masked entries (a row masked so far has m equal
-        // to the mask value, where exp2 alone would give 1).
-        if (need_mask && s[j][e] == kMaskValue) p = 0.f;
-        rs[e >> 1] += p;
-        s[j][e] = p;
-      }
-    }
-    l_run[0] = l_run[0] * alpha[0] + rs[0];
-    l_run[1] = l_run[1] * alpha[1] + rs[1];
+    const float inv_a = l_run[0] == 0.f ? 1.f : 1.f / l_run[0];
+    const float inv_b = l_run[1] == 0.f ? 1.f : 1.f / l_run[1];
+    Tin* op = o + static_cast<size_t>(bh) * sq * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
-      acc[j][0] *= alpha[0];
-      acc[j][1] *= alpha[0];
-      acc[j][2] *= alpha[1];
-      acc[j][3] *= alpha[1];
-    }
-
-    // O += P V: the S accumulators of n-tiles 2kk and 2kk+1 are exactly the
-    // A fragment of k-step kk; V is read transposed by ldmatrix.
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = Tile<Tt>::pack(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = Tile<Tt>::pack(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = Tile<Tt>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = Tile<Tt>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t bf[4];
-        ldmatrix_x4_trans(
-            bf, vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                    dp * 16 + (lane >> 4) * 8);
-        Tile<Tt>::mma(acc[2 * dp], pa, bf[0], bf[1]);
-        Tile<Tt>::mma(acc[2 * dp + 1], pa, bf[2], bf[3]);
+      const int col = j * 8 + t4 * 2;
+      if (row_a < sq) {
+        store2(op + static_cast<size_t>(row_a) * D + col, acc[4 * j] * inv_a,
+               acc[4 * j + 1] * inv_a);
+      }
+      if (row_b < sq) {
+        store2(op + static_cast<size_t>(row_b) * D + col,
+               acc[4 * j + 2] * inv_b, acc[4 * j + 3] * inv_b);
       }
     }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 1);
-    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 2);
-  }
-  const float inv_a = l_run[0] == 0.f ? 1.f : 1.f / l_run[0];
-  const float inv_b = l_run[1] == 0.f ? 1.f : 1.f / l_run[1];
-  Tin* op = o + static_cast<size_t>(bh) * sq * D;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int col = j * 8 + t4 * 2;
-    if (row_a < sq) {
-      store2(op + static_cast<size_t>(row_a) * D + col, acc[j][0] * inv_a,
-             acc[j][1] * inv_a);
-    }
-    if (row_b < sq) {
-      store2(op + static_cast<size_t>(row_b) * D + col, acc[j][2] * inv_b,
-             acc[j][3] * inv_b);
-    }
-  }
-  if (t4 == 0) {
-    float* lp = lse + static_cast<size_t>(bh) * sq;
-    if (row_a < sq) {
-      lp[row_a] = m_run[0] * kLn2 + logf(l_run[0] == 0.f ? 1.f : l_run[0]);
-    }
-    if (row_b < sq) {
-      lp[row_b] = m_run[1] * kLn2 + logf(l_run[1] == 0.f ? 1.f : l_run[1]);
+    if (t4 == 0) {
+      float* lp = lse + static_cast<size_t>(bh) * sq;
+      if (row_a < sq) {
+        lp[row_a] = m_run[0] * kLn2 + logf(l_run[0] == 0.f ? 1.f : l_run[0]);
+      }
+      if (row_b < sq) {
+        lp[row_b] = m_run[1] * kLn2 + logf(l_run[1] == 0.f ? 1.f : l_run[1]);
+      }
     }
   }
 }
@@ -505,22 +840,6 @@ cudaError_t set_smem_once(Kernel kernel, int smem,
   return err;
 }
 
-template <typename Tin, typename Tt, int D>
-cudaError_t launch_mma(dim3 grid, cudaStream_t stream, const void* q,
-                       const void* k, const void* v, void* o, void* lse,
-                       int hq, int hkv, int sq, int skv, int kv_len,
-                       float qscale, int causal) {
-  const size_t smem = (kBlockM + 2 * kBlockN) * (D + 8) * sizeof(Tt);
-  static std::atomic<uint64_t> smem_set{0};
-  cudaError_t err = set_smem_once(fa2_fwd_mma<Tin, Tt, D>,
-                                  static_cast<int>(smem), smem_set);
-  if (err != cudaSuccess) return err;
-  fa2_fwd_mma<Tin, Tt, D><<<grid, 128, smem, stream>>>(
-      static_cast<const Tin*>(q), static_cast<const Tin*>(k),
-      static_cast<const Tin*>(v), static_cast<Tin*>(o),
-      static_cast<float*>(lse), hq, hkv, sq, skv, kv_len, qscale, causal);
-  return cudaGetLastError();
-}
 
 template <int D>
 cudaError_t launch_fp32(dim3 grid, cudaStream_t stream, const void* q,
@@ -541,19 +860,83 @@ cudaError_t launch_fp32(dim3 grid, cudaStream_t stream, const void* q,
 }
 
 // The tensor-core launch for input type Tin and tile code `tiles` (1 bf16,
-// 2 fp16).
+
+// cuTensorMapEncodeTiled lives in libcuda.so.1, which the CUDA runtime has
+// already loaded: it is looked up there, so the build needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
+    return lib ? reinterpret_cast<EncodeTiled>(
+                     dlsym(lib, "cuTensorMapEncodeTiled"))
+               : nullptr;
+  }();
+  return fn;
+}
+
+// Errors of the tensor-map step, beyond the cudaError_t range.
+constexpr int kErrNoEncoder = 100000;
+constexpr int kErrEncode = 100001;
+
+// A 3-D map over a contiguous 16-bit [rows, skv, d] K or V: boxes of 128
+// rows x 64 columns with the 128-byte swizzle; reads past skv give zeros.
+int kv_map(CUtensorMap* map, const void* ptr, int tiles, int rows, int skv,
+           int d) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return kErrNoEncoder;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(skv),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
+                                 static_cast<cuuint64_t>(skv) * d * 2};
+  const cuuint32_t box[3] = {kBoxCols, kTileN, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, tiles == 1 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+      3, const_cast<void*>(ptr), dims, strides, box, elem_strides,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrEncode;
+}
+
+template <typename Tin, typename Tt, int D>
+int launch_wgmma(cudaStream_t stream, const void* q, const void* k,
+                 const void* v, void* o, void* lse, int batch, int hq, int hkv,
+                 int sq, int skv, int kv_len, float qscale, int causal,
+                 int tiles) {
+  CUtensorMap k_map, v_map;
+  int err = kv_map(&k_map, k, tiles, batch * hkv, skv, D);
+  if (err == 0) err = kv_map(&v_map, v, tiles, batch * hkv, skv, D);
+  if (err != 0) return err;
+  static std::atomic<uint64_t> smem_set{0};
+  cudaError_t cerr = set_smem_once(fa2_fwd_wgmma<Tin, Tt, D>,
+                                   Layout<D>::kSmem, smem_set);
+  if (cerr != cudaSuccess) return cerr;
+  const dim3 grid((sq + kTileM - 1) / kTileM, batch * hq);
+  fa2_fwd_wgmma<Tin, Tt, D><<<grid, kThreads, Layout<D>::kSmem, stream>>>(
+      k_map, v_map, static_cast<const Tin*>(q), static_cast<Tin*>(o),
+      static_cast<float*>(lse), hq, hkv, sq, kv_len, qscale, causal);
+  return cudaGetLastError();
+}
+
 template <typename Tin, int D>
-cudaError_t launch_mma_tiles(int tiles, dim3 grid, cudaStream_t st,
-                             const void* q, const void* k, const void* v,
-                             void* o, void* lse, int hq, int hkv, int sq,
-                             int skv, int kv_len, float qscale, int causal) {
+int launch_tiles(int tiles, cudaStream_t st, const void* q, const void* k,
+                 const void* v, void* o, void* lse, int batch, int hq, int hkv,
+                 int sq, int skv, int kv_len, float qscale, int causal) {
   if (tiles == 1) {
-    return launch_mma<Tin, __nv_bfloat16, D>(grid, st, q, k, v, o, lse, hq,
-                                             hkv, sq, skv, kv_len, qscale,
-                                             causal);
+    return launch_wgmma<Tin, __nv_bfloat16, D>(st, q, k, v, o, lse, batch, hq,
+                                               hkv, sq, skv, kv_len, qscale,
+                                               causal, tiles);
   }
-  return launch_mma<Tin, __half, D>(grid, st, q, k, v, o, lse, hq, hkv, sq,
-                                    skv, kv_len, qscale, causal);
+  return launch_wgmma<Tin, __half, D>(st, q, k, v, o, lse, batch, hq, hkv, sq,
+                                      skv, kv_len, qscale, causal, tiles);
 }
 
 }  // namespace
@@ -561,41 +944,40 @@ cudaError_t launch_mma_tiles(int tiles, dim3 grid, cudaStream_t st,
 extern "C" {
 
 // q [batch, hq, sq, head_dim]; k, v [batch, hkv, skv, head_dim]; o like q;
-// lse [batch, hq, sq] fp32.  All contiguous.  in_bf16: q/k/v/o are bf16
-// (else fp32).  tiles: 0 fp32 on the FMA units (needs fp32 inputs), 1 bf16
-// or 2 fp16 on the tensor cores.  qscale = sm_scale * log2(e).  Returns a
-// cudaError_t.
+// lse [batch, hq, sq] fp32.  All contiguous and 16-byte aligned.  in_bf16:
+// q and o are bf16 (else fp32).  tiles: 0 fp32 on the FMA units (k and v
+// fp32 too), 1 bf16 or 2 fp16 on the tensor cores, with k and v already in
+// the tile type.  qscale = sm_scale * log2(e).  Returns a cudaError_t, or
+// an error of the tensor-map step (cfa_fa2_forward_error_string names it).
 int cfa_fa2_forward(const void* q, const void* k, const void* v, void* o,
                     void* lse, int batch, int hq, int hkv, int sq, int skv,
                     int head_dim, int kv_len, float qscale, int causal,
                     int in_bf16, int tiles, void* stream) {
-  const dim3 grid((sq + kBlockM - 1) / kBlockM, batch * hq);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (tiles == 1 || tiles == 2) {
     if (in_bf16) {
       if (head_dim == 64) {
-        return launch_mma_tiles<__nv_bfloat16, 64>(
-            tiles, grid, st, q, k, v, o, lse, hq, hkv, sq, skv, kv_len, qscale,
-            causal);
+        return launch_tiles<__nv_bfloat16, 64>(tiles, st, q, k, v, o, lse,
+                                               batch, hq, hkv, sq, skv, kv_len,
+                                               qscale, causal);
       }
       if (head_dim == 128) {
-        return launch_mma_tiles<__nv_bfloat16, 128>(
-            tiles, grid, st, q, k, v, o, lse, hq, hkv, sq, skv, kv_len, qscale,
-            causal);
+        return launch_tiles<__nv_bfloat16, 128>(tiles, st, q, k, v, o, lse,
+                                                batch, hq, hkv, sq, skv, kv_len,
+                                                qscale, causal);
       }
     } else {
       if (head_dim == 64) {
-        return launch_mma_tiles<float, 64>(tiles, grid, st, q, k, v, o, lse,
-                                           hq, hkv, sq, skv, kv_len, qscale,
-                                           causal);
+        return launch_tiles<float, 64>(tiles, st, q, k, v, o, lse, batch, hq,
+                                       hkv, sq, skv, kv_len, qscale, causal);
       }
       if (head_dim == 128) {
-        return launch_mma_tiles<float, 128>(tiles, grid, st, q, k, v, o, lse,
-                                            hq, hkv, sq, skv, kv_len, qscale,
-                                            causal);
+        return launch_tiles<float, 128>(tiles, st, q, k, v, o, lse, batch, hq,
+                                        hkv, sq, skv, kv_len, qscale, causal);
       }
     }
   } else if (tiles == 0 && !in_bf16) {
+    const dim3 grid((sq + kBlockM - 1) / kBlockM, batch * hq);
     if (head_dim == 64) {
       return launch_fp32<64>(grid, st, q, k, v, o, lse, hq, hkv, sq, skv,
                              kv_len, qscale, causal);
@@ -609,6 +991,12 @@ int cfa_fa2_forward(const void* q, const void* k, const void* v, void* o,
 }
 
 const char* cfa_fa2_forward_error_string(int err) {
+  if (err == kErrNoEncoder) {
+    return "libcuda.so.1 has no cuTensorMapEncodeTiled";
+  }
+  if (err == kErrEncode) {
+    return "cuTensorMapEncodeTiled refused the K/V tensor map";
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -6,9 +6,13 @@ kernel of it is launched (the hash covers the source and the flags, so an
 edited source is rebuilt).  Nothing here runs at import: the CPU-only test
 machine imports every module and has no nvcc.
 
+No source links libcuda: fa2_forward.cu looks up cuTensorMapEncodeTiled
+(TMA tensor maps) in libcuda.so.1 with dlopen at its first launch.
+
 Calling convention of every entry point: pointers and the CUDA stream are
 `ctypes.c_void_p`, sizes `ctypes.c_int`, scalars `ctypes.c_float`; the
-function returns the cudaError_t of its launch, which `check` turns into an
+function returns the cudaError_t of its launch (or an error of its own that
+the library's error-string function names), which `check` turns into an
 exception.
 """
 

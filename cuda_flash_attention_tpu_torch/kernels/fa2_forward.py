@@ -92,6 +92,11 @@ def fa2_forward_aligned(q, k, v, *, causal: bool, sm_scale: float,
     _check_inputs("fa2_forward", q, k, v, tile_dtype)
     if b * hq > 65535:
         raise NotImplementedError("fa2_forward kernel: batch * heads > 65535")
+    if tile_dtype not in (None, q.dtype):
+        # TMA copies K and V as bytes, so they reach it in the 16-bit tile
+        # type.  The cast rounds to nearest even, as the plain version's
+        # k.to(tile) does: no rounding point moves.
+        k, v = k.to(tile_dtype), v.to(tile_dtype)
     o = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), device=q.device, dtype=torch.float32)
     lib = _lib()

@@ -178,6 +178,28 @@ def test_autograd_unequal_lengths_matches_jax_grad(causal):
         assert _rel_err(g.numpy(), wj) <= TOL[None]
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_autograd_cross_lengths_over_several_tiles_match_jax_grad(causal):
+    """Sq 300 over Skv 100 (rows past kv_len under causal masking, a ragged
+    KV tail) through B1's forward and the backward kernels' plain
+    versions, against jax.grad of the JAX kernels."""
+    rng = np.random.default_rng(17)
+    q = rng.standard_normal((B, HQ, 300, D), dtype=np.float32)
+    k, v = (rng.standard_normal((B, HKV, 100, D), dtype=np.float32) for _ in range(2))
+    w = rng.standard_normal((B, HQ, 300, D), dtype=np.float32)
+
+    def jloss(q, k, v):
+        o = jax_attention.flash_attention(q, k, v, causal=causal, force_kernel=True)
+        return jnp.sum(o * w)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*(jnp.asarray(x) for x in (q, k, v)))
+    ts = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    o = attention.flash_attention(*ts, causal=causal)
+    got = torch.autograd.grad((o * torch.from_numpy(w)).sum(), ts)
+    for g, wj in zip(got, want):
+        assert _rel_err(g.numpy(), wj) <= TOL[None]
+
+
 @pytest.mark.parametrize("tile", [None, torch.bfloat16], ids=["fp32", "bf16-tiles"])
 def test_fa2_backward_default_do_is_ones(tile):
     rng = np.random.default_rng(9)

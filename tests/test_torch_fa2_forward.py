@@ -80,6 +80,41 @@ def test_unequal_q_and_kv_lengths_match_jax_kernel(causal):
     np.testing.assert_allclose(lse_t, lse_j, atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("tile", [None, torch.bfloat16], ids=["fp32", "bf16-tiles"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,skv", [(300, 100), (128, 384)])
+def test_cross_lengths_over_several_tiles_match_jax_kernel(sq, skv, causal, tile):
+    """Sq > Skv and Sq < Skv across several 128-row tiles, with ragged
+    tails on both sides (B1's 128-row Q and KV tiles meet the causal
+    diagonal and the kv_len mask at these edges)."""
+    rng = np.random.default_rng(sq + skv)
+    q = rng.standard_normal((1, 4, sq, 64), dtype=np.float32)
+    k = rng.standard_normal((1, 2, skv, 64), dtype=np.float32)
+    v = rng.standard_normal((1, 2, skv, 64), dtype=np.float32)
+    (o_j, lse_j), (o_t, lse_t) = _both(q, k, v, causal, tile)
+    assert o_t.shape == q.shape and lse_t.shape == q.shape[:3]
+    if tile is None:
+        np.testing.assert_allclose(o_t, o_j, atol=2e-6, rtol=0)
+        np.testing.assert_allclose(lse_t, lse_j, atol=1e-5, rtol=0)
+    else:
+        np.testing.assert_allclose(o_t, o_j, atol=2e-2, rtol=0)
+        np.testing.assert_allclose(lse_t, lse_j, atol=2e-2, rtol=0)
+
+
+@pytest.mark.parametrize("tile", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("causal", [True, False])
+def test_kv_cast_to_the_tile_type_moves_no_rounding(tile, causal):
+    """The kernel's wrapper casts fp32 K and V to the tile type before the
+    launch (TMA copies bytes and cannot convert).  The plain version casts
+    them at the same point, so the result is the same to the bit."""
+    q, k, v = (torch.from_numpy(x) for x in _inputs(2, 4, 2, 200, 64, seed=7))
+    kw = dict(causal=causal, sm_scale=0.125, kv_len=190, tile_dtype=tile)
+    o_cast, lse_cast = fa2_forward.fa2_forward_plain(q, k.to(tile), v.to(tile), **kw)
+    o, lse = fa2_forward.fa2_forward_plain(q, k, v, **kw)
+    assert o_cast.dtype == o.dtype == torch.float32
+    assert torch.equal(o_cast, o) and torch.equal(lse_cast, lse)
+
+
 def test_bf16_inputs_keep_dtype():
     q, k, v = (torch.from_numpy(x).to(torch.bfloat16)
                for x in _inputs(1, 4, 2, 64, 64, seed=2))

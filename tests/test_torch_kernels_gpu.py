@@ -71,6 +71,11 @@ FWD_VARIANTS = pytest.mark.parametrize("dtype,tile", [
 @pytest.mark.parametrize("b,hq,hkv,s,causal", [
     (2, 16, 8, 100, True), (1, 16, 8, 512, True), (2, 4, 4, 256, False),
     (1, 2, 1, 17, True),
+    # B1's K/V ring (2-3 stages of 128 rows) wraps 8 and 16 times; S 16
+    # and 112 are shorter than one 128-row TMA box; S 1000 pads to 1024,
+    # so kv_len ends inside the last box; GQA 16/2.
+    (1, 4, 2, 2048, True), (1, 2, 1, 4096, False), (2, 4, 2, 16, True),
+    (2, 4, 2, 112, False), (1, 4, 2, 1000, False), (1, 16, 2, 384, True),
 ])
 def test_fa2_forward_kernel_matches_plain(cuda, dtype, tile, d, b, hq, hkv, s,
                                           causal):
@@ -90,18 +95,37 @@ def test_fa2_forward_kernel_matches_plain(cuda, dtype, tile, d, b, hq, hkv, s,
     assert lse_err <= (1e-3 if bf16 else 1e-5), lse_err
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@FWD_VARIANTS
 @pytest.mark.parametrize("causal", [True, False])
-def test_fa2_forward_kernel_unequal_lengths(cuda, dtype, causal):
-    rng = np.random.default_rng(5)
-    q = _randn(rng, 1, 4, 64, 64).to(dtype)
-    k, v = (_randn(rng, 1, 2, 200, 64).to(dtype) for _ in range(2))
+@pytest.mark.parametrize("sq,skv", [(64, 200), (300, 100), (128, 384)])
+def test_fa2_forward_kernel_unequal_lengths(cuda, dtype, tile, causal, sq, skv):
+    """Sq != Skv: causal keeps col <= row from the top-left corner; at
+    300/100 Q rows run past kv_len, at 128/384 one Q tile meets three KV
+    tiles, and each padded tail ends inside a 128-row box."""
+    rng = np.random.default_rng(5 + sq)
+    q = _randn(rng, 1, 4, sq, 64).to(dtype)
+    k, v = (_randn(rng, 1, 2, skv, 64).to(dtype) for _ in range(2))
     o_k, lse_k = attention.flash_attention_with_lse(
-        q.to(cuda), k.to(cuda), v.to(cuda), causal=causal)
-    o_p, lse_p = attention.flash_attention_with_lse(q, k, v, causal=causal)
-    tol = 2e-2 if dtype == torch.bfloat16 else 2e-6
+        q.to(cuda), k.to(cuda), v.to(cuda), causal=causal, tile_dtype=tile)
+    o_p, lse_p = attention.flash_attention_with_lse(q, k, v, causal=causal,
+                                                    tile_dtype=tile)
+    tol = 2e-2 if tile is not None or dtype == torch.bfloat16 else 2e-6
     assert (o_k.float().cpu() - o_p.float()).abs().max().item() <= tol
     assert ((lse_k.cpu() - lse_p).abs() / lse_p.abs().clamp_min(1)).max().item() <= 1e-3
+
+
+@FWD_VARIANTS
+def test_fa2_forward_kernel_bitwise_deterministic(cuda, dtype, tile):
+    """No atomics and a fixed order of every sum: two calls give the same
+    bits, at a shape that wraps the K/V ring many times."""
+    rng = np.random.default_rng(11)
+    q = _randn(rng, 2, 16, 2048, 128).to(dtype).to(cuda)
+    k, v = (_randn(rng, 2, 8, 2048, 128).to(dtype).to(cuda) for _ in range(2))
+    o1, lse1 = attention.flash_attention_with_lse(q, k, v, causal=True,
+                                                  tile_dtype=tile)
+    o2, lse2 = attention.flash_attention_with_lse(q, k, v, causal=True,
+                                                  tile_dtype=tile)
+    assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
 
 
 @pytest.mark.parametrize("kwargs", [
