@@ -7,7 +7,9 @@ NVIDIA card.
 Phases (any failure raises and the script exits non-zero):
   1. setup: the card's name and power limit; the eight CUDA sources built
      from cuda_flash_attention_tpu_torch/csrc/ with nvcc (sm_90a), all at
-     once;
+     once; ptxas's registers, spills and wgmma notes for each of B2's
+     bf16/fp16-tile kernels (prologue, main, dQ reduce), failing on a
+     spilled byte or a wgmma serialisation note;
   2. kernel B1 (FA2 forward) against its plain PyTorch version at the
      serving prefill shapes (the serving run's largest, B4 S1536, included)
      and at the train shape (B4 S2048), and at the edges of its 128-row
@@ -25,9 +27,9 @@ Phases (any failure raises and the script exits non-zero):
   6. where a decode step's time goes at batch 8: host-clock step time and
      device busy time from one torch.profiler window, the top kernels;
   7. kernels B2, B3, B4 (FA2 backward) against their plain versions at the
-     train shape (B4 Hq16 Hkv8 S2048 D64 causal bf16), fp32 at B1 S512 and
-     a ragged S1000, B3 and B4 also at B16 S2048 (the split-route training
-     shape), with times, bounds and the backward of PyTorch's flash
+     train shape (B4 Hq16 Hkv8 S2048 D64 causal bf16) and at D 128, fp32 at
+     B1 S512 and a ragged S1000, B3 and B4 also at B16 S2048 (the
+     split-route training shape), with times, bounds and the backward of PyTorch's flash
      attention; then torch.autograd.grad of flash_attention on both routes
      (fused B2; split B3 + B4, forced by 128-row BlockSizes) against the
      plain versions, and bitwise-equal gradients from two runs of each;
@@ -106,6 +108,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -160,6 +163,63 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+# B2's kernels with bf16 or fp16 tiles, by the names they carry in ptxas's
+# mangled entry names.
+B2_FUNCTIONS = ("bwd_fused_wgmma", "bwd_prologue", "dq_reduce")
+
+
+def ptxas_by_function(text: str) -> dict:
+    """ptxas -v lines grouped by the entry function they describe (its
+    mangled name); a note that names a function goes to that function."""
+    out, current = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            current = m.group(1)
+        named = re.search(r"function '?(_Z\w+)", line)
+        key = named.group(1) if named else current
+        if key is not None:
+            out.setdefault(key, []).append(line.strip())
+    return out
+
+
+def ptxas_log(_build, name: str) -> str:
+    """The compiler's report for csrc/<name>.cu when its library was built
+    before this run (the build step reports new builds only): the source
+    compiled once more, with the package's flags, into build/kernels/."""
+    out = _build.BUILD_DIR / f"{name}-ptxas-report.so"
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
+                           str(_build.CSRC_DIR / f"{name}.cu")],
+                          check=True, capture_output=True, text=True)
+    out.unlink()
+    return proc.stdout + proc.stderr
+
+
+def check_b2_ptxas(text: str) -> None:
+    """Print each B2 instantiation's registers, spills and wgmma notes, and
+    fail on a spilled byte or a serialisation note (C7514 and kin: ordinary
+    code touching a wgmma's registers before its wait)."""
+    found = 0
+    for fn, lines in ptxas_by_function(text).items():
+        kind = next((k for k in B2_FUNCTIONS if k in fn), None)
+        if kind is None:
+            continue
+        found += 1
+        spills = [int(n) for line in lines
+                  for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", line)]
+        notes = [line for line in lines if "C75" in line or "serializ" in line]
+        regs = next((line.split("Used")[1].split(",")[0].strip()
+                     for line in lines if "Used" in line), "?")
+        log(f"  ptxas B2 {kind} {fn[-48:]}: {regs}, spill bytes {sum(spills)}, "
+            f"wgmma notes {len(notes)}")
+        for note in notes:
+            log(f"    {note}")
+        if sum(spills) or notes:
+            raise AssertionError(f"ptxas: B2's {fn} spills or serialises wgmma")
+    if found < len(B2_FUNCTIONS):
+        raise AssertionError(f"ptxas: only {found} B2 entry functions reported")
 
 
 def phase_b1(torch, fa2, b1_ab):
@@ -392,11 +452,10 @@ def library_backward_ms(torch, F, q, k, v, do, scale, causal=True):
 
 
 def bwd_problem(torch, attention, fa2, gen, dtype, b, s, hq=16, hkv=8,
-                causal=True, tile="same"):
+                causal=True, tile="same", d=64):
     """Padded inputs on the card (the train shape by default): q, k, v, dO
     random, O and lse from kernel B1, D_i = rowsum(dO * O).  The tile type
     is `tile`, by default bf16 for bf16 inputs and None for fp32."""
-    d = 64
     if tile == "same":
         tile = torch.bfloat16 if dtype == torch.bfloat16 else None
     q, do = (torch.randn(b, hq, s, d, generator=gen, device="cuda").to(dtype)
@@ -486,7 +545,7 @@ def bwd_rows(torch, F, attention, fa2, bwd, gen, kind, dtype, b, s, names,
         t_bytes = moved[name] / HBM_BYTES_PER_S
         t_ops = flops / PEAK_FLOPS[kind]
         row = dict(kernel=name, kind=kind, inputs=str(dtype)[6:], B=b, Hq=hq,
-                   Hkv=k.shape[1], S=s, causal=kw["causal"], rel_err=max(errs),
+                   Hkv=k.shape[1], S=s, D=d, causal=kw["causal"], rel_err=max(errs),
                    max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                    library_ms=lib_ms, library=lib_how,
                    bound_ms=max(t_bytes, t_ops) * 1e3,
@@ -499,8 +558,8 @@ def bwd_rows(torch, F, attention, fa2, bwd, gen, kind, dtype, b, s, names,
 
 def phase_bwd(torch, F, attention, fa2, bwd):
     """B2, B3 and B4 against their plain versions at the train shape (B4
-    Hq16 Hkv8 S2048 causal bf16), fp32 at B1 S512, a ragged S1000, and B3
-    and B4 at B16 S2048 (the split-route training shape)."""
+    Hq16 Hkv8 S2048 causal bf16) at D 64 and 128, fp32 at B1 S512, a ragged
+    S1000, and B3 and B4 at B16 S2048 (the split-route training shape)."""
     gen = torch.Generator(device="cuda").manual_seed(6)
     every = ("fa2_backward_fused", "fa2_backward_dq", "fa2_backward_dkv")
     rows = []
@@ -510,6 +569,10 @@ def phase_bwd(torch, F, attention, fa2, bwd):
         dtype = torch.bfloat16 if kind == "bf16" else torch.float32
         rows += bwd_rows(torch, F, attention, fa2, bwd, gen, kind, dtype, b, s,
                          names)
+    # The train shape at D 128: the wider dK and dV accumulators take B2's
+    # 64-row Q tiles.
+    rows += bwd_rows(torch, F, attention, fa2, bwd, gen, "bf16", torch.bfloat16,
+                     4, 2048, every, d=128)
     return rows
 
 
@@ -729,7 +792,9 @@ def phase_train_profile(torch, state, step, tokens):
     by_kind = {"attention (this port's kernels)": 0.0, "matmul (cuBLAS)": 0.0,
                "other (elementwise, reductions, copies)": 0.0}
     for e in kernels:
-        if any(n in e.key for n in ("fa2_fwd_", "bwd_kv_", "bwd_dq_")):
+        if any(n in e.key for n in ("fa2_fwd_", "bwd_kv_", "bwd_dq_",
+                                    "bwd_fused_wgmma", "bwd_prologue",
+                                    "dq_reduce")):
             kind = "attention (this port's kernels)"
         elif any(n in e.key for n in ("nvjet", "gemm", "cutlass")):
             kind = "matmul (cuBLAS)"
@@ -1915,6 +1980,7 @@ def main() -> int:
             if any(w in line for w in ("registers", "spill", "error",
                                        "Performance")):
                 log(f"  ptxas {name}: {line.strip()}")
+    check_b2_ptxas(build_logs.get("fa2_backward") or ptxas_log(_build, "fa2_backward"))
 
     t0 = time.perf_counter()
     b1 = phase_b1(torch, fa2, b1_ab)
@@ -2057,8 +2123,8 @@ def main() -> int:
             ("fa2_backward_fused", 529, train["launches"]["fa2_backward_fused"]),
             ("fa2_backward_dq", 675, split["launches"]["fa2_backward_dq"]),
             ("fa2_backward_dkv", 386, split["launches"]["fa2_backward_dkv"])):
-        r = next(r for r in bwd_rows if (r["kernel"], r["kind"], r["B"], r["S"])
-                 == (name, "bf16", 4, 2048))
+        r = next(r for r in bwd_rows if (r["kernel"], r["kind"], r["B"], r["S"],
+                                         r["D"]) == (name, "bf16", 4, 2048, 64))
         kernels.append(dict(
             name=name, route="cuda",
             source="cuda_flash_attention_tpu_torch/csrc/fa2_backward.cu",

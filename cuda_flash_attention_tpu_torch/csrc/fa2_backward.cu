@@ -23,22 +23,49 @@
 // forward's matmul work (five S x S x D products against two) on the same
 // ~6 S D bytes per head, so at the train shape (B 4, Hq 16, Hkv 8, S 2048,
 // D 64, causal, bf16) it sits far above the ~295 FLOP/byte ridge.  The
-// design keeps S, P and dS on chip and never adds floats across blocks:
-//   * B2/B4: one thread block per (128-row KV tile, b*Hkv), eight warps of 16
-//     KV rows each.  It walks the GQA group's query heads and, under causal,
-//     only the Q tiles at or below the diagonal, computing S^T and dP^T with
-//     KV rows as the mma M dimension so that P^T and dS^T feed the dV and dK
-//     products straight from registers.  dK and dV accumulate in registers
-//     over the whole walk (the GQA sum without atomics) and are stored once.
-//   * B2 writes dS^T to shared memory and multiplies it by the K tile into
-//     its own slice dq_part[b, h, kv_tile]; Q tiles above the diagonal get
-//     zeros.  The wrapper sums the slices in a fixed order, so dQ is bitwise
-//     deterministic and uses no atomicAdd.
-//   * B3: one block per (64-row Q tile, b*Hq), four warps of 16 Q rows; the
-//     KV loop stops at the diagonal tile, as the forward's does.
-//   * bf16 and fp16 tiles run on mma.sync m16n8k16 with fp32 accumulation;
-//     fp32 tiles run on the FMA units (no TF32), held to IEEE fp32.
-// wgmma, TMA and a pipelined ring of Q tiles are later work.
+// designs keep S, P and dS on chip and never add floats across blocks.
+//
+// B2 with bf16 or fp16 tiles runs in three launches:
+//   * a prologue, once per call, forms what every KV-tile block would
+//     otherwise form again for every Q tile: Q_s (the fp32 multiply, then
+//     the rounding), D_i = rowsum(dO * O) in fp32, lse * log2(e), and dO, K
+//     and V in the tile type where the inputs are not (TMA copies bytes and
+//     cannot scale or convert).  It rounds where the plain version rounds;
+//   * the main kernel: one block per (128-row KV tile, b*Hkv), 384 threads.
+//     Warpgroup 0 is the producer (`setmaxnreg.dec`): one thread loads the
+//     K and V tiles once by TMA, then streams the walk's Q_s and dO tiles
+//     (3-D maps, 128-byte swizzle, rows past Sq as zeros) and their lse and
+//     D_i rows (1-D bulk copies) into a ring of stages with full and empty
+//     mbarriers.  The walk covers the GQA group's query heads and, under
+//     causal, only the Q tiles at or below the diagonal; a KV tile wholly
+//     past kv_len walks nothing.  Warpgroups 1 and 2 (`setmaxnreg.inc`)
+//     each own 64 KV rows: S^T = K Q_s^T and dP^T = V dO^T on
+//     `wgmma.mma_async` from shared memory; P^T and dS^T in registers (the
+//     accumulators, rounded to the tile type, are the register A
+//     fragments); dV += P^T dO and dK += dS^T Q_s with B read through the
+//     transpose bit.  dK and dV accumulate in registers over the whole walk
+//     (the GQA sum without atomics) and are stored once.  Each consumer
+//     writes its dS^T rows, swizzled, into one of two shared buffers; after
+//     a named barrier each computes its half of the dQ tile, dS K over the
+//     tile's 128 KV rows, with A = dS^T and B = the K tile both through the
+//     transpose bits, and stores it into its own slice dq_part[b, h,
+//     kv_tile].  Q tiles are 128 rows at D = 64 (the halves are Q rows) and
+//     64 rows at D = 128 (the halves are columns), which keeps the dK and
+//     dV accumulators (D / 2 registers each) and the S^T and dP^T ones
+//     within 240 registers;
+//   * a reduce adds each Q row's live slices in KV-tile order, multiplies
+//     by sm_scale and writes q's type.  Only the slices of the Q tiles a KV
+//     tile reaches are written, and only those are read: a skipped slice
+//     holds zeros or nothing, so the ordered sum is exact and bitwise the
+//     same from run to run, with no atomicAdd.
+// B3 and B4 with bf16 or fp16 tiles run on mma.sync m16n8k16 with fp32
+// accumulation: B4 with one block per (128-row KV tile, b*Hkv), eight
+// warps of 16 KV rows, computing S^T and dP^T with KV rows as the mma M
+// dimension so that P^T and dS^T feed the dV and dK products from
+// registers; B3 with one block per (64-row Q tile, b*Hq), four warps of 16
+// Q rows, the KV loop stopping at the diagonal tile.  fp32 tiles (B2, B3
+// and B4) run on the FMA units (no TF32), held to IEEE fp32; B2's fp32 body
+// writes zeros into the slices above the diagonal, which the reduce skips.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -46,7 +73,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <atomic>
+#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -57,36 +88,68 @@ constexpr int kTile32 = 64;   // Q and KV tile of the fp32 kernels
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* x) {
-  uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float2 f = __bfloat1622float2(h[i]);
-    x[2 * i] = f.x;
-    x[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void load8(const float* p, float* x) {
-  float4 a = *reinterpret_cast<const float4*>(p);
-  float4 b = *reinterpret_cast<const float4*>(p + 4);
-  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
-  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
-}
-
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
+// wgmma forms of B2, with fp32 accumulators of 32 (N = 64) or 64 (N = 128)
+// registers.  ss: A and B both from shared memory, K-major.  ss_tt: both
+// from shared memory, MN-major (the transpose bits).  rs: A from registers,
+// B from shared memory, MN-major.  The scale-d predicate is 0 to overwrite
+// the accumulators, 1 to add to them.
+#define CFA_BWD_SS_N64(TY, TA, TB)                                           \
+  asm volatile(                                                              \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                           \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "            \
+      "{" CFA_R32 "}, %32, %33, p, 1, 1, " TA ", " TB ";\n}\n"               \
+      : CFA_ACC32(d)                                                         \
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d))
+#define CFA_BWD_SS_N128(TY)                                                  \
+  asm volatile(                                                              \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                           \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "           \
+      "{" CFA_R64 "}, %64, %65, p, 1, 1, 0, 0;\n}\n"                         \
+      : CFA_ACC64(d)                                                         \
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d))
+#define CFA_BWD_RS_N64(TY)                                                   \
+  asm volatile(                                                              \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                           \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "            \
+      "{" CFA_R32 "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"           \
+      : CFA_ACC32(d)                                                         \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1))
+#define CFA_BWD_RS_N128(TY)                                                  \
+  asm volatile(                                                              \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                           \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "           \
+      "{" CFA_R64 "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"           \
+      : CFA_ACC64(d)                                                         \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1))
 
 // The two 16-bit tile types of the tensor-core path: packing two fp32 values
-// (round to nearest even) and the m16n8k16 product with fp32 accumulation.
+// (round to nearest even), the m16n8k16 product with fp32 accumulation (B3,
+// B4) and the wgmma forms (B2).
 template <typename Tt>
 struct Tile;
+
+#define CFA_BWD_WGMMA_FORMS(TY)                                              \
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t desc_a, \
+                                            uint64_t desc_b, int scale_d) {  \
+    CFA_BWD_SS_N64(TY, "0", "0");                                            \
+  }                                                                          \
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t desc_a, \
+                                            uint64_t desc_b, int scale_d) {  \
+    CFA_BWD_SS_N128(TY);                                                     \
+  }                                                                          \
+  static __device__ __forceinline__ void ss_tt(float (&d)[32],               \
+                                               uint64_t desc_a,              \
+                                               uint64_t desc_b, int scale_d) { \
+    CFA_BWD_SS_N64(TY, "1", "1");                                            \
+  }                                                                          \
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t* a, \
+                                            uint64_t desc_b) {               \
+    CFA_BWD_RS_N64(TY);                                                      \
+  }                                                                          \
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t* a, \
+                                            uint64_t desc_b) {               \
+    CFA_BWD_RS_N128(TY);                                                     \
+  }
 
 template <>
 struct Tile<__nv_bfloat16> {
@@ -103,6 +166,7 @@ struct Tile<__nv_bfloat16> {
         : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
   }
+  CFA_BWD_WGMMA_FORMS("bf16")
 };
 
 // fp16 tiles overflow above 65504 and keep P below 2^-14 as subnormals,
@@ -122,11 +186,8 @@ struct Tile<__half> {
         : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
   }
+  CFA_BWD_WGMMA_FORMS("f16")
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
   asm volatile(
@@ -246,31 +307,26 @@ __device__ __forceinline__ void stage_stats(float* lse2_s, float* di_s,
 }
 
 // ---------------------------------------------------------------------------
-// B2 (FUSED) and B4 with bf16 or fp16 tiles (Tt) on the tensor cores.  256 threads; warp
+// B4 with bf16 or fp16 tiles (Tt) on the tensor cores.  256 threads; warp
 // w owns KV rows [16w, 16w + 16) of the block's 128-row KV tile.  Q tiles are
 // BQ rows: 64 at D = 64, 32 at D = 128 (the S^T and dP^T accumulators shrink
 // to make room for the wider dK and dV ones).
 // ---------------------------------------------------------------------------
-template <typename Tin, typename Tt, int D, bool FUSED>
+template <typename Tin, typename Tt, int D>
 __global__ void __launch_bounds__(256)
 bwd_kv_mma(const Tin* __restrict__ q, const Tin* __restrict__ k,
-           const Tin* __restrict__ v, const Tin* __restrict__ o,
-           const Tin* __restrict__ dout, const float* __restrict__ lse,
-           const float* __restrict__ di, Tin* __restrict__ dk,
-           Tin* __restrict__ dv, float* __restrict__ dq_part, int hq, int hkv,
+           const Tin* __restrict__ v, const Tin* __restrict__ dout,
+           const float* __restrict__ lse, const float* __restrict__ di,
+           Tin* __restrict__ dk, Tin* __restrict__ dv, int hq, int hkv,
            int sq, int skv, int kv_len, float qscale, int causal) {
   constexpr int BQ = D == 128 ? 32 : 64;
   constexpr int LD = D + 8;    // 16-byte row padding: conflict-free ldmatrix
-  constexpr int LDS = BQ + 8;  // dS^T tile [kv][q]
-  constexpr int RG = BQ / 16;  // dQ partial: 16-row groups of the Q tile
-  constexpr int NC = D * RG / 8;  // ... and columns per warp (8 warps)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Tt* ks = reinterpret_cast<Tt*>(smem_raw);
   Tt* vs = ks + kKvRows * LD;
   Tt* qs = vs + kKvRows * LD;
   Tt* dos = qs + BQ * LD;
-  Tt* dst = dos + BQ * LD;
-  float* lse2_s = reinterpret_cast<float*>(dst + (FUSED ? kKvRows * LDS : 0));
+  float* lse2_s = reinterpret_cast<float*>(dos + BQ * LD);
   float* di_s = lse2_s + BQ;
 
   const int warp = threadIdx.x >> 5;
@@ -304,26 +360,15 @@ bwd_kv_mma(const Tin* __restrict__ q, const Tin* __restrict__ k,
     const size_t bhq = static_cast<size_t>(b) * hq + hk * groups + gi;
     const Tin* qp = q + bhq * sq * D;
     const Tin* dop = dout + bhq * sq * D;
-    const Tin* op = FUSED ? o + bhq * sq * D : nullptr;
     const float* lp = lse + bhq * sq;
-    const float* dip = FUSED ? nullptr : di + bhq * sq;
-    float* dqp = FUSED
-        ? dq_part + (bhq * gridDim.x + kt) * static_cast<size_t>(sq) * D
-        : nullptr;
-    if (FUSED) {
-      // Q tiles wholly above the diagonal own a slice too: zeros.
-      const int dead = min(q_first * BQ, sq) * D / 4;
-      for (int i = threadIdx.x; i < dead; i += 256) {
-        reinterpret_cast<float4*>(dqp)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-    }
+    const float* dip = di + bhq * sq;
     for (int qt = q_first; qt < n_q_tiles; ++qt) {
       const int q0 = qt * BQ;
-      __syncthreads();  // the previous tile's Q, dO, dS^T and stats are used
+      __syncthreads();  // the previous tile's Q, dO and stats are used
       stage_tile<Tt, Tin, D, BQ, LD, 256>(qs, qp, q0, sq, qscale);
       stage_tile<Tt, Tin, D, BQ, LD, 256>(dos, dop, q0, sq, 1.f);
-      stage_stats<Tin, D, BQ, 256, FUSED>(lse2_s, di_s, lp, dip, op, dop, q0,
-                                          sq);
+      stage_stats<Tin, D, BQ, 256, false>(lse2_s, di_s, lp, dip, nullptr, dop,
+                                          q0, sq);
       __syncthreads();
 
       // S^T = K Q_s^T and dP^T = V dO^T for this warp's 16 KV rows.
@@ -391,48 +436,6 @@ bwd_kv_mma(const Tin* __restrict__ q, const Tin* __restrict__ k,
         }
       }
 
-      if (FUSED) {
-        // dQ slice of this KV tile: dS K, with dS read back transposed
-        // from shared memory.  Warp w computes rows 16 (w % RG) .. and
-        // columns NC (w / RG) .. of the Q tile.
-#pragma unroll
-        for (int j = 0; j < BQ / 8; ++j) {
-          const int c = j * 8 + t4 * 2;
-          *reinterpret_cast<uint32_t*>(dst + (warp * 16 + g) * LDS + c) =
-              Tile<Tt>::pack(dpt[j][0], dpt[j][1]);
-          *reinterpret_cast<uint32_t*>(dst + (warp * 16 + g + 8) * LDS + c) =
-              Tile<Tt>::pack(dpt[j][2], dpt[j][3]);
-        }
-        __syncthreads();
-        const int rg = warp % RG;
-        const int c0 = (warp / RG) * NC;
-        float dq[NC / 8][4];
-#pragma unroll
-        for (int j = 0; j < NC / 8; ++j) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
-        }
-#pragma unroll
-        for (int kk = 0; kk < kKvRows / 16; ++kk) {
-          uint32_t a[4];
-          ldmatrix_x4_trans(a, dst + a_off_t(lane, LDS, rg * 16, kk * 16));
-#pragma unroll
-          for (int np = 0; np < NC / 16; ++np) {
-            uint32_t bk[4];
-            ldmatrix_x4_trans(bk, ks + b_off_kn(lane, LD, c0 + np * 16, kk * 16));
-            Tile<Tt>::mma(dq[2 * np], a, bk[0], bk[1]);
-            Tile<Tt>::mma(dq[2 * np + 1], a, bk[2], bk[3]);
-          }
-        }
-        const int ra = q0 + rg * 16 + g;
-        const int rb = ra + 8;
-#pragma unroll
-        for (int j = 0; j < NC / 8; ++j) {
-          const int col = c0 + j * 8 + t4 * 2;
-          if (ra < sq) store2(dqp + static_cast<size_t>(ra) * D + col, dq[j][0], dq[j][1]);
-          if (rb < sq) store2(dqp + static_cast<size_t>(rb) * D + col, dq[j][2], dq[j][3]);
-        }
-      }
     }
   }
 
@@ -888,21 +891,407 @@ bwd_dq_fp32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// Raises the kernel's dynamic shared-memory limit to `smem` once per device
-// (devices 0-63; others on every call).  `done` is a function-local static of
-// the caller, so one per instantiation.
-template <typename Kernel>
-cudaError_t set_smem_once(Kernel kernel, int smem,
-                          std::atomic<uint64_t>& done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
-  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
-  return err;
+// ---------------------------------------------------------------------------
+// B2 with bf16 or fp16 tiles (Tt): a prologue, the main kernel on wgmma, and
+// the dQ reduce.
+// ---------------------------------------------------------------------------
+// Eight lanes' worth of a row: 8 values of a 16-bit tile type, packed.
+template <typename Tt>
+__device__ __forceinline__ void store8(Tt* p, const float* x, float scale) {
+  uint4 packed;
+  packed.x = Tile<Tt>::pack(x[0] * scale, x[1] * scale);
+  packed.y = Tile<Tt>::pack(x[2] * scale, x[3] * scale);
+  packed.z = Tile<Tt>::pack(x[4] * scale, x[5] * scale);
+  packed.w = Tile<Tt>::pack(x[6] * scale, x[7] * scale);
+  *reinterpret_cast<uint4*>(p) = packed;
+}
+
+// D / 8 lanes per row, 8 contiguous values a lane.  Rows [0, q_rows *
+// sq_pad) are query rows (b*Hq + h, r): Q_s = round_tile(Q * qscale) with
+// the fp32 multiply first, dO in the tile type (where dos is given), D_i =
+// rowsum(dO * O) in fp32 and lse2 = lse * log2(e), both 0 for rows r >= sq
+// (the padding up to sq_pad).  The rows after them are K and V rows, cast
+// to the tile type (where ks is given).  Every conversion rounds to nearest
+// even, where the plain version rounds.
+template <typename Tin, typename Tt, int D>
+__global__ void __launch_bounds__(256)
+bwd_prologue(const Tin* __restrict__ q, const Tin* __restrict__ o,
+             const Tin* __restrict__ dout, const float* __restrict__ lse,
+             const Tin* __restrict__ k, const Tin* __restrict__ v,
+             Tt* __restrict__ qs, Tt* __restrict__ dos, Tt* __restrict__ ks,
+             Tt* __restrict__ vs, float* __restrict__ lse2,
+             float* __restrict__ di, int q_rows, int sq, int sq_pad,
+             int kv_rows, float qscale) {
+  constexpr int kLanes = D / 8;
+  const int lane = threadIdx.x & 31;
+  const int sub = lane % kLanes;
+  const size_t row = (static_cast<size_t>(blockIdx.x) * 256 + threadIdx.x) / kLanes;
+  const size_t n_q = static_cast<size_t>(q_rows) * sq_pad;
+  float acc = 0.f;
+  size_t bhq = 0;
+  int r = 0;
+  if (row < n_q) {
+    bhq = row / sq_pad;
+    r = static_cast<int>(row - bhq * sq_pad);
+    if (r < sq) {
+      const size_t at = (bhq * sq + r) * D + 8 * sub;
+      float x[8], g[8], y[8];
+      load8(q + at, x);
+      store8(qs + at, x, qscale);
+      load8(dout + at, g);
+      load8(o + at, y);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc = fmaf(g[i], y[i], acc);
+      if (dos != nullptr) store8(dos + at, g, 1.f);
+    }
+  } else if (ks != nullptr && row - n_q < static_cast<size_t>(kv_rows)) {
+    const size_t at = (row - n_q) * D + 8 * sub;
+    float x[8];
+    load8(k + at, x);
+    store8(ks + at, x, 1.f);
+    load8(v + at, x);
+    store8(vs + at, x, 1.f);
+  }
+#pragma unroll
+  for (int off = 1; off < kLanes; off <<= 1) {
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  }
+  if (row < n_q && sub == 0) {
+    lse2[row] = r < sq ? lse[bhq * sq + r] * kLog2e : 0.f;
+    di[row] = acc;
+  }
+}
+
+// Shared memory of the main kernel, from a 1024-byte-aligned base: the
+// block's K and V tiles, kStages stages of Q_s and of dO, two dS^T buffers,
+// kStages stages of the row statistics ([lse2 | D_i][BQ] fp32), then the
+// mbarriers.  K, V, Q_s and dO arrive by TMA as boxes of R rows x 64
+// columns (128 bytes), 128-byte-swizzled (16-byte chunk c of row r at c ^
+// (r % 8)).  dS^T [128 kv][BQ q] is stored by the consumers in the same
+// swizzle, as BQ / 64 atoms of 128 rows x 64 q columns.
+template <int D>
+struct BwdLayout {
+  static constexpr int BQ = D == 64 ? 128 : 64;  // Q rows per step of the walk
+  static constexpr int kStages = 2;
+  static constexpr int kBoxes = D / 64;
+  static constexpr int kKVBox = kKvRows * 128;
+  static constexpr int kQBox = BQ * 128;
+  static constexpr int kKVBytes = kKVBox * kBoxes;
+  static constexpr int kQBytes = kQBox * kBoxes;
+  static constexpr int kDsAtom = kKvRows * 128;
+  static constexpr int kDsBytes = kDsAtom * (BQ / 64);
+  static constexpr int kStatBytes = 2 * BQ * 4;
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + kKVBytes;
+  static constexpr int kQ = kV + kKVBytes;
+  static constexpr int kDO = kQ + kStages * kQBytes;
+  static constexpr int kDs = kDO + kStages * kQBytes;
+  static constexpr int kStats = kDs + 2 * kDsBytes;
+  static constexpr int kBars = kStats + kStages * kStatBytes;
+  // full K/V, full and empty of each stage, and alignment slack.
+  static constexpr int kSmem = kBars + 8 * (1 + 2 * kStages) + 1024;
+};
+
+// Registers per thread after setmaxnreg: 128 x 24 + 256 x 240 = 64512 of
+// the SM's 65536 (one block per SM).
+constexpr int kBwdThreads = 384;
+constexpr int kBwdProducerRegs = 24;
+constexpr int kBwdConsumerRegs = 240;
+
+// One block per (128-row KV tile, b * Hkv).  Warpgroup 0 is the producer:
+// one thread loads the K and V tiles once, then streams the walk's Q_s and
+// dO tiles with their statistics into the stage ring.  Warpgroups 1 and 2
+// (consumer c) own KV rows [64 c, 64 c + 64) of the tile; warp w of a
+// consumer holds rows 16 w + g and 16 w + g + 8 of every accumulator,
+// columns 8 j + 2 t4 and 8 j + 2 t4 + 1 of each 8-column group j.
+template <typename Tin, typename Tt, int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+bwd_fused_wgmma(const __grid_constant__ CUtensorMap k_map,
+                const __grid_constant__ CUtensorMap v_map,
+                const __grid_constant__ CUtensorMap q_map,
+                const __grid_constant__ CUtensorMap do_map,
+                const float* __restrict__ lse2, const float* __restrict__ di,
+                Tin* __restrict__ dk, Tin* __restrict__ dv,
+                float* __restrict__ dq_part, int hq, int hkv, int sq,
+                int sq_pad, int skv, int kv_len, int causal) {
+  using L = BwdLayout<D>;
+  constexpr int BQ = L::BQ;
+  constexpr int kStages = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t full_kv = base + L::kBars;
+  const uint32_t full_q = full_kv + 8;             // stage s at + 8 s
+  const uint32_t empty_q = full_q + 8 * kStages;
+
+  const int kt = blockIdx.x;
+  const int k0 = kt * kKvRows;
+  const int bh = blockIdx.y;  // b * hkv + kv head
+  const int b = bh / hkv;
+  const int hk = bh - b * hkv;
+  const int groups = hq / hkv;
+  const int n_q = (sq + BQ - 1) / BQ;
+  // Under causal the walk starts at the diagonal; a KV tile wholly past
+  // kv_len walks nothing (its dK and dV are zeros, its dQ slice is dead).
+  const int q_first = causal ? min(k0 / BQ, n_q) : 0;
+  const int per_head = k0 < kv_len ? n_q - q_first : 0;
+  const int n_steps = groups * per_head;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_kv, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_q + 8 * s, 1);
+      mbar_init(empty_q + 8 * s, 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kBwdProducerRegs));
+    if (threadIdx.x == 0 && n_steps > 0) {
+      mbar_expect_tx(full_kv, 2 * L::kKVBytes);
+#pragma unroll
+      for (int box = 0; box < L::kBoxes; ++box) {
+        tma_load_3d(base + L::kK + box * L::kKVBox, &k_map, full_kv, box * 64,
+                    k0, bh);
+        tma_load_3d(base + L::kV + box * L::kKVBox, &v_map, full_kv, box * 64,
+                    k0, bh);
+      }
+      for (int j = 0; j < n_steps; ++j) {
+        const int gi = j / per_head;
+        const int q0 = (q_first + j - gi * per_head) * BQ;
+        const int bhq = b * hq + hk * groups + gi;
+        const int st = j % kStages;
+        // The first pass over the ring finds every stage empty.
+        mbar_wait(empty_q + 8 * st, ((j / kStages) & 1) ^ 1);
+        mbar_expect_tx(full_q + 8 * st, 2 * L::kQBytes + L::kStatBytes);
+#pragma unroll
+        for (int box = 0; box < L::kBoxes; ++box) {
+          tma_load_3d(base + L::kQ + st * L::kQBytes + box * L::kQBox, &q_map,
+                      full_q + 8 * st, box * 64, q0, bhq);
+          tma_load_3d(base + L::kDO + st * L::kQBytes + box * L::kQBox,
+                      &do_map, full_q + 8 * st, box * 64, q0, bhq);
+        }
+        const size_t row = static_cast<size_t>(bhq) * sq_pad + q0;
+        const uint32_t stats = base + L::kStats + st * L::kStatBytes;
+        tma_load_1d(stats, lse2 + row, BQ * 4, full_q + 8 * st);
+        tma_load_1d(stats + BQ * 4, di + row, BQ * 4, full_q + 8 * st);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kBwdConsumerRegs));
+  const int c = wg - 1;
+  const int tid = threadIdx.x - 128 * wg;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int r_a = 64 * c + 16 * warp + g;  // this thread's rows of the KV tile
+  const int r_b = r_a + 8;
+  const int kv_a = k0 + r_a;
+  const int kv_b = k0 + r_b;
+  // The consumer's share of each dQ tile: Q rows [qm, qm + 64) and columns
+  // [dn, dn + 64), over all 128 KV rows of the tile.
+  const int qm = BQ == 128 ? 64 * c : 0;
+  const int dn = D == 128 ? 64 * c : 0;
+  const uint32_t ks = base + L::kK + 64 * c * 128;  // this consumer's K rows
+  const uint32_t vs = base + L::kV + 64 * c * 128;
+
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  if (n_steps > 0) mbar_wait(full_kv, 0);
+
+  for (int j = 0; j < n_steps; ++j) {
+    const int gi = j / per_head;
+    const int q0 = (q_first + j - gi * per_head) * BQ;
+    const int bhq = b * hq + hk * groups + gi;
+    const int st = j % kStages;
+    const uint32_t qs = base + L::kQ + st * L::kQBytes;
+    const uint32_t dos = base + L::kDO + st * L::kQBytes;
+    const float* lse2_s =
+        reinterpret_cast<const float*>(smem + L::kStats + st * L::kStatBytes);
+    const float* di_s = lse2_s + BQ;
+    mbar_wait(full_q + 8 * st, (j / kStages) & 1);
+
+    // S^T = K Q_s^T and dP^T = V dO^T: D / 16 k-steps of 32 bytes, four to
+    // a 128-byte box, all operands K-major.
+    float st_acc[BQ / 2], dpt[BQ / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * L::kKVBox + (kk % 4) * 32;
+      const uint32_t qoff = (kk / 4) * L::kQBox + (kk % 4) * 32;
+      Tile<Tt>::ss(st_acc, sw128_desc(ks + off, 16, 1024),
+                   sw128_desc(qs + qoff, 16, 1024), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * L::kKVBox + (kk % 4) * 32;
+      const uint32_t qoff = (kk / 4) * L::kQBox + (kk % 4) * 32;
+      Tile<Tt>::ss(dpt, sw128_desc(vs + off, 16, 1024),
+                   sw128_desc(dos + qoff, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    hold(st_acc);
+    hold(dpt);
+
+    // P^T = exp2(S^T - lse2), exactly 0 where masked; dS^T = P^T (dP^T -
+    // D_i), both in fp32, then rounded to the tile type: the accumulators
+    // of column groups 2 kk and 2 kk + 1 are exactly the register A
+    // fragment of k-step kk.
+    const bool need_mask =
+        (k0 + kKvRows > kv_len) || (causal && k0 + kKvRows - 1 > q0);
+#pragma unroll
+    for (int jj = 0; jj < BQ / 8; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = jj * 8 + t4 * 2 + (e & 1);
+        const int row = e < 2 ? kv_a : kv_b;
+        float p = exp2f(st_acc[4 * jj + e] - lse2_s[col]);
+        if (need_mask && (row >= kv_len || (causal && row > q0 + col))) p = 0.f;
+        st_acc[4 * jj + e] = p;
+        dpt[4 * jj + e] = p * (dpt[4 * jj + e] - di_s[col]);
+      }
+    }
+    uint32_t pa[BQ / 16][4], sa[BQ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pa[kk][i] = Tile<Tt>::pack(st_acc[8 * kk + 2 * i], st_acc[8 * kk + 2 * i + 1]);
+        sa[kk][i] = Tile<Tt>::pack(dpt[8 * kk + 2 * i], dpt[8 * kk + 2 * i + 1]);
+      }
+    }
+
+    // dS^T into dS buffer j % 2 (the dQ product reads it as A, MN-major).
+    unsigned char* dsb = smem + L::kDs + (j & 1) * L::kDsBytes;
+#pragma unroll
+    for (int jj = 0; jj < BQ / 8; ++jj) {
+      const int atom = jj / 8;
+      const int ch = jj % 8;
+      *reinterpret_cast<uint32_t*>(dsb + atom * L::kDsAtom + r_a * 128 +
+                                   ((ch ^ (r_a & 7)) * 16) + 4 * t4) =
+          sa[jj / 2][(jj & 1) * 2];
+      *reinterpret_cast<uint32_t*>(dsb + atom * L::kDsAtom + r_b * 128 +
+                                   ((ch ^ (r_b & 7)) * 16) + 4 * t4) =
+          sa[jj / 2][(jj & 1) * 2 + 1];
+    }
+
+    // dV += P^T dO and dK += dS^T Q_s: k-step kk reads Q rows [16 kk, 16
+    // kk + 16) of the stage, two 8-row groups 1024 bytes apart, MN-major;
+    // the 64-column boxes are kQBox apart.
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      Tile<Tt>::rs(dv_acc, pa[kk], sw128_desc(dos + kk * 16 * 128, L::kQBox, 1024));
+    }
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      Tile<Tt>::rs(dk_acc, sa[kk], sw128_desc(qs + kk * 16 * 128, L::kQBox, 1024));
+    }
+    wgmma_commit();
+
+    // dS^T's generic-proxy stores must be visible to wgmma (the async
+    // proxy), and both consumers' halves in place (named barrier 1), before
+    // the dQ product.  Buffer j % 2 was last read by the dQ product of step
+    // j - 2, which both consumers waited for before step j - 1's barrier.
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+
+    // The dQ slice: dS K over the tile's 128 KV rows (8 k-steps), A = dS^T
+    // and B = the K tile both MN-major.
+    float dq[32];
+    wgmma_fence();
+    const uint32_t dsa = smem_addr(dsb) + (qm / 64) * L::kDsAtom;
+    const uint32_t kb = base + L::kK + (dn / 64) * L::kKVBox;
+#pragma unroll
+    for (int kk = 0; kk < kKvRows / 16; ++kk) {
+      Tile<Tt>::ss_tt(dq, sw128_desc(dsa + kk * 16 * 128, L::kDsAtom, 1024),
+                      sw128_desc(kb + kk * 16 * 128, L::kKVBox, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    hold(dk_acc);
+    hold(dv_acc);
+    hold(dq);
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      hold(pa[kk]);
+      hold(sa[kk]);
+    }
+    // Q_s, dO and the statistics of this stage are read.
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty_q + 8 * st);
+
+    float* dqp =
+        dq_part + (static_cast<size_t>(bhq) * gridDim.x + kt) * sq * D;
+    const int ra = q0 + qm + 16 * warp + g;
+    const int rb = ra + 8;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int col = dn + jj * 8 + t4 * 2;
+      if (ra < sq) store2(dqp + static_cast<size_t>(ra) * D + col, dq[4 * jj], dq[4 * jj + 1]);
+      if (rb < sq) store2(dqp + static_cast<size_t>(rb) * D + col, dq[4 * jj + 2], dq[4 * jj + 3]);
+    }
+  }
+
+  const size_t kv_off = static_cast<size_t>(bh) * skv * D;
+  Tin* dkp = dk + kv_off;
+  Tin* dvp = dv + kv_off;
+#pragma unroll
+  for (int jj = 0; jj < D / 8; ++jj) {
+    const int col = jj * 8 + t4 * 2;
+    if (kv_a < skv) {
+      store2(dkp + static_cast<size_t>(kv_a) * D + col, dk_acc[4 * jj] * kLn2,
+             dk_acc[4 * jj + 1] * kLn2);
+      store2(dvp + static_cast<size_t>(kv_a) * D + col, dv_acc[4 * jj],
+             dv_acc[4 * jj + 1]);
+    }
+    if (kv_b < skv) {
+      store2(dkp + static_cast<size_t>(kv_b) * D + col, dk_acc[4 * jj + 2] * kLn2,
+             dk_acc[4 * jj + 3] * kLn2);
+      store2(dvp + static_cast<size_t>(kv_b) * D + col, dv_acc[4 * jj + 2],
+             dv_acc[4 * jj + 3]);
+    }
+  }
+}
+
+// dQ = sm_scale * (sum of the live slices of dq_part, in KV-tile order), in
+// q's type.  Slice t (KV rows [t tile, t tile + tile)) is live for row r
+// when t tile < kv_len and, under causal, t tile <= r; every other slice
+// holds zeros or nothing, so skipping it leaves the ordered sum exact.
+template <typename Tout>
+__global__ void __launch_bounds__(256)
+dq_reduce(const float* __restrict__ dq_part, Tout* __restrict__ dq, int sq,
+          int d, int n_slices, int n_live, int tile, int causal,
+          float sm_scale) {
+  // blockIdx.y is b * Hq + h; x walks that head's sq * d / 4 float4s.
+  const size_t head = static_cast<size_t>(blockIdx.y) * sq * d;
+  const float* src = dq_part + head * n_slices;
+  for (int i = blockIdx.x * 256 + threadIdx.x; i < sq * d / 4;
+       i += gridDim.x * 256) {
+    const int r = 4 * i / d;
+    const int last = causal ? min(n_live, r / tile + 1) : n_live;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int t = 0; t < last; ++t) {
+      const float4 x = *reinterpret_cast<const float4*>(
+          src + static_cast<size_t>(t) * sq * d + 4 * i);
+      acc.x += x.x;
+      acc.y += x.y;
+      acc.z += x.z;
+      acc.w += x.w;
+    }
+    store2(dq + head + 4 * i, acc.x * sm_scale, acc.y * sm_scale);
+    store2(dq + head + 4 * i + 2, acc.z * sm_scale, acc.w * sm_scale);
+  }
 }
 
 // Arguments shared by every launch.
@@ -923,24 +1312,21 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename Tin, typename Tt, int D, bool FUSED>
+template <typename Tin, typename Tt, int D>
 cudaError_t launch_kv_mma(const Args& a) {
   constexpr int BQ = D == 128 ? 32 : 64;
   const size_t smem =
-      (2 * kKvRows + 2 * BQ) * (D + 8) * sizeof(Tt) +
-      (FUSED ? kKvRows * (BQ + 8) * sizeof(Tt) : 0) +
-      2 * BQ * sizeof(float);
+      (2 * kKvRows + 2 * BQ) * (D + 8) * sizeof(Tt) + 2 * BQ * sizeof(float);
   static std::atomic<uint64_t> smem_set{0};
-  cudaError_t err = set_smem_once(bwd_kv_mma<Tin, Tt, D, FUSED>,
+  cudaError_t err = set_smem_once(bwd_kv_mma<Tin, Tt, D>,
                                   static_cast<int>(smem), smem_set);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.skv + kKvRows - 1) / kKvRows, a.batch * a.hkv);
-  bwd_kv_mma<Tin, Tt, D, FUSED><<<grid, 256, smem, a.stream>>>(
+  bwd_kv_mma<Tin, Tt, D><<<grid, 256, smem, a.stream>>>(
       static_cast<const Tin*>(a.q), static_cast<const Tin*>(a.k),
-      static_cast<const Tin*>(a.v), static_cast<const Tin*>(a.o),
-      static_cast<const Tin*>(a.dout), a.lse, a.di, static_cast<Tin*>(a.dk),
-      static_cast<Tin*>(a.dv), static_cast<float*>(a.dq), a.hq, a.hkv, a.sq,
-      a.skv, a.kv_len, a.qscale, a.causal);
+      static_cast<const Tin*>(a.v), static_cast<const Tin*>(a.dout), a.lse,
+      a.di, static_cast<Tin*>(a.dk), static_cast<Tin*>(a.dv), a.hq, a.hkv,
+      a.sq, a.skv, a.kv_len, a.qscale, a.causal);
   return cudaGetLastError();
 }
 
@@ -998,10 +1384,10 @@ cudaError_t launch_dq_fp32(const Args& a) {
 
 // The tensor-core instantiations of one input type and head dim: tiles 1
 // is bf16, 2 fp16.
-template <typename Tin, int D, bool FUSED>
+template <typename Tin, int D>
 int launch_kv_mma_tiles(const Args& a, int tiles) {
-  return tiles == 1 ? launch_kv_mma<Tin, __nv_bfloat16, D, FUSED>(a)
-                    : launch_kv_mma<Tin, __half, D, FUSED>(a);
+  return tiles == 1 ? launch_kv_mma<Tin, __nv_bfloat16, D>(a)
+                    : launch_kv_mma<Tin, __half, D>(a);
 }
 
 template <typename Tin, int D>
@@ -1010,24 +1396,132 @@ int launch_dq_mma_tiles(const Args& a, int tiles) {
                     : launch_dq_mma<Tin, __half, D>(a);
 }
 
-// in_bf16: q/k/v/o/dO and the gradients are bf16 (else fp32).  tiles: 0
-// fp32 on the FMA units (needs fp32 inputs), 1 bf16 or 2 fp16 on the tensor
-// cores.
-template <bool FUSED>
-int dispatch_kv(const Args& a, int head_dim, int in_bf16, int tiles) {
+// B4's instantiations.  in_bf16: q/k/v/dO and the gradients are bf16 (else
+// fp32).  tiles: 0 fp32 on the FMA units (needs fp32 inputs), 1 bf16 or 2
+// fp16 on the tensor cores.
+int dispatch_dkv(const Args& a, int head_dim, int in_bf16, int tiles) {
   if (tiles == 1 || tiles == 2) {
     if (in_bf16) {
-      if (head_dim == 64) return launch_kv_mma_tiles<__nv_bfloat16, 64, FUSED>(a, tiles);
-      if (head_dim == 128) return launch_kv_mma_tiles<__nv_bfloat16, 128, FUSED>(a, tiles);
+      if (head_dim == 64) return launch_kv_mma_tiles<__nv_bfloat16, 64>(a, tiles);
+      if (head_dim == 128) return launch_kv_mma_tiles<__nv_bfloat16, 128>(a, tiles);
     } else {
-      if (head_dim == 64) return launch_kv_mma_tiles<float, 64, FUSED>(a, tiles);
-      if (head_dim == 128) return launch_kv_mma_tiles<float, 128, FUSED>(a, tiles);
+      if (head_dim == 64) return launch_kv_mma_tiles<float, 64>(a, tiles);
+      if (head_dim == 128) return launch_kv_mma_tiles<float, 128>(a, tiles);
     }
   } else if (tiles == 0 && !in_bf16) {
-    if (head_dim == 64) return launch_kv_fp32<64, FUSED>(a);
-    if (head_dim == 128) return launch_kv_fp32<128, FUSED>(a);
+    if (head_dim == 64) return launch_kv_fp32<64, false>(a);
+    if (head_dim == 128) return launch_kv_fp32<128, false>(a);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// B2's workspace: Q_s (and, where the inputs are not already in the tile
+// type, dO, K and V) in the tile type, then the lse2 and D_i planes [batch
+// * hq, sq_pad] fp32, sq_pad = sq rounded up to 128.  Each part starts on a
+// 256-byte boundary.
+struct BwdWorkspace {
+  size_t qs, dos, ks, vs, lse2, di, total;
+};
+
+size_t align256(size_t x) { return (x + 255) & ~size_t{255}; }
+
+int sq_padded(int sq) { return (sq + kKvRows - 1) / kKvRows * kKvRows; }
+
+BwdWorkspace bwd_workspace(int batch, int hq, int hkv, int sq, int skv, int d,
+                           bool cast_in) {
+  const size_t q_bytes = 2 * static_cast<size_t>(batch) * hq * sq * d;
+  const size_t kv_bytes = 2 * static_cast<size_t>(batch) * hkv * skv * d;
+  const size_t stat_bytes = 4 * static_cast<size_t>(batch) * hq * sq_padded(sq);
+  BwdWorkspace w{};
+  size_t at = 0;
+  w.qs = at;
+  at = align256(at + q_bytes);
+  w.dos = at;
+  if (cast_in) at = align256(at + q_bytes);
+  w.ks = at;
+  if (cast_in) at = align256(at + kv_bytes);
+  w.vs = at;
+  if (cast_in) at = align256(at + kv_bytes);
+  w.lse2 = at;
+  at = align256(at + stat_bytes);
+  w.di = at;
+  w.total = align256(at + stat_bytes);
+  return w;
+}
+
+// A 3-D map over a contiguous 16-bit [rows, seq, d] tensor: boxes of
+// box_rows x 64 columns with the 128-byte swizzle; reads past seq give
+// zeros.
+int map_3d(CUtensorMap* map, const void* ptr, int tiles, int rows, int seq,
+           int d, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return kErrNoEncoder;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
+                                 static_cast<cuuint64_t>(seq) * d * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, tiles == 1 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+      3, const_cast<void*>(ptr), dims, strides, box, elem_strides,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrEncode;
+}
+
+// The prologue, then the main kernel.
+template <typename Tin, typename Tt, int D>
+int launch_fused_wgmma(const Args& a, int tiles, void* workspace) {
+  using L = BwdLayout<D>;
+  constexpr bool kCast = !std::is_same<Tin, Tt>::value;
+  const BwdWorkspace w =
+      bwd_workspace(a.batch, a.hq, a.hkv, a.sq, a.skv, D, kCast);
+  auto* ws = static_cast<unsigned char*>(workspace);
+  Tt* qs = reinterpret_cast<Tt*>(ws + w.qs);
+  Tt* dos = kCast ? reinterpret_cast<Tt*>(ws + w.dos) : nullptr;
+  Tt* ks = kCast ? reinterpret_cast<Tt*>(ws + w.ks) : nullptr;
+  Tt* vs = kCast ? reinterpret_cast<Tt*>(ws + w.vs) : nullptr;
+  float* lse2 = reinterpret_cast<float*>(ws + w.lse2);
+  float* di = reinterpret_cast<float*>(ws + w.di);
+  const int sq_pad = sq_padded(a.sq);
+  const int q_rows = a.batch * a.hq;
+  const int kv_rows = kCast ? a.batch * a.hkv * a.skv : 0;
+  const size_t rows = static_cast<size_t>(q_rows) * sq_pad + kv_rows;
+  bwd_prologue<Tin, Tt, D><<<static_cast<unsigned>((rows * (D / 8) + 255) / 256),
+                             256, 0, a.stream>>>(
+      static_cast<const Tin*>(a.q), static_cast<const Tin*>(a.o),
+      static_cast<const Tin*>(a.dout), a.lse, static_cast<const Tin*>(a.k),
+      static_cast<const Tin*>(a.v), qs, dos, ks, vs, lse2, di, q_rows, a.sq,
+      sq_pad, kv_rows, a.qscale);
+  cudaError_t cerr = cudaGetLastError();
+  if (cerr != cudaSuccess) return cerr;
+
+  CUtensorMap k_map, v_map, q_map, do_map;
+  const int kv_heads = a.batch * a.hkv;
+  int err = map_3d(&k_map, kCast ? ks : a.k, tiles, kv_heads, a.skv, D, kKvRows);
+  if (err == 0) err = map_3d(&v_map, kCast ? vs : a.v, tiles, kv_heads, a.skv, D, kKvRows);
+  if (err == 0) err = map_3d(&q_map, qs, tiles, q_rows, a.sq, D, L::BQ);
+  if (err == 0) err = map_3d(&do_map, kCast ? dos : a.dout, tiles, q_rows, a.sq, D, L::BQ);
+  if (err != 0) return err;
+  static std::atomic<uint64_t> smem_set{0};
+  cerr = set_smem_once(bwd_fused_wgmma<Tin, Tt, D>, L::kSmem, smem_set);
+  if (cerr != cudaSuccess) return cerr;
+  const dim3 grid((a.skv + kKvRows - 1) / kKvRows, a.batch * a.hkv);
+  bwd_fused_wgmma<Tin, Tt, D><<<grid, kBwdThreads, L::kSmem, a.stream>>>(
+      k_map, v_map, q_map, do_map, lse2, di, static_cast<Tin*>(a.dk),
+      static_cast<Tin*>(a.dv), static_cast<float*>(a.dq), a.hq, a.hkv, a.sq,
+      sq_pad, a.skv, a.kv_len, a.causal);
+  return cudaGetLastError();
+}
+
+template <typename Tin, int D>
+int launch_fused_tiles(const Args& a, int tiles, void* workspace) {
+  return tiles == 1
+             ? launch_fused_wgmma<Tin, __nv_bfloat16, D>(a, tiles, workspace)
+             : launch_fused_wgmma<Tin, __half, D>(a, tiles, workspace);
 }
 
 }  // namespace
@@ -1040,20 +1534,71 @@ int cfa_fa2_backward_kv_tile(int tiles) {
   return tiles ? kKvRows : kTile32;
 }
 
+// Bytes of B2's workspace for these shapes and types (0 with fp32 tiles).
+long long cfa_fa2_backward_fused_workspace(int batch, int hq, int hkv, int sq,
+                                           int skv, int head_dim, int in_bf16,
+                                           int tiles) {
+  if (tiles != 1 && tiles != 2) return 0;
+  return static_cast<long long>(
+      bwd_workspace(batch, hq, hkv, sq, skv, head_dim, !(in_bf16 && tiles == 1))
+          .total);
+}
+
 // B2.  q, o, dout [batch, hq, sq, head_dim]; k, v, dk, dv [batch, hkv, skv,
 // head_dim]; lse [batch, hq, sq] fp32 (natural log); dq_part [batch, hq,
-// ceil(skv / kv_tile), sq, head_dim] fp32, every element written.  All
-// contiguous.  qscale = sm_scale * log2(e).  Returns a cudaError_t.
+// ceil(skv / kv_tile), sq, head_dim] fp32, of which the kernel writes the
+// live slices (cfa_fa2_backward_dq_reduce reads exactly those).  All
+// contiguous and 16-byte aligned.  qscale = sm_scale * log2(e).
+// workspace: cfa_fa2_backward_fused_workspace bytes, 256-byte aligned
+// (unused with fp32 tiles).  Returns a cudaError_t, or an error of the
+// tensor-map step.
 int cfa_fa2_backward_fused(const void* q, const void* k, const void* v,
                            const void* o, const void* dout, const void* lse,
                            void* dk, void* dv, void* dq_part, int batch,
                            int hq, int hkv, int sq, int skv, int head_dim,
                            int kv_len, float qscale, int causal, int in_bf16,
-                           int tiles, void* stream) {
+                           int tiles, void* workspace, void* stream) {
   const Args a{q, k, v, o, dout, static_cast<const float*>(lse), nullptr,
                dq_part, dk, dv, batch, hq, hkv, sq, skv, kv_len, qscale, 0.f,
                causal, static_cast<cudaStream_t>(stream)};
-  return dispatch_kv<true>(a, head_dim, in_bf16, tiles);
+  if (tiles == 1 || tiles == 2) {
+    if (in_bf16) {
+      if (head_dim == 64) return launch_fused_tiles<__nv_bfloat16, 64>(a, tiles, workspace);
+      if (head_dim == 128) return launch_fused_tiles<__nv_bfloat16, 128>(a, tiles, workspace);
+    } else {
+      if (head_dim == 64) return launch_fused_tiles<float, 64>(a, tiles, workspace);
+      if (head_dim == 128) return launch_fused_tiles<float, 128>(a, tiles, workspace);
+    }
+  } else if (tiles == 0 && !in_bf16) {
+    if (head_dim == 64) return launch_kv_fp32<64, true>(a);
+    if (head_dim == 128) return launch_kv_fp32<128, true>(a);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// B2's dQ from its slices: dq [batch, hq, sq, head_dim] (bf16 when
+// out_bf16, else fp32) = sm_scale * the ordered sum of the live slices of
+// dq_part (tile code `tiles`, as the fused launch).  Returns a cudaError_t.
+int cfa_fa2_backward_dq_reduce(const void* dq_part, void* dq, int batch, int hq,
+                               int sq, int skv, int head_dim, int kv_len,
+                               int causal, float sm_scale, int out_bf16,
+                               int tiles, void* stream) {
+  const int tile = tiles ? kKvRows : kTile32;
+  const int n_slices = (skv + tile - 1) / tile;
+  const int n_live = std::min(n_slices, (kv_len + tile - 1) / tile);
+  const dim3 grid(std::min((sq * head_dim / 4 + 255) / 256, 64), batch * hq);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* src = static_cast<const float*>(dq_part);
+  if (out_bf16) {
+    dq_reduce<__nv_bfloat16><<<grid, 256, 0, st>>>(
+        src, static_cast<__nv_bfloat16*>(dq), sq, head_dim, n_slices, n_live,
+        tile, causal, sm_scale);
+  } else {
+    dq_reduce<float><<<grid, 256, 0, st>>>(
+        src, static_cast<float*>(dq), sq, head_dim, n_slices, n_live, tile,
+        causal, sm_scale);
+  }
+  return cudaGetLastError();
 }
 
 // B4.  As B2 without o and dq_part, with di [batch, hq, sq] fp32 =
@@ -1068,7 +1613,7 @@ int cfa_fa2_backward_dkv(const void* q, const void* k, const void* v,
                static_cast<const float*>(di), nullptr, dk, dv, batch, hq, hkv,
                sq, skv, kv_len, qscale, 0.f, causal,
                static_cast<cudaStream_t>(stream)};
-  return dispatch_kv<false>(a, head_dim, in_bf16, tiles);
+  return dispatch_dkv(a, head_dim, in_bf16, tiles);
 }
 
 // B3.  dq like q, scaled by sm_scale.
@@ -1097,6 +1642,12 @@ int cfa_fa2_backward_dq(const void* q, const void* k, const void* v,
 }
 
 const char* cfa_fa2_backward_error_string(int err) {
+  if (err == kErrNoEncoder) {
+    return "libcuda.so.1 has no cuTensorMapEncodeTiled";
+  }
+  if (err == kErrEncode) {
+    return "cuTensorMapEncodeTiled refused a B2 tensor map";
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -6,8 +6,9 @@ kernel of it is launched (the hash covers the source and the flags, so an
 edited source is rebuilt).  Nothing here runs at import: the CPU-only test
 machine imports every module and has no nvcc.
 
-No source links libcuda: fa2_forward.cu looks up cuTensorMapEncodeTiled
-(TMA tensor maps) in libcuda.so.1 with dlopen at its first launch.
+No source links libcuda: the sources that use TMA tensor maps look up
+cuTensorMapEncodeTiled in libcuda.so.1 with dlopen at their first launch
+(csrc/hopper.cuh, the helpers that several sources include).
 
 Calling convention of every entry point: pointers and the CUDA stream are
 `ctypes.c_void_p`, sizes `ctypes.c_int`, scalars `ctypes.c_float`; the
@@ -53,8 +54,10 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
+    # The shared headers (csrc/*.cuh) are part of every source's hash.
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

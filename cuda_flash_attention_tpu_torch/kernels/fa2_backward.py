@@ -13,9 +13,14 @@ runs its plain version; on a CUDA tensor it launches its kernel or raises.
 Inputs are sequence-padded as for the forward (fa2_forward_aligned): q, o,
 do [B, Hq, Sq, D]; k, v [B, Hkv, Skv, D]; lse and di [B, Hq, Sq] fp32 (the
 JAX kernels take them as [B, Hq, Sq, 1] stat columns).  Keys at or past
-`kv_len` are masked.  B2 returns dQ as a sum of per-KV-tile fp32 slices
-that the wrapper adds in a fixed order, so gradients are bitwise equal from
-run to run on both routes; no kernel adds floats with atomics.
+`kv_len` are masked.  B2 forms dQ from per-KV-tile fp32 slices: its main
+kernel writes the slices of the Q tiles each KV tile reaches
+(`fused_live_q_tiles`), and a reduce kernel adds each row's live slices in
+KV-tile order, so gradients are bitwise equal from run to run on both
+routes; no kernel adds floats with atomics.  With bf16 or fp16 tiles a
+prologue kernel first forms Q_s, D_i and lse * log2(e) once per call (and
+dO, K, V in the tile type where the inputs are not); `fused_prologue_plain`
+is its plain version.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from cuda_flash_attention_tpu_torch.kernels.common import (
     LOG2E,
     TILE_DTYPES,
     build_element_mask,
+    cdiv,
     tile_code,
 )
 
@@ -60,11 +66,14 @@ def _lib() -> ctypes.CDLL:
             if lib.cfa_fa2_backward_kv_tile(tile) != rows:
                 raise RuntimeError("fa2_backward: the library's KV tile differs "
                                    "from _FUSED_KV_TILE")
-        lib.cfa_fa2_backward_fused.argtypes = [_P] * 9 + [_I] * 7 + [_F] + [_I] * 3 + [_P]
+        lib.cfa_fa2_backward_fused.argtypes = [_P] * 9 + [_I] * 7 + [_F] + [_I] * 3 + [_P, _P]
+        lib.cfa_fa2_backward_fused_workspace.argtypes = [_I] * 8
+        lib.cfa_fa2_backward_fused_workspace.restype = ctypes.c_longlong
+        lib.cfa_fa2_backward_dq_reduce.argtypes = [_P, _P] + [_I] * 7 + [_F] + [_I] * 2 + [_P]
         lib.cfa_fa2_backward_dkv.argtypes = [_P] * 8 + [_I] * 7 + [_F] + [_I] * 3 + [_P]
         lib.cfa_fa2_backward_dq.argtypes = [_P] * 7 + [_I] * 7 + [_F, _F] + [_I] * 3 + [_P]
         for fn in (lib.cfa_fa2_backward_fused, lib.cfa_fa2_backward_dkv,
-                   lib.cfa_fa2_backward_dq):
+                   lib.cfa_fa2_backward_dq, lib.cfa_fa2_backward_dq_reduce):
             fn.restype = _I
     return lib
 
@@ -72,6 +81,43 @@ def _lib() -> ctypes.CDLL:
 def fused_kv_tile(q_dtype: torch.dtype, tile_dtype) -> int:
     """KV rows per dQ slice of B2 for these input and tile types."""
     return _FUSED_KV_TILE[tile_code(q_dtype, tile_dtype)]
+
+
+def fused_q_tile(head_dim: int) -> int:
+    """Q rows per step of B2's walk with bf16 or fp16 tiles (the CUDA
+    kernel's BwdLayout::BQ): 128 at D 64, 64 at D 128."""
+    return 128 if head_dim == 64 else 64
+
+
+def fused_live_q_tiles(sq: int, skv: int, kv_len: int, causal: bool,
+                       head_dim: int) -> list[range]:
+    """For each 128-row KV tile of B2 with bf16 or fp16 tiles, the Q tiles
+    (of `fused_q_tile` rows, over padded lengths) that its block walks and
+    whose dQ slice rows it writes: under causal from the tile holding the
+    KV tile's first row, none for a KV tile wholly past kv_len."""
+    bq = fused_q_tile(head_dim)
+    n_q = cdiv(sq, bq)
+    tiles = []
+    for k0 in range(0, skv, _FUSED_KV_TILE[1]):
+        first = min(k0 // bq, n_q) if causal else 0
+        tiles.append(range(first, n_q) if k0 < kv_len else range(0))
+    return tiles
+
+
+def fused_dq_slice_bytes(b: int, hq: int, sq: int, skv: int, kv_len: int,
+                         causal: bool, head_dim: int) -> int:
+    """fp32 bytes of B2's dQ slices (bf16 or fp16 tiles) that its main
+    kernel writes plus those its reduce reads back: the rows of each KV
+    tile's live Q tiles, and for each row the slices of the KV tiles at or
+    below it (under causal) that hold a key before kv_len."""
+    bq, kv_tile = fused_q_tile(head_dim), _FUSED_KV_TILE[1]
+    written = sum(min(len(t) * bq, sq - t.start * bq)
+                  for t in fused_live_q_tiles(sq, skv, kv_len, causal, head_dim)
+                  if len(t))
+    n_live = cdiv(kv_len, kv_tile)
+    read = sum(min(n_live, r // kv_tile + 1) if causal else n_live
+               for r in range(sq))
+    return 4 * head_dim * b * hq * (written + read)
 
 
 def _check(name, q, k, v, tile_dtype, same, stats):
@@ -128,22 +174,34 @@ def fa2_backward_fused_aligned(q, k, v, o, do, lse, *, causal: bool,
     lse = _stat(lse)
     _check("fa2_backward_fused", q, k, v, tile_dtype, (do, o), (lse,))
     b, hq, sq, d = q.shape
-    n_slices = -(-k.shape[2] // fused_kv_tile(q.dtype, tile_dtype))
+    hkv, skv = k.shape[1], k.shape[2]
+    n_slices = -(-skv // fused_kv_tile(q.dtype, tile_dtype))
     dq_part = torch.empty((b, hq, n_slices, sq, d), device=q.device,
                           dtype=torch.float32)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    dq = torch.empty_like(q)
     ints, tail = _common_args(q, k, kv_len, sm_scale, causal, tile_dtype)
+    causal_i, in_bf16, tiles, stream = tail
     lib = _lib()
+    # Q_s, D_i and lse * log2(e) (and dO, K, V in the tile type where the
+    # inputs are not in it), formed once by the kernel's prologue.
+    workspace = torch.empty(
+        lib.cfa_fa2_backward_fused_workspace(b, hq, hkv, sq, skv, d, in_bf16,
+                                             tiles),
+        device=q.device, dtype=torch.uint8)
     err = lib.cfa_fa2_backward_fused(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), dk.data_ptr(), dv.data_ptr(), dq_part.data_ptr(),
-        *ints, *tail)
+        *ints, *tail[:3], workspace.data_ptr(), stream)
+    _build.check(lib, "cfa_fa2_backward_error_string", err, "fa2_backward_fused")
+    # The live slices add in KV-tile order (no atomics), then the unscaled
+    # sum takes sm_scale and q's dtype, as the JAX wrapper does.
+    err = lib.cfa_fa2_backward_dq_reduce(
+        dq_part.data_ptr(), dq.data_ptr(), b, hq, sq, skv, d, kv_len, causal_i,
+        sm_scale, in_bf16, tiles, stream)
     _build.check(lib, "cfa_fa2_backward_error_string", err, "fa2_backward_fused")
     fused_launches += 1
-    # The slices add in one fixed order (torch.sum's, no atomics), then the
-    # unscaled sum takes sm_scale and q's dtype, as the JAX wrapper does.
-    dq = dq_part.sum(dim=2).mul_(sm_scale).to(q.dtype)
     return dq, dk, dv
 
 
@@ -248,6 +306,20 @@ def _dkv(p, ds, qs, dos, k):
     dv = _group_sum(p.transpose(-1, -2) @ dos, k.shape[1])
     dk = _group_sum(ds.transpose(-1, -2) @ qs, k.shape[1]) * LN2
     return dk.to(k.dtype), dv.to(k.dtype)
+
+
+def fused_prologue_plain(q, k, v, o, do, lse, *, sm_scale: float,
+                         tile_dtype):
+    """B2's prologue with bf16 or fp16 tiles: (Q_s, dO, K, V in the tile
+    type, lse * log2(e), D_i).  Q_s is Q times the fp32 value of sm_scale *
+    log2(e), in fp32, rounded to the tile type; dO, K and V are rounded to
+    it; D_i = rowsum(dO * O) in fp32.  These are the roundings that `_p_ds`
+    applies, so the kernel's prologue moves none of them."""
+    qscale = torch.tensor(sm_scale * LOG2E, dtype=torch.float32)
+    q_s = (q.float() * qscale).to(tile_dtype)
+    di = (do.float() * o.float()).sum(dim=-1)
+    return (q_s, do.to(tile_dtype), k.to(tile_dtype), v.to(tile_dtype),
+            lse.float() * LOG2E, di)
 
 
 def fa2_backward_fused_plain(q, k, v, o, do, lse, *, causal: bool,

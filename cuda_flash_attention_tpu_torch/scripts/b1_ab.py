@@ -153,16 +153,29 @@ def host_us(fn, iters: int = 200) -> float:
     return elapsed / iters * 1e6
 
 
-def build_parent(path: str) -> ctypes.CDLL:
-    """PATH compiled with the package's flags into build/kernels/."""
+def compile_source(path: str, stem: str) -> ctypes.CDLL:
+    """PATH compiled with the package's flags into build/kernels/<stem>-*.so
+    and loaded."""
     src = open(path, "rb").read()
     digest = hashlib.sha256(src + " ".join(_build.NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = _build.BUILD_DIR / f"b1_parent-{digest}.so"
+    out = _build.BUILD_DIR / f"{stem}-{digest}.so"
     if not out.exists():
         _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), path],
                        check=True, capture_output=True)
-    lib = ctypes.CDLL(str(out))
+    return ctypes.CDLL(str(out))
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], check=True,
+                          capture_output=True, text=True).stdout.strip()
+
+
+def build_parent(path: str) -> ctypes.CDLL:
+    """PATH compiled with the package's flags into build/kernels/."""
+    lib = compile_source(path, "b1_parent")
     lib.cfa_fa2_forward.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                                     + [ctypes.c_float] + [ctypes.c_int] * 3
                                     + [ctypes.c_void_p])
@@ -195,9 +208,7 @@ def main(argv=None) -> list[dict]:
     if not torch.cuda.is_available():
         raise SystemExit("b1_ab: needs an NVIDIA card")
     torch.backends.cuda.matmul.allow_tf32 = False
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], check=True, capture_output=True,
-                         text=True).stdout.strip(), flush=True)
+    print(card_line(), flush=True)
     lib = build_parent(args.parent)
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []

@@ -358,6 +358,86 @@ def test_fa2_backward_kernels_match_plain(cuda, dtype, tile, d, b, hq, hkv, s,
     assert _rel_err(dkv[1], plain[2]) <= tol
 
 
+def _fused_problem(dtype, tile, d, b, hq, hkv, sq, skv, causal, seed):
+    """Padded inputs on the card: q, k, v, dO from numpy, O and lse from
+    the plain forward; Sq and Skv may differ."""
+    rng = np.random.default_rng(seed)
+    q, do = (_randn(rng, b, hq, sq, d).to(dtype) for _ in range(2))
+    k, v = (_randn(rng, b, hkv, skv, d).to(dtype) for _ in range(2))
+    q, k, v, sm_scale, _, kv_len = attention._prepare(
+        q, k, v, causal, None, tile, None, None, None, 0)
+    q, k, v = (t.cuda() for t in (q, k, v))
+    o, lse = fa2_forward.fa2_forward_plain(q, k, v, causal=causal,
+                                           sm_scale=sm_scale, kv_len=kv_len,
+                                           tile_dtype=tile)
+    do = torch.nn.functional.pad(do, (0, 0, 0, q.shape[2] - sq)).cuda()
+    kw = dict(causal=causal, sm_scale=sm_scale, kv_len=kv_len, tile_dtype=tile)
+    return (q, k, v, o.to(dtype), do, lse), kw
+
+
+@BWD_VARIANTS
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,causal", [
+    # B2's Q_s/dO ring (two stages) wraps 8 to 64 times; GQA 16/2; Sq > Skv
+    # and Sq < Skv; S 1000 pads to 1024, so kv_len ends inside the last
+    # 128-row KV tile.
+    (1, 4, 2, 2048, 2048, True), (1, 2, 1, 4096, 4096, False),
+    (1, 16, 2, 384, 384, True), (1, 4, 2, 300, 100, True),
+    (1, 4, 2, 128, 384, True), (1, 4, 2, 128, 384, False),
+    (1, 4, 2, 1000, 1000, False),
+])
+def test_fa2_backward_fused_kernel_at_long_and_unequal_lengths(
+        cuda, dtype, tile, d, b, hq, hkv, sq, skv, causal):
+    x, kw = _fused_problem(dtype, tile, d, b, hq, hkv, sq, skv, causal,
+                           seed=sq + skv + d)
+    before = fa2_backward.fused_launches
+    got = fa2_backward.fa2_backward_fused_aligned(*x, **kw)
+    torch.cuda.synchronize()
+    assert fa2_backward.fused_launches == before + 1
+    want = fa2_backward.fa2_backward_fused_plain(*x, **kw)
+    tol = 5e-2 if (tile is not None or dtype == torch.bfloat16) else 2e-5
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert _rel_err(g, w) <= tol
+
+
+@BWD_VARIANTS
+@pytest.mark.parametrize("d", [64, 128])
+def test_fa2_backward_fused_kernel_bitwise_deterministic(cuda, dtype, tile, d):
+    """Two calls of B2 on the same inputs give the same bits: each dQ slice
+    has one writer and the reduce adds them in KV-tile order."""
+    x, kw = _fused_problem(dtype, tile, d, 1, 8, 2, 2048, 2048, True, seed=d)
+    first = fa2_backward.fa2_backward_fused_aligned(*x, **kw)
+    second = fa2_backward.fa2_backward_fused_aligned(*x, **kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,tile", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float16),
+    (torch.float32, None)], ids=["bf16", "fp32-in-fp16-tiles", "fp32"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_fa2_backward_fused_reads_no_dead_slice(cuda, dtype, tile, d):
+    """dq_part is allocated with torch.empty and only its live slices are
+    written.  A NaN-filled tensor of its size is freed just before the
+    call, so dq_part takes that memory; a dead slice that the reduce read
+    would show as NaN.  Causal with kv_len inside the last KV tile: slices
+    above the diagonal are dead."""
+    x, kw = _fused_problem(dtype, tile, d, 1, 4, 2, 1000, 1000, True, seed=5)
+    q, k = x[0], x[1]
+    n_slices = -(-k.shape[2] // fa2_backward.fused_kv_tile(q.dtype, tile))
+    bait = torch.full((q.shape[0], q.shape[1], n_slices) + q.shape[2:],
+                      float("nan"), device=cuda)
+    del bait
+    got = fa2_backward.fa2_backward_fused_aligned(*x, **kw)
+    torch.cuda.synchronize()
+    want = fa2_backward.fa2_backward_fused_plain(*x, **kw)
+    tol = 5e-2 if (tile is not None or dtype == torch.bfloat16) else 2e-5
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g.float()).all())
+        assert _rel_err(g, w) <= tol
+
+
 @pytest.mark.parametrize("tile", [None, torch.bfloat16], ids=["fp32", "bf16-tiles"])
 @pytest.mark.parametrize("block_sizes", [None, SPLIT], ids=["fused", "split"])
 def test_fa2_backward_bitwise_deterministic(cuda, tile, block_sizes):
@@ -498,6 +578,28 @@ def test_baseline_kernels_match_plain(cuda, which, d, b, h, s):
     o_p = fn(q, k, v)
     assert o_k.shape == q.shape and o_k.dtype == torch.float32
     assert (o_k.cpu() - o_p).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("which", ["fa1", "naive_fa2"])
+@pytest.mark.parametrize("b,h,sq,skv,kv_len,d", [
+    (1, 2, 2048, 2048, 2048, 64), (1, 2, 2048, 2048, 2000, 128),
+    (1, 2, 304, 128, 100, 64), (1, 2, 128, 384, 384, 128),
+    (17, 8, 128, 192, 150, 64),  # B * H = 136 blocks, more than 132 SMs
+])
+def test_baseline_kernels_at_long_and_unequal_lengths(cuda, which, b, h, sq,
+                                                      skv, kv_len, d):
+    """B9 and B10 against their plain versions on the card, through the
+    aligned entry points: S 2048, Sq != Skv, kv_len < Skv."""
+    rng = np.random.default_rng(sq + skv + d)
+    q = _randn(rng, b, h, sq, d).to(cuda)
+    k, v = (_randn(rng, b, h, skv, d).to(cuda) for _ in range(2))
+    kw = dict(sm_scale=d ** -0.5, kv_len=kv_len)
+    before = getattr(baselines, f"{which}_launches")
+    o_k = getattr(baselines, f"{which}_aligned")(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert getattr(baselines, f"{which}_launches") == before + 1
+    o_p = getattr(baselines, f"{which}_plain")(q, k, v, **kw)
+    assert (o_k - o_p).abs().max().item() <= 1e-5
 
 
 @pytest.mark.parametrize("call", [
