@@ -8,7 +8,8 @@ Phases (any failure raises and the script exits non-zero):
   1. setup: the card's name and power limit; the eight CUDA sources built
      from cuda_flash_attention_tpu_torch/csrc/ with nvcc (sm_90a), all at
      once; ptxas's registers, spills and wgmma notes for each of B2's
-     bf16/fp16-tile kernels (prologue, main, dQ reduce), failing on a
+     bf16/fp16-tile kernels (prologue, main, dQ reduce) and of the fp32
+     FMA block's (B10 and B1's fp32 body at D 64 and 128), failing on a
      spilled byte or a wgmma serialisation note;
   2. kernel B1 (FA2 forward) against its plain PyTorch version at the
      serving prefill shapes (the serving run's largest, B4 S1536, included)
@@ -64,9 +65,10 @@ Phases (any failure raises and the script exits non-zero):
      reference suite's Small-1, Edge-NonPowerOf2 and Edge-SmallSeq in fp32,
      bf16 and fp16 tiles, causal and not, timed beside B1, the plain
      version and SDPA on the same inputs (device time: the launches queued
-     behind a sleep kernel so that host gaps drop out); B9 (FA1) and B10
-     (naive FA2) at Small-2, Large-2 and Stress-1 in fp32; fp16 tiles of
-     B1 at Stress-1 and of B2, B3, B4 at Stress-1 and the train shape.
+     behind a sleep kernel so that host gaps drop out); B9 (FA1), B10
+     (naive FA2) and B1's fp32 body at Small-2, Large-2 and Stress-1 in
+     fp32 beside fp32 SDPA; fp16 tiles of B1 at Stress-1 and of B2, B3, B4
+     at Stress-1 and the train shape.
      Every fp16 check holds fp16 to its own gate and the bf16
      instantiation on the same inputs, as a control, beyond it;
  17. the CLI end to end on a Stress-1 data directory: fa2 forward,
@@ -165,9 +167,11 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-# B2's kernels with bf16 or fp16 tiles, by the names they carry in ptxas's
-# mangled entry names.
+# B2's kernels with bf16 or fp16 tiles, and the fp32 FMA block's kernels
+# (B10, B1's fp32 body: D 64 and 128 each), by the names they carry in
+# ptxas's mangled entry names.
 B2_FUNCTIONS = ("bwd_fused_wgmma", "bwd_prologue", "dq_reduce")
+FP32_FUNCTIONS = {"baselines": ("naive_fa2_fp32",), "fa2_forward": ("fa2_fwd_fp32",)}
 
 
 def ptxas_by_function(text: str) -> dict:
@@ -197,13 +201,14 @@ def ptxas_log(_build, name: str) -> str:
     return proc.stdout + proc.stderr
 
 
-def check_b2_ptxas(text: str) -> None:
-    """Print each B2 instantiation's registers, spills and wgmma notes, and
-    fail on a spilled byte or a serialisation note (C7514 and kin: ordinary
-    code touching a wgmma's registers before its wait)."""
+def check_ptxas(text: str, label: str, functions, at_least: int) -> None:
+    """Print the registers, spills and wgmma notes of each instantiation of
+    `functions` in `text`, and fail on a spilled byte or a serialisation
+    note (C7514 and kin: ordinary code touching a wgmma's registers before
+    its wait), or if fewer than `at_least` instantiations are reported."""
     found = 0
     for fn, lines in ptxas_by_function(text).items():
-        kind = next((k for k in B2_FUNCTIONS if k in fn), None)
+        kind = next((k for k in functions if k in fn), None)
         if kind is None:
             continue
         found += 1
@@ -212,14 +217,14 @@ def check_b2_ptxas(text: str) -> None:
         notes = [line for line in lines if "C75" in line or "serializ" in line]
         regs = next((line.split("Used")[1].split(",")[0].strip()
                      for line in lines if "Used" in line), "?")
-        log(f"  ptxas B2 {kind} {fn[-48:]}: {regs}, spill bytes {sum(spills)}, "
+        log(f"  ptxas {label} {kind} {fn[-48:]}: {regs}, spill bytes {sum(spills)}, "
             f"wgmma notes {len(notes)}")
         for note in notes:
             log(f"    {note}")
         if sum(spills) or notes:
-            raise AssertionError(f"ptxas: B2's {fn} spills or serialises wgmma")
-    if found < len(B2_FUNCTIONS):
-        raise AssertionError(f"ptxas: only {found} B2 entry functions reported")
+            raise AssertionError(f"ptxas: {label}'s {fn} spills or serialises wgmma")
+    if found < at_least:
+        raise AssertionError(f"ptxas: only {found} {label} entry functions reported")
 
 
 def phase_b1(torch, fa2, b1_ab):
@@ -1152,6 +1157,7 @@ SUITE = {"Small-1": (1, 1, 128), "Small-2": (2, 4, 256), "Large-2": (4, 12, 1024
          "Edge-NonPowerOf2": (8, 16, 100), "Edge-SmallSeq": (8, 16, 32),
          "Stress-1": (8, 16, 2048)}
 BASELINE_TOL = 1e-5  # B9/B10 vs plain: FA1 re-rounds O at every KV tile
+B1_FP32_LSE_TOL = 1e-5  # B1's fp32 body vs plain, relative (the JAX fp32 gate)
 # Phase 17 gates against the fp32 oracle, absolute (bf16 gradients:
 # relative to the oracle's max |value|, as BWD_TOL; fp16 files: relative,
 # FP16_REL_TOL, besides the absolute O gate).  The fp32 forward gate
@@ -1274,9 +1280,11 @@ def phase_b8(torch, F, attention, fa2):
     return rows
 
 
-def phase_baselines(torch, F, base):
-    """B9 and B10 against their plain versions at Small-2, Large-2 and
-    Stress-1 in fp32, with SDPA's fp32 time on the same inputs."""
+def phase_baselines(torch, F, base, fa2):
+    """B9, B10 and B1's fp32 body (fa2_forward_aligned, tile code 0) against
+    their plain versions at Small-2, Large-2 and Stress-1 in fp32, with
+    SDPA's fp32 time on the same inputs: the suite's three fp32 forwards
+    and the library call in one table."""
     gen = torch.Generator(device="cuda").manual_seed(15)
     rows = []
     for name in ("Small-2", "Large-2", "Stress-1"):
@@ -1284,28 +1292,39 @@ def phase_baselines(torch, F, base):
         q, k, v = (torch.randn(b, h, s, 64, generator=gen, device="cuda")
                    for _ in range(3))
         kw = dict(sm_scale=64 ** -0.5, kv_len=s)
+        fa2_kw = dict(kw, causal=False, tile_dtype=None)
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, scale=kw["sm_scale"]))
-        for which, kernel, plain in (("fa1", base.fa1_aligned, base.fa1_plain),
-                                     ("naive_fa2", base.naive_fa2_aligned,
-                                      base.naive_fa2_plain)):
-            o_k, o_p = kernel(q, k, v, **kw), plain(q, k, v, **kw)
+        for which, kernel, plain in (
+                ("fa1", base.fa1_aligned, base.fa1_plain),
+                ("naive_fa2", base.naive_fa2_aligned, base.naive_fa2_plain),
+                ("fa2_fp32", lambda *a, **_: fa2.fa2_forward_aligned(*a, **fa2_kw),
+                 lambda *a, **_: fa2.fa2_forward_plain(*a, **fa2_kw))):
+            out_k, out_p = kernel(q, k, v, **kw), plain(q, k, v, **kw)
             torch.cuda.synchronize()
+            o_k, o_p = (x[0] if isinstance(x, tuple) else x for x in (out_k, out_p))
             err = (o_k - o_p).abs().max().item()
-            if not err <= BASELINE_TOL:
-                raise AssertionError(f"{which} {name}: max_abs_err {err} "
-                                     f"(tol {BASELINE_TOL})")
+            row = dict(kernel=which, config=name, B=b, H=h, S=s, max_abs_err=err)
+            if which == "fa2_fp32":
+                row["lse_rel_err"] = ((out_k[1] - out_p[1]).abs()
+                                      / out_p[1].abs().clamp_min(1.0)).max().item()
+                ok = err <= B1_TOL["fp32"] and row["lse_rel_err"] <= B1_FP32_LSE_TOL
+            else:
+                ok = err <= BASELINE_TOL
+            if not ok:
+                raise AssertionError(f"{which} {name}: {json.dumps(row)} (tol "
+                                     f"{BASELINE_TOL}; B1 {B1_TOL['fp32']}, lse "
+                                     f"{B1_FP32_LSE_TOL})")
             ms = time_ms(lambda: kernel(q, k, v, **kw), iters=10)
             bound_ms, bound_by, flops = attention_bound(b, h, s, 64, False, "fp32",
                                                         q, k, v, o_k)
-            row = dict(kernel=which, config=name, B=b, H=h, S=s, max_abs_err=err,
-                       ms=ms, plain_ms=time_ms(lambda: plain(q, k, v, **kw),
+            row.update(ms=ms, plain_ms=time_ms(lambda: plain(q, k, v, **kw),
                                                iters=3, warmup=1),
                        library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
                        tflops=flops / ms / 1e9)
             rows.append(row)
             log("baseline", json.dumps(row))
-            del o_k, o_p
+            del out_k, out_p, o_k, o_p
     return rows
 
 
@@ -1980,7 +1999,11 @@ def main() -> int:
             if any(w in line for w in ("registers", "spill", "error",
                                        "Performance")):
                 log(f"  ptxas {name}: {line.strip()}")
-    check_b2_ptxas(build_logs.get("fa2_backward") or ptxas_log(_build, "fa2_backward"))
+    check_ptxas(build_logs.get("fa2_backward") or ptxas_log(_build, "fa2_backward"),
+                "B2", B2_FUNCTIONS, len(B2_FUNCTIONS))
+    for name, functions in FP32_FUNCTIONS.items():
+        check_ptxas(build_logs.get(name) or ptxas_log(_build, name),
+                    "fp32 block", functions, 2)
 
     t0 = time.perf_counter()
     b1 = phase_b1(torch, fa2, b1_ab)
@@ -2043,9 +2066,10 @@ def main() -> int:
 
     t0 = time.perf_counter()
     b8 = phase_b8(torch, F, attention, fa2)
-    baseline_rows = phase_baselines(torch, F, base)
+    baseline_rows = phase_baselines(torch, F, base, fa2)
     b1_fp16, bwd_fp16 = phase_fp16_tiles(torch, F, attention, fa2, bwd)
-    log(f"phase 16: B8, B9, B10 and fp16 tiles ok in {time.perf_counter() - t0:.1f} s")
+    log(f"phase 16: B8, B9, B10, B1 fp32 and fp16 tiles ok in "
+        f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     # Every kernel's launches on the reference-contract path: the CLI (this
     # process's runs) and the harness.  B1 runs fa2 at S > 128, B2 bf16/fp16

@@ -1,7 +1,9 @@
 // The two baseline attention kernels of the reference suite on Hopper
 // (sm_90a), plain C interface for ctypes.  Both are forward-only, fp32-only
 // and non-causal, as the reference's; their schedules are what they measure,
-// so they are kept, not tuned.
+// so they are kept, not tuned.  Each runs them on a block built for Hopper's
+// FMA units (B9 its own; B10 the fp32 block of csrc/fma_block.cuh, shared
+// with B1's fp32 body): the block changed, not the schedule.
 //
 // B9 FlashAttention-1 replaces the Pallas TPU kernel
 //   cuda_flash_attention_tpu/kernels/baselines.py::_fa1_aligned
@@ -16,11 +18,13 @@
 // B10 naive FlashAttention-2 replaces the Pallas TPU kernel
 //   cuda_flash_attention_tpu/kernels/baselines.py::_naive_fa2_aligned
 //   (body _naive_fa2_kernel).
-//   The FA2 schedule without its tuning: one block per (64-row Q tile,
-//   batch * head), the KV loop inside the block over fixed 64-row tiles, and
-//   the output renormalised eagerly at every tile (acc * l_prev * alpha /
-//   l_new + P V / l_new) instead of one division at the end.  No cp.async
-//   pipelining, no causal skip.
+//   The FA2 schedule without its tuning, what B10 measures and keeps: each
+//   64-row Q tile carries its running m, l and output in registers across
+//   a KV loop over fixed 64-row tiles, and renormalises the output eagerly
+//   at every tile (acc * l_prev * alpha / l_new + P V / l_new) instead of
+//   dividing once at the end; natural exp; no causal skip.  The source
+//   once said "no cp.async pipelining": that described its first block,
+//   not the schedule, and went with that block.
 //
 // What bounds them on the H100: fp32 FLOPs on the FMA units (4 * S^2 * D per
 // head, 67 TFLOP/s: 2.05 ms at the suite's Stress-1, B8 H16 S2048 D64), and
@@ -31,7 +35,13 @@
 // natural-log (exp, not exp2), scaled by sm_scale after the product, as in
 // the TPU kernels.  KV tiles wholly past kv_len are not visited.
 //
-// B9's block is built for those two bounds (B10 keeps its first block):
+// B10's block is csrc/fma_block.cuh's (its note says why): 128 threads a
+// block for one 64-row Q tile, 8 x 4 register tiles read with 128-bit loads from
+// swizzled rows, K and V by cp.async into two K stages and one V stage (at
+// D = 128 one of each), P over the K stage just read, three blocks an SM
+// at D = 64 and two at D = 128.
+//
+// B9's block is built for its two bounds:
 //   * 512 threads in four groups of 128, group g taking Q tiles g, g + 4,
 //     ... of each KV tile.  The Q tiles of one KV tile are independent, so
 //     four pairs are in flight at once and a group that waits for device
@@ -44,7 +54,7 @@
 //   * 8 x 4 register tiles of S and 8 x 4 (8 x 8 at D = 128) of P V, read
 //     with 128-bit shared loads from rows padded to D + 4 (conflict-free):
 //     in S 10.7 FMAs per load instruction, 2.7 per loaded float, against 2
-//     and 2 in the 4 x 4 scalar tile of B10 (and of B9 before); P V the
+//     and 2 in the 4 x 4 scalar tile of B9 and B10 before; P V the
 //     same at D = 64, and 6.4 FMAs per load at D = 128, where P is read one
 //     value at a time to leave registers for the 64 accumulators;
 //   * O goes back a float4 at a time (a warp writes whole 256-byte rows),
@@ -59,119 +69,12 @@
 
 #include <atomic>
 
-#include "hopper.cuh"
+#include "fma_block.cuh"  // B10's block; includes hopper.cuh
 
 namespace {
 
 constexpr int kTile = 64;  // Q and KV rows per tile
 constexpr float kMaskValue = -0.7f * 3.40282347e38f;  // DEFAULT_MASK_VALUE
-
-// Rows [row0, row0 + kTile) of a [nrows, D] matrix into shared memory with
-// leading dimension LD; rows past nrows are zero.
-template <int D, int LD>
-__device__ __forceinline__ void stage(float* dst, const float* src, int row0,
-                                      int nrows) {
-  for (int i = threadIdx.x; i < kTile * D; i += 256) {
-    const int r = i / D;
-    const int c = i - r * D;
-    dst[r * LD + c] =
-        row0 + r < nrows ? src[static_cast<size_t>(row0 + r) * D + c] : 0.f;
-  }
-}
-
-// B10's score tile.  256 threads as 16 x 16: thread
-// (ty, tx) owns rows 4ty..4ty+3 and columns tx + 16j of the 64 x 64 tile S
-// = sm_scale * Q K^T, with columns at or past kv_len set to the mask value.
-// Then, per row, the running max and sum are updated from (m_prev, l_prev),
-// P = exp(S - m_new) is written to ps, and the two output scales
-// l_prev * alpha / l_new (old output) and 1 / l_new (P V) are returned.
-template <int D>
-__device__ __forceinline__ void score_tile(const float* qs, const float* ks,
-                                           float* ps, int k0, int kv_len,
-                                           float sm_scale, const float* m_prev,
-                                           const float* l_prev, float* m_new,
-                                           float* l_new, float* scale_old,
-                                           float* scale_pv) {
-  constexpr int LDK = D + 1;
-  constexpr int LDP = kTile + 1;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  float s[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-  }
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    float qv[4], kv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) qv[i] = qs[(ty * 4 + i) * LDK + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) kv[j] = ks[(tx + 16 * j) * LDK + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float mx = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      s[i][j] = k0 + tx + 16 * j < kv_len ? s[i][j] * sm_scale : kMaskValue;
-      mx = fmaxf(mx, s[i][j]);
-    }
-#pragma unroll
-    for (int off = 1; off < 16; off <<= 1) {
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    }
-    m_new[i] = fmaxf(m_prev[i], mx);
-    const float alpha = expf(m_prev[i] - m_new[i]);
-    float rs = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float p = expf(s[i][j] - m_new[i]);
-      rs += p;
-      ps[(ty * 4 + i) * LDP + tx + 16 * j] = p;
-    }
-#pragma unroll
-    for (int off = 1; off < 16; off <<= 1) {
-      rs += __shfl_xor_sync(0xffffffffu, rs, off);
-    }
-    l_new[i] = alpha * l_prev[i] + rs;
-    scale_pv[i] = l_new[i] == 0.f ? 1.f : 1.f / l_new[i];
-    scale_old[i] = l_prev[i] * alpha * scale_pv[i];
-  }
-}
-
-// pv[i][j] = sum_c P[4ty + i][c] V[c][tx + 16j] over the tile.
-template <int D>
-__device__ __forceinline__ void pv_tile(const float* ps, const float* vs,
-                                        float (*pv)[D / 16]) {
-  constexpr int LDP = kTile + 1;
-  constexpr int DJ = D / 16;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) pv[i][j] = 0.f;
-  }
-#pragma unroll 4
-  for (int c = 0; c < kTile; ++c) {
-    float vv[DJ];
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) vv[j] = vs[c * D + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float p = ps[(ty * 4 + i) * LDP + c];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) pv[i][j] = fmaf(p, vv[j], pv[i][j]);
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // B9.  One block of 512 threads per (batch, head): four groups of 128
@@ -451,73 +354,102 @@ fa1_fp32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// B10.  One block per (64-row Q tile, batch * head), carrying its running
+// m, l and output in registers across the whole KV loop
+// (csrc/fma_block.cuh has the block: thread layout, rings, loads and the
+// two products).
+// ---------------------------------------------------------------------------
 template <int D>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kFmaThreads, FmaBlock<D>::kBlocksPerSm)
 naive_fa2_fp32(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, float* __restrict__ o, int sq,
                int skv, int kv_len, float sm_scale) {
-  constexpr int LDK = D + 1;
-  constexpr int DJ = D / 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* ks = reinterpret_cast<float*>(smem_raw);
-  float* vs = ks + kTile * LDK;
-  float* qs = vs + kTile * D;
-  float* ps = qs + kTile * LDK;
-
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int q0 = blockIdx.x * kTile;
+  using L = FmaBlock<D>;
+  constexpr int DO = D / 16;  // output columns per thread
+  extern __shared__ __align__(16) float smem[];
+  const FmaStages<L> st(smem);
+  const FmaThread th = fma_thread();
   const size_t bh = blockIdx.y;
+  const int q0 = blockIdx.x * kTile;
   const float* kp = k + bh * skv * D;
   const float* vp = v + bh * skv * D;
-  stage<D, LDK>(qs, q + bh * sq * D, q0, sq);
-
-  float m_run[4], l_run[4], acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_run[i] = -INFINITY;
-    l_run[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-  }
+  float* qs = st.q();
   const int n_kv = (kv_len + kTile - 1) / kTile;
-  for (int t = 0; t < n_kv; ++t) {
-    __syncthreads();  // Q staged; the previous tile is done with K, V and P
-    stage<D, LDK>(ks, kp, t * kTile, skv);
-    stage<D, D>(vs, vp, t * kTile, skv);
-    __syncthreads();
-    float m_new[4], l_new[4], scale_old[4], scale_pv[4];
-    score_tile<D>(qs, ks, ps, t * kTile, kv_len, sm_scale, m_run, l_run,
-                  m_new, l_new, scale_old, scale_pv);
-    __syncthreads();
-    float pv[4][DJ];
-    pv_tile<D>(ps, vs, pv);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        acc[i][j] = acc[i][j] * scale_old[i] + pv[i][j] * scale_pv[i];
-      }
-      m_run[i] = m_new[i];
-      l_run[i] = l_new[i];
-    }
-  }
-  float* op = o + bh * sq * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= sq) continue;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      op[static_cast<size_t>(row) * D + tx + 16 * j] = acc[i][j];
-    }
-  }
-}
 
-template <int D>
-constexpr int smem_bytes() {
-  return (2 * kTile * (D + 1) + kTile * D + kTile * (kTile + 1)) *
-         static_cast<int>(sizeof(float));
+  if (threadIdx.x == 0) st.init();
+  fma_load_q<D>(qs, q + bh * sq * D, q0, sq, 1.f);
+  __syncthreads();
+  for (int t = 0; t < L::kKStages && t < n_kv; ++t) fma_load_k<D>(st, t, kp, skv);
+  for (int t = 0; t < L::kVStages && t < n_kv; ++t) fma_load_v<D>(st, t, vp, skv);
+
+  float m_run[8], l_run[8], acc[8][DO];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    m_run[r] = -INFINITY;
+    l_run[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DO; ++c) acc[r][c] = 0.f;
+  }
+  for (int t = 0; t < n_kv; ++t) {
+    const int k0 = t * kTile;
+    st.wait_k(t);
+    float s[8][4];
+    fma_scores<D>(qs, st.k(t), th, s);
+    float* ps = st.k(t);
+    __syncthreads();  // K(t) is read: P takes its stage
+
+    // Per row: S scaled after the product, the kv_len tail masked, the
+    // running max and sum updated, P = exp(S - m_new), and the scales of
+    // the old output (l_prev * alpha / l_new) and of P V (1 / l_new).
+    float scale_old[8], scale_pv[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[r][j] = k0 + th.tx + 16 * j < kv_len ? s[r][j] * sm_scale : kMaskValue;
+        mx = fmaxf(mx, s[r][j]);
+      }
+      const float m_new = fmaxf(m_run[r], fma_row_max(mx));
+      const float alpha = expf(m_run[r] - m_new);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(s[r][j] - m_new);
+        rs += p;
+        fma_store_p(ps, th, r, j, p);
+      }
+      const float l_new = alpha * l_run[r] + fma_row_sum(rs);
+      scale_pv[r] = l_new == 0.f ? 1.f : __frcp_rn(l_new);  // = 1 / l_new
+      scale_old[r] = l_run[r] * alpha * scale_pv[r];
+      m_run[r] = m_new;
+      l_run[r] = l_new;
+    }
+    __syncthreads();  // P is in place
+
+    // P V of this tile, then the eager renormalisation.
+    float pv[8][DO];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+#pragma unroll
+      for (int c = 0; c < DO; ++c) pv[r][c] = 0.f;
+    }
+    st.wait_v(t);
+    fma_pv<D>(ps, st.v(t), th, pv);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+#pragma unroll
+      for (int c = 0; c < DO; ++c) {
+        acc[r][c] = acc[r][c] * scale_old[r] + pv[r][c] * scale_pv[r];
+      }
+    }
+    __syncthreads();  // K(t), V(t) and P are read: refill
+    if (t + L::kKStages < n_kv) fma_load_k<D>(st, t + L::kKStages, kp, skv);
+    if (t + L::kVStages < n_kv) fma_load_v<D>(st, t + L::kVStages, vp, skv);
+  }
+  const float one[8] = {1.f, 1.f, 1.f, 1.f, 1.f, 1.f, 1.f, 1.f};
+  fma_store_o<D>(o + bh * sq * D, q0, sq, th, acc, one);
 }
 
 template <int D>
@@ -536,16 +468,15 @@ template <int D>
 cudaError_t launch_naive(const float* q, const float* k, const float* v,
                          float* o, int bh, int sq, int skv, int kv_len,
                          float sm_scale, cudaStream_t stream) {
+  using L = FmaBlock<D>;
   static std::atomic<uint64_t> smem_set{0};
-  cudaError_t err = set_smem_once(naive_fa2_fp32<D>, smem_bytes<D>(), smem_set);
+  cudaError_t err = set_smem_once(naive_fa2_fp32<D>, L::kSmem, smem_set);
   if (err != cudaSuccess) return err;
   const dim3 grid((sq + kTile - 1) / kTile, bh);
-  naive_fa2_fp32<D><<<grid, 256, smem_bytes<D>(), stream>>>(q, k, v, o, sq,
-                                                            skv, kv_len,
-                                                            sm_scale);
+  naive_fa2_fp32<D><<<grid, kFmaThreads, L::kSmem, stream>>>(
+      q, k, v, o, sq, skv, kv_len, sm_scale);
   return cudaGetLastError();
 }
-
 }  // namespace
 
 extern "C" {

@@ -51,8 +51,20 @@
 // fp32 inputs with 16-bit tiles: TMA copies bytes and cannot convert, so
 // the wrapper casts K and V to the tile type before the launch (round to
 // nearest even, the rounding the plain version applies too); Q is still
-// rounded here after its scaling.  fp32 tiles run on the fp32 FMA units
-// (no TF32), held to IEEE fp32.
+// rounded here after its scaling.
+//
+// fp32 tiles (tile code 0) run on the fp32 FMA units (no TF32), held to
+// IEEE fp32, bound by their 67 TFLOP/s.  What stays from the first body
+// is FA2's function and arithmetic: Q scaled by sm_scale * log2(e)
+// once in fp32, exp2-domain online softmax with O divided by l once at the
+// end (l == 0 guarded), causal loop to the diagonal with only the diagonal
+// and kv_len tail tiles masked (masked P exactly 0), GQA, lse = m ln 2 +
+// log l, longest causal rows first, each output element's P V summed over
+// keys in order.  What changed is the block: csrc/fma_block.cuh's,
+// shared with B10 (128 threads a block for one Q tile, 8 x 4 register tiles
+// read with 128-bit loads, cp.async K/V rings, three blocks an SM at D =
+// 64, two at D = 128), in place of 256 threads with 4 x 4 scalar tiles
+// that staged K and V between two barriers.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is found at run time
 #include <cuda_bf16.h>
@@ -64,11 +76,11 @@
 
 #include <atomic>
 
-#include "hopper.cuh"
+#include "fma_block.cuh"  // the fp32 body's block; includes hopper.cuh
 
 namespace {
 
-constexpr int kBlockM = 64;  // fp32 body: Q rows per thread block
+constexpr int kBlockM = 64;  // fp32 body: Q rows per block (csrc/fma_block.cuh)
 constexpr int kBlockN = 64;  // fp32 body: KV rows per loop iteration
 constexpr float kMaskValue = -0.7f * 3.40282347e38f;  // DEFAULT_MASK_VALUE
 constexpr float kLn2 = 0.6931471805599453f;
@@ -540,177 +552,131 @@ fa2_fwd_wgmma(const __grid_constant__ CUtensorMap k_map,
 }
 
 // ---------------------------------------------------------------------------
-// fp32 tiles on the FMA units.  256 threads as 16 x 16: thread (ty, tx) owns
-// rows 4ty..4ty+3 and columns tx + 16j of each S tile, and the same rows and
-// columns tx + 16j of O.  A row's 16 threads are 16 neighbouring lanes, so
-// row reductions are four shuffles.
+// fp32 tiles on the FMA units (tile code 0): the block of csrc/fma_block.cuh
+// (thread layout, K and V rings, loads and the two products), with FA2's
+// function and edges around it.  One block per (64-row Q tile, b * Hq);
+// query head h reads KV head h / (Hq / Hkv).  blockIdx.x runs over the Q
+// tiles from the last, so the longest causal rows start first.
 // ---------------------------------------------------------------------------
 template <int D>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kFmaThreads, FmaBlock<D>::kBlocksPerSm)
 fa2_fwd_fp32(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ o,
              float* __restrict__ lse, int hq, int hkv, int sq, int skv,
              int kv_len, float qscale, int causal) {
-  constexpr int LDQ = D + 1;  // odd strides: conflict-free column reads
-  constexpr int LDK = D + 1;
-  constexpr int LDV = D;
-  constexpr int LDP = kBlockN + 1;
-  constexpr int DJ = D / 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* qs = reinterpret_cast<float*>(smem_raw);
-  float* ks = qs + kBlockM * LDQ;
-  float* vs = ks + kBlockN * LDK;
-  float* ps = vs + kBlockN * LDV;
-
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
+  using L = FmaBlock<D>;
+  constexpr int DO = D / 16;  // output columns per thread
+  extern __shared__ __align__(16) float smem[];
+  const FmaStages<L> st(smem);
+  const FmaThread th = fma_thread();
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockM;
-  const int bh = blockIdx.y;
-  const int b = bh / hq;
-  const int hk = (bh - b * hq) / (hq / hkv);
-  const float* qp = q + static_cast<size_t>(bh) * sq * D;
+  const size_t bh = blockIdx.y;
+  const int b = blockIdx.y / hq;
+  const int hk = (blockIdx.y - b * hq) / (hq / hkv);
   const float* kp = k + (static_cast<size_t>(b) * hkv + hk) * skv * D;
   const float* vp = v + (static_cast<size_t>(b) * hkv + hk) * skv * D;
-
-  for (int i = threadIdx.x; i < kBlockM * D; i += 256) {
-    const int r = i / D;
-    const int c = i - r * D;
-    qs[r * LDQ + c] =
-        q0 + r < sq ? qp[static_cast<size_t>(q0 + r) * D + c] * qscale : 0.f;
-  }
-
+  // KV tiles to visit: to the diagonal under causal masking.
   const int kv_end = causal ? min(kv_len, q0 + kBlockM) : kv_len;
-  const int n_tiles = (kv_end + kBlockN - 1) / kBlockN;
-  float m_run[4], l_run[4], acc[4][DJ];
+  const int n_kv = (kv_end + kBlockN - 1) / kBlockN;
+  float* qs = st.q();
+
+  if (threadIdx.x == 0) st.init();
+  // Q scaled by sm_scale * log2(e) once, in fp32.
+  fma_load_q<D>(qs, q + bh * sq * D, q0, sq, qscale);
+  __syncthreads();
+  for (int t = 0; t < L::kKStages && t < n_kv; ++t) fma_load_k<D>(st, t, kp, skv);
+  for (int t = 0; t < L::kVStages && t < n_kv; ++t) fma_load_v<D>(st, t, vp, skv);
+
+  float m_run[8], l_run[8], acc[8][DO];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_run[i] = -INFINITY;
-    l_run[i] = 0.f;
+  for (int r = 0; r < 8; ++r) {
+    m_run[r] = -INFINITY;
+    l_run[r] = 0.f;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
+    for (int c = 0; c < DO; ++c) acc[r][c] = 0.f;
   }
-
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = 0; t < n_kv; ++t) {
     const int k0 = t * kBlockN;
-    __syncthreads();
-    for (int i = threadIdx.x; i < kBlockN * D; i += 256) {
-      const int r = i / D;
-      const int c = i - r * D;
-      const bool in = k0 + r < skv;
-      const size_t at = static_cast<size_t>(k0 + r) * D + c;
-      ks[r * LDK + c] = in ? kp[at] : 0.f;
-      vs[r * LDV + c] = in ? vp[at] : 0.f;
-    }
-    __syncthreads();
+    st.wait_k(t);
+    float s[8][4];
+    fma_scores<D>(qs, st.k(t), th, s);
+    float* ps = st.k(t);
+    __syncthreads();  // K(t) is read: P takes its stage
 
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    }
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = qs[(ty * 4 + i) * LDQ + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = ks[(tx + 16 * j) * LDK + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-      }
-    }
-
+    // Online softmax in the exp2 domain; only the diagonal and kv_len
+    // tail tiles are masked (masked P exactly 0).  l_run is this thread's
+    // share of the row sum, added across the row once at the end.
     const bool need_mask =
         (k0 + kBlockN > kv_len) || (causal && k0 + kBlockN - 1 > q0);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
+    for (int r = 0; r < 8; ++r) {
+      const int row = q0 + th.ty + 8 * r;
       if (need_mask) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const int col = k0 + tx + 16 * j;
-          if (col >= kv_len || (causal && col > row)) s[i][j] = kMaskValue;
+          const int col = k0 + th.tx + 16 * j;
+          if (col >= kv_len || (causal && col > row)) s[r][j] = kMaskValue;
         }
       }
-      float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
-#pragma unroll
-      for (int off = 1; off < 16; off <<= 1) {
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      }
-      const float m_new = fmaxf(m_run[i], mx);
-      const float alpha = exp2f(m_run[i] - m_new);
-      m_run[i] = m_new;
+      const float mx = fma_row_max(
+          fmaxf(fmaxf(s[r][0], s[r][1]), fmaxf(s[r][2], s[r][3])));
+      const float m_new = fmaxf(m_run[r], mx);
+      const float alpha = exp2f(m_run[r] - m_new);
+      m_run[r] = m_new;
       float rs = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        float p = exp2f(s[i][j] - m_new);
-        if (need_mask && s[i][j] == kMaskValue) p = 0.f;
+        float p = exp2f(s[r][j] - m_new);
+        if (need_mask && s[r][j] == kMaskValue) p = 0.f;
         rs += p;
-        ps[(ty * 4 + i) * LDP + tx + 16 * j] = p;
+        fma_store_p(ps, th, r, j, p);
       }
-      l_run[i] = l_run[i] * alpha + rs;
+      l_run[r] = l_run[r] * alpha + rs;
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= alpha;
+      for (int c = 0; c < DO; ++c) acc[r][c] *= alpha;
     }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < kBlockN; ++c) {
-      float vv[DJ];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) vv[j] = vs[c * LDV + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = ps[(ty * 4 + i) * LDP + c];
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(p, vv[j], acc[i][j]);
-      }
-    }
+    __syncthreads();  // P is in place
+    st.wait_v(t);
+    fma_pv<D>(ps, st.v(t), th, acc);
+    __syncthreads();  // K(t), V(t) and P are read: refill
+    if (t + L::kKStages < n_kv) fma_load_k<D>(st, t + L::kKStages, kp, skv);
+    if (t + L::kVStages < n_kv) fma_load_v<D>(st, t + L::kVStages, vp, skv);
   }
 
-  float* op = o + static_cast<size_t>(bh) * sq * D;
-  float* lp = lse + static_cast<size_t>(bh) * sq;
+  // O = acc / l (l == 0 guarded) and lse = m ln 2 + log l.
+  float inv[8], l[8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float l = l_run[i];
+  for (int r = 0; r < 8; ++r) {
+    l[r] = fma_row_sum(l_run[r]);
+    inv[r] = l[r] == 0.f ? 1.f : 1.f / l[r];
+  }
+  fma_store_o<D>(o + bh * sq * D, q0, sq, th, acc, inv);
+  if (th.tx == 0) {
+    float* lp = lse + bh * sq;
 #pragma unroll
-    for (int off = 1; off < 16; off <<= 1) {
-      l += __shfl_xor_sync(0xffffffffu, l, off);
+    for (int r = 0; r < 8; ++r) {
+      const int row = q0 + th.ty + 8 * r;
+      if (row < sq) lp[row] = m_run[r] * kLn2 + logf(l[r] == 0.f ? 1.f : l[r]);
     }
-    const int row = q0 + ty * 4 + i;
-    if (row >= sq) continue;
-    const float inv = l == 0.f ? 1.f : 1.f / l;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      op[static_cast<size_t>(row) * D + tx + 16 * j] = acc[i][j] * inv;
-    }
-    if (tx == 0) lp[row] = m_run[i] * kLn2 + logf(l == 0.f ? 1.f : l);
   }
 }
 
 template <int D>
-cudaError_t launch_fp32(dim3 grid, cudaStream_t stream, const void* q,
-                        const void* k, const void* v, void* o, void* lse,
-                        int hq, int hkv, int sq, int skv, int kv_len,
-                        float qscale, int causal) {
-  const size_t smem = (kBlockM * (D + 1) + kBlockN * (D + 1) + kBlockN * D +
-                       kBlockM * (kBlockN + 1)) * sizeof(float);
+cudaError_t launch_fp32(cudaStream_t stream, const void* q, const void* k,
+                        const void* v, void* o, void* lse, int batch, int hq,
+                        int hkv, int sq, int skv, int kv_len, float qscale,
+                        int causal) {
+  using L = FmaBlock<D>;
   static std::atomic<uint64_t> smem_set{0};
-  cudaError_t err = set_smem_once(fa2_fwd_fp32<D>, static_cast<int>(smem),
-                                  smem_set);
+  cudaError_t err = set_smem_once(fa2_fwd_fp32<D>, L::kSmem, smem_set);
   if (err != cudaSuccess) return err;
-  fa2_fwd_fp32<D><<<grid, 256, smem, stream>>>(
+  const dim3 grid((sq + kBlockM - 1) / kBlockM, batch * hq);
+  fa2_fwd_fp32<D><<<grid, kFmaThreads, L::kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o),
       static_cast<float*>(lse), hq, hkv, sq, skv, kv_len, qscale, causal);
   return cudaGetLastError();
 }
-
-// The tensor-core launch for input type Tin and tile code `tiles` (1 bf16,
-
 // A 3-D map over a contiguous 16-bit [rows, skv, d] K or V: boxes of 128
 // rows x 64 columns with the 128-byte swizzle; reads past skv give zeros.
 int kv_map(CUtensorMap* map, const void* ptr, int tiles, int rows, int skv,
@@ -804,13 +770,12 @@ int cfa_fa2_forward(const void* q, const void* k, const void* v, void* o,
       }
     }
   } else if (tiles == 0 && !in_bf16) {
-    const dim3 grid((sq + kBlockM - 1) / kBlockM, batch * hq);
     if (head_dim == 64) {
-      return launch_fp32<64>(grid, st, q, k, v, o, lse, hq, hkv, sq, skv,
+      return launch_fp32<64>(st, q, k, v, o, lse, batch, hq, hkv, sq, skv,
                              kv_len, qscale, causal);
     }
     if (head_dim == 128) {
-      return launch_fp32<128>(grid, st, q, k, v, o, lse, hq, hkv, sq, skv,
+      return launch_fp32<128>(st, q, k, v, o, lse, batch, hq, hkv, sq, skv,
                               kv_len, qscale, causal);
     }
   }

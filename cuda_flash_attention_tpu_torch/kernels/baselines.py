@@ -63,6 +63,9 @@ def _check(name, q, k, v):
         if t.device != q.device or t.dtype != q.dtype or not t.is_contiguous():
             raise ValueError(f"{name} kernel: q/k/v must be contiguous, on one "
                              "device, of one dtype")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} kernel: inputs must be 16-byte aligned "
+                             "(cp.async copies 16 bytes at a time)")
 
 
 def fa1_aligned(q, k, v, *, sm_scale: float, kv_len: int):

@@ -19,7 +19,9 @@ time per call.  The two times: `ms`, CUDA events over back-to-back calls
 as chip_smoke's `time_ms` (at small shapes this is the host's call rate),
 and `device_ms`, the same calls queued behind a sleep kernel so that only
 the card's time is counted (chip_smoke's `queued_ms`).  The card's name
-and power limit come first.  The fp32 FMA body is the same in both and is not timed here.
+and power limit come first.  Only the 16-bit-tile body is timed here;
+kernel_ab's `--kernel b1-fp32` times the fp32 FMA body (tile code 0)
+against its parent with this script's build_parent and parent_forward.
 """
 
 from __future__ import annotations
@@ -155,14 +157,15 @@ def host_us(fn, iters: int = 200) -> float:
 
 def compile_source(path: str, stem: str) -> ctypes.CDLL:
     """PATH compiled with the package's flags into build/kernels/<stem>-*.so
-    and loaded."""
+    and loaded.  The headers it includes are found beside it first (put an
+    earlier commit's headers there with its source), then in csrc/."""
     src = open(path, "rb").read()
     digest = hashlib.sha256(src + " ".join(_build.NVCC_FLAGS).encode()).hexdigest()[:16]
     out = _build.BUILD_DIR / f"{stem}-{digest}.so"
     if not out.exists():
         _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), path],
-                       check=True, capture_output=True)
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC_DIR),
+                        "-o", str(out), path], check=True, capture_output=True)
     return ctypes.CDLL(str(out))
 
 

@@ -602,6 +602,71 @@ def test_baseline_kernels_at_long_and_unequal_lengths(cuda, which, b, h, sq,
     assert (o_k - o_p).abs().max().item() <= 1e-5
 
 
+# The fp32 FMA block of B10 and B1's fp32 body (csrc/fma_block.cuh): a
+# block of 128 threads owning a 64-row Q tile, 64-row K and V stages in two
+# rings (two K stages and one V stage at D 64, one of each at D 128), P
+# written over the K stage just read.
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,skv,kv_len", [
+    (64, 64, 64),      # one KV tile: the second K stage is never filled
+    (65, 65, 65),      # a second tile of one row; K/V rows past skv are zeros
+    (192, 192, 192),   # three tiles: the two-stage K ring wraps mid-loop
+    (4096, 4096, 4096),  # 64 KV tiles: the rings wrap many times
+    (300, 320, 301),   # kv_len inside the last KV tile, Sq != Skv
+], ids=str)
+def test_naive_fa2_kernel_at_the_block_edges(cuda, d, sq, skv, kv_len):
+    rng = np.random.default_rng(sq + skv + d + kv_len)
+    q = _randn(rng, 2, 3, sq, d).to(cuda)
+    k, v = (_randn(rng, 2, 3, skv, d).to(cuda) for _ in range(2))
+    kw = dict(sm_scale=d ** -0.5, kv_len=kv_len)
+    before = baselines.naive_fa2_launches
+    o_k = baselines.naive_fa2_aligned(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert baselines.naive_fa2_launches == before + 1
+    o_p = baselines.naive_fa2_plain(q, k, v, **kw)
+    assert (o_k - o_p).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_naive_fa2_kernel_bitwise_deterministic(cuda, d):
+    """Every sum in a fixed order: two calls give the same bits."""
+    rng = np.random.default_rng(d)
+    q, k, v = (_randn(rng, 2, 4, 2048, d).to(cuda) for _ in range(3))
+    o1, o2 = (baselines.naive_fa2_aligned(q, k, v, sm_scale=d ** -0.5,
+                                          kv_len=2000) for _ in range(2))
+    assert torch.equal(o1, o2)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,causal", [
+    # GQA groups of 2, 8 and 3 heads and Hq = Hkv at S 2048 and 512: causal
+    # trip counts from 1 to 32 KV tiles, the diagonal tile masked.
+    (1, 16, 8, 2048, 2048, True), (1, 16, 2, 2048, 2048, True),
+    (2, 4, 4, 2048, 2048, True), (1, 6, 2, 512, 512, True),
+    # Sq != Skv: Q rows past kv_len; one Q tile meeting six KV tiles.
+    (1, 4, 4, 300, 100, True), (1, 4, 4, 300, 100, False),
+    (1, 4, 2, 128, 384, True), (1, 4, 4, 128, 384, False),
+    # One KV tile (S 16, S 64: the second K stage is never filled) or three
+    # (S 192).
+    (2, 4, 4, 16, 16, True), (2, 4, 4, 64, 64, False), (1, 2, 2, 192, 192, True),
+], ids=str)
+def test_fa2_forward_fp32_kernel_at_the_block_edges(cuda, d, b, hq, hkv, sq,
+                                                    skv, causal):
+    """B1's fp32 body (tile code 0) through fa2_forward_aligned, against its
+    plain version on the card: 2e-6 on O, 1e-5 relative on lse."""
+    rng = np.random.default_rng(sq + skv + hkv + d)
+    q = _randn(rng, b, hq, sq, d).to(cuda)
+    k, v = (_randn(rng, b, hkv, skv, d).to(cuda) for _ in range(2))
+    kw = dict(causal=causal, sm_scale=d ** -0.5, kv_len=skv, tile_dtype=None)
+    before = fa2_forward.launches
+    o_k, lse_k = fa2_forward.fa2_forward_aligned(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa2_forward.launches == before + 1
+    o_p, lse_p = fa2_forward.fa2_forward_plain(q, k, v, **kw)
+    assert (o_k - o_p).abs().max().item() <= 2e-6
+    assert ((lse_k - lse_p).abs() / lse_p.abs().clamp_min(1)).max().item() <= 1e-5
+
+
 @pytest.mark.parametrize("call", [
     lambda x: baselines.fa1_attention(x, x, x),
     lambda x: baselines.naive_fa2_attention(x, x, x),
