@@ -7,10 +7,12 @@ NVIDIA card.
 Phases (any failure raises and the script exits non-zero):
   1. setup: the card's name and power limit; the eight CUDA sources built
      from cuda_flash_attention_tpu_torch/csrc/ with nvcc (sm_90a), all at
-     once; ptxas's registers, spills and wgmma notes for each of B2's
-     bf16/fp16-tile kernels (prologue, main, dQ reduce) and of the fp32
-     FMA block's (B10 and B1's fp32 body at D 64 and 128), failing on a
-     spilled byte or a wgmma serialisation note;
+     once; ptxas's registers, spills and wgmma notes for every
+     instantiation of the backward's bf16/fp16-tile kernels (B2's
+     prologue, main kernel and dQ reduce; B3's kernel; B4's, the main
+     kernel without its dQ phase) and of the fp32 FMA block's (B10 and
+     B1's fp32 body at D 64 and 128), failing on a spilled byte, a wgmma
+     serialisation note or a missing instantiation;
   2. kernel B1 (FA2 forward) against its plain PyTorch version at the
      serving prefill shapes (the serving run's largest, B4 S1536, included)
      and at the train shape (B4 S2048), and at the edges of its 128-row
@@ -167,10 +169,15 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-# B2's kernels with bf16 or fp16 tiles, and the fp32 FMA block's kernels
-# (B10, B1's fp32 body: D 64 and 128 each), by the names they carry in
-# ptxas's mangled entry names.
-B2_FUNCTIONS = ("bwd_fused_wgmma", "bwd_prologue", "dq_reduce")
+# The backward's kernels with bf16 or fp16 tiles, by patterns of the names
+# they carry in ptxas's mangled entry names, and their instantiations (two
+# input types x two tile types x D 64 and 128; the reduce two output
+# types): B2's main kernel (DQ true, Lb1E), the prologue of B2-B4 and B2's
+# dQ reduce; B3's kernel; B4's, the main kernel with DQ false (Lb0E).  And
+# the fp32 FMA block's kernels (B10, B1's fp32 body: D 64 and 128 each).
+BWD_FUNCTIONS = {"B2": ((r"bwd_fused_wgmma\w*Lb1E", "bwd_prologue", "dq_reduce"), 18),
+                 "B3": (("bwd_dq_wgmma",), 8),
+                 "B4": ((r"bwd_fused_wgmma\w*Lb0E",), 8)}
 FP32_FUNCTIONS = {"baselines": ("naive_fa2_fp32",), "fa2_forward": ("fa2_fwd_fp32",)}
 
 
@@ -203,12 +210,13 @@ def ptxas_log(_build, name: str) -> str:
 
 def check_ptxas(text: str, label: str, functions, at_least: int) -> None:
     """Print the registers, spills and wgmma notes of each instantiation of
-    `functions` in `text`, and fail on a spilled byte or a serialisation
-    note (C7514 and kin: ordinary code touching a wgmma's registers before
-    its wait), or if fewer than `at_least` instantiations are reported."""
+    `functions` (patterns of mangled names) in `text`, and fail on a spilled
+    byte or a serialisation note (C7514 and kin: ordinary code touching a
+    wgmma's registers before its wait), or if fewer than `at_least`
+    instantiations are reported."""
     found = 0
     for fn, lines in ptxas_by_function(text).items():
-        kind = next((k for k in functions if k in fn), None)
+        kind = next((k for k in functions if re.search(k, fn)), None)
         if kind is None:
             continue
         found += 1
@@ -1999,8 +2007,9 @@ def main() -> int:
             if any(w in line for w in ("registers", "spill", "error",
                                        "Performance")):
                 log(f"  ptxas {name}: {line.strip()}")
-    check_ptxas(build_logs.get("fa2_backward") or ptxas_log(_build, "fa2_backward"),
-                "B2", B2_FUNCTIONS, len(B2_FUNCTIONS))
+    bwd_log = build_logs.get("fa2_backward") or ptxas_log(_build, "fa2_backward")
+    for label, (functions, count) in BWD_FUNCTIONS.items():
+        check_ptxas(bwd_log, label, functions, count)
     for name, functions in FP32_FUNCTIONS.items():
         check_ptxas(build_logs.get(name) or ptxas_log(_build, name),
                     "fp32 block", functions, 2)
@@ -2142,7 +2151,9 @@ def main() -> int:
     # Backward rows at the train shape (B4 S2048 bf16), where the fused and
     # split routes are compared; phase 7 also holds B3 and B4 at B16 S2048.
     # B2's launches come from the base training run (its route); B3's and
-    # B4's from the B16 run, which takes the split route.
+    # B4's from the B16 run, which takes the split route.  The flash
+    # backward computes B2's function, and the pair B3 + B4's: B3's and
+    # B4's rows carry it as the pair's yardstick (`library_of`).
     for name, replaces, launches in (
             ("fa2_backward_fused", 529, train["launches"]["fa2_backward_fused"]),
             ("fa2_backward_dq", 675, split["launches"]["fa2_backward_dq"]),
@@ -2158,6 +2169,8 @@ def main() -> int:
                             if x["kernel"] == name and x["kind"] == "bf16"),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
+        if name != "fa2_backward_fused":
+            kernels[-1]["library_of"] = "fa2_backward_dq + fa2_backward_dkv"
     # B6 at the speculation shape (int8 cache, bf16 compute); its launches
     # from the speculative, prefix-cache and chunked-prefill runs.
     r6 = next(r for r in b6 if (r["shape"], r["cache"], r["compute"])

@@ -25,47 +25,67 @@
 // D 64, causal, bf16) it sits far above the ~295 FLOP/byte ridge.  The
 // designs keep S, P and dS on chip and never add floats across blocks.
 //
-// B2 with bf16 or fp16 tiles runs in three launches:
-//   * a prologue, once per call, forms what every KV-tile block would
-//     otherwise form again for every Q tile: Q_s (the fp32 multiply, then
-//     the rounding), D_i = rowsum(dO * O) in fp32, lse * log2(e), and dO, K
-//     and V in the tile type where the inputs are not (TMA copies bytes and
-//     cannot scale or convert).  It rounds where the plain version rounds;
-//   * the main kernel: one block per (128-row KV tile, b*Hkv), 384 threads.
-//     Warpgroup 0 is the producer (`setmaxnreg.dec`): one thread loads the
-//     K and V tiles once by TMA, then streams the walk's Q_s and dO tiles
-//     (3-D maps, 128-byte swizzle, rows past Sq as zeros) and their lse and
-//     D_i rows (1-D bulk copies) into a ring of stages with full and empty
-//     mbarriers.  The walk covers the GQA group's query heads and, under
-//     causal, only the Q tiles at or below the diagonal; a KV tile wholly
-//     past kv_len walks nothing.  Warpgroups 1 and 2 (`setmaxnreg.inc`)
-//     each own 64 KV rows: S^T = K Q_s^T and dP^T = V dO^T on
-//     `wgmma.mma_async` from shared memory; P^T and dS^T in registers (the
-//     accumulators, rounded to the tile type, are the register A
-//     fragments); dV += P^T dO and dK += dS^T Q_s with B read through the
-//     transpose bit.  dK and dV accumulate in registers over the whole walk
-//     (the GQA sum without atomics) and are stored once.  Each consumer
-//     writes its dS^T rows, swizzled, into one of two shared buffers; after
-//     a named barrier each computes its half of the dQ tile, dS K over the
-//     tile's 128 KV rows, with A = dS^T and B = the K tile both through the
-//     transpose bits, and stores it into its own slice dq_part[b, h,
-//     kv_tile].  Q tiles are 128 rows at D = 64 (the halves are Q rows) and
-//     64 rows at D = 128 (the halves are columns), which keeps the dK and
-//     dV accumulators (D / 2 registers each) and the S^T and dP^T ones
-//     within 240 registers;
-//   * a reduce adds each Q row's live slices in KV-tile order, multiplies
-//     by sm_scale and writes q's type.  Only the slices of the Q tiles a KV
-//     tile reaches are written, and only those are read: a skipped slice
-//     holds zeros or nothing, so the ordered sum is exact and bitwise the
-//     same from run to run, with no atomicAdd.
-// B3 and B4 with bf16 or fp16 tiles run on mma.sync m16n8k16 with fp32
-// accumulation: B4 with one block per (128-row KV tile, b*Hkv), eight
-// warps of 16 KV rows, computing S^T and dP^T with KV rows as the mma M
-// dimension so that P^T and dS^T feed the dV and dK products from
-// registers; B3 with one block per (64-row Q tile, b*Hq), four warps of 16
-// Q rows, the KV loop stopping at the diagonal tile.  fp32 tiles (B2, B3
-// and B4) run on the FMA units (no TF32), held to IEEE fp32; B2's fp32 body
-// writes zeros into the slices above the diagonal, which the reduce skips.
+// With bf16 or fp16 tiles all three kernels share one design, fed by TMA
+// and mbarrier rings, products on `wgmma.mma_async` with fp32 accumulators:
+//   * a prologue, once per call, forms what every block would otherwise
+//     form again for every tile it meets: Q_s (the fp32 multiply, then the
+//     rounding), lse * log2(e), D_i (folded in from O and dO in fp32 for B2;
+//     the caller's D_i copied for B3 and B4), and dO, K and V in the tile
+//     type where the inputs are not (TMA copies bytes and cannot scale or
+//     convert), into padded planes whose rows past Sq hold zeros.  It
+//     rounds where the plain version rounds;
+//   * B2 and B4 run one kernel, `bwd_fused_wgmma`, with B4 leaving out the
+//     dQ phase (template flag DQ): one block per (128-row KV tile, b*Hkv),
+//     384 threads.  Warpgroup 0 is the producer (`setmaxnreg.dec`): one
+//     thread loads the K and V tiles once by TMA, then streams the walk's
+//     Q_s and dO tiles (3-D maps, 128-byte swizzle, rows past Sq as zeros)
+//     and their lse and D_i rows (1-D bulk copies) into a ring of stages
+//     with full and empty mbarriers.  The walk covers the GQA group's query
+//     heads and, under causal, only the Q tiles at or below the diagonal; a
+//     KV tile wholly past kv_len walks nothing.  Warpgroups 1 and 2
+//     (`setmaxnreg.inc`) each own 64 KV rows: S^T = K Q_s^T and dP^T = V
+//     dO^T from shared memory; P^T and dS^T in registers (the accumulators,
+//     rounded to the tile type, are the register A fragments); dV += P^T dO
+//     and dK += dS^T Q_s with B read through the transpose bit.  dK and dV
+//     accumulate in registers over the whole walk (the GQA sum without
+//     atomics) and are stored once.  Q tiles are 128 rows at D = 64 and 64
+//     at D = 128, which keeps the dK and dV accumulators (D / 2 registers
+//     each) and the S^T and dP^T ones within 240 registers.  B2 adds the dQ
+//     phase: each consumer writes its dS^T rows, swizzled, into one of two
+//     shared buffers; after a named barrier each computes its half of the
+//     dQ tile, dS K over the tile's 128 KV rows, with A = dS^T and B = the
+//     K tile both through the transpose bits, and stores it into its own
+//     slice dq_part[b, h, kv_tile] (the halves are Q rows at D = 64 and
+//     columns at D = 128);
+//   * B2's reduce adds each Q row's live slices in KV-tile order,
+//     multiplies by sm_scale and writes q's type.  Only the slices of the
+//     Q tiles a KV tile reaches are written, and only those are read: a
+//     skipped slice holds zeros or nothing, so the ordered sum is exact and
+//     bitwise the same from run to run, with no atomicAdd;
+//   * B3, `bwd_dq_wgmma`: one block per (128-row Q tile, b*Hq), 384
+//     threads, the Q tiles handed out longest causal row first.  The
+//     producer loads the block's Q_s and dO tiles and their lse and D_i
+//     rows once, then streams 128-row (D = 64) or 64-row (D = 128) K and V
+//     tiles through rings of their own; the walk stops at the causal
+//     diagonal and at kv_len.  Each consumer owns 64 Q rows: S = Q_s K^T and
+//     dP = dO V^T (both K-major, from shared memory), P and dS = P (dP -
+//     D_i) in fp32, dS rounded to the tile type as the register A fragment
+//     of dQ += dS K, whose B is the K tile read through the transpose bit.
+//     dQ stays in registers over the whole walk (S 64 + dP 64 + dQ 32
+//     registers at D = 64, 32 + 32 + 64 at D = 128) and is stored once,
+//     times sm_scale, in q's type; nothing is added across blocks.  As in
+//     B1's forward, dQ(t) runs on the tensor cores while the gradients of
+//     tile t + 1 run on the other units (S(t + 1) and dP(t + 1) are issued
+//     first), and the two consumers take turns to issue their products;
+//     dS is rounded into the A fragments only once dQ(t) has completed
+//     (rounding it into a second set of fragments while dQ(t) was in
+//     flight, then copying them over, ran a third slower at the train
+//     shape and drew ptxas's C7513 in one instantiation).
+// B3 and B4 take exp2 on the special-function unit with results below
+// 2^-126 flushed to zero, as B1 does; B2 keeps exp2f.
+// fp32 tiles (B2, B3 and B4) run on the FMA units (no TF32), held to IEEE
+// fp32; B2's fp32 body writes zeros into the slices above the diagonal,
+// which the reduce skips.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -82,17 +102,15 @@
 namespace {
 
 constexpr int kKvRows = 128;  // KV rows per block of B2/B4 with bf16 tiles
-constexpr int kDqRows = 64;   // Q rows per block of B3 with bf16 tiles
-constexpr int kDqKv = 64;     // KV rows per loop iteration of B3
 constexpr int kTile32 = 64;   // Q and KV tile of the fp32 kernels
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// wgmma forms of B2, with fp32 accumulators of 32 (N = 64) or 64 (N = 128)
-// registers.  ss: A and B both from shared memory, K-major.  ss_tt: both
-// from shared memory, MN-major (the transpose bits).  rs: A from registers,
-// B from shared memory, MN-major.  The scale-d predicate is 0 to overwrite
-// the accumulators, 1 to add to them.
+// wgmma forms of the 16-bit tiles, with fp32 accumulators of 32 (N = 64)
+// or 64 (N = 128) registers.  ss: A and B both from shared memory,
+// K-major.  ss_tt: both from shared memory, MN-major (the transpose bits).
+// rs: A from registers, B from shared memory, MN-major.  The scale-d
+// predicate is 0 to overwrite the accumulators, 1 to add to them.
 #define CFA_BWD_SS_N64(TY, TA, TB)                                           \
   asm volatile(                                                              \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                           \
@@ -123,8 +141,7 @@ constexpr float kLog2e = 1.4426950408889634f;
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1))
 
 // The two 16-bit tile types of the tensor-core path: packing two fp32 values
-// (round to nearest even), the m16n8k16 product with fp32 accumulation (B3,
-// B4) and the wgmma forms (B2).
+// (round to nearest even) and the wgmma forms.
 template <typename Tt>
 struct Tile;
 
@@ -157,15 +174,6 @@ struct Tile<__nv_bfloat16> {
     __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
   }
-  // c += a (16x16, row) * b (16x8, col).
-  static __device__ __forceinline__ void mma(float* c, const uint32_t* a,
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
   CFA_BWD_WGMMA_FORMS("bf16")
 };
 
@@ -178,81 +186,12 @@ struct Tile<__half> {
     __half2 v = __floats2half2_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
   }
-  static __device__ __forceinline__ void mma(float* c, const uint32_t* a,
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
   CFA_BWD_WGMMA_FORMS("f16")
 };
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// Fragment addresses for ldmatrix.x4 on a 16-bit shared tile with leading
-// dimension ld (elements).  Fragment layouts are those of mma.m16n8k16:
-// thread (g = lane / 4, t = lane % 4) holds accumulator elements (row g,
-// cols 2t, 2t+1) and (row g + 8, cols 2t, 2t+1) of each 8-column n-tile.
-//
-// A operand, rows m0.. and k-cols k0.. of a row-major [m][k] tile.
-__device__ __forceinline__ int a_off(int lane, int ld, int m0, int k0) {
-  return (m0 + (lane & 15)) * ld + k0 + (lane >> 4) * 8;
-}
-// A operand read from a tile stored transposed, [k][m] (with .trans).
-__device__ __forceinline__ int a_off_t(int lane, int ld, int m0, int k0) {
-  const int mat = lane >> 3;
-  return (k0 + (mat >> 1) * 8 + (lane & 7)) * ld + m0 + (mat & 1) * 8;
-}
-// B operand of two n-tiles (n0.., n0+8..) from a tile stored [n][k].
-__device__ __forceinline__ int b_off_nk(int lane, int ld, int n0, int k0) {
-  return (n0 + (lane & 7) + (lane >> 4) * 8) * ld + k0 + ((lane >> 3) & 1) * 8;
-}
-// B operand of two n-tiles from a tile stored [k][n] (with .trans).
-__device__ __forceinline__ int b_off_kn(int lane, int ld, int n0, int k0) {
-  return (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + n0 + (lane >> 4) * 8;
-}
-
-// Copy rows [row0, row0 + ROWS) of a [nrows, D] matrix into a 16-bit shared
-// tile of type Tt with leading dimension LD, multiplied by `scale` in fp32
-// before the rounding.  Rows past nrows are zero.
-template <typename Tt, typename Tin, int D, int ROWS, int LD, int NTHREADS>
-__device__ __forceinline__ void stage_tile(Tt* dst, const Tin* src,
-                                           int row0, int nrows, float scale) {
-  constexpr int kChunks = D / 8;
-  for (int i = threadIdx.x; i < ROWS * kChunks; i += NTHREADS) {
-    const int r = i / kChunks;
-    const int c = (i - r * kChunks) * 8;
-    float x[8];
-    if (row0 + r < nrows) {
-      load8(src + static_cast<size_t>(row0 + r) * D + c, x);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) x[j] = 0.f;
-    }
-    uint4 packed;
-    packed.x = Tile<Tt>::pack(x[0] * scale, x[1] * scale);
-    packed.y = Tile<Tt>::pack(x[2] * scale, x[3] * scale);
-    packed.z = Tile<Tt>::pack(x[4] * scale, x[5] * scale);
-    packed.w = Tile<Tt>::pack(x[6] * scale, x[7] * scale);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = packed;
-  }
-}
-
-// The fp32 twin of stage_tile (no rounding).
+// Copy rows [row0, row0 + ROWS) of a [nrows, D] fp32 matrix into a shared
+// tile with leading dimension LD, multiplied by `scale`.  Rows past nrows
+// are zero.
 template <int D, int ROWS, int LD, int NTHREADS>
 __device__ __forceinline__ void stage_f32(float* dst, const float* src,
                                           int row0, int nrows, float scale) {
@@ -265,10 +204,18 @@ __device__ __forceinline__ void stage_f32(float* dst, const float* src,
   }
 }
 
+// exp2 on the special-function unit; results below 2^-126 flush to zero
+// (B1's, csrc/fa2_forward.cu).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // Per-row statistics of one Q tile into shared memory: lse * log2(e), and
-// D_i, which is either read (B3/B4) or folded in from O and dO in fp32 (B2,
-// fold_di).  Rows past sq get 0 for both, so their P is finite and their
-// dS, with zero dO, is 0.
+// D_i, which is either read (B4's fp32 body) or folded in from O and dO in
+// fp32 (B2's, FOLD).  Rows past sq get 0 for both, so their P is finite
+// and their dS, with zero dO, is 0.
 template <typename Tin, int D, int ROWS, int NTHREADS, bool FOLD>
 __device__ __forceinline__ void stage_stats(float* lse2_s, float* di_s,
                                             const float* lp, const float* dip,
@@ -303,287 +250,6 @@ __device__ __forceinline__ void stage_stats(float* lse2_s, float* di_s,
     const int r = threadIdx.x;
     lse2_s[r] = q0 + r < sq ? lp[q0 + r] * kLog2e : 0.f;
     di_s[r] = q0 + r < sq ? dip[q0 + r] : 0.f;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// B4 with bf16 or fp16 tiles (Tt) on the tensor cores.  256 threads; warp
-// w owns KV rows [16w, 16w + 16) of the block's 128-row KV tile.  Q tiles are
-// BQ rows: 64 at D = 64, 32 at D = 128 (the S^T and dP^T accumulators shrink
-// to make room for the wider dK and dV ones).
-// ---------------------------------------------------------------------------
-template <typename Tin, typename Tt, int D>
-__global__ void __launch_bounds__(256)
-bwd_kv_mma(const Tin* __restrict__ q, const Tin* __restrict__ k,
-           const Tin* __restrict__ v, const Tin* __restrict__ dout,
-           const float* __restrict__ lse, const float* __restrict__ di,
-           Tin* __restrict__ dk, Tin* __restrict__ dv, int hq, int hkv,
-           int sq, int skv, int kv_len, float qscale, int causal) {
-  constexpr int BQ = D == 128 ? 32 : 64;
-  constexpr int LD = D + 8;    // 16-byte row padding: conflict-free ldmatrix
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Tt* ks = reinterpret_cast<Tt*>(smem_raw);
-  Tt* vs = ks + kKvRows * LD;
-  Tt* qs = vs + kKvRows * LD;
-  Tt* dos = qs + BQ * LD;
-  float* lse2_s = reinterpret_cast<float*>(dos + BQ * LD);
-  float* di_s = lse2_s + BQ;
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  // Under causal the first KV tiles see the most Q tiles: they go first.
-  const int kt = blockIdx.x;
-  const int k0 = kt * kKvRows;
-  const int bh = blockIdx.y;  // b * hkv + kv head
-  const int b = bh / hkv;
-  const int hk = bh - b * hkv;
-  const int groups = hq / hkv;
-  const size_t kv_off = static_cast<size_t>(bh) * skv * D;
-
-  stage_tile<Tt, Tin, D, kKvRows, LD, 256>(ks, k + kv_off, k0, skv, 1.f);
-  stage_tile<Tt, Tin, D, kKvRows, LD, 256>(vs, v + kv_off, k0, skv, 1.f);
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
-  }
-  const int n_q_tiles = (sq + BQ - 1) / BQ;
-  const int q_first = causal ? min(k0 / BQ, n_q_tiles) : 0;
-  const int kv_a = k0 + warp * 16 + g;  // this thread's two KV rows
-  const int kv_b = kv_a + 8;
-
-  for (int gi = 0; gi < groups; ++gi) {
-    const size_t bhq = static_cast<size_t>(b) * hq + hk * groups + gi;
-    const Tin* qp = q + bhq * sq * D;
-    const Tin* dop = dout + bhq * sq * D;
-    const float* lp = lse + bhq * sq;
-    const float* dip = di + bhq * sq;
-    for (int qt = q_first; qt < n_q_tiles; ++qt) {
-      const int q0 = qt * BQ;
-      __syncthreads();  // the previous tile's Q, dO and stats are used
-      stage_tile<Tt, Tin, D, BQ, LD, 256>(qs, qp, q0, sq, qscale);
-      stage_tile<Tt, Tin, D, BQ, LD, 256>(dos, dop, q0, sq, 1.f);
-      stage_stats<Tin, D, BQ, 256, false>(lse2_s, di_s, lp, dip, nullptr, dop,
-                                          q0, sq);
-      __syncthreads();
-
-      // S^T = K Q_s^T and dP^T = V dO^T for this warp's 16 KV rows.
-      float st[BQ / 8][4], dpt[BQ / 8][4];
-#pragma unroll
-      for (int j = 0; j < BQ / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-      }
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t ka[4], va[4];
-        ldmatrix_x4(ka, ks + a_off(lane, LD, warp * 16, kk * 16));
-        ldmatrix_x4(va, vs + a_off(lane, LD, warp * 16, kk * 16));
-#pragma unroll
-        for (int np = 0; np < BQ / 16; ++np) {
-          uint32_t bq[4], bd[4];
-          ldmatrix_x4(bq, qs + b_off_nk(lane, LD, np * 16, kk * 16));
-          ldmatrix_x4(bd, dos + b_off_nk(lane, LD, np * 16, kk * 16));
-          Tile<Tt>::mma(st[2 * np], ka, bq[0], bq[1]);
-          Tile<Tt>::mma(st[2 * np + 1], ka, bq[2], bq[3]);
-          Tile<Tt>::mma(dpt[2 * np], va, bd[0], bd[1]);
-          Tile<Tt>::mma(dpt[2 * np + 1], va, bd[2], bd[3]);
-        }
-      }
-
-      // P^T = exp2(S^T - lse2), exactly 0 where masked; dS^T in dpt.
-      const bool need_mask =
-          (k0 + kKvRows > kv_len) || (causal && k0 + kKvRows - 1 > q0);
-#pragma unroll
-      for (int j = 0; j < BQ / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = j * 8 + t4 * 2 + (e & 1);
-          const int row = e < 2 ? kv_a : kv_b;
-          float p = exp2f(st[j][e] - lse2_s[c]);
-          if (need_mask && (row >= kv_len || (causal && row > q0 + c))) p = 0.f;
-          st[j][e] = p;
-          dpt[j][e] = p * (dpt[j][e] - di_s[c]);
-        }
-      }
-
-      // dV += P^T dO and dK += dS^T Q_s: the accumulators of n-tiles 2kk
-      // and 2kk+1 are exactly the A fragment of k-step kk.
-#pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) {
-        uint32_t pa[4], sa[4];
-        pa[0] = Tile<Tt>::pack(st[2 * kk][0], st[2 * kk][1]);
-        pa[1] = Tile<Tt>::pack(st[2 * kk][2], st[2 * kk][3]);
-        pa[2] = Tile<Tt>::pack(st[2 * kk + 1][0], st[2 * kk + 1][1]);
-        pa[3] = Tile<Tt>::pack(st[2 * kk + 1][2], st[2 * kk + 1][3]);
-        sa[0] = Tile<Tt>::pack(dpt[2 * kk][0], dpt[2 * kk][1]);
-        sa[1] = Tile<Tt>::pack(dpt[2 * kk][2], dpt[2 * kk][3]);
-        sa[2] = Tile<Tt>::pack(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]);
-        sa[3] = Tile<Tt>::pack(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3]);
-#pragma unroll
-        for (int dp = 0; dp < D / 16; ++dp) {
-          uint32_t bd[4], bq[4];
-          ldmatrix_x4_trans(bd, dos + b_off_kn(lane, LD, dp * 16, kk * 16));
-          ldmatrix_x4_trans(bq, qs + b_off_kn(lane, LD, dp * 16, kk * 16));
-          Tile<Tt>::mma(dv_acc[2 * dp], pa, bd[0], bd[1]);
-          Tile<Tt>::mma(dv_acc[2 * dp + 1], pa, bd[2], bd[3]);
-          Tile<Tt>::mma(dk_acc[2 * dp], sa, bq[0], bq[1]);
-          Tile<Tt>::mma(dk_acc[2 * dp + 1], sa, bq[2], bq[3]);
-        }
-      }
-
-    }
-  }
-
-  Tin* dkp = dk + kv_off;
-  Tin* dvp = dv + kv_off;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int col = j * 8 + t4 * 2;
-    if (kv_a < skv) {
-      store2(dkp + static_cast<size_t>(kv_a) * D + col, dk_acc[j][0] * kLn2,
-             dk_acc[j][1] * kLn2);
-      store2(dvp + static_cast<size_t>(kv_a) * D + col, dv_acc[j][0], dv_acc[j][1]);
-    }
-    if (kv_b < skv) {
-      store2(dkp + static_cast<size_t>(kv_b) * D + col, dk_acc[j][2] * kLn2,
-             dk_acc[j][3] * kLn2);
-      store2(dvp + static_cast<size_t>(kv_b) * D + col, dv_acc[j][2], dv_acc[j][3]);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// B3 with bf16 or fp16 tiles (Tt) on the tensor cores.  128 threads; warp w owns Q rows
-// [16w, 16w + 16) of the block's 64-row Q tile; the loop walks 64-row KV
-// tiles up to the diagonal.
-// ---------------------------------------------------------------------------
-template <typename Tin, typename Tt, int D>
-__global__ void __launch_bounds__(128)
-bwd_dq_mma(const Tin* __restrict__ q, const Tin* __restrict__ k,
-           const Tin* __restrict__ v, const Tin* __restrict__ dout,
-           const float* __restrict__ lse, const float* __restrict__ di,
-           Tin* __restrict__ dq, int hq, int hkv, int sq, int skv, int kv_len,
-           float qscale, float sm_scale, int causal) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Tt* qs = reinterpret_cast<Tt*>(smem_raw);
-  Tt* dos = qs + kDqRows * LD;
-  Tt* ks = dos + kDqRows * LD;
-  Tt* vs = ks + kDqKv * LD;
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  // Causal tiles near the end of the sequence carry the most KV tiles.
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kDqRows;
-  const int bh = blockIdx.y;
-  const int b = bh / hq;
-  const int hk = (bh - b * hq) / (hq / hkv);
-  const Tin* qp = q + static_cast<size_t>(bh) * sq * D;
-  const Tin* dop = dout + static_cast<size_t>(bh) * sq * D;
-  const Tin* kp = k + (static_cast<size_t>(b) * hkv + hk) * skv * D;
-  const Tin* vp = v + (static_cast<size_t>(b) * hkv + hk) * skv * D;
-
-  stage_tile<Tt, Tin, D, kDqRows, LD, 128>(qs, qp, q0, sq, qscale);
-  stage_tile<Tt, Tin, D, kDqRows, LD, 128>(dos, dop, q0, sq, 1.f);
-  const int row_a = q0 + warp * 16 + g;
-  const int row_b = row_a + 8;
-  float lse2[2], dd[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = i ? row_b : row_a;
-    lse2[i] = row < sq ? lse[static_cast<size_t>(bh) * sq + row] * kLog2e : 0.f;
-    dd[i] = row < sq ? di[static_cast<size_t>(bh) * sq + row] : 0.f;
-  }
-
-  const int kv_end = causal ? min(kv_len, q0 + kDqRows) : kv_len;
-  const int n_tiles = (kv_end + kDqKv - 1) / kDqKv;
-  float acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  }
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kDqKv;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    stage_tile<Tt, Tin, D, kDqKv, LD, 128>(ks, kp, k0, skv, 1.f);
-    stage_tile<Tt, Tin, D, kDqKv, LD, 128>(vs, vp, k0, skv, 1.f);
-    __syncthreads();
-
-    float s[kDqKv / 8][4], dp[kDqKv / 8][4];
-#pragma unroll
-    for (int j = 0; j < kDqKv / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t qa[4], da[4];
-      ldmatrix_x4(qa, qs + a_off(lane, LD, warp * 16, kk * 16));
-      ldmatrix_x4(da, dos + a_off(lane, LD, warp * 16, kk * 16));
-#pragma unroll
-      for (int np = 0; np < kDqKv / 16; ++np) {
-        uint32_t bk[4], bv[4];
-        ldmatrix_x4(bk, ks + b_off_nk(lane, LD, np * 16, kk * 16));
-        ldmatrix_x4(bv, vs + b_off_nk(lane, LD, np * 16, kk * 16));
-        Tile<Tt>::mma(s[2 * np], qa, bk[0], bk[1]);
-        Tile<Tt>::mma(s[2 * np + 1], qa, bk[2], bk[3]);
-        Tile<Tt>::mma(dp[2 * np], da, bv[0], bv[1]);
-        Tile<Tt>::mma(dp[2 * np + 1], da, bv[2], bv[3]);
-      }
-    }
-
-    const bool need_mask =
-        (k0 + kDqKv > kv_len) || (causal && k0 + kDqKv - 1 > q0);
-#pragma unroll
-    for (int j = 0; j < kDqKv / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + j * 8 + t4 * 2 + (e & 1);
-        const int row = e < 2 ? row_a : row_b;
-        float p = exp2f(s[j][e] - lse2[e >> 1]);
-        if (need_mask && (col >= kv_len || (causal && col > row))) p = 0.f;
-        s[j][e] = p * (dp[j][e] - dd[e >> 1]);  // dS
-      }
-    }
-
-    // dQ += dS K, K read transposed by ldmatrix.
-#pragma unroll
-    for (int kk = 0; kk < kDqKv / 16; ++kk) {
-      uint32_t sa[4];
-      sa[0] = Tile<Tt>::pack(s[2 * kk][0], s[2 * kk][1]);
-      sa[1] = Tile<Tt>::pack(s[2 * kk][2], s[2 * kk][3]);
-      sa[2] = Tile<Tt>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      sa[3] = Tile<Tt>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dp2 = 0; dp2 < D / 16; ++dp2) {
-        uint32_t bk[4];
-        ldmatrix_x4_trans(bk, ks + b_off_kn(lane, LD, dp2 * 16, kk * 16));
-        Tile<Tt>::mma(acc[2 * dp2], sa, bk[0], bk[1]);
-        Tile<Tt>::mma(acc[2 * dp2 + 1], sa, bk[2], bk[3]);
-      }
-    }
-  }
-
-  Tin* dqp = dq + static_cast<size_t>(bh) * sq * D;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int col = j * 8 + t4 * 2;
-    if (row_a < sq) {
-      store2(dqp + static_cast<size_t>(row_a) * D + col, acc[j][0] * sm_scale,
-             acc[j][1] * sm_scale);
-    }
-    if (row_b < sq) {
-      store2(dqp + static_cast<size_t>(row_b) * D + col, acc[j][2] * sm_scale,
-             acc[j][3] * sm_scale);
-    }
   }
 }
 
@@ -892,8 +558,9 @@ bwd_dq_fp32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// B2 with bf16 or fp16 tiles (Tt): a prologue, the main kernel on wgmma, and
-// the dQ reduce.
+// bf16 or fp16 tiles (Tt): the prologue (B2, B3, B4), the KV-major wgmma
+// kernel (B2 with DQ, B4 without), B2's dQ reduce, and B3's Q-major wgmma
+// kernel.
 // ---------------------------------------------------------------------------
 // Eight lanes' worth of a row: 8 values of a 16-bit tile type, packed.
 template <typename Tt>
@@ -908,20 +575,21 @@ __device__ __forceinline__ void store8(Tt* p, const float* x, float scale) {
 
 // D / 8 lanes per row, 8 contiguous values a lane.  Rows [0, q_rows *
 // sq_pad) are query rows (b*Hq + h, r): Q_s = round_tile(Q * qscale) with
-// the fp32 multiply first, dO in the tile type (where dos is given), D_i =
-// rowsum(dO * O) in fp32 and lse2 = lse * log2(e), both 0 for rows r >= sq
-// (the padding up to sq_pad).  The rows after them are K and V rows, cast
-// to the tile type (where ks is given).  Every conversion rounds to nearest
-// even, where the plain version rounds.
+// the fp32 multiply first, dO in the tile type (where dos is given), lse2 =
+// lse * log2(e) and D_i, both 0 for rows r >= sq (the padding up to
+// sq_pad).  D_i is rowsum(dO * O) in fp32 where o is given (B2), else the
+// caller's di [q_rows, sq] copied (B3, B4).  The rows after them are K and
+// V rows, cast to the tile type (where ks is given).  Every conversion
+// rounds to nearest even, where the plain version rounds.
 template <typename Tin, typename Tt, int D>
 __global__ void __launch_bounds__(256)
 bwd_prologue(const Tin* __restrict__ q, const Tin* __restrict__ o,
              const Tin* __restrict__ dout, const float* __restrict__ lse,
-             const Tin* __restrict__ k, const Tin* __restrict__ v,
-             Tt* __restrict__ qs, Tt* __restrict__ dos, Tt* __restrict__ ks,
-             Tt* __restrict__ vs, float* __restrict__ lse2,
-             float* __restrict__ di, int q_rows, int sq, int sq_pad,
-             int kv_rows, float qscale) {
+             const float* __restrict__ di_in, const Tin* __restrict__ k,
+             const Tin* __restrict__ v, Tt* __restrict__ qs,
+             Tt* __restrict__ dos, Tt* __restrict__ ks, Tt* __restrict__ vs,
+             float* __restrict__ lse2, float* __restrict__ di, int q_rows,
+             int sq, int sq_pad, int kv_rows, float qscale) {
   constexpr int kLanes = D / 8;
   const int lane = threadIdx.x & 31;
   const int sub = lane % kLanes;
@@ -938,10 +606,12 @@ bwd_prologue(const Tin* __restrict__ q, const Tin* __restrict__ o,
       float x[8], g[8], y[8];
       load8(q + at, x);
       store8(qs + at, x, qscale);
-      load8(dout + at, g);
-      load8(o + at, y);
+      if (o != nullptr || dos != nullptr) load8(dout + at, g);
+      if (o != nullptr) {
+        load8(o + at, y);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) acc = fmaf(g[i], y[i], acc);
+        for (int i = 0; i < 8; ++i) acc = fmaf(g[i], y[i], acc);
+      }
       if (dos != nullptr) store8(dos + at, g, 1.f);
     }
   } else if (ks != nullptr && row - n_q < static_cast<size_t>(kv_rows)) {
@@ -958,18 +628,24 @@ bwd_prologue(const Tin* __restrict__ q, const Tin* __restrict__ o,
   }
   if (row < n_q && sub == 0) {
     lse2[row] = r < sq ? lse[bhq * sq + r] * kLog2e : 0.f;
-    di[row] = acc;
+    if (o != nullptr) {
+      di[row] = acc;
+    } else {
+      di[row] = r < sq ? di_in[bhq * sq + r] : 0.f;
+    }
   }
 }
 
-// Shared memory of the main kernel, from a 1024-byte-aligned base: the
-// block's K and V tiles, kStages stages of Q_s and of dO, two dS^T buffers,
-// kStages stages of the row statistics ([lse2 | D_i][BQ] fp32), then the
-// mbarriers.  K, V, Q_s and dO arrive by TMA as boxes of R rows x 64
-// columns (128 bytes), 128-byte-swizzled (16-byte chunk c of row r at c ^
-// (r % 8)).  dS^T [128 kv][BQ q] is stored by the consumers in the same
+// Shared memory of the KV-major kernel, from a 1024-byte-aligned base: the
+// block's K and V tiles, kStages stages of Q_s and of dO, with DQ two dS^T
+// buffers, kStages stages of the row statistics ([lse2 | D_i][BQ] fp32),
+// then the mbarriers.  Without DQ (B4) a third stage in place of the dS^T
+// buffers ran as fast as two, and 8% slower at a ragged S 1000 (timed by
+// scripts/kernel_ab.py --kernel b4; PERF.md).  K, V, Q_s and dO arrive by TMA as boxes of R rows x
+// 64 columns (128 bytes), 128-byte-swizzled (16-byte chunk c of row r at c
+// ^ (r % 8)).  dS^T [128 kv][BQ q] is stored by the consumers in the same
 // swizzle, as BQ / 64 atoms of 128 rows x 64 q columns.
-template <int D>
+template <int D, bool DQ>
 struct BwdLayout {
   static constexpr int BQ = D == 64 ? 128 : 64;  // Q rows per step of the walk
   static constexpr int kStages = 2;
@@ -979,7 +655,7 @@ struct BwdLayout {
   static constexpr int kKVBytes = kKVBox * kBoxes;
   static constexpr int kQBytes = kQBox * kBoxes;
   static constexpr int kDsAtom = kKvRows * 128;
-  static constexpr int kDsBytes = kDsAtom * (BQ / 64);
+  static constexpr int kDsBytes = DQ ? kDsAtom * (BQ / 64) : 0;
   static constexpr int kStatBytes = 2 * BQ * 4;
   static constexpr int kK = 0;
   static constexpr int kV = kK + kKVBytes;
@@ -993,7 +669,7 @@ struct BwdLayout {
 };
 
 // Registers per thread after setmaxnreg: 128 x 24 + 256 x 240 = 64512 of
-// the SM's 65536 (one block per SM).
+// the SM's 65536 (one block per SM).  Both wgmma kernels.
 constexpr int kBwdThreads = 384;
 constexpr int kBwdProducerRegs = 24;
 constexpr int kBwdConsumerRegs = 240;
@@ -1003,8 +679,10 @@ constexpr int kBwdConsumerRegs = 240;
 // dO tiles with their statistics into the stage ring.  Warpgroups 1 and 2
 // (consumer c) own KV rows [64 c, 64 c + 64) of the tile; warp w of a
 // consumer holds rows 16 w + g and 16 w + g + 8 of every accumulator,
-// columns 8 j + 2 t4 and 8 j + 2 t4 + 1 of each 8-column group j.
-template <typename Tin, typename Tt, int D>
+// columns 8 j + 2 t4 and 8 j + 2 t4 + 1 of each 8-column group j.  With DQ
+// (B2) each step also writes the tile's dQ slice; without it (B4) the block
+// computes dK and dV only, and dq_part is not written.
+template <typename Tin, typename Tt, int D, bool DQ>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 bwd_fused_wgmma(const __grid_constant__ CUtensorMap k_map,
                 const __grid_constant__ CUtensorMap v_map,
@@ -1014,7 +692,7 @@ bwd_fused_wgmma(const __grid_constant__ CUtensorMap k_map,
                 Tin* __restrict__ dk, Tin* __restrict__ dv,
                 float* __restrict__ dq_part, int hq, int hkv, int sq,
                 int sq_pad, int skv, int kv_len, int causal) {
-  using L = BwdLayout<D>;
+  using L = BwdLayout<D, DQ>;
   constexpr int BQ = L::BQ;
   constexpr int kStages = L::kStages;
   extern __shared__ unsigned char smem_raw[];
@@ -1096,8 +774,8 @@ bwd_fused_wgmma(const __grid_constant__ CUtensorMap k_map,
   const int r_b = r_a + 8;
   const int kv_a = k0 + r_a;
   const int kv_b = k0 + r_b;
-  // The consumer's share of each dQ tile: Q rows [qm, qm + 64) and columns
-  // [dn, dn + 64), over all 128 KV rows of the tile.
+  // The consumer's share of each dQ tile (DQ): Q rows [qm, qm + 64) and
+  // columns [dn, dn + 64), over all 128 KV rows of the tile.
   const int qm = BQ == 128 ? 64 * c : 0;
   const int dn = D == 128 ? 64 * c : 0;
   const uint32_t ks = base + L::kK + 64 * c * 128;  // this consumer's K rows
@@ -1155,7 +833,10 @@ bwd_fused_wgmma(const __grid_constant__ CUtensorMap k_map,
       for (int e = 0; e < 4; ++e) {
         const int col = jj * 8 + t4 * 2 + (e & 1);
         const int row = e < 2 ? kv_a : kv_b;
-        float p = exp2f(st_acc[4 * jj + e] - lse2_s[col]);
+        // B2 keeps exp2f; B4 takes exp2_ftz, as B1 and B3 (12% faster at
+        // the train shape, PERF.md).
+        const float x = st_acc[4 * jj + e] - lse2_s[col];
+        float p = DQ ? exp2f(x) : exp2_ftz(x);
         if (need_mask && (row >= kv_len || (causal && row > q0 + col))) p = 0.f;
         st_acc[4 * jj + e] = p;
         dpt[4 * jj + e] = p * (dpt[4 * jj + e] - di_s[col]);
@@ -1173,16 +854,18 @@ bwd_fused_wgmma(const __grid_constant__ CUtensorMap k_map,
 
     // dS^T into dS buffer j % 2 (the dQ product reads it as A, MN-major).
     unsigned char* dsb = smem + L::kDs + (j & 1) * L::kDsBytes;
+    if constexpr (DQ) {
 #pragma unroll
-    for (int jj = 0; jj < BQ / 8; ++jj) {
-      const int atom = jj / 8;
-      const int ch = jj % 8;
-      *reinterpret_cast<uint32_t*>(dsb + atom * L::kDsAtom + r_a * 128 +
-                                   ((ch ^ (r_a & 7)) * 16) + 4 * t4) =
-          sa[jj / 2][(jj & 1) * 2];
-      *reinterpret_cast<uint32_t*>(dsb + atom * L::kDsAtom + r_b * 128 +
-                                   ((ch ^ (r_b & 7)) * 16) + 4 * t4) =
-          sa[jj / 2][(jj & 1) * 2 + 1];
+      for (int jj = 0; jj < BQ / 8; ++jj) {
+        const int atom = jj / 8;
+        const int ch = jj % 8;
+        *reinterpret_cast<uint32_t*>(dsb + atom * L::kDsAtom + r_a * 128 +
+                                     ((ch ^ (r_a & 7)) * 16) + 4 * t4) =
+            sa[jj / 2][(jj & 1) * 2];
+        *reinterpret_cast<uint32_t*>(dsb + atom * L::kDsAtom + r_b * 128 +
+                                     ((ch ^ (r_b & 7)) * 16) + 4 * t4) =
+            sa[jj / 2][(jj & 1) * 2 + 1];
+      }
     }
 
     // dV += P^T dO and dK += dS^T Q_s: k-step kk reads Q rows [16 kk, 16
@@ -1199,29 +882,32 @@ bwd_fused_wgmma(const __grid_constant__ CUtensorMap k_map,
     }
     wgmma_commit();
 
-    // dS^T's generic-proxy stores must be visible to wgmma (the async
-    // proxy), and both consumers' halves in place (named barrier 1), before
-    // the dQ product.  Buffer j % 2 was last read by the dQ product of step
-    // j - 2, which both consumers waited for before step j - 1's barrier.
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    asm volatile("bar.sync 1, 256;\n" ::: "memory");
-
-    // The dQ slice: dS K over the tile's 128 KV rows (8 k-steps), A = dS^T
-    // and B = the K tile both MN-major.
     float dq[32];
-    wgmma_fence();
-    const uint32_t dsa = smem_addr(dsb) + (qm / 64) * L::kDsAtom;
-    const uint32_t kb = base + L::kK + (dn / 64) * L::kKVBox;
+    if constexpr (DQ) {
+      // dS^T's generic-proxy stores must be visible to wgmma (the async
+      // proxy), and both consumers' halves in place (named barrier 1),
+      // before the dQ product.  Buffer j % 2 was last read by the dQ
+      // product of step j - 2, which both consumers waited for before step
+      // j - 1's barrier.
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");
+
+      // The dQ slice: dS K over the tile's 128 KV rows (8 k-steps), A =
+      // dS^T and B = the K tile both MN-major.
+      wgmma_fence();
+      const uint32_t dsa = smem_addr(dsb) + (qm / 64) * L::kDsAtom;
+      const uint32_t kb = base + L::kK + (dn / 64) * L::kKVBox;
 #pragma unroll
-    for (int kk = 0; kk < kKvRows / 16; ++kk) {
-      Tile<Tt>::ss_tt(dq, sw128_desc(dsa + kk * 16 * 128, L::kDsAtom, 1024),
-                      sw128_desc(kb + kk * 16 * 128, L::kKVBox, 1024), kk > 0);
+      for (int kk = 0; kk < kKvRows / 16; ++kk) {
+        Tile<Tt>::ss_tt(dq, sw128_desc(dsa + kk * 16 * 128, L::kDsAtom, 1024),
+                        sw128_desc(kb + kk * 16 * 128, L::kKVBox, 1024), kk > 0);
+      }
+      wgmma_commit();
     }
-    wgmma_commit();
     wgmma_wait<0>();
     hold(dk_acc);
     hold(dv_acc);
-    hold(dq);
+    if constexpr (DQ) hold(dq);
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
       hold(pa[kk]);
@@ -1231,15 +917,17 @@ bwd_fused_wgmma(const __grid_constant__ CUtensorMap k_map,
     __syncwarp();
     if (lane == 0) mbar_arrive(empty_q + 8 * st);
 
-    float* dqp =
-        dq_part + (static_cast<size_t>(bhq) * gridDim.x + kt) * sq * D;
-    const int ra = q0 + qm + 16 * warp + g;
-    const int rb = ra + 8;
+    if constexpr (DQ) {
+      float* dqp =
+          dq_part + (static_cast<size_t>(bhq) * gridDim.x + kt) * sq * D;
+      const int ra = q0 + qm + 16 * warp + g;
+      const int rb = ra + 8;
 #pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-      const int col = dn + jj * 8 + t4 * 2;
-      if (ra < sq) store2(dqp + static_cast<size_t>(ra) * D + col, dq[4 * jj], dq[4 * jj + 1]);
-      if (rb < sq) store2(dqp + static_cast<size_t>(rb) * D + col, dq[4 * jj + 2], dq[4 * jj + 3]);
+      for (int jj = 0; jj < 8; ++jj) {
+        const int col = dn + jj * 8 + t4 * 2;
+        if (ra < sq) store2(dqp + static_cast<size_t>(ra) * D + col, dq[4 * jj], dq[4 * jj + 1]);
+        if (rb < sq) store2(dqp + static_cast<size_t>(rb) * D + col, dq[4 * jj + 2], dq[4 * jj + 3]);
+      }
     }
   }
 
@@ -1294,6 +982,297 @@ dq_reduce(const float* __restrict__ dq_part, Tout* __restrict__ dq, int sq,
   }
 }
 
+// Shared memory of B3's kernel, from a 1024-byte-aligned base: the block's
+// Q_s and dO tiles (BQ rows), kStages K stages, kStages V stages (BN rows
+// each), the row statistics ([lse2 | D_i][BQ] fp32), then the mbarriers.
+// Every tile is D / 64 TMA boxes of R rows x 128 bytes, 128-byte-swizzled.
+template <int D>
+struct DqLayout {
+  static constexpr int BQ = 128;                 // Q rows per block
+  static constexpr int BN = D == 64 ? 128 : 64;  // KV rows per ring stage
+  static constexpr int kStages = 3;  // 1.08-1.23x faster than 2 (PERF.md)
+  static constexpr int kBoxes = D / 64;
+  static constexpr int kQBox = BQ * 128;
+  static constexpr int kKVBox = BN * 128;
+  static constexpr int kQBytes = kQBox * kBoxes;
+  static constexpr int kKVBytes = kKVBox * kBoxes;
+  static constexpr int kStatBytes = 2 * BQ * 4;
+  static constexpr int kQ = 0;
+  static constexpr int kDO = kQ + kQBytes;
+  static constexpr int kK = kDO + kQBytes;
+  static constexpr int kV = kK + kStages * kKVBytes;
+  static constexpr int kStats = kV + kStages * kKVBytes;
+  static constexpr int kBars = kStats + kStatBytes;
+  // full Q, full and empty of each K and V stage, and alignment slack.
+  static constexpr int kSmem = kBars + 8 * (1 + 4 * kStages) + 1024;
+};
+
+// B3: one block per (128-row Q tile, b * Hq), the tiles handed out from the
+// last, so the longest causal rows start first.  Warpgroup 0 is the
+// producer: one thread loads the block's Q_s and dO tiles and their lse2
+// and D_i rows once, then streams the K and V tiles of the walk (to the
+// causal diagonal and kv_len) into their rings.  Warpgroups 1 and 2
+// (consumer c) own Q rows [64 c, 64 c + 64) of the tile; warp w of a
+// consumer holds rows 16 w + g and 16 w + g + 8 of every accumulator,
+// columns 8 j + 2 t4 and 8 j + 2 t4 + 1 of each 8-column group j.
+template <typename Tin, typename Tt, int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
+             const __grid_constant__ CUtensorMap do_map,
+             const __grid_constant__ CUtensorMap k_map,
+             const __grid_constant__ CUtensorMap v_map,
+             const float* __restrict__ lse2, const float* __restrict__ di,
+             Tin* __restrict__ dq, int hq, int hkv, int sq, int sq_pad,
+             int kv_len, float sm_scale, int causal) {
+  using L = DqLayout<D>;
+  constexpr int BQ = L::BQ;
+  constexpr int BN = L::BN;
+  constexpr int kStages = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t full_q = base + L::kBars;
+  const uint32_t full_k = full_q + 8;  // stage s at + 8 s
+  const uint32_t full_v = full_k + 8 * kStages;
+  const uint32_t empty_k = full_v + 8 * kStages;
+  const uint32_t empty_v = empty_k + 8 * kStages;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int bh = blockIdx.y;  // b * hq + query head
+  const int b = bh / hq;
+  const int hk = (bh - b * hq) / (hq / hkv);
+  // Under causal the walk ends at the tile's last row before sq; a walk
+  // with no key (kv_len 0) loads nothing and stores zeros.
+  const int kv_end = causal ? min(kv_len, min(sq, q0 + BQ)) : kv_len;
+  const int n_tiles = kv_end > 0 ? (kv_end + BN - 1) / BN : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_k + 8 * s, 1);
+      mbar_init(full_v + 8 * s, 1);
+      mbar_init(empty_k + 8 * s, 8);  // one arrival per consumer warp
+      mbar_init(empty_v + 8 * s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kBwdProducerRegs));
+    if (threadIdx.x == 0 && n_tiles > 0) {
+      mbar_expect_tx(full_q, 2 * L::kQBytes + L::kStatBytes);
+#pragma unroll
+      for (int box = 0; box < L::kBoxes; ++box) {
+        tma_load_3d(base + L::kQ + box * L::kQBox, &q_map, full_q, box * 64,
+                    q0, bh);
+        tma_load_3d(base + L::kDO + box * L::kQBox, &do_map, full_q, box * 64,
+                    q0, bh);
+      }
+      const size_t row = static_cast<size_t>(bh) * sq_pad + q0;
+      tma_load_1d(base + L::kStats, lse2 + row, BQ * 4, full_q);
+      tma_load_1d(base + L::kStats + BQ * 4, di + row, BQ * 4, full_q);
+      const int kv_head = b * hkv + hk;
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % kStages;
+        // The first pass over a ring finds every stage empty.  V goes
+        // first: its stage is freed before K's (after dP, not after dQ).
+        const uint32_t parity = ((t / kStages) & 1) ^ 1;
+        mbar_wait(empty_v + 8 * st, parity);
+        mbar_expect_tx(full_v + 8 * st, L::kKVBytes);
+#pragma unroll
+        for (int box = 0; box < L::kBoxes; ++box) {
+          tma_load_3d(base + L::kV + st * L::kKVBytes + box * L::kKVBox,
+                      &v_map, full_v + 8 * st, box * 64, t * BN, kv_head);
+        }
+        mbar_wait(empty_k + 8 * st, parity);
+        mbar_expect_tx(full_k + 8 * st, L::kKVBytes);
+#pragma unroll
+        for (int box = 0; box < L::kBoxes; ++box) {
+          tma_load_3d(base + L::kK + st * L::kKVBytes + box * L::kKVBox,
+                      &k_map, full_k + 8 * st, box * 64, t * BN, kv_head);
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kBwdConsumerRegs));
+  const int c = wg - 1;
+  const int tid = threadIdx.x - 128 * wg;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int r_a = 64 * c + 16 * warp + g;  // this thread's rows of the Q tile
+  const int row_a = q0 + r_a;
+  const int row_b = row_a + 8;
+  const int qc0 = q0 + 64 * c;
+  const uint32_t qs = base + L::kQ + 64 * c * 128;  // this consumer's Q rows
+  const uint32_t dos = base + L::kDO + 64 * c * 128;
+
+  float dq_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+  float lse2_r[2] = {0.f, 0.f}, di_r[2] = {0.f, 0.f};
+  if (n_tiles > 0) {
+    mbar_wait(full_q, 0);
+    const float* stats = reinterpret_cast<const float*>(smem + L::kStats);
+    lse2_r[0] = stats[r_a];
+    lse2_r[1] = stats[r_a + 8];
+    di_r[0] = stats[BQ + r_a];
+    di_r[1] = stats[BQ + r_a + 8];
+  }
+  // A K or V stage is free once this warp's product that read it has
+  // completed.
+  auto release = [&](uint32_t empty, int t) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * (t % kStages));
+  };
+  float s[BN / 2], dp[BN / 2];
+  uint32_t sa[BN / 16][4];
+  // Issue S = Q_s K^T and dP = dO V^T of tile t, one group, not waited
+  // for: D / 16 k-steps of 32 bytes, four to a 128-byte box, all operands
+  // K-major.
+  auto issue_sdp = [&](int t) {
+    const int st = t % kStages;
+    mbar_wait(full_k + 8 * st, (t / kStages) & 1);
+    mbar_wait(full_v + 8 * st, (t / kStages) & 1);
+    const uint32_t ks = base + L::kK + st * L::kKVBytes;
+    const uint32_t vs = base + L::kV + st * L::kKVBytes;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t qoff = (kk / 4) * L::kQBox + (kk % 4) * 32;
+      const uint32_t off = (kk / 4) * L::kKVBox + (kk % 4) * 32;
+      Tile<Tt>::ss(s, sw128_desc(qs + qoff, 16, 1024),
+                   sw128_desc(ks + off, 16, 1024), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t qoff = (kk / 4) * L::kQBox + (kk % 4) * 32;
+      const uint32_t off = (kk / 4) * L::kKVBox + (kk % 4) * 32;
+      Tile<Tt>::ss(dp, sw128_desc(dos + qoff, 16, 1024),
+                   sw128_desc(vs + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+  };
+  // Issue dQ += dS K of tile t from sa, one group, not waited for: k-step
+  // kk reads K rows [16 kk, 16 kk + 16) of the stage, two 8-row groups 1024
+  // bytes apart, MN-major (the transpose bit); the 64-column boxes are
+  // kKVBox apart.
+  auto issue_dq = [&](int t) {
+    const uint32_t ks = base + L::kK + (t % kStages) * L::kKVBytes;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      Tile<Tt>::rs(dq_acc, sa[kk], sw128_desc(ks + kk * 16 * 128, L::kKVBox, 1024));
+    }
+    wgmma_commit();
+  };
+  // P = exp2(S - lse2), exactly 0 where masked, and dS = P (dP - D_i) of
+  // tile t in fp32, in place of S.
+  auto grads = [&](int t) {
+    const int k0 = t * BN;
+    const bool need_mask =
+        (k0 + BN > kv_len) || (causal && k0 + BN - 1 > qc0);
+#pragma unroll
+    for (int jj = 0; jj < BN / 8; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + jj * 8 + t4 * 2 + (e & 1);
+        const int row = e < 2 ? row_a : row_b;
+        float p = exp2_ftz(s[4 * jj + e] - lse2_r[e >> 1]);
+        if (need_mask && (col >= kv_len || (causal && col > row))) p = 0.f;
+        s[4 * jj + e] = p * (dp[4 * jj + e] - di_r[e >> 1]);
+      }
+    }
+  };
+  // dS in the tile type: the accumulators of column groups 2 kk and 2 kk +
+  // 1 are exactly the register A fragment of k-step kk.
+  auto pack_ds = [&] {
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        sa[kk][i] = Tile<Tt>::pack(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+      }
+    }
+  };
+  // dQ(t) and its K stage are done.
+  auto finish_dq = [&](int t) {
+    wgmma_wait<0>();
+    hold(dq_acc);
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) hold(sa[kk]);
+    release(empty_k, t);
+  };
+
+  // dQ(t) runs on the tensor cores while the gradients of tile t + 1 run
+  // on the other units: S(t + 1) and dP(t + 1) are issued before dQ(t) and
+  // waited for (wait_group 1) before it, and dS(t + 1) is rounded into the
+  // A fragments once dQ(t) is done.  Every pass of the loop issues the
+  // same two groups (the last tile's dQ is peeled off), so ptxas can
+  // pipeline them.  The two consumers take turns to issue their products
+  // (named barriers 1 and 2, 256 threads: one consumer waits, the other
+  // arrives), so that one's gradients run while the other's products hold
+  // the tensor cores; consumer 0 has the first turn.
+  auto take_turn = [&] {
+    asm volatile("bar.sync %0, 256;\n" ::"r"(1 + c) : "memory");
+  };
+  auto pass_turn = [&] {
+    asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - c) : "memory");
+  };
+  if (n_tiles > 0) {
+    if (c == 0) asm volatile("bar.arrive 1, 256;\n" ::: "memory");
+    take_turn();
+    issue_sdp(0);
+    pass_turn();
+    wgmma_wait<0>();
+    hold(s);
+    hold(dp);
+    release(empty_v, 0);
+    grads(0);
+    pack_ds();
+  }
+  for (int t = 0; t + 1 < n_tiles; ++t) {
+    take_turn();
+    issue_sdp(t + 1);
+    issue_dq(t);
+    pass_turn();
+    wgmma_wait<1>();
+    hold(s);
+    hold(dp);
+    release(empty_v, t + 1);
+    grads(t + 1);
+    finish_dq(t);
+    pack_ds();
+  }
+  if (n_tiles > 0) {
+    take_turn();
+    issue_dq(n_tiles - 1);
+    pass_turn();
+    finish_dq(n_tiles - 1);
+  }
+
+  Tin* dqp = dq + static_cast<size_t>(bh) * sq * D;
+#pragma unroll
+  for (int jj = 0; jj < D / 8; ++jj) {
+    const int col = jj * 8 + t4 * 2;
+    if (row_a < sq) {
+      store2(dqp + static_cast<size_t>(row_a) * D + col,
+             dq_acc[4 * jj] * sm_scale, dq_acc[4 * jj + 1] * sm_scale);
+    }
+    if (row_b < sq) {
+      store2(dqp + static_cast<size_t>(row_b) * D + col,
+             dq_acc[4 * jj + 2] * sm_scale, dq_acc[4 * jj + 3] * sm_scale);
+    }
+  }
+}
+
 // Arguments shared by every launch.
 struct Args {
   const void* q;
@@ -1311,24 +1290,6 @@ struct Args {
   int causal;
   cudaStream_t stream;
 };
-
-template <typename Tin, typename Tt, int D>
-cudaError_t launch_kv_mma(const Args& a) {
-  constexpr int BQ = D == 128 ? 32 : 64;
-  const size_t smem =
-      (2 * kKvRows + 2 * BQ) * (D + 8) * sizeof(Tt) + 2 * BQ * sizeof(float);
-  static std::atomic<uint64_t> smem_set{0};
-  cudaError_t err = set_smem_once(bwd_kv_mma<Tin, Tt, D>,
-                                  static_cast<int>(smem), smem_set);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.skv + kKvRows - 1) / kKvRows, a.batch * a.hkv);
-  bwd_kv_mma<Tin, Tt, D><<<grid, 256, smem, a.stream>>>(
-      static_cast<const Tin*>(a.q), static_cast<const Tin*>(a.k),
-      static_cast<const Tin*>(a.v), static_cast<const Tin*>(a.dout), a.lse,
-      a.di, static_cast<Tin*>(a.dk), static_cast<Tin*>(a.dv), a.hq, a.hkv,
-      a.sq, a.skv, a.kv_len, a.qscale, a.causal);
-  return cudaGetLastError();
-}
 
 template <int D, bool FUSED>
 cudaError_t launch_kv_fp32(const Args& a) {
@@ -1349,22 +1310,6 @@ cudaError_t launch_kv_fp32(const Args& a) {
   return cudaGetLastError();
 }
 
-template <typename Tin, typename Tt, int D>
-cudaError_t launch_dq_mma(const Args& a) {
-  const size_t smem = (2 * kDqRows + 2 * kDqKv) * (D + 8) * sizeof(Tt);
-  static std::atomic<uint64_t> smem_set{0};
-  cudaError_t err = set_smem_once(bwd_dq_mma<Tin, Tt, D>,
-                                  static_cast<int>(smem), smem_set);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.sq + kDqRows - 1) / kDqRows, a.batch * a.hq);
-  bwd_dq_mma<Tin, Tt, D><<<grid, 128, smem, a.stream>>>(
-      static_cast<const Tin*>(a.q), static_cast<const Tin*>(a.k),
-      static_cast<const Tin*>(a.v), static_cast<const Tin*>(a.dout), a.lse,
-      a.di, static_cast<Tin*>(a.dq), a.hq, a.hkv, a.sq, a.skv, a.kv_len,
-      a.qscale, a.sm_scale, a.causal);
-  return cudaGetLastError();
-}
-
 template <int D>
 cudaError_t launch_dq_fp32(const Args& a) {
   const size_t smem =
@@ -1382,43 +1327,10 @@ cudaError_t launch_dq_fp32(const Args& a) {
   return cudaGetLastError();
 }
 
-// The tensor-core instantiations of one input type and head dim: tiles 1
-// is bf16, 2 fp16.
-template <typename Tin, int D>
-int launch_kv_mma_tiles(const Args& a, int tiles) {
-  return tiles == 1 ? launch_kv_mma<Tin, __nv_bfloat16, D>(a)
-                    : launch_kv_mma<Tin, __half, D>(a);
-}
-
-template <typename Tin, int D>
-int launch_dq_mma_tiles(const Args& a, int tiles) {
-  return tiles == 1 ? launch_dq_mma<Tin, __nv_bfloat16, D>(a)
-                    : launch_dq_mma<Tin, __half, D>(a);
-}
-
-// B4's instantiations.  in_bf16: q/k/v/dO and the gradients are bf16 (else
-// fp32).  tiles: 0 fp32 on the FMA units (needs fp32 inputs), 1 bf16 or 2
-// fp16 on the tensor cores.
-int dispatch_dkv(const Args& a, int head_dim, int in_bf16, int tiles) {
-  if (tiles == 1 || tiles == 2) {
-    if (in_bf16) {
-      if (head_dim == 64) return launch_kv_mma_tiles<__nv_bfloat16, 64>(a, tiles);
-      if (head_dim == 128) return launch_kv_mma_tiles<__nv_bfloat16, 128>(a, tiles);
-    } else {
-      if (head_dim == 64) return launch_kv_mma_tiles<float, 64>(a, tiles);
-      if (head_dim == 128) return launch_kv_mma_tiles<float, 128>(a, tiles);
-    }
-  } else if (tiles == 0 && !in_bf16) {
-    if (head_dim == 64) return launch_kv_fp32<64, false>(a);
-    if (head_dim == 128) return launch_kv_fp32<128, false>(a);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// B2's workspace: Q_s (and, where the inputs are not already in the tile
-// type, dO, K and V) in the tile type, then the lse2 and D_i planes [batch
-// * hq, sq_pad] fp32, sq_pad = sq rounded up to 128.  Each part starts on a
-// 256-byte boundary.
+// The workspace of the 16-bit tiles (B2, B3, B4): Q_s (and, where the
+// inputs are not already in the tile type, dO, K and V) in the tile type,
+// then the lse2 and D_i planes [batch * hq, sq_pad] fp32, sq_pad = sq
+// rounded up to 128.  Each part starts on a 256-byte boundary.
 struct BwdWorkspace {
   size_t qs, dos, ks, vs, lse2, di, total;
 };
@@ -1472,10 +1384,22 @@ int map_3d(CUtensorMap* map, const void* ptr, int tiles, int rows, int seq,
   return r == CUDA_SUCCESS ? 0 : kErrEncode;
 }
 
-// The prologue, then the main kernel.
+// What the wgmma kernels read: Q_s, dO, K and V in the tile type (the
+// inputs themselves where they are in it already), and the padded lse2 and
+// D_i planes, each as a tensor map or a pointer.
+struct Planes {
+  CUtensorMap q_map, do_map, k_map, v_map;
+  const float* lse2;
+  const float* di;
+  int sq_pad;
+};
+
+// The prologue (D_i folded in from a.o for B2, a.di copied for B3 and B4),
+// then the four maps: Q_s and dO in boxes of q_box rows, K and V in boxes
+// of kv_box rows.
 template <typename Tin, typename Tt, int D>
-int launch_fused_wgmma(const Args& a, int tiles, void* workspace) {
-  using L = BwdLayout<D>;
+int prepare(const Args& a, int tiles, void* workspace, int q_box, int kv_box,
+            Planes* p) {
   constexpr bool kCast = !std::is_same<Tin, Tt>::value;
   const BwdWorkspace w =
       bwd_workspace(a.batch, a.hq, a.hkv, a.sq, a.skv, D, kCast);
@@ -1486,42 +1410,110 @@ int launch_fused_wgmma(const Args& a, int tiles, void* workspace) {
   Tt* vs = kCast ? reinterpret_cast<Tt*>(ws + w.vs) : nullptr;
   float* lse2 = reinterpret_cast<float*>(ws + w.lse2);
   float* di = reinterpret_cast<float*>(ws + w.di);
-  const int sq_pad = sq_padded(a.sq);
+  p->sq_pad = sq_padded(a.sq);
+  p->lse2 = lse2;
+  p->di = di;
   const int q_rows = a.batch * a.hq;
   const int kv_rows = kCast ? a.batch * a.hkv * a.skv : 0;
-  const size_t rows = static_cast<size_t>(q_rows) * sq_pad + kv_rows;
+  const size_t rows = static_cast<size_t>(q_rows) * p->sq_pad + kv_rows;
   bwd_prologue<Tin, Tt, D><<<static_cast<unsigned>((rows * (D / 8) + 255) / 256),
                              256, 0, a.stream>>>(
       static_cast<const Tin*>(a.q), static_cast<const Tin*>(a.o),
-      static_cast<const Tin*>(a.dout), a.lse, static_cast<const Tin*>(a.k),
-      static_cast<const Tin*>(a.v), qs, dos, ks, vs, lse2, di, q_rows, a.sq,
-      sq_pad, kv_rows, a.qscale);
-  cudaError_t cerr = cudaGetLastError();
+      static_cast<const Tin*>(a.dout), a.lse, a.di,
+      static_cast<const Tin*>(a.k), static_cast<const Tin*>(a.v), qs, dos, ks,
+      vs, lse2, di, q_rows, a.sq, p->sq_pad, kv_rows, a.qscale);
+  const cudaError_t cerr = cudaGetLastError();
   if (cerr != cudaSuccess) return cerr;
-
-  CUtensorMap k_map, v_map, q_map, do_map;
   const int kv_heads = a.batch * a.hkv;
-  int err = map_3d(&k_map, kCast ? ks : a.k, tiles, kv_heads, a.skv, D, kKvRows);
-  if (err == 0) err = map_3d(&v_map, kCast ? vs : a.v, tiles, kv_heads, a.skv, D, kKvRows);
-  if (err == 0) err = map_3d(&q_map, qs, tiles, q_rows, a.sq, D, L::BQ);
-  if (err == 0) err = map_3d(&do_map, kCast ? dos : a.dout, tiles, q_rows, a.sq, D, L::BQ);
+  int err = map_3d(&p->k_map, kCast ? ks : a.k, tiles, kv_heads, a.skv, D, kv_box);
+  if (err == 0) err = map_3d(&p->v_map, kCast ? vs : a.v, tiles, kv_heads, a.skv, D, kv_box);
+  if (err == 0) err = map_3d(&p->q_map, qs, tiles, q_rows, a.sq, D, q_box);
+  if (err == 0) err = map_3d(&p->do_map, kCast ? dos : a.dout, tiles, q_rows, a.sq, D, q_box);
+  return err;
+}
+
+// B2 (DQ) or B4: the prologue, then the KV-major kernel.
+template <typename Tin, typename Tt, int D, bool DQ>
+int launch_kv_wgmma(const Args& a, int tiles, void* workspace) {
+  using L = BwdLayout<D, DQ>;
+  Planes p;
+  const int err = prepare<Tin, Tt, D>(a, tiles, workspace, L::BQ, kKvRows, &p);
   if (err != 0) return err;
   static std::atomic<uint64_t> smem_set{0};
-  cerr = set_smem_once(bwd_fused_wgmma<Tin, Tt, D>, L::kSmem, smem_set);
+  const cudaError_t cerr =
+      set_smem_once(bwd_fused_wgmma<Tin, Tt, D, DQ>, L::kSmem, smem_set);
   if (cerr != cudaSuccess) return cerr;
   const dim3 grid((a.skv + kKvRows - 1) / kKvRows, a.batch * a.hkv);
-  bwd_fused_wgmma<Tin, Tt, D><<<grid, kBwdThreads, L::kSmem, a.stream>>>(
-      k_map, v_map, q_map, do_map, lse2, di, static_cast<Tin*>(a.dk),
-      static_cast<Tin*>(a.dv), static_cast<float*>(a.dq), a.hq, a.hkv, a.sq,
-      sq_pad, a.skv, a.kv_len, a.causal);
+  bwd_fused_wgmma<Tin, Tt, D, DQ><<<grid, kBwdThreads, L::kSmem, a.stream>>>(
+      p.k_map, p.v_map, p.q_map, p.do_map, p.lse2, p.di,
+      static_cast<Tin*>(a.dk), static_cast<Tin*>(a.dv),
+      static_cast<float*>(a.dq), a.hq, a.hkv, a.sq, p.sq_pad, a.skv, a.kv_len,
+      a.causal);
   return cudaGetLastError();
 }
 
+// B3: the prologue, then the Q-major kernel.
+template <typename Tin, typename Tt, int D>
+int launch_dq_wgmma(const Args& a, int tiles, void* workspace) {
+  using L = DqLayout<D>;
+  Planes p;
+  const int err = prepare<Tin, Tt, D>(a, tiles, workspace, L::BQ, L::BN, &p);
+  if (err != 0) return err;
+  static std::atomic<uint64_t> smem_set{0};
+  const cudaError_t cerr =
+      set_smem_once(bwd_dq_wgmma<Tin, Tt, D>, L::kSmem, smem_set);
+  if (cerr != cudaSuccess) return cerr;
+  const dim3 grid((a.sq + L::BQ - 1) / L::BQ, a.batch * a.hq);
+  bwd_dq_wgmma<Tin, Tt, D><<<grid, kBwdThreads, L::kSmem, a.stream>>>(
+      p.q_map, p.do_map, p.k_map, p.v_map, p.lse2, p.di,
+      static_cast<Tin*>(a.dq), a.hq, a.hkv, a.sq, p.sq_pad, a.kv_len,
+      a.sm_scale, a.causal);
+  return cudaGetLastError();
+}
+
+enum class BwdKernel { kFused, kDq, kDkv };  // B2, B3, B4
+
+template <typename Tin, typename Tt, int D>
+int launch_16bit(BwdKernel kernel, const Args& a, int tiles, void* workspace) {
+  if (kernel == BwdKernel::kDq) return launch_dq_wgmma<Tin, Tt, D>(a, tiles, workspace);
+  if (kernel == BwdKernel::kFused) {
+    return launch_kv_wgmma<Tin, Tt, D, true>(a, tiles, workspace);
+  }
+  return launch_kv_wgmma<Tin, Tt, D, false>(a, tiles, workspace);
+}
+
 template <typename Tin, int D>
-int launch_fused_tiles(const Args& a, int tiles, void* workspace) {
+int launch_tiles(BwdKernel kernel, const Args& a, int tiles, void* workspace) {
   return tiles == 1
-             ? launch_fused_wgmma<Tin, __nv_bfloat16, D>(a, tiles, workspace)
-             : launch_fused_wgmma<Tin, __half, D>(a, tiles, workspace);
+             ? launch_16bit<Tin, __nv_bfloat16, D>(kernel, a, tiles, workspace)
+             : launch_16bit<Tin, __half, D>(kernel, a, tiles, workspace);
+}
+
+template <int D>
+int launch_fp32(BwdKernel kernel, const Args& a) {
+  if (kernel == BwdKernel::kDq) return launch_dq_fp32<D>(a);
+  if (kernel == BwdKernel::kFused) return launch_kv_fp32<D, true>(a);
+  return launch_kv_fp32<D, false>(a);
+}
+
+// The instantiations of every kernel.  in_bf16: q/k/v/o/dO and the
+// gradients are bf16 (else fp32).  tiles: 0 fp32 on the FMA units (needs
+// fp32 inputs), 1 bf16 or 2 fp16 on the tensor cores.
+int dispatch(BwdKernel kernel, const Args& a, int head_dim, int in_bf16,
+             int tiles, void* workspace) {
+  if (tiles == 1 || tiles == 2) {
+    if (in_bf16) {
+      if (head_dim == 64) return launch_tiles<__nv_bfloat16, 64>(kernel, a, tiles, workspace);
+      if (head_dim == 128) return launch_tiles<__nv_bfloat16, 128>(kernel, a, tiles, workspace);
+    } else {
+      if (head_dim == 64) return launch_tiles<float, 64>(kernel, a, tiles, workspace);
+      if (head_dim == 128) return launch_tiles<float, 128>(kernel, a, tiles, workspace);
+    }
+  } else if (tiles == 0 && !in_bf16) {
+    if (head_dim == 64) return launch_fp32<64>(kernel, a);
+    if (head_dim == 128) return launch_fp32<128>(kernel, a);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -1534,10 +1526,11 @@ int cfa_fa2_backward_kv_tile(int tiles) {
   return tiles ? kKvRows : kTile32;
 }
 
-// Bytes of B2's workspace for these shapes and types (0 with fp32 tiles).
-long long cfa_fa2_backward_fused_workspace(int batch, int hq, int hkv, int sq,
-                                           int skv, int head_dim, int in_bf16,
-                                           int tiles) {
+// Bytes of the workspace of B2, B3 and B4 for these shapes and types (0
+// with fp32 tiles).
+long long cfa_fa2_backward_workspace(int batch, int hq, int hkv, int sq,
+                                     int skv, int head_dim, int in_bf16,
+                                     int tiles) {
   if (tiles != 1 && tiles != 2) return 0;
   return static_cast<long long>(
       bwd_workspace(batch, hq, hkv, sq, skv, head_dim, !(in_bf16 && tiles == 1))
@@ -1549,9 +1542,9 @@ long long cfa_fa2_backward_fused_workspace(int batch, int hq, int hkv, int sq,
 // ceil(skv / kv_tile), sq, head_dim] fp32, of which the kernel writes the
 // live slices (cfa_fa2_backward_dq_reduce reads exactly those).  All
 // contiguous and 16-byte aligned.  qscale = sm_scale * log2(e).
-// workspace: cfa_fa2_backward_fused_workspace bytes, 256-byte aligned
-// (unused with fp32 tiles).  Returns a cudaError_t, or an error of the
-// tensor-map step.
+// workspace: cfa_fa2_backward_workspace bytes, 256-byte aligned (unused
+// with fp32 tiles).  Returns a cudaError_t, or an error of the tensor-map
+// step.
 int cfa_fa2_backward_fused(const void* q, const void* k, const void* v,
                            const void* o, const void* dout, const void* lse,
                            void* dk, void* dv, void* dq_part, int batch,
@@ -1561,19 +1554,7 @@ int cfa_fa2_backward_fused(const void* q, const void* k, const void* v,
   const Args a{q, k, v, o, dout, static_cast<const float*>(lse), nullptr,
                dq_part, dk, dv, batch, hq, hkv, sq, skv, kv_len, qscale, 0.f,
                causal, static_cast<cudaStream_t>(stream)};
-  if (tiles == 1 || tiles == 2) {
-    if (in_bf16) {
-      if (head_dim == 64) return launch_fused_tiles<__nv_bfloat16, 64>(a, tiles, workspace);
-      if (head_dim == 128) return launch_fused_tiles<__nv_bfloat16, 128>(a, tiles, workspace);
-    } else {
-      if (head_dim == 64) return launch_fused_tiles<float, 64>(a, tiles, workspace);
-      if (head_dim == 128) return launch_fused_tiles<float, 128>(a, tiles, workspace);
-    }
-  } else if (tiles == 0 && !in_bf16) {
-    if (head_dim == 64) return launch_kv_fp32<64, true>(a);
-    if (head_dim == 128) return launch_kv_fp32<128, true>(a);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(BwdKernel::kFused, a, head_dim, in_bf16, tiles, workspace);
 }
 
 // B2's dQ from its slices: dq [batch, hq, sq, head_dim] (bf16 when
@@ -1608,37 +1589,26 @@ int cfa_fa2_backward_dkv(const void* q, const void* k, const void* v,
                          void* dk, void* dv, int batch, int hq, int hkv,
                          int sq, int skv, int head_dim, int kv_len,
                          float qscale, int causal, int in_bf16, int tiles,
-                         void* stream) {
+                         void* workspace, void* stream) {
   const Args a{q, k, v, nullptr, dout, static_cast<const float*>(lse),
                static_cast<const float*>(di), nullptr, dk, dv, batch, hq, hkv,
                sq, skv, kv_len, qscale, 0.f, causal,
                static_cast<cudaStream_t>(stream)};
-  return dispatch_dkv(a, head_dim, in_bf16, tiles);
+  return dispatch(BwdKernel::kDkv, a, head_dim, in_bf16, tiles, workspace);
 }
 
-// B3.  dq like q, scaled by sm_scale.
+// B3.  As B4, with dq like q, scaled by sm_scale.
 int cfa_fa2_backward_dq(const void* q, const void* k, const void* v,
                         const void* dout, const void* lse, const void* di,
                         void* dq, int batch, int hq, int hkv, int sq, int skv,
                         int head_dim, int kv_len, float qscale, float sm_scale,
-                        int causal, int in_bf16, int tiles, void* stream) {
+                        int causal, int in_bf16, int tiles, void* workspace,
+                        void* stream) {
   const Args a{q, k, v, nullptr, dout, static_cast<const float*>(lse),
                static_cast<const float*>(di), dq, nullptr, nullptr, batch, hq,
                hkv, sq, skv, kv_len, qscale, sm_scale, causal,
                static_cast<cudaStream_t>(stream)};
-  if (tiles == 1 || tiles == 2) {
-    if (in_bf16) {
-      if (head_dim == 64) return launch_dq_mma_tiles<__nv_bfloat16, 64>(a, tiles);
-      if (head_dim == 128) return launch_dq_mma_tiles<__nv_bfloat16, 128>(a, tiles);
-    } else {
-      if (head_dim == 64) return launch_dq_mma_tiles<float, 64>(a, tiles);
-      if (head_dim == 128) return launch_dq_mma_tiles<float, 128>(a, tiles);
-    }
-  } else if (tiles == 0 && !in_bf16) {
-    if (head_dim == 64) return launch_dq_fp32<64>(a);
-    if (head_dim == 128) return launch_dq_fp32<128>(a);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(BwdKernel::kDq, a, head_dim, in_bf16, tiles, workspace);
 }
 
 const char* cfa_fa2_backward_error_string(int err) {
@@ -1646,7 +1616,7 @@ const char* cfa_fa2_backward_error_string(int err) {
     return "libcuda.so.1 has no cuTensorMapEncodeTiled";
   }
   if (err == kErrEncode) {
-    return "cuTensorMapEncodeTiled refused a B2 tensor map";
+    return "cuTensorMapEncodeTiled refused a backward tensor map";
   }
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

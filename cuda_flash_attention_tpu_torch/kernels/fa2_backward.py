@@ -17,10 +17,13 @@ JAX kernels take them as [B, Hq, Sq, 1] stat columns).  Keys at or past
 kernel writes the slices of the Q tiles each KV tile reaches
 (`fused_live_q_tiles`), and a reduce kernel adds each row's live slices in
 KV-tile order, so gradients are bitwise equal from run to run on both
-routes; no kernel adds floats with atomics.  With bf16 or fp16 tiles a
-prologue kernel first forms Q_s, D_i and lse * log2(e) once per call (and
-dO, K, V in the tile type where the inputs are not); `fused_prologue_plain`
-is its plain version.
+routes; no kernel adds floats with atomics.  With bf16 or fp16 tiles each
+of the three first runs a prologue kernel that forms Q_s, lse * log2(e) and
+D_i once per call (and dO, K, V in the tile type where the inputs are not)
+in a workspace the wrapper allocates: B2 folds D_i in from O and dO, B3
+and B4 copy the caller's.  `fused_prologue_plain` is its plain version.
+B3 walks 128-row Q tiles over KV tiles of `dq_kv_tile` rows
+(`dq_kv_tiles`); B4 walks as B2 without writing dQ.
 """
 
 from __future__ import annotations
@@ -55,6 +58,15 @@ _FUSED_KV_TILE = {0: 64, 1: 128, 2: 128}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+# The library's entry points (csrc/fa2_backward.cu): B2, B4 and B3 take the
+# workspace (cfa_fa2_backward_workspace bytes) before the stream.
+ARGTYPES = {
+    "cfa_fa2_backward_fused": [_P] * 9 + [_I] * 7 + [_F] + [_I] * 3 + [_P, _P],
+    "cfa_fa2_backward_workspace": [_I] * 8,
+    "cfa_fa2_backward_dq_reduce": [_P, _P] + [_I] * 7 + [_F] + [_I] * 2 + [_P],
+    "cfa_fa2_backward_dkv": [_P] * 8 + [_I] * 7 + [_F] + [_I] * 3 + [_P, _P],
+    "cfa_fa2_backward_dq": [_P] * 7 + [_I] * 7 + [_F, _F] + [_I] * 3 + [_P, _P],
+}
 
 
 def _lib() -> ctypes.CDLL:
@@ -66,12 +78,9 @@ def _lib() -> ctypes.CDLL:
             if lib.cfa_fa2_backward_kv_tile(tile) != rows:
                 raise RuntimeError("fa2_backward: the library's KV tile differs "
                                    "from _FUSED_KV_TILE")
-        lib.cfa_fa2_backward_fused.argtypes = [_P] * 9 + [_I] * 7 + [_F] + [_I] * 3 + [_P, _P]
-        lib.cfa_fa2_backward_fused_workspace.argtypes = [_I] * 8
-        lib.cfa_fa2_backward_fused_workspace.restype = ctypes.c_longlong
-        lib.cfa_fa2_backward_dq_reduce.argtypes = [_P, _P] + [_I] * 7 + [_F] + [_I] * 2 + [_P]
-        lib.cfa_fa2_backward_dkv.argtypes = [_P] * 8 + [_I] * 7 + [_F] + [_I] * 3 + [_P]
-        lib.cfa_fa2_backward_dq.argtypes = [_P] * 7 + [_I] * 7 + [_F, _F] + [_I] * 3 + [_P]
+        for name, argtypes in ARGTYPES.items():
+            getattr(lib, name).argtypes = argtypes
+        lib.cfa_fa2_backward_workspace.restype = ctypes.c_longlong
         for fn in (lib.cfa_fa2_backward_fused, lib.cfa_fa2_backward_dkv,
                    lib.cfa_fa2_backward_dq, lib.cfa_fa2_backward_dq_reduce):
             fn.restype = _I
@@ -118,6 +127,34 @@ def fused_dq_slice_bytes(b: int, hq: int, sq: int, skv: int, kv_len: int,
     read = sum(min(n_live, r // kv_tile + 1) if causal else n_live
                for r in range(sq))
     return 4 * head_dim * b * hq * (written + read)
+
+
+def dq_kv_tile(head_dim: int) -> int:
+    """KV rows per step of B3's walk with bf16 or fp16 tiles (the CUDA
+    kernel's DqLayout::BN): 128 at D 64, 64 at D 128.  Its Q tiles are 128
+    rows (DqLayout::BQ)."""
+    return 128 if head_dim == 64 else 64
+
+
+def dq_kv_tiles(sq: int, kv_len: int, causal: bool, head_dim: int) -> list[range]:
+    """For each 128-row Q tile of B3 with bf16 or fp16 tiles, the KV tiles
+    (of `dq_kv_tile` rows) that its block walks: to kv_len, and under
+    causal to the tile holding the Q tile's last row before sq; none with
+    no key."""
+    bn = dq_kv_tile(head_dim)
+    tiles = []
+    for q0 in range(0, sq, 128):
+        end = min(kv_len, sq, q0 + 128) if causal else kv_len
+        tiles.append(range(cdiv(max(end, 0), bn)))
+    return tiles
+
+
+def _workspace(lib, q, k, in_bf16: int, tiles: int) -> torch.Tensor:
+    """The prologue's workspace for B2, B3 or B4 (empty with fp32 tiles)."""
+    b, hq, sq, d = q.shape
+    n = lib.cfa_fa2_backward_workspace(b, hq, k.shape[1], sq, k.shape[2], d,
+                                       in_bf16, tiles)
+    return torch.empty(n, device=q.device, dtype=torch.uint8)
 
 
 def _check(name, q, k, v, tile_dtype, same, stats):
@@ -186,10 +223,7 @@ def fa2_backward_fused_aligned(q, k, v, o, do, lse, *, causal: bool,
     lib = _lib()
     # Q_s, D_i and lse * log2(e) (and dO, K, V in the tile type where the
     # inputs are not in it), formed once by the kernel's prologue.
-    workspace = torch.empty(
-        lib.cfa_fa2_backward_fused_workspace(b, hq, hkv, sq, skv, d, in_bf16,
-                                             tiles),
-        device=q.device, dtype=torch.uint8)
+    workspace = _workspace(lib, q, k, in_bf16, tiles)
     err = lib.cfa_fa2_backward_fused(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), dk.data_ptr(), dv.data_ptr(), dq_part.data_ptr(),
@@ -220,10 +254,13 @@ def fa2_backward_dq_aligned(q, k, v, do, lse, di, *, causal: bool,
     _check("fa2_backward_dq", q, k, v, tile_dtype, (do,), (lse, di))
     dq = torch.empty_like(q)
     ints, tail = _common_args(q, k, kv_len, sm_scale, causal, tile_dtype)
+    causal_i, in_bf16, tiles, stream = tail
     lib = _lib()
+    workspace = _workspace(lib, q, k, in_bf16, tiles)
     err = lib.cfa_fa2_backward_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), di.data_ptr(), dq.data_ptr(), *ints, sm_scale, *tail)
+        lse.data_ptr(), di.data_ptr(), dq.data_ptr(), *ints, sm_scale,
+        causal_i, in_bf16, tiles, workspace.data_ptr(), stream)
     _build.check(lib, "cfa_fa2_backward_error_string", err, "fa2_backward_dq")
     dq_launches += 1
     return dq
@@ -246,11 +283,13 @@ def fa2_backward_dkv_aligned(q, k, v, do, lse, di, *, causal: bool,
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     ints, tail = _common_args(q, k, kv_len, sm_scale, causal, tile_dtype)
+    causal_i, in_bf16, tiles, stream = tail
     lib = _lib()
+    workspace = _workspace(lib, q, k, in_bf16, tiles)
     err = lib.cfa_fa2_backward_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(), *ints,
-        *tail)
+        causal_i, in_bf16, tiles, workspace.data_ptr(), stream)
     _build.check(lib, "cfa_fa2_backward_error_string", err, "fa2_backward_dkv")
     dkv_launches += 1
     return dk, dv
@@ -309,15 +348,18 @@ def _dkv(p, ds, qs, dos, k):
 
 
 def fused_prologue_plain(q, k, v, o, do, lse, *, sm_scale: float,
-                         tile_dtype):
-    """B2's prologue with bf16 or fp16 tiles: (Q_s, dO, K, V in the tile
-    type, lse * log2(e), D_i).  Q_s is Q times the fp32 value of sm_scale *
-    log2(e), in fp32, rounded to the tile type; dO, K and V are rounded to
-    it; D_i = rowsum(dO * O) in fp32.  These are the roundings that `_p_ds`
-    applies, so the kernel's prologue moves none of them."""
+                         tile_dtype, di=None):
+    """The prologue of B2, B3 and B4 with bf16 or fp16 tiles: (Q_s, dO, K,
+    V in the tile type, lse * log2(e), D_i).  Q_s is Q times the fp32 value
+    of sm_scale * log2(e), in fp32, rounded to the tile type; dO, K and V
+    are rounded to it; D_i = rowsum(dO * O) in fp32 (B2), or, without O
+    (o None, B3 and B4), the caller's `di` as it is.  These are the
+    roundings that `_p_ds` applies, so the kernel's prologue moves none of
+    them."""
     qscale = torch.tensor(sm_scale * LOG2E, dtype=torch.float32)
     q_s = (q.float() * qscale).to(tile_dtype)
-    di = (do.float() * o.float()).sum(dim=-1)
+    if o is not None:
+        di = (do.float() * o.float()).sum(dim=-1)
     return (q_s, do.to(tile_dtype), k.to(tile_dtype), v.to(tile_dtype),
             lse.float() * LOG2E, di)
 

@@ -1,44 +1,56 @@
-"""Kernel B2 (the fused FA2 backward, csrc/fa2_backward.cu), B9 (FA1) or
-B10 (naive FA2, both csrc/baselines.cu), or B1's fp32 body (csrc/
-fa2_forward.cu, tile code 0) against an earlier build of its source, timed
-in turns on one card.
+"""Kernel B2 (the fused FA2 backward), B3 (its dQ), B4 (its dK and dV) or
+the split pair B3 + B4 (all csrc/fa2_backward.cu), B9 (FA1) or B10 (naive
+FA2, both csrc/baselines.cu), or B1's fp32 body (csrc/fa2_forward.cu, tile
+code 0) against an earlier build of its source, timed in turns on one
+card.
 
     python -m cuda_flash_attention_tpu_torch.scripts.kernel_ab --kernel b2 --parent PATH
+    python -m cuda_flash_attention_tpu_torch.scripts.kernel_ab --kernel b3 --parent PATH
+    python -m cuda_flash_attention_tpu_torch.scripts.kernel_ab --kernel b4 --parent PATH
+    python -m cuda_flash_attention_tpu_torch.scripts.kernel_ab --kernel b3-b4 --parent PATH
     python -m cuda_flash_attention_tpu_torch.scripts.kernel_ab --kernel b9 --parent PATH
     python -m cuda_flash_attention_tpu_torch.scripts.kernel_ab --kernel b10 --parent PATH
     python -m cuda_flash_attention_tpu_torch.scripts.kernel_ab --kernel b1-fp32 --parent PATH
 
-PATH is an earlier fa2_backward.cu (b2), baselines.cu (b9, b10) or
-fa2_forward.cu (b1-fp32) with the same C entry point:
+PATH is an earlier fa2_backward.cu (b2, b3, b4, b3-b4), baselines.cu (b9,
+b10) or fa2_forward.cu (b1-fp32) with the same C entry point:
 cfa_fa2_backward_fused without a workspace (its wrapper summed every dQ
-slice with torch), cfa_fa1_forward, cfa_naive_fa2_forward or
-cfa_fa2_forward (e.g. `git show
-<commit>:cuda_flash_attention_tpu_torch/csrc/baselines.cu >
+slice with torch); cfa_fa2_backward_dq and cfa_fa2_backward_dkv with or
+without a workspace (a source that exports cfa_fa2_backward_workspace,
+such as a variant of the current one, is called as the current wrappers
+call it); cfa_fa1_forward, cfa_naive_fa2_forward or cfa_fa2_forward (e.g.
+`git show <commit>:cuda_flash_attention_tpu_torch/csrc/baselines.cu >
 build/parent/baselines.cu`; the headers it includes are looked up beside
 it first, then in csrc/).  It is built with the package's nvcc flags into
 build/kernels/ and called through a copy of its own wrapper; the current
 kernel through its wrapper (fa2_backward_fused_aligned: prologue, main
-kernel and dQ reduce; fa1_aligned; naive_fa2_aligned;
+kernel and dQ reduce; fa2_backward_dq_aligned and fa2_backward_dkv_aligned:
+prologue and kernel; b3-b4 runs attention._backward's split branch, the
+D_i reduction, B3, then B4; fa1_aligned; naive_fa2_aligned;
 fa2_forward_aligned).  At each of the kernel's shapes (B2_CASES: phase
 7's train rows at D 64 and 128 and the ragged S1000, phase 16's fp16
-tiles; B9_CASES: phase 16's Small-2, Large-2 and Stress-1; B10_CASES:
-those and Stress-1 at D 128; B1_FP32_CASES: Stress-1 non-causal, b1_ab's
-fp32 B1 S512, the train shape in fp32 at D 64 and 128) it prints one JSON
-line with b1_ab's two times, each read in the order parent, current,
-current, parent (`ms`, CUDA events over back-to-back calls; `device_ms`,
-the calls queued behind a sleep kernel), TFLOP/s, the bound, one PyTorch
-call computing the same function (PyTorch's flash backward in the tile
-type for B2; fp32 SDPA for the forwards, K/V expanded to the query heads
-and the causal flag set for B1), the largest difference between the two
-builds' outputs and each wrapper's host time per call.  The card's name
-and power limit come first.
+tiles; SPLIT_CASES: those, phase 11's B16 S2048 and the long-context
+split case B1 Hq16 S8192; B9_CASES: phase 16's Small-2, Large-2 and
+Stress-1; B10_CASES: those and Stress-1 at D 128; B1_FP32_CASES: Stress-1
+non-causal, b1_ab's fp32 B1 S512, the train shape in fp32 at D 64 and
+128) it prints one JSON line with b1_ab's two times, each read in the
+order parent, current, current, parent (`ms`, CUDA events over
+back-to-back calls; `device_ms`, the calls queued behind a sleep kernel),
+TFLOP/s, the bound, one PyTorch call computing the same function
+(PyTorch's flash backward in the tile type for B2 and the pair, none for
+B3 or B4 alone; fp32 SDPA for the forwards, K/V expanded to the query
+heads and the causal flag set for B1), the largest difference between the
+two builds' outputs and each wrapper's host time per call.  The card's
+name and power limit come first.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
@@ -67,6 +79,11 @@ B9_CASES = [
     for name, (b, h, s) in (("Small-2", (2, 4, 256)), ("Large-2", (4, 12, 1024)),
                             ("Stress-1", (8, 16, 2048)))
 ]
+# B3, B4 and the pair: B2's rows, phase 11's split-route train shape (B16
+# S2048) and the long-context shape that the route rule sends to the pair
+# (B1 Hq16 Hkv8 S8192: 2 GiB of dQ slices).
+SPLIT_CASES = B2_CASES[:3] + [dict(_TRAIN, name="B16 S2048", b=16)] + B2_CASES[3:] + [
+    dict(_TRAIN, name="long B1 S8192", b=1, s=8192)]
 # B10: phase 16's rows and Stress-1 at D 128.
 B10_CASES = B9_CASES + [dict(B9_CASES[-1], name="Stress-1 D128", d=128)]
 # B1's fp32 body (b1_ab's case format, Sq = Skv = s): the suite's Stress-1
@@ -82,10 +99,14 @@ B1_FP32_CASES = [dict(c, s=c["sq"]) for c in (
     dict(next(c for c in b1_ab.CASES if c["name"] == "train D128"), **_B1_FP32,
          name="train D128 fp32"),
 )]
-CASES = {"b2": B2_CASES, "b9": B9_CASES, "b10": B10_CASES,
+CASES = {"b2": B2_CASES, "b3": SPLIT_CASES, "b4": SPLIT_CASES,
+         "b3-b4": SPLIT_CASES, "b9": B9_CASES, "b10": B10_CASES,
          "b1-fp32": B1_FP32_CASES}
-# Matmuls of S x S x D per attending (query, key) pair and head.
-_MATMULS = {"b2": 5, "b9": 2, "b10": 2, "b1-fp32": 2}
+# Matmuls of S x S x D per attending (query, key) pair and head: B3
+# recomputes S and dP for dS K, B4 for P^T dO and dS^T Q_s; the pair is
+# bounded by the function's own five, as B2.
+_MATMULS = {"b2": 5, "b3": 3, "b4": 4, "b3-b4": 5, "b9": 2, "b10": 2,
+            "b1-fp32": 2}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -112,6 +133,14 @@ def b2_problem(case, gen):
     return (q, k, v, o, do, lse), kw, raw
 
 
+def split_problem(case, gen):
+    """B3's or B4's inputs: b2_problem's with D_i = rowsum(dO * O) in fp32
+    in place of O, as attention._backward hands them over."""
+    (q, k, v, o, do, lse), kw, raw = b2_problem(case, gen)
+    di = (o.float() * do.float()).sum(dim=-1)
+    return (q, k, v, do, lse, di), kw, raw
+
+
 def b9_problem(case, gen):
     """B9's or B10's inputs: q, k, v [B, H, S, D] fp32, sm_scale 1/sqrt(D)."""
     q, k, v = (torch.randn(case["b"], case["hq"], case["s"], case["d"],
@@ -127,7 +156,8 @@ def b1_fp32_problem(case, gen):
 
 def problem(kernel: str, case, gen):
     """(the kernel's inputs, its keyword arguments, the raw q, k, v[, dO])."""
-    return {"b2": b2_problem, "b9": b9_problem, "b10": b9_problem,
+    return {"b2": b2_problem, "b3": split_problem, "b4": split_problem,
+            "b3-b4": b2_problem, "b9": b9_problem, "b10": b9_problem,
             "b1-fp32": b1_fp32_problem}[kernel](case, gen)
 
 
@@ -138,15 +168,17 @@ def flops(kernel: str, case) -> int:
 
 def bound(kernel: str, case, raw) -> tuple[float, str]:
     """(ms, "bytes" or "operations"): each input read once and each output
-    written once (B2: q, k, v, O, dO, lse in, dQ, dK, dV out; B9, B10: q, k,
-    v in, O out; B1: q, k, v in, O and lse out), or the FLOPs at the tile
-    type's peak."""
+    written once (B2 and the pair: q, k, v, O, dO, lse in, dQ, dK, dV out;
+    B3: q, k, v, dO, lse, D_i in, dQ out; B4: the same in, dK, dV out; B9,
+    B10: q, k, v in, O out; B1: q, k, v in, O and lse out), or the FLOPs at
+    the tile type's peak."""
     q, k = raw[0], raw[1]
     qb = q.numel() * q.element_size()
     kvb = 2 * k.numel() * k.element_size()
     stat = case["b"] * case["hq"] * case["s"] * 4
-    moved = {"b2": 4 * qb + 2 * kvb + stat, "b1-fp32": 2 * qb + kvb + stat}.get(
-        kernel, 2 * qb + kvb)
+    moved = {"b2": 4 * qb + 2 * kvb + stat, "b3-b4": 4 * qb + 2 * kvb + stat,
+             "b3": 3 * qb + kvb + 2 * stat, "b4": 2 * qb + 2 * kvb + 2 * stat,
+             "b1-fp32": 2 * qb + kvb + stat}.get(kernel, 2 * qb + kvb)
     t_bytes = moved / b1_ab.HBM_BYTES_PER_S
     t_ops = flops(kernel, case) / b1_ab.PEAK_FLOPS[case["tile"] or case["dtype"]]
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations"
@@ -154,9 +186,13 @@ def bound(kernel: str, case, raw) -> tuple[float, str]:
 
 def library_call(kernel: str, case, raw, kw):
     """One PyTorch call computing the same function: the aten flash backward
-    (fed by its own forward) in the tile type for B2, with K/V expanded to
-    the query heads; fp32 SDPA for B9 and B10, and for B1 on the keys
-    before kv_len, K/V expanded to the query heads, causal as the case."""
+    (fed by its own forward) in the tile type for B2 and the pair B3 + B4,
+    with K/V expanded to the query heads; none for B3 or B4 alone (dQ, or
+    dK and dV, without the rest); fp32 SDPA for B9 and B10, and for B1 on
+    the keys before kv_len, K/V expanded to the query heads, causal as the
+    case."""
+    if kernel in ("b3", "b4"):
+        return None
     if kernel in ("b9", "b10"):
         q, k, v = raw
         return lambda: F.scaled_dot_product_attention(q, k, v, scale=kw["sm_scale"])
@@ -181,10 +217,20 @@ def library_call(kernel: str, case, raw, kw):
 def build_parent(kernel: str, path: str) -> ctypes.CDLL:
     if kernel == "b1-fp32":
         return b1_ab.build_parent(path)
-    lib = b1_ab.compile_source(path, f"{kernel}_parent")
+    lib = b1_ab.compile_source(path, f"{Path(path).stem}_parent")
     if kernel == "b2":
         lib.cfa_fa2_backward_fused.argtypes = [_P] * 9 + [_I] * 7 + [_F] + [_I] * 3 + [_P]
         lib.cfa_fa2_backward_fused.restype = _I
+    elif kernel in ("b3", "b4", "b3-b4"):
+        if hasattr(lib, "cfa_fa2_backward_workspace"):
+            for name, argtypes in bwd.ARGTYPES.items():
+                getattr(lib, name).argtypes = argtypes
+            lib.cfa_fa2_backward_workspace.restype = ctypes.c_longlong
+        else:
+            lib.cfa_fa2_backward_dq.argtypes = [_P] * 7 + [_I] * 7 + [_F, _F] + [_I] * 3 + [_P]
+            lib.cfa_fa2_backward_dkv.argtypes = [_P] * 8 + [_I] * 7 + [_F] + [_I] * 3 + [_P]
+        lib.cfa_fa2_backward_dq.restype = _I
+        lib.cfa_fa2_backward_dkv.restype = _I
     else:
         lib.cfa_fa1_forward.argtypes = [_P] * 6 + [_I] * 5 + [_F, _P]
         lib.cfa_fa1_forward.restype = _I
@@ -209,6 +255,59 @@ def parent_b2(lib, q, k, v, o, do, lse, *, causal, sm_scale, kv_len, tile_dtype)
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, "cfa_fa2_backward_error_string", err, "parent fa2_backward_fused")
     return dq_part.sum(dim=2).mul_(sm_scale).to(q.dtype), dk, dv
+
+
+def _parent_split(lib, name, q, k, tensors, outs, scales, *, causal, kv_len,
+                  tile_dtype):
+    """The parent's B3 or B4 entry point `name` on `tensors` (q, k, v, dO,
+    lse, D_i) into `outs`, with the workspace where its source takes one."""
+    b, hq, sq, d = q.shape
+    in_bf16, tiles = int(q.dtype == torch.bfloat16), tile_code(q.dtype, tile_dtype)
+    tail = [torch.cuda.current_stream(q.device).cuda_stream]
+    if hasattr(lib, "cfa_fa2_backward_workspace"):
+        n = lib.cfa_fa2_backward_workspace(b, hq, k.shape[1], sq, k.shape[2], d,
+                                           in_bf16, tiles)
+        workspace = torch.empty(n, device=q.device, dtype=torch.uint8)
+        tail.insert(0, workspace.data_ptr())
+    err = getattr(lib, name)(
+        *(t.data_ptr() for t in tensors + outs), b, hq, k.shape[1], sq,
+        k.shape[2], d, kv_len, *scales, int(causal), in_bf16, tiles, *tail)
+    _build.check(lib, "cfa_fa2_backward_error_string", err, f"parent {name}")
+    return outs
+
+
+def parent_b3(lib, q, k, v, do, lse, di, *, causal, sm_scale, kv_len,
+              tile_dtype):
+    return _parent_split(lib, "cfa_fa2_backward_dq", q, k, (q, k, v, do, lse, di),
+                         (torch.empty_like(q),), (sm_scale * LOG2E, sm_scale),
+                         causal=causal, kv_len=kv_len, tile_dtype=tile_dtype)
+
+
+def parent_b4(lib, q, k, v, do, lse, di, *, causal, sm_scale, kv_len,
+              tile_dtype):
+    return _parent_split(lib, "cfa_fa2_backward_dkv", q, k, (q, k, v, do, lse, di),
+                         (torch.empty_like(k), torch.empty_like(v)),
+                         (sm_scale * LOG2E,), causal=causal, kv_len=kv_len,
+                         tile_dtype=tile_dtype)
+
+
+def split_pair(b3, b4):
+    """attention._backward's split branch over B2's inputs with the given
+    B3 and B4 calls: D_i = rowsum(dO * O) in fp32, then B3, then B4;
+    returns (dQ, dK, dV)."""
+    def pair(q, k, v, o, do, lse, **kw):
+        di = (o.float() * do.float()).sum(dim=-1)
+        return (*b3(q, k, v, do, lse, di, **kw), *b4(q, k, v, do, lse, di, **kw))
+    return pair
+
+
+def parent_pair(lib, *args, **kw):
+    return split_pair(functools.partial(parent_b3, lib),
+                      functools.partial(parent_b4, lib))(*args, **kw)
+
+
+def current_b3(*args, **kw):
+    return (bwd.fa2_backward_dq_aligned(*args, **kw),)
 
 
 def parent_b9(lib, q, k, v, *, sm_scale, kv_len):
@@ -240,6 +339,9 @@ def calls(kernel: str):
     each returning a tuple of outputs."""
     return {
         "b2": (parent_b2, bwd.fa2_backward_fused_aligned),
+        "b3": (parent_b3, current_b3),
+        "b4": (parent_b4, bwd.fa2_backward_dkv_aligned),
+        "b3-b4": (parent_pair, split_pair(current_b3, bwd.fa2_backward_dkv_aligned)),
         "b9": (parent_b9, lambda *a, **k: (baselines.fa1_aligned(*a, **k),)),
         "b10": (parent_b10, lambda *a, **k: (baselines.naive_fa2_aligned(*a, **k),)),
         "b1-fp32": (b1_ab.parent_forward, fa2.fa2_forward_aligned),
@@ -250,8 +352,8 @@ def main(argv=None) -> list[dict]:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", required=True, choices=tuple(CASES))
     ap.add_argument("--parent", required=True,
-                    help="an earlier csrc/fa2_backward.cu (b2), csrc/baselines.cu "
-                    "(b9, b10) or csrc/fa2_forward.cu (b1-fp32)")
+                    help="an earlier csrc/fa2_backward.cu (b2, b3, b4, b3-b4), "
+                    "csrc/baselines.cu (b9, b10) or csrc/fa2_forward.cu (b1-fp32)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: needs an NVIDIA card")
@@ -279,6 +381,7 @@ def main(argv=None) -> list[dict]:
         parent_dev = (device_turns[0] + device_turns[3]) / 2
         new_dev = (device_turns[1] + device_turns[2]) / 2
         n_flops = flops(args.kernel, case)
+        library = library_call(args.kernel, case, raw, kw)
         bound_ms, bound_by = bound(args.kernel, case, raw)
         row = dict(kernel=args.kernel, case=case["name"], B=case["b"],
                    Hq=case["hq"], Hkv=case["hkv"], S=case["s"], D=case["d"],
@@ -291,7 +394,7 @@ def main(argv=None) -> list[dict]:
                    parent_tflops=n_flops / parent_dev / 1e9,
                    tflops=n_flops / new_dev / 1e9, bound_ms=bound_ms,
                    bound_by=bound_by,
-                   library_ms=b1_ab.time_ms(library_call(args.kernel, case, raw, kw)),
+                   library_ms=None if library is None else b1_ab.time_ms(library),
                    max_abs_diff=diff, parent_host_us=b1_ab.host_us(old),
                    host_us=b1_ab.host_us(new))
         rows.append(row)

@@ -1,15 +1,25 @@
-"""The case lists of scripts/kernel_ab.py (B2, B9, B10 and B1's fp32 body
-against an earlier build of their sources): each B2 case pads as the API
-pads and matches a row that chip_smoke.py holds and times, each B9 and B10
-case is one of the reference suite's configs in chip_smoke.py, each B1 fp32
-case one of chip_smoke's B1 shapes in fp32, the FLOPs and bounds count
-what the script says, and each kernel's current wrapper takes its problem
-as the script calls it.  CPU only: no kernel runs here."""
+"""The case lists of scripts/kernel_ab.py (B2, B3, B4, the pair B3 + B4,
+B9, B10 and B1's fp32 body against an earlier build of their sources): each
+B2 case pads as the API pads and matches a row that chip_smoke.py holds and
+times, the split cases add the shapes the route rule sends to the pair,
+each B9 and B10 case is one of the reference suite's configs in
+chip_smoke.py, each B1 fp32 case one of chip_smoke's B1 shapes in fp32, the
+FLOPs and bounds count what the script says, each kernel's current wrapper
+takes its problem as the script calls it, and the parent wrappers of B3
+and B4 call the C entry points with the arguments their argtypes declare
+(a fake library stands in for the build).  CPU only: no kernel runs
+here."""
+
+import re
+import types
+from pathlib import Path
 
 import pytest
 import torch
 
 import chip_smoke
+from cuda_flash_attention_tpu_torch.kernels import attention, fa2_backward
+from cuda_flash_attention_tpu_torch.kernels.common import BlockSizes
 from cuda_flash_attention_tpu_torch.scripts import b1_ab, kernel_ab
 
 
@@ -141,5 +151,161 @@ def test_current_wrapper_takes_the_problem_as_kernel_ab_calls_it(kernel):
     x, kw, raw = kernel_ab.problem(kernel, small, torch.Generator().manual_seed(0))
     _, current = kernel_ab.calls(kernel)
     out = current(*x, **kw)
-    assert isinstance(out, tuple) and out[0].shape == x[0].shape
+    first = x[1] if kernel == "b4" else x[0]  # B4's first output is dK
+    assert isinstance(out, tuple) and out[0].shape == first.shape
     assert torch.isfinite(out[0]).all() and raw[0].shape[2] == 64
+
+
+@pytest.mark.parametrize("case", kernel_ab.SPLIT_CASES, ids=lambda c: c["name"])
+def test_split_cases_pad_as_the_api_does(case):
+    """B3's and B4's problem is B2's with D_i = rowsum(dO * O) in fp32 in
+    place of O; the pair takes B2's."""
+    small = dict(case, b=1, hq=case["hq"] // case["hkv"], hkv=1, s=min(case["s"], 200))
+    gen = torch.Generator().manual_seed(0)
+    (q, k, v, do, lse, di), kw, raw = kernel_ab.problem("b3", small, gen)
+    o = kernel_ab.problem("b2", small, torch.Generator().manual_seed(0))[0][3]
+    assert torch.equal(di, (o.float() * do.float()).sum(-1))
+    assert di.dtype == lse.dtype == torch.float32 and di.shape == q.shape[:3]
+    assert q.dtype == b1_ab.dtype_of(case["dtype"])
+    assert kw["tile_dtype"] == b1_ab.dtype_of(case["tile"])
+    assert [t.shape[2] for t in raw] == [small["s"]] * 4
+
+
+def test_split_cases_are_b2s_rows_and_the_split_routes_shapes():
+    """B2's five rows, phase 11's B16 S2048 and the long-context B1 Hq16
+    S8192; the last two are the shapes that the route rule sends to the
+    pair at the default blocks (their dQ slices pass 1 GiB)."""
+    names = {c["name"]: c for c in kernel_ab.SPLIT_CASES}
+    assert all(names[c["name"]] == c for c in kernel_ab.B2_CASES)
+    assert list(names) == ["train", "train D128", "ragged S1000", "B16 S2048",
+                           "train fp16 tiles", "Stress-1 fp16 tiles", "long B1 S8192"]
+    for name, b, s in (("B16 S2048", 16, 2048), ("long B1 S8192", 1, 8192)):
+        c = names[name]
+        assert (c["b"], c["hq"], c["hkv"], c["s"], c["d"], c["causal"],
+                c["dtype"], c["tile"]) == (b, 16, 8, s, 64, True, "bf16", "bf16")
+        q = types.SimpleNamespace(shape=(b, 16, s, 64), dtype=torch.bfloat16)
+        k = types.SimpleNamespace(shape=(b, 8, s, 64), dtype=torch.bfloat16)
+        bk = BlockSizes.default(True).block_k_dkv
+        assert not attention._use_fused_bwd(q, k, min(bk, s), torch.bfloat16)
+    assert kernel_ab.CASES["b3"] is kernel_ab.CASES["b4"] is kernel_ab.CASES["b3-b4"]
+
+
+def test_split_flops_and_bounds():
+    """B3 does three S x S x D products per attending pair, B4 four; the
+    pair is bounded by the function's own five and bytes, as B2; at the
+    train shape all are bound by operations, and only the pair has a
+    library call."""
+    train = kernel_ab.SPLIT_CASES[0]
+    pairs = 2048 * 2049 // 2
+    unit = 2 * 4 * 16 * pairs * 64
+    raw = [torch.empty(4, 16, 2048, 64, dtype=torch.bfloat16),
+           torch.empty(4, 8, 2048, 64, dtype=torch.bfloat16)]
+    for kernel, n in (("b3", 3), ("b4", 4), ("b3-b4", 5)):
+        assert kernel_ab.flops(kernel, train) == n * unit
+        ms, by = kernel_ab.bound(kernel, train, raw)
+        assert by == "operations" and ms == pytest.approx(n * unit / 989e12 * 1e3)
+    assert kernel_ab.bound("b3-b4", train, raw) == kernel_ab.bound("b2", train, raw)
+    # Bytes at a small shape: B3 reads q, k, v, dO, lse, D_i and writes
+    # dQ; B4 writes dK and dV instead; the pair moves B2's.
+    small = dict(train, b=1, hq=2, hkv=1, s=64)
+    raw = [torch.empty(1, 2, 64, 64, dtype=torch.bfloat16),
+           torch.empty(1, 1, 64, 64, dtype=torch.bfloat16)]
+    qb, kvb, stat = 2 * 64 * 64 * 2, 2 * 64 * 64 * 2, 2 * 64 * 4
+    for kernel, moved in (("b3", 3 * qb + kvb + 2 * stat),
+                          ("b4", 2 * qb + 2 * kvb + 2 * stat),
+                          ("b3-b4", 4 * qb + 2 * kvb + stat)):
+        ms, by = kernel_ab.bound(kernel, small, raw)
+        assert by == "bytes" and ms == pytest.approx(moved / 3.35e12 * 1e3)
+    for kernel in ("b3", "b4"):
+        assert kernel_ab.library_call(kernel, train, raw, {}) is None
+
+
+def test_pair_runs_the_split_branch_of_attention_backward():
+    """kernel_ab's current b3-b4 call gives, bit for bit, what
+    attention._backward gives on the split route (plain versions on CPU
+    tensors), from the same inputs."""
+    case = dict(kernel_ab.SPLIT_CASES[0], b=1, hq=4, hkv=2, s=200)
+    (q, k, v, o, do, lse), kw, _ = kernel_ab.problem(
+        "b3-b4", case, torch.Generator().manual_seed(3))
+    _, pair = kernel_ab.calls("b3-b4")
+    got = pair(q, k, v, o, do, lse, **kw)
+    split = BlockSizes(128, 128, 128, 128, 128, 128)
+    want = attention._backward(q, k, v, o, lse, do, kw["kv_len"], kw["causal"],
+                               kw["sm_scale"], split, kw["tile_dtype"])
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+_C_TYPES = {"void*": "c_void_p", "int": "c_int", "float": "c_float"}
+
+
+def _c_signature(name: str) -> list[str]:
+    """The ctypes names of an extern "C" function's parameters in
+    csrc/fa2_backward.cu."""
+    src = (Path(fa2_backward.__file__).parent.parent / "csrc" / "fa2_backward.cu").read_text()
+    params = re.search(rf"\b{name}\(([^)]*)\)\s*{{", src).group(1)
+    out = []
+    for p in params.split(","):
+        p = p.replace("const ", "").split()
+        out.append(_C_TYPES["void*" if "*" in "".join(p) else p[0]])
+    return out
+
+
+@pytest.mark.parametrize("name", list(fa2_backward.ARGTYPES))
+def test_wrapper_argtypes_match_the_c_entry_points(name):
+    assert [t.__name__ for t in fa2_backward.ARGTYPES[name]] == _c_signature(name)
+
+
+class _Entry:
+    """One entry point of _FakeLib: records its arguments, returns 0."""
+
+    argtypes = restype = None
+
+    def __init__(self, name, calls):
+        self.name, self.calls = name, calls
+
+    def __call__(self, *args):
+        self.calls.append((self.name, args))
+        return 0
+
+
+class _FakeLib:
+    """Stands in for a built fa2_backward library: records each call; with
+    `workspace` it exports every current entry point, without it only B3's
+    and B4's as they were before they took a workspace (eb3d034)."""
+
+    def __init__(self, workspace: bool):
+        self.calls = []
+        names = (list(fa2_backward.ARGTYPES) if workspace else
+                 ["cfa_fa2_backward_dq", "cfa_fa2_backward_dkv"])
+        for name in names:
+            setattr(self, name, _Entry(name, self.calls))
+
+
+@pytest.mark.parametrize("workspace", [False, True], ids=["no workspace", "current"])
+def test_parent_split_wrappers_call_as_their_argtypes_declare(monkeypatch, workspace):
+    """build_parent gives B3's and B4's entry points the parent's own
+    argtypes: without cfa_fa2_backward_workspace eb3d034's (no workspace),
+    with it the current wrappers' (fa2_backward.ARGTYPES); the parent
+    wrappers then pass exactly that many arguments, the workspace where
+    the source takes one."""
+    lib = _FakeLib(workspace)
+    monkeypatch.setattr(b1_ab, "compile_source", lambda path, stem: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    assert kernel_ab.build_parent("b3-b4", "unused.cu") is lib
+    for name in ("cfa_fa2_backward_dq", "cfa_fa2_backward_dkv"):
+        argtypes = getattr(lib, name).argtypes
+        if workspace:
+            assert argtypes == fa2_backward.ARGTYPES[name]
+        else:  # eb3d034's: no workspace pointer before the stream
+            assert len(argtypes) == 20
+            assert argtypes == fa2_backward.ARGTYPES[name][:-2] + [fa2_backward._P]
+    case = dict(kernel_ab.SPLIT_CASES[0], b=1, hq=2, hkv=1, s=64)
+    x, kw, _ = kernel_ab.problem("b3-b4", case, torch.Generator().manual_seed(0))
+    out = kernel_ab.parent_pair(lib, *x, **kw)
+    assert [t.shape for t in out] == [x[0].shape, x[1].shape, x[2].shape]
+    calls = [(n, a) for n, a in lib.calls if n != "cfa_fa2_backward_workspace"]
+    assert [n for n, _ in calls] == ["cfa_fa2_backward_dq", "cfa_fa2_backward_dkv"]
+    for name, args in lib.calls:
+        assert len(args) == len(getattr(lib, name).argtypes), name

@@ -438,6 +438,100 @@ def test_fa2_backward_fused_reads_no_dead_slice(cuda, dtype, tile, d):
         assert _rel_err(g, w) <= tol
 
 
+def _split_problem(dtype, tile, d, hq, hkv, sq, skv, causal, kv_len=None,
+                   seed=0):
+    """Padded inputs of B3 and B4 on the card, O, lse and D_i = rowsum(dO *
+    O) from the plain forward.  With kv_len given, q, k, v and dO are taken
+    at the padded lengths sq and skv as they are (keys at or past kv_len
+    masked); else padded as the API pads."""
+    rng = np.random.default_rng(seed)
+    q, do = (_randn(rng, 1, hq, sq, d).to(dtype) for _ in range(2))
+    k, v = (_randn(rng, 1, hkv, skv, d).to(dtype) for _ in range(2))
+    sm_scale = d ** -0.5
+    if kv_len is None:
+        q, k, v, sm_scale, _, kv_len = attention._prepare(
+            q, k, v, causal, None, tile, None, None, None, 0)
+        do = torch.nn.functional.pad(do, (0, 0, 0, q.shape[2] - sq))
+    q, k, v, do = (t.cuda() for t in (q, k, v, do))
+    o, lse = fa2_forward.fa2_forward_plain(q, k, v, causal=causal,
+                                           sm_scale=sm_scale, kv_len=kv_len,
+                                           tile_dtype=tile)
+    di = (o.float() * do.float()).sum(-1)
+    kw = dict(causal=causal, sm_scale=sm_scale, kv_len=kv_len, tile_dtype=tile)
+    return (q, k, v, do, lse, di), kw
+
+
+def _split_outputs(x, kw):
+    """(dQ, dK, dV) of B3 then B4 on the card."""
+    dq = fa2_backward.fa2_backward_dq_aligned(*x, **kw)
+    return (dq, *fa2_backward.fa2_backward_dkv_aligned(*x, **kw))
+
+
+# fp16 tiles on fp32 inputs against their plain version, relative to its
+# max |value| (chip_smoke.py FP16_REL_TOL["bwd"]); the bf16 instantiation on
+# the same inputs must fail it.  bf16 outputs round past that gate, so bf16
+# inputs keep the bf16 gate with fp16 tiles too.
+FP16_BWD_TOL = 1e-3
+SPLIT_VARIANTS = pytest.mark.parametrize("dtype,tile", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
+    (torch.float32, torch.float16), (torch.bfloat16, torch.float16),
+], ids=["bf16", "fp32-in-bf16-tiles", "fp32-in-fp16-tiles", "bf16-in-fp16-tiles"])
+
+
+@SPLIT_VARIANTS
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("hq,hkv,sq,skv,kv_len,causal", [
+    # Sq != Skv both ways, causal and not (the API's padding).
+    (4, 2, 300, 100, None, True), (4, 2, 300, 100, None, False),
+    (4, 2, 128, 384, None, True), (4, 2, 128, 384, None, False),
+    # One partial tile each way; S 112 is one 128-row tile short of rows.
+    (4, 2, 16, 16, None, True), (4, 2, 112, 112, None, True),
+    # kv_len inside the last KV tile (S 1000 pads to 1008).
+    (4, 2, 1000, 1000, None, False),
+    # KV rows [256, 384) wholly past kv_len 200: B4's block there walks
+    # nothing and stores zeros; B3's walk stops before it.
+    (4, 2, 256, 384, 200, True), (4, 2, 256, 384, 200, False),
+    # GQA 16/2: B4 sums eight query heads per KV head.
+    (16, 2, 384, 384, None, True),
+])
+def test_split_kernels_at_the_edges_of_their_tiles(cuda, dtype, tile, d, hq, hkv,
+                                                   sq, skv, kv_len, causal):
+    """B3 and B4 with bf16 or fp16 tiles against their plain versions (run
+    on the same card tensors), at the edges of B3's 128-row Q tiles and
+    128- or 64-row KV tiles and of B4's 128-row KV tiles and Q walk."""
+    x, kw = _split_problem(dtype, tile, d, hq, hkv, sq, skv, causal, kv_len,
+                           seed=sq + skv + d)
+    before = (fa2_backward.dq_launches, fa2_backward.dkv_launches)
+    got = _split_outputs(x, kw)
+    torch.cuda.synchronize()
+    assert (fa2_backward.dq_launches, fa2_backward.dkv_launches) == (
+        before[0] + 1, before[1] + 1)
+    want = (fa2_backward.fa2_backward_dq_plain(*x, **kw),
+            *fa2_backward.fa2_backward_dkv_plain(*x, **kw))
+    fp16_gate = tile == torch.float16 and dtype == torch.float32
+    tol = FP16_BWD_TOL if fp16_gate else 5e-2
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert bool(torch.isfinite(g.float()).all())
+        assert _rel_err(g, w) <= tol
+    if fp16_gate:
+        control = _split_outputs(x, dict(kw, tile_dtype=torch.bfloat16))
+        assert max(_rel_err(c, w) for c, w in zip(control, want)) > tol
+    if kv_len is not None:  # dK and dV of keys past kv_len are zeros
+        assert not got[1][:, :, kv_len:].any() and not got[2][:, :, kv_len:].any()
+
+
+@SPLIT_VARIANTS
+@pytest.mark.parametrize("d", [64, 128])
+def test_split_kernels_bitwise_deterministic(cuda, dtype, tile, d):
+    """Two calls of B3 and of B4 on the same inputs give the same bits: no
+    block adds into another's output."""
+    x, kw = _split_problem(dtype, tile, d, 8, 2, 2048, 2048, True, seed=d)
+    first, second = _split_outputs(x, kw), _split_outputs(x, kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("tile", [None, torch.bfloat16], ids=["fp32", "bf16-tiles"])
 @pytest.mark.parametrize("block_sizes", [None, SPLIT], ids=["fused", "split"])
 def test_fa2_backward_bitwise_deterministic(cuda, tile, block_sizes):
