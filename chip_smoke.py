@@ -10,9 +10,11 @@ Phases (any failure raises and the script exits non-zero):
      once; ptxas's registers, spills and wgmma notes for every
      instantiation of the backward's bf16/fp16-tile kernels (B2's
      prologue, main kernel and dQ reduce; B3's kernel; B4's, the main
-     kernel without its dQ phase) and of the fp32 FMA block's (B10 and
-     B1's fp32 body at D 64 and 128), failing on a spilled byte, a wgmma
-     serialisation note or a missing instantiation;
+     kernel without its dQ phase) and of the fp32 FMA block's (B10, B1's
+     fp32 body, the backward's `bwd_kv_fp32` (B4, and B2's with FUSED),
+     `bwd_dq_fp32` (B3) and their fp32 prologue, at D 64 and 128),
+     failing on a spilled byte, a wgmma serialisation note or a missing
+     instantiation;
   2. kernel B1 (FA2 forward) against its plain PyTorch version at the
      serving prefill shapes (the serving run's largest, B4 S1536, included)
      and at the train shape (B4 S2048), and at the edges of its 128-row
@@ -32,10 +34,13 @@ Phases (any failure raises and the script exits non-zero):
   7. kernels B2, B3, B4 (FA2 backward) against their plain versions at the
      train shape (B4 Hq16 Hkv8 S2048 D64 causal bf16) and at D 128, fp32 at
      B1 S512 and a ragged S1000, B3 and B4 also at B16 S2048 (the
-     split-route training shape), with times, bounds and the backward of PyTorch's flash
-     attention; then torch.autograd.grad of flash_attention on both routes
-     (fused B2; split B3 + B4, forced by 128-row BlockSizes) against the
-     plain versions, and bitwise-equal gradients from two runs of each;
+     split-route training shape); their fp32 bodies at the harness's fp32
+     routes (B2 at Large-2, B3 and B4 at Stress-1) and B3 and B4 at the
+     fp32 train shape; with times, bounds and the backward of PyTorch's
+     flash attention (SDPA's memory-efficient backward in fp32); then
+     torch.autograd.grad of flash_attention on both routes (fused B2;
+     split B3 + B4, forced by 128-row BlockSizes) against the plain
+     versions, and bitwise-equal gradients from two runs of each;
   8. one AdamW train step at the base width in fp32 on the card (kernels)
      and on the CPU (plain versions) from the same seeded weights;
   9. training TransformerConfig.base() (bf16) at B4 S2048: 2 warm-up and 5
@@ -172,13 +177,18 @@ def nbytes(*tensors) -> int:
 # The backward's kernels with bf16 or fp16 tiles, by patterns of the names
 # they carry in ptxas's mangled entry names, and their instantiations (two
 # input types x two tile types x D 64 and 128; the reduce two output
-# types): B2's main kernel (DQ true, Lb1E), the prologue of B2-B4 and B2's
-# dQ reduce; B3's kernel; B4's, the main kernel with DQ false (Lb0E).  And
-# the fp32 FMA block's kernels (B10, B1's fp32 body: D 64 and 128 each).
-BWD_FUNCTIONS = {"B2": ((r"bwd_fused_wgmma\w*Lb1E", "bwd_prologue", "dq_reduce"), 18),
+# types): B2's main kernel (DQ true, Lb1E), the prologue of B2-B4 with
+# 16-bit tiles (its fp32 instantiations, IffL, are the fp32 block's) and
+# B2's dQ reduce; B3's kernel; B4's, the main kernel with DQ false (Lb0E).  And the fp32 FMA block's
+# kernels by source, with their instantiations: B10, B1's fp32 body (D 64
+# and 128 each); the backward's bwd_kv_fp32 (D 64 and 128 x FUSED),
+# bwd_dq_fp32 and the fp32 prologue (D 64 and 128 each).
+BWD_FUNCTIONS = {"B2": ((r"bwd_fused_wgmma\w*Lb1E", r"bwd_prologueI(?!ffL)", "dq_reduce"), 18),
                  "B3": (("bwd_dq_wgmma",), 8),
                  "B4": ((r"bwd_fused_wgmma\w*Lb0E",), 8)}
-FP32_FUNCTIONS = {"baselines": ("naive_fa2_fp32",), "fa2_forward": ("fa2_fwd_fp32",)}
+FP32_FUNCTIONS = {"baselines": (("naive_fa2_fp32",), 2),
+                  "fa2_forward": (("fa2_fwd_fp32",), 2),
+                  "fa2_backward": (("bwd_kv_fp32", "bwd_dq_fp32", "bwd_prologueIffL"), 8)}
 
 
 def ptxas_by_function(text: str) -> dict:
@@ -436,11 +446,11 @@ def causal_pairs(sq: int, kv_len: int, causal: bool) -> int:
     return n * (n + 1) // 2 + (sq - n) * kv_len
 
 
-def library_backward_ms(torch, F, q, k, v, do, scale, causal=True):
+def library_backward_ms(torch, fp32_bwd, q, k, v, do, scale, causal=True):
     """The backward of PyTorch's flash attention on the same inputs (K/V
     expanded to Hq): the aten flash backward op fed by its own forward, in
-    bf16 or fp16; in fp32 (which that op does not take) SDPA
-    forward+backward through autograd minus SDPA forward."""
+    bf16 or fp16; in fp32 (which that op does not take) SDPA's
+    memory-efficient backward, fed by its own forward."""
     groups = q.shape[1] // k.shape[1]
     ke = k.repeat_interleave(groups, dim=1)
     ve = v.repeat_interleave(groups, dim=1)
@@ -452,16 +462,8 @@ def library_backward_ms(torch, F, q, k, v, do, scale, causal=True):
             do, q, ke, ve, o, lse, cq, ck, mq, mk, 0.0, causal, seed, offset,
             scale=scale))
         return ms, "aten._scaled_dot_product_flash_attention_backward"
-    qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, ke, ve))
-
-    def fwd():
-        return F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
-                                              scale=scale)
-
-    def fwd_bwd():
-        torch.autograd.grad(fwd(), (qg, kg, vg), do)
-
-    return time_ms(fwd_bwd) - time_ms(fwd), "SDPA fwd+bwd minus fwd (autograd)"
+    ms = time_ms(fp32_bwd.efficient_backward(q, ke, ve, do, scale, causal))
+    return ms, "aten._scaled_dot_product_efficient_attention_backward"
 
 
 def bwd_problem(torch, attention, fa2, gen, dtype, b, s, hq=16, hkv=8,
@@ -490,8 +492,8 @@ def rel_err(a, b) -> float:
     return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
 
 
-def bwd_rows(torch, F, attention, fa2, bwd, gen, kind, dtype, b, s, names,
-             **problem):
+def bwd_rows(torch, fp32_bwd, attention, fa2, bwd, gen, kind, dtype, b, s,
+             names, **problem):
     """B2, B3 and B4 (those of `names`) against their plain versions on one
     problem (bwd_problem's), each timed beside its bound, the plain version
     and the library backward.  `kind` is the tile type's name."""
@@ -521,7 +523,8 @@ def bwd_rows(torch, F, attention, fa2, bwd, gen, kind, dtype, b, s, names,
     # The library runs in the tile type (fp32 where the tiles are fp32).
     lib_dtype = kw["tile_dtype"] or raw[0].dtype
     lib_ms, lib_how = library_backward_ms(
-        torch, F, *(t.to(lib_dtype) for t in raw), kw["sm_scale"], kw["causal"])
+        torch, fp32_bwd, *(t.to(lib_dtype) for t in raw), kw["sm_scale"],
+        kw["causal"])
     pairs = causal_pairs(s, s, kw["causal"])
     hq, d = q.shape[1], q.shape[3]
     # Bytes each kernel must move: q-sized tensors (q, o, dO, dQ), K and
@@ -569,10 +572,13 @@ def bwd_rows(torch, F, attention, fa2, bwd, gen, kind, dtype, b, s, names,
     return rows
 
 
-def phase_bwd(torch, F, attention, fa2, bwd):
+def phase_bwd(torch, fp32_bwd, attention, fa2, bwd):
     """B2, B3 and B4 against their plain versions at the train shape (B4
     Hq16 Hkv8 S2048 causal bf16) at D 64 and 128, fp32 at B1 S512, a ragged
-    S1000, and B3 and B4 at B16 S2048 (the split-route training shape)."""
+    S1000, and B3 and B4 at B16 S2048 (the split-route training shape).
+    Their fp32 bodies where the harness's fp32 `fa2 both` rows run them
+    (fp32_bwd.SHAPES, D 64, not causal: the fused B2 at Large-2, the split
+    B3 + B4 at Stress-1), and B3 and B4 at the train shape in fp32."""
     gen = torch.Generator(device="cuda").manual_seed(6)
     every = ("fa2_backward_fused", "fa2_backward_dq", "fa2_backward_dkv")
     rows = []
@@ -580,12 +586,19 @@ def phase_bwd(torch, F, attention, fa2, bwd):
                               ("bf16", 2, 1000, every),
                               ("bf16", 16, 2048, every[1:])):
         dtype = torch.bfloat16 if kind == "bf16" else torch.float32
-        rows += bwd_rows(torch, F, attention, fa2, bwd, gen, kind, dtype, b, s,
-                         names)
+        rows += bwd_rows(torch, fp32_bwd, attention, fa2, bwd, gen, kind, dtype,
+                         b, s, names)
     # The train shape at D 128: the wider dK and dV accumulators take B2's
     # 64-row Q tiles.
-    rows += bwd_rows(torch, F, attention, fa2, bwd, gen, "bf16", torch.bfloat16,
-                     4, 2048, every, d=128)
+    rows += bwd_rows(torch, fp32_bwd, attention, fa2, bwd, gen, "bf16",
+                     torch.bfloat16, 4, 2048, every, d=128)
+    for config, names in (("Large-2", every[:1]), ("Stress-1", every[1:])):
+        b, h, s = fp32_bwd.SHAPES[config]
+        rows += [dict(r, config=config) for r in bwd_rows(
+            torch, fp32_bwd, attention, fa2, bwd, gen, "fp32", torch.float32, b,
+            s, names, hq=h, hkv=h, causal=False)]
+    rows += bwd_rows(torch, fp32_bwd, attention, fa2, bwd, gen, "fp32",
+                     torch.float32, 4, 2048, every[1:])
     return rows
 
 
@@ -1336,7 +1349,7 @@ def phase_baselines(torch, F, base, fa2):
     return rows
 
 
-def phase_fp16_tiles(torch, F, attention, fa2, bwd):
+def phase_fp16_tiles(torch, F, fp32_bwd, attention, fa2, bwd):
     """fp16 tiles: B1 against its plain version at Stress-1 (not causal),
     and B2, B3, B4 at Stress-1 and at the train shape (causal), all on fp32
     inputs: bf16 inputs give bf16 outputs, whose rounding hides the tile
@@ -1369,10 +1382,11 @@ def phase_fp16_tiles(torch, F, attention, fa2, bwd):
     log("B1 fp16", json.dumps(b1))
     del q, k, v, o_k, o_p, lib_in
     every = ("fa2_backward_fused", "fa2_backward_dq", "fa2_backward_dkv")
-    rows = bwd_rows(torch, F, attention, fa2, bwd, gen, "fp16", torch.float32,
-                    b, s, every, hq=h, hkv=h, causal=False, tile=torch.float16)
-    rows += bwd_rows(torch, F, attention, fa2, bwd, gen, "fp16", torch.float32,
-                     4, 2048, every, tile=torch.float16)
+    rows = bwd_rows(torch, fp32_bwd, attention, fa2, bwd, gen, "fp16",
+                    torch.float32, b, s, every, hq=h, hkv=h, causal=False,
+                    tile=torch.float16)
+    rows += bwd_rows(torch, fp32_bwd, attention, fa2, bwd, gen, "fp16",
+                     torch.float32, 4, 2048, every, tile=torch.float16)
     return b1, rows
 
 
@@ -1985,7 +1999,7 @@ def main() -> int:
     from cuda_flash_attention_tpu_torch import quant
     from cuda_flash_attention_tpu_torch.models import lora, training, transformer
     from cuda_flash_attention_tpu_torch.ops import reference
-    from cuda_flash_attention_tpu_torch.scripts import b1_ab
+    from cuda_flash_attention_tpu_torch.scripts import b1_ab, fp32_bwd
     from cuda_flash_attention_tpu_torch.scripts import r5_d128_fwd as r5
     from cuda_flash_attention_tpu_torch.utils import io
 
@@ -2010,9 +2024,10 @@ def main() -> int:
     bwd_log = build_logs.get("fa2_backward") or ptxas_log(_build, "fa2_backward")
     for label, (functions, count) in BWD_FUNCTIONS.items():
         check_ptxas(bwd_log, label, functions, count)
-    for name, functions in FP32_FUNCTIONS.items():
-        check_ptxas(build_logs.get(name) or ptxas_log(_build, name),
-                    "fp32 block", functions, 2)
+    for name, (functions, count) in FP32_FUNCTIONS.items():
+        text = bwd_log if name == "fa2_backward" else (
+            build_logs.get(name) or ptxas_log(_build, name))
+        check_ptxas(text, "fp32 block", functions, count)
 
     t0 = time.perf_counter()
     b1 = phase_b1(torch, fa2, b1_ab)
@@ -2033,7 +2048,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    bwd_rows = phase_bwd(torch, F, attention, fa2, bwd)
+    bwd_rows = phase_bwd(torch, fp32_bwd, attention, fa2, bwd)
     autograd = phase_autograd(torch, attention, bwd, BlockSizes)
     log(f"phase 7: B2/B3/B4 and autograd ok in {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
@@ -2076,7 +2091,7 @@ def main() -> int:
     t0 = time.perf_counter()
     b8 = phase_b8(torch, F, attention, fa2)
     baseline_rows = phase_baselines(torch, F, base, fa2)
-    b1_fp16, bwd_fp16 = phase_fp16_tiles(torch, F, attention, fa2, bwd)
+    b1_fp16, bwd_fp16 = phase_fp16_tiles(torch, F, fp32_bwd, attention, fa2, bwd)
     log(f"phase 16: B8, B9, B10, B1 fp32 and fp16 tiles ok in "
         f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
@@ -2171,6 +2186,11 @@ def main() -> int:
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
         if name != "fa2_backward_fused":
             kernels[-1]["library_of"] = "fa2_backward_dq + fa2_backward_dkv"
+        # The fp32 body on the harness's route (B2 at Large-2, B3 and B4 at
+        # Stress-1), beside SDPA's memory-efficient backward.
+        r = next(r for r in bwd_rows if r["kernel"] == name and "config" in r)
+        kernels[-1]["fp32"] = {k: r[k] for k in (
+            "config", "ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")}
     # B6 at the speculation shape (int8 cache, bf16 compute); its launches
     # from the speculative, prefix-cache and chunked-prefill runs.
     r6 = next(r for r in b6 if (r["shape"], r["cache"], r["compute"])

@@ -83,9 +83,30 @@
 //     shape and drew ptxas's C7513 in one instantiation).
 // B3 and B4 take exp2 on the special-function unit with results below
 // 2^-126 flushed to zero, as B1 does; B2 keeps exp2f.
-// fp32 tiles (B2, B3 and B4) run on the FMA units (no TF32), held to IEEE
-// fp32; B2's fp32 body writes zeros into the slices above the diagonal,
-// which the reduce skips.
+//
+// With fp32 tiles all three run on the FMA units (IEEE fp32, no TF32;
+// exp2f), bound there by fp32 FLOPs (67 TFLOP/s), on the block of
+// csrc/fma_block.cuh that B1's fp32 body and B10 run: 128 threads, 64-row
+// tiles, 8 x 4 register tiles of the score products, 16-byte chunks of each
+// row stored at chunk c ^ (row & 7) and read as float4 (about 10 FMAs per
+// shared load instruction), cp.async into mbarrier rings.
+//   * the prologue forms Q_s (the fp32 product), lse2 and D_i once per call
+//     (cp.async copies bytes and cannot scale); its fp32 mode folds D_i as
+//     four fmaf chains of D / 4 products added pairwise;
+//   * B2 and B4 run `bwd_kv_fp32` (B2 with FUSED): one block per (64-row KV
+//     tile, b*Hkv), K and V loaded once, the walk's Q_s, dO, lse2 and D_i
+//     streamed through a one-stage ring (two blocks an SM at D = 64), S^T
+//     and dP^T in registers, P^T and dS^T through shared memory into dV and
+//     dK, which stay in registers over the whole walk; B2 also stores dS
+//     q-major and forms its dQ slice from it and the K tile, 64 columns at a
+//     time, and writes only the live slices;
+//   * B3 runs `bwd_dq_fp32`: one block per (64-row Q tile, b*Hq), Q_s, dO
+//     and the row statistics loaded once, K and V streamed through rings of
+//     their own, dS written over the V stage that dP has read, dQ in
+//     registers, stored once.
+// Every sum runs in one fixed order (S^T, dP^T and S over d; dK and dV
+// over the walk: head, Q tile, row; dQ over KV tiles, then keys), so the
+// outputs are bitwise the same from run to run.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -97,12 +118,11 @@
 #include <atomic>
 #include <type_traits>
 
-#include "hopper.cuh"
+#include "fma_block.cuh"  // includes hopper.cuh
 
 namespace {
 
 constexpr int kKvRows = 128;  // KV rows per block of B2/B4 with bf16 tiles
-constexpr int kTile32 = 64;   // Q and KV tile of the fp32 kernels
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -189,21 +209,6 @@ struct Tile<__half> {
   CFA_BWD_WGMMA_FORMS("f16")
 };
 
-// Copy rows [row0, row0 + ROWS) of a [nrows, D] fp32 matrix into a shared
-// tile with leading dimension LD, multiplied by `scale`.  Rows past nrows
-// are zero.
-template <int D, int ROWS, int LD, int NTHREADS>
-__device__ __forceinline__ void stage_f32(float* dst, const float* src,
-                                          int row0, int nrows, float scale) {
-  for (int i = threadIdx.x; i < ROWS * D; i += NTHREADS) {
-    const int r = i / D;
-    const int c = i - r * D;
-    dst[r * LD + c] =
-        row0 + r < nrows ? src[static_cast<size_t>(row0 + r) * D + c] * scale
-                         : 0.f;
-  }
-}
-
 // exp2 on the special-function unit; results below 2^-126 flush to zero
 // (B1's, csrc/fa2_forward.cu).
 __device__ __forceinline__ float exp2_ftz(float x) {
@@ -212,357 +217,11 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   return y;
 }
 
-// Per-row statistics of one Q tile into shared memory: lse * log2(e), and
-// D_i, which is either read (B4's fp32 body) or folded in from O and dO in
-// fp32 (B2's, FOLD).  Rows past sq get 0 for both, so their P is finite
-// and their dS, with zero dO, is 0.
-template <typename Tin, int D, int ROWS, int NTHREADS, bool FOLD>
-__device__ __forceinline__ void stage_stats(float* lse2_s, float* di_s,
-                                            const float* lp, const float* dip,
-                                            const Tin* op, const Tin* dop,
-                                            int q0, int sq) {
-  if (FOLD) {
-    constexpr int kTpr = NTHREADS / ROWS;  // threads per row, neighbours
-    constexpr int kEpt = D / kTpr;         // elements per thread
-    const int r = threadIdx.x / kTpr;
-    const int c0 = (threadIdx.x % kTpr) * kEpt;
-    float acc = 0.f;
-    if (q0 + r < sq) {
-      const size_t at = static_cast<size_t>(q0 + r) * D;
-#pragma unroll
-      for (int c = c0; c < c0 + kEpt; c += 8) {
-        float a[8], b[8];
-        load8(dop + at + c, a);
-        load8(op + at + c, b);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc = fmaf(a[j], b[j], acc);
-      }
-    }
-#pragma unroll
-    for (int off = 1; off < kTpr; off <<= 1) {
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    }
-    if (threadIdx.x % kTpr == 0) {
-      di_s[r] = acc;
-      lse2_s[r] = q0 + r < sq ? lp[q0 + r] * kLog2e : 0.f;
-    }
-  } else if (threadIdx.x < ROWS) {
-    const int r = threadIdx.x;
-    lse2_s[r] = q0 + r < sq ? lp[q0 + r] * kLog2e : 0.f;
-    di_s[r] = q0 + r < sq ? dip[q0 + r] : 0.f;
-  }
-}
-
 // ---------------------------------------------------------------------------
-// fp32 tiles on the FMA units.  256 threads as 16 x 16: thread (ty, tx) owns
-// rows 4ty..4ty+3 of a 64-row tile and columns tx + 16j.  Every product reads
-// its operands from shared memory; odd leading dimensions keep the column
-// reads conflict-free.
+// The prologue of every tile type (B2, B3, B4).
 // ---------------------------------------------------------------------------
-template <int D, bool FUSED>
-__global__ void __launch_bounds__(256)
-bwd_kv_fp32(const float* __restrict__ q, const float* __restrict__ k,
-            const float* __restrict__ v, const float* __restrict__ o,
-            const float* __restrict__ dout, const float* __restrict__ lse,
-            const float* __restrict__ di, float* __restrict__ dk,
-            float* __restrict__ dv, float* __restrict__ dq_part, int hq,
-            int hkv, int sq, int skv, int kv_len, float qscale, int causal) {
-  constexpr int T = kTile32;
-  constexpr int LDK = D + 1;
-  constexpr int LDP = T + 1;
-  constexpr int DJ = D / 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* ks = reinterpret_cast<float*>(smem_raw);
-  float* vs = ks + T * LDK;
-  float* qs = vs + T * LDK;
-  float* dos = qs + T * LDK;
-  float* pt = dos + T * LDK;   // P^T [kv][q]
-  float* dst = pt + T * LDP;   // dS^T [kv][q]
-  float* lse2_s = dst + T * LDP;
-  float* di_s = lse2_s + T;
-
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int kt = blockIdx.x;
-  const int k0 = kt * T;
-  const int bh = blockIdx.y;
-  const int b = bh / hkv;
-  const int hk = bh - b * hkv;
-  const int groups = hq / hkv;
-  const size_t kv_off = static_cast<size_t>(bh) * skv * D;
-
-  stage_f32<D, T, LDK, 256>(ks, k + kv_off, k0, skv, 1.f);
-  stage_f32<D, T, LDK, 256>(vs, v + kv_off, k0, skv, 1.f);
-
-  float dk_acc[4][DJ], dv_acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
-  }
-  const int n_q_tiles = (sq + T - 1) / T;
-  const int q_first = causal ? min(k0 / T, n_q_tiles) : 0;
-
-  for (int gi = 0; gi < groups; ++gi) {
-    const size_t bhq = static_cast<size_t>(b) * hq + hk * groups + gi;
-    const float* qp = q + bhq * sq * D;
-    const float* dop = dout + bhq * sq * D;
-    const float* op = FUSED ? o + bhq * sq * D : nullptr;
-    const float* lp = lse + bhq * sq;
-    const float* dip = FUSED ? nullptr : di + bhq * sq;
-    float* dqp = FUSED
-        ? dq_part + (bhq * gridDim.x + kt) * static_cast<size_t>(sq) * D
-        : nullptr;
-    if (FUSED) {
-      const int dead = min(q_first * T, sq) * D / 4;
-      for (int i = threadIdx.x; i < dead; i += 256) {
-        reinterpret_cast<float4*>(dqp)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-    }
-    for (int qt = q_first; qt < n_q_tiles; ++qt) {
-      const int q0 = qt * T;
-      __syncthreads();
-      stage_f32<D, T, LDK, 256>(qs, qp, q0, sq, qscale);
-      stage_f32<D, T, LDK, 256>(dos, dop, q0, sq, 1.f);
-      stage_stats<float, D, T, 256, FUSED>(lse2_s, di_s, lp, dip, op, dop, q0,
-                                           sq);
-      __syncthreads();
-
-      float st[4][4], dpt[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
-      }
-#pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        float kv[4], vv[4], qv[4], dv4[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          kv[i] = ks[(ty * 4 + i) * LDK + d];
-          vv[i] = vs[(ty * 4 + i) * LDK + d];
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          qv[j] = qs[(tx + 16 * j) * LDK + d];
-          dv4[j] = dos[(tx + 16 * j) * LDK + d];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            st[i][j] = fmaf(kv[i], qv[j], st[i][j]);
-            dpt[i][j] = fmaf(vv[i], dv4[j], dpt[i][j]);
-          }
-        }
-      }
-      const bool need_mask = (k0 + T > kv_len) || (causal && k0 + T - 1 > q0);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = k0 + ty * 4 + i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = tx + 16 * j;
-          float p = exp2f(st[i][j] - lse2_s[c]);
-          if (need_mask && (row >= kv_len || (causal && row > q0 + c))) p = 0.f;
-          pt[(ty * 4 + i) * LDP + c] = p;
-          dst[(ty * 4 + i) * LDP + c] = p * (dpt[i][j] - di_s[c]);
-        }
-      }
-      __syncthreads();
-
-      // dV += P^T dO, dK += dS^T Q_s.
-#pragma unroll 4
-      for (int c = 0; c < T; ++c) {
-        float dov[DJ], qv[DJ];
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) {
-          dov[j] = dos[c * LDK + tx + 16 * j];
-          qv[j] = qs[c * LDK + tx + 16 * j];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float p = pt[(ty * 4 + i) * LDP + c];
-          const float ds = dst[(ty * 4 + i) * LDP + c];
-#pragma unroll
-          for (int j = 0; j < DJ; ++j) {
-            dv_acc[i][j] = fmaf(p, dov[j], dv_acc[i][j]);
-            dk_acc[i][j] = fmaf(ds, qv[j], dk_acc[i][j]);
-          }
-        }
-      }
-
-      if (FUSED) {
-        // dQ slice: rows q 4ty+i, columns tx + 16j, summed over the tile's
-        // KV rows: dS[q][c] K[c][d] = dS^T[c][q] K[c][d].
-        float dq[4][DJ];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-#pragma unroll
-          for (int j = 0; j < DJ; ++j) dq[i][j] = 0.f;
-        }
-#pragma unroll 4
-        for (int c = 0; c < T; ++c) {
-          float kv[DJ];
-#pragma unroll
-          for (int j = 0; j < DJ; ++j) kv[j] = ks[c * LDK + tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float ds = dst[c * LDP + ty * 4 + i];
-#pragma unroll
-            for (int j = 0; j < DJ; ++j) dq[i][j] = fmaf(ds, kv[j], dq[i][j]);
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int row = q0 + ty * 4 + i;
-          if (row >= sq) continue;
-#pragma unroll
-          for (int j = 0; j < DJ; ++j) {
-            dqp[static_cast<size_t>(row) * D + tx + 16 * j] = dq[i][j];
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = k0 + ty * 4 + i;
-    if (row >= skv) continue;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const size_t at = kv_off + static_cast<size_t>(row) * D + tx + 16 * j;
-      dk[at] = dk_acc[i][j] * kLn2;
-      dv[at] = dv_acc[i][j];
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(256)
-bwd_dq_fp32(const float* __restrict__ q, const float* __restrict__ k,
-            const float* __restrict__ v, const float* __restrict__ dout,
-            const float* __restrict__ lse, const float* __restrict__ di,
-            float* __restrict__ dq, int hq, int hkv, int sq, int skv,
-            int kv_len, float qscale, float sm_scale, int causal) {
-  constexpr int T = kTile32;
-  constexpr int LDK = D + 1;
-  constexpr int LDP = T + 1;
-  constexpr int DJ = D / 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* qs = reinterpret_cast<float*>(smem_raw);
-  float* dos = qs + T * LDK;
-  float* ks = dos + T * LDK;
-  float* vs = ks + T * LDK;
-  float* dss = vs + T * LDK;  // dS [q][kv]
-
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * T;
-  const int bh = blockIdx.y;
-  const int b = bh / hq;
-  const int hk = (bh - b * hq) / (hq / hkv);
-  const float* kp = k + (static_cast<size_t>(b) * hkv + hk) * skv * D;
-  const float* vp = v + (static_cast<size_t>(b) * hkv + hk) * skv * D;
-
-  stage_f32<D, T, LDK, 256>(qs, q + static_cast<size_t>(bh) * sq * D, q0, sq,
-                            qscale);
-  stage_f32<D, T, LDK, 256>(dos, dout + static_cast<size_t>(bh) * sq * D, q0,
-                            sq, 1.f);
-  float lse2[4], dd[4], acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    lse2[i] = row < sq ? lse[static_cast<size_t>(bh) * sq + row] * kLog2e : 0.f;
-    dd[i] = row < sq ? di[static_cast<size_t>(bh) * sq + row] : 0.f;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-  }
-
-  const int kv_end = causal ? min(kv_len, q0 + T) : kv_len;
-  const int n_tiles = (kv_end + T - 1) / T;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * T;
-    __syncthreads();
-    stage_f32<D, T, LDK, 256>(ks, kp, k0, skv, 1.f);
-    stage_f32<D, T, LDK, 256>(vs, vp, k0, skv, 1.f);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    }
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[4], dv4[4], kv[4], vv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = qs[(ty * 4 + i) * LDK + d];
-        dv4[i] = dos[(ty * 4 + i) * LDK + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kv[j] = ks[(tx + 16 * j) * LDK + d];
-        vv[j] = vs[(tx + 16 * j) * LDK + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(dv4[i], vv[j], dp[i][j]);
-        }
-      }
-    }
-    const bool need_mask = (k0 + T > kv_len) || (causal && k0 + T - 1 > q0);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        float p = exp2f(s[i][j] - lse2[i]);
-        if (need_mask && (col >= kv_len || (causal && col > row))) p = 0.f;
-        dss[(ty * 4 + i) * LDP + tx + 16 * j] = p * (dp[i][j] - dd[i]);
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < T; ++c) {
-      float kv[DJ];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) kv[j] = ks[c * LDK + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float ds = dss[(ty * 4 + i) * LDP + c];
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(ds, kv[j], acc[i][j]);
-      }
-    }
-  }
-
-  float* dqp = dq + static_cast<size_t>(bh) * sq * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= sq) continue;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      dqp[static_cast<size_t>(row) * D + tx + 16 * j] = acc[i][j] * sm_scale;
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bf16 or fp16 tiles (Tt): the prologue (B2, B3, B4), the KV-major wgmma
-// kernel (B2 with DQ, B4 without), B2's dQ reduce, and B3's Q-major wgmma
-// kernel.
-// ---------------------------------------------------------------------------
-// Eight lanes' worth of a row: 8 values of a 16-bit tile type, packed.
+// Eight values of a row, times `scale`: in a 16-bit tile type, packed, or
+// in fp32.
 template <typename Tt>
 __device__ __forceinline__ void store8(Tt* p, const float* x, float scale) {
   uint4 packed;
@@ -573,14 +232,31 @@ __device__ __forceinline__ void store8(Tt* p, const float* x, float scale) {
   *reinterpret_cast<uint4*>(p) = packed;
 }
 
-// D / 8 lanes per row, 8 contiguous values a lane.  Rows [0, q_rows *
-// sq_pad) are query rows (b*Hq + h, r): Q_s = round_tile(Q * qscale) with
-// the fp32 multiply first, dO in the tile type (where dos is given), lse2 =
-// lse * log2(e) and D_i, both 0 for rows r >= sq (the padding up to
-// sq_pad).  D_i is rowsum(dO * O) in fp32 where o is given (B2), else the
-// caller's di [q_rows, sq] copied (B3, B4).  The rows after them are K and
-// V rows, cast to the tile type (where ks is given).  Every conversion
-// rounds to nearest even, where the plain version rounds.
+__device__ __forceinline__ void store8(float* p, const float* x, float scale) {
+  reinterpret_cast<float4*>(p)[0] =
+      make_float4(x[0] * scale, x[1] * scale, x[2] * scale, x[3] * scale);
+  reinterpret_cast<float4*>(p)[1] =
+      make_float4(x[4] * scale, x[5] * scale, x[6] * scale, x[7] * scale);
+}
+
+// Lanes per row of the prologue: D / 8 with 16-bit tiles, 8 contiguous
+// values a lane; 4 with fp32 tiles, D / 4 contiguous values a lane, so that
+// D_i is four fmaf chains of D / 4 products added pairwise, ((a0 + a1) +
+// (a2 + a3)).
+template <typename Tt, int D>
+struct PrologueLanes {
+  static constexpr int kLanes = std::is_same<Tt, float>::value ? 4 : D / 8;
+};
+
+// PrologueLanes lanes per row.  Rows [0, q_rows * sq_pad) are query rows
+// (b*Hq + h, r): Q_s = round_tile(Q * qscale) with the fp32 multiply first,
+// dO in the tile type (where dos is given), lse2 = lse * log2(e) and D_i,
+// both 0 for rows r >= sq (the padding up to sq_pad).  D_i is rowsum(dO *
+// O) in fp32 where o is given (B2), else the caller's di [q_rows, sq]
+// copied (B3, B4).  The rows after them are K and V rows, cast to the tile
+// type (where ks is given).  Every conversion rounds to nearest even, where
+// the plain version rounds; with fp32 tiles Q_s is the fp32 product and
+// only it and the planes are formed.
 template <typename Tin, typename Tt, int D>
 __global__ void __launch_bounds__(256)
 bwd_prologue(const Tin* __restrict__ q, const Tin* __restrict__ o,
@@ -590,7 +266,8 @@ bwd_prologue(const Tin* __restrict__ q, const Tin* __restrict__ o,
              Tt* __restrict__ dos, Tt* __restrict__ ks, Tt* __restrict__ vs,
              float* __restrict__ lse2, float* __restrict__ di, int q_rows,
              int sq, int sq_pad, int kv_rows, float qscale) {
-  constexpr int kLanes = D / 8;
+  constexpr int kLanes = PrologueLanes<Tt, D>::kLanes;
+  constexpr int kPer = D / kLanes;
   const int lane = threadIdx.x & 31;
   const int sub = lane % kLanes;
   const size_t row = (static_cast<size_t>(blockIdx.x) * 256 + threadIdx.x) / kLanes;
@@ -602,25 +279,31 @@ bwd_prologue(const Tin* __restrict__ q, const Tin* __restrict__ o,
     bhq = row / sq_pad;
     r = static_cast<int>(row - bhq * sq_pad);
     if (r < sq) {
-      const size_t at = (bhq * sq + r) * D + 8 * sub;
-      float x[8], g[8], y[8];
-      load8(q + at, x);
-      store8(qs + at, x, qscale);
-      if (o != nullptr || dos != nullptr) load8(dout + at, g);
-      if (o != nullptr) {
-        load8(o + at, y);
+#pragma unroll 1
+      for (int c = 0; c < kPer; c += 8) {
+        const size_t at = (bhq * sq + r) * D + kPer * sub + c;
+        float x[8], g[8], y[8];
+        load8(q + at, x);
+        store8(qs + at, x, qscale);
+        if (o != nullptr || dos != nullptr) load8(dout + at, g);
+        if (o != nullptr) {
+          load8(o + at, y);
 #pragma unroll
-        for (int i = 0; i < 8; ++i) acc = fmaf(g[i], y[i], acc);
+          for (int i = 0; i < 8; ++i) acc = fmaf(g[i], y[i], acc);
+        }
+        if (dos != nullptr) store8(dos + at, g, 1.f);
       }
-      if (dos != nullptr) store8(dos + at, g, 1.f);
     }
   } else if (ks != nullptr && row - n_q < static_cast<size_t>(kv_rows)) {
-    const size_t at = (row - n_q) * D + 8 * sub;
-    float x[8];
-    load8(k + at, x);
-    store8(ks + at, x, 1.f);
-    load8(v + at, x);
-    store8(vs + at, x, 1.f);
+#pragma unroll 1
+    for (int c = 0; c < kPer; c += 8) {
+      const size_t at = (row - n_q) * D + kPer * sub + c;
+      float x[8];
+      load8(k + at, x);
+      store8(ks + at, x, 1.f);
+      load8(v + at, x);
+      store8(vs + at, x, 1.f);
+    }
   }
 #pragma unroll
   for (int off = 1; off < kLanes; off <<= 1) {
@@ -636,6 +319,336 @@ bwd_prologue(const Tin* __restrict__ q, const Tin* __restrict__ o,
   }
 }
 
+// ---------------------------------------------------------------------------
+// fp32 tiles on the FMA units: the block of csrc/fma_block.cuh (128
+// threads, 64-row tiles, 8 x 4 register tiles, swizzled rows read as
+// float4, cp.async into mbarrier rings), after the prologue.
+// ---------------------------------------------------------------------------
+// Rows [q0, q0 + 64) of the lse2 and D_i planes ([rows, sq_pad] fp32, the
+// prologue's, zeros past sq) into `dst` ([lse2 | D_i][64]) by cp.async:
+// threads 0-15 copy lse2's 16 chunks, 16-31 D_i's.
+__device__ __forceinline__ void copy_stats(float* dst, const float* lse2,
+                                           const float* di, size_t at) {
+  if (threadIdx.x < 32) {
+    const int c = threadIdx.x & 15;
+    const bool is_di = threadIdx.x >= 16;
+    cp_async16(smem_addr(dst + (is_di ? kFmaTile : 0) + 4 * c),
+               (is_di ? di : lse2) + at + 4 * c, true);
+  }
+}
+
+// Shared memory of the KV-major fp32 kernel (B2 with FUSED, B4), in
+// floats: the block's K and V tiles, kStages stages of [Q_s | dO | lse2 |
+// D_i], the P^T and dS^T tiles ([64 kv][64 q]), with FUSED a dS tile ([64
+// q][64 kv]), then one mbarrier for K and V and one per stage.  Every tile
+// is swizzled (fma_swz).  One stage keeps two blocks (eight warps) on an
+// SM at D = 64; two stages (one block) ran 1.22-1.33x slower on the H100.
+template <int D, bool FUSED>
+struct KvFp32 {
+  static constexpr int kStages = 1;
+  static constexpr int kTile = kFmaTile * D;
+  static constexpr int kSquare = kFmaTile * kFmaTile;
+  static constexpr int kStage = 2 * kTile + 2 * kFmaTile;
+  static constexpr int kK = 0;
+  static constexpr int kV = kTile;
+  static constexpr int kQ = 2 * kTile;
+  static constexpr int kPt = kQ + kStages * kStage;
+  static constexpr int kDst = kPt + kSquare;
+  static constexpr int kDs = kDst + kSquare;
+  static constexpr int kFloats = kDs + (FUSED ? kSquare : 0);
+  static constexpr int kSmem = kFloats * 4 + 8 * (1 + kStages);
+  static constexpr int kBlocksPerSm = 233472 / (kSmem + 1024);
+  static_assert(kSmem <= 232448, "one block must fit the SM's 227 KB");
+};
+
+// B4's fp32 body, and with FUSED B2's: one block per (64-row KV tile, b *
+// Hkv).  K and V arrive once; the walk's Q_s and dO tiles with their lse2
+// and D_i rows stream through the stage ring.  The walk covers the GQA
+// group's query heads (gi outer) and, under causal, only the Q tiles at or
+// below the diagonal; a KV tile wholly past kv_len walks nothing and stores
+// zeros.  Thread (ty, tx) holds S^T and dP^T rows (KV rows) ty + 8 r and
+// columns (Q rows) tx + 16 j, and dK and dV rows ty + 8 r, columns 64 h + 4
+// tx .. + 3, in registers for the whole walk.  Each step: S^T = K Q_s^T
+// and dP^T = V dO^T (summed over d in order), P^T and dS^T = P^T (dP^T -
+// D_i) into their tiles (FUSED: dS also q-major), then dV += P^T dO and dK +=
+// dS^T Q_s, key by key in walk order, with B read by rows from the
+// swizzled stage; FUSED adds this KV tile's dQ slice, dS K summed over its
+// KV rows in order, 64 columns at a time, stored into dq_part[b, h, kt].
+template <int D, bool FUSED>
+__global__ void __launch_bounds__(kFmaThreads, KvFp32<D, FUSED>::kBlocksPerSm)
+bwd_kv_fp32(const float* __restrict__ qs_plane, const float* __restrict__ k,
+            const float* __restrict__ v, const float* __restrict__ dout,
+            const float* __restrict__ lse2, const float* __restrict__ di,
+            float* __restrict__ dk, float* __restrict__ dv,
+            float* __restrict__ dq_part, int hq, int hkv, int sq, int sq_pad,
+            int skv, int kv_len, int causal) {
+  using L = KvFp32<D, FUSED>;
+  extern __shared__ __align__(16) float smem[];
+  const FmaThread th = fma_thread();
+  const int kt = blockIdx.x;
+  const int k0 = kt * kFmaTile;
+  const int bh = blockIdx.y;
+  const int b = bh / hkv;
+  const int hk = bh - b * hkv;
+  const int groups = hq / hkv;
+  const size_t kv_off = static_cast<size_t>(bh) * skv * D;
+  float* ks = smem + L::kK;
+  float* vs = smem + L::kV;
+  float* pt = smem + L::kPt;
+  float* dst = smem + L::kDst;
+  float* dss = smem + L::kDs;
+  const uint32_t kv_bar = smem_addr(smem + L::kFloats);
+  const uint32_t q_bar = kv_bar + 8;  // stage s's at q_bar + 8 s
+
+  const int n_q = (sq + kFmaTile - 1) / kFmaTile;
+  const int q_first = causal ? min(kt, n_q) : 0;
+  const int per_head = k0 < kv_len ? n_q - q_first : 0;
+  const int n_steps = groups * per_head;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 1 + L::kStages; ++s) mbar_init(kv_bar + 8 * s, kFmaThreads);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // Step n of the walk: query head gi, Q tile qt, in stage n % kStages.
+  auto head_of = [&](int n) {
+    return static_cast<size_t>(b) * hq + hk * groups + n / per_head;
+  };
+  auto tile_of = [&](int n) { return q_first + n % per_head; };
+  auto stage = [&](int n) { return smem + L::kQ + (n % L::kStages) * L::kStage; };
+  auto load = [&](int n) {
+    const size_t bhq = head_of(n);
+    const int qt = tile_of(n);
+    float* sp = stage(n);
+    fma_copy_tile<D, true>(sp, qs_plane + bhq * sq * D, qt, sq);
+    fma_copy_tile<D, true>(sp + L::kTile, dout + bhq * sq * D, qt, sq);
+    copy_stats(sp + 2 * L::kTile, lse2, di, bhq * sq_pad + qt * kFmaTile);
+    cp_async_arrive(q_bar + 8 * (n % L::kStages));
+  };
+  if (n_steps > 0) {
+    fma_copy_tile<D, true>(ks, k + kv_off, kt, skv);
+    fma_copy_tile<D, true>(vs, v + kv_off, kt, skv);
+    cp_async_arrive(kv_bar);
+  }
+  for (int n = 0; n < L::kStages && n < n_steps; ++n) load(n);
+
+  float dk_acc[8][D / 16], dv_acc[8][D / 16];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) dk_acc[r][c] = dv_acc[r][c] = 0.f;
+  }
+  if (n_steps > 0) mbar_wait(kv_bar, 0);
+  for (int n = 0; n < n_steps; ++n) {
+    const int q0 = tile_of(n) * kFmaTile;
+    const float* qs = stage(n);
+    const float* dos = qs + L::kTile;
+    const float* lse2_s = dos + L::kTile;
+    const float* di_s = lse2_s + kFmaTile;
+    mbar_wait(q_bar + 8 * (n % L::kStages), (n / L::kStages) & 1);
+    // S^T and dP^T.  At D = 64 both stay in registers; at D = 128, where
+    // a second score tile beside dK and dV spilled, dP^T is formed after
+    // P^T has gone to its tile, and P^T is read back for dS^T.
+    constexpr bool kHold = D == 64;
+    float s[8][4], dp[8][4];
+    fma_scores<D>(ks, qs, th, s);
+    if (kHold) fma_scores<D>(vs, dos, th, dp);
+    const bool need_mask =
+        (k0 + kFmaTile > kv_len) || (causal && k0 + kFmaTile - 1 > q0);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int row = k0 + th.ty + 8 * r;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = th.tx + 16 * j;
+        float p = exp2f(s[r][j] - lse2_s[c]);
+        if (need_mask && (row >= kv_len || (causal && row > q0 + c))) p = 0.f;
+        s[r][j] = p;
+        fma_store_p(pt, th, r, j, p);
+      }
+    }
+    if (!kHold) fma_scores<D>(vs, dos, th, dp);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int row = th.ty + 8 * r;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = th.tx + 16 * j;
+        const float p = kHold ? s[r][j] : pt[fma_p_at(th, r, j)];
+        const float ds = p * (dp[r][j] - di_s[c]);
+        fma_store_p(dst, th, r, j, ds);
+        if (FUSED) dss[fma_swz<kFmaTile>(c, row >> 2) + (row & 3)] = ds;
+      }
+    }
+    __syncthreads();  // P^T, dS^T (and dS) are in place
+    fma_pv<D, true>(pt, dos, th, dv_acc);
+    fma_pv<D, true>(dst, qs, th, dk_acc);
+    if (FUSED) {
+      float* dqp = dq_part + (head_of(n) * gridDim.x + kt) * static_cast<size_t>(sq) * D;
+      const float one[8] = {1.f, 1.f, 1.f, 1.f, 1.f, 1.f, 1.f, 1.f};
+#pragma unroll
+      for (int h = 0; h < D / 64; ++h) {
+        float dq[8][4];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) dq[r][c] = 0.f;
+        }
+        fma_pv<D, true, 1>(dss, ks, th, dq, h);
+        fma_store_o<D, 1>(dqp, q0, sq, th, dq, one, h);
+      }
+    }
+    __syncthreads();  // the stage and the P^T, dS^T, dS tiles are read
+    if (n + L::kStages < n_steps) load(n + L::kStages);
+  }
+
+  float ln2[8], one[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    ln2[r] = kLn2;
+    one[r] = 1.f;
+  }
+  fma_store_o<D>(dk + kv_off, k0, skv, th, dk_acc, ln2);
+  fma_store_o<D>(dv + kv_off, k0, skv, th, dv_acc, one);
+}
+
+// Shared memory of B3's fp32 kernel, in floats: kKStages K stages and
+// kVStages V stages (FmaStages' rings), the Q_s and dO tiles, the lse2 and
+// D_i rows; then the rings' mbarriers and one for the Q side.  At D = 64
+// two K stages (two blocks an SM) ran 2-6% faster on the H100 than one
+// (three blocks, whose 168-register cap spilled).
+template <int D>
+struct DqFp32 {
+  static constexpr int kKStages = D == 64 ? 2 : 1;
+  static constexpr int kVStages = 1;
+  static constexpr int kTile = kFmaTile * D;
+  static constexpr int kV = kKStages * kTile;
+  static constexpr int kQ = kV + kVStages * kTile;
+  static constexpr int kDO = kQ + kTile;
+  static constexpr int kStats = kDO + kTile;
+  static constexpr int kFloats = kStats + 2 * kFmaTile;
+  static constexpr int kSmem = kFloats * 4 + 8 * (kKStages + kVStages + 1);
+  static constexpr int kBlocksPerSm = 233472 / (kSmem + 1024);
+  static_assert(kSmem <= 232448, "one block must fit the SM's 227 KB");
+};
+
+// B3's fp32 body: one block per (64-row Q tile, b * Hq), the tiles handed
+// out from the last, so the longest causal rows start first.  Q_s, dO and
+// the tile's lse2 and D_i rows arrive once; K and V tiles stream through
+// their rings (V swizzled: it is read as S's K is), to the causal diagonal
+// and kv_len.  Thread (ty, tx) holds S and dP rows ty + 8 r, columns tx +
+// 16 j, and dQ rows ty + 8 r, columns 64 h + 4 tx .. + 3, in registers for
+// the whole walk.  Each tile: S = Q_s K^T and dP = dO V^T (over d in
+// order), dS = P (dP - D_i) written over the V stage that dP has read, then
+// dQ += dS K, key by key in order, with K read by rows from its swizzled
+// stage.  dQ is stored once, times sm_scale.
+template <int D>
+__global__ void __launch_bounds__(kFmaThreads, DqFp32<D>::kBlocksPerSm)
+bwd_dq_fp32(const float* __restrict__ qs_plane, const float* __restrict__ k,
+            const float* __restrict__ v, const float* __restrict__ dout,
+            const float* __restrict__ lse2, const float* __restrict__ di,
+            float* __restrict__ dq, int hq, int hkv, int sq, int sq_pad,
+            int skv, int kv_len, float sm_scale, int causal) {
+  using L = DqFp32<D>;
+  extern __shared__ __align__(16) float smem[];
+  const FmaStages<L> st(smem);
+  const FmaThread th = fma_thread();
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int q0 = qt * kFmaTile;
+  const size_t bh = blockIdx.y;
+  const int b = blockIdx.y / hq;
+  const int hk = (blockIdx.y - b * hq) / (hq / hkv);
+  const float* kp = k + (static_cast<size_t>(b) * hkv + hk) * skv * D;
+  const float* vp = v + (static_cast<size_t>(b) * hkv + hk) * skv * D;
+  const int kv_end = causal ? min(kv_len, q0 + kFmaTile) : kv_len;
+  const int n_kv = (max(kv_end, 0) + kFmaTile - 1) / kFmaTile;
+  float* qs = smem + L::kQ;
+  float* dos = smem + L::kDO;
+  const float* stats = smem + L::kStats;
+  const uint32_t q_bar = st.bar + 8 * (L::kKStages + L::kVStages);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, kFmaThreads);
+    st.init();
+  }
+  __syncthreads();
+  if (n_kv > 0) {
+    fma_copy_tile<D, true>(qs, qs_plane + bh * sq * D, qt, sq);
+    fma_copy_tile<D, true>(dos, dout + bh * sq * D, qt, sq);
+    copy_stats(smem + L::kStats, lse2, di, bh * sq_pad + q0);
+    cp_async_arrive(q_bar);
+  }
+  for (int t = 0; t < L::kKStages && t < n_kv; ++t) {
+    fma_load_tile<D, true>(st.k(t), st.k_bar(t), kp, t, skv);
+  }
+  for (int t = 0; t < L::kVStages && t < n_kv; ++t) {
+    fma_load_tile<D, true>(st.v(t), st.v_bar(t), vp, t, skv);
+  }
+
+  float lse2_r[8], di_r[8], acc[8][D / 16];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) acc[r][c] = 0.f;
+  }
+  if (n_kv > 0) {
+    mbar_wait(q_bar, 0);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      lse2_r[r] = stats[th.ty + 8 * r];
+      di_r[r] = stats[kFmaTile + th.ty + 8 * r];
+    }
+  }
+  for (int t = 0; t < n_kv; ++t) {
+    const int k0 = t * kFmaTile;
+    st.wait_k(t);
+    float s[8][4], dp[8][4];
+    fma_scores<D>(qs, st.k(t), th, s);
+    st.wait_v(t);
+    fma_scores<D>(dos, st.v(t), th, dp);
+    const bool need_mask =
+        (k0 + kFmaTile > kv_len) || (causal && k0 + kFmaTile - 1 > q0);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int row = q0 + th.ty + 8 * r;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = k0 + th.tx + 16 * j;
+        float p = exp2f(s[r][j] - lse2_r[r]);
+        if (need_mask && (col >= kv_len || (causal && col > row))) p = 0.f;
+        s[r][j] = p * (dp[r][j] - di_r[r]);
+      }
+    }
+    float* dss = st.v(t);
+    __syncthreads();  // V(t) is read: dS takes its stage
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) fma_store_p(dss, th, r, j, s[r][j]);
+    }
+    __syncthreads();  // dS is in place
+    fma_pv<D, true>(dss, st.k(t), th, acc);
+    __syncthreads();  // K(t) and dS are read: refill
+    if (t + L::kKStages < n_kv) {
+      fma_load_tile<D, true>(st.k(t + L::kKStages), st.k_bar(t + L::kKStages), kp,
+                             t + L::kKStages, skv);
+    }
+    if (t + L::kVStages < n_kv) {
+      fma_load_tile<D, true>(st.v(t + L::kVStages), st.v_bar(t + L::kVStages), vp,
+                             t + L::kVStages, skv);
+    }
+  }
+
+  float scale[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) scale[r] = sm_scale;
+  fma_store_o<D>(dq + bh * sq * D, q0, sq, th, acc, scale);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 or fp16 tiles (Tt): the KV-major wgmma kernel (B2 with DQ, B4
+// without), B2's dQ reduce, and B3's Q-major wgmma kernel.
+// ---------------------------------------------------------------------------
 // Shared memory of the KV-major kernel, from a 1024-byte-aligned base: the
 // block's K and V tiles, kStages stages of Q_s and of dO, with DQ two dS^T
 // buffers, kStages stages of the row statistics ([lse2 | D_i][BQ] fp32),
@@ -1291,46 +1304,11 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int D, bool FUSED>
-cudaError_t launch_kv_fp32(const Args& a) {
-  const size_t smem = (4 * kTile32 * (D + 1) + 2 * kTile32 * (kTile32 + 1) +
-                       2 * kTile32) * sizeof(float);
-  static std::atomic<uint64_t> smem_set{0};
-  cudaError_t err = set_smem_once(bwd_kv_fp32<D, FUSED>,
-                                  static_cast<int>(smem), smem_set);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.skv + kTile32 - 1) / kTile32, a.batch * a.hkv);
-  bwd_kv_fp32<D, FUSED><<<grid, 256, smem, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.o),
-      static_cast<const float*>(a.dout), a.lse, a.di,
-      static_cast<float*>(a.dk), static_cast<float*>(a.dv),
-      static_cast<float*>(a.dq), a.hq, a.hkv, a.sq, a.skv, a.kv_len, a.qscale,
-      a.causal);
-  return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t launch_dq_fp32(const Args& a) {
-  const size_t smem =
-      (4 * kTile32 * (D + 1) + kTile32 * (kTile32 + 1)) * sizeof(float);
-  static std::atomic<uint64_t> smem_set{0};
-  cudaError_t err = set_smem_once(bwd_dq_fp32<D>, static_cast<int>(smem),
-                                  smem_set);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.sq + kTile32 - 1) / kTile32, a.batch * a.hq);
-  bwd_dq_fp32<D><<<grid, 256, smem, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-      a.lse, a.di, static_cast<float*>(a.dq), a.hq, a.hkv, a.sq, a.skv,
-      a.kv_len, a.qscale, a.sm_scale, a.causal);
-  return cudaGetLastError();
-}
-
-// The workspace of the 16-bit tiles (B2, B3, B4): Q_s (and, where the
-// inputs are not already in the tile type, dO, K and V) in the tile type,
-// then the lse2 and D_i planes [batch * hq, sq_pad] fp32, sq_pad = sq
-// rounded up to 128.  Each part starts on a 256-byte boundary.
+// The prologue's workspace (B2, B3, B4): Q_s (and, where the inputs are
+// not already in the tile type, dO, K and V) in the tile type of
+// `tile_bytes` bytes (2, or 4 for fp32), then the lse2 and D_i planes
+// [batch * hq, sq_pad] fp32, sq_pad = sq rounded up to 128.  Each part
+// starts on a 256-byte boundary.
 struct BwdWorkspace {
   size_t qs, dos, ks, vs, lse2, di, total;
 };
@@ -1340,9 +1318,9 @@ size_t align256(size_t x) { return (x + 255) & ~size_t{255}; }
 int sq_padded(int sq) { return (sq + kKvRows - 1) / kKvRows * kKvRows; }
 
 BwdWorkspace bwd_workspace(int batch, int hq, int hkv, int sq, int skv, int d,
-                           bool cast_in) {
-  const size_t q_bytes = 2 * static_cast<size_t>(batch) * hq * sq * d;
-  const size_t kv_bytes = 2 * static_cast<size_t>(batch) * hkv * skv * d;
+                           int tile_bytes, bool cast_in) {
+  const size_t q_bytes = static_cast<size_t>(tile_bytes) * batch * hq * sq * d;
+  const size_t kv_bytes = static_cast<size_t>(tile_bytes) * batch * hkv * skv * d;
   const size_t stat_bytes = 4 * static_cast<size_t>(batch) * hq * sq_padded(sq);
   BwdWorkspace w{};
   size_t at = 0;
@@ -1384,25 +1362,26 @@ int map_3d(CUtensorMap* map, const void* ptr, int tiles, int rows, int seq,
   return r == CUDA_SUCCESS ? 0 : kErrEncode;
 }
 
-// What the wgmma kernels read: Q_s, dO, K and V in the tile type (the
-// inputs themselves where they are in it already), and the padded lse2 and
-// D_i planes, each as a tensor map or a pointer.
-struct Planes {
-  CUtensorMap q_map, do_map, k_map, v_map;
+// What the prologue leaves for the kernels: Q_s, dO, K and V in the tile
+// type (the inputs themselves where they are in it already), and the
+// padded lse2 and D_i planes.
+template <typename Tt>
+struct Formed {
+  const Tt* qs;
+  const Tt* dos;
+  const Tt* ks;
+  const Tt* vs;
   const float* lse2;
   const float* di;
   int sq_pad;
 };
 
-// The prologue (D_i folded in from a.o for B2, a.di copied for B3 and B4),
-// then the four maps: Q_s and dO in boxes of q_box rows, K and V in boxes
-// of kv_box rows.
+// The prologue: D_i folded in from a.o for B2, a.di copied for B3 and B4.
 template <typename Tin, typename Tt, int D>
-int prepare(const Args& a, int tiles, void* workspace, int q_box, int kv_box,
-            Planes* p) {
+int run_prologue(const Args& a, void* workspace, Formed<Tt>* f) {
   constexpr bool kCast = !std::is_same<Tin, Tt>::value;
-  const BwdWorkspace w =
-      bwd_workspace(a.batch, a.hq, a.hkv, a.sq, a.skv, D, kCast);
+  const BwdWorkspace w = bwd_workspace(a.batch, a.hq, a.hkv, a.sq, a.skv, D,
+                                       sizeof(Tt), kCast);
   auto* ws = static_cast<unsigned char*>(workspace);
   Tt* qs = reinterpret_cast<Tt*>(ws + w.qs);
   Tt* dos = kCast ? reinterpret_cast<Tt*>(ws + w.dos) : nullptr;
@@ -1410,26 +1389,89 @@ int prepare(const Args& a, int tiles, void* workspace, int q_box, int kv_box,
   Tt* vs = kCast ? reinterpret_cast<Tt*>(ws + w.vs) : nullptr;
   float* lse2 = reinterpret_cast<float*>(ws + w.lse2);
   float* di = reinterpret_cast<float*>(ws + w.di);
-  p->sq_pad = sq_padded(a.sq);
-  p->lse2 = lse2;
-  p->di = di;
+  f->sq_pad = sq_padded(a.sq);
   const int q_rows = a.batch * a.hq;
   const int kv_rows = kCast ? a.batch * a.hkv * a.skv : 0;
-  const size_t rows = static_cast<size_t>(q_rows) * p->sq_pad + kv_rows;
-  bwd_prologue<Tin, Tt, D><<<static_cast<unsigned>((rows * (D / 8) + 255) / 256),
+  const size_t rows = static_cast<size_t>(q_rows) * f->sq_pad + kv_rows;
+  constexpr int kLanes = PrologueLanes<Tt, D>::kLanes;
+  bwd_prologue<Tin, Tt, D><<<static_cast<unsigned>((rows * kLanes + 255) / 256),
                              256, 0, a.stream>>>(
       static_cast<const Tin*>(a.q), static_cast<const Tin*>(a.o),
       static_cast<const Tin*>(a.dout), a.lse, a.di,
       static_cast<const Tin*>(a.k), static_cast<const Tin*>(a.v), qs, dos, ks,
-      vs, lse2, di, q_rows, a.sq, p->sq_pad, kv_rows, a.qscale);
-  const cudaError_t cerr = cudaGetLastError();
-  if (cerr != cudaSuccess) return cerr;
+      vs, lse2, di, q_rows, a.sq, f->sq_pad, kv_rows, a.qscale);
+  f->qs = qs;
+  f->dos = kCast ? dos : static_cast<const Tt*>(a.dout);
+  f->ks = kCast ? ks : static_cast<const Tt*>(a.k);
+  f->vs = kCast ? vs : static_cast<const Tt*>(a.v);
+  f->lse2 = lse2;
+  f->di = di;
+  return cudaGetLastError();
+}
+
+// What the wgmma kernels read: Q_s, dO, K and V as tensor maps, and the
+// padded lse2 and D_i planes.
+struct Planes {
+  CUtensorMap q_map, do_map, k_map, v_map;
+  const float* lse2;
+  const float* di;
+  int sq_pad;
+};
+
+// The prologue, then the four maps: Q_s and dO in boxes of q_box rows, K
+// and V in boxes of kv_box rows.
+template <typename Tin, typename Tt, int D>
+int prepare(const Args& a, int tiles, void* workspace, int q_box, int kv_box,
+            Planes* p) {
+  Formed<Tt> f;
+  int err = run_prologue<Tin, Tt, D>(a, workspace, &f);
+  if (err != 0) return err;
+  p->sq_pad = f.sq_pad;
+  p->lse2 = f.lse2;
+  p->di = f.di;
   const int kv_heads = a.batch * a.hkv;
-  int err = map_3d(&p->k_map, kCast ? ks : a.k, tiles, kv_heads, a.skv, D, kv_box);
-  if (err == 0) err = map_3d(&p->v_map, kCast ? vs : a.v, tiles, kv_heads, a.skv, D, kv_box);
-  if (err == 0) err = map_3d(&p->q_map, qs, tiles, q_rows, a.sq, D, q_box);
-  if (err == 0) err = map_3d(&p->do_map, kCast ? dos : a.dout, tiles, q_rows, a.sq, D, q_box);
+  const int q_rows = a.batch * a.hq;
+  err = map_3d(&p->k_map, f.ks, tiles, kv_heads, a.skv, D, kv_box);
+  if (err == 0) err = map_3d(&p->v_map, f.vs, tiles, kv_heads, a.skv, D, kv_box);
+  if (err == 0) err = map_3d(&p->q_map, f.qs, tiles, q_rows, a.sq, D, q_box);
+  if (err == 0) err = map_3d(&p->do_map, f.dos, tiles, q_rows, a.sq, D, q_box);
   return err;
+}
+
+// B2 (FUSED) or B4 with fp32 tiles: the prologue, then the KV-major kernel.
+template <int D, bool FUSED>
+int launch_kv_fp32(const Args& a, void* workspace) {
+  using L = KvFp32<D, FUSED>;
+  Formed<float> f;
+  const int err = run_prologue<float, float, D>(a, workspace, &f);
+  if (err != 0) return err;
+  static std::atomic<uint64_t> smem_set{0};
+  const cudaError_t cerr =
+      set_smem_once(bwd_kv_fp32<D, FUSED>, L::kSmem, smem_set);
+  if (cerr != cudaSuccess) return cerr;
+  const dim3 grid((a.skv + kFmaTile - 1) / kFmaTile, a.batch * a.hkv);
+  bwd_kv_fp32<D, FUSED><<<grid, kFmaThreads, L::kSmem, a.stream>>>(
+      f.qs, f.ks, f.vs, f.dos, f.lse2, f.di, static_cast<float*>(a.dk),
+      static_cast<float*>(a.dv), static_cast<float*>(a.dq), a.hq, a.hkv, a.sq,
+      f.sq_pad, a.skv, a.kv_len, a.causal);
+  return cudaGetLastError();
+}
+
+// B3 with fp32 tiles: the prologue, then the Q-major kernel.
+template <int D>
+int launch_dq_fp32(const Args& a, void* workspace) {
+  using L = DqFp32<D>;
+  Formed<float> f;
+  const int err = run_prologue<float, float, D>(a, workspace, &f);
+  if (err != 0) return err;
+  static std::atomic<uint64_t> smem_set{0};
+  const cudaError_t cerr = set_smem_once(bwd_dq_fp32<D>, L::kSmem, smem_set);
+  if (cerr != cudaSuccess) return cerr;
+  const dim3 grid((a.sq + kFmaTile - 1) / kFmaTile, a.batch * a.hq);
+  bwd_dq_fp32<D><<<grid, kFmaThreads, L::kSmem, a.stream>>>(
+      f.qs, f.ks, f.vs, f.dos, f.lse2, f.di, static_cast<float*>(a.dq), a.hq,
+      a.hkv, a.sq, f.sq_pad, a.skv, a.kv_len, a.sm_scale, a.causal);
+  return cudaGetLastError();
 }
 
 // B2 (DQ) or B4: the prologue, then the KV-major kernel.
@@ -1490,10 +1532,10 @@ int launch_tiles(BwdKernel kernel, const Args& a, int tiles, void* workspace) {
 }
 
 template <int D>
-int launch_fp32(BwdKernel kernel, const Args& a) {
-  if (kernel == BwdKernel::kDq) return launch_dq_fp32<D>(a);
-  if (kernel == BwdKernel::kFused) return launch_kv_fp32<D, true>(a);
-  return launch_kv_fp32<D, false>(a);
+int launch_fp32(BwdKernel kernel, const Args& a, void* workspace) {
+  if (kernel == BwdKernel::kDq) return launch_dq_fp32<D>(a, workspace);
+  if (kernel == BwdKernel::kFused) return launch_kv_fp32<D, true>(a, workspace);
+  return launch_kv_fp32<D, false>(a, workspace);
 }
 
 // The instantiations of every kernel.  in_bf16: q/k/v/o/dO and the
@@ -1510,8 +1552,8 @@ int dispatch(BwdKernel kernel, const Args& a, int head_dim, int in_bf16,
       if (head_dim == 128) return launch_tiles<float, 128>(kernel, a, tiles, workspace);
     }
   } else if (tiles == 0 && !in_bf16) {
-    if (head_dim == 64) return launch_fp32<64>(kernel, a);
-    if (head_dim == 128) return launch_fp32<128>(kernel, a);
+    if (head_dim == 64) return launch_fp32<64>(kernel, a, workspace);
+    if (head_dim == 128) return launch_fp32<128>(kernel, a, workspace);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -1523,17 +1565,21 @@ extern "C" {
 // Rows of the KV tile that owns one dQ slice in B2 for tile code `tiles`:
 // dq_part has ceil(skv / tile) slices.
 int cfa_fa2_backward_kv_tile(int tiles) {
-  return tiles ? kKvRows : kTile32;
+  return tiles ? kKvRows : kFmaTile;
 }
 
 // Bytes of the workspace of B2, B3 and B4 for these shapes and types (0
-// with fp32 tiles).
+// for a pair of them that no kernel takes).
 long long cfa_fa2_backward_workspace(int batch, int hq, int hkv, int sq,
                                      int skv, int head_dim, int in_bf16,
                                      int tiles) {
+  if (tiles == 0 && !in_bf16) {
+    return static_cast<long long>(
+        bwd_workspace(batch, hq, hkv, sq, skv, head_dim, 4, false).total);
+  }
   if (tiles != 1 && tiles != 2) return 0;
   return static_cast<long long>(
-      bwd_workspace(batch, hq, hkv, sq, skv, head_dim, !(in_bf16 && tiles == 1))
+      bwd_workspace(batch, hq, hkv, sq, skv, head_dim, 2, !(in_bf16 && tiles == 1))
           .total);
 }
 
@@ -1542,8 +1588,7 @@ long long cfa_fa2_backward_workspace(int batch, int hq, int hkv, int sq,
 // ceil(skv / kv_tile), sq, head_dim] fp32, of which the kernel writes the
 // live slices (cfa_fa2_backward_dq_reduce reads exactly those).  All
 // contiguous and 16-byte aligned.  qscale = sm_scale * log2(e).
-// workspace: cfa_fa2_backward_workspace bytes, 256-byte aligned (unused
-// with fp32 tiles).  Returns a cudaError_t, or an error of the tensor-map
+// workspace: cfa_fa2_backward_workspace bytes, 256-byte aligned.  Returns a cudaError_t, or an error of the tensor-map
 // step.
 int cfa_fa2_backward_fused(const void* q, const void* k, const void* v,
                            const void* o, const void* dout, const void* lse,
@@ -1564,7 +1609,7 @@ int cfa_fa2_backward_dq_reduce(const void* dq_part, void* dq, int batch, int hq,
                                int sq, int skv, int head_dim, int kv_len,
                                int causal, float sm_scale, int out_bf16,
                                int tiles, void* stream) {
-  const int tile = tiles ? kKvRows : kTile32;
+  const int tile = tiles ? kKvRows : kFmaTile;
   const int n_slices = (skv + tile - 1) / tile;
   const int n_live = std::min(n_slices, (kv_len + tile - 1) / tile);
   const dim3 grid(std::min((sq * head_dim / 4 + 255) / 256, 64), batch * hq);

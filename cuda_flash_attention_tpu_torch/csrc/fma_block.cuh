@@ -1,9 +1,11 @@
 // The fp32 attention block on Hopper's FMA units, shared by B10 (naive
-// FA2, csrc/baselines.cu) and B1's fp32 body (csrc/fa2_forward.cu).  It
-// holds the pieces both kernels run; each kernel keeps its own schedule and
-// softmax arithmetic around them.  Both are bound by fp32 FLOPs on the FMA
-// units (67 TFLOP/s); what keeps them from it is what an SM issues and
-// waits for besides the FMAs: shared loads, the softmax, barriers.
+// FA2, csrc/baselines.cu), B1's fp32 body (csrc/fa2_forward.cu) and the
+// fp32 bodies of the FA2 backward (B2, B3 and B4, csrc/fa2_backward.cu,
+// whose source note says how they use it).  It holds the pieces the kernels
+// run; each keeps its own schedule and arithmetic around them.  All are
+// bound by fp32 FLOPs on the FMA units (67 TFLOP/s); what keeps them from
+// it is what an SM issues and waits for besides the FMAs: shared loads, the
+// softmax, barriers.  The forward block is described here:
 //
 //   * A block of 128 threads (four warps) owns one 64-row Q tile for the
 //     whole KV loop.  Thread (ty, tx), ty = 2 * warp + lane /
@@ -123,13 +125,12 @@ __device__ __forceinline__ FmaThread fma_thread() {
   return {static_cast<int>(((threadIdx.x >> 5) << 1) | (lane >> 4)), lane & 15};
 }
 
-// Rows [t * 64, t * 64 + 64) of one head's K or V ([n, D]; rows at or past
-// n arrive as zeros) into `dst` by cp.async (K swizzled, V by rows), this
-// thread's share of the block's, then this thread's arrival on `bar`.
-// Every thread of the block calls it for every tile of the ring.
+// Rows [t * 64, t * 64 + 64) of one head's [n, D] rows (rows at or past n
+// arrive as zeros) into `dst` by cp.async, swizzled or by rows: this
+// thread's share of the block's.
 template <int D, bool kSwizzle>
-__device__ __forceinline__ void fma_load_tile(float* dst, uint32_t bar,
-                                              const float* src, int t, int n) {
+__device__ __forceinline__ void fma_copy_tile(float* dst, const float* src,
+                                              int t, int n) {
   constexpr int kChunks = D / 4;
   const int k0 = t * kFmaTile;
   for (int i = threadIdx.x; i < kFmaTile * kChunks; i += kFmaThreads) {
@@ -139,6 +140,15 @@ __device__ __forceinline__ void fma_load_tile(float* dst, uint32_t bar,
     cp_async16(smem_addr(dst + (kSwizzle ? fma_swz<D>(r, c) : r * D + 4 * c)),
                src + static_cast<size_t>(in ? k0 + r : 0) * D + 4 * c, in);
   }
+}
+
+// fma_copy_tile of K or V (K swizzled, V by rows), then this thread's
+// arrival on `bar`.  Every thread of the block calls it for every tile of
+// the ring.
+template <int D, bool kSwizzle>
+__device__ __forceinline__ void fma_load_tile(float* dst, uint32_t bar,
+                                              const float* src, int t, int n) {
+  fma_copy_tile<D, kSwizzle>(dst, src, t, n);
   cp_async_arrive(bar);
 }
 
@@ -210,20 +220,28 @@ __device__ __forceinline__ void fma_scores(const float* qs, const float* ks,
   }
 }
 
+// Offset of P[ty + 8 r][tx + 16 j] in the block's P tile.
+__device__ __forceinline__ int fma_p_at(const FmaThread& th, int r, int j) {
+  const int col = th.tx + 16 * j;
+  return fma_swz<kFmaTile>(th.ty + 8 * r, col >> 2) + (col & 3);
+}
+
 // P[ty + 8 r][tx + 16 j] into the block's P tile.
 __device__ __forceinline__ void fma_store_p(float* ps, const FmaThread& th,
                                             int r, int j, float p) {
-  const int col = th.tx + 16 * j;
-  ps[fma_swz<kFmaTile>(th.ty + 8 * r, col >> 2) + (col & 3)] = p;
+  ps[fma_p_at(th, r, j)] = p;
 }
 
-// acc[r][4 h + e] += P[ty + 8 r][c] V[c][64 h + 4 tx + e], key c by key in
-// order (one fmaf per key and element).
-template <int D>
+// acc[r][4 h + e] += P[ty + 8 r][c] V[c][64 (h0 + h) + 4 tx + e], key c by
+// key in order (one fmaf per key and element), for DC 64-column blocks of
+// V from block h0.  V is read by rows, as stored (kSwizzledB false) or
+// swizzled (true: chunk 16 (h0 + h) + tx of row c sits at chunk (16 (h0 +
+// h) + tx) ^ (c & 7), so a half-warp's 16 chunks of one row still span 256
+// distinct bytes).  The backward reads its Q_s, dO and K tiles so.
+template <int D, bool kSwizzledB = false, int DC = D / 64>
 __device__ __forceinline__ void fma_pv(const float* ps, const float* vs,
                                        const FmaThread& th,
-                                       float (&acc)[8][D / 16]) {
-  constexpr int DC = D / 64;
+                                       float (&acc)[8][4 * DC], int h0 = 0) {
 #pragma unroll 2
   for (int c = 0; c < kFmaTile; c += 4) {
     float4 p4[8];
@@ -237,8 +255,9 @@ __device__ __forceinline__ void fma_pv(const float* ps, const float* vs,
       float4 v4[DC];
 #pragma unroll
       for (int h = 0; h < DC; ++h) {
-        v4[h] = *reinterpret_cast<const float4*>(vs + (c + e) * D + 64 * h +
-                                                 4 * th.tx);
+        const int chunk = 16 * (h0 + h) + th.tx;
+        v4[h] = *reinterpret_cast<const float4*>(
+            vs + (kSwizzledB ? fma_swz<D>(c + e, chunk) : (c + e) * D + 4 * chunk));
       }
 #pragma unroll
       for (int r = 0; r < 8; ++r) {
@@ -274,20 +293,20 @@ __device__ __forceinline__ float fma_row_sum(float x) {
 }
 
 // O rows q0 + ty + 8 r (those before n) of one head ([n, D]) from
-// acc * scale[r], a float4 at a time.
-template <int D>
+// acc * scale[r], a float4 at a time: DC 64-column blocks from block h0.
+template <int D, int DC = D / 64>
 __device__ __forceinline__ void fma_store_o(float* op, int q0, int n,
                                             const FmaThread& th,
-                                            const float (&acc)[8][D / 16],
-                                            const float (&scale)[8]) {
+                                            const float (&acc)[8][4 * DC],
+                                            const float (&scale)[8], int h0 = 0) {
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
     const int row = q0 + th.ty + 8 * r;
     if (row >= n) continue;
 #pragma unroll
-    for (int h = 0; h < D / 64; ++h) {
-      *reinterpret_cast<float4*>(op + static_cast<size_t>(row) * D + 64 * h +
-                                 4 * th.tx) =
+    for (int h = 0; h < DC; ++h) {
+      *reinterpret_cast<float4*>(op + static_cast<size_t>(row) * D +
+                                 64 * (h0 + h) + 4 * th.tx) =
           make_float4(acc[r][4 * h] * scale[r], acc[r][4 * h + 1] * scale[r],
                       acc[r][4 * h + 2] * scale[r], acc[r][4 * h + 3] * scale[r]);
     }

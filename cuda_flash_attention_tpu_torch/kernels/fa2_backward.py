@@ -17,13 +17,14 @@ JAX kernels take them as [B, Hq, Sq, 1] stat columns).  Keys at or past
 kernel writes the slices of the Q tiles each KV tile reaches
 (`fused_live_q_tiles`), and a reduce kernel adds each row's live slices in
 KV-tile order, so gradients are bitwise equal from run to run on both
-routes; no kernel adds floats with atomics.  With bf16 or fp16 tiles each
-of the three first runs a prologue kernel that forms Q_s, lse * log2(e) and
-D_i once per call (and dO, K, V in the tile type where the inputs are not)
-in a workspace the wrapper allocates: B2 folds D_i in from O and dO, B3
-and B4 copy the caller's.  `fused_prologue_plain` is its plain version.
-B3 walks 128-row Q tiles over KV tiles of `dq_kv_tile` rows
-(`dq_kv_tiles`); B4 walks as B2 without writing dQ.
+routes; no kernel adds floats with atomics.  Each of the three first runs
+a prologue kernel that forms Q_s, lse * log2(e) and D_i once per call (and
+dO, K, V in the tile type where the inputs are not) in a workspace the
+wrapper allocates: B2 folds D_i in from O and dO, B3 and B4 copy the
+caller's.  `fused_prologue_plain` is its plain version.  B3 walks Q tiles
+over KV tiles of `dq_kv_tile` rows (`dq_kv_tiles`); B4 walks as B2 without
+writing dQ.  fp32 tiles run on the FMA units with 64-row Q and KV tiles
+(`fp32=True` in the walk functions).
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ dkv_launches = 0
 
 _SOURCE = "fa2_backward"
 # Rows of the KV tile that owns one dQ slice in B2, by tile code (the CUDA
-# kernel's kKvRows with bf16 or fp16 tiles, kTile32 with fp32 tiles; the
+# kernel's kKvRows with bf16 or fp16 tiles, kFmaTile with fp32 tiles; the
 # library reports its own through cfa_fa2_backward_kv_tile and the wrapper
 # checks the two agree).
 _FUSED_KV_TILE = {0: 64, 1: 128, 2: 128}
@@ -92,22 +93,24 @@ def fused_kv_tile(q_dtype: torch.dtype, tile_dtype) -> int:
     return _FUSED_KV_TILE[tile_code(q_dtype, tile_dtype)]
 
 
-def fused_q_tile(head_dim: int) -> int:
-    """Q rows per step of B2's walk with bf16 or fp16 tiles (the CUDA
-    kernel's BwdLayout::BQ): 128 at D 64, 64 at D 128."""
-    return 128 if head_dim == 64 else 64
+def fused_q_tile(head_dim: int, fp32: bool = False) -> int:
+    """Q rows per step of B2's and B4's walk: with bf16 or fp16 tiles the
+    CUDA kernel's BwdLayout::BQ, 128 at D 64 and 64 at D 128; with fp32
+    tiles (`fp32`) 64."""
+    return 64 if fp32 or head_dim == 128 else 128
 
 
 def fused_live_q_tiles(sq: int, skv: int, kv_len: int, causal: bool,
-                       head_dim: int) -> list[range]:
-    """For each 128-row KV tile of B2 with bf16 or fp16 tiles, the Q tiles
-    (of `fused_q_tile` rows, over padded lengths) that its block walks and
-    whose dQ slice rows it writes: under causal from the tile holding the
-    KV tile's first row, none for a KV tile wholly past kv_len."""
-    bq = fused_q_tile(head_dim)
+                       head_dim: int, fp32: bool = False) -> list[range]:
+    """For each KV tile of B2 (or B4), 128 rows with bf16 or fp16 tiles and
+    64 with fp32 tiles (`fp32`), the Q tiles (of `fused_q_tile` rows, over
+    padded lengths) that its block walks and whose dQ slice rows it
+    writes: under causal from the tile holding the KV tile's first row,
+    none for a KV tile wholly past kv_len."""
+    bq = fused_q_tile(head_dim, fp32)
     n_q = cdiv(sq, bq)
     tiles = []
-    for k0 in range(0, skv, _FUSED_KV_TILE[1]):
+    for k0 in range(0, skv, _FUSED_KV_TILE[0 if fp32 else 1]):
         first = min(k0 // bq, n_q) if causal else 0
         tiles.append(range(first, n_q) if k0 < kv_len else range(0))
     return tiles
@@ -129,28 +132,31 @@ def fused_dq_slice_bytes(b: int, hq: int, sq: int, skv: int, kv_len: int,
     return 4 * head_dim * b * hq * (written + read)
 
 
-def dq_kv_tile(head_dim: int) -> int:
-    """KV rows per step of B3's walk with bf16 or fp16 tiles (the CUDA
-    kernel's DqLayout::BN): 128 at D 64, 64 at D 128.  Its Q tiles are 128
-    rows (DqLayout::BQ)."""
-    return 128 if head_dim == 64 else 64
+def dq_kv_tile(head_dim: int, fp32: bool = False) -> int:
+    """KV rows per step of B3's walk: with bf16 or fp16 tiles the CUDA
+    kernel's DqLayout::BN, 128 at D 64 and 64 at D 128, over 128-row Q
+    tiles (DqLayout::BQ); with fp32 tiles (`fp32`) 64, over 64-row Q
+    tiles."""
+    return 64 if fp32 or head_dim == 128 else 128
 
 
-def dq_kv_tiles(sq: int, kv_len: int, causal: bool, head_dim: int) -> list[range]:
-    """For each 128-row Q tile of B3 with bf16 or fp16 tiles, the KV tiles
-    (of `dq_kv_tile` rows) that its block walks: to kv_len, and under
-    causal to the tile holding the Q tile's last row before sq; none with
-    no key."""
-    bn = dq_kv_tile(head_dim)
+def dq_kv_tiles(sq: int, kv_len: int, causal: bool, head_dim: int,
+                fp32: bool = False) -> list[range]:
+    """For each Q tile of B3 (128 rows with bf16 or fp16 tiles, 64 with
+    fp32 tiles), the KV tiles (of `dq_kv_tile` rows) that its block walks:
+    to kv_len, and under causal to the tile holding the Q tile's last row
+    before sq; none with no key."""
+    bn = dq_kv_tile(head_dim, fp32)
+    bq = 64 if fp32 else 128
     tiles = []
-    for q0 in range(0, sq, 128):
-        end = min(kv_len, sq, q0 + 128) if causal else kv_len
+    for q0 in range(0, sq, bq):
+        end = min(kv_len, sq, q0 + bq) if causal else kv_len
         tiles.append(range(cdiv(max(end, 0), bn)))
     return tiles
 
 
 def _workspace(lib, q, k, in_bf16: int, tiles: int) -> torch.Tensor:
-    """The prologue's workspace for B2, B3 or B4 (empty with fp32 tiles)."""
+    """The prologue's workspace for B2, B3 or B4."""
     b, hq, sq, d = q.shape
     n = lib.cfa_fa2_backward_workspace(b, hq, k.shape[1], sq, k.shape[2], d,
                                        in_bf16, tiles)
@@ -349,13 +355,13 @@ def _dkv(p, ds, qs, dos, k):
 
 def fused_prologue_plain(q, k, v, o, do, lse, *, sm_scale: float,
                          tile_dtype, di=None):
-    """The prologue of B2, B3 and B4 with bf16 or fp16 tiles: (Q_s, dO, K,
-    V in the tile type, lse * log2(e), D_i).  Q_s is Q times the fp32 value
-    of sm_scale * log2(e), in fp32, rounded to the tile type; dO, K and V
-    are rounded to it; D_i = rowsum(dO * O) in fp32 (B2), or, without O
-    (o None, B3 and B4), the caller's `di` as it is.  These are the
-    roundings that `_p_ds` applies, so the kernel's prologue moves none of
-    them."""
+    """The prologue of B2, B3 and B4 (tile_dtype bf16, fp16, or fp32 for
+    the FMA bodies): (Q_s, dO, K, V in the tile type, lse * log2(e), D_i).
+    Q_s is Q times the fp32 value of sm_scale * log2(e), in fp32, rounded
+    to the tile type; dO, K and V are rounded to it; D_i = rowsum(dO * O)
+    in fp32 (B2), or, without O (o None, B3 and B4), the caller's `di` as
+    it is.  These are the roundings that `_p_ds` applies, so the kernel's
+    prologue moves none of them."""
     qscale = torch.tensor(sm_scale * LOG2E, dtype=torch.float32)
     q_s = (q.float() * qscale).to(tile_dtype)
     if o is not None:

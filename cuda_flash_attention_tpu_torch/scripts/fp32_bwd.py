@@ -15,6 +15,10 @@ TFLOP/s; B2 five S x S x D products per pair, B3 three, B4 four), and the
 time of one PyTorch call computing dQ, dK and dV: the fp32 backward of
 SDPA's memory-efficient kernel, fed by its own forward.  Then the route's
 total beside it.  The card's name and power limit come first.
+scripts/kernel_ab.py's `b2-fp32`, `b3-fp32`, `b4-fp32` and `b3-b4-fp32`
+time the same bodies against an earlier build of their source, in turns,
+at these shapes and phase 7's other fp32 shapes (SHAPES and
+efficient_backward are theirs too).
 """
 
 from __future__ import annotations
@@ -33,14 +37,15 @@ SHAPES = {"Large-2": (4, 12, 1024), "Stress-1": (8, 16, 2048)}
 _MATMULS = {"fa2_backward_fused": 5, "fa2_backward_dq": 3, "fa2_backward_dkv": 4}
 
 
-def efficient_backward(q, k, v, do, scale):
-    """SDPA's memory-efficient fp32 backward on the same inputs, fed by its
-    own forward: one call giving dQ, dK and dV."""
+def efficient_backward(q, k, v, do, scale, causal=False):
+    """SDPA's memory-efficient fp32 backward on the same inputs (K and V
+    with q's heads), fed by its own forward: one call giving dQ, dK and
+    dV."""
     o, lse, seed, offset = torch.ops.aten._scaled_dot_product_efficient_attention(
-        q, k, v, None, True, 0.0, False, scale=scale)
+        q, k, v, None, True, 0.0, causal, scale=scale)
     return lambda: torch.ops.aten._scaled_dot_product_efficient_attention_backward(
         do, q, k, v, None, o, lse, seed, offset, 0.0, [True, True, True, False],
-        False, scale=scale)
+        causal, scale=scale)
 
 
 def fused_route(q, k) -> bool:

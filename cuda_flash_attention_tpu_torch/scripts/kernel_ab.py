@@ -1,5 +1,6 @@
 """Kernel B2 (the fused FA2 backward), B3 (its dQ), B4 (its dK and dV) or
-the split pair B3 + B4 (all csrc/fa2_backward.cu), B9 (FA1) or B10 (naive
+the split pair B3 + B4 (all csrc/fa2_backward.cu; with bf16 or fp16 tiles,
+or their fp32 bodies, tile code 0, as `-fp32`), B9 (FA1) or B10 (naive
 FA2, both csrc/baselines.cu), or B1's fp32 body (csrc/fa2_forward.cu, tile
 code 0) against an earlier build of its source, timed in turns on one
 card.
@@ -8,18 +9,19 @@ card.
     python -m cuda_flash_attention_tpu_torch.scripts.kernel_ab --kernel b3 --parent PATH
     python -m cuda_flash_attention_tpu_torch.scripts.kernel_ab --kernel b4 --parent PATH
     python -m cuda_flash_attention_tpu_torch.scripts.kernel_ab --kernel b3-b4 --parent PATH
+    python -m cuda_flash_attention_tpu_torch.scripts.kernel_ab --kernel b3-b4-fp32 --parent PATH
     python -m cuda_flash_attention_tpu_torch.scripts.kernel_ab --kernel b9 --parent PATH
     python -m cuda_flash_attention_tpu_torch.scripts.kernel_ab --kernel b10 --parent PATH
     python -m cuda_flash_attention_tpu_torch.scripts.kernel_ab --kernel b1-fp32 --parent PATH
 
-PATH is an earlier fa2_backward.cu (b2, b3, b4, b3-b4), baselines.cu (b9,
-b10) or fa2_forward.cu (b1-fp32) with the same C entry point:
-cfa_fa2_backward_fused without a workspace (its wrapper summed every dQ
-slice with torch); cfa_fa2_backward_dq and cfa_fa2_backward_dkv with or
-without a workspace (a source that exports cfa_fa2_backward_workspace,
-such as a variant of the current one, is called as the current wrappers
-call it); cfa_fa1_forward, cfa_naive_fa2_forward or cfa_fa2_forward (e.g.
-`git show <commit>:cuda_flash_attention_tpu_torch/csrc/baselines.cu >
+PATH is an earlier fa2_backward.cu (b2, b3, b4, b3-b4 and their -fp32
+forms), baselines.cu (b9, b10) or fa2_forward.cu (b1-fp32) with the same C
+entry point: cfa_fa2_backward_fused, cfa_fa2_backward_dq and
+cfa_fa2_backward_dkv with or without a workspace (a source that exports
+cfa_fa2_backward_workspace, such as a variant of the current one, is
+called as the current wrappers call it, B2 with its dQ reduce; without
+it, B2's wrapper summed every dQ slice with torch); cfa_fa1_forward,
+cfa_naive_fa2_forward or cfa_fa2_forward (e.g. `git show <commit>:cuda_flash_attention_tpu_torch/csrc/baselines.cu >
 build/parent/baselines.cu`; the headers it includes are looked up beside
 it first, then in csrc/).  It is built with the package's nvcc flags into
 build/kernels/ and called through a copy of its own wrapper; the current
@@ -33,14 +35,17 @@ tiles; SPLIT_CASES: those, phase 11's B16 S2048 and the long-context
 split case B1 Hq16 S8192; B9_CASES: phase 16's Small-2, Large-2 and
 Stress-1; B10_CASES: those and Stress-1 at D 128; B1_FP32_CASES: Stress-1
 non-causal, b1_ab's fp32 B1 S512, the train shape in fp32 at D 64 and
-128) it prints one JSON line with b1_ab's two times, each read in the
-order parent, current, current, parent (`ms`, CUDA events over
-back-to-back calls; `device_ms`, the calls queued behind a sleep kernel),
-TFLOP/s, the bound, one PyTorch call computing the same function
-(PyTorch's flash backward in the tile type for B2 and the pair, none for
-B3 or B4 alone; fp32 SDPA for the forwards, K/V expanded to the query
-heads and the causal flag set for B1), the largest difference between the
-two builds' outputs and each wrapper's host time per call.  The card's
+128; FP32_BWD_CASES, for the fp32 bodies of B2, B3, B4 and the pair:
+fp32_bwd's Large-2 and Stress-1, phase 7's fp32 B1 S512 and the fp32
+train shape at D 64 and 128) it prints one JSON line with b1_ab's two
+times, each read in the order parent, current, current, parent (`ms`,
+CUDA events over back-to-back calls; `device_ms`, the calls queued behind
+a sleep kernel), TFLOP/s, the bound, one PyTorch call computing the same
+function (PyTorch's flash backward in the tile type for B2 and the pair,
+SDPA's memory-efficient backward for their fp32 bodies, none for B3 or B4
+alone; fp32 SDPA for the forwards, K/V expanded to the query heads and
+the causal flag set for B1), the largest difference between the two
+builds' outputs and each wrapper's host time per call.  The card's
 name and power limit come first.
 """
 
@@ -59,7 +64,7 @@ from cuda_flash_attention_tpu_torch.kernels import _build, attention, baselines
 from cuda_flash_attention_tpu_torch.kernels import fa2_backward as bwd
 from cuda_flash_attention_tpu_torch.kernels import fa2_forward as fa2
 from cuda_flash_attention_tpu_torch.kernels.common import LOG2E, tile_code
-from cuda_flash_attention_tpu_torch.scripts import b1_ab
+from cuda_flash_attention_tpu_torch.scripts import b1_ab, fp32_bwd
 
 # chip_smoke.py's B2 rows (phase 7 bf16 rows, the D 128 train row, phase
 # 16's fp16 tiles on fp32 inputs) and B9 rows (phase 16, fp32, D 64).
@@ -99,14 +104,40 @@ B1_FP32_CASES = [dict(c, s=c["sq"]) for c in (
     dict(next(c for c in b1_ab.CASES if c["name"] == "train D128"), **_B1_FP32,
          name="train D128 fp32"),
 )]
+# The fp32 bodies of B2, B3, B4 and the pair (fp32 inputs, tile code 0):
+# fp32_bwd's shapes (the harness's fp32 `fa2 both` rows: D 64, not causal,
+# Hq = Hkv), phase 7's fp32 B1 S512 (GQA 16/8, causal) and the train shape
+# in fp32 at D 64 and 128.
+_FP32 = dict(dtype="fp32", tile=None)
+FP32_BWD_CASES = [
+    dict(_FP32, name=name, b=b, hq=h, hkv=h, s=s, d=64, causal=False)
+    for name, (b, h, s) in fp32_bwd.SHAPES.items()
+] + [
+    dict(_TRAIN, **_FP32, name="fp32 B1 S512", b=1, s=512),
+    dict(_TRAIN, **_FP32, name="train fp32"),
+    dict(_TRAIN, **_FP32, name="train D128 fp32", d=128),
+]
 CASES = {"b2": B2_CASES, "b3": SPLIT_CASES, "b4": SPLIT_CASES,
          "b3-b4": SPLIT_CASES, "b9": B9_CASES, "b10": B10_CASES,
-         "b1-fp32": B1_FP32_CASES}
+         "b1-fp32": B1_FP32_CASES, "b2-fp32": FP32_BWD_CASES,
+         "b3-fp32": FP32_BWD_CASES, "b4-fp32": FP32_BWD_CASES,
+         "b3-b4-fp32": FP32_BWD_CASES}
 # Matmuls of S x S x D per attending (query, key) pair and head: B3
 # recomputes S and dP for dS K, B4 for P^T dO and dS^T Q_s; the pair is
 # bounded by the function's own five, as B2.
 _MATMULS = {"b2": 5, "b3": 3, "b4": 4, "b3-b4": 5, "b9": 2, "b10": 2,
             "b1-fp32": 2}
+# The fp32 bodies' names, each with the kernel whose problem, bound and
+# parent wrapper it shares.
+_FP32_BODIES = {"b2-fp32": "b2", "b3-fp32": "b3", "b4-fp32": "b4",
+                "b3-b4-fp32": "b3-b4"}
+
+
+def backward_of(kernel: str) -> str:
+    """The kernel whose problem, bound and wrappers `kernel` takes:
+    b2-fp32's is b2's, and so on; any other kernel's its own."""
+    return _FP32_BODIES.get(kernel, kernel)
+
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -158,12 +189,12 @@ def problem(kernel: str, case, gen):
     """(the kernel's inputs, its keyword arguments, the raw q, k, v[, dO])."""
     return {"b2": b2_problem, "b3": split_problem, "b4": split_problem,
             "b3-b4": b2_problem, "b9": b9_problem, "b10": b9_problem,
-            "b1-fp32": b1_fp32_problem}[kernel](case, gen)
+            "b1-fp32": b1_fp32_problem}[backward_of(kernel)](case, gen)
 
 
 def flops(kernel: str, case) -> int:
     pairs = b1_ab.attended_pairs(case["s"], case["s"], case["causal"])
-    return _MATMULS[kernel] * 2 * case["b"] * case["hq"] * pairs * case["d"]
+    return _MATMULS[backward_of(kernel)] * 2 * case["b"] * case["hq"] * pairs * case["d"]
 
 
 def bound(kernel: str, case, raw) -> tuple[float, str]:
@@ -178,7 +209,7 @@ def bound(kernel: str, case, raw) -> tuple[float, str]:
     stat = case["b"] * case["hq"] * case["s"] * 4
     moved = {"b2": 4 * qb + 2 * kvb + stat, "b3-b4": 4 * qb + 2 * kvb + stat,
              "b3": 3 * qb + kvb + 2 * stat, "b4": 2 * qb + 2 * kvb + 2 * stat,
-             "b1-fp32": 2 * qb + kvb + stat}.get(kernel, 2 * qb + kvb)
+             "b1-fp32": 2 * qb + kvb + stat}.get(backward_of(kernel), 2 * qb + kvb)
     t_bytes = moved / b1_ab.HBM_BYTES_PER_S
     t_ops = flops(kernel, case) / b1_ab.PEAK_FLOPS[case["tile"] or case["dtype"]]
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations"
@@ -187,11 +218,12 @@ def bound(kernel: str, case, raw) -> tuple[float, str]:
 def library_call(kernel: str, case, raw, kw):
     """One PyTorch call computing the same function: the aten flash backward
     (fed by its own forward) in the tile type for B2 and the pair B3 + B4,
-    with K/V expanded to the query heads; none for B3 or B4 alone (dQ, or
-    dK and dV, without the rest); fp32 SDPA for B9 and B10, and for B1 on
-    the keys before kv_len, K/V expanded to the query heads, causal as the
-    case."""
-    if kernel in ("b3", "b4"):
+    with K/V expanded to the query heads, and for their fp32 bodies SDPA's
+    memory-efficient fp32 backward (fp32_bwd.efficient_backward) so; none
+    for B3 or B4 alone (dQ, or dK and dV, without the rest); fp32 SDPA for
+    B9 and B10, and for B1 on the keys before kv_len, K/V expanded to the
+    query heads, causal as the case."""
+    if backward_of(kernel) in ("b3", "b4"):
         return None
     if kernel in ("b9", "b10"):
         q, k, v = raw
@@ -202,9 +234,13 @@ def library_call(kernel: str, case, raw, kw):
         k, v = (t[:, :, :n].repeat_interleave(groups, dim=1) for t in (k, v))
         return lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=kw["causal"], scale=kw["sm_scale"])
+    q, k, v, do = raw
+    groups = q.shape[1] // k.shape[1]
+    if kernel in _FP32_BODIES:
+        k, v = (t.repeat_interleave(groups, dim=1) for t in (k, v))
+        return fp32_bwd.efficient_backward(q, k, v, do, kw["sm_scale"], case["causal"])
     tile = b1_ab.dtype_of(case["tile"])
     q, k, v, do = (t.to(tile) for t in raw)
-    groups = q.shape[1] // k.shape[1]
     k, v = (t.repeat_interleave(groups, dim=1) for t in (k, v))
     out = torch.ops.aten._scaled_dot_product_flash_attention(
         q, k, v, 0.0, case["causal"], False, scale=kw["sm_scale"])
@@ -215,22 +251,24 @@ def library_call(kernel: str, case, raw, kw):
 
 
 def build_parent(kernel: str, path: str) -> ctypes.CDLL:
+    kernel = backward_of(kernel)
     if kernel == "b1-fp32":
         return b1_ab.build_parent(path)
     lib = b1_ab.compile_source(path, f"{Path(path).stem}_parent")
-    if kernel == "b2":
-        lib.cfa_fa2_backward_fused.argtypes = [_P] * 9 + [_I] * 7 + [_F] + [_I] * 3 + [_P]
-        lib.cfa_fa2_backward_fused.restype = _I
-    elif kernel in ("b3", "b4", "b3-b4"):
+    if kernel in ("b2", "b3", "b4", "b3-b4"):
         if hasattr(lib, "cfa_fa2_backward_workspace"):
             for name, argtypes in bwd.ARGTYPES.items():
                 getattr(lib, name).argtypes = argtypes
+                getattr(lib, name).restype = _I
             lib.cfa_fa2_backward_workspace.restype = ctypes.c_longlong
+        elif kernel == "b2":
+            lib.cfa_fa2_backward_fused.argtypes = [_P] * 9 + [_I] * 7 + [_F] + [_I] * 3 + [_P]
+            lib.cfa_fa2_backward_fused.restype = _I
         else:
             lib.cfa_fa2_backward_dq.argtypes = [_P] * 7 + [_I] * 7 + [_F, _F] + [_I] * 3 + [_P]
             lib.cfa_fa2_backward_dkv.argtypes = [_P] * 8 + [_I] * 7 + [_F] + [_I] * 3 + [_P]
-        lib.cfa_fa2_backward_dq.restype = _I
-        lib.cfa_fa2_backward_dkv.restype = _I
+            lib.cfa_fa2_backward_dq.restype = _I
+            lib.cfa_fa2_backward_dkv.restype = _I
     else:
         lib.cfa_fa1_forward.argtypes = [_P] * 6 + [_I] * 5 + [_F, _P]
         lib.cfa_fa1_forward.restype = _I
@@ -240,21 +278,38 @@ def build_parent(kernel: str, path: str) -> ctypes.CDLL:
 
 
 def parent_b2(lib, q, k, v, o, do, lse, *, causal, sm_scale, kv_len, tile_dtype):
-    """The parent's wrapper: every dQ slice written by the kernel and summed
-    by torch."""
+    """The parent's wrapper: with a workspace (a source exporting
+    cfa_fa2_backward_workspace) the kernel writes the live dQ slices and
+    its reduce adds them, as the current wrapper calls them; without one
+    the kernel writes every slice and torch sums them."""
     b, hq, sq, d = q.shape
+    in_bf16, tiles = int(q.dtype == torch.bfloat16), tile_code(q.dtype, tile_dtype)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     n_slices = -(-k.shape[2] // bwd.fused_kv_tile(q.dtype, tile_dtype))
     dq_part = torch.empty((b, hq, n_slices, sq, d), device=q.device,
                           dtype=torch.float32)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    tail = [stream]
+    reduce = hasattr(lib, "cfa_fa2_backward_workspace")
+    if reduce:
+        n = lib.cfa_fa2_backward_workspace(b, hq, k.shape[1], sq, k.shape[2], d,
+                                           in_bf16, tiles)
+        workspace = torch.empty(n, device=q.device, dtype=torch.uint8)
+        tail.insert(0, workspace.data_ptr())
     err = lib.cfa_fa2_backward_fused(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), dk.data_ptr(), dv.data_ptr(), dq_part.data_ptr(), b, hq,
         k.shape[1], sq, k.shape[2], d, kv_len, sm_scale * LOG2E, int(causal),
-        int(q.dtype == torch.bfloat16), tile_code(q.dtype, tile_dtype),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        in_bf16, tiles, *tail)
     _build.check(lib, "cfa_fa2_backward_error_string", err, "parent fa2_backward_fused")
-    return dq_part.sum(dim=2).mul_(sm_scale).to(q.dtype), dk, dv
+    if not reduce:
+        return dq_part.sum(dim=2).mul_(sm_scale).to(q.dtype), dk, dv
+    dq = torch.empty_like(q)
+    err = lib.cfa_fa2_backward_dq_reduce(
+        dq_part.data_ptr(), dq.data_ptr(), b, hq, sq, k.shape[2], d, kv_len,
+        int(causal), sm_scale, in_bf16, tiles, stream)
+    _build.check(lib, "cfa_fa2_backward_error_string", err, "parent dq_reduce")
+    return dq, dk, dv
 
 
 def _parent_split(lib, name, q, k, tensors, outs, scales, *, causal, kv_len,
@@ -345,14 +400,15 @@ def calls(kernel: str):
         "b9": (parent_b9, lambda *a, **k: (baselines.fa1_aligned(*a, **k),)),
         "b10": (parent_b10, lambda *a, **k: (baselines.naive_fa2_aligned(*a, **k),)),
         "b1-fp32": (b1_ab.parent_forward, fa2.fa2_forward_aligned),
-    }[kernel]
+    }[backward_of(kernel)]
 
 
 def main(argv=None) -> list[dict]:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", required=True, choices=tuple(CASES))
     ap.add_argument("--parent", required=True,
-                    help="an earlier csrc/fa2_backward.cu (b2, b3, b4, b3-b4), "
+                    help="an earlier csrc/fa2_backward.cu (b2, b3, b4, b3-b4 and "
+                    "their -fp32 forms), "
                     "csrc/baselines.cu (b9, b10) or csrc/fa2_forward.cu (b1-fp32)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():

@@ -1,13 +1,15 @@
-"""The case lists of scripts/kernel_ab.py (B2, B3, B4, the pair B3 + B4,
-B9, B10 and B1's fp32 body against an earlier build of their sources): each
+"""The case lists of scripts/kernel_ab.py (B2, B3, B4, the pair B3 + B4
+and their fp32 bodies, B9, B10 and B1's fp32 body against an earlier build
+of their sources): each
 B2 case pads as the API pads and matches a row that chip_smoke.py holds and
 times, the split cases add the shapes the route rule sends to the pair,
 each B9 and B10 case is one of the reference suite's configs in
 chip_smoke.py, each B1 fp32 case one of chip_smoke's B1 shapes in fp32, the
-FLOPs and bounds count what the script says, each kernel's current wrapper
-takes its problem as the script calls it, and the parent wrappers of B3
-and B4 call the C entry points with the arguments their argtypes declare
-(a fake library stands in for the build).  CPU only: no kernel runs
+fp32 backward cases are fp32_bwd's and chip_smoke's shapes with fp32_bwd's
+bounds, the FLOPs and bounds count what the script says, each kernel's
+current wrapper takes its problem as the script calls it, and the parent
+wrappers of B2, B3 and B4 call the C entry points with the arguments their
+argtypes declare (a fake library stands in for the build).  CPU only: no kernel runs
 here."""
 
 import re
@@ -19,8 +21,8 @@ import torch
 
 import chip_smoke
 from cuda_flash_attention_tpu_torch.kernels import attention, fa2_backward
-from cuda_flash_attention_tpu_torch.kernels.common import BlockSizes
-from cuda_flash_attention_tpu_torch.scripts import b1_ab, kernel_ab
+from cuda_flash_attention_tpu_torch.kernels.common import BlockSizes, seq_pad_quantum
+from cuda_flash_attention_tpu_torch.scripts import b1_ab, fp32_bwd, kernel_ab
 
 
 @pytest.mark.parametrize("case", kernel_ab.B2_CASES, ids=lambda c: c["name"])
@@ -151,7 +153,7 @@ def test_current_wrapper_takes_the_problem_as_kernel_ab_calls_it(kernel):
     x, kw, raw = kernel_ab.problem(kernel, small, torch.Generator().manual_seed(0))
     _, current = kernel_ab.calls(kernel)
     out = current(*x, **kw)
-    first = x[1] if kernel == "b4" else x[0]  # B4's first output is dK
+    first = x[1] if kernel_ab.backward_of(kernel) == "b4" else x[0]  # B4's: dK
     assert isinstance(out, tuple) and out[0].shape == first.shape
     assert torch.isfinite(out[0]).all() and raw[0].shape[2] == 64
 
@@ -309,3 +311,91 @@ def test_parent_split_wrappers_call_as_their_argtypes_declare(monkeypatch, works
     assert [n for n, _ in calls] == ["cfa_fa2_backward_dq", "cfa_fa2_backward_dkv"]
     for name, args in lib.calls:
         assert len(args) == len(getattr(lib, name).argtypes), name
+
+
+FP32_KERNELS = ("b2-fp32", "b3-fp32", "b4-fp32", "b3-b4-fp32")
+
+
+def test_fp32_bwd_cases_are_fp32_bwds_and_chip_smokes_shapes():
+    """The harness's fp32 routes (fp32_bwd.SHAPES: Large-2, Stress-1; D 64,
+    not causal, Hq = Hkv), phase 7's fp32 B1 S512 (b1_ab's, GQA 16/8,
+    causal) and the train shape in fp32 at D 64 and 128; fp32 inputs on
+    the FMA bodies (no tile type) for all four fp32 kernels."""
+    cases = kernel_ab.FP32_BWD_CASES
+    assert [c["name"] for c in cases] == ["Large-2", "Stress-1", "fp32 B1 S512",
+                                          "train fp32", "train D128 fp32"]
+    for kernel in FP32_KERNELS:
+        assert kernel_ab.CASES[kernel] is cases
+    for c in cases:
+        assert (c["dtype"], c["tile"]) == ("fp32", None)
+    for c in cases[:2]:
+        assert (c["b"], c["hq"], c["s"]) == fp32_bwd.SHAPES[c["name"]] == \
+            chip_smoke.SUITE[c["name"]]
+        assert c["hkv"] == c["hq"] and c["d"] == 64 and not c["causal"]
+    b1 = next(c for c in b1_ab.CASES if c["name"] == "fp32 B1 S512")
+    s512 = cases[2]
+    assert (s512["b"], s512["hq"], s512["hkv"], s512["s"], s512["d"], s512["causal"]) \
+        == (b1["b"], b1["hq"], b1["hkv"], b1["sq"], b1["d"], b1["causal"]) \
+        == (1, 16, 8, 512, 64, True)
+    for c, d in zip(cases[3:], (64, 128)):
+        assert (c["b"], c["hq"], c["hkv"], c["s"], c["d"], c["causal"]) == \
+            (4, 16, 8, 2048, d, True)
+
+
+@pytest.mark.parametrize("case", kernel_ab.FP32_BWD_CASES, ids=lambda c: c["name"])
+@pytest.mark.parametrize("kernel", FP32_KERNELS)
+def test_fp32_bwd_cases_pad_as_the_api_does(kernel, case):
+    """Each fp32 kernel takes its tile-type form's problem in fp32 with no
+    tile type: B3's and B4's with D_i = rowsum(dO * O), B2's and the
+    pair's with O; padded as the API pads."""
+    small = dict(case, b=1, hq=case["hq"] // case["hkv"], hkv=1, s=min(case["s"], 100))
+    x, kw, raw = kernel_ab.problem(kernel, small, torch.Generator().manual_seed(0))
+    assert all(t.dtype == torch.float32 for t in x)
+    assert kw["tile_dtype"] is None and kw["kv_len"] == small["s"]
+    pad = seq_pad_quantum(small["s"], torch.float32)
+    assert x[0].shape[2] == x[1].shape[2] == -(-small["s"] // pad) * pad
+    assert len(x) == 6 and x[-1].shape == x[0].shape[:3]  # lse or D_i
+    assert [t.shape[2] for t in raw] == [small["s"]] * 4
+
+
+def test_fp32_bwd_flops_and_bounds_are_fp32_bwds():
+    """At Large-2 and Stress-1 each fp32 kernel's FLOPs and bound are
+    fp32_bwd's (B2 five products a pair, B3 three, B4 four; all bound by
+    fp32 operations at 67 TFLOP/s); the pair is bounded as B2; only B2 and
+    the pair have a library call."""
+    names = {"b2-fp32": "fa2_backward_fused", "b3-fp32": "fa2_backward_dq",
+             "b4-fp32": "fa2_backward_dkv"}
+    for case in kernel_ab.FP32_BWD_CASES[:2]:
+        b, h, s = fp32_bwd.SHAPES[case["name"]]
+        raw = [torch.empty(b, h, s, 64)] * 4
+        for kernel, name in names.items():
+            n = fp32_bwd._MATMULS[name]
+            assert kernel_ab.flops(kernel, case) == n * 2 * b * h * s * s * 64
+            ms, by = kernel_ab.bound(kernel, case, raw)
+            want_ms, want_by = fp32_bwd.bound(name, b, h, s)
+            assert by == want_by == "operations" and ms == pytest.approx(want_ms)
+        assert kernel_ab.bound("b3-b4-fp32", case, raw) == kernel_ab.bound("b2-fp32", case, raw)
+        for kernel in ("b3-fp32", "b4-fp32"):
+            assert kernel_ab.library_call(kernel, case, raw, {}) is None
+
+
+def test_parent_b2_with_a_workspace_runs_its_dq_reduce(monkeypatch):
+    """A parent B2 source exporting cfa_fa2_backward_workspace is called as
+    the current wrapper calls it: the workspace's size, the kernel with a
+    workspace pointer, then the ordered dQ reduce, each with exactly the
+    arguments its argtypes declare."""
+    lib = _FakeLib(workspace=True)
+    monkeypatch.setattr(b1_ab, "compile_source", lambda path, stem: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    assert kernel_ab.build_parent("b2-fp32", "unused.cu") is lib
+    case = dict(kernel_ab.FP32_BWD_CASES[0], b=1, hq=2, hkv=1, s=64)
+    x, kw, _ = kernel_ab.problem("b2-fp32", case, torch.Generator().manual_seed(0))
+    out = kernel_ab.parent_b2(lib, *x, **kw)
+    assert [t.shape for t in out] == [x[0].shape, x[1].shape, x[2].shape]
+    assert [n for n, _ in lib.calls] == ["cfa_fa2_backward_workspace",
+                                         "cfa_fa2_backward_fused",
+                                         "cfa_fa2_backward_dq_reduce"]
+    for name, args in lib.calls:
+        assert len(args) == len(getattr(lib, name).argtypes) == \
+            len(fa2_backward.ARGTYPES[name]), name

@@ -532,6 +532,56 @@ def test_split_kernels_bitwise_deterministic(cuda, dtype, tile, d):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("hq,hkv,sq,skv,kv_len,causal", [
+    # B3's K/V rings and B4's Q_s/dO stage wrap 32 to 128 times.
+    (4, 2, 2048, 2048, None, True), (2, 1, 4096, 4096, None, False),
+    # Sq != Skv both ways, causal and not (the API's padding).
+    (4, 2, 300, 100, None, True), (4, 2, 128, 384, None, True),
+    (4, 2, 128, 384, None, False),
+    # kv_len inside the last 64-row tile (S 1000 pads to 1008).
+    (4, 2, 1000, 1000, None, False),
+    # KV rows [256, 384) wholly past kv_len 200: B4's blocks there walk
+    # nothing and store zeros, without waiting on a barrier.
+    (4, 2, 256, 384, 200, True), (4, 2, 256, 384, 200, False),
+    # GQA 16/2: B4 walks eight query heads per KV head.
+    (16, 2, 384, 384, None, True),
+    # One partial tile; S 112 ends inside the second 64-row tile.
+    (4, 2, 16, 16, None, True), (4, 2, 112, 112, None, True),
+])
+def test_split_kernels_fp32_at_the_edges_of_their_rings(cuda, d, hq, hkv, sq, skv,
+                                                        kv_len, causal):
+    """B3's and B4's fp32 bodies (64-row tiles on the FMA units) against
+    their plain versions (run on the same card tensors) at 2e-5 of the
+    plain output's max, where their rings wrap and their walks end."""
+    x, kw = _split_problem(torch.float32, None, d, hq, hkv, sq, skv, causal,
+                           kv_len, seed=sq + skv + d)
+    before = (fa2_backward.dq_launches, fa2_backward.dkv_launches)
+    got = _split_outputs(x, kw)
+    torch.cuda.synchronize()
+    assert (fa2_backward.dq_launches, fa2_backward.dkv_launches) == (
+        before[0] + 1, before[1] + 1)
+    want = (fa2_backward.fa2_backward_dq_plain(*x, **kw),
+            *fa2_backward.fa2_backward_dkv_plain(*x, **kw))
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == torch.float32 and g.shape == w.shape
+        assert bool(torch.isfinite(g).all())
+        assert _rel_err(g, w) <= 2e-5
+    if kv_len is not None:  # dK and dV of keys past kv_len are zeros
+        assert not got[1][:, :, kv_len:].any() and not got[2][:, :, kv_len:].any()
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_split_kernels_fp32_bitwise_deterministic(cuda, d):
+    """Two calls of B3's and B4's fp32 bodies on the same inputs give the
+    same bits: every sum runs in one order and no block adds into
+    another's output."""
+    x, kw = _split_problem(torch.float32, None, d, 8, 2, 2048, 2048, True, seed=d)
+    first, second = _split_outputs(x, kw), _split_outputs(x, kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("tile", [None, torch.bfloat16], ids=["fp32", "bf16-tiles"])
 @pytest.mark.parametrize("block_sizes", [None, SPLIT], ids=["fused", "split"])
 def test_fa2_backward_bitwise_deterministic(cuda, tile, block_sizes):
