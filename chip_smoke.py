@@ -11,10 +11,11 @@ Phases (any failure raises and the script exits non-zero):
      instantiation of the backward's bf16/fp16-tile kernels (B2's
      prologue, main kernel and dQ reduce; B3's kernel; B4's, the main
      kernel without its dQ phase) and of the fp32 FMA block's (B10, B1's
-     fp32 body, the backward's `bwd_kv_fp32` (B4, and B2's with FUSED),
-     `bwd_dq_fp32` (B3) and their fp32 prologue, at D 64 and 128),
-     failing on a spilled byte, a wgmma serialisation note or a missing
-     instantiation;
+     fp32 body, B8's fp32 body, the backward's `bwd_kv_fp32` (B4, and
+     B2's with FUSED), `bwd_dq_fp32` (B3) and their fp32 prologue, at D 64
+     and 128) and of B5's split-KV kernel (48: six caches x two q types x
+     D 64 and 128 x groups of at most 2 and 8), failing on a spilled byte,
+     a wgmma serialisation note or a missing instantiation;
   2. kernel B1 (FA2 forward) against its plain PyTorch version at the
      serving prefill shapes (the serving run's largest, B4 S1536, included)
      and at the train shape (B4 S2048), and at the edges of its 128-row
@@ -23,14 +24,15 @@ Phases (any failure raises and the script exits non-zero):
      16/2), with its time, TFLOP/s, its bound and SDPA's time;
   3. kernel B5 (paged decode) against its plain version on int8 and bf16
      caches, each with bf16 and fp32 compute, ragged lengths and an
-     inactive slot, time and bound;
+     inactive slot, device time (back-to-back time beside it) and bound;
   4. end to end at the base model's width in fp32: prefill logits and four
      greedy decode steps through DecodeEngine on the card (kernels) and on
      the CPU (plain versions), with the same seeded weights;
   5. serving: DecodeEngine.run at TransformerConfig.base() with an int8
      cache answers 12 requests of 64 tokens, with both kernels' launch counts;
   6. where a decode step's time goes at batch 8: host-clock step time and
-     device busy time from one torch.profiler window, the top kernels;
+     device busy time from one torch.profiler window, the top kernels and
+     B5's time and share of the busy time;
   7. kernels B2, B3, B4 (FA2 backward) against their plain versions at the
      train shape (B4 Hq16 Hkv8 S2048 D64 causal bf16) and at D 128, fp32 at
      B1 S512 and a ragged S1000, B3 and B4 also at B16 S2048 (the
@@ -95,7 +97,8 @@ Phases (any failure raises and the script exits non-zero):
      (yardsticks, not the same function); the public quantized-KV API at
      both shapes, whose launches are B7's in the kernel line;
  20. B5 and B6 on e4m3, e5m2 and int4 pages at phases 3's and 12's shapes
-     against their plain versions, times and bounds (int4 at 0.5 byte);
+     against their plain versions, times (back-to-back and device) and
+     bounds (int4 at 0.5 byte);
  21. quantized serving at TransformerConfig.base(): phase 5's 12 requests
      on an int8 cache (the control), an e4m3 cache, an int4 cache, int8
      W8A8 weights and int4 weights (int8 caches), and chunked prefill 512
@@ -188,7 +191,11 @@ BWD_FUNCTIONS = {"B2": ((r"bwd_fused_wgmma\w*Lb1E", r"bwd_prologueI(?!ffL)", "dq
                  "B4": ((r"bwd_fused_wgmma\w*Lb0E",), 8)}
 FP32_FUNCTIONS = {"baselines": (("naive_fa2_fp32",), 2),
                   "fa2_forward": (("fa2_fwd_fp32",), 2),
+                  "fa2_forward_small": (("small_fp32",), 2),
                   "fa2_backward": (("bwd_kv_fp32", "bwd_dq_fp32", "bwd_prologueIffL"), 8)}
+# B5's split-KV kernel: 6 cache types x 2 q types x D 64 and 128 x groups
+# of at most 2 and 8.
+B5_FUNCTIONS = (("paged_decode_kernel",), 48)
 
 
 def ptxas_by_function(text: str) -> dict:
@@ -310,17 +317,24 @@ def phase_b5(torch, dec_attn, kv_cache):
                 f"(tol {B5_TOL[compute]})")
         if o_k[3].abs().max().item() != 0.0:
             raise AssertionError("B5: the inactive slot's output is not zero")
-        ms = time_ms(lambda: dec_attn.paged_decode_attention(
-            q, pages, page_table, lengths, sm_scale=scale, compute_dtype=cdt))
+        def kernel():
+            return dec_attn.paged_decode_attention(
+                q, pages, page_table, lengths, sm_scale=scale, compute_dtype=cdt)
+
+        b2b_ms = time_ms(kernel)
+        ms = queued_ms(torch, kernel)
         plain_ms = time_ms(lambda: dec_attn.paged_decode_attention_plain(
             q, pages, page_table, lengths, sm_scale=scale, compute_dtype=cdt),
             iters=5)
         bound_ms, bound_by, _, moved = paged_bound(
             lengths.tolist(), 1, hq, hkv, d, pages.k_pages.element_size(), q,
             o_k, compute)
+        # ms is the card's time (calls queued behind a sleep kernel);
+        # b2b_ms back-to-back calls, which at these sizes time the host.
         row = dict(cache=cache, compute=compute, n=n, max_len=2048,
-                   max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                   bound_ms=bound_ms, bound_by=bound_by, gbps=moved / ms / 1e6)
+                   max_abs_err=err, ms=ms, b2b_ms=b2b_ms, plain_ms=plain_ms,
+                   library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                   gbps=moved / ms / 1e6)
         rows.append(row)
         log("B5", json.dumps(row))
     return rows
@@ -427,11 +441,15 @@ def phase_profile(torch, np, eng, label="profile"):
     if not busy_ms > 0:
         raise AssertionError("profile: no device time recorded")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    # B5's kernel (csrc/paged_decode.cu) and its share of the busy time.
+    b5_ms = sum(e.self_device_time_total for e in kernels
+                if "paged_decode_kernel" in e.key) / 10 / 1e3
     res = dict(
         batch=len(reqs), decode_step_ms=step_ms,
         device_busy_ms_per_step=busy_ms,
         device_idle_share=1 - busy_ms / step_ms,
         kernel_launches_per_step=sum(e.count for e in kernels) / 10,
+        b5_ms_per_step=b5_ms, b5_share_of_busy=b5_ms / busy_ms,
         top_kernels_ms_per_step={e.key[:48]: e.self_device_time_total / 1e4
                                  for e in top})
     log(label, json.dumps(res))
@@ -1738,6 +1756,8 @@ def phase_paged_quant(torch, dec_attn, kv_cache):
             row = dict(kernel=name, cache=cache, compute=compute, T=chunk, lengths=lens,
                        max_abs_err=err, ms=time_ms(lambda: kernel(q, pages, table,
                                                                   lengths, **kw)),
+                       device_ms=queued_ms(torch, lambda: kernel(q, pages, table,
+                                                                 lengths, **kw)),
                        plain_ms=time_ms(lambda: plain(q, pages, table, lengths, **kw),
                                         iters=3, warmup=1),
                        library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
@@ -2028,6 +2048,8 @@ def main() -> int:
         text = bwd_log if name == "fa2_backward" else (
             build_logs.get(name) or ptxas_log(_build, name))
         check_ptxas(text, "fp32 block", functions, count)
+    check_ptxas(build_logs.get("paged_decode") or ptxas_log(_build, "paged_decode"),
+                "B5", *B5_FUNCTIONS)
 
     t0 = time.perf_counter()
     b1 = phase_b1(torch, fa2, b1_ab)
@@ -2160,8 +2182,8 @@ def main() -> int:
              replaces="cuda_flash_attention_tpu/decode/attention.py:161",
              launches=serve["launches"]["paged_decode"],
              max_abs_err=max(r["max_abs_err"] for r in b5 if r["compute"] == "bf16"),
-             ms=r5["ms"], plain_ms=r5["plain_ms"], bound_ms=r5["bound_ms"],
-             bound_by=r5["bound_by"], library_ms=None),
+             ms=r5["ms"], b2b_ms=r5["b2b_ms"], plain_ms=r5["plain_ms"],
+             bound_ms=r5["bound_ms"], bound_by=r5["bound_by"], library_ms=None),
     ]
     # Backward rows at the train shape (B4 S2048 bf16), where the fused and
     # split routes are compared; phase 7 also holds B3 and B4 at B16 S2048.

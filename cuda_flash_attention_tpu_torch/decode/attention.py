@@ -19,6 +19,7 @@ agree on every page the writer produces.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -46,16 +47,66 @@ _INT4_CODE = 5
 _COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 
+# B5's C entry points (csrc/paged_decode.cu).
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+ARGTYPES = {
+    "cfa_paged_decode": [_P] * 8 + [_I] * 7 + [_F] + [_I] * 4 + [_P] * 3,
+    "cfa_paged_decode_workspace_floats": [_I] * 4,
+}
+# Blocks per SM that B5's split plan aims for: more splits shorten the
+# longest block's walk, and a few resident blocks an SM overlap one's
+# loads with another's arithmetic.
+_BLOCKS_PER_SM = 2
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load(_SOURCE)
-    fn = lib.cfa_paged_decode
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
+    if lib.cfa_paged_decode.argtypes is None:
+        for name, argtypes in ARGTYPES.items():
+            getattr(lib, name).argtypes = argtypes
+        lib.cfa_paged_decode.restype = ctypes.c_int
+        lib.cfa_paged_decode_workspace_floats.restype = ctypes.c_longlong
     return lib
+
+
+def decode_split_plan(num_seqs: int, n_kv_heads: int, pages_per_seq: int,
+                      sm_count: int) -> int:
+    """B5's split count, from shapes alone (never from `lengths`, whose
+    values live on the card): the least count whose grid of (split, slot,
+    KV head) blocks reaches _BLOCKS_PER_SM blocks an SM, capped at one page
+    a split, then evened out so that no split is empty of pages.  Split s
+    walks pages [s p, (s + 1) p), p = split_pages(pages_per_seq, n)."""
+    blocks = num_seqs * n_kv_heads
+    want = min(pages_per_seq, max(1, -(-_BLOCKS_PER_SM * sm_count // blocks)))
+    # The longest run of pages that still gives `want` splits.
+    per = pages_per_seq if want == 1 else max(1, -(-pages_per_seq // (want - 1)) - 1)
+    return -(-pages_per_seq // per)
+
+
+def split_pages(pages_per_seq: int, n_splits: int) -> int:
+    """Pages of each split but the last (the kernel's own rule)."""
+    return -(-pages_per_seq // n_splits)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# B5's arrival counters, one int32 buffer per device: zeroed when allocated,
+# and every call leaves the counters it used at zero again.  Calls on one
+# stream share them safely; two calls at once on two streams would not.
+_counters: dict[int, torch.Tensor] = {}
+
+
+def _counters_for(device: torch.device, n: int) -> torch.Tensor:
+    buf = _counters.get(device.index)
+    if buf is None or buf.numel() < n:
+        # At least 4096 (slots x KV heads), so that a captured call rarely
+        # finds the buffer too small after its eager warm-up.
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _counters[device.index] = buf
+    return buf
 
 
 def _chunk_lib() -> ctypes.CDLL:
@@ -124,11 +175,14 @@ def paged_decode_attention(q, pages: KVPages, page_table, lengths, *,
     (0 for an inactive slot, whose output is zeros).  Returns
     [num_seqs, n_heads, D] in q's dtype.  ``compute_dtype`` (bf16 or fp32)
     is the type Q, the dequantized K/V and the scaled P take before the two
-    products; the softmax is fp32."""
+    products; the softmax is fp32.
+
+    On the card it is one launch that reads no value of `lengths` on the
+    host (decode_split_plan), so it can be captured in a CUDA graph once
+    one eager call at the same shapes has allocated the arrival counters."""
     if window is not None or sinks:
         raise NotImplementedError("windowed paged decode is not ported yet")
-    num_seqs, n_heads, head_dim = q.shape
-    n_kv_heads, num_pages, page_size, _ = pages.k_pages.shape
+    head_dim = q.shape[-1]
     _check_fit(q, pages)
     if compute_dtype not in _COMPUTE_DTYPES:
         raise NotImplementedError(f"compute_dtype {compute_dtype} is not ported")
@@ -142,20 +196,42 @@ def paged_decode_attention(q, pages: KVPages, page_table, lengths, *,
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: unsupported device {q.device}")
     global launches
+    out = decode_launch(_lib(), q, pages, page_table, lengths, sm_scale=sm_scale,
+                        compute_dtype=compute_dtype)
+    launches += 1
+    return out
+
+
+def decode_launch(lib: ctypes.CDLL, q, pages: KVPages, page_table, lengths, *,
+                  sm_scale: float, compute_dtype):
+    """One launch of B5 from `lib` (csrc/paged_decode.cu built, or an
+    earlier build of it with the same entry points) on CUDA tensors: the
+    split plan, the workspace and the arrival counters; returns the output."""
+    num_seqs, n_heads, head_dim = q.shape
+    n_kv_heads, num_pages, page_size, _ = pages.k_pages.shape
     tensors = _check_kernel_inputs("paged_decode", q, pages, page_table,
                                    lengths, n_heads // n_kv_heads)
     out = torch.empty_like(q)
-    lib = _lib()
+    pps = page_table.shape[1]
+    n_splits = decode_split_plan(num_seqs, n_kv_heads, pps,
+                                 _sm_count(q.device.index))
+    workspace = counters = None
+    if n_splits > 1:
+        workspace = torch.empty(
+            lib.cfa_paged_decode_workspace_floats(num_seqs, n_heads, head_dim,
+                                                  n_splits),
+            dtype=torch.float32, device=q.device)
+        counters = _counters_for(q.device, num_seqs * n_kv_heads)
     err = lib.cfa_paged_decode(
         *(t.data_ptr() for t in tensors), out.data_ptr(),
-        num_seqs, n_heads, n_kv_heads, num_pages, page_size,
-        page_table.shape[1], head_dim, float(sm_scale),
-        int(q.dtype == torch.bfloat16), _cache_code(pages, head_dim),
-        int(compute_dtype == torch.bfloat16),
+        num_seqs, n_heads, n_kv_heads, num_pages, page_size, pps, head_dim,
+        float(sm_scale), int(q.dtype == torch.bfloat16),
+        _cache_code(pages, head_dim), int(compute_dtype == torch.bfloat16),
+        n_splits, None if workspace is None else workspace.data_ptr(),
+        None if counters is None else counters.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, "cfa_paged_decode_error_string", err, "paged_decode")
-    launches += 1
     return out
 
 

@@ -1,9 +1,10 @@
 """Kernel B2 (the fused FA2 backward), B3 (its dQ), B4 (its dK and dV) or
 the split pair B3 + B4 (all csrc/fa2_backward.cu; with bf16 or fp16 tiles,
 or their fp32 bodies, tile code 0, as `-fp32`), B9 (FA1) or B10 (naive
-FA2, both csrc/baselines.cu), or B1's fp32 body (csrc/fa2_forward.cu, tile
-code 0) against an earlier build of its source, timed in turns on one
-card.
+FA2, both csrc/baselines.cu), B1's fp32 body (csrc/fa2_forward.cu, tile
+code 0), B8 (the small-shape FA2 forward, csrc/fa2_forward_small.cu) or B5
+(paged decode, csrc/paged_decode.cu) against an earlier build of its
+source, timed in turns on one card.
 
     python -m cuda_flash_attention_tpu_torch.scripts.kernel_ab --kernel b2 --parent PATH
     python -m cuda_flash_attention_tpu_torch.scripts.kernel_ab --kernel b3 --parent PATH
@@ -13,10 +14,16 @@ card.
     python -m cuda_flash_attention_tpu_torch.scripts.kernel_ab --kernel b9 --parent PATH
     python -m cuda_flash_attention_tpu_torch.scripts.kernel_ab --kernel b10 --parent PATH
     python -m cuda_flash_attention_tpu_torch.scripts.kernel_ab --kernel b1-fp32 --parent PATH
+    python -m cuda_flash_attention_tpu_torch.scripts.kernel_ab --kernel b8 --parent PATH
+    python -m cuda_flash_attention_tpu_torch.scripts.kernel_ab --kernel b5 --parent PATH
 
 PATH is an earlier fa2_backward.cu (b2, b3, b4, b3-b4 and their -fp32
-forms), baselines.cu (b9, b10) or fa2_forward.cu (b1-fp32) with the same C
-entry point: cfa_fa2_backward_fused, cfa_fa2_backward_dq and
+forms), baselines.cu (b9, b10), fa2_forward.cu (b1-fp32),
+fa2_forward_small.cu (b8) or paged_decode.cu (b5) with the same C entry
+point: cfa_fa2_forward_small; cfa_paged_decode with or without a split
+count, workspace and counters (a source exporting
+cfa_paged_decode_workspace_floats is launched as the current wrapper
+launches it); cfa_fa2_backward_fused, cfa_fa2_backward_dq and
 cfa_fa2_backward_dkv with or without a workspace (a source that exports
 cfa_fa2_backward_workspace, such as a variant of the current one, is
 called as the current wrappers call it, B2 with its dQ reduce; without
@@ -37,16 +44,19 @@ Stress-1; B10_CASES: those and Stress-1 at D 128; B1_FP32_CASES: Stress-1
 non-causal, b1_ab's fp32 B1 S512, the train shape in fp32 at D 64 and
 128; FP32_BWD_CASES, for the fp32 bodies of B2, B3, B4 and the pair:
 fp32_bwd's Large-2 and Stress-1, phase 7's fp32 B1 S512 and the fp32
-train shape at D 64 and 128) it prints one JSON line with b1_ab's two
+train shape at D 64 and 128; B8_CASES: phase 16's 18 rows; B5_CASES:
+phase 3's rows, phase 20's fp8 and int4 rows, serving's decode lengths
+and a long D128 case) it prints one JSON line with b1_ab's two
 times, each read in the order parent, current, current, parent (`ms`,
 CUDA events over back-to-back calls; `device_ms`, the calls queued behind
 a sleep kernel), TFLOP/s, the bound, one PyTorch call computing the same
 function (PyTorch's flash backward in the tile type for B2 and the pair,
 SDPA's memory-efficient backward for their fp32 bodies, none for B3 or B4
-alone; fp32 SDPA for the forwards, K/V expanded to the query heads and
-the causal flag set for B1), the largest difference between the two
-builds' outputs and each wrapper's host time per call.  The card's
-name and power limit come first.
+alone or B5; fp32 SDPA for the forwards, K/V expanded to the query heads
+and the causal flag set for B1; SDPA in the tile type for B8), timed
+back to back (`library_ms`) and queued (`library_device_ms`), the
+largest difference between the two builds' outputs and each wrapper's
+host time per call.  The card's name and power limit come first.
 """
 
 from __future__ import annotations
@@ -57,13 +67,20 @@ import functools
 import json
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from cuda_flash_attention_tpu_torch.decode import attention as dec_attn
+from cuda_flash_attention_tpu_torch.decode import kv_cache
 from cuda_flash_attention_tpu_torch.kernels import _build, attention, baselines
 from cuda_flash_attention_tpu_torch.kernels import fa2_backward as bwd
 from cuda_flash_attention_tpu_torch.kernels import fa2_forward as fa2
-from cuda_flash_attention_tpu_torch.kernels.common import LOG2E, tile_code
+from cuda_flash_attention_tpu_torch.kernels.common import (
+    LOG2E,
+    seq_pad_quantum,
+    tile_code,
+)
 from cuda_flash_attention_tpu_torch.scripts import b1_ab, fp32_bwd
 
 # chip_smoke.py's B2 rows (phase 7 bf16 rows, the D 128 train row, phase
@@ -117,16 +134,47 @@ FP32_BWD_CASES = [
     dict(_TRAIN, **_FP32, name="train fp32"),
     dict(_TRAIN, **_FP32, name="train D128 fp32", d=128),
 ]
+# B8: chip_smoke's phase-16 rows, the reference suite's configs that take
+# B8 (fp32 inputs at D 64) in fp32, bf16 and fp16 tiles, causal and not.
+B8_CONFIGS = {"Small-1": (1, 1, 128), "Edge-NonPowerOf2": (8, 16, 100),
+              "Edge-SmallSeq": (8, 16, 32)}
+B8_CASES = [
+    dict(name=f"{config} {kind}{' causal' if causal else ''}", config=config,
+         b=b, hq=h, hkv=h, s=s, d=64, causal=causal, dtype="fp32",
+         tile=None if kind == "fp32" else kind)
+    for config, (b, h, s) in B8_CONFIGS.items()
+    for kind in ("fp32", "bf16", "fp16") for causal in (False, True)
+]
+# B5: phase 3's rows (8 slots, Hq16 Hkv8 D64, 128-token pages, 16 a slot;
+# int8 and bf16 caches with bf16 and fp32 compute), phase 20's fp8 and int4
+# rows at that shape, serving's decode lengths (phase 5's first 8 prompts,
+# the 8 slots' first residents, each at its 64th new token) and a long
+# context (8 slots of 8192 tokens at D 128, 64 pages a slot).
+PHASE3_LENGTHS = [2048, 1, 129, 0, 777, 1500, 128, 2000]
+SERVING_LENGTHS = [int(n) + 64
+                   for n in np.random.default_rng(4).integers(64, 1501, 12)[:8]]
+_B5 = dict(hq=16, hkv=8, d=64, pps=16, lengths=PHASE3_LENGTHS)
+B5_CASES = (
+    [dict(_B5, name=f"phase 3 {cache} {compute}", cache=cache, compute=compute)
+     for cache, compute in (("int8", "bf16"), ("bf16", "bf16"), ("int8", "fp32"),
+                            ("bf16", "fp32"))]
+    + [dict(_B5, name=f"phase 20 {cache} {compute}", cache=cache, compute=compute)
+       for cache in ("e4m3", "e5m2", "int4") for compute in ("bf16", "fp32")]
+    + [dict(_B5, name="serving", lengths=SERVING_LENGTHS, cache="int8",
+            compute="bf16"),
+       dict(_B5, name="long D128", d=128, pps=64, lengths=[8192] * 8,
+            cache="int8", compute="bf16")]
+)
 CASES = {"b2": B2_CASES, "b3": SPLIT_CASES, "b4": SPLIT_CASES,
          "b3-b4": SPLIT_CASES, "b9": B9_CASES, "b10": B10_CASES,
          "b1-fp32": B1_FP32_CASES, "b2-fp32": FP32_BWD_CASES,
          "b3-fp32": FP32_BWD_CASES, "b4-fp32": FP32_BWD_CASES,
-         "b3-b4-fp32": FP32_BWD_CASES}
+         "b3-b4-fp32": FP32_BWD_CASES, "b8": B8_CASES, "b5": B5_CASES}
 # Matmuls of S x S x D per attending (query, key) pair and head: B3
 # recomputes S and dP for dS K, B4 for P^T dO and dS^T Q_s; the pair is
 # bounded by the function's own five, as B2.
 _MATMULS = {"b2": 5, "b3": 3, "b4": 4, "b3-b4": 5, "b9": 2, "b10": 2,
-            "b1-fp32": 2}
+            "b1-fp32": 2, "b8": 2}
 # The fp32 bodies' names, each with the kernel whose problem, bound and
 # parent wrapper it shares.
 _FP32_BODIES = {"b2-fp32": "b2", "b3-fp32": "b3", "b4-fp32": "b4",
@@ -185,16 +233,99 @@ def b1_fp32_problem(case, gen):
     return (q, k, v), kw, (q, k, v)
 
 
+def b8_problem(case, gen):
+    """phase 16's B8 inputs: q, k, v [B, H, S, 64] fp32 padded as the API
+    pads them (attention._prepare), B8's keyword arguments and the raw q, k,
+    v in SDPA's input type (the tile type, else fp32)."""
+    tile = b1_ab.dtype_of(case["tile"])
+    raw = [torch.randn(case["b"], case["hq"], case["s"], case["d"], generator=gen,
+                       device=gen.device) for _ in range(3)]
+    q, k, v, scale, _, kv_len = attention._prepare(
+        *raw, case["causal"], None, tile, None, None, None, 0)
+    if not attention._use_small_kernel(q, k):
+        raise AssertionError(f"B8 {case['name']}: the route does not take B8")
+    kw = dict(causal=case["causal"], sm_scale=scale, kv_len=kv_len, tile_dtype=tile)
+    return (q, k, v), kw, tuple(t.to(tile or torch.float32) for t in raw)
+
+
+def b5_pages(case, gen, num_pages):
+    """A paged cache [Hkv, num_pages, 128, D] of the case's storage: int8
+    codes with small scales and bf16 values with unit scales (phase 3's),
+    fp8 and int4 pages by the cache's own quantizer (phase 20's)."""
+    shape = (case["hkv"], num_pages, 128, case["d"])
+    cache = case["cache"]
+    if cache in ("int8", "bf16"):
+        def pages_of():
+            if cache == "int8":
+                return torch.randint(-127, 128, shape, generator=gen,
+                                     device=gen.device, dtype=torch.int8)
+            return torch.randn(shape, generator=gen, device=gen.device).to(torch.bfloat16)
+
+        def scales_of():
+            if cache == "int8":
+                return torch.rand(shape[:3], generator=gen, device=gen.device) * 0.02 + 1e-3
+            return torch.ones(shape[:3], device=gen.device)
+        return kv_cache.KVPages(pages_of(), scales_of(), pages_of(), scales_of())
+    storage = {"e4m3": torch.float8_e4m3fn, "e5m2": torch.float8_e5m2,
+               "int4": "int4"}[cache]
+    dtype, _, packed = kv_cache._resolve_cache_dtype(storage, case["d"])
+
+    def pair():
+        return kv_cache._quantize_rows(
+            torch.randn(shape, generator=gen, device=gen.device), dtype, packed)
+
+    (kp, ks), (vp, vs) = pair(), pair()
+    return kv_cache.KVPages(kp, ks, vp, vs)
+
+
+def b5_problem(case, gen):
+    """B5's inputs at the case's shape: q [n, Hq, D] in the compute type,
+    the pages, a shuffled page table [n, pps] (page 0 is the null page) and
+    the lengths; B5's keyword arguments; and q, whose size the bound
+    counts."""
+    n, pps = len(case["lengths"]), case["pps"]
+    num_pages = n * pps + 1
+    pages = b5_pages(case, gen, num_pages)
+    table = (torch.randperm(num_pages - 1, generator=gen, device=gen.device) + 1
+             ).reshape(n, pps).to(torch.int32).contiguous()
+    lengths = torch.tensor(case["lengths"], dtype=torch.int32, device=gen.device)
+    cdt = b1_ab.dtype_of(case["compute"])
+    q = torch.randn(n, case["hq"], case["d"], generator=gen, device=gen.device).to(cdt)
+    kw = dict(sm_scale=case["d"] ** -0.5, compute_dtype=cdt)
+    return (q, pages, table, lengths), kw, (q,)
+
+
 def problem(kernel: str, case, gen):
     """(the kernel's inputs, its keyword arguments, the raw q, k, v[, dO])."""
     return {"b2": b2_problem, "b3": split_problem, "b4": split_problem,
             "b3-b4": b2_problem, "b9": b9_problem, "b10": b9_problem,
-            "b1-fp32": b1_fp32_problem}[backward_of(kernel)](case, gen)
+            "b1-fp32": b1_fp32_problem, "b8": b8_problem,
+            "b5": b5_problem}[backward_of(kernel)](case, gen)
 
 
 def flops(kernel: str, case) -> int:
+    if kernel == "b5":  # 4 D FLOPs per (query head, live token)
+        return 4 * case["d"] * case["hq"] * sum(case["lengths"])
     pairs = b1_ab.attended_pairs(case["s"], case["s"], case["causal"])
     return _MATMULS[backward_of(kernel)] * 2 * case["b"] * case["hq"] * pairs * case["d"]
+
+
+def b8_padded(case) -> int:
+    """B8's padded sequence length at the case's S (attention._prepare)."""
+    quantum = seq_pad_quantum(case["s"], torch.float32)
+    return -(-case["s"] // quantum) * quantum
+
+
+def b5_bytes(case) -> int:
+    """chip_smoke.paged_bound's bytes at chunk 1: each live token's K and V
+    row and scale once (int4 at half a byte an element), q and the output,
+    the live page ids and the lengths."""
+    lengths, d = case["lengths"], case["d"]
+    elem = {"int4": 0.5, "bf16": 2, "fp32": 4}.get(case["cache"], 1)
+    qb = len(lengths) * case["hq"] * d * (2 if case["compute"] == "bf16" else 4)
+    live_pages = sum(-(-n // 128) for n in lengths)
+    return (2 * sum(lengths) * case["hkv"] * (d * elem + 4) + 2 * qb
+            + live_pages * 4 + 4 * len(lengths))
 
 
 def bound(kernel: str, case, raw) -> tuple[float, str]:
@@ -203,15 +334,24 @@ def bound(kernel: str, case, raw) -> tuple[float, str]:
     B3: q, k, v, dO, lse, D_i in, dQ out; B4: the same in, dK, dV out; B9,
     B10: q, k, v in, O out; B1: q, k, v in, O and lse out), or the FLOPs at
     the tile type's peak."""
-    q, k = raw[0], raw[1]
-    qb = q.numel() * q.element_size()
-    kvb = 2 * k.numel() * k.element_size()
-    stat = case["b"] * case["hq"] * case["s"] * 4
-    moved = {"b2": 4 * qb + 2 * kvb + stat, "b3-b4": 4 * qb + 2 * kvb + stat,
-             "b3": 3 * qb + kvb + 2 * stat, "b4": 2 * qb + 2 * kvb + 2 * stat,
-             "b1-fp32": 2 * qb + kvb + stat}.get(backward_of(kernel), 2 * qb + kvb)
+    if kernel == "b5":
+        moved = b5_bytes(case)
+        peak = b1_ab.PEAK_FLOPS[case["compute"]]
+    elif kernel == "b8":  # padded q, k, v, O in fp32 and lse, as chip_smoke
+        cells = case["b"] * case["hq"] * b8_padded(case)
+        moved = 4 * cells * case["d"] * 4 + cells * 4
+        peak = b1_ab.PEAK_FLOPS[case["tile"] or case["dtype"]]
+    else:
+        q, k = raw[0], raw[1]
+        qb = q.numel() * q.element_size()
+        kvb = 2 * k.numel() * k.element_size()
+        stat = case["b"] * case["hq"] * case["s"] * 4
+        moved = {"b2": 4 * qb + 2 * kvb + stat, "b3-b4": 4 * qb + 2 * kvb + stat,
+                 "b3": 3 * qb + kvb + 2 * stat, "b4": 2 * qb + 2 * kvb + 2 * stat,
+                 "b1-fp32": 2 * qb + kvb + stat}.get(backward_of(kernel), 2 * qb + kvb)
+        peak = b1_ab.PEAK_FLOPS[case["tile"] or case["dtype"]]
     t_bytes = moved / b1_ab.HBM_BYTES_PER_S
-    t_ops = flops(kernel, case) / b1_ab.PEAK_FLOPS[case["tile"] or case["dtype"]]
+    t_ops = flops(kernel, case) / peak
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations"
 
 
@@ -223,8 +363,11 @@ def library_call(kernel: str, case, raw, kw):
     for B3 or B4 alone (dQ, or dK and dV, without the rest); fp32 SDPA for
     B9 and B10, and for B1 on the keys before kv_len, K/V expanded to the
     query heads, causal as the case."""
-    if backward_of(kernel) in ("b3", "b4"):
+    if backward_of(kernel) in ("b3", "b4", "b5"):
         return None
+    if kernel == "b8":  # SDPA on the raw inputs in the tile type
+        return lambda: F.scaled_dot_product_attention(
+            *raw, is_causal=case["causal"], scale=kw["sm_scale"])
     if kernel in ("b9", "b10"):
         q, k, v = raw
         return lambda: F.scaled_dot_product_attention(q, k, v, scale=kw["sm_scale"])
@@ -255,6 +398,19 @@ def build_parent(kernel: str, path: str) -> ctypes.CDLL:
     if kernel == "b1-fp32":
         return b1_ab.build_parent(path)
     lib = b1_ab.compile_source(path, f"{Path(path).stem}_parent")
+    if kernel == "b8":
+        lib.cfa_fa2_forward_small.argtypes = [_P] * 5 + [_I] * 4 + [_F, _I, _I, _I, _P]
+        lib.cfa_fa2_forward_small.restype = _I
+        return lib
+    if kernel == "b5":
+        if hasattr(lib, "cfa_paged_decode_workspace_floats"):
+            for name, argtypes in dec_attn.ARGTYPES.items():
+                getattr(lib, name).argtypes = argtypes
+            lib.cfa_paged_decode_workspace_floats.restype = ctypes.c_longlong
+        else:  # one block per (slot, KV head), no workspace
+            lib.cfa_paged_decode.argtypes = [_P] * 8 + [_I] * 7 + [_F] + [_I] * 3 + [_P]
+        lib.cfa_paged_decode.restype = _I
+        return lib
     if kernel in ("b2", "b3", "b4", "b3-b4"):
         if hasattr(lib, "cfa_fa2_backward_workspace"):
             for name, argtypes in bwd.ARGTYPES.items():
@@ -389,6 +545,46 @@ def parent_b10(lib, q, k, v, *, sm_scale, kv_len):
     return (o,)
 
 
+def parent_b8(lib, q, k, v, *, causal, sm_scale, kv_len, tile_dtype):
+    """The parent's wrapper: fa2_forward_small_aligned's checks and
+    allocations, the same C entry point."""
+    b, h, s_pad, d = q.shape
+    fa2._check_inputs("fa2_forward_small", q, k, v, tile_dtype)
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, s_pad), device=q.device, dtype=torch.float32)
+    err = lib.cfa_fa2_forward_small(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        b * h, s_pad, d, kv_len, sm_scale * LOG2E, int(causal),
+        int(q.dtype == torch.bfloat16), tile_code(q.dtype, tile_dtype),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, "cfa_fa2_forward_small_error_string", err,
+                 "parent fa2_forward_small")
+    return o, lse
+
+
+def parent_b5(lib, q, pages, table, lengths, *, sm_scale, compute_dtype):
+    """The parent's wrapper: a source exporting
+    cfa_paged_decode_workspace_floats (a variant of the split-KV kernel) is
+    launched as the current wrapper launches it; an earlier one takes no
+    split count, workspace or counters."""
+    if hasattr(lib, "cfa_paged_decode_workspace_floats"):
+        return (dec_attn.decode_launch(lib, q, pages, table, lengths,
+                                       sm_scale=sm_scale,
+                                       compute_dtype=compute_dtype),)
+    n, hq, d = q.shape
+    hkv, num_pages, page, _ = pages.k_pages.shape
+    tensors = dec_attn._check_kernel_inputs("paged_decode", q, pages, table,
+                                            lengths, hq // hkv)
+    out = torch.empty_like(q)
+    err = lib.cfa_paged_decode(
+        *(t.data_ptr() for t in tensors), out.data_ptr(), n, hq, hkv, num_pages,
+        page, table.shape[1], d, float(sm_scale), int(q.dtype == torch.bfloat16),
+        dec_attn._cache_code(pages, d), int(compute_dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, "cfa_paged_decode_error_string", err, "parent paged_decode")
+    return (out,)
+
+
 def calls(kernel: str):
     """(the parent's wrapper, taking the library first; the current one),
     each returning a tuple of outputs."""
@@ -400,7 +596,20 @@ def calls(kernel: str):
         "b9": (parent_b9, lambda *a, **k: (baselines.fa1_aligned(*a, **k),)),
         "b10": (parent_b10, lambda *a, **k: (baselines.naive_fa2_aligned(*a, **k),)),
         "b1-fp32": (b1_ab.parent_forward, fa2.fa2_forward_aligned),
+        "b8": (parent_b8, fa2.fa2_forward_small_aligned),
+        "b5": (parent_b5, lambda *a, **k: (dec_attn.paged_decode_attention(*a, **k),)),
     }[backward_of(kernel)]
+
+
+def shape_of(kernel: str, case) -> dict:
+    """The case's shape as its JSON line reports it."""
+    if kernel == "b5":
+        return dict(slots=len(case["lengths"]), Hq=case["hq"], Hkv=case["hkv"],
+                    D=case["d"], pages_per_seq=case["pps"], lengths=case["lengths"],
+                    cache=case["cache"], compute=case["compute"])
+    return dict(B=case["b"], Hq=case["hq"], Hkv=case["hkv"], S=case["s"],
+                D=case["d"], causal=case["causal"], inputs=case["dtype"],
+                tiles=case["tile"])
 
 
 def main(argv=None) -> list[dict]:
@@ -408,8 +617,9 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--kernel", required=True, choices=tuple(CASES))
     ap.add_argument("--parent", required=True,
                     help="an earlier csrc/fa2_backward.cu (b2, b3, b4, b3-b4 and "
-                    "their -fp32 forms), "
-                    "csrc/baselines.cu (b9, b10) or csrc/fa2_forward.cu (b1-fp32)")
+                    "their -fp32 forms), csrc/baselines.cu (b9, b10), "
+                    "csrc/fa2_forward.cu (b1-fp32), csrc/fa2_forward_small.cu "
+                    "(b8) or csrc/paged_decode.cu (b5)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: needs an NVIDIA card")
@@ -439,10 +649,8 @@ def main(argv=None) -> list[dict]:
         n_flops = flops(args.kernel, case)
         library = library_call(args.kernel, case, raw, kw)
         bound_ms, bound_by = bound(args.kernel, case, raw)
-        row = dict(kernel=args.kernel, case=case["name"], B=case["b"],
-                   Hq=case["hq"], Hkv=case["hkv"], S=case["s"], D=case["d"],
-                   causal=case["causal"], inputs=case["dtype"],
-                   tiles=case["tile"], turns_ms=turns,
+        row = dict(kernel=args.kernel, case=case["name"],
+                   **shape_of(args.kernel, case), turns_ms=turns,
                    device_turns_ms=device_turns, parent_ms=parent_ms,
                    ms=new_ms, speedup=parent_ms / new_ms,
                    parent_device_ms=parent_dev, device_ms=new_dev,
@@ -451,6 +659,8 @@ def main(argv=None) -> list[dict]:
                    tflops=n_flops / new_dev / 1e9, bound_ms=bound_ms,
                    bound_by=bound_by,
                    library_ms=None if library is None else b1_ab.time_ms(library),
+                   library_device_ms=(None if library is None
+                                      else b1_ab.device_ms(library)),
                    max_abs_diff=diff, parent_host_us=b1_ab.host_us(old),
                    host_us=b1_ab.host_us(new))
         rows.append(row)

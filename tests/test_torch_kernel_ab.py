@@ -1,21 +1,25 @@
 """The case lists of scripts/kernel_ab.py (B2, B3, B4, the pair B3 + B4
-and their fp32 bodies, B9, B10 and B1's fp32 body against an earlier build
-of their sources): each
+and their fp32 bodies, B9, B10, B1's fp32 body, B8 and B5 against an
+earlier build of their sources): each
 B2 case pads as the API pads and matches a row that chip_smoke.py holds and
 times, the split cases add the shapes the route rule sends to the pair,
 each B9 and B10 case is one of the reference suite's configs in
 chip_smoke.py, each B1 fp32 case one of chip_smoke's B1 shapes in fp32, the
 fp32 backward cases are fp32_bwd's and chip_smoke's shapes with fp32_bwd's
-bounds, the FLOPs and bounds count what the script says, each kernel's
+bounds, the B8 cases are phase 16's rows padded as the API pads and the B5
+cases hold phase 3's shape, with chip_smoke's bounds (attention_bound,
+paged_bound), the FLOPs and bounds count what the script says, each kernel's
 current wrapper takes its problem as the script calls it, and the parent
 wrappers of B2, B3 and B4 call the C entry points with the arguments their
-argtypes declare (a fake library stands in for the build).  CPU only: no kernel runs
+argtypes declare, as do B5's and B8's (a fake library stands in for the
+build).  CPU only: no kernel runs
 here."""
 
 import re
 import types
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -399,3 +403,129 @@ def test_parent_b2_with_a_workspace_runs_its_dq_reduce(monkeypatch):
     for name, args in lib.calls:
         assert len(args) == len(getattr(lib, name).argtypes) == \
             len(fa2_backward.ARGTYPES[name]), name
+
+
+def test_b8_cases_are_chip_smokes_phase_16_rows():
+    """The suite's Small-1, Edge-NonPowerOf2 and Edge-SmallSeq (fp32
+    inputs, D 64, Hq = Hkv) in fp32, bf16 and fp16 tiles, causal and not:
+    phase 16's 18 rows."""
+    cases = kernel_ab.B8_CASES
+    assert len(cases) == 18 == len({c["name"] for c in cases})
+    assert {(c["config"], c["tile"], c["causal"]) for c in cases} == {
+        (cfg, tile, causal) for cfg in ("Small-1", "Edge-NonPowerOf2", "Edge-SmallSeq")
+        for tile in (None, "bf16", "fp16") for causal in (False, True)}
+    for c in cases:
+        assert (c["b"], c["hq"], c["s"]) == chip_smoke.SUITE[c["config"]]
+        assert c["hkv"] == c["hq"] and c["d"] == 64 and c["dtype"] == "fp32"
+
+
+@pytest.mark.parametrize("case", kernel_ab.B8_CASES[::5], ids=lambda c: c["name"])
+def test_b8_problem_pads_as_the_api_does_and_takes_b8(case):
+    """B8's inputs are padded as attention._prepare pads them (the route
+    takes B8), SDPA's are the raw ones in the tile type."""
+    small = dict(case, b=1, hq=2, hkv=2)
+    (q, k, v), kw, raw = kernel_ab.problem("b8", small, torch.Generator().manual_seed(0))
+    assert q.shape == k.shape == v.shape == (1, 2, kernel_ab.b8_padded(case), 64)
+    assert attention._use_small_kernel(q, k) and q.dtype == torch.float32
+    assert kw["kv_len"] == case["s"] and kw["causal"] == case["causal"]
+    assert kw["tile_dtype"] == b1_ab.dtype_of(case["tile"])
+    assert [t.shape[2] for t in raw] == [case["s"]] * 3
+    assert raw[0].dtype == (b1_ab.dtype_of(case["tile"]) or torch.float32)
+
+
+def test_b5_cases_hold_phase_3s_shape_and_servings_lengths():
+    """Phase 3's four rows (8 slots, Hq16 Hkv8 D64, 16 pages of 128 tokens,
+    its ragged lengths with an inactive slot), phase 20's fp8 and int4
+    rows, serving's lengths (phase 5's first 8 prompts at their 64th new
+    token) and the long D128 case."""
+    names = {c["name"]: c for c in kernel_ab.B5_CASES}
+    assert len(names) == len(kernel_ab.B5_CASES) == 12
+    p3 = [names[f"phase 3 {cache} {compute}"] for cache, compute in (
+        ("int8", "bf16"), ("bf16", "bf16"), ("int8", "fp32"), ("bf16", "fp32"))]
+    for c in p3 + [names[f"phase 20 {cache} {compute}"] for cache in
+                   ("e4m3", "e5m2", "int4") for compute in ("bf16", "fp32")]:
+        assert (c["hq"], c["hkv"], c["d"], c["pps"]) == (16, 8, 64, 16)
+        assert c["lengths"] == [2048, 1, 129, 0, 777, 1500, 128, 2000]
+    prompts = chip_smoke.serving_mix(np, types.SimpleNamespace(vocab_size=32768))
+    assert names["serving"]["lengths"] == [len(p) + 64 for p in prompts[:8]]
+    long = names["long D128"]
+    assert (long["d"], long["pps"], long["lengths"]) == (128, 64, [8192] * 8)
+
+
+@pytest.mark.parametrize("case", kernel_ab.B8_CASES, ids=lambda c: c["name"])
+def test_b8_flops_and_bounds_are_chip_smokes(case):
+    s_pad = kernel_ab.b8_padded(case)
+    q = torch.empty(case["b"], case["hq"], s_pad, 64)
+    lse = torch.empty(case["b"], case["hq"], s_pad)
+    kind = case["tile"] or "fp32"
+    ms, by, n = chip_smoke.attention_bound(case["b"], case["hq"], case["s"], 64,
+                                           case["causal"], kind, q, q, q, q, lse)
+    assert kernel_ab.flops("b8", case) == n
+    got_ms, got_by = kernel_ab.bound("b8", case, None)
+    assert got_by == by and got_ms == pytest.approx(ms)
+
+
+@pytest.mark.parametrize("case", kernel_ab.B5_CASES, ids=lambda c: c["name"])
+def test_b5_flops_and_bounds_are_chip_smokes(case):
+    cdt = b1_ab.dtype_of(case["compute"])
+    q = torch.empty(len(case["lengths"]), case["hq"], case["d"], dtype=cdt)
+    elem = {"int4": 0.5, "bf16": 2, "fp32": 4}.get(case["cache"], 1)
+    ms, by, n, _ = chip_smoke.paged_bound(case["lengths"], 1, case["hq"], case["hkv"],
+                                          case["d"], elem, q, q, case["compute"])
+    assert kernel_ab.flops("b5", case) == n
+    got_ms, got_by = kernel_ab.bound("b5", case, None)
+    assert got_by == by == "bytes" and got_ms == pytest.approx(ms)
+    assert kernel_ab.library_call("b5", case, None, {}) is None
+
+
+class _RecordingLib:
+    """Stands in for a built library exporting `names`: records each call
+    and returns 0."""
+
+    def __init__(self, *names):
+        self.calls = []
+        for name in names:
+            setattr(self, name, _Entry(name, self.calls))
+
+
+@pytest.mark.parametrize("workspace", [False, True], ids=["a0d875a", "split-KV"])
+def test_parent_b5_calls_as_its_argtypes_declare(monkeypatch, workspace):
+    """build_parent gives B5's entry point the parent's argtypes: a0d875a's
+    (no split count, workspace or counters) or, for a source exporting
+    cfa_paged_decode_workspace_floats, the current wrapper's; parent_b5
+    passes exactly that many arguments."""
+    names = ["cfa_paged_decode"] + (["cfa_paged_decode_workspace_floats"]
+                                    if workspace else [])
+    lib = _RecordingLib(*names)
+    monkeypatch.setattr(b1_ab, "compile_source", lambda path, stem: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    assert kernel_ab.build_parent("b5", "unused.cu") is lib
+    if workspace:
+        from cuda_flash_attention_tpu_torch.decode import attention as dec_attn
+
+        monkeypatch.setattr(dec_attn, "_sm_count", lambda index: 132)
+        monkeypatch.setattr(dec_attn, "_counters_for",
+                            lambda device, n: torch.zeros(n, dtype=torch.int32))
+        lib.cfa_paged_decode_workspace_floats = lambda *a: 16
+        lib.cfa_paged_decode.argtypes = dec_attn.ARGTYPES["cfa_paged_decode"]
+    case = dict(kernel_ab.B5_CASES[0], hq=2, hkv=1, pps=2, lengths=[200, 0])
+    x, kw, _ = kernel_ab.problem("b5", case, torch.Generator().manual_seed(0))
+    (out,) = kernel_ab.parent_b5(lib, *x, **kw)
+    assert out.shape == x[0].shape
+    (name, args), = lib.calls
+    assert len(args) == len(lib.cfa_paged_decode.argtypes) == (23 if workspace else 20)
+
+
+def test_parent_b8_calls_as_its_argtypes_declare(monkeypatch):
+    lib = _RecordingLib("cfa_fa2_forward_small")
+    monkeypatch.setattr(b1_ab, "compile_source", lambda path, stem: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    assert kernel_ab.build_parent("b8", "unused.cu") is lib
+    case = dict(kernel_ab.B8_CASES[0], b=1, hq=2, hkv=2)
+    x, kw, _ = kernel_ab.problem("b8", case, torch.Generator().manual_seed(0))
+    o, lse = kernel_ab.parent_b8(lib, *x, **kw)
+    assert o.shape == x[0].shape and lse.shape == x[0].shape[:3]
+    (name, args), = lib.calls
+    assert len(args) == len(lib.cfa_fa2_forward_small.argtypes) == 14

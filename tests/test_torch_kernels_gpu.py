@@ -1029,3 +1029,128 @@ def test_r5_probe_variants_match_plain(cuda, variant):
     lse_d = (lse_k - lse_p).abs()
     assert lse_d.max().item() <= (8e-3 if variant == "v3_bf16_sum" else 2e-4)
     assert lse_d.mean().item() <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# B5 as split-KV flash-decoding (csrc/paged_decode.cu): every cache code at
+# D 64 and 128 and groups 1, 2 and 8, with lengths on the splits' edges and
+# slots longer than one split; determinism, the arrival counters, and a
+# CUDA graph.  Tolerances as test_paged_decode_kernel_matches_plain.
+# ---------------------------------------------------------------------------
+
+ALL_CACHES = [torch.float32, torch.bfloat16, torch.int8, torch.float8_e4m3fn,
+              torch.float8_e5m2, "int4"]
+# 12 pages a slot: the split plan makes runs of one or two pages (128 or 256
+# tokens), so 256 and 512 end splits, 257 starts one, and 1000 and 1536
+# span several; slot 0 is inactive.
+SPLIT_LENGTHS = [0, 1, 256, 257, 512, 1000, 1536]
+SPLIT_PPS = 12
+
+
+def _decode_split_problem(cache, d, group, compute, cuda, seed=0):
+    rng = np.random.default_rng(seed)
+    hq = 8
+    hkv = hq // group
+    n = len(SPLIT_LENGTHS)
+    num_pages = n * SPLIT_PPS + 1
+    table = torch.from_numpy(rng.permutation(np.arange(1, num_pages)).astype(
+        np.int32)).reshape(n, SPLIT_PPS)
+    pages = _cache_pages(rng, cache, hkv, num_pages, 128, d, table, n, SPLIT_PPS, cuda)
+    q = _randn(rng, n, hq, d).to(compute).to(cuda)
+    lengths = torch.tensor(SPLIT_LENGTHS, dtype=torch.int32, device=cuda)
+    return q, pages, table.to(cuda), lengths
+
+
+@pytest.mark.parametrize("compute", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("group", [1, 2, 8])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("cache", ALL_CACHES, ids=str)
+def test_paged_decode_splits_match_plain(cuda, cache, d, group, compute):
+    q, pages, table, lengths = _decode_split_problem(cache, d, group, compute, cuda)
+    n_splits = dec_attention.decode_split_plan(
+        len(SPLIT_LENGTHS), 8 // group, SPLIT_PPS,
+        torch.cuda.get_device_properties(cuda).multi_processor_count)
+    per = dec_attention.split_pages(SPLIT_PPS, n_splits) * 128
+    assert n_splits > 1 and 256 % per == 0 and max(SPLIT_LENGTHS) > per
+    before = dec_attention.launches
+    o_k = dec_attention.paged_decode_attention(q, pages, table, lengths,
+                                               compute_dtype=compute)
+    assert dec_attention.launches == before + 1
+    o_p = dec_attention.paged_decode_attention_plain(
+        q, pages, table, lengths, sm_scale=d ** -0.5, compute_dtype=compute)
+    torch.cuda.synchronize()
+    assert o_k.dtype == compute and not o_k[0].any()
+    assert torch.isfinite(o_k.float()).all()
+    err = (o_k.float() - o_p.float()).abs().max().item()
+    assert err <= (2e-2 if compute == torch.bfloat16 else 2e-5), err
+
+
+@pytest.mark.parametrize("cache", [torch.int8, "int4"], ids=str)
+def test_paged_decode_splits_are_deterministic_and_reset(cuda, cache):
+    """Two calls give the same bits (the splits fold in split order); after
+    each call, and after a call at another num_seqs (whose split plan may
+    differ), every arrival counter is back at zero and the next call still
+    gives the first one's bits."""
+    q, pages, table, lengths = _decode_split_problem(cache, 64, 2, torch.bfloat16, cuda, 1)
+    first = dec_attention.paged_decode_attention(q, pages, table, lengths)
+    again = dec_attention.paged_decode_attention(q, pages, table, lengths)
+    counters = dec_attention._counters[cuda.index if cuda.index is not None
+                                       else torch.cuda.current_device()]
+    assert torch.equal(first, again) and not counters.any()
+    part = dec_attention.paged_decode_attention(
+        q[2:5].clone(), pages, table[2:5].clone(), lengths[2:5].clone())
+    assert not counters.any()
+    assert (part.float() - first[2:5].float()).abs().max().item() <= 2e-2
+    assert torch.equal(dec_attention.paged_decode_attention(q, pages, table, lengths),
+                       first)
+    assert not counters.any()
+
+
+def test_paged_decode_replays_in_a_cuda_graph(cuda):
+    """Captured once, replayed after `lengths` changes in place: the same
+    output as the eager call on the new lengths (the launch reads no
+    length on the host)."""
+    q, pages, table, lengths = _decode_split_problem(torch.int8, 64, 2, torch.bfloat16, cuda, 2)
+    dec_attention.paged_decode_attention(q, pages, table, lengths)  # counters
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = dec_attention.paged_decode_attention(q, pages, table, lengths)
+    for new in ([5, 0, 1536, 300, 129, 1, 12 * 128], [0] * 7, SPLIT_LENGTHS):
+        lengths.copy_(torch.tensor(new, dtype=torch.int32))
+        graph.replay()
+        want = dec_attention.paged_decode_attention(q, pages, table, lengths)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), new
+
+
+# ---------------------------------------------------------------------------
+# B8 with its Q-tile grid (csrc/fa2_forward_small.cu): every padded length
+# around the 16-row and 64-row edges, kv_len inside the slot, causal or not,
+# fp32 inputs in all three tile types and bf16 inputs in bf16 (cp.async) and
+# fp16 tiles, one slot and 257.  Tolerances as
+# test_fa2_forward_small_kernel_matches_plain.
+# ---------------------------------------------------------------------------
+
+@FWD_VARIANTS
+@pytest.mark.parametrize("bh", [(1, 1), (1, 257)], ids=["BH1", "BH257"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("ragged", [False, True], ids=["full", "kv_len<S"])
+@pytest.mark.parametrize("s", [1, 15, 16, 17, 63, 64, 65, 100, 127, 128])
+def test_fa2_forward_small_q_tiles_match_plain(cuda, dtype, tile, bh, causal,
+                                               ragged, s):
+    rng = np.random.default_rng(s * 7 + causal)
+    kv_len = max(1, s - s // 3) if ragged else s
+    d = 128 if s in (17, 100) else 64
+    q, k, v = (_randn(rng, *bh, s, d).to(dtype) for _ in range(3))
+    kw = dict(causal=causal, sm_scale=d ** -0.5, kv_len=kv_len, tile_dtype=tile)
+    before = fa2_forward.small_launches
+    o_k, lse_k = fa2_forward.fa2_forward_small_aligned(
+        q.to(cuda), k.to(cuda), v.to(cuda), **kw)
+    assert fa2_forward.small_launches == before + 1
+    o_p, lse_p = fa2_forward.fa2_forward_small_plain(q, k, v, **kw)
+    low = tile is not None or dtype == torch.bfloat16
+    err = (o_k.float().cpu() - o_p.float()).abs().max().item()
+    lse_err = ((lse_k.cpu() - lse_p).abs() / lse_p.abs().clamp_min(1)).max().item()
+    assert err <= (2e-2 if low else 2e-6), err
+    assert lse_err <= (1e-3 if low else 1e-5), lse_err
