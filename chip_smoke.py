@@ -13,9 +13,12 @@ Phases (any failure raises and the script exits non-zero):
      kernel without its dQ phase) and of the fp32 FMA block's (B10, B1's
      fp32 body, B8's fp32 body, the backward's `bwd_kv_fp32` (B4, and
      B2's with FUSED), `bwd_dq_fp32` (B3) and their fp32 prologue, at D 64
-     and 128) and of B5's split-KV kernel (48: six caches x two q types x
-     D 64 and 128 x groups of at most 2 and 8), failing on a spilled byte,
-     a wgmma serialisation note or a missing instantiation;
+     and 128), of B5's split-KV kernel (48: six caches x two q types x
+     D 64 and 128 x groups of at most 2 and 8), of B6's split-KV body (48:
+     the same with fp32 compute on the FMA units and bf16 compute on the
+     tensor cores) and bf16 tile body (24) and of X's five variants,
+     failing on a spilled byte, a wgmma serialisation note or a missing
+     instantiation;
   2. kernel B1 (FA2 forward) against its plain PyTorch version at the
      serving prefill shapes (the serving run's largest, B4 S1536, included)
      and at the train shape (B4 S2048), and at the edges of its 128-row
@@ -65,7 +68,8 @@ Phases (any failure raises and the script exits non-zero):
  14. speculative serving at TransformerConfig.base() with an int8 cache:
      phase 5's 12 requests with k 4, a one-layer draft and prompt lookup:
      tokens/s, acceptance, rounds, B1/B5/B6 launches, and where a round's
-     time goes (one profiled window, as phase 6);
+     time goes (one profiled window, as phase 6, with B6's time and share
+     of a round's busy time);
  15. prefix caching: 16 requests sharing a 1024-token system prompt, TTFT
      of the hits against an uncached engine, shared pages, launches; then
      chunked prefill (chunk 512) on phase 5's mix: decode tokens emitted
@@ -196,6 +200,11 @@ FP32_FUNCTIONS = {"baselines": (("naive_fa2_fp32",), 2),
 # B5's split-KV kernel: 6 cache types x 2 q types x D 64 and 128 x groups
 # of at most 2 and 8.
 B5_FUNCTIONS = (("paged_decode_kernel",), 48)
+# B6's split-KV body (6 cache types x 2 q types x D 64 and 128 x fp32
+# compute on the FMA units and bf16 compute on the tensor cores) and its
+# bf16 tile body (6 x 2 x 2); X's five variants.
+B6_FUNCTIONS = (("paged_chunk_split", "paged_chunk_mma"), 72)
+X_FUNCTIONS = (("r5_fwd",), 5)
 
 
 def ptxas_by_function(text: str) -> dict:
@@ -441,15 +450,17 @@ def phase_profile(torch, np, eng, label="profile"):
     if not busy_ms > 0:
         raise AssertionError("profile: no device time recorded")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    # B5's kernel (csrc/paged_decode.cu) and its share of the busy time.
-    b5_ms = sum(e.self_device_time_total for e in kernels
-                if "paged_decode_kernel" in e.key) / 10 / 1e3
+    # B5's and B6's kernels (csrc/paged_decode.cu, csrc/paged_chunk.cu) and
+    # their shares of the busy time.
+    b5_ms, b6_ms = (sum(e.self_device_time_total for e in kernels if name in e.key)
+                    / 10 / 1e3 for name in ("paged_decode_kernel", "paged_chunk_"))
     res = dict(
         batch=len(reqs), decode_step_ms=step_ms,
         device_busy_ms_per_step=busy_ms,
         device_idle_share=1 - busy_ms / step_ms,
         kernel_launches_per_step=sum(e.count for e in kernels) / 10,
         b5_ms_per_step=b5_ms, b5_share_of_busy=b5_ms / busy_ms,
+        b6_ms_per_step=b6_ms, b6_share_of_busy=b6_ms / busy_ms,
         top_kernels_ms_per_step={e.key[:48]: e.self_device_time_total / 1e4
                                  for e in top})
     log(label, json.dumps(res))
@@ -881,14 +892,13 @@ def paged_bound(lengths, chunk, hq, hkv, d, elem, q, out, kind):
     cached token's K and V row and scale once (not the dead rows of a last
     page), q, out, the live page ids and the lengths; 4 * D FLOPs per
     (query head, row, attended column), row t of a slot of total length L
-    attending L - T + t + 1 columns.  Returns (ms, what bounds it, FLOPs,
-    bytes)."""
+    attending max(0, L - T + t + 1) columns.  Returns (ms, what bounds it,
+    FLOPs, bytes)."""
     tokens = sum(lengths)
     live_pages = sum(-(-n // 128) for n in lengths)
     moved = (2 * tokens * hkv * (d * elem + 4) + nbytes(q, out) + live_pages * 4
              + 4 * len(lengths))
-    cols = sum(chunk * (n - chunk) + chunk * (chunk + 1) // 2
-               for n in lengths if n)
+    cols = sum(max(0, n - chunk + t + 1) for n in lengths for t in range(chunk))
     flops = 4 * d * hq * cols
     t_bytes = moved / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[kind]
@@ -896,15 +906,21 @@ def paged_bound(lengths, chunk, hq, hkv, d, elem, q, out, kind):
             flops, moved)
 
 
+# B6's speculation shape (8 slots, T 5, ragged total lengths to 2048, an
+# inactive slot) and chunked-prefill shape (T 512, 4 slots), phases 12 and 20.
+B6_SPEC_LENGTHS = [2048, 5, 133, 0, 777, 1500, 128, 2000]
+B6_PREFILL_LENGTHS = [512, 1024, 1536, 2048]
+
+
 def phase_b6(torch, dec_attn, kv_cache):
     """Paged chunk kernel vs its plain version at the speculation and the
     chunked-prefill shapes, and T = 1 against B5."""
     gen = torch.Generator(device="cuda").manual_seed(11)
     hq, hkv, d, page = 16, 8, 64, 128
-    cases = [("spec", 5, [2048, 5, 133, 0, 777, 1500, 128, 2000], cache, compute)
+    cases = [("spec", 5, B6_SPEC_LENGTHS, cache, compute)
              for cache, compute in (("int8", "bf16"), ("int8", "fp32"),
                                     ("bf16", "bf16"))]
-    cases += [("prefill", 512, [512, 1024, 1536, 2048], "int8", compute)
+    cases += [("prefill", 512, B6_PREFILL_LENGTHS, "int8", compute)
               for compute in ("bf16", "fp32")]
     rows = []
     for shape_name, chunk, lens, cache, compute in cases:
@@ -1720,9 +1736,8 @@ def phase_paged_quant(torch, dec_attn, kv_cache):
     hq, hkv, d, page = 16, 8, 64, 128
     cases = [("B5", 1, [2048, 1, 129, 0, 777, 1500, 128, 2000], c)
              for c in ("bf16", "fp32")]
-    cases += [("B6 spec", 5, [2048, 5, 133, 0, 777, 1500, 128, 2000], c)
-              for c in ("bf16", "fp32")]
-    cases += [("B6 prefill", 512, [512, 1024, 1536, 2048], "bf16")]
+    cases += [("B6 spec", 5, B6_SPEC_LENGTHS, c) for c in ("bf16", "fp32")]
+    cases += [("B6 prefill", 512, B6_PREFILL_LENGTHS, "bf16")]
     rows = []
     for cache in ("e4m3", "e5m2", "int4"):
         elem = 0.5 if cache == "int4" else 1
@@ -2050,6 +2065,10 @@ def main() -> int:
         check_ptxas(text, "fp32 block", functions, count)
     check_ptxas(build_logs.get("paged_decode") or ptxas_log(_build, "paged_decode"),
                 "B5", *B5_FUNCTIONS)
+    check_ptxas(build_logs.get("paged_chunk") or ptxas_log(_build, "paged_chunk"),
+                "B6", *B6_FUNCTIONS)
+    check_ptxas(build_logs.get("r5_d128_fwd") or ptxas_log(_build, "r5_d128_fwd"),
+                "X", *X_FUNCTIONS)
 
     t0 = time.perf_counter()
     b1 = phase_b1(torch, fa2, b1_ab)

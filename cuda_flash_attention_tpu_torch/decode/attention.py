@@ -53,6 +53,16 @@ ARGTYPES = {
     "cfa_paged_decode": [_P] * 8 + [_I] * 7 + [_F] + [_I] * 4 + [_P] * 3,
     "cfa_paged_decode_workspace_floats": [_I] * 4,
 }
+# B6's (csrc/paged_chunk.cu).
+CHUNK_ARGTYPES = {
+    "cfa_paged_chunk": [_P] * 8 + [_I] * 8 + [_F] + [_I] * 4 + [_P] * 3,
+    "cfa_paged_chunk_workspace_floats": [_I] * 6,
+}
+# B6 takes its split-KV body where a KV head's T * group query rows are at
+# most _SPLIT_ROWS, in row tiles of at most _ROW_TILE rows; above it, its
+# tile bodies (csrc/paged_chunk.cu kSplitRows, kRowTile).
+_SPLIT_ROWS = 64
+_ROW_TILE = 16
 # Blocks per SM that B5's split plan aims for: more splits shorten the
 # longest block's walk, and a few resident blocks an SM overlap one's
 # loads with another's arithmetic.
@@ -88,14 +98,40 @@ def split_pages(pages_per_seq: int, n_splits: int) -> int:
     return -(-pages_per_seq // n_splits)
 
 
+def chunk_body(chunk: int, group: int) -> str:
+    """B6's body for T = chunk queries of `group` heads per KV head, from
+    shapes alone: "split" (split-KV flash-decoding, speculation's verify)
+    where the T * group rows fit _SPLIT_ROWS, else "tiles" (64-row tiles
+    walking the slot's pages: chunked prefill, prefix suffixes).  Both
+    take head_dim 64 and 128 alike."""
+    return "split" if chunk * group <= _SPLIT_ROWS else "tiles"
+
+
+def chunk_row_tiles(chunk: int, group: int) -> int:
+    """Row tiles of the split body a KV head: blocks of at most _ROW_TILE
+    of its T * group rows."""
+    return -(-chunk * group // _ROW_TILE)
+
+
+def chunk_split_plan(num_seqs: int, n_kv_heads: int, pages_per_seq: int,
+                     chunk: int, group: int, sm_count: int) -> int:
+    """B6's split count, from shapes alone: decode_split_plan with each
+    (slot, row tile) counted as a slot; 1 for the tile bodies."""
+    if chunk_body(chunk, group) != "split":
+        return 1
+    return decode_split_plan(num_seqs * chunk_row_tiles(chunk, group),
+                             n_kv_heads, pages_per_seq, sm_count)
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-# B5's arrival counters, one int32 buffer per device: zeroed when allocated,
-# and every call leaves the counters it used at zero again.  Calls on one
-# stream share them safely; two calls at once on two streams would not.
+# B5's and B6's arrival counters, one int32 buffer per device: zeroed when
+# allocated, and every call leaves the counters it used at zero again.
+# Calls on one stream share them safely; two calls at once on two streams
+# would not.
 _counters: dict[int, torch.Tensor] = {}
 
 
@@ -111,13 +147,11 @@ def _counters_for(device: torch.device, n: int) -> torch.Tensor:
 
 def _chunk_lib() -> ctypes.CDLL:
     lib = _build.load(_CHUNK_SOURCE)
-    fn = lib.cfa_paged_chunk
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
+    if lib.cfa_paged_chunk.argtypes is None:
+        for name, argtypes in CHUNK_ARGTYPES.items():
+            getattr(lib, name).argtypes = argtypes
+        lib.cfa_paged_chunk.restype = ctypes.c_int
+        lib.cfa_paged_chunk_workspace_floats.restype = ctypes.c_longlong
     return lib
 
 
@@ -256,7 +290,10 @@ def paged_chunk_attention(q, pages: KVPages, page_table, lengths, *,
     the chunk included (0 for an inactive slot, whose output is zeros).
     Query t attends causally up to its own position length - T + t.
     Returns [num_seqs, T, n_heads, D] in q's dtype; ``compute_dtype`` as in
-    paged_decode_attention."""
+    paged_decode_attention.
+
+    On the card it is one launch that reads no value of `lengths` on the
+    host (chunk_launch)."""
     if window is not None or sinks:
         raise NotImplementedError("windowed paged chunk attention is not ported yet")
     num_seqs, chunk, n_heads, head_dim = q.shape
@@ -274,20 +311,47 @@ def paged_chunk_attention(q, pages: KVPages, page_table, lengths, *,
     if q.device.type != "cuda":
         raise ValueError(f"paged_chunk_attention: unsupported device {q.device}")
     global chunk_launches
+    out = chunk_launch(_chunk_lib(), q, pages, page_table, lengths,
+                       sm_scale=sm_scale, compute_dtype=compute_dtype)
+    chunk_launches += 1
+    return out
+
+
+def chunk_launch(lib: ctypes.CDLL, q, pages: KVPages, page_table, lengths, *,
+                 sm_scale: float, compute_dtype):
+    """One launch of B6 from `lib` (csrc/paged_chunk.cu built, or a variant
+    of it with the same entry points) on CUDA tensors: the body's split
+    plan, the workspace and the arrival counters (shared with B5's); reads
+    no value of `lengths` on the host, so the split body can be captured in
+    a CUDA graph once one eager call at the same shapes has allocated the
+    counters.  Returns the output."""
+    num_seqs, chunk, n_heads, head_dim = q.shape
+    n_kv_heads, num_pages, page_size, _ = pages.k_pages.shape
+    group = n_heads // n_kv_heads
     tensors = _check_kernel_inputs("paged_chunk", q, pages, page_table,
-                                   lengths, n_heads // n_kv_heads)
+                                   lengths, group)
     out = torch.empty_like(q)
-    lib = _chunk_lib()
+    pps = page_table.shape[1]
+    n_splits = chunk_split_plan(num_seqs, n_kv_heads, pps, chunk, group,
+                                _sm_count(q.device.index))
+    workspace = counters = None
+    if n_splits > 1:
+        workspace = torch.empty(
+            lib.cfa_paged_chunk_workspace_floats(num_seqs, chunk, n_heads,
+                                                 n_kv_heads, head_dim, n_splits),
+            dtype=torch.float32, device=q.device)
+        counters = _counters_for(q.device, num_seqs * n_kv_heads
+                                 * chunk_row_tiles(chunk, group))
     err = lib.cfa_paged_chunk(
         *(t.data_ptr() for t in tensors), out.data_ptr(),
-        num_seqs, chunk, n_heads, n_kv_heads, num_pages, page_size,
-        page_table.shape[1], head_dim, float(sm_scale),
-        int(q.dtype == torch.bfloat16), _cache_code(pages, head_dim),
-        int(compute_dtype == torch.bfloat16),
+        num_seqs, chunk, n_heads, n_kv_heads, num_pages, page_size, pps,
+        head_dim, float(sm_scale), int(q.dtype == torch.bfloat16),
+        _cache_code(pages, head_dim), int(compute_dtype == torch.bfloat16),
+        n_splits, None if workspace is None else workspace.data_ptr(),
+        None if counters is None else counters.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, "cfa_paged_chunk_error_string", err, "paged_chunk")
-    chunk_launches += 1
     return out
 
 

@@ -2,9 +2,10 @@
 the split pair B3 + B4 (all csrc/fa2_backward.cu; with bf16 or fp16 tiles,
 or their fp32 bodies, tile code 0, as `-fp32`), B9 (FA1) or B10 (naive
 FA2, both csrc/baselines.cu), B1's fp32 body (csrc/fa2_forward.cu, tile
-code 0), B8 (the small-shape FA2 forward, csrc/fa2_forward_small.cu) or B5
-(paged decode, csrc/paged_decode.cu) against an earlier build of its
-source, timed in turns on one card.
+code 0), B8 (the small-shape FA2 forward, csrc/fa2_forward_small.cu), B5
+(paged decode, csrc/paged_decode.cu), B6 (paged chunk attention,
+csrc/paged_chunk.cu) or X (the D=128 rowsum probe, csrc/r5_d128_fwd.cu)
+against an earlier build of its source, timed in turns on one card.
 
     python -m cuda_flash_attention_tpu_torch.scripts.kernel_ab --kernel b2 --parent PATH
     python -m cuda_flash_attention_tpu_torch.scripts.kernel_ab --kernel b3 --parent PATH
@@ -16,14 +17,18 @@ source, timed in turns on one card.
     python -m cuda_flash_attention_tpu_torch.scripts.kernel_ab --kernel b1-fp32 --parent PATH
     python -m cuda_flash_attention_tpu_torch.scripts.kernel_ab --kernel b8 --parent PATH
     python -m cuda_flash_attention_tpu_torch.scripts.kernel_ab --kernel b5 --parent PATH
+    python -m cuda_flash_attention_tpu_torch.scripts.kernel_ab --kernel b6 --parent PATH
+    python -m cuda_flash_attention_tpu_torch.scripts.kernel_ab --kernel x --parent PATH
 
 PATH is an earlier fa2_backward.cu (b2, b3, b4, b3-b4 and their -fp32
 forms), baselines.cu (b9, b10), fa2_forward.cu (b1-fp32),
-fa2_forward_small.cu (b8) or paged_decode.cu (b5) with the same C entry
-point: cfa_fa2_forward_small; cfa_paged_decode with or without a split
-count, workspace and counters (a source exporting
-cfa_paged_decode_workspace_floats is launched as the current wrapper
-launches it); cfa_fa2_backward_fused, cfa_fa2_backward_dq and
+fa2_forward_small.cu (b8), paged_decode.cu (b5), paged_chunk.cu (b6) or
+r5_d128_fwd.cu (x) with the same C entry point: cfa_fa2_forward_small;
+cfa_r5_d128_fwd; cfa_paged_decode or cfa_paged_chunk with or without a
+split count, workspace and counters (a source exporting
+cfa_paged_decode_workspace_floats or cfa_paged_chunk_workspace_floats is
+launched as the current wrapper launches it); cfa_fa2_backward_fused,
+cfa_fa2_backward_dq and
 cfa_fa2_backward_dkv with or without a workspace (a source that exports
 cfa_fa2_backward_workspace, such as a variant of the current one, is
 called as the current wrappers call it, B2 with its dQ reduce; without
@@ -46,17 +51,22 @@ non-causal, b1_ab's fp32 B1 S512, the train shape in fp32 at D 64 and
 fp32_bwd's Large-2 and Stress-1, phase 7's fp32 B1 S512 and the fp32
 train shape at D 64 and 128; B8_CASES: phase 16's 18 rows; B5_CASES:
 phase 3's rows, phase 20's fp8 and int4 rows, serving's decode lengths
-and a long D128 case) it prints one JSON line with b1_ab's two
+and a long D128 case; B6_CASES: phase 12's five rows, phase 20's fp8 and
+int4 rows, T 1, 2 and 8 at phase 12's lengths, a one-page suffix (T
+128), group 8 at D 128 and a long case; X_CASES: the probe's shape once
+per variant) it prints one JSON line with b1_ab's two
 times, each read in the order parent, current, current, parent (`ms`,
 CUDA events over back-to-back calls; `device_ms`, the calls queued behind
 a sleep kernel), TFLOP/s, the bound, one PyTorch call computing the same
 function (PyTorch's flash backward in the tile type for B2 and the pair,
 SDPA's memory-efficient backward for their fp32 bodies, none for B3 or B4
-alone or B5; fp32 SDPA for the forwards, K/V expanded to the query heads
-and the causal flag set for B1; SDPA in the tile type for B8), timed
-back to back (`library_ms`) and queued (`library_device_ms`), the
+alone, B5 or B6; fp32 SDPA for the forwards, K/V expanded to the query
+heads and the causal flag set for B1; SDPA in the tile type for B8 and X),
+timed back to back (`library_ms`) and queued (`library_device_ms`), the
 largest difference between the two builds' outputs and each wrapper's
-host time per call.  The card's name and power limit come first.
+host time per call; X's lines add B1 on the same inputs and the two-pass
+floor (1.5x the operations bound: X computes Q K^T twice).  The card's
+name and power limit come first.
 """
 
 from __future__ import annotations
@@ -82,6 +92,7 @@ from cuda_flash_attention_tpu_torch.kernels.common import (
     tile_code,
 )
 from cuda_flash_attention_tpu_torch.scripts import b1_ab, fp32_bwd
+from cuda_flash_attention_tpu_torch.scripts import r5_d128_fwd as r5
 
 # chip_smoke.py's B2 rows (phase 7 bf16 rows, the D 128 train row, phase
 # 16's fp16 tiles on fp32 inputs) and B9 rows (phase 16, fp32, D 64).
@@ -151,6 +162,10 @@ B8_CASES = [
 # the 8 slots' first residents, each at its 64th new token) and a long
 # context (8 slots of 8192 tokens at D 128, 64 pages a slot).
 PHASE3_LENGTHS = [2048, 1, 129, 0, 777, 1500, 128, 2000]
+# Phase 12's (and phase 20's) B6 lengths: chip_smoke.B6_SPEC_LENGTHS and
+# B6_PREFILL_LENGTHS.
+SPEC_LENGTHS = [2048, 5, 133, 0, 777, 1500, 128, 2000]
+PREFILL_LENGTHS = [512, 1024, 1536, 2048]
 SERVING_LENGTHS = [int(n) + 64
                    for n in np.random.default_rng(4).integers(64, 1501, 12)[:8]]
 _B5 = dict(hq=16, hkv=8, d=64, pps=16, lengths=PHASE3_LENGTHS)
@@ -165,16 +180,45 @@ B5_CASES = (
        dict(_B5, name="long D128", d=128, pps=64, lengths=[8192] * 8,
             cache="int8", compute="bf16")]
 )
+# B6: phase 12's five rows (8 slots, T 5, Hq16 Hkv8 D64, 16 pages of 128
+# tokens a slot: int8 cache with bf16 and fp32 compute, bf16 cache; T 512
+# at 4 slots of 512-2048 tokens, int8 with bf16 and fp32 compute), phase
+# 20's fp8 and int4 rows (bf16 compute), T 1, 2 and 8 at phase 12's
+# lengths, a one-page prefix suffix (T 128 at the prefill lengths), group 8
+# at D 128 (Hkv 2, T 5) and a long case (8 slots of 8192 tokens, T 5).
+_B6 = dict(hq=16, hkv=8, d=64, pps=16, T=5, lengths=SPEC_LENGTHS, cache="int8",
+           compute="bf16")
+_B6_PREFILL = dict(_B6, T=512, lengths=PREFILL_LENGTHS)
+B6_CASES = (
+    [dict(_B6, name="phase 12 spec int8 bf16"),
+     dict(_B6, name="phase 12 spec int8 fp32", compute="fp32"),
+     dict(_B6, name="phase 12 spec bf16 bf16", cache="bf16"),
+     dict(_B6_PREFILL, name="phase 12 prefill int8 bf16"),
+     dict(_B6_PREFILL, name="phase 12 prefill int8 fp32", compute="fp32")]
+    + [dict(_B6, name=f"phase 20 spec {cache}", cache=cache)
+       for cache in ("e4m3", "e5m2", "int4")]
+    + [dict(_B6_PREFILL, name=f"phase 20 prefill {cache}", cache=cache)
+       for cache in ("e4m3", "int4")]
+    + [dict(_B6, name=f"spec T{t}", T=t) for t in (1, 2, 8)]
+    + [dict(_B6_PREFILL, name="suffix T128", T=128),
+       dict(_B6, name="group 8 D128", hkv=2, d=128),
+       dict(_B6, name="long 8 x 8192", pps=64, lengths=[8192] * 8)]
+)
+# X: the probe's shape (B4 H8 S2048 D128 bf16, not causal), once per variant.
+X_CASES = [dict(name=variant, variant=variant, b=r5.B, hq=r5.H, hkv=r5.H, s=r5.S,
+                d=r5.D, causal=False, dtype="bf16", tile="bf16")
+           for variant in r5.VARIANTS]
 CASES = {"b2": B2_CASES, "b3": SPLIT_CASES, "b4": SPLIT_CASES,
          "b3-b4": SPLIT_CASES, "b9": B9_CASES, "b10": B10_CASES,
          "b1-fp32": B1_FP32_CASES, "b2-fp32": FP32_BWD_CASES,
          "b3-fp32": FP32_BWD_CASES, "b4-fp32": FP32_BWD_CASES,
-         "b3-b4-fp32": FP32_BWD_CASES, "b8": B8_CASES, "b5": B5_CASES}
+         "b3-b4-fp32": FP32_BWD_CASES, "b8": B8_CASES, "b5": B5_CASES,
+         "b6": B6_CASES, "x": X_CASES}
 # Matmuls of S x S x D per attending (query, key) pair and head: B3
 # recomputes S and dP for dS K, B4 for P^T dO and dS^T Q_s; the pair is
 # bounded by the function's own five, as B2.
 _MATMULS = {"b2": 5, "b3": 3, "b4": 4, "b3-b4": 5, "b9": 2, "b10": 2,
-            "b1-fp32": 2, "b8": 2}
+            "b1-fp32": 2, "b8": 2, "x": 2}
 # The fp32 bodies' names, each with the kernel whose problem, bound and
 # parent wrapper it shares.
 _FP32_BODIES = {"b2-fp32": "b2", "b3-fp32": "b3", "b4-fp32": "b4",
@@ -295,17 +339,43 @@ def b5_problem(case, gen):
     return (q, pages, table, lengths), kw, (q,)
 
 
+def b6_problem(case, gen):
+    """B6's inputs at the case's shape: q [n, T, Hq, D] in the compute
+    type, b5_problem's pages, page table and lengths; B6's keyword
+    arguments; and q, whose size the bound counts."""
+    (_, pages, table, lengths), kw, _ = b5_problem(case, gen)
+    q = torch.randn(len(case["lengths"]), case["T"], case["hq"], case["d"],
+                    generator=gen, device=gen.device).to(kw["compute_dtype"])
+    return (q, pages, table, lengths), kw, (q,)
+
+
+def x_problem(case, gen):
+    """X's inputs: bf16 q, k, v [B, H, S, 128] (r5_d128_fwd.main's), the
+    variant as keyword argument, and q, k, v."""
+    q, k, v = (torch.randn(case["b"], case["hq"], case["s"], case["d"], generator=gen,
+                           device=gen.device).to(torch.bfloat16) for _ in range(3))
+    return (q, k, v), dict(variant=case["variant"]), (q, k, v)
+
+
 def problem(kernel: str, case, gen):
     """(the kernel's inputs, its keyword arguments, the raw q, k, v[, dO])."""
     return {"b2": b2_problem, "b3": split_problem, "b4": split_problem,
             "b3-b4": b2_problem, "b9": b9_problem, "b10": b9_problem,
             "b1-fp32": b1_fp32_problem, "b8": b8_problem,
-            "b5": b5_problem}[backward_of(kernel)](case, gen)
+            "b5": b5_problem, "b6": b6_problem,
+            "x": x_problem}[backward_of(kernel)](case, gen)
+
+
+def attended_columns(lengths, chunk: int) -> int:
+    """(row, column) pairs of a paged call: row t of a slot of total length
+    L attends max(0, L - T + t + 1) columns (chip_smoke.paged_bound)."""
+    return sum(max(0, n - chunk + t + 1) for n in lengths for t in range(chunk))
 
 
 def flops(kernel: str, case) -> int:
-    if kernel == "b5":  # 4 D FLOPs per (query head, live token)
-        return 4 * case["d"] * case["hq"] * sum(case["lengths"])
+    if kernel in ("b5", "b6"):  # 4 D FLOPs per (query head, attended column)
+        return 4 * case["d"] * case["hq"] * attended_columns(case["lengths"],
+                                                             case.get("T", 1))
     pairs = b1_ab.attended_pairs(case["s"], case["s"], case["causal"])
     return _MATMULS[backward_of(kernel)] * 2 * case["b"] * case["hq"] * pairs * case["d"]
 
@@ -316,13 +386,14 @@ def b8_padded(case) -> int:
     return -(-case["s"] // quantum) * quantum
 
 
-def b5_bytes(case) -> int:
-    """chip_smoke.paged_bound's bytes at chunk 1: each live token's K and V
-    row and scale once (int4 at half a byte an element), q and the output,
-    the live page ids and the lengths."""
+def paged_bytes(case) -> int:
+    """chip_smoke.paged_bound's bytes (B5 at chunk 1, B6 at T): each live
+    token's K and V row and scale once (int4 at half a byte an element), q
+    and the output, the live page ids and the lengths."""
     lengths, d = case["lengths"], case["d"]
     elem = {"int4": 0.5, "bf16": 2, "fp32": 4}.get(case["cache"], 1)
-    qb = len(lengths) * case["hq"] * d * (2 if case["compute"] == "bf16" else 4)
+    qb = (len(lengths) * case.get("T", 1) * case["hq"] * d
+          * (2 if case["compute"] == "bf16" else 4))
     live_pages = sum(-(-n // 128) for n in lengths)
     return (2 * sum(lengths) * case["hkv"] * (d * elem + 4) + 2 * qb
             + live_pages * 4 + 4 * len(lengths))
@@ -332,10 +403,10 @@ def bound(kernel: str, case, raw) -> tuple[float, str]:
     """(ms, "bytes" or "operations"): each input read once and each output
     written once (B2 and the pair: q, k, v, O, dO, lse in, dQ, dK, dV out;
     B3: q, k, v, dO, lse, D_i in, dQ out; B4: the same in, dK, dV out; B9,
-    B10: q, k, v in, O out; B1: q, k, v in, O and lse out), or the FLOPs at
-    the tile type's peak."""
-    if kernel == "b5":
-        moved = b5_bytes(case)
+    B10: q, k, v in, O out; B1 and X: q, k, v in, O and lse out; B5 and
+    B6: paged_bytes), or the FLOPs at the tile type's peak."""
+    if kernel in ("b5", "b6"):
+        moved = paged_bytes(case)
         peak = b1_ab.PEAK_FLOPS[case["compute"]]
     elif kernel == "b8":  # padded q, k, v, O in fp32 and lse, as chip_smoke
         cells = case["b"] * case["hq"] * b8_padded(case)
@@ -348,7 +419,8 @@ def bound(kernel: str, case, raw) -> tuple[float, str]:
         stat = case["b"] * case["hq"] * case["s"] * 4
         moved = {"b2": 4 * qb + 2 * kvb + stat, "b3-b4": 4 * qb + 2 * kvb + stat,
                  "b3": 3 * qb + kvb + 2 * stat, "b4": 2 * qb + 2 * kvb + 2 * stat,
-                 "b1-fp32": 2 * qb + kvb + stat}.get(backward_of(kernel), 2 * qb + kvb)
+                 "b1-fp32": 2 * qb + kvb + stat,
+                 "x": 2 * qb + kvb + stat}.get(backward_of(kernel), 2 * qb + kvb)
         peak = b1_ab.PEAK_FLOPS[case["tile"] or case["dtype"]]
     t_bytes = moved / b1_ab.HBM_BYTES_PER_S
     t_ops = flops(kernel, case) / peak
@@ -360,14 +432,17 @@ def library_call(kernel: str, case, raw, kw):
     (fed by its own forward) in the tile type for B2 and the pair B3 + B4,
     with K/V expanded to the query heads, and for their fp32 bodies SDPA's
     memory-efficient fp32 backward (fp32_bwd.efficient_backward) so; none
-    for B3 or B4 alone (dQ, or dK and dV, without the rest); fp32 SDPA for
-    B9 and B10, and for B1 on the keys before kv_len, K/V expanded to the
-    query heads, causal as the case."""
-    if backward_of(kernel) in ("b3", "b4", "b5"):
+    for B3 or B4 alone (dQ, or dK and dV, without the rest), B5 or B6; fp32
+    SDPA for B9 and B10, and for B1 on the keys before kv_len, K/V expanded
+    to the query heads, causal as the case; bf16 SDPA for X (its yardstick:
+    X's P is JAX's bf16 exp chain, not SDPA's)."""
+    if backward_of(kernel) in ("b3", "b4", "b5", "b6"):
         return None
     if kernel == "b8":  # SDPA on the raw inputs in the tile type
         return lambda: F.scaled_dot_product_attention(
             *raw, is_causal=case["causal"], scale=kw["sm_scale"])
+    if kernel == "x":
+        return lambda: F.scaled_dot_product_attention(*raw, scale=case["d"] ** -0.5)
     if kernel in ("b9", "b10"):
         q, k, v = raw
         return lambda: F.scaled_dot_product_attention(q, k, v, scale=kw["sm_scale"])
@@ -401,6 +476,19 @@ def build_parent(kernel: str, path: str) -> ctypes.CDLL:
     if kernel == "b8":
         lib.cfa_fa2_forward_small.argtypes = [_P] * 5 + [_I] * 4 + [_F, _I, _I, _I, _P]
         lib.cfa_fa2_forward_small.restype = _I
+        return lib
+    if kernel == "x":
+        lib.cfa_r5_d128_fwd.argtypes = r5.ARGTYPES
+        lib.cfa_r5_d128_fwd.restype = _I
+        return lib
+    if kernel == "b6":
+        if hasattr(lib, "cfa_paged_chunk_workspace_floats"):
+            for name, argtypes in dec_attn.CHUNK_ARGTYPES.items():
+                getattr(lib, name).argtypes = argtypes
+            lib.cfa_paged_chunk_workspace_floats.restype = ctypes.c_longlong
+        else:  # 7af2811's: one block per (64-row tile, slot, KV head)
+            lib.cfa_paged_chunk.argtypes = [_P] * 8 + [_I] * 8 + [_F] + [_I] * 3 + [_P]
+        lib.cfa_paged_chunk.restype = _I
         return lib
     if kernel == "b5":
         if hasattr(lib, "cfa_paged_decode_workspace_floats"):
@@ -585,6 +673,34 @@ def parent_b5(lib, q, pages, table, lengths, *, sm_scale, compute_dtype):
     return (out,)
 
 
+def parent_b6(lib, q, pages, table, lengths, *, sm_scale, compute_dtype):
+    """The parent's wrapper: a source exporting
+    cfa_paged_chunk_workspace_floats (a variant of the current kernel) is
+    launched as the current wrapper launches it; an earlier one takes no
+    split count, workspace or counters."""
+    if hasattr(lib, "cfa_paged_chunk_workspace_floats"):
+        return (dec_attn.chunk_launch(lib, q, pages, table, lengths,
+                                      sm_scale=sm_scale,
+                                      compute_dtype=compute_dtype),)
+    n, chunk, hq, d = q.shape
+    hkv, num_pages, page, _ = pages.k_pages.shape
+    tensors = dec_attn._check_kernel_inputs("paged_chunk", q, pages, table,
+                                            lengths, hq // hkv)
+    out = torch.empty_like(q)
+    err = lib.cfa_paged_chunk(
+        *(t.data_ptr() for t in tensors), out.data_ptr(), n, chunk, hq, hkv,
+        num_pages, page, table.shape[1], d, float(sm_scale),
+        int(q.dtype == torch.bfloat16), dec_attn._cache_code(pages, d),
+        int(compute_dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, "cfa_paged_chunk_error_string", err, "parent paged_chunk")
+    return (out,)
+
+
+def parent_x(lib, q, k, v, *, variant):
+    return r5.launch(lib, q, k, v, variant)
+
+
 def calls(kernel: str):
     """(the parent's wrapper, taking the library first; the current one),
     each returning a tuple of outputs."""
@@ -598,18 +714,39 @@ def calls(kernel: str):
         "b1-fp32": (b1_ab.parent_forward, fa2.fa2_forward_aligned),
         "b8": (parent_b8, fa2.fa2_forward_small_aligned),
         "b5": (parent_b5, lambda *a, **k: (dec_attn.paged_decode_attention(*a, **k),)),
+        "b6": (parent_b6, lambda *a, **k: (dec_attn.paged_chunk_attention(*a, **k),)),
+        "x": (parent_x, r5.fwd),
     }[backward_of(kernel)]
 
 
 def shape_of(kernel: str, case) -> dict:
     """The case's shape as its JSON line reports it."""
-    if kernel == "b5":
-        return dict(slots=len(case["lengths"]), Hq=case["hq"], Hkv=case["hkv"],
-                    D=case["d"], pages_per_seq=case["pps"], lengths=case["lengths"],
-                    cache=case["cache"], compute=case["compute"])
+    if kernel in ("b5", "b6"):
+        return dict(slots=len(case["lengths"]), T=case.get("T", 1), Hq=case["hq"],
+                    Hkv=case["hkv"], D=case["d"], pages_per_seq=case["pps"],
+                    lengths=case["lengths"], cache=case["cache"],
+                    compute=case["compute"])
+    if kernel == "x":
+        return dict(B=case["b"], H=case["hq"], S=case["s"], D=case["d"],
+                    variant=case["variant"])
     return dict(B=case["b"], Hq=case["hq"], Hkv=case["hkv"], S=case["s"],
                 D=case["d"], causal=case["causal"], inputs=case["dtype"],
                 tiles=case["tile"])
+
+
+def x_extras(case, raw, bound_ms: float) -> dict:
+    """X's line adds B1 (one pass, non-causal, bf16 tiles) on the same
+    inputs, back to back and queued, and the two-pass floor: X computes
+    Q K^T twice, 1.5x the products of one pass."""
+    q, k, v = raw
+    kw = dict(causal=False, sm_scale=case["d"] ** -0.5, kv_len=case["s"],
+              tile_dtype=torch.bfloat16)
+
+    def b1():
+        return fa2.fa2_forward_aligned(q, k, v, **kw)
+
+    return dict(b1_ms=b1_ab.time_ms(b1), b1_device_ms=b1_ab.device_ms(b1),
+                two_pass_floor_ms=1.5 * bound_ms)
 
 
 def main(argv=None) -> list[dict]:
@@ -619,7 +756,8 @@ def main(argv=None) -> list[dict]:
                     help="an earlier csrc/fa2_backward.cu (b2, b3, b4, b3-b4 and "
                     "their -fp32 forms), csrc/baselines.cu (b9, b10), "
                     "csrc/fa2_forward.cu (b1-fp32), csrc/fa2_forward_small.cu "
-                    "(b8) or csrc/paged_decode.cu (b5)")
+                    "(b8), csrc/paged_decode.cu (b5), csrc/paged_chunk.cu (b6) "
+                    "or csrc/r5_d128_fwd.cu (x)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: needs an NVIDIA card")
@@ -663,6 +801,8 @@ def main(argv=None) -> list[dict]:
                                       else b1_ab.device_ms(library)),
                    max_abs_diff=diff, parent_host_us=b1_ab.host_us(old),
                    host_us=b1_ab.host_us(new))
+        if args.kernel == "x":
+            row.update(x_extras(case, raw, bound_ms))
         rows.append(row)
         print(f"{args.kernel.upper()} A/B", json.dumps(row), flush=True)
         del x, raw

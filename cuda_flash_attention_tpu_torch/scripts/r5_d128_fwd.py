@@ -43,12 +43,16 @@ LN2_BF16 = 0.69140625
 launches = 0
 
 
+# The C entry point's argument types (csrc/r5_d128_fwd.cu).
+ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("r5_d128_fwd")
     fn = lib.cfa_r5_d128_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = ARGTYPES
         fn.restype = ctypes.c_int
     return lib
 
@@ -70,6 +74,15 @@ def fwd(q, k, v, variant: str):
     if q.device.type != "cuda":
         raise ValueError(f"r5_d128_fwd: unsupported device {q.device}")
     global launches
+    out = launch(_lib(), q, k, v, variant)
+    launches += 1
+    return out
+
+
+def launch(lib: ctypes.CDLL, q, k, v, variant: str):
+    """One launch of X from `lib` (csrc/r5_d128_fwd.cu built, or an earlier
+    build of it with the same entry point) on CUDA tensors; returns (O,
+    lse) as fwd does."""
     b, h, s, d = q.shape
     if (d != 128 or s % 128 or any(t.dtype != torch.bfloat16 for t in (q, k, v))
             or b * h > 65535):
@@ -82,13 +95,11 @@ def fwd(q, k, v, variant: str):
                              "16-byte aligned and on one device")
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s, 1), device=q.device, dtype=torch.float32)
-    lib = _lib()
     err = lib.cfa_r5_d128_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         b * h, s, (d ** -0.5) * LOG2E, VARIANTS.index(variant),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, "cfa_r5_d128_fwd_error_string", err, "r5_d128_fwd")
-    launches += 1
     return o, lse
 
 

@@ -6,14 +6,14 @@ times, the split cases add the shapes the route rule sends to the pair,
 each B9 and B10 case is one of the reference suite's configs in
 chip_smoke.py, each B1 fp32 case one of chip_smoke's B1 shapes in fp32, the
 fp32 backward cases are fp32_bwd's and chip_smoke's shapes with fp32_bwd's
-bounds, the B8 cases are phase 16's rows padded as the API pads and the B5
-cases hold phase 3's shape, with chip_smoke's bounds (attention_bound,
-paged_bound), the FLOPs and bounds count what the script says, each kernel's
-current wrapper takes its problem as the script calls it, and the parent
-wrappers of B2, B3 and B4 call the C entry points with the arguments their
-argtypes declare, as do B5's and B8's (a fake library stands in for the
-build).  CPU only: no kernel runs
-here."""
+bounds, the B8 cases are phase 16's rows padded as the API pads, the B5
+cases hold phase 3's shape, the B6 cases phase 12's and the X cases the
+probe's, with chip_smoke's bounds (attention_bound, paged_bound), the FLOPs
+and bounds count what the script says, each kernel's current wrapper takes
+its problem as the script calls it, and the parent wrappers of B2, B3 and
+B4 call the C entry points with the arguments their argtypes declare, as do
+B5's, B6's, B8's and X's (a fake library stands in for the build).  CPU
+only: no kernel runs here."""
 
 import re
 import types
@@ -159,7 +159,8 @@ def test_current_wrapper_takes_the_problem_as_kernel_ab_calls_it(kernel):
     out = current(*x, **kw)
     first = x[1] if kernel_ab.backward_of(kernel) == "b4" else x[0]  # B4's: dK
     assert isinstance(out, tuple) and out[0].shape == first.shape
-    assert torch.isfinite(out[0]).all() and raw[0].shape[2] == 64
+    # raw[0] is q: [B, H, S, D] (S 64), or B5's [n, Hq, D] and B6's [n, T, Hq, D] (D 64).
+    assert torch.isfinite(out[0]).all() and raw[0].shape[-1 if kernel == "b6" else 2] == 64
 
 
 @pytest.mark.parametrize("case", kernel_ab.SPLIT_CASES, ids=lambda c: c["name"])
@@ -529,3 +530,119 @@ def test_parent_b8_calls_as_its_argtypes_declare(monkeypatch):
     assert o.shape == x[0].shape and lse.shape == x[0].shape[:3]
     (name, args), = lib.calls
     assert len(args) == len(lib.cfa_fa2_forward_small.argtypes) == 14
+
+
+def test_b6_cases_hold_phase_12s_shapes():
+    """Phase 12's five rows (8 slots, T 5, Hq16 Hkv8 D64, 16 pages of 128
+    tokens, chip_smoke's speculation lengths; T 512 at its prefill
+    lengths), phase 20's fp8 and int4 rows, T 1, 2 and 8 at phase 12's
+    lengths, the one-page suffix, group 8 at D 128 and the long case."""
+    names = {c["name"]: c for c in kernel_ab.B6_CASES}
+    assert len(names) == len(kernel_ab.B6_CASES) == 16
+    assert kernel_ab.SPEC_LENGTHS == chip_smoke.B6_SPEC_LENGTHS
+    assert kernel_ab.PREFILL_LENGTHS == chip_smoke.B6_PREFILL_LENGTHS
+    rows = [(c["T"], c["cache"], c["compute"]) for name, c in names.items()
+            if name.startswith("phase 12")]
+    assert rows == [(5, "int8", "bf16"), (5, "int8", "fp32"), (5, "bf16", "bf16"),
+                    (512, "int8", "bf16"), (512, "int8", "fp32")]
+    for name, c in names.items():
+        if name.startswith("phase"):
+            assert (c["hq"], c["hkv"], c["d"], c["pps"]) == (16, 8, 64, 16)
+            assert c["lengths"] == (chip_smoke.B6_SPEC_LENGTHS if c["T"] == 5
+                                    else chip_smoke.B6_PREFILL_LENGTHS)
+    assert [names[f"spec T{t}"]["T"] for t in (1, 2, 8)] == [1, 2, 8]
+    assert names["suffix T128"]["T"] == 128
+    g8 = names["group 8 D128"]
+    assert (g8["hq"] // g8["hkv"], g8["d"], g8["T"]) == (8, 128, 5)
+    long = names["long 8 x 8192"]
+    assert (long["lengths"], long["pps"], long["T"]) == ([8192] * 8, 64, 5)
+
+
+@pytest.mark.parametrize("case", kernel_ab.B6_CASES, ids=lambda c: c["name"])
+def test_b6_flops_and_bounds_are_chip_smokes(case):
+    cdt = b1_ab.dtype_of(case["compute"])
+    q = torch.empty(len(case["lengths"]), case["T"], case["hq"], case["d"], dtype=cdt)
+    elem = {"int4": 0.5, "bf16": 2, "fp32": 4}.get(case["cache"], 1)
+    ms, by, n, _ = chip_smoke.paged_bound(case["lengths"], case["T"], case["hq"],
+                                          case["hkv"], case["d"], elem, q, q,
+                                          case["compute"])
+    assert kernel_ab.flops("b6", case) == n
+    got_ms, got_by = kernel_ab.bound("b6", case, None)
+    assert got_by == by and got_ms == pytest.approx(ms)
+    assert kernel_ab.library_call("b6", case, None, {}) is None
+
+
+def test_paged_bound_counts_each_rows_columns():
+    """Row t of a slot of total length L attends max(0, L - T + t + 1)
+    columns: T 8 on a slot of 5 tokens has rows 3-7 at columns 1-5."""
+    q = torch.empty(1, 8, 1, 64)
+    _, _, n, _ = chip_smoke.paged_bound([5], 8, 1, 1, 64, 1, q, q, "bf16")
+    assert n == 4 * 64 * (1 + 2 + 3 + 4 + 5)
+    _, _, n, _ = chip_smoke.paged_bound([130, 0], 5, 2, 1, 64, 1, q, q, "bf16")
+    assert n == 4 * 64 * 2 * sum(126 + t for t in range(5))
+
+
+def test_x_cases_are_the_probes_shape():
+    from cuda_flash_attention_tpu_torch.scripts import r5_d128_fwd as r5
+
+    assert [c["variant"] for c in kernel_ab.X_CASES] == list(r5.VARIANTS)
+    for c in kernel_ab.X_CASES:
+        assert (c["b"], c["hq"], c["s"], c["d"], c["causal"]) == (
+            r5.B, r5.H, r5.S, r5.D, False)
+
+
+@pytest.mark.parametrize("case", kernel_ab.X_CASES, ids=lambda c: c["name"])
+def test_x_flops_and_bounds_are_chip_smokes(case):
+    q = torch.empty(case["b"], case["hq"], case["s"], case["d"], dtype=torch.bfloat16)
+    lse = torch.empty(case["b"], case["hq"], case["s"], 1)
+    ms, by, n = chip_smoke.attention_bound(case["b"], case["hq"], case["s"], case["d"],
+                                           False, "bf16", q, q, q, q, lse)
+    assert kernel_ab.flops("x", case) == n
+    got_ms, got_by = kernel_ab.bound("x", case, (q, q, q))
+    assert got_by == by == "operations" and got_ms == pytest.approx(ms)
+
+
+@pytest.mark.parametrize("workspace", [False, True], ids=["7af2811", "split-KV"])
+def test_parent_b6_calls_as_its_argtypes_declare(monkeypatch, workspace):
+    """build_parent gives B6's entry point the parent's argtypes: 7af2811's
+    (no split count, workspace or counters) or, for a source exporting
+    cfa_paged_chunk_workspace_floats, the current wrapper's; parent_b6
+    passes exactly that many arguments."""
+    from cuda_flash_attention_tpu_torch.decode import attention as dec_attn
+
+    names = ["cfa_paged_chunk"] + (["cfa_paged_chunk_workspace_floats"]
+                                   if workspace else [])
+    lib = _RecordingLib(*names)
+    monkeypatch.setattr(b1_ab, "compile_source", lambda path, stem: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    assert kernel_ab.build_parent("b6", "unused.cu") is lib
+    if workspace:
+        monkeypatch.setattr(dec_attn, "_sm_count", lambda index: 132)
+        monkeypatch.setattr(dec_attn, "_counters_for",
+                            lambda device, n: torch.zeros(n, dtype=torch.int32))
+        lib.cfa_paged_chunk_workspace_floats = lambda *a: 16
+        lib.cfa_paged_chunk.argtypes = dec_attn.CHUNK_ARGTYPES["cfa_paged_chunk"]
+    case = dict(kernel_ab.B6_CASES[0], hq=2, hkv=1, pps=2, lengths=[200, 0])
+    x, kw, _ = kernel_ab.problem("b6", case, torch.Generator().manual_seed(0))
+    (out,) = kernel_ab.parent_b6(lib, *x, **kw)
+    assert out.shape == x[0].shape
+    (name, args), = lib.calls
+    assert len(args) == len(lib.cfa_paged_chunk.argtypes) == (24 if workspace else 21)
+    if workspace:  # two splits of one page: a workspace and the counters
+        assert args[20] == 2 and args[21] is not None and args[22] is not None
+
+
+def test_parent_x_calls_as_its_argtypes_declare(monkeypatch):
+    lib = _RecordingLib("cfa_r5_d128_fwd")
+    monkeypatch.setattr(b1_ab, "compile_source", lambda path, stem: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    assert kernel_ab.build_parent("x", "unused.cu") is lib
+    case = dict(kernel_ab.X_CASES[1], b=1, hq=2, hkv=2, s=128)
+    x, kw, _ = kernel_ab.problem("x", case, torch.Generator().manual_seed(0))
+    o, lse = kernel_ab.parent_x(lib, *x, **kw)
+    assert o.shape == x[0].shape and lse.shape == (*x[0].shape[:3], 1)
+    (name, args), = lib.calls
+    assert len(args) == len(lib.cfa_r5_d128_fwd.argtypes) == 10
+    assert args[-2] == 1  # v1_mxu_ones

@@ -16,6 +16,7 @@ fp32 at every KV tile).
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -1154,3 +1155,160 @@ def test_fa2_forward_small_q_tiles_match_plain(cuda, dtype, tile, bh, causal,
     lse_err = ((lse_k.cpu() - lse_p).abs() / lse_p.abs().clamp_min(1)).max().item()
     assert err <= (2e-2 if low else 2e-6), err
     assert lse_err <= (1e-3 if low else 1e-5), lse_err
+
+
+# ---------------------------------------------------------------------------
+# B6 on its two Hopper bodies (csrc/paged_chunk.cu): the split-KV body for
+# T * group <= 64, the tile bodies above; every cache code at D 64 and 128,
+# groups 1, 2 and 8 and T 1 to 512; lengths on the splits' edges and rows
+# with columns in one split and none in the next; determinism, the arrival
+# counters, T = 1 against B5, and a CUDA graph.  Tolerances as
+# test_paged_chunk_kernel_matches_plain.
+# ---------------------------------------------------------------------------
+
+B6_CHUNKS = [1, 2, 5, 8, 128, 512]
+B6_PPS = 12  # 1536 tokens a slot
+
+
+def _b6_lengths(chunk):
+    """An inactive slot, a slot of length T, length - T at 126 (rows on both
+    sides of page 1's start), 256 (a page and split edge) and 1000."""
+    return [0, chunk, 126 + chunk, 256 + chunk, 1000 + chunk]
+
+
+@functools.lru_cache(maxsize=None)
+def _b6_pages(cache, d, hkv, pps, n):
+    rng = np.random.default_rng(d + hkv + pps)
+    num_pages = n * pps + 1
+    table = torch.from_numpy(rng.permutation(np.arange(1, num_pages)).astype(
+        np.int32)).reshape(n, pps)
+    pages = _cache_pages(rng, cache, hkv, num_pages, 128, d, table, n, pps,
+                         torch.device("cuda"))
+    return pages, table.cuda()
+
+
+def _b6_problem(cache, d, group, chunk, compute, lengths, pps, seed=0):
+    hkv = 8 // group if group < 8 else 1
+    pages, table = _b6_pages(cache, d, hkv, pps, len(lengths))
+    rng = np.random.default_rng(seed + chunk)
+    q = _randn(rng, len(lengths), chunk, hkv * group, d).to(compute).cuda()
+    return q, pages, table, torch.tensor(lengths, dtype=torch.int32, device="cuda")
+
+
+@pytest.mark.parametrize("compute", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("chunk", B6_CHUNKS)
+@pytest.mark.parametrize("group", [1, 2, 8])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("cache", ALL_CACHES, ids=str)
+def test_paged_chunk_bodies_match_plain(cuda, cache, d, group, chunk, compute):
+    q, pages, table, lengths = _b6_problem(cache, d, group, chunk, compute,
+                                           _b6_lengths(chunk), B6_PPS)
+    before = dec_attention.chunk_launches
+    o_k = dec_attention.paged_chunk_attention(q, pages, table, lengths,
+                                              compute_dtype=compute)
+    assert dec_attention.chunk_launches == before + 1
+    o_p = dec_attention.paged_chunk_attention_plain(
+        q, pages, table, lengths, sm_scale=d ** -0.5, compute_dtype=compute)
+    torch.cuda.synchronize()
+    assert o_k.dtype == compute and not o_k[0].any()
+    assert torch.isfinite(o_k.float()).all()
+    err = (o_k.float() - o_p.float()).abs().max().item()
+    assert err <= (2e-2 if compute == torch.bfloat16 else 2e-5), err
+
+
+@pytest.mark.parametrize("compute", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("cache", [torch.float32, torch.int8, "int4"], ids=str)
+@pytest.mark.parametrize("chunk,group", [(1, 1), (2, 2), (5, 2), (8, 1), (5, 8), (8, 8)])
+def test_paged_chunk_splits_at_their_edges(cuda, chunk, group, cache, compute):
+    """tests/test_torch_b6_split.py's lengths on 4 pages a slot (an inactive
+    slot, length T, length - T at 126, 128, 254 and 256, a full table): the
+    plan makes one page a split, so split 1 holds columns for the last rows
+    of the slot at 126 + T and none for its first."""
+    lengths = [0, chunk, 126 + chunk, 128 + chunk, 254 + chunk, 256 + chunk, 512]
+    q, pages, table, lengths = _b6_problem(cache, 64, group, chunk, compute, lengths, 4)
+    hkv = pages.k_pages.shape[0]
+    n_splits = dec_attention.chunk_split_plan(
+        7, hkv, 4, chunk, group, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert n_splits == 4
+    o_k = dec_attention.paged_chunk_attention(q, pages, table, lengths,
+                                              compute_dtype=compute)
+    o_p = dec_attention.paged_chunk_attention_plain(
+        q, pages, table, lengths, sm_scale=64 ** -0.5, compute_dtype=compute)
+    torch.cuda.synchronize()
+    assert not o_k[0].any() and torch.isfinite(o_k.float()).all()
+    err = (o_k.float() - o_p.float()).abs().max().item()
+    assert err <= (2e-2 if compute == torch.bfloat16 else 2e-5), err
+
+
+@pytest.mark.parametrize("chunk", [5, 512])
+def test_paged_chunk_is_deterministic_and_resets_its_counters(cuda, chunk):
+    """Two calls give the same bits (the splits fold in split order); after
+    each call, and after a call at another num_seqs (whose split plan may
+    differ), every arrival counter is back at zero and the next call still
+    gives the first one's bits."""
+    q, pages, table, lengths = _b6_problem(torch.int8, 64, 2, chunk, torch.bfloat16,
+                                           _b6_lengths(chunk), B6_PPS, seed=1)
+    first = dec_attention.paged_chunk_attention(q, pages, table, lengths)
+    again = dec_attention.paged_chunk_attention(q, pages, table, lengths)
+    counters = dec_attention._counters[cuda.index if cuda.index is not None
+                                       else torch.cuda.current_device()]
+    assert torch.equal(first, again) and not counters.any()
+    part = dec_attention.paged_chunk_attention(
+        q[2:4].clone(), pages, table[2:4].clone(), lengths[2:4].clone())
+    assert not counters.any()
+    assert (part.float() - first[2:4].float()).abs().max().item() <= 2e-2
+    assert torch.equal(dec_attention.paged_chunk_attention(q, pages, table, lengths),
+                       first)
+    assert not counters.any()
+
+
+@pytest.mark.parametrize("cache", ALL_CACHES, ids=str)
+def test_paged_chunk_of_one_equals_paged_decode_on_split_pages(cuda, cache):
+    """T = 1 on the split body and B5 compute one function."""
+    for compute, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        q, pages, table, lengths = _b6_problem(cache, 64, 2, 1, compute,
+                                               _b6_lengths(1), B6_PPS, seed=2)
+        one = dec_attention.paged_chunk_attention(q, pages, table, lengths,
+                                                  compute_dtype=compute)[:, 0]
+        dec = dec_attention.paged_decode_attention(q[:, 0].contiguous(), pages, table,
+                                                   lengths, compute_dtype=compute)
+        assert (one.float() - dec.float()).abs().max().item() <= tol
+
+
+def test_paged_chunk_replays_in_a_cuda_graph(cuda):
+    """The split body captured once, replayed after `lengths` changes in
+    place: the same output as the eager call on the new lengths (the launch
+    reads no length on the host)."""
+    q, pages, table, lengths = _b6_problem(torch.int8, 64, 2, 5, torch.bfloat16,
+                                           _b6_lengths(5), B6_PPS, seed=3)
+    dec_attention.paged_chunk_attention(q, pages, table, lengths)  # counters
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = dec_attention.paged_chunk_attention(q, pages, table, lengths)
+    for new in ([5, 0, 1536, 300, 129], [0] * 5, _b6_lengths(5)):
+        lengths.copy_(torch.tensor(new, dtype=torch.int32))
+        graph.replay()
+        want = dec_attention.paged_chunk_attention(q, pages, table, lengths)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), new
+
+
+@pytest.mark.parametrize("s", [128, 256, 2048])
+@pytest.mark.parametrize("variant", ["v0_current", "v1_mxu_ones", "v2_lane_part",
+                                     "v3_bf16_sum", "v4_split_kv"])
+def test_r5_probe_on_its_wgmma_body(cuda, variant, s):
+    """X's two-pass wgmma body against its plain version at S 128 (v4's
+    halves of 64 keys: a masked partial tile), 256 and 2048, under phase
+    23's gates."""
+    from cuda_flash_attention_tpu_torch.scripts import r5_d128_fwd as r5
+
+    rng = np.random.default_rng(s)
+    q, k, v = (_randn(rng, 1, 3, s, 128).to(torch.bfloat16).to(cuda) for _ in range(3))
+    o_k, lse_k = r5.fwd(q, k, v, variant)
+    o_p, lse_p = r5.fwd_plain(q, k, v, variant)
+    torch.cuda.synchronize()
+    assert _bf16_excess(o_k, o_p) <= BF16_ATOL["X"]
+    lse_d = (lse_k - lse_p).abs()
+    assert lse_d.max().item() <= (8e-3 if variant == "v3_bf16_sum" else 2e-4)
+    assert lse_d.mean().item() <= 1e-4
