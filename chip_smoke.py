@@ -16,9 +16,10 @@ Phases (any failure raises and the script exits non-zero):
      and 128), of B5's split-KV kernel (48: six caches x two q types x
      D 64 and 128 x groups of at most 2 and 8), of B6's split-KV body (48:
      the same with fp32 compute on the FMA units and bf16 compute on the
-     tensor cores) and bf16 tile body (24) and of X's five variants,
-     failing on a spilled byte, a wgmma serialisation note or a missing
-     instantiation;
+     tensor cores), bf16 tile body (24) and fp32 tile body (24), of B7's
+     wgmma and fp32 bodies (32: four storages x two q types x D 64 and 128
+     each) and of X's five variants, failing on a spilled byte, a wgmma
+     serialisation note or a missing instantiation;
   2. kernel B1 (FA2 forward) against its plain PyTorch version at the
      serving prefill shapes (the serving run's largest, B4 S1536, included)
      and at the train shape (B4 S2048), and at the edges of its 128-row
@@ -64,7 +65,8 @@ Phases (any failure raises and the script exits non-zero):
  13. fp32 at base width: verify_step logits on the card against the CPU;
      speculative greedy (k 3, a one-layer draft), a prefix-cache hit and
      chunked prefill (chunk 512, a 1300-token prompt) each give exactly
-     the card's plain greedy tokens;
+     the card's plain greedy tokens; B6's fp32 tile body's launches over
+     the phase (the kernel line's `fp32_tile`);
  14. speculative serving at TransformerConfig.base() with an int8 cache:
      phase 5's 12 requests with k 4, a one-layer draft and prompt lookup:
      tokens/s, acceptance, rounds, B1/B5/B6 launches, and where a round's
@@ -98,8 +100,10 @@ Phases (any failure raises and the script exits non-zero):
      over int8, e4m3, e5m2 and int4 storage x bf16/fp32 compute x causal at
      B2 Hq16 Hkv8 S1000 D64 and D128; timed at B4 Hq16 Hkv8 S2048 D64 and
      B1 S8192 (causal bf16) beside B1 and SDPA on the dequantized bf16 K/V
-     (yardsticks, not the same function); the public quantized-KV API at
-     both shapes, whose launches are B7's in the kernel line;
+     (yardsticks, not the same function), and in fp32 compute (int8) at
+     the base shape beside B1's fp32 body on the dequantized fp32 K/V; the
+     public quantized-KV API at both bf16 shapes, whose launches are B7's in
+     the kernel line;
  20. B5 and B6 on e4m3, e5m2 and int4 pages at phases 3's and 12's shapes
      against their plain versions, times (back-to-back and device) and
      bounds (int4 at 0.5 byte);
@@ -201,10 +205,15 @@ FP32_FUNCTIONS = {"baselines": (("naive_fa2_fp32",), 2),
 # of at most 2 and 8.
 B5_FUNCTIONS = (("paged_decode_kernel",), 48)
 # B6's split-KV body (6 cache types x 2 q types x D 64 and 128 x fp32
-# compute on the FMA units and bf16 compute on the tensor cores) and its
-# bf16 tile body (6 x 2 x 2); X's five variants.
-B6_FUNCTIONS = (("paged_chunk_split", "paged_chunk_mma"), 72)
+# compute on the FMA units and bf16 compute on the tensor cores), its bf16
+# tile body (6 x 2 x 2) and its fp32 tile body on the FMA block (6 x 2 x 2);
+# X's five variants.
+B6_FUNCTIONS = (("paged_chunk_split", "paged_chunk_mma", "paged_chunk_fp32"), 96)
 X_FUNCTIONS = (("r5_fwd",), 5)
+# B7's bodies: wgmma fed by converter warps (bf16 compute) and the FMA block
+# over the stored-width ring (fp32 compute), each 4 storages x 2 q types x
+# D 64 and 128.
+B7_FUNCTIONS = (("fa2_fwd_quant_wgmma", "fa2_fwd_quant_fp32"), 32)
 
 
 def ptxas_by_function(text: str) -> dict:
@@ -986,10 +995,12 @@ def draft_of(params):
     return dict(params, layers=params["layers"][:1])
 
 
-def phase_spec_parity(torch, np, transformer, decode, dataclasses):
+def phase_spec_parity(torch, np, transformer, decode, dec_attn, dataclasses):
     """fp32 at base width: verify_step on the card against the CPU, then
     speculative greedy, a prefix-cache hit and chunked prefill each against
-    the card's plain greedy tokens."""
+    the card's plain greedy tokens.  The path's chunks of more than 64 rows
+    run B6's fp32 tile body: its launches are counted over the phase."""
+    dec_attn.chunk_fp32_tile_launches = 0
     cfg = transformer.TransformerConfig.base(dtype=torch.float32,
                                              attn_tile_dtype=None)
     params = transformer.init_params(torch.Generator().manual_seed(0), cfg,
@@ -1056,8 +1067,10 @@ def phase_spec_parity(torch, np, transformer, decode, dataclasses):
         if got != plain:
             raise AssertionError(
                 f"{name}: greedy tokens differ from plain: {got} vs {plain}")
+    res["fp32_tile_launches"] = dec_attn.chunk_fp32_tile_launches
     if not (res["chunked_prefill"]["stats"]["prefill_chunks"] >= 3
-            and res["speculative"]["stats"]["spec_rounds"] > 0):
+            and res["speculative"]["stats"]["spec_rounds"] > 0
+            and res["fp32_tile_launches"] > 0):
         raise AssertionError(f"spec parity: a path did not run: {res}")
     log("spec parity fp32 base", json.dumps(res))
     return res
@@ -1676,7 +1689,7 @@ def phase_b7(torch, F, quant, fq, fa2):
                 shape=shape, B=b, S=s, storage=storage, max_abs_err=err,
                 bf16_excess=excess, ms=time_ms(lambda: fq.fa2_forward_quant_aligned(*args, **kw)),
                 plain_ms=time_ms(lambda: fq.fa2_forward_quant_plain(*args, **kw),
-                                 iters=2, warmup=1),
+                                 iters=2 if shape == "base" else 1, warmup=1),
                 library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
                 b1_dequant_ms=time_ms(lambda: fa2.fa2_forward_aligned(
                     args[0], kd, vd, **b1_kw)),
@@ -1687,6 +1700,30 @@ def phase_b7(torch, F, quant, fq, fa2):
             log("B7", json.dumps(row))
             api_inputs.append((api, o_k))
             del kd, vd
+    # fp32 compute at the base shape (int8 K/V), beside B1's fp32 body on the
+    # dequantized fp32 K/V (a yardstick, not the same function).
+    api, args, _ = quant_problem(torch, quant, fq, gen, "int8", 4, 16, 8, 2048, 64,
+                                 torch.float32)
+    kw = dict(causal=True, sm_scale=0.125, kv_len=2048, compute_dtype=torch.float32)
+    o_k, lse_k = fq.fa2_forward_quant_aligned(*args, **kw)
+    o_p, _ = fq.fa2_forward_quant_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = (o_k - o_p).abs().max().item()
+    if not err <= B7_FP32_TOL:
+        raise AssertionError(f"B7 fp32 base int8: max_abs_err {err} (tol {B7_FP32_TOL})")
+    kd, vd = (t.dequantize(torch.float32) for t in api[1:])
+    bound_ms, bound_by, _ = attention_bound(4, 16, 2048, 64, True, "fp32", *args, o_k, lse_k)
+    fp32_row = dict(
+        shape="base", B=4, S=2048, storage="int8", compute="fp32", max_abs_err=err,
+        ms=time_ms(lambda: fq.fa2_forward_quant_aligned(*args, **kw)),
+        plain_ms=time_ms(lambda: fq.fa2_forward_quant_plain(*args, **kw), iters=1,
+                         warmup=1),
+        library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+        b1_fp32_dequant_ms=time_ms(lambda: fa2.fa2_forward_aligned(
+            args[0], kd, vd, causal=True, sm_scale=0.125, kv_len=2048, tile_dtype=None)))
+    log("B7 fp32", json.dumps(fp32_row))
+    del o_k, o_p, kd, vd, args, api
+
     # The public API on the timed inputs: its launches are the path's.
     fq.launches = 0
     for (q, k_q, v_q), o_k in api_inputs:
@@ -1710,7 +1747,7 @@ def phase_b7(torch, F, quant, fq, fa2):
                                                 atol=BF16_ATOL["B7"])))
     if not control > BF16_ATOL["B7"]:
         raise AssertionError(f"B7: the control passed the bf16 gate ({control})")
-    return checks, rows, api_launches
+    return checks, rows, fp32_row, api_launches
 
 
 def quant_pages(torch, kv_cache, gen, cache, shape):
@@ -2069,6 +2106,8 @@ def main() -> int:
                 "B6", *B6_FUNCTIONS)
     check_ptxas(build_logs.get("r5_d128_fwd") or ptxas_log(_build, "r5_d128_fwd"),
                 "X", *X_FUNCTIONS)
+    check_ptxas(build_logs.get("fa2_forward_quant")
+                or ptxas_log(_build, "fa2_forward_quant"), "B7", *B7_FUNCTIONS)
 
     t0 = time.perf_counter()
     b1 = phase_b1(torch, fa2, b1_ab)
@@ -2114,7 +2153,8 @@ def main() -> int:
     b6 = phase_b6(torch, dec_attn, kv_cache)
     log(f"phase 12: B6 ok in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    spec_parity = phase_spec_parity(torch, np, transformer, decode, dataclasses)
+    spec_parity = phase_spec_parity(torch, np, transformer, decode, dec_attn,
+                                    dataclasses)
     log(f"phase 13: speculative, prefix and chunked parity ok in "
         f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
@@ -2162,7 +2202,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    b7_checks, b7, b7_launches = phase_b7(torch, F, quant, fq, fa2)
+    b7_checks, b7, b7_fp32, b7_launches = phase_b7(torch, F, quant, fq, fa2)
     log(f"phase 19: B7 ok in {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2238,6 +2278,7 @@ def main() -> int:
               == ("spec", "int8", "bf16"))
     r6_prefill = next(r for r in b6
                       if (r["shape"], r["compute"]) == ("prefill", "bf16"))
+    r6_fp32 = next(r for r in b6 if (r["shape"], r["compute"]) == ("prefill", "fp32"))
     log("B6 speculation (T5) and chunked-prefill (T512) shapes:",
         json.dumps({"T5": r6, "T512": r6_prefill}))
     kernels.append(dict(
@@ -2249,7 +2290,10 @@ def main() -> int:
             prefix["chunked_prefill"])),
         max_abs_err=max(r["max_abs_err"] for r in b6 if r["compute"] == "bf16"),
         ms=r6["ms"], plain_ms=r6["plain_ms"], bound_ms=r6["bound_ms"],
-        bound_by=r6["bound_by"], library_ms=None))
+        bound_by=r6["bound_by"], library_ms=None,
+        fp32_tile={"T": 512, "launches": spec_parity["fp32_tile_launches"],
+                   **{k: r6_fp32[k] for k in ("ms", "plain_ms", "bound_ms",
+                                              "max_abs_err")}}))
     # B8 at the suite's Edge-NonPowerOf2 config in fp32 (the harness's
     # precision), beside B1 on the same inputs; B9 and B10 at Stress-1.
     r8 = next(r for r in b8 if (r["config"], r["kind"], r["causal"])
@@ -2291,7 +2335,9 @@ def main() -> int:
         max_abs_err=max(c["max_abs_err"] for c in b7_checks if c["kind"] == "bf16"),
         ms=r7["ms"], plain_ms=r7["plain_ms"], bound_ms=r7["bound_ms"],
         bound_by=r7["bound_by"], library_ms=None,
-        b1_dequant_ms=r7["b1_dequant_ms"], sdpa_dequant_ms=r7["sdpa_dequant_ms"]))
+        b1_dequant_ms=r7["b1_dequant_ms"], sdpa_dequant_ms=r7["sdpa_dequant_ms"],
+        fp32={k: b7_fp32[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err",
+                                      "b1_fp32_dequant_ms")}))
     rx = x_rows[0]
     kernels.append(dict(
         name="r5_d128_fwd", route="cuda",

@@ -19,24 +19,54 @@
 // (B4 Hq16 Hkv8 S2048 D64 causal does ~2.2e11 FLOPs against ~25 MB moved),
 // as B1; the point of 1-byte K/V is the bytes of long contexts and of the
 // cache, which this kernel reads at a quarter (int4: an eighth) of fp32's.
-// The design is B1's (csrc/fa2_forward.cu): one block per (64-row Q tile,
-// b * Hq), Q in mma.sync A fragments for the whole loop, a KV loop that stops
-// at the diagonal, P from the S accumulators straight into A fragments, m and
-// l in fp32.  What differs:
-//   * K and V stay 1 byte per element in shared memory (int4 is unpacked to
-//     int8 on the way in); each thread converts the byte pairs of its own
-//     B fragments to bf16 pairs just before the mma.  int8, int4, e4m3 and
-//     e5m2 are all exact in bf16, so the conversion loses nothing (fp8 goes
-//     through the card's fp8x2 -> f16x2 convert);
-//   * the two scales are one fp32 multiply each, on S's columns and on P;
-//     no dequantized tile exists anywhere;
-//   * fp32 compute runs B1's FMA path with K and V converted to fp32 in
-//     shared memory (exact), held to IEEE fp32.
-// wgmma, TMA, fp8 tensor-core products and a swizzled byte layout are later
-// work.
+// The function rules out the fp8 tensor-core product (Q and P * v_scale are
+// rounded to bf16), so the products stay bf16 x bf16 into fp32, and every
+// stored element has to become bf16 in shared memory first: wgmma reads its
+// B operand only from there in the operand type, and TMA copies bytes
+// without widening them.  int8, int4, e4m3 and e5m2 are all exact in bf16.
+//
+// bf16 compute, B1's design (csrc/fa2_forward.cu) with a conversion stage:
+//   * one block per (128-row Q tile, b * Hq), longest causal tiles first,
+//     384 threads: two consumer warpgroups of 64 Q rows each after
+//     `setmaxnreg.inc` and a producer warpgroup after `setmaxnreg.dec`;
+//   * one producer thread streams the stored-width K and V tiles (128 rows)
+//     by TMA (3-D byte maps over [B * Hkv, Skv, row bytes]; rows past Skv
+//     arrive as zeros, a finite code in every storage) into a ring of byte
+//     stages on "full" mbarriers, in the order the consumers take them
+//     (K(t + 1) before V(t));
+//   * all four producer warps convert each landed byte stage once, into the
+//     bf16 K or V ring: 128-byte-swizzled, exactly the layout TMA writes for
+//     B1, so B1's wgmma descriptors and consumer loop apply unchanged.  int8
+//     and int4 go by the 2^23 magic number (csrc/paged_kv.cuh), fp8 by the
+//     card's exact fp8x2 conversion, each float packed to bf16 (exact).
+//     With K(t) they store tile t's K and V scales beside the bf16 K stage
+//     (plain loads: no alignment of Skv needed), then `fence.proxy.async`
+//     (wgmma reads the stage through the async proxy) and the stage's full
+//     barrier; a named barrier among the four warps frees the byte stage for
+//     the next TMA load;
+//   * the consumers run B1's loop: S = Q K^T by wgmma; after its wait, S *=
+//     k_scale[col], the mask (kMaskValue, P exactly 0 where masked), the
+//     exp2 online softmax in fp32, P *= v_scale[col], P rounded to bf16 into
+//     A fragments, P V by wgmma against the bf16 V stage.  A K stage (and
+//     its scales) is released after that softmax; the two consumers take
+//     turns to issue their products.
+// Against the earlier mma.sync body (128 threads per 64-row tile, K/V
+// copied between two barriers, each of the four warps converting every
+// element of both tiles for itself, int8 by I2F): each element is converted
+// once a block, by warps that run beside the tensor cores.
+//
+// fp32 compute runs on the fp32 FMA units, held to IEEE fp32, on the FMA
+// block of B1's fp32 body (csrc/fma_block.cuh: 128 threads per 64-row Q
+// tile, 8 x 4 register tiles read with swizzled float4 loads, P over the K
+// stage just read), fed by the stored-width ring of csrc/paged_kv.cuh
+// (FmaRaw: 64-row K/V tiles and their scales by cp.async, each landed tile
+// decoded once into the block's fp32 K and V stages, V swizzled as K).  Q is
+// scaled by sm_scale * log2(e) in fp32, S summed over d in order, P V over
+// the tile's keys in order, exp2 softmax; K's scale on S's columns and V's on
+// P as above.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is found at run time
 #include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -45,566 +75,668 @@
 #include <atomic>
 #include <type_traits>
 
+#include "paged_kv.cuh"  // storage types and decodes; the FMA block and its ring
+
 namespace {
 
-constexpr int kBlockM = 64;  // Q rows per thread block
-constexpr int kBlockN = 64;  // KV rows per loop iteration
 constexpr float kMaskValue = -0.7f * 3.40282347e38f;  // DEFAULT_MASK_VALUE
 constexpr float kLn2 = 0.6931471805599453f;
 
-// Storage types of K and V.
-struct Int8 {};
-struct E4M3 {};
-struct E5M2 {};
-struct Int4 {};  // packed split-half; unpacked to int8 in shared memory
+// bf16 compute: the block's Q rows, its consumers' Q rows, the KV rows of a
+// stage, a swizzle atom's columns (128 bytes of bf16).
+constexpr int kTileM = 128;
+constexpr int kConsumerM = 64;
+constexpr int kTileN = 128;
+constexpr int kBoxCols = 64;
+constexpr int kThreads = 384;
+// Registers per thread after setmaxnreg: 128 x 40 + 256 x 232 = 64512, the
+// 168 a thread that 384 threads start with (one block per SM).  The
+// converters keep one 16-byte piece and its 8 bf16 pairs live at a time.
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ float2 fp8x2_to_float2(uint16_t two,
-                                                  __nv_fp8_interpretation_t t) {
-  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
-      static_cast<__nv_fp8x2_storage_t>(two), t);
-  return __half22float2(*reinterpret_cast<const __half2*>(&h));
-}
-
-// One stored byte as float, and two neighbouring ones (lo = the lower
-// index) as a bf16 pair, per storage type.  Shared memory holds int8 for
-// both int8 and int4.
-template <typename S>
-struct Conv {
-  static __device__ __forceinline__ float one(uint8_t b) {
-    return static_cast<float>(static_cast<int8_t>(b));
-  }
-  static __device__ __forceinline__ uint32_t two(uint16_t p) {
-    return pack_bf16(static_cast<float>(static_cast<int8_t>(p & 0xff)),
-                     static_cast<float>(static_cast<int8_t>(p >> 8)));
-  }
-};
-
-template <>
-struct Conv<E4M3> {
-  static __device__ __forceinline__ float one(uint8_t b) {
-    return fp8x2_to_float2(b, __NV_E4M3).x;
-  }
-  static __device__ __forceinline__ uint32_t two(uint16_t p) {
-    const float2 f = fp8x2_to_float2(p, __NV_E4M3);
-    return pack_bf16(f.x, f.y);
-  }
-};
-
-template <>
-struct Conv<E5M2> {
-  static __device__ __forceinline__ float one(uint8_t b) {
-    return fp8x2_to_float2(b, __NV_E5M2).x;
-  }
-  static __device__ __forceinline__ uint32_t two(uint16_t p) {
-    const float2 f = fp8x2_to_float2(p, __NV_E5M2);
-    return pack_bf16(f.x, f.y);
-  }
-};
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* x) {
-  uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float2 f = __bfloat1622float2(h[i]);
-    x[2 * i] = f.x;
-    x[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void load8(const float* p, float* x) {
-  float4 a = *reinterpret_cast<const float4*>(p);
-  float4 b = *reinterpret_cast<const float4*>(p + 4);
-  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
-  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
-}
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c += a (16x16 bf16, row) * b (16x8 bf16, col), fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Bytes per stored row.
-template <typename S, int D>
-constexpr int kRowBytes = std::is_same<S, Int4>::value ? D / 2 : D;
-
-// Copy rows [k0, k0 + kBlockN) of a stored [skv, kRowBytes] matrix into a
-// byte tile of shared memory [kBlockN][LDB] holding one byte per element
-// (int4 rows unpacked to sign-extended int8).  Rows at or past skv are
-// zero, a finite code in every storage type.
-template <typename S, int D, int LDB, int NTHREADS>
-__device__ __forceinline__ void stage_bytes(uint8_t* dst, const uint8_t* src,
-                                            int k0, int skv) {
-  constexpr int kRow = kRowBytes<S, D>;
-  constexpr int kVecs = kRow / 16;
-  for (int i = threadIdx.x; i < kBlockN * kVecs; i += NTHREADS) {
-    const int r = i / kVecs;
-    const int c = (i - r * kVecs) * 16;
-    uint4 raw = make_uint4(0, 0, 0, 0);
-    if (k0 + r < skv) {
-      raw = *reinterpret_cast<const uint4*>(
-          src + static_cast<size_t>(k0 + r) * kRow + c);
-    }
-    if constexpr (std::is_same<S, Int4>::value) {
-      const uint8_t* b = reinterpret_cast<const uint8_t*>(&raw);
-      alignas(16) uint8_t lo[16], hi[16];
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        // Sign-extend each nibble: the low one shifted to the top first.
-        const int8_t low_top = static_cast<int8_t>(static_cast<uint8_t>(b[j] << 4));
-        lo[j] = static_cast<uint8_t>(low_top >> 4);
-        hi[j] = static_cast<uint8_t>(static_cast<int8_t>(b[j]) >> 4);
-      }
-      *reinterpret_cast<uint4*>(dst + r * LDB + c) =
-          *reinterpret_cast<const uint4*>(lo);
-      *reinterpret_cast<uint4*>(dst + r * LDB + c + D / 2) =
-          *reinterpret_cast<const uint4*>(hi);
-    } else {
-      *reinterpret_cast<uint4*>(dst + r * LDB + c) = raw;
-    }
-  }
-}
-
-__device__ __forceinline__ uint16_t byte_pair(const uint8_t* p) {
-  return *reinterpret_cast<const uint16_t*>(p);
-}
-
 // ---------------------------------------------------------------------------
-// bf16 compute on the tensor cores.  128 threads; warp w owns Q rows
-// [16w, 16w + 16).  mma.m16n8k16 layouts: thread (g = lane / 4, t = lane % 4)
-// holds accumulator elements (row g, cols 2t, 2t+1) and (row g + 8, same
-// cols) of each 8-column n-tile; its B fragment of an n-tile is
-// b0 = {B[2t][g], B[2t+1][g]}, b1 = {B[2t+8][g], B[2t+9][g]}.  For S = Q K^T
-// B[k][n] = K[n][k]: two neighbouring bytes of key row g.  For O += P V
-// B[k][n] = V[k][n]: one byte of each of two neighbouring key rows.
+// wgmma (bf16, fp32 accumulators).
 // ---------------------------------------------------------------------------
-template <typename Tq, typename S, int D>
-__global__ void __launch_bounds__(128)
-fa2_fwd_quant_mma(const Tq* __restrict__ q, const uint8_t* __restrict__ k,
-                  const float* __restrict__ k_scales,
-                  const uint8_t* __restrict__ v,
-                  const float* __restrict__ v_scales, Tq* __restrict__ o,
-                  float* __restrict__ lse, int hq, int hkv, int sq, int skv,
-                  int kv_len, float qscale, int causal) {
-  constexpr int LDQ = D + 8;    // bf16 elements: conflict-free ldmatrix
-  constexpr int LDB = D + 16;   // bytes: conflict-free fragment loads
-  constexpr int kRow = kRowBytes<S, D>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  uint8_t* ks = reinterpret_cast<uint8_t*>(qs + kBlockM * LDQ);
-  uint8_t* vs = ks + kBlockN * LDB;
-  float* ksc = reinterpret_cast<float*>(vs + kBlockN * LDB);
-  float* vsc = ksc + kBlockN;
+// d[64] (+)= A (64x16, shared, K-major) * B (16x128, shared, K-major).
+__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{" CFA_R64 "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : CFA_ACC64(d)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  // Causal tiles near the end carry the most KV tiles: hand them out first.
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockM;
-  const int bh = blockIdx.y;
-  const int b = bh / hq;
-  const int hk = (bh - b * hq) / (hq / hkv);
-  const size_t kv_head = static_cast<size_t>(b) * hkv + hk;
-  const Tq* qp = q + static_cast<size_t>(bh) * sq * D;
-  const uint8_t* kp = k + kv_head * skv * kRow;
-  const uint8_t* vp = v + kv_head * skv * kRow;
-  const float* ksp = k_scales + kv_head * skv;
-  const float* vsp = v_scales + kv_head * skv;
+// d += A (64x16, registers) * B (16xN, shared, MN-major: transpose bit).
+__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t* a,
+                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{" CFA_R32 "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : CFA_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
 
-  // Q tile: scaled in fp32, rounded to bf16.
-  for (int i = threadIdx.x; i < kBlockM * (D / 8); i += 128) {
-    const int r = i / (D / 8);
-    const int c = (i - r * (D / 8)) * 8;
+__device__ __forceinline__ void wgmma_pv(float (&d)[64], const uint32_t* a,
+                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{" CFA_R64 "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : CFA_ACC64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// Shared memory of the bf16 body, from a 1024-byte-aligned base: the two
+// consumers' Q tiles, kStages bf16 K tiles, kStages bf16 V tiles (a tile of
+// R rows is D / 64 boxes of R rows x 128 bytes, 128-byte-swizzled: 16-byte
+// chunk c of row r at c ^ (r % 8)), kRawStages stored tiles (rows of kRow
+// bytes, as TMA writes them unswizzled), each K stage's scales ([kStages]
+// [K, V][kTileN] fp32), then the mbarriers: full and empty of each K and V
+// stage, full of each byte stage.  D 128: 32 + 128 + 48 + 2 KB.
+template <typename Tc, int D>
+struct Layout {
+  static constexpr int kStages = D == 64 ? 3 : 2;
+  static constexpr int kRawStages = D == 64 ? 4 : 3;
+  static constexpr int kRow = kRowBytesOf<Tc, D>;
+  static constexpr int kRawTile = kTileN * kRow;
+  static constexpr int kQBox = kConsumerM * 128;
+  static constexpr int kKVBox = kTileN * 128;
+  static constexpr int kQBytes = kQBox * (D / kBoxCols);
+  static constexpr int kKVBytes = kKVBox * (D / kBoxCols);
+  static constexpr int kK = 2 * kQBytes;
+  static constexpr int kV = kK + kStages * kKVBytes;
+  static constexpr int kRaw = kV + kStages * kKVBytes;
+  static constexpr int kScl = kRaw + kRawStages * kRawTile;
+  static constexpr int kBars = kScl + kStages * 2 * kTileN * 4;
+  static constexpr int kSmem = kBars + 8 * (4 * kStages + kRawStages) + 1024;
+  static_assert(kRawTile % 1024 == 0, "byte stages keep 1024-byte alignment");
+  static_assert(kSmem <= 232448, "one block must fit the SM's 227 KB");
+};
+
+// A consumer's 64 Q rows [row0, row0 + 64) of a [nrows, D] matrix, scaled
+// by `scale` in fp32 and rounded to bf16, into the swizzled Q tile.  Rows
+// past nrows are zero.
+template <typename Tin, int D, typename L>
+__device__ __forceinline__ void stage_q(unsigned char* dst, const Tin* src,
+                                        int row0, int nrows, float scale,
+                                        int tid) {
+  constexpr int kChunks = D / 8;
+#pragma unroll
+  for (int it = 0; it < kConsumerM * kChunks / 128; ++it) {
+    const int i = tid + it * 128;
+    const int r = i / kChunks;
+    const int c = i - r * kChunks;
     float x[8];
-    if (q0 + r < sq) {
-      load8(qp + static_cast<size_t>(q0 + r) * D + c, x);
+    if (row0 + r < nrows) {
+      load8(src + static_cast<size_t>(row0 + r) * D + c * 8, x);
     } else {
 #pragma unroll
       for (int j = 0; j < 8; ++j) x[j] = 0.f;
     }
-    *reinterpret_cast<uint4*>(qs + r * LDQ + c) = make_uint4(
-        pack_bf16(x[0] * qscale, x[1] * qscale),
-        pack_bf16(x[2] * qscale, x[3] * qscale),
-        pack_bf16(x[4] * qscale, x[5] * qscale),
-        pack_bf16(x[6] * qscale, x[7] * qscale));
+    const int chunk = (c % 8) ^ (r % 8);
+    *reinterpret_cast<uint4*>(dst + (c / 8) * L::kQBox + r * 128 + chunk * 16) =
+        make_uint4(pack_bf16(x[0] * scale, x[1] * scale),
+                   pack_bf16(x[2] * scale, x[3] * scale),
+                   pack_bf16(x[4] * scale, x[5] * scale),
+                   pack_bf16(x[6] * scale, x[7] * scale));
   }
-  __syncthreads();
-  uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    ldmatrix_x4(qa[kk], qs + (warp * 16 + (lane & 15)) * LDQ + kk * 16 +
-                            (lane >> 4) * 8);
-  }
+}
 
-  const int kv_end = causal ? min(kv_len, q0 + kBlockM) : kv_len;
-  const int n_tiles = (kv_end + kBlockN - 1) / kBlockN;
-  const int row_a = q0 + warp * 16 + g;
-  const int row_b = row_a + 8;
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
-  float acc[D / 8][4];
+// One landed byte stage (kTileN stored rows) converted into a bf16 stage of
+// the K or V ring (swizzled as TMA writes B1's): thread `tid` of the 128
+// producer threads, one 16-byte piece at a time.
+template <typename Tc, int D, typename L>
+__device__ __forceinline__ void convert_tile(unsigned char* dst,
+                                             const unsigned char* src, int tid) {
+  constexpr int kVec = L::kRow / 16;
+  auto put = [&](int r, int c, uint32_t a, uint32_t b, uint32_t x, uint32_t y) {
+    *reinterpret_cast<uint4*>(dst + (c / 8) * L::kKVBox + r * 128 +
+                              (((c % 8) ^ (r % 8)) << 4)) = make_uint4(a, b, x, y);
+  };
+#pragma unroll 1
+  for (int i = tid; i < kTileN * kVec; i += 128) {
+    const int r = i / kVec;
+    const int cb = (i - r * kVec) * 16;  // stored byte of the row
+    const uint4 raw = *reinterpret_cast<const uint4*>(src + r * L::kRow + cb);
+    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+    if constexpr (kPacked<Tc>) {
+      // Byte j of the row: element j (low nibble) and j + D / 2 (high).
+      uint32_t lo[8], hi[8];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  }
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kBlockN;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    stage_bytes<S, D, LDB, 128>(ks, kp, k0, skv);
-    stage_bytes<S, D, LDB, 128>(vs, vp, k0, skv);
-    if (threadIdx.x < kBlockN) {
-      const bool in = k0 + threadIdx.x < skv;
-      ksc[threadIdx.x] = in ? ksp[k0 + threadIdx.x] : 0.f;
-      vsc[threadIdx.x] = in ? vsp[k0 + threadIdx.x] : 0.f;
-    }
-    __syncthreads();
-
-    float s[kBlockN / 8][4];
-#pragma unroll
-    for (int j = 0; j < kBlockN / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int j = 0; j < kBlockN / 8; ++j) {
-        const uint8_t* kr = ks + (j * 8 + g) * LDB + kk * 16 + 2 * t4;
-        mma_bf16(s[j], qa[kk], Conv<S>::two(byte_pair(kr)),
-                 Conv<S>::two(byte_pair(kr + 8)));
+      for (int k = 0; k < 4; ++k) {
+        float l4[4], h4[4];
+        int4x8_to_float(w[k], l4, h4);
+        lo[2 * k] = pack_bf16(l4[0], l4[1]);
+        lo[2 * k + 1] = pack_bf16(l4[2], l4[3]);
+        hi[2 * k] = pack_bf16(h4[0], h4[1]);
+        hi[2 * k + 1] = pack_bf16(h4[2], h4[3]);
       }
-    }
-
-    // K's scale on the score columns, then the mask.
-    const bool need_mask =
-        (k0 + kBlockN > kv_len) || (causal && k0 + kBlockN - 1 > q0);
-    float mx[2] = {-INFINITY, -INFINITY};
+      put(r, cb / 8, lo[0], lo[1], lo[2], lo[3]);
+      put(r, cb / 8 + 1, lo[4], lo[5], lo[6], lo[7]);
+      put(r, (D / 2 + cb) / 8, hi[0], hi[1], hi[2], hi[3]);
+      put(r, (D / 2 + cb) / 8 + 1, hi[4], hi[5], hi[6], hi[7]);
+    } else {
+      uint32_t o[8];
 #pragma unroll
-    for (int j = 0; j < kBlockN / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int cl = j * 8 + t4 * 2 + (e & 1);
-        s[j][e] *= ksc[cl];
-        if (need_mask) {
-          const int col = k0 + cl;
-          const int row = e < 2 ? row_a : row_b;
-          if (col >= kv_len || (causal && col > row)) s[j][e] = kMaskValue;
-        }
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      for (int k = 0; k < 4; ++k) {
+        float f[4];
+        decode4<Tc>(w[k], f);
+        o[2 * k] = pack_bf16(f[0], f[1]);
+        o[2 * k + 1] = pack_bf16(f[2], f[3]);
       }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m_run[i], mx[i]);
-      alpha[i] = exp2f(m_run[i] - m_new);
-      m_run[i] = m_new;
-    }
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < kBlockN / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float p = exp2f(s[j][e] - m_run[e >> 1]);
-        // Exact zero for masked entries (a row masked so far has m equal
-        // to the mask value, where exp2 alone would give 1).
-        if (need_mask && s[j][e] == kMaskValue) p = 0.f;
-        rs[e >> 1] += p;
-        s[j][e] = p * vsc[j * 8 + t4 * 2 + (e & 1)];  // rounded below
-      }
-    }
-    l_run[0] = l_run[0] * alpha[0] + rs[0];
-    l_run[1] = l_run[1] * alpha[1] + rs[1];
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      acc[j][0] *= alpha[0];
-      acc[j][1] *= alpha[0];
-      acc[j][2] *= alpha[1];
-      acc[j][3] *= alpha[1];
-    }
-
-    // O += (P * v_scale) V: the S accumulators of n-tiles 2kk and 2kk+1 are
-    // the A fragment of key step kk.
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const uint8_t* v0 = vs + (kk * 16 + 2 * t4) * LDB + g;
-#pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
-        const uint8_t* vr = v0 + dn * 8;
-        const uint16_t p0 = vr[0] | (static_cast<uint16_t>(vr[LDB]) << 8);
-        const uint16_t p1 =
-            vr[8 * LDB] | (static_cast<uint16_t>(vr[9 * LDB]) << 8);
-        mma_bf16(acc[dn], pa, Conv<S>::two(p0), Conv<S>::two(p1));
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 1);
-    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 2);
-  }
-  const float inv_a = l_run[0] == 0.f ? 1.f : 1.f / l_run[0];
-  const float inv_b = l_run[1] == 0.f ? 1.f : 1.f / l_run[1];
-  Tq* op = o + static_cast<size_t>(bh) * sq * D;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int col = j * 8 + t4 * 2;
-    if (row_a < sq) {
-      store2(op + static_cast<size_t>(row_a) * D + col, acc[j][0] * inv_a,
-             acc[j][1] * inv_a);
-    }
-    if (row_b < sq) {
-      store2(op + static_cast<size_t>(row_b) * D + col, acc[j][2] * inv_b,
-             acc[j][3] * inv_b);
-    }
-  }
-  if (t4 == 0) {
-    float* lp = lse + static_cast<size_t>(bh) * sq;
-    if (row_a < sq) {
-      lp[row_a] = m_run[0] * kLn2 + logf(l_run[0] == 0.f ? 1.f : l_run[0]);
-    }
-    if (row_b < sq) {
-      lp[row_b] = m_run[1] * kLn2 + logf(l_run[1] == 0.f ? 1.f : l_run[1]);
+      put(r, cb / 8, o[0], o[1], o[2], o[3]);
+      put(r, cb / 8 + 1, o[4], o[5], o[6], o[7]);
     }
   }
 }
 
-// ---------------------------------------------------------------------------
-// fp32 compute on the FMA units, as B1's fp32 path: 256 threads as 16 x 16,
-// thread (ty, tx) owns rows 4ty..4ty+3 and columns tx + 16j.  K and V are
-// staged bytes first, then converted to fp32 (exact) in shared memory.
-// ---------------------------------------------------------------------------
-template <typename Tq, typename S, int D>
-__global__ void __launch_bounds__(256)
-fa2_fwd_quant_fp32(const Tq* __restrict__ q, const uint8_t* __restrict__ k,
-                   const float* __restrict__ k_scales,
-                   const uint8_t* __restrict__ v,
-                   const float* __restrict__ v_scales, Tq* __restrict__ o,
-                   float* __restrict__ lse, int hq, int hkv, int sq, int skv,
-                   int kv_len, float qscale, int causal) {
-  constexpr int LDQ = D + 1;  // odd strides: conflict-free column reads
-  constexpr int LDK = D + 1;
-  constexpr int LDV = D;
-  constexpr int LDP = kBlockN + 1;
-  constexpr int LDB = D + 16;
-  constexpr int DJ = D / 16;
-  constexpr int kRow = kRowBytes<S, D>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* qs = reinterpret_cast<float*>(smem_raw);
-  float* kf = qs + kBlockM * LDQ;
-  float* vf = kf + kBlockN * LDK;
-  float* ps = vf + kBlockN * LDV;
-  float* ksc = ps + kBlockM * LDP;
-  float* vsc = ksc + kBlockN;
-  uint8_t* kb = reinterpret_cast<uint8_t*>(vsc + kBlockN);
-  uint8_t* vb = kb + kBlockN * LDB;
+// exp2 on the special-function unit; results below 2^-126 flush to zero.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockM;
+// Issue S = Q K^T (not waited for): D / 16 k-steps of 32 bytes, four to a
+// 128-byte box, both operands K-major.
+template <typename L, int D>
+__device__ __forceinline__ void issue_qk(float (&s)[kTileN / 2], uint32_t qs,
+                                         uint32_t ks) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk % 4) * 32;
+    wgmma_qk(s, sw128_desc(qs + (kk / 4) * L::kQBox + off, 16, 1024),
+             sw128_desc(ks + (kk / 4) * L::kKVBox + off, 16, 1024), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// Issue O += P V (not waited for): k-step kk reads V rows [16 kk, 16 kk +
+// 16), two 8-row groups 1024 bytes apart, MN-major; the 64-column boxes are
+// kKVBox apart.
+template <typename L, int D>
+__device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
+                                         uint32_t (&pa)[kTileN / 16][4],
+                                         uint32_t vs) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kTileN / 16; ++kk) {
+    wgmma_pv(acc, pa[kk], sw128_desc(vs + kk * 16 * 128, L::kKVBox, 1024));
+  }
+  wgmma_commit();
+}
+
+// The online softmax of one S tile in place (fp32, exp2 domain), B7's: S
+// times K's scale of its column first; with kMask, scores of columns at or
+// past kv_len or (causal) past the row take kMaskValue.  Updates m and this
+// thread's share of l, sets alpha = exp2(m_old - m_new) and leaves P times
+// V's scale of its column in s, masked entries exactly 0.  `sc` holds the
+// tile's K scales, then its V scales.
+template <bool kMask>
+__device__ __forceinline__ void quant_softmax(float (&s)[kTileN / 2], const float* sc,
+                                              float (&m_run)[2], float (&l_run)[2],
+                                              float (&alpha)[2], int k0, int row_a,
+                                              int kv_len, int causal, int t4) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < kTileN / 8; ++j) {
+    const float2 kc = *reinterpret_cast<const float2*>(sc + 8 * j + 2 * t4);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[4 * j + e] *= (e & 1) ? kc.y : kc.x;
+      if (kMask) {
+        const int col = k0 + 8 * j + 2 * t4 + (e & 1);
+        const int row = e < 2 ? row_a : row_a + 8;
+        if (col >= kv_len || (causal && col > row)) s[4 * j + e] = kMaskValue;
+      }
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * j + e]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(m_run[i], mx[i]);
+    alpha[i] = exp2_ftz(m_run[i] - m_new);
+    m_run[i] = m_new;
+  }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < kTileN / 8; ++j) {
+    const float2 vc = *reinterpret_cast<const float2*>(sc + kTileN + 8 * j + 2 * t4);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float p = exp2_ftz(s[4 * j + e] - m_run[e >> 1]);
+      // Exact zero for masked entries (a row masked so far has m equal to
+      // the mask value, where exp2 alone would give 1).
+      if (kMask && s[4 * j + e] == kMaskValue) p = 0.f;
+      rs[e >> 1] += p;
+      s[4 * j + e] = p * ((e & 1) ? vc.y : vc.x);  // rounded to bf16 in pack_p
+    }
+  }
+  l_run[0] = l_run[0] * alpha[0] + rs[0];
+  l_run[1] = l_run[1] * alpha[1] + rs[1];
+}
+
+// P * v_scale in bf16: the accumulators of column groups 2 kk and 2 kk + 1
+// are exactly the register A fragment of k-step kk.
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[kTileN / 16][4],
+                                       const float (&s)[kTileN / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < kTileN / 16; ++kk) {
+    pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+    pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+// Tile t of job j in the order the consumers take K and V: K(0), then for
+// each t, K(t + 1) (if any) and V(t).  Sets is_k.
+__device__ __forceinline__ int job_tile(int j, int n_tiles, bool& is_k) {
+  if (j == 0) {
+    is_k = true;
+    return 0;
+  }
+  if (j == 2 * n_tiles - 1) {
+    is_k = false;
+    return n_tiles - 1;
+  }
+  const int t = (j - 1) >> 1;
+  is_k = ((j - 1) & 1) == 0;
+  return is_k ? t + 1 : t;
+}
+
+template <typename Tq, typename Tc, int D>
+__global__ void __launch_bounds__(kThreads, 1)
+fa2_fwd_quant_wgmma(const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map,
+                    const Tq* __restrict__ q, const float* __restrict__ k_scales,
+                    const float* __restrict__ v_scales, Tq* __restrict__ o,
+                    float* __restrict__ lse, int hq, int hkv, int sq, int skv,
+                    int kv_len, float qscale, int causal) {
+  using L = Layout<Tc, D>;
+  constexpr int kStages = L::kStages;
+  constexpr int kRawStages = L::kRawStages;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  float* scl = reinterpret_cast<float*>(smem + L::kScl);
+  const uint32_t full_k = base + L::kBars;  // stage s at + 8 s
+  const uint32_t full_v = full_k + 8 * kStages;
+  const uint32_t empty_k = full_v + 8 * kStages;
+  const uint32_t empty_v = empty_k + 8 * kStages;
+  const uint32_t full_raw = empty_v + 8 * kStages;
+
+  // Causal tiles near the end of the sequence carry the most KV tiles:
+  // hand them out first so the short ones fill the tail of the grid.
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTileM;
   const int bh = blockIdx.y;
   const int b = bh / hq;
   const int hk = (bh - b * hq) / (hq / hkv);
+  const int kv_end = causal ? min(kv_len, q0 + kTileM) : kv_len;
+  const int n_tiles = (kv_end + kTileN - 1) / kTileN;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_k + 8 * s, 4);  // one arrival per producer warp
+      mbar_init(full_v + 8 * s, 4);
+      mbar_init(empty_k + 8 * s, 8);  // one arrival per consumer warp
+      mbar_init(empty_v + 8 * s, 8);
+    }
+#pragma unroll
+    for (int s = 0; s < kRawStages; ++s) mbar_init(full_raw + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // Producer: thread 0 keeps the byte ring full; all four warps convert.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    const int tid = threadIdx.x;
+    const int kv_head = b * hkv + hk;
+    const int n_jobs = 2 * n_tiles;
+    auto issue = [&](int j) {
+      bool is_k;
+      const int t = job_tile(j, n_tiles, is_k);
+      const int rs = j % kRawStages;
+      mbar_expect_tx(full_raw + 8 * rs, L::kRawTile);
+      tma_load_3d(base + L::kRaw + rs * L::kRawTile, is_k ? &k_map : &v_map,
+                  full_raw + 8 * rs, 0, t * kTileN, kv_head);
+    };
+    if (tid == 0) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(&k_map))
+                   : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(&v_map))
+                   : "memory");
+      for (int j = 0; j < kRawStages && j < n_jobs; ++j) issue(j);
+    }
+    const size_t scale0 = static_cast<size_t>(kv_head) * skv;
+    for (int j = 0; j < n_jobs; ++j) {
+      bool is_k;
+      const int t = job_tile(j, n_tiles, is_k);
+      const int st = t % kStages;
+      // A K job carries tile t's K and V scales, one row per thread.
+      float ksv = 0.f, vsv = 0.f;
+      const int row = t * kTileN + tid;
+      if (is_k && row < skv) {
+        ksv = k_scales[scale0 + row];
+        vsv = v_scales[scale0 + row];
+      }
+      // The bf16 stage is free once the consumers released it (the first
+      // pass finds every stage empty), and the byte stage has landed.
+      mbar_wait((is_k ? empty_k : empty_v) + 8 * st, ((t / kStages) & 1) ^ 1);
+      const int rs = j % kRawStages;
+      mbar_wait(full_raw + 8 * rs, (j / kRawStages) & 1);
+      convert_tile<Tc, D, L>(smem + (is_k ? L::kK : L::kV) + st * L::kKVBytes,
+                             smem + L::kRaw + rs * L::kRawTile, tid);
+      if (is_k) {
+        scl[st * 2 * kTileN + tid] = ksv;
+        scl[st * 2 * kTileN + kTileN + tid] = vsv;
+      }
+      // The converted stage is read by wgmma, through the async proxy.
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncwarp();
+      if ((tid & 31) == 0) mbar_arrive((is_k ? full_k : full_v) + 8 * st);
+      // Byte stage rs is read by all four warps: refill it.
+      asm volatile("bar.sync 5, 128;\n" ::: "memory");
+      if (tid == 0 && j + kRawStages < n_jobs) issue(j + kRawStages);
+    }
+  } else {
+    // Consumer c: Q rows [q0 + 64 c, q0 + 64 c + 64).  Warp w of the
+    // warpgroup holds rows 16 w + g and 16 w + g + 8 of every accumulator,
+    // columns 8 j + 2 t4 and 8 j + 2 t4 + 1 of each 8-column group j.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int c = wg - 1;
+    const int tid = threadIdx.x - 128 * wg;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int t4 = lane & 3;
+    const int qc0 = q0 + kConsumerM * c;
+    stage_q<Tq, D, L>(smem + c * L::kQBytes, q + static_cast<size_t>(bh) * sq * D,
+                      qc0, sq, qscale, tid);
+    // Q's generic-proxy stores must be visible to wgmma (the async proxy)
+    // and complete in all four warps before the first product.
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
+    const uint32_t qs = base + c * L::kQBytes;
+
+    const int row_a = qc0 + warp * 16 + g;
+    float m_run[2] = {-INFINITY, -INFINITY};
+    float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
+    float alpha[2];
+    float acc[D / 2];
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
+    float s[kTileN / 2];
+    uint32_t pa[kTileN / 16][4];
+    auto scores = [&](int t) {
+      const int st = t % kStages;
+      mbar_wait(full_k + 8 * st, (t / kStages) & 1);
+      issue_qk<L, D>(s, qs, base + L::kK + st * L::kKVBytes);
+    };
+    // A K or V stage is free once this warp's product that read it has
+    // completed (and, for K, its scales have been read).
+    auto release = [&](uint32_t empty, int t) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * (t % kStages));
+    };
+    auto softmax = [&](int t) {
+      const int k0 = t * kTileN;
+      const float* sc = scl + (t % kStages) * 2 * kTileN;
+      if ((k0 + kTileN > kv_len) || (causal && k0 + kTileN - 1 > qc0)) {
+        quant_softmax<true>(s, sc, m_run, l_run, alpha, k0, row_a, kv_len, causal, t4);
+      } else {
+        quant_softmax<false>(s, sc, m_run, l_run, alpha, k0, row_a, kv_len, causal, t4);
+      }
+      release(empty_k, t);
+    };
+
+    // B1's schedule: tile t's P V runs on the tensor cores while the
+    // softmax of tile t + 1 runs on the other units (S(t + 1) is issued
+    // before P V(t) and waited for with wait_group 1), every pass issuing
+    // the same two groups; the two consumers take turns to issue their
+    // products (named barriers 3 and 4), consumer 0 first.
+    auto take_turn = [&] {
+      asm volatile("bar.sync %0, 256;\n" ::"r"(3 + c) : "memory");
+    };
+    auto pass_turn = [&] {
+      asm volatile("bar.arrive %0, 256;\n" ::"r"(4 - c) : "memory");
+    };
+    if (c == 0) asm volatile("bar.arrive 3, 256;\n" ::: "memory");
+    auto finish_pv = [&](int t) {
+      wgmma_wait<0>();
+      hold(acc);
+#pragma unroll
+      for (int kk = 0; kk < kTileN / 16; ++kk) hold(pa[kk]);
+      release(empty_v, t);
+    };
+    if (n_tiles > 0) {
+      take_turn();
+      scores(0);
+      pass_turn();
+      wgmma_wait<0>();
+      hold(s);
+      softmax(0);
+      pack_p(pa, s);
+    }
+    for (int t = 0; t + 1 < n_tiles; ++t) {
+      const int st = t % kStages;
+      take_turn();
+      scores(t + 1);
+      mbar_wait(full_v + 8 * st, (t / kStages) & 1);
+      issue_pv<L, D>(acc, pa, base + L::kV + st * L::kKVBytes);
+      pass_turn();
+      wgmma_wait<1>();
+      hold(s);
+      softmax(t + 1);
+      finish_pv(t);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[4 * j] *= alpha[0];
+        acc[4 * j + 1] *= alpha[0];
+        acc[4 * j + 2] *= alpha[1];
+        acc[4 * j + 3] *= alpha[1];
+      }
+      pack_p(pa, s);
+    }
+    if (n_tiles > 0) {
+      const int t = n_tiles - 1;
+      const int st = t % kStages;
+      take_turn();
+      mbar_wait(full_v + 8 * st, (t / kStages) & 1);
+      issue_pv<L, D>(acc, pa, base + L::kV + st * L::kKVBytes);
+      pass_turn();
+      finish_pv(t);
+    }
+    const int row_b = row_a + 8;
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 1);
+      l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 2);
+    }
+    const float inv_a = l_run[0] == 0.f ? 1.f : 1.f / l_run[0];
+    const float inv_b = l_run[1] == 0.f ? 1.f : 1.f / l_run[1];
+    Tq* op = o + static_cast<size_t>(bh) * sq * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = j * 8 + t4 * 2;
+      if (row_a < sq) {
+        store2(op + static_cast<size_t>(row_a) * D + col, acc[4 * j] * inv_a,
+               acc[4 * j + 1] * inv_a);
+      }
+      if (row_b < sq) {
+        store2(op + static_cast<size_t>(row_b) * D + col, acc[4 * j + 2] * inv_b,
+               acc[4 * j + 3] * inv_b);
+      }
+    }
+    if (t4 == 0) {
+      float* lp = lse + static_cast<size_t>(bh) * sq;
+      if (row_a < sq) {
+        lp[row_a] = m_run[0] * kLn2 + logf(l_run[0] == 0.f ? 1.f : l_run[0]);
+      }
+      if (row_b < sq) {
+        lp[row_b] = m_run[1] * kLn2 + logf(l_run[1] == 0.f ? 1.f : l_run[1]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fp32 compute on the FMA units: the block of csrc/fma_block.cuh over the
+// stored-width ring of csrc/paged_kv.cuh (FmaRaw).  One block per (64-row Q
+// tile, b * Hq), longest causal tiles first.  Per KV tile: wait for its
+// stage, decode K and V into the fp32 stages and read this thread's four K
+// and four V scales, barrier (the stage refills with tile t + kStages), S,
+// barrier (P over K), the softmax, barrier, P V, barrier.
+// ---------------------------------------------------------------------------
+template <typename Tq, typename Tc, int D>
+__global__ void __launch_bounds__(kFmaThreads, FmaRaw<Tc, D>::kBlocksPerSm)
+fa2_fwd_quant_fp32(const Tq* __restrict__ q, const uint8_t* __restrict__ k,
+                   const float* __restrict__ k_scales, const uint8_t* __restrict__ v,
+                   const float* __restrict__ v_scales, Tq* __restrict__ o,
+                   float* __restrict__ lse, int hq, int hkv, int sq, int skv,
+                   int kv_len, float qscale, int causal) {
+  using R = FmaRaw<Tc, D>;
+  constexpr int DO = D / 16;  // output columns per thread
+  constexpr int kN = kFmaTile;
+  extern __shared__ __align__(16) float smem[];
+  unsigned char* bytes = reinterpret_cast<unsigned char*>(smem);
+  float* kf = smem + R::kK;
+  float* vf = smem + R::kV;
+  float* qs = smem + R::kQ;
+  const uint32_t bar0 = smem_addr(bytes + R::kBar);
+  const FmaThread th = fma_thread();
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kN;
+  const size_t bh = blockIdx.y;
+  const int b = blockIdx.y / hq;
+  const int hk = (blockIdx.y - b * hq) / (hq / hkv);
   const size_t kv_head = static_cast<size_t>(b) * hkv + hk;
-  const Tq* qp = q + static_cast<size_t>(bh) * sq * D;
-  const uint8_t* kp = k + kv_head * skv * kRow;
-  const uint8_t* vp = v + kv_head * skv * kRow;
+  const uint8_t* kp = k + kv_head * skv * R::kRow;
+  const uint8_t* vp = v + kv_head * skv * R::kRow;
   const float* ksp = k_scales + kv_head * skv;
   const float* vsp = v_scales + kv_head * skv;
+  const int kv_end = causal ? min(kv_len, q0 + kN) : kv_len;
+  const int n_kv = (kv_end + kN - 1) / kN;
 
-  for (int i = threadIdx.x; i < kBlockM * D; i += 256) {
-    const int r = i / D;
-    const int c = i - r * D;
-    qs[r * LDQ + c] =
-        q0 + r < sq ? to_float(qp[static_cast<size_t>(q0 + r) * D + c]) * qscale
-                    : 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < R::kStages; ++s) mbar_init(bar0 + 8 * s, kFmaThreads);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  // Q scaled by sm_scale * log2(e) once, in fp32.
+  fma_load_q<D>(qs, q + bh * sq * D, q0, sq, qscale);
+  __syncthreads();
+  auto issue = [&](int t) {
+    const int k0 = t * kN;
+    fma_raw_issue<Tc, D>(bytes + R::kRaw + (t % R::kStages) * R::kStage,
+                         bar0 + 8 * (t % R::kStages), kp + static_cast<size_t>(k0) * R::kRow,
+                         vp + static_cast<size_t>(k0) * R::kRow, ksp + k0, vsp + k0,
+                         min(kN, skv - k0));
+  };
+  for (int t = 0; t < R::kStages && t < n_kv; ++t) issue(t);
 
-  const int kv_end = causal ? min(kv_len, q0 + kBlockM) : kv_len;
-  const int n_tiles = (kv_end + kBlockN - 1) / kBlockN;
-  float m_run[4], l_run[4], acc[4][DJ];
+  float m_run[8], l_run[8], acc[8][DO];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_run[i] = -INFINITY;
-    l_run[i] = 0.f;
+  for (int r = 0; r < 8; ++r) {
+    m_run[r] = -INFINITY;
+    l_run[r] = 0.f;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
+    for (int c = 0; c < DO; ++c) acc[r][c] = 0.f;
   }
+  for (int t = 0; t < n_kv; ++t) {
+    const int k0 = t * kN;
+    const unsigned char* stage = bytes + R::kRaw + (t % R::kStages) * R::kStage;
+    mbar_wait(bar0 + 8 * (t % R::kStages), (t / R::kStages) & 1);
+    fma_decode_tile<Tc, D>(kf, stage);
+    fma_decode_tile<Tc, D>(vf, stage + R::kTile);
+    const float* sc = reinterpret_cast<const float*>(stage + 2 * R::kTile);
+    float ksc[4], vsc[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      ksc[j] = sc[th.tx + 16 * j];
+      vsc[j] = sc[kN + th.tx + 16 * j];
+    }
+    __syncthreads();  // K, V decoded; the stage is free
+    if (t + R::kStages < n_kv) issue(t + R::kStages);
+    float s[8][4];
+    fma_scores<D>(qs, kf, th, s);
+    float* ps = kf;
+    __syncthreads();  // K(t) is read: P takes its stage
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kBlockN;
-    __syncthreads();
-    stage_bytes<S, D, LDB, 256>(kb, kp, k0, skv);
-    stage_bytes<S, D, LDB, 256>(vb, vp, k0, skv);
-    if (threadIdx.x < kBlockN) {
-      const bool in = k0 + threadIdx.x < skv;
-      ksc[threadIdx.x] = in ? ksp[k0 + threadIdx.x] : 0.f;
-      vsc[threadIdx.x] = in ? vsp[k0 + threadIdx.x] : 0.f;
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < kBlockN * D; i += 256) {
-      const int r = i / D;
-      const int c = i - r * D;
-      kf[r * LDK + c] = Conv<S>::one(kb[r * LDB + c]);
-      vf[r * LDV + c] = Conv<S>::one(vb[r * LDB + c]);
-    }
-    __syncthreads();
-
-    float s[4][4];
+    // S times K's scale of its column, the mask on the diagonal and kv_len
+    // tail tiles (masked P exactly 0), the exp2 online softmax; P times V's
+    // scale.  l_run is this thread's share of the row sum.
+    const bool need_mask = (k0 + kN > kv_len) || (causal && k0 + kN - 1 > q0);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    }
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = qs[(ty * 4 + i) * LDQ + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = kf[(tx + 16 * j) * LDK + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-      }
-    }
-
-    const bool need_mask =
-        (k0 + kBlockN > kv_len) || (causal && k0 + kBlockN - 1 > q0);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-      float mx = -INFINITY;
+    for (int r = 0; r < 8; ++r) {
+      const int row = q0 + th.ty + 8 * r;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int cl = tx + 16 * j;
-        s[i][j] *= ksc[cl];
+        s[r][j] *= ksc[j];
         if (need_mask) {
-          const int col = k0 + cl;
-          if (col >= kv_len || (causal && col > row)) s[i][j] = kMaskValue;
+          const int col = k0 + th.tx + 16 * j;
+          if (col >= kv_len || (causal && col > row)) s[r][j] = kMaskValue;
         }
-        mx = fmaxf(mx, s[i][j]);
       }
-#pragma unroll
-      for (int off = 1; off < 16; off <<= 1) {
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      }
-      const float m_new = fmaxf(m_run[i], mx);
-      const float alpha = exp2f(m_run[i] - m_new);
-      m_run[i] = m_new;
+      const float mx = fma_row_max(fmaxf(fmaxf(s[r][0], s[r][1]), fmaxf(s[r][2], s[r][3])));
+      const float m_new = fmaxf(m_run[r], mx);
+      const float alpha = exp2f(m_run[r] - m_new);
+      m_run[r] = m_new;
       float rs = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int cl = tx + 16 * j;
-        float p = exp2f(s[i][j] - m_new);
-        if (need_mask && s[i][j] == kMaskValue) p = 0.f;
+        float p = exp2f(s[r][j] - m_new);
+        if (need_mask && s[r][j] == kMaskValue) p = 0.f;
         rs += p;
-        ps[(ty * 4 + i) * LDP + cl] = p * vsc[cl];
+        fma_store_p(ps, th, r, j, p * vsc[j]);
       }
-      l_run[i] = l_run[i] * alpha + rs;
+      l_run[r] = l_run[r] * alpha + rs;
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= alpha;
+      for (int c = 0; c < DO; ++c) acc[r][c] *= alpha;
     }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < kBlockN; ++c) {
-      float vv[DJ];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) vv[j] = vf[c * LDV + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = ps[(ty * 4 + i) * LDP + c];
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(p, vv[j], acc[i][j]);
-      }
-    }
+    __syncthreads();  // P is in place
+    fma_pv<D, true>(ps, vf, th, acc);
+    __syncthreads();  // P and V(t) are read
   }
 
-  Tq* op = o + static_cast<size_t>(bh) * sq * D;
-  float* lp = lse + static_cast<size_t>(bh) * sq;
+  // O = acc / l (l == 0 guarded) and lse = m ln 2 + log l.
+  float inv[8], l[8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float l = l_run[i];
+  for (int r = 0; r < 8; ++r) {
+    l[r] = fma_row_sum(l_run[r]);
+    inv[r] = l[r] == 0.f ? 1.f : 1.f / l[r];
+  }
+  fma_store_o<D>(o + bh * sq * D, q0, sq, th, acc, inv);
+  if (th.tx == 0) {
+    float* lp = lse + bh * sq;
 #pragma unroll
-    for (int off = 1; off < 16; off <<= 1) {
-      l += __shfl_xor_sync(0xffffffffu, l, off);
+    for (int r = 0; r < 8; ++r) {
+      const int row = q0 + th.ty + 8 * r;
+      if (row < sq) lp[row] = m_run[r] * kLn2 + logf(l[r] == 0.f ? 1.f : l[r]);
     }
-    const int row = q0 + ty * 4 + i;
-    if (row >= sq) continue;
-    const float inv = l == 0.f ? 1.f : 1.f / l;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      store1(op + static_cast<size_t>(row) * D + tx + 16 * j, acc[i][j] * inv);
-    }
-    if (tx == 0) lp[row] = m_run[i] * kLn2 + logf(l == 0.f ? 1.f : l);
   }
 }
 
-// Raises the kernel's dynamic shared-memory limit to `smem` once per device
-// (devices 0-63; others on every call) instead of on every launch.  `done`
-// is a function-local static of the caller, so one per instantiation.
-template <typename Kernel>
-cudaError_t set_smem_once(Kernel kernel, int smem,
-                          std::atomic<uint64_t>& done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
-  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
-  return err;
-}
+// ---------------------------------------------------------------------------
+// Host side.
+// ---------------------------------------------------------------------------
 
 struct Args {
   const void *q, *k, *k_scales, *v, *v_scales;
@@ -614,56 +746,74 @@ struct Args {
   int causal;
 };
 
-template <typename Tq, typename S, int D>
-cudaError_t launch(const Args& a, bool bf16_compute, cudaStream_t stream) {
-  const dim3 grid((a.sq + kBlockM - 1) / kBlockM, a.batch * a.hq);
-  const auto* k = static_cast<const uint8_t*>(a.k);
-  const auto* v = static_cast<const uint8_t*>(a.v);
+// A 3-D byte map over a contiguous stored [rows, skv, row_bytes] K or V:
+// boxes of kTileN whole rows, unswizzled; reads past skv give zeros.
+int raw_map(CUtensorMap* map, const void* ptr, int rows, int skv, int row_bytes) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return kErrNoEncoder;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(row_bytes),
+                              static_cast<cuuint64_t>(skv),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(row_bytes),
+                                 static_cast<cuuint64_t>(skv) * row_bytes};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(row_bytes), kTileN, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(ptr),
+                            dims, strides, box, elem_strides,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrEncode;
+}
+
+template <typename Tq, typename Tc, int D>
+int launch(const Args& a, bool bf16_compute, cudaStream_t stream) {
   const auto* ks = static_cast<const float*>(a.k_scales);
   const auto* vs = static_cast<const float*>(a.v_scales);
   if (bf16_compute) {
-    const size_t smem = kBlockM * (D + 8) * sizeof(__nv_bfloat16) +
-                        2 * kBlockN * (D + 16) + 2 * kBlockN * sizeof(float);
+    using L = Layout<Tc, D>;
+    CUtensorMap k_map, v_map;
+    int err = raw_map(&k_map, a.k, a.batch * a.hkv, a.skv, L::kRow);
+    if (err == 0) err = raw_map(&v_map, a.v, a.batch * a.hkv, a.skv, L::kRow);
+    if (err != 0) return err;
     static std::atomic<uint64_t> smem_set{0};
-    cudaError_t err = set_smem_once(fa2_fwd_quant_mma<Tq, S, D>,
-                                    static_cast<int>(smem), smem_set);
-    if (err != cudaSuccess) return err;
-    fa2_fwd_quant_mma<Tq, S, D><<<grid, 128, smem, stream>>>(
-        static_cast<const Tq*>(a.q), k, ks, v, vs, static_cast<Tq*>(a.o),
-        static_cast<float*>(a.lse), a.hq, a.hkv, a.sq, a.skv, a.kv_len,
-        a.qscale, a.causal);
+    cudaError_t cerr = set_smem_once(fa2_fwd_quant_wgmma<Tq, Tc, D>, L::kSmem, smem_set);
+    if (cerr != cudaSuccess) return cerr;
+    const dim3 grid((a.sq + kTileM - 1) / kTileM, a.batch * a.hq);
+    fa2_fwd_quant_wgmma<Tq, Tc, D><<<grid, kThreads, L::kSmem, stream>>>(
+        k_map, v_map, static_cast<const Tq*>(a.q), ks, vs, static_cast<Tq*>(a.o),
+        static_cast<float*>(a.lse), a.hq, a.hkv, a.sq, a.skv, a.kv_len, a.qscale,
+        a.causal);
   } else {
-    const size_t smem = (kBlockM * (D + 1) + kBlockN * (D + 1) + kBlockN * D +
-                         kBlockM * (kBlockN + 1) + 2 * kBlockN) *
-                            sizeof(float) +
-                        2 * kBlockN * (D + 16);
+    using R = FmaRaw<Tc, D>;
     static std::atomic<uint64_t> smem_set{0};
-    cudaError_t err = set_smem_once(fa2_fwd_quant_fp32<Tq, S, D>,
-                                    static_cast<int>(smem), smem_set);
-    if (err != cudaSuccess) return err;
-    fa2_fwd_quant_fp32<Tq, S, D><<<grid, 256, smem, stream>>>(
-        static_cast<const Tq*>(a.q), k, ks, v, vs, static_cast<Tq*>(a.o),
-        static_cast<float*>(a.lse), a.hq, a.hkv, a.sq, a.skv, a.kv_len,
-        a.qscale, a.causal);
+    cudaError_t cerr = set_smem_once(fa2_fwd_quant_fp32<Tq, Tc, D>, R::kSmem, smem_set);
+    if (cerr != cudaSuccess) return cerr;
+    const dim3 grid((a.sq + kFmaTile - 1) / kFmaTile, a.batch * a.hq);
+    fa2_fwd_quant_fp32<Tq, Tc, D><<<grid, kFmaThreads, R::kSmem, stream>>>(
+        static_cast<const Tq*>(a.q), static_cast<const uint8_t*>(a.k), ks,
+        static_cast<const uint8_t*>(a.v), vs, static_cast<Tq*>(a.o),
+        static_cast<float*>(a.lse), a.hq, a.hkv, a.sq, a.skv, a.kv_len, a.qscale,
+        a.causal);
   }
   return cudaGetLastError();
 }
 
-template <typename Tq, typename S>
-cudaError_t launch_d(int head_dim, const Args& a, bool bf16c, cudaStream_t st) {
-  if (head_dim == 64) return launch<Tq, S, 64>(a, bf16c, st);
-  if (head_dim == 128) return launch<Tq, S, 128>(a, bf16c, st);
+template <typename Tq, typename Tc>
+int launch_d(int head_dim, const Args& a, bool bf16c, cudaStream_t st) {
+  if (head_dim == 64) return launch<Tq, Tc, 64>(a, bf16c, st);
+  if (head_dim == 128) return launch<Tq, Tc, 128>(a, bf16c, st);
   return cudaErrorInvalidValue;
 }
 
 template <typename Tq>
-cudaError_t launch_storage(int storage, int head_dim, const Args& a,
-                           bool bf16c, cudaStream_t st) {
+int launch_storage(int storage, int head_dim, const Args& a, bool bf16c,
+                   cudaStream_t st) {
   switch (storage) {
-    case 0: return launch_d<Tq, Int8>(head_dim, a, bf16c, st);
-    case 1: return launch_d<Tq, E4M3>(head_dim, a, bf16c, st);
-    case 2: return launch_d<Tq, E5M2>(head_dim, a, bf16c, st);
-    case 3: return launch_d<Tq, Int4>(head_dim, a, bf16c, st);
+    case 0: return launch_d<Tq, int8_t>(head_dim, a, bf16c, st);
+    case 1: return launch_d<Tq, __nv_fp8_e4m3>(head_dim, a, bf16c, st);
+    case 2: return launch_d<Tq, __nv_fp8_e5m2>(head_dim, a, bf16c, st);
+    case 3: return launch_d<Tq, Int4x2>(head_dim, a, bf16c, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -676,8 +826,10 @@ extern "C" {
 // [batch, hq, sq] fp32.  k, v [batch, hkv, skv, row] of storage 0 = int8,
 // 1 = fp8 e4m3, 2 = fp8 e5m2 (row = head_dim bytes) or 3 = int4 split-half
 // (row = head_dim / 2 bytes); k_scales, v_scales [batch, hkv, skv] fp32.  All
-// contiguous.  bf16_compute: bf16 on the tensor cores (else fp32 on FMA).
-// qscale = sm_scale * log2(e).  Returns a cudaError_t.
+// contiguous, k and v 16-byte aligned.  bf16_compute: bf16 on the tensor
+// cores (else fp32 on FMA).  qscale = sm_scale * log2(e).  Returns a
+// cudaError_t, or an error of the tensor-map step
+// (cfa_fa2_forward_quant_error_string names it).
 int cfa_fa2_forward_quant(const void* q, const void* k, const void* k_scales,
                           const void* v, const void* v_scales, void* o,
                           void* lse, int batch, int hq, int hkv, int sq,
@@ -691,14 +843,14 @@ int cfa_fa2_forward_quant(const void* q, const void* k, const void* k_scales,
                hq,    hkv, sq,       skv, kv_len,  qscale, causal};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (q_bf16) {
-    return static_cast<int>(launch_storage<__nv_bfloat16>(
-        storage, head_dim, a, bf16_compute != 0, st));
+    return launch_storage<__nv_bfloat16>(storage, head_dim, a, bf16_compute != 0, st);
   }
-  return static_cast<int>(
-      launch_storage<float>(storage, head_dim, a, bf16_compute != 0, st));
+  return launch_storage<float>(storage, head_dim, a, bf16_compute != 0, st);
 }
 
 const char* cfa_fa2_forward_quant_error_string(int err) {
+  if (err == kErrNoEncoder) return "libcuda.so.1 has no cuTensorMapEncodeTiled";
+  if (err == kErrEncode) return "cuTensorMapEncodeTiled refused the K/V byte map";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -1,7 +1,10 @@
 // The fp32 attention block on Hopper's FMA units, shared by B10 (naive
-// FA2, csrc/baselines.cu), B1's fp32 body (csrc/fa2_forward.cu) and the
-// fp32 bodies of the FA2 backward (B2, B3 and B4, csrc/fa2_backward.cu,
-// whose source note says how they use it).  It holds the pieces the kernels
+// FA2, csrc/baselines.cu), B1's fp32 body (csrc/fa2_forward.cu), B8's fp32
+// body (csrc/fa2_forward_small.cu), the fp32 bodies of the FA2 backward
+// (B2, B3 and B4, csrc/fa2_backward.cu, whose source note says how they use
+// it) and, over K/V in their stored width (the ring of csrc/paged_kv.cuh),
+// B7's fp32 body (csrc/fa2_forward_quant.cu) and B6's fp32 tile body
+// (csrc/paged_chunk.cu).  It holds the pieces the kernels
 // run; each keeps its own schedule and arithmetic around them.  All are
 // bound by fp32 FLOPs on the FMA units (67 TFLOP/s); what keeps them from
 // it is what an SM issues and waits for besides the FMAs: shared loads, the
@@ -164,12 +167,35 @@ __device__ __forceinline__ void fma_load_v(const FmaStages<L>& st, int t,
   fma_load_tile<D, false>(st.v(t), st.v_bar(t), vp, t, n);
 }
 
-// Rows [q0, q0 + 64) of one head's Q ([n, D]; rows at or past n are zeros),
-// each element multiplied by `scale` once in fp32, into the block's
-// swizzled Q tile (plain loads: the product is formed in registers on the
-// way).
-template <int D>
-__device__ __forceinline__ void fma_load_q(float* qs, const float* qp, int q0,
+// Four neighbouring values of an fp32 or bf16 row as fp32, and back.
+__device__ __forceinline__ float4 fma_load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float4 fma_load4(const __nv_bfloat16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ void fma_store4(float* p, float4 x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+
+__device__ __forceinline__ void fma_store4(__nv_bfloat16* p, float4 x) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(x.x, x.y);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(x.z, x.w);
+  *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<const uint32_t*>(&a),
+                                            *reinterpret_cast<const uint32_t*>(&b));
+}
+
+// Rows [q0, q0 + 64) of one head's Q ([n, D] fp32 or bf16; rows at or past
+// n are zeros), each element multiplied by `scale` once in fp32, into the
+// block's swizzled Q tile (plain loads: the product is formed in registers
+// on the way).
+template <int D, typename Tin>
+__device__ __forceinline__ void fma_load_q(float* qs, const Tin* qp, int q0,
                                            int n, float scale) {
   constexpr int kChunks = D / 4;
   for (int i = threadIdx.x; i < kFmaTile * kChunks; i += kFmaThreads) {
@@ -177,8 +203,7 @@ __device__ __forceinline__ void fma_load_q(float* qs, const float* qp, int q0,
     const int c = i - r * kChunks;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (q0 + r < n) {
-      x = *reinterpret_cast<const float4*>(qp + static_cast<size_t>(q0 + r) * D +
-                                           4 * c);
+      x = fma_load4(qp + static_cast<size_t>(q0 + r) * D + 4 * c);
       x.x *= scale;
       x.y *= scale;
       x.z *= scale;
@@ -292,10 +317,11 @@ __device__ __forceinline__ float fma_row_sum(float x) {
   return x;
 }
 
-// O rows q0 + ty + 8 r (those before n) of one head ([n, D]) from
-// acc * scale[r], a float4 at a time: DC 64-column blocks from block h0.
-template <int D, int DC = D / 64>
-__device__ __forceinline__ void fma_store_o(float* op, int q0, int n,
+// O rows q0 + ty + 8 r (those before n) of one head ([n, D], fp32 or bf16)
+// from acc * scale[r], four values at a time: DC 64-column blocks from
+// block h0.
+template <int D, int DC = D / 64, typename Tout>
+__device__ __forceinline__ void fma_store_o(Tout* op, int q0, int n,
                                             const FmaThread& th,
                                             const float (&acc)[8][4 * DC],
                                             const float (&scale)[8], int h0 = 0) {
@@ -305,10 +331,10 @@ __device__ __forceinline__ void fma_store_o(float* op, int q0, int n,
     if (row >= n) continue;
 #pragma unroll
     for (int h = 0; h < DC; ++h) {
-      *reinterpret_cast<float4*>(op + static_cast<size_t>(row) * D +
-                                 64 * (h0 + h) + 4 * th.tx) =
-          make_float4(acc[r][4 * h] * scale[r], acc[r][4 * h + 1] * scale[r],
-                      acc[r][4 * h + 2] * scale[r], acc[r][4 * h + 3] * scale[r]);
+      fma_store4(op + static_cast<size_t>(row) * D + 64 * (h0 + h) + 4 * th.tx,
+                 make_float4(acc[r][4 * h] * scale[r], acc[r][4 * h + 1] * scale[r],
+                             acc[r][4 * h + 2] * scale[r],
+                             acc[r][4 * h + 3] * scale[r]));
     }
   }
 }

@@ -152,6 +152,15 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                : "memory");
 }
 
+// 4 bytes from global to shared memory (no alignment beyond 4 bytes), as
+// cp_async16.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(full ? 4 : 0)
+               : "memory");
+}
+
 // Arrive on `bar` once every cp.async this thread has issued so far has
 // landed (the arrival is counted in the barrier's initial count).
 __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {

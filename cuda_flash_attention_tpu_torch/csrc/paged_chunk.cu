@@ -73,9 +73,25 @@
 //     so every tile needs this conversion pass before a tensor-core
 //     product.
 //
-// (c) T * group > kSplitRows with fp32 compute: 256 threads of 4 x 4 scalar
-//     tiles on the FMA units, K/V staged in fp32 between two barriers
-//     (not yet redesigned for Hopper).
+// (c) T * group > kSplitRows with fp32 compute: IEEE fp32 on the FMA units,
+//     bound by their 67 TFLOP/s at chunked prefill's T.  The block is the
+//     fp32 FMA block of B1's fp32 body (csrc/fma_block.cuh): 128 threads per
+//     64-row tile of the (t, g) rows, 8 x 4 register tiles of S and O read
+//     with swizzled float4 loads, P over the K stage just read; one block
+//     per (row tile, slot, KV head) in the bf16 tile body's order (the
+//     chunk's last row tiles of the longest slots, the longest walks,
+//     first).  An fp32 cache streams by cp.async straight into the block's
+//     fp32 K and V stages (B1's fp32 rings); any other cache arrives in its
+//     stored width with its scales in the ring of csrc/paged_kv.cuh
+//     (FmaRaw, shared with B7's fp32 body), and each landed tile is decoded
+//     once into the fp32 stages (int8 and int4 by the magic number, fp8 by
+//     the card's conversion, bf16 by a shift), instead of once per reading
+//     thread.  The function is the first body's: S over d in order, K's
+//     scale times sm_scale on every column a row attends and kMaskValue
+//     past its position, the natural-exp online softmax, P * v_scale, P V
+//     over the tile's keys in order, zeros where l == 0.  It replaces 256
+//     threads of 4 x 4 scalar tiles with K/V staged in fp32 between two
+//     barriers.
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
@@ -86,7 +102,7 @@
 #include <type_traits>
 
 #include "hopper.cuh"
-#include "paged_kv.cuh"
+#include "paged_kv.cuh"  // includes the FMA block (csrc/fma_block.cuh)
 
 namespace {
 
@@ -853,6 +869,30 @@ __device__ __forceinline__ void tile_softmax(float (&s)[kBlockN / 8][4], const f
   }
 }
 
+// The tile bodies' order: block b runs row tile n_row_tiles - 1 - b /
+// (num_seqs n_kv) of the slot ranked (b / n_kv) % num_seqs by length,
+// longest first (ties by index), for KV head b % n_kv: the chunk's last rows
+// of the longest slots, which walk the most columns, are handed out first.
+// Sets hk and r0; the block's threads find the slot into *slot_s (read it
+// after a barrier).
+__device__ __forceinline__ void chunk_tile_order(int b, int rows, int num_seqs, int n_kv,
+                                                 const int* lengths, int* slot_s,
+                                                 int& hk, int& r0) {
+  const int n_row_tiles = (rows + kBlockM - 1) / kBlockM;
+  hk = b % n_kv;
+  const int rank = (b / n_kv) % num_seqs;
+  r0 = (n_row_tiles - 1 - b / (n_kv * num_seqs)) * kBlockM;
+  for (int i = threadIdx.x; i < num_seqs; i += blockDim.x) {
+    const int li = lengths[i];
+    int above = 0;
+    for (int j = 0; j < num_seqs; ++j) {
+      const int lj = lengths[j];
+      above += lj > li || (lj == li && j < i);
+    }
+    if (above == rank) *slot_s = i;
+  }
+}
+
 template <typename Tq, typename Tc, int D>
 __global__ void __launch_bounds__(128)
 paged_chunk_mma(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
@@ -870,26 +910,10 @@ paged_chunk_mma(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
   const uint32_t bar0 = smem_addr(smem + L::kBar);
   __shared__ int slot_s;
 
-  // Block b runs row tile n_row_tiles - 1 - b / (num_seqs n_kv) of the slot
-  // ranked (b / n_kv) % num_seqs by length, longest first (ties by index),
-  // for KV head b % n_kv: the chunk's last rows of the longest slots, which
-  // walk the most columns, are handed out first.
   const int group = n_heads / n_kv;
   const int rows = chunk * group;
-  const int n_row_tiles = (rows + kBlockM - 1) / kBlockM;
-  const int b = blockIdx.x;
-  const int hk = b % n_kv;
-  const int rank = (b / n_kv) % num_seqs;
-  const int r0 = (n_row_tiles - 1 - b / (n_kv * num_seqs)) * kBlockM;
-  for (int i = threadIdx.x; i < num_seqs; i += 128) {
-    const int li = lengths[i];
-    int above = 0;
-    for (int j = 0; j < num_seqs; ++j) {
-      const int lj = lengths[j];
-      above += lj > li || (lj == li && j < i);
-    }
-    if (above == rank) slot_s = i;
-  }
+  int hk, r0;
+  chunk_tile_order(blockIdx.x, rows, num_seqs, n_kv, lengths, &slot_s, hk, r0);
   const int tid = threadIdx.x;
   if (tid == 0) {
     for (int s = 0; s < S; ++s) mbar_init(bar0 + 8 * s, 128);
@@ -1070,84 +1094,18 @@ paged_chunk_mma(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
 }
 
 // ===========================================================================
-// (c) The fp32 tile body: 256 threads as 16 x 16 on the FMA units.
+// (c) The fp32 tile body: the fp32 FMA block (csrc/fma_block.cuh).
 // ===========================================================================
 
-// The 16 bytes at p as 16 / sizeof(T) floats.
-template <typename T>
-__device__ __forceinline__ void load16(const T* p, float* x) {
-  constexpr int kVec = 16 / sizeof(T);
-  alignas(16) T e[kVec];
-  *reinterpret_cast<uint4*>(e) = *reinterpret_cast<const uint4*>(p);
-#pragma unroll
-  for (int j = 0; j < kVec; ++j) x[j] = to_float(e[j]);
-}
-
-// The 16 stored bytes at p of an int4 row as 32 floats: x[j] is element
-// c + j (the low nibble of byte j), x[16 + j] element c + D/2 + j.
-__device__ __forceinline__ void unpack16_int4(const unsigned char* p, float* x) {
-  alignas(16) uint8_t e[16];
-  *reinterpret_cast<uint4*>(e) = *reinterpret_cast<const uint4*>(p);
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const uint8_t top = static_cast<uint8_t>(e[j] << 4);
-    x[j] = static_cast<float>(static_cast<int8_t>(top) >> 4);
-    x[16 + j] = static_cast<float>(static_cast<int8_t>(e[j]) >> 4);
-  }
-}
-
-// Stage a [kBlockN, D] tile of the cache (rows of kRowBytesOf<Tc, D> stored
-// bytes from src) into fp32 shared memory (leading dimension LD), reading 16
-// bytes per thread and step.  Rows at or past `valid` are zero: their P is
-// 0 and a stale NaN there would poison the PV product.
-template <typename Tc, int D, int LD, int NTHREADS>
-__device__ __forceinline__ void stage_kv_fp32(float* dst,
-                                              const unsigned char* src,
-                                              int valid) {
-  constexpr int kRow = kRowBytesOf<Tc, D>;
-  constexpr int kPerRow = kRow / 16;
-  for (int i = threadIdx.x; i < kBlockN * kPerRow; i += NTHREADS) {
-    const int r = i / kPerRow;
-    const int cb = (i - r * kPerRow) * 16;
-    if constexpr (kPacked<Tc>) {
-      float x[32];
-      if (r < valid) {
-        unpack16_int4(src + static_cast<size_t>(r) * kRow + cb, x);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 32; ++j) x[j] = 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        dst[r * LD + cb + j] = x[j];
-        dst[r * LD + cb + D / 2 + j] = x[16 + j];
-      }
-    } else {
-      constexpr int kVec = 16 / sizeof(Tc);
-      const int c = cb / static_cast<int>(sizeof(Tc));
-      float x[kVec];
-      if (r < valid) {
-        load16(reinterpret_cast<const Tc*>(src + static_cast<size_t>(r) * kRow + cb), x);
-      } else {
-#pragma unroll
-        for (int j = 0; j < kVec; ++j) x[j] = 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) dst[r * LD + c + j] = x[j];
-    }
-  }
-}
-
-// Where a block's rows are and how far its page loop runs.
+// Where a block's rows are (slot, KV head, first row r0 of the (t, g)
+// rows, from chunk_tile_order) and how far its page loop runs.
 struct Tile {
   int slot, hk, group, rows, r0, base, kv_end, n_tiles;
   size_t pt_row;  // page_table offset of the slot's row
 
-  __device__ Tile(int chunk, int n_heads, int n_kv, const int* lengths,
-                  int pages_per_seq) {
-    r0 = blockIdx.x * kBlockM;
-    slot = blockIdx.y;
-    hk = blockIdx.z;
+  __device__ Tile(int slot_, int hk_, int r0_, int chunk, int n_heads, int n_kv,
+                  const int* lengths, int pages_per_seq)
+      : slot(slot_), hk(hk_), r0(r0_) {
     group = n_heads / n_kv;
     rows = chunk * group;
     const int length = lengths[slot];
@@ -1192,150 +1150,207 @@ struct Tile {
   }
 };
 
-// Thread (ty, tx) owns rows 4ty..4ty+3 and columns tx + 16j of each S
-// tile, and the same rows and columns tx + 16j of O.  A row's 16 threads
-// are 16 neighbouring lanes, so row reductions are four shuffles.
+// Shared memory and blocks an SM of the fp32 tile body: an fp32 cache takes
+// B1's fp32 rings (FmaBlock: K by cp.async straight into its fp32 stages,
+// two at D 64), every other cache the stored-width ring (FmaRaw).
+template <typename Tc, int D>
+struct ChunkFp32 {
+  static constexpr bool kDirect = std::is_same<Tc, float>::value;
+  static constexpr int kSmem =
+      kDirect ? FmaBlock<D>::kSmem + 2 * kBlockN * 4 : FmaRaw<Tc, D>::kSmem;
+  static constexpr int kBlocksPerSm =
+      kDirect ? FmaBlock<D>::kBlocksPerSm : FmaRaw<Tc, D>::kBlocksPerSm;
+};
+
+// One block per (64-row tile of the t-major rows, slot, KV head), in
+// chunk_tile_order (the longest walks first): 128 threads, thread (ty, tx)
+// holding S rows ty + 8 r and columns tx + 16 j (fma_block.cuh).  Q is
+// loaded once (fp32, no scale); per cached tile of 64 tokens: S over d in
+// order, S * (K's scale * sm_scale) on every column at or before the row's
+// position and kMaskValue past it, the natural-exp online softmax, P * V's
+// scale over the K stage, P V over the tile's keys in order.  An fp32 cache
+// streams into FmaBlock's rings, its scales into a scale tile after them as
+// the tile starts; any other cache arrives in its stored width with its
+// scales in FmaRaw's ring, each tile decoded once into the fp32 K and V
+// stages (V swizzled as K), its stage refilled once the softmax has read
+// the scales.  Rows' positions sit in shared memory, not registers.
 template <typename Tq, typename Tc, int D>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kFmaThreads, ChunkFp32<Tc, D>::kBlocksPerSm)
 paged_chunk_fp32(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
                  const float* __restrict__ k_scales,
                  const Tc* __restrict__ v_pages,
                  const float* __restrict__ v_scales,
                  const int* __restrict__ page_table,
                  const int* __restrict__ lengths, Tq* __restrict__ out,
-                 int chunk, int n_heads, int num_pages, int page_size,
-                 int pages_per_seq, float sm_scale) {
-  constexpr int LDQ = D + 1;  // odd strides: conflict-free column reads
-  constexpr int LDK = D + 1;
-  constexpr int LDV = D;
-  constexpr int LDP = kBlockN + 1;
-  constexpr int DJ = D / 16;
+                 int num_seqs, int chunk, int n_heads, int n_kv, int num_pages,
+                 int page_size, int pages_per_seq, float sm_scale) {
+  constexpr bool kDirect = ChunkFp32<Tc, D>::kDirect;
+  using B = FmaBlock<D>;
+  using R = FmaRaw<Tc, D>;
+  constexpr int DO = D / 16;  // output columns per thread
   constexpr int kRow = kRowBytesOf<Tc, D>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* qs = reinterpret_cast<float*>(smem_raw);
-  float* ks = qs + kBlockM * LDQ;
-  float* vs = ks + kBlockN * LDK;
-  float* ps = vs + kBlockN * LDV;
-  float* ksc = ps + kBlockM * LDP;
-  float* vsc = ksc + kBlockN;
+  extern __shared__ __align__(16) unsigned char bytes[];
+  __shared__ int pos_s[kBlockM];  // each row's position (-1 past the last)
+  __shared__ int slot_s;
+  float* smem = reinterpret_cast<float*>(bytes);
+  const FmaStages<B> st(smem);
+  const uint32_t raw_bar = smem_addr(bytes + R::kBar);
+  float* qs = kDirect ? st.q() : smem + R::kQ;
+  int hk, r0;
+  chunk_tile_order(blockIdx.x, chunk * (n_heads / n_kv), num_seqs, n_kv, lengths, &slot_s,
+                   hk, r0);
+  __syncthreads();
+  const Tile tile(slot_s, hk, r0, chunk, n_heads, n_kv, lengths, pages_per_seq);
+  const FmaThread th = fma_thread();
+  const unsigned char* kb = reinterpret_cast<const unsigned char*>(k_pages);
+  const unsigned char* vb = reinterpret_cast<const unsigned char*>(v_pages);
 
-  const Tile tile(chunk, n_heads, gridDim.z, lengths, pages_per_seq);
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-
-  for (int i = threadIdx.x; i < kBlockM * D; i += 256) {
-    const int r = i / D;
-    const int c = i - r * D;
-    qs[r * LDQ + c] = tile.r0 + r < tile.rows
-                          ? to_float(q[tile.qrow(r, chunk, n_heads, D) + c])
-                          : 0.f;
+  if (threadIdx.x == 0) {
+    if constexpr (kDirect) {
+      st.init();
+    } else {
+      for (int s = 0; s < R::kStages; ++s) mbar_init(raw_bar + 8 * s, kFmaThreads);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+  }
+  if (threadIdx.x < kBlockM) pos_s[threadIdx.x] = tile.pos(threadIdx.x);
+  // Q rows (fp32, no scale: sm_scale goes on the K scale), swizzled.
+  for (int i = threadIdx.x; i < kBlockM * (D / 4); i += kFmaThreads) {
+    const int r = i / (D / 4);
+    const int c = i - r * (D / 4);
+    const float4 x = tile.r0 + r < tile.rows
+                         ? fma_load4(q + tile.qrow(r, chunk, n_heads, D) + 4 * c)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+    *reinterpret_cast<float4*>(qs + fma_swz<D>(r, c)) = x;
+  }
+  __syncthreads();
+  const int n_it = tile.n_tiles;
+  auto row_of = [&](int it) {
+    return tile.cache_row(page_table, it * kBlockN, num_pages, page_size);
+  };
+  // Cached tile `it` (tokens at or past kv_end zero-filled and not read):
+  // an fp32 cache's K or V into its fp32 stage, any other cache's K, V and
+  // scales into the stored-width ring, from cache row row0.
+  auto load_f32 = [&](float* dst, uint32_t bar, const unsigned char* pages, int it) {
+    fma_load_tile<D, true>(dst, bar, reinterpret_cast<const float*>(pages) + row_of(it) * D,
+                           0, tile.valid_cols(it * kBlockN));
+  };
+  auto issue = [&](int it, size_t row0) {
+    fma_raw_issue<Tc, D>(bytes + R::kRaw + (it % R::kStages) * R::kStage,
+                         raw_bar + 8 * (it % R::kStages), kb + row0 * kRow,
+                         vb + row0 * kRow, k_scales + row0, v_scales + row0,
+                         tile.valid_cols(it * kBlockN));
+  };
+  if constexpr (kDirect) {
+    for (int it = 0; it < B::kKStages && it < n_it; ++it) load_f32(st.k(it), st.k_bar(it), kb, it);
+    for (int it = 0; it < B::kVStages && it < n_it; ++it) load_f32(st.v(it), st.v_bar(it), vb, it);
+  } else {
+    for (int it = 0; it < R::kStages && it < n_it; ++it) issue(it, row_of(it));
   }
 
-  int pos[4];
-  float m_run[4], l_run[4], acc[4][DJ];
+  float m_run[8], l_run[8], acc[8][DO];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    pos[i] = tile.pos(ty * 4 + i);
-    m_run[i] = -INFINITY;
-    l_run[i] = 0.f;
+  for (int r = 0; r < 8; ++r) {
+    m_run[r] = -INFINITY;
+    l_run[r] = 0.f;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
+    for (int c = 0; c < DO; ++c) acc[r][c] = 0.f;
   }
-
-  for (int it = 0; it < tile.n_tiles; ++it) {
+  for (int it = 0; it < n_it; ++it) {
     const int c0 = it * kBlockN;
-    const size_t row0 = tile.cache_row(page_table, c0, num_pages, page_size);
-    const int valid = tile.valid_cols(c0);
-    __syncthreads();
-    stage_kv_fp32<Tc, D, LDK, 256>(
-        ks, reinterpret_cast<const unsigned char*>(k_pages) + row0 * kRow, valid);
-    stage_kv_fp32<Tc, D, LDV, 256>(
-        vs, reinterpret_cast<const unsigned char*>(v_pages) + row0 * kRow, valid);
-    if (threadIdx.x < kBlockN) {
-      const bool in = threadIdx.x < valid;
-      ksc[threadIdx.x] = in ? k_scales[row0 + threadIdx.x] * sm_scale : 0.f;
-      vsc[threadIdx.x] = in ? v_scales[row0 + threadIdx.x] : 0.f;
+    float* kf;
+    const float* vf;
+    const float* sc;  // the tile's K scales, then its V scales
+    if constexpr (kDirect) {
+      // One scale per thread into the block's scale tile, read after the
+      // barrier that follows S (the previous tile's were read before the
+      // barrier that preceded its P V).
+      float* scl = reinterpret_cast<float*>(bytes + B::kSmem);
+      const int col = threadIdx.x & (kBlockN - 1);
+      const float* src = threadIdx.x < kBlockN ? k_scales : v_scales;
+      scl[threadIdx.x] = col < tile.valid_cols(c0) ? src[row_of(it) + col] : 0.f;
+      sc = scl;
+      st.wait_k(it);
+      kf = st.k(it);
+      vf = st.v(it);
+    } else {
+      const unsigned char* stage = bytes + R::kRaw + (it % R::kStages) * R::kStage;
+      kf = smem + R::kK;
+      vf = smem + R::kV;
+      sc = reinterpret_cast<const float*>(stage + 2 * R::kTile);
+      mbar_wait(raw_bar + 8 * (it % R::kStages), (it / R::kStages) & 1);
+      fma_decode_tile<Tc, D>(kf, stage);
+      fma_decode_tile<Tc, D>(smem + R::kV, stage + R::kTile);
+      __syncthreads();  // K, V decoded
     }
-    __syncthreads();
+    float s[8][4];
+    fma_scores<D>(qs, kf, th, s);
+    float* ps = kf;
+    __syncthreads();  // K(it) is read: P takes its stage
 
-    float s[4][4];
+    // Scale the columns each row attends, kMaskValue past its position;
+    // natural-exp online softmax; P times V's scale.  l_run is this
+    // thread's share of the row sum.
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    }
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = qs[(ty * 4 + i) * LDQ + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = ks[(tx + 16 * j) * LDK + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-      }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int r = 0; r < 8; ++r) {
+      const int pos = pos_s[th.ty + 8 * r];
       float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int cl = tx + 16 * j;
-        s[i][j] = c0 + cl <= pos[i] ? s[i][j] * ksc[cl] : kMaskValue;
-        mx = fmaxf(mx, s[i][j]);
+        s[r][j] = c0 + th.tx + 16 * j <= pos ? s[r][j] * (sc[th.tx + 16 * j] * sm_scale)
+                                             : kMaskValue;
+        mx = fmaxf(mx, s[r][j]);
       }
-#pragma unroll
-      for (int off = 1; off < 16; off <<= 1) {
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      }
-      const float m_new = fmaxf(m_run[i], mx);
-      const float alpha = expf(m_run[i] - m_new);
-      m_run[i] = m_new;
+      mx = fma_row_max(mx);
+      const float m_new = fmaxf(m_run[r], mx);
+      const float alpha = expf(m_run[r] - m_new);
+      m_run[r] = m_new;
       float rs = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int cl = tx + 16 * j;
-        const float p = c0 + cl <= pos[i] ? expf(s[i][j] - m_new) : 0.f;
+        const float p = c0 + th.tx + 16 * j <= pos ? expf(s[r][j] - m_new) : 0.f;
         rs += p;
-        ps[(ty * 4 + i) * LDP + cl] = p * vsc[cl];
+        fma_store_p(ps, th, r, j, p * sc[kBlockN + th.tx + 16 * j]);
       }
-      l_run[i] = l_run[i] * alpha + rs;
+      l_run[r] = l_run[r] * alpha + rs;
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= alpha;
+      for (int c = 0; c < DO; ++c) acc[r][c] *= alpha;
     }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < kBlockN; ++c) {
-      float vv[DJ];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) vv[j] = vs[c * LDV + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = ps[(ty * 4 + i) * LDP + c];
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(p, vv[j], acc[i][j]);
+    __syncthreads();  // P is in place; the scales are read
+    if constexpr (kDirect) {
+      st.wait_v(it);
+    } else if (it + R::kStages < n_it) {  // the stage refills with tile it + kStages
+      issue(it + R::kStages, row_of(it + R::kStages));
+    }
+    fma_pv<D, true>(ps, vf, th, acc);
+    __syncthreads();  // P and V(it) are read
+    if constexpr (kDirect) {  // refill the stages tile it used
+      if (it + B::kKStages < n_it) {
+        load_f32(st.k(it + B::kKStages), st.k_bar(it + B::kKStages), kb, it + B::kKStages);
+      }
+      if (it + B::kVStages < n_it) {
+        load_f32(st.v(it + B::kVStages), st.v_bar(it + B::kVStages), vb, it + B::kVStages);
       }
     }
   }
 
+  // out = acc / l, zeros where l == 0 (no column: an inactive slot).
+  float inv[8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float l = l_run[i];
+  for (int r = 0; r < 8; ++r) {
+    const float l = fma_row_sum(l_run[r]);
+    inv[r] = l == 0.f ? 0.f : 1.f / l;
+  }
 #pragma unroll
-    for (int off = 1; off < 16; off <<= 1) {
-      l += __shfl_xor_sync(0xffffffffu, l, off);
-    }
-    const int r = ty * 4 + i;
-    if (tile.r0 + r >= tile.rows) continue;
-    const float inv = l == 0.f ? 0.f : 1.f / l;
-    Tq* op = out + tile.qrow(r, chunk, n_heads, D);
+  for (int r = 0; r < 8; ++r) {
+    const int rr = th.ty + 8 * r;
+    if (tile.r0 + rr >= tile.rows) continue;
+    Tq* op = out + tile.qrow(rr, chunk, n_heads, D);
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      store(op + tx + 16 * j, acc[i][j] * inv);
+    for (int h = 0; h < D / 64; ++h) {
+      fma_store4(op + 64 * h + 4 * th.tx,
+                 make_float4(acc[r][4 * h] * inv[r], acc[r][4 * h + 1] * inv[r],
+                             acc[r][4 * h + 2] * inv[r], acc[r][4 * h + 3] * inv[r]));
     }
   }
 }
@@ -1402,20 +1417,18 @@ cudaError_t launch(const Args& a) {
         a.chunk, a.n_heads, a.n_kv_heads, a.num_pages, a.page_size, a.pages_per_seq,
         a.sm_scale);
   } else {
-    const size_t smem = (kBlockM * (D + 1) + kBlockN * (D + 1) + kBlockN * D +
-                         kBlockM * (kBlockN + 1) + 2 * kBlockN) *
-                        sizeof(float);
+    constexpr int kSmem = ChunkFp32<Tc, D>::kSmem;
     static std::atomic<uint64_t> smem_set{0};
-    cudaError_t err = set_smem_once(paged_chunk_fp32<Tq, Tc, D>,
-                                    static_cast<int>(smem), smem_set);
+    cudaError_t err = set_smem_once(paged_chunk_fp32<Tq, Tc, D>, kSmem, smem_set);
     if (err != cudaSuccess) return err;
-    const dim3 grid(row_tiles, a.num_seqs, a.n_kv_heads);
-    paged_chunk_fp32<Tq, Tc, D><<<grid, 256, smem, a.stream>>>(
+    paged_chunk_fp32<Tq, Tc, D><<<row_tiles * a.num_seqs * a.n_kv_heads, kFmaThreads,
+                                  kSmem, a.stream>>>(
         static_cast<const Tq*>(a.q), static_cast<const Tc*>(a.k_pages),
         static_cast<const float*>(a.k_scales), static_cast<const Tc*>(a.v_pages),
         static_cast<const float*>(a.v_scales), static_cast<const int*>(a.page_table),
-        static_cast<const int*>(a.lengths), static_cast<Tq*>(a.out), a.chunk,
-        a.n_heads, a.num_pages, a.page_size, a.pages_per_seq, a.sm_scale);
+        static_cast<const int*>(a.lengths), static_cast<Tq*>(a.out), a.num_seqs,
+        a.chunk, a.n_heads, a.n_kv_heads, a.num_pages, a.page_size, a.pages_per_seq,
+        a.sm_scale);
   }
   return cudaGetLastError();
 }

@@ -1,18 +1,26 @@
-// Paged KV cache elements for the port's paged attention kernels (B5,
-// csrc/paged_decode.cu; B6, csrc/paged_chunk.cu): the storage types of a
-// page (fp32, bf16, int8, fp8 e4m3 / e5m2, and int4 packed split-half),
-// their stored row widths, their exact conversions to fp32 (int8 and int4
-// by the 2^23 magic number), the output store and loads of N bytes.
-// Everything sits in an anonymous namespace: each source that includes it
-// is its own shared library.
+// Stored K/V elements for the port's kernels over paged or quantized K/V
+// (B5, csrc/paged_decode.cu; B6, csrc/paged_chunk.cu; B7,
+// csrc/fa2_forward_quant.cu): the storage types (fp32, bf16, int8, fp8
+// e4m3 / e5m2, and int4 packed split-half), their stored row widths, their
+// exact conversions to fp32 (int8 and int4 by the 2^23 magic number, fp8 by
+// the card's fp8x2 conversion), the output store and loads of N bytes; and
+// the fp32 FMA block's (csrc/fma_block.cuh) ring of stored-width K/V tiles,
+// shared by B7's fp32 body and B6's fp32 tile body: each 64-row tile and its
+// scales arrive by cp.async in their stored width, and the block decodes a
+// landed tile once into its fp32 K and V stages.  Everything sits in an
+// anonymous namespace: each source that includes it is its own shared
+// library.
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "fma_block.cuh"  // the FMA block; includes hopper.cuh
 
 namespace {
 
@@ -72,6 +80,26 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
+// The four bytes of w (int8, fp8 e4m3 or e5m2, the lowest byte first) as
+// floats, exactly.
+template <typename Tc>
+__device__ __forceinline__ void decode4(uint32_t w, float (&f)[4]) {
+  if constexpr (std::is_same<Tc, int8_t>::value) {
+    int8x4_to_float(w, f);
+  } else {
+    constexpr __nv_fp8_interpretation_t kKind =
+        std::is_same<Tc, __nv_fp8_e4m3>::value ? __NV_E4M3 : __NV_E5M2;
+    const float2 lo = __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(
+        static_cast<__nv_fp8x2_storage_t>(w & 0xffffu), kKind)));
+    const float2 hi = __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(
+        static_cast<__nv_fp8x2_storage_t>(w >> 16), kKind)));
+    f[0] = lo.x;
+    f[1] = lo.y;
+    f[2] = hi.x;
+    f[3] = hi.y;
+  }
+}
+
 // N bytes (2, 4, 8 or 16, aligned to N) of shared memory in one load.
 template <int N>
 struct Bytes;
@@ -91,5 +119,104 @@ template <>
 struct Bytes<16> {
   using T = uint4;
 };
+
+// ---------------------------------------------------------------------------
+// The fp32 FMA block over stored-width K/V.  Shared memory of a block: the
+// fp32 K, V and Q tiles ([64, D] each, 16-byte chunk c of row r at chunk
+// c ^ (r & 7): fma_swz), then the ring's stages, each a stored K tile, a
+// stored V tile (64 rows of kRow bytes) and their 64 + 64 scales, then one
+// mbarrier per stage.  A block holds at most three blocks' worth of an
+// SM (FmaBlock's D 64 count: 168 registers a thread at three); the ring
+// takes three stages where they leave as many blocks an SM as one stage
+// does, else two, else one (D 128 in one byte: two blocks of 113 KB an SM).
+// ---------------------------------------------------------------------------
+template <typename Tc, int D>
+struct FmaRaw {
+  static constexpr int kRow = kRowBytesOf<Tc, D>;
+  static constexpr int kTile = kFmaTile * kRow;            // bytes of a stored tile
+  static constexpr int kStage = 2 * kTile + 2 * kFmaTile * 4;
+  static constexpr int kK = 0;                              // floats
+  static constexpr int kV = kFmaTile * D;
+  static constexpr int kQ = 2 * kFmaTile * D;
+  static constexpr int kRaw = 3 * kFmaTile * D * 4;         // bytes
+  static constexpr int smem(int stages) { return kRaw + stages * (kStage + 8); }
+  static constexpr int blocks(int stages) {
+    return 233472 / (smem(stages) + 1024) < 3 ? 233472 / (smem(stages) + 1024) : 3;
+  }
+  static constexpr int kStages = blocks(3) == blocks(1) ? 3 : blocks(2) == blocks(1) ? 2 : 1;
+  static constexpr int kBar = kRaw + kStages * kStage;
+  static constexpr int kSmem = smem(kStages);
+  static constexpr int kBlocksPerSm = blocks(kStages);
+  static_assert(kRow % 16 == 0, "rows are copied 16 bytes at a time");
+  static_assert(kSmem <= 232448, "one block must fit the SM's 227 KB");
+};
+
+// 64 stored K and V rows from k_rows and v_rows (contiguous) and their
+// scales into a stage of the ring by cp.async, rows at or past `valid`
+// zero-filled and not read (a zero byte is a finite code in every storage,
+// and its scale 0), then this thread's arrival on `bar` (initialised with
+// kFmaThreads).  The scales go 4 bytes at a time: they need no alignment.
+template <typename Tc, int D>
+__device__ __forceinline__ void fma_raw_issue(unsigned char* stage, uint32_t bar,
+                                              const unsigned char* k_rows,
+                                              const unsigned char* v_rows,
+                                              const float* k_sc, const float* v_sc,
+                                              int valid) {
+  using R = FmaRaw<Tc, D>;
+  constexpr int kVec = R::kRow / 16;
+  for (int i = threadIdx.x; i < kFmaTile * kVec; i += kFmaThreads) {
+    const bool in = i / kVec < valid;
+    const size_t off = in ? 16 * static_cast<size_t>(i) : 0;
+    cp_async16(smem_addr(stage + 16 * i), k_rows + off, in);
+    cp_async16(smem_addr(stage + R::kTile + 16 * i), v_rows + off, in);
+  }
+  const int r = threadIdx.x & (kFmaTile - 1);  // 128 threads: K's, then V's
+  const bool in = r < valid;
+  cp_async4(smem_addr(stage + 2 * R::kTile + 4 * threadIdx.x),
+            (threadIdx.x < kFmaTile ? k_sc : v_sc) + (in ? r : 0), in);
+  cp_async_arrive(bar);
+}
+
+// A landed stored tile (64 rows of kRowBytesOf<Tc, D> bytes) decoded once
+// into the fp32 tile `dst` (fma_swz layout): this thread's share, 16 stored
+// bytes at a time.  Exact for every code.
+template <typename Tc, int D>
+__device__ __forceinline__ void fma_decode_tile(float* dst, const unsigned char* src) {
+  constexpr int kRow = kRowBytesOf<Tc, D>;
+  constexpr int kVec = kRow / 16;
+  auto put = [&](int r, int c, float a, float b, float x, float y) {
+    *reinterpret_cast<float4*>(dst + fma_swz<D>(r, c)) = make_float4(a, b, x, y);
+  };
+#pragma unroll 2
+  for (int i = threadIdx.x; i < kFmaTile * kVec; i += kFmaThreads) {
+    const int r = i / kVec;
+    const int cb = (i - r * kVec) * 16;  // stored byte of the row
+    const uint4 raw = *reinterpret_cast<const uint4*>(src + r * kRow + cb);
+    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+    if constexpr (std::is_same<Tc, __nv_bfloat16>::value) {
+      // Two bf16 values a word: their bits, shifted, are the floats.
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        put(r, cb / 8 + k, __uint_as_float(w[2 * k] << 16),
+            __uint_as_float(w[2 * k] & 0xffff0000u), __uint_as_float(w[2 * k + 1] << 16),
+            __uint_as_float(w[2 * k + 1] & 0xffff0000u));
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if constexpr (kPacked<Tc>) {  // byte j: element j low, j + D / 2 high
+          float lo[4], hi[4];
+          int4x8_to_float(w[k], lo, hi);
+          put(r, cb / 4 + k, lo[0], lo[1], lo[2], lo[3]);
+          put(r, (D / 2 + cb) / 4 + k, hi[0], hi[1], hi[2], hi[3]);
+        } else {
+          float f[4];
+          decode4<Tc>(w[k], f);
+          put(r, cb / 4 + k, f[0], f[1], f[2], f[3]);
+        }
+      }
+    }
+  }
+}
 
 }  // namespace

@@ -46,6 +46,8 @@ launches = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# B7's C entry point (csrc/fa2_forward_quant.cu).
+ARGTYPES = [_P] * 7 + [_I] * 7 + [ctypes.c_float] + [_I] * 4 + [_P]
 _COMPUTE_DTYPES = (torch.bfloat16, torch.float32)
 # The kernel's storage codes (int4 is int8 storage of width D/2).
 _STORAGE = {torch.int8: 0, torch.float8_e4m3fn: 1, torch.float8_e5m2: 2}
@@ -58,7 +60,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("fa2_forward_quant")
     fn = lib.cfa_fa2_forward_quant
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 7 + [_I] * 7 + [ctypes.c_float] + [_I] * 4 + [_P]
+        fn.argtypes = ARGTYPES
         fn.restype = _I
     return lib
 
@@ -92,6 +94,17 @@ def fa2_forward_quant_aligned(q, k_vals, k_scales, v_vals, v_scales, *,
     if q.device.type != "cuda":
         raise ValueError(f"fa2_forward_quant: unsupported device {q.device}")
     global launches
+    out = quant_launch(_lib(), q, k_vals, k_scales, v_vals, v_scales, causal=causal,
+                       sm_scale=sm_scale, kv_len=kv_len, compute_dtype=compute_dtype)
+    launches += 1
+    return out
+
+
+def quant_launch(lib: ctypes.CDLL, q, k_vals, k_scales, v_vals, v_scales, *,
+                 causal: bool, sm_scale: float, kv_len: int, compute_dtype):
+    """One launch of B7 from `lib` (csrc/fa2_forward_quant.cu built, or an
+    earlier build of it with the same entry point) on CUDA tensors, after
+    the wrapper's checks.  Returns (O, lse)."""
     b, hq, sq, d = q.shape
     hkv, skv = k_vals.shape[1], k_vals.shape[2]
     storage = _storage_code(k_vals, d)
@@ -115,7 +128,6 @@ def fa2_forward_quant_aligned(q, k_vals, k_scales, v_vals, v_scales, *,
                              f"[{b}, {hkv}, {skv}]; got {s.dtype} {tuple(s.shape)}")
     o = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), device=q.device, dtype=torch.float32)
-    lib = _lib()
     err = lib.cfa_fa2_forward_quant(
         *(t.data_ptr() for t in tensors), o.data_ptr(), lse.data_ptr(),
         b, hq, hkv, sq, skv, d, kv_len, sm_scale * LOG2E, int(causal),
@@ -125,7 +137,6 @@ def fa2_forward_quant_aligned(q, k_vals, k_scales, v_vals, v_scales, *,
     )
     _build.check(lib, "cfa_fa2_forward_quant_error_string", err,
                  "fa2_forward_quant")
-    launches += 1
     return o, lse
 
 

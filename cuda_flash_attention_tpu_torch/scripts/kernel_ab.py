@@ -4,8 +4,10 @@ or their fp32 bodies, tile code 0, as `-fp32`), B9 (FA1) or B10 (naive
 FA2, both csrc/baselines.cu), B1's fp32 body (csrc/fa2_forward.cu, tile
 code 0), B8 (the small-shape FA2 forward, csrc/fa2_forward_small.cu), B5
 (paged decode, csrc/paged_decode.cu), B6 (paged chunk attention,
-csrc/paged_chunk.cu) or X (the D=128 rowsum probe, csrc/r5_d128_fwd.cu)
-against an earlier build of its source, timed in turns on one card.
+csrc/paged_chunk.cu), B7 (the quantized-KV FA2 forward,
+csrc/fa2_forward_quant.cu, bf16 compute as `b7`, fp32 compute as `b7-fp32`)
+or X (the D=128 rowsum probe, csrc/r5_d128_fwd.cu) against an earlier build
+of its source, timed in turns on one card.
 
     python -m cuda_flash_attention_tpu_torch.scripts.kernel_ab --kernel b2 --parent PATH
     python -m cuda_flash_attention_tpu_torch.scripts.kernel_ab --kernel b3 --parent PATH
@@ -18,13 +20,17 @@ against an earlier build of its source, timed in turns on one card.
     python -m cuda_flash_attention_tpu_torch.scripts.kernel_ab --kernel b8 --parent PATH
     python -m cuda_flash_attention_tpu_torch.scripts.kernel_ab --kernel b5 --parent PATH
     python -m cuda_flash_attention_tpu_torch.scripts.kernel_ab --kernel b6 --parent PATH
+    python -m cuda_flash_attention_tpu_torch.scripts.kernel_ab --kernel b7 --parent PATH
+    python -m cuda_flash_attention_tpu_torch.scripts.kernel_ab --kernel b7-fp32 --parent PATH
     python -m cuda_flash_attention_tpu_torch.scripts.kernel_ab --kernel x --parent PATH
 
 PATH is an earlier fa2_backward.cu (b2, b3, b4, b3-b4 and their -fp32
 forms), baselines.cu (b9, b10), fa2_forward.cu (b1-fp32),
-fa2_forward_small.cu (b8), paged_decode.cu (b5), paged_chunk.cu (b6) or
-r5_d128_fwd.cu (x) with the same C entry point: cfa_fa2_forward_small;
-cfa_r5_d128_fwd; cfa_paged_decode or cfa_paged_chunk with or without a
+fa2_forward_small.cu (b8), paged_decode.cu (b5), paged_chunk.cu (b6),
+fa2_forward_quant.cu (b7, b7-fp32) or r5_d128_fwd.cu (x) with the same C
+entry point: cfa_fa2_forward_small; cfa_r5_d128_fwd; cfa_fa2_forward_quant
+(called through the current wrapper's launch, fa2_forward_quant.quant_launch);
+cfa_paged_decode or cfa_paged_chunk with or without a
 split count, workspace and counters (a source exporting
 cfa_paged_decode_workspace_floats or cfa_paged_chunk_workspace_floats is
 launched as the current wrapper launches it); cfa_fa2_backward_fused,
@@ -53,7 +59,11 @@ train shape at D 64 and 128; B8_CASES: phase 16's 18 rows; B5_CASES:
 phase 3's rows, phase 20's fp8 and int4 rows, serving's decode lengths
 and a long D128 case; B6_CASES: phase 12's five rows, phase 20's fp8 and
 int4 rows, T 1, 2 and 8 at phase 12's lengths, a one-page suffix (T
-128), group 8 at D 128 and a long case; X_CASES: the probe's shape once
+128), group 8 at D 128 and a long case; B7_CASES: phase 19's timed rows,
+the base shape (B4 Hq16 Hkv8 S2048 D64 causal) and the long one (B1
+S8192) for each storage, the base shape at D 128 (int8) and a ragged
+S1000 row (B2, phase 19's check shape); B7_FP32_CASES: the base shape in
+fp32 compute, int8 and e4m3, and int8 at D 128; X_CASES: the probe's shape once
 per variant) it prints one JSON line with b1_ab's two
 times, each read in the order parent, current, current, parent (`ms`,
 CUDA events over back-to-back calls; `device_ms`, the calls queued behind
@@ -65,8 +75,10 @@ heads and the causal flag set for B1; SDPA in the tile type for B8 and X),
 timed back to back (`library_ms`) and queued (`library_device_ms`), the
 largest difference between the two builds' outputs and each wrapper's
 host time per call; X's lines add B1 on the same inputs and the two-pass
-floor (1.5x the operations bound: X computes Q K^T twice).  The card's
-name and power limit come first.
+floor (1.5x the operations bound: X computes Q K^T twice); B7's lines
+add B1 and SDPA on the dequantized K/V in the compute type (yardsticks,
+not B7's function: B7 rounds Q and P * v_scale, never the dequantized K/V).
+The card's name and power limit come first.
 """
 
 from __future__ import annotations
@@ -81,13 +93,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from cuda_flash_attention_tpu_torch import quant
 from cuda_flash_attention_tpu_torch.decode import attention as dec_attn
 from cuda_flash_attention_tpu_torch.decode import kv_cache
 from cuda_flash_attention_tpu_torch.kernels import _build, attention, baselines
 from cuda_flash_attention_tpu_torch.kernels import fa2_backward as bwd
 from cuda_flash_attention_tpu_torch.kernels import fa2_forward as fa2
+from cuda_flash_attention_tpu_torch.kernels import fa2_forward_quant as fq
 from cuda_flash_attention_tpu_torch.kernels.common import (
     LOG2E,
+    kv_storage_cast,
     seq_pad_quantum,
     tile_code,
 )
@@ -204,6 +219,23 @@ B6_CASES = (
        dict(_B6, name="group 8 D128", hkv=2, d=128),
        dict(_B6, name="long 8 x 8192", pps=64, lengths=[8192] * 8)]
 )
+# B7: phase 19's timed rows (the base model's attention shape B4 Hq16 Hkv8
+# S2048 D64 causal, and B1 S8192) for each storage in bf16 compute, the base
+# shape at D 128 (int8) and phase 19's ragged check shape (B2 S1000); in
+# fp32 compute the base shape, int8 and e4m3, and int8 at D 128 (where the
+# stored-width ring drops to one stage to keep two blocks an SM).
+B7_STORAGES = ("int8", "e4m3", "e5m2", "int4")
+_B7 = dict(b=4, hq=16, hkv=8, s=2048, d=64, causal=True, dtype="bf16",
+           tile="bf16", storage="int8")
+B7_CASES = (
+    [dict(_B7, name=f"base {st}", storage=st) for st in B7_STORAGES]
+    + [dict(_B7, name=f"long {st}", b=1, s=8192, storage=st) for st in B7_STORAGES]
+    + [dict(_B7, name="base D128 int8", d=128),
+       dict(_B7, name="ragged S1000 int8", b=2, s=1000)]
+)
+B7_FP32_CASES = [dict(_B7, name=f"base fp32 {st}", storage=st, dtype="fp32", tile=None)
+                 for st in ("int8", "e4m3")] + [
+    dict(_B7, name="base D128 fp32 int8", d=128, dtype="fp32", tile=None)]
 # X: the probe's shape (B4 H8 S2048 D128 bf16, not causal), once per variant.
 X_CASES = [dict(name=variant, variant=variant, b=r5.B, hq=r5.H, hkv=r5.H, s=r5.S,
                 d=r5.D, causal=False, dtype="bf16", tile="bf16")
@@ -213,22 +245,25 @@ CASES = {"b2": B2_CASES, "b3": SPLIT_CASES, "b4": SPLIT_CASES,
          "b1-fp32": B1_FP32_CASES, "b2-fp32": FP32_BWD_CASES,
          "b3-fp32": FP32_BWD_CASES, "b4-fp32": FP32_BWD_CASES,
          "b3-b4-fp32": FP32_BWD_CASES, "b8": B8_CASES, "b5": B5_CASES,
-         "b6": B6_CASES, "x": X_CASES}
+         "b6": B6_CASES, "b7": B7_CASES, "b7-fp32": B7_FP32_CASES, "x": X_CASES}
 # Matmuls of S x S x D per attending (query, key) pair and head: B3
 # recomputes S and dP for dS K, B4 for P^T dO and dS^T Q_s; the pair is
 # bounded by the function's own five, as B2.
 _MATMULS = {"b2": 5, "b3": 3, "b4": 4, "b3-b4": 5, "b9": 2, "b10": 2,
-            "b1-fp32": 2, "b8": 2, "x": 2}
+            "b1-fp32": 2, "b8": 2, "b7": 2, "x": 2}
 # The fp32 bodies' names, each with the kernel whose problem, bound and
-# parent wrapper it shares.
+# parent wrapper it shares (the backward's; B7's, whose compute type is the
+# case's).
 _FP32_BODIES = {"b2-fp32": "b2", "b3-fp32": "b3", "b4-fp32": "b4",
                 "b3-b4-fp32": "b3-b4"}
+_SAME_PROBLEM = {**_FP32_BODIES, "b7-fp32": "b7"}
 
 
 def backward_of(kernel: str) -> str:
     """The kernel whose problem, bound and wrappers `kernel` takes:
-    b2-fp32's is b2's, and so on; any other kernel's its own."""
-    return _FP32_BODIES.get(kernel, kernel)
+    b2-fp32's is b2's, b7-fp32's b7's, and so on; any other kernel's its
+    own."""
+    return _SAME_PROBLEM.get(kernel, kernel)
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -357,12 +392,29 @@ def x_problem(case, gen):
     return (q, k, v), dict(variant=case["variant"]), (q, k, v)
 
 
+def b7_problem(case, gen):
+    """Phase 19's B7 inputs (chip_smoke.quant_problem): q in the compute
+    type, K/V quantized per token to the case's storage, each sequence
+    padded to the 128 block grid as the public API pads; B7's keyword
+    arguments; and the padded inputs, whose sizes the bound counts."""
+    cdt = b1_ab.dtype_of(case["tile"] or case["dtype"])
+    b, hq, hkv, s, d = (case[k] for k in ("b", "hq", "hkv", "s", "d"))
+    q = torch.randn(b, hq, s, d, generator=gen, device=gen.device).to(cdt)
+    k, v = (torch.randn(b, hkv, s, d, generator=gen, device=gen.device)
+            for _ in range(2))
+    storage = {"int8": torch.int8, "e4m3": torch.float8_e4m3fn,
+               "e5m2": torch.float8_e5m2}.get(case["storage"], case["storage"])
+    x = fq.aligned_inputs(q, *quant.quantize_kv(k, v, storage))
+    kw = dict(causal=case["causal"], sm_scale=d ** -0.5, kv_len=s, compute_dtype=cdt)
+    return x, kw, x
+
+
 def problem(kernel: str, case, gen):
     """(the kernel's inputs, its keyword arguments, the raw q, k, v[, dO])."""
     return {"b2": b2_problem, "b3": split_problem, "b4": split_problem,
             "b3-b4": b2_problem, "b9": b9_problem, "b10": b9_problem,
             "b1-fp32": b1_fp32_problem, "b8": b8_problem,
-            "b5": b5_problem, "b6": b6_problem,
+            "b5": b5_problem, "b6": b6_problem, "b7": b7_problem,
             "x": x_problem}[backward_of(kernel)](case, gen)
 
 
@@ -404,10 +456,18 @@ def bound(kernel: str, case, raw) -> tuple[float, str]:
     written once (B2 and the pair: q, k, v, O, dO, lse in, dQ, dK, dV out;
     B3: q, k, v, dO, lse, D_i in, dQ out; B4: the same in, dK, dV out; B9,
     B10: q, k, v in, O out; B1 and X: q, k, v in, O and lse out; B5 and
-    B6: paged_bytes), or the FLOPs at the tile type's peak."""
+    B6: paged_bytes; B7: q, K/V in their stored width and their scales in,
+    O and lse out, all padded as the API pads), or the FLOPs at the compute
+    type's peak."""
     if kernel in ("b5", "b6"):
         moved = paged_bytes(case)
         peak = b1_ab.PEAK_FLOPS[case["compute"]]
+    elif backward_of(kernel) == "b7":  # chip_smoke.attention_bound's tensors
+        q = raw[0]
+        moved = (2 * q.numel() * q.element_size() + sum(t.numel() * t.element_size()
+                                                        for t in raw[1:])
+                 + q[..., 0].numel() * 4)
+        peak = b1_ab.PEAK_FLOPS[case["tile"] or case["dtype"]]
     elif kernel == "b8":  # padded q, k, v, O in fp32 and lse, as chip_smoke
         cells = case["b"] * case["hq"] * b8_padded(case)
         moved = 4 * cells * case["d"] * 4 + cells * 4
@@ -432,11 +492,11 @@ def library_call(kernel: str, case, raw, kw):
     (fed by its own forward) in the tile type for B2 and the pair B3 + B4,
     with K/V expanded to the query heads, and for their fp32 bodies SDPA's
     memory-efficient fp32 backward (fp32_bwd.efficient_backward) so; none
-    for B3 or B4 alone (dQ, or dK and dV, without the rest), B5 or B6; fp32
+    for B3 or B4 alone (dQ, or dK and dV, without the rest), B5, B6 or B7; fp32
     SDPA for B9 and B10, and for B1 on the keys before kv_len, K/V expanded
     to the query heads, causal as the case; bf16 SDPA for X (its yardstick:
     X's P is JAX's bf16 exp chain, not SDPA's)."""
-    if backward_of(kernel) in ("b3", "b4", "b5", "b6"):
+    if backward_of(kernel) in ("b3", "b4", "b5", "b6", "b7"):
         return None
     if kernel == "b8":  # SDPA on the raw inputs in the tile type
         return lambda: F.scaled_dot_product_attention(
@@ -480,6 +540,10 @@ def build_parent(kernel: str, path: str) -> ctypes.CDLL:
     if kernel == "x":
         lib.cfa_r5_d128_fwd.argtypes = r5.ARGTYPES
         lib.cfa_r5_d128_fwd.restype = _I
+        return lib
+    if kernel == "b7":  # the entry point kept its signature
+        lib.cfa_fa2_forward_quant.argtypes = fq.ARGTYPES
+        lib.cfa_fa2_forward_quant.restype = _I
         return lib
     if kernel == "b6":
         if hasattr(lib, "cfa_paged_chunk_workspace_floats"):
@@ -697,6 +761,10 @@ def parent_b6(lib, q, pages, table, lengths, *, sm_scale, compute_dtype):
     return (out,)
 
 
+def parent_b7(lib, *x, **kw):
+    return fq.quant_launch(lib, *x, **kw)
+
+
 def parent_x(lib, q, k, v, *, variant):
     return r5.launch(lib, q, k, v, variant)
 
@@ -715,6 +783,7 @@ def calls(kernel: str):
         "b8": (parent_b8, fa2.fa2_forward_small_aligned),
         "b5": (parent_b5, lambda *a, **k: (dec_attn.paged_decode_attention(*a, **k),)),
         "b6": (parent_b6, lambda *a, **k: (dec_attn.paged_chunk_attention(*a, **k),)),
+        "b7": (parent_b7, fq.fa2_forward_quant_aligned),
         "x": (parent_x, r5.fwd),
     }[backward_of(kernel)]
 
@@ -729,9 +798,12 @@ def shape_of(kernel: str, case) -> dict:
     if kernel == "x":
         return dict(B=case["b"], H=case["hq"], S=case["s"], D=case["d"],
                     variant=case["variant"])
-    return dict(B=case["b"], Hq=case["hq"], Hkv=case["hkv"], S=case["s"],
-                D=case["d"], causal=case["causal"], inputs=case["dtype"],
-                tiles=case["tile"])
+    shape = dict(B=case["b"], Hq=case["hq"], Hkv=case["hkv"], S=case["s"],
+                 D=case["d"], causal=case["causal"], inputs=case["dtype"],
+                 tiles=case["tile"])
+    if backward_of(kernel) == "b7":
+        shape["storage"] = case["storage"]
+    return shape
 
 
 def x_extras(case, raw, bound_ms: float) -> dict:
@@ -749,6 +821,31 @@ def x_extras(case, raw, bound_ms: float) -> dict:
                 two_pass_floor_ms=1.5 * bound_ms)
 
 
+def b7_extras(case, x, kw) -> dict:
+    """B7's line adds B1 and SDPA on the dequantized K/V (values times
+    scales, in the compute type), back to back and queued: yardsticks of
+    the stored-width read, not B7's function."""
+    q, kv, ks, vv, vs = x
+    cdt, s, d = kw["compute_dtype"], case["s"], case["d"]
+    kd, vd = ((kv_storage_cast(t, d, torch.float32) * sc[..., None]).to(cdt)
+              for t, sc in ((kv, ks), (vv, vs)))
+    b1_kw = dict(causal=case["causal"], sm_scale=kw["sm_scale"], kv_len=s,
+                 tile_dtype=None if cdt == torch.float32 else cdt)
+
+    def b1():
+        return fa2.fa2_forward_aligned(q, kd, vd, **b1_kw)
+
+    qs, ks_, vs_ = q[:, :, :s], kd[:, :, :s], vd[:, :, :s]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qs, ks_, vs_, is_causal=case["causal"],
+                                              scale=kw["sm_scale"], enable_gqa=True)
+
+    return dict(b1_dequant_ms=b1_ab.time_ms(b1), b1_dequant_device_ms=b1_ab.device_ms(b1),
+                sdpa_dequant_ms=b1_ab.time_ms(sdpa),
+                sdpa_dequant_device_ms=b1_ab.device_ms(sdpa))
+
+
 def main(argv=None) -> list[dict]:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", required=True, choices=tuple(CASES))
@@ -756,8 +853,9 @@ def main(argv=None) -> list[dict]:
                     help="an earlier csrc/fa2_backward.cu (b2, b3, b4, b3-b4 and "
                     "their -fp32 forms), csrc/baselines.cu (b9, b10), "
                     "csrc/fa2_forward.cu (b1-fp32), csrc/fa2_forward_small.cu "
-                    "(b8), csrc/paged_decode.cu (b5), csrc/paged_chunk.cu (b6) "
-                    "or csrc/r5_d128_fwd.cu (x)")
+                    "(b8), csrc/paged_decode.cu (b5), csrc/paged_chunk.cu (b6), "
+                    "csrc/fa2_forward_quant.cu (b7, b7-fp32) or "
+                    "csrc/r5_d128_fwd.cu (x)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: needs an NVIDIA card")
@@ -803,6 +901,8 @@ def main(argv=None) -> list[dict]:
                    host_us=b1_ab.host_us(new))
         if args.kernel == "x":
             row.update(x_extras(case, raw, bound_ms))
+        elif backward_of(args.kernel) == "b7":
+            row.update(b7_extras(case, x, kw))
         rows.append(row)
         print(f"{args.kernel.upper()} A/B", json.dumps(row), flush=True)
         del x, raw

@@ -281,6 +281,8 @@ B6_SPLIT_ENTRIES = [f"{_NS}17paged_chunk_splitI{tq}{tc}Li{d}ELb{mma}EEEvPKT_"
                     for tq in _TQ for tc in _TC for d in (64, 128) for mma in (0, 1)]
 B6_MMA_ENTRIES = [f"{_NS}15paged_chunk_mmaI{tq}{tc}Li{d}EEEvPKT_"
                   for tq in _TQ for tc in _TC for d in (64, 128)]
+B6_FP32_ENTRIES = [f"{_NS}16paged_chunk_fp32I{tq}{tc}Li{d}EEEvPKT_"
+                   for tq in _TQ for tc in _TC for d in (64, 128)]
 X_ENTRIES = [f"_ZN52_GLOBAL__N__1a2b3c4d_14_r5_d128_fwd_cu_9e8f7a6b6r5_fwdILi{v}EEEv"
              "14CUtensorMap_stS1_PK13__nv_bfloat16PS2_Pfif" for v in range(5)]
 
@@ -288,20 +290,21 @@ X_ENTRIES = [f"_ZN52_GLOBAL__N__1a2b3c4d_14_r5_d128_fwd_cu_9e8f7a6b6r5_fwdILi{v}
 def test_phase_1_gates_every_new_b6_and_x_instantiation():
     """chip_smoke's phase 1 holds B6's split body (48: six caches x two q
     types x D 64 and 128 x fp32 compute on the FMA units and bf16 compute
-    on the tensor cores), its bf16 tile body (24) and X's five variants:
-    clean reports pass, one spilled byte, a wgmma serialisation note or a
-    missing instantiation fails."""
+    on the tensor cores), its bf16 tile body (24), its fp32 tile body on
+    the FMA block (24) and X's five variants: clean reports pass, one
+    spilled byte, a wgmma serialisation note or a missing instantiation
+    fails."""
     import chip_smoke
 
     functions, count = chip_smoke.B6_FUNCTIONS
-    entries = B6_SPLIT_ENTRIES + B6_MMA_ENTRIES
-    assert count == len(entries) == 72
+    entries = B6_SPLIT_ENTRIES + B6_MMA_ENTRIES + B6_FP32_ENTRIES
+    assert count == len(entries) == 96
     chip_smoke.check_ptxas(_ptxas_report(entries), "B6", functions, count)
     with pytest.raises(AssertionError, match="spills"):
-        chip_smoke.check_ptxas(_ptxas_report(entries[:71])
-                               + "\n" + _ptxas_report(entries[71:], spill=8),
+        chip_smoke.check_ptxas(_ptxas_report(entries[:95])
+                               + "\n" + _ptxas_report(entries[95:], spill=8),
                                "B6", functions, count)
-    with pytest.raises(AssertionError, match="only 71"):
+    with pytest.raises(AssertionError, match="only 95"):
         chip_smoke.check_ptxas(_ptxas_report(entries[1:]), "B6", functions, count)
     functions, count = chip_smoke.X_FUNCTIONS
     assert count == len(X_ENTRIES) == 5

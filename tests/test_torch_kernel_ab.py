@@ -7,12 +7,12 @@ each B9 and B10 case is one of the reference suite's configs in
 chip_smoke.py, each B1 fp32 case one of chip_smoke's B1 shapes in fp32, the
 fp32 backward cases are fp32_bwd's and chip_smoke's shapes with fp32_bwd's
 bounds, the B8 cases are phase 16's rows padded as the API pads, the B5
-cases hold phase 3's shape, the B6 cases phase 12's and the X cases the
-probe's, with chip_smoke's bounds (attention_bound, paged_bound), the FLOPs
+cases hold phase 3's shape, the B6 cases phase 12's, the B7 cases phase
+19's and the X cases the probe's, with chip_smoke's bounds (attention_bound, paged_bound), the FLOPs
 and bounds count what the script says, each kernel's current wrapper takes
 its problem as the script calls it, and the parent wrappers of B2, B3 and
 B4 call the C entry points with the arguments their argtypes declare, as do
-B5's, B6's, B8's and X's (a fake library stands in for the build).  CPU
+B5's, B6's, B7's, B8's and X's (a fake library stands in for the build).  CPU
 only: no kernel runs here."""
 
 import re
@@ -159,8 +159,10 @@ def test_current_wrapper_takes_the_problem_as_kernel_ab_calls_it(kernel):
     out = current(*x, **kw)
     first = x[1] if kernel_ab.backward_of(kernel) == "b4" else x[0]  # B4's: dK
     assert isinstance(out, tuple) and out[0].shape == first.shape
-    # raw[0] is q: [B, H, S, D] (S 64), or B5's [n, Hq, D] and B6's [n, T, Hq, D] (D 64).
-    assert torch.isfinite(out[0]).all() and raw[0].shape[-1 if kernel == "b6" else 2] == 64
+    # raw[0] is q: [B, H, S, D] (S 64; B7's padded to the 128 block grid),
+    # or B5's [n, Hq, D] and B6's [n, T, Hq, D] (D 64).
+    want = 128 if kernel_ab.backward_of(kernel) == "b7" else 64
+    assert torch.isfinite(out[0]).all() and raw[0].shape[-1 if kernel == "b6" else 2] == want
 
 
 @pytest.mark.parametrize("case", kernel_ab.SPLIT_CASES, ids=lambda c: c["name"])
@@ -246,10 +248,10 @@ def test_pair_runs_the_split_branch_of_attention_backward():
 _C_TYPES = {"void*": "c_void_p", "int": "c_int", "float": "c_float"}
 
 
-def _c_signature(name: str) -> list[str]:
+def _c_signature(name: str, source: str = "fa2_backward.cu") -> list[str]:
     """The ctypes names of an extern "C" function's parameters in
-    csrc/fa2_backward.cu."""
-    src = (Path(fa2_backward.__file__).parent.parent / "csrc" / "fa2_backward.cu").read_text()
+    csrc/<source>."""
+    src = (Path(fa2_backward.__file__).parent.parent / "csrc" / source).read_text()
     params = re.search(rf"\b{name}\(([^)]*)\)\s*{{", src).group(1)
     out = []
     for p in params.split(","):
@@ -646,3 +648,78 @@ def test_parent_x_calls_as_its_argtypes_declare(monkeypatch):
     (name, args), = lib.calls
     assert len(args) == len(lib.cfa_r5_d128_fwd.argtypes) == 10
     assert args[-2] == 1  # v1_mxu_ones
+
+
+def test_b7_cases_are_phase_19s_rows():
+    """Phase 19's timed rows (the base shape B4 Hq16 Hkv8 S2048 D64 causal
+    and the long one B1 S8192) for each storage, the base shape at D 128
+    (int8) and phase 19's ragged check shape (B2 S1000), in bf16 compute;
+    the base shape in fp32 compute for int8 and e4m3, and int8 at D 128."""
+    names = {c["name"]: c for c in kernel_ab.B7_CASES}
+    assert len(names) == len(kernel_ab.B7_CASES) == 10
+    assert kernel_ab.B7_STORAGES == chip_smoke.STORAGES
+    for st in chip_smoke.STORAGES:
+        assert (names[f"base {st}"]["b"], names[f"base {st}"]["s"]) == (4, 2048)
+        assert (names[f"long {st}"]["b"], names[f"long {st}"]["s"]) == (1, 8192)
+    assert names["base D128 int8"]["d"] == 128
+    assert (names["ragged S1000 int8"]["b"], names["ragged S1000 int8"]["s"]) == (2, 1000)
+    for c in kernel_ab.B7_CASES + kernel_ab.B7_FP32_CASES:
+        assert (c["hq"], c["hkv"], c["causal"]) == (16, 8, True)
+    assert all(c["tile"] == "bf16" for c in kernel_ab.B7_CASES)
+    assert [(c["storage"], c["dtype"], c["tile"], c["s"], c["d"])
+            for c in kernel_ab.B7_FP32_CASES] == [("int8", "fp32", None, 2048, 64),
+                                                   ("e4m3", "fp32", None, 2048, 64),
+                                                   ("int8", "fp32", None, 2048, 128)]
+
+
+@pytest.mark.parametrize("kernel,case", [("b7", c) for c in kernel_ab.B7_CASES]
+                         + [("b7-fp32", c) for c in kernel_ab.B7_FP32_CASES],
+                         ids=lambda x: x if isinstance(x, str) else x["name"])
+def test_b7_flops_and_bounds_are_chip_smokes(kernel, case):
+    """kernel_ab's B7 FLOPs and bound are chip_smoke.attention_bound's on
+    the padded inputs, O and lse (a small copy of the case: the same S, one
+    KV head); no single PyTorch call computes B7's function."""
+    small = dict(case, b=1, hq=2, hkv=1)
+    x, kw, raw = kernel_ab.problem(kernel, small, torch.Generator().manual_seed(0))
+    assert x[0].shape[2] == -(-small["s"] // 128) * 128 and kw["kv_len"] == small["s"]
+    assert kw["compute_dtype"] == (torch.float32 if kernel == "b7-fp32" else torch.bfloat16)
+    o = torch.empty_like(x[0])
+    lse = torch.empty(x[0].shape[:3])
+    ms, by, n = chip_smoke.attention_bound(1, 2, small["s"], small["d"], True,
+                                           small["tile"] or small["dtype"], *x, o, lse)
+    assert kernel_ab.flops(kernel, small) == n
+    got_ms, got_by = kernel_ab.bound(kernel, small, raw)
+    assert got_by == by and got_ms == pytest.approx(ms)
+    assert kernel_ab.library_call(kernel, small, raw, kw) is None
+
+
+def test_b7_argtypes_match_the_c_entry_point():
+    from cuda_flash_attention_tpu_torch.kernels import fa2_forward_quant as fq
+
+    assert [t.__name__ for t in fq.ARGTYPES] == _c_signature(
+        "cfa_fa2_forward_quant", "fa2_forward_quant.cu")
+
+
+@pytest.mark.parametrize("kernel", ["b7", "b7-fp32"])
+def test_parent_b7_calls_as_its_argtypes_declare(monkeypatch, kernel):
+    """build_parent gives a parent's cfa_fa2_forward_quant the current
+    argtypes (the signature is kept); parent_b7 launches it through the
+    current wrapper's launch with exactly that many arguments and returns
+    (O, lse)."""
+    from cuda_flash_attention_tpu_torch.kernels import fa2_forward_quant as fq
+
+    lib = _RecordingLib("cfa_fa2_forward_quant")
+    monkeypatch.setattr(b1_ab, "compile_source", lambda path, stem: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    assert kernel_ab.build_parent(kernel, "unused.cu") is lib
+    assert lib.cfa_fa2_forward_quant.argtypes == fq.ARGTYPES
+    case = dict(kernel_ab.CASES[kernel][0], b=1, hq=2, hkv=1, s=200)
+    x, kw, _ = kernel_ab.problem(kernel, case, torch.Generator().manual_seed(0))
+    parent, _ = kernel_ab.calls(kernel)
+    o, lse = parent(lib, *x, **kw)
+    assert o.shape == x[0].shape and lse.shape == x[0].shape[:3]
+    (name, args), = lib.calls
+    assert len(args) == len(fq.ARGTYPES) == 20
+    # storage 0 (int8); bf16 compute for b7, fp32 for b7-fp32
+    assert args[17] == 0 and args[18] == int(kernel == "b7")

@@ -901,7 +901,11 @@ NEW_CACHES = [torch.float8_e4m3fn, torch.float8_e5m2, "int4"]
 ], ids=["bf16", "fp32", "fp32-q-bf16-compute"])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("b,hq,hkv,s", [(1, 4, 2, 200), (2, 8, 8, 384)])
+# S 129 and 1000 end inside the bf16 body's 128-row Q and KV tiles (the API
+# pads to 1024: kv_len inside the last tile); S 128 is one tile of it and S
+# 64 half of one (one tile of keys for the fp32 body's 64-row tiles).
+@pytest.mark.parametrize("b,hq,hkv,s", [(1, 4, 2, 200), (2, 8, 8, 384), (1, 4, 2, 129),
+                                        (1, 16, 8, 1000), (2, 4, 2, 128), (1, 2, 1, 64)])
 def test_fa2_forward_quant_kernel_matches_plain(cuda, storage, q_dtype, compute,
                                                 causal, d, b, hq, hkv, s):
     from cuda_flash_attention_tpu_torch.kernels import fa2_forward_quant as fq
@@ -1166,7 +1170,8 @@ def test_fa2_forward_small_q_tiles_match_plain(cuda, dtype, tile, bh, causal,
 # test_paged_chunk_kernel_matches_plain.
 # ---------------------------------------------------------------------------
 
-B6_CHUNKS = [1, 2, 5, 8, 128, 512]
+# T 33 at group 2 and 8 ends inside a 64-row tile of the tile bodies.
+B6_CHUNKS = [1, 2, 5, 8, 33, 128, 512]
 B6_PPS = 12  # 1536 tokens a slot
 
 
