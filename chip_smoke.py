@@ -118,7 +118,20 @@ Phases (any failure raises and the script exits non-zero):
      within the int4 requantization budget);
  23. X (the D=128 rowsum probe) through its entry point at B4 H8 S2048
      D128 bf16 (five variants beside B1 and SDPA), each variant against
-     its plain version.
+     its plain version;
+ 24. the serving and training benchmarks (bench/decode_bench.py,
+     bench/train_bench.py) at TransformerConfig.base(): the decode device
+     loop at batch 16, prompt 128 (a CUDA graph of one step: step_ms by
+     CUDA events, eager_step_ms, their ratio); greedy tokens of the
+     burst-8 engine, the burst-1 engine and an eager decode_step loop,
+     which must be bitwise equal; the engine at bursts 1 and 8 with
+     engine_overhead_x; phase 5's 12 requests at bursts 1 and 8 (the same
+     tokens, graph replays, bursts, launches; burst 8 profiled as phase
+     6, whose burst-1 launches and idle share it prints beside); train
+     tokens/s at B4 S2048 (the median of three slopes between chains of 2
+     and 10 AdamW steps, with their min/max).
+Serving's decode steps run as CUDA graphs (decode/graphs.py); each
+wrapper's launch count adds what a capture recorded at every replay.
 The line before the last is the kernel JSON (eleven kernels); the last line
 is the JSON contract line {"ok": true, "device": {...}}.
 It imports torch and the port only, never jax or the JAX package.
@@ -386,7 +399,7 @@ def phase_e2e(torch, np, transformer, decode):
     return diff
 
 
-def phase_serving(torch, np, transformer, decode, fa2, dec_attn):
+def phase_serving(torch, np, transformer, decode):
     """TransformerConfig.base() with an int8 cache serves 12 requests."""
     cfg = transformer.TransformerConfig.base()
     params = transformer.init_params(
@@ -398,12 +411,12 @@ def phase_serving(torch, np, transformer, decode, fa2, dec_attn):
                for n in rng.integers(64, 1501, 12)]
     new_tokens = 64
     torch.cuda.synchronize()
-    reset_serving_launches(fa2, dec_attn)
+    reset_counts(SERVING_KERNELS)
     t0 = time.perf_counter()
     reqs = eng.run(prompts, max_new_tokens=new_tokens)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = read_serving_launches(fa2, dec_attn)
+    launches = read_counts(SERVING_KERNELS)
     check_served("serving", reqs, eng, launches, ("fa2_forward", "paged_decode"),
                  cfg.vocab_size, new_tokens)
     with torch.inference_mode():
@@ -424,40 +437,61 @@ def phase_serving(torch, np, transformer, decode, fa2, dec_attn):
     return res, eng
 
 
-def reset_serving_launches(fa2, dec_attn):
-    fa2.launches = dec_attn.launches = dec_attn.chunk_launches = 0
+SERVING_KERNELS = ("fa2_forward", "paged_decode", "paged_chunk")
+TRAIN_KERNELS = ("fa2_forward", "fa2_backward_fused", "fa2_backward_dq",
+                 "fa2_backward_dkv")
 
 
-def read_serving_launches(fa2, dec_attn) -> dict:
-    return {"fa2_forward": fa2.launches, "paged_decode": dec_attn.launches,
-            "paged_chunk": dec_attn.chunk_launches}
+def launch_counts():
+    """The kernel wrappers' launch counts (kernels/launches.py)."""
+    from cuda_flash_attention_tpu_torch.kernels.launches import LAUNCHES
+    return LAUNCHES
 
 
-def phase_profile(torch, np, eng, label="profile"):
+def reset_counts(names) -> None:
+    from cuda_flash_attention_tpu_torch.kernels.launches import reset
+    reset(*names)
+
+
+def read_counts(names) -> dict:
+    counts = launch_counts()
+    return {name: counts[name] for name in names}
+
+
+
+def phase_profile(torch, np, eng, label="profile", new_tokens=40):
     """Where a decode step's time goes: eight running requests, ten steps
-    (speculative rounds, for a speculative engine) under torch.profiler,
-    timed on the host clock over the same window (so the step time includes
-    the profiler's own host overhead)."""
+    (speculative rounds, for a speculative engine; bursts, for a bursting
+    one: `new_tokens` keeps them busy through the window) under
+    torch.profiler, timed on the host clock over the same window (so the
+    step time includes the profiler's own host overhead)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     rng = np.random.default_rng(5)
     prompts = [rng.integers(0, eng.cfg.vocab_size, int(n)).tolist()
                for n in rng.integers(64, 1501, eng.max_seqs)]
-    reqs = eng.submit_many(prompts, max_new_tokens=40)
+    reqs = eng.submit_many(prompts, max_new_tokens=new_tokens)
     for _ in range(3):
         eng.step()
     torch.cuda.synchronize()
+    tokens0 = eng.stats["tokens"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(10):
             eng.step()
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) / 10 * 1e3
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 10 / 1e3
     if not busy_ms > 0:
         raise AssertionError("profile: no device time recorded")
+    # The host's launch calls: kernels launched one by one, and graph
+    # replays (each one launch of a whole captured step).
+    host_calls = {e.key: e.count / 10 for e in events
+                  if e.device_type != DeviceType.CUDA
+                  and ("LaunchKernel" in e.key or "GraphLaunch" in e.key)}
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     # B5's and B6's kernels (csrc/paged_decode.cu, csrc/paged_chunk.cu) and
     # their shares of the busy time.
@@ -465,9 +499,12 @@ def phase_profile(torch, np, eng, label="profile"):
                     / 10 / 1e3 for name in ("paged_decode_kernel", "paged_chunk_"))
     res = dict(
         batch=len(reqs), decode_step_ms=step_ms,
+        tokens_per_step=(eng.stats["tokens"] - tokens0) / 10,
         device_busy_ms_per_step=busy_ms,
         device_idle_share=1 - busy_ms / step_ms,
         kernel_launches_per_step=sum(e.count for e in kernels) / 10,
+        host_launch_calls_per_step=sum(host_calls.values()),
+        host_launch_calls=host_calls,
         b5_ms_per_step=b5_ms, b5_share_of_busy=b5_ms / busy_ms,
         b6_ms_per_step=b6_ms, b6_share_of_busy=b6_ms / busy_ms,
         top_kernels_ms_per_step={e.key[:48]: e.self_device_time_total / 1e4
@@ -658,14 +695,15 @@ def phase_autograd(torch, attention, bwd, BlockSizes):
     res = {}
     for route, bs in (("fused", None), ("split", split)):
         runs = []
-        before = (bwd.fused_launches, bwd.dq_launches, bwd.dkv_launches)
+        names = TRAIN_KERNELS[1:]
+        before = read_counts(names)
         for _ in range(2):
             ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
             out = attention.flash_attention(*ts, block_sizes=bs, **kw)
             runs.append(torch.autograd.grad(out, ts, do))
         torch.cuda.synchronize()
-        moved = (bwd.fused_launches - before[0], bwd.dq_launches - before[1],
-                 bwd.dkv_launches - before[2])
+        after = read_counts(names)
+        moved = tuple(after[n] - before[n] for n in names)
         if moved != ((2, 0, 0) if route == "fused" else (0, 2, 2)):
             raise AssertionError(f"autograd {route}: launches {moved}")
         errs = [rel_err(g, w) for g, w in zip(runs[0], want)]
@@ -733,17 +771,7 @@ def model_flops(cfg, b: int, s: int) -> int:
     return 6 * matmul_params(cfg) * b * s + cfg.n_layers * attn
 
 
-def reset_launches(fa2, bwd):
-    fa2.launches = 0
-    bwd.fused_launches = bwd.dq_launches = bwd.dkv_launches = 0
-
-
-def read_launches(fa2, bwd) -> dict:
-    return {"fa2_forward": fa2.launches, "fa2_backward_fused": bwd.fused_launches,
-            "fa2_backward_dq": bwd.dq_launches, "fa2_backward_dkv": bwd.dkv_launches}
-
-
-def phase_train(torch, np, transformer, training, fa2, bwd, dataclasses):
+def phase_train(torch, np, transformer, training, dataclasses):
     """TransformerConfig.base() trains on one batch of B4 S2048."""
     cfg = transformer.TransformerConfig.base()
     b, s = 4, 2048
@@ -756,7 +784,7 @@ def phase_train(torch, np, transformer, training, fa2, bwd, dataclasses):
     state = training.init_train_state(params, opt)
     losses, times = [], []
     torch.cuda.synchronize()
-    reset_launches(fa2, bwd)
+    reset_counts(TRAIN_KERNELS)
     for i in range(7):
         if i == 2:
             torch.cuda.reset_peak_memory_stats()
@@ -764,7 +792,7 @@ def phase_train(torch, np, transformer, training, fa2, bwd, dataclasses):
         state, metrics = step(state, tokens)
         losses.append(metrics["loss"].item())  # waits for the step
         times.append(time.perf_counter() - t0)
-    launches = read_launches(fa2, bwd)
+    launches = read_counts(TRAIN_KERNELS)
     peak = torch.cuda.max_memory_allocated()
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"train: loss not finite and falling: {losses}")
@@ -788,19 +816,19 @@ def phase_train(torch, np, transformer, training, fa2, bwd, dataclasses):
     step_remat = training.make_optax_train_step(cfg_remat, opt)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_launches(fa2, bwd)
+    reset_counts(TRAIN_KERNELS)
     t0 = time.perf_counter()
     _, m = step_remat(state, tokens)
     remat = dict(loss=m["loss"].item(), step_ms=(time.perf_counter() - t0) * 1e3,
                  max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-                 launches=read_launches(fa2, bwd))
+                 launches=read_counts(TRAIN_KERNELS))
     log("train remat=full", json.dumps(remat))
     if remat["launches"]["fa2_forward"] != 2 * cfg.n_layers:
         raise AssertionError(f"remat: B1 launches {remat['launches']}")
     return res, remat, (state, step, tokens)
 
 
-def phase_train_split(torch, np, transformer, training, fa2, bwd):
+def phase_train_split(torch, np, transformer, training):
     """At B16 S2048 the port's dQ slices would take 2 GiB: the step takes
     the split route, B3 + B4."""
     cfg = transformer.TransformerConfig.base()
@@ -814,14 +842,14 @@ def phase_train_split(torch, np, transformer, training, fa2, bwd):
     state = training.init_train_state(params, opt)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_launches(fa2, bwd)
+    reset_counts(TRAIN_KERNELS)
     losses, times = [], []
     for _ in range(2):
         t0 = time.perf_counter()
         state, metrics = step(state, tokens)
         losses.append(metrics["loss"].item())
         times.append(time.perf_counter() - t0)
-    launches = read_launches(fa2, bwd)
+    launches = read_counts(TRAIN_KERNELS)
     res = dict(batch=b, seq=s, losses=losses, step_ms=[t * 1e3 for t in times],
                tokens_per_s=b * s / times[-1],
                max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -995,12 +1023,12 @@ def draft_of(params):
     return dict(params, layers=params["layers"][:1])
 
 
-def phase_spec_parity(torch, np, transformer, decode, dec_attn, dataclasses):
+def phase_spec_parity(torch, np, transformer, decode, dataclasses):
     """fp32 at base width: verify_step on the card against the CPU, then
     speculative greedy, a prefix-cache hit and chunked prefill each against
     the card's plain greedy tokens.  The path's chunks of more than 64 rows
     run B6's fp32 tile body: its launches are counted over the phase."""
-    dec_attn.chunk_fp32_tile_launches = 0
+    reset_counts(["paged_chunk_fp32_tile"])
     cfg = transformer.TransformerConfig.base(dtype=torch.float32,
                                              attn_tile_dtype=None)
     params = transformer.init_params(torch.Generator().manual_seed(0), cfg,
@@ -1067,7 +1095,7 @@ def phase_spec_parity(torch, np, transformer, decode, dec_attn, dataclasses):
         if got != plain:
             raise AssertionError(
                 f"{name}: greedy tokens differ from plain: {got} vs {plain}")
-    res["fp32_tile_launches"] = dec_attn.chunk_fp32_tile_launches
+    res["fp32_tile_launches"] = launch_counts()["paged_chunk_fp32_tile"]
     if not (res["chunked_prefill"]["stats"]["prefill_chunks"] >= 3
             and res["speculative"]["stats"]["spec_rounds"] > 0
             and res["fp32_tile_launches"] > 0):
@@ -1096,7 +1124,7 @@ def check_served(name, reqs, eng, launches, need, vocab, new_tokens=None):
         raise AssertionError(f"{name}: a kernel of the path never ran: {launches}")
 
 
-def phase_spec_serving(torch, np, transformer, decode, fa2, dec_attn, dataclasses):
+def phase_spec_serving(torch, np, transformer, decode, dataclasses):
     """Speculative serving at base width, int8 cache: phase 5's 12 requests
     with k = 4, by a one-layer draft and by prompt lookup."""
     cfg = transformer.TransformerConfig.base()
@@ -1112,12 +1140,12 @@ def phase_spec_serving(torch, np, transformer, decode, fa2, dec_attn, dataclasse
         eng = decode.DecodeEngine(params, cfg, max_seqs=8, max_seq_len=2048,
                                   cache_dtype=torch.int8, spec_tokens=4, **kw)
         torch.cuda.synchronize()
-        reset_serving_launches(fa2, dec_attn)
+        reset_counts(SERVING_KERNELS)
         t0 = time.perf_counter()
         reqs = eng.run(prompts, max_new_tokens=new_tokens)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
-        launches = read_serving_launches(fa2, dec_attn)
+        launches = read_counts(SERVING_KERNELS)
         check_served(f"spec {mode}", reqs, eng, launches,
                      ("fa2_forward", "paged_chunk")
                      + (("paged_decode",) if mode == "draft" else ()), cfg.vocab_size)
@@ -1137,7 +1165,7 @@ def phase_spec_serving(torch, np, transformer, decode, fa2, dec_attn, dataclasse
     return out
 
 
-def phase_prefix_chunked(torch, np, transformer, decode, fa2, dec_attn):
+def phase_prefix_chunked(torch, np, transformer, decode):
     """Prefix caching on a shared 1024-token system prompt, against an
     uncached engine; then chunked prefill on phase 5's mix."""
     cfg = transformer.TransformerConfig.base()
@@ -1152,7 +1180,7 @@ def phase_prefix_chunked(torch, np, transformer, decode, fa2, dec_attn):
         eng = decode.DecodeEngine(params, cfg, max_seqs=8, max_seq_len=2048,
                                   cache_dtype=torch.int8, **kw)
         torch.cuda.synchronize()
-        reset_serving_launches(fa2, dec_attn)
+        reset_counts(SERVING_KERNELS)
         t0 = time.perf_counter()
         # The first request outlives the others, so its prompt pages stay
         # cached for all 15 that follow (three waves on 7 slots).
@@ -1167,7 +1195,7 @@ def phase_prefix_chunked(torch, np, transformer, decode, fa2, dec_attn):
         eng.step()
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
-        launches = read_serving_launches(fa2, dec_attn)
+        launches = read_counts(SERVING_KERNELS)
         check_served(name, [holder] + reqs, eng, launches,
                      ("fa2_forward", "paged_decode")
                      + (("paged_chunk",) if kw else ()), cfg.vocab_size)
@@ -1188,7 +1216,7 @@ def phase_prefix_chunked(torch, np, transformer, decode, fa2, dec_attn):
     eng = decode.DecodeEngine(params, cfg, max_seqs=8, max_seq_len=2048,
                               cache_dtype=torch.int8, prefill_chunk=512)
     torch.cuda.synchronize()
-    reset_serving_launches(fa2, dec_attn)
+    reset_counts(SERVING_KERNELS)
     t0 = time.perf_counter()
     reqs = eng.submit_many(prompts, max_new_tokens=64)
     during, chunk_steps = 0, 0
@@ -1203,7 +1231,7 @@ def phase_prefix_chunked(torch, np, transformer, decode, fa2, dec_attn):
     eng.step()
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = read_serving_launches(fa2, dec_attn)
+    launches = read_counts(SERVING_KERNELS)
     check_served("chunked prefill", reqs, eng, launches,
                  ("paged_chunk", "paged_decode"), cfg.vocab_size)
     if not during:
@@ -1725,12 +1753,12 @@ def phase_b7(torch, F, quant, fq, fa2):
     del o_k, o_p, kd, vd, args, api
 
     # The public API on the timed inputs: its launches are the path's.
-    fq.launches = 0
+    reset_counts(["fa2_forward_quant"])
     for (q, k_q, v_q), o_k in api_inputs:
         o = fq.flash_attention_quantized_kv(q, k_q, v_q, causal=True)
         if not torch.equal(o, o_k[:, :, :q.shape[2]]):
             raise AssertionError("B7: the public API differs from the aligned kernel")
-    api_launches = fq.launches
+    api_launches = launch_counts()["fa2_forward_quant"]
     log(f"B7 public API: {api_launches} launches over {len(api_inputs)} calls")
     if api_launches != len(api_inputs):
         raise AssertionError(f"B7 public API launched {api_launches} times")
@@ -1820,7 +1848,7 @@ def phase_paged_quant(torch, dec_attn, kv_cache):
     return rows
 
 
-def phase_quant_serving(torch, np, transformer, decode, quant, fa2, dec_attn):
+def phase_quant_serving(torch, np, transformer, decode, quant):
     """TransformerConfig.base() serving phase 5's 12 requests (seed 4, 8
     slots, 64 greedy tokens) on an int8 cache (the control), (a) an e4m3
     cache, (b) an int4 cache, (c) int8 W8A8 weights on an int8 cache, (d)
@@ -1847,12 +1875,12 @@ def phase_quant_serving(torch, np, transformer, decode, quant, fa2, dec_attn):
         eng = decode.DecodeEngine(p, cfg, max_seqs=8, max_seq_len=2048,
                                   cache_dtype=cache, **kw)
         torch.cuda.synchronize()
-        reset_serving_launches(fa2, dec_attn)
+        reset_counts(SERVING_KERNELS)
         t0 = time.perf_counter()
         reqs = eng.run(prompts, max_new_tokens=64)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
-        launches = read_serving_launches(fa2, dec_attn)
+        launches = read_counts(SERVING_KERNELS)
         need = (("paged_chunk", "paged_decode") if kw
                 else ("fa2_forward", "paged_decode"))
         check_served(f"quant serving {name}", reqs, eng, launches, need,
@@ -1918,7 +1946,7 @@ def merge_steps(torch, transformer, lora, params):
     return merged, worst
 
 
-def phase_qlora(torch, np, transformer, training, lora, quant, fa2, bwd):
+def phase_qlora(torch, np, transformer, training, lora, quant):
     """Two LoRA AdamW steps at base width, B4 S2048, on an int4 base: the
     loss finite, the base bytes unchanged, the adapters moved, merge_lora's
     logits within the int4 requantization budget of the unmerged ones.
@@ -1944,14 +1972,14 @@ def phase_qlora(torch, np, transformer, training, lora, quant, fa2, bwd):
     tokens = np.random.default_rng(9).integers(0, cfg.vocab_size, (b, s + 1))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_launches(fa2, bwd)
+    reset_counts(TRAIN_KERNELS)
     losses, times = [], []
     for _ in range(2):
         t0 = time.perf_counter()
         state, metrics = step(state, tokens)
         losses.append(metrics["loss"].item())
         times.append(time.perf_counter() - t0)
-    launches = read_launches(fa2, bwd)
+    launches = read_counts(TRAIN_KERNELS)
     after = lora_leaves(state.params)
     same_base = all(torch.equal(x0, x.base.values) for x0, x in zip(before, after))
     moved = sum(bool(x.b.any()) for x in after)
@@ -1993,9 +2021,9 @@ def phase_x(torch, r5):
     """X's entry point at B4 H8 S2048 D128 bf16 (its launches are the
     path's), then each variant against its plain version on the same
     inputs, with bounds and plain times."""
-    r5.launches = 0
+    reset_counts(["r5_d128_fwd"])
     rows = r5.main([])
-    launches = r5.launches
+    launches = launch_counts()["r5_d128_fwd"]
     if launches < len(r5.VARIANTS):
         raise AssertionError(f"X: {launches} launches in its entry point")
     gen = torch.Generator(device="cuda").manual_seed(0)  # main's inputs
@@ -2044,6 +2072,119 @@ def phase_x(torch, r5):
     return out, launches
 
 
+def phase_bench(torch, np, transformer, decode, decode_bench, train_bench,
+                serve_profile, label_profile):
+    """The serving and training benchmarks at TransformerConfig.base(): the
+    decode device loop (a CUDA graph of one step against eager launches),
+    greedy tokens of the burst-8 engine, the burst-1 engine and an eager
+    decode_step loop (bitwise equal), the engine at bursts 1 and 8 with
+    engine_overhead_x and on phase 5's 12 requests, and the train step."""
+    cfg = transformer.TransformerConfig.base()
+    b, p, gen = 16, 128, 32
+    out = {}
+    reset_counts(SERVING_KERNELS)
+    loop = decode_bench.measure_decode_throughput(cfg, batch=b, prompt_len=p,
+                                                  gen_tokens=gen, repeats=3)
+    loop["eager_over_graph"] = loop["eager_step_ms"] / loop["step_ms"]
+    loop["launches"] = read_counts(SERVING_KERNELS)
+    out["device_loop"] = loop
+    log("bench device loop", json.dumps(loop))
+    if not all(loop["launches"][k] for k in ("fa2_forward", "paged_decode")):
+        raise AssertionError(f"bench: a kernel of the loop never ran: {loop}")
+
+    # Greedy tokens three ways on the same 16 prompts and weights: the
+    # engine at bursts 1 and 8 (graphs) and an eager decode_step loop from
+    # the engine's first tokens, at the engine's table width (16 pages).
+    max_len = 2048
+    params, caches, table, first = decode_bench.build_state(cfg, b, p, max_len)
+    prompts = decode_bench._prompt_tokens(cfg, b, p, 0).tolist()
+    toks = {}
+    for burst in (1, 8):
+        eng = decode.DecodeEngine(params, cfg, max_seqs=b, max_seq_len=max_len,
+                                  decode_burst=burst)
+        reqs = eng.run(prompts, max_new_tokens=gen + 1)
+        toks[burst] = [r.generated for r in reqs]
+        if not eng.graph_replays or (burst > 1
+                                     and not eng.stats.get("burst_dispatches")):
+            raise AssertionError(f"bench: burst {burst} ran no graph replay or "
+                                 f"burst: {eng.stats}, {eng.graph_replays}")
+    eager = decode_bench.make_loop_fn(cfg, table, p, graph=False)
+    eager(params, caches, torch.tensor([t[0] for t in toks[1]], device="cuda"), gen)
+    toks["eager"] = [[t[0]] + col for t, col in zip(
+        toks[1], eager.history.T.tolist())]
+    same = toks[8] == toks[1] == toks["eager"]
+    out["greedy_bitwise_equal"] = same
+    log(f"bench greedy tokens: burst 8 == burst 1 == eager loop: {same}")
+    if not same:
+        raise AssertionError("bench: greedy tokens differ between burst 8, "
+                             "burst 1 and the eager loop")
+    del params, caches, eng
+
+    for burst in (1, 8):
+        reset_counts(SERVING_KERNELS)
+        e = decode_bench.measure_engine_throughput(cfg, batch=b, prompt_len=p,
+                                                   gen_tokens=gen,
+                                                   decode_burst=burst)
+        e["engine_overhead_x"] = e["engine_ms_per_token_step"] / loop["step_ms"]
+        e["launches"] = read_counts(SERVING_KERNELS)
+        out[f"engine_burst{burst}"] = e
+        log(f"bench engine burst {burst}", json.dumps(e))
+
+    # Phase 5's 12 requests at bursts 1 and 8: the same tokens.
+    served = {}
+    for burst in (1, 8):
+        params = transformer.init_params(
+            torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+        eng = decode.DecodeEngine(params, cfg, max_seqs=8, max_seq_len=2048,
+                                  decode_burst=burst)
+        torch.cuda.synchronize()
+        reset_counts(SERVING_KERNELS)
+        t0 = time.perf_counter()
+        reqs = eng.run(serving_mix(np, cfg), max_new_tokens=64)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = read_counts(SERVING_KERNELS)
+        check_served(f"bench serving burst {burst}", reqs, eng, launches,
+                     ("fa2_forward", "paged_decode"), cfg.vocab_size, 64)
+        total = sum(len(r.generated) for r in reqs)
+        served[burst] = [r.generated for r in reqs]
+        out[f"serving_burst{burst}"] = dict(
+            tokens=total, seconds=elapsed, tokens_per_s=total / elapsed,
+            steps=eng.stats["steps"],
+            burst_dispatches=eng.stats.get("burst_dispatches", 0),
+            graph_replays=eng.graph_replays,
+            ttft_ms_median=statistics.median(r.ttft_s for r in reqs) * 1e3,
+            tpot_ms_median=statistics.median(r.tpot_s for r in reqs) * 1e3,
+            launches=launches)
+        log(f"bench serving burst {burst}", json.dumps(out[f"serving_burst{burst}"]))
+        if burst == 8:
+            out["profile_burst8"] = phase_profile(torch, np, eng,
+                                                  "bench profile (burst 8)",
+                                                  new_tokens=8 * 13 + 1)
+        del eng, params
+    if served[1] != served[8]:
+        raise AssertionError("bench: phase 5's requests differ between bursts 1 and 8")
+    out["profile_burst1"] = {k: serve_profile[k] for k in (
+        "decode_step_ms", "tokens_per_step", "device_busy_ms_per_step",
+        "device_idle_share", "kernel_launches_per_step",
+        "host_launch_calls_per_step")}
+    log(label_profile, json.dumps(out["profile_burst1"]))
+
+    torch.cuda.empty_cache()
+    reset_counts(TRAIN_KERNELS)
+    train = train_bench.measure_train_throughput(cfg, 4, 2048, iters=2, repeats=3)
+    train["launches"] = read_counts(TRAIN_KERNELS)
+    out["train"] = train
+    log("bench train", json.dumps(train))
+    log(f"bench train tokens/s {train['train_tokens_per_sec_per_chip']:.1f} "
+        f"(step {train['step_ms']:.2f} ms, {train['repeats']} slopes "
+        f"{train['step_ms_min']:.2f}-{train['step_ms_max']:.2f} ms)")
+    if not (np.isfinite(train["loss"]) and train["launches"]["fa2_forward"]
+            and train["launches"]["fa2_backward_fused"]):
+        raise AssertionError(f"bench train: {train}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2061,7 +2202,12 @@ def main() -> int:
     from cuda_flash_attention_tpu_torch.decode import attention as dec_attn
     from cuda_flash_attention_tpu_torch.decode import kv_cache
     from cuda_flash_attention_tpu_torch import cli
-    from cuda_flash_attention_tpu_torch.bench import configs, harness
+    from cuda_flash_attention_tpu_torch.bench import (
+        configs,
+        decode_bench,
+        harness,
+        train_bench,
+    )
     from cuda_flash_attention_tpu_torch.kernels import _build, attention
     from cuda_flash_attention_tpu_torch.kernels import baselines as base
     from cuda_flash_attention_tpu_torch.kernels import fa2_backward as bwd
@@ -2119,10 +2265,10 @@ def main() -> int:
     e2e = phase_e2e(torch, np, transformer, decode)
     log(f"phase 4: e2e parity ok in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    serve, eng = phase_serving(torch, np, transformer, decode, fa2, dec_attn)
+    serve, eng = phase_serving(torch, np, transformer, decode)
     log(f"phase 5: serving ok in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    phase_profile(torch, np, eng)
+    serve_profile = phase_profile(torch, np, eng)
     log(f"phase 6: profile ok in {time.perf_counter() - t0:.1f} s")
     del eng
     torch.cuda.empty_cache()
@@ -2137,7 +2283,7 @@ def main() -> int:
     log(f"phase 8: train parity ok in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     train, remat, (state, step, tokens) = phase_train(
-        torch, np, transformer, training, fa2, bwd, dataclasses)
+        torch, np, transformer, training, dataclasses)
     log(f"phase 9: training ok in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_train_profile(torch, state, step, tokens)
@@ -2145,7 +2291,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase 10: train profile ok in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    split = phase_train_split(torch, np, transformer, training, fa2, bwd)
+    split = phase_train_split(torch, np, transformer, training)
     log(f"phase 11: split-route training ok in {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
@@ -2153,18 +2299,16 @@ def main() -> int:
     b6 = phase_b6(torch, dec_attn, kv_cache)
     log(f"phase 12: B6 ok in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    spec_parity = phase_spec_parity(torch, np, transformer, decode, dec_attn,
-                                    dataclasses)
+    spec_parity = phase_spec_parity(torch, np, transformer, decode, dataclasses)
     log(f"phase 13: speculative, prefix and chunked parity ok in "
         f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    spec = phase_spec_serving(torch, np, transformer, decode, fa2, dec_attn,
-                              dataclasses)
+    spec = phase_spec_serving(torch, np, transformer, decode, dataclasses)
     log(f"phase 14: speculative serving ok in {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    prefix = phase_prefix_chunked(torch, np, transformer, decode, fa2, dec_attn)
+    prefix = phase_prefix_chunked(torch, np, transformer, decode)
     log(f"phase 15: prefix caching and chunked prefill ok in "
         f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
@@ -2179,22 +2323,15 @@ def main() -> int:
     # Every kernel's launches on the reference-contract path: the CLI (this
     # process's runs) and the harness.  B1 runs fa2 at S > 128, B2 bf16/fp16
     # backward at Stress-1, B3 + B4 fp32 backward there (split route).
-    fa2.launches = fa2.small_launches = 0
-    bwd.fused_launches = bwd.dq_launches = bwd.dkv_launches = 0
-    base.fa1_launches = base.naive_fa2_launches = 0
+    contract_kernels = TRAIN_KERNELS + ("fa2_forward_small", "fa1", "naive_fa2")
+    reset_counts(contract_kernels)
     t0 = time.perf_counter()
     phase_cli(torch, np, cli, io, reference, str(_build.BUILD_DIR.parent))
     log(f"phase 17: CLI ok in {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     phase_harness(harness, configs)
-    contract_launches = {"fa2_forward": fa2.launches,
-                         "fa2_forward_small": fa2.small_launches,
-                         "fa2_backward_fused": bwd.fused_launches,
-                         "fa2_backward_dq": bwd.dq_launches,
-                         "fa2_backward_dkv": bwd.dkv_launches,
-                         "fa1": base.fa1_launches,
-                         "naive_fa2": base.naive_fa2_launches}
+    contract_launches = read_counts(contract_kernels)
     log(f"phase 18: harness ok in {time.perf_counter() - t0:.1f} s; launches "
         f"in phases 17-18: {json.dumps(contract_launches)}")
     if not all(contract_launches.values()):
@@ -2209,17 +2346,22 @@ def main() -> int:
     paged_quant = phase_paged_quant(torch, dec_attn, kv_cache)
     log(f"phase 20: B5/B6 on fp8 and int4 pages ok in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    quant_serve = phase_quant_serving(torch, np, transformer, decode, quant, fa2,
-                                      dec_attn)
+    quant_serve = phase_quant_serving(torch, np, transformer, decode, quant)
     log(f"phase 21: quantized serving ok in {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    qlora = phase_qlora(torch, np, transformer, training, lora, quant, fa2, bwd)
+    qlora = phase_qlora(torch, np, transformer, training, lora, quant)
     log(f"phase 22: QLoRA ok in {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     x_rows, x_launches = phase_x(torch, r5)
     log(f"phase 23: X ok in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bench = phase_bench(torch, np, transformer, decode, decode_bench, train_bench,
+                        serve_profile, "bench profile (burst 1, phase 6)")
+    log(f"phase 24: serving and training benchmarks ok in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # Representative shapes for the kernel line: the serving phase's largest
     # prefill (B4 S1536 bf16) and the int8 cache with bf16 compute.
@@ -2347,6 +2489,16 @@ def main() -> int:
         ms=rx["ms"], plain_ms=rx["plain_ms"], bound_ms=rx["bound_ms"],
         bound_by=rx["bound_by"], library_ms=rx["library_ms"], b1_ms=rx["b1_ms"],
         variants_ms={r["variant"]: r["ms"] for r in x_rows}))
+    # B1, B5 and B2 on the benchmarks' paths (phase 24: the device loop,
+    # the engines, phase 5's requests at bursts 1 and 8, the train chain).
+    bench_launches = {"fa2_forward": 0, "paged_decode": 0, "fa2_backward_fused": 0}
+    for run in bench.values():
+        for name, n in (run.get("launches", {}) if isinstance(run, dict) else {}).items():
+            if name in bench_launches:
+                bench_launches[name] += n
+    for k in kernels:
+        if k["name"] in bench_launches:
+            k["launches_bench"] = bench_launches[k["name"]]
     # B5 and B6 also ran the quantized serving path (phase 21).
     for k in kernels:
         if k["name"] in ("fa2_forward", "paged_decode", "paged_chunk"):
@@ -2359,6 +2511,7 @@ def main() -> int:
     log(json.dumps({"e2e_logit_diff": e2e, "train_parity": parity,
                     "autograd": autograd, "remat": remat,
                     "spec_parity": spec_parity, "qlora": qlora,
+                    "bench": {k: bench[k] for k in ("greedy_bitwise_equal",)},
                     "paged_quant_rows": len(paged_quant)}))
     log(card_line())
     log(json.dumps({"kernels": kernels}))

@@ -1,6 +1,7 @@
 """Serving layer: paged quantized KV cache, the paged decode (B5) and paged
 chunk (B6) kernels, the verify step, continuous-batching engine with
-speculative decoding, prefix caching and chunked prefill."""
+speculative decoding, prefix caching, chunked prefill, logit bias and
+penalties, and decode steps (and bursts) as captured CUDA graphs."""
 
 from cuda_flash_attention_tpu_torch.decode.attention import (  # noqa: F401
     paged_chunk_attention,

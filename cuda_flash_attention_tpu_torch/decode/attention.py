@@ -24,20 +24,12 @@ import functools
 import torch
 
 from cuda_flash_attention_tpu_torch.decode.kv_cache import KVPages
-from cuda_flash_attention_tpu_torch.kernels import _build
+from cuda_flash_attention_tpu_torch.kernels import _build, launches
 from cuda_flash_attention_tpu_torch.kernels.common import (
     DEFAULT_MASK_VALUE,
     is_packed_int4,
     kv_storage_cast,
 )
-
-# Kernel launches since the last reset (each wrapper adds one per launch):
-# B5's in `launches`, B6's in `chunk_launches`, and of those, the launches
-# that ran B6's fp32 tile body (fp32 compute, T * group > 64) also in
-# `chunk_fp32_tile_launches`.
-launches = 0
-chunk_launches = 0
-chunk_fp32_tile_launches = 0
 
 _SOURCE = "paged_decode"
 _CHUNK_SOURCE = "paged_chunk"
@@ -232,10 +224,9 @@ def paged_decode_attention(q, pages: KVPages, page_table, lengths, *,
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: unsupported device {q.device}")
-    global launches
     out = decode_launch(_lib(), q, pages, page_table, lengths, sm_scale=sm_scale,
                         compute_dtype=compute_dtype)
-    launches += 1
+    launches.count("paged_decode")
     return out
 
 
@@ -313,13 +304,12 @@ def paged_chunk_attention(q, pages: KVPages, page_table, lengths, *,
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged_chunk_attention: unsupported device {q.device}")
-    global chunk_launches, chunk_fp32_tile_launches
     out = chunk_launch(_chunk_lib(), q, pages, page_table, lengths,
                        sm_scale=sm_scale, compute_dtype=compute_dtype)
-    chunk_launches += 1
+    launches.count("paged_chunk")
     if (compute_dtype == torch.float32
             and chunk_body(chunk, n_heads // n_kv_heads) == "tiles"):
-        chunk_fp32_tile_launches += 1
+        launches.count("paged_chunk_fp32_tile")
     return out
 
 

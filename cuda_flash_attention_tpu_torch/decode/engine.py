@@ -23,16 +23,31 @@ Counterpart of cuda_flash_attention_tpu/decode/engine.py:
     `verify_step`, and the host keeps the longest accepted prefix plus one
     target token: greedy output equals plain greedy decoding, sampled output
     is distributed as target-only sampling (`speculative_accept`).
+  * Decode steps run as captured CUDA graphs (decode/graphs.py): the
+    decode-and-sample step reads its inputs from persistent device buffers
+    that the host refills before each run, and is replayed once per token.
+    With `decode_burst` > 1 one run replays it up to decode_burst times
+    with one readback (the JAX engine's `_device_burst`); the per-token
+    step is the same graph run once.  On the CPU the step runs eagerly.
+  * Logit bias and presence/frequency penalties per request: a [max_seqs,
+    vocab] bias matrix added to the logits of every step (the prefill's
+    first token, decode steps, speculative verification); penalties update
+    its rows as tokens are emitted, and inside a burst a device count of
+    the burst's own tokens replays them exactly.
+  * `scan_layers` is accepted and runs the per-layer list form: JAX scans
+    stacked layers to compile one layer body, and eager PyTorch compiles
+    nothing, so a stacked layout would run the same kernels on the same
+    values.
 
 Entry points run on the CUDA card unless `device="cpu"` is given, which
 runs the kernels' plain versions.  Not ported yet (and refused): meshes,
-decode bursts, scanned layers, sliding windows and sinks, logit bias and
-repetition penalties.
+sliding windows and sinks.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from collections import deque
 
@@ -40,6 +55,7 @@ import numpy as np
 import torch
 
 from cuda_flash_attention_tpu_torch._device import resolve_device
+from cuda_flash_attention_tpu_torch.decode.graphs import StepGraph
 from cuda_flash_attention_tpu_torch.decode.kv_cache import (
     PageAllocator,
     init_kv_pages,
@@ -80,6 +96,16 @@ class Request:
     on_token: object | None = None
     # Per-token log-probabilities of the sampled tokens (engine logprobs=True).
     logprobs: list[float] = dataclasses.field(default_factory=list)
+    # Per-request logit bias {token_id: bias} added to every step's logits
+    # before sampling (float("-inf") bans a token).
+    logit_bias: dict | None = None
+    # OpenAI-style repetition controls: presence_penalty is subtracted once
+    # per distinct generated token, frequency_penalty per occurrence, through
+    # the same bias row (under speculation the update lands between rounds).
+    presence_penalty: float = 0.0
+    frequency_penalty: float = 0.0
+    # Distinct generated tokens (presence-penalty checks).
+    seen: set = dataclasses.field(default_factory=set)
     # Host wall clock (time.monotonic): submit -> first token is TTFT.
     submitted_at: float = 0.0
     first_token_at: float = 0.0
@@ -117,7 +143,20 @@ class DecodeEngine:
     ``cache_dtype`` (target and draft caches) is torch.int8, "int4",
     torch.float8_e4m3fn, torch.float8_e5m2, torch.bfloat16 or torch.float32;
     params may hold QuantizedTensor (int8/fp8/int4, W8A8) and LoRATensor
-    weights."""
+    weights.
+
+    ``decode_burst`` > 1 runs up to that many chained decode steps per
+    engine step with one readback (speculation never bursts); while chunked
+    prefills are in flight a burst is capped at ``prefill_burst_cap`` steps
+    (0 or None: no cap).  Streaming callbacks fire at the readback; TTFT
+    and TPOT are host time at emission.  Greedy output does not depend on
+    the burst length.  Sampled output is reproducible per seed (and burst
+    length): the captured step draws from the engine's own generator,
+    registered with its graph, so every replay draws new numbers.
+
+    ``scan_layers`` runs the per-layer list form, as the JAX engine does
+    whenever its layers do not stack: the scan there cuts compile time, and
+    eager PyTorch compiles nothing."""
 
     def __init__(self, params, cfg: TransformerConfig, *, max_seqs: int = 8,
                  max_seq_len: int = 2048, page_size: int = 128,
@@ -129,11 +168,9 @@ class DecodeEngine:
                  spec_tokens: int = 0, spec_mode: str = "draft",
                  lookup_ngram: int = 2, prefix_cache: bool = False,
                  prefill_chunk: int | None = None, scan_layers: bool = False,
-                 decode_burst: int = 1):
+                 decode_burst: int = 1, prefill_burst_cap: int = 8):
         for what, unsupported in (
             ("a mesh", mesh is not None),
-            ("scanned layers", scan_layers),
-            ("decode bursts (decode_burst > 1)", decode_burst != 1),
             ("sliding-window attention and sinks",
              cfg.attn_window is not None or cfg.attn_sinks),
         ):
@@ -156,11 +193,7 @@ class DecodeEngine:
             num_pages = max_seqs * self.pages_per_seq + 1  # + the null page
         self.num_pages = num_pages
         self.allocator = PageAllocator(num_pages)
-        self.caches = [
-            init_kv_pages(cfg.n_kv_heads, num_pages, page_size, cfg.head_dim,
-                          cache_dtype, device=self.device)
-            for _ in range(cfg.n_layers)
-        ]
+        self.caches = self._new_caches(cfg, cache_dtype)
         # Chunked prefill: prompts longer than this advance one chunk per
         # step (a multiple of the page size, so every chunk write is whole
         # pages from a page boundary).
@@ -195,11 +228,7 @@ class DecodeEngine:
                 raise _not_ported("a windowed draft model")
             self.draft_cfg = draft_cfg
             self.draft_params = self._serving_copy(draft_params, draft_cfg)
-            self.draft_caches = [
-                init_kv_pages(draft_cfg.n_kv_heads, num_pages, page_size,
-                              draft_cfg.head_dim, cache_dtype, device=self.device)
-                for _ in range(draft_cfg.n_layers)
-            ]
+            self.draft_caches = self._new_caches(draft_cfg, cache_dtype)
 
         # Prefix caching: full prompt pages registered under their token
         # prefix.  The port has one data shard, so one map each way (the JAX
@@ -232,6 +261,41 @@ class DecodeEngine:
                       "spec_proposed": 0, "spec_accepted": 0,
                       "prefill_chunks": 0}
 
+        # Per-slot logit-bias matrix [max_seqs, vocab] on the host, made at
+        # the first biased request and dropped when the last one retires;
+        # its device copy is refreshed only when the revision changes.
+        self._bias: np.ndarray | None = None
+        self._bias_rev = 0
+        self._bias_dev_rev = -1
+        self._biased_slots: set[int] = set()
+
+        # Decode bursts: up to decode_burst chained steps per engine step.
+        self.decode_burst = max(1, int(decode_burst))
+        self.prefill_burst_cap = int(prefill_burst_cap or 0)
+        # The decode step's persistent device inputs and outputs (a captured
+        # graph reads and writes these addresses): the host fills them
+        # before each run.  The bias and penalty buffers are made at first
+        # use and kept, so every graph that reads them stays valid.
+        dev = self.device
+        self._buf = {
+            "tokens": torch.zeros(max_seqs, dtype=torch.long, device=dev),
+            "positions": torch.zeros(max_seqs, dtype=torch.long, device=dev),
+            "table": torch.zeros(max_seqs, self.pages_per_seq,
+                                 dtype=torch.int32, device=dev),
+            "active": torch.zeros(max_seqs, dtype=torch.bool, device=dev),
+            "remaining": torch.zeros(max_seqs, dtype=torch.int32, device=dev),
+            "i": torch.zeros(1, dtype=torch.long, device=dev),
+            "toks": torch.zeros(self.decode_burst, max_seqs, dtype=torch.long,
+                                device=dev),
+            "lps": torch.zeros(self.decode_burst, max_seqs, dtype=torch.float32,
+                               device=dev),
+        }
+        # One graph per (bias, penalties) (sampling and logprobs are fixed
+        # per engine), sharing one memory pool.
+        self._graphs: dict[tuple[bool, bool], StepGraph] = {}
+        self._graph_pool = (torch.cuda.graph_pool_handle()
+                            if dev.type == "cuda" else None)
+
     def _serving_copy(self, params, cfg: TransformerConfig):
         """A compute-dtype copy of the 2-D weights on the engine's device
         (decode needs no fp32 master); norm scales keep their dtype.  A
@@ -249,6 +313,11 @@ class DecodeEngine:
             return p.to(self.device)
 
         return _map_params(params, copy)
+
+    def _new_caches(self, cfg: TransformerConfig, cache_dtype):
+        return [init_kv_pages(cfg.n_kv_heads, self.num_pages, self.page_size,
+                              cfg.head_dim, cache_dtype, device=self.device)
+                for _ in range(cfg.n_layers)]
 
     def _dev(self, array) -> torch.Tensor:
         """A device COPY of host state: the host goes on mutating its numpy
@@ -300,6 +369,9 @@ class DecodeEngine:
         greedy[i]; the correction or bonus is greedy[m])."""
         logits, _ = verify_step(self.params, chunk, positions, self.caches,
                                 table, active, self.cfg)
+        bias = self._bias_dev()
+        if bias is not None:
+            logits = logits + bias[:, None, :]
         greedy = torch.argmax(logits, dim=-1)
         lp = None
         if self.want_logprobs:
@@ -315,6 +387,9 @@ class DecodeEngine:
         and the rule stays exact."""
         logits, _ = verify_step(self.params, chunk, positions, self.caches,
                                 table, active, self.cfg)
+        bias = self._bias_dev()
+        if bias is not None:
+            logits = logits + bias[:, None, :]
         warped = warp_logits(logits.reshape(-1, logits.shape[-1]),
                              temperature=self.temperature, top_k=self.top_k,
                              top_p=self.top_p, min_p=self.min_p)
@@ -331,6 +406,154 @@ class DecodeEngine:
         rows = torch.arange(pt.shape[0], device=pt.device)
         lp_final = logpt[rows, m.long()].gather(-1, final.long()[:, None])[:, 0]
         return m, final, lp_drafts, lp_final
+
+    def _device_step(self, bias: bool, penalties: bool):
+        """One decode-and-sample step over the persistent buffers (the body
+        of the JAX engine's `_device_burst`, engine.py:772-811): slot s runs
+        while remaining[s] > i, at position positions[s] + i; the token it
+        samples goes to toks[i] and feeds the next step; i advances.  The
+        bias rows are added to the logits; with penalties, so is
+        -presence * (sampled in this burst, not before) - frequency *
+        (times sampled in this burst), the uploaded bias carrying every
+        earlier token's penalties."""
+        b = self._buf
+        i = b["i"]
+        act = b["active"] & (b["remaining"] > i)
+        logits, _ = decode_step(self.params, b["tokens"], b["positions"] + i,
+                                self.caches, b["table"], act, self.cfg)
+        if bias:
+            logits = logits + b["bias"]
+        if penalties:
+            counts = b["counts"]
+            newly = (counts > 0) & ~b["pre_seen"]
+            logits = (logits - b["presence"][:, None] * newly
+                      - b["frequency"][:, None] * counts)
+        kw = dict(temperature=self.temperature, top_k=self.top_k,
+                  top_p=self.top_p, min_p=self.min_p)
+        if self.want_logprobs:
+            nxt, lp = sample_with_logprob(logits, self._generator, **kw)
+            b["lps"].index_copy_(0, i, lp[None])
+        else:
+            nxt = sample_tokens(logits, self._generator, **kw)
+        tokens = torch.where(act, nxt.long(), b["tokens"])
+        b["toks"].index_copy_(0, i, tokens[None])
+        b["tokens"].copy_(tokens)
+        if penalties:
+            counts.scatter_add_(1, tokens[:, None], act[:, None].float())
+        i.add_(1)
+
+    def _warmup_step(self, step):
+        """`step` once with every slot inactive (its cache writes go to the
+        null page, which nothing attends), then the step index back at 0."""
+        b = self._buf
+        active = b["active"].clone()
+        b["active"].zero_()
+        step()
+        b["active"].copy_(active)
+        b["i"].zero_()
+
+    def _graph_for(self, bias: bool, penalties: bool) -> StepGraph:
+        g = self._graphs.get((bias, penalties))
+        if g is None:
+            step = functools.partial(self._device_step, bias, penalties)
+            g = StepGraph(step, self.device,
+                          warmup=functools.partial(self._warmup_step, step),
+                          generator=self._generator if self.temperature > 0 else None,
+                          pool=self._graph_pool)
+            self._graphs[(bias, penalties)] = g
+        return g
+
+    @property
+    def graph_replays(self) -> int:
+        """Replays of the captured decode step so far (0 on the CPU)."""
+        return sum(g.replays for g in self._graphs.values())
+
+    def _run_decode(self, n: int, remaining: np.ndarray, penalties=None):
+        """Fill the step's buffers from the host tables, run it n times (n
+        graph replays on the card) and read back the tokens [n, max_seqs]
+        and, with logprobs, their log-probabilities."""
+        b = self._buf
+        b["tokens"].copy_(torch.from_numpy(self.last_token.astype(np.int64)))
+        b["positions"].copy_(torch.from_numpy(self.lengths.astype(np.int64)))
+        b["table"].copy_(torch.from_numpy(self.page_table))
+        b["active"].copy_(torch.from_numpy(self.active))
+        b["remaining"].copy_(torch.from_numpy(remaining))
+        b["i"].zero_()
+        bias = self._bias_dev() is not None
+        if penalties is not None:
+            if "counts" not in b:
+                shape, dev = (self.max_seqs, self.cfg.vocab_size), self.device
+                b["pre_seen"] = torch.zeros(shape, dtype=torch.bool, device=dev)
+                b["counts"] = torch.zeros(shape, dtype=torch.float32, device=dev)
+                b["presence"] = torch.zeros(self.max_seqs, device=dev)
+                b["frequency"] = torch.zeros(self.max_seqs, device=dev)
+            for name, arr in zip(("pre_seen", "presence", "frequency"), penalties):
+                b[name].copy_(torch.from_numpy(arr))
+            b["counts"].zero_()
+        self._graph_for(bias, penalties is not None).run(n)
+        toks = b["toks"][:n].cpu().numpy()
+        lps = b["lps"][:n].cpu().numpy() if self.want_logprobs else None
+        return toks, lps
+
+    def _burst_eligible(self) -> bool:
+        """Bursts are exact whenever nothing the device cannot model changes
+        its inputs between tokens: speculation keeps its own rounds, all
+        else bursts (penalties replay on the device, chunked prefill
+        interleaves one chunk per engine step between bursts)."""
+        return self.decode_burst > 1 and not self.spec_tokens
+
+    def _penalty_inputs(self):
+        """A burst's penalty state: (pre_seen [slots, vocab] bool, presence
+        [slots] fp32, frequency [slots] fp32), or None when no active slot
+        carries penalties."""
+        if not any(self.active[s] and (self._slot_req[s].presence_penalty
+                                       or self._slot_req[s].frequency_penalty)
+                   for s in range(self.max_seqs)):
+            return None
+        pre_seen = np.zeros((self.max_seqs, self.cfg.vocab_size), bool)
+        presence = np.zeros((self.max_seqs,), np.float32)
+        frequency = np.zeros((self.max_seqs,), np.float32)
+        for s in np.flatnonzero(self.active).tolist():
+            req = self._slot_req[s]
+            presence[s] = req.presence_penalty
+            frequency[s] = req.frequency_penalty
+            if req.seen and (req.presence_penalty or req.frequency_penalty):
+                pre_seen[s, list(req.seen)] = True
+        return pre_seen, presence, frequency
+
+    def _burst_step(self):
+        """One burst of up to decode_burst chained steps, its tokens emitted
+        in order (streaming callbacks fire at the readback; cancellation
+        lands at burst bounds).  Tokens sampled past a slot's EOS or stop
+        are dropped here; their K/V lies past the slot's length, unattended,
+        and is overwritten later."""
+        n = self.decode_burst
+        if self.prefilling.any() and self.prefill_burst_cap:
+            n = min(n, self.prefill_burst_cap)
+        remaining = np.zeros((self.max_seqs,), np.int32)
+        for slot in np.flatnonzero(self.active).tolist():
+            req = self._slot_req[slot]
+            remaining[slot] = max(req.max_new_tokens - len(req.generated), 0)
+            self._ensure_page(slot, extra=min(n, int(remaining[slot])) - 1)
+        with torch.inference_mode():
+            toks, lps = self._run_decode(n, remaining, self._penalty_inputs())
+        # Steps = the longest advance of a slot in this burst, as the
+        # per-token path would count them.
+        self.stats["steps"] += int(min(n, remaining.max(initial=0)))
+        self.stats["burst_dispatches"] = self.stats.get("burst_dispatches", 0) + 1
+        act0 = self.active.copy()
+        for i in range(n):
+            for slot in range(self.max_seqs):
+                if not act0[slot] or i >= remaining[slot]:
+                    continue
+                req = self._slot_req[slot]
+                if req.done:
+                    continue  # EOS or stop earlier in this burst
+                tok = int(toks[i, slot])
+                self.lengths[slot] += 1
+                self._emit(req, tok, lps[i, slot] if lps is not None else None)
+                self.last_token[slot] = tok
+                self._maybe_finish(req, tok)
 
     # ------------------------------------------------------------------
     # Scheduler (host)
@@ -356,10 +579,12 @@ class DecodeEngine:
                 f"shorten prompt/max_new_tokens"
             )
 
-    @staticmethod
-    def _check_no_bias(logit_bias, presence_penalty, frequency_penalty):
-        if logit_bias or presence_penalty or frequency_penalty:
-            raise _not_ported("logit bias and repetition penalties")
+    def _validate_bias(self, logit_bias):
+        """Out-of-vocab bias keys are refused at submit (at admission the
+        error would surface from an unrelated step())."""
+        for t in logit_bias or ():
+            if not 0 <= int(t) < self.cfg.vocab_size:
+                raise ValueError(f"logit_bias token {int(t)} out of vocab")
 
     @staticmethod
     def _norm_stop(stop):
@@ -377,7 +602,10 @@ class DecodeEngine:
                frequency_penalty: float = 0.0) -> Request:
         """Queue a request; it is admitted as soon as a slot and pages free
         up.  `stop` is an optional list of token sequences that end
-        generation; `on_token` an optional per-token streaming callback."""
+        generation; `on_token` an optional per-token streaming callback;
+        `logit_bias` maps token id -> bias added to every step's logits
+        (-inf bans); the penalties are OpenAI's presence and frequency
+        penalties."""
         return self.submit_many([prompt], max_new_tokens, eos_id, stop,
                                 on_token, logit_bias, presence_penalty,
                                 frequency_penalty)[0]
@@ -388,14 +616,17 @@ class DecodeEngine:
                     frequency_penalty: float = 0.0) -> list[Request]:
         """Enqueue several requests BEFORE admitting, so prompts of one
         length bucket prefill as one batched forward."""
-        self._check_no_bias(logit_bias, presence_penalty, frequency_penalty)
         stop = self._norm_stop(stop)
+        self._validate_bias(logit_bias)
+        bias = dict(logit_bias) if logit_bias else None
         reqs = []
         for p in prompts:
             p = [int(t) for t in p]
             self._validate_request(p, max_new_tokens)
             reqs.append(Request(self._next_uid, p, max_new_tokens, eos_id,
-                                stop=stop, on_token=on_token,
+                                stop=stop, on_token=on_token, logit_bias=bias,
+                                presence_penalty=float(presence_penalty),
+                                frequency_penalty=float(frequency_penalty),
                                 submitted_at=time.monotonic()))
             self._next_uid += 1
             self._pending.append(reqs[-1])
@@ -485,7 +716,63 @@ class DecodeEngine:
             return tok.cpu().numpy(), lp.cpu().numpy()
         return sample_tokens(logits, self._generator, **kw).cpu().numpy(), None
 
+    def _ensure_bias(self) -> np.ndarray:
+        if self._bias is None:
+            self._bias = np.zeros((self.max_seqs, self.cfg.vocab_size),
+                                  np.float32)
+        return self._bias
+
+    def _bind_bias(self, req: Request, slot: int):
+        """Write a request's logit_bias into its slot's row of the bias
+        matrix (made at first use); a request without bias or penalties
+        clears a row an earlier request left."""
+        if not (req.logit_bias is not None or req.presence_penalty
+                or req.frequency_penalty):
+            if self._bias is not None and slot in self._biased_slots:
+                self._bias[slot, :] = 0.0
+                self._biased_slots.discard(slot)
+                self._bias_rev += 1
+            return
+        row = self._ensure_bias()[slot]
+        row[:] = 0.0
+        for t, b in (req.logit_bias or {}).items():
+            row[int(t)] = b  # keys validated at submit
+        self._biased_slots.add(slot)
+        self._bias_rev += 1
+
+    def _bias_dev(self):
+        """The bias matrix in its persistent device buffer, copied from the
+        host only when the revision changed; None without biased requests."""
+        if self._bias is None:
+            return None
+        buf = self._buf.get("bias")
+        if buf is None:
+            buf = self._buf["bias"] = torch.zeros(
+                self.max_seqs, self.cfg.vocab_size, device=self.device)
+        if self._bias_dev_rev != self._bias_rev:
+            buf.copy_(torch.from_numpy(self._bias))
+            self._bias_dev_rev = self._bias_rev
+        return buf
+
+    def _with_bias(self, logits, slots):
+        """First-token logits of `slots` plus their bias rows."""
+        if self._bias is None:
+            return logits
+        return logits + torch.from_numpy(self._bias[slots]).to(logits.device)
+
     def _emit(self, req: Request, tok: int, logprob=None):
+        """Record one generated token: transcript, logprob, telemetry, the
+        repetition penalties (in the slot's bias row) and the streaming
+        callback."""
+        if req.presence_penalty or req.frequency_penalty:
+            row = self._ensure_bias()[req.slot]
+            if req.presence_penalty and tok not in req.seen:
+                row[tok] -= req.presence_penalty
+            if req.frequency_penalty:
+                row[tok] -= req.frequency_penalty
+            self._biased_slots.add(req.slot)
+            self._bias_rev += 1
+        req.seen.add(tok)
         if not req.first_token_at:
             req.first_token_at = time.monotonic()
         req.generated.append(tok)
@@ -521,6 +808,8 @@ class DecodeEngine:
         tokens = np.zeros((len(reqs), pad_len), np.int64)
         for i, r in enumerate(reqs):
             tokens[i, :len(r.prompt)] = r.prompt
+        for req, slot in zip(reqs, slots):
+            self._bind_bias(req, slot)
         with torch.inference_mode():
             tokens_dev = self._dev(tokens)
             logits, kv = prefill_forward(self.params, tokens_dev, self.cfg)
@@ -531,7 +820,7 @@ class DecodeEngine:
                 writes.append((self.draft_caches, draft_kv))
             last = self._dev([len(r.prompt) - 1 for r in reqs])
             last_logits = logits[torch.arange(len(reqs), device=self.device), last]
-            firsts, first_lps = self._sample(last_logits)
+            firsts, first_lps = self._sample(self._with_bias(last_logits, slots))
             for i, (req, slot) in enumerate(zip(reqs, slots)):
                 n_pages = cdiv(len(req.prompt), self.page_size)
                 page_ids = self.allocator.alloc(n_pages)
@@ -605,6 +894,7 @@ class DecodeEngine:
         prefix_len = len(hits) * ps
         suffix = req.prompt[prefix_len:]
         pad_len = cdiv(len(suffix), ps) * ps
+        self._bind_bias(req, slot)
         self.allocator.share(hits)
         pages = list(hits) + self.allocator.alloc(pad_len // ps)
         self._slot_pages[slot] = pages
@@ -613,7 +903,8 @@ class DecodeEngine:
         tokens = np.zeros((1, pad_len), np.int64)
         tokens[0, :len(suffix)] = suffix
         logits = self._chunk_forward([slot], tokens, np.array([prefix_len]))
-        firsts, lps = self._sample(logits[:, len(suffix) - 1])
+        firsts, lps = self._sample(self._with_bias(logits[:, len(suffix) - 1],
+                                                   [slot]))
         self._start_decoding(req, slot, int(firsts[0]),
                              lps[0] if lps is not None else None)
 
@@ -623,6 +914,7 @@ class DecodeEngine:
         slots keep stepping.  Pages are allocated per chunk.  With `hits`
         (prefix-cache pages covering the prompt's head) only the suffix is
         chunked."""
+        self._bind_bias(req, slot)
         self.page_table[slot, :] = 0
         self._slot_pages[slot] = list(hits or ())
         if hits:
@@ -667,7 +959,8 @@ class DecodeEngine:
                 continue
             rows = [logits[i, len(self._slot_req[slots[i]].prompt) - 1 - starts[i]]
                     for i in done]
-            toks, lps = self._sample(torch.stack(rows))
+            toks, lps = self._sample(self._with_bias(torch.stack(rows),
+                                                     [slots[i] for i in done]))
             for j, i in enumerate(done):
                 self._start_decoding(self._slot_req[slots[i]], slots[i],
                                      int(toks[j]),
@@ -705,6 +998,12 @@ class DecodeEngine:
         self.allocator.free(self._slot_pages[slot])
         self._slot_pages[slot] = []
         self.page_table[slot, :] = 0
+        if self._bias is not None and slot in self._biased_slots:
+            self._bias[slot, :] = 0.0
+            self._biased_slots.discard(slot)
+            self._bias_rev += 1
+            if not self._biased_slots:
+                self._bias = None  # no biased request left: no bias input
         self.lengths[slot] = 0
         self.active[slot] = False
         self._slot_req[slot] = None
@@ -784,21 +1083,19 @@ class DecodeEngine:
         if self.spec_tokens:
             self._spec_round()
             return finished
+        if self._burst_eligible():
+            self._burst_step()
+            return finished
         for slot in np.flatnonzero(self.active).tolist():
             self._ensure_page(slot)
         with torch.inference_mode():
-            logits, _ = decode_step(
-                self.params, self._dev(self.last_token).long(),
-                self._dev(self.lengths).long(), self.caches,
-                self._dev(self.page_table), self._dev(self.active), self.cfg,
-            )
-            next_tokens, lps = self._sample(logits)
+            toks, lps = self._run_decode(1, self.active.astype(np.int32))
         self.stats["steps"] += 1
         for slot in np.flatnonzero(self.active).tolist():
             req = self._slot_req[slot]
-            tok = int(next_tokens[slot])
+            tok = int(toks[0, slot])
             self.lengths[slot] += 1  # the KV of last_token is now cached
-            self._emit(req, tok, lps[slot] if lps is not None else None)
+            self._emit(req, tok, lps[0, slot] if lps is not None else None)
             self.last_token[slot] = tok
             self._maybe_finish(req, tok)
         return finished
@@ -898,11 +1195,14 @@ class DecodeEngine:
             self._maybe_finish(req, take[-1])
 
     def run(self, prompts, max_new_tokens: int = 32, eos_id: int | None = None,
-            max_steps: int = 10000, stop=None, on_token=None):
+            max_steps: int = 10000, stop=None, on_token=None, logit_bias=None,
+            presence_penalty: float = 0.0, frequency_penalty: float = 0.0):
         """Submit all prompts (batch-admitted), step until done, return the
         requests in submission order."""
         reqs = self.submit_many(prompts, max_new_tokens, eos_id, stop=stop,
-                                on_token=on_token)
+                                on_token=on_token, logit_bias=logit_bias,
+                                presence_penalty=presence_penalty,
+                                frequency_penalty=frequency_penalty)
         steps = 0
         while (any(not r.done for r in reqs) or self._pending) and steps < max_steps:
             self.step()

@@ -4,8 +4,10 @@ attention.
 
 Counterpart of cuda_flash_attention_tpu/decode/model.py in its per-layer
 list form (caches are a list of KVPages, params["layers"] a list).  The
-decode and verify steps append to the caches in place.  Not ported yet (and
-refused): the scanned (stacked) form, meshes, sliding windows and sinks.
+decode and verify steps append to the caches in place.  The stacked form
+is not kept: JAX scans it to compile one layer body, and eager PyTorch
+compiles nothing, so the engine's scan_layers runs this list form.  Not
+ported yet (and refused): meshes, sliding windows and sinks.
 """
 
 from __future__ import annotations

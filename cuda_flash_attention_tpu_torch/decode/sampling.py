@@ -27,11 +27,13 @@ def warp_logits(logits, *, temperature: float, top_k: int = 0,
         )
     if not 0.0 <= min_p < 1.0:
         raise ValueError(f"min_p must be in [0, 1); got {min_p}")
-    neg_inf = torch.tensor(float("-inf"), device=logits.device)
+    # Scalars are made on the logits' device (no host copy: a captured
+    # CUDA graph may run this).
+    neg_inf = logits.new_full((), float("-inf"))
     logits = logits / temperature
     if min_p > 0.0:
         cutoff = logits.amax(dim=-1, keepdim=True) + torch.log(
-            torch.tensor(min_p, device=logits.device))
+            torch.full((), min_p, device=logits.device))
         logits = torch.where(logits >= cutoff, logits, neg_inf)
     if top_p < 1.0:
         sorted_logits = torch.sort(logits, dim=-1, descending=True).values
@@ -40,7 +42,7 @@ def warp_logits(logits, *, temperature: float, top_k: int = 0,
         # Keep tokens while the mass BEFORE them is < p (always >= 1 token).
         keep_mass = cum - probs < top_p
         cutoff = torch.where(keep_mass, sorted_logits,
-                             torch.tensor(float("inf"), device=logits.device))
+                             logits.new_full((), float("inf")))
         cutoff = cutoff.amin(dim=-1, keepdim=True)
         logits = torch.where(logits >= cutoff, logits, neg_inf)
     if top_k > 0:

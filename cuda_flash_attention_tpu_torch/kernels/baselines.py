@@ -17,17 +17,13 @@ import ctypes
 
 import torch
 
-from cuda_flash_attention_tpu_torch.kernels import _build
+from cuda_flash_attention_tpu_torch.kernels import _build, launches
 from cuda_flash_attention_tpu_torch.kernels.common import (
     DEFAULT_MASK_VALUE,
     KERNEL_HEAD_DIMS,
     MIN_BLOCK,
     pad_to_block,
 )
-
-# Kernel launches since the last reset (each wrapper adds one per launch).
-fa1_launches = 0        # B9
-naive_fa2_launches = 0  # B10
 
 # KV rows per tile of both kernels; the plain versions walk the same tiles,
 # so they round where the kernels round.
@@ -76,7 +72,6 @@ def fa1_aligned(q, k, v, *, sm_scale: float, kv_len: int):
         return fa1_plain(q, k, v, sm_scale=sm_scale, kv_len=kv_len)
     if q.device.type != "cuda":
         raise ValueError(f"fa1: unsupported device {q.device}")
-    global fa1_launches
     _check("fa1", q, k, v)
     b, h, sq, d = q.shape
     o = torch.empty_like(q)
@@ -88,7 +83,7 @@ def fa1_aligned(q, k, v, *, sm_scale: float, kv_len: int):
         l.data_ptr(), b * h, sq, k.shape[2], d, kv_len, sm_scale,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, "cfa_baselines_error_string", err, "fa1")
-    fa1_launches += 1
+    launches.count("fa1")
     return o
 
 
@@ -98,7 +93,6 @@ def naive_fa2_aligned(q, k, v, *, sm_scale: float, kv_len: int):
         return naive_fa2_plain(q, k, v, sm_scale=sm_scale, kv_len=kv_len)
     if q.device.type != "cuda":
         raise ValueError(f"naive_fa2: unsupported device {q.device}")
-    global naive_fa2_launches
     _check("naive_fa2", q, k, v)
     b, h, sq, d = q.shape
     o = torch.empty_like(q)
@@ -108,7 +102,7 @@ def naive_fa2_aligned(q, k, v, *, sm_scale: float, kv_len: int):
         k.shape[2], d, kv_len, sm_scale,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, "cfa_baselines_error_string", err, "naive_fa2")
-    naive_fa2_launches += 1
+    launches.count("naive_fa2")
     return o
 
 

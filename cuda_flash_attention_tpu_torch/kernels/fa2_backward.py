@@ -33,7 +33,7 @@ import ctypes
 
 import torch
 
-from cuda_flash_attention_tpu_torch.kernels import _build
+from cuda_flash_attention_tpu_torch.kernels import _build, launches
 from cuda_flash_attention_tpu_torch.kernels.common import (
     KERNEL_HEAD_DIMS,
     LN2,
@@ -43,11 +43,6 @@ from cuda_flash_attention_tpu_torch.kernels.common import (
     cdiv,
     tile_code,
 )
-
-# Kernel launches since the last reset (each wrapper adds one per launch).
-fused_launches = 0
-dq_launches = 0
-dkv_launches = 0
 
 _SOURCE = "fa2_backward"
 # Rows of the KV tile that owns one dQ slice in B2, by tile code (the CUDA
@@ -212,7 +207,6 @@ def fa2_backward_fused_aligned(q, k, v, o, do, lse, *, causal: bool,
                                         tile_dtype=tile_dtype)
     if q.device.type != "cuda":
         raise ValueError(f"fa2_backward_fused: unsupported device {q.device}")
-    global fused_launches
     do = do.contiguous()
     lse = _stat(lse)
     _check("fa2_backward_fused", q, k, v, tile_dtype, (do, o), (lse,))
@@ -241,7 +235,7 @@ def fa2_backward_fused_aligned(q, k, v, o, do, lse, *, causal: bool,
         dq_part.data_ptr(), dq.data_ptr(), b, hq, sq, skv, d, kv_len, causal_i,
         sm_scale, in_bf16, tiles, stream)
     _build.check(lib, "cfa_fa2_backward_error_string", err, "fa2_backward_fused")
-    fused_launches += 1
+    launches.count("fa2_backward_fused")
     return dq, dk, dv
 
 
@@ -254,7 +248,6 @@ def fa2_backward_dq_aligned(q, k, v, do, lse, di, *, causal: bool,
                                      tile_dtype=tile_dtype)
     if q.device.type != "cuda":
         raise ValueError(f"fa2_backward_dq: unsupported device {q.device}")
-    global dq_launches
     do = do.contiguous()
     lse, di = _stat(lse), _stat(di)
     _check("fa2_backward_dq", q, k, v, tile_dtype, (do,), (lse, di))
@@ -268,7 +261,7 @@ def fa2_backward_dq_aligned(q, k, v, do, lse, di, *, causal: bool,
         lse.data_ptr(), di.data_ptr(), dq.data_ptr(), *ints, sm_scale,
         causal_i, in_bf16, tiles, workspace.data_ptr(), stream)
     _build.check(lib, "cfa_fa2_backward_error_string", err, "fa2_backward_dq")
-    dq_launches += 1
+    launches.count("fa2_backward_dq")
     return dq
 
 
@@ -282,7 +275,6 @@ def fa2_backward_dkv_aligned(q, k, v, do, lse, di, *, causal: bool,
                                       tile_dtype=tile_dtype)
     if q.device.type != "cuda":
         raise ValueError(f"fa2_backward_dkv: unsupported device {q.device}")
-    global dkv_launches
     do = do.contiguous()
     lse, di = _stat(lse), _stat(di)
     _check("fa2_backward_dkv", q, k, v, tile_dtype, (do,), (lse, di))
@@ -297,7 +289,7 @@ def fa2_backward_dkv_aligned(q, k, v, do, lse, di, *, causal: bool,
         lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(), *ints,
         causal_i, in_bf16, tiles, workspace.data_ptr(), stream)
     _build.check(lib, "cfa_fa2_backward_error_string", err, "fa2_backward_dkv")
-    dkv_launches += 1
+    launches.count("fa2_backward_dkv")
     return dk, dv
 
 

@@ -18,7 +18,7 @@ import ctypes
 
 import torch
 
-from cuda_flash_attention_tpu_torch.kernels import _build
+from cuda_flash_attention_tpu_torch.kernels import _build, launches
 from cuda_flash_attention_tpu_torch.kernels.common import (
     DEFAULT_MASK_VALUE,
     KERNEL_HEAD_DIMS,
@@ -29,10 +29,6 @@ from cuda_flash_attention_tpu_torch.kernels.common import (
     build_element_mask,
     tile_code,
 )
-
-# Kernel launches since the last reset (each wrapper adds one per launch).
-launches = 0        # B1
-small_launches = 0  # B8
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -86,7 +82,6 @@ def fa2_forward_aligned(q, k, v, *, causal: bool, sm_scale: float,
                                  kv_len=kv_len, tile_dtype=tile_dtype)
     if q.device.type != "cuda":
         raise ValueError(f"fa2_forward: unsupported device {q.device}")
-    global launches
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     _check_inputs("fa2_forward", q, k, v, tile_dtype)
@@ -107,7 +102,7 @@ def fa2_forward_aligned(q, k, v, *, causal: bool, sm_scale: float,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, "cfa_fa2_forward_error_string", err, "fa2_forward")
-    launches += 1
+    launches.count("fa2_forward")
     return o, lse
 
 
@@ -129,7 +124,6 @@ def fa2_forward_small_aligned(q, k, v, *, causal: bool, sm_scale: float,
                                        tile_dtype=tile_dtype)
     if q.device.type != "cuda":
         raise ValueError(f"fa2_forward_small: unsupported device {q.device}")
-    global small_launches
     _check_inputs("fa2_forward_small", q, k, v, tile_dtype)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s_pad), device=q.device, dtype=torch.float32)
@@ -142,7 +136,7 @@ def fa2_forward_small_aligned(q, k, v, *, causal: bool, sm_scale: float,
     )
     _build.check(lib, "cfa_fa2_forward_small_error_string", err,
                  "fa2_forward_small")
-    small_launches += 1
+    launches.count("fa2_forward_small")
     return o, lse
 
 

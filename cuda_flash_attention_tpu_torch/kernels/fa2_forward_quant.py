@@ -20,7 +20,7 @@ import ctypes
 
 import torch
 
-from cuda_flash_attention_tpu_torch.kernels import _build
+from cuda_flash_attention_tpu_torch.kernels import _build, launches
 from cuda_flash_attention_tpu_torch.kernels.attention import _check_window
 from cuda_flash_attention_tpu_torch.kernels.common import (
     DEFAULT_MASK_VALUE,
@@ -40,9 +40,6 @@ from cuda_flash_attention_tpu_torch.quant.qtensor import (
 __all__ = ["flash_attention_quantized_kv", "flash_attention_quantized_kv_with_lse",
            "flash_attention_int8_kv", "fa2_forward_quant_aligned",
            "fa2_forward_quant_plain"]
-
-# Kernel launches since the last reset (the wrapper adds one per launch).
-launches = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -93,10 +90,9 @@ def fa2_forward_quant_aligned(q, k_vals, k_scales, v_vals, v_scales, *,
             sm_scale=sm_scale, kv_len=kv_len, compute_dtype=compute_dtype)
     if q.device.type != "cuda":
         raise ValueError(f"fa2_forward_quant: unsupported device {q.device}")
-    global launches
     out = quant_launch(_lib(), q, k_vals, k_scales, v_vals, v_scales, causal=causal,
                        sm_scale=sm_scale, kv_len=kv_len, compute_dtype=compute_dtype)
-    launches += 1
+    launches.count("fa2_forward_quant")
     return out
 
 

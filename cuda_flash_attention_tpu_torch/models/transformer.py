@@ -14,6 +14,7 @@ yet.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -146,16 +147,24 @@ def rms_norm(x, scale, eps: float = 1e-6):
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _rope_freqs(theta: float, half: int, device: torch.device) -> torch.Tensor:
+    """RoPE's frequencies, computed on the CPU and kept on `device`, so that
+    a step captured in a CUDA graph copies nothing from the host."""
+    with torch.inference_mode(False):  # a normal tensor, wherever first made
+        log_theta = torch.log(torch.tensor(theta, dtype=torch.float32))
+        return torch.exp(
+            -log_theta * torch.arange(0, half, dtype=torch.float32) / half
+        ).to(device)
+
+
 def rope(x, positions, theta: float, pos_scale: float = 1.0):
     """Half-rotation RoPE.  x: [B, S, H, D]; positions: [B, S].  The
     frequencies are exp(-log(theta) * arange / half) in fp32, the same
     expression as the JAX package (a theta ** x form differs in the last
     bits)."""
     half = x.shape[-1] // 2
-    log_theta = torch.log(torch.tensor(theta, dtype=torch.float32))
-    freqs = torch.exp(
-        -log_theta * torch.arange(0, half, dtype=torch.float32) / half
-    ).to(x.device)
+    freqs = _rope_freqs(float(theta), half, x.device)
     angles = (positions[..., None].float() / pos_scale) * freqs  # [B, S, half]
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]

@@ -97,7 +97,7 @@ def dense(x: torch.Tensor, w) -> torch.Tensor:
         base = w.base if isinstance(w.base, QuantizedTensor) else w.base.detach()
         y = dense(x, base)
         delta = (x @ w.a.to(x.dtype)) @ w.b.to(x.dtype)
-        return y + delta * torch.tensor(w.scale, dtype=x.dtype, device=x.device)
+        return y + delta * torch.full((), w.scale, dtype=x.dtype, device=x.device)
     if isinstance(w, QuantizedTensor):
         return quantized_matmul(x, w)
     return x @ w.to(x.dtype)

@@ -25,7 +25,7 @@ import ctypes
 import torch
 
 from cuda_flash_attention_tpu_torch._device import resolve_device
-from cuda_flash_attention_tpu_torch.kernels import _build
+from cuda_flash_attention_tpu_torch.kernels import _build, launches
 from cuda_flash_attention_tpu_torch.kernels.common import LN2, LOG2E
 
 VARIANTS = ("v0_current", "v1_mxu_ones", "v2_lane_part", "v3_bf16_sum",
@@ -38,9 +38,6 @@ CPU_SHAPE = (1, 1, 128)  # B, H, S of the plain run on the CPU
 # up to 6% (on average 1.75%) above a true exp2 at these scores; it is the
 # probe's function, and the kernel computes the same.
 LN2_BF16 = 0.69140625
-
-# Kernel launches since the last reset (fwd adds one per launch).
-launches = 0
 
 
 # The C entry point's argument types (csrc/r5_d128_fwd.cu).
@@ -73,9 +70,8 @@ def fwd(q, k, v, variant: str):
         return fwd_plain(q, k, v, variant)
     if q.device.type != "cuda":
         raise ValueError(f"r5_d128_fwd: unsupported device {q.device}")
-    global launches
     out = launch(_lib(), q, k, v, variant)
-    launches += 1
+    launches.count("r5_d128_fwd")
     return out
 
 

@@ -17,6 +17,7 @@ import torch
 
 from cuda_flash_attention_tpu.kernels import baselines as jax_baselines
 from cuda_flash_attention_tpu_torch.kernels import baselines
+from cuda_flash_attention_tpu_torch.kernels.launches import LAUNCHES
 
 # (Sq, Skv padded, kv_len, D): Sq < Skv, Sq > Skv, kv_len inside the last
 # 64-row tile and inside the last 128-row block.
@@ -34,9 +35,9 @@ def test_naive_fa2_plain_matches_jax_kernel_over_several_tiles(sq, skv, kv_len, 
     want = jax_baselines._naive_fa2_aligned(
         *(jnp.asarray(x) for x in (q, k, v)), sm_scale=scale, kv_len=kv_len,
         interpret=True)
-    before = baselines.naive_fa2_launches
+    before = LAUNCHES["naive_fa2"]
     got = baselines.naive_fa2_aligned(*(torch.from_numpy(x) for x in (q, k, v)),
                                       sm_scale=scale, kv_len=kv_len)
-    assert baselines.naive_fa2_launches == before  # the plain version ran
+    assert LAUNCHES["naive_fa2"] == before  # the plain version ran
     assert got.shape == q.shape
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-6, rtol=0)

@@ -26,6 +26,7 @@ from cuda_flash_attention_tpu.ops import reference as jax_reference
 from cuda_flash_attention_tpu_torch import dispatch
 from cuda_flash_attention_tpu_torch.dispatch import ComputeType
 from cuda_flash_attention_tpu_torch.kernels import baselines
+from cuda_flash_attention_tpu_torch.kernels.launches import LAUNCHES
 
 SHAPE = (1, 2, 100, 64)
 
@@ -41,10 +42,10 @@ def test_baseline_matches_jax_kernel(which, s):
     q, k, v = _inputs(s, (1, 2, s, 64))
     want = getattr(jax_baselines, f"{which}_attention")(
         *(jnp.asarray(x) for x in (q, k, v)))
-    before = getattr(baselines, f"{which}_launches")
+    before = LAUNCHES[which]
     got = getattr(baselines, f"{which}_attention")(
         *(torch.from_numpy(x) for x in (q, k, v)))
-    assert getattr(baselines, f"{which}_launches") == before
+    assert LAUNCHES[which] == before
     assert got.shape == q.shape
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-6, rtol=0)
 

@@ -108,9 +108,7 @@ def test_greedy_sampling_and_logprob_match_jax():
         np.asarray(jax_sampling.sample_tokens(jnp.asarray(logits), None)))
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(mesh=object()), dict(decode_burst=4), dict(scan_layers=True),
-])
+@pytest.mark.parametrize("kwargs", [dict(mesh=object())])
 def test_unported_engine_options_raise(tiny, kwargs):
     with pytest.raises(NotImplementedError):
         _port_engine(tiny, **kwargs)
@@ -135,10 +133,6 @@ def test_windowed_config_and_penalties_raise(tiny):
     with pytest.raises(NotImplementedError):
         engine.DecodeEngine(params_t, dataclasses.replace(cfg_t, attn_window=64),
                             device="cpu")
-    with pytest.raises(NotImplementedError):
-        _port_engine(tiny).submit([1, 2], logit_bias={3: -1.0})
-    with pytest.raises(NotImplementedError):
-        _port_engine(tiny).submit([1, 2], presence_penalty=0.5)
 
 
 @pytest.mark.parametrize("entry", ["DecodeEngine", "init_params",

@@ -26,6 +26,7 @@ from cuda_flash_attention_tpu.kernels import fa2_backward as jax_bwd
 from cuda_flash_attention_tpu_torch.kernels import attention, fa2_backward
 from cuda_flash_attention_tpu_torch.kernels.common import BlockSizes, fit_block
 from cuda_flash_attention_tpu_torch.kernels.fa2_forward import fa2_forward_plain
+from cuda_flash_attention_tpu_torch.kernels.launches import LAUNCHES
 
 B, HQ, HKV, D = 1, 4, 2, 64
 TOL = {None: 1e-5, torch.bfloat16: 5e-2}
@@ -281,16 +282,16 @@ def test_fused_and_split_routes_agree(tile):
 
 
 def test_cpu_tensors_never_launch_a_kernel():
-    before = (fa2_backward.fused_launches, fa2_backward.dq_launches,
-              fa2_backward.dkv_launches)
+    before = (LAUNCHES["fa2_backward_fused"], LAUNCHES["fa2_backward_dq"],
+              LAUNCHES["fa2_backward_dkv"])
     rng = np.random.default_rng(12)
     ts = [torch.from_numpy(rng.standard_normal((1, h, 64, D), dtype=np.float32))
           .requires_grad_(True) for h in (HQ, HKV, HKV)]
     for bs in (None, SPLIT):
         o = attention.flash_attention(*ts, causal=True, block_sizes=bs)
         torch.autograd.grad(o.sum(), ts)
-    assert (fa2_backward.fused_launches, fa2_backward.dq_launches,
-            fa2_backward.dkv_launches) == before
+    assert (LAUNCHES["fa2_backward_fused"], LAUNCHES["fa2_backward_dq"],
+            LAUNCHES["fa2_backward_dkv"]) == before
 
 
 def test_with_lse_is_not_differentiable():

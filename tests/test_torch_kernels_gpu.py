@@ -17,6 +17,7 @@ fp32 at every KV tile).
 
 import dataclasses
 import functools
+import gc
 
 import numpy as np
 import pytest
@@ -35,6 +36,7 @@ from cuda_flash_attention_tpu_torch.kernels import (
     fa2_forward,
 )
 from cuda_flash_attention_tpu_torch.kernels.common import BlockSizes
+from cuda_flash_attention_tpu_torch.kernels.launches import LAUNCHES
 from cuda_flash_attention_tpu_torch.models import (
     TransformerConfig,
     init_params,
@@ -82,10 +84,10 @@ def test_fa2_forward_kernel_matches_plain(cuda, dtype, tile, d, b, hq, hkv, s,
                                           causal):
     rng = np.random.default_rng(s + d)
     q, k, v = (_randn(rng, b, h, s, d).to(dtype) for h in (hq, hkv, hkv))
-    before = fa2_forward.launches
+    before = LAUNCHES["fa2_forward"]
     o_k, lse_k = attention.flash_attention_with_lse(
         q.to(cuda), k.to(cuda), v.to(cuda), causal=causal, tile_dtype=tile)
-    assert fa2_forward.launches == before + 1
+    assert LAUNCHES["fa2_forward"] == before + 1
     o_p, lse_p = attention.flash_attention_with_lse(q, k, v, causal=causal,
                                                     tile_dtype=tile)
     assert o_k.dtype == dtype and o_k.shape == q.shape
@@ -162,11 +164,11 @@ def test_paged_decode_kernel_matches_plain(cuda, cache, q_dtype, compute, d,
     q = _randn(rng, n, hq, d).to(q_dtype)
     pages_dev = kv_cache.KVPages(*(t.to(cuda) for t in (
         pages.k_pages, pages.k_scales, pages.v_pages, pages.v_scales)))
-    before = dec_attention.launches
+    before = LAUNCHES["paged_decode"]
     o_k = dec_attention.paged_decode_attention(
         q.to(cuda), pages_dev, table.to(cuda), lengths.to(cuda),
         compute_dtype=compute)
-    assert dec_attention.launches == before + 1
+    assert LAUNCHES["paged_decode"] == before + 1
     o_p = dec_attention.paged_decode_attention(q, pages, table, lengths,
                                                compute_dtype=compute)
     assert o_k.dtype == q_dtype and not o_k[1].any()
@@ -202,10 +204,10 @@ def test_paged_chunk_kernel_matches_plain(cuda, cache, q_dtype, compute, d, hq,
         pages.k_pages, pages.k_scales, pages.v_pages, pages.v_scales)))
     q = _randn(rng, n, chunk, hq, d).to(q_dtype).to(cuda)
     table, lengths = table.to(cuda), lengths.to(cuda)
-    before = dec_attention.chunk_launches
+    before = LAUNCHES["paged_chunk"]
     o_k = dec_attention.paged_chunk_attention(q, pages, table, lengths,
                                               compute_dtype=compute)
-    assert dec_attention.chunk_launches == before + 1
+    assert LAUNCHES["paged_chunk"] == before + 1
     o_p = dec_attention.paged_chunk_attention_plain(
         q, pages, table, lengths, sm_scale=d ** -0.5, compute_dtype=compute)
     torch.cuda.synchronize()
@@ -281,14 +283,14 @@ def test_engine_features_on_the_card_match_the_cpu(cuda, feature):
     for dev, opts in ((None, kw), ("cpu", kw), (None, {})):
         eng = DecodeEngine(params, cfg, max_seqs=2, max_seq_len=512,
                            cache_dtype=torch.float32, device=dev, **opts)
-        before = dec_attention.chunk_launches
+        before = LAUNCHES["paged_chunk"]
         # One request first: the prefix cache holds its pages while it runs.
         first = eng.submit(prompts[0], max_new_tokens=6)
         eng.step()
         rest = eng.run(prompts[1:], max_new_tokens=6)
         runs[(dev, bool(opts))] = [r.generated for r in [first] + rest]
         if dev is None and opts:
-            assert dec_attention.chunk_launches > before
+            assert LAUNCHES["paged_chunk"] > before
         assert eng.allocator.available == eng.num_pages - 1
     assert runs[(None, True)] == runs[("cpu", True)] == runs[(None, False)]
 
@@ -338,8 +340,8 @@ def test_fa2_backward_kernels_match_plain(cuda, dtype, tile, d, b, hq, hkv, s,
     x, kw = _bwd_problem(dtype, tile, d, b, hq, hkv, s, causal, seed=s + d)
     g = {n: t.to(cuda) for n, t in x.items()}
     tol = 5e-2 if (tile is not None or dtype == torch.bfloat16) else 2e-5
-    before = (fa2_backward.fused_launches, fa2_backward.dq_launches,
-              fa2_backward.dkv_launches)
+    before = (LAUNCHES["fa2_backward_fused"], LAUNCHES["fa2_backward_dq"],
+              LAUNCHES["fa2_backward_dkv"])
     fused = fa2_backward.fa2_backward_fused_aligned(
         g["q"], g["k"], g["v"], g["o"], g["do"], g["lse"], **kw)
     dq = fa2_backward.fa2_backward_dq_aligned(
@@ -347,8 +349,8 @@ def test_fa2_backward_kernels_match_plain(cuda, dtype, tile, d, b, hq, hkv, s,
     dkv = fa2_backward.fa2_backward_dkv_aligned(
         g["q"], g["k"], g["v"], g["do"], g["lse"], g["di"], **kw)
     torch.cuda.synchronize()
-    assert (fa2_backward.fused_launches, fa2_backward.dq_launches,
-            fa2_backward.dkv_launches) == tuple(n + 1 for n in before)
+    assert (LAUNCHES["fa2_backward_fused"], LAUNCHES["fa2_backward_dq"],
+            LAUNCHES["fa2_backward_dkv"]) == tuple(n + 1 for n in before)
     plain = fa2_backward.fa2_backward_fused_plain(
         x["q"], x["k"], x["v"], x["o"], x["do"], x["lse"], **kw)
     for got, want in zip(fused, plain):
@@ -391,10 +393,10 @@ def test_fa2_backward_fused_kernel_at_long_and_unequal_lengths(
         cuda, dtype, tile, d, b, hq, hkv, sq, skv, causal):
     x, kw = _fused_problem(dtype, tile, d, b, hq, hkv, sq, skv, causal,
                            seed=sq + skv + d)
-    before = fa2_backward.fused_launches
+    before = LAUNCHES["fa2_backward_fused"]
     got = fa2_backward.fa2_backward_fused_aligned(*x, **kw)
     torch.cuda.synchronize()
-    assert fa2_backward.fused_launches == before + 1
+    assert LAUNCHES["fa2_backward_fused"] == before + 1
     want = fa2_backward.fa2_backward_fused_plain(*x, **kw)
     tol = 5e-2 if (tile is not None or dtype == torch.bfloat16) else 2e-5
     for g, w in zip(got, want):
@@ -502,10 +504,10 @@ def test_split_kernels_at_the_edges_of_their_tiles(cuda, dtype, tile, d, hq, hkv
     128- or 64-row KV tiles and of B4's 128-row KV tiles and Q walk."""
     x, kw = _split_problem(dtype, tile, d, hq, hkv, sq, skv, causal, kv_len,
                            seed=sq + skv + d)
-    before = (fa2_backward.dq_launches, fa2_backward.dkv_launches)
+    before = (LAUNCHES["fa2_backward_dq"], LAUNCHES["fa2_backward_dkv"])
     got = _split_outputs(x, kw)
     torch.cuda.synchronize()
-    assert (fa2_backward.dq_launches, fa2_backward.dkv_launches) == (
+    assert (LAUNCHES["fa2_backward_dq"], LAUNCHES["fa2_backward_dkv"]) == (
         before[0] + 1, before[1] + 1)
     want = (fa2_backward.fa2_backward_dq_plain(*x, **kw),
             *fa2_backward.fa2_backward_dkv_plain(*x, **kw))
@@ -557,10 +559,10 @@ def test_split_kernels_fp32_at_the_edges_of_their_rings(cuda, d, hq, hkv, sq, sk
     plain output's max, where their rings wrap and their walks end."""
     x, kw = _split_problem(torch.float32, None, d, hq, hkv, sq, skv, causal,
                            kv_len, seed=sq + skv + d)
-    before = (fa2_backward.dq_launches, fa2_backward.dkv_launches)
+    before = (LAUNCHES["fa2_backward_dq"], LAUNCHES["fa2_backward_dkv"])
     got = _split_outputs(x, kw)
     torch.cuda.synchronize()
-    assert (fa2_backward.dq_launches, fa2_backward.dkv_launches) == (
+    assert (LAUNCHES["fa2_backward_dq"], LAUNCHES["fa2_backward_dkv"]) == (
         before[0] + 1, before[1] + 1)
     want = (fa2_backward.fa2_backward_dq_plain(*x, **kw),
             *fa2_backward.fa2_backward_dkv_plain(*x, **kw))
@@ -592,7 +594,7 @@ def test_fa2_backward_bitwise_deterministic(cuda, tile, block_sizes):
     q = _randn(rng, 1, 4, 2048, 64).to(cuda)
     k, v = (_randn(rng, 1, 2, 2048, 64).to(cuda) for _ in range(2))
     w = _randn(rng, 1, 4, 2048, 64).to(cuda)
-    launches = (fa2_backward.fused_launches, fa2_backward.dq_launches)
+    launches = (LAUNCHES["fa2_backward_fused"], LAUNCHES["fa2_backward_dq"])
     runs = []
     for _ in range(2):
         ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
@@ -600,8 +602,8 @@ def test_fa2_backward_bitwise_deterministic(cuda, tile, block_sizes):
                                       block_sizes=block_sizes)
         runs.append(torch.autograd.grad((o * w).sum(), ts))
     fused = block_sizes is None
-    assert fa2_backward.fused_launches == launches[0] + (2 if fused else 0)
-    assert fa2_backward.dq_launches == launches[1] + (0 if fused else 2)
+    assert LAUNCHES["fa2_backward_fused"] == launches[0] + (2 if fused else 0)
+    assert LAUNCHES["fa2_backward_dq"] == launches[1] + (0 if fused else 2)
     for a, b in zip(*runs):
         assert torch.equal(a, b)
 
@@ -661,9 +663,9 @@ def test_remat_full_reruns_the_forward_kernel(cuda):
     params = init_params(torch.Generator().manual_seed(0), cfg, device="cuda")
     opt = make_optimizer()
     tokens = np.random.default_rng(10).integers(0, 256, (2, 129))
-    before = fa2_forward.launches
+    before = LAUNCHES["fa2_forward"]
     make_optax_train_step(cfg, opt)(init_train_state(params, opt), tokens)
-    assert fa2_forward.launches == before + 2 * cfg.n_layers
+    assert LAUNCHES["fa2_forward"] == before + 2 * cfg.n_layers
 
 
 @FWD_VARIANTS
@@ -677,10 +679,10 @@ def test_fa2_forward_small_kernel_matches_plain(cuda, dtype, tile, d, b, h, s,
     """B8 through the public API: Sq = Skv <= 128 with Hq = Hkv."""
     rng = np.random.default_rng(s + d + 1)
     q, k, v = (_randn(rng, b, h, s, d).to(dtype) for _ in range(3))
-    before = (fa2_forward.launches, fa2_forward.small_launches)
+    before = (LAUNCHES["fa2_forward"], LAUNCHES["fa2_forward_small"])
     o_k, lse_k = attention.flash_attention_with_lse(
         q.to(cuda), k.to(cuda), v.to(cuda), causal=causal, tile_dtype=tile)
-    assert (fa2_forward.launches, fa2_forward.small_launches) == (
+    assert (LAUNCHES["fa2_forward"], LAUNCHES["fa2_forward_small"]) == (
         before[0], before[1] + 1)
     o_p, lse_p = attention.flash_attention_with_lse(q, k, v, causal=causal,
                                                     tile_dtype=tile)
@@ -698,12 +700,12 @@ def test_small_shape_gradients_match_the_cpu(cuda):
     xs = [_randn(rng, 2, 4, 100, 64) for _ in range(3)]
     w = _randn(rng, 2, 4, 100, 64)
     grads = {}
-    before = fa2_forward.small_launches
+    before = LAUNCHES["fa2_forward_small"]
     for dev in (cuda, torch.device("cpu")):
         ts = [t.to(dev).requires_grad_(True) for t in xs]
         o = attention.flash_attention(*ts, causal=True)
         grads[dev.type] = torch.autograd.grad((o * w.to(dev)).sum(), ts)
-    assert fa2_forward.small_launches == before + 1
+    assert LAUNCHES["fa2_forward_small"] == before + 1
     for a, b in zip(grads["cuda"], grads["cpu"]):
         assert _rel_err(a, b) <= 2e-5
 
@@ -716,10 +718,10 @@ def test_baseline_kernels_match_plain(cuda, which, d, b, h, s):
     rng = np.random.default_rng(s + d)
     q, k, v = (_randn(rng, b, h, s, d) for _ in range(3))
     fn = getattr(baselines, f"{which}_attention")
-    before = getattr(baselines, f"{which}_launches")
+    before = LAUNCHES[which]
     o_k = fn(q.to(cuda), k.to(cuda), v.to(cuda))
     torch.cuda.synchronize()
-    assert getattr(baselines, f"{which}_launches") == before + 1
+    assert LAUNCHES[which] == before + 1
     o_p = fn(q, k, v)
     assert o_k.shape == q.shape and o_k.dtype == torch.float32
     assert (o_k.cpu() - o_p).abs().max().item() <= 1e-5
@@ -739,10 +741,10 @@ def test_baseline_kernels_at_long_and_unequal_lengths(cuda, which, b, h, sq,
     q = _randn(rng, b, h, sq, d).to(cuda)
     k, v = (_randn(rng, b, h, skv, d).to(cuda) for _ in range(2))
     kw = dict(sm_scale=d ** -0.5, kv_len=kv_len)
-    before = getattr(baselines, f"{which}_launches")
+    before = LAUNCHES[which]
     o_k = getattr(baselines, f"{which}_aligned")(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert getattr(baselines, f"{which}_launches") == before + 1
+    assert LAUNCHES[which] == before + 1
     o_p = getattr(baselines, f"{which}_plain")(q, k, v, **kw)
     assert (o_k - o_p).abs().max().item() <= 1e-5
 
@@ -764,10 +766,10 @@ def test_naive_fa2_kernel_at_the_block_edges(cuda, d, sq, skv, kv_len):
     q = _randn(rng, 2, 3, sq, d).to(cuda)
     k, v = (_randn(rng, 2, 3, skv, d).to(cuda) for _ in range(2))
     kw = dict(sm_scale=d ** -0.5, kv_len=kv_len)
-    before = baselines.naive_fa2_launches
+    before = LAUNCHES["naive_fa2"]
     o_k = baselines.naive_fa2_aligned(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert baselines.naive_fa2_launches == before + 1
+    assert LAUNCHES["naive_fa2"] == before + 1
     o_p = baselines.naive_fa2_plain(q, k, v, **kw)
     assert (o_k - o_p).abs().max().item() <= 1e-5
 
@@ -803,10 +805,10 @@ def test_fa2_forward_fp32_kernel_at_the_block_edges(cuda, d, b, hq, hkv, sq,
     q = _randn(rng, b, hq, sq, d).to(cuda)
     k, v = (_randn(rng, b, hkv, skv, d).to(cuda) for _ in range(2))
     kw = dict(causal=causal, sm_scale=d ** -0.5, kv_len=skv, tile_dtype=None)
-    before = fa2_forward.launches
+    before = LAUNCHES["fa2_forward"]
     o_k, lse_k = fa2_forward.fa2_forward_aligned(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert fa2_forward.launches == before + 1
+    assert LAUNCHES["fa2_forward"] == before + 1
     o_p, lse_p = fa2_forward.fa2_forward_plain(q, k, v, **kw)
     assert (o_k - o_p).abs().max().item() <= 2e-6
     assert ((lse_k - lse_p).abs() / lse_p.abs().clamp_min(1)).max().item() <= 1e-5
@@ -916,9 +918,9 @@ def test_fa2_forward_quant_kernel_matches_plain(cuda, storage, q_dtype, compute,
     k_q, v_q = quantize_kv(_randn(rng, b, hkv, s, d).to(cuda),
                            _randn(rng, b, hkv, s, d).to(cuda), storage)
     kw = dict(causal=causal, compute_dtype=compute)
-    before = fq.launches
+    before = LAUNCHES["fa2_forward_quant"]
     o_k, lse_k = fq.flash_attention_quantized_kv_with_lse(q, k_q, v_q, **kw)
-    assert fq.launches == before + 1
+    assert LAUNCHES["fa2_forward_quant"] == before + 1
     args = (q, k_q.values, k_q.scales[..., 0].contiguous(), v_q.values,
             v_q.scales[..., 0].contiguous())
     o_p, lse_p = fq.fa2_forward_quant_plain(*args, causal=causal, sm_scale=d ** -0.5,
@@ -977,10 +979,10 @@ def test_paged_decode_kernel_on_fp8_and_int4_pages(cuda, cache, q_dtype, compute
     pages = _cache_pages(rng, cache, hkv, num_pages, page, d, table, n, pps, cuda)
     q = _randn(rng, n, hq, d).to(q_dtype).to(cuda)
     table, lengths = table.to(cuda), lengths.to(cuda)
-    before = dec_attention.launches
+    before = LAUNCHES["paged_decode"]
     o_k = dec_attention.paged_decode_attention(q, pages, table, lengths,
                                                compute_dtype=compute)
-    assert dec_attention.launches == before + 1
+    assert LAUNCHES["paged_decode"] == before + 1
     o_p = dec_attention.paged_decode_attention_plain(
         q, pages, table, lengths, sm_scale=d ** -0.5, compute_dtype=compute)
     torch.cuda.synchronize()
@@ -1004,10 +1006,10 @@ def test_paged_chunk_kernel_on_fp8_and_int4_pages(cuda, cache, compute, chunk):
     pages = _cache_pages(rng, cache, hkv, num_pages, page, d, table, n, pps, cuda)
     q = _randn(rng, n, chunk, hq, d).to(compute).to(cuda)
     table, lengths = table.to(cuda), lengths.to(cuda)
-    before = dec_attention.chunk_launches
+    before = LAUNCHES["paged_chunk"]
     o_k = dec_attention.paged_chunk_attention(q, pages, table, lengths,
                                               compute_dtype=compute)
-    assert dec_attention.chunk_launches == before + 1
+    assert LAUNCHES["paged_chunk"] == before + 1
     o_p = dec_attention.paged_chunk_attention_plain(
         q, pages, table, lengths, sm_scale=d ** -0.5, compute_dtype=compute)
     torch.cuda.synchronize()
@@ -1024,9 +1026,9 @@ def test_r5_probe_variants_match_plain(cuda, variant):
     rng = np.random.default_rng(5)
     q, k, v = (_randn(rng, 2, 4, 512, 128).to(torch.bfloat16).to(cuda)
                for _ in range(3))
-    before = r5.launches
+    before = LAUNCHES["r5_d128_fwd"]
     o_k, lse_k = r5.fwd(q, k, v, variant)
-    assert r5.launches == before + 1
+    assert LAUNCHES["r5_d128_fwd"] == before + 1
     o_p, lse_p = r5.fwd_plain(q, k, v, variant)
     torch.cuda.synchronize()
     excess = _bf16_excess(o_k, o_p)
@@ -1077,10 +1079,10 @@ def test_paged_decode_splits_match_plain(cuda, cache, d, group, compute):
         torch.cuda.get_device_properties(cuda).multi_processor_count)
     per = dec_attention.split_pages(SPLIT_PPS, n_splits) * 128
     assert n_splits > 1 and 256 % per == 0 and max(SPLIT_LENGTHS) > per
-    before = dec_attention.launches
+    before = LAUNCHES["paged_decode"]
     o_k = dec_attention.paged_decode_attention(q, pages, table, lengths,
                                                compute_dtype=compute)
-    assert dec_attention.launches == before + 1
+    assert LAUNCHES["paged_decode"] == before + 1
     o_p = dec_attention.paged_decode_attention_plain(
         q, pages, table, lengths, sm_scale=d ** -0.5, compute_dtype=compute)
     torch.cuda.synchronize()
@@ -1149,10 +1151,10 @@ def test_fa2_forward_small_q_tiles_match_plain(cuda, dtype, tile, bh, causal,
     d = 128 if s in (17, 100) else 64
     q, k, v = (_randn(rng, *bh, s, d).to(dtype) for _ in range(3))
     kw = dict(causal=causal, sm_scale=d ** -0.5, kv_len=kv_len, tile_dtype=tile)
-    before = fa2_forward.small_launches
+    before = LAUNCHES["fa2_forward_small"]
     o_k, lse_k = fa2_forward.fa2_forward_small_aligned(
         q.to(cuda), k.to(cuda), v.to(cuda), **kw)
-    assert fa2_forward.small_launches == before + 1
+    assert LAUNCHES["fa2_forward_small"] == before + 1
     o_p, lse_p = fa2_forward.fa2_forward_small_plain(q, k, v, **kw)
     low = tile is not None or dtype == torch.bfloat16
     err = (o_k.float().cpu() - o_p.float()).abs().max().item()
@@ -1208,10 +1210,10 @@ def _b6_problem(cache, d, group, chunk, compute, lengths, pps, seed=0):
 def test_paged_chunk_bodies_match_plain(cuda, cache, d, group, chunk, compute):
     q, pages, table, lengths = _b6_problem(cache, d, group, chunk, compute,
                                            _b6_lengths(chunk), B6_PPS)
-    before = dec_attention.chunk_launches
+    before = LAUNCHES["paged_chunk"]
     o_k = dec_attention.paged_chunk_attention(q, pages, table, lengths,
                                               compute_dtype=compute)
-    assert dec_attention.chunk_launches == before + 1
+    assert LAUNCHES["paged_chunk"] == before + 1
     o_p = dec_attention.paged_chunk_attention_plain(
         q, pages, table, lengths, sm_scale=d ** -0.5, compute_dtype=compute)
     torch.cuda.synchronize()
@@ -1317,3 +1319,169 @@ def test_r5_probe_on_its_wgmma_body(cuda, variant, s):
     lse_d = (lse_k - lse_p).abs()
     assert lse_d.max().item() <= (8e-3 if variant == "v3_bf16_sum" else 2e-4)
     assert lse_d.mean().item() <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# Decode steps as CUDA graphs (decode/graphs.py): the engine's bursts and
+# per-token steps, the benchmark's device loop.  The tiny model in fp32
+# (fp32 compute in B5) for the card-against-CPU comparisons; bf16 tiles and
+# an int8 cache where the graph is compared with eager launches on the card
+# (the same kernels on the same inputs: bitwise).
+# ---------------------------------------------------------------------------
+
+def _cache_ptrs(eng):
+    return [t.data_ptr() for c in eng.caches for t in (c.k_pages, c.k_scales,
+                                                        c.v_pages, c.v_scales)]
+
+
+@pytest.mark.parametrize("scan_layers", [False, True], ids=["list", "stacked"])
+def test_graph_burst_matches_an_eager_decode_loop(cuda, scan_layers):
+    """Greedy tokens of the engine at bursts 1 and 4 (replayed graphs) and
+    of an eager decode_step loop from the same prefill are bitwise equal;
+    scan_layers (the list form in the port) changes nothing."""
+    from cuda_flash_attention_tpu_torch.bench import decode_bench
+
+    cfg = TransformerConfig.tiny()
+    b, p, n = 4, 128, 9
+    params, caches, table, _ = decode_bench.build_state(
+        cfg, b, p, 2 * p, scan_layers=scan_layers)
+    prompts = decode_bench._prompt_tokens(cfg, b, p, 0).tolist()
+    toks = {}
+    for burst in (1, 4):
+        eng = DecodeEngine(params, cfg, max_seqs=b, max_seq_len=2 * p,
+                           decode_burst=burst, scan_layers=scan_layers)
+        toks[burst] = [r.generated for r in eng.run(prompts, max_new_tokens=n + 1)]
+        assert eng.graph_replays > 0
+    loop = decode_bench.make_loop_fn(cfg, table, p, graph=False)
+    loop(params, caches, torch.tensor([t[0] for t in toks[1]], device=cuda), n)
+    eager = [[t[0]] + col for t, col in zip(toks[1], loop.history.T.tolist())]
+    assert toks[4] == toks[1] == eager
+    graph = decode_bench.make_loop_fn(cfg, table, p)
+    graph(params, caches, torch.tensor([t[0] for t in toks[1]], device=cuda), n)
+    assert torch.equal(graph.history, loop.history)
+
+
+def test_graph_replays_after_the_table_grows_and_a_slot_retires(cuda):
+    """Bursts cross page boundaries (the table grows between replays), a
+    short request retires mid-run and a queued one takes its slot: the
+    card's tokens equal the CPU's, every cache writer kept its buffers (the
+    graph holds their addresses), and no page leaks."""
+    cfg = TransformerConfig.tiny(dtype=torch.float32, attn_tile_dtype=None)
+    params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    rng = np.random.default_rng(3)
+    shared = rng.integers(0, 256, 256).tolist()
+    prompts = [rng.integers(0, 256, 125).tolist(), shared + [1, 2],
+               rng.integers(0, 256, 300).tolist(), shared + [7]]
+    budgets = [9, 3, 7, 12]
+    runs = {}
+    for dev in (None, "cpu"):
+        eng = DecodeEngine(params, cfg, max_seqs=2, max_seq_len=512,
+                           cache_dtype=torch.float32, device=dev, decode_burst=4,
+                           prefix_cache=True, prefill_chunk=128)
+        ptrs = _cache_ptrs(eng)
+        reqs = [eng.submit(pr, max_new_tokens=m) for pr, m in zip(prompts, budgets)]
+        while any(not r.done for r in reqs):
+            eng.step()
+        eng.step()
+        runs[dev] = [r.generated for r in reqs]
+        assert [len(g) for g in runs[dev]] == budgets
+        assert _cache_ptrs(eng) == ptrs
+        assert eng.allocator.available == eng.num_pages - 1
+        if dev is None:
+            assert eng.graph_replays > 0 and eng.stats["burst_dispatches"] > 0
+    assert runs[None] == runs["cpu"]
+
+
+def test_sampled_graph_replays_draw_new_numbers(cuda):
+    """A sampled burst's replays draw different tokens, and a reseeded
+    engine repeats them."""
+    cfg = TransformerConfig.tiny()
+    params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    prompts = [[5, 7, 11], [2, 3, 200, 17, 9]]
+
+    def run(seed):
+        eng = DecodeEngine(params, cfg, max_seqs=2, max_seq_len=512,
+                           temperature=5.0, seed=seed, decode_burst=8)
+        out = [r.generated for r in eng.run(prompts, max_new_tokens=17)]
+        assert eng.graph_replays >= 16
+        return out
+
+    a = run(1)
+    assert all(len(set(g[1:9])) > 1 and len(set(g[9:])) > 1 for g in a)
+    assert all(g[1:9] != g[9:] for g in a)
+    assert run(1) == a
+    assert run(2) != a
+
+
+def test_capture_holds_the_collector_off(cuda):
+    """A dropped engine's graphs sit in reference cycles until the collector
+    runs; a collection inside another capture would destroy them there and
+    invalidate it.  StepGraph holds the collector off while it captures:
+    here the step sets a threshold that collects generation 0, where the
+    old graph's cycle lies, at its next allocations."""
+    from cuda_flash_attention_tpu_torch.decode.graphs import StepGraph
+
+    thresholds = gc.get_threshold()
+    gc.collect()
+    gc.set_threshold(10 ** 9)  # nothing collects until the step asks
+    try:
+        x = torch.zeros(1, device=cuda)
+        old = StepGraph(lambda: x.add_(1), cuda, warmup=lambda: None)
+        old.run(1)
+        cycle = [old]
+        cycle.append(cycle)
+        del old, cycle
+
+        def step():
+            gc.set_threshold(1)
+            _ = [[] for _ in range(8)]
+            x.add_(2)
+
+        new = StepGraph(step, cuda, warmup=lambda: None)
+        new.run(2)
+    finally:
+        gc.set_threshold(*thresholds)
+    torch.cuda.synchronize()
+    assert x.item() == 5
+
+
+def test_launch_counts_include_graph_replays(cuda):
+    """Each replay of the captured step adds the step's launches to the
+    wrappers' counts: B5 launches once a layer per step, eagerly in each
+    capture's warm-up and in every replay."""
+    cfg = TransformerConfig.tiny()
+    params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    eng = DecodeEngine(params, cfg, max_seqs=2, max_seq_len=512, decode_burst=4)
+    before = LAUNCHES["paged_decode"]
+    eng.run([[5, 7, 11], [2, 3]], max_new_tokens=10)
+    captures = len(eng._graphs)
+    assert eng.graph_replays > 0 and captures == 1
+    assert (LAUNCHES["paged_decode"] - before
+            == cfg.n_layers * (eng.graph_replays + captures))
+    graph = next(iter(eng._graphs.values()))
+    assert graph.launch_delta["paged_decode"] == cfg.n_layers
+
+
+@pytest.mark.parametrize("weights", ["w8a8", "int4", "lora"])
+def test_quantized_and_lora_steps_capture(cuda, weights):
+    """W8A8 (torch._int_mm), int4 weights (dequantized per product) and a
+    LoRA weight run in the captured step: the card's greedy tokens equal
+    the CPU's at fp32."""
+    from cuda_flash_attention_tpu_torch.models import apply_lora
+    from cuda_flash_attention_tpu_torch.quant import quantize_transformer_params
+
+    cfg = TransformerConfig.tiny(dtype=torch.float32, attn_tile_dtype=None)
+    params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    if weights == "lora":
+        params = apply_lora(params, torch.Generator().manual_seed(1), rank=4)
+    else:
+        params = quantize_transformer_params(
+            params, "int4" if weights == "int4" else torch.int8,
+            act_quant=weights == "w8a8")
+    runs = {}
+    for dev in (None, "cpu"):
+        eng = DecodeEngine(params, cfg, max_seqs=2, max_seq_len=512,
+                           device=dev, decode_burst=2)
+        runs[dev] = [r.generated for r in eng.run([[5, 7, 11], [2, 3]],
+                                                  max_new_tokens=6)]
+    assert runs[None] == runs["cpu"]

@@ -18,6 +18,7 @@ import torch
 from cuda_flash_attention_tpu.kernels import attention as jax_attention
 from cuda_flash_attention_tpu.kernels import common as jax_common
 from cuda_flash_attention_tpu_torch.kernels import attention, common, fa2_forward
+from cuda_flash_attention_tpu_torch.kernels.launches import LAUNCHES
 
 TILES = {"fp32": (None, None), "bf16": (jnp.bfloat16, torch.bfloat16),
          "fp16": (jnp.float16, torch.float16)}
@@ -39,11 +40,11 @@ def test_small_forward_matches_jax_kernel(s, causal, precision):
     o_j, lse_j = jax_attention.flash_attention_with_lse(
         *(jnp.asarray(x) for x in (q, k, v)), causal=causal,
         tile_dtype=jax_tile, force_kernel=True)
-    before = fa2_forward.small_launches
+    before = LAUNCHES["fa2_forward_small"]
     o_t, lse_t = attention.flash_attention_with_lse(
         *(torch.from_numpy(x) for x in (q, k, v)), causal=causal,
         tile_dtype=torch_tile)
-    assert fa2_forward.small_launches == before  # the CPU runs the plain version
+    assert LAUNCHES["fa2_forward_small"] == before  # the CPU runs the plain version
     assert o_t.shape == (2, 2, s, 64) and lse_t.shape == (2, 2, s)
     tol_o, tol_lse = TOL[precision]
     np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), atol=tol_o, rtol=0)

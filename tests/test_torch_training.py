@@ -21,7 +21,7 @@ import torch
 
 from cuda_flash_attention_tpu.models import training as jax_training
 from cuda_flash_attention_tpu.models import transformer as jax_tf
-from cuda_flash_attention_tpu_torch.kernels import fa2_backward, fa2_forward
+from cuda_flash_attention_tpu_torch.kernels.launches import LAUNCHES
 from cuda_flash_attention_tpu_torch.models import training, transformer
 from cuda_flash_attention_tpu_torch.utils.convert import params_from_numpy
 
@@ -220,10 +220,10 @@ def test_train_loop_runs_and_checks_finiteness():
 
 def test_no_kernel_launches_on_the_cpu(tiny):
     _, cfg_t, params_j = tiny
-    before = (fa2_forward.launches, fa2_backward.fused_launches,
-              fa2_backward.dq_launches, fa2_backward.dkv_launches)
+    before = (LAUNCHES["fa2_forward"], LAUNCHES["fa2_backward_fused"],
+              LAUNCHES["fa2_backward_dq"], LAUNCHES["fa2_backward_dkv"])
     opt = training.make_optimizer(learning_rate=1e-3)
     step = training.make_optax_train_step(cfg_t, opt)
     step(training.init_train_state(_params_t(params_j), opt), _tokens(70))
-    assert (fa2_forward.launches, fa2_backward.fused_launches,
-            fa2_backward.dq_launches, fa2_backward.dkv_launches) == before
+    assert (LAUNCHES["fa2_forward"], LAUNCHES["fa2_backward_fused"],
+            LAUNCHES["fa2_backward_dq"], LAUNCHES["fa2_backward_dkv"]) == before
