@@ -68,7 +68,8 @@ Phases (any failure raises and the script exits non-zero):
      the card's plain greedy tokens; B6's fp32 tile body's launches over
      the phase (the kernel line's `fp32_tile`);
  14. speculative serving at TransformerConfig.base() with an int8 cache:
-     phase 5's 12 requests with k 4, a one-layer draft and prompt lookup:
+     phase 5's 12 requests (32 new tokens each) with k 4, a one-layer draft
+     and prompt lookup:
      tokens/s, acceptance, rounds, B1/B5/B6 launches, and where a round's
      time goes (one profiled window, as phase 6, with B6's time and share
      of a round's busy time);
@@ -129,11 +130,32 @@ Phases (any failure raises and the script exits non-zero):
      tokens, graph replays, bursts, launches; burst 8 profiled as phase
      6, whose burst-1 launches and idle share it prints beside); train
      tokens/s at B4 S2048 (the median of three slopes between chains of 2
-     and 10 AdamW steps, with their min/max).
+     and 10 AdamW steps, with their min/max);
+ 25. sliding windows and attention sinks on the serving path: B1 (bf16
+     tiles and fp32) at B4 Hq16 Hkv8 S1536 D64, window 128 with and
+     without 4 sinks, at B1 S8192 window 1024 beside its global causal time
+     on the same inputs, and on a non-causal band of offset -100 (rows with
+     no key: lse bit for bit); B8 at Edge-NonPowerOf2, window 32 with 4
+     sinks; B5 at phase 3's shapes and B6 at phase 12's T 5 and T 512,
+     window 128 with 4 sinks, their outputs bitwise unchanged when the
+     table entries behind the window name another slot's pages.  Each
+     against its plain version, an off-by-one window as a control that must
+     fail the gate, times beside the live-work bound and (B1, B8) SDPA with
+     the band as a boolean mask.  Then the hybrid configuration (window 128
+     on every other layer, GPT-OSS's pattern) at base width on an int8
+     cache, phase 5's mix with four prompts of 1024-1536 tokens, chunked
+     prefill 512: tokens/s, TPOT, TTFT, each window group's peak live pages,
+     no decoding slot's local group above 2 pages after any step, windowed
+     launches of B1, B5 and B6; and the streaming configuration (window 512,
+     4 sinks, every layer) in fp32 at base width, card against CPU, greedy
+     tokens bitwise equal for engine decode, speculation (k 3, a one-layer
+     windowed draft) and chunked prefill (chunk 512, a 1300-token prompt),
+     the sink page resident to the end.
 Serving's decode steps run as CUDA graphs (decode/graphs.py); each
 wrapper's launch count adds what a capture recorded at every replay.
-The line before the last is the kernel JSON (eleven kernels); the last line
-is the JSON contract line {"ok": true, "device": {...}}.
+The line before the last is the kernel JSON (eleven kernels; B1, B5, B6 and
+B8 each with its windowed row and windowed launches under "window"); the
+last line is the JSON contract line {"ok": true, "device": {...}}.
 It imports torch and the port only, never jax or the JAX package.
 """
 
@@ -1131,7 +1153,7 @@ def phase_spec_serving(torch, np, transformer, decode, dataclasses):
     params = transformer.init_params(
         torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
     prompts = serving_mix(np, cfg)
-    new_tokens = 64
+    new_tokens = 32
     out = {}
     for mode in ("draft", "prompt_lookup"):
         kw = (dict(draft_params=draft_of(params),
@@ -2185,6 +2207,384 @@ def phase_bench(torch, np, transformer, decode, decode_bench, train_bench,
     return out
 
 
+# Phase 25: sliding windows and attention sinks on the serving path.
+# B1 cases: (name, B, Hq, Hkv, S, causal, window, sinks), each in bf16
+# tiles and fp32; the band's offset <= 0 leaves rows with no key.
+WINDOW_B1_CASES = (
+    ("B4 S1536 w128 s4", 4, 16, 8, 1536, True, 128, 4),
+    ("B4 S1536 w128", 4, 16, 8, 1536, True, 128, 0),
+    ("B1 S8192 w1024", 1, 16, 8, 8192, True, 1024, 0),
+    ("B2 S1024 band -100", 2, 16, 8, 1024, False, -100, 0),
+)
+# The serving configurations' windows: the hybrid's 128 and the streaming
+# recipe's sinks (4) at phase 3's and phase 12's shapes.
+WINDOW, SINKS = 128, 4
+
+
+def kept_cols(pos: int, kv_len: int, causal: bool, window: int, sinks: int) -> int:
+    """Keys a row at `pos` keeps among kv_len: (pos - window, pos] (to the
+    end without causal masking) and the sinks [0, sinks)."""
+    hi = min(pos, kv_len - 1) if causal else kv_len - 1
+    lo = max(0, pos - window + 1)
+    return max(0, hi - lo + 1) + min(max(0, min(sinks, hi + 1)), lo)
+
+
+def window_pairs(sq: int, kv_len: int, causal: bool, window: int, sinks: int) -> int:
+    return sum(kept_cols(i, kv_len, causal, window, sinks) for i in range(sq))
+
+
+def lse_gate(torch, lse_k, lse_p):
+    """(relative error on the rows that keep a key, whether the rows that
+    keep none carry the plain version's lse bit for bit)."""
+    dead = lse_p < -1e30
+    live_err = ((lse_k - lse_p).abs() / lse_p.abs().clamp_min(1.0))[~dead]
+    err = live_err.max().item() if live_err.numel() else 0.0
+    return err, bool(torch.equal(lse_k[dead], lse_p[dead]))
+
+
+def band_mask(torch, attention_common, q, k, kw):
+    """SDPA's boolean mask (True keeps) for B1's or B8's keyword arguments."""
+    return attention_common.build_element_mask(
+        q.shape[2], k.shape[2], causal=kw["causal"], kv_len=kw["kv_len"],
+        device=q.device, window=kw["window"], sinks=kw["sinks"])
+
+
+def phase_window_forward(torch, F, attention, fa2, common):
+    """B1 and B8 with windows and sinks against their plain versions, an
+    off-by-one window as the control (it must fail the gate), times beside
+    SDPA with the band as an explicit boolean mask and, at S8192, B1's
+    global causal time on the same inputs."""
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    rows = []
+
+    def check(label, kernel_fn, plain_fn, kw, kind, q, k, v, control=False):
+        o_k, lse_k = kernel_fn(q, k, v, **kw)
+        o_p, lse_p = plain_fn(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = (o_k.float() - o_p.float()).abs().max().item()
+        lse_err, dead_equal = lse_gate(torch, lse_k, lse_p)
+        tol = B1_TOL[kind]
+        if not (err <= tol and lse_err <= LSE_REL_TOL and dead_equal):
+            raise AssertionError(f"{label}: max_abs_err {err} (tol {tol}), lse rel "
+                                 f"err {lse_err}, dead rows equal {dead_equal}")
+        control_err = None
+        if control:
+            o_c, _ = plain_fn(q, k, v, **dict(kw, window=kw["window"] + 1))
+            control_err = (o_k.float() - o_c.float()).abs().max().item()
+            if control_err <= tol:
+                raise AssertionError(f"{label}: an off-by-one window passes the "
+                                     f"gate ({control_err} <= {tol})")
+        return o_k, lse_k, err, lse_err, control_err
+
+    for name, b, hq, hkv, s, causal, window, sinks in WINDOW_B1_CASES:
+        for kind in ("bf16", "fp32"):
+            tile = None if kind == "fp32" else torch.bfloat16
+            dt = torch.float32 if kind == "fp32" else torch.bfloat16
+            q = torch.randn(b, hq, s, 64, generator=gen, device="cuda").to(dt)
+            k, v = (torch.randn(b, hkv, s, 64, generator=gen, device="cuda").to(dt)
+                    for _ in range(2))
+            q, k, v, scale, _, kv_len = attention._prepare(
+                q, k, v, causal, None, tile, None, None, window, sinks)
+            kw = dict(causal=causal, sm_scale=scale, kv_len=kv_len, tile_dtype=tile,
+                      window=window, sinks=sinks)
+            o_k, lse_k, err, lse_err, control_err = check(
+                f"B1 {name} {kind}", fa2.fa2_forward_aligned, fa2.fa2_forward_plain,
+                kw, kind, q, k, v, control=kind == "fp32" and name == WINDOW_B1_CASES[0][0])
+            mask = band_mask(torch, common, q, k, kw)
+            lib_in = [t.to(tile or torch.float32) for t in (q, k, v)]
+            flops = 4 * b * hq * window_pairs(s, kv_len, causal, window, sinks) * 64
+            moved = nbytes(q, k, v, o_k, lse_k)
+            t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / PEAK_FLOPS[kind]
+            ms = time_ms(lambda: fa2.fa2_forward_aligned(q, k, v, **kw))
+            row = dict(kernel="fa2_forward", case=name, kind=kind, B=b, Hq=hq, Hkv=hkv,
+                       S=s, causal=causal, window=window, sinks=sinks,
+                       max_abs_err=err, lse_rel_err=lse_err,
+                       control_max_abs_err=control_err, ms=ms,
+                       plain_ms=time_ms(lambda: fa2.fa2_forward_plain(q, k, v, **kw),
+                                        iters=2, warmup=1),
+                       library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                           *lib_in, attn_mask=mask, scale=scale,
+                           enable_gqa=hq != hkv), iters=5, warmup=1),
+                       bound_ms=max(t_bytes, t_ops) * 1e3,
+                       bound_by="bytes" if t_bytes > t_ops else "operations",
+                       tflops=flops / ms / 1e9)
+            if s == 8192:
+                gkw = dict(kw, window=None, sinks=0)
+                row["global_causal_ms"] = time_ms(
+                    lambda: fa2.fa2_forward_aligned(q, k, v, **gkw))
+            rows.append(row)
+            log("window B1", json.dumps(row))
+            del q, k, v, o_k, lse_k, mask, lib_in
+
+    # B8 at Edge-NonPowerOf2, window 32 with sinks 4.
+    b, h, s = SUITE["Edge-NonPowerOf2"]
+    raw = [torch.randn(b, h, s, 64, generator=gen, device="cuda") for _ in range(3)]
+    for kind in ("fp32", "bf16"):
+        tile = None if kind == "fp32" else torch.bfloat16
+        q, k, v, scale, _, kv_len = attention._prepare(
+            *raw, True, None, tile, None, None, 32, SINKS)
+        if not attention._use_small_kernel(q, k):
+            raise AssertionError("window B8: the route does not take B8")
+        kw = dict(causal=True, sm_scale=scale, kv_len=kv_len, tile_dtype=tile,
+                  window=32, sinks=SINKS)
+        o_k, lse_k, err, lse_err, control_err = check(
+            f"B8 Edge-NonPowerOf2 {kind}", fa2.fa2_forward_small_aligned,
+            fa2.fa2_forward_small_plain, kw, kind, q, k, v, control=kind == "fp32")
+        mask = band_mask(torch, common, q, k, kw)
+        lib_in = [t.to(tile or torch.float32) for t in (q, k, v)]
+        flops = 4 * b * h * window_pairs(s, kv_len, True, 32, SINKS) * 64
+        moved = nbytes(q, k, v, o_k, lse_k)
+        t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / PEAK_FLOPS[kind]
+        row = dict(kernel="fa2_forward_small", case="Edge-NonPowerOf2", kind=kind,
+                   B=b, H=h, S=s, causal=True, window=32, sinks=SINKS,
+                   max_abs_err=err, lse_rel_err=lse_err,
+                   control_max_abs_err=control_err,
+                   ms=queued_ms(torch, lambda: fa2.fa2_forward_small_aligned(
+                       q, k, v, **kw)),
+                   plain_ms=queued_ms(torch, lambda: fa2.fa2_forward_small_plain(
+                       q, k, v, **kw)),
+                   library_ms=queued_ms(torch, lambda: F.scaled_dot_product_attention(
+                       *lib_in, attn_mask=mask, scale=scale)),
+                   bound_ms=max(t_bytes, t_ops) * 1e3,
+                   bound_by="bytes" if t_bytes > t_ops else "operations")
+        rows.append(row)
+        log("window B8", json.dumps(row))
+    # B8's windowed launches on its main path, the public API.
+    reset_counts(WINDOW_KERNELS)
+    attention.flash_attention_with_lse(*raw, causal=True, window=32, sinks=SINKS)
+    torch.cuda.synchronize()
+    return rows, read_counts(WINDOW_KERNELS)["fa2_forward_small_window"]
+
+
+def window_paged_bound(lengths, chunk, window, sinks, hq, hkv, d, elem, q, out,
+                       kind, page=128):
+    """paged_bound under a window: only the tokens some row keeps (the
+    union of the rows' windows and the sinks) and their live pages move;
+    4 * D FLOPs per (query head, row, kept column)."""
+    tokens = flops = live_pages = 0
+    for n in lengths:
+        if n == 0:
+            continue
+        first = max(0, n - chunk - window + 1)
+        s = min(sinks, n)
+        tokens += (n - first) + min(s, first)
+        live_pages += sum(1 for p in range(-(-n // page))
+                          if (p + 1) * page > first or p * page < sinks)
+        for t in range(chunk):
+            pos = n - chunk + t
+            if pos >= 0:
+                flops += 4 * d * hq * kept_cols(pos, n, True, window, sinks)
+    moved = (2 * tokens * hkv * (d * elem + 4) + nbytes(q, out) + live_pages * 4
+             + 4 * len(lengths))
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / PEAK_FLOPS[kind]
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations",
+            flops, moved)
+
+
+def stale_table(torch, table, lengths, chunk, window, sinks, page=128):
+    """The table with every entry behind all rows' windows (and not a sink
+    page) pointed at the next slot's page of the same index: pages the
+    engine would have recycled to another slot."""
+    out = table.clone()
+    n = table.shape[0]
+    for s, length in enumerate(lengths):
+        first = max(0, length - chunk - window + 1)
+        for p in range(table.shape[1]):
+            if p * page < length and (p + 1) * page <= first and p * page >= sinks:
+                out[s, p] = table[(s + 1) % n, p]
+    return out
+
+
+def phase_window_paged(torch, dec_attn, kv_cache):
+    """B5 at phase 3's shapes and B6 at phase 12's T 5 and T 512 shapes,
+    window 128 with sinks 4, against their plain versions; an off-by-one
+    window as the control; the outputs bitwise unchanged when the entries
+    behind the window name another slot's pages."""
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    hq, hkv, d, page, pps = 16, 8, 64, 128, 16
+    cases = [("B5", 1, [2048, 1, 129, 0, 777, 1500, 128, 2000], cache, compute)
+             for cache, compute in (("int8", "bf16"), ("int8", "fp32"), ("bf16", "bf16"))]
+    cases += [("B6 T5", 5, B6_SPEC_LENGTHS, "int8", compute) for compute in ("bf16", "fp32")]
+    cases += [("B6 T512", 512, B6_PREFILL_LENGTHS, "int8", compute)
+              for compute in ("bf16", "fp32")]
+    rows = []
+    for name, chunk, lens, cache, compute in cases:
+        n = len(lens)
+        num_pages = n * pps + 1
+        pages = random_pages(torch, kv_cache, gen, cache, (hkv, num_pages, page, d))
+        table = (torch.randperm(num_pages - 1, generator=gen, device="cuda") + 1
+                 ).reshape(n, pps).to(torch.int32).contiguous()
+        stale = stale_table(torch, table, lens, chunk, WINDOW, SINKS).contiguous()
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        cdt = torch.bfloat16 if compute == "bf16" else torch.float32
+        scale = d ** -0.5
+        if chunk == 1:
+            q = torch.randn(n, hq, d, generator=gen, device="cuda").to(cdt)
+            kernel_fn, plain_fn = (dec_attn.paged_decode_attention,
+                                   dec_attn.paged_decode_attention_plain)
+        else:
+            q = torch.randn(n, chunk, hq, d, generator=gen, device="cuda").to(cdt)
+            kernel_fn, plain_fn = (dec_attn.paged_chunk_attention,
+                                   dec_attn.paged_chunk_attention_plain)
+        kw = dict(sm_scale=scale, compute_dtype=cdt, window=WINDOW, sinks=SINKS)
+        o_k = kernel_fn(q, pages, table, lengths, **kw)
+        o_stale = kernel_fn(q, pages, stale, lengths, **kw)
+        o_p = plain_fn(q, pages, table, lengths, **kw)
+        o_c = plain_fn(q, pages, table, lengths, **dict(kw, window=WINDOW + 1))
+        torch.cuda.synchronize()
+        err = (o_k.float() - o_p.float()).abs().max().item()
+        control_err = (o_k.float() - o_c.float()).abs().max().item()
+        tol = B5_TOL[compute]
+        if not err <= tol:
+            raise AssertionError(f"window {name} {cache} {compute}: max_abs_err {err} "
+                                 f"(tol {tol})")
+        if not torch.equal(o_k, o_stale):
+            raise AssertionError(f"window {name}: an entry behind the window was read")
+        if compute == "fp32" and control_err <= tol:
+            raise AssertionError(f"window {name}: an off-by-one window passes the "
+                                 f"gate ({control_err} <= {tol})")
+
+        def kernel():
+            return kernel_fn(q, pages, table, lengths, **kw)
+
+        bound_ms, bound_by, flops, moved = window_paged_bound(
+            lens, chunk, WINDOW, SINKS, hq, hkv, d, pages.k_pages.element_size(),
+            q, o_k, compute)
+        ms = queued_ms(torch, kernel)
+        row = dict(kernel="paged_decode" if chunk == 1 else "paged_chunk", case=name,
+                   T=chunk, lengths=lens, cache=cache, compute=compute,
+                   window=WINDOW, sinks=SINKS, max_abs_err=err,
+                   control_max_abs_err=control_err, stale_bitwise_equal=True,
+                   ms=ms, b2b_ms=time_ms(kernel),
+                   plain_ms=time_ms(lambda: plain_fn(q, pages, table, lengths, **kw),
+                                    iters=2, warmup=1),
+                   library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                   gbps=moved / ms / 1e6, global_ms=queued_ms(
+                       torch, lambda: kernel_fn(q, pages, table, lengths,
+                                                sm_scale=scale, compute_dtype=cdt)))
+        rows.append(row)
+        log("window paged", json.dumps(row))
+        del pages, o_k, o_stale, o_p, o_c
+    return rows
+
+
+WINDOW_KERNELS = ("fa2_forward_window", "fa2_forward_small_window",
+                  "paged_decode_window", "paged_chunk_window")
+
+
+def phase_window_serving(torch, np, transformer, decode, dataclasses):
+    """The hybrid configuration (GPT-OSS's layer pattern: window 128 on every
+    other layer, global_every 2) at base width on an int8 cache: phase 5's
+    12 requests, four of them lengthened to 1024-1536 tokens, chunked
+    prefill 512.  After every step no decoding slot's local group holds
+    more than 2 pages (JAX's live bound in _worst_pages_for at window 128,
+    page 128); each group's peak live pages; B1's, B5's and B6's windowed
+    launches must be > 0."""
+    cfg = dataclasses.replace(transformer.TransformerConfig.base(),
+                              attn_window=WINDOW, global_every=2)
+    params = transformer.init_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    prompts = serving_mix(np, cfg)
+    rng = np.random.default_rng(25)
+    for i, n in zip((0, 3, 6, 9), rng.integers(1024, 1537, 4)):
+        prompts[i] = rng.integers(0, cfg.vocab_size, int(n)).tolist()
+    new_tokens = 64
+    eng = decode.DecodeEngine(params, cfg, max_seqs=8, max_seq_len=2048,
+                              page_size=128, cache_dtype=torch.int8,
+                              prefill_chunk=512)
+    bound = eng._worst_pages_for(1, 1 << 20)[0]
+    peak_total, peak_slot = [0, 0], [0, 0]
+    torch.cuda.synchronize()
+    reset_counts(SERVING_KERNELS + WINDOW_KERNELS)
+    t0 = time.perf_counter()
+    reqs = eng.submit_many(prompts, max_new_tokens=new_tokens)
+    while any(not r.done for r in reqs) or eng._pending:
+        eng.step()
+        for g in range(eng.n_groups):
+            live = [eng._live_page_count(s, g) for s in range(eng.max_seqs)]
+            peak_total[g] = max(peak_total[g], sum(live))
+            peak_slot[g] = max(peak_slot[g], max(live))
+            if g == 0 and any(live[s] > bound for s in np.flatnonzero(eng.active)):
+                raise AssertionError(f"hybrid: a decoding slot's local group holds "
+                                     f"{live} pages (bound {bound})")
+    eng.step()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = read_counts(SERVING_KERNELS + WINDOW_KERNELS)
+    check_served("hybrid", reqs, eng, launches,
+                 ("fa2_forward_window", "paged_decode_window", "paged_chunk_window"),
+                 cfg.vocab_size, new_tokens)
+    for a in eng._group_allocs:
+        if a.available != eng.num_pages - 1:
+            raise AssertionError("hybrid: a group's pages leaked")
+    total = sum(len(r.generated) for r in reqs)
+    res = dict(config="hybrid w128 global_every 2", requests=len(reqs),
+               tokens=total, seconds=elapsed, tokens_per_s=total / elapsed,
+               tpot_ms_median=statistics.median(r.tpot_s for r in reqs) * 1e3,
+               ttft_ms_median=statistics.median(r.ttft_s for r in reqs) * 1e3,
+               steps=eng.stats["steps"], prefill_chunks=eng.stats["prefill_chunks"],
+               local_bound_pages=bound, peak_live_pages_local=peak_total[0],
+               peak_live_pages_global=peak_total[1],
+               peak_slot_pages_local=peak_slot[0], peak_slot_pages_global=peak_slot[1],
+               prompt_lens=[len(p) for p in prompts], launches=launches)
+    log("window hybrid serving", json.dumps(res))
+    return res
+
+
+def phase_window_streaming(torch, np, transformer, decode, dataclasses):
+    """The streaming configuration (StreamingLLM: window 512 with 4 sink
+    tokens on every layer) at base width in fp32, card against CPU, greedy
+    tokens bitwise equal: engine decode, speculation (k 3, a one-layer
+    windowed draft) and chunked prefill (chunk 512, a 1300-token prompt).
+    The sink page must still be resident when each request ends."""
+    cfg = dataclasses.replace(
+        transformer.TransformerConfig.base(dtype=torch.float32, attn_tile_dtype=None),
+        attn_window=512, attn_sinks=SINKS)
+    params = transformer.init_params(torch.Generator().manual_seed(0), cfg,
+                                     device="cpu")
+    rng = np.random.default_rng(27)
+    short = rng.integers(0, cfg.vocab_size, 900).tolist()
+    long = rng.integers(0, cfg.vocab_size, 1300).tolist()
+    n_new = 12
+    modes = {"decode": ([short], {}),
+             "speculative": ([short], dict(spec_tokens=3, draft=True)),
+             "chunked_prefill": ([long], dict(prefill_chunk=512))}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = transformer.tree_map(lambda w: w.to(dev), params)
+        for mode, (prompts, kw) in modes.items():
+            kw = dict(kw)
+            if kw.pop("draft", False):
+                kw.update(draft_params=draft_of(p),
+                          draft_cfg=dataclasses.replace(cfg, n_layers=1))
+            eng = decode.DecodeEngine(p, cfg, max_seqs=1, max_seq_len=2048,
+                                      cache_dtype=torch.float32, device=dev, **kw)
+            (req,) = eng.submit_many(prompts, max_new_tokens=n_new)
+            sink_resident = True
+            while not req.done:
+                eng.step()
+                pages = eng._slot_pages[0]
+                sink_resident &= bool(pages) and pages[0] is not None
+            recycled = sum(1 for x in eng._slot_pages[0] if x is None)
+            eng.step()
+            if not sink_resident or recycled == 0:
+                raise AssertionError(f"streaming {mode} ({dev}): sink page resident "
+                                     f"{sink_resident}, recycled pages {recycled}")
+            out.setdefault(mode, {})[dev] = dict(tokens=req.generated,
+                                                 recycled_pages=recycled,
+                                                 stats=dict(eng.stats))
+        del p
+    for mode, r in out.items():
+        r["equal"] = r["cuda"]["tokens"] == r["cpu"]["tokens"]
+        if not r["equal"]:
+            raise AssertionError(f"streaming {mode}: card tokens {r['cuda']['tokens']} "
+                                 f"vs CPU {r['cpu']['tokens']}")
+    log("window streaming fp32 base (card vs CPU)", json.dumps(
+        {m: dict(equal=r["equal"], tokens=r["cuda"]["tokens"],
+                 recycled_pages=r["cuda"]["recycled_pages"]) for m, r in out.items()}))
+    return {m: r["equal"] for m, r in out.items()}
+
+
 def main() -> int:
     import torch
 
@@ -2208,7 +2608,7 @@ def main() -> int:
         harness,
         train_bench,
     )
-    from cuda_flash_attention_tpu_torch.kernels import _build, attention
+    from cuda_flash_attention_tpu_torch.kernels import _build, attention, common
     from cuda_flash_attention_tpu_torch.kernels import baselines as base
     from cuda_flash_attention_tpu_torch.kernels import fa2_backward as bwd
     from cuda_flash_attention_tpu_torch.kernels import fa2_forward as fa2
@@ -2362,6 +2762,15 @@ def main() -> int:
                         serve_profile, "bench profile (burst 1, phase 6)")
     log(f"phase 24: serving and training benchmarks ok in "
         f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    win_fwd, b8_window_launches = phase_window_forward(torch, F, attention, fa2,
+                                                       common)
+    win_paged = phase_window_paged(torch, dec_attn, kv_cache)
+    hybrid = phase_window_serving(torch, np, transformer, decode, dataclasses)
+    torch.cuda.empty_cache()
+    streaming = phase_window_streaming(torch, np, transformer, decode, dataclasses)
+    log(f"phase 25: windows and sinks ok in {time.perf_counter() - t0:.1f} s")
 
     # Representative shapes for the kernel line: the serving phase's largest
     # prefill (B4 S1536 bf16) and the int8 cache with bf16 compute.
@@ -2505,12 +2914,44 @@ def main() -> int:
             k["launches_quant_serving"] = sum(
                 r["launches"][k["name"]] for n, r in quant_serve.items()
                 if "launches" in r)
+    # Phase 25: each windowed kernel's row (window 128 with sinks 4 where
+    # the kernel serves: B1 at the hybrid's largest prefill, B5 and B6 at
+    # the int8 / bf16-compute rows, B8 at Edge-NonPowerOf2 fp32) and its
+    # windowed launches on the main path (the hybrid serving run; B8's the
+    # public API's).
+    def window_row(rows, **match):
+        r = next(r for r in rows if all(r[k] == v for k, v in match.items()))
+        return {k: r[k] for k in ("case", "kind" if "kind" in r else "compute",
+                                  "window", "sinks", "ms", "plain_ms", "bound_ms",
+                                  "bound_by", "library_ms", "max_abs_err",
+                                  "control_max_abs_err")}
+    window_of = {
+        "fa2_forward": dict(window_row(win_fwd, case="B4 S1536 w128 s4", kind="bf16"),
+                            launches=hybrid["launches"]["fa2_forward_window"]),
+        "fa2_forward_small": dict(window_row(win_fwd, kernel="fa2_forward_small",
+                                             kind="fp32"),
+                                  launches=b8_window_launches),
+        "paged_decode": dict(window_row(win_paged, case="B5", cache="int8",
+                                        compute="bf16"),
+                             launches=hybrid["launches"]["paged_decode_window"]),
+        "paged_chunk": dict(window_row(win_paged, case="B6 T5", compute="bf16"),
+                            launches=hybrid["launches"]["paged_chunk_window"],
+                            T512=window_row(win_paged, case="B6 T512",
+                                            compute="bf16")),
+    }
+    for k in kernels:
+        if k["name"] in window_of:
+            k["window"] = window_of[k["name"]]
+    if not all(w["launches"] for w in window_of.values()):
+        raise AssertionError(f"phase 25: a windowed kernel never ran on its path: "
+                             f"{ {n: w['launches'] for n, w in window_of.items()} }")
     log("fp16 tiles:", json.dumps({"B1 Stress-1": b1_fp16, "B2-B4": [
         {k: r[k] for k in ("kernel", "inputs", "B", "S", "causal", "ms",
                            "bound_ms", "library_ms", "rel_err")} for r in bwd_fp16]}))
     log(json.dumps({"e2e_logit_diff": e2e, "train_parity": parity,
                     "autograd": autograd, "remat": remat,
                     "spec_parity": spec_parity, "qlora": qlora,
+                    "window_streaming_equal": streaming,
                     "bench": {k: bench[k] for k in ("greedy_bitwise_equal",)},
                     "paged_quant_rows": len(paged_quant)}))
     log(card_line())

@@ -5,8 +5,21 @@
 //   (bodies _fa2_fwd_kernel and _single_kv_attention).
 // It computes O = softmax(scale * Q K^T) V and the natural-log logsumexp per
 // query row, with causal masking from the top-left corner, a ragged KV tail
-// (kv_len) and GQA (query head h reads KV head h / (Hq / Hkv)).  Window,
-// sinks and segment ids are not taken here; the Python wrapper refuses them.
+// (kv_len) and GQA (query head h reads KV head h / (Hq / Hkv)), a sliding
+// window (row - col < window; without causal masking a recency band whose
+// offset may be <= 0) and attention sinks (col < sinks kept besides).
+// Segment ids are not taken here; the Python wrapper refuses them.
+//
+// Windows (JAX fa2_forward.py :646-718, the compact span grid): a Q tile
+// walks only its live KV tiles, the sink tiles and then the tiles from its
+// first row's oldest kept column to its diagonal (csrc/hopper.cuh KvWalk,
+// one sequence that the producer's TMA loop and both consumers step
+// through, so the mbarrier ring stays in step); a tile in both ranges is
+// walked once.  A tile is masked element by element where it crosses the
+// diagonal, the kv_len tail or a row's window edge, so under a window the
+// cost is O(S * window).  A row that keeps no key (a band with an offset
+// <= 0, or causal rows past kv_len + window) writes O = 0 and the lse
+// the JAX forward gives on its 128-row tiles (dead_row_lse).
 //
 // What bounds it on the H100: tensor-core FLOPs, and at D = 64 the exp2s
 // as much.  Per query head, causal prefill does ~2*S^2*D FLOPs against
@@ -263,17 +276,32 @@ __device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
   wgmma_commit();
 }
 
+// The lse of a row that keeps no key (its O is 0), as the JAX forward gives
+// it on its 128-row tiles (kernels/common.py dead_row_lse): -inf where the
+// row's 128-row Q tile walks no 128-key tile of a KV longer than one tile,
+// else the mask value times ln 2.
+__device__ __forceinline__ float dead_row_lse(int row, int kv_len, int causal,
+                                              int window, int sinks) {
+  const int q0 = row & ~127;
+  const int end = causal ? min(kv_len, q0 + 128) : kv_len;
+  return kv_len > 128 && KvWalk(q0 - window + 1, end, sinks, 128).n == 0
+             ? -INFINITY
+             : kMaskValue * kLn2;
+}
+
 // The online softmax of one S tile in place (fp32, exp2 domain): with
-// kMask, scores of columns at or past kv_len or (causal) past the row take
-// kMaskValue first.  Updates m and this thread's share of l, sets alpha =
-// exp2(m_old - m_new) and leaves P in s, masked entries exactly 0.
+// kMask, scores of columns at or past kv_len, (causal) past the row or
+// outside its window and sinks take kMaskValue first.  Updates m and this
+// thread's share of l, sets alpha = exp2(m_old - m_new) and leaves P in s,
+// masked entries exactly 0.
 template <bool kMask>
 __device__ __forceinline__ void online_softmax(float (&s)[kTileN / 2],
                                                float (&m_run)[2],
                                                float (&l_run)[2],
                                                float (&alpha)[2], int k0,
                                                int row_a, int kv_len,
-                                               int causal, int t4) {
+                                               int causal, int window,
+                                               int sinks, int t4) {
   if (kMask) {
 #pragma unroll
     for (int j = 0; j < kTileN / 8; ++j) {
@@ -281,7 +309,10 @@ __device__ __forceinline__ void online_softmax(float (&s)[kTileN / 2],
       for (int e = 0; e < 4; ++e) {
         const int col = k0 + j * 8 + t4 * 2 + (e & 1);
         const int row = e < 2 ? row_a : row_a + 8;
-        if (col >= kv_len || (causal && col > row)) s[4 * j + e] = kMaskValue;
+        if (col >= kv_len || (causal && col > row) ||
+            !in_window(row, col, window, sinks)) {
+          s[4 * j + e] = kMaskValue;
+        }
       }
     }
   }
@@ -336,7 +367,7 @@ fa2_fwd_wgmma(const __grid_constant__ CUtensorMap k_map,
               const __grid_constant__ CUtensorMap v_map,
               const Tin* __restrict__ q, Tin* __restrict__ o,
               float* __restrict__ lse, int hq, int hkv, int sq, int kv_len,
-              float qscale, int causal) {
+              float qscale, int causal, int window, int sinks) {
   using L = Layout<D>;
   constexpr int kStages = L::kStages;
   extern __shared__ unsigned char smem_raw[];
@@ -354,8 +385,11 @@ fa2_fwd_wgmma(const __grid_constant__ CUtensorMap k_map,
   const int bh = blockIdx.y;
   const int b = bh / hq;
   const int hk = (bh - b * hq) / (hq / hkv);
+  // The KV tiles the block walks: to the diagonal under causal masking,
+  // from its first row's window (and the sink tiles).
   const int kv_end = causal ? min(kv_len, q0 + kTileM) : kv_len;
-  const int n_tiles = (kv_end + kTileN - 1) / kTileN;
+  const KvWalk walk(q0 - window + 1, kv_end, sinks, kTileN);
+  const int n_tiles = walk.n;
 
   if (threadIdx.x == 0) {
 #pragma unroll
@@ -381,8 +415,8 @@ fa2_fwd_wgmma(const __grid_constant__ CUtensorMap k_map,
                        reinterpret_cast<uint64_t>(&v_map))
                    : "memory");
       const int kv_head = b * hkv + hk;
-      // Tile t of K or V into its ring; the first pass over a ring finds
-      // every stage empty.
+      // Walk step t of K or V into its ring; the first pass over a ring
+      // finds every stage empty.
       auto load = [&](const CUtensorMap* map, uint32_t ring, uint32_t full,
                       uint32_t empty, int t) {
         const int st = t % kStages;
@@ -391,7 +425,8 @@ fa2_fwd_wgmma(const __grid_constant__ CUtensorMap k_map,
 #pragma unroll
         for (int box = 0; box < D / kBoxCols; ++box) {
           tma_load_3d(ring + st * L::kKVBytes + box * L::kKVBox, map,
-                      full + 8 * st, box * kBoxCols, t * kTileN, kv_head);
+                      full + 8 * st, box * kBoxCols, walk.at(t) * kTileN,
+                      kv_head);
         }
       };
       // The consumers take K(t + 1) before V(t); so does the producer.
@@ -437,13 +472,16 @@ fa2_fwd_wgmma(const __grid_constant__ CUtensorMap k_map,
       issue_qk<Tt, D>(s, qs, base + L::kK + st * L::kKVBytes);
     };
     auto softmax = [&](int t) {
-      const int k0 = t * kTileN;
-      if ((k0 + kTileN > kv_len) || (causal && k0 + kTileN - 1 > qc0)) {
+      const int k0 = walk.at(t) * kTileN;
+      // Masked element by element: the kv_len tail, the diagonal, and a
+      // tile some row's window edge crosses.
+      if ((k0 + kTileN > kv_len) || (causal && k0 + kTileN - 1 > qc0) ||
+          qc0 + kConsumerM - 1 - k0 >= window) {
         online_softmax<true>(s, m_run, l_run, alpha, k0, row_a, kv_len,
-                             causal, t4);
+                             causal, window, sinks, t4);
       } else {
         online_softmax<false>(s, m_run, l_run, alpha, k0, row_a, kv_len,
-                              causal, t4);
+                              causal, window, sinks, t4);
       }
     };
 
@@ -542,10 +580,14 @@ fa2_fwd_wgmma(const __grid_constant__ CUtensorMap k_map,
     if (t4 == 0) {
       float* lp = lse + static_cast<size_t>(bh) * sq;
       if (row_a < sq) {
-        lp[row_a] = m_run[0] * kLn2 + logf(l_run[0] == 0.f ? 1.f : l_run[0]);
+        lp[row_a] = l_run[0] == 0.f
+                        ? dead_row_lse(row_a, kv_len, causal, window, sinks)
+                        : m_run[0] * kLn2 + logf(l_run[0]);
       }
       if (row_b < sq) {
-        lp[row_b] = m_run[1] * kLn2 + logf(l_run[1] == 0.f ? 1.f : l_run[1]);
+        lp[row_b] = l_run[1] == 0.f
+                        ? dead_row_lse(row_b, kv_len, causal, window, sinks)
+                        : m_run[1] * kLn2 + logf(l_run[1]);
       }
     }
   }
@@ -563,7 +605,7 @@ __global__ void __launch_bounds__(kFmaThreads, FmaBlock<D>::kBlocksPerSm)
 fa2_fwd_fp32(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ o,
              float* __restrict__ lse, int hq, int hkv, int sq, int skv,
-             int kv_len, float qscale, int causal) {
+             int kv_len, float qscale, int causal, int window, int sinks) {
   using L = FmaBlock<D>;
   constexpr int DO = D / 16;  // output columns per thread
   extern __shared__ __align__(16) float smem[];
@@ -575,17 +617,26 @@ fa2_fwd_fp32(const float* __restrict__ q, const float* __restrict__ k,
   const int hk = (blockIdx.y - b * hq) / (hq / hkv);
   const float* kp = k + (static_cast<size_t>(b) * hkv + hk) * skv * D;
   const float* vp = v + (static_cast<size_t>(b) * hkv + hk) * skv * D;
-  // KV tiles to visit: to the diagonal under causal masking.
+  // KV tiles to visit: to the diagonal under causal masking, from the
+  // first row's window (and the sink tiles); walk step t is tile walk.at(t)
+  // in ring stage t.
   const int kv_end = causal ? min(kv_len, q0 + kBlockM) : kv_len;
-  const int n_kv = (kv_end + kBlockN - 1) / kBlockN;
+  const KvWalk walk(q0 - window + 1, kv_end, sinks, kBlockN);
+  const int n_kv = walk.n;
   float* qs = st.q();
+  auto load_k = [&](int t) {
+    fma_load_tile<D, true>(st.k(t), st.k_bar(t), kp, walk.at(t), skv);
+  };
+  auto load_v = [&](int t) {
+    fma_load_tile<D, false>(st.v(t), st.v_bar(t), vp, walk.at(t), skv);
+  };
 
   if (threadIdx.x == 0) st.init();
   // Q scaled by sm_scale * log2(e) once, in fp32.
   fma_load_q<D>(qs, q + bh * sq * D, q0, sq, qscale);
   __syncthreads();
-  for (int t = 0; t < L::kKStages && t < n_kv; ++t) fma_load_k<D>(st, t, kp, skv);
-  for (int t = 0; t < L::kVStages && t < n_kv; ++t) fma_load_v<D>(st, t, vp, skv);
+  for (int t = 0; t < L::kKStages && t < n_kv; ++t) load_k(t);
+  for (int t = 0; t < L::kVStages && t < n_kv; ++t) load_v(t);
 
   float m_run[8], l_run[8], acc[8][DO];
 #pragma unroll
@@ -596,18 +647,20 @@ fa2_fwd_fp32(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < DO; ++c) acc[r][c] = 0.f;
   }
   for (int t = 0; t < n_kv; ++t) {
-    const int k0 = t * kBlockN;
+    const int k0 = walk.at(t) * kBlockN;
     st.wait_k(t);
     float s[8][4];
     fma_scores<D>(qs, st.k(t), th, s);
     float* ps = st.k(t);
     __syncthreads();  // K(t) is read: P takes its stage
 
-    // Online softmax in the exp2 domain; only the diagonal and kv_len
-    // tail tiles are masked (masked P exactly 0).  l_run is this thread's
-    // share of the row sum, added across the row once at the end.
-    const bool need_mask =
-        (k0 + kBlockN > kv_len) || (causal && k0 + kBlockN - 1 > q0);
+    // Online softmax in the exp2 domain; only the diagonal, kv_len tail
+    // and window-edge tiles are masked (masked P exactly 0).  l_run is
+    // this thread's share of the row sum, added across the row once at
+    // the end.
+    const bool need_mask = (k0 + kBlockN > kv_len) ||
+                           (causal && k0 + kBlockN - 1 > q0) ||
+                           q0 + kBlockM - 1 - k0 >= window;
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
       const int row = q0 + th.ty + 8 * r;
@@ -615,7 +668,10 @@ fa2_fwd_fp32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int col = k0 + th.tx + 16 * j;
-          if (col >= kv_len || (causal && col > row)) s[r][j] = kMaskValue;
+          if (col >= kv_len || (causal && col > row) ||
+              !in_window(row, col, window, sinks)) {
+            s[r][j] = kMaskValue;
+          }
         }
       }
       const float mx = fma_row_max(
@@ -639,8 +695,8 @@ fa2_fwd_fp32(const float* __restrict__ q, const float* __restrict__ k,
     st.wait_v(t);
     fma_pv<D>(ps, st.v(t), th, acc);
     __syncthreads();  // K(t), V(t) and P are read: refill
-    if (t + L::kKStages < n_kv) fma_load_k<D>(st, t + L::kKStages, kp, skv);
-    if (t + L::kVStages < n_kv) fma_load_v<D>(st, t + L::kVStages, vp, skv);
+    if (t + L::kKStages < n_kv) load_k(t + L::kKStages);
+    if (t + L::kVStages < n_kv) load_v(t + L::kVStages);
   }
 
   // O = acc / l (l == 0 guarded) and lse = m ln 2 + log l.
@@ -656,7 +712,10 @@ fa2_fwd_fp32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
       const int row = q0 + th.ty + 8 * r;
-      if (row < sq) lp[row] = m_run[r] * kLn2 + logf(l[r] == 0.f ? 1.f : l[r]);
+      if (row < sq) {
+        lp[row] = l[r] == 0.f ? dead_row_lse(row, kv_len, causal, window, sinks)
+                              : m_run[r] * kLn2 + logf(l[r]);
+      }
     }
   }
 }
@@ -665,7 +724,7 @@ template <int D>
 cudaError_t launch_fp32(cudaStream_t stream, const void* q, const void* k,
                         const void* v, void* o, void* lse, int batch, int hq,
                         int hkv, int sq, int skv, int kv_len, float qscale,
-                        int causal) {
+                        int causal, int window, int sinks) {
   using L = FmaBlock<D>;
   static std::atomic<uint64_t> smem_set{0};
   cudaError_t err = set_smem_once(fa2_fwd_fp32<D>, L::kSmem, smem_set);
@@ -674,7 +733,8 @@ cudaError_t launch_fp32(cudaStream_t stream, const void* q, const void* k,
   fa2_fwd_fp32<D><<<grid, kFmaThreads, L::kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o),
-      static_cast<float*>(lse), hq, hkv, sq, skv, kv_len, qscale, causal);
+      static_cast<float*>(lse), hq, hkv, sq, skv, kv_len, qscale, causal,
+      window, sinks);
   return cudaGetLastError();
 }
 // A 3-D map over a contiguous 16-bit [rows, skv, d] K or V: boxes of 128
@@ -703,7 +763,7 @@ template <typename Tin, typename Tt, int D>
 int launch_wgmma(cudaStream_t stream, const void* q, const void* k,
                  const void* v, void* o, void* lse, int batch, int hq, int hkv,
                  int sq, int skv, int kv_len, float qscale, int causal,
-                 int tiles) {
+                 int window, int sinks, int tiles) {
   CUtensorMap k_map, v_map;
   int err = kv_map(&k_map, k, tiles, batch * hkv, skv, D);
   if (err == 0) err = kv_map(&v_map, v, tiles, batch * hkv, skv, D);
@@ -715,21 +775,24 @@ int launch_wgmma(cudaStream_t stream, const void* q, const void* k,
   const dim3 grid((sq + kTileM - 1) / kTileM, batch * hq);
   fa2_fwd_wgmma<Tin, Tt, D><<<grid, kThreads, Layout<D>::kSmem, stream>>>(
       k_map, v_map, static_cast<const Tin*>(q), static_cast<Tin*>(o),
-      static_cast<float*>(lse), hq, hkv, sq, kv_len, qscale, causal);
+      static_cast<float*>(lse), hq, hkv, sq, kv_len, qscale, causal, window,
+      sinks);
   return cudaGetLastError();
 }
 
 template <typename Tin, int D>
 int launch_tiles(int tiles, cudaStream_t st, const void* q, const void* k,
                  const void* v, void* o, void* lse, int batch, int hq, int hkv,
-                 int sq, int skv, int kv_len, float qscale, int causal) {
+                 int sq, int skv, int kv_len, float qscale, int causal,
+                 int window, int sinks) {
   if (tiles == 1) {
     return launch_wgmma<Tin, __nv_bfloat16, D>(st, q, k, v, o, lse, batch, hq,
                                                hkv, sq, skv, kv_len, qscale,
-                                               causal, tiles);
+                                               causal, window, sinks, tiles);
   }
   return launch_wgmma<Tin, __half, D>(st, q, k, v, o, lse, batch, hq, hkv, sq,
-                                      skv, kv_len, qscale, causal, tiles);
+                                      skv, kv_len, qscale, causal, window,
+                                      sinks, tiles);
 }
 
 }  // namespace
@@ -740,43 +803,49 @@ extern "C" {
 // lse [batch, hq, sq] fp32.  All contiguous and 16-byte aligned.  in_bf16:
 // q and o are bf16 (else fp32).  tiles: 0 fp32 on the FMA units (k and v
 // fp32 too), 1 bf16 or 2 fp16 on the tensor cores, with k and v already in
-// the tile type.  qscale = sm_scale * log2(e).  Returns a cudaError_t, or
-// an error of the tensor-map step (cfa_fa2_forward_error_string names it).
+// the tile type.  qscale = sm_scale * log2(e).  window: a row keeps keys
+// with row - col < window (kNoWindow: no window; without causal a band,
+// any value); sinks: columns below it are kept besides.  Returns a
+// cudaError_t, or an error of the tensor-map step
+// (cfa_fa2_forward_error_string names it).
 int cfa_fa2_forward(const void* q, const void* k, const void* v, void* o,
                     void* lse, int batch, int hq, int hkv, int sq, int skv,
                     int head_dim, int kv_len, float qscale, int causal,
-                    int in_bf16, int tiles, void* stream) {
+                    int window, int sinks, int in_bf16, int tiles,
+                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (tiles == 1 || tiles == 2) {
     if (in_bf16) {
       if (head_dim == 64) {
         return launch_tiles<__nv_bfloat16, 64>(tiles, st, q, k, v, o, lse,
                                                batch, hq, hkv, sq, skv, kv_len,
-                                               qscale, causal);
+                                               qscale, causal, window, sinks);
       }
       if (head_dim == 128) {
         return launch_tiles<__nv_bfloat16, 128>(tiles, st, q, k, v, o, lse,
                                                 batch, hq, hkv, sq, skv, kv_len,
-                                                qscale, causal);
+                                                qscale, causal, window, sinks);
       }
     } else {
       if (head_dim == 64) {
         return launch_tiles<float, 64>(tiles, st, q, k, v, o, lse, batch, hq,
-                                       hkv, sq, skv, kv_len, qscale, causal);
+                                       hkv, sq, skv, kv_len, qscale, causal,
+                                       window, sinks);
       }
       if (head_dim == 128) {
         return launch_tiles<float, 128>(tiles, st, q, k, v, o, lse, batch, hq,
-                                        hkv, sq, skv, kv_len, qscale, causal);
+                                        hkv, sq, skv, kv_len, qscale, causal,
+                                        window, sinks);
       }
     }
   } else if (tiles == 0 && !in_bf16) {
     if (head_dim == 64) {
       return launch_fp32<64>(st, q, k, v, o, lse, batch, hq, hkv, sq, skv,
-                             kv_len, qscale, causal);
+                             kv_len, qscale, causal, window, sinks);
     }
     if (head_dim == 128) {
       return launch_fp32<128>(st, q, k, v, o, lse, batch, hq, hkv, sq, skv,
-                              kv_len, qscale, causal);
+                              kv_len, qscale, causal, window, sinks);
     }
   }
   return static_cast<int>(cudaErrorInvalidValue);

@@ -8,8 +8,12 @@
 // row for problems whose whole (padded) sequence is one tile: Sq = Skv =
 // s_pad <= 128 and as many KV heads as query heads, so every (batch, head)
 // pair is one independent slot.  Causal masking and a ragged KV tail
-// (kv_len) apply inside each slot; slots never see each other's keys.
-// Windows and segment ids are not taken; the Python wrapper refuses them.
+// (kv_len) apply inside each slot, and so do a sliding window (row - col <
+// window; a recency band without causal masking) and attention sinks (col
+// < sinks kept besides), as one more clause of the element mask: a slot's
+// whole row is one tile, so there is no walk to shorten.  Slots never see
+// each other's keys.  Segment ids are not taken; the Python wrapper
+// refuses them.
 //
 // What bounds it on the H100: the bytes, and at these sizes mostly the fixed
 // cost of a launch and the latency of one block's chain of loads, products
@@ -176,8 +180,9 @@ __device__ __forceinline__ void copy_tile(Tt* dst, const Tt* src, int rows,
 }
 
 __device__ __forceinline__ bool masked(int row, int col, int kv_len,
-                                       int causal) {
-  return col >= kv_len || (causal && col > row);
+                                       int causal, int window, int sinks) {
+  return col >= kv_len || (causal && col > row) ||
+         !in_window(row, col, window, sinks);
 }
 
 // First row of this block's Q tile: under causal masking the tiles nearer
@@ -199,7 +204,7 @@ __global__ void __launch_bounds__(128)
 small_mma(const Tin* __restrict__ q, const Tin* __restrict__ k,
           const Tin* __restrict__ v, Tin* __restrict__ o,
           float* __restrict__ lse, int s_pad, int kv_len, float qscale,
-          int causal) {
+          int causal, int window, int sinks) {
   constexpr int LD = D + 8;  // 16-byte row padding: conflict-free ldmatrix
   constexpr int NT = kMaxRows / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -273,7 +278,7 @@ small_mma(const Tin* __restrict__ q, const Tin* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = j * 8 + t4 * 2 + (e & 1);
-        if (masked(e < 2 ? row_a : row_b, col, kv_len, causal)) {
+        if (masked(e < 2 ? row_a : row_b, col, kv_len, causal, window, sinks)) {
           s[j][e] = kMaskValue;
         }
         mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
@@ -292,7 +297,7 @@ small_mma(const Tin* __restrict__ q, const Tin* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = j * 8 + t4 * 2 + (e & 1);
-        const float p = masked(e < 2 ? row_a : row_b, col, kv_len, causal)
+        const float p = masked(e < 2 ? row_a : row_b, col, kv_len, causal, window, sinks)
                             ? 0.f
                             : exp2f(s[j][e] - mx[e >> 1]);
         l[e >> 1] += p;
@@ -379,7 +384,7 @@ __global__ void __launch_bounds__(kFmaThreads)
 small_fp32(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, float* __restrict__ o,
            float* __restrict__ lse, int s_pad, int kv_len, float qscale,
-           int causal) {
+           int causal, int window, int sinks) {
   using L = SmallFmaLayout<D>;
   constexpr int DO = D / 16;  // output columns per thread
   extern __shared__ __align__(16) float smem[];
@@ -429,7 +434,8 @@ small_fp32(const float* __restrict__ q, const float* __restrict__ k,
       if (t < n_kv) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          if (masked(row, kFmaTile * t + th.tx + 16 * j, kv_len, causal)) {
+          if (masked(row, kFmaTile * t + th.tx + 16 * j, kv_len, causal, window,
+                     sinks)) {
             s[t][r][j] = kMaskValue;
           }
           m = fmaxf(m, s[t][r][j]);
@@ -443,7 +449,8 @@ small_fp32(const float* __restrict__ q, const float* __restrict__ k,
       if (t < n_kv) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const float p = masked(row, kFmaTile * t + th.tx + 16 * j, kv_len, causal)
+          const float p = masked(row, kFmaTile * t + th.tx + 16 * j, kv_len, causal, window,
+                     sinks)
                               ? 0.f
                               : exp2f(s[t][r][j] - mx[r]);
           rs += p;
@@ -492,7 +499,7 @@ struct Args {
   float* lse;
   int n_slots, s_pad, kv_len;
   float qscale;
-  int causal;
+  int causal, window, sinks;
   cudaStream_t stream;
 };
 
@@ -515,7 +522,7 @@ cudaError_t launch_mma(const Args& a) {
   small_mma<Tin, Tt, D><<<grid_of(a), 32 * (q_rows / 16), smem, a.stream>>>(
       static_cast<const Tin*>(a.q), static_cast<const Tin*>(a.k),
       static_cast<const Tin*>(a.v), static_cast<Tin*>(a.o), a.lse, a.s_pad,
-      a.kv_len, a.qscale, a.causal);
+      a.kv_len, a.qscale, a.causal, a.window, a.sinks);
   return cudaGetLastError();
 }
 
@@ -528,7 +535,7 @@ cudaError_t launch_fp32(const Args& a) {
   small_fp32<D><<<grid_of(a), kFmaThreads, L::kSmem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, a.s_pad,
-      a.kv_len, a.qscale, a.causal);
+      a.kv_len, a.qscale, a.causal, a.window, a.sinks);
   return cudaGetLastError();
 }
 
@@ -546,16 +553,19 @@ extern "C" {
 // lse [n_slots, s_pad] fp32.  All contiguous and 16-byte aligned, s_pad <=
 // 128.  in_bf16: q/k/v/o are bf16 (else fp32).  tiles: 0 fp32 on the FMA
 // units (needs fp32 inputs), 1 bf16 or 2 fp16 on the tensor cores.  qscale =
-// sm_scale * log2(e).  Returns a cudaError_t.
+// sm_scale * log2(e).  window and sinks as cfa_fa2_forward's (kNoWindow: no
+// window).  Returns a cudaError_t.
 int cfa_fa2_forward_small(const void* q, const void* k, const void* v,
                           void* o, void* lse, int n_slots, int s_pad,
                           int head_dim, int kv_len, float qscale, int causal,
-                          int in_bf16, int tiles, void* stream) {
+                          int window, int sinks, int in_bf16, int tiles,
+                          void* stream) {
   if (s_pad < 1 || s_pad > kMaxRows || n_slots < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Args a{q, k, v, o, static_cast<float*>(lse), n_slots, s_pad, kv_len,
-               qscale, causal, static_cast<cudaStream_t>(stream)};
+               qscale, causal, window, sinks,
+               static_cast<cudaStream_t>(stream)};
   if (tiles == 1 || tiles == 2) {
     if (in_bf16) {
       if (head_dim == 64) return launch_mma_tiles<__nv_bfloat16, 64>(a, tiles);

@@ -234,6 +234,38 @@ EncodeTiled encode_tiled() {
 }
 
 // Errors of the tensor-map step, beyond the cudaError_t range.
+// Sliding windows and attention sinks (B1, B5, B6, B8).  A row at
+// position `row` keeps column `col` when row - col < window or col < sinks
+// (and-ed with each kernel's causal and length bounds); "no window" is a
+// window of kNoWindow, which no key distance reaches.
+constexpr int kNoWindow = 1 << 30;
+
+__device__ __forceinline__ bool in_window(int row, int col, int window,
+                                          int sinks) {
+  return row - col < window || col < sinks;
+}
+
+// The KV tiles (of `tile` columns) a range of rows walks: the sink tiles
+// [0, cdiv(sinks, tile)), then the tiles from the one holding `first_col`
+// (the oldest column the range's first row keeps) to the one holding
+// end_col - 1; a tile in both ranges is walked once.  Step i < n is tile
+// at(i).  A kernel's producer and consumers, and each split of a split-KV
+// walk, step through this one sequence.  kernels/common.py window_tiles
+// is its plain twin.
+struct KvWalk {
+  int n_sink, lo, n;
+  __device__ __forceinline__ KvWalk(int first_col, int end_col, int sinks,
+                                    int tile) {
+    const int n_end = end_col > 0 ? (end_col + tile - 1) / tile : 0;
+    n_sink = min((sinks + tile - 1) / tile, n_end);
+    lo = max(n_sink, max(0, first_col) / tile);
+    n = n_sink + max(0, n_end - lo);
+  }
+  __device__ __forceinline__ int at(int i) const {
+    return i < n_sink ? i : lo + (i - n_sink);
+  }
+};
+
 constexpr int kErrNoEncoder = 100000;
 constexpr int kErrEncode = 100001;
 

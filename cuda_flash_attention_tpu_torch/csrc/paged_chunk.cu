@@ -14,6 +14,13 @@
 // length, the chunk included (0 for an inactive slot, whose output is
 // zeros).  Query t sits at position length - T + t and sees cached columns
 // col <= length - T + t: that one bound is also the chunk's own causality.
+// With a sliding window it keeps only col > pos - window of those, and, as
+// attention sinks, col < sinks besides (JAX attention.py :294-329,
+// :388-408): the oldest column any query keeps is length - T - window + 1.
+// Every body walks only the live columns of its rows (csrc/hopper.cuh
+// KvWalk: the sink chunks, then from its first row's window start to its
+// last row's position), so a table entry behind the window is never read
+// (the engine recycles those pages to other slots).
 // The K scale multiplies the score columns, the V scale multiplies P before
 // P is rounded to the compute type; the softmax is an fp32 online softmax
 // with natural exp, as the TPU kernel computes it.
@@ -36,7 +43,9 @@
 //     of the t-major rows, and a block walks its split's contiguous run of
 //     the slot's live pages; the wrapper picks the split count from shapes
 //     alone (decode/attention.py::chunk_split_plan), so the launch reads no
-//     length on the host and can be captured in a CUDA graph.  128-token
+//     length on the host and can be captured in a CUDA graph.  Under a
+//     window the splits share out the row tile's live chunk walk, planned
+//     over the window + T - 1 columns' pages (live_page_span).  128-token
 //     chunks of K and V with their scales arrive by cp.async into a ring of
 //     up to three stages on mbarriers (tokens no row of the tile attends
 //     are zero-filled, not read), and the next page id is read while a
@@ -66,7 +75,9 @@
 //     while the next stages land, and one barrier a tile separates that
 //     decode from the products of the tile before.  Blocks are handed out
 //     longest first: the chunk's last row tiles first, and among slots the
-//     longest first (each block ranks the slots by length on the card).
+//     longest first (each block ranks the slots by length on the card;
+//     under a window a walk still grows with the slot's length, up to the
+//     window's cap, so the rank by length stays the rank by walk).
 //     The softmax runs in the exp2 domain (the K scale carries sm_scale
 //     log2(e)) and masks only the tiles that reach past the row tile's
 //     first position.  wgmma is not used: TMA cannot widen int8/fp8/int4,
@@ -384,9 +395,11 @@ __device__ __forceinline__ void v_elems(const unsigned char* vrow, int lane,
 // A block holds one row tile of at most kRowTile rows.  MMA is the bf16
 // compute type: Q, the decoded K/V and P * v_scale are rounded
 // to bf16, the products run on mma.sync m16n8k16 with fp32 accumulators.
-// Otherwise the compute type is fp32 (IEEE, on the FMA units).
+// Otherwise the compute type is fp32 (IEEE, on the FMA units).  The
+// launch bounds promise one block an SM: without that, ptxas held some
+// instantiations to 128 registers and spilled the window's bounds.
 template <typename Tq, typename Tc, int D, bool MMA>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 paged_chunk_split(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
                   const float* __restrict__ k_scales, const Tc* __restrict__ v_pages,
                   const float* __restrict__ v_scales,
@@ -394,7 +407,7 @@ paged_chunk_split(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
                   Tq* __restrict__ out, float* __restrict__ partial,
                   int* __restrict__ counters, int chunk, int n_heads, int n_kv,
                   int num_pages, int page_size, int pages_per_seq,
-                  int pages_per_split, float sm_scale) {
+                  int pages_per_split, float sm_scale, int window, int sinks) {
   using L = SplitLayout<Tc, D, MMA>;
   constexpr int RT = kRowTile;
   constexpr int kE = D / 32;  // scalar P V: output columns per lane
@@ -421,12 +434,15 @@ paged_chunk_split(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
   const int g = lane >> 2;  // MMA: this thread's rows g and g + 8
   const int t4 = lane & 3;
   const int base = lengths[slot] - chunk;  // position of query 0
-  // Columns that some row of the tile attends: to its last row's position.
+  // Columns that some row of the tile attends: to its last row's position,
+  // from its first row's window start (and the sinks), in 128-token chunks
+  // (each holding a column some row keeps); a split walks
+  // chunks_per_split of them.  Splits holding such a chunk; split 0 also
+  // answers a tile with none (zeros).  The others have nothing to do.
   const int kv_end = max(0, base + (r0 + n_rows - 1) / group + 1);
-  // Splits holding such a column; split 0 also answers a tile with none
-  // (zeros).  The others have nothing to do.
-  const int live_pages = (kv_end + page_size - 1) / page_size;
-  const int n_live = max(1, (live_pages + pages_per_split - 1) / pages_per_split);
+  const KvWalk walk(base + r0 / group - window + 1, kv_end, sinks, kThreads);
+  const int chunks_per_split = pages_per_split * (page_size / kThreads);
+  const int n_live = max(1, (walk.n + chunks_per_split - 1) / chunks_per_split);
   if (split >= n_live) return;
   // Element offset in q / out of the tile's row r.
   auto row_off = [&](int r) {
@@ -436,25 +452,22 @@ paged_chunk_split(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
             t * group) * D;
   };
 
-  // This split's tokens: its pages' tokens before kv_end.
-  const int tok_begin = split * pages_per_split * page_size;
-  const int tok_end =
-      min(kv_end, min(pages_per_seq, (split + 1) * pages_per_split) * page_size);
-  const int n_chunks =
-      tok_end > tok_begin ? (tok_end - tok_begin + kThreads - 1) / kThreads : 0;
+  // This split's walk steps [step0, step0 + n_chunks).
+  const int step0 = split * chunks_per_split;
+  const int n_chunks = max(0, min(walk.n - step0, chunks_per_split));
   const unsigned char* kp = reinterpret_cast<const unsigned char*>(k_pages);
   const unsigned char* vp = reinterpret_cast<const unsigned char*>(v_pages);
+  auto tok_of = [&](int c) { return walk.at(step0 + c) * kThreads; };
   auto page_of = [&](int c) {
-    return page_table[static_cast<size_t>(slot) * pages_per_seq +
-                      (tok_begin + c * kThreads) / page_size];
+    return page_table[static_cast<size_t>(slot) * pages_per_seq + tok_of(c) / page_size];
   };
   auto issue = [&](int c, int pid) {
-    const int tok0 = tok_begin + c * kThreads;
+    const int tok0 = tok_of(c);
     const int page = tok0 / page_size;
     const size_t row0 = (static_cast<size_t>(hk) * num_pages + pid) * page_size +
                         (tok0 - page * page_size);
     load_split_chunk<L>(smem + (c % S) * L::kStageBytes, bar0 + 8 * (c % S), kp, vp,
-                        k_scales, v_scales, row0, tok_end - tok0);
+                        k_scales, v_scales, row0, kv_end - tok0);
   };
 
   // Scalar state: RT rows a thread; MMA state: rows g and g + 8 of the
@@ -523,10 +536,10 @@ paged_chunk_split(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
       const int next_pid = c + S < n_chunks ? page_of(c + S) : 0;
       const unsigned char* stage = smem + (c % S) * L::kStageBytes;
       mbar_wait(bar0 + 8 * (c % S), (c / S) & 1);
-      const int tok0 = tok_begin + c * kThreads;
+      const int tok0 = tok_of(c);
       const float* ksc = reinterpret_cast<const float*>(stage + L::kScaleOff);
       const float* vsc = ksc + kThreads;
-      if (tok0 + warp * 32 < tok_end) {  // the warp holds a token some row sees
+      if (tok0 + warp * 32 < kv_end) {  // the warp holds a token before kv_end
         const int t = warp * 32 + lane;
         if constexpr (MMA) {
           // This warp's 32 K and V rows in bf16 (lane decodes its token's
@@ -562,7 +575,8 @@ paged_chunk_split(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               const int tl = warp * 32 + j * 8 + 2 * t4 + (e & 1);
-              const bool keep = tok0 + tl <= (e < 2 ? pos_a : pos_b);
+              const int pos = e < 2 ? pos_a : pos_b;
+              const bool keep = tok0 + tl <= pos && in_window(pos, tok0 + tl, window, sinks);
               s[j][e] = keep ? s[j][e] * (ksc[tl] * sm_scale) : kMaskValue;
               mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
             }
@@ -582,7 +596,8 @@ paged_chunk_split(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               const int tl = warp * 32 + j * 8 + 2 * t4 + (e & 1);
-              const bool keep = tok0 + tl <= (e < 2 ? pos_a : pos_b);
+              const int pos = e < 2 ? pos_a : pos_b;
+              const bool keep = tok0 + tl <= pos && in_window(pos, tok0 + tl, window, sinks);
               const float p = keep ? expf(s[j][e] - m2[e >> 1]) : 0.f;
               rs[e >> 1] += p;
               s[j][e] = keep ? p * vsc[tl] : 0.f;  // rounded to bf16 below
@@ -626,7 +641,7 @@ paged_chunk_split(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
 #pragma unroll
           for (int r = 0; r < RT; ++r) {
             if (r < n_rows) {
-              const bool valid = tok <= pos_s[r];
+              const bool valid = tok <= pos_s[r] && in_window(pos_s[r], tok, window, sinks);
               const float sr = valid ? s[r] * col_scale : kMaskValue;
               float mx = sr;
 #pragma unroll
@@ -815,14 +830,16 @@ __device__ __forceinline__ float exp2_ftz(float x) {
 
 // The online softmax of one 16 x 64 S tile of a warp in place, in the exp2
 // domain (ksc holds K's scale times sm_scale log2(e)): with kMask, columns
-// past a row's position take kMaskValue and P exactly 0 (a row masked so
+// past a row's position or outside its window and sinks take kMaskValue and
+// P exactly 0 (a row masked so
 // far has m equal to the mask value, where exp2 alone would give 1).
 // Rescales acc and this thread's share of l, and leaves P * v_scale in s.
 template <bool kMask, int NJ>
 __device__ __forceinline__ void tile_softmax(float (&s)[kBlockN / 8][4], const float* ksc,
                                              const float* vsc, float (&m_run)[2],
                                              float (&l_run)[2], float (&acc)[NJ][4],
-                                             int c0, int pos_a, int pos_b, int t4) {
+                                             int c0, int pos_a, int pos_b, int window,
+                                             int sinks, int t4) {
   float2 kc[kBlockN / 8];
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -831,8 +848,10 @@ __device__ __forceinline__ void tile_softmax(float (&s)[kBlockN / 8][4], const f
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       s[j][e] *= (e & 1) ? kc[j].y : kc[j].x;
-      if (kMask && c0 + j * 8 + t4 * 2 + (e & 1) > (e < 2 ? pos_a : pos_b)) {
-        s[j][e] = kMaskValue;
+      if (kMask) {
+        const int col = c0 + j * 8 + t4 * 2 + (e & 1);
+        const int pos = e < 2 ? pos_a : pos_b;
+        if (col > pos || !in_window(pos, col, window, sinks)) s[j][e] = kMaskValue;
       }
       mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
     }
@@ -900,7 +919,8 @@ paged_chunk_mma(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
                 const float* __restrict__ v_scales,
                 const int* __restrict__ page_table, const int* __restrict__ lengths,
                 Tq* __restrict__ out, int num_seqs, int chunk, int n_heads, int n_kv,
-                int num_pages, int page_size, int pages_per_seq, float sm_scale) {
+                int num_pages, int page_size, int pages_per_seq, float sm_scale,
+                int window, int sinks) {
   using L = TileLayout<Tc, D>;
   constexpr int LD = L::LD;
   constexpr int S = L::kStages;
@@ -924,7 +944,13 @@ paged_chunk_mma(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
   const int base = lengths[slot] - chunk;  // position of query 0
   const int r_last = min(r0 + kBlockM, rows) - 1;
   const int kv_end = max(0, base + r_last / group + 1);
-  const int n_it = (kv_end + kBlockN - 1) / kBlockN;
+  const int pos_first = base + r0 / group;  // the tile's smallest position
+  const int pos_last = base + r_last / group;
+  // The 64-token tiles the rows attend: the sink tiles, then from the first
+  // row's window start to the last row's position; step it is tile
+  // walk.at(it), in raw stage it % S.
+  const KvWalk walk(pos_first - window + 1, kv_end, sinks, kBlockN);
+  const int n_it = walk.n;
   const size_t pt_row = static_cast<size_t>(slot) * pages_per_seq;
   auto qrow = [&](int r) {  // element offset of the tile's row r in q / out
     const int rr = r0 + r;
@@ -934,11 +960,13 @@ paged_chunk_mma(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
   };
   const unsigned char* kp = reinterpret_cast<const unsigned char*>(k_pages);
   const unsigned char* vp = reinterpret_cast<const unsigned char*>(v_pages);
-  auto page_of = [&](int it) { return page_table[pt_row + it * kBlockN / page_size]; };
-  // Tile `it` (64 tokens of one page) into raw stage it % S; tokens at or
+  auto page_of = [&](int it) {
+    return page_table[pt_row + walk.at(it) * kBlockN / page_size];
+  };
+  // Step `it` (64 tokens of one page) into raw stage it % S; tokens at or
   // past kv_end are zero-filled and not read.
   auto issue = [&](int it, int pid) {
-    const int c0 = it * kBlockN;
+    const int c0 = walk.at(it) * kBlockN;
     const int page = c0 / page_size;
     const size_t row0 = (static_cast<size_t>(hk) * num_pages + pid) * page_size +
                         (c0 - page * page_size);
@@ -993,7 +1021,6 @@ paged_chunk_mma(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
   auto pos_of = [&](int r) { return r0 + r < rows ? base + (r0 + r) / group : -1; };
   const int pos_a = pos_of(warp * 16 + g);
   const int pos_b = pos_of(warp * 16 + g + 8);
-  const int pos_first = base + r0 / group;  // the tile's smallest position
   float m_run[2] = {-INFINITY, -INFINITY};
   float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
   float acc[D / 8][4];
@@ -1001,7 +1028,7 @@ paged_chunk_mma(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
   for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 
   for (int it = 0; it < n_it; ++it) {
-    const int c0 = it * kBlockN;
+    const int c0 = walk.at(it) * kBlockN;
     // The page that refills this raw stage, read before the wait.
     const int next_pid = it + S < n_it ? page_of(it + S) : 0;
     const unsigned char* raw = smem + (it % S) * L::kRawStage;
@@ -1044,12 +1071,14 @@ paged_chunk_mma(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
 
     // Scale the score columns (the K scale times sm_scale log2(e)), mask
     // past each row's position on the tiles that reach past the tile's
-    // first row (the diagonal and the kv_end tail), online softmax in the
-    // exp2 domain.
-    if (c0 + kBlockN - 1 > pos_first) {
-      tile_softmax<true>(s, ksc, vsc, m_run, l_run, acc, c0, pos_a, pos_b, t4);
+    // first row (the diagonal and the kv_end tail) and on those some row's
+    // window edge crosses, online softmax in the exp2 domain.
+    if (c0 + kBlockN - 1 > pos_first || pos_last - c0 >= window) {
+      tile_softmax<true>(s, ksc, vsc, m_run, l_run, acc, c0, pos_a, pos_b, window, sinks,
+                         t4);
     } else {
-      tile_softmax<false>(s, ksc, vsc, m_run, l_run, acc, c0, pos_a, pos_b, t4);
+      tile_softmax<false>(s, ksc, vsc, m_run, l_run, acc, c0, pos_a, pos_b, window, sinks,
+                          t4);
     }
 
     // O += P V: the S accumulators of n-tiles 2kk and 2kk+1 are exactly the
@@ -1101,19 +1130,22 @@ paged_chunk_mma(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
 // rows, from chunk_tile_order) and how far its page loop runs.
 struct Tile {
   int slot, hk, group, rows, r0, base, kv_end, n_tiles;
+  KvWalk walk;    // step it is cached tile walk.at(it)
   size_t pt_row;  // page_table offset of the slot's row
 
   __device__ Tile(int slot_, int hk_, int r0_, int chunk, int n_heads, int n_kv,
-                  const int* lengths, int pages_per_seq)
-      : slot(slot_), hk(hk_), r0(r0_) {
+                  const int* lengths, int pages_per_seq, int window, int sinks)
+      : slot(slot_), hk(hk_), r0(r0_), walk(0, 0, 0, kBlockN) {
     group = n_heads / n_kv;
     rows = chunk * group;
     const int length = lengths[slot];
     base = length - chunk;  // position of query t = 0
     const int r_last = min(r0 + kBlockM, rows) - 1;
-    // The last row attends columns < base + t_last + 1 (<= length).
+    // The last row attends columns < base + t_last + 1 (<= length); the
+    // first keeps none before its window start but the sinks.
     kv_end = max(0, base + r_last / group + 1);
-    n_tiles = (kv_end + kBlockN - 1) / kBlockN;
+    walk = KvWalk(base + r0 / group - window + 1, kv_end, sinks, kBlockN);
+    n_tiles = walk.n;
     pt_row = static_cast<size_t>(slot) * pages_per_seq;
   }
 
@@ -1183,7 +1215,8 @@ paged_chunk_fp32(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
                  const int* __restrict__ page_table,
                  const int* __restrict__ lengths, Tq* __restrict__ out,
                  int num_seqs, int chunk, int n_heads, int n_kv, int num_pages,
-                 int page_size, int pages_per_seq, float sm_scale) {
+                 int page_size, int pages_per_seq, float sm_scale, int window,
+                 int sinks) {
   constexpr bool kDirect = ChunkFp32<Tc, D>::kDirect;
   using B = FmaBlock<D>;
   using R = FmaRaw<Tc, D>;
@@ -1200,7 +1233,8 @@ paged_chunk_fp32(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
   chunk_tile_order(blockIdx.x, chunk * (n_heads / n_kv), num_seqs, n_kv, lengths, &slot_s,
                    hk, r0);
   __syncthreads();
-  const Tile tile(slot_s, hk, r0, chunk, n_heads, n_kv, lengths, pages_per_seq);
+  const Tile tile(slot_s, hk, r0, chunk, n_heads, n_kv, lengths, pages_per_seq, window,
+                  sinks);
   const FmaThread th = fma_thread();
   const unsigned char* kb = reinterpret_cast<const unsigned char*>(k_pages);
   const unsigned char* vb = reinterpret_cast<const unsigned char*>(v_pages);
@@ -1225,21 +1259,22 @@ paged_chunk_fp32(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
   }
   __syncthreads();
   const int n_it = tile.n_tiles;
+  auto col_of = [&](int it) { return tile.walk.at(it) * kBlockN; };
   auto row_of = [&](int it) {
-    return tile.cache_row(page_table, it * kBlockN, num_pages, page_size);
+    return tile.cache_row(page_table, col_of(it), num_pages, page_size);
   };
   // Cached tile `it` (tokens at or past kv_end zero-filled and not read):
   // an fp32 cache's K or V into its fp32 stage, any other cache's K, V and
   // scales into the stored-width ring, from cache row row0.
   auto load_f32 = [&](float* dst, uint32_t bar, const unsigned char* pages, int it) {
     fma_load_tile<D, true>(dst, bar, reinterpret_cast<const float*>(pages) + row_of(it) * D,
-                           0, tile.valid_cols(it * kBlockN));
+                           0, tile.valid_cols(col_of(it)));
   };
   auto issue = [&](int it, size_t row0) {
     fma_raw_issue<Tc, D>(bytes + R::kRaw + (it % R::kStages) * R::kStage,
                          raw_bar + 8 * (it % R::kStages), kb + row0 * kRow,
                          vb + row0 * kRow, k_scales + row0, v_scales + row0,
-                         tile.valid_cols(it * kBlockN));
+                         tile.valid_cols(col_of(it)));
   };
   if constexpr (kDirect) {
     for (int it = 0; it < B::kKStages && it < n_it; ++it) load_f32(st.k(it), st.k_bar(it), kb, it);
@@ -1257,7 +1292,7 @@ paged_chunk_fp32(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
     for (int c = 0; c < DO; ++c) acc[r][c] = 0.f;
   }
   for (int it = 0; it < n_it; ++it) {
-    const int c0 = it * kBlockN;
+    const int c0 = col_of(it);
     float* kf;
     const float* vf;
     const float* sc;  // the tile's K scales, then its V scales
@@ -1297,8 +1332,10 @@ paged_chunk_fp32(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
       float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        s[r][j] = c0 + th.tx + 16 * j <= pos ? s[r][j] * (sc[th.tx + 16 * j] * sm_scale)
-                                             : kMaskValue;
+        const int col = c0 + th.tx + 16 * j;
+        s[r][j] = col <= pos && in_window(pos, col, window, sinks)
+                      ? s[r][j] * (sc[th.tx + 16 * j] * sm_scale)
+                      : kMaskValue;
         mx = fmaxf(mx, s[r][j]);
       }
       mx = fma_row_max(mx);
@@ -1308,7 +1345,9 @@ paged_chunk_fp32(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
       float rs = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float p = c0 + th.tx + 16 * j <= pos ? expf(s[r][j] - m_new) : 0.f;
+        const int col = c0 + th.tx + 16 * j;
+        const float p =
+            col <= pos && in_window(pos, col, window, sinks) ? expf(s[r][j] - m_new) : 0.f;
         rs += p;
         fma_store_p(ps, th, r, j, p * sc[kBlockN + th.tx + 16 * j]);
       }
@@ -1369,6 +1408,7 @@ struct Args {
       pages_per_seq, n_splits;
   float sm_scale;
   bool bf16_compute;
+  int window, sinks;
   cudaStream_t stream;
 };
 
@@ -1380,7 +1420,8 @@ cudaError_t launch_split(const Args& a) {
       set_smem_once(paged_chunk_split<Tq, Tc, D, MMA>, L::kSmem, smem_set);
   if (err != cudaSuccess) return err;
   const int rows = a.chunk * (a.n_heads / a.n_kv_heads);
-  const int pages_per_split = (a.pages_per_seq + a.n_splits - 1) / a.n_splits;
+  const int span = live_page_span(a.pages_per_seq, a.page_size, a.window + a.chunk - 1, a.sinks);
+  const int pages_per_split = (span + a.n_splits - 1) / a.n_splits;
   const dim3 grid(a.n_splits, a.num_seqs, a.n_kv_heads * ((rows + kRowTile - 1) / kRowTile));
   paged_chunk_split<Tq, Tc, D, MMA><<<grid, kThreads, L::kSmem, a.stream>>>(
       static_cast<const Tq*>(a.q), static_cast<const Tc*>(a.k_pages),
@@ -1388,7 +1429,7 @@ cudaError_t launch_split(const Args& a) {
       static_cast<const float*>(a.v_scales), static_cast<const int*>(a.page_table),
       static_cast<const int*>(a.lengths), static_cast<Tq*>(a.out), a.partial,
       a.counters, a.chunk, a.n_heads, a.n_kv_heads, a.num_pages, a.page_size,
-      a.pages_per_seq, pages_per_split, a.sm_scale);
+      a.pages_per_seq, pages_per_split, a.sm_scale, a.window, a.sinks);
   return cudaGetLastError();
 }
 
@@ -1415,7 +1456,7 @@ cudaError_t launch(const Args& a) {
         static_cast<const float*>(a.v_scales), static_cast<const int*>(a.page_table),
         static_cast<const int*>(a.lengths), static_cast<Tq*>(a.out), a.num_seqs,
         a.chunk, a.n_heads, a.n_kv_heads, a.num_pages, a.page_size, a.pages_per_seq,
-        a.sm_scale);
+        a.sm_scale, a.window, a.sinks);
   } else {
     constexpr int kSmem = ChunkFp32<Tc, D>::kSmem;
     static std::atomic<uint64_t> smem_set{0};
@@ -1428,7 +1469,7 @@ cudaError_t launch(const Args& a) {
         static_cast<const float*>(a.v_scales), static_cast<const int*>(a.page_table),
         static_cast<const int*>(a.lengths), static_cast<Tq*>(a.out), a.num_seqs,
         a.chunk, a.n_heads, a.n_kv_heads, a.num_pages, a.page_size, a.pages_per_seq,
-        a.sm_scale);
+        a.sm_scale, a.window, a.sinks);
   }
   return cudaGetLastError();
 }
@@ -1484,8 +1525,12 @@ long long cfa_paged_chunk_workspace_floats(int num_seqs, int chunk, int n_heads,
 // [n_kv_heads, num_pages, page_size] fp32; page_table [num_seqs,
 // pages_per_seq] int32; lengths [num_seqs] int32, the total length with the
 // chunk.  page_size is a multiple of 128 and n_heads / n_kv_heads <= 8.
-// chunk * group <= 64 takes the split body: split s of the n_splits walks
-// pages [s p, (s + 1) p), p = ceil(pages_per_seq / n_splits), and with
+// window (>= 1; kNoWindow: none) and sinks: query t at position pos =
+// length - chunk + t keeps col > pos - window and col < sinks.
+// chunk * group <= 64 takes the split body: the n_splits (at most
+// live_page_span(pages_per_seq, page_size, window + chunk - 1, sinks))
+// share out each row tile's live walk, p = ceil(that span / n_splits)
+// pages' worth of chunks each, and with
 // n_splits > 1 workspace holds cfa_paged_chunk_workspace_floats fp32 values
 // and counters num_seqs * n_kv_heads * ceil(chunk * group / 16) int32
 // zeros, which the call leaves zero.  A larger chunk * group takes a tile body and n_splits 1.
@@ -1496,11 +1541,12 @@ int cfa_paged_chunk(const void* q, const void* k_pages, const void* k_scales,
                     int num_seqs, int chunk, int n_heads, int n_kv_heads,
                     int num_pages, int page_size, int pages_per_seq,
                     int head_dim, float sm_scale, int q_bf16, int cache_dtype,
-                    int bf16_compute, int n_splits, void* workspace,
-                    void* counters, void* stream) {
+                    int bf16_compute, int window, int sinks, int n_splits,
+                    void* workspace, void* counters, void* stream) {
   if (page_size % 128 != 0 || n_kv_heads < 1 || n_heads % n_kv_heads != 0 ||
       n_heads / n_kv_heads > kMaxGroup || chunk < 1 || num_seqs < 1 ||
-      n_splits < 1 || n_splits > pages_per_seq) {
+      window < 1 || window > kNoWindow || sinks < 0 || n_splits < 1 ||
+      n_splits > live_page_span(pages_per_seq, page_size, window + chunk - 1, sinks)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const bool split_body = chunk * (n_heads / n_kv_heads) <= kSplitRows;
@@ -1513,7 +1559,8 @@ int cfa_paged_chunk(const void* q, const void* k_pages, const void* k_scales,
                static_cast<float*>(workspace), static_cast<int*>(counters),
                num_seqs,   chunk,    n_heads,   n_kv_heads,
                num_pages,  page_size, pages_per_seq, n_splits,
-               sm_scale,   bf16_compute != 0, static_cast<cudaStream_t>(stream)};
+               sm_scale,   bf16_compute != 0, window,   sinks,
+               static_cast<cudaStream_t>(stream)};
   if (q_bf16) {
     return static_cast<int>(launch_cache<__nv_bfloat16>(cache_dtype, head_dim, a));
   }

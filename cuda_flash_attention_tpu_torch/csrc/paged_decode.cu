@@ -9,7 +9,10 @@
 // element j in the low nibble and element j + D/2 in the high one), with
 // fp32 per-token scales [Hkv, P, page]; the page table [n, pages_per_seq] maps the
 // slot's logical pages to physical ones; lengths [n] gives each slot's
-// token count (0 for an inactive slot, whose output is zeros).
+// token count (0 for an inactive slot, whose output is zeros).  With a
+// sliding window the query (at position length - 1) keeps the columns
+// col >= length - window and, as attention sinks, col < sinks (JAX
+// attention.py :92-126, :184-206).
 //
 // What bounds it on the H100: bytes.  Each live K/V element is read once and
 // used by the `group` query heads that share its KV head (2 at the base
@@ -25,6 +28,15 @@
 //     no length on the host and can be captured in a CUDA graph).  A block
 //     visits only live pages (p * page < length): a dead table entry is
 //     never dereferenced and no dead byte is moved;
+//   * under a window the live tokens are the sink chunks and the chunks
+//     from the window's start to the length (csrc/hopper.cuh KvWalk over
+//     128-token chunks, read from the card's lengths), and the splits
+//     share out that live walk, not the page table: the wrapper plans the
+//     split count over the most pages a window can touch (the live span,
+//     decode/attention.py live_page_span), so a 2048-token slot at window
+//     128 spreads its two live pages over the splits instead of leaving 15
+//     of 16 splits empty.  A table entry behind the window is never read
+//     (the engine recycles those pages to other slots);
 //   * inside a block, 128-token chunks of K and V with their scales arrive
 //     by cp.async into a ring of up to three stages, each completing on its
 //     own mbarrier, so the next chunks land while one is scored; a chunk is
@@ -246,8 +258,11 @@ __device__ __forceinline__ void v_elems(const unsigned char* vrow, int lane,
 
 // G is the group's upper bound (2, or kMaxGroup): the kernel keeps G
 // heads' states, so the base model's group of 2 holds no dead registers.
+// One block an SM is all the launch bounds promise: without that, ptxas
+// held some instantiations to 128 registers and spilled the window's
+// bounds.
 template <typename Tq, typename Tc, int D, int G>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 paged_decode_kernel(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
                     const float* __restrict__ k_scales,
                     const Tc* __restrict__ v_pages,
@@ -256,7 +271,8 @@ paged_decode_kernel(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
                     const int* __restrict__ lengths, Tq* __restrict__ out,
                     float* __restrict__ partial, int* __restrict__ counters,
                     int n_heads, int num_pages, int page_size, int pages_per_seq,
-                    int pages_per_split, float sm_scale, int bf16_compute) {
+                    int pages_per_split, float sm_scale, int bf16_compute,
+                    int window, int sinks) {
   using L = DecodeLayout<Tc, D>;
   constexpr int kE = D / 32;  // output columns per lane in P V
   constexpr int S = L::kStages;
@@ -277,27 +293,29 @@ paged_decode_kernel(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
   const int warp = tid >> 5;
   const bool bf16c = bf16_compute != 0;
   const int length = lengths[slot];
-  // Splits holding a live page; split 0 also answers an empty slot (zeros).
-  // The others have nothing to do.
-  const int live_pages = (length + page_size - 1) / page_size;
-  const int n_live = max(1, (live_pages + pages_per_split - 1) / pages_per_split);
+  // The slot's live 128-token chunks (the sinks', then the window's to the
+  // length), each holding a token the query keeps; a split walks
+  // chunks_per_split of them.  Splits holding a live chunk; split 0 also
+  // answers an empty slot (zeros).  The others have nothing to do.
+  const KvWalk walk(length - window, length, sinks, kThreads);
+  const int chunks_per_split = pages_per_split * (page_size / kThreads);
+  const int n_live = max(1, (walk.n + chunks_per_split - 1) / chunks_per_split);
   if (split >= n_live) return;
   const size_t q_base = (static_cast<size_t>(slot) * n_heads + hk * group) * D;
 
-  // This split's tokens: its pages' tokens before `length`.
-  const int tok_begin = split * pages_per_split * page_size;
-  const int tok_end =
-      min(length, min(pages_per_seq, (split + 1) * pages_per_split) * page_size);
-  const int n_chunks = tok_end > tok_begin ? (tok_end - tok_begin + kThreads - 1) / kThreads : 0;
+  // This split's walk steps [step0, step0 + n_chunks).
+  const int step0 = split * chunks_per_split;
+  const int n_chunks = max(0, min(walk.n - step0, chunks_per_split));
   const unsigned char* kp = reinterpret_cast<const unsigned char*>(k_pages);
   const unsigned char* vp = reinterpret_cast<const unsigned char*>(v_pages);
-  // Chunk c's physical page, and its copy into stage c % S.
+  // First token of chunk c, its physical page, and its copy into stage
+  // c % S.
+  auto tok_of = [&](int c) { return walk.at(step0 + c) * kThreads; };
   auto page_of = [&](int c) {
-    return page_table[static_cast<size_t>(slot) * pages_per_seq +
-                      (tok_begin + c * kThreads) / page_size];
+    return page_table[static_cast<size_t>(slot) * pages_per_seq + tok_of(c) / page_size];
   };
   auto issue = [&](int c, int pid) {
-    const int tok0 = tok_begin + c * kThreads;
+    const int tok0 = tok_of(c);
     const int page = tok0 / page_size;
     const size_t row0 = (static_cast<size_t>(hk) * num_pages + pid) * page_size +
                         (tok0 - page * page_size);
@@ -333,10 +351,11 @@ paged_decode_kernel(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
       const int next_pid = c + S < n_chunks ? page_of(c + S) : 0;
       const unsigned char* stage = smem + (c % S) * L::kStageBytes;
       mbar_wait(bar0 + 8 * (c % S), (c / S) & 1);
-      const int tok0 = tok_begin + c * kThreads;
-      if (tok0 + warp * 32 < length) {  // the warp holds a live token
+      const int tok0 = tok_of(c);
+      if (tok0 + warp * 32 < length) {  // the warp holds a token before the length
         const int t = warp * 32 + lane;
-        const bool valid = tok0 + t < length;
+        const bool valid =
+            tok0 + t < length && in_window(length - 1, tok0 + t, window, sinks);
         const float* ksc = reinterpret_cast<const float*>(stage + L::kScaleOff);
         const float* vsc = ksc + kThreads;
         float s[G];
@@ -485,7 +504,7 @@ struct Args {
   int num_seqs, n_heads, n_kv_heads, num_pages, page_size, pages_per_seq,
       n_splits;
   float sm_scale;
-  int bf16_compute;
+  int bf16_compute, window, sinks;
   cudaStream_t stream;
 };
 
@@ -496,7 +515,8 @@ cudaError_t launch_g(const Args& a) {
   cudaError_t err =
       set_smem_once(paged_decode_kernel<Tq, Tc, D, G>, L::kSmem, smem_set);
   if (err != cudaSuccess) return err;
-  const int pages_per_split = (a.pages_per_seq + a.n_splits - 1) / a.n_splits;
+  const int span = live_page_span(a.pages_per_seq, a.page_size, a.window, a.sinks);
+  const int pages_per_split = (span + a.n_splits - 1) / a.n_splits;
   const dim3 grid(a.n_splits, a.num_seqs, a.n_kv_heads);
   paged_decode_kernel<Tq, Tc, D, G><<<grid, kThreads, L::kSmem, a.stream>>>(
       static_cast<const Tq*>(a.q), static_cast<const Tc*>(a.k_pages),
@@ -504,7 +524,7 @@ cudaError_t launch_g(const Args& a) {
       static_cast<const float*>(a.v_scales), static_cast<const int*>(a.page_table),
       static_cast<const int*>(a.lengths), static_cast<Tq*>(a.out), a.partial,
       a.counters, a.n_heads, a.num_pages, a.page_size, a.pages_per_seq,
-      pages_per_split, a.sm_scale, a.bf16_compute);
+      pages_per_split, a.sm_scale, a.bf16_compute, a.window, a.sinks);
   return cudaGetLastError();
 }
 
@@ -560,8 +580,10 @@ long long cfa_paged_decode_workspace_floats(int num_seqs, int n_heads,
 // 5 = int4 [.., head_dim / 2] split-half; k_scales, v_scales
 // [n_kv_heads, num_pages, page_size] fp32; page_table [num_seqs,
 // pages_per_seq] int32; lengths [num_seqs] int32.  page_size is a multiple
-// of 128 and n_heads / n_kv_heads <= 8.  Split s of the n_splits walks
-// pages [s p, (s + 1) p), p = ceil(pages_per_seq / n_splits).  With
+// of 128 and n_heads / n_kv_heads <= 8.  window (>= 1; kNoWindow: none)
+// and sinks: the query keeps col >= length - window and col < sinks.  The
+// n_splits (at most live_page_span pages) share out the slot's live walk,
+// p = ceil(live_page_span / n_splits) pages' worth of chunks each.  With
 // n_splits > 1, workspace holds cfa_paged_decode_workspace_floats fp32
 // values and counters num_seqs * n_kv_heads int32 zeros, which the call
 // leaves zero.  Returns a cudaError_t.
@@ -571,18 +593,19 @@ int cfa_paged_decode(const void* q, const void* k_pages, const void* k_scales,
                      int num_seqs, int n_heads, int n_kv_heads, int num_pages,
                      int page_size, int pages_per_seq, int head_dim,
                      float sm_scale, int q_bf16, int cache_dtype,
-                     int bf16_compute, int n_splits, void* workspace,
-                     void* counters, void* stream) {
+                     int bf16_compute, int window, int sinks, int n_splits,
+                     void* workspace, void* counters, void* stream) {
   if (page_size % kThreads != 0 || n_heads % n_kv_heads != 0 ||
-      n_heads / n_kv_heads > kMaxGroup || n_splits < 1 ||
-      n_splits > pages_per_seq ||
+      n_heads / n_kv_heads > kMaxGroup || n_splits < 1 || window < 1 ||
+      sinks < 0 ||
+      n_splits > live_page_span(pages_per_seq, page_size, window, sinks) ||
       (n_splits > 1 && (workspace == nullptr || counters == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Args a{q, k_pages, k_scales, v_pages, v_scales, page_table, lengths, out,
                static_cast<float*>(workspace), static_cast<int*>(counters),
                num_seqs, n_heads, n_kv_heads, num_pages, page_size,
-               pages_per_seq, n_splits, sm_scale, bf16_compute,
+               pages_per_seq, n_splits, sm_scale, bf16_compute, window, sinks,
                static_cast<cudaStream_t>(stream)};
   if (q_bf16) {
     return static_cast<int>(launch_cache<__nv_bfloat16>(cache_dtype, head_dim, a));

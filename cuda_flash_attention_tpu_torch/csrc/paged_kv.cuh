@@ -219,4 +219,16 @@ __device__ __forceinline__ void fma_decode_tile(float* dst, const unsigned char*
   }
 }
 
+// Pages of a slot's table that the rows of one call can read under a
+// window with sinks (B5: one row; B6: `span` = window + T - 1 columns for T
+// rows): `span` columns ending anywhere in a page touch cdiv(span - 1,
+// page) + 1 pages, the sinks cdiv(sinks, page) more.  The split-KV bodies
+// share out this many pages' worth of a slot's live chunks
+// (decode/attention.py live_page_span is its twin).
+inline int live_page_span(int pages_per_seq, int page_size, int span, int sinks) {
+  const long long pages = (static_cast<long long>(span) - 1 + page_size - 1) / page_size + 1 +
+                          (static_cast<long long>(sinks) + page_size - 1) / page_size;
+  return static_cast<int>(pages < pages_per_seq ? pages : pages_per_seq);
+}
+
 }  // namespace

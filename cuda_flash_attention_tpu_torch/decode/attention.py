@@ -6,7 +6,11 @@ paged_decode_attention and B6 its paged_chunk_attention (the Pallas TPU
 kernels).  The CUDA kernels are csrc/paged_decode.cu and csrc/paged_chunk.cu;
 each source note says what bounds it on the H100 and how its design answers
 that.  On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
-launches its kernel or raises.  Sliding windows and sinks are not ported yet.
+launches its kernel or raises.  Both take a sliding window and attention
+sinks: a query at position pos keeps the cached columns pos - window < col
+<= pos and col < sinks; its kernel walks only those columns' pages (a page
+table entry behind the window is never read), and a windowed launch also
+counts under `paged_decode_window` or `paged_chunk_window`.
 
 Caches are int8, fp8 (e4m3 / e5m2), bf16, fp32 or packed int4 (int8 pages
 of width head_dim // 2, split-half).  The JAX kernels decode fp8 pages with
@@ -27,6 +31,8 @@ from cuda_flash_attention_tpu_torch.decode.kv_cache import KVPages
 from cuda_flash_attention_tpu_torch.kernels import _build, launches
 from cuda_flash_attention_tpu_torch.kernels.common import (
     DEFAULT_MASK_VALUE,
+    NO_WINDOW,
+    cdiv,
     is_packed_int4,
     kv_storage_cast,
 )
@@ -45,12 +51,12 @@ _COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 # B5's C entry points (csrc/paged_decode.cu).
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 ARGTYPES = {
-    "cfa_paged_decode": [_P] * 8 + [_I] * 7 + [_F] + [_I] * 4 + [_P] * 3,
+    "cfa_paged_decode": [_P] * 8 + [_I] * 7 + [_F] + [_I] * 6 + [_P] * 3,
     "cfa_paged_decode_workspace_floats": [_I] * 4,
 }
 # B6's (csrc/paged_chunk.cu).
 CHUNK_ARGTYPES = {
-    "cfa_paged_chunk": [_P] * 8 + [_I] * 8 + [_F] + [_I] * 4 + [_P] * 3,
+    "cfa_paged_chunk": [_P] * 8 + [_I] * 8 + [_F] + [_I] * 6 + [_P] * 3,
     "cfa_paged_chunk_workspace_floats": [_I] * 6,
 }
 # B6 takes its split-KV body where a KV head's T * group query rows are at
@@ -74,13 +80,36 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def live_page_span(pages_per_seq: int, page_size: int, span: int,
+                   sinks: int) -> int:
+    """Pages of a slot's table that one call's rows can read under a window
+    with sinks (csrc/paged_kv.cuh's twin): `span` columns (B5: the window;
+    B6: window + T - 1) ending anywhere in a page touch cdiv(span - 1,
+    page) + 1 pages, the sinks cdiv(sinks, page) more.  Without a window
+    (span NO_WINDOW) it is the whole table."""
+    pages = cdiv(span - 1, page_size) + 1 + cdiv(sinks, page_size)
+    return min(pages_per_seq, pages)
+
+
+def _window_args(window, sinks):
+    """The kernels' (window, sinks): NO_WINDOW and 0 without a window."""
+    if window is None:
+        return NO_WINDOW, 0
+    window = int(window)
+    if window < 1:
+        raise ValueError(f"window must be >= 1; got {window}")
+    return window, int(sinks)
+
+
 def decode_split_plan(num_seqs: int, n_kv_heads: int, pages_per_seq: int,
                       sm_count: int) -> int:
     """B5's split count, from shapes alone (never from `lengths`, whose
     values live on the card): the least count whose grid of (split, slot,
     KV head) blocks reaches _BLOCKS_PER_SM blocks an SM, capped at one page
     a split, then evened out so that no split is empty of pages.  Split s
-    walks pages [s p, (s + 1) p), p = split_pages(pages_per_seq, n)."""
+    walks pages [s p, (s + 1) p), p = split_pages(pages_per_seq, n).  Under
+    a window `pages_per_seq` is the live span (live_page_span), and a split
+    walks that many pages' worth of the slot's live walk."""
     blocks = num_seqs * n_kv_heads
     want = min(pages_per_seq, max(1, -(-_BLOCKS_PER_SM * sm_count // blocks)))
     # The longest run of pages that still gives `want` splits.
@@ -204,13 +233,15 @@ def paged_decode_attention(q, pages: KVPages, page_table, lengths, *,
     (0 for an inactive slot, whose output is zeros).  Returns
     [num_seqs, n_heads, D] in q's dtype.  ``compute_dtype`` (bf16 or fp32)
     is the type Q, the dequantized K/V and the scaled P take before the two
-    products; the softmax is fp32.
+    products; the softmax is fp32.  ``window`` (>= 1) keeps the last
+    `window` keys (col >= length - window), ``sinks`` the first `sinks`
+    besides; table entries of pages behind the window are never read.
 
     On the card it is one launch that reads no value of `lengths` on the
     host (decode_split_plan), so it can be captured in a CUDA graph once
     one eager call at the same shapes has allocated the arrival counters."""
-    if window is not None or sinks:
-        raise NotImplementedError("windowed paged decode is not ported yet")
+    _window_args(window, sinks)
+    sinks = int(sinks) if window is not None else 0
     head_dim = q.shape[-1]
     _check_fit(q, pages)
     if compute_dtype not in _COMPUTE_DTYPES:
@@ -220,28 +251,31 @@ def paged_decode_attention(q, pages: KVPages, page_table, lengths, *,
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
             q, pages, page_table, lengths, sm_scale=sm_scale,
-            compute_dtype=compute_dtype,
+            compute_dtype=compute_dtype, window=window, sinks=sinks,
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: unsupported device {q.device}")
     out = decode_launch(_lib(), q, pages, page_table, lengths, sm_scale=sm_scale,
-                        compute_dtype=compute_dtype)
-    launches.count("paged_decode")
+                        compute_dtype=compute_dtype, window=window, sinks=sinks)
+    launches.count("paged_decode", window)
     return out
 
 
 def decode_launch(lib: ctypes.CDLL, q, pages: KVPages, page_table, lengths, *,
-                  sm_scale: float, compute_dtype):
+                  sm_scale: float, compute_dtype, window=None, sinks: int = 0):
     """One launch of B5 from `lib` (csrc/paged_decode.cu built, or an
     earlier build of it with the same entry points) on CUDA tensors: the
-    split plan, the workspace and the arrival counters; returns the output."""
+    split plan (over the live span under a window), the workspace and the
+    arrival counters; returns the output."""
     num_seqs, n_heads, head_dim = q.shape
     n_kv_heads, num_pages, page_size, _ = pages.k_pages.shape
     tensors = _check_kernel_inputs("paged_decode", q, pages, page_table,
                                    lengths, n_heads // n_kv_heads)
     out = torch.empty_like(q)
     pps = page_table.shape[1]
-    n_splits = decode_split_plan(num_seqs, n_kv_heads, pps,
+    win, sinks = _window_args(window, sinks)
+    n_splits = decode_split_plan(num_seqs, n_kv_heads,
+                                 live_page_span(pps, page_size, win, sinks),
                                  _sm_count(q.device.index))
     workspace = counters = None
     if n_splits > 1:
@@ -255,7 +289,7 @@ def decode_launch(lib: ctypes.CDLL, q, pages: KVPages, page_table, lengths, *,
         num_seqs, n_heads, n_kv_heads, num_pages, page_size, pps, head_dim,
         float(sm_scale), int(q.dtype == torch.bfloat16),
         _cache_code(pages, head_dim), int(compute_dtype == torch.bfloat16),
-        n_splits, None if workspace is None else workspace.data_ptr(),
+        win, sinks, n_splits, None if workspace is None else workspace.data_ptr(),
         None if counters is None else counters.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -265,12 +299,13 @@ def decode_launch(lib: ctypes.CDLL, q, pages: KVPages, page_table, lengths, *,
 
 def paged_decode_attention_plain(q, pages: KVPages, page_table, lengths, *,
                                  sm_scale: float,
-                                 compute_dtype=torch.bfloat16):
+                                 compute_dtype=torch.bfloat16,
+                                 window: int | None = None, sinks: int = 0):
     """The B5 kernel's function in plain PyTorch: the chunk version's with
     one query per slot."""
     return paged_chunk_attention_plain(
         q[:, None], pages, page_table, lengths, sm_scale=sm_scale,
-        compute_dtype=compute_dtype)[:, 0]
+        compute_dtype=compute_dtype, window=window, sinks=sinks)[:, 0]
 
 
 def paged_chunk_attention(q, pages: KVPages, page_table, lengths, *,
@@ -282,14 +317,15 @@ def paged_chunk_attention(q, pages: KVPages, page_table, lengths, *,
     tokens per slot whose K/V is already in the cache (`append_chunk_kv` or
     `write_chunk_kv_paged`); lengths [num_seqs] int32 is the TOTAL length,
     the chunk included (0 for an inactive slot, whose output is zeros).
-    Query t attends causally up to its own position length - T + t.
+    Query t attends causally up to its own position length - T + t (and
+    with a window keeps only its last `window` keys and the `sinks` first).
     Returns [num_seqs, T, n_heads, D] in q's dtype; ``compute_dtype`` as in
     paged_decode_attention.
 
     On the card it is one launch that reads no value of `lengths` on the
     host (chunk_launch)."""
-    if window is not None or sinks:
-        raise NotImplementedError("windowed paged chunk attention is not ported yet")
+    _window_args(window, sinks)
+    sinks = int(sinks) if window is not None else 0
     num_seqs, chunk, n_heads, head_dim = q.shape
     n_kv_heads, num_pages, page_size, _ = pages.k_pages.shape
     _check_fit(q, pages)
@@ -300,13 +336,14 @@ def paged_chunk_attention(q, pages: KVPages, page_table, lengths, *,
     if q.device.type == "cpu":
         return paged_chunk_attention_plain(
             q, pages, page_table, lengths, sm_scale=sm_scale,
-            compute_dtype=compute_dtype,
+            compute_dtype=compute_dtype, window=window, sinks=sinks,
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged_chunk_attention: unsupported device {q.device}")
     out = chunk_launch(_chunk_lib(), q, pages, page_table, lengths,
-                       sm_scale=sm_scale, compute_dtype=compute_dtype)
-    launches.count("paged_chunk")
+                       sm_scale=sm_scale, compute_dtype=compute_dtype,
+                       window=window, sinks=sinks)
+    launches.count("paged_chunk", window)
     if (compute_dtype == torch.float32
             and chunk_body(chunk, n_heads // n_kv_heads) == "tiles"):
         launches.count("paged_chunk_fp32_tile")
@@ -314,7 +351,7 @@ def paged_chunk_attention(q, pages: KVPages, page_table, lengths, *,
 
 
 def chunk_launch(lib: ctypes.CDLL, q, pages: KVPages, page_table, lengths, *,
-                 sm_scale: float, compute_dtype):
+                 sm_scale: float, compute_dtype, window=None, sinks: int = 0):
     """One launch of B6 from `lib` (csrc/paged_chunk.cu built, or a variant
     of it with the same entry points) on CUDA tensors: the body's split
     plan, the workspace and the arrival counters (shared with B5's); reads
@@ -328,8 +365,10 @@ def chunk_launch(lib: ctypes.CDLL, q, pages: KVPages, page_table, lengths, *,
                                    lengths, group)
     out = torch.empty_like(q)
     pps = page_table.shape[1]
-    n_splits = chunk_split_plan(num_seqs, n_kv_heads, pps, chunk, group,
-                                _sm_count(q.device.index))
+    win, sinks = _window_args(window, sinks)
+    n_splits = chunk_split_plan(
+        num_seqs, n_kv_heads, live_page_span(pps, page_size, win + chunk - 1, sinks),
+        chunk, group, _sm_count(q.device.index))
     workspace = counters = None
     if n_splits > 1:
         workspace = torch.empty(
@@ -343,7 +382,7 @@ def chunk_launch(lib: ctypes.CDLL, q, pages: KVPages, page_table, lengths, *,
         num_seqs, chunk, n_heads, n_kv_heads, num_pages, page_size, pps,
         head_dim, float(sm_scale), int(q.dtype == torch.bfloat16),
         _cache_code(pages, head_dim), int(compute_dtype == torch.bfloat16),
-        n_splits, None if workspace is None else workspace.data_ptr(),
+        win, sinks, n_splits, None if workspace is None else workspace.data_ptr(),
         None if counters is None else counters.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -353,14 +392,17 @@ def chunk_launch(lib: ctypes.CDLL, q, pages: KVPages, page_table, lengths, *,
 
 def paged_chunk_attention_plain(q, pages: KVPages, page_table, lengths, *,
                                 sm_scale: float,
-                                compute_dtype=torch.bfloat16):
+                                compute_dtype=torch.bfloat16,
+                                window: int | None = None, sinks: int = 0):
     """The B6 kernel's function in plain PyTorch: gather each slot's live
-    pages (dead table entries read the null page and are masked), rows
-    ordered t-major inside each KV head (row r is query r // group at
-    position length - T + r // group, which bounds its columns), the K
-    scale on the score columns and the V scale on P, softmax in fp32 over
-    the whole row at once, P * v_scale rounded to the compute dtype before
-    the PV product.  Fully masked rows (lengths == 0) give zeros."""
+    pages (dead table entries, past the length or behind every row's
+    window, read the null page and are masked), rows ordered t-major inside
+    each KV head (row r is query r // group at position pos = length - T +
+    r // group, which bounds its columns; a window keeps pos - window < col
+    and the sinks col < sinks), the K scale on the score columns and the V
+    scale on P, softmax in fp32 over the whole row at once, P * v_scale
+    rounded to the compute dtype before the PV product.  Fully masked rows
+    (lengths == 0) give zeros."""
     n, chunk, n_heads, d = q.shape
     hkv, _, page_size, _ = pages.k_pages.shape
     group = n_heads // hkv
@@ -368,7 +410,12 @@ def paged_chunk_attention_plain(q, pages: KVPages, page_table, lengths, *,
     pps = page_table.shape[1]
     lengths = lengths.long()
     cols = torch.arange(pps * page_size, device=q.device)
-    live = torch.arange(pps, device=q.device)[None, :] * page_size < lengths[:, None]
+    first = torch.arange(pps, device=q.device)[None, :] * page_size  # [1, pps]
+    live = first < lengths[:, None]
+    if window is not None:
+        # The oldest column any row keeps is length - T - window + 1.
+        in_win = first + page_size > (lengths - chunk - window + 1)[:, None]
+        live &= in_win | (first < sinks)
     ids = torch.where(live, page_table, 0).long()                   # [n, pps]
 
     def gather(x):  # [Hkv, P, page, *] -> [n, Hkv, pps * page, *]
@@ -383,7 +430,11 @@ def paged_chunk_attention_plain(q, pages: KVPages, page_table, lengths, *,
           .reshape(n, hkv, rows, d).to(compute_dtype).float())
     pos = (lengths[:, None] - chunk
            + torch.arange(rows, device=q.device)[None, :] // group)  # [n, rows]
-    keep = (cols[None, None, :] <= pos[:, :, None])[:, None]       # [n, 1, rows, L]
+    keep = cols[None, None, :] <= pos[:, :, None]
+    if window is not None:
+        keep &= ((cols[None, None, :] > pos[:, :, None] - window)
+                 | (cols[None, None, :] < sinks))
+    keep = keep[:, None]                                            # [n, 1, rows, L]
     s = qf @ k.transpose(-1, -2)                                    # [n, Hkv, rows, L]
     s = s * (ks * sm_scale)[:, :, None, :]
     s = s + torch.where(keep, 0.0, DEFAULT_MASK_VALUE)

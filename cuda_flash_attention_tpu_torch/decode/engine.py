@@ -38,10 +38,17 @@ Counterpart of cuda_flash_attention_tpu/decode/engine.py:
     stacked layers to compile one layer body, and eager PyTorch compiles
     nothing, so a stacked layout would run the same kernels on the same
     values.
+  * Sliding windows and attention sinks (cfg.attn_window, global_every,
+    attn_sinks): layers that share a window form a window GROUP with its
+    own page table and allocator (the hybrid cache of local/global
+    interleaves); a windowed group frees every page entirely behind its
+    window (`_recycle_stale`, a rolling cache; sink pages stay resident),
+    so its pages per request are bounded by the window, and admission
+    reserves per group by that bound (`_worst_pages_for`).  The hybrid
+    cache refuses speculation and prefix caching, as the JAX engine does.
 
 Entry points run on the CUDA card unless `device="cpu"` is given, which
-runs the kernels' plain versions.  Not ported yet (and refused): meshes,
-sliding windows and sinks.
+runs the kernels' plain versions.  Not ported yet (and refused): meshes.
 """
 
 from __future__ import annotations
@@ -169,13 +176,35 @@ class DecodeEngine:
                  lookup_ngram: int = 2, prefix_cache: bool = False,
                  prefill_chunk: int | None = None, scan_layers: bool = False,
                  decode_burst: int = 1, prefill_burst_cap: int = 8):
-        for what, unsupported in (
-            ("a mesh", mesh is not None),
-            ("sliding-window attention and sinks",
-             cfg.attn_window is not None or cfg.attn_sinks),
-        ):
-            if unsupported:
-                raise _not_ported(what)
+        if mesh is not None:
+            raise _not_ported("a mesh")
+        if cfg.attn_sinks and cfg.attn_window is None:
+            raise ValueError("attn_sinks require attn_window")
+        # Window groups (the hybrid KV cache, JAX engine.py:188-228): layers
+        # sharing a window share a page table and an allocator, so a local
+        # group recycles the pages behind its window while a global group
+        # keeps the whole history.  A uniform model has one group.
+        self._group_windows: list[int | None] = []
+        self._layer_group: list[int] = []
+        for i in range(cfg.n_layers):
+            w = cfg.layer_window(i)
+            if w not in self._group_windows:
+                self._group_windows.append(w)
+            self._layer_group.append(self._group_windows.index(w))
+        self.n_groups = len(self._group_windows)
+        if self.n_groups > 1:
+            if spec_tokens:
+                raise NotImplementedError(
+                    "hybrid cache + speculation: the draft's group "
+                    "mirroring is not wired")
+            if prefix_cache:
+                raise NotImplementedError(
+                    "hybrid cache + prefix caching: per-group prefix maps "
+                    "are not wired")
+        # The whole-sequence rolling bound (None as soon as a layer is
+        # global); recycling and admission run per group.
+        self.window = cfg.attn_window if None not in self._group_windows else None
+        self.sinks = cfg.attn_sinks if cfg.attn_window is not None else 0
         if page_size % 128 != 0:
             raise ValueError(f"page_size must be a multiple of 128; got {page_size}")
         self.device = resolve_device(device)
@@ -193,6 +222,10 @@ class DecodeEngine:
             num_pages = max_seqs * self.pages_per_seq + 1  # + the null page
         self.num_pages = num_pages
         self.allocator = PageAllocator(num_pages)
+        # Group 0's allocator is `allocator`; each further group allocates
+        # ids into its own layers' pools.
+        self._group_allocs = [self.allocator] + [
+            PageAllocator(num_pages) for _ in range(self.n_groups - 1)]
         self.caches = self._new_caches(cfg, cache_dtype)
         # Chunked prefill: prompts longer than this advance one chunk per
         # step (a multiple of the page size, so every chunk write is whole
@@ -224,8 +257,6 @@ class DecodeEngine:
                 raise ValueError("spec_tokens > 0 requires draft_params and draft_cfg")
             if draft_cfg.vocab_size != cfg.vocab_size:
                 raise ValueError("draft and target must share the vocab")
-            if draft_cfg.attn_window is not None or draft_cfg.attn_sinks:
-                raise _not_ported("a windowed draft model")
             self.draft_cfg = draft_cfg
             self.draft_params = self._serving_copy(draft_params, draft_cfg)
             self.draft_caches = self._new_caches(draft_cfg, cache_dtype)
@@ -241,7 +272,10 @@ class DecodeEngine:
             self.allocator.on_last_free = self._drop_prefix_entry
 
         # Host-side slot state (numpy; copied to the device each step).
+        # page_table IS group 0's table; further window groups have their own.
         self.page_table = np.zeros((max_seqs, self.pages_per_seq), np.int32)
+        self._tables = [self.page_table] + [
+            np.zeros_like(self.page_table) for _ in range(self.n_groups - 1)]
         self.lengths = np.zeros((max_seqs,), np.int32)
         self.active = np.zeros((max_seqs,), bool)
         self.last_token = np.zeros((max_seqs,), np.int32)
@@ -250,9 +284,15 @@ class DecodeEngine:
         self.prefilling = np.zeros((max_seqs,), bool)
         self._prefill_pos = np.zeros((max_seqs,), np.int64)
         self._slot_req: list[Request | None] = [None] * max_seqs
-        self._slot_pages: list[list[int]] = [[] for _ in range(max_seqs)]
-        # Worst-case page need per occupied slot (admission reservation).
-        self._slot_worst = [0] * max_seqs
+        # Physical page ids per slot and window group; a page recycled
+        # behind the window leaves None, so logical indices stay
+        # length-indexed.  _slot_pages IS group 0's.
+        self._slot_pages: list[list[int | None]] = [[] for _ in range(max_seqs)]
+        self._group_pages = [self._slot_pages] + [
+            [[] for _ in range(max_seqs)] for _ in range(self.n_groups - 1)]
+        # Worst-case page need per occupied slot and group (admission
+        # reservation).
+        self._slot_worst = [[0] * self.n_groups for _ in range(max_seqs)]
         self._pending: deque[Request] = deque()
         self._next_uid = 0
         self._generator = torch.Generator(device=self.device)
@@ -280,8 +320,10 @@ class DecodeEngine:
         self._buf = {
             "tokens": torch.zeros(max_seqs, dtype=torch.long, device=dev),
             "positions": torch.zeros(max_seqs, dtype=torch.long, device=dev),
-            "table": torch.zeros(max_seqs, self.pages_per_seq,
-                                 dtype=torch.int32, device=dev),
+            # One persistent page table per window group.
+            "tables": [torch.zeros(max_seqs, self.pages_per_seq,
+                                   dtype=torch.int32, device=dev)
+                       for _ in range(self.n_groups)],
             "active": torch.zeros(max_seqs, dtype=torch.bool, device=dev),
             "remaining": torch.zeros(max_seqs, dtype=torch.int32, device=dev),
             "i": torch.zeros(1, dtype=torch.long, device=dev),
@@ -323,6 +365,20 @@ class DecodeEngine:
         """A device COPY of host state: the host goes on mutating its numpy
         tables while the launches that read them may still be queued."""
         return torch.tensor(np.asarray(array), device=self.device)
+
+    def _layer_tables(self, tables):
+        """The model's page_table argument from one table per group: the
+        table itself for one group, else a per-layer list (layers of a group
+        share one tensor; decode/model.py _table_for)."""
+        if self.n_groups == 1:
+            return tables[0]
+        return [tables[g] for g in self._layer_group]
+
+    def _tables_dev(self, rows=None):
+        """Device copies of the group tables (of `rows` only, if given), as
+        the model takes them."""
+        return self._layer_tables(
+            [self._dev(t if rows is None else t[rows]) for t in self._tables])
 
     # ------------------------------------------------------------------
     # Device side
@@ -420,7 +476,8 @@ class DecodeEngine:
         i = b["i"]
         act = b["active"] & (b["remaining"] > i)
         logits, _ = decode_step(self.params, b["tokens"], b["positions"] + i,
-                                self.caches, b["table"], act, self.cfg)
+                                self.caches, self._layer_tables(b["tables"]),
+                                act, self.cfg)
         if bias:
             logits = logits + b["bias"]
         if penalties:
@@ -475,7 +532,8 @@ class DecodeEngine:
         b = self._buf
         b["tokens"].copy_(torch.from_numpy(self.last_token.astype(np.int64)))
         b["positions"].copy_(torch.from_numpy(self.lengths.astype(np.int64)))
-        b["table"].copy_(torch.from_numpy(self.page_table))
+        for buf, table in zip(b["tables"], self._tables):
+            buf.copy_(torch.from_numpy(table))
         b["active"].copy_(torch.from_numpy(self.active))
         b["remaining"].copy_(torch.from_numpy(remaining))
         b["i"].zero_()
@@ -534,6 +592,7 @@ class DecodeEngine:
         for slot in np.flatnonzero(self.active).tolist():
             req = self._slot_req[slot]
             remaining[slot] = max(req.max_new_tokens - len(req.generated), 0)
+            self._recycle_stale(slot)
             self._ensure_page(slot, extra=min(n, int(remaining[slot])) - 1)
         with torch.inference_mode():
             toks, lps = self._run_decode(n, remaining, self._penalty_inputs())
@@ -571,7 +630,7 @@ class DecodeEngine:
                 f"overshoot) = {need} exceeds max_seq_len "
                 f"{self.pages_per_seq * self.page_size}"
             )
-        worst = self._worst_pages_for(len(prompt), max_new_tokens)
+        worst = max(self._worst_pages_for(len(prompt), max_new_tokens))
         if worst > self.num_pages - 1:  # page 0 is the null page
             raise ValueError(
                 f"request needs up to {worst} KV pages but the pool has only "
@@ -637,11 +696,57 @@ class DecodeEngine:
         return [i for i in range(self.max_seqs)
                 if not self.active[i] and self._slot_req[i] is None]
 
-    def _worst_pages_for(self, prompt_len: int, max_new_tokens: int) -> int:
+    def _worst_pages_for(self, prompt_len: int,
+                         max_new_tokens: int) -> list[int]:
+        """The most pages a request holds at once, per window group (JAX
+        engine.py:1225-1261): a global group holds its whole length; a
+        windowed group recycles the pages behind its window every step, so
+        it holds at most the window's live span (plus the speculative
+        overshoot and the sink pages) or its prefill, whichever is more;
+        chunked prefill recycles between chunks, so its prefill holds at
+        most a chunk beside the live span."""
         # Speculative chunks overshoot the final length by up to spec_tokens
         # appended-but-rejected positions.
-        return cdiv(prompt_len + max_new_tokens + self.spec_tokens,
-                    self.page_size)
+        total = cdiv(prompt_len + max_new_tokens + self.spec_tokens,
+                     self.page_size)
+        out = []
+        for w in self._group_windows:
+            if w is None:
+                out.append(total)
+                continue
+            live = (cdiv(w + self.spec_tokens, self.page_size) + 1
+                    + cdiv(self.sinks, self.page_size))
+            prefill = cdiv(prompt_len, self.page_size)
+            if self.prefill_chunk is not None and prompt_len > self.prefill_chunk:
+                prefill = min(prefill,
+                              cdiv(self.prefill_chunk, self.page_size) + live)
+            out.append(min(total, max(live, prefill)))
+        return out
+
+    def _live_page_count(self, slot: int, g: int) -> int:
+        return sum(1 for p in self._group_pages[g][slot] if p is not None)
+
+    def _recycle_stale(self, slot: int):
+        """Free the pages entirely behind each windowed group's window (the
+        rolling cache, JAX engine.py:1269-1290): they keep their logical
+        index as None and their table entry becomes the null page, which the
+        kernels never read there.  Sink pages stay resident; global groups
+        never recycle."""
+        for g, w in enumerate(self._group_windows):
+            if w is None:
+                continue
+            horizon = int(self.lengths[slot]) - w
+            if horizon <= 0:
+                continue
+            pages = self._group_pages[g][slot]
+            for pi, pid in enumerate(pages):
+                if pid is None or (pi + 1) * self.page_size > horizon:
+                    continue
+                if pi * self.page_size < self.sinks:
+                    continue  # attention-sink pages stay resident
+                self._group_allocs[g].free([pid])
+                pages[pi] = None
+                self._tables[g][slot, pi] = 0
 
     @property
     def acceptance_rate(self) -> float | None:
@@ -651,28 +756,32 @@ class DecodeEngine:
             return None
         return self.stats["spec_accepted"] / self.stats["spec_proposed"]
 
-    def _budget(self) -> int:
-        """Allocatable pages minus those promised to running slots but not
-        allocated yet."""
-        budget = self.allocator.available
+    def _budgets(self) -> list[int]:
+        """Allocatable pages per window group minus those promised to
+        running slots but not allocated yet (live pages only: recycled
+        pages are back in the pool)."""
+        budgets = [a.available for a in self._group_allocs]
         for s in range(self.max_seqs):
-            budget -= max(0, self._slot_worst[s] - len(self._slot_pages[s]))
-        return budget
+            for g in range(self.n_groups):
+                budgets[g] -= max(0, self._slot_worst[s][g]
+                                  - self._live_page_count(s, g))
+        return budgets
 
     def _admit(self):
-        """Admit pending requests in FIFO order while a slot is free and the
-        page budget covers the head request's worst case.  Prefix hits
-        prefill their suffix alone, long prompts (or long suffixes) start
-        chunked prefill, and the rest prefill by length bucket."""
+        """Admit pending requests in FIFO order while a slot is free and
+        every window group's page budget covers the head request's worst
+        case there.  Prefix hits prefill their suffix alone, long prompts
+        (or long suffixes) start chunked prefill, and the rest prefill by
+        length bucket."""
         free = self._free_slots()
-        budget = self._budget()
+        budgets = self._budgets()
         take: list[tuple[Request, int]] = []
         while self._pending and free:
             req = self._pending[0]
             worst = self._worst_pages_for(len(req.prompt), req.max_new_tokens)
-            if budget < worst:
+            if any(b < w for b, w in zip(budgets, worst)):
                 break
-            budget -= worst
+            budgets = [b - w for b, w in zip(budgets, worst)]
             take.append((self._pending.popleft(), free.pop(0)))
         if self.prefix_cache:
             missed = []
@@ -794,6 +903,8 @@ class DecodeEngine:
         self.active[slot] = True
         self.last_token[slot] = first
         self._emit(req, first, logprob)
+        # Under a window the prompt's pages behind it are already dead.
+        self._recycle_stale(slot)
         if self.prefix_cache:
             self._register_prefix(req, slot)
         self._maybe_finish(req, first)
@@ -813,25 +924,28 @@ class DecodeEngine:
         with torch.inference_mode():
             tokens_dev = self._dev(tokens)
             logits, kv = prefill_forward(self.params, tokens_dev, self.cfg)
-            writes = [(self.caches, kv)]
             if self._use_draft:
                 _, draft_kv = prefill_forward(self.draft_params, tokens_dev,
                                               self.draft_cfg)
-                writes.append((self.draft_caches, draft_kv))
             last = self._dev([len(r.prompt) - 1 for r in reqs])
             last_logits = logits[torch.arange(len(reqs), device=self.device), last]
             firsts, first_lps = self._sample(self._with_bias(last_logits, slots))
             for i, (req, slot) in enumerate(zip(reqs, slots)):
                 n_pages = cdiv(len(req.prompt), self.page_size)
-                page_ids = self.allocator.alloc(n_pages)
-                self._slot_pages[slot] = list(page_ids)
-                self.page_table[slot, :] = 0
-                self.page_table[slot, :n_pages] = page_ids
-                ids = self._dev(page_ids)
+                ids = []  # per window group
+                for g in range(self.n_groups):
+                    page_ids = self._group_allocs[g].alloc(n_pages)
+                    self._group_pages[g][slot] = list(page_ids)
+                    self._tables[g][slot, :] = 0
+                    self._tables[g][slot, :n_pages] = page_ids
+                    ids.append(self._dev(page_ids))
                 kv_len = n_pages * self.page_size
-                for caches, layers in writes:
-                    for pages, (k, v) in zip(caches, layers):
-                        write_prompt_kv(pages, k[i, :kv_len], v[i, :kv_len], ids)
+                for li, (pages, (k, v)) in enumerate(zip(self.caches, kv)):
+                    write_prompt_kv(pages, k[i, :kv_len], v[i, :kv_len],
+                                    ids[self._layer_group[li]])
+                if self._use_draft:
+                    for pages, (k, v) in zip(self.draft_caches, draft_kv):
+                        write_prompt_kv(pages, k[i, :kv_len], v[i, :kv_len], ids[0])
                 self._start_decoding(req, slot, int(firsts[i]),
                                      first_lps[i] if first_lps is not None else None)
 
@@ -860,7 +974,7 @@ class DecodeEngine:
         for i in range(min(len(req.prompt) // ps, len(pages))):
             pid = pages[i]
             key = tuple(req.prompt[:(i + 1) * ps])
-            if pid in self._page_keys or key in self._prefix_maps:
+            if pid is None or pid in self._page_keys or key in self._prefix_maps:
                 continue
             self._prefix_maps[key] = pid
             self._page_keys[pid] = key
@@ -877,7 +991,7 @@ class DecodeEngine:
         caches under speculation.  Returns the target's logits [rows, T, V]."""
         with torch.inference_mode():
             args = (self._dev(tokens), self._dev(first_pos))
-            table = self._dev(self.page_table[slots])
+            table = self._tables_dev(slots)
             mask = torch.ones(len(slots), dtype=torch.bool, device=self.device)
             logits, _ = verify_step(self.params, *args, self.caches, table,
                                     mask, self.cfg, paged_write=True)
@@ -915,10 +1029,12 @@ class DecodeEngine:
         (prefix-cache pages covering the prompt's head) only the suffix is
         chunked."""
         self._bind_bias(req, slot)
-        self.page_table[slot, :] = 0
-        self._slot_pages[slot] = list(hits or ())
-        if hits:
+        for g in range(self.n_groups):
+            self._tables[g][slot, :] = 0
+            self._group_pages[g][slot] = []
+        if hits:  # prefix caching: one window group
             self.allocator.share(hits)
+            self._slot_pages[slot] = list(hits)
             self.page_table[slot, :len(hits)] = hits
         req.slot = slot
         self._slot_req[slot] = req
@@ -955,6 +1071,11 @@ class DecodeEngine:
                 self._prefill_pos[s] = starts[i] + size
                 if starts[i] + size >= len(self._slot_req[s].prompt):
                     done.append(i)
+                else:
+                    # The rolling bound holds during prefill too: pages
+                    # behind the window are freed between chunks.
+                    self.lengths[s] = starts[i] + size
+                    self._recycle_stale(s)
             if not done:
                 continue
             rows = [logits[i, len(self._slot_req[slots[i]].prompt) - 1 - starts[i]]
@@ -967,16 +1088,19 @@ class DecodeEngine:
                                      lps[j] if lps is not None else None)
 
     def _ensure_pages_upto(self, slot: int, end_pos: int):
-        """Grow the slot's page list so positions < end_pos are writable."""
+        """Grow every group's page list of the slot so positions < end_pos
+        are writable (recycled entries count: appends stay
+        length-indexed)."""
         needed = cdiv(end_pos, self.page_size)
         # _validate_request reserves the speculative overshoot, so this never
         # outgrows the table width.
         assert needed <= self.pages_per_seq, (needed, self.pages_per_seq)
-        pages = self._slot_pages[slot]
-        while len(pages) < needed:
-            (pid,) = self.allocator.alloc(1)
-            pages.append(pid)
-            self.page_table[slot, len(pages) - 1] = pid
+        for g in range(self.n_groups):
+            pages = self._group_pages[g][slot]
+            while len(pages) < needed:
+                (pid,) = self._group_allocs[g].alloc(1)
+                pages.append(pid)
+                self._tables[g][slot, len(pages) - 1] = pid
 
     def _ensure_page(self, slot: int, extra: int = 0):
         """Grow the slot's page list so positions lengths[slot] ..
@@ -995,9 +1119,11 @@ class DecodeEngine:
 
     def _retire(self, slot: int) -> Request:
         req = self._slot_req[slot]
-        self.allocator.free(self._slot_pages[slot])
-        self._slot_pages[slot] = []
-        self.page_table[slot, :] = 0
+        for g in range(self.n_groups):
+            self._group_allocs[g].free(
+                [p for p in self._group_pages[g][slot] if p is not None])
+            self._group_pages[g][slot] = []
+            self._tables[g][slot, :] = 0
         if self._bias is not None and slot in self._biased_slots:
             self._bias[slot, :] = 0.0
             self._biased_slots.discard(slot)
@@ -1007,7 +1133,7 @@ class DecodeEngine:
         self.lengths[slot] = 0
         self.active[slot] = False
         self._slot_req[slot] = None
-        self._slot_worst[slot] = 0
+        self._slot_worst[slot] = [0] * self.n_groups
         return req
 
     def generate_n(self, prompt: list[int], n: int, max_new_tokens: int = 32,
@@ -1087,6 +1213,7 @@ class DecodeEngine:
             self._burst_step()
             return finished
         for slot in np.flatnonzero(self.active).tolist():
+            self._recycle_stale(slot)
             self._ensure_page(slot)
         with torch.inference_mode():
             toks, lps = self._run_decode(1, self.active.astype(np.int32))
@@ -1128,6 +1255,7 @@ class DecodeEngine:
         cache unattended (the length gate) and is overwritten later."""
         k = self.spec_tokens
         for slot in np.flatnonzero(self.active).tolist():
+            self._recycle_stale(slot)
             self._ensure_page(slot, extra=k)
         sampled = self.temperature > 0.0
         with torch.inference_mode():

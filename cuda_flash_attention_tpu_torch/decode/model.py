@@ -6,8 +6,11 @@ Counterpart of cuda_flash_attention_tpu/decode/model.py in its per-layer
 list form (caches are a list of KVPages, params["layers"] a list).  The
 decode and verify steps append to the caches in place.  The stacked form
 is not kept: JAX scans it to compile one layer body, and eager PyTorch
-compiles nothing, so the engine's scan_layers runs this list form.  Not
-ported yet (and refused): meshes, sliding windows and sinks.
+compiles nothing, so the engine's scan_layers runs this list form.  Each
+layer attends with its own window (cfg.layer_window(i)) and, where it has
+one, the config's sinks; `page_table` is one table, or a per-layer list
+under the engine's hybrid window-group cache (`_table_for`).  Not ported
+yet (and refused): meshes.
 """
 
 from __future__ import annotations
@@ -33,6 +36,22 @@ from cuda_flash_attention_tpu_torch.models.transformer import (
 from cuda_flash_attention_tpu_torch.quant.linear import dense
 
 
+def _table_for(page_table, i: int):
+    """Layer i's page table (JAX decode/model.py:52-59): the engine passes
+    one table for a cache of one window group, or a per-layer list under
+    the hybrid cache (layers of a group share one table; local groups
+    recycle pages behind their window, global ones keep the history)."""
+    if isinstance(page_table, (list, tuple)):
+        return page_table[i]
+    return page_table
+
+
+def _layer_window(cfg: TransformerConfig, i: int):
+    """Layer i's (window, sinks): sinks only where the layer has a window."""
+    w = cfg.layer_window(i)
+    return w, (cfg.attn_sinks if w is not None else 0)
+
+
 def prefill_forward(params, tokens, cfg: TransformerConfig,
                     last_only: bool = False):
     """Full causal forward over a prompt batch [B, S]; returns
@@ -55,7 +74,8 @@ def prefill_forward(params, tokens, cfg: TransformerConfig,
 
 
 def _decode_layer(x, layer, pages, pos2, positions, attn_lengths, page_table,
-                  active, cfg: TransformerConfig, compute_dtype):
+                  active, cfg: TransformerConfig, compute_dtype, window=None,
+                  sinks=0):
     """One decode layer: append this token's K/V to `pages` (in place),
     attend over the pages, then the FFN."""
     n = x.shape[0]
@@ -67,7 +87,8 @@ def _decode_layer(x, layer, pages, pos2, positions, attn_lengths, page_table,
     k = rope(k, pos2, *cfg.rope_args)[:, 0]  # [n, Hkv, D]
     append_token_kv(pages, k, v[:, 0], page_table, positions, active)
     o = paged_decode_attention(q.to(cfg.dtype), pages, page_table,
-                               attn_lengths, compute_dtype=compute_dtype)
+                               attn_lengths, compute_dtype=compute_dtype,
+                               window=window, sinks=sinks)
     x = x + dense(o.reshape(n, cfg.q_dim), layer["wo"])
     x, _ = ffn_block(x, layer, cfg)
     return x
@@ -79,7 +100,7 @@ def _compute_dtype(cfg: TransformerConfig):
 
 def _chunk_layer(x, layer, pages, pos_t, first_positions, total_lengths,
                  page_table, active, cfg: TransformerConfig, compute_dtype,
-                 paged_write: bool):
+                 paged_write: bool, window=None, sinks=0):
     """One verification layer: T new tokens per slot [n, T, d_model]; their
     K/V is written to `pages` (in place), then chunked paged attention reads
     it back, each token causally bounded at its own position.
@@ -96,7 +117,8 @@ def _chunk_layer(x, layer, pages, pos_t, first_positions, total_lengths,
     write = write_chunk_kv_paged if paged_write else append_chunk_kv
     write(pages, k, v, page_table, first_positions, active)
     o = paged_chunk_attention(q.to(cfg.dtype), pages, page_table, total_lengths,
-                              compute_dtype=compute_dtype)  # [n, T, Hq, D]
+                              compute_dtype=compute_dtype, window=window,
+                              sinks=sinks)  # [n, T, Hq, D]
     x = x + dense(o.reshape(n, t, cfg.q_dim), layer["wo"])
     x, _ = ffn_block(x, layer, cfg)
     return x
@@ -112,20 +134,20 @@ def verify_step(params, chunk_tokens, first_positions, caches, page_table,
     active [num_seqs] bool.  Returns (logits [num_seqs, T, vocab] fp32,
     caches).  With ``paged_write=True`` (page-aligned first_positions, T a
     multiple of the page size) it is the chunked-prefill step: a prompt
-    chunk or a prefix-cache suffix attends everything cached before it.
-    An inactive slot has total length 0, so it attends nothing."""
-    if cfg.attn_window is not None:
-        raise NotImplementedError("windowed verification is not ported yet")
+    chunk or a prefix-cache suffix attends everything cached before it
+    (within each layer's window).  An inactive slot has total length 0, so
+    it attends nothing.  `page_table` may be a per-layer list (_table_for)."""
     n, t = chunk_tokens.shape
     x = params["embed"][chunk_tokens].to(cfg.dtype)  # [n, T, d_model]
     first_positions = first_positions.long()
     pos_t = first_positions[:, None] + torch.arange(t, device=x.device)[None]
     total_lengths = torch.where(active, first_positions + t, 0).to(torch.int32)
     compute_dtype = _compute_dtype(cfg)
-    for layer, pages in zip(params["layers"], caches):
+    for i, (layer, pages) in enumerate(zip(params["layers"], caches)):
+        window, sinks = _layer_window(cfg, i)
         x = _chunk_layer(x, layer, pages, pos_t, first_positions,
-                         total_lengths, page_table, active, cfg,
-                         compute_dtype, paged_write)
+                         total_lengths, _table_for(page_table, i), active, cfg,
+                         compute_dtype, paged_write, window, sinks)
     x = rms_norm(x, params["final_norm"])
     return dense(x, params["lm_head"]).float(), caches
 
@@ -136,15 +158,16 @@ def decode_step(params, tokens, positions, caches, page_table, active,
     per slot), positions [num_seqs] (write position = current length),
     caches a list of per-layer KVPages (updated in place), page_table
     [num_seqs, pages_per_seq] int32, active [num_seqs] bool.  Returns
-    (logits [num_seqs, vocab] fp32, caches)."""
-    if cfg.attn_window is not None:
-        raise NotImplementedError("windowed decode is not ported yet")
+    (logits [num_seqs, vocab] fp32, caches).  `page_table` may be a
+    per-layer list (_table_for)."""
     x = params["embed"][tokens].to(cfg.dtype)  # [n, d_model]
     pos2 = positions[:, None]
     attn_lengths = torch.where(active, positions + 1, 0).to(torch.int32)
     compute_dtype = _compute_dtype(cfg)
-    for layer, pages in zip(params["layers"], caches):
+    for i, (layer, pages) in enumerate(zip(params["layers"], caches)):
+        window, sinks = _layer_window(cfg, i)
         x = _decode_layer(x, layer, pages, pos2, positions, attn_lengths,
-                          page_table, active, cfg, compute_dtype)
+                          _table_for(page_table, i), active, cfg, compute_dtype,
+                          window, sinks)
     x = rms_norm(x, params["final_norm"])
     return dense(x, params["lm_head"]).float(), caches

@@ -13,8 +13,12 @@ runs either the fused kernel B2 or the split pair B3 + B4
 
 One route of the JAX API does not apply here: the small-fp32 XLA route
 (its crossover was measured on a TPU; on CUDA a kernel is always taken), so
-there is no `force_kernel` argument.  Sliding
-windows, attention sinks and segment ids are not ported yet and raise.
+there is no `force_kernel` argument.  Sliding windows, the non-causal
+recency band and attention sinks run in the forward kernels B1 and B8; the
+backward with a window or sinks raises NotImplementedError on every device
+until the backward kernels take them (a backward that ignored the window
+would give wrong gradients silently).  Segment ids are not ported yet and
+raise.
 """
 
 from __future__ import annotations
@@ -57,8 +61,8 @@ def _use_fused_bwd(q, k, bk_dkv: int, tile_dtype=None) -> bool:
     one (KV slices of `bk_dkv` rows); the byte cap applies to the buffer
     that the port's B2 allocates, one fp32 slice of q's size per
     `fused_kv_tile` KV rows (128 with bf16/fp16 tiles, 64 in fp32), which is
-    larger than the JAX buffer.  The JAX window clause is left out: windows
-    are not ported and raise before this point."""
+    larger than the JAX buffer.  The JAX window clause is left out: a
+    windowed backward raises before this point."""
     if k.shape[2] // bk_dkv > _FUSED_BWD_MAX_KV_SLICES:
         return False
     slices = cdiv(k.shape[2], fused_kv_tile(q.dtype, tile_dtype))
@@ -101,33 +105,66 @@ def _validate_dtypes(q, k, v, tile_dtype):
         )
 
 
-def _check_window(window, sinks, causal, q_len, kv_len):
-    """A window that covers every key distance is no window (the JAX API
-    folds it away); any other window is not ported yet, and sinks need a
-    window."""
-    if window is not None:
-        window = int(window)
-        if causal and window < 1:
-            raise ValueError(f"causal window must be >= 1; got {window}")
-        if window < kv_len or not (causal or window >= q_len):
-            raise NotImplementedError(
-                "sliding-window attention is not ported yet"
-            )
-    if int(sinks) < 0:
+def _normalize_sinks(sinks, window) -> int:
+    """JAX attention.py:174-180."""
+    sinks = int(sinks)
+    if sinks < 0:
         raise ValueError(f"sinks must be >= 0; got {sinks}")
-    if int(sinks):
+    if sinks and window is None:
         raise ValueError("attention sinks require a sliding window")
+    return sinks if window is not None else 0
+
+
+def _normalize_window(window, causal, q_len, kv_len):
+    """JAX attention.py:183-208: validate the window and fold a no-op one
+    away.  With causal=True it is the standard sliding window (the last
+    `window` keys); with causal=False a recency band (query i keeps keys
+    j > i - window, no future bound) whose offset may be <= 0 but must keep
+    at least one (i, j) pair."""
+    if window is None:
+        return None
+    window = int(window)
+    if causal and window < 1:
+        raise ValueError(f"causal window must be >= 1; got {window}")
+    if not causal and window <= -(kv_len - 1):
+        raise ValueError(
+            f"band window {window} masks every key (kv_len {kv_len})"
+        )
+    if window >= kv_len and (causal or window >= q_len):
+        return None
+    return window
+
+
+def _warn_small_blocks(window, block_sizes):
+    """JAX attention.py:211-233: explicit blocks of <= 256 under a window of
+    at least four blocks were measured slow on the TPU; the warning is kept
+    so the two APIs answer the same arguments alike (the port's kernels
+    keep their own tiles)."""
+    if window is None or block_sizes is None:
+        return
+    b = min(block_sizes.block_q, block_sizes.block_k)
+    if b <= 256 and window >= 4 * b:
+        import warnings
+
+        warnings.warn(
+            f"window={window} with block sizes <= 256 is in the measured "
+            f"slowdown regime (0.65x of global attention at W=4k); omit "
+            f"block_sizes to get BlockSizes.default(window=...) "
+            f"(b={max(MIN_BLOCK, min(1024, window))}-ish) instead",
+            stacklevel=3,
+        )
 
 
 def _prepare(q, k, v, causal, sm_scale, tile_dtype, q_segment_ids,
              kv_segment_ids, window, sinks):
     """Validate and pad: (q, k, v padded and contiguous, sm_scale, q_len,
-    kv_len)."""
+    kv_len).  The window and sinks are validated here and normalized by
+    `_window_of`."""
     _validate_shapes(q, k, v)
     _validate_dtypes(q, k, v, tile_dtype)
     if q_segment_ids is not None or kv_segment_ids is not None:
         raise NotImplementedError("segment ids are not ported yet")
-    _check_window(window, sinks, causal, q.shape[2], k.shape[2])
+    _window_of(window, sinks, causal, q, k)
     if sm_scale is None:
         sm_scale = 1.0 / (q.shape[-1] ** 0.5)
     q_len, kv_len = q.shape[2], k.shape[2]
@@ -137,6 +174,13 @@ def _prepare(q, k, v, causal, sm_scale, tile_dtype, q_segment_ids,
     return q_pad, k_pad, v_pad, float(sm_scale), q_len, kv_len
 
 
+def _window_of(window, sinks, causal, q, k):
+    """(window, sinks) normalized as the JAX API does: a window that covers
+    every key distance folds to None, and sinks need a window."""
+    window = _normalize_window(window, causal, q.shape[2], k.shape[2])
+    return window, _normalize_sinks(sinks, window)
+
+
 def _use_small_kernel(q, k) -> bool:
     """JAX attention.py:273-277 on padded q/k: one whole tile per head
     (Sq = Skv <= 128) and one KV head per query head take B8."""
@@ -144,11 +188,19 @@ def _use_small_kernel(q, k) -> bool:
             and k.shape[1] == q.shape[1])
 
 
-def _forward(q, k, v, kv_len, causal, sm_scale, tile_dtype):
-    """(O, lse) over padded q/k/v by B8 or B1."""
+def _forward(q, k, v, kv_len, causal, sm_scale, tile_dtype, window=None,
+             sinks=0):
+    """(O, lse) over padded q/k/v by B8 or B1 (JAX attention.py:273-293)."""
     fwd = fa2_forward_small_aligned if _use_small_kernel(q, k) else fa2_forward_aligned
     return fwd(q, k, v, causal=causal, sm_scale=sm_scale, kv_len=kv_len,
-               tile_dtype=tile_dtype)
+               tile_dtype=tile_dtype, window=window, sinks=sinks)
+
+
+def _refuse_windowed_backward(window, sinks):
+    if window is not None or sinks:
+        raise NotImplementedError(
+            "the backward with a sliding window or sinks is not ported yet "
+            "(the forward is)")
 
 
 def _backward(q, k, v, o, lse, do, kv_len, causal, sm_scale, block_sizes,
@@ -173,18 +225,21 @@ class _FA2(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, kv_len, causal, sm_scale, block_sizes,
-                tile_dtype):
-        o, lse = _forward(q, k, v, kv_len, causal, sm_scale, tile_dtype)
+                tile_dtype, window, sinks):
+        o, lse = _forward(q, k, v, kv_len, causal, sm_scale, tile_dtype,
+                          window, sinks)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.args = (kv_len, causal, sm_scale, block_sizes, tile_dtype)
+        ctx.window = (window, sinks)
         return o
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, do):
+        _refuse_windowed_backward(*ctx.window)
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = _backward(q, k, v, o, lse, do, *ctx.args)
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = False,
@@ -197,15 +252,26 @@ def flash_attention(q, k, v, *, causal: bool = False,
     ``tile_dtype`` (None, torch.bfloat16 or torch.float16) is the precision
     of the Q/K/V/P tiles inside the kernels; softmax statistics stay fp32.
     None computes in q's dtype.  ``block_sizes`` (default
-    `BlockSizes.default(causal)`) only picks the backward route, as the JAX
-    rule counts its KV slices."""
+    `BlockSizes.default(causal, window)`) only picks the backward route, as
+    the JAX rule counts its KV slices.
+
+    ``window`` with causal=True keeps, for query i, the keys j <= i with
+    i - j < window; with causal=False it is a recency band (j > i - window,
+    no future bound; the offset may be <= 0).  ``sinks`` keeps the first
+    `sinks` keys for every query besides (StreamingLLM).  A row that keeps
+    no key gives O = 0 (its lse: kernels/common.py dead_row_lse).  Its
+    gradient raises NotImplementedError until the backward kernels take
+    windows."""
     q_pad, k_pad, v_pad, sm_scale, q_len, kv_len = _prepare(
         q, k, v, causal, sm_scale, tile_dtype, q_segment_ids, kv_segment_ids,
         window, sinks)
+    window, sinks = _window_of(window, sinks, causal, q, k)
     if block_sizes is None:
-        block_sizes = BlockSizes.default(causal)
+        block_sizes = BlockSizes.default(causal, window=window)
+    else:
+        _warn_small_blocks(window, block_sizes)
     o = _FA2.apply(q_pad, k_pad, v_pad, kv_len, causal, sm_scale, block_sizes,
-                   tile_dtype)
+                   tile_dtype, window, sinks)
     return o[:, :, :q_len]
 
 
@@ -219,9 +285,10 @@ def flash_attention_with_lse(q, k, v, *, causal: bool = False,
     q_pad, k_pad, v_pad, sm_scale, q_len, kv_len = _prepare(
         q, k, v, causal, sm_scale, tile_dtype, q_segment_ids, kv_segment_ids,
         window, sinks)
+    window, sinks = _window_of(window, sinks, causal, q, k)
     with torch.no_grad():
         o, lse = _forward(q_pad, k_pad, v_pad, kv_len, causal, sm_scale,
-                          tile_dtype)
+                          tile_dtype, window, sinks)
     return o[:, :, :q_len], lse[:, :, :q_len]
 
 
@@ -231,11 +298,14 @@ def fa2_backward(q, k, v, o, lse, do=None, *, causal: bool = False,
                  window: int | None = None):
     """Standalone FA2 backward from forward artifacts (O, logsumexp
     [B, Hq, Sq]), as the JAX fa2_backward (attention.py:457-523): dO
-    defaults to ones.  Returns (dQ, dK, dV)."""
+    defaults to ones.  Returns (dQ, dK, dV).  A window (one that does not
+    fold away) raises NotImplementedError until the backward kernels take
+    it."""
     if do is None:
         do = torch.ones_like(o)
     q_pad, k_pad, v_pad, sm_scale, q_len, kv_len = _prepare(
         q, k, v, causal, sm_scale, tile_dtype, None, None, window, 0)
+    _refuse_windowed_backward(*_window_of(window, 0, causal, q, k))
     if block_sizes is None:
         block_sizes = BlockSizes.default(causal)
     quantum = seq_pad_quantum(q_len, q.dtype)

@@ -46,8 +46,7 @@ def round_up(x: int, m: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class BlockSizes:
     """The JAX API's block configuration (multiples of 128 along sequence
-    dims), with its defaults and `default(causal, window)`; a window raises
-    until sliding windows are ported.
+    dims), with its defaults and `default(causal, window)`.
 
     In the port it only picks the backward route: the JAX rule counts KV
     slices of `block_k_dkv` rows (kernels/attention.py `_use_fused_bwd`).
@@ -71,10 +70,22 @@ class BlockSizes:
     def default(cls, causal: bool = False,
                 window: int | None = None) -> "BlockSizes":
         if window is not None:
-            raise NotImplementedError("sliding-window attention is not ported yet")
+            # The JAX rule (swept on the TPU for its compact window grids):
+            # square blocks of the window's power of two, 128 to 1024.
+            b = max(MIN_BLOCK, min(1024, _next_pow2_at_most(window)))
+            return cls(block_q=b, block_k=b, block_q_dkv=b, block_k_dkv=b,
+                       block_q_dq=b, block_k_dq=b)
         if causal:
             return cls(block_q=2048, block_k=2048, block_k_dkv=1024)
         return cls()
+
+
+def _next_pow2_at_most(n: int) -> int:
+    """Largest power of two <= n (1 for n < 2)."""
+    p = 1
+    while p * 2 <= n:
+        p *= 2
+    return p
 
 
 def fit_block(requested: int, padded_len: int) -> int:
@@ -135,18 +146,61 @@ def kv_storage_cast(x: torch.Tensor, head_dim: int,
     return x.to(compute_dtype)
 
 
+# The kernels' "no window" (csrc: a key distance no row reaches): a window
+# of None is passed as this, so the window clause of the mask never fires
+# and every walk starts at column 0.
+NO_WINDOW = 1 << 30
+
+
 def build_element_mask(q_len: int, kv_len_pad: int, *, causal: bool,
-                       kv_len: int, device) -> torch.Tensor | None:
+                       kv_len: int, device, window: int | None = None,
+                       sinks: int = 0) -> torch.Tensor | None:
     """Boolean keep-mask [q_len, kv_len_pad] over a whole (padded) problem,
-    or None when nothing masks: the ragged-KV tail (col < kv_len) and the
-    causal triangle (col <= row).  The plain versions' form of
-    build_block_mask; windows and segments are not ported yet."""
+    or None when nothing masks: the ragged-KV tail (col < kv_len), the
+    causal triangle (col <= row) and the sliding window (row - col <
+    window, or col < sinks: the attention sinks), and-ed together.  The
+    plain versions' form of the JAX build_block_mask; segments are not
+    ported yet."""
     mask = None
     cols = torch.arange(kv_len_pad, device=device)[None, :]
     if kv_len != kv_len_pad:
         mask = cols < kv_len
+    rows = torch.arange(q_len, device=device)[:, None]
     if causal:
-        rows = torch.arange(q_len, device=device)[:, None]
         tri = cols <= rows
         mask = tri if mask is None else mask & tri
+    if window is not None:
+        win = (rows - cols < window) | (cols < sinks)
+        mask = win if mask is None else mask & win
     return mask
+
+
+def window_tiles(first_col: int, end_col: int, sinks: int, tile: int):
+    """The KV tiles of `tile` columns that a row range walks under a window
+    with sinks: the sink tiles [0, cdiv(sinks, tile)), then the tiles from
+    the one holding `first_col` (the oldest column the first row keeps) to
+    the one holding column end_col - 1; a tile in both ranges once.
+    Returns (n_sink, lo, n): walk step i < n_sink is tile i, the others
+    lo + i - n_sink.  csrc/hopper.cuh KvWalk is the kernels' twin."""
+    n_end = cdiv(max(end_col, 0), tile)
+    n_sink = min(cdiv(sinks, tile), n_end)
+    lo = max(n_sink, max(0, first_col) // tile)
+    return n_sink, lo, n_sink + max(0, n_end - lo)
+
+
+def dead_row_lse(q_len: int, kv_len: int, *, causal: bool, window, sinks: int,
+                 device) -> torch.Tensor:
+    """The lse of each row [q_len] were it to keep no key (its O is 0), as
+    the JAX forward gives it on its 128-row tiles: -inf where the row's
+    128-row Q tile walks no 128-key tile at all (a KV of several tiles), else
+    the mask value times ln 2 (the tile was visited, every score masked).
+    The kernels apply the same rule to their dead rows."""
+    out = torch.full((q_len,), DEFAULT_MASK_VALUE, dtype=torch.float32,
+                     device=device) * LN2
+    if kv_len <= MIN_BLOCK or window is None:
+        return out
+    for q0 in range(0, q_len, MIN_BLOCK):
+        end = min(kv_len, q0 + MIN_BLOCK) if causal else kv_len
+        if window_tiles(q0 - window + 1, end, sinks, MIN_BLOCK)[2] == 0:
+            out[q0:q0 + MIN_BLOCK] = float("-inf")
+    return out

@@ -9,7 +9,10 @@ versions.
                                 (csrc/fa2_forward_small.cu)
 Each source note says what bounds its kernel on the H100 and how the design
 answers that.  On a CPU tensor a wrapper runs its plain version; on a CUDA
-tensor it launches its kernel or raises.
+tensor it launches its kernel or raises.  Both take a sliding window (or,
+non-causal, a recency band whose offset may be <= 0) and attention sinks;
+a windowed launch also counts under `fa2_forward_window` or
+`fa2_forward_small_window`.
 """
 
 from __future__ import annotations
@@ -25,8 +28,10 @@ from cuda_flash_attention_tpu_torch.kernels.common import (
     LN2,
     LOG2E,
     MIN_BLOCK,
+    NO_WINDOW,
     TILE_DTYPES,
     build_element_mask,
+    dead_row_lse,
     tile_code,
 )
 
@@ -39,7 +44,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("fa2_forward")
     fn = lib.cfa_fa2_forward
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 5 + [_I] * 7 + [_F, _I, _I, _I, _P]
+        fn.argtypes = [_P] * 5 + [_I] * 7 + [_F] + [_I] * 5 + [_P]
         fn.restype = _I
     return lib
 
@@ -48,7 +53,7 @@ def _small_lib() -> ctypes.CDLL:
     lib = _build.load("fa2_forward_small")
     fn = lib.cfa_fa2_forward_small
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 5 + [_I] * 4 + [_F, _I, _I, _I, _P]
+        fn.argtypes = [_P] * 5 + [_I] * 4 + [_F] + [_I] * 5 + [_P]
         fn.restype = _I
     return lib
 
@@ -72,14 +77,18 @@ def _check_inputs(name, q, k, v, tile_dtype):
 
 
 def fa2_forward_aligned(q, k, v, *, causal: bool, sm_scale: float,
-                        kv_len: int, tile_dtype=None):
+                        kv_len: int, tile_dtype=None, window=None,
+                        sinks: int = 0):
     """FA2 forward over sequence-padded q [B, Hq, Sq, D] and k/v
     [B, Hkv, Skv, D] (Hq a multiple of Hkv; query head h reads KV head
-    h // (Hq // Hkv)).  Keys at or past `kv_len` are masked.  Returns
-    (O like q, lse [B, Hq, Sq] fp32, natural log)."""
+    h // (Hq // Hkv)).  Keys at or past `kv_len` are masked, and with a
+    window those a row keeps neither by distance (row - col < window) nor
+    as a sink (col < sinks).  Returns (O like q, lse [B, Hq, Sq] fp32,
+    natural log; a row with no key: kernels/common.py dead_row_lse)."""
     if q.device.type == "cpu":
         return fa2_forward_plain(q, k, v, causal=causal, sm_scale=sm_scale,
-                                 kv_len=kv_len, tile_dtype=tile_dtype)
+                                 kv_len=kv_len, tile_dtype=tile_dtype,
+                                 window=window, sinks=sinks)
     if q.device.type != "cuda":
         raise ValueError(f"fa2_forward: unsupported device {q.device}")
     b, hq, sq, d = q.shape
@@ -98,21 +107,24 @@ def fa2_forward_aligned(q, k, v, *, causal: bool, sm_scale: float,
     err = lib.cfa_fa2_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         b, hq, hkv, sq, skv, d, kv_len, sm_scale * LOG2E, int(causal),
+        NO_WINDOW if window is None else int(window), int(sinks),
         int(q.dtype == torch.bfloat16), tile_code(q.dtype, tile_dtype),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, "cfa_fa2_forward_error_string", err, "fa2_forward")
-    launches.count("fa2_forward")
+    launches.count("fa2_forward", window)
     return o, lse
 
 
 def fa2_forward_small_aligned(q, k, v, *, causal: bool, sm_scale: float,
-                              kv_len: int, tile_dtype=None):
+                              kv_len: int, tile_dtype=None, window=None,
+                              sinks: int = 0):
     """B8: FA2 forward over padded q/k/v [B, H, S_pad, D] with S_pad <= 128
     and one KV head per query head, every (batch, head) pair one slot that
     sees only its own keys.  Keys at or past `kv_len` are masked.  Returns
     (O like q, lse [B, H, S_pad] fp32, natural log).  Its function is B1's
-    at these shapes; the kernel takes the whole row in one tile."""
+    at these shapes, window and sinks included; the kernel takes the whole
+    row in one tile."""
     b, h, s_pad, d = q.shape
     if k.shape != q.shape or v.shape != q.shape or s_pad > MIN_BLOCK:
         raise ValueError(
@@ -121,7 +133,8 @@ def fa2_forward_small_aligned(q, k, v, *, causal: bool, sm_scale: float,
     if q.device.type == "cpu":
         return fa2_forward_small_plain(q, k, v, causal=causal,
                                        sm_scale=sm_scale, kv_len=kv_len,
-                                       tile_dtype=tile_dtype)
+                                       tile_dtype=tile_dtype, window=window,
+                                       sinks=sinks)
     if q.device.type != "cuda":
         raise ValueError(f"fa2_forward_small: unsupported device {q.device}")
     _check_inputs("fa2_forward_small", q, k, v, tile_dtype)
@@ -131,26 +144,31 @@ def fa2_forward_small_aligned(q, k, v, *, causal: bool, sm_scale: float,
     err = lib.cfa_fa2_forward_small(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         b * h, s_pad, d, kv_len, sm_scale * LOG2E, int(causal),
+        NO_WINDOW if window is None else int(window), int(sinks),
         int(q.dtype == torch.bfloat16), tile_code(q.dtype, tile_dtype),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, "cfa_fa2_forward_small_error_string", err,
                  "fa2_forward_small")
-    launches.count("fa2_forward_small")
+    launches.count("fa2_forward_small", window)
     return o, lse
 
 
 def fa2_forward_small_plain(q, k, v, *, causal: bool, sm_scale: float,
-                            kv_len: int, tile_dtype=None):
+                            kv_len: int, tile_dtype=None, window=None,
+                            sinks: int = 0):
     """B8's function in plain PyTorch: one exact softmax over each slot's
     whole row, with B1's rounding points (fa2_forward_plain, which takes
-    the whole row at once too)."""
+    the whole row at once too; at S <= 128 a dead row's lse is the mask
+    value's, as B8's one tile gives it)."""
     return fa2_forward_plain(q, k, v, causal=causal, sm_scale=sm_scale,
-                             kv_len=kv_len, tile_dtype=tile_dtype)
+                             kv_len=kv_len, tile_dtype=tile_dtype,
+                             window=window, sinks=sinks)
 
 
 def fa2_forward_plain(q, k, v, *, causal: bool, sm_scale: float,
-                      kv_len: int, tile_dtype=None):
+                      kv_len: int, tile_dtype=None, window=None,
+                      sinks: int = 0):
     """The kernel's function in plain PyTorch, with the TPU kernel's rounding
     points: Q is scaled by sm_scale*log2(e) in fp32 and then rounded to the
     tile type; K and V are cast to it; S and the softmax are fp32 (exp2
@@ -178,7 +196,8 @@ def fa2_forward_plain(q, k, v, *, causal: bool, sm_scale: float,
     vs = v.to(eff).float()
     s = qs @ ks.transpose(-1, -2)
     mask = build_element_mask(q.shape[2], k.shape[2], causal=causal,
-                              kv_len=kv_len, device=q.device)
+                              kv_len=kv_len, device=q.device, window=window,
+                              sinks=sinks)
     if mask is not None:
         s = s + torch.where(mask, 0.0, DEFAULT_MASK_VALUE)
     m = s.amax(dim=-1, keepdim=True)
@@ -189,4 +208,9 @@ def fa2_forward_plain(q, k, v, *, causal: bool, sm_scale: float,
     pv = p.to(eff).float() @ vs
     o = pv * torch.where(l == 0.0, 1.0, 1.0 / l)
     lse = m * LN2 + torch.log(torch.where(l == 0.0, 1.0, l))
+    if window is not None:
+        # A row with no key: the lse of the JAX forward's tile walk.
+        dead = dead_row_lse(q.shape[2], kv_len, causal=causal, window=window,
+                            sinks=sinks, device=q.device)[:, None]
+        lse = torch.where(l == 0.0, dead, lse)
     return o.to(q.dtype), lse[..., 0]

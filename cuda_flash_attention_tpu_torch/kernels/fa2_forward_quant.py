@@ -21,7 +21,7 @@ import ctypes
 import torch
 
 from cuda_flash_attention_tpu_torch.kernels import _build, launches
-from cuda_flash_attention_tpu_torch.kernels.attention import _check_window
+from cuda_flash_attention_tpu_torch.kernels.attention import _normalize_window
 from cuda_flash_attention_tpu_torch.kernels.common import (
     DEFAULT_MASK_VALUE,
     KERNEL_HEAD_DIMS,
@@ -238,7 +238,8 @@ def flash_attention_quantized_kv_with_lse(
     _validate_quant_shapes(q, k_q, v_q)
     if q_segment_ids is not None or kv_segment_ids is not None:
         raise NotImplementedError("segment ids are not ported yet")
-    _check_window(window, 0, causal, q.shape[2], k_q.values.shape[2])
+    if _normalize_window(window, causal, q.shape[2], k_q.values.shape[2]) is not None:
+        raise NotImplementedError("B7's sliding window is not ported yet")
     if sm_scale is None:
         sm_scale = 1.0 / (q.shape[-1] ** 0.5)
     with torch.no_grad():

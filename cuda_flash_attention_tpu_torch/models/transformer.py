@@ -38,8 +38,12 @@ class TransformerConfig:
     dtype: torch.dtype = torch.bfloat16        # activation dtype
     param_dtype: torch.dtype = torch.float32
     attn_tile_dtype: torch.dtype | None = torch.bfloat16  # kernel tile precision
-    # Sliding window and attention sinks (not ported yet: the engine and the
-    # attention API raise when they are set).
+    # Sliding-window attention: attn_window None keeps every layer global;
+    # attn_window=W restricts each query to the last W keys, and
+    # global_every > 0 keeps every global_every-th layer global.  With a
+    # window, attn_sinks keeps the first keys attendable too (StreamingLLM).
+    # The forward runs them in B1/B8; the backward raises until its kernels
+    # take windows.
     attn_window: int | None = None
     global_every: int = 0
     attn_sinks: int = 0

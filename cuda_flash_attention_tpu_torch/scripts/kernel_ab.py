@@ -716,7 +716,8 @@ def parent_b8(lib, q, k, v, *, causal, sm_scale, kv_len, tile_dtype):
 
 def parent_b5(lib, q, pages, table, lengths, *, sm_scale, compute_dtype):
     """The parent's wrapper: a source exporting
-    cfa_paged_decode_workspace_floats (a variant of the split-KV kernel) is
+    cfa_paged_decode_workspace_floats (a variant of the split-KV kernel
+    whose entry point takes window and sinks, as the current one does) is
     launched as the current wrapper launches it; an earlier one takes no
     split count, workspace or counters."""
     if hasattr(lib, "cfa_paged_decode_workspace_floats"):
@@ -739,9 +740,10 @@ def parent_b5(lib, q, pages, table, lengths, *, sm_scale, compute_dtype):
 
 def parent_b6(lib, q, pages, table, lengths, *, sm_scale, compute_dtype):
     """The parent's wrapper: a source exporting
-    cfa_paged_chunk_workspace_floats (a variant of the current kernel) is
-    launched as the current wrapper launches it; an earlier one takes no
-    split count, workspace or counters."""
+    cfa_paged_chunk_workspace_floats (a variant of the current kernel whose
+    entry point takes window and sinks) is launched as the current wrapper
+    launches it; an earlier one takes no split count, workspace or
+    counters."""
     if hasattr(lib, "cfa_paged_chunk_workspace_floats"):
         return (dec_attn.chunk_launch(lib, q, pages, table, lengths,
                                       sm_scale=sm_scale,

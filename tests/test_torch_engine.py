@@ -115,24 +115,32 @@ def test_unported_engine_options_raise(tiny, kwargs):
 
 
 def test_windowed_draft_and_chunk_attention_raise(tiny):
-    """Windows and sinks stay refused on the speculation path too: a
-    windowed draft model, and the paged chunk attention (B6) itself."""
+    """Refused until sliding windows were ported; now a windowed draft
+    model serves speculation, and the paged chunk attention (B6) takes a
+    window with sinks (its plain version on the CPU)."""
     _, cfg_t, _, params_t = tiny
-    with pytest.raises(NotImplementedError):
-        _port_engine(tiny, spec_tokens=2, draft_params=params_t,
-                     draft_cfg=dataclasses.replace(cfg_t, attn_window=64))
+    eng = _port_engine(tiny, spec_tokens=2, draft_params=params_t,
+                       draft_cfg=dataclasses.replace(cfg_t, attn_window=64))
+    (req,) = eng.run([list(range(40, 170))], max_new_tokens=4)
+    assert len(req.generated) == 4 and eng.stats["spec_rounds"] > 0
     pages = kv_cache.init_kv_pages(2, 3, 128, 64, device="cpu")
-    with pytest.raises(NotImplementedError):
-        attention.paged_chunk_attention(
-            torch.zeros(1, 2, 4, 64), pages, torch.ones(1, 2, dtype=torch.int32),
-            torch.full((1,), 2, dtype=torch.int32), window=64, sinks=4)
+    args = (torch.zeros(1, 2, 4, 64), pages, torch.ones(1, 2, dtype=torch.int32),
+            torch.full((1,), 2, dtype=torch.int32))
+    torch.testing.assert_close(
+        attention.paged_chunk_attention(*args, window=64, sinks=4),
+        attention.paged_chunk_attention_plain(*args, sm_scale=64 ** -0.5,
+                                              window=64, sinks=4))
 
 
 def test_windowed_config_and_penalties_raise(tiny):
+    """Refused until sliding windows were ported; now a windowed config
+    builds its window group and serves."""
     _, cfg_t, _, params_t = tiny
-    with pytest.raises(NotImplementedError):
-        engine.DecodeEngine(params_t, dataclasses.replace(cfg_t, attn_window=64),
-                            device="cpu")
+    eng = engine.DecodeEngine(params_t, dataclasses.replace(cfg_t, attn_window=64),
+                              device="cpu")
+    assert eng._group_windows == [64] and eng.window == 64
+    (req,) = eng.run([list(range(40, 170))], max_new_tokens=3)
+    assert len(req.generated) == 3 and req.done
 
 
 @pytest.mark.parametrize("entry", ["DecodeEngine", "init_params",

@@ -253,8 +253,11 @@ def test_block_sizes_default_matches_jax(causal):
 
 
 def test_block_sizes_default_raises_on_a_window():
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        BlockSizes.default(True, window=256)
+    """Refused until sliding windows were ported; now the JAX rule."""
+    from cuda_flash_attention_tpu.kernels.common import BlockSizes as JaxBlockSizes
+
+    assert dataclasses.astuple(BlockSizes.default(True, window=256)) == \
+        dataclasses.astuple(JaxBlockSizes.default(True, window=256))
 
 
 @pytest.mark.parametrize("b,s", [(16, 2048), (2, 8192)])

@@ -132,7 +132,7 @@ def test_cpu_tensors_never_launch_the_kernel():
 
 
 @pytest.mark.parametrize("kwargs,exc", [
-    (dict(window=8, causal=True), NotImplementedError),
+    (dict(window=8, causal=True), None),
     (dict(q_segment_ids=torch.zeros(1, 32, dtype=torch.int32),
           kv_segment_ids=torch.zeros(1, 32, dtype=torch.int32)),
      NotImplementedError),
@@ -140,9 +140,18 @@ def test_cpu_tensors_never_launch_the_kernel():
     (dict(tile_dtype=torch.float8_e4m3fn), NotImplementedError),
 ])
 def test_unported_options_raise(kwargs, exc):
-    q, k, v = (torch.from_numpy(x) for x in _inputs(1, 2, 2, 32, 64))
+    """Options the port refuses raise; a sliding window (exc None), refused
+    until windows were ported, now gives the JAX API's output."""
+    q, k, v = _inputs(1, 2, 2, 32, 64)
+    if exc is None:
+        o_j = jax_attention.flash_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), force_kernel=True,
+            **kwargs)
+        o_t = attention.flash_attention(*map(torch.from_numpy, (q, k, v)), **kwargs)
+        np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), atol=2e-6, rtol=0)
+        return
     with pytest.raises(exc):
-        attention.flash_attention(q, k, v, **kwargs)
+        attention.flash_attention(*map(torch.from_numpy, (q, k, v)), **kwargs)
 
 
 def test_covering_window_folds_away():

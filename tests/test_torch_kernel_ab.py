@@ -517,7 +517,7 @@ def test_parent_b5_calls_as_its_argtypes_declare(monkeypatch, workspace):
     (out,) = kernel_ab.parent_b5(lib, *x, **kw)
     assert out.shape == x[0].shape
     (name, args), = lib.calls
-    assert len(args) == len(lib.cfa_paged_decode.argtypes) == (23 if workspace else 20)
+    assert len(args) == len(lib.cfa_paged_decode.argtypes) == (25 if workspace else 20)
 
 
 def test_parent_b8_calls_as_its_argtypes_declare(monkeypatch):
@@ -630,9 +630,11 @@ def test_parent_b6_calls_as_its_argtypes_declare(monkeypatch, workspace):
     (out,) = kernel_ab.parent_b6(lib, *x, **kw)
     assert out.shape == x[0].shape
     (name, args), = lib.calls
-    assert len(args) == len(lib.cfa_paged_chunk.argtypes) == (24 if workspace else 21)
+    assert len(args) == len(lib.cfa_paged_chunk.argtypes) == (26 if workspace else 21)
     if workspace:  # two splits of one page: a workspace and the counters
-        assert args[20] == 2 and args[21] is not None and args[22] is not None
+        # (after the window and sinks the entry point takes)
+        assert list(args[20:22]) == [dec_attn.NO_WINDOW, 0]
+        assert args[22] == 2 and args[23] is not None and args[24] is not None
 
 
 def test_parent_x_calls_as_its_argtypes_declare(monkeypatch):

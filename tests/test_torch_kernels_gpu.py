@@ -240,12 +240,25 @@ def test_paged_chunk_of_one_equals_paged_decode(cuda, cache):
 
 
 def test_paged_chunk_kernel_refuses_windows(cuda):
-    pages = kv_cache.init_kv_pages(2, 3, 128, 64, device=cuda)
-    q = torch.zeros(1, 2, 4, 64, device=cuda)
-    table = torch.ones(1, 2, dtype=torch.int32, device=cuda)
-    lengths = torch.full((1,), 2, dtype=torch.int32, device=cuda)
-    with pytest.raises(NotImplementedError):
-        dec_attention.paged_chunk_attention(q, pages, table, lengths, window=64)
+    """Refused until sliding windows were ported: the kernel now launches
+    with a window (and counts a windowed launch) and matches its plain
+    version."""
+    rng = np.random.default_rng(9)
+    pages = kv_cache.init_kv_pages(2, 3, 128, 64, device="cpu")
+    kv_cache.write_prompt_kv(pages, _randn(rng, 256, 2, 64), _randn(rng, 256, 2, 64),
+                             torch.tensor([1, 2], dtype=torch.int32))
+    q = _randn(rng, 1, 2, 4, 64)
+    table = torch.tensor([[1, 2]], dtype=torch.int32)
+    lengths = torch.full((1,), 200, dtype=torch.int32)
+    kw = dict(window=64, sinks=4, compute_dtype=torch.float32)
+    before = LAUNCHES["paged_chunk_window"]
+    got = dec_attention.paged_chunk_attention(
+        q.to(cuda), kv_cache.KVPages(*(t.to(cuda) for t in (
+            pages.k_pages, pages.k_scales, pages.v_pages, pages.v_scales))),
+        table.to(cuda), lengths.to(cuda), **kw)
+    assert LAUNCHES["paged_chunk_window"] == before + 1
+    want = dec_attention.paged_chunk_attention(q, pages, table, lengths, **kw)
+    assert (got.cpu() - want).abs().max().item() <= 2e-5
 
 
 def test_engine_on_the_card_matches_the_cpu(cuda):
@@ -1484,4 +1497,161 @@ def test_quantized_and_lora_steps_capture(cuda, weights):
                            device=dev, decode_burst=2)
         runs[dev] = [r.generated for r in eng.run([[5, 7, 11], [2, 3]],
                                                   max_new_tokens=6)]
+    assert runs[None] == runs["cpu"]
+
+
+# ---------------------------------------------------------------------------
+# Sliding windows and attention sinks (B1, B8, B5, B6): each windowed kernel
+# against its plain version on the CPU, at chip_smoke phase 25's shapes and
+# around the walks' edges; table entries behind the window naming another
+# slot's pages (what the engine's recycling leaves) change no output bit;
+# the hybrid window-group engine's captured decode steps give the CPU's
+# tokens.  Tolerances as the unwindowed tests above; a row that keeps no
+# key carries the plain version's lse bit for bit.
+# ---------------------------------------------------------------------------
+
+WINDOW_FWD = pytest.mark.parametrize("dtype,tile", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, None),
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float16),
+], ids=["bf16", "fp32", "fp32-in-bf16-tiles", "bf16-in-fp16-tiles"])
+
+
+def _windowed_forward_check(cuda, b, hq, hkv, sq, skv, d, causal, window, sinks,
+                            dtype, tile, small=False):
+    rng = np.random.default_rng(sq + skv + d)
+    q = _randn(rng, b, hq, sq, d).to(dtype)
+    k, v = (_randn(rng, b, hkv, skv, d).to(dtype) for _ in range(2))
+    q, k, v, scale, _, kv_len = attention._prepare(q, k, v, causal, None, tile,
+                                                   None, None, window, sinks)
+    kw = dict(causal=causal, sm_scale=scale, kv_len=kv_len, tile_dtype=tile,
+              window=window, sinks=sinks)
+    name = "fa2_forward_small" if small else "fa2_forward"
+    fn = fa2_forward.fa2_forward_small_aligned if small else fa2_forward.fa2_forward_aligned
+    before = (LAUNCHES[name], LAUNCHES[name + "_window"])
+    o_k, lse_k = fn(q.to(cuda), k.to(cuda), v.to(cuda), **kw)
+    assert (LAUNCHES[name], LAUNCHES[name + "_window"]) == (before[0] + 1, before[1] + 1)
+    o_p, lse_p = fn(q, k, v, **kw)
+    o_k, lse_k = o_k.cpu(), lse_k.cpu()
+    tol = 2e-6 if (tile or dtype) == torch.float32 else 2e-2
+    assert (o_k.float() - o_p.float()).abs().max().item() <= tol
+    dead = lse_p < -1e30
+    assert torch.equal(lse_k[dead], lse_p[dead])
+    live = ((lse_k - lse_p).abs() / lse_p.abs().clamp_min(1.0))[~dead]
+    assert live.numel() == 0 or live.max().item() <= (1e-5 if tol == 2e-6 else 1e-3)
+    return int(dead.sum())
+
+
+@WINDOW_FWD
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,causal,window,sinks", [
+    (1, 4, 2, 1536, 1536, True, 128, 4),    # phase 25's serving shapes
+    (1, 4, 2, 1536, 1536, True, 128, 0),
+    (1, 2, 1, 8192, 8192, True, 1024, 0),   # long, a wide window
+    (2, 4, 2, 1024, 1024, False, -100, 0),  # a band: rows with no key
+    (1, 4, 2, 1024, 1024, False, 64, 0),
+    (1, 4, 2, 300, 300, True, 1, 0),
+    (1, 4, 2, 700, 700, True, 100, 130),    # sinks past the first tile
+    (2, 4, 2, 200, 130, True, 64, 0),       # Sq > Skv + window: dead rows
+    (1, 4, 2, 130, 700, True, 64, 4),
+    (1, 2, 2, 1024, 1024, False, -300, 0),  # a 128-row tile walks nothing
+], ids=str)
+def test_windowed_fa2_forward_matches_plain(cuda, b, hq, hkv, sq, skv, causal,
+                                            window, sinks, d, dtype, tile):
+    _windowed_forward_check(cuda, b, hq, hkv, sq, skv, d, causal, window, sinks,
+                            dtype, tile)
+
+
+@WINDOW_FWD
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s,causal,window,sinks", [
+    (100, True, 32, 4), (128, True, 1, 0), (100, False, -20, 0), (17, True, 8, 2),
+], ids=str)
+def test_windowed_fa2_forward_small_matches_plain(cuda, s, causal, window, sinks,
+                                                  d, dtype, tile):
+    _windowed_forward_check(cuda, 4, 8, 8, s, s, d, causal, window, sinks, dtype,
+                            tile, small=True)
+
+
+def _stale_table(table, lengths, chunk, window, sinks, page=128):
+    """Entries behind every row's window (not sink pages) pointed at the
+    next slot's page of the same index."""
+    out = table.clone()
+    for s, n in enumerate(lengths):
+        first = max(0, n - chunk - window + 1)
+        for p in range(table.shape[1]):
+            if p * page < n and (p + 1) * page <= first and p * page >= sinks:
+                out[s, p] = table[(s + 1) % table.shape[0], p]
+    return out
+
+
+WINDOW_LENGTHS = [2048, 1, 129, 0, 777, 1500, 128, 2000]
+
+
+@pytest.mark.parametrize("compute", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("cache", ALL_CACHES, ids=str)
+@pytest.mark.parametrize("chunk,d,group", [
+    (chunk, d, group) for chunk in (1, 5) for d in (64, 128) for group in (2, 8)
+] + [(512, 64, 2)], ids=str)  # T 512 at the base model's D 64 and group 2
+@pytest.mark.parametrize("window,sinks", [(128, 4), (300, 200)], ids=str)
+def test_windowed_paged_kernels_match_plain(cuda, window, sinks, chunk, d, group,
+                                            cache, compute):
+    """B5 (chunk 1) and B6 (T 5: the split body; T 512: the tile bodies);
+    the output is bitwise the same when the entries behind the window name
+    another slot's pages."""
+    rng = np.random.default_rng(d + group + chunk)
+    hq = 16 if group == 2 else 8
+    hkv = hq // group
+    n, pps = len(WINDOW_LENGTHS), 16
+    num_pages = n * pps + 1
+    table = torch.from_numpy(rng.permutation(np.arange(1, num_pages)).astype(
+        np.int32)).reshape(n, pps)
+    pages = _cache_pages(rng, cache, hkv, num_pages, 128, d, table, n, pps, cuda)
+    lens = [max(x, chunk) if x else 0 for x in WINDOW_LENGTHS]
+    lengths = torch.tensor(lens, dtype=torch.int32)
+    stale = _stale_table(table, lens, chunk, window, sinks)
+    assert not torch.equal(stale, table)
+    kw = dict(compute_dtype=compute, window=window, sinks=sinks)
+    if chunk == 1:
+        q = _randn(rng, n, hq, d).to(compute)
+        fn, name = dec_attention.paged_decode_attention, "paged_decode"
+    else:
+        q = _randn(rng, n, chunk, hq, d).to(compute)
+        fn, name = dec_attention.paged_chunk_attention, "paged_chunk"
+    before = LAUNCHES[name + "_window"]
+    o_k = fn(q.to(cuda), pages, table.to(cuda), lengths.to(cuda), **kw)
+    o_s = fn(q.to(cuda), pages, stale.to(cuda), lengths.to(cuda), **kw)
+    assert LAUNCHES[name + "_window"] == before + 2
+    cpu_pages = kv_cache.KVPages(*(t.cpu() for t in (
+        pages.k_pages, pages.k_scales, pages.v_pages, pages.v_scales)))
+    o_p = fn(q, cpu_pages, table, lengths, **kw)
+    tol = 2e-5 if compute == torch.float32 else 2e-2
+    assert (o_k.cpu().float() - o_p.float()).abs().max().item() <= tol
+    assert torch.equal(o_k, o_s), "an entry behind the window was read"
+
+
+@pytest.mark.parametrize("config", ["hybrid", "streaming"])
+def test_captured_windowed_decode_matches_the_cpu(cuda, config):
+    """The hybrid (window 128 on every other layer, per-group tables) and
+    streaming (window 128, 16 sinks) engines: the card's captured decode
+    steps, in bursts of 4 that cross recycled pages, give the CPU's eager
+    tokens in fp32, and every group's pages return to its pool."""
+    extra = (dict(attn_window=128, global_every=2) if config == "hybrid"
+             else dict(attn_window=128, attn_sinks=16))
+    cfg = dataclasses.replace(
+        TransformerConfig.tiny(dtype=torch.float32, attn_tile_dtype=None), **extra)
+    params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, 256, n).tolist() for n in (300, 130, 460)]
+    runs = {}
+    for dev in (None, "cpu"):
+        eng = DecodeEngine(params, cfg, max_seqs=2, max_seq_len=1024,
+                           cache_dtype=torch.float32, device=dev, decode_burst=4,
+                           prefill_chunk=256)
+        reqs = eng.run(prompts, max_new_tokens=140)
+        runs[dev] = [r.generated for r in reqs]
+        for a in eng._group_allocs:
+            assert a.available == a.num_pages - 1
+        if dev is None:
+            assert eng.graph_replays > 0
+            assert LAUNCHES["paged_decode_window"] > 0
     assert runs[None] == runs["cpu"]

@@ -123,12 +123,18 @@ def test_dead_table_entries_are_never_read():
 
 
 def test_windows_and_sinks_raise():
-    _, pt, table, totals, q = _setup(jnp.int8, torch.int8, chunk=2)
-    for kw in (dict(window=64), dict(sinks=4)):
-        with pytest.raises(NotImplementedError):
-            attention.paged_chunk_attention(
-                torch.from_numpy(q), pt, torch.from_numpy(table),
-                torch.from_numpy(totals), **kw)
+    """Refused until sliding windows were ported: a window (with sinks, or
+    sinks without a window, which the JAX kernel ignores) now gives the
+    JAX kernel's output."""
+    pj, pt, table, totals, q = _setup(jnp.int8, torch.int8, chunk=2)
+    for kw in (dict(window=64, sinks=4), dict(sinks=4)):
+        o_j = jax_attention.paged_chunk_attention(
+            jnp.asarray(q), pj, jnp.asarray(table), jnp.asarray(totals),
+            compute_dtype=jnp.float32, **kw)
+        o_t = attention.paged_chunk_attention(
+            torch.from_numpy(q), pt, torch.from_numpy(table),
+            torch.from_numpy(totals), compute_dtype=torch.float32, **kw)
+        np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), atol=2e-5, rtol=0)
 
 
 @pytest.mark.parametrize("jdt,tdt", [(jnp.int8, torch.int8),

@@ -109,10 +109,26 @@ def test_verify_of_one_token_equals_decode_step(tiny):
 
 
 def test_windowed_verify_raises(tiny):
-    _, cfg_t, _, params_t = tiny
-    _, ct = _caches(tiny[0], cfg_t)
-    with pytest.raises(NotImplementedError):
-        model.verify_step(params_t, torch.zeros(3, 2, dtype=torch.long),
-                          torch.zeros(3, dtype=torch.long), ct,
-                          torch.from_numpy(TABLE), torch.from_numpy(ACTIVE),
-                          dataclasses.replace(cfg_t, attn_window=64))
+    """Refused until sliding windows were ported: windowed verification
+    (window 64 with 4 sinks on the local layers, global_every 2) now gives
+    JAX's logits, and a per-layer list of tables (the hybrid cache's form)
+    the same as one table."""
+    cfg_j, cfg_t, params_j, params_t = tiny
+    win = dict(attn_window=64, attn_sinks=4, global_every=2)
+    windowed = (dataclasses.replace(cfg_j, **win), dataclasses.replace(cfg_t, **win),
+                params_j, params_t)
+    rng = np.random.default_rng(2)
+    caches = _caches(tiny[0], cfg_t)
+    caches, _ = _step(windowed, caches, rng.integers(0, 256, (3, PAGE)),
+                      np.array([0, 0, 0]), True)
+    tokens, first = rng.integers(0, 256, (3, 5)), np.array([PAGE, 0, 100])
+    saved = [kv_cache.KVPages(*(t.clone() for t in (c.k_pages, c.k_scales,
+                                                     c.v_pages, c.v_scales)))
+             for c in caches[1]]
+    _, want = _step(windowed, caches, tokens, first, False)
+    table = torch.from_numpy(TABLE)
+    got, _ = model.verify_step(params_t, torch.from_numpy(tokens).long(),
+                               torch.from_numpy(first).long(), saved,
+                               [table] * cfg_t.n_layers, torch.from_numpy(ACTIVE),
+                               windowed[1])
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0)
