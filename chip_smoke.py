@@ -49,7 +49,7 @@ Phases (any failure raises and the script exits non-zero):
      versions, and bitwise-equal gradients from two runs of each;
   8. one AdamW train step at the base width in fp32 on the card (kernels)
      and on the CPU (plain versions) from the same seeded weights;
-  9. training TransformerConfig.base() (bf16) at B4 S2048: 2 warm-up and 5
+  9. training TransformerConfig.base() (bf16) at B4 S2048: 2 warm-up and 3
      timed steps on one batch, tokens/s over the timed steps, mean and
      median step time, peak memory, the loss
      at each step, model FLOPs and their share of the bf16 peak, launches
@@ -68,7 +68,7 @@ Phases (any failure raises and the script exits non-zero):
      the card's plain greedy tokens; B6's fp32 tile body's launches over
      the phase (the kernel line's `fp32_tile`);
  14. speculative serving at TransformerConfig.base() with an int8 cache:
-     phase 5's 12 requests (32 new tokens each) with k 4, a one-layer draft
+     phase 5's 12 requests (24 new tokens each) with k 4, a one-layer draft
      and prompt lookup:
      tokens/s, acceptance, rounds, B1/B5/B6 launches, and where a round's
      time goes (one profiled window, as phase 6, with B6's time and share
@@ -129,7 +129,7 @@ Phases (any failure raises and the script exits non-zero):
      engine_overhead_x; phase 5's 12 requests at bursts 1 and 8 (the same
      tokens, graph replays, bursts, launches; burst 8 profiled as phase
      6, whose burst-1 launches and idle share it prints beside); train
-     tokens/s at B4 S2048 (the median of three slopes between chains of 2
+     tokens/s at B4 S2048 (the median of two slopes between chains of 2
      and 10 AdamW steps, with their min/max);
  25. sliding windows and attention sinks on the serving path: B1 (bf16
      tiles and fp32) at B4 Hq16 Hkv8 S1536 D64, window 128 with and
@@ -150,11 +150,38 @@ Phases (any failure raises and the script exits non-zero):
      4 sinks, every layer) in fp32 at base width, card against CPU, greedy
      tokens bitwise equal for engine decode, speculation (k 3, a one-layer
      windowed draft) and chunked prefill (chunk 512, a 1300-token prompt),
-     the sink page resident to the end.
+     the sink page resident to the end;
+ 26. training with windows, sinks and packed segments: (a) B2, B3 and B4
+     with a window against their plain versions at the train shape (B4
+     Hq16 Hkv8 S2048 D64 bf16; window 128, the hybrid's local layers;
+     window 512 with 4 sinks, streaming's; window 128 at D 128), fp32 tiles
+     at B1 S512 (window 128, 4 sinks), a band of offset -100 at B2 S1024
+     (rows with no key) and the reference tiles' dead rows (window 520, Sq
+     1500, Skv 700: B1's lse on them bit for bit, their dQ exactly 0); (b)
+     the same with segment ids (4 documents a row at the train shape, 3 at
+     B1 S512 in fp32), B8 with 2 segments at Edge-NonPowerOf2, a padded
+     batch through the API on both routes (O, dQ, dK and dV exactly 0 on
+     the pads), and packing two documents against running each alone.
+     Each row: the forward B1 on the same inputs checked and timed first
+     (beside SDPA with the mask as a boolean attn_mask), device time beside
+     the same call's global time, the bound over the kept pairs, the plain
+     version and SDPA's memory-efficient backward with the mask as its
+     bias; an off-by-one window or ids shifted by one token as
+     the control, enforced in fp32 (printed in bf16); (c) the hybrid and
+     streaming base configurations train 5 AdamW steps each at B4 S2048:
+     finite falling loss, step time, tokens/s, peak memory, windowed
+     launches (hybrid: B3 and B4, B2 on the global layers; streaming: B2
+     only); (d) one fp32 AdamW step of each (hybrid window 64, streaming
+     window 96 with 4 sinks) on tokens (2, 257), card against CPU, as
+     phase 8.
 Serving's decode steps run as CUDA graphs (decode/graphs.py); each
 wrapper's launch count adds what a capture recorded at every replay.
 The line before the last is the kernel JSON (eleven kernels; B1, B5, B6 and
-B8 each with its windowed row and windowed launches under "window"); the
+B8 each with its windowed row and windowed launches under "window", B2, B3
+and B4 with phase 26's windowed and segmented rows under "window" and
+"segments", B8 with its segmented row; B1-B4 and B8 with
+"launches_window" and "launches_segments"; B1's segmented row under
+"segments"); the
 last line is the JSON contract line {"ok": true, "device": {...}}.
 It imports torch and the port only, never jax or the JAX package.
 """
@@ -226,15 +253,16 @@ def nbytes(*tensors) -> int:
 # types): B2's main kernel (DQ true, Lb1E), the prologue of B2-B4 with
 # 16-bit tiles (its fp32 instantiations, IffL, are the fp32 block's) and
 # B2's dQ reduce; B3's kernel; B4's, the main kernel with DQ false (Lb0E).  And the fp32 FMA block's
-# kernels by source, with their instantiations: B10, B1's fp32 body (D 64
-# and 128 each); the backward's bwd_kv_fp32 (D 64 and 128 x FUSED),
+# kernels by source, with their instantiations: B10 (D 64 and 128), B1's
+# fp32 body and B8's (D 64 and 128, with and without segment ids); the backward's
+# bwd_kv_fp32 (D 64 and 128 x FUSED),
 # bwd_dq_fp32 and the fp32 prologue (D 64 and 128 each).
 BWD_FUNCTIONS = {"B2": ((r"bwd_fused_wgmma\w*Lb1E", r"bwd_prologueI(?!ffL)", "dq_reduce"), 18),
                  "B3": (("bwd_dq_wgmma",), 8),
                  "B4": ((r"bwd_fused_wgmma\w*Lb0E",), 8)}
 FP32_FUNCTIONS = {"baselines": (("naive_fa2_fp32",), 2),
-                  "fa2_forward": (("fa2_fwd_fp32",), 2),
-                  "fa2_forward_small": (("small_fp32",), 2),
+                  "fa2_forward": (("fa2_fwd_fp32",), 4),
+                  "fa2_forward_small": (("small_fp32",), 4),
                   "fa2_backward": (("bwd_kv_fp32", "bwd_dq_fp32", "bwd_prologueIffL"), 8)}
 # B5's split-KV kernel: 6 cache types x 2 q types x D 64 and 128 x groups
 # of at most 2 and 8.
@@ -746,16 +774,18 @@ def tree_rel_err(torch, tree_leaves, a, b) -> float:
                for x, y in zip(tree_leaves(a), tree_leaves(b)))
 
 
-def phase_train_parity(torch, np, transformer, training):
+def phase_train_parity(torch, np, transformer, training, label="base",
+                       tokens_shape=(2, 129), **cfg_kw):
     """One AdamW step at the base width in fp32: card (kernels) against CPU
     (plain versions).  The first Adam moment is (1 - b1) times the clipped
     gradient, so it holds each gradient leaf to the tolerance; the global
-    gradient norm, taken before clipping, is held on its own."""
+    gradient norm, taken before clipping, is held on its own.  cfg_kw: the
+    configuration's window, global_every and sinks (phase 26 (d))."""
     cfg = transformer.TransformerConfig.base(dtype=torch.float32,
-                                             attn_tile_dtype=None)
+                                             attn_tile_dtype=None, **cfg_kw)
     params = transformer.init_params(torch.Generator().manual_seed(0), cfg,
                                      device="cpu")
-    tokens = np.random.default_rng(8).integers(0, cfg.vocab_size, (2, 129))
+    tokens = np.random.default_rng(8).integers(0, cfg.vocab_size, tokens_shape)
     out = {}
     for dev in ("cuda", "cpu"):
         p = transformer.tree_map(lambda w: w.to(dev), params)
@@ -773,7 +803,7 @@ def phase_train_parity(torch, np, transformer, training):
                loss_rel_err=loss_err, grad_rel_err_max=grad_err,
                grad_norm_cuda=norm_g, grad_norm_cpu=norm_c,
                grad_norm_rel_err=norm_err)
-    log("train parity fp32 base", json.dumps(res))
+    log(f"train parity fp32 {label}", json.dumps(res))
     if not (loss_err <= TRAIN_LOSS_TOL and grad_err <= TRAIN_GRAD_TOL
             and norm_err <= TRAIN_GRAD_NORM_TOL):
         raise AssertionError(f"train parity: {res}")
@@ -807,7 +837,7 @@ def phase_train(torch, np, transformer, training, dataclasses):
     losses, times = [], []
     torch.cuda.synchronize()
     reset_counts(TRAIN_KERNELS)
-    for i in range(7):
+    for i in range(5):
         if i == 2:
             torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1153,7 +1183,7 @@ def phase_spec_serving(torch, np, transformer, decode, dataclasses):
     params = transformer.init_params(
         torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
     prompts = serving_mix(np, cfg)
-    new_tokens = 32
+    new_tokens = 24
     out = {}
     for mode in ("draft", "prompt_lookup"):
         kw = (dict(draft_params=draft_of(params),
@@ -2194,7 +2224,7 @@ def phase_bench(torch, np, transformer, decode, decode_bench, train_bench,
 
     torch.cuda.empty_cache()
     reset_counts(TRAIN_KERNELS)
-    train = train_bench.measure_train_throughput(cfg, 4, 2048, iters=2, repeats=3)
+    train = train_bench.measure_train_throughput(cfg, 4, 2048, iters=2, repeats=2)
     train["launches"] = read_counts(TRAIN_KERNELS)
     out["train"] = train
     log("bench train", json.dumps(train))
@@ -2585,6 +2615,402 @@ def phase_window_streaming(torch, np, transformer, decode, dataclasses):
     return {m: r["equal"] for m, r in out.items()}
 
 
+# Phase 26: training with windows, sinks and packed segments.  The
+# backward rows (a): (name, B, Hq, Hkv, Sq, Skv, D, causal, window, sinks,
+# tile kind); the train shape carries the hybrid's local-layer call (window
+# 128, no sinks: the split pair), streaming's (window 512 with 4 sinks: the
+# fused B2) and window 128 at D 128; the fp32 tiles at B1 S512; a band of
+# offset -100 whose last rows keep no key; the reference tiles' dead rows
+# (window 520, Sq 1500, Skv 700).
+WINDOW_BWD_CASES = (
+    ("train w128", 4, 16, 8, 2048, 2048, 64, True, 128, 0, "bf16"),
+    ("train w512 s4", 4, 16, 8, 2048, 2048, 64, True, 512, 4, "bf16"),
+    ("train D128 w128", 4, 16, 8, 2048, 2048, 128, True, 128, 0, "bf16"),
+    ("fp32 B1 S512 w128 s4", 1, 16, 8, 512, 512, 64, True, 128, 4, "fp32"),
+    ("band -100 B2 S1024", 2, 16, 8, 1024, 1024, 64, False, -100, 0, "bf16"),
+    ("dead rows w520 Sq1500 Skv700", 1, 16, 8, 1500, 700, 64, True, 520, 0, "fp32"),
+)
+# The segmented rows (b): 4 documents a row at the train shape (bf16), 3 at
+# B1 S512 in fp32.
+SEGMENT_BWD_CASES = (
+    ("train 4 documents", 4, 16, 8, 2048, 2048, 64, True, None, 0, "bf16", 4),
+    ("fp32 B1 S512 3 documents", 1, 16, 8, 512, 512, 64, True, None, 0, "fp32", 3),
+)
+BWD_NAMES = ("fa2_backward_fused", "fa2_backward_dq", "fa2_backward_dkv")
+MASKED_KERNELS = tuple(f"{n}{tag}" for n in ("fa2_forward", "fa2_forward_small")
+                       + BWD_NAMES for tag in ("", "_window", "_segments"))
+
+
+def masked_problem(torch, F, common, attention, fa2, gen, kind, b, hq, hkv, sq,
+                   skv, d, causal, window, sinks, ids=None):
+    """Padded inputs on the card (random q, k, v, dO; O and lse from kernel
+    B1, checked against its plain version on the way: the rows that keep a
+    key by LSE_REL_TOL, the rows that keep none bit for bit), the
+    wrappers' keyword arguments with the window, sinks and padded ids, the
+    raw inputs, and B1's row: device time beside the same call's global
+    time, the plain version's, SDPA with the mask as a boolean attn_mask and
+    the bound over the kept pairs.  ids: (q ids, kv ids) [B, S] or None."""
+    dt = torch.float32 if kind == "fp32" else torch.bfloat16
+    tile = tile_of(torch, kind)
+    q, do = (torch.randn(b, hq, sq, d, generator=gen, device="cuda").to(dt)
+             for _ in range(2))
+    k, v = (torch.randn(b, hkv, skv, d, generator=gen, device="cuda").to(dt)
+            for _ in range(2))
+    raw = (q, k, v, do)
+    q_ids, kv_ids = ids if ids is not None else (None, None)
+    window, sinks = attention._window_of(window, sinks, causal, q, k)
+    q, k, v, scale, _, kv_len = attention._prepare(q, k, v, causal, None, tile,
+                                                   q_ids, kv_ids, window, sinks)
+    q_seg, kv_seg = attention._segments_of(q_ids, kv_ids, q, k)
+    kw = dict(causal=causal, sm_scale=scale, kv_len=kv_len, tile_dtype=tile,
+              window=window, sinks=sinks, q_seg=q_seg, kv_seg=kv_seg)
+    o, lse = fa2.fa2_forward_aligned(q, k, v, **kw)
+    o_p, lse_p = fa2.fa2_forward_plain(q, k, v, **kw)
+    fwd_err = (o.float() - o_p.float()).abs().max().item()
+    lse_err, dead_equal = lse_gate(torch, lse, lse_p)
+    if not (fwd_err <= B1_TOL[kind] and lse_err <= LSE_REL_TOL and dead_equal):
+        raise AssertionError(f"masked B1 forward: max_abs_err {fwd_err}, lse rel "
+                             f"err {lse_err}, dead rows equal {dead_equal}")
+    del o_p, lse_p
+    mask = common.build_element_mask(
+        q.shape[2], k.shape[2], causal=causal, kv_len=kv_len, device="cuda",
+        window=window, sinks=sinks, q_seg=q_seg, kv_seg=kv_seg)
+    lib_in = [t.to(tile or torch.float32) for t in (q, k, v)]
+    flops = 4 * hq * masked_pairs(torch, common, kw, b, sq, skv) * d
+    t_bytes = nbytes(q, k, v, o, lse) / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[kind]
+    fwd_row = dict(
+        fwd_ms=queued_ms(torch, lambda: fa2.fa2_forward_aligned(q, k, v, **kw),
+                         iters=10),
+        fwd_global_ms=queued_ms(torch, lambda: fa2.fa2_forward_aligned(
+            q, k, v, **dict(kw, window=None, sinks=0, q_seg=None, kv_seg=None)),
+            iters=10),
+        fwd_plain_ms=time_ms(lambda: fa2.fa2_forward_plain(q, k, v, **kw), iters=2,
+                             warmup=1),
+        fwd_library_ms=queued_ms(torch, lambda: F.scaled_dot_product_attention(
+            *lib_in, attn_mask=mask, scale=scale, enable_gqa=hq != hkv), iters=5),
+        fwd_bound_ms=max(t_bytes, t_ops) * 1e3,
+        fwd_bound_by="bytes" if t_bytes > t_ops else "operations")
+    del mask, lib_in
+    do = torch.nn.functional.pad(do, (0, 0, 0, q.shape[2] - sq)).contiguous()
+    di = (o.float() * do.float()).sum(-1)
+    x = dict(q=q, k=k, v=v, o=o, do=do, lse=lse, di=di)
+    return x, kw, raw, dict(fwd_max_abs_err=fwd_err, fwd_lse_rel_err=lse_err,
+                            dead_rows=int((lse < -1e30).sum().item()), **fwd_row)
+
+
+def masked_pairs(torch, common, kw, b, sq, skv) -> int:
+    """(query, key) pairs the call keeps over the unpadded rows, summed over
+    the batch (the element mask of the plain versions)."""
+    mask = common.build_element_mask(
+        sq, skv, causal=kw["causal"], kv_len=kw["kv_len"], device="cuda",
+        window=kw["window"], sinks=kw["sinks"],
+        q_seg=None if kw["q_seg"] is None else kw["q_seg"][:, :sq],
+        kv_seg=None if kw["kv_seg"] is None else kw["kv_seg"][:, :skv])
+    if mask is None:
+        return b * sq * skv
+    return int(mask.expand(b, 1, sq, skv).sum().item())
+
+
+def masked_bwd_rows(torch, fp32_bwd, common, bwd, x, kw, raw, kind, label,
+                    control=None):
+    """B2, B3 and B4 with a window, sinks or segment ids against their plain
+    versions on one problem: the gate (BWD_TOL of each output's max), dQ of
+    every row that keeps no key exactly 0, device time beside the same
+    call's global time (no window, sinks or ids) on the same inputs, the
+    bound over the kept pairs, the plain version's time and SDPA's masked
+    backward (the mask as its bias; the function of B2 and of the pair).
+    control: keyword arguments (a window one narrower, ids shifted by one
+    token) whose plain outputs the kernel must miss by more than the gate;
+    enforced in fp32, printed in bf16.  (A wider window would revive rows
+    whose lse says they keep no key, and the control would read NaN.)"""
+    q, k, v, o, do, lse, di = (x[n] for n in ("q", "k", "v", "o", "do", "lse", "di"))
+    b, hq, sq, d = raw[0].shape
+    skv = raw[1].shape[2]
+
+    def by_batch(fn, chunk=2):
+        outs = [fn(slice(lo, lo + chunk)) for lo in range(0, q.shape[0], chunk)]
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+
+    def sliced(kw_, i):
+        out = dict(kw_)
+        for n in ("q_seg", "kv_seg"):
+            if out[n] is not None:
+                out[n] = out[n][i]
+        return out
+
+    def calls(kw_):
+        return {
+            "fa2_backward_fused": (
+                lambda: bwd.fa2_backward_fused_aligned(q, k, v, o, do, lse, **kw_),
+                lambda: by_batch(lambda i: bwd.fa2_backward_fused_plain(
+                    q[i], k[i], v[i], o[i], do[i], lse[i], **sliced(kw_, i)))),
+            "fa2_backward_dq": (
+                lambda: (bwd.fa2_backward_dq_aligned(q, k, v, do, lse, di, **kw_),),
+                lambda: by_batch(lambda i: (bwd.fa2_backward_dq_plain(
+                    q[i], k[i], v[i], do[i], lse[i], di[i], **sliced(kw_, i)),))),
+            "fa2_backward_dkv": (
+                lambda: bwd.fa2_backward_dkv_aligned(q, k, v, do, lse, di, **kw_),
+                lambda: by_batch(lambda i: bwd.fa2_backward_dkv_plain(
+                    q[i], k[i], v[i], do[i], lse[i], di[i], **sliced(kw_, i)))),
+        }
+
+    masked, unmasked = calls(kw), calls(dict(kw, window=None, sinks=0, q_seg=None,
+                                             kv_seg=None))
+    ctrl = calls(dict(kw, **control)) if control else None
+    lib_dtype = kw["tile_dtype"] or raw[0].dtype
+    groups = hq // raw[1].shape[1]
+    lq, lk, lv, ldo = (t.to(lib_dtype) for t in raw)
+    lk, lv = (t.repeat_interleave(groups, dim=1) for t in (lk, lv))
+    mask = common.build_element_mask(
+        sq, skv, causal=kw["causal"], kv_len=skv, device="cuda",
+        window=kw["window"], sinks=kw["sinks"],
+        q_seg=None if kw["q_seg"] is None else kw["q_seg"][:, :sq],
+        kv_seg=None if kw["kv_seg"] is None else kw["kv_seg"][:, :skv])
+    lib_ms = queued_ms(torch, fp32_bwd.masked_backward(lq, lk, lv, ldo,
+                                                       kw["sm_scale"], mask),
+                       iters=5)
+    del lq, lk, lv, ldo, mask
+    pairs = masked_pairs(torch, common, kw, b, sq, skv)
+    io = {"q": nbytes(raw[0]), "kv": nbytes(raw[1], raw[2]), "stat": b * hq * sq * 4}
+    moved = {
+        "fa2_backward_fused": 4 * io["q"] + 2 * io["kv"] + io["stat"],
+        "fa2_backward_dq": 3 * io["q"] + io["kv"] + 2 * io["stat"],
+        "fa2_backward_dkv": 2 * io["q"] + 2 * io["kv"] + 2 * io["stat"],
+    }
+    dead = lse[:, :, :sq] < -1e30
+    rows = []
+    for name in BWD_NAMES:
+        kernel, plain = masked[name]
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        errs = [rel_err(g, w) for g, w in zip(got, want)]
+        abs_err = max((g.float() - w.float()).abs().max().item()
+                      for g, w in zip(got, want))
+        if not max(errs) <= BWD_TOL[kind]:
+            raise AssertionError(f"{name} {label}: relative errors {errs} "
+                                 f"(tol {BWD_TOL[kind]})")
+        if name != "fa2_backward_dkv" and dead.any():
+            if not bool((got[0][:, :, :sq][dead] == 0).all()):
+                raise AssertionError(f"{name} {label}: a dead row's dQ is not 0")
+        control_err = None
+        if ctrl is not None:
+            control_err = max(rel_err(g, w) for g, w in zip(got, ctrl[name][1]()))
+            if kind == "fp32" and not control_err > BWD_TOL[kind]:
+                raise AssertionError(f"{name} {label}: the control passes the gate "
+                                     f"({control_err} <= {BWD_TOL[kind]})")
+        del got, want
+        ms = queued_ms(torch, kernel, iters=10)
+        flops = BWD_MATMULS[name] * 2 * hq * pairs * d
+        t_bytes, t_ops = moved[name] / HBM_BYTES_PER_S, flops / PEAK_FLOPS[kind]
+        row = dict(kernel=name, case=label, kind=kind, B=b, Hq=hq, Hkv=raw[1].shape[1],
+                   Sq=sq, Skv=skv, D=d, causal=kw["causal"], window=kw["window"],
+                   sinks=kw["sinks"], segments=kw["q_seg"] is not None,
+                   rel_err=max(errs), max_abs_err=abs_err,
+                   control_rel_err=control_err, ms=ms,
+                   global_ms=queued_ms(torch, unmasked[name][0], iters=10),
+                   plain_ms=time_ms(plain, iters=2, warmup=1),
+                   library_ms=lib_ms, library="SDPA memory-efficient backward, mask as bias",
+                   bound_ms=max(t_bytes, t_ops) * 1e3,
+                   bound_by="bytes" if t_bytes > t_ops else "operations",
+                   kept_pairs=pairs, tflops=flops / ms / 1e9)
+        rows.append(row)
+        log("masked bwd", json.dumps(row))
+    return rows
+
+
+def phase_masked_kernels(torch, np, F, fp32_bwd, kernel_ab, attention, common,
+                         fa2, bwd):
+    """Phase 26 (a) and (b): the windowed and segmented B2, B3 and B4 rows
+    (WINDOW_BWD_CASES, SEGMENT_BWD_CASES) with their controls; B8 with 2
+    segments at Edge-NonPowerOf2 in fp32 and bf16 against its plain version
+    (ids shifted by one token the control); a padded batch through the
+    API on both routes (O, dK and dV exactly 0 on the pads); packing two
+    documents against running each alone (ids shifted by one token must
+    fail).  Returns (rows, the API's segmented launches)."""
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    rows, checks = [], {}
+    for (label, b, hq, hkv, sq, skv, d, causal, window, sinks,
+         kind) in WINDOW_BWD_CASES:
+        x, kw, raw, fwd = masked_problem(torch, F, common, attention, fa2, gen,
+                                         kind, b, hq, hkv, sq, skv, d, causal,
+                                         window, sinks)
+        rows += [dict(r, **fwd) for r in masked_bwd_rows(
+            torch, fp32_bwd, common, bwd, x, kw, raw, kind, label,
+            control=dict(window=kw["window"] - 1))]
+        del x, raw
+        torch.cuda.empty_cache()
+    for (label, b, hq, hkv, sq, skv, d, causal, window, sinks, kind,
+         n_docs) in SEGMENT_BWD_CASES:
+        ids = kernel_ab.packed_ids(b, sq, n_docs, seed=sq).cuda()
+        x, kw, raw, fwd = masked_problem(torch, F, common, attention, fa2, gen,
+                                         kind, b, hq, hkv, sq, skv, d, causal,
+                                         window, sinks, ids=(ids, ids))
+        shifted = torch.roll(kw["q_seg"], 1, dims=1)
+        rows += [dict(r, **fwd) for r in masked_bwd_rows(
+            torch, fp32_bwd, common, bwd, x, kw, raw, kind, label,
+            control=dict(q_seg=shifted, kv_seg=torch.roll(kw["kv_seg"], 1, dims=1)))]
+        del x, raw
+        torch.cuda.empty_cache()
+
+    # B8 with 2 segments a slot row at Edge-NonPowerOf2.
+    bb, h, s = SUITE["Edge-NonPowerOf2"]
+    raw8 = [torch.randn(bb, h, s, 64, generator=gen, device="cuda") for _ in range(3)]
+    ids8 = kernel_ab.packed_ids(bb, s, 2, seed=8).cuda()
+    for kind in ("fp32", "bf16"):
+        tile = tile_of(torch, kind)
+        q, k, v, scale, _, kv_len = attention._prepare(*raw8, True, None, tile, ids8,
+                                                       ids8, None, 0)
+        if not attention._use_small_kernel(q, k):
+            raise AssertionError("segmented B8: the route does not take B8")
+        q_seg, kv_seg = attention._segments_of(ids8, ids8, q, k)
+        kw = dict(causal=True, sm_scale=scale, kv_len=kv_len, tile_dtype=tile,
+                  q_seg=q_seg, kv_seg=kv_seg)
+        o_k, lse_k = fa2.fa2_forward_small_aligned(q, k, v, **kw)
+        o_p, lse_p = fa2.fa2_forward_small_plain(q, k, v, **kw)
+        o_c, _ = fa2.fa2_forward_small_plain(
+            q, k, v, **dict(kw, q_seg=torch.roll(q_seg, 1, 1),
+                            kv_seg=torch.roll(kv_seg, 1, 1)))
+        torch.cuda.synchronize()
+        err = (o_k.float() - o_p.float()).abs().max().item()
+        lse_err, dead_equal = lse_gate(torch, lse_k, lse_p)
+        control_err = (o_k.float() - o_c.float()).abs().max().item()
+        if not (err <= B1_TOL[kind] and lse_err <= LSE_REL_TOL and dead_equal
+                and control_err > B1_TOL[kind]):
+            raise AssertionError(f"segmented B8 {kind}: max_abs_err {err}, lse "
+                                 f"{lse_err}, control {control_err}")
+        lib_in = [t.to(tile or torch.float32) for t in (q, k, v)]
+        mask = common.build_element_mask(q.shape[2], k.shape[2], causal=True,
+                                         kv_len=kv_len, device="cuda",
+                                         q_seg=q_seg, kv_seg=kv_seg)
+        cells = bb * h * s
+        flops = 4 * h * int(mask[:, :, :s, :s].expand(bb, 1, s, s).sum().item()) * 64
+        t_bytes = nbytes(q, k, v, o_k, lse_k) / HBM_BYTES_PER_S
+        t_ops = flops / PEAK_FLOPS[kind]
+        row = dict(kernel="fa2_forward_small", case="Edge-NonPowerOf2 2 documents",
+                   kind=kind, B=bb, H=h, S=s, max_abs_err=err, lse_rel_err=lse_err,
+                   control_max_abs_err=control_err,
+                   ms=queued_ms(torch, lambda: fa2.fa2_forward_small_aligned(q, k, v, **kw)),
+                   plain_ms=queued_ms(torch, lambda: fa2.fa2_forward_small_plain(
+                       q, k, v, **kw)),
+                   library_ms=queued_ms(torch, lambda: F.scaled_dot_product_attention(
+                       *lib_in, attn_mask=mask, scale=scale)),
+                   bound_ms=max(t_bytes, t_ops) * 1e3,
+                   bound_by="bytes" if t_bytes > t_ops else "operations", cells=cells)
+        rows.append(row)
+        log("segmented B8", json.dumps(row))
+
+    # The API on the packed path: a padded batch on both routes, and packing
+    # against each document alone.  Its segmented launches are the kernel
+    # line's.
+    reset_counts(MASKED_KERNELS)
+    split = common.BlockSizes(*(128,) * 6)
+    # 1280 padded rows: ten 128-row KV slices, so the 128-row blocks take
+    # the split pair (more than the fused route's eight).
+    real, pad = 1100, 180
+    q_ids = torch.tensor([[0] * real + [-7] * pad] * 2, dtype=torch.int32, device="cuda")
+    kv_ids = torch.tensor([[0] * real + [-8] * pad] * 2, dtype=torch.int32, device="cuda")
+    base = [torch.randn(2, h_, real + pad, 64, generator=gen, device="cuda")
+            .to(torch.bfloat16) for h_ in (16, 8, 8)]
+    wgt = torch.randn(2, 16, real + pad, 64, generator=gen, device="cuda")
+    for route, bs in (("fused", None), ("split", split)):
+        ts = [t.clone().requires_grad_(True) for t in base]
+        o = attention.flash_attention(*ts, causal=True, q_segment_ids=q_ids,
+                                      kv_segment_ids=kv_ids,
+                                      tile_dtype=torch.bfloat16, block_sizes=bs)
+        dq, dk, dv = torch.autograd.grad((o.float() * wgt).sum(), ts)
+        zero = all(bool((t[:, :, real:] == 0).all()) for t in (o, dk, dv, dq))
+        finite = all(bool(torch.isfinite(t.float()).all()) for t in (o, dq, dk, dv))
+        checks[f"padded batch {route}"] = dict(pads_zero=zero, finite=finite)
+        if not (zero and finite):
+            raise AssertionError(f"padded batch {route}: {checks}")
+    # Packing: 2 rows of 2048 tokens, documents of 700 and 1348.
+    s_p, cut = 2048, 700
+    ids = torch.tensor([[0] * cut + [1] * (s_p - cut)] * 2, dtype=torch.int32,
+                       device="cuda")
+    pk = [torch.randn(2, h_, s_p, 64, generator=gen, device="cuda").to(torch.bfloat16)
+          for h_ in (16, 8, 8)]
+    wp = torch.randn(2, 16, s_p, 64, generator=gen, device="cuda")
+
+    def grads(x, w_, q_seg=None, kv_seg=None):
+        ts = [t.clone().requires_grad_(True) for t in x]
+        o = attention.flash_attention(*ts, causal=True, q_segment_ids=q_seg,
+                                      kv_segment_ids=kv_seg, tile_dtype=torch.bfloat16)
+        return (o, *torch.autograd.grad((o.float() * w_).sum(), ts))
+
+    packed = grads(pk, wp, ids, ids)
+    alone = [grads([t[:, :, lo:hi] for t in pk], wp[:, :, lo:hi])
+             for lo, hi in ((0, cut), (cut, s_p))]
+    joined = [torch.cat(parts, dim=2) for parts in zip(*alone)]
+    errs = [rel_err(a, b) for a, b in zip(packed, joined)]
+    shifted = torch.roll(ids, 1, dims=1)
+    control = [rel_err(a, b) for a, b in zip(grads(pk, wp, shifted, shifted), joined)]
+    gates = [B1_TOL["bf16"]] + [BWD_TOL["bf16"]] * 3
+    checks["packing"] = dict(rel_errs=errs, control_rel_errs=control)
+    if not all(e <= g for e, g in zip(errs, gates)) or all(
+            c <= g for c, g in zip(control, gates)):
+        raise AssertionError(f"packing vs each document alone: {checks['packing']}")
+    # B8's segmented launches on the API, as phase 25 counts its windowed ones.
+    attention.flash_attention_with_lse(*raw8, causal=True, q_segment_ids=ids8,
+                                       kv_segment_ids=ids8)
+    torch.cuda.synchronize()
+    launches = read_counts(MASKED_KERNELS)
+    log("phase 26 checks", json.dumps(checks), "launches", json.dumps(launches))
+    return rows, checks, launches
+
+
+def phase_window_train(torch, np, transformer, training, dataclasses):
+    """Phase 26 (c): the hybrid (window 128, global_every 2: GPT-OSS's
+    pattern) and streaming (window 512, 4 sinks on every layer) base
+    configurations train 5 AdamW steps each on one batch of B4 S2048 bf16:
+    a finite, falling loss; step time (median of the last 3), tokens/s,
+    peak memory; launches (hybrid: B3 and B4 windowed, B2 on the global
+    layers; streaming: B2 windowed, no split launch)."""
+    b, s = 4, 2048
+    tokens = np.random.default_rng(26).integers(0, 32768, (b, s + 1))
+    out = {}
+    for name, kw in (("hybrid", dict(attn_window=128, global_every=2)),
+                     ("streaming", dict(attn_window=512, attn_sinks=4))):
+        cfg = dataclasses.replace(transformer.TransformerConfig.base(), **kw)
+        params = transformer.init_params(
+            torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+        opt = training.make_optimizer(learning_rate=1e-3, warmup_steps=1,
+                                      decay_steps=100)
+        step = training.make_optax_train_step(cfg, opt)
+        state = training.init_train_state(params, opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(MASKED_KERNELS)
+        losses, times = [], []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            state, metrics = step(state, tokens)
+            losses.append(metrics["loss"].item())
+            times.append(time.perf_counter() - t0)
+        launches = read_counts(MASKED_KERNELS)
+        median = statistics.median(times[-3:])
+        res = dict(config=name, batch=b, seq=s, losses=losses,
+                   step_ms=[t * 1e3 for t in times], step_ms_median=median * 1e3,
+                   tokens_per_s=b * s / median,
+                   max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   launches={n: c for n, c in launches.items() if c})
+        log("window train", json.dumps(res))
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"window train {name}: loss not finite and falling")
+        if name == "hybrid":
+            ok = (launches["fa2_backward_dq_window"] and launches["fa2_backward_dkv_window"]
+                  and launches["fa2_backward_fused"] > launches["fa2_backward_fused_window"])
+        else:
+            ok = (launches["fa2_backward_fused_window"] and not launches["fa2_backward_dq"]
+                  and not launches["fa2_backward_dkv"])
+        if not ok:
+            raise AssertionError(f"window train {name}: launches {launches}")
+        out[name] = res
+        del state, step, params
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2617,7 +3043,7 @@ def main() -> int:
     from cuda_flash_attention_tpu_torch import quant
     from cuda_flash_attention_tpu_torch.models import lora, training, transformer
     from cuda_flash_attention_tpu_torch.ops import reference
-    from cuda_flash_attention_tpu_torch.scripts import b1_ab, fp32_bwd
+    from cuda_flash_attention_tpu_torch.scripts import b1_ab, fp32_bwd, kernel_ab
     from cuda_flash_attention_tpu_torch.scripts import r5_d128_fwd as r5
     from cuda_flash_attention_tpu_torch.utils import io
 
@@ -2771,6 +3197,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     streaming = phase_window_streaming(torch, np, transformer, decode, dataclasses)
     log(f"phase 25: windows and sinks ok in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    masked_rows, masked_checks, masked_launches = phase_masked_kernels(
+        torch, np, F, fp32_bwd, kernel_ab, attention, common, fa2, bwd)
+    torch.cuda.empty_cache()
+    window_train = phase_window_train(torch, np, transformer, training, dataclasses)
+    window_parity = {
+        name: phase_train_parity(torch, np, transformer, training, label=name,
+                                 tokens_shape=(2, 257), **kw)
+        for name, kw in (("hybrid w64", dict(attn_window=64, global_every=2)),
+                         ("streaming w96 s4", dict(attn_window=96, attn_sinks=4)))}
+    log(f"phase 26: windowed and packed training ok in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # Representative shapes for the kernel line: the serving phase's largest
     # prefill (B4 S1536 bf16) and the int8 cache with bf16 compute.
@@ -2942,6 +3381,47 @@ def main() -> int:
     for k in kernels:
         if k["name"] in window_of:
             k["window"] = window_of[k["name"]]
+    # Phase 26: the backward kernels' windowed rows (B2 at streaming's call,
+    # B3 and B4 at the hybrid's local-layer call) and segmented rows (4
+    # documents at the train shape), B8's segmented row; launches with a
+    # window on the windowed training runs (c), with segment ids on the
+    # packed path's API calls (b).
+    def masked_row(kernel, case):
+        r = next(r for r in masked_rows if (r["kernel"], r["case"]) == (kernel, case))
+        return {k: r[k] for k in ("case", "kind", "window", "sinks", "ms", "plain_ms",
+                                  "bound_ms", "bound_by", "library_ms", "max_abs_err")
+                if k in r} | {k: r[k] for k in ("global_ms", "control_rel_err",
+                                                "control_max_abs_err") if k in r}
+    train_window = {n: sum(run["launches"].get(f"{n}_window", 0)
+                           for run in window_train.values())
+                    for n in ("fa2_forward",) + BWD_NAMES}
+    for k in kernels:
+        n = k["name"]
+        if n in BWD_NAMES:
+            k["window"] = dict(masked_row(n, "train w512 s4" if n == BWD_NAMES[0]
+                                          else "train w128"),
+                               launches=train_window[n])
+            k["segments"] = dict(masked_row(n, "train 4 documents"),
+                                 launches=masked_launches[f"{n}_segments"])
+        if n == "fa2_forward_small":
+            k["segments"] = dict(masked_row(n, "Edge-NonPowerOf2 2 documents"),
+                                 launches=masked_launches[f"{n}_segments"])
+        if n == "fa2_forward":  # B1's row of phase 26's segmented train shape
+            r = next(r for r in masked_rows if r["case"] == "train 4 documents")
+            k["segments"] = dict(
+                case=r["case"], kind=r["kind"], ms=r["fwd_ms"],
+                global_ms=r["fwd_global_ms"], plain_ms=r["fwd_plain_ms"],
+                bound_ms=r["fwd_bound_ms"], bound_by=r["fwd_bound_by"],
+                library_ms=r["fwd_library_ms"], max_abs_err=r["fwd_max_abs_err"],
+                launches=masked_launches[f"{n}_segments"])
+        if n in ("fa2_forward", "fa2_forward_small") + BWD_NAMES:
+            k["launches_window"] = (train_window[n] if n in train_window
+                                    else b8_window_launches)
+            k["launches_segments"] = masked_launches[f"{n}_segments"]
+    if not all(k["launches_segments"] and k["launches_window"] for k in kernels
+               if "launches_segments" in k):
+        raise AssertionError("phase 26: a windowed or segmented kernel never ran "
+                             "on its path")
     if not all(w["launches"] for w in window_of.values()):
         raise AssertionError(f"phase 25: a windowed kernel never ran on its path: "
                              f"{ {n: w['launches'] for n, w in window_of.items()} }")
@@ -2952,6 +3432,10 @@ def main() -> int:
                     "autograd": autograd, "remat": remat,
                     "spec_parity": spec_parity, "qlora": qlora,
                     "window_streaming_equal": streaming,
+                    "window_train_parity": window_parity,
+                    "window_train": {n: {k: r[k] for k in (
+                        "losses", "step_ms_median", "tokens_per_s",
+                        "max_memory_allocated_gib")} for n, r in window_train.items()},
                     "bench": {k: bench[k] for k in ("greedy_bitwise_equal",)},
                     "paged_quant_rows": len(paged_quant)}))
     log(card_line())

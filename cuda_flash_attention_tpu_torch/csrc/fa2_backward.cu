@@ -7,9 +7,30 @@
 //   B3 fa2_backward_dq_aligned     (dQ on a Q-major grid)
 //   B4 fa2_backward_dkv_aligned    (dK, dV on a KV-major grid)
 // They compute what _compute_p_ds and the three kernel bodies compute, with
-// causal masking, a ragged KV tail (kv_len) and GQA (query head h reads KV
-// head h / (Hq / Hkv)).  Windows, sinks and segment ids are not taken here;
-// the Python wrappers refuse them.
+// causal masking, a ragged KV tail (kv_len), GQA (query head h reads KV
+// head h / (Hq / Hkv)), a sliding window (row - col < window; without
+// causal masking a recency band whose offset may be <= 0), attention sinks
+// (col < sinks kept besides) and segment ids (a row keeps only the keys of
+// its own id; seg_stride in csrc/hopper.cuh).
+//
+// Windows: a Q-major block (B3) walks csrc/hopper.cuh KvWalk, the sink
+// tiles and then its first row's window to the diagonal, as B1 does; a
+// KV-major block (B2, B4) walks QWalk, the transpose: the Q tiles from the
+// diagonal to the last row whose window reaches the KV tile, every Q tile
+// for a tile holding a sink.  Each kernel's TMA producer and its consumers
+// step through one such sequence.  A tile that a row's window edge
+// crosses, and with segment ids every tile, is masked element by element;
+// a masked P is selected to exactly 0 before any product (a dead row's
+// lse is -inf or the mask value, where exp2 gives inf and inf * 0 is NaN),
+// so a row that keeps no key gets dQ = 0 and adds nothing to dK or dV.
+// B2's reduce adds, for each row, the slices of the KV tiles its own
+// window walks (a subset of the slices B2 wrote for it), in KV-tile
+// order.  Blocks are handed out longest walk first: B3's Q tiles from the
+// last and B2's and B4's KV tiles from the first, and the other way round
+// for a band (a row of the band keeps every later key).  Segment ids of the streamed side come with its
+// stage (by TMA beside the row statistics or the K tile) in the wgmma
+// bodies and through the read-only cache in the fp32 bodies; each thread
+// holds its own rows' ids.
 //
 // The algebra (fa2_backward.py:59-112), per (query row i, key j):
 //   Q_s = round_tile(Q * sm_scale * log2(e))          (fp32 multiply first)
@@ -41,8 +62,9 @@
 //     Q_s and dO tiles (3-D maps, 128-byte swizzle, rows past Sq as zeros)
 //     and their lse and D_i rows (1-D bulk copies) into a ring of stages
 //     with full and empty mbarriers.  The walk covers the GQA group's query
-//     heads and, under causal, only the Q tiles at or below the diagonal; a
-//     KV tile wholly past kv_len walks nothing.  Warpgroups 1 and 2
+//     heads and the Q tiles of QWalk (under causal from the diagonal, under
+//     a window to the last row it reaches); a KV tile wholly past kv_len
+//     walks nothing.  Warpgroups 1 and 2
 //     (`setmaxnreg.inc`) each own 64 KV rows: S^T = K Q_s^T and dP^T = V
 //     dO^T from shared memory; P^T and dS^T in registers (the accumulators,
 //     rounded to the tile type, are the register A fragments); dV += P^T dO
@@ -59,15 +81,18 @@
 //     columns at D = 128);
 //   * B2's reduce adds each Q row's live slices in KV-tile order,
 //     multiplies by sm_scale and writes q's type.  Only the slices of the
-//     Q tiles a KV tile reaches are written, and only those are read: a
-//     skipped slice holds zeros or nothing, so the ordered sum is exact and
-//     bitwise the same from run to run, with no atomicAdd;
+//     Q tiles a KV tile reaches are written, and only those of the KV tiles
+//     the row's own window walks are read (a subset): a skipped slice
+//     holds zeros or nothing, so the ordered sum is exact and bitwise the
+//     same from run to run, with no atomicAdd;
 //   * B3, `bwd_dq_wgmma`: one block per (128-row Q tile, b*Hq), 384
 //     threads, the Q tiles handed out longest causal row first.  The
 //     producer loads the block's Q_s and dO tiles and their lse and D_i
 //     rows once, then streams 128-row (D = 64) or 64-row (D = 128) K and V
-//     tiles through rings of their own; the walk stops at the causal
-//     diagonal and at kv_len.  Each consumer owns 64 Q rows: S = Q_s K^T and
+//     tiles through rings of their own; the walk (KvWalk) stops at the
+//     causal diagonal and at kv_len and, under a window, starts at the
+//     first row's oldest key after the sink tiles.  Each consumer owns 64
+//     Q rows: S = Q_s K^T and
 //     dP = dO V^T (both K-major, from shared memory), P and dS = P (dP -
 //     D_i) in fp32, dS rounded to the tile type as the register A fragment
 //     of dQ += dS K, whose B is the K tile read through the transpose bit.
@@ -364,9 +389,9 @@ struct KvFp32 {
 // B4's fp32 body, and with FUSED B2's: one block per (64-row KV tile, b *
 // Hkv).  K and V arrive once; the walk's Q_s and dO tiles with their lse2
 // and D_i rows stream through the stage ring.  The walk covers the GQA
-// group's query heads (gi outer) and, under causal, only the Q tiles at or
-// below the diagonal; a KV tile wholly past kv_len walks nothing and stores
-// zeros.  Thread (ty, tx) holds S^T and dP^T rows (KV rows) ty + 8 r and
+// group's query heads (gi outer) and the Q tiles of QWalk (under causal
+// from the diagonal, under a window to the last row it reaches); a KV tile
+// wholly past kv_len walks nothing and stores zeros.  Thread (ty, tx) holds S^T and dP^T rows (KV rows) ty + 8 r and
 // columns (Q rows) tx + 16 j, and dK and dV rows ty + 8 r, columns 64 h + 4
 // tx .. + 3, in registers for the whole walk.  Each step: S^T = K Q_s^T
 // and dP^T = V dO^T (summed over d in order), P^T and dS^T = P^T (dP^T -
@@ -380,12 +405,15 @@ bwd_kv_fp32(const float* __restrict__ qs_plane, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ dout,
             const float* __restrict__ lse2, const float* __restrict__ di,
             float* __restrict__ dk, float* __restrict__ dv,
-            float* __restrict__ dq_part, int hq, int hkv, int sq, int sq_pad,
-            int skv, int kv_len, int causal) {
+            float* __restrict__ dq_part, const int* __restrict__ q_seg,
+            const int* __restrict__ kv_seg, int hq, int hkv, int sq,
+            int sq_pad, int skv, int kv_len, int causal, int window,
+            int sinks) {
   using L = KvFp32<D, FUSED>;
   extern __shared__ __align__(16) float smem[];
   const FmaThread th = fma_thread();
-  const int kt = blockIdx.x;
+  const bool band = !causal && window < kNoWindow;
+  const int kt = band ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
   const int k0 = kt * kFmaTile;
   const int bh = blockIdx.y;
   const int b = bh / hkv;
@@ -401,9 +429,12 @@ bwd_kv_fp32(const float* __restrict__ qs_plane, const float* __restrict__ k,
   const uint32_t q_bar = kv_bar + 8;  // stage s's at q_bar + 8 s
 
   const int n_q = (sq + kFmaTile - 1) / kFmaTile;
-  const int q_first = causal ? min(kt, n_q) : 0;
-  const int per_head = k0 < kv_len ? n_q - q_first : 0;
+  const QWalk walk(k0, kFmaTile, n_q, kFmaTile, causal, window, sinks, kv_len);
+  const int per_head = walk.n;
   const int n_steps = groups * per_head;
+  const bool seg = q_seg != nullptr;
+  const int* q_ids = seg ? q_seg + static_cast<size_t>(b) * seg_stride(sq) : nullptr;
+  const int* kv_ids = seg ? kv_seg + static_cast<size_t>(b) * seg_stride(skv) : nullptr;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < 1 + L::kStages; ++s) mbar_init(kv_bar + 8 * s, kFmaThreads);
@@ -414,7 +445,7 @@ bwd_kv_fp32(const float* __restrict__ qs_plane, const float* __restrict__ k,
   auto head_of = [&](int n) {
     return static_cast<size_t>(b) * hq + hk * groups + n / per_head;
   };
-  auto tile_of = [&](int n) { return q_first + n % per_head; };
+  auto tile_of = [&](int n) { return walk.at(n % per_head); };
   auto stage = [&](int n) { return smem + L::kQ + (n % L::kStages) * L::kStage; };
   auto load = [&](int n) {
     const size_t bhq = head_of(n);
@@ -453,16 +484,25 @@ bwd_kv_fp32(const float* __restrict__ qs_plane, const float* __restrict__ k,
     float s[8][4], dp[8][4];
     fma_scores<D>(ks, qs, th, s);
     if (kHold) fma_scores<D>(vs, dos, th, dp);
+    // Masked element by element: the kv_len tail, the diagonal, a tile
+    // some row's window edge crosses, every tile with segment ids.
+    // (One body for both: a second, unmasked one spilled at D = 128.)
     const bool need_mask =
-        (k0 + kFmaTile > kv_len) || (causal && k0 + kFmaTile - 1 > q0);
+        seg || (k0 + kFmaTile > kv_len) || (causal && k0 + kFmaTile - 1 > q0) ||
+        (q0 + kFmaTile - 1 - k0 >= window && k0 + kFmaTile > sinks);
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
       const int row = k0 + th.ty + 8 * r;
+      const int kid = seg ? __ldg(kv_ids + row) : 0;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = th.tx + 16 * j;
         float p = exp2f(s[r][j] - lse2_s[c]);
-        if (need_mask && (row >= kv_len || (causal && row > q0 + c))) p = 0.f;
+        if (need_mask && (row >= kv_len || (causal && row > q0 + c) ||
+                          !in_window(q0 + c, row, window, sinks) ||
+                          (seg && __ldg(q_ids + q0 + c) != kid))) {
+          p = 0.f;
+        }
         s[r][j] = p;
         fma_store_p(pt, th, r, j, p);
       }
@@ -533,10 +573,11 @@ struct DqFp32 {
 };
 
 // B3's fp32 body: one block per (64-row Q tile, b * Hq), the tiles handed
-// out from the last, so the longest causal rows start first.  Q_s, dO and
-// the tile's lse2 and D_i rows arrive once; K and V tiles stream through
-// their rings (V swizzled: it is read as S's K is), to the causal diagonal
-// and kv_len.  Thread (ty, tx) holds S and dP rows ty + 8 r, columns tx +
+// out from the last, so the longest causal rows start first (from the
+// first for a band).  Q_s, dO and the tile's lse2 and D_i rows arrive once;
+// K and V tiles of KvWalk stream through their rings (V swizzled: it is
+// read as S's K is), to the causal diagonal and kv_len, from the window's
+// oldest key after the sink tiles.  Thread (ty, tx) holds S and dP rows ty + 8 r, columns tx +
 // 16 j, and dQ rows ty + 8 r, columns 64 h + 4 tx .. + 3, in registers for
 // the whole walk.  Each tile: S = Q_s K^T and dP = dO V^T (over d in
 // order), dS = P (dP - D_i) written over the V stage that dP has read, then
@@ -547,13 +588,16 @@ __global__ void __launch_bounds__(kFmaThreads, DqFp32<D>::kBlocksPerSm)
 bwd_dq_fp32(const float* __restrict__ qs_plane, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ dout,
             const float* __restrict__ lse2, const float* __restrict__ di,
-            float* __restrict__ dq, int hq, int hkv, int sq, int sq_pad,
-            int skv, int kv_len, float sm_scale, int causal) {
+            float* __restrict__ dq, const int* __restrict__ q_seg,
+            const int* __restrict__ kv_seg, int hq, int hkv, int sq,
+            int sq_pad, int skv, int kv_len, float sm_scale, int causal,
+            int window, int sinks) {
   using L = DqFp32<D>;
   extern __shared__ __align__(16) float smem[];
   const FmaStages<L> st(smem);
   const FmaThread th = fma_thread();
-  const int qt = gridDim.x - 1 - blockIdx.x;
+  const bool band = !causal && window < kNoWindow;
+  const int qt = band ? blockIdx.x : gridDim.x - 1 - blockIdx.x;
   const int q0 = qt * kFmaTile;
   const size_t bh = blockIdx.y;
   const int b = blockIdx.y / hq;
@@ -561,7 +605,11 @@ bwd_dq_fp32(const float* __restrict__ qs_plane, const float* __restrict__ k,
   const float* kp = k + (static_cast<size_t>(b) * hkv + hk) * skv * D;
   const float* vp = v + (static_cast<size_t>(b) * hkv + hk) * skv * D;
   const int kv_end = causal ? min(kv_len, q0 + kFmaTile) : kv_len;
-  const int n_kv = (max(kv_end, 0) + kFmaTile - 1) / kFmaTile;
+  const KvWalk walk(q0 - window + 1, kv_end, sinks, kFmaTile);
+  const int n_kv = walk.n;
+  const bool seg = q_seg != nullptr;
+  const int* q_ids = seg ? q_seg + static_cast<size_t>(b) * seg_stride(sq) : nullptr;
+  const int* kv_ids = seg ? kv_seg + static_cast<size_t>(b) * seg_stride(skv) : nullptr;
   float* qs = smem + L::kQ;
   float* dos = smem + L::kDO;
   const float* stats = smem + L::kStats;
@@ -579,10 +627,10 @@ bwd_dq_fp32(const float* __restrict__ qs_plane, const float* __restrict__ k,
     cp_async_arrive(q_bar);
   }
   for (int t = 0; t < L::kKStages && t < n_kv; ++t) {
-    fma_load_tile<D, true>(st.k(t), st.k_bar(t), kp, t, skv);
+    fma_load_tile<D, true>(st.k(t), st.k_bar(t), kp, walk.at(t), skv);
   }
   for (int t = 0; t < L::kVStages && t < n_kv; ++t) {
-    fma_load_tile<D, true>(st.v(t), st.v_bar(t), vp, t, skv);
+    fma_load_tile<D, true>(st.v(t), st.v_bar(t), vp, walk.at(t), skv);
   }
 
   float lse2_r[8], di_r[8], acc[8][D / 16];
@@ -600,24 +648,41 @@ bwd_dq_fp32(const float* __restrict__ qs_plane, const float* __restrict__ k,
     }
   }
   for (int t = 0; t < n_kv; ++t) {
-    const int k0 = t * kFmaTile;
+    const int k0 = walk.at(t) * kFmaTile;
     st.wait_k(t);
     float s[8][4], dp[8][4];
     fma_scores<D>(qs, st.k(t), th, s);
     st.wait_v(t);
     fma_scores<D>(dos, st.v(t), th, dp);
+    // Masked element by element: the kv_len tail, the diagonal, a tile
+    // some row's window edge crosses, every tile with segment ids.
+    // (An unmasked tile takes a body without the mask's code.)
     const bool need_mask =
-        (k0 + kFmaTile > kv_len) || (causal && k0 + kFmaTile - 1 > q0);
+        seg || (k0 + kFmaTile > kv_len) || (causal && k0 + kFmaTile - 1 > q0) ||
+        (q0 + kFmaTile - 1 - k0 >= window && k0 + kFmaTile > sinks);
+    auto ds_tile = [&](auto masked) {
+      constexpr bool kMask = decltype(masked)::value;
 #pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const int row = q0 + th.ty + 8 * r;
+      for (int r = 0; r < 8; ++r) {
+        const int row = q0 + th.ty + 8 * r;
+        const int qid = kMask && seg ? __ldg(q_ids + row) : 0;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + th.tx + 16 * j;
-        float p = exp2f(s[r][j] - lse2_r[r]);
-        if (need_mask && (col >= kv_len || (causal && col > row))) p = 0.f;
-        s[r][j] = p * (dp[r][j] - di_r[r]);
+        for (int j = 0; j < 4; ++j) {
+          const int col = k0 + th.tx + 16 * j;
+          float p = exp2f(s[r][j] - lse2_r[r]);
+          if (kMask && (col >= kv_len || (causal && col > row) ||
+                        !in_window(row, col, window, sinks) ||
+                        (seg && __ldg(kv_ids + col) != qid))) {
+            p = 0.f;
+          }
+          s[r][j] = p * (dp[r][j] - di_r[r]);
+        }
       }
+    };
+    if (need_mask) {
+      ds_tile(std::true_type{});
+    } else {
+      ds_tile(std::false_type{});
     }
     float* dss = st.v(t);
     __syncthreads();  // V(t) is read: dS takes its stage
@@ -631,11 +696,11 @@ bwd_dq_fp32(const float* __restrict__ qs_plane, const float* __restrict__ k,
     __syncthreads();  // K(t) and dS are read: refill
     if (t + L::kKStages < n_kv) {
       fma_load_tile<D, true>(st.k(t + L::kKStages), st.k_bar(t + L::kKStages), kp,
-                             t + L::kKStages, skv);
+                             walk.at(t + L::kKStages), skv);
     }
     if (t + L::kVStages < n_kv) {
       fma_load_tile<D, true>(st.v(t + L::kVStages), st.v_bar(t + L::kVStages), vp,
-                             t + L::kVStages, skv);
+                             walk.at(t + L::kVStages), skv);
     }
   }
 
@@ -651,8 +716,9 @@ bwd_dq_fp32(const float* __restrict__ qs_plane, const float* __restrict__ k,
 // ---------------------------------------------------------------------------
 // Shared memory of the KV-major kernel, from a 1024-byte-aligned base: the
 // block's K and V tiles, kStages stages of Q_s and of dO, with DQ two dS^T
-// buffers, kStages stages of the row statistics ([lse2 | D_i][BQ] fp32),
-// then the mbarriers.  Without DQ (B4) a third stage in place of the dS^T
+// buffers, kStages stages of the row statistics ([lse2 | D_i | segment
+// ids][BQ], fp32 and int32; the ids only with segments), then the
+// mbarriers.  Without DQ (B4) a third stage in place of the dS^T
 // buffers ran as fast as two, and 8% slower at a ragged S 1000 (timed by
 // scripts/kernel_ab.py --kernel b4; PERF.md).  K, V, Q_s and dO arrive by TMA as boxes of R rows x
 // 64 columns (128 bytes), 128-byte-swizzled (16-byte chunk c of row r at c
@@ -669,7 +735,7 @@ struct BwdLayout {
   static constexpr int kQBytes = kQBox * kBoxes;
   static constexpr int kDsAtom = kKvRows * 128;
   static constexpr int kDsBytes = DQ ? kDsAtom * (BQ / 64) : 0;
-  static constexpr int kStatBytes = 2 * BQ * 4;
+  static constexpr int kStatBytes = 3 * BQ * 4;
   static constexpr int kK = 0;
   static constexpr int kV = kK + kKVBytes;
   static constexpr int kQ = kV + kKVBytes;
@@ -703,8 +769,10 @@ bwd_fused_wgmma(const __grid_constant__ CUtensorMap k_map,
                 const __grid_constant__ CUtensorMap do_map,
                 const float* __restrict__ lse2, const float* __restrict__ di,
                 Tin* __restrict__ dk, Tin* __restrict__ dv,
-                float* __restrict__ dq_part, int hq, int hkv, int sq,
-                int sq_pad, int skv, int kv_len, int causal) {
+                float* __restrict__ dq_part, const int* __restrict__ q_seg,
+                const int* __restrict__ kv_seg, int hq, int hkv, int sq,
+                int sq_pad, int skv, int kv_len, int causal, int window,
+                int sinks) {
   using L = BwdLayout<D, DQ>;
   constexpr int BQ = L::BQ;
   constexpr int kStages = L::kStages;
@@ -716,18 +784,23 @@ bwd_fused_wgmma(const __grid_constant__ CUtensorMap k_map,
   const uint32_t full_q = full_kv + 8;             // stage s at + 8 s
   const uint32_t empty_q = full_q + 8 * kStages;
 
-  const int kt = blockIdx.x;
+  // Longest walks first: the first KV tiles under causal masking, the
+  // last ones for a band.
+  const int kt = !causal && window < kNoWindow ? gridDim.x - 1 - blockIdx.x
+                                              : blockIdx.x;
   const int k0 = kt * kKvRows;
   const int bh = blockIdx.y;  // b * hkv + kv head
   const int b = bh / hkv;
   const int hk = bh - b * hkv;
   const int groups = hq / hkv;
   const int n_q = (sq + BQ - 1) / BQ;
-  // Under causal the walk starts at the diagonal; a KV tile wholly past
-  // kv_len walks nothing (its dK and dV are zeros, its dQ slice is dead).
-  const int q_first = causal ? min(k0 / BQ, n_q) : 0;
-  const int per_head = k0 < kv_len ? n_q - q_first : 0;
+  // Under causal the walk starts at the diagonal and under a window ends at
+  // the last row it reaches; a KV tile wholly past kv_len walks nothing
+  // (its dK and dV are zeros, its dQ slice is dead).
+  const QWalk walk(k0, kKvRows, n_q, BQ, causal, window, sinks, kv_len);
+  const int per_head = walk.n;
   const int n_steps = groups * per_head;
+  const bool seg = q_seg != nullptr;
 
   if (threadIdx.x == 0) {
     mbar_init(full_kv, 1);
@@ -754,12 +827,12 @@ bwd_fused_wgmma(const __grid_constant__ CUtensorMap k_map,
       }
       for (int j = 0; j < n_steps; ++j) {
         const int gi = j / per_head;
-        const int q0 = (q_first + j - gi * per_head) * BQ;
+        const int q0 = walk.at(j - gi * per_head) * BQ;
         const int bhq = b * hq + hk * groups + gi;
         const int st = j % kStages;
         // The first pass over the ring finds every stage empty.
         mbar_wait(empty_q + 8 * st, ((j / kStages) & 1) ^ 1);
-        mbar_expect_tx(full_q + 8 * st, 2 * L::kQBytes + L::kStatBytes);
+        mbar_expect_tx(full_q + 8 * st, 2 * L::kQBytes + (seg ? 3 : 2) * BQ * 4);
 #pragma unroll
         for (int box = 0; box < L::kBoxes; ++box) {
           tma_load_3d(base + L::kQ + st * L::kQBytes + box * L::kQBox, &q_map,
@@ -771,6 +844,11 @@ bwd_fused_wgmma(const __grid_constant__ CUtensorMap k_map,
         const uint32_t stats = base + L::kStats + st * L::kStatBytes;
         tma_load_1d(stats, lse2 + row, BQ * 4, full_q + 8 * st);
         tma_load_1d(stats + BQ * 4, di + row, BQ * 4, full_q + 8 * st);
+        if (seg) {
+          tma_load_1d(stats + 2 * BQ * 4,
+                      q_seg + static_cast<size_t>(b) * seg_stride(sq) + q0,
+                      BQ * 4, full_q + 8 * st);
+        }
       }
     }
     return;
@@ -787,6 +865,13 @@ bwd_fused_wgmma(const __grid_constant__ CUtensorMap k_map,
   const int r_b = r_a + 8;
   const int kv_a = k0 + r_a;
   const int kv_b = k0 + r_b;
+  // This thread's KV rows' segment ids.
+  int kid[2] = {0, 0};
+  if (seg) {
+    const int* ids = kv_seg + static_cast<size_t>(b) * seg_stride(skv);
+    kid[0] = ids[kv_a];
+    kid[1] = ids[kv_b];
+  }
   // The consumer's share of each dQ tile (DQ): Q rows [qm, qm + 64) and
   // columns [dn, dn + 64), over all 128 KV rows of the tile.
   const int qm = BQ == 128 ? 64 * c : 0;
@@ -801,7 +886,7 @@ bwd_fused_wgmma(const __grid_constant__ CUtensorMap k_map,
 
   for (int j = 0; j < n_steps; ++j) {
     const int gi = j / per_head;
-    const int q0 = (q_first + j - gi * per_head) * BQ;
+    const int q0 = walk.at(j - gi * per_head) * BQ;
     const int bhq = b * hq + hk * groups + gi;
     const int st = j % kStages;
     const uint32_t qs = base + L::kQ + st * L::kQBytes;
@@ -809,6 +894,7 @@ bwd_fused_wgmma(const __grid_constant__ CUtensorMap k_map,
     const float* lse2_s =
         reinterpret_cast<const float*>(smem + L::kStats + st * L::kStatBytes);
     const float* di_s = lse2_s + BQ;
+    const int* qid_s = reinterpret_cast<const int*>(di_s + BQ);
     mbar_wait(full_q + 8 * st, (j / kStages) & 1);
 
     // S^T = K Q_s^T and dP^T = V dO^T: D / 16 k-steps of 32 bytes, four to
@@ -837,23 +923,43 @@ bwd_fused_wgmma(const __grid_constant__ CUtensorMap k_map,
     // P^T = exp2(S^T - lse2), exactly 0 where masked; dS^T = P^T (dP^T -
     // D_i), both in fp32, then rounded to the tile type: the accumulators
     // of column groups 2 kk and 2 kk + 1 are exactly the register A
-    // fragment of k-step kk.
+    // fragment of k-step kk.  Masked element by element: the kv_len tail,
+    // the diagonal, a tile some row's window edge crosses, every tile with
+    // segment ids.
+    // (An unmasked tile takes a body without the mask's code, a tile
+    // without segment ids one without theirs.)
     const bool need_mask =
-        (k0 + kKvRows > kv_len) || (causal && k0 + kKvRows - 1 > q0);
+        (k0 + kKvRows > kv_len) || (causal && k0 + kKvRows - 1 > q0) ||
+        (q0 + BQ - 1 - k0 >= window && k0 + kKvRows > sinks);
+    auto p_ds = [&](auto masked, auto segmented) {
+      constexpr bool kMask = decltype(masked)::value;
+      constexpr bool kSeg = decltype(segmented)::value;
 #pragma unroll
-    for (int jj = 0; jj < BQ / 8; ++jj) {
+      for (int jj = 0; jj < BQ / 8; ++jj) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = jj * 8 + t4 * 2 + (e & 1);
-        const int row = e < 2 ? kv_a : kv_b;
-        // B2 keeps exp2f; B4 takes exp2_ftz, as B1 and B3 (12% faster at
-        // the train shape, PERF.md).
-        const float x = st_acc[4 * jj + e] - lse2_s[col];
-        float p = DQ ? exp2f(x) : exp2_ftz(x);
-        if (need_mask && (row >= kv_len || (causal && row > q0 + col))) p = 0.f;
-        st_acc[4 * jj + e] = p;
-        dpt[4 * jj + e] = p * (dpt[4 * jj + e] - di_s[col]);
+        for (int e = 0; e < 4; ++e) {
+          const int col = jj * 8 + t4 * 2 + (e & 1);
+          const int row = e < 2 ? kv_a : kv_b;
+          // B2 keeps exp2f; B4 takes exp2_ftz, as B1 and B3 (12% faster at
+          // the train shape, PERF.md).
+          const float x = st_acc[4 * jj + e] - lse2_s[col];
+          float p = DQ ? exp2f(x) : exp2_ftz(x);
+          if (kMask && (row >= kv_len || (causal && row > q0 + col) ||
+                        !in_window(q0 + col, row, window, sinks) ||
+                        (kSeg && qid_s[col] != kid[e >> 1]))) {
+            p = 0.f;
+          }
+          st_acc[4 * jj + e] = p;
+          dpt[4 * jj + e] = p * (dpt[4 * jj + e] - di_s[col]);
+        }
       }
+    };
+    if (seg) {
+      p_ds(std::true_type{}, std::true_type{});
+    } else if (need_mask) {
+      p_ds(std::true_type{}, std::false_type{});
+    } else {
+      p_ds(std::false_type{}, std::false_type{});
     }
     uint32_t pa[BQ / 16][4], sa[BQ / 16][4];
 #pragma unroll
@@ -967,24 +1073,29 @@ bwd_fused_wgmma(const __grid_constant__ CUtensorMap k_map,
 
 // dQ = sm_scale * (sum of the live slices of dq_part, in KV-tile order), in
 // q's type.  Slice t (KV rows [t tile, t tile + tile)) is live for row r
-// when t tile < kv_len and, under causal, t tile <= r; every other slice
-// holds zeros or nothing, so skipping it leaves the ordered sum exact.
+// when it holds a key the row keeps: row r walks KvWalk from its window's
+// oldest key (and the sink tiles) to kv_len or, under causal, to r.  B2
+// wrote each of these slices for row r (QWalk reaches r's Q tile from
+// every such KV tile); every other slice holds zeros or nothing, so
+// skipping it leaves the ordered sum exact.  A row that keeps no key
+// gets dQ = 0.
 template <typename Tout>
 __global__ void __launch_bounds__(256)
 dq_reduce(const float* __restrict__ dq_part, Tout* __restrict__ dq, int sq,
-          int d, int n_slices, int n_live, int tile, int causal,
-          float sm_scale) {
+          int d, int n_slices, int kv_len, int tile, int causal, int window,
+          int sinks, float sm_scale) {
   // blockIdx.y is b * Hq + h; x walks that head's sq * d / 4 float4s.
   const size_t head = static_cast<size_t>(blockIdx.y) * sq * d;
   const float* src = dq_part + head * n_slices;
   for (int i = blockIdx.x * 256 + threadIdx.x; i < sq * d / 4;
        i += gridDim.x * 256) {
     const int r = 4 * i / d;
-    const int last = causal ? min(n_live, r / tile + 1) : n_live;
+    const KvWalk walk(r - window + 1, causal ? min(kv_len, r + 1) : kv_len,
+                      sinks, tile);
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int t = 0; t < last; ++t) {
+    for (int n = 0; n < walk.n; ++n) {
       const float4 x = *reinterpret_cast<const float4*>(
-          src + static_cast<size_t>(t) * sq * d + 4 * i);
+          src + static_cast<size_t>(walk.at(n)) * sq * d + 4 * i);
       acc.x += x.x;
       acc.y += x.y;
       acc.z += x.z;
@@ -997,7 +1108,8 @@ dq_reduce(const float* __restrict__ dq_part, Tout* __restrict__ dq, int sq,
 
 // Shared memory of B3's kernel, from a 1024-byte-aligned base: the block's
 // Q_s and dO tiles (BQ rows), kStages K stages, kStages V stages (BN rows
-// each), the row statistics ([lse2 | D_i][BQ] fp32), then the mbarriers.
+// each), the row statistics ([lse2 | D_i][BQ] fp32), each K stage's
+// segment ids (BN int32, only with segments), then the mbarriers.
 // Every tile is D / 64 TMA boxes of R rows x 128 bytes, 128-byte-swizzled.
 template <int D>
 struct DqLayout {
@@ -1015,16 +1127,18 @@ struct DqLayout {
   static constexpr int kK = kDO + kQBytes;
   static constexpr int kV = kK + kStages * kKVBytes;
   static constexpr int kStats = kV + kStages * kKVBytes;
-  static constexpr int kBars = kStats + kStatBytes;
+  static constexpr int kSeg = kStats + kStatBytes;  // K stage s's ids
+  static constexpr int kBars = kSeg + kStages * BN * 4;
   // full Q, full and empty of each K and V stage, and alignment slack.
   static constexpr int kSmem = kBars + 8 * (1 + 4 * kStages) + 1024;
 };
 
 // B3: one block per (128-row Q tile, b * Hq), the tiles handed out from the
-// last, so the longest causal rows start first.  Warpgroup 0 is the
-// producer: one thread loads the block's Q_s and dO tiles and their lse2
-// and D_i rows once, then streams the K and V tiles of the walk (to the
-// causal diagonal and kv_len) into their rings.  Warpgroups 1 and 2
+// last, so the longest causal rows start first (from the first for a
+// band).  Warpgroup 0 is the producer: one thread loads the block's Q_s
+// and dO tiles and their lse2 and D_i rows once, then streams the K and V
+// tiles of the walk (KvWalk: the sink tiles, then from the window's oldest
+// key to the causal diagonal and kv_len) into their rings.  Warpgroups 1 and 2
 // (consumer c) own Q rows [64 c, 64 c + 64) of the tile; warp w of a
 // consumer holds rows 16 w + g and 16 w + g + 8 of every accumulator,
 // columns 8 j + 2 t4 and 8 j + 2 t4 + 1 of each 8-column group j.
@@ -1035,8 +1149,10 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
              const __grid_constant__ CUtensorMap k_map,
              const __grid_constant__ CUtensorMap v_map,
              const float* __restrict__ lse2, const float* __restrict__ di,
-             Tin* __restrict__ dq, int hq, int hkv, int sq, int sq_pad,
-             int kv_len, float sm_scale, int causal) {
+             Tin* __restrict__ dq, const int* __restrict__ q_seg,
+             const int* __restrict__ kv_seg, int hq, int hkv, int sq,
+             int sq_pad, int skv, int kv_len, float sm_scale, int causal,
+             int window, int sinks) {
   using L = DqLayout<D>;
   constexpr int BQ = L::BQ;
   constexpr int BN = L::BN;
@@ -1051,14 +1167,19 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
   const uint32_t empty_k = full_v + 8 * kStages;
   const uint32_t empty_v = empty_k + 8 * kStages;
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  // Longest walks first: the last Q tiles, or the first ones for a band.
+  const bool band = !causal && window < kNoWindow;
+  const int q0 = (band ? blockIdx.x : gridDim.x - 1 - blockIdx.x) * BQ;
   const int bh = blockIdx.y;  // b * hq + query head
   const int b = bh / hq;
   const int hk = (bh - b * hq) / (hq / hkv);
-  // Under causal the walk ends at the tile's last row before sq; a walk
-  // with no key (kv_len 0) loads nothing and stores zeros.
+  // Under causal the walk ends at the tile's last row before sq, under a
+  // window it starts at its first row's oldest key (after the sink tiles);
+  // a walk with no key loads nothing and stores zeros.
   const int kv_end = causal ? min(kv_len, min(sq, q0 + BQ)) : kv_len;
-  const int n_tiles = kv_end > 0 ? (kv_end + BN - 1) / BN : 0;
+  const KvWalk walk(q0 - window + 1, kv_end, sinks, BN);
+  const int n_tiles = walk.n;
+  const bool seg = q_seg != nullptr;
 
   if (threadIdx.x == 0) {
     mbar_init(full_q, 1);
@@ -1089,24 +1210,32 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
       tma_load_1d(base + L::kStats, lse2 + row, BQ * 4, full_q);
       tma_load_1d(base + L::kStats + BQ * 4, di + row, BQ * 4, full_q);
       const int kv_head = b * hkv + hk;
+      const int* kv_ids =
+          seg ? kv_seg + static_cast<size_t>(b) * seg_stride(skv) : nullptr;
       for (int t = 0; t < n_tiles; ++t) {
         const int st = t % kStages;
+        const int k0 = walk.at(t) * BN;
         // The first pass over a ring finds every stage empty.  V goes
         // first: its stage is freed before K's (after dP, not after dQ).
+        // K's stage carries the tile's segment ids.
         const uint32_t parity = ((t / kStages) & 1) ^ 1;
         mbar_wait(empty_v + 8 * st, parity);
         mbar_expect_tx(full_v + 8 * st, L::kKVBytes);
 #pragma unroll
         for (int box = 0; box < L::kBoxes; ++box) {
           tma_load_3d(base + L::kV + st * L::kKVBytes + box * L::kKVBox,
-                      &v_map, full_v + 8 * st, box * 64, t * BN, kv_head);
+                      &v_map, full_v + 8 * st, box * 64, k0, kv_head);
         }
         mbar_wait(empty_k + 8 * st, parity);
-        mbar_expect_tx(full_k + 8 * st, L::kKVBytes);
+        mbar_expect_tx(full_k + 8 * st, L::kKVBytes + (seg ? BN * 4 : 0));
 #pragma unroll
         for (int box = 0; box < L::kBoxes; ++box) {
           tma_load_3d(base + L::kK + st * L::kKVBytes + box * L::kKVBox,
-                      &k_map, full_k + 8 * st, box * 64, t * BN, kv_head);
+                      &k_map, full_k + 8 * st, box * 64, k0, kv_head);
+        }
+        if (seg) {
+          tma_load_1d(base + L::kSeg + st * BN * 4, kv_ids + k0, BN * 4,
+                      full_k + 8 * st);
         }
       }
     }
@@ -1126,6 +1255,13 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
   const int qc0 = q0 + 64 * c;
   const uint32_t qs = base + L::kQ + 64 * c * 128;  // this consumer's Q rows
   const uint32_t dos = base + L::kDO + 64 * c * 128;
+  // This thread's rows' segment ids.
+  int qid[2] = {0, 0};
+  if (seg) {
+    const int* ids = q_seg + static_cast<size_t>(b) * seg_stride(sq);
+    qid[0] = ids[row_a];
+    qid[1] = ids[row_b];
+  }
 
   float dq_acc[D / 2];
 #pragma unroll
@@ -1187,21 +1323,43 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
     wgmma_commit();
   };
   // P = exp2(S - lse2), exactly 0 where masked, and dS = P (dP - D_i) of
-  // tile t in fp32, in place of S.
+  // tile t in fp32, in place of S.  Masked element by element: the kv_len
+  // tail, the diagonal, a tile some row's window edge crosses, every tile
+  // with segment ids (K stage t's ids, held until dQ(t) has read the
+  // stage).
   auto grads = [&](int t) {
-    const int k0 = t * BN;
-    const bool need_mask =
-        (k0 + BN > kv_len) || (causal && k0 + BN - 1 > qc0);
+    const int k0 = walk.at(t) * BN;
+    const int* kid =
+        reinterpret_cast<const int*>(smem + L::kSeg + (t % kStages) * BN * 4);
+    auto tile = [&](auto masked, auto segmented) {
+      constexpr bool kMask = decltype(masked)::value;
+      constexpr bool kSeg = decltype(segmented)::value;
 #pragma unroll
-    for (int jj = 0; jj < BN / 8; ++jj) {
+      for (int jj = 0; jj < BN / 8; ++jj) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + jj * 8 + t4 * 2 + (e & 1);
-        const int row = e < 2 ? row_a : row_b;
-        float p = exp2_ftz(s[4 * jj + e] - lse2_r[e >> 1]);
-        if (need_mask && (col >= kv_len || (causal && col > row))) p = 0.f;
-        s[4 * jj + e] = p * (dp[4 * jj + e] - di_r[e >> 1]);
+        for (int e = 0; e < 4; ++e) {
+          const int cc = jj * 8 + t4 * 2 + (e & 1);
+          const int col = k0 + cc;
+          const int row = e < 2 ? row_a : row_b;
+          float p = exp2_ftz(s[4 * jj + e] - lse2_r[e >> 1]);
+          if (kMask && (col >= kv_len || (causal && col > row) ||
+                        !in_window(row, col, window, sinks) ||
+                        (kSeg && kid[cc] != qid[e >> 1]))) {
+            p = 0.f;
+          }
+          s[4 * jj + e] = p * (dp[4 * jj + e] - di_r[e >> 1]);
+        }
       }
+    };
+    // An unmasked tile takes a body without the mask's code, a tile
+    // without segment ids one without theirs.
+    if (seg) {
+      tile(std::true_type{}, std::true_type{});
+    } else if ((k0 + BN > kv_len) || (causal && k0 + BN - 1 > qc0) ||
+               (qc0 + 63 - k0 >= window && k0 + BN > sinks)) {
+      tile(std::true_type{}, std::false_type{});
+    } else {
+      tile(std::false_type{}, std::false_type{});
     }
   };
   // dS in the tile type: the accumulators of column groups 2 kk and 2 kk +
@@ -1300,7 +1458,9 @@ struct Args {
   void* dv;
   int batch, hq, hkv, sq, skv, kv_len;
   float qscale, sm_scale;
-  int causal;
+  int causal, window, sinks;
+  const int* q_seg;  // segment ids, both null for none
+  const int* kv_seg;
   cudaStream_t stream;
 };
 
@@ -1452,8 +1612,9 @@ int launch_kv_fp32(const Args& a, void* workspace) {
   const dim3 grid((a.skv + kFmaTile - 1) / kFmaTile, a.batch * a.hkv);
   bwd_kv_fp32<D, FUSED><<<grid, kFmaThreads, L::kSmem, a.stream>>>(
       f.qs, f.ks, f.vs, f.dos, f.lse2, f.di, static_cast<float*>(a.dk),
-      static_cast<float*>(a.dv), static_cast<float*>(a.dq), a.hq, a.hkv, a.sq,
-      f.sq_pad, a.skv, a.kv_len, a.causal);
+      static_cast<float*>(a.dv), static_cast<float*>(a.dq), a.q_seg, a.kv_seg,
+      a.hq, a.hkv, a.sq, f.sq_pad, a.skv, a.kv_len, a.causal, a.window,
+      a.sinks);
   return cudaGetLastError();
 }
 
@@ -1469,8 +1630,9 @@ int launch_dq_fp32(const Args& a, void* workspace) {
   if (cerr != cudaSuccess) return cerr;
   const dim3 grid((a.sq + kFmaTile - 1) / kFmaTile, a.batch * a.hq);
   bwd_dq_fp32<D><<<grid, kFmaThreads, L::kSmem, a.stream>>>(
-      f.qs, f.ks, f.vs, f.dos, f.lse2, f.di, static_cast<float*>(a.dq), a.hq,
-      a.hkv, a.sq, f.sq_pad, a.skv, a.kv_len, a.sm_scale, a.causal);
+      f.qs, f.ks, f.vs, f.dos, f.lse2, f.di, static_cast<float*>(a.dq),
+      a.q_seg, a.kv_seg, a.hq, a.hkv, a.sq, f.sq_pad, a.skv, a.kv_len,
+      a.sm_scale, a.causal, a.window, a.sinks);
   return cudaGetLastError();
 }
 
@@ -1489,8 +1651,8 @@ int launch_kv_wgmma(const Args& a, int tiles, void* workspace) {
   bwd_fused_wgmma<Tin, Tt, D, DQ><<<grid, kBwdThreads, L::kSmem, a.stream>>>(
       p.k_map, p.v_map, p.q_map, p.do_map, p.lse2, p.di,
       static_cast<Tin*>(a.dk), static_cast<Tin*>(a.dv),
-      static_cast<float*>(a.dq), a.hq, a.hkv, a.sq, p.sq_pad, a.skv, a.kv_len,
-      a.causal);
+      static_cast<float*>(a.dq), a.q_seg, a.kv_seg, a.hq, a.hkv, a.sq,
+      p.sq_pad, a.skv, a.kv_len, a.causal, a.window, a.sinks);
   return cudaGetLastError();
 }
 
@@ -1508,8 +1670,8 @@ int launch_dq_wgmma(const Args& a, int tiles, void* workspace) {
   const dim3 grid((a.sq + L::BQ - 1) / L::BQ, a.batch * a.hq);
   bwd_dq_wgmma<Tin, Tt, D><<<grid, kBwdThreads, L::kSmem, a.stream>>>(
       p.q_map, p.do_map, p.k_map, p.v_map, p.lse2, p.di,
-      static_cast<Tin*>(a.dq), a.hq, a.hkv, a.sq, p.sq_pad, a.kv_len,
-      a.sm_scale, a.causal);
+      static_cast<Tin*>(a.dq), a.q_seg, a.kv_seg, a.hq, a.hkv, a.sq, p.sq_pad,
+      a.skv, a.kv_len, a.sm_scale, a.causal, a.window, a.sinks);
   return cudaGetLastError();
 }
 
@@ -1568,6 +1730,10 @@ int cfa_fa2_backward_kv_tile(int tiles) {
   return tiles ? kKvRows : kFmaTile;
 }
 
+// 1: the entry points take the window, the sinks and segment ids (an
+// earlier source without this symbol takes neither).
+int cfa_fa2_backward_masks() { return 1; }
+
 // Bytes of the workspace of B2, B3 and B4 for these shapes and types (0
 // for a pair of them that no kernel takes).
 long long cfa_fa2_backward_workspace(int batch, int hq, int hkv, int sq,
@@ -1586,43 +1752,55 @@ long long cfa_fa2_backward_workspace(int batch, int hq, int hkv, int sq,
 // B2.  q, o, dout [batch, hq, sq, head_dim]; k, v, dk, dv [batch, hkv, skv,
 // head_dim]; lse [batch, hq, sq] fp32 (natural log); dq_part [batch, hq,
 // ceil(skv / kv_tile), sq, head_dim] fp32, of which the kernel writes the
-// live slices (cfa_fa2_backward_dq_reduce reads exactly those).  All
-// contiguous and 16-byte aligned.  qscale = sm_scale * log2(e).
-// workspace: cfa_fa2_backward_workspace bytes, 256-byte aligned.  Returns a cudaError_t, or an error of the tensor-map
-// step.
+// slices of its walks (cfa_fa2_backward_dq_reduce reads a subset of
+// them).  All contiguous and 16-byte aligned.  qscale = sm_scale *
+// log2(e).  window (kNoWindow: none; without causal a band, any value)
+// and sinks as cfa_fa2_forward's; q_seg [batch, seg_stride(sq)] and
+// kv_seg [batch, seg_stride(skv)] int32 segment ids, or both null.
+// workspace: cfa_fa2_backward_workspace bytes, 256-byte aligned.  Returns
+// a cudaError_t, or an error of the tensor-map step.
 int cfa_fa2_backward_fused(const void* q, const void* k, const void* v,
                            const void* o, const void* dout, const void* lse,
                            void* dk, void* dv, void* dq_part, int batch,
                            int hq, int hkv, int sq, int skv, int head_dim,
-                           int kv_len, float qscale, int causal, int in_bf16,
-                           int tiles, void* workspace, void* stream) {
+                           int kv_len, float qscale, int causal, int window,
+                           int sinks, const void* q_seg, const void* kv_seg,
+                           int in_bf16, int tiles, void* workspace,
+                           void* stream) {
+  if ((q_seg == nullptr) != (kv_seg == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const Args a{q, k, v, o, dout, static_cast<const float*>(lse), nullptr,
                dq_part, dk, dv, batch, hq, hkv, sq, skv, kv_len, qscale, 0.f,
-               causal, static_cast<cudaStream_t>(stream)};
+               causal, window, sinks, static_cast<const int*>(q_seg),
+               static_cast<const int*>(kv_seg),
+               static_cast<cudaStream_t>(stream)};
   return dispatch(BwdKernel::kFused, a, head_dim, in_bf16, tiles, workspace);
 }
 
 // B2's dQ from its slices: dq [batch, hq, sq, head_dim] (bf16 when
-// out_bf16, else fp32) = sm_scale * the ordered sum of the live slices of
-// dq_part (tile code `tiles`, as the fused launch).  Returns a cudaError_t.
+// out_bf16, else fp32) = sm_scale * the ordered sum of the slices of
+// dq_part that each row's walk reaches (tile code `tiles`, window and
+// sinks as the fused launch's).  Returns a cudaError_t.
 int cfa_fa2_backward_dq_reduce(const void* dq_part, void* dq, int batch, int hq,
                                int sq, int skv, int head_dim, int kv_len,
-                               int causal, float sm_scale, int out_bf16,
-                               int tiles, void* stream) {
+                               int causal, int window, int sinks,
+                               float sm_scale, int out_bf16, int tiles,
+                               void* stream) {
   const int tile = tiles ? kKvRows : kFmaTile;
   const int n_slices = (skv + tile - 1) / tile;
-  const int n_live = std::min(n_slices, (kv_len + tile - 1) / tile);
   const dim3 grid(std::min((sq * head_dim / 4 + 255) / 256, 64), batch * hq);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* src = static_cast<const float*>(dq_part);
+  const int kv = std::min(kv_len, skv);
   if (out_bf16) {
     dq_reduce<__nv_bfloat16><<<grid, 256, 0, st>>>(
-        src, static_cast<__nv_bfloat16*>(dq), sq, head_dim, n_slices, n_live,
-        tile, causal, sm_scale);
+        src, static_cast<__nv_bfloat16*>(dq), sq, head_dim, n_slices, kv, tile,
+        causal, window, sinks, sm_scale);
   } else {
     dq_reduce<float><<<grid, 256, 0, st>>>(
-        src, static_cast<float*>(dq), sq, head_dim, n_slices, n_live, tile,
-        causal, sm_scale);
+        src, static_cast<float*>(dq), sq, head_dim, n_slices, kv, tile, causal,
+        window, sinks, sm_scale);
   }
   return cudaGetLastError();
 }
@@ -1633,11 +1811,16 @@ int cfa_fa2_backward_dkv(const void* q, const void* k, const void* v,
                          const void* dout, const void* lse, const void* di,
                          void* dk, void* dv, int batch, int hq, int hkv,
                          int sq, int skv, int head_dim, int kv_len,
-                         float qscale, int causal, int in_bf16, int tiles,
-                         void* workspace, void* stream) {
+                         float qscale, int causal, int window, int sinks,
+                         const void* q_seg, const void* kv_seg, int in_bf16,
+                         int tiles, void* workspace, void* stream) {
+  if ((q_seg == nullptr) != (kv_seg == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const Args a{q, k, v, nullptr, dout, static_cast<const float*>(lse),
                static_cast<const float*>(di), nullptr, dk, dv, batch, hq, hkv,
-               sq, skv, kv_len, qscale, 0.f, causal,
+               sq, skv, kv_len, qscale, 0.f, causal, window, sinks,
+               static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg),
                static_cast<cudaStream_t>(stream)};
   return dispatch(BwdKernel::kDkv, a, head_dim, in_bf16, tiles, workspace);
 }
@@ -1647,11 +1830,16 @@ int cfa_fa2_backward_dq(const void* q, const void* k, const void* v,
                         const void* dout, const void* lse, const void* di,
                         void* dq, int batch, int hq, int hkv, int sq, int skv,
                         int head_dim, int kv_len, float qscale, float sm_scale,
-                        int causal, int in_bf16, int tiles, void* workspace,
-                        void* stream) {
+                        int causal, int window, int sinks, const void* q_seg,
+                        const void* kv_seg, int in_bf16, int tiles,
+                        void* workspace, void* stream) {
+  if ((q_seg == nullptr) != (kv_seg == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const Args a{q, k, v, nullptr, dout, static_cast<const float*>(lse),
                static_cast<const float*>(di), dq, nullptr, nullptr, batch, hq,
-               hkv, sq, skv, kv_len, qscale, sm_scale, causal,
+               hkv, sq, skv, kv_len, qscale, sm_scale, causal, window, sinks,
+               static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg),
                static_cast<cudaStream_t>(stream)};
   return dispatch(BwdKernel::kDq, a, head_dim, in_bf16, tiles, workspace);
 }

@@ -7,8 +7,9 @@
 // query row, with causal masking from the top-left corner, a ragged KV tail
 // (kv_len) and GQA (query head h reads KV head h / (Hq / Hkv)), a sliding
 // window (row - col < window; without causal masking a recency band whose
-// offset may be <= 0) and attention sinks (col < sinks kept besides).
-// Segment ids are not taken here; the Python wrapper refuses them.
+// offset may be <= 0), attention sinks (col < sinks kept besides) and
+// segment ids (sequence packing: a row keeps only the keys whose id is its
+// own; seg_stride in csrc/hopper.cuh).
 //
 // Windows (JAX fa2_forward.py :646-718, the compact span grid): a Q tile
 // walks only its live KV tiles, the sink tiles and then the tiles from its
@@ -18,8 +19,16 @@
 // walked once.  A tile is masked element by element where it crosses the
 // diagonal, the kv_len tail or a row's window edge, so under a window the
 // cost is O(S * window).  A row that keeps no key (a band with an offset
-// <= 0, or causal rows past kv_len + window) writes O = 0 and the lse
-// the JAX forward gives on its 128-row tiles (dead_row_lse).
+// <= 0, causal rows past kv_len + window, a segment with no key) writes
+// O = 0 and the lse the JAX forward gives on its own tiles for the call,
+// which the caller passes (DeadRows).
+//
+// Segment ids: every tile is masked element by element.  The wgmma body
+// takes each KV tile's ids by TMA into its K stage (held until the tile's
+// softmax has read them) and each consumer thread its two rows' ids once;
+// the fp32 body takes each KV tile's ids by cp.async with its K stage and
+// the Q tile's once, into shared memory after the block's (FmaIds).
+// Without ids neither the walk nor the masking moves.
 //
 // What bounds it on the H100: tensor-core FLOPs, and at D = 64 the exp2s
 // as much.  Per query head, causal prefill does ~2*S^2*D FLOPs against
@@ -200,7 +209,8 @@ struct Layout {
   static constexpr int kKVBytes = kKVBox * (D / kBoxCols);
   static constexpr int kK = 2 * kQBytes;
   static constexpr int kV = kK + kStages * kKVBytes;
-  static constexpr int kBars = kV + kStages * kKVBytes;
+  static constexpr int kSeg = kV + kStages * kKVBytes;  // K stage s's ids
+  static constexpr int kBars = kSeg + kStages * kTileN * 4;
   // full and empty barriers of each K and V stage, and alignment slack.
   static constexpr int kSmem = kBars + 4 * 8 * kStages + 1024;
 };
@@ -277,40 +287,50 @@ __device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
 }
 
 // The lse of a row that keeps no key (its O is 0), as the JAX forward gives
-// it on its 128-row tiles (kernels/common.py dead_row_lse): -inf where the
-// row's 128-row Q tile walks no 128-key tile of a KV longer than one tile,
-// else the mask value times ln 2.
-__device__ __forceinline__ float dead_row_lse(int row, int kv_len, int causal,
-                                              int window, int sinks) {
-  const int q0 = row & ~127;
-  const int end = causal ? min(kv_len, q0 + 128) : kv_len;
-  return kv_len > 128 && KvWalk(q0 - window + 1, end, sinks, 128).n == 0
-             ? -INFINITY
-             : kMaskValue * kLn2;
-}
+// it on its own tiles for the call, dead_bq x dead_bk rows
+// (kernels/common.py dead_row_lse): -inf where the row's Q tile walks no
+// KV tile of a padded KV (skv) longer than one tile, else the mask value
+// times ln 2.
+struct DeadRows {
+  int skv, causal, window, sinks, bq, bk;
+  __device__ __forceinline__ float lse(int row) const {
+    const int q0 = row / bq * bq;
+    const int end = causal ? min(skv, q0 + bq) : skv;
+    return skv / bk > 1 && KvWalk(q0 - window + 1, end, sinks, bk).n == 0
+               ? -INFINITY
+               : kMaskValue * kLn2;
+  }
+};
 
 // The online softmax of one S tile in place (fp32, exp2 domain): with
 // kMask, scores of columns at or past kv_len, (causal) past the row or
 // outside its window and sinks take kMaskValue first.  Updates m and this
 // thread's share of l, sets alpha = exp2(m_old - m_new) and leaves P in s,
 // masked entries exactly 0.
-template <bool kMask>
+// With segment ids (kSeg; kid: the K stage's ids) a column of another id
+// than its row's (qid) is masked too.  Each combination is its own body,
+// so a tile without ids (or without any mask) runs none of their code.
+template <bool kMask, bool kSeg>
 __device__ __forceinline__ void online_softmax(float (&s)[kTileN / 2],
                                                float (&m_run)[2],
                                                float (&l_run)[2],
                                                float (&alpha)[2], int k0,
                                                int row_a, int kv_len,
                                                int causal, int window,
-                                               int sinks, int t4) {
+                                               int sinks, int t4,
+                                               const int* kid,
+                                               const int (&qid)[2]) {
   if (kMask) {
 #pragma unroll
     for (int j = 0; j < kTileN / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = k0 + j * 8 + t4 * 2 + (e & 1);
+        const int c = j * 8 + t4 * 2 + (e & 1);
+        const int col = k0 + c;
         const int row = e < 2 ? row_a : row_a + 8;
         if (col >= kv_len || (causal && col > row) ||
-            !in_window(row, col, window, sinks)) {
+            !in_window(row, col, window, sinks) ||
+            (kSeg && kid[c] != qid[e >> 1])) {
           s[4 * j + e] = kMaskValue;
         }
       }
@@ -366,8 +386,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 fa2_fwd_wgmma(const __grid_constant__ CUtensorMap k_map,
               const __grid_constant__ CUtensorMap v_map,
               const Tin* __restrict__ q, Tin* __restrict__ o,
-              float* __restrict__ lse, int hq, int hkv, int sq, int kv_len,
-              float qscale, int causal, int window, int sinks) {
+              float* __restrict__ lse, const int* __restrict__ q_seg,
+              const int* __restrict__ kv_seg, int hq, int hkv, int sq,
+              int kv_len, float qscale, int causal, int window, int sinks,
+              DeadRows dead) {
   using L = Layout<D>;
   constexpr int kStages = L::kStages;
   extern __shared__ unsigned char smem_raw[];
@@ -415,25 +437,33 @@ fa2_fwd_wgmma(const __grid_constant__ CUtensorMap k_map,
                        reinterpret_cast<uint64_t>(&v_map))
                    : "memory");
       const int kv_head = b * hkv + hk;
-      // Walk step t of K or V into its ring; the first pass over a ring
-      // finds every stage empty.
+      const int* kv_ids =
+          kv_seg == nullptr ? nullptr : kv_seg + static_cast<size_t>(b) * seg_stride(dead.skv);
+      // Walk step t of K or V into its ring (K with its tile's segment ids,
+      // `ids`); the first pass over a ring finds every stage empty.
       auto load = [&](const CUtensorMap* map, uint32_t ring, uint32_t full,
-                      uint32_t empty, int t) {
+                      uint32_t empty, int t, const int* ids) {
         const int st = t % kStages;
         mbar_wait(empty + 8 * st, ((t / kStages) & 1) ^ 1);
-        mbar_expect_tx(full + 8 * st, L::kKVBytes);
+        mbar_expect_tx(full + 8 * st, L::kKVBytes + (ids ? kTileN * 4 : 0));
 #pragma unroll
         for (int box = 0; box < D / kBoxCols; ++box) {
           tma_load_3d(ring + st * L::kKVBytes + box * L::kKVBox, map,
                       full + 8 * st, box * kBoxCols, walk.at(t) * kTileN,
                       kv_head);
         }
+        if (ids) {
+          tma_load_1d(base + L::kSeg + st * kTileN * 4, ids + walk.at(t) * kTileN,
+                      kTileN * 4, full + 8 * st);
+        }
       };
       // The consumers take K(t + 1) before V(t); so does the producer.
-      if (n_tiles > 0) load(&k_map, base + L::kK, full_k, empty_k, 0);
+      if (n_tiles > 0) load(&k_map, base + L::kK, full_k, empty_k, 0, kv_ids);
       for (int t = 0; t < n_tiles; ++t) {
-        if (t + 1 < n_tiles) load(&k_map, base + L::kK, full_k, empty_k, t + 1);
-        load(&v_map, base + L::kV, full_v, empty_v, t);
+        if (t + 1 < n_tiles) {
+          load(&k_map, base + L::kK, full_k, empty_k, t + 1, kv_ids);
+        }
+        load(&v_map, base + L::kV, full_v, empty_v, t, nullptr);
       }
     }
   } else {
@@ -458,6 +488,14 @@ fa2_fwd_wgmma(const __grid_constant__ CUtensorMap k_map,
     const uint32_t qs = base + c * L::kQBytes;
 
     const int row_a = qc0 + warp * 16 + g;
+    // This thread's rows' segment ids (rows past sq read padding).
+    const bool seg = q_seg != nullptr;
+    int qid[2] = {0, 0};
+    if (seg) {
+      const int* ids = q_seg + static_cast<size_t>(b) * seg_stride(sq);
+      qid[0] = ids[row_a];
+      qid[1] = ids[row_a + 8];
+    }
     float m_run[2] = {-INFINITY, -INFINITY};
     float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
     float alpha[2];
@@ -473,15 +511,21 @@ fa2_fwd_wgmma(const __grid_constant__ CUtensorMap k_map,
     };
     auto softmax = [&](int t) {
       const int k0 = walk.at(t) * kTileN;
-      // Masked element by element: the kv_len tail, the diagonal, and a
-      // tile some row's window edge crosses.
-      if ((k0 + kTileN > kv_len) || (causal && k0 + kTileN - 1 > qc0) ||
-          qc0 + kConsumerM - 1 - k0 >= window) {
-        online_softmax<true>(s, m_run, l_run, alpha, k0, row_a, kv_len,
-                             causal, window, sinks, t4);
+      const int* kid = seg ? reinterpret_cast<const int*>(
+                                 smem + L::kSeg + (t % kStages) * kTileN * 4)
+                           : nullptr;
+      // Masked element by element: the kv_len tail, the diagonal, a tile
+      // some row's window edge crosses, and every tile with segment ids.
+      if (seg) {
+        online_softmax<true, true>(s, m_run, l_run, alpha, k0, row_a, kv_len,
+                                   causal, window, sinks, t4, kid, qid);
+      } else if ((k0 + kTileN > kv_len) || (causal && k0 + kTileN - 1 > qc0) ||
+                 qc0 + kConsumerM - 1 - k0 >= window) {
+        online_softmax<true, false>(s, m_run, l_run, alpha, k0, row_a, kv_len,
+                                    causal, window, sinks, t4, kid, qid);
       } else {
-        online_softmax<false>(s, m_run, l_run, alpha, k0, row_a, kv_len,
-                              causal, window, sinks, t4);
+        online_softmax<false, false>(s, m_run, l_run, alpha, k0, row_a, kv_len,
+                                     causal, window, sinks, t4, kid, qid);
       }
     };
 
@@ -515,14 +559,17 @@ fa2_fwd_wgmma(const __grid_constant__ CUtensorMap k_map,
       for (int kk = 0; kk < kTileN / 16; ++kk) hold(pa[kk]);
       release(empty_v, t);
     };
+    // A K stage is free once S has read it; with segment ids once the
+    // softmax has read its ids too.
     if (n_tiles > 0) {
       take_turn();
       scores(0);
       pass_turn();
       wgmma_wait<0>();
       hold(s);
-      release(empty_k, 0);
+      if (!seg) release(empty_k, 0);
       softmax(0);
+      if (seg) release(empty_k, 0);
       pack_p<Tt>(pa, s);
     }
     for (int t = 0; t + 1 < n_tiles; ++t) {
@@ -534,8 +581,9 @@ fa2_fwd_wgmma(const __grid_constant__ CUtensorMap k_map,
       pass_turn();
       wgmma_wait<1>();
       hold(s);
-      release(empty_k, t + 1);
+      if (!seg) release(empty_k, t + 1);
       softmax(t + 1);
+      if (seg) release(empty_k, t + 1);
       finish_pv(t);
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
@@ -580,32 +628,45 @@ fa2_fwd_wgmma(const __grid_constant__ CUtensorMap k_map,
     if (t4 == 0) {
       float* lp = lse + static_cast<size_t>(bh) * sq;
       if (row_a < sq) {
-        lp[row_a] = l_run[0] == 0.f
-                        ? dead_row_lse(row_a, kv_len, causal, window, sinks)
-                        : m_run[0] * kLn2 + logf(l_run[0]);
+        lp[row_a] = l_run[0] == 0.f ? dead.lse(row_a)
+                                    : m_run[0] * kLn2 + logf(l_run[0]);
       }
       if (row_b < sq) {
-        lp[row_b] = l_run[1] == 0.f
-                        ? dead_row_lse(row_b, kv_len, causal, window, sinks)
-                        : m_run[1] * kLn2 + logf(l_run[1]);
+        lp[row_b] = l_run[1] == 0.f ? dead.lse(row_b)
+                                    : m_run[1] * kLn2 + logf(l_run[1]);
       }
     }
   }
 }
+
+// Segment ids of the fp32 body, in shared memory after the block's own
+// (FmaBlock<D>::kSmem, rounded up to 16 bytes): one row of kBlockN key ids
+// per K stage, then the Q tile's kBlockM ids.
+template <int D>
+struct FmaIds {
+  static constexpr int kOffset = (FmaBlock<D>::kSmem + 15) & ~15;
+  static constexpr int kSmem =
+      kOffset + 4 * (FmaBlock<D>::kKStages * kBlockN + kBlockM);
+};
 
 // ---------------------------------------------------------------------------
 // fp32 tiles on the FMA units (tile code 0): the block of csrc/fma_block.cuh
 // (thread layout, K and V rings, loads and the two products), with FA2's
 // function and edges around it.  One block per (64-row Q tile, b * Hq);
 // query head h reads KV head h / (Hq / Hkv).  blockIdx.x runs over the Q
-// tiles from the last, so the longest causal rows start first.
+// tiles from the last, so the longest causal rows start first.  SEG: with
+// segment ids (their masking and ids held in registers would spill at
+// three blocks an SM, D = 64, so that instantiation runs two).
 // ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(kFmaThreads, FmaBlock<D>::kBlocksPerSm)
+template <int D, bool SEG>
+__global__ void __launch_bounds__(kFmaThreads,
+                                  SEG ? 2 : FmaBlock<D>::kBlocksPerSm)
 fa2_fwd_fp32(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ o,
-             float* __restrict__ lse, int hq, int hkv, int sq, int skv,
-             int kv_len, float qscale, int causal, int window, int sinks) {
+             float* __restrict__ lse, const int* __restrict__ q_seg,
+             const int* __restrict__ kv_seg, int hq, int hkv, int sq, int skv,
+             int kv_len, float qscale, int causal, int window, int sinks,
+             DeadRows dead) {
   using L = FmaBlock<D>;
   constexpr int DO = D / 16;  // output columns per thread
   extern __shared__ __align__(16) float smem[];
@@ -623,9 +684,21 @@ fa2_fwd_fp32(const float* __restrict__ q, const float* __restrict__ k,
   const int kv_end = causal ? min(kv_len, q0 + kBlockM) : kv_len;
   const KvWalk walk(q0 - window + 1, kv_end, sinks, kBlockN);
   const int n_kv = walk.n;
+  constexpr bool seg = SEG;
+  int* kid_ring = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(smem) +
+                                         FmaIds<D>::kOffset);
+  int* qid_s = kid_ring + L::kKStages * kBlockN;
   float* qs = st.q();
+  // K tile t with (segment ids) its keys' ids, in K stage t.
   auto load_k = [&](int t) {
-    fma_load_tile<D, true>(st.k(t), st.k_bar(t), kp, walk.at(t), skv);
+    fma_copy_tile<D, true>(st.k(t), kp, walk.at(t), skv);
+    if (seg && threadIdx.x < kBlockN / 4) {
+      cp_async16(smem_addr(kid_ring + (t % L::kKStages) * kBlockN + 4 * threadIdx.x),
+                 kv_seg + static_cast<size_t>(b) * seg_stride(skv) +
+                     walk.at(t) * kBlockN + 4 * threadIdx.x,
+                 true);
+    }
+    cp_async_arrive(st.k_bar(t));
   };
   auto load_v = [&](int t) {
     fma_load_tile<D, false>(st.v(t), st.v_bar(t), vp, walk.at(t), skv);
@@ -634,6 +707,9 @@ fa2_fwd_fp32(const float* __restrict__ q, const float* __restrict__ k,
   if (threadIdx.x == 0) st.init();
   // Q scaled by sm_scale * log2(e) once, in fp32.
   fma_load_q<D>(qs, q + bh * sq * D, q0, sq, qscale);
+  if (seg && threadIdx.x < kBlockM) {
+    qid_s[threadIdx.x] = q_seg[static_cast<size_t>(b) * seg_stride(sq) + q0 + threadIdx.x];
+  }
   __syncthreads();
   for (int t = 0; t < L::kKStages && t < n_kv; ++t) load_k(t);
   for (int t = 0; t < L::kVStages && t < n_kv; ++t) load_v(t);
@@ -655,21 +731,23 @@ fa2_fwd_fp32(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();  // K(t) is read: P takes its stage
 
     // Online softmax in the exp2 domain; only the diagonal, kv_len tail
-    // and window-edge tiles are masked (masked P exactly 0).  l_run is
-    // this thread's share of the row sum, added across the row once at
-    // the end.
-    const bool need_mask = (k0 + kBlockN > kv_len) ||
+    // and window-edge tiles, and every tile with segment ids, are masked
+    // (masked P exactly 0).  l_run is this thread's share of the row sum,
+    // added across the row once at the end.
+    const bool need_mask = seg || (k0 + kBlockN > kv_len) ||
                            (causal && k0 + kBlockN - 1 > q0) ||
                            q0 + kBlockM - 1 - k0 >= window;
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
       const int row = q0 + th.ty + 8 * r;
       if (need_mask) {
+        const int* kid = kid_ring + (t % L::kKStages) * kBlockN;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int col = k0 + th.tx + 16 * j;
           if (col >= kv_len || (causal && col > row) ||
-              !in_window(row, col, window, sinks)) {
+              !in_window(row, col, window, sinks) ||
+              (seg && kid[th.tx + 16 * j] != qid_s[th.ty + 8 * r])) {
             s[r][j] = kMaskValue;
           }
         }
@@ -713,29 +791,50 @@ fa2_fwd_fp32(const float* __restrict__ q, const float* __restrict__ k,
     for (int r = 0; r < 8; ++r) {
       const int row = q0 + th.ty + 8 * r;
       if (row < sq) {
-        lp[row] = l[r] == 0.f ? dead_row_lse(row, kv_len, causal, window, sinks)
-                              : m_run[r] * kLn2 + logf(l[r]);
+        lp[row] = l[r] == 0.f ? dead.lse(row) : m_run[r] * kLn2 + logf(l[r]);
       }
     }
   }
 }
 
-template <int D>
-cudaError_t launch_fp32(cudaStream_t stream, const void* q, const void* k,
-                        const void* v, void* o, void* lse, int batch, int hq,
-                        int hkv, int sq, int skv, int kv_len, float qscale,
-                        int causal, int window, int sinks) {
-  using L = FmaBlock<D>;
+// Everything a launch takes besides its tensors' types.
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  void* lse;
+  const int* q_seg;
+  const int* kv_seg;
+  int batch, hq, hkv, sq, skv, kv_len;
+  float qscale;
+  int causal, window, sinks, dead_bq, dead_bk;
+  cudaStream_t stream;
+
+  DeadRows dead() const {
+    return DeadRows{skv, causal, window, sinks, dead_bq, dead_bk};
+  }
+};
+
+template <int D, bool SEG>
+cudaError_t launch_fp32_seg(const Args& a) {
+  constexpr int kSmem = SEG ? FmaIds<D>::kSmem : FmaBlock<D>::kSmem;
   static std::atomic<uint64_t> smem_set{0};
-  cudaError_t err = set_smem_once(fa2_fwd_fp32<D>, L::kSmem, smem_set);
+  cudaError_t err = set_smem_once(fa2_fwd_fp32<D, SEG>, kSmem, smem_set);
   if (err != cudaSuccess) return err;
-  const dim3 grid((sq + kBlockM - 1) / kBlockM, batch * hq);
-  fa2_fwd_fp32<D><<<grid, kFmaThreads, L::kSmem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o),
-      static_cast<float*>(lse), hq, hkv, sq, skv, kv_len, qscale, causal,
-      window, sinks);
+  const dim3 grid((a.sq + kBlockM - 1) / kBlockM, a.batch * a.hq);
+  fa2_fwd_fp32<D, SEG><<<grid, kFmaThreads, kSmem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.o),
+      static_cast<float*>(a.lse), a.q_seg, a.kv_seg, a.hq, a.hkv, a.sq, a.skv,
+      a.kv_len, a.qscale, a.causal, a.window, a.sinks, a.dead());
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_fp32(const Args& a) {
+  return a.q_seg != nullptr ? launch_fp32_seg<D, true>(a)
+                            : launch_fp32_seg<D, false>(a);
 }
 // A 3-D map over a contiguous 16-bit [rows, skv, d] K or V: boxes of 128
 // rows x 64 columns with the 128-byte swizzle; reads past skv give zeros.
@@ -760,39 +859,27 @@ int kv_map(CUtensorMap* map, const void* ptr, int tiles, int rows, int skv,
 }
 
 template <typename Tin, typename Tt, int D>
-int launch_wgmma(cudaStream_t stream, const void* q, const void* k,
-                 const void* v, void* o, void* lse, int batch, int hq, int hkv,
-                 int sq, int skv, int kv_len, float qscale, int causal,
-                 int window, int sinks, int tiles) {
+int launch_wgmma(const Args& a, int tiles) {
   CUtensorMap k_map, v_map;
-  int err = kv_map(&k_map, k, tiles, batch * hkv, skv, D);
-  if (err == 0) err = kv_map(&v_map, v, tiles, batch * hkv, skv, D);
+  int err = kv_map(&k_map, a.k, tiles, a.batch * a.hkv, a.skv, D);
+  if (err == 0) err = kv_map(&v_map, a.v, tiles, a.batch * a.hkv, a.skv, D);
   if (err != 0) return err;
   static std::atomic<uint64_t> smem_set{0};
   cudaError_t cerr = set_smem_once(fa2_fwd_wgmma<Tin, Tt, D>,
                                    Layout<D>::kSmem, smem_set);
   if (cerr != cudaSuccess) return cerr;
-  const dim3 grid((sq + kTileM - 1) / kTileM, batch * hq);
-  fa2_fwd_wgmma<Tin, Tt, D><<<grid, kThreads, Layout<D>::kSmem, stream>>>(
-      k_map, v_map, static_cast<const Tin*>(q), static_cast<Tin*>(o),
-      static_cast<float*>(lse), hq, hkv, sq, kv_len, qscale, causal, window,
-      sinks);
+  const dim3 grid((a.sq + kTileM - 1) / kTileM, a.batch * a.hq);
+  fa2_fwd_wgmma<Tin, Tt, D><<<grid, kThreads, Layout<D>::kSmem, a.stream>>>(
+      k_map, v_map, static_cast<const Tin*>(a.q), static_cast<Tin*>(a.o),
+      static_cast<float*>(a.lse), a.q_seg, a.kv_seg, a.hq, a.hkv, a.sq,
+      a.kv_len, a.qscale, a.causal, a.window, a.sinks, a.dead());
   return cudaGetLastError();
 }
 
 template <typename Tin, int D>
-int launch_tiles(int tiles, cudaStream_t st, const void* q, const void* k,
-                 const void* v, void* o, void* lse, int batch, int hq, int hkv,
-                 int sq, int skv, int kv_len, float qscale, int causal,
-                 int window, int sinks) {
-  if (tiles == 1) {
-    return launch_wgmma<Tin, __nv_bfloat16, D>(st, q, k, v, o, lse, batch, hq,
-                                               hkv, sq, skv, kv_len, qscale,
-                                               causal, window, sinks, tiles);
-  }
-  return launch_wgmma<Tin, __half, D>(st, q, k, v, o, lse, batch, hq, hkv, sq,
-                                      skv, kv_len, qscale, causal, window,
-                                      sinks, tiles);
+int launch_tiles(int tiles, const Args& a) {
+  return tiles == 1 ? launch_wgmma<Tin, __nv_bfloat16, D>(a, tiles)
+                    : launch_wgmma<Tin, __half, D>(a, tiles);
 }
 
 }  // namespace
@@ -800,53 +887,40 @@ int launch_tiles(int tiles, cudaStream_t st, const void* q, const void* k,
 extern "C" {
 
 // q [batch, hq, sq, head_dim]; k, v [batch, hkv, skv, head_dim]; o like q;
-// lse [batch, hq, sq] fp32.  All contiguous and 16-byte aligned.  in_bf16:
-// q and o are bf16 (else fp32).  tiles: 0 fp32 on the FMA units (k and v
-// fp32 too), 1 bf16 or 2 fp16 on the tensor cores, with k and v already in
-// the tile type.  qscale = sm_scale * log2(e).  window: a row keeps keys
-// with row - col < window (kNoWindow: no window; without causal a band,
-// any value); sinks: columns below it are kept besides.  Returns a
-// cudaError_t, or an error of the tensor-map step
-// (cfa_fa2_forward_error_string names it).
+// lse [batch, hq, sq] fp32.  All contiguous and 16-byte aligned.  q_seg
+// [batch, seg_stride(sq)] and kv_seg [batch, seg_stride(skv)] int32
+// segment ids, or both null.  in_bf16: q and o are bf16 (else fp32).
+// tiles: 0 fp32 on the FMA units (k and v fp32 too), 1 bf16 or 2 fp16 on
+// the tensor cores, with k and v already in the tile type.  qscale =
+// sm_scale * log2(e).  window: a row keeps keys with row - col < window
+// (kNoWindow: no window; without causal a band, any value); sinks:
+// columns below it are kept besides.  dead_bq x dead_bk: the tiles whose
+// walk sets a dead row's lse.  Returns a cudaError_t, or an error of the
+// tensor-map step (cfa_fa2_forward_error_string names it).
 int cfa_fa2_forward(const void* q, const void* k, const void* v, void* o,
-                    void* lse, int batch, int hq, int hkv, int sq, int skv,
-                    int head_dim, int kv_len, float qscale, int causal,
-                    int window, int sinks, int in_bf16, int tiles,
-                    void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+                    void* lse, const void* q_seg, const void* kv_seg,
+                    int batch, int hq, int hkv, int sq, int skv, int head_dim,
+                    int kv_len, float qscale, int causal, int window,
+                    int sinks, int dead_bq, int dead_bk, int in_bf16,
+                    int tiles, void* stream) {
+  if ((q_seg == nullptr) != (kv_seg == nullptr) || dead_bq < 1 || dead_bk < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Args a{q, k, v, o, lse, static_cast<const int*>(q_seg),
+               static_cast<const int*>(kv_seg), batch, hq, hkv, sq, skv,
+               kv_len, qscale, causal, window, sinks, dead_bq, dead_bk,
+               static_cast<cudaStream_t>(stream)};
   if (tiles == 1 || tiles == 2) {
     if (in_bf16) {
-      if (head_dim == 64) {
-        return launch_tiles<__nv_bfloat16, 64>(tiles, st, q, k, v, o, lse,
-                                               batch, hq, hkv, sq, skv, kv_len,
-                                               qscale, causal, window, sinks);
-      }
-      if (head_dim == 128) {
-        return launch_tiles<__nv_bfloat16, 128>(tiles, st, q, k, v, o, lse,
-                                                batch, hq, hkv, sq, skv, kv_len,
-                                                qscale, causal, window, sinks);
-      }
+      if (head_dim == 64) return launch_tiles<__nv_bfloat16, 64>(tiles, a);
+      if (head_dim == 128) return launch_tiles<__nv_bfloat16, 128>(tiles, a);
     } else {
-      if (head_dim == 64) {
-        return launch_tiles<float, 64>(tiles, st, q, k, v, o, lse, batch, hq,
-                                       hkv, sq, skv, kv_len, qscale, causal,
-                                       window, sinks);
-      }
-      if (head_dim == 128) {
-        return launch_tiles<float, 128>(tiles, st, q, k, v, o, lse, batch, hq,
-                                        hkv, sq, skv, kv_len, qscale, causal,
-                                        window, sinks);
-      }
+      if (head_dim == 64) return launch_tiles<float, 64>(tiles, a);
+      if (head_dim == 128) return launch_tiles<float, 128>(tiles, a);
     }
   } else if (tiles == 0 && !in_bf16) {
-    if (head_dim == 64) {
-      return launch_fp32<64>(st, q, k, v, o, lse, batch, hq, hkv, sq, skv,
-                             kv_len, qscale, causal, window, sinks);
-    }
-    if (head_dim == 128) {
-      return launch_fp32<128>(st, q, k, v, o, lse, batch, hq, hkv, sq, skv,
-                              kv_len, qscale, causal, window, sinks);
-    }
+    if (head_dim == 64) return launch_fp32<64>(a);
+    if (head_dim == 128) return launch_fp32<128>(a);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -12,8 +12,10 @@
 // window; a recency band without causal masking) and attention sinks (col
 // < sinks kept besides), as one more clause of the element mask: a slot's
 // whole row is one tile, so there is no walk to shorten.  Slots never see
-// each other's keys.  Segment ids are not taken; the Python wrapper
-// refuses them.
+// each other's keys.  Segment ids (sequence packing) are one more clause:
+// a block stages its rows' and the slot's keys' ids in shared memory once,
+// and a row keeps only keys of its own id; each body is instantiated with
+// and without ids.
 //
 // What bounds it on the H100: the bytes, and at these sizes mostly the fixed
 // cost of a launch and the latency of one block's chain of loads, products
@@ -179,10 +181,40 @@ __device__ __forceinline__ void copy_tile(Tt* dst, const Tt* src, int rows,
   }
 }
 
+// The ids of a block's rows (from row q0) and of its slot's keys, in
+// shared memory; null without segment ids.
+struct SegIds {
+  const int* q;
+  const int* kv;
+  int q0;
+};
+
+// SEG: with segment ids (each body is instantiated with and without them,
+// so that the slots without ids run the code they ran before).
+template <bool SEG>
 __device__ __forceinline__ bool masked(int row, int col, int kv_len,
-                                       int causal, int window, int sinks) {
-  return col >= kv_len || (causal && col > row) ||
-         !in_window(row, col, window, sinks);
+                                       int causal, int window, int sinks,
+                                       const SegIds& seg) {
+  bool out = col >= kv_len || (causal && col > row) ||
+             !in_window(row, col, window, sinks);
+  if constexpr (SEG) out = out || seg.q[row - seg.q0] != seg.kv[col];
+  return out;
+}
+
+// The segment ids of the block's Q tile (q_rows rows from q0) and of its
+// slot's s_pad keys into `dst` ([kQTile | kMaxRows] ints), from q_seg and
+// kv_seg ([batch, 128] each; the slot's batch element is slot / heads).
+// Made visible by the caller's barrier.
+__device__ __forceinline__ SegIds stage_ids(int* dst, const int* q_seg,
+                                            const int* kv_seg, size_t slot,
+                                            int heads, int q0, int s_pad) {
+  if (q_seg == nullptr) return SegIds{nullptr, nullptr, 0};
+  const size_t at = slot / heads * kMaxRows;
+  for (int i = threadIdx.x; i < kQTile + s_pad; i += blockDim.x) {
+    dst[i] = i < kQTile ? (q0 + i < kMaxRows ? q_seg[at + q0 + i] : 0)
+                        : kv_seg[at + i - kQTile];
+  }
+  return SegIds{dst, dst + kQTile, q0};
 }
 
 // First row of this block's Q tile: under causal masking the tiles nearer
@@ -199,12 +231,13 @@ __device__ __forceinline__ int q_tile_start() {
 // elements (row g, cols 2t, 2t+1) and (row g + 8, cols 2t, 2t+1) of each
 // 8-column n-tile.  Shared memory: Q [q_rows][LD], K and V [rows16][LD].
 // ---------------------------------------------------------------------------
-template <typename Tin, typename Tt, int D>
+template <typename Tin, typename Tt, int D, bool SEG>
 __global__ void __launch_bounds__(128)
 small_mma(const Tin* __restrict__ q, const Tin* __restrict__ k,
           const Tin* __restrict__ v, Tin* __restrict__ o,
-          float* __restrict__ lse, int s_pad, int kv_len, float qscale,
-          int causal, int window, int sinks) {
+          float* __restrict__ lse, const int* __restrict__ q_seg,
+          const int* __restrict__ kv_seg, int heads, int s_pad, int kv_len,
+          float qscale, int causal, int window, int sinks) {
   constexpr int LD = D + 8;  // 16-byte row padding: conflict-free ldmatrix
   constexpr int NT = kMaxRows / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -213,6 +246,7 @@ small_mma(const Tin* __restrict__ q, const Tin* __restrict__ k,
   Tt* qs = reinterpret_cast<Tt*>(smem_raw);
   Tt* ks = qs + q_rows * LD;
   Tt* vs = ks + rows16 * LD;
+  int* ids = reinterpret_cast<int*>(vs + rows16 * LD);
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -241,6 +275,8 @@ small_mma(const Tin* __restrict__ q, const Tin* __restrict__ k,
   }
   stage_tile<Tt, Tin, D, LD>(qs, q + off + static_cast<size_t>(q0) * D, q_rows,
                              s_pad - q0, qscale);
+  const SegIds seg = SEG ? stage_ids(ids, q_seg, kv_seg, slot, heads, q0, s_pad)
+                        : SegIds{nullptr, nullptr, 0};
   if constexpr (std::is_same<Tin, Tt>::value) cp_async_wait_all();
   __syncthreads();
   if (row0 >= rows16) return;
@@ -278,7 +314,8 @@ small_mma(const Tin* __restrict__ q, const Tin* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = j * 8 + t4 * 2 + (e & 1);
-        if (masked(e < 2 ? row_a : row_b, col, kv_len, causal, window, sinks)) {
+        if (masked<SEG>(e < 2 ? row_a : row_b, col, kv_len, causal, window,
+                        sinks, seg)) {
           s[j][e] = kMaskValue;
         }
         mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
@@ -297,7 +334,8 @@ small_mma(const Tin* __restrict__ q, const Tin* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = j * 8 + t4 * 2 + (e & 1);
-        const float p = masked(e < 2 ? row_a : row_b, col, kv_len, causal, window, sinks)
+        const float p = masked<SEG>(e < 2 ? row_a : row_b, col, kv_len, causal,
+                                    window, sinks, seg)
                             ? 0.f
                             : exp2f(s[j][e] - mx[e >> 1]);
         l[e >> 1] += p;
@@ -375,16 +413,20 @@ struct SmallFmaLayout {
   static constexpr int kQ = kV + kVStages * kTile;
   static constexpr int kFloats = kQ + kTile;
   static constexpr int kSmem = kFloats * 4 + 8 * (kKStages + kVStages);
+  // The segment ids after the mbarriers (SegIds).
+  static constexpr int kIds = kSmem;
+  static constexpr int kSmemIds = kIds + 4 * (kQTile + kMaxRows);
   static_assert(kKStages * kFmaTile >= kMaxRows, "K holds a whole slot");
   static_assert(kSmem <= 232448, "one block must fit the SM's 227 KB");
 };
 
-template <int D>
+template <int D, bool SEG>
 __global__ void __launch_bounds__(kFmaThreads)
 small_fp32(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, float* __restrict__ o,
-           float* __restrict__ lse, int s_pad, int kv_len, float qscale,
-           int causal, int window, int sinks) {
+           float* __restrict__ lse, const int* __restrict__ q_seg,
+           const int* __restrict__ kv_seg, int heads, int s_pad, int kv_len,
+           float qscale, int causal, int window, int sinks) {
   using L = SmallFmaLayout<D>;
   constexpr int DO = D / 16;  // output columns per thread
   extern __shared__ __align__(16) float smem[];
@@ -409,7 +451,12 @@ small_fp32(const float* __restrict__ q, const float* __restrict__ k,
   }
   // Q scaled by sm_scale * log2(e) once, in fp32, while K and V land.
   fma_load_q<D>(st.q(), q + off, q0, s_pad, qscale);
-  __syncthreads();  // Q is in place
+  const SegIds seg =
+      SEG ? stage_ids(reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(smem) +
+                                             L::kIds),
+                      q_seg, kv_seg, blockIdx.x, heads, q0, s_pad)
+          : SegIds{nullptr, nullptr, 0};
+  __syncthreads();  // Q (and the ids) are in place
 
   float s[2][8][4];
 #pragma unroll
@@ -434,8 +481,8 @@ small_fp32(const float* __restrict__ q, const float* __restrict__ k,
       if (t < n_kv) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          if (masked(row, kFmaTile * t + th.tx + 16 * j, kv_len, causal, window,
-                     sinks)) {
+          if (masked<SEG>(row, kFmaTile * t + th.tx + 16 * j, kv_len, causal,
+                          window, sinks, seg)) {
             s[t][r][j] = kMaskValue;
           }
           m = fmaxf(m, s[t][r][j]);
@@ -449,8 +496,8 @@ small_fp32(const float* __restrict__ q, const float* __restrict__ k,
       if (t < n_kv) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const float p = masked(row, kFmaTile * t + th.tx + 16 * j, kv_len, causal, window,
-                     sinks)
+          const float p = masked<SEG>(row, kFmaTile * t + th.tx + 16 * j, kv_len,
+                                      causal, window, sinks, seg)
                               ? 0.f
                               : exp2f(s[t][r][j] - mx[r]);
           rs += p;
@@ -497,7 +544,9 @@ struct Args {
   const void* v;
   void* o;
   float* lse;
-  int n_slots, s_pad, kv_len;
+  const int* q_seg;
+  const int* kv_seg;
+  int n_slots, heads, s_pad, kv_len;
   float qscale;
   int causal, window, sinks;
   cudaStream_t stream;
@@ -508,35 +557,53 @@ dim3 grid_of(const Args& a) {
   return dim3(a.n_slots, (a.s_pad + kQTile - 1) / kQTile);
 }
 
-template <typename Tin, typename Tt, int D>
-cudaError_t launch_mma(const Args& a) {
+template <typename Tin, typename Tt, int D, bool SEG>
+cudaError_t launch_mma_seg(const Args& a) {
   const int rows16 = (a.s_pad + 15) & ~15;
   const int q_rows = std::min(kQTile, rows16);
-  const size_t smem = (q_rows + 2 * rows16) * (D + 8) * sizeof(Tt);
+  // The tiles, then (SEG) the segment ids, kQTile + kMaxRows ints.
+  constexpr size_t kIds = SEG ? 4 * (kQTile + kMaxRows) : 0;
+  const size_t smem = (q_rows + 2 * rows16) * (D + 8) * sizeof(Tt) + kIds;
   static std::atomic<uint64_t> smem_set{0};
   // The limit is set for the largest slot (128 rows), so it holds for all.
   cudaError_t err = set_smem_once(
-      small_mma<Tin, Tt, D>,
-      static_cast<int>((kQTile + 2 * kMaxRows) * (D + 8) * sizeof(Tt)), smem_set);
+      small_mma<Tin, Tt, D, SEG>,
+      static_cast<int>((kQTile + 2 * kMaxRows) * (D + 8) * sizeof(Tt) + kIds),
+      smem_set);
   if (err != cudaSuccess) return err;
-  small_mma<Tin, Tt, D><<<grid_of(a), 32 * (q_rows / 16), smem, a.stream>>>(
+  small_mma<Tin, Tt, D, SEG><<<grid_of(a), 32 * (q_rows / 16), smem, a.stream>>>(
       static_cast<const Tin*>(a.q), static_cast<const Tin*>(a.k),
-      static_cast<const Tin*>(a.v), static_cast<Tin*>(a.o), a.lse, a.s_pad,
-      a.kv_len, a.qscale, a.causal, a.window, a.sinks);
+      static_cast<const Tin*>(a.v), static_cast<Tin*>(a.o), a.lse, a.q_seg,
+      a.kv_seg, a.heads, a.s_pad, a.kv_len, a.qscale, a.causal, a.window,
+      a.sinks);
+  return cudaGetLastError();
+}
+
+template <typename Tin, typename Tt, int D>
+cudaError_t launch_mma(const Args& a) {
+  return a.q_seg != nullptr ? launch_mma_seg<Tin, Tt, D, true>(a)
+                            : launch_mma_seg<Tin, Tt, D, false>(a);
+}
+
+template <int D, bool SEG>
+cudaError_t launch_fp32_seg(const Args& a) {
+  using L = SmallFmaLayout<D>;
+  constexpr int kSmem = SEG ? L::kSmemIds : L::kSmem;
+  static std::atomic<uint64_t> smem_set{0};
+  cudaError_t err = set_smem_once(small_fp32<D, SEG>, kSmem, smem_set);
+  if (err != cudaSuccess) return err;
+  small_fp32<D, SEG><<<grid_of(a), kFmaThreads, kSmem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, a.q_seg,
+      a.kv_seg, a.heads, a.s_pad, a.kv_len, a.qscale, a.causal, a.window,
+      a.sinks);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_fp32(const Args& a) {
-  using L = SmallFmaLayout<D>;
-  static std::atomic<uint64_t> smem_set{0};
-  cudaError_t err = set_smem_once(small_fp32<D>, L::kSmem, smem_set);
-  if (err != cudaSuccess) return err;
-  small_fp32<D><<<grid_of(a), kFmaThreads, L::kSmem, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, a.s_pad,
-      a.kv_len, a.qscale, a.causal, a.window, a.sinks);
-  return cudaGetLastError();
+  return a.q_seg != nullptr ? launch_fp32_seg<D, true>(a)
+                            : launch_fp32_seg<D, false>(a);
 }
 
 template <typename Tin, int D>
@@ -549,22 +616,27 @@ cudaError_t launch_mma_tiles(const Args& a, int tiles) {
 
 extern "C" {
 
-// q, k, v, o [n_slots, s_pad, head_dim] (every (batch, head) pair one slot);
-// lse [n_slots, s_pad] fp32.  All contiguous and 16-byte aligned, s_pad <=
-// 128.  in_bf16: q/k/v/o are bf16 (else fp32).  tiles: 0 fp32 on the FMA
-// units (needs fp32 inputs), 1 bf16 or 2 fp16 on the tensor cores.  qscale =
-// sm_scale * log2(e).  window and sinks as cfa_fa2_forward's (kNoWindow: no
-// window).  Returns a cudaError_t.
+// q, k, v, o [n_slots, s_pad, head_dim] (every (batch, head) pair one slot,
+// `heads` slots a batch element); lse [n_slots, s_pad] fp32.  All
+// contiguous and 16-byte aligned, s_pad <= 128.  q_seg and kv_seg [n_slots
+// / heads, 128] int32 segment ids, or both null.  in_bf16: q/k/v/o are
+// bf16 (else fp32).  tiles: 0 fp32 on the FMA units (needs fp32 inputs), 1
+// bf16 or 2 fp16 on the tensor cores.  qscale = sm_scale * log2(e).
+// window and sinks as cfa_fa2_forward's (kNoWindow: no window).  Returns a
+// cudaError_t.
 int cfa_fa2_forward_small(const void* q, const void* k, const void* v,
-                          void* o, void* lse, int n_slots, int s_pad,
-                          int head_dim, int kv_len, float qscale, int causal,
-                          int window, int sinks, int in_bf16, int tiles,
-                          void* stream) {
-  if (s_pad < 1 || s_pad > kMaxRows || n_slots < 1) {
+                          void* o, void* lse, const void* q_seg,
+                          const void* kv_seg, int n_slots, int heads,
+                          int s_pad, int head_dim, int kv_len, float qscale,
+                          int causal, int window, int sinks, int in_bf16,
+                          int tiles, void* stream) {
+  if (s_pad < 1 || s_pad > kMaxRows || n_slots < 1 || heads < 1 ||
+      (q_seg == nullptr) != (kv_seg == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Args a{q, k, v, o, static_cast<float*>(lse), n_slots, s_pad, kv_len,
-               qscale, causal, window, sinks,
+  const Args a{q, k, v, o, static_cast<float*>(lse),
+               static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg),
+               n_slots, heads, s_pad, kv_len, qscale, causal, window, sinks,
                static_cast<cudaStream_t>(stream)};
   if (tiles == 1 || tiles == 2) {
     if (in_bf16) {

@@ -233,8 +233,7 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// Errors of the tensor-map step, beyond the cudaError_t range.
-// Sliding windows and attention sinks (B1, B5, B6, B8).  A row at
+// Sliding windows and attention sinks (B1-B6, B8).  A row at
 // position `row` keeps column `col` when row - col < window or col < sinks
 // (and-ed with each kernel's causal and length bounds); "no window" is a
 // window of kNoWindow, which no key distance reaches.
@@ -266,6 +265,39 @@ struct KvWalk {
   }
 };
 
+// The transpose of KvWalk: the Q tiles (of `q_tile` rows, n_q of them)
+// that the KV tile of rows [k0, k0 + kv_rows) meets with a kept pair.
+// Under causal masking from the tile holding row k0; a tile holding a sink
+// column (k0 < sinks) to the last Q tile, else to the one holding the last
+// row whose window reaches the tile, k0 + kv_rows - 1 + window - 1 (none
+// where that row is negative: a band); none for a KV tile at or past
+// kv_len.  Step i < n is Q tile lo + i.  The KV-major backward kernels'
+// producer and consumers step through this one sequence;
+// kernels/common.py window_q_tiles is its plain twin.
+struct QWalk {
+  int lo, n;
+  __device__ __forceinline__ QWalk(int k0, int kv_rows, int n_q, int q_tile,
+                                   int causal, int window, int sinks,
+                                   int kv_len) {
+    lo = causal ? min(k0 / q_tile, n_q) : 0;
+    int hi = n_q;
+    if (k0 >= sinks) {
+      const long long last = static_cast<long long>(k0) + kv_rows + window - 2;
+      hi = last < 0 ? 0 : static_cast<int>(min(static_cast<long long>(n_q),
+                                               last / q_tile + 1));
+    }
+    n = k0 < kv_len ? max(0, hi - lo) : 0;
+  }
+  __device__ __forceinline__ int at(int i) const { return lo + i; }
+};
+
+// Segment ids (sequence packing): int32 rows of round_up(length, 128) per
+// batch element, null for none; a row keeps only keys of its own id.
+__host__ __device__ __forceinline__ int seg_stride(int n) {
+  return (n + 127) & ~127;
+}
+
+// Errors of the tensor-map step, beyond the cudaError_t range.
 constexpr int kErrNoEncoder = 100000;
 constexpr int kErrEncode = 100001;
 

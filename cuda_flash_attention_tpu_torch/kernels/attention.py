@@ -14,11 +14,10 @@ runs either the fused kernel B2 or the split pair B3 + B4
 One route of the JAX API does not apply here: the small-fp32 XLA route
 (its crossover was measured on a TPU; on CUDA a kernel is always taken), so
 there is no `force_kernel` argument.  Sliding windows, the non-causal
-recency band and attention sinks run in the forward kernels B1 and B8; the
-backward with a window or sinks raises NotImplementedError on every device
-until the backward kernels take them (a backward that ignored the window
-would give wrong gradients silently).  Segment ids are not ported yet and
-raise.
+recency band, attention sinks and segment ids (sequence packing) run in
+every kernel of the path, forward (B1, B8) and backward (B2, B3, B4): the
+route rule sends a narrow causal window without sinks to the split pair,
+as JAX's does.
 """
 
 from __future__ import annotations
@@ -31,7 +30,9 @@ from cuda_flash_attention_tpu_torch.kernels.common import (
     BlockSizes,
     cdiv,
     fit_block,
+    pack_segments,
     pad_to_block,
+    reference_tiles,
     seq_pad_quantum,
 )
 from cuda_flash_attention_tpu_torch.kernels.fa2_backward import (
@@ -56,13 +57,17 @@ _FUSED_BWD_MAX_KV_SLICES = 8
 _FUSED_BWD_MAX_DQPART_BYTES = 1 << 30
 
 
-def _use_fused_bwd(q, k, bk_dkv: int, tile_dtype=None) -> bool:
-    """JAX attention.py:50-62 on padded q/k.  The slice count is the JAX
-    one (KV slices of `bk_dkv` rows); the byte cap applies to the buffer
-    that the port's B2 allocates, one fp32 slice of q's size per
-    `fused_kv_tile` KV rows (128 with bf16/fp16 tiles, 64 in fp32), which is
-    larger than the JAX buffer.  The JAX window clause is left out: a
-    windowed backward raises before this point."""
+def _use_fused_bwd(q, k, bk_dkv: int, tile_dtype=None, window=None,
+                   causal: bool = False, sinks: int = 0) -> bool:
+    """JAX attention.py:50-62 on padded q/k.  A narrow causal window
+    without sinks (2 * window < Skv) takes the split pair, whose walks
+    cover only the live span.  The slice count is the JAX one (KV slices
+    of `bk_dkv` rows); the byte cap applies to the buffer that the port's
+    B2 allocates, one fp32 slice of q's size per `fused_kv_tile` KV rows
+    (128 with bf16/fp16 tiles, 64 in fp32), which is larger than the JAX
+    buffer."""
+    if window is not None and causal and sinks == 0 and 2 * window < k.shape[2]:
+        return False
     if k.shape[2] // bk_dkv > _FUSED_BWD_MAX_KV_SLICES:
         return False
     slices = cdiv(k.shape[2], fused_kv_tile(q.dtype, tile_dtype))
@@ -102,6 +107,26 @@ def _validate_dtypes(q, k, v, tile_dtype):
     if tile_dtype not in TILE_DTYPES:
         raise NotImplementedError(
             f"tile_dtype must be one of {TILE_DTYPES}; got {tile_dtype}"
+        )
+
+
+def _validate_segments(q_segment_ids, kv_segment_ids, q, k):
+    """JAX attention.py:111-127, with its messages."""
+    if (q_segment_ids is None) != (kv_segment_ids is None):
+        raise ValueError(
+            "q_segment_ids and kv_segment_ids must be given together"
+        )
+    if q_segment_ids is None:
+        return
+    if tuple(q_segment_ids.shape) != (q.shape[0], q.shape[2]):
+        raise ValueError(
+            f"q_segment_ids must be [batch, q_len]="
+            f"{(q.shape[0], q.shape[2])}; got {tuple(q_segment_ids.shape)}"
+        )
+    if tuple(kv_segment_ids.shape) != (k.shape[0], k.shape[2]):
+        raise ValueError(
+            f"kv_segment_ids must be [batch, kv_len]="
+            f"{(k.shape[0], k.shape[2])}; got {tuple(kv_segment_ids.shape)}"
         )
 
 
@@ -158,12 +183,12 @@ def _warn_small_blocks(window, block_sizes):
 def _prepare(q, k, v, causal, sm_scale, tile_dtype, q_segment_ids,
              kv_segment_ids, window, sinks):
     """Validate and pad: (q, k, v padded and contiguous, sm_scale, q_len,
-    kv_len).  The window and sinks are validated here and normalized by
-    `_window_of`."""
+    kv_len).  The segment ids, window and sinks are validated here; the
+    window is normalized by `_window_of`, the ids padded by
+    `_segments_of`."""
+    _validate_segments(q_segment_ids, kv_segment_ids, q, k)
     _validate_shapes(q, k, v)
     _validate_dtypes(q, k, v, tile_dtype)
-    if q_segment_ids is not None or kv_segment_ids is not None:
-        raise NotImplementedError("segment ids are not ported yet")
     _window_of(window, sinks, causal, q, k)
     if sm_scale is None:
         sm_scale = 1.0 / (q.shape[-1] ** 0.5)
@@ -181,6 +206,16 @@ def _window_of(window, sinks, causal, q, k):
     return window, _normalize_sinks(sinks, window)
 
 
+def _segments_of(q_segment_ids, kv_segment_ids, q_pad, k_pad):
+    """The ids padded to the padded grid, on q's device: (q_seg [B,
+    Sq_pad], kv_seg [B, Skv_pad]) int32, or (None, None)."""
+    segs = pack_segments(q_segment_ids, kv_segment_ids, q_pad.shape[2],
+                         k_pad.shape[2])
+    if segs is None:
+        return None, None
+    return tuple(ids.to(q_pad.device) for ids in segs)
+
+
 def _use_small_kernel(q, k) -> bool:
     """JAX attention.py:273-277 on padded q/k: one whole tile per head
     (Sq = Skv <= 128) and one KV head per query head take B8."""
@@ -189,30 +224,30 @@ def _use_small_kernel(q, k) -> bool:
 
 
 def _forward(q, k, v, kv_len, causal, sm_scale, tile_dtype, window=None,
-             sinks=0):
-    """(O, lse) over padded q/k/v by B8 or B1 (JAX attention.py:273-293)."""
-    fwd = fa2_forward_small_aligned if _use_small_kernel(q, k) else fa2_forward_aligned
-    return fwd(q, k, v, causal=causal, sm_scale=sm_scale, kv_len=kv_len,
-               tile_dtype=tile_dtype, window=window, sinks=sinks)
-
-
-def _refuse_windowed_backward(window, sinks):
-    if window is not None or sinks:
-        raise NotImplementedError(
-            "the backward with a sliding window or sinks is not ported yet "
-            "(the forward is)")
+             sinks=0, segs=(None, None), block_sizes=None):
+    """(O, lse) over padded q/k/v by B8 or B1 (JAX attention.py:273-293).
+    A dead row's lse follows the JAX forward's tiles for `block_sizes`."""
+    kw = dict(causal=causal, sm_scale=sm_scale, kv_len=kv_len,
+              tile_dtype=tile_dtype, window=window, sinks=sinks, q_seg=segs[0],
+              kv_seg=segs[1])
+    if _use_small_kernel(q, k):
+        return fa2_forward_small_aligned(q, k, v, **kw)
+    return fa2_forward_aligned(
+        q, k, v, lse_tiles=reference_tiles(q.shape[2], k.shape[2], causal,
+                                           window, block_sizes), **kw)
 
 
 def _backward(q, k, v, o, lse, do, kv_len, causal, sm_scale, block_sizes,
-              tile_dtype):
+              tile_dtype, window=None, sinks=0, segs=(None, None)):
     """dQ, dK, dV over padded inputs: B2, or B3 + B4 with
     D_i = rowsum(dO * O) as a plain fp32 reduction (the JAX package computes
     it in XLA outside Pallas, attention.py:327-329)."""
     do = do.contiguous()
     kw = dict(causal=causal, sm_scale=sm_scale, kv_len=kv_len,
-              tile_dtype=tile_dtype)
+              tile_dtype=tile_dtype, window=window, sinks=sinks, q_seg=segs[0],
+              kv_seg=segs[1])
     bk_dkv = fit_block(block_sizes.block_k_dkv, k.shape[2])
-    if _use_fused_bwd(q, k, bk_dkv, tile_dtype):
+    if _use_fused_bwd(q, k, bk_dkv, tile_dtype, window, causal, sinks):
         return fa2_backward_fused_aligned(q, k, v, o, do, lse, **kw)
     di = (o.float() * do.float()).sum(dim=-1)
     dq = fa2_backward_dq_aligned(q, k, v, do, lse, di, **kw)
@@ -225,21 +260,21 @@ class _FA2(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, kv_len, causal, sm_scale, block_sizes,
-                tile_dtype, window, sinks):
+                tile_dtype, window, sinks, q_seg, kv_seg):
+        segs = (q_seg, kv_seg)
         o, lse = _forward(q, k, v, kv_len, causal, sm_scale, tile_dtype,
-                          window, sinks)
+                          window, sinks, segs, block_sizes)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.args = (kv_len, causal, sm_scale, block_sizes, tile_dtype)
-        ctx.window = (window, sinks)
+        ctx.args = (kv_len, causal, sm_scale, block_sizes, tile_dtype, window,
+                    sinks, segs)
         return o
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, do):
-        _refuse_windowed_backward(*ctx.window)
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = _backward(q, k, v, o, lse, do, *ctx.args)
-        return dq, dk, dv, None, None, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = False,
@@ -252,16 +287,19 @@ def flash_attention(q, k, v, *, causal: bool = False,
     ``tile_dtype`` (None, torch.bfloat16 or torch.float16) is the precision
     of the Q/K/V/P tiles inside the kernels; softmax statistics stay fp32.
     None computes in q's dtype.  ``block_sizes`` (default
-    `BlockSizes.default(causal, window)`) only picks the backward route, as
-    the JAX rule counts its KV slices.
+    `BlockSizes.default(causal, window)`) picks the backward route, as the
+    JAX rule counts its KV slices, and the tiles whose walk sets a dead
+    row's lse; the kernels keep their own tiles.
 
-    ``window`` with causal=True keeps, for query i, the keys j <= i with
-    i - j < window; with causal=False it is a recency band (j > i - window,
-    no future bound; the offset may be <= 0).  ``sinks`` keeps the first
-    `sinks` keys for every query besides (StreamingLLM).  A row that keeps
-    no key gives O = 0 (its lse: kernels/common.py dead_row_lse).  Its
-    gradient raises NotImplementedError until the backward kernels take
-    windows."""
+    ``q_segment_ids`` [B, Sq] and ``kv_segment_ids`` [B, Skv] (integers,
+    given together) pack sequences: position i attends to j only when
+    their ids match; give padding an id that matches no real token (its O
+    rows are zeros).  ``window`` with causal=True keeps, for query i, the
+    keys j <= i with i - j < window; with causal=False it is a recency band
+    (j > i - window, no future bound; the offset may be <= 0).  ``sinks``
+    keeps the first `sinks` keys for every query besides (StreamingLLM).
+    A row that keeps no key gives O = 0 (its lse: kernels/common.py
+    dead_row_lse) and no gradient."""
     q_pad, k_pad, v_pad, sm_scale, q_len, kv_len = _prepare(
         q, k, v, causal, sm_scale, tile_dtype, q_segment_ids, kv_segment_ids,
         window, sinks)
@@ -270,15 +308,18 @@ def flash_attention(q, k, v, *, causal: bool = False,
         block_sizes = BlockSizes.default(causal, window=window)
     else:
         _warn_small_blocks(window, block_sizes)
+    q_seg, kv_seg = _segments_of(q_segment_ids, kv_segment_ids, q_pad, k_pad)
     o = _FA2.apply(q_pad, k_pad, v_pad, kv_len, causal, sm_scale, block_sizes,
-                   tile_dtype, window, sinks)
+                   tile_dtype, window, sinks, q_seg, kv_seg)
     return o[:, :, :q_len]
 
 
 def flash_attention_with_lse(q, k, v, *, causal: bool = False,
-                             sm_scale: float | None = None, tile_dtype=None,
-                             q_segment_ids=None, kv_segment_ids=None,
-                             window: int | None = None, sinks: int = 0):
+                             sm_scale: float | None = None,
+                             block_sizes: BlockSizes | None = None,
+                             tile_dtype=None, q_segment_ids=None,
+                             kv_segment_ids=None, window: int | None = None,
+                             sinks: int = 0):
     """FA2 forward returning (O, logsumexp [B, H, Sq] fp32).  Not
     differentiable, as in the JAX API: use `flash_attention` for
     gradients."""
@@ -286,9 +327,12 @@ def flash_attention_with_lse(q, k, v, *, causal: bool = False,
         q, k, v, causal, sm_scale, tile_dtype, q_segment_ids, kv_segment_ids,
         window, sinks)
     window, sinks = _window_of(window, sinks, causal, q, k)
+    if block_sizes is not None:
+        _warn_small_blocks(window, block_sizes)
+    segs = _segments_of(q_segment_ids, kv_segment_ids, q_pad, k_pad)
     with torch.no_grad():
         o, lse = _forward(q_pad, k_pad, v_pad, kv_len, causal, sm_scale,
-                          tile_dtype, window, sinks)
+                          tile_dtype, window, sinks, segs, block_sizes)
     return o[:, :, :q_len], lse[:, :, :q_len]
 
 
@@ -298,20 +342,21 @@ def fa2_backward(q, k, v, o, lse, do=None, *, causal: bool = False,
                  window: int | None = None):
     """Standalone FA2 backward from forward artifacts (O, logsumexp
     [B, Hq, Sq]), as the JAX fa2_backward (attention.py:457-523): dO
-    defaults to ones.  Returns (dQ, dK, dV).  A window (one that does not
-    fold away) raises NotImplementedError until the backward kernels take
-    it."""
+    defaults to ones; a window (no sinks) masks as the forward's and
+    takes part in the route rule.  Returns (dQ, dK, dV)."""
     if do is None:
         do = torch.ones_like(o)
     q_pad, k_pad, v_pad, sm_scale, q_len, kv_len = _prepare(
         q, k, v, causal, sm_scale, tile_dtype, None, None, window, 0)
-    _refuse_windowed_backward(*_window_of(window, 0, causal, q, k))
+    window, _ = _window_of(window, 0, causal, q, k)
     if block_sizes is None:
-        block_sizes = BlockSizes.default(causal)
+        block_sizes = BlockSizes.default(causal, window=window)
+    else:
+        _warn_small_blocks(window, block_sizes)
     quantum = seq_pad_quantum(q_len, q.dtype)
     o_pad = pad_to_block(o, 2, quantum).contiguous()
     do_pad = pad_to_block(do, 2, quantum)
     lse_pad = pad_to_block(lse.float(), 2, quantum).contiguous()
     dq, dk, dv = _backward(q_pad, k_pad, v_pad, o_pad, lse_pad, do_pad, kv_len,
-                           causal, sm_scale, block_sizes, tile_dtype)
+                           causal, sm_scale, block_sizes, tile_dtype, window)
     return dq[:, :, :q_len], dk[:, :, :kv_len], dv[:, :, :kv_len]

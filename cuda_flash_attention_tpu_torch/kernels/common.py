@@ -154,13 +154,17 @@ NO_WINDOW = 1 << 30
 
 def build_element_mask(q_len: int, kv_len_pad: int, *, causal: bool,
                        kv_len: int, device, window: int | None = None,
-                       sinks: int = 0) -> torch.Tensor | None:
-    """Boolean keep-mask [q_len, kv_len_pad] over a whole (padded) problem,
-    or None when nothing masks: the ragged-KV tail (col < kv_len), the
-    causal triangle (col <= row) and the sliding window (row - col <
-    window, or col < sinks: the attention sinks), and-ed together.  The
-    plain versions' form of the JAX build_block_mask; segments are not
-    ported yet."""
+                       sinks: int = 0, q_seg: torch.Tensor | None = None,
+                       kv_seg: torch.Tensor | None = None
+                       ) -> torch.Tensor | None:
+    """Boolean keep-mask over a whole (padded) problem, or None when nothing
+    masks: the ragged-KV tail (col < kv_len), the causal triangle (col <=
+    row), the sliding window (row - col < window, or col < sinks: the
+    attention sinks) and, with segment ids (q_seg [B, >= q_len], kv_seg
+    [B, >= kv_len_pad] int), segment equality (q_seg[b, row] ==
+    kv_seg[b, col]), and-ed together.  [q_len, kv_len_pad], or [B, 1,
+    q_len, kv_len_pad] with segments.  The plain versions' form of the JAX
+    build_block_mask."""
     mask = None
     cols = torch.arange(kv_len_pad, device=device)[None, :]
     if kv_len != kv_len_pad:
@@ -172,7 +176,27 @@ def build_element_mask(q_len: int, kv_len_pad: int, *, causal: bool,
     if window is not None:
         win = (rows - cols < window) | (cols < sinks)
         mask = win if mask is None else mask & win
+    if q_seg is not None:
+        seg = (q_seg[:, :q_len, None].to(device)
+               == kv_seg[:, None, :kv_len_pad].to(device))[:, None]
+        mask = seg if mask is None else mask & seg
     return mask
+
+
+def pack_segments(q_segment_ids, kv_segment_ids, sq_pad: int, skv_pad: int):
+    """Segment ids [B, Sq] and [B, Skv] padded to (q_seg [B, sq_pad],
+    kv_seg [B, skv_pad]) int32, or None without ids (JAX attention.py
+    _pack_segments).  The pad value is irrelevant: padded KV columns are
+    masked by the kv_len tail whatever their segment, padded Q rows'
+    outputs are sliced off, and their gradient contributions vanish
+    because dO is zero-padded."""
+    if q_segment_ids is None:
+        return None
+    q_seg = F.pad(q_segment_ids.to(torch.int32),
+                  (0, sq_pad - q_segment_ids.shape[1]))
+    kv_seg = F.pad(kv_segment_ids.to(torch.int32),
+                   (0, skv_pad - kv_segment_ids.shape[1]))
+    return q_seg.contiguous(), kv_seg.contiguous()
 
 
 def window_tiles(first_col: int, end_col: int, sinks: int, tile: int):
@@ -188,19 +212,52 @@ def window_tiles(first_col: int, end_col: int, sinks: int, tile: int):
     return n_sink, lo, n_sink + max(0, n_end - lo)
 
 
-def dead_row_lse(q_len: int, kv_len: int, *, causal: bool, window, sinks: int,
-                 device) -> torch.Tensor:
+def window_q_tiles(k0: int, kv_rows: int, n_q: int, q_tile: int, *,
+                   causal: bool, window: int | None, sinks: int,
+                   kv_len: int) -> range:
+    """The Q tiles (of `q_tile` rows, n_q of them) that the KV tile of rows
+    [k0, k0 + kv_rows) meets with a kept pair: under causal from the tile
+    holding row k0; a tile holding a sink column (k0 < sinks) to the end;
+    else to the one holding row k0 + kv_rows - 1 + window - 1 (the last row
+    whose window reaches the tile), none where that row is negative (a
+    band); none for a KV tile past kv_len.  csrc/hopper.cuh QWalk is the
+    kernels' twin (the transpose of window_tiles)."""
+    if k0 >= kv_len:
+        return range(0)
+    lo = min(k0 // q_tile, n_q) if causal else 0
+    hi = n_q
+    if window is not None and k0 >= sinks:
+        last = k0 + kv_rows + window - 2
+        hi = min(n_q, last // q_tile + 1) if last >= 0 else 0
+    return range(lo, max(lo, hi))
+
+
+def reference_tiles(sq_pad: int, skv_pad: int, causal: bool, window,
+                    block_sizes: "BlockSizes | None" = None) -> tuple[int, int]:
+    """(block_q, block_k) of the JAX forward for this call: its BlockSizes
+    (default(causal, window) unless given) fitted to the padded lengths.
+    They decide which rows' lse is -inf (dead_row_lse); the port's kernels
+    keep their own tiles."""
+    bs = block_sizes or BlockSizes.default(causal, window=window)
+    return fit_block(bs.block_q, sq_pad), fit_block(bs.block_k, skv_pad)
+
+
+def dead_row_lse(q_len: int, skv_pad: int, *, causal: bool, window, sinks: int,
+                 block_q: int, block_k: int, device) -> torch.Tensor:
     """The lse of each row [q_len] were it to keep no key (its O is 0), as
-    the JAX forward gives it on its 128-row tiles: -inf where the row's
-    128-row Q tile walks no 128-key tile at all (a KV of several tiles), else
-    the mask value times ln 2 (the tile was visited, every score masked).
-    The kernels apply the same rule to their dead rows."""
+    the JAX forward gives it on its own tiles (block_q x block_k, from
+    `reference_tiles`): -inf where the row's Q tile walks no KV tile at all (a KV
+    of several tiles), else the mask value times ln 2 (a tile was
+    visited, every score masked).  A tile is walked when it holds a column
+    at or below the Q tile's last row (causal) and, under a window, one
+    that the Q tile's first row keeps or a sink.  The kernels apply the
+    same rule to their dead rows (csrc/fa2_forward.cu dead_row_lse)."""
     out = torch.full((q_len,), DEFAULT_MASK_VALUE, dtype=torch.float32,
                      device=device) * LN2
-    if kv_len <= MIN_BLOCK or window is None:
+    if skv_pad // block_k <= 1 or window is None:
         return out
-    for q0 in range(0, q_len, MIN_BLOCK):
-        end = min(kv_len, q0 + MIN_BLOCK) if causal else kv_len
-        if window_tiles(q0 - window + 1, end, sinks, MIN_BLOCK)[2] == 0:
-            out[q0:q0 + MIN_BLOCK] = float("-inf")
+    for q0 in range(0, q_len, block_q):
+        end = min(skv_pad, q0 + block_q) if causal else skv_pad
+        if window_tiles(q0 - window + 1, end, sinks, block_k)[2] == 0:
+            out[q0:q0 + block_q] = float("-inf")
     return out

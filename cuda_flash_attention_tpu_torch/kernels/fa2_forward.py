@@ -10,9 +10,13 @@ versions.
 Each source note says what bounds its kernel on the H100 and how the design
 answers that.  On a CPU tensor a wrapper runs its plain version; on a CUDA
 tensor it launches its kernel or raises.  Both take a sliding window (or,
-non-causal, a recency band whose offset may be <= 0) and attention sinks;
-a windowed launch also counts under `fa2_forward_window` or
-`fa2_forward_small_window`.
+non-causal, a recency band whose offset may be <= 0), attention sinks and
+segment ids (q_seg [B, Sq_pad], kv_seg [B, Skv_pad] int32, as
+common.pack_segments pads them: a row keeps only the keys of its own
+segment); a windowed launch also counts under `<name>_window`, a
+segmented one under `<name>_segments`.  A row that keeps no key gives O =
+0 and the lse of the JAX forward's tile walk (common.dead_row_lse, on the
+tiles `lse_tiles`, by default those of BlockSizes.default).
 """
 
 from __future__ import annotations
@@ -32,6 +36,8 @@ from cuda_flash_attention_tpu_torch.kernels.common import (
     TILE_DTYPES,
     build_element_mask,
     dead_row_lse,
+    reference_tiles,
+    round_up,
     tile_code,
 )
 
@@ -44,7 +50,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("fa2_forward")
     fn = lib.cfa_fa2_forward
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 5 + [_I] * 7 + [_F] + [_I] * 5 + [_P]
+        fn.argtypes = [_P] * 7 + [_I] * 7 + [_F] + [_I] * 7 + [_P]
         fn.restype = _I
     return lib
 
@@ -53,9 +59,25 @@ def _small_lib() -> ctypes.CDLL:
     lib = _build.load("fa2_forward_small")
     fn = lib.cfa_fa2_forward_small
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 5 + [_I] * 4 + [_F] + [_I] * 5 + [_P]
+        fn.argtypes = [_P] * 7 + [_I] * 5 + [_F] + [_I] * 5 + [_P]
         fn.restype = _I
     return lib
+
+
+def seg_args(q_seg, kv_seg, b: int, sq: int, skv: int):
+    """The kernels' segment-id pointers (0, 0 without ids): q_seg and
+    kv_seg as int32 [B, round_up(S, 128)] on the card (rows past the ids
+    padded; their value is irrelevant), and the tensors that hold them."""
+    if q_seg is None:
+        return (None, 0, 0)
+    held = tuple(
+        torch.nn.functional.pad(ids.to(torch.int32),
+                                (0, round_up(n, MIN_BLOCK) - ids.shape[1])).contiguous()
+        for ids, n in ((q_seg, sq), (kv_seg, skv)))
+    for ids, n in zip(held, (sq, skv)):
+        if ids.shape != (b, round_up(n, MIN_BLOCK)):
+            raise ValueError(f"segment ids must be [batch, seq]; got {tuple(ids.shape)}")
+    return (held, held[0].data_ptr(), held[1].data_ptr())
 
 
 def _check_inputs(name, q, k, v, tile_dtype):
@@ -78,17 +100,22 @@ def _check_inputs(name, q, k, v, tile_dtype):
 
 def fa2_forward_aligned(q, k, v, *, causal: bool, sm_scale: float,
                         kv_len: int, tile_dtype=None, window=None,
-                        sinks: int = 0):
+                        sinks: int = 0, q_seg=None, kv_seg=None,
+                        lse_tiles=None):
     """FA2 forward over sequence-padded q [B, Hq, Sq, D] and k/v
     [B, Hkv, Skv, D] (Hq a multiple of Hkv; query head h reads KV head
-    h // (Hq // Hkv)).  Keys at or past `kv_len` are masked, and with a
+    h // (Hq // Hkv)).  Keys at or past `kv_len` are masked, with a
     window those a row keeps neither by distance (row - col < window) nor
-    as a sink (col < sinks).  Returns (O like q, lse [B, Hq, Sq] fp32,
-    natural log; a row with no key: kernels/common.py dead_row_lse)."""
+    as a sink (col < sinks), and with segment ids those of another
+    segment.  Returns (O like q, lse [B, Hq, Sq] fp32, natural log; a row
+    with no key: kernels/common.py dead_row_lse on `lse_tiles`)."""
+    if lse_tiles is None:
+        lse_tiles = reference_tiles(q.shape[2], k.shape[2], causal, window)
     if q.device.type == "cpu":
         return fa2_forward_plain(q, k, v, causal=causal, sm_scale=sm_scale,
                                  kv_len=kv_len, tile_dtype=tile_dtype,
-                                 window=window, sinks=sinks)
+                                 window=window, sinks=sinks, q_seg=q_seg,
+                                 kv_seg=kv_seg, lse_tiles=lse_tiles)
     if q.device.type != "cuda":
         raise ValueError(f"fa2_forward: unsupported device {q.device}")
     b, hq, sq, d = q.shape
@@ -103,28 +130,30 @@ def fa2_forward_aligned(q, k, v, *, causal: bool, sm_scale: float,
         k, v = k.to(tile_dtype), v.to(tile_dtype)
     o = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), device=q.device, dtype=torch.float32)
+    held, q_ids, kv_ids = seg_args(q_seg, kv_seg, b, sq, skv)
     lib = _lib()
     err = lib.cfa_fa2_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        b, hq, hkv, sq, skv, d, kv_len, sm_scale * LOG2E, int(causal),
-        NO_WINDOW if window is None else int(window), int(sinks),
-        int(q.dtype == torch.bfloat16), tile_code(q.dtype, tile_dtype),
+        q_ids, kv_ids, b, hq, hkv, sq, skv, d, kv_len, sm_scale * LOG2E,
+        int(causal), NO_WINDOW if window is None else int(window), int(sinks),
+        *lse_tiles, int(q.dtype == torch.bfloat16), tile_code(q.dtype, tile_dtype),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, "cfa_fa2_forward_error_string", err, "fa2_forward")
-    launches.count("fa2_forward", window)
+    launches.count("fa2_forward", window, held)
     return o, lse
 
 
 def fa2_forward_small_aligned(q, k, v, *, causal: bool, sm_scale: float,
                               kv_len: int, tile_dtype=None, window=None,
-                              sinks: int = 0):
+                              sinks: int = 0, q_seg=None, kv_seg=None):
     """B8: FA2 forward over padded q/k/v [B, H, S_pad, D] with S_pad <= 128
     and one KV head per query head, every (batch, head) pair one slot that
     sees only its own keys.  Keys at or past `kv_len` are masked.  Returns
     (O like q, lse [B, H, S_pad] fp32, natural log).  Its function is B1's
-    at these shapes, window and sinks included; the kernel takes the whole
-    row in one tile."""
+    at these shapes, window, sinks and segment ids included; the kernel
+    takes the whole row in one tile (so a dead row's lse is the mask value
+    times ln 2)."""
     b, h, s_pad, d = q.shape
     if k.shape != q.shape or v.shape != q.shape or s_pad > MIN_BLOCK:
         raise ValueError(
@@ -134,41 +163,44 @@ def fa2_forward_small_aligned(q, k, v, *, causal: bool, sm_scale: float,
         return fa2_forward_small_plain(q, k, v, causal=causal,
                                        sm_scale=sm_scale, kv_len=kv_len,
                                        tile_dtype=tile_dtype, window=window,
-                                       sinks=sinks)
+                                       sinks=sinks, q_seg=q_seg, kv_seg=kv_seg)
     if q.device.type != "cuda":
         raise ValueError(f"fa2_forward_small: unsupported device {q.device}")
     _check_inputs("fa2_forward_small", q, k, v, tile_dtype)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s_pad), device=q.device, dtype=torch.float32)
+    held, q_ids, kv_ids = seg_args(q_seg, kv_seg, b, s_pad, s_pad)
     lib = _small_lib()
     err = lib.cfa_fa2_forward_small(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        b * h, s_pad, d, kv_len, sm_scale * LOG2E, int(causal),
+        q_ids, kv_ids, b * h, h, s_pad, d, kv_len, sm_scale * LOG2E, int(causal),
         NO_WINDOW if window is None else int(window), int(sinks),
         int(q.dtype == torch.bfloat16), tile_code(q.dtype, tile_dtype),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, "cfa_fa2_forward_small_error_string", err,
                  "fa2_forward_small")
-    launches.count("fa2_forward_small", window)
+    launches.count("fa2_forward_small", window, held)
     return o, lse
 
 
 def fa2_forward_small_plain(q, k, v, *, causal: bool, sm_scale: float,
                             kv_len: int, tile_dtype=None, window=None,
-                            sinks: int = 0):
+                            sinks: int = 0, q_seg=None, kv_seg=None):
     """B8's function in plain PyTorch: one exact softmax over each slot's
     whole row, with B1's rounding points (fa2_forward_plain, which takes
     the whole row at once too; at S <= 128 a dead row's lse is the mask
     value's, as B8's one tile gives it)."""
     return fa2_forward_plain(q, k, v, causal=causal, sm_scale=sm_scale,
                              kv_len=kv_len, tile_dtype=tile_dtype,
-                             window=window, sinks=sinks)
+                             window=window, sinks=sinks, q_seg=q_seg,
+                             kv_seg=kv_seg)
 
 
 def fa2_forward_plain(q, k, v, *, causal: bool, sm_scale: float,
                       kv_len: int, tile_dtype=None, window=None,
-                      sinks: int = 0):
+                      sinks: int = 0, q_seg=None, kv_seg=None,
+                      lse_tiles=None):
     """The kernel's function in plain PyTorch, with the TPU kernel's rounding
     points: Q is scaled by sm_scale*log2(e) in fp32 and then rounded to the
     tile type; K and V are cast to it; S and the softmax are fp32 (exp2
@@ -197,7 +229,7 @@ def fa2_forward_plain(q, k, v, *, causal: bool, sm_scale: float,
     s = qs @ ks.transpose(-1, -2)
     mask = build_element_mask(q.shape[2], k.shape[2], causal=causal,
                               kv_len=kv_len, device=q.device, window=window,
-                              sinks=sinks)
+                              sinks=sinks, q_seg=q_seg, kv_seg=kv_seg)
     if mask is not None:
         s = s + torch.where(mask, 0.0, DEFAULT_MASK_VALUE)
     m = s.amax(dim=-1, keepdim=True)
@@ -208,9 +240,12 @@ def fa2_forward_plain(q, k, v, *, causal: bool, sm_scale: float,
     pv = p.to(eff).float() @ vs
     o = pv * torch.where(l == 0.0, 1.0, 1.0 / l)
     lse = m * LN2 + torch.log(torch.where(l == 0.0, 1.0, l))
-    if window is not None:
+    if window is not None or q_seg is not None:
         # A row with no key: the lse of the JAX forward's tile walk.
-        dead = dead_row_lse(q.shape[2], kv_len, causal=causal, window=window,
-                            sinks=sinks, device=q.device)[:, None]
+        bq, bk = lse_tiles or reference_tiles(q.shape[2], k.shape[2], causal,
+                                              window)
+        dead = dead_row_lse(q.shape[2], k.shape[2], causal=causal,
+                            window=window, sinks=sinks, block_q=bq,
+                            block_k=bk, device=q.device)[:, None]
         lse = torch.where(l == 0.0, dead, lse)
     return o.to(q.dtype), lse[..., 0]

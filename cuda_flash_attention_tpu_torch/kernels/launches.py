@@ -5,7 +5,8 @@
   paged_chunk (B6; paged_chunk_fp32_tile counts the launches of those that
   ran its fp32 tile body), fa2_forward_quant (B7), fa1 (B9), naive_fa2
   (B10), r5_d128_fwd (X).  A launch with a sliding window also counts under
-  the kernel's name with `_window` appended (B1, B8, B5, B6).
+  the kernel's name with `_window` appended (B1-B6, B8), and one with
+  segment ids under `_segments` (B1-B4, B8).
 
 A wrapper adds one where it launches its kernel and nowhere else.  A
 reader sets counts to 0 (`reset`) and reads `LAUNCHES`; a missing name
@@ -19,12 +20,14 @@ import collections
 LAUNCHES: collections.Counter[str] = collections.Counter()
 
 
-def count(name: str, window=None) -> None:
+def count(name: str, window=None, segments=None) -> None:
     """One launch of kernel `name`, with a sliding window unless `window`
-    is None."""
+    is None and with segment ids unless `segments` is None."""
     LAUNCHES[name] += 1
     if window is not None:
         LAUNCHES[name + "_window"] += 1
+    if segments is not None:
+        LAUNCHES[name + "_segments"] += 1
 
 
 def reset(*names: str) -> None:

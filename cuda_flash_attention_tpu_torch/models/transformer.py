@@ -42,8 +42,7 @@ class TransformerConfig:
     # attn_window=W restricts each query to the last W keys, and
     # global_every > 0 keeps every global_every-th layer global.  With a
     # window, attn_sinks keeps the first keys attendable too (StreamingLLM).
-    # The forward runs them in B1/B8; the backward raises until its kernels
-    # take windows.
+    # They run in every kernel of the path, forward and backward.
     attn_window: int | None = None
     global_every: int = 0
     attn_sinks: int = 0

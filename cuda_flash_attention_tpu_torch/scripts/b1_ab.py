@@ -3,9 +3,12 @@ timed in turns on one card.
 
     python -m cuda_flash_attention_tpu_torch.scripts.b1_ab --parent PATH
 
-PATH is an earlier fa2_forward.cu with the same C entry point
-(cfa_fa2_forward) that takes K and V in the input type, as the source before
-the wgmma redesign did (e.g. `git show <commit>:cuda_flash_attention_tpu_torch/
+PATH is an earlier fa2_forward.cu (cfa_fa2_forward); its parameter list is
+read from the source (before windows none; then window and sinks; now
+segment ids and the dead rows' tiles too), and the call passes no window,
+sinks or ids; K and V go in the input type, or in the tile type to a
+source that loads them by TMA (the wgmma design on), as the current
+wrapper casts them (e.g. `git show <commit>:cuda_flash_attention_tpu_torch/
 csrc/fa2_forward.cu > build/parent/fa2_forward.cu`).  It is built with the
 package's nvcc flags into build/kernels/ and called through a copy of its
 own wrapper; the current kernel is called through `fa2_forward_aligned`,
@@ -30,15 +33,22 @@ import argparse
 import ctypes
 import hashlib
 import json
+import re
 import subprocess
 import time
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
 from cuda_flash_attention_tpu_torch.kernels import _build, attention
 from cuda_flash_attention_tpu_torch.kernels import fa2_forward as fa2
-from cuda_flash_attention_tpu_torch.kernels.common import LOG2E, tile_code
+from cuda_flash_attention_tpu_torch.kernels.common import (
+    LOG2E,
+    NO_WINDOW,
+    reference_tiles,
+    tile_code,
+)
 from cuda_flash_attention_tpu_torch.utils.timing import (
     device_benchmark,
     queued_device_benchmark,
@@ -176,29 +186,54 @@ def card_line() -> str:
                           capture_output=True, text=True).stdout.strip()
 
 
+def entry_params(source: str, name: str) -> list[tuple[str, type]]:
+    """(name, ctypes type) of each parameter of the C entry point `name` in
+    a source's text: pointers as c_void_p, int and float as themselves."""
+    params = re.search(rf"\b{name}\(([^)]*)\)\s*{{", source).group(1)
+    out = []
+    for p in params.split(","):
+        words = p.replace("const ", "").replace("*", " * ").split()
+        kind = (ctypes.c_void_p if "*" in words else
+                {"int": ctypes.c_int, "float": ctypes.c_float}[words[0]])
+        out.append((words[-1], kind))
+    return out
+
+
 def build_parent(path: str) -> ctypes.CDLL:
-    """PATH compiled with the package's flags into build/kernels/."""
+    """PATH compiled with the package's flags into build/kernels/, its
+    cfa_fa2_forward typed by the parameter list in its source."""
     lib = compile_source(path, "b1_parent")
-    lib.cfa_fa2_forward.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-                                    + [ctypes.c_float] + [ctypes.c_int] * 3
-                                    + [ctypes.c_void_p])
+    source = Path(path).read_text()
+    params = entry_params(source, "cfa_fa2_forward")
+    lib.cfa_fa2_forward.argtypes = [t for _, t in params]
     lib.cfa_fa2_forward.restype = ctypes.c_int
+    lib.b1_params = [n for n, _ in params]
+    # From the wgmma redesign on, K and V reach the kernel by TMA, in the
+    # tile type (the wrapper casts them, as the current one does).
+    lib.b1_kv_in_tile = "tma_load_3d" in source
     return lib
 
 
 def parent_forward(lib, q, k, v, *, causal, sm_scale, kv_len, tile_dtype):
     """The parent's wrapper: the same checks and allocations, K and V passed
-    in the input type."""
+    in the input type (in the tile type to a source that loads them by
+    TMA); no window, sinks or segment ids."""
     b, hq, sq, d = q.shape
     fa2._check_inputs("fa2_forward", q, k, v, tile_dtype)
+    if getattr(lib, "b1_kv_in_tile", False) and tile_dtype not in (None, q.dtype):
+        k, v = k.to(tile_dtype), v.to(tile_dtype)
     o = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), device=q.device, dtype=torch.float32)
-    err = lib.cfa_fa2_forward(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        b, hq, k.shape[1], sq, k.shape[2], d, kv_len, sm_scale * LOG2E,
-        int(causal), int(q.dtype == torch.bfloat16),
-        tile_code(q.dtype, tile_dtype),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    dead_bq, dead_bk = reference_tiles(sq, k.shape[2], causal, None)
+    values = dict(
+        q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), o=o.data_ptr(),
+        lse=lse.data_ptr(), q_seg=None, kv_seg=None, batch=b, hq=hq,
+        hkv=k.shape[1], sq=sq, skv=k.shape[2], head_dim=d, kv_len=kv_len,
+        qscale=sm_scale * LOG2E, causal=int(causal), window=NO_WINDOW, sinks=0,
+        dead_bq=dead_bq, dead_bk=dead_bk, in_bf16=int(q.dtype == torch.bfloat16),
+        tiles=tile_code(q.dtype, tile_dtype),
+        stream=torch.cuda.current_stream(q.device).cuda_stream)
+    err = lib.cfa_fa2_forward(*(values[n] for n in lib.b1_params))
     _build.check(lib, "cfa_fa2_forward_error_string", err, "parent fa2_forward")
     return o, lse
 

@@ -48,6 +48,24 @@ def efficient_backward(q, k, v, do, scale, causal=False):
         causal, scale=scale)
 
 
+def masked_backward(q, k, v, do, scale, mask):
+    """SDPA's backward with `mask` (boolean, True keeps; [S, S] or [B, 1, S,
+    S]) as its attention bias (0 kept, the type's lowest value masked, so a
+    row that keeps no key stays finite), in q's type: the memory-efficient
+    backward, fed by its own forward, on K and V with q's heads.  The
+    yardstick of a windowed or segmented backward."""
+    bias = torch.zeros(mask.shape, dtype=q.dtype, device=q.device).masked_fill_(
+        ~mask, torch.finfo(q.dtype).min)
+    if bias.ndim == 2:
+        bias = bias[None, None]
+    bias = bias.expand(q.shape[0], q.shape[1], q.shape[2], k.shape[2])
+    o, lse, seed, offset = torch.ops.aten._scaled_dot_product_efficient_attention(
+        q, k, v, bias, True, 0.0, False, scale=scale)
+    return lambda: torch.ops.aten._scaled_dot_product_efficient_attention_backward(
+        do, q, k, v, bias, o, lse, seed, offset, 0.0, [True, True, True, False],
+        False, scale=scale)
+
+
 def fused_route(q, k) -> bool:
     """Whether the registry's fp32 backward takes B2 (True) or B3 + B4 at
     q and k's shapes, D 64 and not causal: attention._use_fused_bwd at the

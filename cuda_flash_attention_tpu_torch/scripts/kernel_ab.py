@@ -14,6 +14,7 @@ of its source, timed in turns on one card.
     python -m cuda_flash_attention_tpu_torch.scripts.kernel_ab --kernel b4 --parent PATH
     python -m cuda_flash_attention_tpu_torch.scripts.kernel_ab --kernel b3-b4 --parent PATH
     python -m cuda_flash_attention_tpu_torch.scripts.kernel_ab --kernel b3-b4-fp32 --parent PATH
+    python -m cuda_flash_attention_tpu_torch.scripts.kernel_ab --kernel b2-masked --parent PATH
     python -m cuda_flash_attention_tpu_torch.scripts.kernel_ab --kernel b9 --parent PATH
     python -m cuda_flash_attention_tpu_torch.scripts.kernel_ab --kernel b10 --parent PATH
     python -m cuda_flash_attention_tpu_torch.scripts.kernel_ab --kernel b1-fp32 --parent PATH
@@ -25,7 +26,7 @@ of its source, timed in turns on one card.
     python -m cuda_flash_attention_tpu_torch.scripts.kernel_ab --kernel x --parent PATH
 
 PATH is an earlier fa2_backward.cu (b2, b3, b4, b3-b4 and their -fp32
-forms), baselines.cu (b9, b10), fa2_forward.cu (b1-fp32),
+and -masked forms), baselines.cu (b9, b10), fa2_forward.cu (b1-fp32),
 fa2_forward_small.cu (b8), paged_decode.cu (b5), paged_chunk.cu (b6),
 fa2_forward_quant.cu (b7, b7-fp32) or r5_d128_fwd.cu (x) with the same C
 entry point: cfa_fa2_forward_small; cfa_r5_d128_fwd; cfa_fa2_forward_quant
@@ -36,9 +37,11 @@ cfa_paged_decode_workspace_floats or cfa_paged_chunk_workspace_floats is
 launched as the current wrapper launches it); cfa_fa2_backward_fused,
 cfa_fa2_backward_dq and
 cfa_fa2_backward_dkv with or without a workspace (a source that exports
-cfa_fa2_backward_workspace, such as a variant of the current one, is
-called as the current wrappers call it, B2 with its dQ reduce; without
-it, B2's wrapper summed every dQ slice with torch); cfa_fa1_forward,
+cfa_fa2_backward_workspace is called with one, B2 with its dQ reduce, as
+the wrappers of its interface call it; without it, B2's wrapper summed
+every dQ slice with torch; a source that also exports
+cfa_fa2_backward_masks, such as a variant of the current one, takes the
+window, the sinks and segment ids as the current wrappers pass them); cfa_fa1_forward,
 cfa_naive_fa2_forward or cfa_fa2_forward (e.g. `git show <commit>:cuda_flash_attention_tpu_torch/csrc/baselines.cu >
 build/parent/baselines.cu`; the headers it includes are looked up beside
 it first, then in csrc/).  It is built with the package's nvcc flags into
@@ -55,7 +58,13 @@ Stress-1; B10_CASES: those and Stress-1 at D 128; B1_FP32_CASES: Stress-1
 non-causal, b1_ab's fp32 B1 S512, the train shape in fp32 at D 64 and
 128; FP32_BWD_CASES, for the fp32 bodies of B2, B3, B4 and the pair:
 fp32_bwd's Large-2 and Stress-1, phase 7's fp32 B1 S512 and the fp32
-train shape at D 64 and 128; B8_CASES: phase 16's 18 rows; B5_CASES:
+train shape at D 64 and 128; MASKED_CASES, for B2, B3, B4 and the pair as
+b2-masked, b3-masked, b4-masked and b3-b4-masked: chip_smoke phase 26's
+train-shape rows, window 128 (the hybrid's local layers), window 512
+with 4 sinks (streaming's layers), window 128 at D 128 and 4 packed
+documents a row; a parent without cfa_fa2_backward_masks runs the same
+call without its window, sinks and ids, and its line then says
+`parent_function: "global"` and gives no output difference; B8_CASES: phase 16's 18 rows; B5_CASES:
 phase 3's rows, phase 20's fp8 and int4 rows, serving's decode lengths
 and a long D128 case; B6_CASES: phase 12's five rows, phase 20's fp8 and
 int4 rows, T 1, 2 and 8 at phase 12's lengths, a one-page suffix (T
@@ -102,6 +111,8 @@ from cuda_flash_attention_tpu_torch.kernels import fa2_forward as fa2
 from cuda_flash_attention_tpu_torch.kernels import fa2_forward_quant as fq
 from cuda_flash_attention_tpu_torch.kernels.common import (
     LOG2E,
+    NO_WINDOW,
+    build_element_mask,
     kv_storage_cast,
     seq_pad_quantum,
     tile_code,
@@ -132,6 +143,15 @@ B9_CASES = [
 # (B1 Hq16 Hkv8 S8192: 2 GiB of dQ slices).
 SPLIT_CASES = B2_CASES[:3] + [dict(_TRAIN, name="B16 S2048", b=16)] + B2_CASES[3:] + [
     dict(_TRAIN, name="long B1 S8192", b=1, s=8192)]
+# B2, B3, B4 and the pair with a window, sinks or segment ids: chip_smoke
+# phase 26 (a)'s and (b)'s train-shape rows (B4 Hq16 Hkv8 S2048 causal
+# bf16).
+MASKED_CASES = [
+    dict(_TRAIN, name="train w128", window=128),
+    dict(_TRAIN, name="train w512 s4", window=512, sinks=4),
+    dict(_TRAIN, name="train D128 w128", d=128, window=128),
+    dict(_TRAIN, name="train 4 documents", segments=4),
+]
 # B10: phase 16's rows and Stress-1 at D 128.
 B10_CASES = B9_CASES + [dict(B9_CASES[-1], name="Stress-1 D128", d=128)]
 # B1's fp32 body (b1_ab's case format, Sq = Skv = s): the suite's Stress-1
@@ -241,7 +261,9 @@ X_CASES = [dict(name=variant, variant=variant, b=r5.B, hq=r5.H, hkv=r5.H, s=r5.S
                 d=r5.D, causal=False, dtype="bf16", tile="bf16")
            for variant in r5.VARIANTS]
 CASES = {"b2": B2_CASES, "b3": SPLIT_CASES, "b4": SPLIT_CASES,
-         "b3-b4": SPLIT_CASES, "b9": B9_CASES, "b10": B10_CASES,
+         "b3-b4": SPLIT_CASES, "b2-masked": MASKED_CASES,
+         "b3-masked": MASKED_CASES, "b4-masked": MASKED_CASES,
+         "b3-b4-masked": MASKED_CASES, "b9": B9_CASES, "b10": B10_CASES,
          "b1-fp32": B1_FP32_CASES, "b2-fp32": FP32_BWD_CASES,
          "b3-fp32": FP32_BWD_CASES, "b4-fp32": FP32_BWD_CASES,
          "b3-b4-fp32": FP32_BWD_CASES, "b8": B8_CASES, "b5": B5_CASES,
@@ -256,7 +278,9 @@ _MATMULS = {"b2": 5, "b3": 3, "b4": 4, "b3-b4": 5, "b9": 2, "b10": 2,
 # case's).
 _FP32_BODIES = {"b2-fp32": "b2", "b3-fp32": "b3", "b4-fp32": "b4",
                 "b3-b4-fp32": "b3-b4"}
-_SAME_PROBLEM = {**_FP32_BODIES, "b7-fp32": "b7"}
+_MASKED = {"b2-masked": "b2", "b3-masked": "b3", "b4-masked": "b4",
+           "b3-b4-masked": "b3-b4"}
+_SAME_PROBLEM = {**_FP32_BODIES, **_MASKED, "b7-fp32": "b7"}
 
 
 def backward_of(kernel: str) -> str:
@@ -267,12 +291,33 @@ def backward_of(kernel: str) -> str:
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# The backward's entry points with a workspace and without a window, sinks
+# or segment ids (193d270 to 2e67868).
+WORKSPACE_ARGTYPES = {
+    "cfa_fa2_backward_fused": [_P] * 9 + [_I] * 7 + [_F] + [_I] * 3 + [_P, _P],
+    "cfa_fa2_backward_workspace": [_I] * 8,
+    "cfa_fa2_backward_dq_reduce": [_P, _P] + [_I] * 7 + [_F] + [_I] * 2 + [_P],
+    "cfa_fa2_backward_dkv": [_P] * 8 + [_I] * 7 + [_F] + [_I] * 3 + [_P, _P],
+    "cfa_fa2_backward_dq": [_P] * 7 + [_I] * 7 + [_F, _F] + [_I] * 3 + [_P, _P],
+}
+
+
+def packed_ids(b: int, s: int, n_docs: int, seed: int = 0) -> torch.Tensor:
+    """[b, s] int32 ids of n_docs contiguous documents a row, cut at seeded
+    random points (chip_smoke phase 26's packing)."""
+    rng = np.random.default_rng(seed)
+    ids = np.zeros((b, s), np.int32)
+    for i in range(b):
+        cuts = np.sort(rng.choice(np.arange(1, s), n_docs - 1, replace=False))
+        ids[i] = np.searchsorted(cuts, np.arange(s), side="right")
+    return torch.from_numpy(ids)
 
 
 def b2_problem(case, gen):
     """The case's padded inputs on gen's device as chip_smoke's bwd_problem
     builds them: q, k, v, dO random, O and lse from B1; B2's keyword
-    arguments; the raw (unpadded) q, k, v, dO."""
+    arguments (with the case's window, sinks and packed segment ids); the
+    raw (unpadded) q, k, v, dO."""
     dt, tile = b1_ab.dtype_of(case["dtype"]), b1_ab.dtype_of(case["tile"])
     b, s, d = case["b"], case["s"], case["d"]
     q, do = (torch.randn(b, case["hq"], s, d, generator=gen, device=gen.device)
@@ -280,15 +325,32 @@ def b2_problem(case, gen):
     k, v = (torch.randn(b, case["hkv"], s, d, generator=gen, device=gen.device)
             .to(dt) for _ in range(2))
     raw = (q, k, v, do)
+    ids = (packed_ids(b, s, case["segments"]).to(gen.device)
+           if case.get("segments") else None)
+    window, sinks = attention._window_of(case.get("window"), case.get("sinks", 0),
+                                         case["causal"], q, k)
     q, k, v, scale, _, kv_len = attention._prepare(
-        q, k, v, case["causal"], None, tile, None, None, None, 0)
-    o, lse = fa2.fa2_forward_aligned(q, k, v, causal=case["causal"],
-                                     sm_scale=scale, kv_len=kv_len,
-                                     tile_dtype=tile)
-    do = F.pad(do, (0, 0, 0, q.shape[2] - s)).contiguous()
+        q, k, v, case["causal"], None, tile, ids, ids, window, sinks)
+    q_seg, kv_seg = attention._segments_of(ids, ids, q, k)
     kw = dict(causal=case["causal"], sm_scale=scale, kv_len=kv_len,
               tile_dtype=tile)
+    if window is not None or ids is not None:
+        kw.update(window=window, sinks=sinks, q_seg=q_seg, kv_seg=kv_seg)
+    o, lse = fa2.fa2_forward_aligned(q, k, v, **kw)
+    do = F.pad(do, (0, 0, 0, q.shape[2] - s)).contiguous()
     return (q, k, v, o, do, lse), kw, raw
+
+
+def masked_pairs(case) -> int:
+    """(query, key) pairs that attend under the case's causal flag, window,
+    sinks and segment ids, over the unpadded rows, summed over the batch."""
+    ids = (packed_ids(case["b"], case["s"], case["segments"])
+           if case.get("segments") else None)
+    mask = build_element_mask(case["s"], case["s"], causal=case["causal"],
+                              kv_len=case["s"], device="cpu",
+                              window=case.get("window"), sinks=case.get("sinks", 0),
+                              q_seg=ids, kv_seg=ids)
+    return int(mask.expand(case["b"], 1, case["s"], case["s"]).sum())
 
 
 def split_problem(case, gen):
@@ -428,6 +490,8 @@ def flops(kernel: str, case) -> int:
     if kernel in ("b5", "b6"):  # 4 D FLOPs per (query head, attended column)
         return 4 * case["d"] * case["hq"] * attended_columns(case["lengths"],
                                                              case.get("T", 1))
+    if kernel in _MASKED:
+        return _MATMULS[backward_of(kernel)] * 2 * case["hq"] * masked_pairs(case) * case["d"]
     pairs = b1_ab.attended_pairs(case["s"], case["s"], case["causal"])
     return _MATMULS[backward_of(kernel)] * 2 * case["b"] * case["hq"] * pairs * case["d"]
 
@@ -498,6 +562,17 @@ def library_call(kernel: str, case, raw, kw):
     X's P is JAX's bf16 exp chain, not SDPA's)."""
     if backward_of(kernel) in ("b3", "b4", "b5", "b6", "b7"):
         return None
+    if kernel in _MASKED:  # SDPA's backward with the mask as its bias
+        q, k, v, do = raw
+        groups = q.shape[1] // k.shape[1]
+        k, v = (t.repeat_interleave(groups, dim=1) for t in (k, v))
+        ids = (packed_ids(case["b"], case["s"], case["segments"]).to(q.device)
+               if case.get("segments") else None)
+        mask = build_element_mask(case["s"], case["s"], causal=case["causal"],
+                                  kv_len=case["s"], device=q.device,
+                                  window=kw.get("window"), sinks=kw.get("sinks", 0),
+                                  q_seg=ids, kv_seg=ids)
+        return fp32_bwd.masked_backward(q, k, v, do, kw["sm_scale"], mask)
     if kernel == "b8":  # SDPA on the raw inputs in the tile type
         return lambda: F.scaled_dot_product_attention(
             *raw, is_causal=case["causal"], scale=kw["sm_scale"])
@@ -533,9 +608,11 @@ def build_parent(kernel: str, path: str) -> ctypes.CDLL:
     if kernel == "b1-fp32":
         return b1_ab.build_parent(path)
     lib = b1_ab.compile_source(path, f"{Path(path).stem}_parent")
-    if kernel == "b8":
-        lib.cfa_fa2_forward_small.argtypes = [_P] * 5 + [_I] * 4 + [_F, _I, _I, _I, _P]
+    if kernel == "b8":  # typed by the parameter list in its source
+        params = b1_ab.entry_params(Path(path).read_text(), "cfa_fa2_forward_small")
+        lib.cfa_fa2_forward_small.argtypes = [t for _, t in params]
         lib.cfa_fa2_forward_small.restype = _I
+        lib.b8_params = [n for n, _ in params]
         return lib
     if kernel == "x":
         lib.cfa_r5_d128_fwd.argtypes = r5.ARGTYPES
@@ -565,7 +642,9 @@ def build_parent(kernel: str, path: str) -> ctypes.CDLL:
         return lib
     if kernel in ("b2", "b3", "b4", "b3-b4"):
         if hasattr(lib, "cfa_fa2_backward_workspace"):
-            for name, argtypes in bwd.ARGTYPES.items():
+            masks = hasattr(lib, "cfa_fa2_backward_masks")
+            for name, argtypes in (bwd.ARGTYPES if masks
+                                   else WORKSPACE_ARGTYPES).items():
                 getattr(lib, name).argtypes = argtypes
                 getattr(lib, name).restype = _I
             lib.cfa_fa2_backward_workspace.restype = ctypes.c_longlong
@@ -585,11 +664,32 @@ def build_parent(kernel: str, path: str) -> ctypes.CDLL:
     return lib
 
 
-def parent_b2(lib, q, k, v, o, do, lse, *, causal, sm_scale, kv_len, tile_dtype):
+def takes_masks(lib) -> bool:
+    """Whether a parent backward source takes the window, the sinks and
+    segment ids (it exports cfa_fa2_backward_masks)."""
+    return hasattr(lib, "cfa_fa2_backward_masks")
+
+
+def _masks(lib, q, k, window, sinks, q_seg, kv_seg):
+    """(the mask arguments after the causal flag of B2, B3 or B4, those of
+    the reduce, the tensors holding the ids) for a parent that takes them;
+    nothing for one that does not (it computes the call without them)."""
+    if not takes_masks(lib):
+        return (), (), None
+    held, q_ids, kv_ids = fa2.seg_args(q_seg, kv_seg, q.shape[0], q.shape[2],
+                                       k.shape[2])
+    win = NO_WINDOW if window is None else int(window)
+    return (win, int(sinks), q_ids, kv_ids), (win, int(sinks)), held
+
+
+def parent_b2(lib, q, k, v, o, do, lse, *, causal, sm_scale, kv_len, tile_dtype,
+              window=None, sinks=0, q_seg=None, kv_seg=None):
     """The parent's wrapper: with a workspace (a source exporting
     cfa_fa2_backward_workspace) the kernel writes the live dQ slices and
-    its reduce adds them, as the current wrapper calls them; without one
-    the kernel writes every slice and torch sums them."""
+    its reduce adds them, as the wrappers of its interface call them (with
+    the window, sinks and ids where it takes them); without one the kernel
+    writes every slice and torch sums them."""
+    masks, reduce_masks, held = _masks(lib, q, k, window, sinks, q_seg, kv_seg)
     b, hq, sq, d = q.shape
     in_bf16, tiles = int(q.dtype == torch.bfloat16), tile_code(q.dtype, tile_dtype)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -608,22 +708,25 @@ def parent_b2(lib, q, k, v, o, do, lse, *, causal, sm_scale, kv_len, tile_dtype)
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), dk.data_ptr(), dv.data_ptr(), dq_part.data_ptr(), b, hq,
         k.shape[1], sq, k.shape[2], d, kv_len, sm_scale * LOG2E, int(causal),
-        in_bf16, tiles, *tail)
+        *masks, in_bf16, tiles, *tail)
     _build.check(lib, "cfa_fa2_backward_error_string", err, "parent fa2_backward_fused")
     if not reduce:
         return dq_part.sum(dim=2).mul_(sm_scale).to(q.dtype), dk, dv
     dq = torch.empty_like(q)
     err = lib.cfa_fa2_backward_dq_reduce(
         dq_part.data_ptr(), dq.data_ptr(), b, hq, sq, k.shape[2], d, kv_len,
-        int(causal), sm_scale, in_bf16, tiles, stream)
+        int(causal), *reduce_masks, sm_scale, in_bf16, tiles, stream)
     _build.check(lib, "cfa_fa2_backward_error_string", err, "parent dq_reduce")
+    del held
     return dq, dk, dv
 
 
 def _parent_split(lib, name, q, k, tensors, outs, scales, *, causal, kv_len,
-                  tile_dtype):
+                  tile_dtype, window=None, sinks=0, q_seg=None, kv_seg=None):
     """The parent's B3 or B4 entry point `name` on `tensors` (q, k, v, dO,
-    lse, D_i) into `outs`, with the workspace where its source takes one."""
+    lse, D_i) into `outs`, with the workspace where its source takes one
+    (and the window, sinks and ids where it takes them)."""
+    masks, _, held = _masks(lib, q, k, window, sinks, q_seg, kv_seg)
     b, hq, sq, d = q.shape
     in_bf16, tiles = int(q.dtype == torch.bfloat16), tile_code(q.dtype, tile_dtype)
     tail = [torch.cuda.current_stream(q.device).cuda_stream]
@@ -634,24 +737,22 @@ def _parent_split(lib, name, q, k, tensors, outs, scales, *, causal, kv_len,
         tail.insert(0, workspace.data_ptr())
     err = getattr(lib, name)(
         *(t.data_ptr() for t in tensors + outs), b, hq, k.shape[1], sq,
-        k.shape[2], d, kv_len, *scales, int(causal), in_bf16, tiles, *tail)
+        k.shape[2], d, kv_len, *scales, int(causal), *masks, in_bf16, tiles,
+        *tail)
     _build.check(lib, "cfa_fa2_backward_error_string", err, f"parent {name}")
+    del held
     return outs
 
 
-def parent_b3(lib, q, k, v, do, lse, di, *, causal, sm_scale, kv_len,
-              tile_dtype):
+def parent_b3(lib, q, k, v, do, lse, di, *, sm_scale, **kw):
     return _parent_split(lib, "cfa_fa2_backward_dq", q, k, (q, k, v, do, lse, di),
-                         (torch.empty_like(q),), (sm_scale * LOG2E, sm_scale),
-                         causal=causal, kv_len=kv_len, tile_dtype=tile_dtype)
+                         (torch.empty_like(q),), (sm_scale * LOG2E, sm_scale), **kw)
 
 
-def parent_b4(lib, q, k, v, do, lse, di, *, causal, sm_scale, kv_len,
-              tile_dtype):
+def parent_b4(lib, q, k, v, do, lse, di, *, sm_scale, **kw):
     return _parent_split(lib, "cfa_fa2_backward_dkv", q, k, (q, k, v, do, lse, di),
                          (torch.empty_like(k), torch.empty_like(v)),
-                         (sm_scale * LOG2E,), causal=causal, kv_len=kv_len,
-                         tile_dtype=tile_dtype)
+                         (sm_scale * LOG2E,), **kw)
 
 
 def split_pair(b3, b4):
@@ -699,16 +800,21 @@ def parent_b10(lib, q, k, v, *, sm_scale, kv_len):
 
 def parent_b8(lib, q, k, v, *, causal, sm_scale, kv_len, tile_dtype):
     """The parent's wrapper: fa2_forward_small_aligned's checks and
-    allocations, the same C entry point."""
+    allocations, its C entry point called with the parameters its source
+    declares (before windows; with window and sinks; now with ids and
+    heads too); no window, sinks or ids."""
     b, h, s_pad, d = q.shape
     fa2._check_inputs("fa2_forward_small", q, k, v, tile_dtype)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s_pad), device=q.device, dtype=torch.float32)
-    err = lib.cfa_fa2_forward_small(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        b * h, s_pad, d, kv_len, sm_scale * LOG2E, int(causal),
-        int(q.dtype == torch.bfloat16), tile_code(q.dtype, tile_dtype),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    values = dict(
+        q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), o=o.data_ptr(),
+        lse=lse.data_ptr(), q_seg=None, kv_seg=None, n_slots=b * h, heads=h,
+        s_pad=s_pad, head_dim=d, kv_len=kv_len, qscale=sm_scale * LOG2E,
+        causal=int(causal), window=NO_WINDOW, sinks=0,
+        in_bf16=int(q.dtype == torch.bfloat16), tiles=tile_code(q.dtype, tile_dtype),
+        stream=torch.cuda.current_stream(q.device).cuda_stream)
+    err = lib.cfa_fa2_forward_small(*(values[n] for n in lib.b8_params))
     _build.check(lib, "cfa_fa2_forward_small_error_string", err,
                  "parent fa2_forward_small")
     return o, lse
@@ -853,7 +959,7 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--kernel", required=True, choices=tuple(CASES))
     ap.add_argument("--parent", required=True,
                     help="an earlier csrc/fa2_backward.cu (b2, b3, b4, b3-b4 and "
-                    "their -fp32 forms), csrc/baselines.cu (b9, b10), "
+                    "their -fp32 and -masked forms), csrc/baselines.cu (b9, b10), "
                     "csrc/fa2_forward.cu (b1-fp32), csrc/fa2_forward_small.cu "
                     "(b8), csrc/paged_decode.cu (b5), csrc/paged_chunk.cu (b6), "
                     "csrc/fa2_forward_quant.cu (b7, b7-fp32) or "
@@ -876,8 +982,11 @@ def main(argv=None) -> list[dict]:
         def new():
             return current(*x, **kw)
 
-        diff = max((a.float() - b.float()).abs().max().item()
-                   for a, b in zip(old(), new()))
+        # A parent without the masks computes the call without them: its
+        # outputs are another function's.
+        same_function = args.kernel not in _MASKED or takes_masks(lib)
+        diff = (max((a.float() - b.float()).abs().max().item()
+                    for a, b in zip(old(), new())) if same_function else None)
         order = (old, new, new, old)
         turns = [b1_ab.time_ms(fn) for fn in order]
         device_turns = [b1_ab.device_ms(fn) for fn in order]
@@ -901,6 +1010,10 @@ def main(argv=None) -> list[dict]:
                                       else b1_ab.device_ms(library)),
                    max_abs_diff=diff, parent_host_us=b1_ab.host_us(old),
                    host_us=b1_ab.host_us(new))
+        if args.kernel in _MASKED:
+            row.update(window=kw.get("window"), sinks=kw.get("sinks", 0),
+                       segments=case.get("segments", 0),
+                       parent_function="same" if same_function else "global")
         if args.kernel == "x":
             row.update(x_extras(case, raw, bound_ms))
         elif backward_of(args.kernel) == "b7":

@@ -58,3 +58,32 @@ def test_device_timers_refuse_a_machine_without_a_card(name):
         pytest.skip("this machine has a card")
     with pytest.raises(RuntimeError):
         getattr(timing, name)(lambda: None)
+
+
+@pytest.mark.parametrize("commit,extra", [
+    ("", ["q_seg", "kv_seg", "window", "sinks", "dead_bq", "dead_bk"]),
+    ("2e67868", ["window", "sinks"]),
+    ("3cb91e6", []),
+], ids=["current", "2e67868", "3cb91e6"])
+def test_parent_forward_passes_the_parents_own_parameters(monkeypatch, commit, extra):
+    """b1_ab reads the parent's cfa_fa2_forward parameter list from its
+    source (3cb91e6's without a window, 2e67868's with window and sinks,
+    the current one with segment ids and the dead rows' tiles) and passes
+    exactly those arguments."""
+    import subprocess
+    from pathlib import Path
+
+    from cuda_flash_attention_tpu_torch.scripts import b1_ab
+
+    rel = "cuda_flash_attention_tpu_torch/csrc/fa2_forward.cu"
+    root = Path(__file__).resolve().parents[1]
+    try:
+        source = ((root / rel).read_text() if not commit else subprocess.run(
+            ["git", "show", f"{commit}:{rel}"], cwd=root, check=True,
+            capture_output=True, text=True).stdout)
+    except (subprocess.CalledProcessError, FileNotFoundError):
+        pytest.skip("the parent commit is not in this checkout")
+    names = [n for n, _ in b1_ab.entry_params(source, "cfa_fa2_forward")]
+    base = ["q", "k", "v", "o", "lse", "batch", "hq", "hkv", "sq", "skv",
+            "head_dim", "kv_len", "qscale", "causal", "in_bf16", "tiles", "stream"]
+    assert sorted(names) == sorted(base + extra)

@@ -177,15 +177,16 @@ B5_ENTRIES = [f"{_B5_NS}19paged_decode_kernelI{tq}{tc}Li{d}ELi{g}EEEvPKT_PKT0_PK
               for tc in ("f", "13__nv_bfloat16", "a", "13__nv_fp8_e4m3",
                          "13__nv_fp8_e5m2", "NS_6Int4x2E")
               for d in (64, 128) for g in (2, 8)]
+# B8's fp32 body at D 64 and 128, without and with segment ids.
 B8_FP32_ENTRIES = [
-    f"_ZN53_GLOBAL__N__77380a0a_20_fa2_forward_small_cu_a84d0c3f10small_fp32ILi{d}EEEv"
-    "PKfS2_S2_PfS3_iifi" for d in (64, 128)]
+    f"_ZN53_GLOBAL__N__77380a0a_20_fa2_forward_small_cu_a84d0c3f10small_fp32ILi{d}ELb{seg}EEEv"
+    "PKfS2_S2_PfS3_PKiS5_iiiifiii" for d in (64, 128) for seg in (0, 1)]
 
 
 def test_phase_1_gates_every_b5_and_b8_fp32_instantiation():
     """chip_smoke's phase 1 holds B5's 48 instantiations (six caches x two
     q types x D 64 and 128 x groups of at most 2 and 8) and B8's fp32 body
-    at D 64 and 128: clean reports pass, one spilled byte or a missing
+    at D 64 and 128, without and with segment ids: clean reports pass, one spilled byte or a missing
     instantiation fails."""
     import chip_smoke
 
@@ -199,7 +200,7 @@ def test_phase_1_gates_every_b5_and_b8_fp32_instantiation():
     with pytest.raises(AssertionError, match="only 47"):
         chip_smoke.check_ptxas(_ptxas_report(B5_ENTRIES[1:]), "B5", functions, count)
     functions, count = chip_smoke.FP32_FUNCTIONS["fa2_forward_small"]
-    assert count == len(B8_FP32_ENTRIES) == 2
+    assert count == len(B8_FP32_ENTRIES) == 4
     chip_smoke.check_ptxas(_ptxas_report(B8_FP32_ENTRIES), "fp32 block", functions, count)
     with pytest.raises(AssertionError, match="spills"):
         chip_smoke.check_ptxas(_ptxas_report(B8_FP32_ENTRIES, spill=4), "fp32 block",

@@ -133,16 +133,25 @@ def test_cpu_tensors_never_launch_the_kernel():
 
 @pytest.mark.parametrize("kwargs,exc", [
     (dict(window=8, causal=True), None),
-    (dict(q_segment_ids=torch.zeros(1, 32, dtype=torch.int32),
-          kv_segment_ids=torch.zeros(1, 32, dtype=torch.int32)),
-     NotImplementedError),
+    (dict(q_segment_ids=torch.zeros(1, 32, dtype=torch.int32)), ValueError),
     (dict(sinks=2), ValueError),
     (dict(tile_dtype=torch.float8_e4m3fn), NotImplementedError),
 ])
 def test_unported_options_raise(kwargs, exc):
     """Options the port refuses raise; a sliding window (exc None), refused
-    until windows were ported, now gives the JAX API's output."""
+    until windows were ported, now gives the JAX API's output, and segment
+    ids, refused until they were ported, raise JAX's error when given
+    alone."""
     q, k, v = _inputs(1, 2, 2, 32, 64)
+    if "q_segment_ids" in kwargs:
+        with pytest.raises(exc) as want:
+            jax_attention.flash_attention(
+                jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                q_segment_ids=jnp.asarray(kwargs["q_segment_ids"].numpy()))
+        with pytest.raises(exc) as got:
+            attention.flash_attention(*map(torch.from_numpy, (q, k, v)), **kwargs)
+        assert str(got.value) == str(want.value)
+        return
     if exc is None:
         o_j = jax_attention.flash_attention(
             jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), force_kernel=True,

@@ -279,38 +279,46 @@ class _Entry:
 
 
 class _FakeLib:
-    """Stands in for a built fa2_backward library: records each call; with
-    `workspace` it exports every current entry point, without it only B3's
-    and B4's as they were before they took a workspace (eb3d034)."""
+    """Stands in for a built fa2_backward library: records each call.  Of
+    kind "current" it exports every current entry point (with
+    cfa_fa2_backward_masks), of kind "workspace" those of 193d270 to
+    2e67868 (a workspace, no masks), of kind "no workspace" only B3's and B4's as they
+    were before they took a workspace (eb3d034)."""
 
-    def __init__(self, workspace: bool):
+    def __init__(self, kind):
         self.calls = []
-        names = (list(fa2_backward.ARGTYPES) if workspace else
+        names = (list(fa2_backward.ARGTYPES) if kind != "no workspace" else
                  ["cfa_fa2_backward_dq", "cfa_fa2_backward_dkv"])
+        if kind == "current":
+            names.append("cfa_fa2_backward_masks")
         for name in names:
             setattr(self, name, _Entry(name, self.calls))
 
 
-@pytest.mark.parametrize("workspace", [False, True], ids=["no workspace", "current"])
-def test_parent_split_wrappers_call_as_their_argtypes_declare(monkeypatch, workspace):
+@pytest.mark.parametrize("kind", ["no workspace", "workspace", "current"])
+def test_parent_split_wrappers_call_as_their_argtypes_declare(monkeypatch, kind):
     """build_parent gives B3's and B4's entry points the parent's own
     argtypes: without cfa_fa2_backward_workspace eb3d034's (no workspace),
-    with it the current wrappers' (fa2_backward.ARGTYPES); the parent
-    wrappers then pass exactly that many arguments, the workspace where
-    the source takes one."""
-    lib = _FakeLib(workspace)
+    with it 193d270-2e67868's (kernel_ab.WORKSPACE_ARGTYPES), with
+    cfa_fa2_backward_masks too the current wrappers' (fa2_backward.ARGTYPES);
+    the parent wrappers then pass exactly that many arguments, the
+    workspace and the masks where the source takes them."""
+    lib = _FakeLib(kind)
     monkeypatch.setattr(b1_ab, "compile_source", lambda path, stem: lib)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: types.SimpleNamespace(cuda_stream=0))
     assert kernel_ab.build_parent("b3-b4", "unused.cu") is lib
     for name in ("cfa_fa2_backward_dq", "cfa_fa2_backward_dkv"):
         argtypes = getattr(lib, name).argtypes
-        if workspace:
+        if kind == "current":
             assert argtypes == fa2_backward.ARGTYPES[name]
+        elif kind == "workspace":
+            assert argtypes == kernel_ab.WORKSPACE_ARGTYPES[name]
         else:  # eb3d034's: no workspace pointer before the stream
             assert len(argtypes) == 20
-            assert argtypes == fa2_backward.ARGTYPES[name][:-2] + [fa2_backward._P]
-    case = dict(kernel_ab.SPLIT_CASES[0], b=1, hq=2, hkv=1, s=64)
+            assert argtypes == kernel_ab.WORKSPACE_ARGTYPES[name][:-2] + [fa2_backward._P]
+    cases = kernel_ab.MASKED_CASES if kind == "current" else kernel_ab.SPLIT_CASES
+    case = dict(cases[-1 if kind == "current" else 0], b=1, hq=2, hkv=1, s=64)
     x, kw, _ = kernel_ab.problem("b3-b4", case, torch.Generator().manual_seed(0))
     out = kernel_ab.parent_pair(lib, *x, **kw)
     assert [t.shape for t in out] == [x[0].shape, x[1].shape, x[2].shape]
@@ -386,26 +394,72 @@ def test_fp32_bwd_flops_and_bounds_are_fp32_bwds():
             assert kernel_ab.library_call(kernel, case, raw, {}) is None
 
 
-def test_parent_b2_with_a_workspace_runs_its_dq_reduce(monkeypatch):
+@pytest.mark.parametrize("kind", ["workspace", "current"])
+def test_parent_b2_with_a_workspace_runs_its_dq_reduce(monkeypatch, kind):
     """A parent B2 source exporting cfa_fa2_backward_workspace is called as
-    the current wrapper calls it: the workspace's size, the kernel with a
-    workspace pointer, then the ordered dQ reduce, each with exactly the
-    arguments its argtypes declare."""
-    lib = _FakeLib(workspace=True)
+    the wrapper of its interface calls it: the workspace's size, the kernel
+    with a workspace pointer (and, current, the window, sinks and ids),
+    then the ordered dQ reduce, each with exactly the arguments its
+    argtypes declare."""
+    lib = _FakeLib(kind)
     monkeypatch.setattr(b1_ab, "compile_source", lambda path, stem: lib)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: types.SimpleNamespace(cuda_stream=0))
     assert kernel_ab.build_parent("b2-fp32", "unused.cu") is lib
     case = dict(kernel_ab.FP32_BWD_CASES[0], b=1, hq=2, hkv=1, s=64)
+    if kind == "current":
+        case = dict(case, causal=True, window=16, sinks=4)
     x, kw, _ = kernel_ab.problem("b2-fp32", case, torch.Generator().manual_seed(0))
     out = kernel_ab.parent_b2(lib, *x, **kw)
     assert [t.shape for t in out] == [x[0].shape, x[1].shape, x[2].shape]
     assert [n for n, _ in lib.calls] == ["cfa_fa2_backward_workspace",
                                          "cfa_fa2_backward_fused",
                                          "cfa_fa2_backward_dq_reduce"]
+    want = fa2_backward.ARGTYPES if kind == "current" else kernel_ab.WORKSPACE_ARGTYPES
     for name, args in lib.calls:
-        assert len(args) == len(getattr(lib, name).argtypes) == \
-            len(fa2_backward.ARGTYPES[name]), name
+        assert len(args) == len(getattr(lib, name).argtypes) == len(want[name]), name
+    if kind == "current":  # the window and sinks follow the causal flag
+        fused = dict(lib.calls)["cfa_fa2_backward_fused"]
+        assert fused[17:20] == (1, 16, 4)
+
+
+def test_masked_cases_are_chip_smokes_phase_26_rows():
+    """The train shape (B4 Hq16 Hkv8 S2048 causal bf16) with window 128
+    (the hybrid's local layers), window 512 and 4 sinks (streaming's), window
+    128 at D 128, and 4 packed documents a row; each masked kernel's case
+    list, problem, bound and wrappers are its unmasked kernel's."""
+    cases = kernel_ab.MASKED_CASES
+    assert [(c.get("window"), c.get("sinks", 0), c.get("segments", 0), c["d"])
+            for c in cases] == [(128, 0, 0, 64), (512, 4, 0, 64), (128, 0, 0, 128),
+                                (None, 0, 4, 64)]
+    for c in cases:
+        assert (c["b"], c["hq"], c["hkv"], c["s"], c["causal"], c["tile"]) == \
+            (4, 16, 8, 2048, True, "bf16")
+    for kernel in ("b2", "b3", "b4", "b3-b4"):
+        assert kernel_ab.CASES[f"{kernel}-masked"] is cases
+        assert kernel_ab.backward_of(f"{kernel}-masked") == kernel
+
+
+@pytest.mark.parametrize("case", [
+    dict(b=2, s=256, causal=True, window=32, sinks=4),
+    dict(b=2, s=256, causal=True, segments=3),
+    dict(b=1, s=300, causal=False, window=-20),
+], ids=str)
+def test_masked_pairs_count_the_mask(case):
+    """The bound's FLOPs count the (query, key) pairs the mask keeps: the
+    window's kept columns row by row, or each document's causal triangle."""
+    case = dict(case, hq=2, d=64)
+    s = case["s"]
+    if case.get("segments"):
+        ids = kernel_ab.packed_ids(case["b"], s, case["segments"]).numpy()
+        want = sum(int(n) * (int(n) + 1) // 2 for row in ids
+                   for n in np.bincount(row))
+    else:
+        w, sinks = case["window"], case.get("sinks", 0)
+        want = case["b"] * sum(chip_smoke.kept_cols(i, s, case["causal"], w, sinks)
+                               for i in range(s))
+    assert kernel_ab.masked_pairs(case) == want
+    assert kernel_ab.flops("b2-masked", case) == 5 * 2 * 2 * want * 64
 
 
 def test_b8_cases_are_chip_smokes_phase_16_rows():
@@ -520,18 +574,44 @@ def test_parent_b5_calls_as_its_argtypes_declare(monkeypatch, workspace):
     assert len(args) == len(lib.cfa_paged_decode.argtypes) == (25 if workspace else 20)
 
 
-def test_parent_b8_calls_as_its_argtypes_declare(monkeypatch):
+# 7af2811's cfa_fa2_forward_small, before windows and segment ids.
+_B8_BEFORE_WINDOWS = ("int cfa_fa2_forward_small(const void* q, const void* k, const void* v,"
+            " void* o, void* lse, int n_slots, int s_pad, int head_dim,"
+            " int kv_len, float qscale, int causal, int in_bf16, int tiles,"
+            " void* stream) {")
+
+
+def _parent_b8_call(monkeypatch, path):
     lib = _RecordingLib("cfa_fa2_forward_small")
     monkeypatch.setattr(b1_ab, "compile_source", lambda path, stem: lib)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: types.SimpleNamespace(cuda_stream=0))
-    assert kernel_ab.build_parent("b8", "unused.cu") is lib
+    assert kernel_ab.build_parent("b8", str(path)) is lib
     case = dict(kernel_ab.B8_CASES[0], b=1, hq=2, hkv=2)
     x, kw, _ = kernel_ab.problem("b8", case, torch.Generator().manual_seed(0))
     o, lse = kernel_ab.parent_b8(lib, *x, **kw)
     assert o.shape == x[0].shape and lse.shape == x[0].shape[:3]
     (name, args), = lib.calls
+    return lib, args
+
+
+def test_parent_b8_calls_as_its_argtypes_declare(monkeypatch, tmp_path):
+    """The parent's parameter list is read from its source: 7af2811's
+    takes 14 arguments."""
+    (tmp_path / "fa2_forward_small.cu").write_text(_B8_BEFORE_WINDOWS)
+    lib, args = _parent_b8_call(monkeypatch, tmp_path / "fa2_forward_small.cu")
     assert len(args) == len(lib.cfa_fa2_forward_small.argtypes) == 14
+
+
+def test_parent_b8_takes_the_current_entry_point(monkeypatch):
+    """The current source's entry point (segment ids, heads, window and
+    sinks besides 7af2811's) is called with its 19 arguments, no ids and no
+    window."""
+    path = Path(__file__).resolve().parents[1] / \
+        "cuda_flash_attention_tpu_torch/csrc/fa2_forward_small.cu"
+    lib, args = _parent_b8_call(monkeypatch, path)
+    assert len(args) == len(lib.cfa_fa2_forward_small.argtypes) == 19
+    assert args[5:7] == (None, None) and args[14:16] == (1 << 30, 0)
 
 
 def test_b6_cases_hold_phase_12s_shapes():

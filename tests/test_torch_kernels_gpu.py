@@ -1655,3 +1655,279 @@ def test_captured_windowed_decode_matches_the_cpu(cuda, config):
             assert eng.graph_replays > 0
             assert LAUNCHES["paged_decode_window"] > 0
     assert runs[None] == runs["cpu"]
+
+
+# ---------------------------------------------------------------------------
+# Training with windows, sinks and segment ids: the windowed and segmented
+# B2, B3 and B4 (both tile kinds, both routes' kernels) and the segmented
+# B1 and B8, each against its plain version on the CPU.  Cases reach the
+# walks' edges: windows inside one tile and across several, sinks inside
+# the first tile and past it, a band whose last rows keep no key, Sq > Skv
+# + window (dead rows), the reference tiles' dead-row case (window 520, Sq
+# 1500, Skv 700), segments with and without a window, and a padded batch
+# whose pad ids match no key.  A row that keeps no key must get dQ = 0
+# exactly and carry the plain version's lse bit for bit.
+# ---------------------------------------------------------------------------
+
+MASKED_VARIANTS = pytest.mark.parametrize("dtype,tile", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, None),
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float16),
+], ids=["bf16", "fp32", "fp32-in-bf16-tiles", "bf16-in-fp16-tiles"])
+
+
+def _packed_ids(rng, b, s, n_seg):
+    """[b, s] int32 ids of n_seg contiguous documents cut at random points."""
+    ids = np.zeros((b, s), np.int32)
+    for i in range(b):
+        cuts = np.sort(rng.choice(np.arange(1, s), n_seg - 1, replace=False))
+        ids[i] = np.searchsorted(cuts, np.arange(s), side="right")
+    return torch.from_numpy(ids)
+
+
+def _masked_problem(dtype, tile, d, b, hq, hkv, sq, skv, causal, window, sinks,
+                    n_seg, seed, ids=None):
+    """Padded CPU inputs of a windowed or segmented backward: q, k, v, dO
+    from numpy, O and lse from the plain forward, D_i; the keyword
+    arguments of every wrapper (window and sinks as the API normalizes
+    them, the ids padded as it pads them)."""
+    rng = np.random.default_rng(seed)
+    q, do = (_randn(rng, b, hq, sq, d).to(dtype) for _ in range(2))
+    k, v = (_randn(rng, b, hkv, skv, d).to(dtype) for _ in range(2))
+    if ids is None and n_seg:
+        ids = (_packed_ids(rng, b, sq, n_seg),) * 2 if sq == skv else (
+            _packed_ids(rng, b, sq, n_seg), _packed_ids(rng, b, skv, n_seg))
+    q_ids, kv_ids = ids if ids is not None else (None, None)
+    window, sinks = attention._window_of(window, sinks, causal, q, k)
+    qp, kp, vp, sm_scale, _, kv_len = attention._prepare(
+        q, k, v, causal, None, tile, q_ids, kv_ids, window, sinks)
+    q_seg, kv_seg = attention._segments_of(q_ids, kv_ids, qp, kp)
+    kw = dict(causal=causal, sm_scale=sm_scale, kv_len=kv_len, tile_dtype=tile,
+              window=window, sinks=sinks, q_seg=q_seg, kv_seg=kv_seg)
+    o, lse = fa2_forward.fa2_forward_plain(qp, kp, vp, **kw)
+    do = torch.nn.functional.pad(do, (0, 0, 0, qp.shape[2] - sq))
+    di = (o.float() * do.float()).sum(-1)
+    return dict(q=qp, k=kp, v=vp, o=o, do=do, lse=lse, di=di), kw
+
+
+def _to(x, kw, device):
+    out = dict(kw)
+    for n in ("q_seg", "kv_seg"):
+        if out[n] is not None:
+            out[n] = out[n].to(device)
+    return {n: t.to(device) for n, t in x.items()}, out
+
+
+def _masked_counts(kw):
+    names = ("fa2_backward_fused", "fa2_backward_dq", "fa2_backward_dkv")
+    tags = ([""] + (["_window"] if kw["window"] is not None else [])
+            + (["_segments"] if kw["q_seg"] is not None else []))
+    return tuple(LAUNCHES[n + t] for n in names for t in tags)
+
+
+MASKED_BWD = pytest.mark.parametrize(
+    "b,hq,hkv,sq,skv,causal,window,sinks,n_seg", [
+        (1, 4, 2, 512, 512, True, 128, 0, 0),     # the hybrid local layer's call
+        (1, 4, 2, 512, 512, True, 100, 4, 0),     # sinks inside the first tile
+        (1, 4, 2, 700, 700, True, 100, 130, 0),   # sinks past the first tile
+        (1, 8, 2, 2048, 2048, True, 128, 0, 0),   # the rings wrap many times
+        (1, 4, 2, 1024, 1024, True, 512, 4, 0),   # streaming's window
+        (2, 4, 2, 1024, 1024, False, -100, 0, 0),  # a band: rows with no key
+        (1, 4, 2, 1024, 1024, False, 64, 0, 0),
+        (1, 2, 1, 1500, 700, True, 520, 0, 0),    # the reference tiles' dead rows
+        (1, 4, 4, 200, 130, True, 64, 0, 0),      # Sq > Skv + window
+        (1, 4, 2, 300, 300, True, 3, 0, 0),
+        (2, 4, 2, 512, 512, True, None, 0, 4),    # packed documents
+        (2, 4, 2, 512, 512, False, None, 0, 3),
+        (1, 4, 2, 512, 512, True, 128, 4, 3),     # segments under a window
+        (1, 4, 2, 300, 500, True, None, 0, 2),    # Sq != Skv, ids of each
+    ], ids=str)
+
+
+@MASKED_VARIANTS
+@pytest.mark.parametrize("d", [64, 128])
+@MASKED_BWD
+def test_masked_backward_kernels_match_plain(cuda, dtype, tile, d, b, hq, hkv,
+                                             sq, skv, causal, window, sinks,
+                                             n_seg):
+    """B2, B3 and B4 with a window, sinks or segment ids against the plain
+    backward; each launch counted under its `_window` and `_segments`
+    names; dQ of a row that keeps no key exactly 0."""
+    x, kw = _masked_problem(dtype, tile, d, b, hq, hkv, sq, skv, causal, window,
+                            sinks, n_seg, seed=sq + skv + d)
+    g, gkw = _to(x, kw, cuda)
+    before = _masked_counts(kw)
+    fused = fa2_backward.fa2_backward_fused_aligned(
+        g["q"], g["k"], g["v"], g["o"], g["do"], g["lse"], **gkw)
+    dq = fa2_backward.fa2_backward_dq_aligned(
+        g["q"], g["k"], g["v"], g["do"], g["lse"], g["di"], **gkw)
+    dkv = fa2_backward.fa2_backward_dkv_aligned(
+        g["q"], g["k"], g["v"], g["do"], g["lse"], g["di"], **gkw)
+    torch.cuda.synchronize()
+    assert _masked_counts(kw) == tuple(n + 1 for n in before)
+    plain = fa2_backward.fa2_backward_fused_plain(
+        x["q"], x["k"], x["v"], x["o"], x["do"], x["lse"], **kw)
+    tol = 5e-2 if (tile is not None or dtype == torch.bfloat16) else 2e-5
+    for got, want in zip(fused, plain):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert bool(torch.isfinite(got.float()).all())
+        assert _rel_err(got, want) <= tol
+    for got, want in ((dq, plain[0]), (dkv[0], plain[1]), (dkv[1], plain[2])):
+        assert bool(torch.isfinite(got.float()).all())
+        assert _rel_err(got, want) <= tol
+    dead = x["lse"] < -1e30
+    if dead.any():
+        for got in (fused[0], dq):
+            assert bool((got.cpu()[dead] == 0).all())
+
+
+@MASKED_VARIANTS
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal,window,sinks", [
+    (True, 128, 0), (True, 100, 130), (False, -100, 0), (True, 520, 0)], ids=str)
+def test_masked_fused_reduce_reads_only_written_slices(cuda, dtype, tile, d,
+                                                       causal, window, sinks):
+    """B2 writes only the slices of the (KV tile, Q tile) pairs its walk
+    visits; under a window most slices of a row are never written.  A
+    NaN-filled tensor of dq_part's size is freed just before the call, so
+    dq_part takes that memory: a slice the reduce read without B2 having
+    written it would show as NaN."""
+    x, kw = _masked_problem(dtype, tile, d, 1, 4, 2, 1000, 1000, causal, window,
+                            sinks, 0, seed=9)
+    g, gkw = _to(x, kw, cuda)
+    q, k = g["q"], g["k"]
+    n_slices = -(-k.shape[2] // fa2_backward.fused_kv_tile(q.dtype, tile))
+    bait = torch.full((q.shape[0], q.shape[1], n_slices) + tuple(q.shape[2:]),
+                      float("nan"), device=cuda)
+    del bait
+    got = fa2_backward.fa2_backward_fused_aligned(
+        g["q"], g["k"], g["v"], g["o"], g["do"], g["lse"], **gkw)
+    torch.cuda.synchronize()
+    want = fa2_backward.fa2_backward_fused_plain(
+        x["q"], x["k"], x["v"], x["o"], x["do"], x["lse"], **kw)
+    tol = 5e-2 if (tile is not None or dtype == torch.bfloat16) else 2e-5
+    for a, w in zip(got, want):
+        assert bool(torch.isfinite(a.float()).all())
+        assert _rel_err(a, w) <= tol
+
+
+@MASKED_VARIANTS
+@pytest.mark.parametrize("d", [64, 128])
+def test_masked_backward_kernels_bitwise_deterministic(cuda, dtype, tile, d):
+    x, kw = _masked_problem(dtype, tile, d, 1, 8, 2, 2048, 2048, True, 128, 4, 3,
+                            seed=d)
+    g, gkw = _to(x, kw, cuda)
+    args = (g["q"], g["k"], g["v"], g["o"], g["do"], g["lse"])
+    split = (g["q"], g["k"], g["v"], g["do"], g["lse"], g["di"])
+    for fn, a in ((fa2_backward.fa2_backward_fused_aligned, args),
+                  (fa2_backward.fa2_backward_dq_aligned, split),
+                  (fa2_backward.fa2_backward_dkv_aligned, split)):
+        first, second = fn(*a, **gkw), fn(*a, **gkw)
+        for p, r in zip(first if isinstance(first, tuple) else (first,),
+                        second if isinstance(second, tuple) else (second,)):
+            assert torch.equal(p, r)
+
+
+@MASKED_VARIANTS
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,causal,window,sinks,n_seg", [
+    (2, 4, 2, 512, 512, True, None, 0, 4),
+    (2, 4, 2, 512, 512, False, None, 0, 3),
+    (1, 4, 2, 1024, 1024, True, 128, 4, 3),
+    (1, 4, 2, 300, 500, False, None, 0, 2),
+    (2, 4, 2, 2048, 2048, True, None, 0, 4),
+], ids=str)
+def test_segmented_fa2_forward_matches_plain(cuda, dtype, tile, d, b, hq, hkv,
+                                             sq, skv, causal, window, sinks,
+                                             n_seg):
+    x, kw = _masked_problem(dtype, tile, d, b, hq, hkv, sq, skv, causal, window,
+                            sinks, n_seg, seed=sq + d)
+    g, gkw = _to(x, kw, cuda)
+    before = LAUNCHES["fa2_forward_segments"]
+    o_k, lse_k = fa2_forward.fa2_forward_aligned(g["q"], g["k"], g["v"], **gkw)
+    assert LAUNCHES["fa2_forward_segments"] == before + 1
+    o_p, lse_p = fa2_forward.fa2_forward_plain(x["q"], x["k"], x["v"], **kw)
+    o_k, lse_k = o_k.cpu(), lse_k.cpu()
+    tol = 2e-6 if (tile or dtype) == torch.float32 else 2e-2
+    assert (o_k.float() - o_p.float()).abs().max().item() <= tol
+    dead = lse_p < -1e30
+    assert torch.equal(lse_k[dead], lse_p[dead])
+    live = ((lse_k - lse_p).abs() / lse_p.abs().clamp_min(1.0))[~dead]
+    assert live.max().item() <= (1e-5 if tol == 2e-6 else 1e-3)
+
+
+@MASKED_VARIANTS
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s,causal,window,sinks", [
+    (100, True, None, 0), (100, False, None, 0), (128, True, 32, 4), (17, True, None, 0),
+], ids=str)
+def test_segmented_fa2_forward_small_matches_plain(cuda, dtype, tile, d, s,
+                                                   causal, window, sinks):
+    x, kw = _masked_problem(dtype, tile, d, 4, 8, 8, s, s, causal, window, sinks,
+                            2, seed=s + d)
+    g, gkw = _to(x, kw, cuda)
+    assert attention._use_small_kernel(g["q"], g["k"])
+    before = LAUNCHES["fa2_forward_small_segments"]
+    o_k, lse_k = fa2_forward.fa2_forward_small_aligned(g["q"], g["k"], g["v"],
+                                                       **gkw)
+    assert LAUNCHES["fa2_forward_small_segments"] == before + 1
+    o_p, lse_p = fa2_forward.fa2_forward_small_plain(x["q"], x["k"], x["v"], **kw)
+    tol = 2e-6 if (tile or dtype) == torch.float32 else 2e-2
+    assert (o_k.cpu().float() - o_p.float()).abs().max().item() <= tol
+    assert ((lse_k.cpu() - lse_p).abs() / lse_p.abs().clamp_min(1.0)).max() <= (
+        1e-5 if tol == 2e-6 else 1e-3)
+
+
+@MASKED_VARIANTS
+@pytest.mark.parametrize("s", [128, 300])
+def test_padding_ids_give_zero_rows_and_key_gradients(cuda, dtype, tile, s):
+    """Padding tokens whose ids match no key (queries -7, keys -8): their O
+    rows are 0 and the pad keys' dK and dV exactly 0, on both routes."""
+    rng = np.random.default_rng(s)
+    real = s - 28
+    q_ids = torch.tensor([[0] * real + [-7] * 28], dtype=torch.int32)
+    kv_ids = torch.tensor([[0] * real + [-8] * 28], dtype=torch.int32)
+    q, k, v, w = (_randn(rng, 1, 2, s, 64).to(dtype).to(cuda) for _ in range(4))
+    for bs in (None, SPLIT):
+        ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        o = attention.flash_attention(*ts, q_segment_ids=q_ids.to(cuda),
+                                      kv_segment_ids=kv_ids.to(cuda),
+                                      tile_dtype=tile, block_sizes=bs)
+        dq, dk, dv = torch.autograd.grad((o.float() * w.float()).sum(), ts)
+        assert bool((o[:, :, real:] == 0).all())
+        assert bool((dk[:, :, real:] == 0).all()) and bool((dv[:, :, real:] == 0).all())
+        assert bool((dq[:, :, real:] == 0).all())
+        for t in (o, dq, dk, dv):
+            assert bool(torch.isfinite(t.float()).all())
+
+
+@MASKED_VARIANTS
+@pytest.mark.parametrize("s,window,sinks,blocks,fused", [
+    (1024, 128, 0, None, False),   # narrow, no sinks: the split pair
+    (1024, 512, 4, None, True),    # sinks: the fused B2
+    (1024, 600, 0, None, True),    # 2 * window >= S: fused
+    (2048, 512, 4, "split", False),  # 16 KV slices of 128 rows: split
+], ids=str)
+def test_windowed_autograd_matches_plain(cuda, dtype, tile, s, window, sinks,
+                                         blocks, fused):
+    """torch.autograd.grad of flash_attention with a window on the card
+    against the same call on the CPU, on the route the rule picks."""
+    rng = np.random.default_rng(window + sinks)
+    q = _randn(rng, 1, 4, s, 64).to(dtype)
+    k, v = (_randn(rng, 1, 2, s, 64).to(dtype) for _ in range(2))
+    w = _randn(rng, 1, 4, s, 64)
+    bs = SPLIT if blocks == "split" else None
+    names = ("fa2_backward_fused_window", "fa2_backward_dq_window",
+             "fa2_backward_dkv_window")
+    grads, moved = {}, {}
+    for dev in ("cuda", "cpu"):
+        ts = [t.to(dev).requires_grad_(True) for t in (q, k, v)]
+        before = tuple(LAUNCHES[n] for n in names)
+        o = attention.flash_attention(*ts, causal=True, window=window, sinks=sinks,
+                                      tile_dtype=tile, block_sizes=bs)
+        grads[dev] = torch.autograd.grad((o.float() * w.to(dev)).sum(), ts)
+        moved[dev] = tuple(LAUNCHES[n] - b for n, b in zip(names, before))
+    assert moved["cpu"] == (0, 0, 0)
+    assert moved["cuda"] == ((1, 0, 0) if fused else (0, 1, 1))
+    tol = 5e-2 if (tile is not None or dtype == torch.bfloat16) else 2e-5
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        assert _rel_err(got, want) <= tol

@@ -10,9 +10,10 @@ and its sink slots included).  Tolerances: B1's CPU gates, the largest
 with bf16 tiles, lse within 1e-5 (fp32) and 2e-2 (bf16) on the rows that
 keep a key.  A row that keeps no key (a band whose offset is <= 0, causal
 rows past kv_len + window) must give the JAX O (zeros) and lse exactly:
--inf where the JAX forward's 128-row tile walks no key tile, else the mask
-value times ln 2.  The CUDA kernels are held to these plain versions on the
-card by tests/test_torch_kernels_gpu.py and chip_smoke.py phase 25.
+-inf where the JAX forward's tile (of BlockSizes.default(window=)) walks no
+key tile, else the mask value times ln 2.  The CUDA kernels are held to
+these plain versions on the card by tests/test_torch_kernels_gpu.py and
+chip_smoke.py phases 25 and 26.
 """
 
 import dataclasses
@@ -119,18 +120,23 @@ def test_block_sizes_default_window_matches_jax(window):
 @pytest.mark.parametrize("kw", [dict(window=64), dict(window=64, sinks=4),
                                 dict(window=-10, causal=False)])
 def test_windowed_backward_raises(kw):
-    """A windowed gradient raises on every device until the backward
-    kernels take windows (a backward that ignored it would be wrong)."""
+    """The windowed gradient, refused until the backward kernels took
+    windows, now gives the JAX package's: torch.autograd.grad of
+    flash_attention against jax.grad within 1e-4 in fp32 (the standalone
+    fa2_backward: tests/test_torch_window_backward.py)."""
+    import jax
+
     kw = dict(dict(causal=True), **kw)
-    q, k, v = (torch.from_numpy(x).requires_grad_()
-               for x in _inputs(1, 2, 2, 200, 200, seed=4))
-    o = attention.flash_attention(q, k, v, **kw)
-    with pytest.raises(NotImplementedError, match="window"):
-        o.sum().backward()
-    lse = torch.zeros(1, 2, 200)
-    with pytest.raises(NotImplementedError, match="window"):
-        attention.fa2_backward(q.detach(), k.detach(), v.detach(), o.detach(),
-                               lse, causal=kw["causal"], window=kw["window"])
+    q, k, v = _inputs(1, 2, 2, 200, 200, seed=4)
+    w = np.random.default_rng(40).standard_normal(q.shape, dtype=np.float32)
+    g_j = jax.grad(lambda *x: jnp.sum(jax_attention.flash_attention(
+        *x, force_kernel=True, **kw) * w), argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ts = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    o = attention.flash_attention(*ts, **kw)
+    g_t = torch.autograd.grad((o * torch.from_numpy(w)).sum(), ts)
+    for a, b in zip(g_t, g_j):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4, rtol=0)
 
 
 @pytest.mark.parametrize("kw,exc,match", [
