@@ -5,9 +5,10 @@ NVIDIA card.
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
-  1. setup: the card's name and power limit; the eight CUDA sources built
-     from cuda_flash_attention_tpu_torch/csrc/ with nvcc (sm_90a), all at
-     once; ptxas's registers, spills and wgmma notes for every
+  1. setup: the card's name and power limit; the eight CUDA sources and
+     the D 32 and D 256 libraries of B1, B5 and B6 (csrc/*_d32.cu,
+     *_d256.cu) built from cuda_flash_attention_tpu_torch/csrc/ with nvcc
+     (sm_90a), all at once, each source's compile seconds printed; ptxas's registers, spills and wgmma notes for every
      instantiation of the backward's bf16/fp16-tile kernels (B2's
      prologue, main kernel and dQ reduce; B3's kernel; B4's, the main
      kernel without its dQ phase) and of the fp32 FMA block's (B10, B1's
@@ -17,8 +18,10 @@ Phases (any failure raises and the script exits non-zero):
      D 64 and 128 x groups of at most 2 and 8), of B6's split-KV body (48:
      the same with fp32 compute on the FMA units and bf16 compute on the
      tensor cores), bf16 tile body (24) and fp32 tile body (24), of B7's
-     wgmma and fp32 bodies (32: four storages x two q types x D 64 and 128
-     each) and of X's five variants, failing on a spilled byte, a wgmma
+     wgmma and fp32 bodies (48: four storages x two q types x D 64 and 128
+     each, its FMA body with and without segment ids), of every D 32 and D
+     256 instantiation (B1's wgmma and fp32 bodies, B5, B6's three bodies)
+     and of X's five variants, failing on a spilled byte, a wgmma
      serialisation note or a missing instantiation;
   2. kernel B1 (FA2 forward) against its plain PyTorch version at the
      serving prefill shapes (the serving run's largest, B4 S1536, included)
@@ -68,11 +71,11 @@ Phases (any failure raises and the script exits non-zero):
      the card's plain greedy tokens; B6's fp32 tile body's launches over
      the phase (the kernel line's `fp32_tile`);
  14. speculative serving at TransformerConfig.base() with an int8 cache:
-     phase 5's 12 requests (24 new tokens each) with k 4, a one-layer draft
+     phase 5's 12 requests (12 new tokens each) with k 4, a one-layer draft
      and prompt lookup:
      tokens/s, acceptance, rounds, B1/B5/B6 launches, and where a round's
-     time goes (one profiled window, as phase 6, with B6's time and share
-     of a round's busy time);
+     time goes (one profiled window of four rounds, as phase 6, with B6's
+     time and share of a round's busy time);
  15. prefix caching: 16 requests sharing a 1024-token system prompt, TTFT
      of the hits against an uncached engine, shared pages, launches; then
      chunked prefill (chunk 512) on phase 5's mix: decode tokens emitted
@@ -109,7 +112,7 @@ Phases (any failure raises and the script exits non-zero):
      against their plain versions, times (back-to-back and device) and
      bounds (int4 at 0.5 byte);
  21. quantized serving at TransformerConfig.base(): phase 5's 12 requests
-     on an int8 cache (the control), an e4m3 cache, an int4 cache, int8
+     (32 new tokens each) on an int8 cache (the control), an e4m3 cache, an int4 cache, int8
      W8A8 weights and int4 weights (int8 caches), and chunked prefill 512
      on the int4 cache: tokens/s, mean step, TTFT, B1/B5/B6 launches; a
      profiled window of int4-weight decode steps; fp32 card-vs-CPU parity
@@ -174,6 +177,29 @@ Phases (any failure raises and the script exits non-zero):
      only); (d) one fp32 AdamW step of each (hybrid window 64, streaming
      window 96 with 4 sinks) on tokens (2, 257), card against CPU, as
      phase 8.
+ 27. a Gemma-2-2B-width hybrid model at head_dim 256 (google/gemma-2-2b's
+     published widths: d_model 2304, 8/4 heads of 256, d_ff 9216, vocab
+     256000, a 4096-token window on every other layer, 26 layers, bf16
+     weights random from a seed; SwiGLU for GeGLU, no soft-capping, no
+     post-norms, no embedding scale) served on an int8 cache, 8 slots,
+     CUDA-graph decode: 12 requests (8 of 64-1500 tokens, 4 of 4500-6000),
+     chunked prefill 512, 64 greedy tokens each: tokens/s, TPOT, TTFT, each
+     window group's peak live pages (the local group within its live bound
+     after every step), B1's, B5's and B6's launches at D 256, windowed and
+     global; the same widths at 2 layers in fp32, card against CPU, greedy
+     tokens equal; speculation and prefix caching refused on the hybrid
+     cache;
+ 28. B1 at D 32 (B4 Hq16 Hkv8 S2048) and D 256 (B1 Hq8 Hkv4 S4096) in bf16
+     tiles, fp16 tiles and fp32 under causal masking, window 128 with 4
+     sinks, a band of offset -100 and 4 documents a row; B5 and B6 (T 5,
+     T 512 in bf16 and fp32 compute) at D 32 and 256 on int8, int4, e4m3
+     and bf16 caches; B7 with window 160 and with 2 segments at B4 Hq16
+     Hkv8 S2048 D64 (int8, int4, e4m3; bf16 and fp32 compute) and its
+     windowed and segmented launches on the public API.  Each against its
+     plain version with a control that must fail the gate (the mask one
+     key off; the paged lengths one key short; the bf16 instantiation for
+     fp16 tiles), device time beside the bound (kept pairs) and, for B1,
+     SDPA.
 Serving's decode steps run as CUDA graphs (decode/graphs.py); each
 wrapper's launch count adds what a capture recorded at every replay.
 The line before the last is the kernel JSON (eleven kernels; B1, B5, B6 and
@@ -202,6 +228,10 @@ B1_TOL = {"bf16": 2e-2, "fp32": 2e-6}  # fp16 tiles: FP16_REL_TOL
 LSE_REL_TOL = 1e-3
 B5_TOL = {"bf16": 2e-2, "fp32": 2e-5}
 B6_TOL = B5_TOL
+# Phase 28's B5/B6 rows also hold each slot to its own max |O|: at 6000
+# keys a slot's outputs are ~0.1, so the absolute gate alone would let one
+# page of its walk be read wrong (plain versions on the CPU, D 256: 0.02).
+SLOT_REL_TOL = B5_TOL
 E2E_LOGIT_TOL = 1e-3
 # Backward kernels: error relative to the plain output's own max |value|
 # (bf16: the JAX bf16-tile grad gate, tests/test_fa2_backward.py).
@@ -274,9 +304,22 @@ B5_FUNCTIONS = (("paged_decode_kernel",), 48)
 B6_FUNCTIONS = (("paged_chunk_split", "paged_chunk_mma", "paged_chunk_fp32"), 96)
 X_FUNCTIONS = (("r5_fwd",), 5)
 # B7's bodies: wgmma fed by converter warps (bf16 compute) and the FMA block
-# over the stored-width ring (fp32 compute), each 4 storages x 2 q types x
-# D 64 and 128.
-B7_FUNCTIONS = (("fa2_fwd_quant_wgmma", "fa2_fwd_quant_fp32"), 32)
+# over the stored-width ring (fp32 compute, with and without segment ids),
+# 4 storages x 2 q types x D 64 and 128 (x 2 for the FMA block).
+B7_FUNCTIONS = (("fa2_fwd_quant_wgmma", "fa2_fwd_quant_fp32"), 48)
+# The libraries of head dims 32 and 256 (csrc/<name>_d32.cu, _d256.cu):
+# B1's wgmma body (2 input types x 2 tile types) and fp32 body (with and
+# without ids); B5 and B6 over their caches (six at D 32; no fp32 cache at
+# D 256) x 2 q types x (B5) groups of at most 2 and 8 or (B6) the split
+# body's two compute types, the bf16 and the fp32 tile body.
+B1_WIDE_FUNCTIONS = (("fa2_fwd_wgmma", "fa2_fwd_fp32"), 6)
+WIDE_FUNCTIONS = {
+    "fa2_forward_d32": B1_WIDE_FUNCTIONS, "fa2_forward_d256": B1_WIDE_FUNCTIONS,
+    "paged_decode_d32": (("paged_decode_kernel",), 24),
+    "paged_decode_d256": (("paged_decode_kernel",), 20),
+    "paged_chunk_d32": (("paged_chunk_split", "paged_chunk_mma", "paged_chunk_fp32"), 48),
+    "paged_chunk_d256": (("paged_chunk_split", "paged_chunk_mma", "paged_chunk_fp32"), 40),
+}
 
 
 def ptxas_by_function(text: str) -> dict:
@@ -509,10 +552,10 @@ def read_counts(names) -> dict:
 
 
 
-def phase_profile(torch, np, eng, label="profile", new_tokens=40):
-    """Where a decode step's time goes: eight running requests, ten steps
-    (speculative rounds, for a speculative engine; bursts, for a bursting
-    one: `new_tokens` keeps them busy through the window) under
+def phase_profile(torch, np, eng, label="profile", new_tokens=40, steps=10):
+    """Where a decode step's time goes: eight running requests, `steps`
+    steps (speculative rounds, for a speculative engine; bursts, for a
+    bursting one: `new_tokens` keeps them busy through the window) under
     torch.profiler, timed on the host clock over the same window (so the
     step time includes the profiler's own host overhead)."""
     from torch.autograd import DeviceType
@@ -528,36 +571,36 @@ def phase_profile(torch, np, eng, label="profile", new_tokens=40):
     tokens0 = eng.stats["tokens"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(10):
+        for _ in range(steps):
             eng.step()
         torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - t0) / 10 * 1e3
+        step_ms = (time.perf_counter() - t0) / steps * 1e3
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 10 / 1e3
+    busy_ms = sum(e.self_device_time_total for e in kernels) / steps / 1e3
     if not busy_ms > 0:
         raise AssertionError("profile: no device time recorded")
     # The host's launch calls: kernels launched one by one, and graph
     # replays (each one launch of a whole captured step).
-    host_calls = {e.key: e.count / 10 for e in events
+    host_calls = {e.key: e.count / steps for e in events
                   if e.device_type != DeviceType.CUDA
                   and ("LaunchKernel" in e.key or "GraphLaunch" in e.key)}
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     # B5's and B6's kernels (csrc/paged_decode.cu, csrc/paged_chunk.cu) and
     # their shares of the busy time.
     b5_ms, b6_ms = (sum(e.self_device_time_total for e in kernels if name in e.key)
-                    / 10 / 1e3 for name in ("paged_decode_kernel", "paged_chunk_"))
+                    / steps / 1e3 for name in ("paged_decode_kernel", "paged_chunk_"))
     res = dict(
         batch=len(reqs), decode_step_ms=step_ms,
-        tokens_per_step=(eng.stats["tokens"] - tokens0) / 10,
+        tokens_per_step=(eng.stats["tokens"] - tokens0) / steps,
         device_busy_ms_per_step=busy_ms,
         device_idle_share=1 - busy_ms / step_ms,
-        kernel_launches_per_step=sum(e.count for e in kernels) / 10,
+        kernel_launches_per_step=sum(e.count for e in kernels) / steps,
         host_launch_calls_per_step=sum(host_calls.values()),
         host_launch_calls=host_calls,
         b5_ms_per_step=b5_ms, b5_share_of_busy=b5_ms / busy_ms,
         b6_ms_per_step=b6_ms, b6_share_of_busy=b6_ms / busy_ms,
-        top_kernels_ms_per_step={e.key[:48]: e.self_device_time_total / 1e4
+        top_kernels_ms_per_step={e.key[:48]: e.self_device_time_total / steps / 1e3
                                  for e in top})
     log(label, json.dumps(res))
     return res
@@ -1183,7 +1226,7 @@ def phase_spec_serving(torch, np, transformer, decode, dataclasses):
     params = transformer.init_params(
         torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
     prompts = serving_mix(np, cfg)
-    new_tokens = 24
+    new_tokens = 12
     out = {}
     for mode in ("draft", "prompt_lookup"):
         kw = (dict(draft_params=draft_of(params),
@@ -1212,7 +1255,7 @@ def phase_spec_serving(torch, np, transformer, decode, dataclasses):
             launches=launches)
         log(f"spec serving {mode}", json.dumps(out[mode]))
         if mode == "draft":
-            phase_profile(torch, np, eng, "spec profile (draft, k 4)")
+            phase_profile(torch, np, eng, "spec profile (draft, k 4)", steps=4)
         del eng
     return out
 
@@ -1902,7 +1945,7 @@ def phase_paged_quant(torch, dec_attn, kv_cache):
 
 def phase_quant_serving(torch, np, transformer, decode, quant):
     """TransformerConfig.base() serving phase 5's 12 requests (seed 4, 8
-    slots, 64 greedy tokens) on an int8 cache (the control), (a) an e4m3
+    slots, 32 greedy tokens) on an int8 cache (the control), (a) an e4m3
     cache, (b) an int4 cache, (c) int8 W8A8 weights on an int8 cache, (d)
     int4 weights on an int8 cache, and chunked prefill 512 on the int4
     cache, with one profiled window of decode steps for (d); then fp32 at
@@ -1922,6 +1965,7 @@ def phase_quant_serving(torch, np, transformer, decode, quant):
              ("int4 weights, int8 cache", w4, torch.int8, {}),
              ("int4 cache, chunked prefill 512", params, "int4",
               dict(prefill_chunk=512))]
+    new_tokens = 32
     res = {}
     for name, p, cache, kw in modes:
         eng = decode.DecodeEngine(p, cfg, max_seqs=8, max_seq_len=2048,
@@ -1929,14 +1973,14 @@ def phase_quant_serving(torch, np, transformer, decode, quant):
         torch.cuda.synchronize()
         reset_counts(SERVING_KERNELS)
         t0 = time.perf_counter()
-        reqs = eng.run(prompts, max_new_tokens=64)
+        reqs = eng.run(prompts, max_new_tokens=new_tokens)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         launches = read_counts(SERVING_KERNELS)
         need = (("paged_chunk", "paged_decode") if kw
                 else ("fa2_forward", "paged_decode"))
         check_served(f"quant serving {name}", reqs, eng, launches, need,
-                     cfg.vocab_size, 64)
+                     cfg.vocab_size, new_tokens)
         total = sum(len(r.generated) for r in reqs)
         res[name] = dict(requests=len(reqs), tokens=total, seconds=elapsed,
                          tokens_per_s=total / elapsed,
@@ -2136,7 +2180,7 @@ def phase_bench(torch, np, transformer, decode, decode_bench, train_bench,
     out = {}
     reset_counts(SERVING_KERNELS)
     loop = decode_bench.measure_decode_throughput(cfg, batch=b, prompt_len=p,
-                                                  gen_tokens=gen, repeats=3)
+                                                  gen_tokens=gen, repeats=2)
     loop["eager_over_graph"] = loop["eager_step_ms"] / loop["step_ms"]
     loop["launches"] = read_counts(SERVING_KERNELS)
     out["device_loop"] = loop
@@ -3011,6 +3055,415 @@ def phase_window_train(torch, np, transformer, training, dataclasses):
     return out
 
 
+# Phase 27: a Gemma-2-2B-width hybrid model served at head_dim 256.  The
+# widths of google/gemma-2-2b's published config.json; the weights random
+# from a seed.  What the JAX package's block cannot express of Gemma-2 is
+# listed, not emulated.
+GEMMA2_2B = dict(d_model=2304, n_layers=26, n_heads=8, n_kv_heads=4, head_dim=256,
+                 d_ff=9216, vocab_size=256000, rope_theta=10000.0, attn_window=4096,
+                 global_every=2)
+GEMMA2_NOT_EXPRESSED = ("SwiGLU stands in for GeGLU",
+                        "no attention or final logit soft-capping",
+                        "no post-attention and post-FFN norms", "no embedding scale")
+D256_KERNELS = ("fa2_forward_d256", "fa2_forward_d256_window", "paged_decode_d256",
+                "paged_decode_d256_window", "paged_chunk_d256", "paged_chunk_d256_window")
+# Those phase 27 must launch.  B1's windowed launches there are 0 by design:
+# under chunked prefill B1 runs only a prompt's first chunk, whose 512 rows
+# the 4096 window covers, so the API folds the window away (as JAX's
+# _normalize_window does); phase 28 runs B1's windowed D 256 instantiation.
+D256_NEED = tuple(n for n in D256_KERNELS if n != "fa2_forward_d256_window")
+
+
+def d256_launches(launches) -> dict:
+    """B1's, B5's and B6's launches at D 256, windowed and global."""
+    return {n: dict(windowed=launches[f"{n}_d256_window"],
+                    global_=launches[f"{n}_d256"] - launches[f"{n}_d256_window"])
+            for n in SERVING_KERNELS}
+
+
+def phase_gemma2_serving(torch, np, transformer, decode, dataclasses):
+    """The Gemma-2-2B-width hybrid configuration (head_dim 256, GQA 8/4, a
+    4096-token window on the even layers, the odd ones global; bf16 weights)
+    served on an int8 cache, 8 slots, CUDA-graph decode: 12 requests (8
+    prompts of 64-1500 tokens, 4 of 4500-6000 so that the local group
+    recycles past the window), chunked prefill 512, 64 greedy tokens each.
+    After every step no decoding slot's local group holds more pages than
+    the window's live bound; B1's, B5's and B6's launches at D 256 must be
+    > 0, B5's and B6's windowed ones too (D256_NEED)."""
+    cfg = transformer.TransformerConfig(param_dtype=torch.bfloat16, **GEMMA2_2B)
+    log("gemma2 config", json.dumps(dict(GEMMA2_2B, q_dim=cfg.q_dim,
+                                         not_expressed=GEMMA2_NOT_EXPRESSED)))
+    params = transformer.init_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    rng = np.random.default_rng(27)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(64, 1501, 8)]
+    for i, n in zip((1, 4, 7, 10), rng.integers(4500, 6001, 4)):
+        prompts.insert(i, rng.integers(0, cfg.vocab_size, int(n)).tolist())
+    new_tokens = 64
+    eng = decode.DecodeEngine(params, cfg, max_seqs=8, max_seq_len=6144,
+                              page_size=128, cache_dtype=torch.int8, prefill_chunk=512)
+    bound = eng._worst_pages_for(1, 1 << 20)[0]
+    peak_total, peak_slot = [0, 0], [0, 0]
+    names = SERVING_KERNELS + D256_KERNELS
+    torch.cuda.synchronize()
+    reset_counts(names)
+    t0 = time.perf_counter()
+    reqs = eng.submit_many(prompts, max_new_tokens=new_tokens)
+    while any(not r.done for r in reqs) or eng._pending:
+        eng.step()
+        for g in range(eng.n_groups):
+            live = [eng._live_page_count(s, g) for s in range(eng.max_seqs)]
+            peak_total[g] = max(peak_total[g], sum(live))
+            peak_slot[g] = max(peak_slot[g], max(live))
+            if g == 0 and any(live[s] > bound for s in np.flatnonzero(eng.active)):
+                raise AssertionError(f"gemma2: a decoding slot's local group holds "
+                                     f"{live} pages (bound {bound})")
+    eng.step()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = read_counts(names)
+    check_served("gemma2", reqs, eng, launches, D256_NEED, cfg.vocab_size, new_tokens)
+    for a in eng._group_allocs:
+        if a.available != eng.num_pages - 1:
+            raise AssertionError("gemma2: a group's pages leaked")
+    if peak_slot[0] >= peak_slot[1]:
+        raise AssertionError(f"gemma2: the local group's peak {peak_slot[0]} pages a "
+                             f"slot is not below the global group's {peak_slot[1]}")
+    total = sum(len(r.generated) for r in reqs)
+    res = dict(config="gemma-2-2b widths, w4096 global_every 2, D256", requests=len(reqs),
+               tokens=total, seconds=elapsed, tokens_per_s=total / elapsed,
+               tpot_ms_median=statistics.median(r.tpot_s for r in reqs) * 1e3,
+               ttft_ms_median=statistics.median(r.ttft_s for r in reqs) * 1e3,
+               steps=eng.stats["steps"], prefill_chunks=eng.stats["prefill_chunks"],
+               local_bound_pages=bound, peak_live_pages_local=peak_total[0],
+               peak_live_pages_global=peak_total[1], peak_slot_pages_local=peak_slot[0],
+               peak_slot_pages_global=peak_slot[1], prompt_lens=[len(p) for p in prompts],
+               d256_launches=d256_launches(launches), launches=launches,
+               max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    log("gemma2 hybrid serving", json.dumps(res))
+    del eng, params
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_gemma2_parity(torch, np, transformer, decode, dataclasses):
+    """The Gemma-2-2B widths at 2 layers (the local one and a global one) in
+    fp32 on an int8 cache, card against CPU: greedy tokens equal over two
+    prompts below the window (8 new tokens each); speculation and prefix
+    caching refused on the hybrid cache, as the JAX engine refuses them."""
+    cfg = transformer.TransformerConfig(dtype=torch.float32, attn_tile_dtype=None,
+                                        **dict(GEMMA2_2B, n_layers=2))
+    params = transformer.init_params(
+        torch.Generator(device="cuda").manual_seed(1), cfg, device="cuda")
+    rng = np.random.default_rng(28)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (300, 700)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = transformer.tree_map(lambda w: w.to(dev), params)
+        if dev == "cpu":
+            for kw in (dict(prefix_cache=True), dict(spec_tokens=2)):
+                try:
+                    decode.DecodeEngine(p, cfg, max_seqs=2, max_seq_len=1024,
+                                        cache_dtype=torch.int8, device=dev, **kw)
+                except NotImplementedError:
+                    continue
+                raise AssertionError(f"gemma2: the hybrid cache took {kw}")
+        eng = decode.DecodeEngine(p, cfg, max_seqs=2, max_seq_len=1024,
+                                  cache_dtype=torch.int8, device=dev)
+        out[dev] = [r.generated for r in eng.run(prompts, max_new_tokens=8)]
+        del eng, p
+    if out["cuda"] != out["cpu"]:
+        raise AssertionError(f"gemma2 fp32: card tokens {out['cuda']} vs CPU {out['cpu']}")
+    log("gemma2 fp32 2 layers (card vs CPU)", json.dumps(dict(equal=True, tokens=out["cuda"])))
+    del params
+    torch.cuda.empty_cache()
+    return True
+
+
+# Phase 28: every new instantiation against its plain version.  B1 at D 32
+# (B4 Hq16 Hkv8 S2048) and D 256 (B1 Hq8 Hkv4 S4096, the Gemma-2 prefill's
+# heads), in bf16 tiles, fp16 tiles (fp32 inputs) and fp32, under four
+# masks; B5 and B6 (T 5: the split body; T 512: the bf16 and fp32 tile
+# bodies) at D 32 and 256 on int8, int4, e4m3 and bf16 caches; B7 with a
+# window (160) and with 2 segments, at the base attention shape.
+WIDE_B1_SHAPES = {32: (4, 16, 8, 2048), 256: (1, 8, 4, 4096)}
+WIDE_B1_MASKS = ("causal", "window 128 sinks 4", "band -100", "4 documents")
+WIDE_CACHES = ("int8", "int4", "e4m3", "bf16")
+# (name, T, lengths, compute): B5 at the Gemma serving shape's lengths, B6's
+# speculation and chunked-prefill lengths.
+WIDE_PAGED = (("B5", 1, [6000, 1, 129, 0, 777, 1500, 128, 4500], "bf16"),
+              ("B6 T5", 5, B6_SPEC_LENGTHS, "bf16"),
+              ("B6 T512", 512, B6_PREFILL_LENGTHS, "bf16"),
+              ("B6 T512 fp32", 512, B6_PREFILL_LENGTHS, "fp32"))
+
+
+def wide_mask_kw(torch, mask, b, s, control=False):
+    """B1's keyword arguments for one of WIDE_B1_MASKS (ids as the kernels
+    take them, [B, S] int32); with `control`, the mask one key off: the
+    window one wider, the band's offset one less negative, the ids shifted
+    by one token, causal dropped."""
+    if mask == "causal":
+        return dict(causal=not control, window=None, sinks=0)
+    if mask.startswith("window"):
+        return dict(causal=True, window=128 + control, sinks=4)
+    if mask.startswith("band"):
+        return dict(causal=False, window=-100 + control, sinks=0)
+    ids = (torch.arange(s, device="cuda") * 4 // s).to(torch.int32).expand(b, s)
+    if control:
+        ids = torch.roll(ids, 1, dims=1)
+    return dict(causal=True, window=None, sinks=0, q_seg=ids.contiguous(),
+                kv_seg=ids.contiguous())
+
+
+def phase_wide_b1(torch, F, attention, fa2, common):
+    """B1 at D 32 and 256 against its plain version under WIDE_B1_MASKS in
+    each tile body; controls (the mask one key off; the bf16 instantiation
+    for fp16 tiles) must fail the gate; device time beside the
+    kept-pair bound and SDPA on the same inputs (causal by its flag, the
+    other masks as a boolean attn_mask)."""
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    rows = []
+    for d, (b, hq, hkv, s) in WIDE_B1_SHAPES.items():
+        raw = [torch.randn(b, h, s, d, generator=gen, device="cuda")
+               for h in (hq, hkv, hkv)]
+        scale = d ** -0.5
+        for mask in WIDE_B1_MASKS:
+            mkw = wide_mask_kw(torch, mask, b, s)
+            keep = common.build_element_mask(
+                s, s, causal=mkw["causal"], kv_len=s, device="cuda",
+                window=mkw["window"], sinks=mkw["sinks"], q_seg=mkw.get("q_seg"),
+                kv_seg=mkw.get("kv_seg"))
+            pairs = int(keep.sum().item()) * (b if keep.ndim == 2 else 1)
+            for kind in ("bf16", "fp16", "fp32"):
+                tile = tile_of(torch, kind)
+                q, k, v = (t.to(torch.bfloat16) if kind == "bf16" else t for t in raw)
+                kw = dict(mkw, sm_scale=scale, kv_len=s, tile_dtype=tile)
+                o_k, lse_k = fa2.fa2_forward_aligned(q, k, v, **kw)
+                o_p, lse_p = fa2.fa2_forward_plain(q, k, v, **kw)
+                torch.cuda.synchronize()
+                err = (o_k.float() - o_p.float()).abs().max().item()
+                lse_err, dead_equal = lse_gate(torch, lse_k, lse_p)
+                label = f"B1 D{d} {mask} {kind}"
+                if kind == "fp16":
+                    o_c, _ = fa2.fa2_forward_aligned(q, k, v, **dict(kw, tile_dtype=torch.bfloat16))
+                    control_err = rel_err(o_c, o_p)
+                    fp16_gate(label, rel_err(o_k, o_p), control_err, FP16_REL_TOL["B1"])
+                    err_ok = True
+                else:
+                    ckw = dict(kw, **wide_mask_kw(torch, mask, b, s, control=True))
+                    o_c, _ = fa2.fa2_forward_plain(q, k, v, **ckw)
+                    control_err = (o_k.float() - o_c.float()).abs().max().item()
+                    tol = B1_TOL[kind]
+                    err_ok = err <= tol
+                    if control_err <= tol:
+                        raise AssertionError(f"{label}: the control passes the gate "
+                                             f"({control_err} <= {tol})")
+                if not (err_ok and lse_err <= LSE_REL_TOL and dead_equal):
+                    raise AssertionError(f"{label}: max_abs_err {err}, lse rel err "
+                                         f"{lse_err}, dead rows equal {dead_equal}")
+                lib_in = [t.to(tile or torch.float32) for t in (q, k, v)]
+                # SDPA: causal by its flag (its flash kernel), the other
+                # masks as a boolean attn_mask.
+                sdpa_kw = (dict(is_causal=True) if mask == "causal" else dict(
+                    attn_mask=keep if keep.ndim == 2 else keep.expand(b, hq, s, s)))
+                flops = 4 * hq * pairs * d
+                t_bytes = nbytes(q, k, v, o_k, lse_k) / HBM_BYTES_PER_S
+                t_ops = flops / PEAK_FLOPS[kind]
+                ms = time_ms(lambda: fa2.fa2_forward_aligned(q, k, v, **kw), iters=10)
+                row = dict(kernel="fa2_forward", case=f"D{d} {mask}", kind=kind, B=b,
+                           Hq=hq, Hkv=hkv, S=s, D=d, max_abs_err=err, lse_rel_err=lse_err,
+                           control_max_abs_err=control_err, ms=ms,
+                           plain_ms=time_ms(lambda: fa2.fa2_forward_plain(q, k, v, **kw),
+                                            iters=1, warmup=1),
+                           library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                               *lib_in, scale=scale, enable_gqa=True, **sdpa_kw),
+                               iters=3, warmup=1),
+                           bound_ms=max(t_bytes, t_ops) * 1e3,
+                           bound_by="bytes" if t_bytes > t_ops else "operations",
+                           tflops=flops / ms / 1e9)
+                rows.append(row)
+                log("wide B1", json.dumps(row))
+                del o_k, lse_k, o_p, lse_p, o_c, lib_in
+            del keep
+        del raw
+        torch.cuda.empty_cache()
+    return rows
+
+
+def wide_pages(torch, kv_cache, gen, cache, shape):
+    """A paged cache of one of WIDE_CACHES from random rows, written by the
+    cache's own quantizer (bf16: the rows rounded, unit scales)."""
+    if cache == "bf16":
+        return random_pages(torch, kv_cache, gen, "bf16", shape)
+    return quant_pages(torch, kv_cache, gen, cache, shape)
+
+
+def slot_rel_err(torch, o_k, o_p) -> float:
+    """The largest over slots (dim 0) of max |o_k - o_p| / max |o_p|; a
+    slot whose plain output is all 0 (no key) is held to 0 exactly."""
+    diff = (o_k.float() - o_p.float()).abs().flatten(1).amax(1)
+    scale = o_p.float().abs().flatten(1).amax(1)
+    rel = torch.where(scale > 0, diff / scale.clamp_min(1e-30),
+                      torch.where(diff > 0, float("inf"), 0.0))
+    return rel.max().item()
+
+
+def phase_wide_paged(torch, dec_attn, kv_cache):
+    """B5 and B6's three bodies at D 32 and 256 on WIDE_CACHES against their
+    plain versions, over all outputs (B5_TOL) and slot by slot
+    (SLOT_REL_TOL); two controls must each fail that gate: the plain
+    version over every length one key short, and over the longest slot's
+    middle page read from page 0, which no slot owns (a wrong long walk);
+    device time beside the bound."""
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    rows = []
+    for d, (hq, hkv) in ((32, (16, 8)), (256, (8, 4))):
+        for name, chunk, lens, compute in WIDE_PAGED:
+            n, pps = len(lens), -(-max(lens) // 128)
+            num_pages = n * pps + 1
+            table = (torch.randperm(num_pages - 1, generator=gen, device="cuda") + 1
+                     ).reshape(n, pps).to(torch.int32).contiguous()
+            lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            cdt = torch.bfloat16 if compute == "bf16" else torch.float32
+            qshape = (n, hq, d) if chunk == 1 else (n, chunk, hq, d)
+            q = torch.randn(qshape, generator=gen, device="cuda").to(cdt)
+            kernel_fn, plain_fn = ((dec_attn.paged_decode_attention,
+                                    dec_attn.paged_decode_attention_plain) if chunk == 1
+                                   else (dec_attn.paged_chunk_attention,
+                                         dec_attn.paged_chunk_attention_plain))
+            kw = dict(sm_scale=d ** -0.5, compute_dtype=cdt)
+            # The controls: every slot one key short (a slot of length T
+            # loses its first row's only key), and the longest slot with its
+            # middle page swapped for page 0.
+            short = torch.clamp(lengths - 1, min=0)
+            longest = max(range(n), key=lambda i: lens[i])
+            wrong = table.clone()
+            wrong[longest, lens[longest] // 128 // 2] = 0
+            for cache in WIDE_CACHES:
+                pages = wide_pages(torch, kv_cache, gen, cache, (hkv, num_pages, 128, d))
+                o_k = kernel_fn(q, pages, table, lengths, **kw)
+                o_p = plain_fn(q, pages, table, lengths, **kw)
+                o_c = plain_fn(q, pages, table, short, **kw)
+                o_w = plain_fn(q, pages, wrong, lengths, **kw)
+                torch.cuda.synchronize()
+                tol, slot_tol = B5_TOL[compute], SLOT_REL_TOL[compute]
+
+                def errs(o):
+                    return ((o_k.float() - o.float()).abs().max().item(),
+                            slot_rel_err(torch, o_k, o))
+
+                err, slot_err = errs(o_p)
+                control_err, control_slot = errs(o_c)
+                page_err, page_slot = errs(o_w)
+                label = f"{name} D{d} {cache} {compute}"
+                if not (err <= tol and slot_err <= slot_tol
+                        and torch.isfinite(o_k.float()).all()):
+                    raise AssertionError(f"{label}: max_abs_err {err} (tol {tol}), "
+                                         f"slot rel err {slot_err} (tol {slot_tol})")
+                for what, (c_abs, c_slot) in (("one key short", (control_err, control_slot)),
+                                              ("wrong page", (page_err, page_slot))):
+                    if c_abs <= tol and c_slot <= slot_tol:
+                        raise AssertionError(f"{label}: the {what} control passes the "
+                                             f"gate ({c_abs}, slot rel {c_slot})")
+                elem = 0.5 if cache == "int4" else pages.k_pages.element_size()
+                bound_ms, bound_by, _, moved = paged_bound(lens, chunk, hq, hkv, d, elem,
+                                                           q, o_k, compute)
+                ms = queued_ms(torch, lambda: kernel_fn(q, pages, table, lengths, **kw))
+                row = dict(kernel="paged_decode" if chunk == 1 else "paged_chunk",
+                           case=f"{name} D{d}", T=chunk, D=d, Hq=hq, Hkv=hkv,
+                           cache=cache, compute=compute, lengths=lens, max_abs_err=err,
+                           slot_rel_err=slot_err, control_max_abs_err=control_err,
+                           page_control_slot_rel_err=page_slot, ms=ms,
+                           plain_ms=time_ms(lambda: plain_fn(q, pages, table, lengths, **kw),
+                                            iters=1, warmup=1),
+                           library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                           gbps=moved / ms / 1e6)
+                rows.append(row)
+                log("wide paged", json.dumps(row))
+                del pages, o_k, o_p, o_c, o_w
+    return rows
+
+
+def phase_b7_masks(torch, quant, fq):
+    """B7 with a causal window of 160 (tests/test_window.py:223's) and with 2
+    segments (tests/test_quant.py:144's), at the base attention shape B4
+    Hq16 Hkv8 S2048 D64, on int8, int4 and e4m3 K/V in bf16 and fp32
+    compute, against its plain version; the control (the window one wider,
+    the ids shifted by one token) must fail the gate; device time beside
+    the kept-pair bound and the same call without the mask."""
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    b, hq, hkv, s, d = 4, 16, 8, 2048, 64
+    rows = []
+    half = torch.cat([torch.zeros(b, s // 2), torch.ones(b, s // 2)], 1).to(
+        torch.int32).cuda()
+    for storage in ("int8", "int4", "e4m3"):
+        for compute in ("bf16", "fp32"):
+            cdt = torch.bfloat16 if compute == "bf16" else torch.float32
+            _, args, _ = quant_problem(torch, quant, fq, gen, storage, b, hq, hkv, s, d,
+                                       cdt)
+            base = dict(causal=True, sm_scale=d ** -0.5, kv_len=s, compute_dtype=cdt)
+            for mask in ("window 160", "2 segments"):
+                if mask.startswith("window"):
+                    mkw, ckw = dict(window=160), dict(window=161)
+                    pairs = window_pairs(s, s, True, 160, 0) * b
+                else:
+                    mkw = dict(q_seg=half, kv_seg=half)
+                    shifted = torch.roll(half, 1, dims=1).contiguous()
+                    ckw = dict(q_seg=shifted, kv_seg=shifted)
+                    pairs = 2 * causal_pairs(s // 2, s // 2, True) * b
+                kw = dict(base, **mkw)
+                o_k, lse_k = fq.fa2_forward_quant_aligned(*args, **kw)
+                o_p, lse_p = fq.fa2_forward_quant_plain(*args, **kw)
+                o_c, _ = fq.fa2_forward_quant_plain(*args, **dict(base, **ckw))
+                torch.cuda.synchronize()
+                label = f"B7 {mask} {storage} {compute}"
+                err = (o_k.float() - o_p.float()).abs().max().item()
+                control_err = (o_k.float() - o_c.float()).abs().max().item()
+                lse_err, dead_equal = lse_gate(torch, lse_k, lse_p)
+                def passes(o):
+                    return (bf16_excess(o_k, o) <= BF16_ATOL["B7"] if compute == "bf16"
+                            else (o_k.float() - o.float()).abs().max().item() <= 2e-5)
+
+                if not (passes(o_p) and dead_equal and lse_err <= LSE_REL_TOL):
+                    raise AssertionError(f"{label}: max_abs_err {err}, lse {lse_err}")
+                if passes(o_c):
+                    raise AssertionError(f"{label}: the control passes the gate "
+                                         f"({control_err})")
+                flops = 4 * hq * pairs * d
+                moved = nbytes(*args, o_k, lse_k)
+                t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / PEAK_FLOPS[compute]
+                row = dict(kernel="fa2_forward_quant", case=f"B4 S2048 {mask}",
+                           storage=storage, compute=compute, max_abs_err=err,
+                           control_max_abs_err=control_err,
+                           ms=time_ms(lambda: fq.fa2_forward_quant_aligned(*args, **kw),
+                                      iters=10),
+                           global_ms=time_ms(lambda: fq.fa2_forward_quant_aligned(
+                               *args, **base), iters=10),
+                           plain_ms=time_ms(lambda: fq.fa2_forward_quant_plain(*args, **kw),
+                                            iters=1, warmup=1),
+                           library_ms=None, bound_ms=max(t_bytes, t_ops) * 1e3,
+                           bound_by="bytes" if t_bytes > t_ops else "operations")
+                rows.append(row)
+                log("B7 masks", json.dumps(row))
+                del o_k, lse_k, o_p, o_c
+            del args
+    # Windowed and segmented launches on the public API (its main path).
+    reset_counts(("fa2_forward_quant", "fa2_forward_quant_window",
+                  "fa2_forward_quant_segments"))
+    (q, k_q, v_q), _, _ = quant_problem(torch, quant, fq, gen, "int8", b, hq, hkv, s, d,
+                                        torch.bfloat16)
+    fq.flash_attention_quantized_kv(q, k_q, v_q, causal=True, window=160)
+    fq.flash_attention_quantized_kv(q, k_q, v_q, causal=True, q_segment_ids=half,
+                                    kv_segment_ids=half)
+    torch.cuda.synchronize()
+    launches = read_counts(("fa2_forward_quant", "fa2_forward_quant_window",
+                            "fa2_forward_quant_segments"))
+    if not (launches["fa2_forward_quant_window"] and launches["fa2_forward_quant_segments"]):
+        raise AssertionError(f"B7 masks: the API launched {launches}")
+    return rows, launches
+
+
 def main() -> int:
     import torch
 
@@ -3056,10 +3509,16 @@ def main() -> int:
         "device", torch.cuda.get_device_name(0))
 
     t0 = time.perf_counter()
-    build_logs = _build.build("fa2_forward", "paged_decode", "fa2_backward",
-                              "paged_chunk", "fa2_forward_small", "baselines",
-                              "fa2_forward_quant", "r5_d128_fwd")
-    log(f"phase 1: built {sorted(build_logs)} in {time.perf_counter() - t0:.1f} s")
+    # The longest compiles first (by their measured nvcc seconds), so that no core
+    # idles while the last long one runs.
+    build_logs = _build.build("paged_chunk", "fa2_forward_quant", "fa2_backward",
+                              "paged_chunk_d256", "paged_chunk_d32", "paged_decode",
+                              "fa2_forward_small", "fa2_forward", "paged_decode_d256",
+                              "paged_decode_d32", "fa2_forward_d256", "fa2_forward_d32",
+                              "r5_d128_fwd", "baselines")
+    log(f"phase 1: built {sorted(build_logs)} in {time.perf_counter() - t0:.1f} s; "
+        f"each source's nvcc seconds: "
+        f"{json.dumps({n: round(t, 1) for n, t in sorted(_build.BUILD_SECONDS.items())})}")
     for name, text in build_logs.items():
         for line in text.splitlines():
             if any(w in line for w in ("registers", "spill", "error",
@@ -3080,6 +3539,9 @@ def main() -> int:
                 "X", *X_FUNCTIONS)
     check_ptxas(build_logs.get("fa2_forward_quant")
                 or ptxas_log(_build, "fa2_forward_quant"), "B7", *B7_FUNCTIONS)
+    for name, (functions, count) in WIDE_FUNCTIONS.items():
+        check_ptxas(build_logs.get(name) or ptxas_log(_build, name), name, functions,
+                    count)
 
     t0 = time.perf_counter()
     b1 = phase_b1(torch, fa2, b1_ab)
@@ -3209,6 +3671,18 @@ def main() -> int:
         for name, kw in (("hybrid w64", dict(attn_window=64, global_every=2)),
                          ("streaming w96 s4", dict(attn_window=96, attn_sinks=4)))}
     log(f"phase 26: windowed and packed training ok in "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gemma2 = phase_gemma2_serving(torch, np, transformer, decode, dataclasses)
+    gemma2_parity = phase_gemma2_parity(torch, np, transformer, decode, dataclasses)
+    log(f"phase 27: Gemma-2-2B-width hybrid serving at D 256 ok in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    wide_b1 = phase_wide_b1(torch, F, attention, fa2, common)
+    wide_paged = phase_wide_paged(torch, dec_attn, kv_cache)
+    b7_masks, b7_mask_launches = phase_b7_masks(torch, quant, fq)
+    log(f"phase 28: D 32 and 256 kernels, B7's window and ids ok in "
         f"{time.perf_counter() - t0:.1f} s")
 
     # Representative shapes for the kernel line: the serving phase's largest
@@ -3425,6 +3899,33 @@ def main() -> int:
     if not all(w["launches"] for w in window_of.values()):
         raise AssertionError(f"phase 25: a windowed kernel never ran on its path: "
                              f"{ {n: w['launches'] for n, w in window_of.items()} }")
+    # Phases 27-28: B1's, B5's and B6's rows at D 32 and 256 (B1 bf16 tiles
+    # under causal masking; B5 and B6 on the int8 cache) with their D 256
+    # launches on the Gemma-2-width serving path; B7's windowed and
+    # segmented rows (int8, bf16 compute) with the public API's launches.
+    def wide_row(rows, **match):
+        r = next(r for r in rows if all(r[k] == v for k, v in match.items()))
+        return {k: r[k] for k in ("case", "ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms", "max_abs_err", "control_max_abs_err")}
+    d256 = d256_launches(gemma2["launches"])
+    for k in kernels:
+        n = k["name"]
+        if n == "fa2_forward":
+            for d in (32, 256):
+                k[f"d{d}"] = wide_row(wide_b1, case=f"D{d} causal", kind="bf16")
+        elif n in ("paged_decode", "paged_chunk"):
+            case = "B5" if n == "paged_decode" else "B6 T5"
+            for d in (32, 256):
+                k[f"d{d}"] = wide_row(wide_paged, case=f"{case} D{d}", cache="int8")
+        elif n == "fa2_forward_quant":
+            for key, case in (("window", "B4 S2048 window 160"),
+                              ("segments", "B4 S2048 2 segments")):
+                k[key] = dict(wide_row(b7_masks, case=case, storage="int8",
+                                       compute="bf16"),
+                              launches=b7_mask_launches[f"fa2_forward_quant_{key}"])
+        if n in d256:
+            k["d256"]["launches"] = d256[n]["windowed"] + d256[n]["global_"]
+            k["d256"]["launches_window"] = d256[n]["windowed"]
     log("fp16 tiles:", json.dumps({"B1 Stress-1": b1_fp16, "B2-B4": [
         {k: r[k] for k in ("kernel", "inputs", "B", "S", "causal", "ms",
                            "bound_ms", "library_ms", "rel_err")} for r in bwd_fp16]}))
@@ -3433,6 +3934,11 @@ def main() -> int:
                     "spec_parity": spec_parity, "qlora": qlora,
                     "window_streaming_equal": streaming,
                     "window_train_parity": window_parity,
+                    "gemma2": {k: gemma2[k] for k in (
+                        "tokens_per_s", "tpot_ms_median", "ttft_ms_median",
+                        "peak_live_pages_local", "peak_live_pages_global",
+                        "d256_launches")},
+                    "gemma2_fp32_card_cpu_equal": gemma2_parity,
                     "window_train": {n: {k: r[k] for k in (
                         "losses", "step_ms_median", "tokens_per_s",
                         "max_memory_allocated_gib")} for n, r in window_train.items()},

@@ -70,6 +70,18 @@
 //     (S(t + 1) is issued first and waited for with wait_group 1), and the
 //     two consumers take turns to issue their products (named barriers),
 //     so that one's softmax overlaps the other's wgmma.
+// Head dims 32, 64, 128 and 256 (CFA_HEAD_DIMS: this library 64 and 128,
+// csrc/fa2_forward_d32.cu and fa2_forward_d256.cu the others).  At D = 32 a
+// 16-bit row is 64 bytes: the Q, K and V tiles take the 64-byte swizzle (in
+// the tensor maps, the wgmma descriptors' layout type 2 and stage_q), so no
+// column is padded, S is m64n128k16 over two k-steps and P V m64n32k16.  At
+// D = 256 a ring stage holds 64 KV rows (Layout<D>::kTileN): two consumers'
+// Q tiles (64 KB) and two stages of 128-row K and V tiles (256 KB) would not
+// fit, and a consumer's O accumulator alone takes 128 fp32 registers a
+// thread, beside which a 64-column S (32) and its P fragments (16) fit the
+// 232 a consumer has; S is m64n64k16 and P V two m64n128k16 halves a k-step.
+// The fp32 body keeps csrc/fma_block.cuh's block: two O columns a thread at
+// D = 32, sixteen at D = 256 (one block of four warps an SM).
 // fp32 inputs with 16-bit tiles: TMA copies bytes and cannot convert, so
 // the wrapper casts K and V to the tile type before the launch (round to
 // nearest even, the rounding the plain version applies too); Q is still
@@ -100,6 +112,13 @@
 
 #include "fma_block.cuh"  // the fp32 body's block; includes hopper.cuh
 
+// The head dims this library is built for: 64 and 128 here; a source that
+// includes this one with CFA_HEAD_DIMS defined builds others (D 32 and 256
+// each in their own library, so that nvcc compiles the widths in parallel).
+#ifndef CFA_HEAD_DIMS
+#define CFA_HEAD_DIMS(X) X(64) X(128)
+#endif
+
 namespace {
 
 constexpr int kBlockM = 64;  // fp32 body: Q rows per block (csrc/fma_block.cuh)
@@ -107,12 +126,10 @@ constexpr int kBlockN = 64;  // fp32 body: KV rows per loop iteration
 constexpr float kMaskValue = -0.7f * 3.40282347e38f;  // DEFAULT_MASK_VALUE
 constexpr float kLn2 = 0.6931471805599453f;
 
-// 16-bit tiles: the block's Q rows, its consumers' Q rows, the KV rows of
-// one ring stage, and a swizzle atom's columns (128 bytes of 16-bit values).
+// 16-bit tiles: the block's Q rows and its consumers' Q rows (the KV rows
+// of a ring stage and a swizzle atom's columns are Layout<D>'s).
 constexpr int kTileM = 128;
 constexpr int kConsumerM = 64;
-constexpr int kTileN = 128;
-constexpr int kBoxCols = 64;
 constexpr int kThreads = 384;
 // Registers per thread after setmaxnreg: 128 x 40 + 256 x 232 = 64512 of
 // the SM's 65536 (one block per SM).
@@ -122,6 +139,17 @@ constexpr int kConsumerRegs = 232;
 // ---------------------------------------------------------------------------
 // wgmma.  Operand lists of the 64- and 128-column fp32 accumulators.
 // ---------------------------------------------------------------------------
+#define CFA_R16                                                              \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define CFA_ACC16(d) CFA_ACC8(d, 0), CFA_ACC8(d, 8)
+// d[32] (+)= A (64x16, shared, K-major) * B (16x64, shared, K-major).
+#define CFA_WGMMA_SS_N64(TY)                                                 \
+  asm volatile(                                                              \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                           \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "            \
+      "{" CFA_R32 "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                         \
+      : CFA_ACC32(d)                                                         \
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d))
 // d[64] (+)= A (64x16, shared, K-major) * B (16x128, shared, K-major).
 #define CFA_WGMMA_SS_N128(TY)                                                \
   asm volatile(                                                              \
@@ -131,6 +159,13 @@ constexpr int kConsumerRegs = 232;
       : CFA_ACC64(d)                                                         \
       : "l"(desc_a), "l"(desc_b), "r"(scale_d))
 // d += A (64x16, registers) * B (16xN, shared, MN-major: transpose bit).
+#define CFA_WGMMA_RS_N32(TY)                                                 \
+  asm volatile(                                                              \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"                           \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " "            \
+      "{" CFA_R16 "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"           \
+      : CFA_ACC16(d)                                                         \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1))
 #define CFA_WGMMA_RS_N64(TY)                                                 \
   asm volatile(                                                              \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                           \
@@ -161,6 +196,14 @@ struct Tile<__nv_bfloat16> {
                                             uint64_t desc_b, int scale_d) {
     CFA_WGMMA_SS_N128("bf16");
   }
+  static __device__ __forceinline__ void qk(float (&d)[32], uint64_t desc_a,
+                                            uint64_t desc_b, int scale_d) {
+    CFA_WGMMA_SS_N64("bf16");
+  }
+  static __device__ __forceinline__ void pv(float (&d)[16], const uint32_t* a,
+                                            uint64_t desc_b) {
+    CFA_WGMMA_RS_N32("bf16");
+  }
   static __device__ __forceinline__ void pv(float (&d)[32], const uint32_t* a,
                                             uint64_t desc_b) {
     CFA_WGMMA_RS_N64("bf16");
@@ -184,6 +227,14 @@ struct Tile<__half> {
                                             uint64_t desc_b, int scale_d) {
     CFA_WGMMA_SS_N128("f16");
   }
+  static __device__ __forceinline__ void qk(float (&d)[32], uint64_t desc_a,
+                                            uint64_t desc_b, int scale_d) {
+    CFA_WGMMA_SS_N64("f16");
+  }
+  static __device__ __forceinline__ void pv(float (&d)[16], const uint32_t* a,
+                                            uint64_t desc_b) {
+    CFA_WGMMA_RS_N32("f16");
+  }
   static __device__ __forceinline__ void pv(float (&d)[32], const uint32_t* a,
                                             uint64_t desc_b) {
     CFA_WGMMA_RS_N64("f16");
@@ -197,22 +248,45 @@ struct Tile<__half> {
 // ---------------------------------------------------------------------------
 // bf16 or fp16 tiles (Tt) on wgmma.  Shared memory, from a 1024-byte-aligned
 // base: two consumers' Q tiles, then kStages K tiles, then kStages V tiles,
-// then the mbarriers.  A tile of R rows is D / 64 boxes of R rows x 128
-// bytes, each 128-byte-swizzled (16-byte chunk c of row r at c ^ (r % 8)).
+// then each K stage's segment ids and the mbarriers.  A tile of R rows is
+// D / kBoxCols boxes of R rows x kRowBytes, each swizzled as TMA writes it:
+// 128-byte rows (D >= 64) with the 128-byte swizzle (16-byte chunk c of row
+// r at c ^ (r % 8)), or at D = 32 one box of 64-byte rows with the 64-byte
+// swizzle (chunk c of row r at c ^ ((r / 2) % 4)); no column is padded.
+// At D = 256 a ring stage holds 64 KV rows, not 128: the Q tiles (64 KB) and
+// two stages of 128-row K and V tiles (256 KB) would not fit the SM's 227
+// KB, and each consumer's O accumulator (128 fp32 registers a thread) leaves
+// room for a 64-column S (32) and its P fragments (16), not a 128-column one.
 // ---------------------------------------------------------------------------
 template <int D>
 struct Layout {
-  static constexpr int kStages = D == 64 ? 3 : 2;
-  static constexpr int kQBox = kConsumerM * 128;  // bytes of one Q box
-  static constexpr int kKVBox = kTileN * 128;     // bytes of one K or V box
-  static constexpr int kQBytes = kQBox * (D / kBoxCols);
-  static constexpr int kKVBytes = kKVBox * (D / kBoxCols);
+  static constexpr int kTileN = D > 128 ? 64 : 128;   // KV rows of a stage
+  static constexpr int kBoxCols = D < 64 ? D : 64;     // columns of a box row
+  static constexpr int kRowBytes = 2 * kBoxCols;       // 128, or 64 at D = 32
+  static constexpr int kChunks = kRowBytes / 16;       // 16-byte chunks a box row
+  static constexpr int kBoxes = D / kBoxCols;
+  static constexpr int kAtom = 8 * kRowBytes;          // a swizzle atom's bytes
+  static constexpr int kStages = D > 64 ? 2 : 3;
+  static constexpr int kQBox = kConsumerM * kRowBytes;  // bytes of one Q box
+  static constexpr int kKVBox = kTileN * kRowBytes;     // bytes of one K or V box
+  static constexpr int kQBytes = kQBox * kBoxes;
+  static constexpr int kKVBytes = kKVBox * kBoxes;
   static constexpr int kK = 2 * kQBytes;
   static constexpr int kV = kK + kStages * kKVBytes;
   static constexpr int kSeg = kV + kStages * kKVBytes;  // K stage s's ids
   static constexpr int kBars = kSeg + kStages * kTileN * 4;
   // full and empty barriers of each K and V stage, and alignment slack.
   static constexpr int kSmem = kBars + 4 * 8 * kStages + 1024;
+  static_assert(kSmem <= 232448, "one block must fit the SM's 227 KB");
+
+  // Where 16-byte chunk c of row r of a box sits in that row.
+  static __device__ __forceinline__ int chunk_at(int r, int c) {
+    return kRowBytes == 128 ? c ^ (r % 8) : c ^ ((r / 2) % 4);
+  }
+  // A wgmma descriptor of this swizzle: 8-row groups one atom apart.
+  static __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo) {
+    return kRowBytes == 128 ? sw128_desc(addr, lbo, kAtom) : sw64_desc(addr, lbo, kAtom);
+  }
 };
 
 // A consumer's 64 Q rows [row0, row0 + 64) of a [nrows, D] matrix, scaled
@@ -222,6 +296,7 @@ template <typename Tt, typename Tin, int D>
 __device__ __forceinline__ void stage_q(unsigned char* dst, const Tin* src,
                                         int row0, int nrows, float scale,
                                         int tid) {
+  using L = Layout<D>;
   constexpr int kChunks = D / 8;
 #pragma unroll
   for (int it = 0; it < kConsumerM * kChunks / 128; ++it) {
@@ -240,9 +315,9 @@ __device__ __forceinline__ void stage_q(unsigned char* dst, const Tin* src,
     packed.y = Tile<Tt>::pack(x[2] * scale, x[3] * scale);
     packed.z = Tile<Tt>::pack(x[4] * scale, x[5] * scale);
     packed.w = Tile<Tt>::pack(x[6] * scale, x[7] * scale);
-    const int box = c / 8;
-    const int chunk = (c % 8) ^ (r % 8);
-    *reinterpret_cast<uint4*>(dst + box * Layout<D>::kQBox + r * 128 +
+    const int box = c / L::kChunks;
+    const int chunk = L::chunk_at(r, c % L::kChunks);
+    *reinterpret_cast<uint4*>(dst + box * L::kQBox + r * L::kRowBytes +
                               chunk * 16) = packed;
   }
 }
@@ -254,34 +329,43 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   return y;
 }
 
-// Issue S = Q K^T (not waited for): D / 16 k-steps of 32 bytes, four to a
-// 128-byte box, both operands K-major.
+// Issue S = Q K^T (not waited for): D / 16 k-steps of 32 bytes, kRowBytes /
+// 32 to a box, both operands K-major.
 template <typename Tt, int D>
-__device__ __forceinline__ void issue_qk(float (&s)[kTileN / 2], uint32_t qs,
-                                         uint32_t ks) {
+__device__ __forceinline__ void issue_qk(float (&s)[Layout<D>::kTileN / 2],
+                                         uint32_t qs, uint32_t ks) {
+  using L = Layout<D>;
+  constexpr int kSteps = L::kRowBytes / 32;  // k-steps a box
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t off = (kk % 4) * 32;
-    Tile<Tt>::qk(s, sw128_desc(qs + (kk / 4) * Layout<D>::kQBox + off, 16, 1024),
-                 sw128_desc(ks + (kk / 4) * Layout<D>::kKVBox + off, 16, 1024),
-                 kk > 0);
+    const uint32_t off = (kk % kSteps) * 32;
+    Tile<Tt>::qk(s, L::desc(qs + (kk / kSteps) * L::kQBox + off, 16),
+                 L::desc(ks + (kk / kSteps) * L::kKVBox + off, 16), kk > 0);
   }
   wgmma_commit();
 }
 
 // Issue O += P V (not waited for): k-step kk reads V rows [16 kk, 16 kk +
-// 16), two 8-row groups 1024 bytes apart, MN-major; the 64-column boxes
-// are kKVBox apart.
+// 16), two 8-row groups an atom apart, MN-major; the boxes are kKVBox apart.
+// At D = 256 each k-step is two n128 products, columns [0, 128) and [128,
+// 256) (boxes 0-1 and 2-3), into the two halves of the accumulator.
 template <typename Tt, int D>
 __device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
-                                         uint32_t (&pa)[kTileN / 16][4],
+                                         uint32_t (&pa)[Layout<D>::kTileN / 16][4],
                                          uint32_t vs) {
+  using L = Layout<D>;
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kTileN / 16; ++kk) {
-    Tile<Tt>::pv(acc, pa[kk],
-                 sw128_desc(vs + kk * 16 * 128, Layout<D>::kKVBox, 1024));
+  for (int kk = 0; kk < L::kTileN / 16; ++kk) {
+    const uint32_t v = vs + kk * 16 * L::kRowBytes;
+    if constexpr (D > 128) {
+      Tile<Tt>::pv(*reinterpret_cast<float(*)[64]>(&acc[0]), pa[kk], L::desc(v, L::kKVBox));
+      Tile<Tt>::pv(*reinterpret_cast<float(*)[64]>(&acc[64]), pa[kk],
+                   L::desc(v + 2 * L::kKVBox, L::kKVBox));
+    } else {
+      Tile<Tt>::pv(acc, pa[kk], L::desc(v, L::kKVBox));
+    }
   }
   wgmma_commit();
 }
@@ -310,7 +394,7 @@ struct DeadRows {
 // With segment ids (kSeg; kid: the K stage's ids) a column of another id
 // than its row's (qid) is masked too.  Each combination is its own body,
 // so a tile without ids (or without any mask) runs none of their code.
-template <bool kMask, bool kSeg>
+template <bool kMask, bool kSeg, int kTileN>
 __device__ __forceinline__ void online_softmax(float (&s)[kTileN / 2],
                                                float (&m_run)[2],
                                                float (&l_run)[2],
@@ -369,7 +453,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[kTileN / 2],
 
 // P in the tile type: the accumulators of column groups 2 kk and 2 kk + 1
 // are exactly the register A fragment of k-step kk.
-template <typename Tt>
+template <typename Tt, int kTileN>
 __device__ __forceinline__ void pack_p(uint32_t (&pa)[kTileN / 16][4],
                                        const float (&s)[kTileN / 2]) {
 #pragma unroll
@@ -392,6 +476,7 @@ fa2_fwd_wgmma(const __grid_constant__ CUtensorMap k_map,
               DeadRows dead) {
   using L = Layout<D>;
   constexpr int kStages = L::kStages;
+  constexpr int kTileN = L::kTileN;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -447,9 +532,9 @@ fa2_fwd_wgmma(const __grid_constant__ CUtensorMap k_map,
         mbar_wait(empty + 8 * st, ((t / kStages) & 1) ^ 1);
         mbar_expect_tx(full + 8 * st, L::kKVBytes + (ids ? kTileN * 4 : 0));
 #pragma unroll
-        for (int box = 0; box < D / kBoxCols; ++box) {
+        for (int box = 0; box < L::kBoxes; ++box) {
           tma_load_3d(ring + st * L::kKVBytes + box * L::kKVBox, map,
-                      full + 8 * st, box * kBoxCols, walk.at(t) * kTileN,
+                      full + 8 * st, box * L::kBoxCols, walk.at(t) * kTileN,
                       kv_head);
         }
         if (ids) {
@@ -517,14 +602,14 @@ fa2_fwd_wgmma(const __grid_constant__ CUtensorMap k_map,
       // Masked element by element: the kv_len tail, the diagonal, a tile
       // some row's window edge crosses, and every tile with segment ids.
       if (seg) {
-        online_softmax<true, true>(s, m_run, l_run, alpha, k0, row_a, kv_len,
+        online_softmax<true, true, kTileN>(s, m_run, l_run, alpha, k0, row_a, kv_len,
                                    causal, window, sinks, t4, kid, qid);
       } else if ((k0 + kTileN > kv_len) || (causal && k0 + kTileN - 1 > qc0) ||
                  qc0 + kConsumerM - 1 - k0 >= window) {
-        online_softmax<true, false>(s, m_run, l_run, alpha, k0, row_a, kv_len,
+        online_softmax<true, false, kTileN>(s, m_run, l_run, alpha, k0, row_a, kv_len,
                                     causal, window, sinks, t4, kid, qid);
       } else {
-        online_softmax<false, false>(s, m_run, l_run, alpha, k0, row_a, kv_len,
+        online_softmax<false, false, kTileN>(s, m_run, l_run, alpha, k0, row_a, kv_len,
                                      causal, window, sinks, t4, kid, qid);
       }
     };
@@ -570,7 +655,7 @@ fa2_fwd_wgmma(const __grid_constant__ CUtensorMap k_map,
       if (!seg) release(empty_k, 0);
       softmax(0);
       if (seg) release(empty_k, 0);
-      pack_p<Tt>(pa, s);
+      pack_p<Tt, kTileN>(pa, s);
     }
     for (int t = 0; t + 1 < n_tiles; ++t) {
       const int st = t % kStages;
@@ -592,7 +677,7 @@ fa2_fwd_wgmma(const __grid_constant__ CUtensorMap k_map,
         acc[4 * j + 2] *= alpha[1];
         acc[4 * j + 3] *= alpha[1];
       }
-      pack_p<Tt>(pa, s);
+      pack_p<Tt, kTileN>(pa, s);
     }
     if (n_tiles > 0) {
       const int t = n_tiles - 1;
@@ -660,7 +745,9 @@ struct FmaIds {
 // ---------------------------------------------------------------------------
 template <int D, bool SEG>
 __global__ void __launch_bounds__(kFmaThreads,
-                                  SEG ? 2 : FmaBlock<D>::kBlocksPerSm)
+                                  SEG && FmaBlock<D>::kBlocksPerSm > 2
+                                      ? 2
+                                      : FmaBlock<D>::kBlocksPerSm)
 fa2_fwd_fp32(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ o,
              float* __restrict__ lse, const int* __restrict__ q_seg,
@@ -836,10 +923,14 @@ cudaError_t launch_fp32(const Args& a) {
   return a.q_seg != nullptr ? launch_fp32_seg<D, true>(a)
                             : launch_fp32_seg<D, false>(a);
 }
-// A 3-D map over a contiguous 16-bit [rows, skv, d] K or V: boxes of 128
-// rows x 64 columns with the 128-byte swizzle; reads past skv give zeros.
-int kv_map(CUtensorMap* map, const void* ptr, int tiles, int rows, int skv,
-           int d) {
+// A 3-D map over a contiguous 16-bit [rows, skv, d] K or V: boxes of
+// Layout<D>::kTileN rows x kBoxCols columns with the 128-byte swizzle (the
+// 64-byte one at D = 32, whose rows are 64 bytes); reads past skv give
+// zeros.
+template <int D>
+int kv_map(CUtensorMap* map, const void* ptr, int tiles, int rows, int skv) {
+  using L = Layout<D>;
+  constexpr int d = D;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return kErrNoEncoder;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
@@ -847,13 +938,14 @@ int kv_map(CUtensorMap* map, const void* ptr, int tiles, int rows, int skv,
                               static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
                                  static_cast<cuuint64_t>(skv) * d * 2};
-  const cuuint32_t box[3] = {kBoxCols, kTileN, 1};
+  const cuuint32_t box[3] = {L::kBoxCols, L::kTileN, 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   const CUresult r = encode(
       map, tiles == 1 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
       3, const_cast<void*>(ptr), dims, strides, box, elem_strides,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      L::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kErrEncode;
 }
@@ -861,8 +953,8 @@ int kv_map(CUtensorMap* map, const void* ptr, int tiles, int rows, int skv,
 template <typename Tin, typename Tt, int D>
 int launch_wgmma(const Args& a, int tiles) {
   CUtensorMap k_map, v_map;
-  int err = kv_map(&k_map, a.k, tiles, a.batch * a.hkv, a.skv, D);
-  if (err == 0) err = kv_map(&v_map, a.v, tiles, a.batch * a.hkv, a.skv, D);
+  int err = kv_map<D>(&k_map, a.k, tiles, a.batch * a.hkv, a.skv);
+  if (err == 0) err = kv_map<D>(&v_map, a.v, tiles, a.batch * a.hkv, a.skv);
   if (err != 0) return err;
   static std::atomic<uint64_t> smem_set{0};
   cudaError_t cerr = set_smem_once(fa2_fwd_wgmma<Tin, Tt, D>,
@@ -910,18 +1002,18 @@ int cfa_fa2_forward(const void* q, const void* k, const void* v, void* o,
                static_cast<const int*>(kv_seg), batch, hq, hkv, sq, skv,
                kv_len, qscale, causal, window, sinks, dead_bq, dead_bk,
                static_cast<cudaStream_t>(stream)};
-  if (tiles == 1 || tiles == 2) {
-    if (in_bf16) {
-      if (head_dim == 64) return launch_tiles<__nv_bfloat16, 64>(tiles, a);
-      if (head_dim == 128) return launch_tiles<__nv_bfloat16, 128>(tiles, a);
-    } else {
-      if (head_dim == 64) return launch_tiles<float, 64>(tiles, a);
-      if (head_dim == 128) return launch_tiles<float, 128>(tiles, a);
-    }
-  } else if (tiles == 0 && !in_bf16) {
-    if (head_dim == 64) return launch_fp32<64>(a);
-    if (head_dim == 128) return launch_fp32<128>(a);
+  // This library's head dims (CFA_HEAD_DIMS; csrc/fa2_forward_d32.cu and
+  // fa2_forward_d256.cu build the others).
+#define CFA_CASE(D)                                                          \
+  if (head_dim == D) {                                                       \
+    if (tiles == 1 || tiles == 2) {                                          \
+      return in_bf16 ? launch_tiles<__nv_bfloat16, D>(tiles, a)             \
+                     : launch_tiles<float, D>(tiles, a);                     \
+    }                                                                        \
+    if (tiles == 0 && !in_bf16) return launch_fp32<D>(a);                    \
   }
+  CFA_HEAD_DIMS(CFA_CASE)
+#undef CFA_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -13,7 +13,17 @@
 //   S *= k_scale[col] and the causal / KV-tail mask; an online exp2 softmax
 //   in fp32; P * v_scale[col] is rounded to the compute type before P V;
 //   O = acc / l (l == 0 guarded), lse = m ln2 + log(l).
-// GQA is native: query head h reads KV head h / (Hq / Hkv).
+// GQA is native: query head h reads KV head h / (Hq / Hkv).  A sliding
+// window (row - col < window; without causal masking a recency band whose
+// offset may be <= 0; JAX :91-92, :193-207) and segment ids (a row keeps
+// only the keys of its own id; JAX :223-260) as the TPU kernel takes them;
+// no sinks, which it has none of.  Both bodies walk only the KV tiles
+// some row of the Q tile keeps (csrc/hopper.cuh KvWalk, one sequence for
+// the producer, the converters and the consumers of the wgmma body) and
+// mask element by element the tiles a window edge, the diagonal or the
+// kv_len tail crosses, and every tile with segment ids.  A row that keeps
+// no key writes O = 0 and the lse the JAX kernel gives it on its own tiles
+// (QuantDead).
 //
 // What bounds it on the H100: tensor-core operations at the prefill shapes
 // (B4 Hq16 Hkv8 S2048 D64 causal does ~2.2e11 FLOPs against ~25 MB moved),
@@ -95,6 +105,22 @@ constexpr int kThreads = 384;
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 
+// The lse of a row that keeps no key (its O is 0), as the JAX kernel gives
+// it on its own tiles (bq x bk, the call's block_q and block_k fitted to the
+// padded lengths): -inf where the row's Q tile runs no KV tile (its m never
+// leaves -inf), else the mask value times ln 2.  Unlike B1's dead rows
+// (csrc/fa2_forward.cu DeadRows) there is no exception for a KV of one
+// tile: the quantized kernel has no one-tile body.  kernels/common.py
+// dead_row_lse(single_tile_body=False) is its twin.
+struct QuantDead {
+  int skv, causal, window, bq, bk;
+  __device__ __forceinline__ float lse(int row) const {
+    const int q0 = row / bq * bq;
+    const int end = causal ? min(skv, q0 + bq) : skv;
+    return KvWalk(q0 - window + 1, end, 0, bk).n == 0 ? -INFINITY : kMaskValue * kLn2;
+  }
+};
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -140,8 +166,9 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[64], const uint32_t* a,
 // R rows is D / 64 boxes of R rows x 128 bytes, 128-byte-swizzled: 16-byte
 // chunk c of row r at c ^ (r % 8)), kRawStages stored tiles (rows of kRow
 // bytes, as TMA writes them unswizzled), each K stage's scales ([kStages]
-// [K, V][kTileN] fp32), then the mbarriers: full and empty of each K and V
-// stage, full of each byte stage.  D 128: 32 + 128 + 48 + 2 KB.
+// [K, V][kTileN] fp32) and segment ids ([kStages][kTileN] int32), then the
+// mbarriers: full and empty of each K and V stage, full of each byte
+// stage.  D 128: 32 + 128 + 48 + 3 KB.
 template <typename Tc, int D>
 struct Layout {
   static constexpr int kStages = D == 64 ? 3 : 2;
@@ -156,7 +183,8 @@ struct Layout {
   static constexpr int kV = kK + kStages * kKVBytes;
   static constexpr int kRaw = kV + kStages * kKVBytes;
   static constexpr int kScl = kRaw + kRawStages * kRawTile;
-  static constexpr int kBars = kScl + kStages * 2 * kTileN * 4;
+  static constexpr int kSid = kScl + kStages * 2 * kTileN * 4;
+  static constexpr int kBars = kSid + kStages * kTileN * 4;
   static constexpr int kSmem = kBars + 8 * (4 * kStages + kRawStages) + 1024;
   static_assert(kRawTile % 1024 == 0, "byte stages keep 1024-byte alignment");
   static_assert(kSmem <= 232448, "one block must fit the SM's 227 KB");
@@ -278,15 +306,18 @@ __device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
 
 // The online softmax of one S tile in place (fp32, exp2 domain), B7's: S
 // times K's scale of its column first; with kMask, scores of columns at or
-// past kv_len or (causal) past the row take kMaskValue.  Updates m and this
-// thread's share of l, sets alpha = exp2(m_old - m_new) and leaves P times
-// V's scale of its column in s, masked entries exactly 0.  `sc` holds the
-// tile's K scales, then its V scales.
-template <bool kMask>
+// past kv_len, (causal) past the row or outside its window take kMaskValue,
+// and with kSeg also those whose id (kid, the stage's ids) is not the row's
+// (qid).  Updates m and this thread's share of l, sets alpha =
+// exp2(m_old - m_new) and leaves P times V's scale of its column in s,
+// masked entries exactly 0.  `sc` holds the tile's K scales, then its V
+// scales.
+template <bool kMask, bool kSeg>
 __device__ __forceinline__ void quant_softmax(float (&s)[kTileN / 2], const float* sc,
                                               float (&m_run)[2], float (&l_run)[2],
                                               float (&alpha)[2], int k0, int row_a,
-                                              int kv_len, int causal, int t4) {
+                                              int kv_len, int causal, int window, int t4,
+                                              const int* kid, const int (&qid)[2]) {
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
   for (int j = 0; j < kTileN / 8; ++j) {
@@ -297,7 +328,10 @@ __device__ __forceinline__ void quant_softmax(float (&s)[kTileN / 2], const floa
       if (kMask) {
         const int col = k0 + 8 * j + 2 * t4 + (e & 1);
         const int row = e < 2 ? row_a : row_a + 8;
-        if (col >= kv_len || (causal && col > row)) s[4 * j + e] = kMaskValue;
+        if (col >= kv_len || (causal && col > row) || row - col >= window ||
+            (kSeg && kid[col - k0] != qid[e >> 1])) {
+          s[4 * j + e] = kMaskValue;
+        }
       }
       mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * j + e]);
     }
@@ -363,8 +397,9 @@ fa2_fwd_quant_wgmma(const __grid_constant__ CUtensorMap k_map,
                     const __grid_constant__ CUtensorMap v_map,
                     const Tq* __restrict__ q, const float* __restrict__ k_scales,
                     const float* __restrict__ v_scales, Tq* __restrict__ o,
-                    float* __restrict__ lse, int hq, int hkv, int sq, int skv,
-                    int kv_len, float qscale, int causal) {
+                    float* __restrict__ lse, const int* __restrict__ q_seg,
+                    const int* __restrict__ kv_seg, int hq, int hkv, int sq, int skv,
+                    int kv_len, float qscale, int causal, int window, QuantDead dead) {
   using L = Layout<Tc, D>;
   constexpr int kStages = L::kStages;
   constexpr int kRawStages = L::kRawStages;
@@ -373,6 +408,7 @@ fa2_fwd_quant_wgmma(const __grid_constant__ CUtensorMap k_map,
   const uint32_t base = (raw + 1023) & ~1023u;
   unsigned char* smem = smem_raw + (base - raw);
   float* scl = reinterpret_cast<float*>(smem + L::kScl);
+  int* sid = reinterpret_cast<int*>(smem + L::kSid);
   const uint32_t full_k = base + L::kBars;  // stage s at + 8 s
   const uint32_t full_v = full_k + 8 * kStages;
   const uint32_t empty_k = full_v + 8 * kStages;
@@ -385,8 +421,12 @@ fa2_fwd_quant_wgmma(const __grid_constant__ CUtensorMap k_map,
   const int bh = blockIdx.y;
   const int b = bh / hq;
   const int hk = (bh - b * hq) / (hq / hkv);
+  // The KV tiles the block walks: to the diagonal under causal masking,
+  // from its first row's window; walk step t is tile walk.at(t).
   const int kv_end = causal ? min(kv_len, q0 + kTileM) : kv_len;
-  const int n_tiles = (kv_end + kTileN - 1) / kTileN;
+  const KvWalk walk(q0 - window + 1, kv_end, 0, kTileN);
+  const int n_tiles = walk.n;
+  const bool seg = q_seg != nullptr;
 
   if (threadIdx.x == 0) {
 #pragma unroll
@@ -415,7 +455,7 @@ fa2_fwd_quant_wgmma(const __grid_constant__ CUtensorMap k_map,
       const int rs = j % kRawStages;
       mbar_expect_tx(full_raw + 8 * rs, L::kRawTile);
       tma_load_3d(base + L::kRaw + rs * L::kRawTile, is_k ? &k_map : &v_map,
-                  full_raw + 8 * rs, 0, t * kTileN, kv_head);
+                  full_raw + 8 * rs, 0, walk.at(t) * kTileN, kv_head);
     };
     if (tid == 0) {
       asm volatile("prefetch.tensormap [%0];\n" ::"l"(
@@ -431,12 +471,15 @@ fa2_fwd_quant_wgmma(const __grid_constant__ CUtensorMap k_map,
       bool is_k;
       const int t = job_tile(j, n_tiles, is_k);
       const int st = t % kStages;
-      // A K job carries tile t's K and V scales, one row per thread.
+      // A K job carries tile t's K and V scales (and segment ids), one row
+      // per thread.
       float ksv = 0.f, vsv = 0.f;
-      const int row = t * kTileN + tid;
+      int idv = 0;
+      const int row = walk.at(t) * kTileN + tid;
       if (is_k && row < skv) {
         ksv = k_scales[scale0 + row];
         vsv = v_scales[scale0 + row];
+        if (seg) idv = kv_seg[static_cast<size_t>(b) * seg_stride(skv) + row];
       }
       // The bf16 stage is free once the consumers released it (the first
       // pass finds every stage empty), and the byte stage has landed.
@@ -448,6 +491,7 @@ fa2_fwd_quant_wgmma(const __grid_constant__ CUtensorMap k_map,
       if (is_k) {
         scl[st * 2 * kTileN + tid] = ksv;
         scl[st * 2 * kTileN + kTileN + tid] = vsv;
+        sid[st * kTileN + tid] = idv;
       }
       // The converted stage is read by wgmma, through the async proxy.
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -478,6 +522,13 @@ fa2_fwd_quant_wgmma(const __grid_constant__ CUtensorMap k_map,
     const uint32_t qs = base + c * L::kQBytes;
 
     const int row_a = qc0 + warp * 16 + g;
+    // This thread's rows' segment ids (rows past sq read padding).
+    int qid[2] = {0, 0};
+    if (seg) {
+      const int* ids = q_seg + static_cast<size_t>(b) * seg_stride(sq);
+      qid[0] = ids[row_a];
+      qid[1] = ids[row_a + 8];
+    }
     float m_run[2] = {-INFINITY, -INFINITY};
     float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
     float alpha[2];
@@ -498,12 +549,21 @@ fa2_fwd_quant_wgmma(const __grid_constant__ CUtensorMap k_map,
       if (lane == 0) mbar_arrive(empty + 8 * (t % kStages));
     };
     auto softmax = [&](int t) {
-      const int k0 = t * kTileN;
+      const int k0 = walk.at(t) * kTileN;
       const float* sc = scl + (t % kStages) * 2 * kTileN;
-      if ((k0 + kTileN > kv_len) || (causal && k0 + kTileN - 1 > qc0)) {
-        quant_softmax<true>(s, sc, m_run, l_run, alpha, k0, row_a, kv_len, causal, t4);
+      const int* kid = sid + (t % kStages) * kTileN;
+      // Masked element by element: the kv_len tail, the diagonal, a tile
+      // some row's window edge crosses, and every tile with segment ids.
+      if (seg) {
+        quant_softmax<true, true>(s, sc, m_run, l_run, alpha, k0, row_a, kv_len, causal,
+                                  window, t4, kid, qid);
+      } else if ((k0 + kTileN > kv_len) || (causal && k0 + kTileN - 1 > qc0) ||
+                 qc0 + kConsumerM - 1 - k0 >= window) {
+        quant_softmax<true, false>(s, sc, m_run, l_run, alpha, k0, row_a, kv_len, causal,
+                                   window, t4, kid, qid);
       } else {
-        quant_softmax<false>(s, sc, m_run, l_run, alpha, k0, row_a, kv_len, causal, t4);
+        quant_softmax<false, false>(s, sc, m_run, l_run, alpha, k0, row_a, kv_len, causal,
+                                    window, t4, kid, qid);
       }
       release(empty_k, t);
     };
@@ -590,10 +650,10 @@ fa2_fwd_quant_wgmma(const __grid_constant__ CUtensorMap k_map,
     if (t4 == 0) {
       float* lp = lse + static_cast<size_t>(bh) * sq;
       if (row_a < sq) {
-        lp[row_a] = m_run[0] * kLn2 + logf(l_run[0] == 0.f ? 1.f : l_run[0]);
+        lp[row_a] = l_run[0] == 0.f ? dead.lse(row_a) : m_run[0] * kLn2 + logf(l_run[0]);
       }
       if (row_b < sq) {
-        lp[row_b] = m_run[1] * kLn2 + logf(l_run[1] == 0.f ? 1.f : l_run[1]);
+        lp[row_b] = l_run[1] == 0.f ? dead.lse(row_b) : m_run[1] * kLn2 + logf(l_run[1]);
       }
     }
   }
@@ -605,15 +665,22 @@ fa2_fwd_quant_wgmma(const __grid_constant__ CUtensorMap k_map,
 // tile, b * Hq), longest causal tiles first.  Per KV tile: wait for its
 // stage, decode K and V into the fp32 stages and read this thread's four K
 // and four V scales, barrier (the stage refills with tile t + kStages), S,
-// barrier (P over K), the softmax, barrier, P V, barrier.
+// barrier (P over K), the softmax, barrier, P V, barrier.  The walk is
+// KvWalk's over 64-row tiles.  SEG: with segment ids, each thread's four
+// key ids a tile and eight row ids in registers (at most two blocks an SM,
+// which leaves them room).
 // ---------------------------------------------------------------------------
-template <typename Tq, typename Tc, int D>
-__global__ void __launch_bounds__(kFmaThreads, FmaRaw<Tc, D>::kBlocksPerSm)
+template <typename Tq, typename Tc, int D, bool SEG>
+__global__ void __launch_bounds__(kFmaThreads,
+                                  SEG && FmaRaw<Tc, D>::kBlocksPerSm > 2
+                                      ? 2
+                                      : FmaRaw<Tc, D>::kBlocksPerSm)
 fa2_fwd_quant_fp32(const Tq* __restrict__ q, const uint8_t* __restrict__ k,
                    const float* __restrict__ k_scales, const uint8_t* __restrict__ v,
                    const float* __restrict__ v_scales, Tq* __restrict__ o,
-                   float* __restrict__ lse, int hq, int hkv, int sq, int skv,
-                   int kv_len, float qscale, int causal) {
+                   float* __restrict__ lse, const int* __restrict__ q_seg,
+                   const int* __restrict__ kv_seg, int hq, int hkv, int sq, int skv,
+                   int kv_len, float qscale, int causal, int window, QuantDead dead) {
   using R = FmaRaw<Tc, D>;
   constexpr int DO = D / 16;  // output columns per thread
   constexpr int kN = kFmaTile;
@@ -634,7 +701,16 @@ fa2_fwd_quant_fp32(const Tq* __restrict__ q, const uint8_t* __restrict__ k,
   const float* ksp = k_scales + kv_head * skv;
   const float* vsp = v_scales + kv_head * skv;
   const int kv_end = causal ? min(kv_len, q0 + kN) : kv_len;
-  const int n_kv = (kv_end + kN - 1) / kN;
+  const KvWalk walk(q0 - window + 1, kv_end, 0, kN);  // step t is tile walk.at(t)
+  const int n_kv = walk.n;
+  const int* kv_ids = SEG ? kv_seg + static_cast<size_t>(b) * seg_stride(skv) : nullptr;
+  int qid[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  if constexpr (SEG) {
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      qid[r] = q_seg[static_cast<size_t>(b) * seg_stride(sq) + q0 + th.ty + 8 * r];
+    }
+  }
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < R::kStages; ++s) mbar_init(bar0 + 8 * s, kFmaThreads);
@@ -644,7 +720,7 @@ fa2_fwd_quant_fp32(const Tq* __restrict__ q, const uint8_t* __restrict__ k,
   fma_load_q<D>(qs, q + bh * sq * D, q0, sq, qscale);
   __syncthreads();
   auto issue = [&](int t) {
-    const int k0 = t * kN;
+    const int k0 = walk.at(t) * kN;
     fma_raw_issue<Tc, D>(bytes + R::kRaw + (t % R::kStages) * R::kStage,
                          bar0 + 8 * (t % R::kStages), kp + static_cast<size_t>(k0) * R::kRow,
                          vp + static_cast<size_t>(k0) * R::kRow, ksp + k0, vsp + k0,
@@ -661,8 +737,13 @@ fa2_fwd_quant_fp32(const Tq* __restrict__ q, const uint8_t* __restrict__ k,
     for (int c = 0; c < DO; ++c) acc[r][c] = 0.f;
   }
   for (int t = 0; t < n_kv; ++t) {
-    const int k0 = t * kN;
+    const int k0 = walk.at(t) * kN;
     const unsigned char* stage = bytes + R::kRaw + (t % R::kStages) * R::kStage;
+    int kid[4] = {0, 0, 0, 0};
+    if constexpr (SEG) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kid[j] = kv_ids[k0 + th.tx + 16 * j];
+    }
     mbar_wait(bar0 + 8 * (t % R::kStages), (t / R::kStages) & 1);
     fma_decode_tile<Tc, D>(kf, stage);
     fma_decode_tile<Tc, D>(vf, stage + R::kTile);
@@ -680,10 +761,12 @@ fa2_fwd_quant_fp32(const Tq* __restrict__ q, const uint8_t* __restrict__ k,
     float* ps = kf;
     __syncthreads();  // K(t) is read: P takes its stage
 
-    // S times K's scale of its column, the mask on the diagonal and kv_len
-    // tail tiles (masked P exactly 0), the exp2 online softmax; P times V's
-    // scale.  l_run is this thread's share of the row sum.
-    const bool need_mask = (k0 + kN > kv_len) || (causal && k0 + kN - 1 > q0);
+    // S times K's scale of its column, the mask on the diagonal, kv_len
+    // tail and window-edge tiles and on every tile with segment ids (masked
+    // P exactly 0), the exp2 online softmax; P times V's scale.  l_run is
+    // this thread's share of the row sum.
+    const bool need_mask = SEG || (k0 + kN > kv_len) || (causal && k0 + kN - 1 > q0) ||
+                           q0 + kN - 1 - k0 >= window;
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
       const int row = q0 + th.ty + 8 * r;
@@ -692,7 +775,10 @@ fa2_fwd_quant_fp32(const Tq* __restrict__ q, const uint8_t* __restrict__ k,
         s[r][j] *= ksc[j];
         if (need_mask) {
           const int col = k0 + th.tx + 16 * j;
-          if (col >= kv_len || (causal && col > row)) s[r][j] = kMaskValue;
+          if (col >= kv_len || (causal && col > row) || row - col >= window ||
+              (SEG && kid[j] != qid[r])) {
+            s[r][j] = kMaskValue;
+          }
         }
       }
       const float mx = fma_row_max(fmaxf(fmaxf(s[r][0], s[r][1]), fmaxf(s[r][2], s[r][3])));
@@ -726,10 +812,22 @@ fa2_fwd_quant_fp32(const Tq* __restrict__ q, const uint8_t* __restrict__ k,
   fma_store_o<D>(o + bh * sq * D, q0, sq, th, acc, inv);
   if (th.tx == 0) {
     float* lp = lse + bh * sq;
+    // A row keeps no key (QuantDead's lse) only under a window or segment
+    // ids.  The global call's loop has no dead-row select: with one, nvcc
+    // fuses m ln 2 + log l into one FFMA in other rows than without, and
+    // the lse moves by an ulp.
+    if (SEG || window < kNoWindow) {
 #pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const int row = q0 + th.ty + 8 * r;
-      if (row < sq) lp[row] = m_run[r] * kLn2 + logf(l[r] == 0.f ? 1.f : l[r]);
+      for (int r = 0; r < 8; ++r) {
+        const int row = q0 + th.ty + 8 * r;
+        if (row < sq) lp[row] = l[r] == 0.f ? dead.lse(row) : m_run[r] * kLn2 + logf(l[r]);
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int row = q0 + th.ty + 8 * r;
+        if (row < sq) lp[row] = m_run[r] * kLn2 + logf(l[r] == 0.f ? 1.f : l[r]);
+      }
     }
   }
 }
@@ -741,9 +839,12 @@ fa2_fwd_quant_fp32(const Tq* __restrict__ q, const uint8_t* __restrict__ k,
 struct Args {
   const void *q, *k, *k_scales, *v, *v_scales;
   void *o, *lse;
+  const int *q_seg, *kv_seg;
   int batch, hq, hkv, sq, skv, kv_len;
   float qscale;
-  int causal;
+  int causal, window, dead_bq, dead_bk;
+
+  QuantDead dead() const { return QuantDead{skv, causal, window, dead_bq, dead_bk}; }
 };
 
 // A 3-D byte map over a contiguous stored [rows, skv, row_bytes] K or V:
@@ -766,6 +867,22 @@ int raw_map(CUtensorMap* map, const void* ptr, int rows, int skv, int row_bytes)
   return r == CUDA_SUCCESS ? 0 : kErrEncode;
 }
 
+template <typename Tq, typename Tc, int D, bool SEG>
+int launch_fp32(const Args& a, cudaStream_t stream) {
+  using R = FmaRaw<Tc, D>;
+  static std::atomic<uint64_t> smem_set{0};
+  cudaError_t cerr = set_smem_once(fa2_fwd_quant_fp32<Tq, Tc, D, SEG>, R::kSmem, smem_set);
+  if (cerr != cudaSuccess) return cerr;
+  const dim3 grid((a.sq + kFmaTile - 1) / kFmaTile, a.batch * a.hq);
+  fa2_fwd_quant_fp32<Tq, Tc, D, SEG><<<grid, kFmaThreads, R::kSmem, stream>>>(
+      static_cast<const Tq*>(a.q), static_cast<const uint8_t*>(a.k),
+      static_cast<const float*>(a.k_scales), static_cast<const uint8_t*>(a.v),
+      static_cast<const float*>(a.v_scales), static_cast<Tq*>(a.o),
+      static_cast<float*>(a.lse), a.q_seg, a.kv_seg, a.hq, a.hkv, a.sq, a.skv,
+      a.kv_len, a.qscale, a.causal, a.window, a.dead());
+  return cudaGetLastError();
+}
+
 template <typename Tq, typename Tc, int D>
 int launch(const Args& a, bool bf16_compute, cudaStream_t stream) {
   const auto* ks = static_cast<const float*>(a.k_scales);
@@ -782,19 +899,12 @@ int launch(const Args& a, bool bf16_compute, cudaStream_t stream) {
     const dim3 grid((a.sq + kTileM - 1) / kTileM, a.batch * a.hq);
     fa2_fwd_quant_wgmma<Tq, Tc, D><<<grid, kThreads, L::kSmem, stream>>>(
         k_map, v_map, static_cast<const Tq*>(a.q), ks, vs, static_cast<Tq*>(a.o),
-        static_cast<float*>(a.lse), a.hq, a.hkv, a.sq, a.skv, a.kv_len, a.qscale,
-        a.causal);
+        static_cast<float*>(a.lse), a.q_seg, a.kv_seg, a.hq, a.hkv, a.sq, a.skv,
+        a.kv_len, a.qscale, a.causal, a.window, a.dead());
+  } else if (a.q_seg != nullptr) {
+    return launch_fp32<Tq, Tc, D, true>(a, stream);
   } else {
-    using R = FmaRaw<Tc, D>;
-    static std::atomic<uint64_t> smem_set{0};
-    cudaError_t cerr = set_smem_once(fa2_fwd_quant_fp32<Tq, Tc, D>, R::kSmem, smem_set);
-    if (cerr != cudaSuccess) return cerr;
-    const dim3 grid((a.sq + kFmaTile - 1) / kFmaTile, a.batch * a.hq);
-    fa2_fwd_quant_fp32<Tq, Tc, D><<<grid, kFmaThreads, R::kSmem, stream>>>(
-        static_cast<const Tq*>(a.q), static_cast<const uint8_t*>(a.k), ks,
-        static_cast<const uint8_t*>(a.v), vs, static_cast<Tq*>(a.o),
-        static_cast<float*>(a.lse), a.hq, a.hkv, a.sq, a.skv, a.kv_len, a.qscale,
-        a.causal);
+    return launch_fp32<Tq, Tc, D, false>(a, stream);
   }
   return cudaGetLastError();
 }
@@ -826,21 +936,29 @@ extern "C" {
 // [batch, hq, sq] fp32.  k, v [batch, hkv, skv, row] of storage 0 = int8,
 // 1 = fp8 e4m3, 2 = fp8 e5m2 (row = head_dim bytes) or 3 = int4 split-half
 // (row = head_dim / 2 bytes); k_scales, v_scales [batch, hkv, skv] fp32.  All
-// contiguous, k and v 16-byte aligned.  bf16_compute: bf16 on the tensor
-// cores (else fp32 on FMA).  qscale = sm_scale * log2(e).  Returns a
-// cudaError_t, or an error of the tensor-map step
-// (cfa_fa2_forward_quant_error_string names it).
+// contiguous, k and v 16-byte aligned.  q_seg [batch, seg_stride(sq)] and
+// kv_seg [batch, seg_stride(skv)] int32 segment ids, or both null.  window:
+// a row keeps keys with row - col < window (kNoWindow: none; without
+// causal a band, any value).  dead_bq x dead_bk: the JAX call's tiles,
+// whose walk sets a dead row's lse.  bf16_compute: bf16 on the tensor cores
+// (else fp32 on FMA).  qscale = sm_scale * log2(e).  Returns a cudaError_t,
+// or an error of the tensor-map step (cfa_fa2_forward_quant_error_string
+// names it).
 int cfa_fa2_forward_quant(const void* q, const void* k, const void* k_scales,
-                          const void* v, const void* v_scales, void* o,
-                          void* lse, int batch, int hq, int hkv, int sq,
-                          int skv, int head_dim, int kv_len, float qscale,
-                          int causal, int q_bf16, int storage,
-                          int bf16_compute, void* stream) {
-  if (hkv < 1 || hq % hkv != 0 || batch * hq > 65535) {
+                          const void* v, const void* v_scales, void* o, void* lse,
+                          const void* q_seg, const void* kv_seg, int batch, int hq,
+                          int hkv, int sq, int skv, int head_dim, int kv_len,
+                          float qscale, int causal, int window, int dead_bq,
+                          int dead_bk, int q_bf16, int storage, int bf16_compute,
+                          void* stream) {
+  if (hkv < 1 || hq % hkv != 0 || batch * hq > 65535 ||
+      (q_seg == nullptr) != (kv_seg == nullptr) || dead_bq < 1 || dead_bk < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Args a{q,     k,   k_scales, v,  v_scales, o,      lse,    batch,
-               hq,    hkv, sq,       skv, kv_len,  qscale, causal};
+  const Args a{q,      k,       k_scales, v,       v_scales,
+               o,      lse,     static_cast<const int*>(q_seg),
+               static_cast<const int*>(kv_seg), batch, hq, hkv, sq, skv,
+               kv_len, qscale,  causal,   window,  dead_bq, dead_bk};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (q_bf16) {
     return launch_storage<__nv_bfloat16>(storage, head_dim, a, bf16_compute != 0, st);

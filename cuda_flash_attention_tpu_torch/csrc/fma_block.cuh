@@ -32,6 +32,9 @@
 //     shape measured: a block's groups meet at every barrier, so their
 //     softmax phases coincide, and fewer warps fit an SM, whereas
 //     independent blocks overlap one's softmax with another's FMAs.
+//   * At D = 32 a row's 16 threads hold its 32 O columns two apiece
+//     (columns 2 tx, 2 tx + 1; fma_pv and fma_store_o take both layouts), and at D = 256
+//     a thread holds 128 accumulators, one block (four warps) an SM.
 //   * Q, K and P are rows whose 16-byte chunk c is stored at chunk c ^
 //     (row & 7): float4 reads of one chunk from 8 neighbouring rows hit 8
 //     different bank quads, without padding.  V is read by rows (a
@@ -52,23 +55,33 @@ namespace {
 constexpr int kFmaTile = 64;  // Q rows per block, KV rows per stage
 constexpr int kFmaThreads = 128;
 
+// Floats of a tile row's slot in shared memory: D, and at D = 32 the 64 of
+// a P row, which is written over the K stage that S has read.
+constexpr int fma_slot(int D) { return D < kFmaTile ? kFmaTile : D; }
+
+// O columns a thread holds for DC 64-column blocks of D: four a block, and
+// at D = 32 two.
+constexpr int fma_cols(int D, int DC) { return D == 32 ? 2 : 4 * DC; }
+
 // Shared memory of a block, in floats: the K ring (kKStages tiles), the V
 // ring (kVStages tiles) and the Q tile; then one mbarrier per stage, K's
 // first.  At D = 128 a second K stage would take the block to 128 KB, one
 // block (four warps) an SM, which ran slower on the H100 than two blocks
 // with one K stage each.  kBlocksPerSm blocks fit an SM's 228 KB (1 KB of
-// it reserved per block), and the kernels tell ptxas so
+// it reserved per block), at most three (D = 32 would fit six, at 80
+// registers a thread, which spill), and the kernels tell ptxas so
 // (__launch_bounds__).
 template <int D>
 struct FmaBlock {
-  static constexpr int kKStages = D == 64 ? 2 : 1;
+  static constexpr int kKStages = D <= 64 ? 2 : 1;
   static constexpr int kVStages = 1;
-  static constexpr int kTile = kFmaTile * D;
+  static constexpr int kTile = kFmaTile * fma_slot(D);
   static constexpr int kV = kKStages * kTile;
   static constexpr int kQ = kV + kVStages * kTile;
   static constexpr int kFloats = kQ + kTile;
   static constexpr int kSmem = kFloats * 4 + 8 * (kKStages + kVStages);
-  static constexpr int kBlocksPerSm = 233472 / (kSmem + 1024);
+  static constexpr int kBlocksPerSm =
+      233472 / (kSmem + 1024) < 3 ? 233472 / (kSmem + 1024) : 3;
   static_assert(kSmem <= 232448, "one block must fit the SM's 227 KB");
 };
 
@@ -213,7 +226,8 @@ __device__ __forceinline__ void fma_load_q(float* qs, const Tin* qp, int q0,
   }
 }
 
-// s[r][j] = sum over d, in order, of Q[ty + 8 r][d] K[tx + 16 j][d].
+// s[r][j] = sum over d, in order, of Q[ty + 8 r][d] K[tx + 16 j][d].  At D
+// = 256, where a thread's 128 O accumulators stay live, one chunk at a time.
 template <int D>
 __device__ __forceinline__ void fma_scores(const float* qs, const float* ks,
                                            const FmaThread& th,
@@ -223,7 +237,7 @@ __device__ __forceinline__ void fma_scores(const float* qs, const float* ks,
 #pragma unroll
     for (int j = 0; j < 4; ++j) s[r][j] = 0.f;
   }
-#pragma unroll 4
+#pragma unroll(D > 128 ? 1 : 4)
   for (int c = 0; c < D / 4; ++c) {
     float4 k4[4];
 #pragma unroll
@@ -257,16 +271,13 @@ __device__ __forceinline__ void fma_store_p(float* ps, const FmaThread& th,
   ps[fma_p_at(th, r, j)] = p;
 }
 
-// acc[r][4 h + e] += P[ty + 8 r][c] V[c][64 (h0 + h) + 4 tx + e], key c by
-// key in order (one fmaf per key and element), for DC 64-column blocks of
-// V from block h0.  V is read by rows, as stored (kSwizzledB false) or
-// swizzled (true: chunk 16 (h0 + h) + tx of row c sits at chunk (16 (h0 +
-// h) + tx) ^ (c & 7), so a half-warp's 16 chunks of one row still span 256
-// distinct bytes).  The backward reads its Q_s, dO and K tiles so.
-template <int D, bool kSwizzledB = false, int DC = D / 64>
-__device__ __forceinline__ void fma_pv(const float* ps, const float* vs,
-                                       const FmaThread& th,
-                                       float (&acc)[8][4 * DC], int h0 = 0) {
+// P V at D = 32, where a thread holds O columns 2 tx and 2 tx + 1 of its
+// rows: acc[r][e] += P[ty + 8 r][c] V[c][2 tx + e], key c by key in order.
+// V by rows as stored, or swizzled (kSwizzledB) as fma_pv reads it; fma_pv
+// calls it.
+template <bool kSwizzledB>
+__device__ __forceinline__ void fma_pv_d32(const float* ps, const float* vs,
+                                           const FmaThread& th, float (&acc)[8][2]) {
 #pragma unroll 2
   for (int c = 0; c < kFmaTile; c += 4) {
     float4 p4[8];
@@ -277,23 +288,62 @@ __device__ __forceinline__ void fma_pv(const float* ps, const float* vs,
     }
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      float4 v4[DC];
-#pragma unroll
-      for (int h = 0; h < DC; ++h) {
-        const int chunk = 16 * (h0 + h) + th.tx;
-        v4[h] = *reinterpret_cast<const float4*>(
-            vs + (kSwizzledB ? fma_swz<D>(c + e, chunk) : (c + e) * D + 4 * chunk));
-      }
+      const float2 v2 = *reinterpret_cast<const float2*>(
+          vs + (kSwizzledB ? fma_swz<32>(c + e, th.tx >> 1) + 2 * (th.tx & 1)
+                           : (c + e) * 32 + 2 * th.tx));
 #pragma unroll
       for (int r = 0; r < 8; ++r) {
         const float p = e == 0 ? p4[r].x : e == 1 ? p4[r].y : e == 2 ? p4[r].z
                                                                      : p4[r].w;
+        acc[r][0] = fmaf(p, v2.x, acc[r][0]);
+        acc[r][1] = fmaf(p, v2.y, acc[r][1]);
+      }
+    }
+  }
+}
+
+// acc[r][4 h + e] += P[ty + 8 r][c] V[c][64 (h0 + h) + 4 tx + e], key c by
+// key in order (one fmaf per key and element), for DC 64-column blocks of
+// V from block h0.  V is read by rows, as stored (kSwizzledB false) or
+// swizzled (true: chunk 16 (h0 + h) + tx of row c sits at chunk (16 (h0 +
+// h) + tx) ^ (c & 7), so a half-warp's 16 chunks of one row still span 256
+// distinct bytes).  The backward reads its Q_s, dO and K tiles so.  At
+// D = 32, acc[r][e] += P[ty + 8 r][c] V[c][2 tx + e] (fma_pv_d32).
+template <int D, bool kSwizzledB = false, int DC = D / 64>
+__device__ __forceinline__ void fma_pv(const float* ps, const float* vs,
+                                       const FmaThread& th,
+                                       float (&acc)[8][fma_cols(D, DC)], int h0 = 0) {
+  if constexpr (D == 32) {
+    fma_pv_d32<kSwizzledB>(ps, vs, th, acc);
+  } else {
+#pragma unroll(DC > 2 ? 1 : 2)
+    for (int c = 0; c < kFmaTile; c += 4) {
+      float4 p4[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        p4[r] = *reinterpret_cast<const float4*>(ps + fma_swz<kFmaTile>(th.ty + 8 * r,
+                                                                       c >> 2));
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float4 v4[DC];
 #pragma unroll
         for (int h = 0; h < DC; ++h) {
-          acc[r][4 * h] = fmaf(p, v4[h].x, acc[r][4 * h]);
-          acc[r][4 * h + 1] = fmaf(p, v4[h].y, acc[r][4 * h + 1]);
-          acc[r][4 * h + 2] = fmaf(p, v4[h].z, acc[r][4 * h + 2]);
-          acc[r][4 * h + 3] = fmaf(p, v4[h].w, acc[r][4 * h + 3]);
+          const int chunk = 16 * (h0 + h) + th.tx;
+          v4[h] = *reinterpret_cast<const float4*>(
+              vs + (kSwizzledB ? fma_swz<D>(c + e, chunk) : (c + e) * D + 4 * chunk));
+        }
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const float p = e == 0 ? p4[r].x : e == 1 ? p4[r].y : e == 2 ? p4[r].z
+                                                                       : p4[r].w;
+#pragma unroll
+          for (int h = 0; h < DC; ++h) {
+            acc[r][4 * h] = fmaf(p, v4[h].x, acc[r][4 * h]);
+            acc[r][4 * h + 1] = fmaf(p, v4[h].y, acc[r][4 * h + 1]);
+            acc[r][4 * h + 2] = fmaf(p, v4[h].z, acc[r][4 * h + 2]);
+            acc[r][4 * h + 3] = fmaf(p, v4[h].w, acc[r][4 * h + 3]);
+          }
         }
       }
     }
@@ -317,24 +367,46 @@ __device__ __forceinline__ float fma_row_sum(float x) {
   return x;
 }
 
+// A thread's D / 16 O columns of one row (fp32 or bf16, `row` its first
+// element) from a[] * scale, at any head dim: 64 h + 4 tx .. + 3, or at
+// D = 32 columns 2 tx and 2 tx + 1.
+template <int D, typename Tout>
+__device__ __forceinline__ void fma_store_cols(Tout* row, const FmaThread& th,
+                                               const float (&a)[D / 16], float scale) {
+  if constexpr (D == 32) {
+    store2(row + 2 * th.tx, a[0] * scale, a[1] * scale);
+  } else {
+#pragma unroll
+    for (int h = 0; h < D / 64; ++h) {
+      fma_store4(row + 64 * h + 4 * th.tx,
+                 make_float4(a[4 * h] * scale, a[4 * h + 1] * scale,
+                             a[4 * h + 2] * scale, a[4 * h + 3] * scale));
+    }
+  }
+}
+
 // O rows q0 + ty + 8 r (those before n) of one head ([n, D], fp32 or bf16)
 // from acc * scale[r], four values at a time: DC 64-column blocks from
-// block h0.
+// block h0; at D = 32 a thread's two columns (fma_store_cols).
 template <int D, int DC = D / 64, typename Tout>
 __device__ __forceinline__ void fma_store_o(Tout* op, int q0, int n,
                                             const FmaThread& th,
-                                            const float (&acc)[8][4 * DC],
+                                            const float (&acc)[8][fma_cols(D, DC)],
                                             const float (&scale)[8], int h0 = 0) {
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
     const int row = q0 + th.ty + 8 * r;
     if (row >= n) continue;
+    if constexpr (D == 32) {
+      fma_store_cols<D>(op + static_cast<size_t>(row) * D, th, acc[r], scale[r]);
+    } else {
 #pragma unroll
-    for (int h = 0; h < DC; ++h) {
-      fma_store4(op + static_cast<size_t>(row) * D + 64 * (h0 + h) + 4 * th.tx,
-                 make_float4(acc[r][4 * h] * scale[r], acc[r][4 * h + 1] * scale[r],
-                             acc[r][4 * h + 2] * scale[r],
-                             acc[r][4 * h + 3] * scale[r]));
+      for (int h = 0; h < DC; ++h) {
+        fma_store4(op + static_cast<size_t>(row) * D + 64 * (h0 + h) + 4 * th.tx,
+                   make_float4(acc[r][4 * h] * scale[r], acc[r][4 * h + 1] * scale[r],
+                               acc[r][4 * h + 2] * scale[r],
+                               acc[r][4 * h + 3] * scale[r]));
+      }
     }
   }
 }

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's hand-written
 // kernels: 16-bit and fp32 row loads, wgmma issue/commit/wait and the
-// 128-byte-swizzle shared-memory descriptor, mbarriers, cp.async into an
+// 128- and 64-byte-swizzle shared-memory descriptors, mbarriers, cp.async into an
 // mbarrier, TMA loads (3-D tensor maps and 1-D bulk copies), the tensor-map
 // encoder looked up in libcuda at run time, and the once-per-device
 // shared-memory attribute.  Everything sits in an anonymous namespace: each
@@ -105,6 +105,16 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) |
          (static_cast<uint64_t>(sbo >> 4) << 32) | (uint64_t{1} << 62);
+}
+
+// The same with the 64-byte swizzle (layout type 2), for rows of 64 bytes
+// (32 16-bit columns): a swizzle atom is 8 rows x 64 bytes, 16-byte chunk c
+// of row r at c ^ ((r / 2) % 4), each atom on a 512-byte boundary.
+__device__ __forceinline__ uint64_t sw64_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (uint64_t{2} << 62);
 }
 
 // ---------------------------------------------------------------------------

@@ -84,6 +84,18 @@
 //     so every tile needs this conversion pass before a tensor-core
 //     product.
 //
+// Head dims 32, 64, 128 and 256 (CFA_HEAD_DIMS; csrc/paged_chunk_d32.cu and
+// _d256.cu build 32 and 256), every body.  At D = 256 the bf16 bodies read
+// Q's A fragments from shared memory per k-step (held, their 64 registers
+// and the 128 O accumulators would spill), the split body decodes a warp's
+// K rows and then its V rows into one bf16 buffer and the tile body keeps
+// one bf16 K/V pair (two would not fit beside the ring); the fp32 tile body
+// holds sixteen O columns a thread (one block an SM) and, where no stored-
+// width stage fits beside its fp32 tiles (bf16 rows), decodes each tile
+// from device memory (FmaRaw::kStages 0).  An fp32 cache is refused at D =
+// 256.  At D = 32 a lane of the split body owns one output column and the
+// FMA block's threads two.
+//
 // (c) T * group > kSplitRows with fp32 compute: IEEE fp32 on the FMA units,
 //     bound by their 67 TFLOP/s at chunked prefill's T.  The block is the
 //     fp32 FMA block of B1's fp32 body (csrc/fma_block.cuh): 128 threads per
@@ -113,7 +125,15 @@
 #include <type_traits>
 
 #include "hopper.cuh"
+
 #include "paged_kv.cuh"  // includes the FMA block (csrc/fma_block.cuh)
+
+// The head dims this library is built for: 64 and 128 here; a source that
+// includes this one with CFA_HEAD_DIMS defined builds others (D 32 and 256
+// each in their own library, so that nvcc compiles the widths in parallel).
+#ifndef CFA_HEAD_DIMS
+#define CFA_HEAD_DIMS(X) X(64) X(128)
+#endif
 
 namespace {
 
@@ -230,7 +250,9 @@ __device__ __forceinline__ void decode16(__nv_bfloat16* dst, const unsigned char
 // bf16 [RT][D + 8]), each row's position [RT], the warps' P ([kWarps][RT]
 // [32] fp32, or with MMA each warp's 32 K and V rows in bf16, [kWarps][2]
 // [32][D + 8]) and one mbarrier per stage; RT = kRowTile.  The warps'
-// states are folded through the ring once it is drained.
+// states are folded through the ring once it is drained.  At D = 256 a
+// warp's K rows and then its V rows take one bf16 buffer in turn (kKVBufs
+// 1): two would not fit beside a bf16 cache's 136 KB chunk.
 template <typename Tc, int D, bool MMA>
 struct SplitLayout {
   static constexpr int RT = kRowTile;
@@ -240,8 +262,10 @@ struct SplitLayout {
   static constexpr int kScaleOff = 2 * kTileBytes;
   static constexpr int kStageBytes = kScaleOff + 2 * kThreads * 4;
   static constexpr int kLD = D + 8;  // bf16 row stride: conflict-free ldmatrix
+  static constexpr int kKVBufs = D > 128 ? 1 : 2;
   static constexpr int kQBytes = MMA ? RT * kLD * 2 : RT * D * 4;
-  static constexpr int kPBytes = MMA ? kWarps * 2 * 32 * kLD * 2 : kWarps * RT * 32 * 4;
+  static constexpr int kPBytes =
+      MMA ? kWarps * kKVBufs * 32 * kLD * 2 : kWarps * RT * 32 * 4;
   static constexpr int kStages =
       std::min(3, std::max(1, (kRingBudget - (MMA ? kPBytes / 2 : 0)) / kStageBytes));
   static constexpr int kQOff = kStages * kStageBytes;
@@ -339,6 +363,15 @@ __device__ __forceinline__ void score_row(const unsigned char* krow,
           }
         }
       }
+    } else if constexpr (sizeof(Tc) == 1 && D > 128) {
+      // int8 and fp8 at D = 256: one 4-byte word at a time (the 128
+      // accumulators leave room for no more values in flight).
+#pragma unroll 1
+      for (int k = 0; k < 4; ++k) {
+        float kv[4];
+        decode4<Tc>(*reinterpret_cast<const uint32_t*>(krow + b0 + 4 * k), kv);
+        fma4<RT>(qf, D, b0 + 4 * k, n_rows, kv, s);
+      }
     } else if constexpr (std::is_same<Tc, int8_t>::value) {
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
@@ -368,7 +401,25 @@ template <typename Tc, int D>
 __device__ __forceinline__ void v_elems(const unsigned char* vrow, int lane,
                                         float (&vv)[D / 32]) {
   constexpr int kE = D / 32;
-  if constexpr (kPacked<Tc> || std::is_same<Tc, int8_t>::value) {
+  if constexpr (sizeof(Tc) == 1 && kE > 4) {
+    // kE bytes (D = 256: 8) of int8, fp8 or int4 as 4-byte words, each
+    // decoded in registers (int4 as below; fp8 by the card's exact
+    // conversion, not through a local array).
+    const int off = kPacked<Tc> ? (lane * kE) % (D / 2) : lane * kE;
+    const bool high = kPacked<Tc> && lane * kE >= D / 2;
+#pragma unroll
+    for (int h = 0; h < kE / 4; ++h) {
+      const uint32_t w = *reinterpret_cast<const uint32_t*>(vrow + off + 4 * h);
+      float lo[4], hi[4];
+      if constexpr (kPacked<Tc>) {
+        int4x8_to_float(w, lo, hi);
+      } else {
+        decode4<Tc>(w, lo);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) vv[4 * h + i] = high ? hi[i] : lo[i];
+    }
+  } else if constexpr (kPacked<Tc> || std::is_same<Tc, int8_t>::value) {
     // kE bytes: int8 elements, or int4 pairs of which this lane takes the
     // low nibbles (elements below D/2) or the high ones.
     const int off = kPacked<Tc> ? (lane * kE) % (D / 2) : lane * kE;
@@ -519,13 +570,20 @@ paged_chunk_split(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
     if (tid < n_rows) pos_s[tid] = base + (r0 + tid) / group;
     __syncthreads();  // Q and the positions are staged
 
-    uint32_t qa[MMA ? D / 16 : 1][4];
+    // Q's A fragments, held for the whole walk (at D = 256 read again from
+    // shared memory per k-step: held, they and the 128 O accumulators would
+    // spill).
+    constexpr bool kHoldQ = D <= 128;
+    const __nv_bfloat16* qb = reinterpret_cast<const __nv_bfloat16*>(smem + L::kQOff);
+    auto q_frag = [&](uint32_t (&f)[4], int kk) {
+      ldmatrix_x4(f, qb + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
+    };
+    uint32_t qa[MMA && kHoldQ ? D / 16 : 1][4];
     int pos_a = -1, pos_b = -1;
     if constexpr (MMA) {
-      const __nv_bfloat16* qb = reinterpret_cast<const __nv_bfloat16*>(smem + L::kQOff);
+      if constexpr (kHoldQ) {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        ldmatrix_x4(qa[kk], qb + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
+        for (int kk = 0; kk < D / 16; ++kk) q_frag(qa[kk], kk);
       }
       if (g < n_rows) pos_a = pos_s[g];
       if (g + 8 < n_rows) pos_b = pos_s[g + 8];
@@ -545,12 +603,14 @@ paged_chunk_split(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
           // This warp's 32 K and V rows in bf16 (lane decodes its token's
           // rows), then S = Q K^T and O += P V on the tensor cores.
           __nv_bfloat16* kst = reinterpret_cast<__nv_bfloat16*>(smem + L::kPOff) +
-                               warp * 2 * 32 * LD;
-          __nv_bfloat16* vst = kst + 32 * LD;
+                               warp * L::kKVBufs * 32 * LD;
+          __nv_bfloat16* vst = kst + (L::kKVBufs - 1) * 32 * LD;
 #pragma unroll
           for (int cb = 0; cb < L::kRowBytes; cb += 16) {
             decode16<Tc, D, LD>(kst, stage + t * L::kStride + cb, lane, cb);
-            decode16<Tc, D, LD>(vst, stage + L::kTileBytes + t * L::kStride + cb, lane, cb);
+            if constexpr (L::kKVBufs == 2) {
+              decode16<Tc, D, LD>(vst, stage + L::kTileBytes + t * L::kStride + cb, lane, cb);
+            }
           }
           __syncwarp();
           float s[4][4];
@@ -558,14 +618,26 @@ paged_chunk_split(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
           for (int j = 0; j < 4; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
           for (int kk = 0; kk < D / 16; ++kk) {
+            uint32_t qf[4];
+            if constexpr (!kHoldQ) q_frag(qf, kk);
+            const uint32_t* qk = kHoldQ ? qa[kHoldQ ? kk : 0] : qf;
 #pragma unroll
             for (int np = 0; np < 2; ++np) {
               uint32_t bf[4];
               ldmatrix_x4(bf, kst + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
                                   kk * 16 + ((lane >> 3) & 1) * 8);
-              mma_bf16(s[2 * np], qa[kk], bf[0], bf[1]);
-              mma_bf16(s[2 * np + 1], qa[kk], bf[2], bf[3]);
+              mma_bf16(s[2 * np], qk, bf[0], bf[1]);
+              mma_bf16(s[2 * np + 1], qk, bf[2], bf[3]);
             }
+          }
+          if constexpr (L::kKVBufs == 1) {
+            // The warp's K rows are read: its V rows take their buffer.
+            __syncwarp();
+#pragma unroll
+            for (int cb = 0; cb < L::kRowBytes; cb += 16) {
+              decode16<Tc, D, LD>(vst, stage + L::kTileBytes + t * L::kStride + cb, lane, cb);
+            }
+            __syncwarp();
           }
           // Scale the score columns, mask past each row's position, online
           // softmax over the warp's 32 columns (rows g and g + 8).
@@ -664,21 +736,40 @@ paged_chunk_split(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
           const unsigned char* vbase = stage + L::kTileBytes + warp * 32 * L::kStride;
 #pragma unroll 1
           for (int t0 = 0; t0 < 32; t0 += 4) {
-            float vv[4][kE];
+            if constexpr (kE > 4) {
+              // D = 256: one V row at a time (four rows' 32 values beside the
+              // 128 accumulators would spill); each element still sums the
+              // keys in order.
 #pragma unroll
-            for (int u = 0; u < 4; ++u) {
-              v_elems<Tc, D>(vbase + (t0 + u) * L::kStride, lane, vv[u]);
-            }
+              for (int u = 0; u < 4; ++u) {
+                float vv[kE];
+                v_elems<Tc, D>(vbase + (t0 + u) * L::kStride, lane, vv);
 #pragma unroll
-            for (int r = 0; r < RT; ++r) {
-              if (r < n_rows) {
-                const float4 p4 = *reinterpret_cast<const float4*>(pw + r * 32 + t0);
+                for (int r = 0; r < RT; ++r) {
+                  if (r < n_rows) {
+                    const float p = pw[r * 32 + t0 + u];
 #pragma unroll
-                for (int e = 0; e < kE; ++e) {
-                  float a = fmaf(p4.x, vv[0][e], acc[r][e]);
-                  a = fmaf(p4.y, vv[1][e], a);
-                  a = fmaf(p4.z, vv[2][e], a);
-                  acc[r][e] = fmaf(p4.w, vv[3][e], a);
+                    for (int e = 0; e < kE; ++e) acc[r][e] = fmaf(p, vv[e], acc[r][e]);
+                  }
+                }
+              }
+            } else {
+              float vv[4][kE];
+#pragma unroll
+              for (int u = 0; u < 4; ++u) {
+                v_elems<Tc, D>(vbase + (t0 + u) * L::kStride, lane, vv[u]);
+              }
+#pragma unroll
+              for (int r = 0; r < RT; ++r) {
+                if (r < n_rows) {
+                  const float4 p4 = *reinterpret_cast<const float4*>(pw + r * 32 + t0);
+#pragma unroll
+                  for (int e = 0; e < kE; ++e) {
+                    float a = fmaf(p4.x, vv[0][e], acc[r][e]);
+                    a = fmaf(p4.y, vv[1][e], a);
+                    a = fmaf(p4.z, vv[2][e], a);
+                    acc[r][e] = fmaf(p4.w, vv[3][e], a);
+                  }
                 }
               }
             }
@@ -803,17 +894,24 @@ paged_chunk_split(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
 // stages of a 64-token K chunk and V chunk in their stored width, rows
 // contiguous, and their scales), two bf16 K/V tiles (row stride D + 8:
 // conflict-free ldmatrix) with their scales (K's times sm_scale, zero past
-// the block's columns), the Q tile and one mbarrier per raw stage.
+// the block's columns), the Q tile and one mbarrier per raw stage.  At D =
+// 256 the block keeps one bf16 K/V tile pair (kBufs; a barrier separates
+// a tile's decode from the products of the tile before), a bf16 cache one
+// raw stage, and the warps read Q's fragments from shared memory per
+// k-step: two pairs (135 KB) and the Q tile (34 KB) would not fit beside
+// the ring, nor Q's fragments (64 registers) beside the 128 O accumulators.
 template <typename Tc, int D>
 struct TileLayout {
   static constexpr int kRowBytes = kRowBytesOf<Tc, D>;
   static constexpr int kRawTile = kBlockN * kRowBytes;
   static constexpr int kRawStage = 2 * kRawTile + 2 * kBlockN * 4;
-  static constexpr int kStages = std::min(3, std::max(2, kRawBudget / kRawStage));
+  static constexpr int kStages =
+      std::min(3, std::max(D > 128 ? 1 : 2, kRawBudget / kRawStage));
+  static constexpr int kBufs = D > 128 ? 1 : 2;
   static constexpr int LD = D + 8;
   static constexpr int kBfTile = kBlockN * LD * 2;  // bytes of one bf16 tile
-  static constexpr int kBf = kStages * kRawStage;   // [2][K, V] bf16 tiles
-  static constexpr int kScl = kBf + 4 * kBfTile;    // [2][K, V][kBlockN] fp32
+  static constexpr int kBf = kStages * kRawStage;   // [kBufs][K, V] bf16 tiles
+  static constexpr int kScl = kBf + 2 * kBufs * kBfTile;  // [2][K, V][kBlockN] fp32
   static constexpr int kQ = kScl + 4 * kBlockN * 4;
   static constexpr int kBar = kQ + kBlockM * LD * 2;
   static constexpr int kSmem = kBar + 8 * kStages;
@@ -1012,10 +1110,14 @@ paged_chunk_mma(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int t4 = lane & 3;
-  uint32_t qa[D / 16][4];
+  constexpr bool kHoldQ = D <= 128;  // TileLayout: read per k-step at D = 256
+  auto q_frag = [&](uint32_t (&f)[4], int kk) {
+    ldmatrix_x4(f, qs + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+  };
+  uint32_t qa[kHoldQ ? D / 16 : 1][4];
+  if constexpr (kHoldQ) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    ldmatrix_x4(qa[kk], qs + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+    for (int kk = 0; kk < D / 16; ++kk) q_frag(qa[kk], kk);
   }
   // Positions of this thread's rows g and g + 8 (-1: past the last row).
   auto pos_of = [&](int r) { return r0 + r < rows ? base + (r0 + r) / group : -1; };
@@ -1032,11 +1134,14 @@ paged_chunk_mma(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
     // The page that refills this raw stage, read before the wait.
     const int next_pid = it + S < n_it ? page_of(it + S) : 0;
     const unsigned char* raw = smem + (it % S) * L::kRawStage;
-    __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem + L::kBf + (it & 1) * 2 * L::kBfTile);
+    const int buf = L::kBufs == 1 ? 0 : it & 1;
+    __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem + L::kBf + buf * 2 * L::kBfTile);
     __nv_bfloat16* vs = ks + kBlockN * LD;
-    float* ksc = reinterpret_cast<float*>(smem + L::kScl) + (it & 1) * 2 * kBlockN;
+    float* ksc = reinterpret_cast<float*>(smem + L::kScl) + buf * 2 * kBlockN;
     float* vsc = ksc + kBlockN;
     mbar_wait(bar0 + 8 * (it % S), (it / S) & 1);
+    // One pair: tile it - 1's products read it until here.
+    if constexpr (L::kBufs == 1) __syncthreads();
     // Decode the landed stage into bf16 tile it & 1, whose last readers
     // (tile it - 2's products) passed the barrier of tile it - 1.
     for (int i = tid; i < kBlockN * kVec; i += 128) {
@@ -1059,13 +1164,16 @@ paged_chunk_mma(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
     for (int j = 0; j < kBlockN / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t qf[4];
+      if constexpr (!kHoldQ) q_frag(qf, kk);
+      const uint32_t* qk = kHoldQ ? qa[kHoldQ ? kk : 0] : qf;
 #pragma unroll
       for (int np = 0; np < kBlockN / 16; ++np) {
         uint32_t bf[4];
         ldmatrix_x4(bf, ks + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 +
                             ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * np], qa[kk], bf[0], bf[1]);
-        mma_bf16(s[2 * np + 1], qa[kk], bf[2], bf[3]);
+        mma_bf16(s[2 * np], qk, bf[0], bf[1]);
+        mma_bf16(s[2 * np + 1], qk, bf[2], bf[3]);
       }
     }
 
@@ -1190,6 +1298,9 @@ struct ChunkFp32 {
   static constexpr bool kDirect = std::is_same<Tc, float>::value;
   static constexpr int kSmem =
       kDirect ? FmaBlock<D>::kSmem + 2 * kBlockN * 4 : FmaRaw<Tc, D>::kSmem;
+  // No stored-width stage fits (FmaRaw::kStages 0): tiles decoded from
+  // device memory, the scales after the fp32 tiles.
+  static constexpr bool kGlobal = !kDirect && FmaRaw<Tc, D>::kStages == 0;
   static constexpr int kBlocksPerSm =
       kDirect ? FmaBlock<D>::kBlocksPerSm : FmaRaw<Tc, D>::kBlocksPerSm;
 };
@@ -1270,16 +1381,18 @@ paged_chunk_fp32(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
     fma_load_tile<D, true>(dst, bar, reinterpret_cast<const float*>(pages) + row_of(it) * D,
                            0, tile.valid_cols(col_of(it)));
   };
+  constexpr int RS = R::kStages > 0 ? R::kStages : 1;  // no ring: never read
   auto issue = [&](int it, size_t row0) {
-    fma_raw_issue<Tc, D>(bytes + R::kRaw + (it % R::kStages) * R::kStage,
-                         raw_bar + 8 * (it % R::kStages), kb + row0 * kRow,
+    fma_raw_issue<Tc, D>(bytes + R::kRaw + (it % RS) * R::kStage,
+                         raw_bar + 8 * (it % RS), kb + row0 * kRow,
                          vb + row0 * kRow, k_scales + row0, v_scales + row0,
                          tile.valid_cols(col_of(it)));
   };
+  constexpr bool kGlobal = ChunkFp32<Tc, D>::kGlobal;
   if constexpr (kDirect) {
     for (int it = 0; it < B::kKStages && it < n_it; ++it) load_f32(st.k(it), st.k_bar(it), kb, it);
     for (int it = 0; it < B::kVStages && it < n_it; ++it) load_f32(st.v(it), st.v_bar(it), vb, it);
-  } else {
+  } else if constexpr (!kGlobal) {
     for (int it = 0; it < R::kStages && it < n_it; ++it) issue(it, row_of(it));
   }
 
@@ -1308,12 +1421,27 @@ paged_chunk_fp32(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
       st.wait_k(it);
       kf = st.k(it);
       vf = st.v(it);
+    } else if constexpr (kGlobal) {
+      // Tile it - 1's P V read the tiles and scales before the loop's last
+      // barrier.
+      float* scl = smem + R::kRaw / 4;
+      const int valid = tile.valid_cols(c0);
+      const size_t row0 = row_of(it);
+      const int col = threadIdx.x & (kBlockN - 1);
+      const float* src = threadIdx.x < kBlockN ? k_scales : v_scales;
+      scl[threadIdx.x] = col < valid ? src[row0 + col] : 0.f;
+      sc = scl;
+      kf = smem + R::kK;
+      vf = smem + R::kV;
+      fma_decode_global<Tc, D>(kf, kb + row0 * kRow, valid);
+      fma_decode_global<Tc, D>(smem + R::kV, vb + row0 * kRow, valid);
+      __syncthreads();  // K, V decoded
     } else {
-      const unsigned char* stage = bytes + R::kRaw + (it % R::kStages) * R::kStage;
+      const unsigned char* stage = bytes + R::kRaw + (it % RS) * R::kStage;
       kf = smem + R::kK;
       vf = smem + R::kV;
       sc = reinterpret_cast<const float*>(stage + 2 * R::kTile);
-      mbar_wait(raw_bar + 8 * (it % R::kStages), (it / R::kStages) & 1);
+      mbar_wait(raw_bar + 8 * (it % RS), (it / RS) & 1);
       fma_decode_tile<Tc, D>(kf, stage);
       fma_decode_tile<Tc, D>(smem + R::kV, stage + R::kTile);
       __syncthreads();  // K, V decoded
@@ -1358,8 +1486,10 @@ paged_chunk_fp32(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
     __syncthreads();  // P is in place; the scales are read
     if constexpr (kDirect) {
       st.wait_v(it);
-    } else if (it + R::kStages < n_it) {  // the stage refills with tile it + kStages
-      issue(it + R::kStages, row_of(it + R::kStages));
+    } else if constexpr (!kGlobal) {
+      if (it + R::kStages < n_it) {  // the stage refills with tile it + kStages
+        issue(it + R::kStages, row_of(it + R::kStages));
+      }
     }
     fma_pv<D, true>(ps, vf, th, acc);
     __syncthreads();  // P and V(it) are read
@@ -1384,13 +1514,7 @@ paged_chunk_fp32(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
   for (int r = 0; r < 8; ++r) {
     const int rr = th.ty + 8 * r;
     if (tile.r0 + rr >= tile.rows) continue;
-    Tq* op = out + tile.qrow(rr, chunk, n_heads, D);
-#pragma unroll
-    for (int h = 0; h < D / 64; ++h) {
-      fma_store4(op + 64 * h + 4 * th.tx,
-                 make_float4(acc[r][4 * h] * inv[r], acc[r][4 * h + 1] * inv[r],
-                             acc[r][4 * h + 2] * inv[r], acc[r][4 * h + 3] * inv[r]));
-    }
+    fma_store_cols<D>(out + tile.qrow(rr, chunk, n_heads, D), th, acc[r], inv[r]);
   }
 }
 
@@ -1474,10 +1598,24 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
+// An fp32 cache at D = 256 is refused: the split body's 128-token K and V
+// chunks (266 KB) do not fit a block's shared memory, nor does the bf16 tile
+// body's 64-token stage (131 KB) beside its tiles.
+template <typename Tq, typename Tc, int D>
+cudaError_t launch_dim(const Args& a) {
+  if constexpr (std::is_same<Tc, float>::value && D > 128) {
+    return cudaErrorInvalidValue;
+  } else {
+    return launch<Tq, Tc, D>(a);
+  }
+}
+
 template <typename Tq, typename Tc>
 cudaError_t launch_d(int head_dim, const Args& a) {
-  if (head_dim == 64) return launch<Tq, Tc, 64>(a);
-  if (head_dim == 128) return launch<Tq, Tc, 128>(a);
+#define CFA_CASE(D) \
+  if (head_dim == D) return launch_dim<Tq, Tc, D>(a);
+  CFA_HEAD_DIMS(CFA_CASE)
+#undef CFA_CASE
   return cudaErrorInvalidValue;
 }
 

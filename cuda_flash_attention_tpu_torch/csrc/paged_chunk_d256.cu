@@ -1,0 +1,4 @@
+// Paged chunk attention (csrc/paged_chunk.cu) at head dim 256, built
+// as a library of its own so that nvcc compiles each width in parallel.
+#define CFA_HEAD_DIMS(X) X(256)
+#include "paged_chunk.cu"

@@ -1,0 +1,4 @@
+// Paged chunk attention (csrc/paged_chunk.cu) at head dim 32, built
+// as a library of its own so that nvcc compiles each width in parallel.
+#define CFA_HEAD_DIMS(X) X(32)
+#include "paged_chunk.cu"

@@ -64,7 +64,13 @@
 //     by every call: two calls running at once on two streams would race
 //     on them (the serving engine uses one stream);
 //   * the kernel is instantiated for groups of at most 2 (the base model's)
-//     and of at most 8, so the common case keeps no dead per-head state.
+//     and of at most 8, so the common case keeps no dead per-head state;
+//   * head dims 32, 64, 128 and 256 (CFA_HEAD_DIMS; csrc/paged_decode_d32.cu
+//     and _d256.cu build 32 and 256): a lane owns D / 32 output columns, one
+//     at D = 32 and eight at D = 256 (two 4-byte words of a 1-byte V
+//     row); at D = 256 a bf16 chunk takes the ring's one stage (136 KB) and
+//     the warps' fold of 33 KB the drained ring, and an fp32 cache, whose
+//     chunks (266 KB) fit no block, is refused.
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
@@ -76,6 +82,13 @@
 
 #include "hopper.cuh"
 #include "paged_kv.cuh"
+
+// The head dims this library is built for: 64 and 128 here; a source that
+// includes this one with CFA_HEAD_DIMS defined builds others (D 32 and 256
+// each in their own library, so that nvcc compiles the widths in parallel).
+#ifndef CFA_HEAD_DIMS
+#define CFA_HEAD_DIMS(X) X(64) X(128)
+#endif
 
 namespace {
 
@@ -232,7 +245,25 @@ template <typename Tc, int D>
 __device__ __forceinline__ void v_elems(const unsigned char* vrow, int lane,
                                         bool bf16c, float (&vv)[D / 32]) {
   constexpr int kE = D / 32;
-  if constexpr (kPacked<Tc> || std::is_same<Tc, int8_t>::value) {
+  if constexpr (sizeof(Tc) == 1 && kE > 4) {
+    // kE bytes (D = 256: 8) of int8, fp8 or int4 as 4-byte words, each
+    // decoded in registers (int4 as below; fp8 by the card's exact
+    // conversion, not through a local array).
+    const int off = kPacked<Tc> ? (lane * kE) % (D / 2) : lane * kE;
+    const bool high = kPacked<Tc> && lane * kE >= D / 2;
+#pragma unroll
+    for (int h = 0; h < kE / 4; ++h) {
+      const uint32_t w = *reinterpret_cast<const uint32_t*>(vrow + off + 4 * h);
+      float lo[4], hi[4];
+      if constexpr (kPacked<Tc>) {
+        int4x8_to_float(w, lo, hi);
+      } else {
+        decode4<Tc>(w, lo);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) vv[4 * h + i] = high ? hi[i] : lo[i];
+    }
+  } else if constexpr (kPacked<Tc> || std::is_same<Tc, int8_t>::value) {
     // kE bytes: int8 elements, or int4 pairs of which this lane takes the
     // low nibbles (elements below D/2) or the high ones.
     const int off = kPacked<Tc> ? (lane * kE) % (D / 2) : lane * kE;
@@ -534,10 +565,23 @@ cudaError_t launch(const Args& a) {
                                        : launch_g<Tq, Tc, D, kMaxGroup>(a);
 }
 
+// An fp32 cache at D = 256 is refused: its 128-token K and V chunks (266
+// KB) do not fit a block's shared memory.
+template <typename Tq, typename Tc, int D>
+cudaError_t launch_dim(const Args& a) {
+  if constexpr (std::is_same<Tc, float>::value && D > 128) {
+    return cudaErrorInvalidValue;
+  } else {
+    return launch<Tq, Tc, D>(a);
+  }
+}
+
 template <typename Tq, typename Tc>
 cudaError_t launch_d(int head_dim, const Args& a) {
-  if (head_dim == 64) return launch<Tq, Tc, 64>(a);
-  if (head_dim == 128) return launch<Tq, Tc, 128>(a);
+#define CFA_CASE(D) \
+  if (head_dim == D) return launch_dim<Tq, Tc, D>(a);
+  CFA_HEAD_DIMS(CFA_CASE)
+#undef CFA_CASE
   return cudaErrorInvalidValue;
 }
 

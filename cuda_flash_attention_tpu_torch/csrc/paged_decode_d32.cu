@@ -1,0 +1,4 @@
+// Paged decode attention (csrc/paged_decode.cu) at head dim 32, built
+// as a library of its own so that nvcc compiles each width in parallel.
+#define CFA_HEAD_DIMS(X) X(32)
+#include "paged_decode.cu"

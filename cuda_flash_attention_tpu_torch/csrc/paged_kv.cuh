@@ -100,9 +100,13 @@ __device__ __forceinline__ void decode4(uint32_t w, float (&f)[4]) {
   }
 }
 
-// N bytes (2, 4, 8 or 16, aligned to N) of shared memory in one load.
+// N bytes (1, 2, 4, 8 or 16, aligned to N) of shared memory in one load.
 template <int N>
 struct Bytes;
+template <>
+struct Bytes<1> {
+  using T = uint8_t;
+};
 template <>
 struct Bytes<2> {
   using T = uint16_t;
@@ -129,6 +133,10 @@ struct Bytes<16> {
 // SM (FmaBlock's D 64 count: 168 registers a thread at three); the ring
 // takes three stages where they leave as many blocks an SM as one stage
 // does, else two, else one (D 128 in one byte: two blocks of 113 KB an SM).
+// Where not even one stage fits beside the fp32 tiles (bf16 rows at D =
+// 256: 192 KB of tiles and a 66 KB stage), kStages is 0: the kernel decodes
+// each tile straight from device memory (fma_decode_global) and keeps its
+// 64 + 64 scales after the tiles.
 // ---------------------------------------------------------------------------
 template <typename Tc, int D>
 struct FmaRaw {
@@ -136,17 +144,20 @@ struct FmaRaw {
   static constexpr int kTile = kFmaTile * kRow;            // bytes of a stored tile
   static constexpr int kStage = 2 * kTile + 2 * kFmaTile * 4;
   static constexpr int kK = 0;                              // floats
-  static constexpr int kV = kFmaTile * D;
-  static constexpr int kQ = 2 * kFmaTile * D;
-  static constexpr int kRaw = 3 * kFmaTile * D * 4;         // bytes
+  static constexpr int kV = kFmaTile * fma_slot(D);         // P takes K's slot
+  static constexpr int kQ = 2 * kFmaTile * fma_slot(D);
+  static constexpr int kRaw = 3 * kFmaTile * fma_slot(D) * 4;  // bytes
   static constexpr int smem(int stages) { return kRaw + stages * (kStage + 8); }
   static constexpr int blocks(int stages) {
     return 233472 / (smem(stages) + 1024) < 3 ? 233472 / (smem(stages) + 1024) : 3;
   }
-  static constexpr int kStages = blocks(3) == blocks(1) ? 3 : blocks(2) == blocks(1) ? 2 : 1;
+  static constexpr int kStages = smem(1) > 232448              ? 0
+                                 : blocks(3) == blocks(1) ? 3
+                                 : blocks(2) == blocks(1) ? 2
+                                                          : 1;
   static constexpr int kBar = kRaw + kStages * kStage;
-  static constexpr int kSmem = smem(kStages);
-  static constexpr int kBlocksPerSm = blocks(kStages);
+  static constexpr int kSmem = kStages ? smem(kStages) : kRaw + 2 * kFmaTile * 4;
+  static constexpr int kBlocksPerSm = kStages ? blocks(kStages) : 1;
   static_assert(kRow % 16 == 0, "rows are copied 16 bytes at a time");
   static_assert(kSmem <= 232448, "one block must fit the SM's 227 KB");
 };
@@ -215,6 +226,29 @@ __device__ __forceinline__ void fma_decode_tile(float* dst, const unsigned char*
           put(r, cb / 4 + k, f[0], f[1], f[2], f[3]);
         }
       }
+    }
+  }
+}
+
+// fma_decode_tile from device memory: 64 stored rows from `src`
+// (contiguous), rows at or past `valid` zeros and not read.  For a ring
+// stage that does not fit (FmaRaw::kStages 0).
+template <typename Tc, int D>
+__device__ __forceinline__ void fma_decode_global(float* dst, const unsigned char* src,
+                                                  int valid) {
+  constexpr int kRow = kRowBytesOf<Tc, D>;
+  static_assert(std::is_same<Tc, __nv_bfloat16>::value, "bf16 rows only");
+  for (int i = threadIdx.x; i < kFmaTile * kRow / 16; i += kFmaThreads) {
+    const int r = i / (kRow / 16);
+    const int cb = (i - r * (kRow / 16)) * 16;
+    const uint4 raw = r < valid ? *reinterpret_cast<const uint4*>(src + r * kRow + cb)
+                                : make_uint4(0u, 0u, 0u, 0u);
+    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      *reinterpret_cast<float4*>(dst + fma_swz<D>(r, cb / 8 + k)) = make_float4(
+          __uint_as_float(w[2 * k] << 16), __uint_as_float(w[2 * k] & 0xffff0000u),
+          __uint_as_float(w[2 * k + 1] << 16), __uint_as_float(w[2 * k + 1] & 0xffff0000u));
     }
   }
 }

@@ -13,7 +13,11 @@ table entry behind the window is never read), and a windowed launch also
 counts under `paged_decode_window` or `paged_chunk_window`.
 
 Caches are int8, fp8 (e4m3 / e5m2), bf16, fp32 or packed int4 (int8 pages
-of width head_dim // 2, split-half).  The JAX kernels decode fp8 pages with
+of width head_dim // 2, split-half), at head dims 32, 64, 128 and 256 (an
+fp32 cache at 64 and 128 only: its D 256 chunks do not fit a block's shared
+memory); D 32 and 256 come from libraries of their own
+(common.kernel_library), and their launches also count under
+`<name>_d32` / `<name>_d256`.  The JAX kernels decode fp8 pages with
 a flush-to-zero bit path, exact on every code the writer emits because the
 writer flushes below the fp8 minimum normal (kv_cache._quantize_rows); the
 card's and torch's native conversions are exact on every code, so the two
@@ -31,15 +35,17 @@ from cuda_flash_attention_tpu_torch.decode.kv_cache import KVPages
 from cuda_flash_attention_tpu_torch.kernels import _build, launches
 from cuda_flash_attention_tpu_torch.kernels.common import (
     DEFAULT_MASK_VALUE,
+    FORWARD_HEAD_DIMS,
     NO_WINDOW,
     cdiv,
+    head_dim_error,
     is_packed_int4,
+    kernel_library,
     kv_storage_cast,
 )
 
 _SOURCE = "paged_decode"
 _CHUNK_SOURCE = "paged_chunk"
-_HEAD_DIMS = (64, 128)
 _MAX_GROUP = 8
 # The kernels' cache codes; packed int4 (int8 of width D/2) is code 5.
 _CACHE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
@@ -70,8 +76,8 @@ _ROW_TILE = 16
 _BLOCKS_PER_SM = 2
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load(_SOURCE)
+def _lib(head_dim: int = 64) -> ctypes.CDLL:
+    lib = _build.load(kernel_library(_SOURCE, head_dim))
     if lib.cfa_paged_decode.argtypes is None:
         for name, argtypes in ARGTYPES.items():
             getattr(lib, name).argtypes = argtypes
@@ -169,8 +175,8 @@ def _counters_for(device: torch.device, n: int) -> torch.Tensor:
     return buf
 
 
-def _chunk_lib() -> ctypes.CDLL:
-    lib = _build.load(_CHUNK_SOURCE)
+def _chunk_lib(head_dim: int = 64) -> ctypes.CDLL:
+    lib = _build.load(kernel_library(_CHUNK_SOURCE, head_dim))
     if lib.cfa_paged_chunk.argtypes is None:
         for name, argtypes in CHUNK_ARGTYPES.items():
             getattr(lib, name).argtypes = argtypes
@@ -184,13 +190,15 @@ def _check_kernel_inputs(what: str, q, pages: KVPages, page_table, lengths,
     """Raise on what the CUDA kernels (B5, B6) do not take."""
     cache_dtype = pages.k_pages.dtype
     head_dim, page_size = q.shape[-1], pages.page_size
-    if (cache_dtype not in _CACHE_CODES or head_dim not in _HEAD_DIMS
-            or group > _MAX_GROUP or page_size % 128
-            or q.dtype not in _COMPUTE_DTYPES):
+    if head_dim not in FORWARD_HEAD_DIMS:
+        raise head_dim_error(what, head_dim, FORWARD_HEAD_DIMS)
+    if (cache_dtype not in _CACHE_CODES or group > _MAX_GROUP or page_size % 128
+            or q.dtype not in _COMPUTE_DTYPES
+            or (cache_dtype == torch.float32 and head_dim > 128)):
         raise NotImplementedError(
             f"{what} kernel: cache {cache_dtype}, head_dim {head_dim}, "
             f"group {group}, page {page_size}, q {q.dtype} "
-            f"(takes int8/int4/fp8/bf16/fp32 caches, head_dim {_HEAD_DIMS}, "
+            f"(takes int8/int4/fp8/bf16 caches, and fp32 up to head_dim 128; "
             f"group <= {_MAX_GROUP}, page_size a multiple of 128, bf16/fp32 q)"
         )
     tensors = (q, pages.k_pages, pages.k_scales, pages.v_pages,
@@ -255,9 +263,10 @@ def paged_decode_attention(q, pages: KVPages, page_table, lengths, *,
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: unsupported device {q.device}")
-    out = decode_launch(_lib(), q, pages, page_table, lengths, sm_scale=sm_scale,
-                        compute_dtype=compute_dtype, window=window, sinks=sinks)
-    launches.count("paged_decode", window)
+    out = decode_launch(_lib(head_dim), q, pages, page_table, lengths,
+                        sm_scale=sm_scale, compute_dtype=compute_dtype,
+                        window=window, sinks=sinks)
+    launches.count("paged_decode", window, head_dim=head_dim)
     return out
 
 
@@ -340,10 +349,10 @@ def paged_chunk_attention(q, pages: KVPages, page_table, lengths, *,
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged_chunk_attention: unsupported device {q.device}")
-    out = chunk_launch(_chunk_lib(), q, pages, page_table, lengths,
+    out = chunk_launch(_chunk_lib(head_dim), q, pages, page_table, lengths,
                        sm_scale=sm_scale, compute_dtype=compute_dtype,
                        window=window, sinks=sinks)
-    launches.count("paged_chunk", window)
+    launches.count("paged_chunk", window, head_dim=head_dim)
     if (compute_dtype == torch.float32
             and chunk_body(chunk, n_heads // n_kv_heads) == "tiles"):
         launches.count("paged_chunk_fp32_tile")

@@ -22,8 +22,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+import threading
+import time
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
@@ -34,6 +37,9 @@ NVCC_FLAGS = (
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
+# Wall seconds of each source's nvcc process (from its start) in the builds
+# of this process.
+BUILD_SECONDS: dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -54,33 +60,56 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
-    # The shared headers (csrc/*.cuh) are part of every source's hash.
+    # The shared headers (csrc/*.cuh) are part of every source's hash, and
+    # so is a source that this one includes (csrc/<name>_d<D>.cu builds
+    # csrc/<name>.cu at one head dim).
     headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    text = src.read_bytes()
+    included = b"".join((CSRC_DIR / inc.decode()).read_bytes()
+                        for inc in re.findall(rb'#include "(\w+\.cu)"', text))
     digest = hashlib.sha256(
-        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
+        text + included + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
 def build(*names: str) -> dict[str, str]:
     """Compile the named sources that are not built yet, one nvcc process
-    each, all started together.  Returns each new build's compiler log
-    (ptxas register and shared-memory report); raises with the log of any
-    source that failed."""
+    each, at most one a core, started in the order given (so a caller that
+    lists the longest first keeps every core busy to the end instead of
+    sharing them among all the compilers at once).  Returns each new
+    build's compiler log (ptxas register and shared-memory report); raises
+    with the log of any source that failed."""
     pending = []
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    slots = threading.Semaphore(os.cpu_count() or 1)
+    outputs, threads = {}, []
+
+    # Each process's log is drained on a thread of its own (no full pipe
+    # stalls a compiler), which frees its slot when the compiler exits.
+    def drain(name, proc, t0):
+        outputs[name] = proc.communicate()[0]
+        BUILD_SECONDS[name] = time.perf_counter() - t0
+        slots.release()
+
     for name in names:
         out = library_path(name)
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        slots.acquire()
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT)
         pending.append((name, out, tmp, proc))
+        threads.append(threading.Thread(target=drain,
+                                        args=(name, proc, time.perf_counter())))
+        threads[-1].start()
+    for t in threads:
+        t.join()
     logs, errors = {}, []
     for name, out, tmp, proc in pending:
-        log = proc.communicate()[0].decode(errors="replace")
+        log = outputs[name].decode(errors="replace")
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {name}.cu ({proc.returncode}):\n{log}")
             continue

@@ -22,6 +22,7 @@ from cuda_flash_attention_tpu_torch.kernels.common import (
     DEFAULT_MASK_VALUE,
     KERNEL_HEAD_DIMS,
     MIN_BLOCK,
+    head_dim_error,
     pad_to_block,
 )
 
@@ -49,8 +50,7 @@ def _check(name, q, k, v):
     if q.dtype != torch.float32:
         raise NotImplementedError(f"{name} kernel: fp32 only; got {q.dtype}")
     if q.shape[3] not in KERNEL_HEAD_DIMS:
-        raise NotImplementedError(
-            f"{name} kernel: head_dim {q.shape[3]} not in {KERNEL_HEAD_DIMS}")
+        raise head_dim_error(name, q.shape[3])
     if k.shape[1] != q.shape[1] or q.shape[0] * q.shape[1] > 65535:
         raise NotImplementedError(
             f"{name} kernel: one KV head per query head and batch * heads "

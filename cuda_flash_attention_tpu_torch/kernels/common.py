@@ -23,8 +23,30 @@ DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 # below 2^-14 is subnormal, where the JAX package's fp16 emulation (a
 # 10-bit mantissa in fp32) does neither; in fp16's normal range they agree.
 TILE_DTYPES = (None, torch.bfloat16, torch.float16)
-# Head dims the CUDA attention kernels take; the plain versions take any.
+# Head dims the CUDA kernels take; the plain versions take any.  B1 (the
+# FA2 forward), B5 and B6 (paged decode and chunk attention) take all four
+# of the registry's; B2-B4, B7 and B8-B10 take 64 and 128, their D 32 and
+# 256 being ROADMAP.md's Queue B 2.
+FORWARD_HEAD_DIMS = (32, 64, 128, 256)
 KERNEL_HEAD_DIMS = (64, 128)
+
+
+def head_dim_error(name: str, head_dim: int, dims=KERNEL_HEAD_DIMS):
+    """What a wrapper raises on a CUDA tensor whose head dim its kernel
+    does not take (no plain-version fallback); a head dim of the registry's
+    that the kernel lacks is ROADMAP.md's Queue B 2."""
+    queue = (" (ROADMAP.md Queue B 2)"
+             if head_dim in FORWARD_HEAD_DIMS and head_dim not in dims else "")
+    return NotImplementedError(
+        f"{name} kernel: head_dim {head_dim} not in {dims}{queue}")
+
+
+def kernel_library(name: str, head_dim: int) -> str:
+    """The library of csrc/<name>.cu that holds head dim `head_dim`: D 64
+    and 128 in <name> itself, D 32 and 256 each in <name>_d32 / <name>_d256
+    (csrc/<name>_d<D>.cu, the same source built at that width alone, so
+    that nvcc compiles the widths in parallel)."""
+    return name if head_dim in KERNEL_HEAD_DIMS else f"{name}_d{head_dim}"
 
 
 def tile_code(in_dtype: torch.dtype, tile_dtype) -> int:
@@ -243,7 +265,8 @@ def reference_tiles(sq_pad: int, skv_pad: int, causal: bool, window,
 
 
 def dead_row_lse(q_len: int, skv_pad: int, *, causal: bool, window, sinks: int,
-                 block_q: int, block_k: int, device) -> torch.Tensor:
+                 block_q: int, block_k: int, device,
+                 single_tile_body: bool = True) -> torch.Tensor:
     """The lse of each row [q_len] were it to keep no key (its O is 0), as
     the JAX forward gives it on its own tiles (block_q x block_k, from
     `reference_tiles`): -inf where the row's Q tile walks no KV tile at all (a KV
@@ -251,10 +274,14 @@ def dead_row_lse(q_len: int, skv_pad: int, *, causal: bool, window, sinks: int,
     visited, every score masked).  A tile is walked when it holds a column
     at or below the Q tile's last row (causal) and, under a window, one
     that the Q tile's first row keeps or a sink.  The kernels apply the
-    same rule to their dead rows (csrc/fa2_forward.cu dead_row_lse)."""
+    same rule to their dead rows (csrc/fa2_forward.cu DeadRows).  The JAX
+    forward walks a KV of one tile in a body of its own that always runs
+    (single_tile_body); its quantized forward has no such body, so there a
+    Q tile that walks no tile is -inf whatever the KV's length
+    (csrc/fa2_forward_quant.cu QuantDead)."""
     out = torch.full((q_len,), DEFAULT_MASK_VALUE, dtype=torch.float32,
                      device=device) * LN2
-    if skv_pad // block_k <= 1 or window is None:
+    if (single_tile_body and skv_pad // block_k <= 1) or window is None:
         return out
     for q0 in range(0, q_len, block_q):
         end = min(skv_pad, q0 + block_q) if causal else skv_pad

@@ -50,6 +50,7 @@ from cuda_flash_attention_tpu_torch.kernels.common import (
     TILE_DTYPES,
     build_element_mask,
     cdiv,
+    head_dim_error,
     tile_code,
     window_q_tiles,
     window_tiles,
@@ -204,8 +205,7 @@ def _check(name, q, k, v, tile_dtype, same, stats):
             f"{q.dtype} with tile_dtype {tile_dtype}")
     d = q.shape[3]
     if d not in KERNEL_HEAD_DIMS:
-        raise NotImplementedError(
-            f"{name} kernel: head_dim {d} not in {KERNEL_HEAD_DIMS}")
+        raise head_dim_error(name, d)
     if q.shape[0] * max(q.shape[1], k.shape[1]) > 65535:
         raise NotImplementedError(f"{name} kernel: batch * heads > 65535")
     for t in (k, v) + same:

@@ -16,7 +16,9 @@ common.pack_segments pads them: a row keeps only the keys of its own
 segment); a windowed launch also counts under `<name>_window`, a
 segmented one under `<name>_segments`.  A row that keeps no key gives O =
 0 and the lse of the JAX forward's tile walk (common.dead_row_lse, on the
-tiles `lse_tiles`, by default those of BlockSizes.default).
+tiles `lse_tiles`, by default those of BlockSizes.default).  B1 takes head
+dims 32, 64, 128 and 256 (D 32 and 256 each from a library of their own,
+common.kernel_library), B8 64 and 128.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 from cuda_flash_attention_tpu_torch.kernels import _build, launches
 from cuda_flash_attention_tpu_torch.kernels.common import (
     DEFAULT_MASK_VALUE,
+    FORWARD_HEAD_DIMS,
     KERNEL_HEAD_DIMS,
     LN2,
     LOG2E,
@@ -36,6 +39,8 @@ from cuda_flash_attention_tpu_torch.kernels.common import (
     TILE_DTYPES,
     build_element_mask,
     dead_row_lse,
+    head_dim_error,
+    kernel_library,
     reference_tiles,
     round_up,
     tile_code,
@@ -46,8 +51,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("fa2_forward")
+def _lib(head_dim: int = 64) -> ctypes.CDLL:
+    lib = _build.load(kernel_library("fa2_forward", head_dim))
     fn = lib.cfa_fa2_forward
     if fn.argtypes is None:
         fn.argtypes = [_P] * 7 + [_I] * 7 + [_F] + [_I] * 7 + [_P]
@@ -80,16 +85,16 @@ def seg_args(q_seg, kv_seg, b: int, sq: int, skv: int):
     return (held, held[0].data_ptr(), held[1].data_ptr())
 
 
-def _check_inputs(name, q, k, v, tile_dtype):
-    """What both kernels take; raises on anything else."""
+def _check_inputs(name, q, k, v, tile_dtype, head_dims=KERNEL_HEAD_DIMS):
+    """What both kernels take (B1 every head dim of FORWARD_HEAD_DIMS, B8
+    KERNEL_HEAD_DIMS); raises on anything else."""
     if q.dtype not in (torch.float32, torch.bfloat16) or tile_dtype not in TILE_DTYPES:
         raise NotImplementedError(
             f"{name} kernel: inputs fp32/bf16 and tiles None/bf16/fp16; got "
             f"{q.dtype} with tile_dtype {tile_dtype}"
         )
-    if q.shape[3] not in KERNEL_HEAD_DIMS:
-        raise NotImplementedError(
-            f"{name} kernel: head_dim {q.shape[3]} not in {KERNEL_HEAD_DIMS}")
+    if q.shape[3] not in head_dims:
+        raise head_dim_error(name, q.shape[3], head_dims)
     for t in (q, k, v):
         if t.device != q.device or t.dtype != q.dtype or not t.is_contiguous():
             raise ValueError(f"{name} kernel: q/k/v must be contiguous, on one "
@@ -120,7 +125,7 @@ def fa2_forward_aligned(q, k, v, *, causal: bool, sm_scale: float,
         raise ValueError(f"fa2_forward: unsupported device {q.device}")
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    _check_inputs("fa2_forward", q, k, v, tile_dtype)
+    _check_inputs("fa2_forward", q, k, v, tile_dtype, FORWARD_HEAD_DIMS)
     if b * hq > 65535:
         raise NotImplementedError("fa2_forward kernel: batch * heads > 65535")
     if tile_dtype not in (None, q.dtype):
@@ -131,7 +136,7 @@ def fa2_forward_aligned(q, k, v, *, causal: bool, sm_scale: float,
     o = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), device=q.device, dtype=torch.float32)
     held, q_ids, kv_ids = seg_args(q_seg, kv_seg, b, sq, skv)
-    lib = _lib()
+    lib = _lib(d)
     err = lib.cfa_fa2_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         q_ids, kv_ids, b, hq, hkv, sq, skv, d, kv_len, sm_scale * LOG2E,
@@ -140,7 +145,7 @@ def fa2_forward_aligned(q, k, v, *, causal: bool, sm_scale: float,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, "cfa_fa2_forward_error_string", err, "fa2_forward")
-    launches.count("fa2_forward", window, held)
+    launches.count("fa2_forward", window, held, d)
     return o, lse
 
 

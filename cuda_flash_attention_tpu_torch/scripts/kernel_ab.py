@@ -30,7 +30,7 @@ and -masked forms), baselines.cu (b9, b10), fa2_forward.cu (b1-fp32),
 fa2_forward_small.cu (b8), paged_decode.cu (b5), paged_chunk.cu (b6),
 fa2_forward_quant.cu (b7, b7-fp32) or r5_d128_fwd.cu (x) with the same C
 entry point: cfa_fa2_forward_small; cfa_r5_d128_fwd; cfa_fa2_forward_quant
-(called through the current wrapper's launch, fa2_forward_quant.quant_launch);
+(typed by its source's parameter list, with fa2_forward_quant.quant_args' checks);
 cfa_paged_decode or cfa_paged_chunk with or without a
 split count, workspace and counters (a source exporting
 cfa_paged_decode_workspace_floats or cfa_paged_chunk_workspace_floats is
@@ -618,9 +618,11 @@ def build_parent(kernel: str, path: str) -> ctypes.CDLL:
         lib.cfa_r5_d128_fwd.argtypes = r5.ARGTYPES
         lib.cfa_r5_d128_fwd.restype = _I
         return lib
-    if kernel == "b7":  # the entry point kept its signature
-        lib.cfa_fa2_forward_quant.argtypes = fq.ARGTYPES
+    if kernel == "b7":  # typed by the parameter list in its source
+        params = b1_ab.entry_params(Path(path).read_text(), "cfa_fa2_forward_quant")
+        lib.cfa_fa2_forward_quant.argtypes = [t for _, t in params]
         lib.cfa_fa2_forward_quant.restype = _I
+        lib.b7_params = [n for n, _ in params]
         return lib
     if kernel == "b6":
         if hasattr(lib, "cfa_paged_chunk_workspace_floats"):
@@ -870,7 +872,15 @@ def parent_b6(lib, q, pages, table, lengths, *, sm_scale, compute_dtype):
 
 
 def parent_b7(lib, *x, **kw):
-    return fq.quant_launch(lib, *x, **kw)
+    """The parent's wrapper: the current checks and allocations
+    (fa2_forward_quant.quant_args), its C entry point called with the
+    parameters its source declares (before windows and segment ids: no
+    q_seg, kv_seg, window or dead-row tiles); no window or ids."""
+    values, o, lse, _held = fq.quant_args(*x, **kw)
+    err = lib.cfa_fa2_forward_quant(*(values[n] for n in lib.b7_params))
+    _build.check(lib, "cfa_fa2_forward_quant_error_string", err,
+                 "parent fa2_forward_quant")
+    return o, lse
 
 
 def parent_x(lib, q, k, v, *, variant):

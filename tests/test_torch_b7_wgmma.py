@@ -112,26 +112,27 @@ _TQ = ("f", "13__nv_bfloat16")
 _TC = ("a", "13__nv_fp8_e4m3", "13__nv_fp8_e5m2", "NS_6Int4x2E")
 B7_ENTRIES = (
     [f"{_NS}19fa2_fwd_quant_wgmmaI{tq}{tc}Li{d}EEEv14CUtensorMap_stS2_PKT_PKfS7_PS3_"
-     "Pfiiiiifi" for tq in _TQ for tc in _TC for d in (64, 128)]
-    + [f"{_NS}18fa2_fwd_quant_fp32I{tq}{tc}Li{d}EEEvPKT_PKhPKfS6_S8_PS2_Pfiiiiifi"
-       for tq in _TQ for tc in _TC for d in (64, 128)])
+     "PfPKiSA_iiiiifiiNS_9QuantDeadE" for tq in _TQ for tc in _TC for d in (64, 128)]
+    + [f"{_NS}18fa2_fwd_quant_fp32I{tq}{tc}Li{d}ELb{seg}EEvPKT_PKhPKfS6_S8_PS2_PfPKiSB_"
+       "iiiiifiiNS_9QuantDeadE"
+       for tq in _TQ for tc in _TC for d in (64, 128) for seg in (0, 1)])
 
 
 def test_phase_1_gates_every_b7_instantiation():
-    """chip_smoke's phase 1 holds B7's 32 instantiations (the wgmma body and
-    the FMA-block body, each 4 storages x 2 q types x D 64 and 128): clean
-    reports pass, one spilled byte, a wgmma serialisation note or a missing
-    instantiation fails."""
+    """chip_smoke's phase 1 holds B7's 48 instantiations (the wgmma body, 4
+    storages x 2 q types x D 64 and 128, and the FMA-block body, those
+    without and with segment ids): clean reports pass, one spilled byte, a
+    wgmma serialisation note or a missing instantiation fails."""
     functions, count = chip_smoke.B7_FUNCTIONS
-    assert count == len(B7_ENTRIES) == 32
+    assert count == len(B7_ENTRIES) == 48
     chip_smoke.check_ptxas(_ptxas_report(B7_ENTRIES), "B7", functions, count)
     with pytest.raises(AssertionError, match="spills"):
-        chip_smoke.check_ptxas(_ptxas_report(B7_ENTRIES[:31]) + "\n"
-                               + _ptxas_report(B7_ENTRIES[31:], spill=4),
+        chip_smoke.check_ptxas(_ptxas_report(B7_ENTRIES[:47]) + "\n"
+                               + _ptxas_report(B7_ENTRIES[47:], spill=4),
                                "B7", functions, count)
     with pytest.raises(AssertionError, match="serialises"):
         chip_smoke.check_ptxas(_ptxas_report(B7_ENTRIES[1:]) + "\n"
                                + _ptxas_report(B7_ENTRIES[:1], note=True),
                                "B7", functions, count)
-    with pytest.raises(AssertionError, match="only 31"):
+    with pytest.raises(AssertionError, match="only 47"):
         chip_smoke.check_ptxas(_ptxas_report(B7_ENTRIES[1:]), "B7", functions, count)

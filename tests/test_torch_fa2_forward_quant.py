@@ -121,13 +121,22 @@ def test_validation_errors_match_jax():
         with pytest.raises(ValueError) as terr:
             fq.flash_attention_quantized_kv(*targs)
         assert str(terr.value).split(":")[0] == str(jerr.value).split(":")[0]
-    seg = torch.zeros(1, 256, dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        fq.flash_attention_quantized_kv(torch.from_numpy(q), tk, tv,
-                                        q_segment_ids=seg, kv_segment_ids=seg)
-    with pytest.raises(NotImplementedError):
-        fq.flash_attention_quantized_kv(torch.from_numpy(q), tk, tv,
-                                        causal=True, window=64)
+    # Segment ids and windows are taken (tests/test_torch_quant_window.py);
+    # their bad forms raise as the JAX API's do: ids without their pair, a
+    # causal window below 1.
+    seg = np.zeros((1, 256), np.int32)
+    for kw in (dict(q_segment_ids=seg), dict(causal=True, window=0)):
+        with pytest.raises(ValueError) as jerr:
+            jax_fq.flash_attention_quantized_kv(
+                jnp.asarray(q), k_q, v_q,
+                **{n: jnp.asarray(x) if isinstance(x, np.ndarray) else x
+                   for n, x in kw.items()})
+        with pytest.raises(ValueError) as terr:
+            fq.flash_attention_quantized_kv(
+                torch.from_numpy(q), tk, tv,
+                **{n: torch.from_numpy(x) if isinstance(x, np.ndarray) else x
+                   for n, x in kw.items()})
+        assert str(terr.value).split(":")[0] == str(jerr.value).split(":")[0]
     with pytest.raises(NotImplementedError):
         fq.fa2_forward_quant_aligned(torch.from_numpy(q), tk.values, tk.scales[..., 0],
                                      tv.values, tv.scales[..., 0], causal=False,

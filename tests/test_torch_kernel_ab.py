@@ -782,26 +782,60 @@ def test_b7_argtypes_match_the_c_entry_point():
         "cfa_fa2_forward_quant", "fa2_forward_quant.cu")
 
 
-@pytest.mark.parametrize("kernel", ["b7", "b7-fp32"])
-def test_parent_b7_calls_as_its_argtypes_declare(monkeypatch, kernel):
-    """build_parent gives a parent's cfa_fa2_forward_quant the current
-    argtypes (the signature is kept); parent_b7 launches it through the
-    current wrapper's launch with exactly that many arguments and returns
-    (O, lse)."""
+def test_b7_masks_argtypes_match_the_c_entry_point(monkeypatch):
+    """quant_args names the entry point's parameters in its order (window,
+    segment ids and the dead-row tiles among them), which is how the
+    current wrapper and a parent's both call it."""
     from cuda_flash_attention_tpu_torch.kernels import fa2_forward_quant as fq
 
+    path = Path(fq.__file__).parent.parent / "csrc" / "fa2_forward_quant.cu"
+    params = b1_ab.entry_params(path.read_text(), "cfa_fa2_forward_quant")
+    assert [t for _, t in params] == fq.ARGTYPES
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    case = dict(kernel_ab.B7_CASES[0], b=1, hq=2, hkv=1, s=200)
+    x, kw, _ = kernel_ab.problem("b7", case, torch.Generator().manual_seed(0))
+    values, *_ = fq.quant_args(*x, **kw)
+    assert list(values) == [n for n, _ in params]
+    assert {"q_seg", "kv_seg", "window", "dead_bq", "dead_bk"} <= set(values)
+
+
+# 3c5d3e4's cfa_fa2_forward_quant, before windows and segment ids.
+_B7_BEFORE_MASKS = ("int cfa_fa2_forward_quant(const void* q, const void* k,"
+                    " const void* k_scales, const void* v, const void* v_scales,"
+                    " void* o, void* lse, int batch, int hq, int hkv, int sq,"
+                    " int skv, int head_dim, int kv_len, float qscale, int causal,"
+                    " int q_bf16, int storage, int bf16_compute, void* stream) {")
+
+
+@pytest.mark.parametrize("kernel", ["b7", "b7-fp32"])
+@pytest.mark.parametrize("source", ["before masks", "current"])
+def test_parent_b7_calls_as_its_argtypes_declare(monkeypatch, tmp_path, kernel, source):
+    """build_parent types a parent's cfa_fa2_forward_quant by the parameter
+    list in its source; parent_b7 passes exactly those arguments (20 before
+    windows and ids, 25 now with no ids and no window) and returns (O,
+    lse)."""
+    if source == "current":
+        path = Path(__file__).resolve().parents[1] / \
+            "cuda_flash_attention_tpu_torch/csrc/fa2_forward_quant.cu"
+    else:
+        path = tmp_path / "fa2_forward_quant.cu"
+        path.write_text(_B7_BEFORE_MASKS)
     lib = _RecordingLib("cfa_fa2_forward_quant")
     monkeypatch.setattr(b1_ab, "compile_source", lambda path, stem: lib)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: types.SimpleNamespace(cuda_stream=0))
-    assert kernel_ab.build_parent(kernel, "unused.cu") is lib
-    assert lib.cfa_fa2_forward_quant.argtypes == fq.ARGTYPES
+    assert kernel_ab.build_parent(kernel, str(path)) is lib
     case = dict(kernel_ab.CASES[kernel][0], b=1, hq=2, hkv=1, s=200)
     x, kw, _ = kernel_ab.problem(kernel, case, torch.Generator().manual_seed(0))
     parent, _ = kernel_ab.calls(kernel)
     o, lse = parent(lib, *x, **kw)
     assert o.shape == x[0].shape and lse.shape == x[0].shape[:3]
     (name, args), = lib.calls
-    assert len(args) == len(fq.ARGTYPES) == 20
+    values = dict(zip(lib.b7_params, args))
+    assert len(args) == len(lib.cfa_fa2_forward_quant.argtypes) == \
+        (20 if source == "before masks" else 25)
     # storage 0 (int8); bf16 compute for b7, fp32 for b7-fp32
-    assert args[17] == 0 and args[18] == int(kernel == "b7")
+    assert values["storage"] == 0 and values["bf16_compute"] == int(kernel == "b7")
+    if source == "current":
+        assert (values["q_seg"], values["kv_seg"], values["window"]) == (0, 0, 1 << 30)

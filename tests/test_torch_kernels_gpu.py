@@ -132,7 +132,7 @@ def test_fa2_forward_kernel_bitwise_deterministic(cuda, dtype, tile):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(shape=(1, 2, 64, 32), dtype=torch.bfloat16),   # head_dim 32
+    dict(shape=(1, 2, 64, 96), dtype=torch.bfloat16),   # head_dim 96 (no kernel)
     dict(shape=(1, 2, 64, 64), dtype=torch.float16),
 ])
 def test_fa2_forward_kernel_refuses_what_it_does_not_take(cuda, kwargs):
@@ -830,10 +830,13 @@ def test_fa2_forward_fp32_kernel_at_the_block_edges(cuda, d, b, hq, hkv, sq,
 @pytest.mark.parametrize("call", [
     lambda x: baselines.fa1_attention(x, x, x),
     lambda x: baselines.naive_fa2_attention(x, x, x),
-    lambda x: attention.flash_attention(x, x, x),
+    lambda x: fa2_forward.fa2_forward_small_aligned(x, x, x, causal=False,
+                                                    sm_scale=0.125, kv_len=64),
 ], ids=["fa1", "naive_fa2", "fa2_small"])
 def test_kernels_refuse_head_dim_32(cuda, call):
-    """D = 32 passes the registry but has no CUDA instantiation yet."""
+    """D = 32 passes the registry, and B1 takes it (the route sends B8's
+    shapes there), but B8, B9 and B10 have no D 32 instantiation yet (Queue
+    B 2)."""
     with pytest.raises(NotImplementedError):
         call(torch.zeros(1, 2, 64, 32, device=cuda))
 
@@ -1931,3 +1934,195 @@ def test_windowed_autograd_matches_plain(cuda, dtype, tile, s, window, sinks,
     tol = 5e-2 if (tile is not None or dtype == torch.bfloat16) else 2e-5
     for got, want in zip(grads["cuda"], grads["cpu"]):
         assert _rel_err(got, want) <= tol
+
+
+# ---------------------------------------------------------------------------
+# Head dims 32 and 256: B1 (every tile body and mask), B5 and B6 (every
+# cache the kernels take there, both compute types, the split and both tile
+# bodies), against their plain versions; B7 with a window and segment ids;
+# and the kernels that keep D 64 and 128 refusing the others.  Tolerances
+# as above.
+# ---------------------------------------------------------------------------
+
+WIDE_CACHES = [torch.bfloat16, torch.int8, torch.float8_e4m3fn, "int4"]
+
+
+@FWD_VARIANTS
+@pytest.mark.parametrize("d", [32, 256])
+@pytest.mark.parametrize("b,hq,hkv,s,causal", [
+    (2, 16, 8, 100, True), (1, 4, 2, 2048, True), (1, 4, 2, 1000, False),
+    (2, 4, 2, 16, True), (2, 4, 4, 128, False),
+])
+def test_fa2_forward_head_dims_match_plain(cuda, dtype, tile, d, b, hq, hkv, s, causal):
+    rng = np.random.default_rng(s + d)
+    q, k, v = (_randn(rng, b, h, s, d).to(dtype) for h in (hq, hkv, hkv))
+    before = (LAUNCHES["fa2_forward"], LAUNCHES[f"fa2_forward_d{d}"])
+    o_k, lse_k = attention.flash_attention_with_lse(
+        q.to(cuda), k.to(cuda), v.to(cuda), causal=causal, tile_dtype=tile)
+    assert (LAUNCHES["fa2_forward"], LAUNCHES[f"fa2_forward_d{d}"]) == (
+        before[0] + 1, before[1] + 1)
+    o_p, lse_p = attention.flash_attention_with_lse(q, k, v, causal=causal,
+                                                    tile_dtype=tile)
+    bf16 = tile is not None or dtype == torch.bfloat16
+    err = (o_k.float().cpu() - o_p.float()).abs().max().item()
+    lse_err = ((lse_k.cpu() - lse_p).abs() / lse_p.abs().clamp_min(1)).max().item()
+    assert err <= (2e-2 if bf16 else 2e-6), err
+    assert lse_err <= (1e-3 if bf16 else 1e-5), lse_err
+
+
+@FWD_VARIANTS
+@pytest.mark.parametrize("d", [32, 256])
+@pytest.mark.parametrize("mask", ["window 128 sinks 4", "band -100", "4 documents"])
+def test_fa2_forward_head_dims_masked_match_plain(cuda, dtype, tile, d, mask):
+    """A window with sinks, a non-causal band (rows with no key: lse bit for
+    bit) and 4 packed documents a row, at B2 Hq8 Hkv4 S640."""
+    rng = np.random.default_rng(d)
+    b, hq, hkv, s = 2, 8, 4, 640
+    q, k, v = (_randn(rng, b, h, s, d).to(dtype) for h in (hq, hkv, hkv))
+    kw = dict(causal=True, tile_dtype=tile)
+    if mask.startswith("window"):
+        kw.update(window=128, sinks=4)
+    elif mask.startswith("band"):
+        kw.update(causal=False, window=-100)
+    else:
+        ids = torch.from_numpy(np.sort(rng.integers(0, 4, (b, s)), axis=1).astype(np.int32))
+        kw.update(q_segment_ids=ids, kv_segment_ids=ids)
+    o_k, lse_k = attention.flash_attention_with_lse(
+        q.to(cuda), k.to(cuda), v.to(cuda),
+        **{n: x.to(cuda) if torch.is_tensor(x) else x for n, x in kw.items()})
+    o_p, lse_p = attention.flash_attention_with_lse(q, k, v, **kw)
+    o_k, lse_k = o_k.cpu(), lse_k.cpu()
+    tol = 2e-6 if (tile or dtype) == torch.float32 else 2e-2
+    assert (o_k.float() - o_p.float()).abs().max().item() <= tol
+    dead = lse_p < -1e30
+    assert torch.equal(lse_k[dead], lse_p[dead])
+    assert bool(dead.any()) == mask.startswith("band")
+    live = ((lse_k - lse_p).abs() / lse_p.abs().clamp_min(1.0))[~dead]
+    assert live.max().item() <= (1e-5 if tol == 2e-6 else 1e-3)
+
+
+@pytest.mark.parametrize("compute", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("cache", WIDE_CACHES + [torch.float32], ids=str)
+@pytest.mark.parametrize("chunk,group", [(1, 2), (1, 8), (5, 2), (512, 2)], ids=str)
+@pytest.mark.parametrize("window", [None, 128], ids=str)
+@pytest.mark.parametrize("d", [32, 256])
+def test_paged_head_dims_match_plain(cuda, d, window, chunk, group, cache, compute):
+    """B5 (chunk 1) and B6 (T 5: the split body; T 512: the bf16 and fp32
+    tile bodies) at D 32 and 256, globally and under window 128 with 4
+    sinks; an fp32 cache at D 256 is refused."""
+    if cache == torch.float32 and d == 256:
+        q, pages, table, lengths = _b6_problem(torch.int8, d, group, chunk, compute,
+                                               _b6_lengths(chunk), 4)
+        fp32_pages = kv_cache.KVPages(pages.k_pages.float(), pages.k_scales,
+                                      pages.v_pages.float(), pages.v_scales)
+        fn = (dec_attention.paged_decode_attention if chunk == 1
+              else dec_attention.paged_chunk_attention)
+        with pytest.raises(NotImplementedError):
+            fn(q[:, 0] if chunk == 1 else q, fp32_pages, table, lengths,
+               compute_dtype=compute)
+        return
+    q, pages, table, lengths = _b6_problem(cache, d, group, chunk, compute,
+                                           _b6_lengths(chunk), 12)
+    kw = dict(compute_dtype=compute)
+    if window is not None:
+        kw.update(window=window, sinks=4)
+    if chunk == 1:
+        q = q[:, 0].contiguous()
+        fn, plain, name = (dec_attention.paged_decode_attention,
+                           dec_attention.paged_decode_attention_plain, "paged_decode")
+    else:
+        fn, plain, name = (dec_attention.paged_chunk_attention,
+                           dec_attention.paged_chunk_attention_plain, "paged_chunk")
+    before = LAUNCHES[f"{name}_d{d}"]
+    o_k = fn(q, pages, table, lengths, **kw)
+    assert LAUNCHES[f"{name}_d{d}"] == before + 1
+    o_p = plain(q, pages, table, lengths, sm_scale=d ** -0.5, **kw)
+    torch.cuda.synchronize()
+    assert o_k.dtype == compute and not o_k[0].any()
+    assert torch.isfinite(o_k.float()).all()
+    err = (o_k.float() - o_p.float()).abs().max().item()
+    assert err <= (2e-2 if compute == torch.bfloat16 else 2e-5), err
+
+
+@pytest.mark.parametrize("storage", QUANT_STORAGE, ids=str)
+@pytest.mark.parametrize("q_dtype,compute", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("mask", ["window 160", "2 segments", "band -10",
+                                  "window ids dead"])
+def test_fa2_forward_quant_masks_match_plain(cuda, storage, q_dtype, compute, d, mask):
+    """B7 with a causal window (the JAX test's 160), two segments, a band
+    over Sq 300 > Skv 150 (rows whose Q tile runs no KV tile: -inf) and a
+    window with ids no key carries (dead rows: O 0, lse bit for bit)."""
+    from cuda_flash_attention_tpu_torch.kernels import fa2_forward_quant as fq
+    from cuda_flash_attention_tpu_torch.quant import quantize_kv
+
+    rng = np.random.default_rng(d + len(mask))
+    b, hq, hkv, sq, skv = 2, 8, 4, 512, 512
+    if mask.startswith("band"):
+        sq, skv = 300, 150
+    q = _randn(rng, b, hq, sq, d).to(q_dtype)
+    k_q, v_q = quantize_kv(_randn(rng, b, hkv, skv, d), _randn(rng, b, hkv, skv, d),
+                           storage)
+    kw = dict(causal=True, compute_dtype=compute)
+    if mask == "window 160":
+        kw.update(window=160)
+    elif mask == "2 segments":
+        ids = torch.cat([torch.zeros(b, 256), torch.ones(b, 256)], 1).int()
+        kw.update(q_segment_ids=ids, kv_segment_ids=ids)
+    elif mask.startswith("band"):
+        kw.update(causal=False, window=-10, block_q=128, block_k=128)
+    else:
+        ids = torch.from_numpy(np.sort(rng.integers(0, 3, (b, sq)), axis=1).astype(np.int32))
+        q_ids = ids.clone()
+        q_ids[:, 60:90] = 5
+        kw.update(window=48, q_segment_ids=q_ids, kv_segment_ids=ids)
+    on = {n: x.to(cuda) if torch.is_tensor(x) else x for n, x in kw.items()}
+    to = lambda t: dataclasses.replace(t, values=t.values.to(cuda),  # noqa: E731
+                                       scales=t.scales.to(cuda))
+    before = LAUNCHES["fa2_forward_quant"]
+    o_k, lse_k = fq.flash_attention_quantized_kv_with_lse(q.to(cuda), to(k_q), to(v_q), **on)
+    assert LAUNCHES["fa2_forward_quant"] == before + 1
+    o_p, lse_p = fq.flash_attention_quantized_kv_with_lse(q, k_q, v_q, **kw)
+    o_k, lse_k = o_k.cpu(), lse_k.cpu()
+    if compute == torch.bfloat16:
+        assert _bf16_excess(o_k, o_p) <= BF16_ATOL["B7"]
+    else:
+        assert (o_k - o_p).abs().max().item() <= 2e-5
+    dead = lse_p < -1e30
+    assert torch.equal(lse_k[dead], lse_p[dead]) and not o_k[dead].any()
+    assert bool(dead.any()) == (mask in ("band -10", "window ids dead"))
+    lse_err = (lse_k - lse_p).abs()[~dead]
+    if compute == torch.bfloat16:
+        lse_err = lse_err / lse_p.abs()[~dead].clamp_min(1.0)
+    assert lse_err.max().item() <= (1e-3 if compute == torch.bfloat16 else 1e-5)
+
+
+@pytest.mark.parametrize("d", [32, 256])
+@pytest.mark.parametrize("kernel", ["b2", "b7", "b8", "b9"])
+def test_kernels_keeping_d64_d128_refuse_the_others(cuda, kernel, d):
+    """B2, B7, B8 and B9 (and B3, B4, B10 with them) take D 64 and 128 only:
+    on a CUDA tensor at D 32 or 256 they raise, naming Queue B 2, and fall
+    back to nothing."""
+    from cuda_flash_attention_tpu_torch.kernels import fa2_forward_quant as fq
+
+    x = torch.zeros(1, 2, 128, d, device=cuda)
+    before = dict(LAUNCHES)
+    with pytest.raises(NotImplementedError, match="Queue B 2"):
+        if kernel == "b2":
+            lse = torch.zeros(1, 2, 128, device=cuda)
+            fa2_backward.fa2_backward_fused_aligned(
+                x, x, x, x, x, lse, causal=True, sm_scale=0.125, kv_len=128)
+        elif kernel == "b7":
+            k = torch.zeros(1, 2, 128, d, dtype=torch.int8, device=cuda)
+            sc = torch.ones(1, 2, 128, device=cuda)
+            fq.fa2_forward_quant_aligned(x, k, sc, k, sc, causal=False, sm_scale=0.125,
+                                         kv_len=128)
+        elif kernel == "b8":
+            fa2_forward.fa2_forward_small_aligned(x, x, x, causal=False, sm_scale=0.125,
+                                                  kv_len=128)
+        else:
+            baselines.fa1_attention(x, x, x)
+    assert dict(LAUNCHES) == before
+
