@@ -20,8 +20,9 @@ Phases (any failure raises and the script exits non-zero):
      tensor cores), bf16 tile body (24) and fp32 tile body (24), of B7's
      wgmma and fp32 bodies (48: four storages x two q types x D 64 and 128
      each, its FMA body with and without segment ids), of every D 32 and D
-     256 instantiation (B1's wgmma and fp32 bodies, B5, B6's three bodies)
-     and of X's five variants, failing on a spilled byte, a wgmma
+     256 instantiation (B1's wgmma and fp32 bodies, B5, B6's three bodies,
+     and the backward's, csrc/fa2_backward_d32.cu and _d256.cu: 22 kernels
+     each) and of X's five variants, failing on a spilled byte, a wgmma
      serialisation note or a missing instantiation;
   2. kernel B1 (FA2 forward) against its plain PyTorch version at the
      serving prefill shapes (the serving run's largest, B4 S1536, included)
@@ -38,8 +39,8 @@ Phases (any failure raises and the script exits non-zero):
   5. serving: DecodeEngine.run at TransformerConfig.base() with an int8
      cache answers 12 requests of 64 tokens, with both kernels' launch counts;
   6. where a decode step's time goes at batch 8: host-clock step time and
-     device busy time from one torch.profiler window, the top kernels and
-     B5's time and share of the busy time;
+     device busy time from one torch.profiler window of five steps, the
+     top kernels and B5's time and share of the busy time;
   7. kernels B2, B3, B4 (FA2 backward) against their plain versions at the
      train shape (B4 Hq16 Hkv8 S2048 D64 causal bf16) and at D 128, fp32 at
      B1 S512 and a ragged S1000, B3 and B4 also at B16 S2048 (the
@@ -130,8 +131,9 @@ Phases (any failure raises and the script exits non-zero):
      burst-8 engine, the burst-1 engine and an eager decode_step loop,
      which must be bitwise equal; the engine at bursts 1 and 8 with
      engine_overhead_x; phase 5's 12 requests at bursts 1 and 8 (the same
-     tokens, graph replays, bursts, launches; burst 8 profiled as phase
-     6, whose burst-1 launches and idle share it prints beside); train
+     tokens, graph replays, bursts, launches, 32 new tokens each; burst
+     8 profiled as phase 6, whose burst-1 launches and idle share it prints
+     beside); train
      tokens/s at B4 S2048 (the median of two slopes between chains of 2
      and 10 AdamW steps, with their min/max);
  25. sliding windows and attention sinks on the serving path: B1 (bf16
@@ -147,7 +149,8 @@ Phases (any failure raises and the script exits non-zero):
      the band as a boolean mask.  Then the hybrid configuration (window 128
      on every other layer, GPT-OSS's pattern) at base width on an int8
      cache, phase 5's mix with four prompts of 1024-1536 tokens, chunked
-     prefill 512: tokens/s, TPOT, TTFT, each window group's peak live pages,
+     prefill 512, 32 new tokens each: tokens/s, TPOT, TTFT, each window
+     group's peak live pages,
      no decoding slot's local group above 2 pages after any step, windowed
      launches of B1, B5 and B6; and the streaming configuration (window 512,
      4 sinks, every layer) in fp32 at base width, card against CPU, greedy
@@ -171,7 +174,7 @@ Phases (any failure raises and the script exits non-zero):
      version and SDPA's memory-efficient backward with the mask as its
      bias; an off-by-one window or ids shifted by one token as
      the control, enforced in fp32 (printed in bf16); (c) the hybrid and
-     streaming base configurations train 5 AdamW steps each at B4 S2048:
+     streaming base configurations train 4 AdamW steps each at B4 S2048:
      finite falling loss, step time, tokens/s, peak memory, windowed
      launches (hybrid: B3 and B4, B2 on the global layers; streaming: B2
      only); (d) one fp32 AdamW step of each (hybrid window 64, streaming
@@ -199,7 +202,24 @@ Phases (any failure raises and the script exits non-zero):
      plain version with a control that must fail the gate (the mask one
      key off; the paged lengths one key short; the bf16 instantiation for
      fp16 tiles), device time beside the bound (kept pairs) and, for B1,
-     SDPA.
+     SDPA;
+ 29. B2, B3 and B4 at D 32 (B4 Hq16 Hkv8 S2048) and D 256 (B1 Hq8 Hkv4
+     S4096) under phase 28's four masks, in bf16 tiles, fp16 tiles on fp32
+     inputs and fp32, against the plain backward within BWD_TOL (fp16:
+     FP16_REL_TOL), each with a control that must fail its gate (fp32 the
+     mask one key off, bf16 one 64-key tile off, fp16 the bf16
+     instantiation), device time beside the kept-pair bound, the plain
+     versions' times and SDPA's backward (flash under causal masking with
+     16-bit tiles, else memory-efficient with the mask as its bias);
+ 30. the Gemma-2-2B widths (phase 27's, 26 layers, bf16 weights and tiles)
+     train 4 AdamW steps on one seeded batch of B1 S2048 (every layer
+     global: the 4096 window covers it): a finite, falling loss, step ms,
+     tokens/s, peak memory, the bf16-peak share, B1's and B2's D 256
+     launches, one profiled step as phase 10's; one more step with 128-row
+     BlockSizes takes the split pair
+     (B3's and B4's D 256 launches); one fp32 AdamW step of the same
+     attention widths at 2 layers (vocab 4096, tokens (1, 257)), card
+     against CPU, as phase 8.
 Serving's decode steps run as CUDA graphs (decode/graphs.py); each
 wrapper's launch count adds what a capture recorded at every replay.
 The line before the last is the kernel JSON (eleven kernels; B1, B5, B6 and
@@ -320,6 +340,14 @@ WIDE_FUNCTIONS = {
     "paged_chunk_d32": (("paged_chunk_split", "paged_chunk_mma", "paged_chunk_fp32"), 48),
     "paged_chunk_d256": (("paged_chunk_split", "paged_chunk_mma", "paged_chunk_fp32"), 40),
 }
+# The backward's libraries of head dims 32 and 256 (csrc/fa2_backward_d32.cu,
+# _d256.cu): per input type (bf16, fp32) and 16-bit tile type (bf16, fp16)
+# the prologue, B2's and B4's KV-major kernel (at D 256 bwd_fused_wgmma_wide)
+# and B3's; the fp32 prologue, B2's and B4's fp32 body (at D 256
+# bwd_kv_fp32_wide) and B3's; B2's dQ reduce (two output types).
+BWD_WIDE_FUNCTIONS = (("bwd_fused_wgmma", "bwd_dq_wgmma", "bwd_prologue", "dq_reduce",
+                       "bwd_kv_fp32", "bwd_dq_fp32"), 22)
+WIDE_BWD_LIBRARIES = ("fa2_backward_d32", "fa2_backward_d256")
 
 
 def ptxas_by_function(text: str) -> dict:
@@ -552,7 +580,7 @@ def read_counts(names) -> dict:
 
 
 
-def phase_profile(torch, np, eng, label="profile", new_tokens=40, steps=10):
+def phase_profile(torch, np, eng, label="profile", new_tokens=24, steps=5):
     """Where a decode step's time goes: eight running requests, `steps`
     steps (speculative rounds, for a speculative engine; bursts, for a
     bursting one: `new_tokens` keeps them busy through the window) under
@@ -818,14 +846,16 @@ def tree_rel_err(torch, tree_leaves, a, b) -> float:
 
 
 def phase_train_parity(torch, np, transformer, training, label="base",
-                       tokens_shape=(2, 129), **cfg_kw):
+                       tokens_shape=(2, 129), cfg=None, **cfg_kw):
     """One AdamW step at the base width in fp32: card (kernels) against CPU
     (plain versions).  The first Adam moment is (1 - b1) times the clipped
     gradient, so it holds each gradient leaf to the tolerance; the global
     gradient norm, taken before clipping, is held on its own.  cfg_kw: the
-    configuration's window, global_every and sinks (phase 26 (d))."""
-    cfg = transformer.TransformerConfig.base(dtype=torch.float32,
-                                             attn_tile_dtype=None, **cfg_kw)
+    configuration's window, global_every and sinks (phase 26 (d)); `cfg`
+    another fp32 configuration in place of the base one (phase 30)."""
+    if cfg is None:
+        cfg = transformer.TransformerConfig.base(dtype=torch.float32,
+                                                 attn_tile_dtype=None, **cfg_kw)
     params = transformer.init_params(torch.Generator().manual_seed(0), cfg,
                                      device="cpu")
     tokens = np.random.default_rng(8).integers(0, cfg.vocab_size, tokens_shape)
@@ -958,9 +988,10 @@ def phase_train_split(torch, np, transformer, training):
     return res
 
 
-def phase_train_profile(torch, state, step, tokens):
-    """Where a train step's time goes at B4 S2048: one step under
-    torch.profiler, timed on the host clock over the same window."""
+def phase_train_profile(torch, state, step, tokens, label="train profile"):
+    """Where a train step's time goes (phase 10 at B4 S2048, phase 30 at
+    the Gemma-2 widths): one step under torch.profiler, timed on the host
+    clock over the same window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -994,7 +1025,7 @@ def phase_train_profile(torch, state, step, tokens):
                device_ms_by_kind=by_kind,
                top_kernels_ms={e.key[:48]: e.self_device_time_total / 1e3
                                for e in top})
-    log("train profile", json.dumps(res))
+    log(label, json.dumps(res))
     return res
 
 
@@ -1255,7 +1286,8 @@ def phase_spec_serving(torch, np, transformer, decode, dataclasses):
             launches=launches)
         log(f"spec serving {mode}", json.dumps(out[mode]))
         if mode == "draft":
-            phase_profile(torch, np, eng, "spec profile (draft, k 4)", steps=4)
+            phase_profile(torch, np, eng, "spec profile (draft, k 4)",
+                          new_tokens=40, steps=4)
         del eng
     return out
 
@@ -2226,8 +2258,9 @@ def phase_bench(torch, np, transformer, decode, decode_bench, train_bench,
         out[f"engine_burst{burst}"] = e
         log(f"bench engine burst {burst}", json.dumps(e))
 
-    # Phase 5's 12 requests at bursts 1 and 8: the same tokens.
-    served = {}
+    # Phase 5's 12 requests at bursts 1 and 8: the same tokens (32 new
+    # tokens each).
+    served, served_new = {}, 32
     for burst in (1, 8):
         params = transformer.init_params(
             torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
@@ -2236,12 +2269,12 @@ def phase_bench(torch, np, transformer, decode, decode_bench, train_bench,
         torch.cuda.synchronize()
         reset_counts(SERVING_KERNELS)
         t0 = time.perf_counter()
-        reqs = eng.run(serving_mix(np, cfg), max_new_tokens=64)
+        reqs = eng.run(serving_mix(np, cfg), max_new_tokens=served_new)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         launches = read_counts(SERVING_KERNELS)
         check_served(f"bench serving burst {burst}", reqs, eng, launches,
-                     ("fa2_forward", "paged_decode"), cfg.vocab_size, 64)
+                     ("fa2_forward", "paged_decode"), cfg.vocab_size, served_new)
         total = sum(len(r.generated) for r in reqs)
         served[burst] = [r.generated for r in reqs]
         out[f"serving_burst{burst}"] = dict(
@@ -2256,7 +2289,7 @@ def phase_bench(torch, np, transformer, decode, decode_bench, train_bench,
         if burst == 8:
             out["profile_burst8"] = phase_profile(torch, np, eng,
                                                   "bench profile (burst 8)",
-                                                  new_tokens=8 * 13 + 1)
+                                                  new_tokens=8 * 8 + 1)
         del eng, params
     if served[1] != served[8]:
         raise AssertionError("bench: phase 5's requests differ between bursts 1 and 8")
@@ -2562,7 +2595,7 @@ def phase_window_serving(torch, np, transformer, decode, dataclasses):
     rng = np.random.default_rng(25)
     for i, n in zip((0, 3, 6, 9), rng.integers(1024, 1537, 4)):
         prompts[i] = rng.integers(0, cfg.vocab_size, int(n)).tolist()
-    new_tokens = 64
+    new_tokens = 32
     eng = decode.DecodeEngine(params, cfg, max_seqs=8, max_seq_len=2048,
                               page_size=128, cache_dtype=torch.int8,
                               prefill_chunk=512)
@@ -3006,7 +3039,7 @@ def phase_masked_kernels(torch, np, F, fp32_bwd, kernel_ab, attention, common,
 def phase_window_train(torch, np, transformer, training, dataclasses):
     """Phase 26 (c): the hybrid (window 128, global_every 2: GPT-OSS's
     pattern) and streaming (window 512, 4 sinks on every layer) base
-    configurations train 5 AdamW steps each on one batch of B4 S2048 bf16:
+    configurations train 4 AdamW steps each on one batch of B4 S2048 bf16:
     a finite, falling loss; step time (median of the last 3), tokens/s,
     peak memory; launches (hybrid: B3 and B4 windowed, B2 on the global
     layers; streaming: B2 windowed, no split launch)."""
@@ -3026,7 +3059,7 @@ def phase_window_train(torch, np, transformer, training, dataclasses):
         torch.cuda.reset_peak_memory_stats()
         reset_counts(MASKED_KERNELS)
         losses, times = [], []
-        for _ in range(5):
+        for _ in range(4):
             t0 = time.perf_counter()
             state, metrics = step(state, tokens)
             losses.append(metrics["loss"].item())
@@ -3198,18 +3231,18 @@ WIDE_PAGED = (("B5", 1, [6000, 1, 129, 0, 777, 1500, 128, 4500], "bf16"),
               ("B6 T512 fp32", 512, B6_PREFILL_LENGTHS, "fp32"))
 
 
-def wide_mask_kw(torch, mask, b, s, control=False):
+def wide_mask_kw(torch, mask, b, s, control=False, device="cuda"):
     """B1's keyword arguments for one of WIDE_B1_MASKS (ids as the kernels
-    take them, [B, S] int32); with `control`, the mask one key off: the
-    window one wider, the band's offset one less negative, the ids shifted
-    by one token, causal dropped."""
+    take them, [B, S] int32, on `device`); with `control`, the mask one key
+    off: the window one wider, the band's offset one less negative, the ids
+    shifted by one token, causal dropped."""
     if mask == "causal":
         return dict(causal=not control, window=None, sinks=0)
     if mask.startswith("window"):
         return dict(causal=True, window=128 + control, sinks=4)
     if mask.startswith("band"):
         return dict(causal=False, window=-100 + control, sinks=0)
-    ids = (torch.arange(s, device="cuda") * 4 // s).to(torch.int32).expand(b, s)
+    ids = (torch.arange(s, device=device) * 4 // s).to(torch.int32).expand(b, s)
     if control:
         ids = torch.roll(ids, 1, dims=1)
     return dict(causal=True, window=None, sinks=0, q_seg=ids.contiguous(),
@@ -3464,6 +3497,256 @@ def phase_b7_masks(torch, quant, fq):
     return rows, launches
 
 
+# Phase 29: B2, B3 and B4 at D 32 and 256 against their plain versions, at
+# phase 28's B1 shapes (D 32 B4 Hq16 Hkv8 S2048, D 256 B1 Hq8 Hkv4 S4096)
+# under its four masks, with bf16 tiles, fp16 tiles on fp32 inputs and in
+# fp32.  Each gate has a control that must fail it: in fp32 the mask one
+# key off, with bf16 tiles one 64-key tile off (one key moves a bf16
+# gradient by less than the 5e-2 gate): causal dropped, the window and the
+# band narrower (a wider one would revive rows whose lse says they keep no
+# key, and the control would read NaN), the ids shifted; for fp16 tiles
+# the bf16 instantiation on the same inputs (fp16_gate).
+WIDE_BWD_KINDS = ("bf16", "fp16", "fp32")
+
+
+def wide_bwd_control(torch, mask, b, s, kind, device="cuda"):
+    """The control mask of a phase-29 row (see above), ids on `device`."""
+    off = 1 if kind == "fp32" else 64
+    if mask == "causal":
+        return dict(causal=False, window=None, sinks=0)
+    if mask.startswith("window"):
+        return dict(causal=True, window=128 - off, sinks=4)
+    if mask.startswith("band"):
+        return dict(causal=False, window=-100 - off, sinks=0)
+    ids = (torch.arange(s, device=device) * 4 // s).to(torch.int32).expand(b, s)
+    ids = torch.roll(ids, off, dims=1).contiguous()
+    return dict(causal=True, window=None, sinks=0, q_seg=ids, kv_seg=ids)
+
+
+def timed_call(torch, fn):
+    """(fn's output, its device ms by CUDA events around one call)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def phase_wide_bwd(torch, fp32_bwd, fa2, bwd, common):
+    """Phase 29: each row a (head dim, mask, tile type) problem: B1 forms O
+    and lse, then B2, B3 and B4 against the plain backward (B2's plain
+    version, whose dQ, dK and dV B3's and B4's compute too) within BWD_TOL
+    (FP16_REL_TOL for fp16 tiles) of each output's max, each control beyond
+    its gate; device time (queued) beside the bound over the kept pairs,
+    each kernel's plain version's time, and SDPA's backward on the same
+    card and inputs: its flash backward under causal masking with 16-bit
+    tiles, its memory-efficient backward otherwise (fp32; the other masks
+    as its bias).  Returns the rows and the launches of these checks."""
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    rows = []
+    names = tuple(f"{n}_d{d}" for n in BWD_NAMES for d in (32, 256))
+    reset_counts(names)
+    for d, (b, hq, hkv, s) in WIDE_B1_SHAPES.items():
+        raw = [torch.randn(b, h, s, d, generator=gen, device="cuda")
+               for h in (hq, hkv, hkv, hq)]
+        scale = d ** -0.5
+        for mask in WIDE_B1_MASKS:
+            mkw = wide_mask_kw(torch, mask, b, s)
+            keep = common.build_element_mask(
+                s, s, causal=mkw["causal"], kv_len=s, device="cuda",
+                window=mkw["window"], sinks=mkw["sinks"], q_seg=mkw.get("q_seg"),
+                kv_seg=mkw.get("kv_seg"))
+            pairs = int(keep.expand(b, 1, s, s).sum().item())
+            for kind in WIDE_BWD_KINDS:
+                tile = tile_of(torch, kind)
+                q, k, v, do = (t.to(torch.bfloat16) if kind == "bf16" else t for t in raw)
+                kw = dict(mkw, sm_scale=scale, kv_len=s, tile_dtype=tile)
+                o, lse = fa2.fa2_forward_aligned(q, k, v, **kw)
+                di = (o.float() * do.float()).sum(-1)
+                kernels = {
+                    "fa2_backward_fused": lambda kw_: bwd.fa2_backward_fused_aligned(
+                        q, k, v, o, do, lse, **kw_),
+                    "fa2_backward_dq": lambda kw_: (bwd.fa2_backward_dq_aligned(
+                        q, k, v, do, lse, di, **kw_),),
+                    "fa2_backward_dkv": lambda kw_: bwd.fa2_backward_dkv_aligned(
+                        q, k, v, do, lse, di, **kw_),
+                }
+                plains = {
+                    "fa2_backward_fused": lambda: bwd.fa2_backward_fused_plain(
+                        q, k, v, o, do, lse, **kw),
+                    "fa2_backward_dq": lambda: bwd.fa2_backward_dq_plain(
+                        q, k, v, do, lse, di, **kw),
+                    "fa2_backward_dkv": lambda: bwd.fa2_backward_dkv_plain(
+                        q, k, v, do, lse, di, **kw),
+                }
+                want, plain_ms = timed_call(torch, plains["fa2_backward_fused"])
+                outs = {"fa2_backward_fused": (0, 3), "fa2_backward_dq": (0, 1),
+                        "fa2_backward_dkv": (1, 3)}
+                if kind == "fp16":
+                    control = None
+                else:
+                    ckw = dict(kw, **wide_bwd_control(torch, mask, b, s, kind))
+                    control = bwd.fa2_backward_fused_plain(q, k, v, o, do, lse, **ckw)
+                lib_in = [t.to(tile or torch.float32) for t in (q, k, v, do)]
+                lq, lk, lv, ldo = lib_in
+                lib_ms = None
+                if mask == "causal" and kind != "fp32":
+                    try:
+                        lib_ms, lib_name = library_backward_ms(torch, fp32_bwd, lq, lk,
+                                                               lv, ldo, scale)
+                    except RuntimeError as e:  # the flash op refuses the shape
+                        log(f"wide bwd D{d}: SDPA's flash backward refused: {e}")
+                if lib_ms is None:
+                    groups = hq // hkv
+                    lk, lv = (t.repeat_interleave(groups, dim=1) for t in (lk, lv))
+                    lib_ms = queued_ms(torch, fp32_bwd.masked_backward(
+                        lq, lk, lv, ldo, scale, keep), iters=5)
+                    lib_name = "SDPA memory-efficient backward, mask as bias"
+                del lib_in, lq, lk, lv, ldo
+                io = {"q": nbytes(q), "kv": nbytes(k, v), "stat": b * hq * s * 4}
+                moved = {
+                    "fa2_backward_fused": 4 * io["q"] + 2 * io["kv"] + io["stat"],
+                    "fa2_backward_dq": 3 * io["q"] + io["kv"] + 2 * io["stat"],
+                    "fa2_backward_dkv": 2 * io["q"] + 2 * io["kv"] + 2 * io["stat"],
+                }
+                for name in BWD_NAMES:
+                    lo, hi = outs[name]
+                    got = kernels[name](kw)
+                    torch.cuda.synchronize()
+                    errs = [rel_err(g, w) for g, w in zip(got, want[lo:hi])]
+                    abs_err = max((g.float() - w.float()).abs().max().item()
+                                  for g, w in zip(got, want[lo:hi]))
+                    label = f"{name} D{d} {mask} {kind}"
+                    if kind == "fp16":
+                        bf = kernels[name](dict(kw, tile_dtype=torch.bfloat16))
+                        control_err = max(rel_err(g, w) for g, w in zip(bf, want[lo:hi]))
+                        fp16_gate(label, max(errs), control_err, FP16_REL_TOL["bwd"])
+                        del bf
+                    else:
+                        control_err = max(rel_err(g, w)
+                                          for g, w in zip(got, control[lo:hi]))
+                        if not max(errs) <= BWD_TOL[kind]:
+                            raise AssertionError(f"{label}: relative errors {errs} "
+                                                 f"(tol {BWD_TOL[kind]})")
+                        if not control_err > BWD_TOL[kind]:
+                            raise AssertionError(f"{label}: the control passes the gate "
+                                                 f"({control_err} <= {BWD_TOL[kind]})")
+                    del got
+                    flops = BWD_MATMULS[name] * 2 * hq * pairs * d
+                    peak = PEAK_FLOPS["fp32" if kind == "fp32" else "bf16"]
+                    t_bytes, t_ops = moved[name] / HBM_BYTES_PER_S, flops / peak
+                    ms = queued_ms(torch, lambda: kernels[name](kw), iters=5)
+                    row = dict(kernel=name, case=f"D{d} {mask}", kind=kind, B=b, Hq=hq,
+                               Hkv=hkv, S=s, D=d, rel_err=max(errs), max_abs_err=abs_err,
+                               control_rel_err=control_err, ms=ms,
+                               plain_ms=(plain_ms if name == "fa2_backward_fused" else
+                                         timed_call(torch, plains[name])[1]),
+                               library_ms=lib_ms, library=lib_name,
+                               bound_ms=max(t_bytes, t_ops) * 1e3,
+                               bound_by="bytes" if t_bytes > t_ops else "operations",
+                               kept_pairs=pairs, tflops=flops / ms / 1e9)
+                    rows.append(row)
+                    log("wide bwd", json.dumps(row))
+                del o, lse, di, want, control
+                torch.cuda.empty_cache()
+            del keep
+        del raw
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return rows, read_counts(names)
+
+
+def phase_gemma2_train(torch, np, transformer, training, common):
+    """Phase 30: the Gemma-2-2B widths (GEMMA2_2B, 26 layers, bf16 weights
+    and tiles) train 4 AdamW steps on one seeded batch of B1 S2048, whose
+    rows the 4096 window covers (every layer runs global; phase 29 runs the
+    windowed D 256 backward): a finite, falling loss; step ms, tokens/s,
+    peak memory, the share of the bf16 peak; B2's D 256 launches (the
+    fused route); where a step's time goes (phase 10's profiled step).
+    One more step with 128-row BlockSizes (16 KV slices,
+    more than the fused route's eight, as
+    tests/test_torch_window_backward.py forces it) takes the split pair:
+    B3's and B4's D 256 launches, a finite loss.  Then one fp32 step at
+    Gemma-2's attention widths on 2 layers, card against CPU
+    (phase_train_parity), with the vocabulary cut to 4096 and tokens to
+    (1, 257) so that the CPU side stays within ~15 s."""
+    import functools
+
+    cfg = transformer.TransformerConfig(param_dtype=torch.bfloat16, **GEMMA2_2B)
+    b, s = 1, 2048
+    params = transformer.init_params(
+        torch.Generator(device="cuda").manual_seed(30), cfg, device="cuda")
+    tokens = np.random.default_rng(30).integers(0, cfg.vocab_size, (b, s + 1))
+    # 1e-3 (the base phases' rate) overshoots at these widths: the loss fell
+    # 12.92 -> 7.35 and rose to 11.73 on the next step.
+    opt = training.make_optimizer(learning_rate=1e-4, warmup_steps=1,
+                                  decay_steps=100)
+    step = training.make_optax_train_step(cfg, opt)
+    state = training.init_train_state(params, opt)
+    del params
+    names = TRAIN_KERNELS + tuple(f"{n}_d256" for n in TRAIN_KERNELS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(names)
+    losses, times = [], []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        state, metrics = step(state, tokens)
+        losses.append(metrics["loss"].item())  # waits for the step
+        times.append(time.perf_counter() - t0)
+    launches = read_counts(names)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"gemma2 train: loss not finite and falling: {losses}")
+    if not (launches["fa2_forward_d256"] and launches["fa2_backward_fused_d256"]):
+        raise AssertionError(f"gemma2 train: a D 256 kernel never ran: {launches}")
+    timed = times[1:]
+    median = statistics.median(timed)
+    flops = model_flops(cfg, b, s)
+    res = dict(config="gemma-2-2b widths, 26 layers, bf16", batch=b, seq=s,
+               losses=losses, step_ms=[t * 1e3 for t in times],
+               step_ms_median=median * 1e3, tokens_per_s=b * s / median,
+               max_memory_allocated_gib=peak / 2 ** 30,
+               params=sum(p.numel() for p in transformer.tree_leaves(state.params)),
+               model_flops_per_step=flops,
+               mfu_bf16_peak=flops / median / PEAK_FLOPS["bf16"], launches=launches)
+    res["profile"] = phase_train_profile(torch, state, step, tokens,
+                                         label="gemma2 train profile")
+    # The other route: 128-row blocks give 16 KV slices of block_k_dkv rows.
+    split_blocks = common.BlockSizes(*(128,) * 6)
+    flash = transformer.flash_attention
+    transformer.flash_attention = functools.partial(flash, block_sizes=split_blocks)
+    reset_counts(names)
+    try:
+        t0 = time.perf_counter()
+        state, metrics = step(state, tokens)
+        split_loss = metrics["loss"].item()
+        split_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        transformer.flash_attention = flash
+    split_launches = read_counts(names)
+    res.update(split_loss=split_loss, split_step_ms=split_ms,
+               split_launches=split_launches)
+    log("gemma2 train", json.dumps(res))
+    if not (np.isfinite(split_loss) and split_launches["fa2_backward_dq_d256"]
+            and split_launches["fa2_backward_dkv_d256"]
+            and not split_launches["fa2_backward_fused_d256"]):
+        raise AssertionError(f"gemma2 train, split route: loss {split_loss}, "
+                             f"launches {split_launches}")
+    del state, step
+    torch.cuda.empty_cache()
+    parity_cfg = transformer.TransformerConfig(
+        dtype=torch.float32, attn_tile_dtype=None,
+        **dict(GEMMA2_2B, n_layers=2, vocab_size=4096))
+    parity = phase_train_parity(torch, np, transformer, training,
+                                label="gemma2 widths, 2 layers, vocab 4096",
+                                tokens_shape=(1, 257), cfg=parity_cfg)
+    torch.cuda.empty_cache()
+    return res, parity
+
+
 def main() -> int:
     import torch
 
@@ -3512,7 +3795,8 @@ def main() -> int:
     # The longest compiles first (by their measured nvcc seconds), so that no core
     # idles while the last long one runs.
     build_logs = _build.build("paged_chunk", "fa2_forward_quant", "fa2_backward",
-                              "paged_chunk_d256", "paged_chunk_d32", "paged_decode",
+                              "paged_chunk_d256", "fa2_backward_d256", "fa2_backward_d32",
+                              "paged_chunk_d32", "paged_decode",
                               "fa2_forward_small", "fa2_forward", "paged_decode_d256",
                               "paged_decode_d32", "fa2_forward_d256", "fa2_forward_d32",
                               "r5_d128_fwd", "baselines")
@@ -3542,6 +3826,9 @@ def main() -> int:
     for name, (functions, count) in WIDE_FUNCTIONS.items():
         check_ptxas(build_logs.get(name) or ptxas_log(_build, name), name, functions,
                     count)
+    for name in WIDE_BWD_LIBRARIES:
+        check_ptxas(build_logs.get(name) or ptxas_log(_build, name), name,
+                    *BWD_WIDE_FUNCTIONS)
 
     t0 = time.perf_counter()
     b1 = phase_b1(torch, fa2, b1_ab)
@@ -3683,6 +3970,16 @@ def main() -> int:
     wide_paged = phase_wide_paged(torch, dec_attn, kv_cache)
     b7_masks, b7_mask_launches = phase_b7_masks(torch, quant, fq)
     log(f"phase 28: D 32 and 256 kernels, B7's window and ids ok in "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    wide_bwd, wide_bwd_launches = phase_wide_bwd(torch, fp32_bwd, fa2, bwd, common)
+    log(f"phase 29: B2, B3 and B4 at D 32 and 256 ok in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    gemma2_train, gemma2_train_parity = phase_gemma2_train(torch, np, transformer,
+                                                           training, common)
+    log(f"phase 30: Gemma-2-2B-width training at D 256 ok in "
         f"{time.perf_counter() - t0:.1f} s")
 
     # Representative shapes for the kernel line: the serving phase's largest
@@ -3906,7 +4203,8 @@ def main() -> int:
     def wide_row(rows, **match):
         r = next(r for r in rows if all(r[k] == v for k, v in match.items()))
         return {k: r[k] for k in ("case", "ms", "plain_ms", "bound_ms", "bound_by",
-                                  "library_ms", "max_abs_err", "control_max_abs_err")}
+                                  "library_ms", "max_abs_err", "control_max_abs_err",
+                                  "control_rel_err") if k in r}
     d256 = d256_launches(gemma2["launches"])
     for k in kernels:
         n = k["name"]
@@ -3926,6 +4224,17 @@ def main() -> int:
         if n in d256:
             k["d256"]["launches"] = d256[n]["windowed"] + d256[n]["global_"]
             k["d256"]["launches_window"] = d256[n]["windowed"]
+        # Phases 29-30: B2's, B3's and B4's rows at D 32 and 256 (bf16 tiles,
+        # causal), with the D 256 launches of phase 30's training (B2 on the
+        # fused route, B3 and B4 on the split step) and the launches of
+        # phase 29's checks at both widths.
+        if n in BWD_NAMES:
+            for d in (32, 256):
+                k[f"d{d}"] = dict(wide_row(wide_bwd, kernel=n, case=f"D{d} causal",
+                                           kind="bf16"),
+                                  launches_checks=wide_bwd_launches[f"{n}_d{d}"])
+            k["d256"]["launches"] = (gemma2_train["launches"][f"{n}_d256"]
+                                     + gemma2_train["split_launches"][f"{n}_d256"])
     log("fp16 tiles:", json.dumps({"B1 Stress-1": b1_fp16, "B2-B4": [
         {k: r[k] for k in ("kernel", "inputs", "B", "S", "causal", "ms",
                            "bound_ms", "library_ms", "rel_err")} for r in bwd_fp16]}))
@@ -3939,6 +4248,10 @@ def main() -> int:
                         "peak_live_pages_local", "peak_live_pages_global",
                         "d256_launches")},
                     "gemma2_fp32_card_cpu_equal": gemma2_parity,
+                    "gemma2_train": {k: gemma2_train[k] for k in (
+                        "losses", "step_ms_median", "tokens_per_s",
+                        "max_memory_allocated_gib", "mfu_bf16_peak", "split_loss")},
+                    "gemma2_train_parity": gemma2_train_parity,
                     "window_train": {n: {k: r[k] for k in (
                         "losses", "step_ms_median", "tokens_per_s",
                         "max_memory_allocated_gib")} for n, r in window_train.items()},

@@ -109,6 +109,24 @@
 // B3 and B4 take exp2 on the special-function unit with results below
 // 2^-126 flushed to zero, as B1 does; B2 keeps exp2f.
 //
+// Head dims 32, 64, 128 and 256 (CFA_HEAD_DIMS: this library 64 and 128,
+// csrc/fa2_backward_d32.cu and fa2_backward_d256.cu the others).  At D = 32
+// a 16-bit row is 64 bytes: the tiles take the 64-byte swizzle (Rows<32>:
+// the tensor maps and the descriptors), the design is D = 64's (128-row Q
+// steps; B3 on 64-row KV stages), and dV, dK and dQ are m64n32k16
+// products.  At D = 256 a consumer
+// holding dK and dV for its 64 KV rows would need 256 registers for them
+// alone, and 128-row K and V tiles beside two stages of Q_s and dO would
+// not fit the SM's shared memory: B2 and B4 run `bwd_fused_wgmma_wide`,
+// 64-row KV tiles and Q steps, whose two consumers split dK, dV and dQ by
+// columns (128 each) and share P^T and dS^T through shared memory (its
+// note); B3 streams 32-row K and V tiles (DqLayout), dQ in two n128
+// halves.  B2's dQ slices are then 64 KV rows (cfa_fa2_backward_kv_tile).
+// The fp32 bodies take D = 32 on the FMA block's two-column layout and at
+// D = 256 run `bwd_kv_fp32_wide` (dK and dV in column halves, one block
+// each) and `bwd_dq_fp32_wide`, which keep two 64 KB tiles resident and
+// stream the others through one slot.
+//
 // With fp32 tiles all three run on the FMA units (IEEE fp32, no TF32;
 // exp2f), bound there by fp32 FLOPs (67 TFLOP/s), on the block of
 // csrc/fma_block.cuh that B1's fp32 body and B10 run: 128 threads, 64-row
@@ -145,17 +163,62 @@
 
 #include "fma_block.cuh"  // includes hopper.cuh
 
+// The head dims this library is built for: 64 and 128 here; a source that
+// includes this one with CFA_HEAD_DIMS defined builds others (D 32 and 256
+// each in their own library, csrc/fa2_backward_d32.cu and _d256.cu, so
+// that nvcc compiles the widths in parallel).
+#ifndef CFA_HEAD_DIMS
+#define CFA_HEAD_DIMS(X) X(64) X(128)
+#endif
+
 namespace {
 
 constexpr int kKvRows = 128;  // KV rows per block of B2/B4 with bf16 tiles
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// wgmma forms of the 16-bit tiles, with fp32 accumulators of 32 (N = 64)
-// or 64 (N = 128) registers.  ss: A and B both from shared memory,
-// K-major.  ss_tt: both from shared memory, MN-major (the transpose bits).
-// rs: A from registers, B from shared memory, MN-major.  The scale-d
-// predicate is 0 to overwrite the accumulators, 1 to add to them.
+// KV rows per block of B2 and B4 with 16-bit tiles (the rows of one of B2's
+// dQ slices): 128, and 64 at D = 256 (WideLayout).
+constexpr int fused_kv_rows(int d) { return d > 128 ? 64 : kKvRows; }
+
+// The 16-bit rows of a tile as TMA writes them: D / kBoxCols boxes of
+// kRowBytes-byte rows, 128 bytes with the 128-byte swizzle (16-byte chunk c
+// of row r at c ^ (r % 8)), or at D = 32 one box of 64-byte rows with the
+// 64-byte swizzle (chunk c of row r at c ^ ((r / 2) % 4)); no column is
+// padded.  A K-major k-step reads 32 bytes of each row, kSteps to a box.
+template <int D>
+struct Rows {
+  static constexpr int kBoxCols = D < 64 ? D : 64;
+  static constexpr int kRowBytes = 2 * kBoxCols;
+  static constexpr int kBoxes = D / kBoxCols;
+  static constexpr int kSteps = kRowBytes / 32;
+  static constexpr int kAtom = 8 * kRowBytes;  // a swizzle atom's bytes
+  // A wgmma descriptor of this swizzle: 8-row groups one atom apart.
+  static __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo) {
+    return kRowBytes == 128 ? sw128_desc(addr, lbo, kAtom) : sw64_desc(addr, lbo, kAtom);
+  }
+  // K-major k-step kk of a tile whose boxes are `box` bytes apart.
+  static __device__ __forceinline__ uint64_t kstep(uint32_t addr, int kk, int box) {
+    return desc(addr + (kk / kSteps) * box + (kk % kSteps) * 32, 16);
+  }
+};
+
+// wgmma forms of the 16-bit tiles, with fp32 accumulators of 16 (N = 32),
+// 32 (N = 64) or 64 (N = 128) registers.  ss: A and B both from shared
+// memory, K-major.  ss_tt: both from shared memory, MN-major (the transpose
+// bits).  ss_nt: A K-major, B MN-major.  rs: A from registers, B from
+// shared memory, MN-major.  The scale-d predicate is 0 to overwrite the
+// accumulators, 1 to add to them.
+#define CFA_R16                                                              \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define CFA_ACC16(d) CFA_ACC8(d, 0), CFA_ACC8(d, 8)
+#define CFA_BWD_SS_N32(TY, TA, TB)                                           \
+  asm volatile(                                                              \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                           \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " "            \
+      "{" CFA_R16 "}, %16, %17, p, 1, 1, " TA ", " TB ";\n}\n"               \
+      : CFA_ACC16(d)                                                         \
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d))
 #define CFA_BWD_SS_N64(TY, TA, TB)                                           \
   asm volatile(                                                              \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                           \
@@ -163,13 +226,20 @@ constexpr float kLog2e = 1.4426950408889634f;
       "{" CFA_R32 "}, %32, %33, p, 1, 1, " TA ", " TB ";\n}\n"               \
       : CFA_ACC32(d)                                                         \
       : "l"(desc_a), "l"(desc_b), "r"(scale_d))
-#define CFA_BWD_SS_N128(TY)                                                  \
+#define CFA_BWD_SS_N128(TY, TA, TB)                                          \
   asm volatile(                                                              \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                           \
       "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "           \
-      "{" CFA_R64 "}, %64, %65, p, 1, 1, 0, 0;\n}\n"                         \
+      "{" CFA_R64 "}, %64, %65, p, 1, 1, " TA ", " TB ";\n}\n"               \
       : CFA_ACC64(d)                                                         \
       : "l"(desc_a), "l"(desc_b), "r"(scale_d))
+#define CFA_BWD_RS_N32(TY)                                                   \
+  asm volatile(                                                              \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"                           \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " "            \
+      "{" CFA_R16 "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"           \
+      : CFA_ACC16(d)                                                         \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1))
 #define CFA_BWD_RS_N64(TY)                                                   \
   asm volatile(                                                              \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                           \
@@ -191,18 +261,41 @@ template <typename Tt>
 struct Tile;
 
 #define CFA_BWD_WGMMA_FORMS(TY)                                              \
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t desc_a, \
+                                            uint64_t desc_b, int scale_d) {  \
+    CFA_BWD_SS_N32(TY, "0", "0");                                            \
+  }                                                                          \
   static __device__ __forceinline__ void ss(float (&d)[32], uint64_t desc_a, \
                                             uint64_t desc_b, int scale_d) {  \
     CFA_BWD_SS_N64(TY, "0", "0");                                            \
   }                                                                          \
   static __device__ __forceinline__ void ss(float (&d)[64], uint64_t desc_a, \
                                             uint64_t desc_b, int scale_d) {  \
-    CFA_BWD_SS_N128(TY);                                                     \
+    CFA_BWD_SS_N128(TY, "0", "0");                                           \
+  }                                                                          \
+  static __device__ __forceinline__ void ss_tt(float (&d)[16],               \
+                                               uint64_t desc_a,              \
+                                               uint64_t desc_b, int scale_d) { \
+    CFA_BWD_SS_N32(TY, "1", "1");                                            \
   }                                                                          \
   static __device__ __forceinline__ void ss_tt(float (&d)[32],               \
                                                uint64_t desc_a,              \
                                                uint64_t desc_b, int scale_d) { \
     CFA_BWD_SS_N64(TY, "1", "1");                                            \
+  }                                                                          \
+  static __device__ __forceinline__ void ss_tt(float (&d)[64],               \
+                                               uint64_t desc_a,              \
+                                               uint64_t desc_b, int scale_d) { \
+    CFA_BWD_SS_N128(TY, "1", "1");                                           \
+  }                                                                          \
+  static __device__ __forceinline__ void ss_nt(float (&d)[64],               \
+                                               uint64_t desc_a,              \
+                                               uint64_t desc_b, int scale_d) { \
+    CFA_BWD_SS_N128(TY, "0", "1");                                           \
+  }                                                                          \
+  static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t* a, \
+                                            uint64_t desc_b) {               \
+    CFA_BWD_RS_N32(TY);                                                      \
   }                                                                          \
   static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t* a, \
                                             uint64_t desc_b) {               \
@@ -478,8 +571,9 @@ bwd_kv_fp32(const float* __restrict__ qs_plane, const float* __restrict__ k,
     const float* di_s = lse2_s + kFmaTile;
     mbar_wait(q_bar + 8 * (n % L::kStages), (n / L::kStages) & 1);
     // S^T and dP^T.  At D = 64 both stay in registers; at D = 128, where
-    // a second score tile beside dK and dV spilled, dP^T is formed after
-    // P^T has gone to its tile, and P^T is read back for dS^T.
+    // a second score tile beside dK and dV spilled, and at D = 32, where
+    // B4 runs three blocks an SM (168 registers), dP^T is formed after P^T
+    // has gone to its tile, and P^T is read back for dS^T.
     constexpr bool kHold = D == 64;
     float s[8][4], dp[8][4];
     fma_scores<D>(ks, qs, th, s);
@@ -526,16 +620,22 @@ bwd_kv_fp32(const float* __restrict__ qs_plane, const float* __restrict__ k,
     if (FUSED) {
       float* dqp = dq_part + (head_of(n) * gridDim.x + kt) * static_cast<size_t>(sq) * D;
       const float one[8] = {1.f, 1.f, 1.f, 1.f, 1.f, 1.f, 1.f, 1.f};
+      if constexpr (D == 32) {  // two dQ columns a thread (fma_pv_d32)
+        float dq[8][2] = {};
+        fma_pv<D, true>(dss, ks, th, dq);
+        fma_store_o<D>(dqp, q0, sq, th, dq, one);
+      } else {
 #pragma unroll
-      for (int h = 0; h < D / 64; ++h) {
-        float dq[8][4];
+        for (int h = 0; h < D / 64; ++h) {
+          float dq[8][4];
 #pragma unroll
-        for (int r = 0; r < 8; ++r) {
+          for (int r = 0; r < 8; ++r) {
 #pragma unroll
-          for (int c = 0; c < 4; ++c) dq[r][c] = 0.f;
+            for (int c = 0; c < 4; ++c) dq[r][c] = 0.f;
+          }
+          fma_pv<D, true, 1>(dss, ks, th, dq, h);
+          fma_store_o<D, 1>(dqp, q0, sq, th, dq, one, h);
         }
-        fma_pv<D, true, 1>(dss, ks, th, dq, h);
-        fma_store_o<D, 1>(dqp, q0, sq, th, dq, one, h);
       }
     }
     __syncthreads();  // the stage and the P^T, dS^T, dS tiles are read
@@ -556,12 +656,13 @@ bwd_kv_fp32(const float* __restrict__ qs_plane, const float* __restrict__ k,
 // kVStages V stages (FmaStages' rings), the Q_s and dO tiles, the lse2 and
 // D_i rows; then the rings' mbarriers and one for the Q side.  At D = 64
 // two K stages (two blocks an SM) ran 2-6% faster on the H100 than one
-// (three blocks, whose 168-register cap spilled).
+// (three blocks, whose 168-register cap spilled).  A tile's slot holds 64
+// floats a row at D = 32 (fma_slot): dS is written over the V stage.
 template <int D>
 struct DqFp32 {
-  static constexpr int kKStages = D == 64 ? 2 : 1;
+  static constexpr int kKStages = D <= 64 ? 2 : 1;
   static constexpr int kVStages = 1;
-  static constexpr int kTile = kFmaTile * D;
+  static constexpr int kTile = kFmaTile * fma_slot(D);
   static constexpr int kV = kKStages * kTile;
   static constexpr int kQ = kV + kVStages * kTile;
   static constexpr int kDO = kQ + kTile;
@@ -711,26 +812,343 @@ bwd_dq_fp32(const float* __restrict__ qs_plane, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// fp32 tiles at D = 256.  A 64 x 256 fp32 tile takes 64 KB, so the four
+// tiles a step reads (K, V and Q_s, dO) would take 256 KB of the SM's 227:
+// each kernel keeps two resident and streams the other two, one at a time,
+// through a single 64 KB slot, loaded when the step needs it and waited for
+// (no prefetch; one block of four warps an SM).
+// ---------------------------------------------------------------------------
+// Shared memory of the KV-major kernel at D = 256, in floats: K and V, the
+// slot, the lse2 and D_i rows, the P^T and dS^T tiles ([64 kv][64 q],
+// swizzled; with FUSED the P^T tile takes dS, q-major, once dV has read
+// it), then the mbarriers of K/V and of the slot.
+struct KvFp32Wide {
+  static constexpr int kTile = kFmaTile * 256;
+  static constexpr int kSquare = kFmaTile * kFmaTile;
+  static constexpr int kK = 0;
+  static constexpr int kV = kTile;
+  static constexpr int kSlot = 2 * kTile;
+  static constexpr int kStats = kSlot + kTile;
+  static constexpr int kPt = kStats + 2 * kFmaTile;
+  static constexpr int kDst = kPt + kSquare;
+  static constexpr int kFloats = kDst + kSquare;
+  static constexpr int kSmem = kFloats * 4 + 16;
+  static_assert(kSmem <= 232448, "one block must fit the SM's 227 KB");
+};
+
+// B4's fp32 body at D = 256, and with FUSED B2's: one block per (64-row KV
+// tile, b * Hkv, column half z).  A thread's dK and dV over all 256 columns
+// would be 256 registers, so block z accumulates columns [128 z, 128 z +
+// 128) of dK and dV (and of B2's dQ slices) and both halves form S^T and
+// dP^T over the whole head dim.  The walk, the masks and the sums are
+// bwd_kv_fp32's; each step loads Q_s, then dO, then Q_s again into the
+// slot: S^T = K Q_s^T and P^T into its tile; dP^T = V dO^T and dS^T =
+// P^T (dP^T - D_i) into its tile (P^T read back); dV += P^T dO; (FUSED) dS
+// q-major over P^T; dK += dS^T Q_s; (FUSED) the dQ slice's half, dS K.
+template <bool FUSED>
+__global__ void __launch_bounds__(kFmaThreads, 1)
+bwd_kv_fp32_wide(const float* __restrict__ qs_plane, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
+                 const float* __restrict__ lse2, const float* __restrict__ di,
+                 float* __restrict__ dk, float* __restrict__ dv,
+                 float* __restrict__ dq_part, const int* __restrict__ q_seg,
+                 const int* __restrict__ kv_seg, int hq, int hkv, int sq,
+                 int sq_pad, int skv, int kv_len, int causal, int window,
+                 int sinks) {
+  constexpr int D = 256;
+  using L = KvFp32Wide;
+  extern __shared__ __align__(16) float smem[];
+  const FmaThread th = fma_thread();
+  const bool band = !causal && window < kNoWindow;
+  const int kt = band ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int k0 = kt * kFmaTile;
+  const int bh = blockIdx.y;
+  const int z = blockIdx.z;  // this block's 128 columns of dK, dV and dQ
+  const int b = bh / hkv;
+  const int hk = bh - b * hkv;
+  const int groups = hq / hkv;
+  const size_t kv_off = static_cast<size_t>(bh) * skv * D;
+  float* ks = smem + L::kK;
+  float* vs = smem + L::kV;
+  float* slot = smem + L::kSlot;
+  const float* lse2_s = smem + L::kStats;
+  const float* di_s = lse2_s + kFmaTile;
+  float* pt = smem + L::kPt;
+  float* dst = smem + L::kDst;
+  const uint32_t kv_bar = smem_addr(smem + L::kFloats);
+  const uint32_t slot_bar = kv_bar + 8;
+
+  const int n_q = (sq + kFmaTile - 1) / kFmaTile;
+  const QWalk walk(k0, kFmaTile, n_q, kFmaTile, causal, window, sinks, kv_len);
+  const int per_head = walk.n;
+  const int n_steps = groups * per_head;
+  const bool seg = q_seg != nullptr;
+  const int* q_ids = seg ? q_seg + static_cast<size_t>(b) * seg_stride(sq) : nullptr;
+  const int* kv_ids = seg ? kv_seg + static_cast<size_t>(b) * seg_stride(skv) : nullptr;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_bar, kFmaThreads);
+    mbar_init(slot_bar, kFmaThreads);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  int loads = 0;  // completed phases of the slot's barrier
+  // Rows of query head n / per_head, Q tile walk.at(n % per_head), of
+  // `plane` into the slot (with the tile's statistics), then the wait.
+  auto fill = [&](int n, const float* plane, bool stats) {
+    const size_t bhq = static_cast<size_t>(b) * hq + hk * groups + n / per_head;
+    const int qt = walk.at(n % per_head);
+    fma_copy_tile<D, true>(slot, plane + bhq * sq * D, qt, sq);
+    if (stats) copy_stats(smem + L::kStats, lse2, di, bhq * sq_pad + qt * kFmaTile);
+    cp_async_arrive(slot_bar);
+    mbar_wait(slot_bar, loads & 1);
+    ++loads;
+  };
+  if (n_steps > 0) {
+    fma_copy_tile<D, true>(ks, k + kv_off, kt, skv);
+    fma_copy_tile<D, true>(vs, v + kv_off, kt, skv);
+    cp_async_arrive(kv_bar);
+  }
+
+  float dk_acc[8][8], dv_acc[8][8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) dk_acc[r][c] = dv_acc[r][c] = 0.f;
+  }
+  if (n_steps > 0) mbar_wait(kv_bar, 0);
+  for (int n = 0; n < n_steps; ++n) {
+    const size_t bhq = static_cast<size_t>(b) * hq + hk * groups + n / per_head;
+    const int q0 = walk.at(n % per_head) * kFmaTile;
+    float s[8][4];
+    fill(n, qs_plane, true);
+    fma_scores<D>(ks, slot, th, s);
+    const bool need_mask =
+        seg || (k0 + kFmaTile > kv_len) || (causal && k0 + kFmaTile - 1 > q0) ||
+        (q0 + kFmaTile - 1 - k0 >= window && k0 + kFmaTile > sinks);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int row = k0 + th.ty + 8 * r;
+      const int kid = seg ? __ldg(kv_ids + row) : 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = th.tx + 16 * j;
+        float p = exp2f(s[r][j] - lse2_s[c]);
+        if (need_mask && (row >= kv_len || (causal && row > q0 + c) ||
+                          !in_window(q0 + c, row, window, sinks) ||
+                          (seg && __ldg(q_ids + q0 + c) != kid))) {
+          p = 0.f;
+        }
+        fma_store_p(pt, th, r, j, p);
+      }
+    }
+    __syncthreads();  // Q_s is read
+    fill(n, dout, false);
+    fma_scores<D>(vs, slot, th, s);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = th.tx + 16 * j;
+        fma_store_p(dst, th, r, j, pt[fma_p_at(th, r, j)] * (s[r][j] - di_s[c]));
+      }
+    }
+    __syncthreads();  // P^T and dS^T are in place
+    fma_pv<D, true, 2>(pt, slot, th, dv_acc, 2 * z);
+    __syncthreads();  // dO and P^T are read
+    if (FUSED) {
+      // dS, q-major, over the P^T tile: this thread's own dS^T values.
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int row = th.ty + 8 * r;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = th.tx + 16 * j;
+          pt[fma_swz<kFmaTile>(c, row >> 2) + (row & 3)] = dst[fma_p_at(th, r, j)];
+        }
+      }
+      __syncthreads();  // dS is in place
+    }
+    fill(n, qs_plane, false);
+    fma_pv<D, true, 2>(dst, slot, th, dk_acc, 2 * z);
+    if (FUSED) {
+      float* dqp = dq_part + (bhq * gridDim.x + kt) * static_cast<size_t>(sq) * D;
+      const float one[8] = {1.f, 1.f, 1.f, 1.f, 1.f, 1.f, 1.f, 1.f};
+#pragma unroll 1
+      for (int h = 2 * z; h < 2 * z + 2; ++h) {
+        float dq[8][4] = {};
+        fma_pv<D, true, 1>(pt, ks, th, dq, h);
+        fma_store_o<D, 1>(dqp, q0, sq, th, dq, one, h);
+      }
+    }
+    __syncthreads();  // the slot and the tiles are read
+  }
+
+  float ln2[8], one[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    ln2[r] = kLn2;
+    one[r] = 1.f;
+  }
+  fma_store_o<D, 2>(dk + kv_off, k0, skv, th, dk_acc, ln2, 2 * z);
+  fma_store_o<D, 2>(dv + kv_off, k0, skv, th, dv_acc, one, 2 * z);
+}
+
+// Shared memory of B3's fp32 kernel at D = 256, in floats: Q_s and dO, the
+// slot, the lse2 and D_i rows, the dS tile ([64 q][64 kv], swizzled; dP
+// first), then the mbarriers of the Q side and of the slot.
+struct DqFp32Wide {
+  static constexpr int kTile = kFmaTile * 256;
+  static constexpr int kQ = 0;
+  static constexpr int kDO = kTile;
+  static constexpr int kSlot = 2 * kTile;
+  static constexpr int kStats = kSlot + kTile;
+  static constexpr int kDs = kStats + 2 * kFmaTile;
+  static constexpr int kFloats = kDs + kFmaTile * kFmaTile;
+  static constexpr int kSmem = kFloats * 4 + 16;
+  static_assert(kSmem <= 232448, "one block must fit the SM's 227 KB");
+};
+
+// B3's fp32 body at D = 256: bwd_dq_fp32's blocks, walk, masks and sums,
+// with Q_s and dO resident and each KV tile's V, then K, in the slot: dP =
+// dO V^T into the dS tile; S = Q_s K^T and dS = P (dP - D_i) over it; dQ
+// += dS K.  dQ (128 registers a thread) is stored once, times sm_scale.
+template <int D>
+__global__ void __launch_bounds__(kFmaThreads, 1)
+bwd_dq_fp32_wide(const float* __restrict__ qs_plane, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
+                 const float* __restrict__ lse2, const float* __restrict__ di,
+                 float* __restrict__ dq, const int* __restrict__ q_seg,
+                 const int* __restrict__ kv_seg, int hq, int hkv, int sq,
+                 int sq_pad, int skv, int kv_len, float sm_scale, int causal,
+                 int window, int sinks) {
+  static_assert(D == 256, "the D = 256 body");
+  using L = DqFp32Wide;
+  extern __shared__ __align__(16) float smem[];
+  const FmaThread th = fma_thread();
+  const bool band = !causal && window < kNoWindow;
+  const int qt = band ? blockIdx.x : gridDim.x - 1 - blockIdx.x;
+  const int q0 = qt * kFmaTile;
+  const size_t bh = blockIdx.y;
+  const int b = blockIdx.y / hq;
+  const int hk = (blockIdx.y - b * hq) / (hq / hkv);
+  const float* kp = k + (static_cast<size_t>(b) * hkv + hk) * skv * D;
+  const float* vp = v + (static_cast<size_t>(b) * hkv + hk) * skv * D;
+  const int kv_end = causal ? min(kv_len, q0 + kFmaTile) : kv_len;
+  const KvWalk walk(q0 - window + 1, kv_end, sinks, kFmaTile);
+  const int n_kv = walk.n;
+  const bool seg = q_seg != nullptr;
+  const int* q_ids = seg ? q_seg + static_cast<size_t>(b) * seg_stride(sq) : nullptr;
+  const int* kv_ids = seg ? kv_seg + static_cast<size_t>(b) * seg_stride(skv) : nullptr;
+  float* qs = smem + L::kQ;
+  float* dos = smem + L::kDO;
+  float* slot = smem + L::kSlot;
+  const float* stats = smem + L::kStats;
+  float* dss = smem + L::kDs;
+  const uint32_t q_bar = smem_addr(smem + L::kFloats);
+  const uint32_t slot_bar = q_bar + 8;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, kFmaThreads);
+    mbar_init(slot_bar, kFmaThreads);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  int loads = 0;  // completed phases of the slot's barrier
+  auto fill = [&](const float* src, int t) {
+    fma_copy_tile<D, true>(slot, src, walk.at(t), skv);
+    cp_async_arrive(slot_bar);
+    mbar_wait(slot_bar, loads & 1);
+    ++loads;
+  };
+  if (n_kv > 0) {
+    fma_copy_tile<D, true>(qs, qs_plane + bh * sq * D, qt, sq);
+    fma_copy_tile<D, true>(dos, dout + bh * sq * D, qt, sq);
+    copy_stats(smem + L::kStats, lse2, di, bh * sq_pad + q0);
+    cp_async_arrive(q_bar);
+  }
+
+  float lse2_r[8], di_r[8], acc[8][16];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+#pragma unroll
+    for (int c = 0; c < 16; ++c) acc[r][c] = 0.f;
+  }
+  if (n_kv > 0) {
+    mbar_wait(q_bar, 0);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      lse2_r[r] = stats[th.ty + 8 * r];
+      di_r[r] = stats[kFmaTile + th.ty + 8 * r];
+    }
+  }
+  for (int t = 0; t < n_kv; ++t) {
+    const int k0 = walk.at(t) * kFmaTile;
+    float s[8][4];
+    fill(vp, t);
+    fma_scores<D>(dos, slot, th, s);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) fma_store_p(dss, th, r, j, s[r][j]);
+    }
+    __syncthreads();  // V(t) is read
+    fill(kp, t);
+    fma_scores<D>(qs, slot, th, s);
+    const bool need_mask =
+        seg || (k0 + kFmaTile > kv_len) || (causal && k0 + kFmaTile - 1 > q0) ||
+        (q0 + kFmaTile - 1 - k0 >= window && k0 + kFmaTile > sinks);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int row = q0 + th.ty + 8 * r;
+      const int qid = seg ? __ldg(q_ids + row) : 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = k0 + th.tx + 16 * j;
+        float p = exp2f(s[r][j] - lse2_r[r]);
+        if (need_mask && (col >= kv_len || (causal && col > row) ||
+                          !in_window(row, col, window, sinks) ||
+                          (seg && __ldg(kv_ids + col) != qid))) {
+          p = 0.f;
+        }
+        const int at = fma_p_at(th, r, j);
+        dss[at] = p * (dss[at] - di_r[r]);
+      }
+    }
+    __syncthreads();  // dS is in place
+    fma_pv<D, true>(dss, slot, th, acc);
+    __syncthreads();  // K(t) and dS are read
+  }
+
+  float scale[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) scale[r] = sm_scale;
+  fma_store_o<D>(dq + bh * sq * D, q0, sq, th, acc, scale);
+}
+
+// ---------------------------------------------------------------------------
 // bf16 or fp16 tiles (Tt): the KV-major wgmma kernel (B2 with DQ, B4
 // without), B2's dQ reduce, and B3's Q-major wgmma kernel.
 // ---------------------------------------------------------------------------
-// Shared memory of the KV-major kernel, from a 1024-byte-aligned base: the
-// block's K and V tiles, kStages stages of Q_s and of dO, with DQ two dS^T
-// buffers, kStages stages of the row statistics ([lse2 | D_i | segment
-// ids][BQ], fp32 and int32; the ids only with segments), then the
+// Shared memory of the KV-major kernel (D <= 128), from a 1024-byte-aligned
+// base: the block's K and V tiles, kStages stages of Q_s and of dO, with DQ
+// two dS^T buffers, kStages stages of the row statistics ([lse2 | D_i |
+// segment ids][BQ], fp32 and int32; the ids only with segments), then the
 // mbarriers.  Without DQ (B4) a third stage in place of the dS^T
 // buffers ran as fast as two, and 8% slower at a ragged S 1000 (timed by
-// scripts/kernel_ab.py --kernel b4; PERF.md).  K, V, Q_s and dO arrive by TMA as boxes of R rows x
-// 64 columns (128 bytes), 128-byte-swizzled (16-byte chunk c of row r at c
-// ^ (r % 8)).  dS^T [128 kv][BQ q] is stored by the consumers in the same
-// swizzle, as BQ / 64 atoms of 128 rows x 64 q columns.
+// scripts/kernel_ab.py --kernel b4; PERF.md).  K, V, Q_s and dO arrive by
+// TMA as boxes of R rows of Rows<D> (128-byte rows with the 128-byte
+// swizzle; at D = 32 64-byte rows with the 64-byte swizzle).  dS^T [128
+// kv][BQ q] is stored by the consumers with the 128-byte swizzle, as BQ /
+// 64 atoms of 128 rows x 64 q columns.
 template <int D, bool DQ>
 struct BwdLayout {
-  static constexpr int BQ = D == 64 ? 128 : 64;  // Q rows per step of the walk
+  static constexpr int BQ = D == 128 ? 64 : 128;  // Q rows per step of the walk
+  static constexpr int kKv = kKvRows;
   static constexpr int kStages = 2;
-  static constexpr int kBoxes = D / 64;
-  static constexpr int kKVBox = kKvRows * 128;
-  static constexpr int kQBox = BQ * 128;
+  static constexpr int kBoxes = Rows<D>::kBoxes;
+  static constexpr int kKVBox = kKvRows * Rows<D>::kRowBytes;
+  static constexpr int kQBox = BQ * Rows<D>::kRowBytes;
   static constexpr int kKVBytes = kKVBox * kBoxes;
   static constexpr int kQBytes = kQBox * kBoxes;
   static constexpr int kDsAtom = kKvRows * 128;
@@ -747,20 +1165,100 @@ struct BwdLayout {
   static constexpr int kSmem = kBars + 8 * (1 + 2 * kStages) + 1024;
 };
 
+// Shared memory of the KV-major kernel at D = 256 (B2 with DQ, B4
+// without), from a 1024-byte-aligned base: the block's 64-row K and V
+// tiles (32 KB each), two stages of 64-row Q_s and dO tiles (32 KB each),
+// two P^T and two dS^T buffers ([64 kv][64 q], 8 KB each, 128-byte
+// swizzle), two stages of the row statistics, then the mbarriers: 231,976
+// bytes of the 232,448 a block may take.  128-row K and V tiles (128 KB)
+// beside two stages of Q_s and dO would not fit.
+template <bool DQ>
+struct WideLayout {
+  static constexpr int BQ = 64;
+  static constexpr int kKv = fused_kv_rows(256);
+  static constexpr int kStages = 2;
+  static constexpr int kBoxes = 4;
+  static constexpr int kKVBox = kKv * 128;
+  static constexpr int kQBox = BQ * 128;
+  static constexpr int kKVBytes = kKVBox * kBoxes;
+  static constexpr int kQBytes = kQBox * kBoxes;
+  static constexpr int kSquare = kKv * 128;  // a [64 kv][64 q] 16-bit tile
+  static constexpr int kStatBytes = 3 * BQ * 4;
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + kKVBytes;
+  static constexpr int kQ = kV + kKVBytes;
+  static constexpr int kDO = kQ + kStages * kQBytes;
+  static constexpr int kPt = kDO + kStages * kQBytes;
+  static constexpr int kDst = kPt + 2 * kSquare;
+  static constexpr int kStats = kDst + 2 * kSquare;
+  static constexpr int kBars = kStats + kStages * kStatBytes;
+  static constexpr int kSmem = kBars + 8 * (1 + 2 * kStages) + 1024;
+  static_assert(kSmem <= 232448, "one block must fit the SM's 227 KB");
+};
+
 // Registers per thread after setmaxnreg: 128 x 24 + 256 x 240 = 64512 of
 // the SM's 65536 (one block per SM).  Both wgmma kernels.
 constexpr int kBwdThreads = 384;
 constexpr int kBwdProducerRegs = 24;
 constexpr int kBwdConsumerRegs = 240;
 
-// One block per (128-row KV tile, b * Hkv).  Warpgroup 0 is the producer:
-// one thread loads the K and V tiles once, then streams the walk's Q_s and
-// dO tiles with their statistics into the stage ring.  Warpgroups 1 and 2
-// (consumer c) own KV rows [64 c, 64 c + 64) of the tile; warp w of a
-// consumer holds rows 16 w + g and 16 w + g + 8 of every accumulator,
-// columns 8 j + 2 t4 and 8 j + 2 t4 + 1 of each 8-column group j.  With DQ
-// (B2) each step also writes the tile's dQ slice; without it (B4) the block
-// computes dK and dV only, and dq_part is not written.
+// The producer of the KV-major kernels (layout L, one thread): the block's
+// K and V tiles once, then the walk's Q_s and dO tiles (the GQA group's
+// query heads, gi outer) with their lse2 and D_i rows and, with segments,
+// their ids into the stage ring.
+template <typename L, int D>
+__device__ __forceinline__ void produce_q_walk(
+    uint32_t base, uint32_t full_kv, uint32_t full_q, uint32_t empty_q,
+    const CUtensorMap* k_map, const CUtensorMap* v_map, const CUtensorMap* q_map,
+    const CUtensorMap* do_map, const float* lse2, const float* di,
+    const int* q_seg, const QWalk& walk, int k0, int bh, int b, int hk,
+    int hq, int groups, int sq, int sq_pad) {
+  constexpr int BQ = L::BQ;
+  constexpr int kStages = L::kStages;
+  constexpr int kCols = Rows<D>::kBoxCols;
+  const int per_head = walk.n;
+  const int n_steps = groups * per_head;
+  const bool seg = q_seg != nullptr;
+  mbar_expect_tx(full_kv, 2 * L::kKVBytes);
+#pragma unroll
+  for (int box = 0; box < L::kBoxes; ++box) {
+    tma_load_3d(base + L::kK + box * L::kKVBox, k_map, full_kv, box * kCols, k0, bh);
+    tma_load_3d(base + L::kV + box * L::kKVBox, v_map, full_kv, box * kCols, k0, bh);
+  }
+  for (int j = 0; j < n_steps; ++j) {
+    const int gi = j / per_head;
+    const int q0 = walk.at(j - gi * per_head) * BQ;
+    const int bhq = b * hq + hk * groups + gi;
+    const int st = j % kStages;
+    // The first pass over the ring finds every stage empty.
+    mbar_wait(empty_q + 8 * st, ((j / kStages) & 1) ^ 1);
+    mbar_expect_tx(full_q + 8 * st, 2 * L::kQBytes + (seg ? 3 : 2) * BQ * 4);
+#pragma unroll
+    for (int box = 0; box < L::kBoxes; ++box) {
+      tma_load_3d(base + L::kQ + st * L::kQBytes + box * L::kQBox, q_map,
+                  full_q + 8 * st, box * kCols, q0, bhq);
+      tma_load_3d(base + L::kDO + st * L::kQBytes + box * L::kQBox, do_map,
+                  full_q + 8 * st, box * kCols, q0, bhq);
+    }
+    const size_t row = static_cast<size_t>(bhq) * sq_pad + q0;
+    const uint32_t stats = base + L::kStats + st * L::kStatBytes;
+    tma_load_1d(stats, lse2 + row, BQ * 4, full_q + 8 * st);
+    tma_load_1d(stats + BQ * 4, di + row, BQ * 4, full_q + 8 * st);
+    if (seg) {
+      tma_load_1d(stats + 2 * BQ * 4,
+                  q_seg + static_cast<size_t>(b) * seg_stride(sq) + q0, BQ * 4,
+                  full_q + 8 * st);
+    }
+  }
+}
+
+// One block per (128-row KV tile, b * Hkv), D <= 128.  Warpgroup 0 is the
+// producer (produce_q_walk).  Warpgroups 1 and 2 (consumer c) own KV rows
+// [64 c, 64 c + 64) of the tile; warp w of a consumer holds rows 16 w + g
+// and 16 w + g + 8 of every accumulator, columns 8 j + 2 t4 and 8 j + 2 t4
+// + 1 of each 8-column group j.  With DQ (B2) each step also writes the
+// tile's dQ slice; without it (B4) the block computes dK and dV only, and
+// dq_part is not written.
 template <typename Tin, typename Tt, int D, bool DQ>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 bwd_fused_wgmma(const __grid_constant__ CUtensorMap k_map,
@@ -774,6 +1272,7 @@ bwd_fused_wgmma(const __grid_constant__ CUtensorMap k_map,
                 int sq_pad, int skv, int kv_len, int causal, int window,
                 int sinks) {
   using L = BwdLayout<D, DQ>;
+  using R = Rows<D>;
   constexpr int BQ = L::BQ;
   constexpr int kStages = L::kStages;
   extern __shared__ unsigned char smem_raw[];
@@ -817,39 +1316,9 @@ bwd_fused_wgmma(const __grid_constant__ CUtensorMap k_map,
   if (wg == 0) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kBwdProducerRegs));
     if (threadIdx.x == 0 && n_steps > 0) {
-      mbar_expect_tx(full_kv, 2 * L::kKVBytes);
-#pragma unroll
-      for (int box = 0; box < L::kBoxes; ++box) {
-        tma_load_3d(base + L::kK + box * L::kKVBox, &k_map, full_kv, box * 64,
-                    k0, bh);
-        tma_load_3d(base + L::kV + box * L::kKVBox, &v_map, full_kv, box * 64,
-                    k0, bh);
-      }
-      for (int j = 0; j < n_steps; ++j) {
-        const int gi = j / per_head;
-        const int q0 = walk.at(j - gi * per_head) * BQ;
-        const int bhq = b * hq + hk * groups + gi;
-        const int st = j % kStages;
-        // The first pass over the ring finds every stage empty.
-        mbar_wait(empty_q + 8 * st, ((j / kStages) & 1) ^ 1);
-        mbar_expect_tx(full_q + 8 * st, 2 * L::kQBytes + (seg ? 3 : 2) * BQ * 4);
-#pragma unroll
-        for (int box = 0; box < L::kBoxes; ++box) {
-          tma_load_3d(base + L::kQ + st * L::kQBytes + box * L::kQBox, &q_map,
-                      full_q + 8 * st, box * 64, q0, bhq);
-          tma_load_3d(base + L::kDO + st * L::kQBytes + box * L::kQBox,
-                      &do_map, full_q + 8 * st, box * 64, q0, bhq);
-        }
-        const size_t row = static_cast<size_t>(bhq) * sq_pad + q0;
-        const uint32_t stats = base + L::kStats + st * L::kStatBytes;
-        tma_load_1d(stats, lse2 + row, BQ * 4, full_q + 8 * st);
-        tma_load_1d(stats + BQ * 4, di + row, BQ * 4, full_q + 8 * st);
-        if (seg) {
-          tma_load_1d(stats + 2 * BQ * 4,
-                      q_seg + static_cast<size_t>(b) * seg_stride(sq) + q0,
-                      BQ * 4, full_q + 8 * st);
-        }
-      }
+      produce_q_walk<L, D>(base, full_kv, full_q, empty_q, &k_map, &v_map, &q_map,
+                           &do_map, lse2, di, q_seg, walk, k0, bh, b, hk, hq,
+                           groups, sq, sq_pad);
     }
     return;
   }
@@ -873,11 +1342,12 @@ bwd_fused_wgmma(const __grid_constant__ CUtensorMap k_map,
     kid[1] = ids[kv_b];
   }
   // The consumer's share of each dQ tile (DQ): Q rows [qm, qm + 64) and
-  // columns [dn, dn + 64), over all 128 KV rows of the tile.
+  // columns [dn, dn + kDqN), over all 128 KV rows of the tile.
+  constexpr int kDqN = D == 128 ? 64 : D;
   const int qm = BQ == 128 ? 64 * c : 0;
   const int dn = D == 128 ? 64 * c : 0;
-  const uint32_t ks = base + L::kK + 64 * c * 128;  // this consumer's K rows
-  const uint32_t vs = base + L::kV + 64 * c * 128;
+  const uint32_t ks = base + L::kK + 64 * c * R::kRowBytes;  // this consumer's K rows
+  const uint32_t vs = base + L::kV + 64 * c * R::kRowBytes;
 
   float dk_acc[D / 2], dv_acc[D / 2];
 #pragma unroll
@@ -897,23 +1367,19 @@ bwd_fused_wgmma(const __grid_constant__ CUtensorMap k_map,
     const int* qid_s = reinterpret_cast<const int*>(di_s + BQ);
     mbar_wait(full_q + 8 * st, (j / kStages) & 1);
 
-    // S^T = K Q_s^T and dP^T = V dO^T: D / 16 k-steps of 32 bytes, four to
-    // a 128-byte box, all operands K-major.
+    // S^T = K Q_s^T and dP^T = V dO^T: D / 16 k-steps of 32 bytes, all
+    // operands K-major.
     float st_acc[BQ / 2], dpt[BQ / 2];
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk / 4) * L::kKVBox + (kk % 4) * 32;
-      const uint32_t qoff = (kk / 4) * L::kQBox + (kk % 4) * 32;
-      Tile<Tt>::ss(st_acc, sw128_desc(ks + off, 16, 1024),
-                   sw128_desc(qs + qoff, 16, 1024), kk > 0);
+      Tile<Tt>::ss(st_acc, R::kstep(ks, kk, L::kKVBox), R::kstep(qs, kk, L::kQBox),
+                   kk > 0);
     }
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk / 4) * L::kKVBox + (kk % 4) * 32;
-      const uint32_t qoff = (kk / 4) * L::kQBox + (kk % 4) * 32;
-      Tile<Tt>::ss(dpt, sw128_desc(vs + off, 16, 1024),
-                   sw128_desc(dos + qoff, 16, 1024), kk > 0);
+      Tile<Tt>::ss(dpt, R::kstep(vs, kk, L::kKVBox), R::kstep(dos, kk, L::kQBox),
+                   kk > 0);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -988,20 +1454,20 @@ bwd_fused_wgmma(const __grid_constant__ CUtensorMap k_map,
     }
 
     // dV += P^T dO and dK += dS^T Q_s: k-step kk reads Q rows [16 kk, 16
-    // kk + 16) of the stage, two 8-row groups 1024 bytes apart, MN-major;
-    // the 64-column boxes are kQBox apart.
+    // kk + 16) of the stage, two 8-row groups an atom apart, MN-major; the
+    // boxes are kQBox apart.
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
-      Tile<Tt>::rs(dv_acc, pa[kk], sw128_desc(dos + kk * 16 * 128, L::kQBox, 1024));
+      Tile<Tt>::rs(dv_acc, pa[kk], R::desc(dos + kk * 16 * R::kRowBytes, L::kQBox));
     }
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
-      Tile<Tt>::rs(dk_acc, sa[kk], sw128_desc(qs + kk * 16 * 128, L::kQBox, 1024));
+      Tile<Tt>::rs(dk_acc, sa[kk], R::desc(qs + kk * 16 * R::kRowBytes, L::kQBox));
     }
     wgmma_commit();
 
-    float dq[32];
+    float dq[kDqN / 2];
     if constexpr (DQ) {
       // dS^T's generic-proxy stores must be visible to wgmma (the async
       // proxy), and both consumers' halves in place (named barrier 1),
@@ -1019,7 +1485,7 @@ bwd_fused_wgmma(const __grid_constant__ CUtensorMap k_map,
 #pragma unroll
       for (int kk = 0; kk < kKvRows / 16; ++kk) {
         Tile<Tt>::ss_tt(dq, sw128_desc(dsa + kk * 16 * 128, L::kDsAtom, 1024),
-                        sw128_desc(kb + kk * 16 * 128, L::kKVBox, 1024), kk > 0);
+                        R::desc(kb + kk * 16 * R::kRowBytes, L::kKVBox), kk > 0);
       }
       wgmma_commit();
     }
@@ -1042,7 +1508,7 @@ bwd_fused_wgmma(const __grid_constant__ CUtensorMap k_map,
       const int ra = q0 + qm + 16 * warp + g;
       const int rb = ra + 8;
 #pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
+      for (int jj = 0; jj < kDqN / 8; ++jj) {
         const int col = dn + jj * 8 + t4 * 2;
         if (ra < sq) store2(dqp + static_cast<size_t>(ra) * D + col, dq[4 * jj], dq[4 * jj + 1]);
         if (rb < sq) store2(dqp + static_cast<size_t>(rb) * D + col, dq[4 * jj + 2], dq[4 * jj + 3]);
@@ -1056,6 +1522,270 @@ bwd_fused_wgmma(const __grid_constant__ CUtensorMap k_map,
 #pragma unroll
   for (int jj = 0; jj < D / 8; ++jj) {
     const int col = jj * 8 + t4 * 2;
+    if (kv_a < skv) {
+      store2(dkp + static_cast<size_t>(kv_a) * D + col, dk_acc[4 * jj] * kLn2,
+             dk_acc[4 * jj + 1] * kLn2);
+      store2(dvp + static_cast<size_t>(kv_a) * D + col, dv_acc[4 * jj],
+             dv_acc[4 * jj + 1]);
+    }
+    if (kv_b < skv) {
+      store2(dkp + static_cast<size_t>(kv_b) * D + col, dk_acc[4 * jj + 2] * kLn2,
+             dk_acc[4 * jj + 3] * kLn2);
+      store2(dvp + static_cast<size_t>(kv_b) * D + col, dv_acc[4 * jj + 2],
+             dv_acc[4 * jj + 3]);
+    }
+  }
+}
+
+// The KV-major kernel at D = 256 (B2 with DQ, B4 without): one block per
+// (64-row KV tile, b * Hkv), the producer as above.  A consumer holding
+// dK and dV of its KV rows over all 256 columns would need 256 registers
+// for them alone, so the two consumers split the columns instead: each
+// computes S^T and dP^T for all 64 KV rows and 32 of the step's 64 Q rows
+// (c: Q rows [32 c, 32 c + 32)), forms P^T and dS^T there in fp32 and
+// stores them, rounded, into the step's shared P^T and dS^T buffers
+// ([64 kv][64 q], 128-byte swizzle); after a named barrier each
+// accumulates columns [128 c, 128 c + 128) of dK and dV over the whole
+// step (dV += P^T dO and dK += dS^T Q_s, A and B from shared memory) and
+// with DQ those columns of the dQ slice (dS K, A = dS^T read MN-major).
+// dK, dV and dQ take 64 registers each.  Buffer j % 2 was last read by the
+// products of step j - 2, which both consumers waited for before step
+// j - 1's barrier.  Warp w holds KV rows 16 w + g and 16 w + g + 8.
+template <typename Tin, typename Tt, bool DQ>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+bwd_fused_wgmma_wide(const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap do_map,
+                     const float* __restrict__ lse2, const float* __restrict__ di,
+                     Tin* __restrict__ dk, Tin* __restrict__ dv,
+                     float* __restrict__ dq_part, const int* __restrict__ q_seg,
+                     const int* __restrict__ kv_seg, int hq, int hkv, int sq,
+                     int sq_pad, int skv, int kv_len, int causal, int window,
+                     int sinks) {
+  constexpr int D = 256;
+  using L = WideLayout<DQ>;
+  constexpr int BQ = L::BQ;
+  constexpr int kKv = L::kKv;
+  constexpr int kStages = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t full_kv = base + L::kBars;
+  const uint32_t full_q = full_kv + 8;             // stage s at + 8 s
+  const uint32_t empty_q = full_q + 8 * kStages;
+
+  const int kt = !causal && window < kNoWindow ? gridDim.x - 1 - blockIdx.x
+                                              : blockIdx.x;
+  const int k0 = kt * kKv;
+  const int bh = blockIdx.y;  // b * hkv + kv head
+  const int b = bh / hkv;
+  const int hk = bh - b * hkv;
+  const int groups = hq / hkv;
+  const int n_q = (sq + BQ - 1) / BQ;
+  const QWalk walk(k0, kKv, n_q, BQ, causal, window, sinks, kv_len);
+  const int per_head = walk.n;
+  const int n_steps = groups * per_head;
+  const bool seg = q_seg != nullptr;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_kv, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_q + 8 * s, 1);
+      mbar_init(empty_q + 8 * s, 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kBwdProducerRegs));
+    if (threadIdx.x == 0 && n_steps > 0) {
+      produce_q_walk<L, D>(base, full_kv, full_q, empty_q, &k_map, &v_map, &q_map,
+                           &do_map, lse2, di, q_seg, walk, k0, bh, b, hk, hq,
+                           groups, sq, sq_pad);
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kBwdConsumerRegs));
+  const int c = wg - 1;
+  const int tid = threadIdx.x - 128 * wg;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int r_a = 16 * warp + g;  // this thread's rows of the KV tile
+  const int r_b = r_a + 8;
+  const int kv_a = k0 + r_a;
+  const int kv_b = k0 + r_b;
+  const int qc = 32 * c;  // this consumer's Q rows of a step (S^T, dP^T)
+  int kid[2] = {0, 0};
+  if (seg) {
+    const int* ids = kv_seg + static_cast<size_t>(b) * seg_stride(skv);
+    kid[0] = ids[kv_a];
+    kid[1] = ids[kv_b];
+  }
+
+  float dk_acc[64], dv_acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  if (n_steps > 0) mbar_wait(full_kv, 0);
+
+  for (int j = 0; j < n_steps; ++j) {
+    const int gi = j / per_head;
+    const int q0 = walk.at(j - gi * per_head) * BQ;
+    const int bhq = b * hq + hk * groups + gi;
+    const int st = j % kStages;
+    const uint32_t qs = base + L::kQ + st * L::kQBytes;
+    const uint32_t dos = base + L::kDO + st * L::kQBytes;
+    const float* lse2_s =
+        reinterpret_cast<const float*>(smem + L::kStats + st * L::kStatBytes);
+    const float* di_s = lse2_s + BQ;
+    const int* qid_s = reinterpret_cast<const int*>(di_s + BQ);
+    mbar_wait(full_q + 8 * st, (j / kStages) & 1);
+
+    // S^T and dP^T of Q rows [qc, qc + 32): 16 k-steps, K-major.
+    float st_acc[16], dpt[16];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * L::kKVBox + (kk % 4) * 32;
+      const uint32_t qoff = (kk / 4) * L::kQBox + (kk % 4) * 32 + qc * 128;
+      Tile<Tt>::ss(st_acc, sw128_desc(base + L::kK + off, 16, 1024),
+                   sw128_desc(qs + qoff, 16, 1024), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * L::kKVBox + (kk % 4) * 32;
+      const uint32_t qoff = (kk / 4) * L::kQBox + (kk % 4) * 32 + qc * 128;
+      Tile<Tt>::ss(dpt, sw128_desc(base + L::kV + off, 16, 1024),
+                   sw128_desc(dos + qoff, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    hold(st_acc);
+    hold(dpt);
+
+    // P^T and dS^T as bwd_fused_wgmma forms them (the masks over the whole
+    // 64 x 64 tile), then rounded into this consumer's columns of the
+    // step's buffers.
+    const bool need_mask =
+        (k0 + kKv > kv_len) || (causal && k0 + kKv - 1 > q0) ||
+        (q0 + BQ - 1 - k0 >= window && k0 + kKv > sinks);
+    auto p_ds = [&](auto masked, auto segmented) {
+      constexpr bool kMask = decltype(masked)::value;
+      constexpr bool kSeg = decltype(segmented)::value;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = qc + jj * 8 + t4 * 2 + (e & 1);
+          const int row = e < 2 ? kv_a : kv_b;
+          const float x = st_acc[4 * jj + e] - lse2_s[col];
+          float p = DQ ? exp2f(x) : exp2_ftz(x);
+          if (kMask && (row >= kv_len || (causal && row > q0 + col) ||
+                        !in_window(q0 + col, row, window, sinks) ||
+                        (kSeg && qid_s[col] != kid[e >> 1]))) {
+            p = 0.f;
+          }
+          st_acc[4 * jj + e] = p;
+          dpt[4 * jj + e] = p * (dpt[4 * jj + e] - di_s[col]);
+        }
+      }
+    };
+    if (seg) {
+      p_ds(std::true_type{}, std::true_type{});
+    } else if (need_mask) {
+      p_ds(std::true_type{}, std::false_type{});
+    } else {
+      p_ds(std::false_type{}, std::false_type{});
+    }
+    unsigned char* ptb = smem + L::kPt + (j & 1) * L::kSquare;
+    unsigned char* dsb = smem + L::kDst + (j & 1) * L::kSquare;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int ch = 4 * c + jj;  // 16-byte chunk of Q columns qc + 8 jj
+      const int at_a = r_a * 128 + ((ch ^ (r_a & 7)) * 16) + 4 * t4;
+      const int at_b = r_b * 128 + ((ch ^ (r_b & 7)) * 16) + 4 * t4;
+      *reinterpret_cast<uint32_t*>(ptb + at_a) =
+          Tile<Tt>::pack(st_acc[4 * jj], st_acc[4 * jj + 1]);
+      *reinterpret_cast<uint32_t*>(ptb + at_b) =
+          Tile<Tt>::pack(st_acc[4 * jj + 2], st_acc[4 * jj + 3]);
+      *reinterpret_cast<uint32_t*>(dsb + at_a) =
+          Tile<Tt>::pack(dpt[4 * jj], dpt[4 * jj + 1]);
+      *reinterpret_cast<uint32_t*>(dsb + at_b) =
+          Tile<Tt>::pack(dpt[4 * jj + 2], dpt[4 * jj + 3]);
+    }
+    // Both consumers' halves visible to wgmma (the async proxy).
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+
+    // dV += P^T dO and dK += dS^T Q_s over columns [128 c, 128 c + 128):
+    // A K-major (k-step kk: Q rows [16 kk, 16 kk + 16)), B the stage's
+    // boxes 2 c and 2 c + 1, MN-major.
+    const uint32_t pta = smem_addr(ptb);
+    const uint32_t dsa = smem_addr(dsb);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      Tile<Tt>::ss_nt(dv_acc, sw128_desc(pta + kk * 32, 16, 1024),
+                      sw128_desc(dos + 2 * c * L::kQBox + kk * 16 * 128, L::kQBox, 1024),
+                      1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      Tile<Tt>::ss_nt(dk_acc, sw128_desc(dsa + kk * 32, 16, 1024),
+                      sw128_desc(qs + 2 * c * L::kQBox + kk * 16 * 128, L::kQBox, 1024),
+                      1);
+    }
+    wgmma_commit();
+    float dq[64];
+    if constexpr (DQ) {
+      // The dQ slice's columns [128 c, 128 c + 128): dS K over the tile's
+      // 64 KV rows (4 k-steps), A = dS^T and B = the K tile's boxes 2 c
+      // and 2 c + 1, both MN-major.
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kKv / 16; ++kk) {
+        Tile<Tt>::ss_tt(dq, sw128_desc(dsa + kk * 16 * 128, L::kSquare, 1024),
+                        sw128_desc(base + L::kK + 2 * c * L::kKVBox + kk * 16 * 128,
+                                   L::kKVBox, 1024),
+                        kk > 0);
+      }
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    hold(dk_acc);
+    hold(dv_acc);
+    if constexpr (DQ) hold(dq);
+    // Q_s, dO and the statistics of this stage are read.
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty_q + 8 * st);
+
+    if constexpr (DQ) {
+      float* dqp =
+          dq_part + (static_cast<size_t>(bhq) * gridDim.x + kt) * sq * D;
+      const int ra = q0 + 16 * warp + g;
+      const int rb = ra + 8;
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj) {
+        const int col = 128 * c + jj * 8 + t4 * 2;
+        if (ra < sq) store2(dqp + static_cast<size_t>(ra) * D + col, dq[4 * jj], dq[4 * jj + 1]);
+        if (rb < sq) store2(dqp + static_cast<size_t>(rb) * D + col, dq[4 * jj + 2], dq[4 * jj + 3]);
+      }
+    }
+  }
+
+  const size_t kv_off = static_cast<size_t>(bh) * skv * D;
+  Tin* dkp = dk + kv_off;
+  Tin* dvp = dv + kv_off;
+#pragma unroll
+  for (int jj = 0; jj < 16; ++jj) {
+    const int col = 128 * c + jj * 8 + t4 * 2;
     if (kv_a < skv) {
       store2(dkp + static_cast<size_t>(kv_a) * D + col, dk_acc[4 * jj] * kLn2,
              dk_acc[4 * jj + 1] * kLn2);
@@ -1110,15 +1840,20 @@ dq_reduce(const float* __restrict__ dq_part, Tout* __restrict__ dq, int sq,
 // Q_s and dO tiles (BQ rows), kStages K stages, kStages V stages (BN rows
 // each), the row statistics ([lse2 | D_i][BQ] fp32), each K stage's
 // segment ids (BN int32, only with segments), then the mbarriers.
-// Every tile is D / 64 TMA boxes of R rows x 128 bytes, 128-byte-swizzled.
+// Every tile is Rows<D>'s boxes of R rows.  BN is 128 at D = 64, 64 at D
+// = 32 (with 128 rows the fp16-tile instantiation on fp32 inputs spilled 8
+// bytes) and D = 128, and 32 at D = 256, where the Q_s and dO tiles alone
+// take 128 KB and three stages of 32-row K and V tiles 96 KB (231,912
+// bytes of the 232,448 a block may take); a consumer's dQ (128 registers
+// a thread) then sits beside 32-column S and dP accumulators (16 each).
 template <int D>
 struct DqLayout {
-  static constexpr int BQ = 128;                 // Q rows per block
-  static constexpr int BN = D == 64 ? 128 : 64;  // KV rows per ring stage
+  static constexpr int BQ = 128;  // Q rows per block
+  static constexpr int BN = D == 64 ? 128 : D == 256 ? 32 : 64;  // KV rows per ring stage
   static constexpr int kStages = 3;  // 1.08-1.23x faster than 2 (PERF.md)
-  static constexpr int kBoxes = D / 64;
-  static constexpr int kQBox = BQ * 128;
-  static constexpr int kKVBox = BN * 128;
+  static constexpr int kBoxes = Rows<D>::kBoxes;
+  static constexpr int kQBox = BQ * Rows<D>::kRowBytes;
+  static constexpr int kKVBox = BN * Rows<D>::kRowBytes;
   static constexpr int kQBytes = kQBox * kBoxes;
   static constexpr int kKVBytes = kKVBox * kBoxes;
   static constexpr int kStatBytes = 2 * BQ * 4;
@@ -1131,6 +1866,7 @@ struct DqLayout {
   static constexpr int kBars = kSeg + kStages * BN * 4;
   // full Q, full and empty of each K and V stage, and alignment slack.
   static constexpr int kSmem = kBars + 8 * (1 + 4 * kStages) + 1024;
+  static_assert(kSmem <= 232448, "one block must fit the SM's 227 KB");
 };
 
 // B3: one block per (128-row Q tile, b * Hq), the tiles handed out from the
@@ -1154,6 +1890,7 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
              int sq_pad, int skv, int kv_len, float sm_scale, int causal,
              int window, int sinks) {
   using L = DqLayout<D>;
+  using R = Rows<D>;
   constexpr int BQ = L::BQ;
   constexpr int BN = L::BN;
   constexpr int kStages = L::kStages;
@@ -1201,10 +1938,10 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
       mbar_expect_tx(full_q, 2 * L::kQBytes + L::kStatBytes);
 #pragma unroll
       for (int box = 0; box < L::kBoxes; ++box) {
-        tma_load_3d(base + L::kQ + box * L::kQBox, &q_map, full_q, box * 64,
-                    q0, bh);
-        tma_load_3d(base + L::kDO + box * L::kQBox, &do_map, full_q, box * 64,
-                    q0, bh);
+        tma_load_3d(base + L::kQ + box * L::kQBox, &q_map, full_q,
+                    box * R::kBoxCols, q0, bh);
+        tma_load_3d(base + L::kDO + box * L::kQBox, &do_map, full_q,
+                    box * R::kBoxCols, q0, bh);
       }
       const size_t row = static_cast<size_t>(bh) * sq_pad + q0;
       tma_load_1d(base + L::kStats, lse2 + row, BQ * 4, full_q);
@@ -1224,14 +1961,14 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
         for (int box = 0; box < L::kBoxes; ++box) {
           tma_load_3d(base + L::kV + st * L::kKVBytes + box * L::kKVBox,
-                      &v_map, full_v + 8 * st, box * 64, k0, kv_head);
+                      &v_map, full_v + 8 * st, box * R::kBoxCols, k0, kv_head);
         }
         mbar_wait(empty_k + 8 * st, parity);
         mbar_expect_tx(full_k + 8 * st, L::kKVBytes + (seg ? BN * 4 : 0));
 #pragma unroll
         for (int box = 0; box < L::kBoxes; ++box) {
           tma_load_3d(base + L::kK + st * L::kKVBytes + box * L::kKVBox,
-                      &k_map, full_k + 8 * st, box * 64, k0, kv_head);
+                      &k_map, full_k + 8 * st, box * R::kBoxCols, k0, kv_head);
         }
         if (seg) {
           tma_load_1d(base + L::kSeg + st * BN * 4, kv_ids + k0, BN * 4,
@@ -1253,8 +1990,8 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
   const int row_a = q0 + r_a;
   const int row_b = row_a + 8;
   const int qc0 = q0 + 64 * c;
-  const uint32_t qs = base + L::kQ + 64 * c * 128;  // this consumer's Q rows
-  const uint32_t dos = base + L::kDO + 64 * c * 128;
+  const uint32_t qs = base + L::kQ + 64 * c * R::kRowBytes;  // this consumer's Q rows
+  const uint32_t dos = base + L::kDO + 64 * c * R::kRowBytes;
   // This thread's rows' segment ids.
   int qid[2] = {0, 0};
   if (seg) {
@@ -1284,8 +2021,7 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
   float s[BN / 2], dp[BN / 2];
   uint32_t sa[BN / 16][4];
   // Issue S = Q_s K^T and dP = dO V^T of tile t, one group, not waited
-  // for: D / 16 k-steps of 32 bytes, four to a 128-byte box, all operands
-  // K-major.
+  // for: D / 16 k-steps of 32 bytes, all operands K-major.
   auto issue_sdp = [&](int t) {
     const int st = t % kStages;
     mbar_wait(full_k + 8 * st, (t / kStages) & 1);
@@ -1295,30 +2031,33 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t qoff = (kk / 4) * L::kQBox + (kk % 4) * 32;
-      const uint32_t off = (kk / 4) * L::kKVBox + (kk % 4) * 32;
-      Tile<Tt>::ss(s, sw128_desc(qs + qoff, 16, 1024),
-                   sw128_desc(ks + off, 16, 1024), kk > 0);
+      Tile<Tt>::ss(s, R::kstep(qs, kk, L::kQBox), R::kstep(ks, kk, L::kKVBox), kk > 0);
     }
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t qoff = (kk / 4) * L::kQBox + (kk % 4) * 32;
-      const uint32_t off = (kk / 4) * L::kKVBox + (kk % 4) * 32;
-      Tile<Tt>::ss(dp, sw128_desc(dos + qoff, 16, 1024),
-                   sw128_desc(vs + off, 16, 1024), kk > 0);
+      Tile<Tt>::ss(dp, R::kstep(dos, kk, L::kQBox), R::kstep(vs, kk, L::kKVBox), kk > 0);
     }
     wgmma_commit();
   };
   // Issue dQ += dS K of tile t from sa, one group, not waited for: k-step
-  // kk reads K rows [16 kk, 16 kk + 16) of the stage, two 8-row groups 1024
-  // bytes apart, MN-major (the transpose bit); the 64-column boxes are
-  // kKVBox apart.
+  // kk reads K rows [16 kk, 16 kk + 16) of the stage, two 8-row groups an
+  // atom apart, MN-major (the transpose bit); the boxes are kKVBox apart.
+  // At D = 256 each k-step is two n128 products, columns [0, 128) and
+  // [128, 256) (boxes 0-1 and 2-3), into the two halves of dQ.
   auto issue_dq = [&](int t) {
     const uint32_t ks = base + L::kK + (t % kStages) * L::kKVBytes;
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
-      Tile<Tt>::rs(dq_acc, sa[kk], sw128_desc(ks + kk * 16 * 128, L::kKVBox, 1024));
+      const uint32_t k_rows = ks + kk * 16 * R::kRowBytes;
+      if constexpr (D > 128) {
+        Tile<Tt>::rs(*reinterpret_cast<float(*)[64]>(&dq_acc[0]), sa[kk],
+                     R::desc(k_rows, L::kKVBox));
+        Tile<Tt>::rs(*reinterpret_cast<float(*)[64]>(&dq_acc[64]), sa[kk],
+                     R::desc(k_rows + 2 * L::kKVBox, L::kKVBox));
+      } else {
+        Tile<Tt>::rs(dq_acc, sa[kk], R::desc(k_rows, L::kKVBox));
+      }
     }
     wgmma_commit();
   };
@@ -1500,8 +2239,8 @@ BwdWorkspace bwd_workspace(int batch, int hq, int hkv, int sq, int skv, int d,
 }
 
 // A 3-D map over a contiguous 16-bit [rows, seq, d] tensor: boxes of
-// box_rows x 64 columns with the 128-byte swizzle; reads past seq give
-// zeros.
+// box_rows x 64 columns with the 128-byte swizzle (at d = 32 one box of 32
+// columns with the 64-byte swizzle, Rows<32>); reads past seq give zeros.
 int map_3d(CUtensorMap* map, const void* ptr, int tiles, int rows, int seq,
            int d, int box_rows) {
   const EncodeTiled encode = encode_tiled();
@@ -1511,13 +2250,15 @@ int map_3d(CUtensorMap* map, const void* ptr, int tiles, int rows, int seq,
                               static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
                                  static_cast<cuuint64_t>(seq) * d * 2};
-  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(d < 64 ? d : 64),
+                             static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   const CUresult r = encode(
       map, tiles == 1 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
       3, const_cast<void*>(ptr), dims, strides, box, elem_strides,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      d < 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kErrEncode;
 }
@@ -1598,61 +2339,98 @@ int prepare(const Args& a, int tiles, void* workspace, int q_box, int kv_box,
   return err;
 }
 
-// B2 (FUSED) or B4 with fp32 tiles: the prologue, then the KV-major kernel.
+// B2 (FUSED) or B4 with fp32 tiles: the prologue, then the KV-major kernel
+// (at D = 256 its column halves, bwd_kv_fp32_wide).
 template <int D, bool FUSED>
 int launch_kv_fp32(const Args& a, void* workspace) {
-  using L = KvFp32<D, FUSED>;
   Formed<float> f;
   const int err = run_prologue<float, float, D>(a, workspace, &f);
   if (err != 0) return err;
   static std::atomic<uint64_t> smem_set{0};
-  const cudaError_t cerr =
-      set_smem_once(bwd_kv_fp32<D, FUSED>, L::kSmem, smem_set);
-  if (cerr != cudaSuccess) return cerr;
-  const dim3 grid((a.skv + kFmaTile - 1) / kFmaTile, a.batch * a.hkv);
-  bwd_kv_fp32<D, FUSED><<<grid, kFmaThreads, L::kSmem, a.stream>>>(
-      f.qs, f.ks, f.vs, f.dos, f.lse2, f.di, static_cast<float*>(a.dk),
-      static_cast<float*>(a.dv), static_cast<float*>(a.dq), a.q_seg, a.kv_seg,
-      a.hq, a.hkv, a.sq, f.sq_pad, a.skv, a.kv_len, a.causal, a.window,
-      a.sinks);
+  if constexpr (D > 128) {
+    const cudaError_t cerr = set_smem_once(bwd_kv_fp32_wide<FUSED>,
+                                           KvFp32Wide::kSmem, smem_set);
+    if (cerr != cudaSuccess) return cerr;
+    const dim3 grid((a.skv + kFmaTile - 1) / kFmaTile, a.batch * a.hkv, 2);
+    bwd_kv_fp32_wide<FUSED><<<grid, kFmaThreads, KvFp32Wide::kSmem, a.stream>>>(
+        f.qs, f.ks, f.vs, f.dos, f.lse2, f.di, static_cast<float*>(a.dk),
+        static_cast<float*>(a.dv), static_cast<float*>(a.dq), a.q_seg, a.kv_seg,
+        a.hq, a.hkv, a.sq, f.sq_pad, a.skv, a.kv_len, a.causal, a.window,
+        a.sinks);
+  } else {
+    using L = KvFp32<D, FUSED>;
+    const cudaError_t cerr =
+        set_smem_once(bwd_kv_fp32<D, FUSED>, L::kSmem, smem_set);
+    if (cerr != cudaSuccess) return cerr;
+    const dim3 grid((a.skv + kFmaTile - 1) / kFmaTile, a.batch * a.hkv);
+    bwd_kv_fp32<D, FUSED><<<grid, kFmaThreads, L::kSmem, a.stream>>>(
+        f.qs, f.ks, f.vs, f.dos, f.lse2, f.di, static_cast<float*>(a.dk),
+        static_cast<float*>(a.dv), static_cast<float*>(a.dq), a.q_seg, a.kv_seg,
+        a.hq, a.hkv, a.sq, f.sq_pad, a.skv, a.kv_len, a.causal, a.window,
+        a.sinks);
+  }
   return cudaGetLastError();
 }
 
-// B3 with fp32 tiles: the prologue, then the Q-major kernel.
+// B3 with fp32 tiles: the prologue, then the Q-major kernel (at D = 256
+// bwd_dq_fp32_wide).
 template <int D>
 int launch_dq_fp32(const Args& a, void* workspace) {
-  using L = DqFp32<D>;
   Formed<float> f;
   const int err = run_prologue<float, float, D>(a, workspace, &f);
   if (err != 0) return err;
   static std::atomic<uint64_t> smem_set{0};
-  const cudaError_t cerr = set_smem_once(bwd_dq_fp32<D>, L::kSmem, smem_set);
-  if (cerr != cudaSuccess) return cerr;
-  const dim3 grid((a.sq + kFmaTile - 1) / kFmaTile, a.batch * a.hq);
-  bwd_dq_fp32<D><<<grid, kFmaThreads, L::kSmem, a.stream>>>(
-      f.qs, f.ks, f.vs, f.dos, f.lse2, f.di, static_cast<float*>(a.dq),
-      a.q_seg, a.kv_seg, a.hq, a.hkv, a.sq, f.sq_pad, a.skv, a.kv_len,
-      a.sm_scale, a.causal, a.window, a.sinks);
+  if constexpr (D > 128) {
+    const cudaError_t cerr =
+        set_smem_once(bwd_dq_fp32_wide<D>, DqFp32Wide::kSmem, smem_set);
+    if (cerr != cudaSuccess) return cerr;
+    const dim3 grid((a.sq + kFmaTile - 1) / kFmaTile, a.batch * a.hq);
+    bwd_dq_fp32_wide<D><<<grid, kFmaThreads, DqFp32Wide::kSmem, a.stream>>>(
+        f.qs, f.ks, f.vs, f.dos, f.lse2, f.di, static_cast<float*>(a.dq),
+        a.q_seg, a.kv_seg, a.hq, a.hkv, a.sq, f.sq_pad, a.skv, a.kv_len,
+        a.sm_scale, a.causal, a.window, a.sinks);
+  } else {
+    using L = DqFp32<D>;
+    const cudaError_t cerr = set_smem_once(bwd_dq_fp32<D>, L::kSmem, smem_set);
+    if (cerr != cudaSuccess) return cerr;
+    const dim3 grid((a.sq + kFmaTile - 1) / kFmaTile, a.batch * a.hq);
+    bwd_dq_fp32<D><<<grid, kFmaThreads, L::kSmem, a.stream>>>(
+        f.qs, f.ks, f.vs, f.dos, f.lse2, f.di, static_cast<float*>(a.dq),
+        a.q_seg, a.kv_seg, a.hq, a.hkv, a.sq, f.sq_pad, a.skv, a.kv_len,
+        a.sm_scale, a.causal, a.window, a.sinks);
+  }
   return cudaGetLastError();
 }
 
-// B2 (DQ) or B4: the prologue, then the KV-major kernel.
+// B2 (DQ) or B4: the prologue, then the KV-major kernel (at D = 256
+// bwd_fused_wgmma_wide).
 template <typename Tin, typename Tt, int D, bool DQ>
 int launch_kv_wgmma(const Args& a, int tiles, void* workspace) {
-  using L = BwdLayout<D, DQ>;
+  using L = std::conditional_t<(D > 128), WideLayout<DQ>, BwdLayout<D, DQ>>;
   Planes p;
-  const int err = prepare<Tin, Tt, D>(a, tiles, workspace, L::BQ, kKvRows, &p);
+  const int err = prepare<Tin, Tt, D>(a, tiles, workspace, L::BQ, L::kKv, &p);
   if (err != 0) return err;
   static std::atomic<uint64_t> smem_set{0};
-  const cudaError_t cerr =
-      set_smem_once(bwd_fused_wgmma<Tin, Tt, D, DQ>, L::kSmem, smem_set);
-  if (cerr != cudaSuccess) return cerr;
-  const dim3 grid((a.skv + kKvRows - 1) / kKvRows, a.batch * a.hkv);
-  bwd_fused_wgmma<Tin, Tt, D, DQ><<<grid, kBwdThreads, L::kSmem, a.stream>>>(
-      p.k_map, p.v_map, p.q_map, p.do_map, p.lse2, p.di,
-      static_cast<Tin*>(a.dk), static_cast<Tin*>(a.dv),
-      static_cast<float*>(a.dq), a.q_seg, a.kv_seg, a.hq, a.hkv, a.sq,
-      p.sq_pad, a.skv, a.kv_len, a.causal, a.window, a.sinks);
+  const dim3 grid((a.skv + L::kKv - 1) / L::kKv, a.batch * a.hkv);
+  if constexpr (D > 128) {
+    const cudaError_t cerr =
+        set_smem_once(bwd_fused_wgmma_wide<Tin, Tt, DQ>, L::kSmem, smem_set);
+    if (cerr != cudaSuccess) return cerr;
+    bwd_fused_wgmma_wide<Tin, Tt, DQ><<<grid, kBwdThreads, L::kSmem, a.stream>>>(
+        p.k_map, p.v_map, p.q_map, p.do_map, p.lse2, p.di,
+        static_cast<Tin*>(a.dk), static_cast<Tin*>(a.dv),
+        static_cast<float*>(a.dq), a.q_seg, a.kv_seg, a.hq, a.hkv, a.sq,
+        p.sq_pad, a.skv, a.kv_len, a.causal, a.window, a.sinks);
+  } else {
+    const cudaError_t cerr =
+        set_smem_once(bwd_fused_wgmma<Tin, Tt, D, DQ>, L::kSmem, smem_set);
+    if (cerr != cudaSuccess) return cerr;
+    bwd_fused_wgmma<Tin, Tt, D, DQ><<<grid, kBwdThreads, L::kSmem, a.stream>>>(
+        p.k_map, p.v_map, p.q_map, p.do_map, p.lse2, p.di,
+        static_cast<Tin*>(a.dk), static_cast<Tin*>(a.dv),
+        static_cast<float*>(a.dq), a.q_seg, a.kv_seg, a.hq, a.hkv, a.sq,
+        p.sq_pad, a.skv, a.kv_len, a.causal, a.window, a.sinks);
+  }
   return cudaGetLastError();
 }
 
@@ -1700,23 +2478,22 @@ int launch_fp32(BwdKernel kernel, const Args& a, void* workspace) {
   return launch_kv_fp32<D, false>(a, workspace);
 }
 
-// The instantiations of every kernel.  in_bf16: q/k/v/o/dO and the
-// gradients are bf16 (else fp32).  tiles: 0 fp32 on the FMA units (needs
-// fp32 inputs), 1 bf16 or 2 fp16 on the tensor cores.
+// The instantiations of every kernel at this library's head dims
+// (CFA_HEAD_DIMS).  in_bf16: q/k/v/o/dO and the gradients are bf16 (else
+// fp32).  tiles: 0 fp32 on the FMA units (needs fp32 inputs), 1 bf16 or 2
+// fp16 on the tensor cores.
 int dispatch(BwdKernel kernel, const Args& a, int head_dim, int in_bf16,
              int tiles, void* workspace) {
-  if (tiles == 1 || tiles == 2) {
-    if (in_bf16) {
-      if (head_dim == 64) return launch_tiles<__nv_bfloat16, 64>(kernel, a, tiles, workspace);
-      if (head_dim == 128) return launch_tiles<__nv_bfloat16, 128>(kernel, a, tiles, workspace);
-    } else {
-      if (head_dim == 64) return launch_tiles<float, 64>(kernel, a, tiles, workspace);
-      if (head_dim == 128) return launch_tiles<float, 128>(kernel, a, tiles, workspace);
-    }
-  } else if (tiles == 0 && !in_bf16) {
-    if (head_dim == 64) return launch_fp32<64>(kernel, a, workspace);
-    if (head_dim == 128) return launch_fp32<128>(kernel, a, workspace);
+#define CFA_CASE(D)                                                            \
+  if (head_dim == D) {                                                         \
+    if (tiles == 1 || tiles == 2) {                                            \
+      return in_bf16 ? launch_tiles<__nv_bfloat16, D>(kernel, a, tiles, workspace) \
+                     : launch_tiles<float, D>(kernel, a, tiles, workspace);    \
+    }                                                                          \
+    if (tiles == 0 && !in_bf16) return launch_fp32<D>(kernel, a, workspace);   \
   }
+  CFA_HEAD_DIMS(CFA_CASE)
+#undef CFA_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1724,10 +2501,10 @@ int dispatch(BwdKernel kernel, const Args& a, int head_dim, int in_bf16,
 
 extern "C" {
 
-// Rows of the KV tile that owns one dQ slice in B2 for tile code `tiles`:
-// dq_part has ceil(skv / tile) slices.
-int cfa_fa2_backward_kv_tile(int tiles) {
-  return tiles ? kKvRows : kFmaTile;
+// Rows of the KV tile that owns one dQ slice in B2 for tile code `tiles`
+// at `head_dim`: dq_part has ceil(skv / tile) slices.
+int cfa_fa2_backward_kv_tile(int tiles, int head_dim) {
+  return tiles ? fused_kv_rows(head_dim) : kFmaTile;
 }
 
 // 1: the entry points take the window, the sinks and segment ids (an
@@ -1787,7 +2564,7 @@ int cfa_fa2_backward_dq_reduce(const void* dq_part, void* dq, int batch, int hq,
                                int causal, int window, int sinks,
                                float sm_scale, int out_bf16, int tiles,
                                void* stream) {
-  const int tile = tiles ? kKvRows : kFmaTile;
+  const int tile = cfa_fa2_backward_kv_tile(tiles, head_dim);
   const int n_slices = (skv + tile - 1) / tile;
   const dim3 grid(std::min((sq * head_dim / 4 + 255) / 256, 64), batch * hq);
   cudaStream_t st = static_cast<cudaStream_t>(stream);

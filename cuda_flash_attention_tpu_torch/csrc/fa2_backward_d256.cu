@@ -1,0 +1,4 @@
+// The FlashAttention-2 backward (csrc/fa2_backward.cu) at head dim 256, built
+// as a library of its own so that nvcc compiles each width in parallel.
+#define CFA_HEAD_DIMS(X) X(256)
+#include "fa2_backward.cu"

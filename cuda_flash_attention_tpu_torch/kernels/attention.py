@@ -65,13 +65,13 @@ def _use_fused_bwd(q, k, bk_dkv: int, tile_dtype=None, window=None,
     cover only the live span.  The slice count is the JAX one (KV slices
     of `bk_dkv` rows); the byte cap applies to the buffer that the port's
     B2 allocates, one fp32 slice of q's size per `fused_kv_tile` KV rows
-    (128 with bf16/fp16 tiles, 64 in fp32), which is larger than the JAX
-    buffer."""
+    (128 with bf16/fp16 tiles, 64 at D 256 and in fp32), which is larger
+    than the JAX buffer."""
     if window is not None and causal and sinks == 0 and 2 * window < k.shape[2]:
         return False
     if k.shape[2] // bk_dkv > _FUSED_BWD_MAX_KV_SLICES:
         return False
-    slices = cdiv(k.shape[2], fused_kv_tile(q.dtype, tile_dtype))
+    slices = cdiv(k.shape[2], fused_kv_tile(q.dtype, tile_dtype, q.shape[3]))
     dq_part_bytes = 4 * q.shape[0] * q.shape[1] * slices * q.shape[2] * q.shape[3]
     return dq_part_bytes <= _FUSED_BWD_MAX_DQPART_BYTES
 

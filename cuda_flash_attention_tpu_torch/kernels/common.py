@@ -24,9 +24,10 @@ DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 # 10-bit mantissa in fp32) does neither; in fp16's normal range they agree.
 TILE_DTYPES = (None, torch.bfloat16, torch.float16)
 # Head dims the CUDA kernels take; the plain versions take any.  B1 (the
-# FA2 forward), B5 and B6 (paged decode and chunk attention) take all four
-# of the registry's; B2-B4, B7 and B8-B10 take 64 and 128, their D 32 and
-# 256 being ROADMAP.md's Queue B 2.
+# FA2 forward), B2-B4 (its backward), B5 and B6 (paged decode and chunk
+# attention) take all four of the registry's (FORWARD_HEAD_DIMS); B7 and
+# B8-B10 take 64 and 128 (KERNEL_HEAD_DIMS), their D 32 and 256 being
+# ROADMAP.md's Queue B 2.
 FORWARD_HEAD_DIMS = (32, 64, 128, 256)
 KERNEL_HEAD_DIMS = (64, 128)
 

@@ -32,7 +32,11 @@ wrapper allocates: B2 folds D_i in from O and dO, B3 and B4 copy the
 caller's.  `fused_prologue_plain` is its plain version.  B3 walks Q tiles
 over KV tiles of `dq_kv_tile` rows (`dq_kv_tiles`); B4 walks as B2 without
 writing dQ.  fp32 tiles run on the FMA units with 64-row Q and KV tiles
-(`fp32=True` in the walk functions).
+(`fp32=True` in the walk functions).  Every kernel takes head dims 32, 64,
+128 and 256 (FORWARD_HEAD_DIMS; D 32 and 256 in libraries of their own,
+common.kernel_library); at D 256 B2's and B4's blocks own 64 KV rows and
+B3 walks 32-row KV tiles with bf16 or fp16 tiles, and a launch there or at
+D 32 also counts under `<name>_d256` or `<name>_d32`.
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ import torch
 
 from cuda_flash_attention_tpu_torch.kernels import _build, launches
 from cuda_flash_attention_tpu_torch.kernels.common import (
-    KERNEL_HEAD_DIMS,
+    FORWARD_HEAD_DIMS,
     LN2,
     LOG2E,
     NO_WINDOW,
@@ -51,6 +55,7 @@ from cuda_flash_attention_tpu_torch.kernels.common import (
     build_element_mask,
     cdiv,
     head_dim_error,
+    kernel_library,
     tile_code,
     window_q_tiles,
     window_tiles,
@@ -59,10 +64,18 @@ from cuda_flash_attention_tpu_torch.kernels.fa2_forward import seg_args
 
 _SOURCE = "fa2_backward"
 # Rows of the KV tile that owns one dQ slice in B2, by tile code (the CUDA
-# kernel's kKvRows with bf16 or fp16 tiles, kFmaTile with fp32 tiles; the
-# library reports its own through cfa_fa2_backward_kv_tile and the wrapper
-# checks the two agree).
+# kernel's kKvRows with bf16 or fp16 tiles, kFmaTile with fp32 tiles), and
+# with bf16 or fp16 tiles at D 256 (WideLayout::kKv); the library reports
+# its own through cfa_fa2_backward_kv_tile and the wrapper checks the two
+# agree.
 _FUSED_KV_TILE = {0: 64, 1: 128, 2: 128}
+_WIDE_KV_TILE = 64
+
+
+def _kv_rows(code: int, head_dim: int) -> int:
+    """B2's KV rows per block (and per dQ slice) for tile code `code`."""
+    return _WIDE_KV_TILE if code and head_dim > 128 else _FUSED_KV_TILE[code]
+
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -75,6 +88,7 @@ ARGTYPES = {
     "cfa_fa2_backward_fused": [_P] * 9 + [_I] * 7 + [_F] + [_I] * 3 + [_P] * 2
                               + [_I] * 2 + [_P, _P],
     "cfa_fa2_backward_workspace": [_I] * 8,
+    "cfa_fa2_backward_kv_tile": [_I, _I],
     "cfa_fa2_backward_dq_reduce": [_P, _P] + [_I] * 9 + [_F] + [_I] * 2 + [_P],
     "cfa_fa2_backward_dkv": [_P] * 8 + [_I] * 7 + [_F] + [_I] * 3 + [_P] * 2
                             + [_I] * 2 + [_P, _P],
@@ -83,17 +97,17 @@ ARGTYPES = {
 }
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load(_SOURCE)
+def _lib(head_dim: int) -> ctypes.CDLL:
+    """The library of csrc/fa2_backward.cu that holds `head_dim`."""
+    lib = _build.load(kernel_library(_SOURCE, head_dim))
     if lib.cfa_fa2_backward_fused.argtypes is None:
-        lib.cfa_fa2_backward_kv_tile.argtypes = [_I]
-        lib.cfa_fa2_backward_kv_tile.restype = _I
-        for tile, rows in _FUSED_KV_TILE.items():
-            if lib.cfa_fa2_backward_kv_tile(tile) != rows:
-                raise RuntimeError("fa2_backward: the library's KV tile differs "
-                                   "from _FUSED_KV_TILE")
         for name, argtypes in ARGTYPES.items():
             getattr(lib, name).argtypes = argtypes
+        lib.cfa_fa2_backward_kv_tile.restype = _I
+        for code in _FUSED_KV_TILE:
+            if lib.cfa_fa2_backward_kv_tile(code, head_dim) != _kv_rows(code, head_dim):
+                raise RuntimeError("fa2_backward: the library's KV tile differs "
+                                   "from _kv_rows")
         lib.cfa_fa2_backward_workspace.restype = ctypes.c_longlong
         for fn in (lib.cfa_fa2_backward_fused, lib.cfa_fa2_backward_dkv,
                    lib.cfa_fa2_backward_dq, lib.cfa_fa2_backward_dq_reduce):
@@ -101,30 +115,32 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def fused_kv_tile(q_dtype: torch.dtype, tile_dtype) -> int:
-    """KV rows per dQ slice of B2 for these input and tile types."""
-    return _FUSED_KV_TILE[tile_code(q_dtype, tile_dtype)]
+def fused_kv_tile(q_dtype: torch.dtype, tile_dtype, head_dim: int = 64) -> int:
+    """KV rows per dQ slice of B2 for these input and tile types at
+    `head_dim`: 128 with bf16 or fp16 tiles (64 at D 256), 64 in fp32."""
+    return _kv_rows(tile_code(q_dtype, tile_dtype), head_dim)
 
 
 def fused_q_tile(head_dim: int, fp32: bool = False) -> int:
     """Q rows per step of B2's and B4's walk: with bf16 or fp16 tiles the
-    CUDA kernel's BwdLayout::BQ, 128 at D 64 and 64 at D 128; with fp32
-    tiles (`fp32`) 64."""
-    return 64 if fp32 or head_dim == 128 else 128
+    CUDA kernel's BwdLayout::BQ, 128 at D 32 and 64 and 64 at D 128, and
+    WideLayout::BQ, 64 at D 256; with fp32 tiles (`fp32`) 64."""
+    return 64 if fp32 or head_dim >= 128 else 128
 
 
 def fused_live_q_tiles(sq: int, skv: int, kv_len: int, causal: bool,
                        head_dim: int, fp32: bool = False, window=None,
                        sinks: int = 0) -> list[range]:
-    """For each KV tile of B2 (or B4), 128 rows with bf16 or fp16 tiles and
-    64 with fp32 tiles (`fp32`), the Q tiles (of `fused_q_tile` rows, over
-    padded lengths) that its block walks and whose dQ slice rows it
-    writes: under causal from the tile holding the KV tile's first row, to
+    """For each KV tile of B2 (or B4), 128 rows with bf16 or fp16 tiles (64
+    at D 256) and 64 with fp32 tiles (`fp32`), the Q tiles (of
+    `fused_q_tile` rows, over padded lengths) that its block walks and
+    whose dQ slice rows it writes: under causal from the tile holding the
+    KV tile's first row, to
     the last Q tile whose window reaches the KV tile (every tile for a tile
     holding a sink), none for a KV tile wholly past kv_len
     (common.window_q_tiles; csrc/hopper.cuh QWalk)."""
     bq = fused_q_tile(head_dim, fp32)
-    kv_tile = _FUSED_KV_TILE[0 if fp32 else 1]
+    kv_tile = _kv_rows(0 if fp32 else 1, head_dim)
     return [window_q_tiles(k0, kv_tile, cdiv(sq, bq), bq, causal=causal,
                            window=window, sinks=sinks, kv_len=kv_len)
             for k0 in range(0, skv, kv_tile)]
@@ -149,7 +165,7 @@ def fused_dq_slice_bytes(b: int, hq: int, sq: int, skv: int, kv_len: int,
     """fp32 bytes of B2's dQ slices (bf16 or fp16 tiles) that its main
     kernel writes plus those its reduce reads back: the rows of each KV
     tile's live Q tiles, and for each row the slices of `reduce_kv_tiles`."""
-    bq, kv_tile = fused_q_tile(head_dim), _FUSED_KV_TILE[1]
+    bq, kv_tile = fused_q_tile(head_dim), _kv_rows(1, head_dim)
     written = sum(min(len(t) * bq, sq - t.start * bq)
                   for t in fused_live_q_tiles(sq, skv, kv_len, causal, head_dim,
                                               window=window, sinks=sinks)
@@ -161,10 +177,12 @@ def fused_dq_slice_bytes(b: int, hq: int, sq: int, skv: int, kv_len: int,
 
 def dq_kv_tile(head_dim: int, fp32: bool = False) -> int:
     """KV rows per step of B3's walk: with bf16 or fp16 tiles the CUDA
-    kernel's DqLayout::BN, 128 at D 64 and 64 at D 128, over 128-row Q
-    tiles (DqLayout::BQ); with fp32 tiles (`fp32`) 64, over 64-row Q
-    tiles."""
-    return 64 if fp32 or head_dim == 128 else 128
+    kernel's DqLayout::BN, 128 at D 64, 64 at D 32 and 128 and 32 at D 256,
+    over 128-row Q tiles (DqLayout::BQ); with fp32 tiles (`fp32`) 64, over
+    64-row Q tiles."""
+    if fp32:
+        return 64
+    return {32: 64, 64: 128, 128: 64, 256: 32}[head_dim]
 
 
 def dq_kv_tiles(sq: int, kv_len: int, causal: bool, head_dim: int,
@@ -204,8 +222,8 @@ def _check(name, q, k, v, tile_dtype, same, stats):
             f"{name} kernel: inputs fp32/bf16 and tiles None/bf16/fp16; got "
             f"{q.dtype} with tile_dtype {tile_dtype}")
     d = q.shape[3]
-    if d not in KERNEL_HEAD_DIMS:
-        raise head_dim_error(name, d)
+    if d not in FORWARD_HEAD_DIMS:
+        raise head_dim_error(name, d, FORWARD_HEAD_DIMS)
     if q.shape[0] * max(q.shape[1], k.shape[1]) > 65535:
         raise NotImplementedError(f"{name} kernel: batch * heads > 65535")
     for t in (k, v) + same:
@@ -258,7 +276,7 @@ def fa2_backward_fused_aligned(q, k, v, o, do, lse, *, causal: bool,
     _check("fa2_backward_fused", q, k, v, tile_dtype, (do, o), (lse,))
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    n_slices = -(-skv // fused_kv_tile(q.dtype, tile_dtype))
+    n_slices = -(-skv // fused_kv_tile(q.dtype, tile_dtype, d))
     dq_part = torch.empty((b, hq, n_slices, sq, d), device=q.device,
                           dtype=torch.float32)
     dk = torch.empty_like(k)
@@ -267,7 +285,7 @@ def fa2_backward_fused_aligned(q, k, v, o, do, lse, *, causal: bool,
     ints, tail, held = _common_args(q, k, kv_len, sm_scale, causal, tile_dtype,
                                     **mask_kw)
     causal_i, window_i, sinks_i, _, _, in_bf16, tiles, stream = tail
-    lib = _lib()
+    lib = _lib(d)
     # Q_s, D_i and lse * log2(e) (and dO, K, V in the tile type where the
     # inputs are not in it), formed once by the kernel's prologue.
     workspace = _workspace(lib, q, k, in_bf16, tiles)
@@ -282,7 +300,7 @@ def fa2_backward_fused_aligned(q, k, v, o, do, lse, *, causal: bool,
         dq_part.data_ptr(), dq.data_ptr(), b, hq, sq, skv, d, kv_len, causal_i,
         window_i, sinks_i, sm_scale, in_bf16, tiles, stream)
     _build.check(lib, "cfa_fa2_backward_error_string", err, "fa2_backward_fused")
-    launches.count("fa2_backward_fused", window, held)
+    launches.count("fa2_backward_fused", window, held, head_dim=d)
     return dq, dk, dv
 
 
@@ -304,14 +322,14 @@ def fa2_backward_dq_aligned(q, k, v, do, lse, di, *, causal: bool,
     dq = torch.empty_like(q)
     ints, tail, held = _common_args(q, k, kv_len, sm_scale, causal, tile_dtype,
                                     **mask_kw)
-    lib = _lib()
+    lib = _lib(q.shape[3])
     workspace = _workspace(lib, q, k, tail[5], tail[6])
     err = lib.cfa_fa2_backward_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), di.data_ptr(), dq.data_ptr(), *ints, sm_scale,
         *tail[:7], workspace.data_ptr(), tail[7])
     _build.check(lib, "cfa_fa2_backward_error_string", err, "fa2_backward_dq")
-    launches.count("fa2_backward_dq", window, held)
+    launches.count("fa2_backward_dq", window, held, head_dim=q.shape[3])
     return dq
 
 
@@ -335,14 +353,14 @@ def fa2_backward_dkv_aligned(q, k, v, do, lse, di, *, causal: bool,
     dv = torch.empty_like(v)
     ints, tail, held = _common_args(q, k, kv_len, sm_scale, causal, tile_dtype,
                                     **mask_kw)
-    lib = _lib()
+    lib = _lib(q.shape[3])
     workspace = _workspace(lib, q, k, tail[5], tail[6])
     err = lib.cfa_fa2_backward_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(), *ints,
         *tail[:7], workspace.data_ptr(), tail[7])
     _build.check(lib, "cfa_fa2_backward_error_string", err, "fa2_backward_dkv")
-    launches.count("fa2_backward_dkv", window, held)
+    launches.count("fa2_backward_dkv", window, held, head_dim=q.shape[3])
     return dk, dv
 
 

@@ -64,7 +64,13 @@ train-shape rows, window 128 (the hybrid's local layers), window 512
 with 4 sinks (streaming's layers), window 128 at D 128 and 4 packed
 documents a row; a parent without cfa_fa2_backward_masks runs the same
 call without its window, sinks and ids, and its line then says
-`parent_function: "global"` and gives no output difference; B8_CASES: phase 16's 18 rows; B5_CASES:
+`parent_function: "global"` and gives no output difference;
+WIDE_BWD_CASES, for B2, B3, B4 and the pair at head dims 32 and 256 as
+b2-wide, b3-wide, b4-wide and b3-b4-wide: chip_smoke phase 29's causal
+shapes (D 32 at the train shape, D 256 at B1 Hq8 Hkv4 S4096) in bf16 and
+in fp16 tiles on fp32 inputs and phase 30's Gemma-2 call (B1 Hq8 Hkv4
+S2048 D256), the parent built at each case's head dim by a source beside
+it that includes it with CFA_HEAD_DIMS (`wide_source`); B8_CASES: phase 16's 18 rows; B5_CASES:
 phase 3's rows, phase 20's fp8 and int4 rows, serving's decode lengths
 and a long D128 case; B6_CASES: phase 12's five rows, phase 20's fp8 and
 int4 rows, T 1, 2 and 8 at phase 12's lengths, a one-page suffix (T
@@ -95,6 +101,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import functools
+import hashlib
 import json
 from pathlib import Path
 
@@ -151,6 +158,18 @@ MASKED_CASES = [
     dict(_TRAIN, name="train w512 s4", window=512, sinks=4),
     dict(_TRAIN, name="train D128 w128", d=128, window=128),
     dict(_TRAIN, name="train 4 documents", segments=4),
+]
+# B2, B3, B4 and the pair at head dims 32 and 256 (b2-wide, b3-wide,
+# b4-wide, b3-b4-wide): chip_smoke phase 29's causal shapes (D 32 at the
+# train shape, D 256 at B1 Hq8 Hkv4 S4096) in bf16 and in fp16 tiles on fp32
+# inputs, and phase 30's Gemma-2 training call (B1 Hq8 Hkv4 S2048 D256).
+WIDE_BWD_CASES = [
+    dict(_TRAIN, name="D32 train", d=32),
+    dict(_TRAIN, name="D32 train fp16 tiles", d=32, dtype="fp32", tile="fp16"),
+    dict(_TRAIN, name="D256 B1 S4096", b=1, hq=8, hkv=4, s=4096, d=256),
+    dict(_TRAIN, name="D256 B1 S4096 fp16 tiles", b=1, hq=8, hkv=4, s=4096, d=256,
+         dtype="fp32", tile="fp16"),
+    dict(_TRAIN, name="D256 Gemma-2 train", b=1, hq=8, hkv=4, s=2048, d=256),
 ]
 # B10: phase 16's rows and Stress-1 at D 128.
 B10_CASES = B9_CASES + [dict(B9_CASES[-1], name="Stress-1 D128", d=128)]
@@ -263,7 +282,9 @@ X_CASES = [dict(name=variant, variant=variant, b=r5.B, hq=r5.H, hkv=r5.H, s=r5.S
 CASES = {"b2": B2_CASES, "b3": SPLIT_CASES, "b4": SPLIT_CASES,
          "b3-b4": SPLIT_CASES, "b2-masked": MASKED_CASES,
          "b3-masked": MASKED_CASES, "b4-masked": MASKED_CASES,
-         "b3-b4-masked": MASKED_CASES, "b9": B9_CASES, "b10": B10_CASES,
+         "b3-b4-masked": MASKED_CASES, "b2-wide": WIDE_BWD_CASES,
+         "b3-wide": WIDE_BWD_CASES, "b4-wide": WIDE_BWD_CASES,
+         "b3-b4-wide": WIDE_BWD_CASES, "b9": B9_CASES, "b10": B10_CASES,
          "b1-fp32": B1_FP32_CASES, "b2-fp32": FP32_BWD_CASES,
          "b3-fp32": FP32_BWD_CASES, "b4-fp32": FP32_BWD_CASES,
          "b3-b4-fp32": FP32_BWD_CASES, "b8": B8_CASES, "b5": B5_CASES,
@@ -280,7 +301,11 @@ _FP32_BODIES = {"b2-fp32": "b2", "b3-fp32": "b3", "b4-fp32": "b4",
                 "b3-b4-fp32": "b3-b4"}
 _MASKED = {"b2-masked": "b2", "b3-masked": "b3", "b4-masked": "b4",
            "b3-b4-masked": "b3-b4"}
-_SAME_PROBLEM = {**_FP32_BODIES, **_MASKED, "b7-fp32": "b7"}
+# The head-dim 32 and 256 forms: the parent is built at each case's head
+# dim (wide_source).
+_WIDE = {"b2-wide": "b2", "b3-wide": "b3", "b4-wide": "b4", "b3-b4-wide": "b3-b4"}
+WIDE_HEAD_DIMS = (32, 256)
+_SAME_PROBLEM = {**_FP32_BODIES, **_MASKED, **_WIDE, "b7-fp32": "b7"}
 
 
 def backward_of(kernel: str) -> str:
@@ -603,7 +628,26 @@ def library_call(kernel: str, case, raw, kw):
         scale=kw["sm_scale"])
 
 
-def build_parent(kernel: str, path: str) -> ctypes.CDLL:
+def wide_source(path: str, head_dim: int) -> str:
+    """A source beside PATH that builds it at one head dim (as
+    csrc/fa2_backward_d32.cu builds csrc/fa2_backward.cu), named with the
+    head dim and PATH's digest, so that an edited parent is rebuilt.  A
+    parent from before head dims 32 and 256 ignores CFA_HEAD_DIMS, and its
+    launches at those widths then fail."""
+    src = Path(path)
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    out = src.with_name(f"{src.stem}_d{head_dim}.cu")
+    out.write_text(f"// {src.name} ({digest}) at head dim {head_dim}.\n"
+                   f"#define CFA_HEAD_DIMS(X) X({head_dim})\n#include \"{src.name}\"\n")
+    return str(out)
+
+
+def build_parent(kernel: str, path: str):
+    """The parent's library, typed as its wrapper calls it; for the
+    head-dim 32 and 256 forms ({kernel}-wide) one library a head dim."""
+    if kernel in _WIDE:
+        return {d: build_parent(backward_of(kernel), wide_source(path, d))
+                for d in WIDE_HEAD_DIMS}
     kernel = backward_of(kernel)
     if kernel == "b1-fp32":
         return b1_ab.build_parent(path)
@@ -695,7 +739,7 @@ def parent_b2(lib, q, k, v, o, do, lse, *, causal, sm_scale, kv_len, tile_dtype,
     b, hq, sq, d = q.shape
     in_bf16, tiles = int(q.dtype == torch.bfloat16), tile_code(q.dtype, tile_dtype)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    n_slices = -(-k.shape[2] // bwd.fused_kv_tile(q.dtype, tile_dtype))
+    n_slices = -(-k.shape[2] // bwd.fused_kv_tile(q.dtype, tile_dtype, d))
     dq_part = torch.empty((b, hq, n_slices, sq, d), device=q.device,
                           dtype=torch.float32)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -889,7 +933,12 @@ def parent_x(lib, q, k, v, *, variant):
 
 def calls(kernel: str):
     """(the parent's wrapper, taking the library first; the current one),
-    each returning a tuple of outputs."""
+    each returning a tuple of outputs.  The head-dim 32 and 256 forms pick
+    the parent's library of q's head dim."""
+    if kernel in _WIDE:
+        parent, current = calls(backward_of(kernel))
+        return (lambda libs, q, *x, **kw: parent(libs[q.shape[3]], q, *x, **kw),
+                current)
     return {
         "b2": (parent_b2, bwd.fa2_backward_fused_aligned),
         "b3": (parent_b3, current_b3),

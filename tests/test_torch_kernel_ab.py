@@ -12,8 +12,9 @@ cases hold phase 3's shape, the B6 cases phase 12's, the B7 cases phase
 and bounds count what the script says, each kernel's current wrapper takes
 its problem as the script calls it, and the parent wrappers of B2, B3 and
 B4 call the C entry points with the arguments their argtypes declare, as do
-B5's, B6's, B7's, B8's and X's (a fake library stands in for the build).  CPU
-only: no kernel runs here."""
+B5's, B6's, B7's, B8's and X's (a fake library stands in for the build);
+the head-dim 32 and 256 cases hold phase 29's and 30's shapes and build a
+parent at each head dim.  CPU only: no kernel runs here."""
 
 import re
 import types
@@ -421,6 +422,60 @@ def test_parent_b2_with_a_workspace_runs_its_dq_reduce(monkeypatch, kind):
     if kind == "current":  # the window and sinks follow the causal flag
         fused = dict(lib.calls)["cfa_fa2_backward_fused"]
         assert fused[17:20] == (1, 16, 4)
+
+
+def test_wide_cases_are_chip_smokes_phase_29_and_30_shapes():
+    """The head-dim 32 and 256 forms of B2, B3, B4 and the pair share one
+    case list: phase 29's causal shapes (D 32 at the train shape, D 256 at
+    phase 28's B1 Hq8 Hkv4 S4096) in bf16 and in fp16 tiles on fp32
+    inputs, and phase 30's Gemma-2 call; problems, bounds and wrappers are
+    the unmasked kernels'."""
+    cases = kernel_ab.WIDE_BWD_CASES
+    assert all(kernel_ab.CASES[k] is cases
+               for k in ("b2-wide", "b3-wide", "b4-wide", "b3-b4-wide"))
+    assert {c["d"] for c in cases} == set(kernel_ab.WIDE_HEAD_DIMS) == {32, 256}
+    b, hq, hkv, s = chip_smoke.WIDE_B1_SHAPES[256]
+    assert any((c["b"], c["hq"], c["hkv"], c["s"], c["d"]) == (b, hq, hkv, s, 256)
+               for c in cases)
+    b, hq, hkv, s = chip_smoke.WIDE_B1_SHAPES[32]
+    assert any((c["b"], c["hq"], c["hkv"], c["s"], c["d"]) == (b, hq, hkv, s, 32)
+               for c in cases)
+    g = chip_smoke.GEMMA2_2B
+    assert any((c["hq"], c["hkv"], c["s"], c["d"]) ==
+               (g["n_heads"], g["n_kv_heads"], 2048, g["head_dim"]) for c in cases)
+    assert all(c["causal"] for c in cases)
+    for wide in ("b2-wide", "b3-wide", "b4-wide", "b3-b4-wide"):
+        base = wide[:-5]
+        assert kernel_ab.backward_of(wide) == base
+        assert kernel_ab.flops(wide, cases[2]) == kernel_ab.flops(base, cases[2])
+
+
+def test_wide_parents_are_built_at_each_head_dim(monkeypatch, tmp_path):
+    """A wide parent is its source built once a head dim through a source
+    beside it that defines CFA_HEAD_DIMS and includes it (named with the
+    parent's digest); the parent wrapper takes the library of q's head
+    dim."""
+    parent = tmp_path / "fa2_backward.cu"
+    parent.write_text("// a parent\n")
+    built = {}
+
+    def compile_source(path, stem):
+        built[stem] = Path(path).read_text()
+        return _FakeLib("current")
+
+    monkeypatch.setattr(b1_ab, "compile_source", compile_source)
+    libs = kernel_ab.build_parent("b3-b4-wide", str(parent))
+    assert sorted(libs) == [32, 256]
+    for d in (32, 256):
+        text = built[f"fa2_backward_d{d}_parent"]
+        assert f"#define CFA_HEAD_DIMS(X) X({d})" in text
+        assert '#include "fa2_backward.cu"' in text
+    seen = []
+    monkeypatch.setattr(kernel_ab, "parent_b2", lambda lib, q, *a, **k: seen.append(lib))
+    parent_fn, _ = kernel_ab.calls("b2-wide")
+    parent_fn(libs, torch.empty(1, 1, 1, 256))
+    parent_fn(libs, torch.empty(1, 1, 1, 32))
+    assert seen == [libs[256], libs[32]]
 
 
 def test_masked_cases_are_chip_smokes_phase_26_rows():

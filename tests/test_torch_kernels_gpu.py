@@ -2099,22 +2099,119 @@ def test_fa2_forward_quant_masks_match_plain(cuda, storage, q_dtype, compute, d,
     assert lse_err.max().item() <= (1e-3 if compute == torch.bfloat16 else 1e-5)
 
 
+# ---------------------------------------------------------------------------
+# B2, B3 and B4 at head dims 32 and 256 (chip_smoke.py phase 29 holds them
+# at the training shapes): every input and tile type, causal, a window with
+# sinks, a band whose last rows keep no key and segment ids, Sq != Skv both
+# ways, kv_len inside the last tile and GQA 16/2, each against the plain
+# backward on the CPU; each launch counted under `<name>_d32` or
+# `<name>_d256`; fp16 tiles on fp32 inputs held to FP16_BWD_TOL with the
+# bf16 instantiation failing it; dQ of a row that keeps no key exactly 0.
+# ---------------------------------------------------------------------------
+WIDE_BWD_CASES = pytest.mark.parametrize(
+    "b,hq,hkv,sq,skv,causal,window,sinks,n_seg", [
+        (1, 4, 2, 1000, 1000, True, None, 0, 0),   # kv_len inside the last tile
+        (1, 4, 2, 300, 100, True, None, 0, 0),     # Sq > Skv
+        (1, 4, 2, 128, 384, False, None, 0, 0),    # Sq < Skv
+        (1, 16, 2, 384, 384, True, None, 0, 0),    # GQA 16/2
+        (1, 4, 2, 512, 512, True, 100, 4, 0),      # a window with sinks
+        (2, 4, 2, 512, 512, False, -100, 0, 0),    # a band: rows with no key
+        (2, 4, 2, 512, 512, True, None, 0, 3),     # packed documents
+        (1, 4, 2, 300, 500, True, None, 0, 2),     # ids with Sq != Skv
+    ], ids=str)
+BWD_NAMES = ("fa2_backward_fused", "fa2_backward_dq", "fa2_backward_dkv")
+
+
+def _wide_outputs(g, kw):
+    """(B2's dQ, dK, dV, B3's dQ, B4's dK, dV) on the card."""
+    split = (g["q"], g["k"], g["v"], g["do"], g["lse"], g["di"])
+    return (*fa2_backward.fa2_backward_fused_aligned(
+        g["q"], g["k"], g["v"], g["o"], g["do"], g["lse"], **kw),
+        fa2_backward.fa2_backward_dq_aligned(*split, **kw),
+        *fa2_backward.fa2_backward_dkv_aligned(*split, **kw))
+
+
+@BWD_VARIANTS
 @pytest.mark.parametrize("d", [32, 256])
-@pytest.mark.parametrize("kernel", ["b2", "b7", "b8", "b9"])
+@WIDE_BWD_CASES
+def test_backward_head_dims_match_plain(cuda, dtype, tile, d, b, hq, hkv, sq, skv,
+                                        causal, window, sinks, n_seg):
+    x, kw = _masked_problem(dtype, tile, d, b, hq, hkv, sq, skv, causal, window,
+                            sinks, n_seg, seed=sq + skv + d)
+    g, gkw = _to(x, kw, cuda)
+    before = [LAUNCHES[f"{n}_d{d}"] for n in BWD_NAMES]
+    got = _wide_outputs(g, gkw)
+    torch.cuda.synchronize()
+    assert [LAUNCHES[f"{n}_d{d}"] for n in BWD_NAMES] == [n + 1 for n in before]
+    plain = fa2_backward.fa2_backward_fused_plain(
+        x["q"], x["k"], x["v"], x["o"], x["do"], x["lse"], **kw)
+    want = plain + plain
+    fp16_gate = tile == torch.float16 and dtype == torch.float32
+    tol = (FP16_BWD_TOL if fp16_gate else
+           5e-2 if (tile is not None or dtype == torch.bfloat16) else 2e-5)
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype and a.shape == w.shape
+        assert bool(torch.isfinite(a.float()).all())
+        assert _rel_err(a, w) <= tol
+    if fp16_gate:
+        control = _wide_outputs(g, dict(gkw, tile_dtype=torch.bfloat16))
+        assert max(_rel_err(c, w) for c, w in zip(control, want)) > tol
+    dead = x["lse"] < -1e30
+    if dead.any():
+        for dq in (got[0], got[3]):
+            assert bool((dq.cpu()[dead] == 0).all())
+
+
+@pytest.mark.parametrize("dtype,tile", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float16),
+    (torch.float32, None)], ids=["bf16", "fp32-in-fp16-tiles", "fp32"])
+@pytest.mark.parametrize("masked", [False, True], ids=["causal", "w128-s4-3-documents"])
+def test_backward_d256_bitwise_deterministic(cuda, dtype, tile, masked):
+    """Two runs of B2, B3 and B4 at D 256 (B1 Hq8 Hkv2 S2048) give the same
+    bits: each dQ slice has one writer, the reduce adds in KV-tile order,
+    and no block adds into another's output."""
+    window, sinks, n_seg = (128, 4, 3) if masked else (None, 0, 0)
+    x, kw = _masked_problem(dtype, tile, 256, 1, 8, 2, 2048, 2048, True, window,
+                            sinks, n_seg, seed=256)
+    g, gkw = _to(x, kw, cuda)
+    for a, r in zip(_wide_outputs(g, gkw), _wide_outputs(g, gkw)):
+        assert torch.equal(a, r)
+
+
+@pytest.mark.parametrize("dtype,tile", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, None)], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("d", [32, 256])
+def test_fused_reduce_reads_no_dead_slice_at_d32_d256(cuda, dtype, tile, d):
+    """As test_fa2_backward_fused_reads_no_dead_slice with the head dim's
+    own dQ slices (64 KV rows at D 256 with bf16 tiles): a NaN-filled
+    tensor of dq_part's size freed just before the call; causal, kv_len
+    inside the last KV tile."""
+    x, kw = _fused_problem(dtype, tile, d, 1, 4, 2, 1000, 1000, True, seed=5)
+    q, k = x[0], x[1]
+    n_slices = -(-k.shape[2] // fa2_backward.fused_kv_tile(q.dtype, tile, d))
+    assert n_slices == (16 if tile is None or d == 256 else 8)
+    bait = torch.full((q.shape[0], q.shape[1], n_slices) + q.shape[2:],
+                      float("nan"), device=cuda)
+    del bait
+    got = fa2_backward.fa2_backward_fused_aligned(*x, **kw)
+    torch.cuda.synchronize()
+    want = fa2_backward.fa2_backward_fused_plain(*x, **kw)
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g.float()).all())
+        assert _rel_err(g, w) <= (2e-5 if tile is None else 5e-2)
+
+
+@pytest.mark.parametrize("d", [32, 256])
+@pytest.mark.parametrize("kernel", ["b7", "b8", "b9", "b10"])
 def test_kernels_keeping_d64_d128_refuse_the_others(cuda, kernel, d):
-    """B2, B7, B8 and B9 (and B3, B4, B10 with them) take D 64 and 128 only:
-    on a CUDA tensor at D 32 or 256 they raise, naming Queue B 2, and fall
-    back to nothing."""
+    """B7, B8, B9 and B10 take D 64 and 128 only: on a CUDA tensor at D 32
+    or 256 they raise, naming Queue B 2, and fall back to nothing."""
     from cuda_flash_attention_tpu_torch.kernels import fa2_forward_quant as fq
 
     x = torch.zeros(1, 2, 128, d, device=cuda)
     before = dict(LAUNCHES)
     with pytest.raises(NotImplementedError, match="Queue B 2"):
-        if kernel == "b2":
-            lse = torch.zeros(1, 2, 128, device=cuda)
-            fa2_backward.fa2_backward_fused_aligned(
-                x, x, x, x, x, lse, causal=True, sm_scale=0.125, kv_len=128)
-        elif kernel == "b7":
+        if kernel == "b7":
             k = torch.zeros(1, 2, 128, d, dtype=torch.int8, device=cuda)
             sc = torch.ones(1, 2, 128, device=cuda)
             fq.fa2_forward_quant_aligned(x, k, sc, k, sc, causal=False, sm_scale=0.125,
@@ -2122,7 +2219,9 @@ def test_kernels_keeping_d64_d128_refuse_the_others(cuda, kernel, d):
         elif kernel == "b8":
             fa2_forward.fa2_forward_small_aligned(x, x, x, causal=False, sm_scale=0.125,
                                                   kv_len=128)
-        else:
+        elif kernel == "b9":
             baselines.fa1_attention(x, x, x)
+        else:
+            baselines.naive_fa2_attention(x, x, x)
     assert dict(LAUNCHES) == before
 
