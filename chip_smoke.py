@@ -6,12 +6,12 @@ NVIDIA card.
 
 Phases (any failure raises and the script exits non-zero):
   1. setup: the card's name and power limit; the eight CUDA sources and
-     the D 32 and D 256 libraries of B1, B5 and B6 (csrc/*_d32.cu,
-     *_d256.cu) built from cuda_flash_attention_tpu_torch/csrc/ with nvcc
+     the D 32 and D 256 libraries of B1-B10 (csrc/*_d32.cu, *_d256.cu:
+     BUILD_ORDER) built from cuda_flash_attention_tpu_torch/csrc/ with nvcc
      (sm_90a), all at once, each source's compile seconds printed; ptxas's registers, spills and wgmma notes for every
      instantiation of the backward's bf16/fp16-tile kernels (B2's
      prologue, main kernel and dQ reduce; B3's kernel; B4's, the main
-     kernel without its dQ phase) and of the fp32 FMA block's (B10, B1's
+     kernel without its dQ phase) and of the fp32 FMA block's (B10, B9, B1's
      fp32 body, B8's fp32 body, the backward's `bwd_kv_fp32` (B4, and
      B2's with FUSED), `bwd_dq_fp32` (B3) and their fp32 prologue, at D 64
      and 128), of B5's split-KV kernel (48: six caches x two q types x
@@ -21,9 +21,10 @@ Phases (any failure raises and the script exits non-zero):
      wgmma and fp32 bodies (48: four storages x two q types x D 64 and 128
      each, its FMA body with and without segment ids), of every D 32 and D
      256 instantiation (B1's wgmma and fp32 bodies, B5, B6's three bodies,
-     and the backward's, csrc/fa2_backward_d32.cu and _d256.cu: 22 kernels
-     each) and of X's five variants, failing on a spilled byte, a wgmma
-     serialisation note or a missing instantiation;
+     the backward's, csrc/fa2_backward_d32.cu and _d256.cu: 22 kernels
+     each; B9 and B10, B8's two bodies and B7's two: WIDE_FUNCTIONS) and
+     of X's five variants, failing on a
+     spilled byte, a wgmma serialisation note or a missing instantiation;
   2. kernel B1 (FA2 forward) against its plain PyTorch version at the
      serving prefill shapes (the serving run's largest, B4 S1536, included)
      and at the train shape (B4 S2048), and at the edges of its 128-row
@@ -52,7 +53,8 @@ Phases (any failure raises and the script exits non-zero):
      split B3 + B4, forced by 128-row BlockSizes) against the plain
      versions, and bitwise-equal gradients from two runs of each;
   8. one AdamW train step at the base width in fp32 on the card (kernels)
-     and on the CPU (plain versions) from the same seeded weights;
+     and on the CPU (plain versions) from the same seeded weights, tokens
+     (1, 129);
   9. training TransformerConfig.base() (bf16) at B4 S2048: 2 warm-up and 3
      timed steps on one batch, tokens/s over the timed steps, mean and
      median step time, peak memory, the loss
@@ -72,10 +74,10 @@ Phases (any failure raises and the script exits non-zero):
      the card's plain greedy tokens; B6's fp32 tile body's launches over
      the phase (the kernel line's `fp32_tile`);
  14. speculative serving at TransformerConfig.base() with an int8 cache:
-     phase 5's 12 requests (12 new tokens each) with k 4, a one-layer draft
+     phase 5's 12 requests (8 new tokens each) with k 4, a one-layer draft
      and prompt lookup:
      tokens/s, acceptance, rounds, B1/B5/B6 launches, and where a round's
-     time goes (one profiled window of four rounds, as phase 6, with B6's
+     time goes (one profiled window of three rounds, as phase 6, with B6's
      time and share of a round's busy time);
  15. prefix caching: 16 requests sharing a 1024-token system prompt, TTFT
      of the hits against an uncached engine, shared pages, launches; then
@@ -113,7 +115,7 @@ Phases (any failure raises and the script exits non-zero):
      against their plain versions, times (back-to-back and device) and
      bounds (int4 at 0.5 byte);
  21. quantized serving at TransformerConfig.base(): phase 5's 12 requests
-     (32 new tokens each) on an int8 cache (the control), an e4m3 cache, an int4 cache, int8
+     (16 new tokens each) on an int8 cache (the control), an e4m3 cache, an int4 cache, int8
      W8A8 weights and int4 weights (int8 caches), and chunked prefill 512
      on the int4 cache: tokens/s, mean step, TTFT, B1/B5/B6 launches; a
      profiled window of int4-weight decode steps; fp32 card-vs-CPU parity
@@ -131,11 +133,11 @@ Phases (any failure raises and the script exits non-zero):
      burst-8 engine, the burst-1 engine and an eager decode_step loop,
      which must be bitwise equal; the engine at bursts 1 and 8 with
      engine_overhead_x; phase 5's 12 requests at bursts 1 and 8 (the same
-     tokens, graph replays, bursts, launches, 32 new tokens each; burst
+     tokens, graph replays, bursts, launches, 16 new tokens each; burst
      8 profiled as phase 6, whose burst-1 launches and idle share it prints
      beside); train
-     tokens/s at B4 S2048 (the median of two slopes between chains of 2
-     and 10 AdamW steps, with their min/max);
+     tokens/s at B4 S2048 (one slope between chains of 2 and 10 AdamW
+     steps);
  25. sliding windows and attention sinks on the serving path: B1 (bf16
      tiles and fp32) at B4 Hq16 Hkv8 S1536 D64, window 128 with and
      without 4 sinks, at B1 S8192 window 1024 beside its global causal time
@@ -149,7 +151,7 @@ Phases (any failure raises and the script exits non-zero):
      the band as a boolean mask.  Then the hybrid configuration (window 128
      on every other layer, GPT-OSS's pattern) at base width on an int8
      cache, phase 5's mix with four prompts of 1024-1536 tokens, chunked
-     prefill 512, 32 new tokens each: tokens/s, TPOT, TTFT, each window
+     prefill 512, 16 new tokens each: tokens/s, TPOT, TTFT, each window
      group's peak live pages,
      no decoding slot's local group above 2 pages after any step, windowed
      launches of B1, B5 and B6; and the streaming configuration (window 512,
@@ -178,7 +180,7 @@ Phases (any failure raises and the script exits non-zero):
      finite falling loss, step time, tokens/s, peak memory, windowed
      launches (hybrid: B3 and B4, B2 on the global layers; streaming: B2
      only); (d) one fp32 AdamW step of each (hybrid window 64, streaming
-     window 96 with 4 sinks) on tokens (2, 257), card against CPU, as
+     window 96 with 4 sinks) on tokens (1, 257), card against CPU, as
      phase 8.
  27. a Gemma-2-2B-width hybrid model at head_dim 256 (google/gemma-2-2b's
      published widths: d_model 2304, 8/4 heads of 256, d_ff 9216, vocab
@@ -186,7 +188,7 @@ Phases (any failure raises and the script exits non-zero):
      weights random from a seed; SwiGLU for GeGLU, no soft-capping, no
      post-norms, no embedding scale) served on an int8 cache, 8 slots,
      CUDA-graph decode: 12 requests (8 of 64-1500 tokens, 4 of 4500-6000),
-     chunked prefill 512, 64 greedy tokens each: tokens/s, TPOT, TTFT, each
+     chunked prefill 512, 32 greedy tokens each: tokens/s, TPOT, TTFT, each
      window group's peak live pages (the local group within its live bound
      after every step), B1's, B5's and B6's launches at D 256, windowed and
      global; the same widths at 2 layers in fp32, card against CPU, greedy
@@ -220,6 +222,25 @@ Phases (any failure raises and the script exits non-zero):
      (B3's and B4's D 256 launches); one fp32 AdamW step of the same
      attention widths at 2 layers (vocab 4096, tokens (1, 257)), card
      against CPU, as phase 8.
+ 31. B7, B8, B9 and B10 at D 32 and 256 and the path that needs them: B9
+     and B10 at B8 H16 S2048 D32 (Stress-1 at the reference's head dim) and
+     B1 H8 S4096 D256 in fp32; B8 at Small-1, Edge-NonPowerOf2 and
+     Edge-SmallSeq in fp32, bf16 and fp16 tiles, full, causal, window 24
+     with 2 sinks and 2 segments (the route taking B8 at every width); B7
+     at D 32 (B4 Hq16 Hkv8 S2048) and D 256 (B1 Hq8 Hkv4 S4096, Gemma-2-2B's
+     attention width) over int8, e4m3, e5m2 and int4 in bf16 and fp32
+     compute, causal, window 160 and 2 segments; each against its plain
+     version with a control that must fail the gate, device time beside
+     the bound, the plain version and SDPA (B7: B1 and SDPA on the
+     dequantized bf16 K/V); the public quantized-KV API at both widths over
+     the four storages (B7's D 32 and D 256 launches); then the reference
+     contract: the CLI on a B8_H16_S2048_D32 directory (fa2 in every mode
+     and precision, fa1, fa2-naive and naive forward, an Edge-NonPowerOf2
+     D 32 directory taking B8) and on a B1_H8_S4096_D256 one (fa2
+     forward_backward fp32, fa1, fa2-naive, an Edge-NonPowerOf2 D 256
+     directory taking B8), every file against the fp32 oracle, and the
+     harness's forward experiment and fa1 rows re-made at D 32 (every row
+     PASS); B8's, B9's and B10's D 32 and D 256 launches come from there.
 Serving's decode steps run as CUDA graphs (decode/graphs.py); each
 wrapper's launch count adds what a capture recorded at every replay.
 The line before the last is the kernel JSON (eleven kernels; B1, B5, B6 and
@@ -227,7 +248,8 @@ B8 each with its windowed row and windowed launches under "window", B2, B3
 and B4 with phase 26's windowed and segmented rows under "window" and
 "segments", B8 with its segmented row; B1-B4 and B8 with
 "launches_window" and "launches_segments"; B1's segmented row under
-"segments"); the
+"segments"; B1-B10 with their D 32 and D 256 rows under "d32" and "d256",
+the launches of those widths on their paths beside them); the
 last line is the JSON contract line {"ok": true, "device": {...}}.
 It imports torch and the port only, never jax or the JAX package.
 """
@@ -310,7 +332,7 @@ def nbytes(*tensors) -> int:
 BWD_FUNCTIONS = {"B2": ((r"bwd_fused_wgmma\w*Lb1E", r"bwd_prologueI(?!ffL)", "dq_reduce"), 18),
                  "B3": (("bwd_dq_wgmma",), 8),
                  "B4": ((r"bwd_fused_wgmma\w*Lb0E",), 8)}
-FP32_FUNCTIONS = {"baselines": (("naive_fa2_fp32",), 2),
+FP32_FUNCTIONS = {"baselines": (("naive_fa2_fp32", "fa1_fp32"), 4),
                   "fa2_forward": (("fa2_fwd_fp32",), 4),
                   "fa2_forward_small": (("small_fp32",), 4),
                   "fa2_backward": (("bwd_kv_fp32", "bwd_dq_fp32", "bwd_prologueIffL"), 8)}
@@ -331,7 +353,10 @@ B7_FUNCTIONS = (("fa2_fwd_quant_wgmma", "fa2_fwd_quant_fp32"), 48)
 # B1's wgmma body (2 input types x 2 tile types) and fp32 body (with and
 # without ids); B5 and B6 over their caches (six at D 32; no fp32 cache at
 # D 256) x 2 q types x (B5) groups of at most 2 and 8 or (B6) the split
-# body's two compute types, the bf16 and the fp32 tile body.
+# body's two compute types, the bf16 and the fp32 tile body; B9 and B10
+# (one each); B8's mma body (2 input types x 2 tile types) and fp32 body,
+# each with and without ids; B7's wgmma body (4 storages x 2 q types) and
+# fp32 body (the same, with and without ids).
 B1_WIDE_FUNCTIONS = (("fa2_fwd_wgmma", "fa2_fwd_fp32"), 6)
 WIDE_FUNCTIONS = {
     "fa2_forward_d32": B1_WIDE_FUNCTIONS, "fa2_forward_d256": B1_WIDE_FUNCTIONS,
@@ -339,6 +364,10 @@ WIDE_FUNCTIONS = {
     "paged_decode_d256": (("paged_decode_kernel",), 20),
     "paged_chunk_d32": (("paged_chunk_split", "paged_chunk_mma", "paged_chunk_fp32"), 48),
     "paged_chunk_d256": (("paged_chunk_split", "paged_chunk_mma", "paged_chunk_fp32"), 40),
+    **{f"baselines_d{d}": (("fa1_fp32", "naive_fa2_fp32"), 2) for d in (32, 256)},
+    **{f"fa2_forward_small_d{d}": (("small_mma", "small_fp32"), 10) for d in (32, 256)},
+    **{f"fa2_forward_quant_d{d}": (("fa2_fwd_quant_wgmma", "fa2_fwd_quant_fp32"), 24)
+       for d in (32, 256)},
 }
 # The backward's libraries of head dims 32 and 256 (csrc/fa2_backward_d32.cu,
 # _d256.cu): per input type (bf16, fp32) and 16-bit tile type (bf16, fp16)
@@ -402,6 +431,55 @@ def check_ptxas(text: str, label: str, functions, at_least: int) -> None:
             raise AssertionError(f"ptxas: {label}'s {fn} spills or serialises wgmma")
     if found < at_least:
         raise AssertionError(f"ptxas: only {found} {label} entry functions reported")
+
+
+# Every source, the longest compiles first (by their measured nvcc seconds),
+# so that no core idles while the last long one runs.
+BUILD_ORDER = ("paged_chunk", "fa2_forward_quant", "fa2_backward", "paged_chunk_d256",
+               "fa2_forward_quant_d256", "fa2_forward_quant_d32", "fa2_backward_d256",
+               "fa2_backward_d32", "paged_chunk_d32", "paged_decode", "fa2_forward_small",
+               "fa2_forward", "fa2_forward_small_d256", "fa2_forward_small_d32",
+               "paged_decode_d256", "paged_decode_d32", "fa2_forward_d256",
+               "fa2_forward_d32", "r5_d128_fwd", "baselines", "baselines_d256",
+               "baselines_d32")
+
+
+def phase_build(_build) -> dict:
+    """Phase 1's build and ptxas gates: every source of BUILD_ORDER built in
+    parallel, then every gated instantiation's registers, spills and wgmma
+    notes.  Returns the new builds' compiler logs by source."""
+    t0 = time.perf_counter()
+    build_logs = _build.build(*BUILD_ORDER)
+    log(f"phase 1: built {sorted(build_logs)} in {time.perf_counter() - t0:.1f} s; "
+        f"each source's nvcc seconds: "
+        f"{json.dumps({n: round(t, 1) for n, t in sorted(_build.BUILD_SECONDS.items())})}")
+    for name, text in build_logs.items():
+        for line in text.splitlines():
+            if any(w in line for w in ("registers", "spill", "error",
+                                       "Performance")):
+                log(f"  ptxas {name}: {line.strip()}")
+    bwd_log = build_logs.get("fa2_backward") or ptxas_log(_build, "fa2_backward")
+    for label, (functions, count) in BWD_FUNCTIONS.items():
+        check_ptxas(bwd_log, label, functions, count)
+    for name, (functions, count) in FP32_FUNCTIONS.items():
+        text = bwd_log if name == "fa2_backward" else (
+            build_logs.get(name) or ptxas_log(_build, name))
+        check_ptxas(text, "fp32 block", functions, count)
+    check_ptxas(build_logs.get("paged_decode") or ptxas_log(_build, "paged_decode"),
+                "B5", *B5_FUNCTIONS)
+    check_ptxas(build_logs.get("paged_chunk") or ptxas_log(_build, "paged_chunk"),
+                "B6", *B6_FUNCTIONS)
+    check_ptxas(build_logs.get("r5_d128_fwd") or ptxas_log(_build, "r5_d128_fwd"),
+                "X", *X_FUNCTIONS)
+    check_ptxas(build_logs.get("fa2_forward_quant")
+                or ptxas_log(_build, "fa2_forward_quant"), "B7", *B7_FUNCTIONS)
+    for name, (functions, count) in WIDE_FUNCTIONS.items():
+        check_ptxas(build_logs.get(name) or ptxas_log(_build, name), name, functions,
+                    count)
+    for name in WIDE_BWD_LIBRARIES:
+        check_ptxas(build_logs.get(name) or ptxas_log(_build, name), name,
+                    *BWD_WIDE_FUNCTIONS)
+    return build_logs
 
 
 def phase_b1(torch, fa2, b1_ab):
@@ -1257,7 +1335,7 @@ def phase_spec_serving(torch, np, transformer, decode, dataclasses):
     params = transformer.init_params(
         torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
     prompts = serving_mix(np, cfg)
-    new_tokens = 12
+    new_tokens = 8
     out = {}
     for mode in ("draft", "prompt_lookup"):
         kw = (dict(draft_params=draft_of(params),
@@ -1287,7 +1365,7 @@ def phase_spec_serving(torch, np, transformer, decode, dataclasses):
         log(f"spec serving {mode}", json.dumps(out[mode]))
         if mode == "draft":
             phase_profile(torch, np, eng, "spec profile (draft, k 4)",
-                          new_tokens=40, steps=4)
+                          new_tokens=32, steps=3)
         del eng
     return out
 
@@ -1592,12 +1670,19 @@ def phase_fp16_tiles(torch, F, fp32_bwd, attention, fa2, bwd):
     return b1, rows
 
 
-def phase_cli(torch, np, cli, io, reference, build_dir):
-    """The CLI end to end on a numpy-seeded Stress-1 data directory: fa2 in
-    every mode and precision, fa1, fa2-naive and naive forward in fp32, fa2
-    forward on an Edge-NonPowerOf2 directory (B8); one run as
-    `python -m cuda_flash_attention_tpu_torch.cli` in a subprocess.  Every
-    written file is held to the fp32 oracle."""
+CLI_RUNS = tuple((p, m) for p in ("fp32", "fp16", "bf16")
+                 for m in ("forward", "backward", "forward_backward"))
+
+
+def phase_cli(torch, np, cli, io, reference, build_dir, shape=(8, 16, 2048, 64),
+              runs=CLI_RUNS, methods=("fa1", "fa2-naive", "naive"),
+              edge=(8, 16, 100, 64), in_subprocess=True, seed=17):
+    """The CLI end to end on a numpy-seeded data directory of `shape`
+    (Stress-1 by default): fa2 in `runs` (every mode and precision), `methods`
+    forward in fp32, fa2 forward on an `edge` directory (Edge-NonPowerOf2,
+    which must take B8); with `in_subprocess`, one run as `python -m
+    cuda_flash_attention_tpu_torch.cli` in a subprocess.  Every written file
+    is held to the fp32 oracle."""
     import tempfile
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -1645,37 +1730,39 @@ def phase_cli(torch, np, cli, io, reference, build_dir):
                     raise AssertionError(f"cli {how}: {name} max_abs_err {err} "
                                          f"(tol {tol})")
 
-        rng = np.random.default_rng(17)
-        stress = [rng.random((8, 16, 2048, 64), dtype=np.float32) for _ in range(3)]
+        rng = np.random.default_rng(seed)
+        stress = [rng.random(shape, dtype=np.float32) for _ in range(3)]
         ref = oracle(stress, chunked=True)
         outputs = {"forward": ("O.bin", "logsumexp.bin"),
                    "backward": ("dQ.bin", "dK.bin", "dV.bin"),
                    "forward_backward": ("O.bin", "logsumexp.bin", "dQ.bin",
                                         "dK.bin", "dV.bin")}
-        for precision in ("fp32", "fp16", "bf16"):
-            path = data_dir(precision, stress)
-            for mode in ("forward", "backward", "forward_backward"):
-                argv = ["fa2", mode, precision, path]
-                if (precision, mode) == ("fp32", "forward"):
-                    proc = subprocess.run(
-                        [sys.executable, "-m", "cuda_flash_attention_tpu_torch.cli",
-                         *argv], cwd=root, capture_output=True, text=True,
-                        timeout=600, env=dict(os.environ, PYTHONPATH=root))
-                    if proc.returncode != 0:
-                        raise AssertionError(f"cli subprocess: {proc.returncode}\n"
-                                             f"{proc.stdout}\n{proc.stderr}")
-                    log("cli subprocess:", proc.stdout.strip().splitlines()[-1])
-                elif cli.main(argv) != 0:
-                    raise AssertionError(f"cli {argv}: non-zero exit")
-                check(path, ref, outputs[mode], precision, f"fa2 {mode} {precision}",
-                      mode)
+        paths = {}
+        for precision, mode in runs:
+            if precision not in paths:
+                paths[precision] = data_dir(precision, stress)
+            path = paths[precision]
+            argv = ["fa2", mode, precision, path]
+            if in_subprocess and (precision, mode) == ("fp32", "forward"):
+                proc = subprocess.run(
+                    [sys.executable, "-m", "cuda_flash_attention_tpu_torch.cli",
+                     *argv], cwd=root, capture_output=True, text=True,
+                    timeout=600, env=dict(os.environ, PYTHONPATH=root))
+                if proc.returncode != 0:
+                    raise AssertionError(f"cli subprocess: {proc.returncode}\n"
+                                         f"{proc.stdout}\n{proc.stderr}")
+                log("cli subprocess:", proc.stdout.strip().splitlines()[-1])
+            elif cli.main(argv) != 0:
+                raise AssertionError(f"cli {argv}: non-zero exit")
+            check(path, ref, outputs[mode], precision, f"fa2 {mode} {precision}",
+                  mode)
         # fp16 files against fp16's own gates, the bf16 run's same file as
         # the control.
         for (precision, mode, name), err in rel.items():
             if precision == "fp16" and name != "logsumexp.bin":
-                fp16_gate(f"cli fa2 {mode} {name}", err, rel[("bf16", mode, name)],
-                          CLI_FP16_REL_TOL[name])
-        for method in ("fa1", "fa2-naive", "naive"):
+                fp16_gate(f"cli fa2 {mode} {name} {io.data_dir_name(*shape)}", err,
+                          rel[("bf16", mode, name)], CLI_FP16_REL_TOL[name])
+        for method in methods:
             path = data_dir(method, stress)
             if cli.main([method, "forward", "fp32", path]) != 0:
                 raise AssertionError(f"cli {method}: non-zero exit")
@@ -1684,14 +1771,20 @@ def phase_cli(torch, np, cli, io, reference, build_dir):
                 raise AssertionError(f"cli {method}: logsumexp.bin written wrongly")
             check(path, ref, names, "fp32", f"{method} forward fp32")
         del ref
-        edge = [rng.random((8, 16, 100, 64), dtype=np.float32) for _ in range(3)]
-        path = data_dir("edge", edge)
-        if cli.main(["fa2", "forward", "fp32", path]) != 0:
-            raise AssertionError("cli edge: non-zero exit")
-        check(path, oracle(edge, chunked=False), outputs["forward"], "fp32",
-              "fa2 forward fp32 Edge-NonPowerOf2")
+        if edge is not None:
+            arrays = [rng.random(edge, dtype=np.float32) for _ in range(3)]
+            path = data_dir("edge", arrays)
+            small = "fa2_forward_small" + ("" if edge[3] in (64, 128) else f"_d{edge[3]}")
+            before = launch_counts()[small]
+            if cli.main(["fa2", "forward", "fp32", path]) != 0:
+                raise AssertionError("cli edge: non-zero exit")
+            if launch_counts()[small] == before:
+                raise AssertionError(f"cli edge {edge}: B8 ({small}) never ran")
+            check(path, oracle(arrays, chunked=False), outputs["forward"], "fp32",
+                  f"fa2 forward fp32 Edge-NonPowerOf2 D{edge[3]}")
     worst = max(checked, key=lambda c: c["max_abs_err"] / c["tol"])
-    log("cli", json.dumps(dict(files_checked=len(checked), worst=worst)))
+    log("cli", json.dumps(dict(data=io.data_dir_name(*shape), files_checked=len(checked),
+                               worst=worst)))
     return checked
 
 
@@ -1997,7 +2090,7 @@ def phase_quant_serving(torch, np, transformer, decode, quant):
              ("int4 weights, int8 cache", w4, torch.int8, {}),
              ("int4 cache, chunked prefill 512", params, "int4",
               dict(prefill_chunk=512))]
-    new_tokens = 32
+    new_tokens = 16
     res = {}
     for name, p, cache, kw in modes:
         eng = decode.DecodeEngine(p, cfg, max_seqs=8, max_seq_len=2048,
@@ -2212,7 +2305,7 @@ def phase_bench(torch, np, transformer, decode, decode_bench, train_bench,
     out = {}
     reset_counts(SERVING_KERNELS)
     loop = decode_bench.measure_decode_throughput(cfg, batch=b, prompt_len=p,
-                                                  gen_tokens=gen, repeats=2)
+                                                  gen_tokens=gen, repeats=1)
     loop["eager_over_graph"] = loop["eager_step_ms"] / loop["step_ms"]
     loop["launches"] = read_counts(SERVING_KERNELS)
     out["device_loop"] = loop
@@ -2260,7 +2353,7 @@ def phase_bench(torch, np, transformer, decode, decode_bench, train_bench,
 
     # Phase 5's 12 requests at bursts 1 and 8: the same tokens (32 new
     # tokens each).
-    served, served_new = {}, 32
+    served, served_new = {}, 16
     for burst in (1, 8):
         params = transformer.init_params(
             torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
@@ -2301,7 +2394,7 @@ def phase_bench(torch, np, transformer, decode, decode_bench, train_bench,
 
     torch.cuda.empty_cache()
     reset_counts(TRAIN_KERNELS)
-    train = train_bench.measure_train_throughput(cfg, 4, 2048, iters=2, repeats=2)
+    train = train_bench.measure_train_throughput(cfg, 4, 2048, iters=2, repeats=1)
     train["launches"] = read_counts(TRAIN_KERNELS)
     out["train"] = train
     log("bench train", json.dumps(train))
@@ -2595,7 +2688,7 @@ def phase_window_serving(torch, np, transformer, decode, dataclasses):
     rng = np.random.default_rng(25)
     for i, n in zip((0, 3, 6, 9), rng.integers(1024, 1537, 4)):
         prompts[i] = rng.integers(0, cfg.vocab_size, int(n)).tolist()
-    new_tokens = 32
+    new_tokens = 16
     eng = decode.DecodeEngine(params, cfg, max_seqs=8, max_seq_len=2048,
                               page_size=128, cache_dtype=torch.int8,
                               prefill_chunk=512)
@@ -2652,7 +2745,7 @@ def phase_window_streaming(torch, np, transformer, decode, dataclasses):
     rng = np.random.default_rng(27)
     short = rng.integers(0, cfg.vocab_size, 900).tolist()
     long = rng.integers(0, cfg.vocab_size, 1300).tolist()
-    n_new = 12
+    n_new = 8
     modes = {"decode": ([short], {}),
              "speculative": ([short], dict(spec_tokens=3, draft=True)),
              "chunked_prefill": ([long], dict(prefill_chunk=512))}
@@ -3119,7 +3212,7 @@ def phase_gemma2_serving(torch, np, transformer, decode, dataclasses):
     4096-token window on the even layers, the odd ones global; bf16 weights)
     served on an int8 cache, 8 slots, CUDA-graph decode: 12 requests (8
     prompts of 64-1500 tokens, 4 of 4500-6000 so that the local group
-    recycles past the window), chunked prefill 512, 64 greedy tokens each.
+    recycles past the window), chunked prefill 512, 32 greedy tokens each.
     After every step no decoding slot's local group holds more pages than
     the window's live bound; B1's, B5's and B6's launches at D 256 must be
     > 0, B5's and B6's windowed ones too (D256_NEED)."""
@@ -3133,7 +3226,7 @@ def phase_gemma2_serving(torch, np, transformer, decode, dataclasses):
                for n in rng.integers(64, 1501, 8)]
     for i, n in zip((1, 4, 7, 10), rng.integers(4500, 6001, 4)):
         prompts.insert(i, rng.integers(0, cfg.vocab_size, int(n)).tolist())
-    new_tokens = 64
+    new_tokens = 32
     eng = decode.DecodeEngine(params, cfg, max_seqs=8, max_seq_len=6144,
                               page_size=128, cache_dtype=torch.int8, prefill_chunk=512)
     bound = eng._worst_pages_for(1, 1 << 20)[0]
@@ -3747,6 +3840,287 @@ def phase_gemma2_train(torch, np, transformer, training, common):
     return res, parity
 
 
+
+# Phase 31: B7, B8, B9 and B10 at head dims 32 and 256, and the path that
+# needs them: the reference contract (CLI, harness) at D 32 and 256 and the
+# quantized-KV public API at Gemma-2-2B's attention width.  Shapes: the
+# baselines at Stress-1's batch, heads and length at D 32 (the reference's
+# head dim) and at phase 28's D 256 shape; B8 at the suite's small configs;
+# B7 at phase 28's shapes (D 32 B4 Hq16 Hkv8 S2048, D 256 B1 Hq8 Hkv4
+# S4096).  Each gate has a control that must fail it: fp32 rows the mask one
+# key off (B9, B10 and B8's unmasked rows one key short of kv_len); B8's
+# bf16 rows one 8-key n-tile off (a kernel that skips one n-tile of its
+# mma); fp16 tiles the bf16 instantiation (fp16_gate); B7 as phase 28
+# (causal dropped, the window one wider, the ids shifted a token).
+WIDE_BASELINE_SHAPES = {32: (8, 16, 2048), 256: (1, 8, 4096)}
+WIDE_B8_MASKS = ("full", "causal", "window 24 sinks 2", "2 segments")
+WIDE_B7_SHAPES = {32: (4, 16, 8, 2048), 256: (1, 8, 4, 4096)}
+WIDE_B7_MASKS = ("causal", "window 160", "2 segments")
+
+
+def wide_b8_kw(torch, mask, b, s, kv_len, kind, control=False, device="cuda"):
+    """B8's mask keywords for one of WIDE_B8_MASKS; with `control` the mask
+    one key off (fp32) or one 8-key n-tile off (bf16): the unmasked row
+    that many keys short of kv_len, causal dropped, the window that much
+    wider, the ids shifted that far."""
+    off = (1 if kind == "fp32" else 8) if control else 0
+    if mask == "full":
+        return dict(causal=False, kv_len=kv_len - off, window=None, sinks=0)
+    if mask == "causal":
+        return dict(causal=not control, kv_len=kv_len, window=None, sinks=0)
+    if mask.startswith("window"):
+        return dict(causal=True, kv_len=kv_len, window=24 + off, sinks=2)
+    half = (torch.arange(s, device=device) * 2 // s).to(torch.int32)
+    ids = torch.roll(half, off).expand(b, s).contiguous()
+    return dict(causal=True, kv_len=kv_len, window=None, sinks=0, q_seg=ids,
+                kv_seg=ids)
+
+
+def phase_wide_baselines(torch, F, base):
+    """B9 and B10 at D 32 and 256 (WIDE_BASELINE_SHAPES, fp32) against their
+    plain versions within BASELINE_TOL; the control, the plain version one
+    key short of kv_len, must fail it; device time beside the bound, the
+    plain version and fp32 SDPA."""
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    rows = []
+    for d, (b, h, s) in WIDE_BASELINE_SHAPES.items():
+        q, k, v = (torch.randn(b, h, s, d, generator=gen, device="cuda")
+                   for _ in range(3))
+        kw = dict(sm_scale=d ** -0.5, kv_len=s)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=kw["sm_scale"]), iters=3, warmup=1)
+        o_p = base.fa1_plain(q, k, v, **kw)  # naive_fa2_plain is the same function
+        o_c = base.fa1_plain(q, k, v, **dict(kw, kv_len=s - 1))
+        for which, kernel in (("fa1", base.fa1_aligned),
+                              ("naive_fa2", base.naive_fa2_aligned)):
+            o_k = kernel(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = (o_k - o_p).abs().max().item()
+            control_err = (o_k - o_c).abs().max().item()
+            if not err <= BASELINE_TOL:
+                raise AssertionError(f"{which} D{d}: max_abs_err {err} "
+                                     f"(tol {BASELINE_TOL})")
+            if control_err <= BASELINE_TOL:
+                raise AssertionError(f"{which} D{d}: the control passes the gate "
+                                     f"({control_err})")
+            ms = time_ms(lambda: kernel(q, k, v, **kw), iters=3, warmup=1)
+            bound_ms, bound_by, flops = attention_bound(b, h, s, d, False, "fp32",
+                                                        q, k, v, o_k)
+            row = dict(kernel=which, case=f"D{d}", B=b, H=h, S=s, D=d,
+                       max_abs_err=err, control_max_abs_err=control_err, ms=ms,
+                       plain_ms=time_ms(lambda: base.fa1_plain(q, k, v, **kw),
+                                        iters=1, warmup=0),
+                       library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+                       tflops=flops / ms / 1e9)
+            rows.append(row)
+            log("wide baseline", json.dumps(row))
+            del o_k
+        del q, k, v, o_p, o_c
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_wide_b8(torch, F, attention, fa2, common):
+    """B8 at D 32 and 256 against its plain version at the suite's Small-1,
+    Edge-NonPowerOf2 and Edge-SmallSeq in fp32, bf16 and fp16 tiles under
+    WIDE_B8_MASKS, the route taking B8 at each; controls as above; device
+    time (queued) beside the bound, the plain version and SDPA on the same
+    inputs on the fp32 full and causal rows and the bf16 causal ones."""
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    rows = []
+    for d in (32, 256):
+        for name in ("Small-1", "Edge-NonPowerOf2", "Edge-SmallSeq"):
+            b, h, s = SUITE[name]
+            raw = [torch.randn(b, h, s, d, generator=gen, device="cuda")
+                   for _ in range(3)]
+            for kind in ("fp32", "bf16", "fp16"):
+                tile = tile_of(torch, kind)
+                q, k, v, scale, _, kv_len = attention._prepare(
+                    *raw, False, None, tile, None, None, None, 0)
+                if not attention._use_small_kernel(q, k):
+                    raise AssertionError(f"B8 D{d} {name}: the route does not take B8")
+                sp = q.shape[2]
+                for mask in WIDE_B8_MASKS:
+                    kw = dict(wide_b8_kw(torch, mask, b, sp, kv_len, kind),
+                              sm_scale=scale, tile_dtype=tile)
+                    o_k, lse_k = fa2.fa2_forward_small_aligned(q, k, v, **kw)
+                    o_p, lse_p = fa2.fa2_forward_small_plain(q, k, v, **kw)
+                    torch.cuda.synchronize()
+                    err = (o_k - o_p).abs().max().item()
+                    lse_err, dead_equal = lse_gate(torch, lse_k, lse_p)
+                    label = f"B8 D{d} {name} {kind} {mask}"
+                    if kind == "fp16":
+                        o_c, _ = fa2.fa2_forward_small_aligned(
+                            q, k, v, **dict(kw, tile_dtype=torch.bfloat16))
+                        control_err = rel_err(o_c, o_p)
+                        fp16_gate(label, rel_err(o_k, o_p), control_err,
+                                  FP16_REL_TOL["B8"])
+                        err_ok = True
+                    else:
+                        ckw = dict(kw, **wide_b8_kw(torch, mask, b, sp, kv_len, kind,
+                                                    control=True))
+                        o_c, _ = fa2.fa2_forward_small_plain(q, k, v, **ckw)
+                        control_err = (o_k - o_c).abs().max().item()
+                        err_ok = err <= B1_TOL[kind]
+                        if control_err <= B1_TOL[kind]:
+                            raise AssertionError(f"{label}: the control passes the "
+                                                 f"gate ({control_err})")
+                    if not (err_ok and lse_err <= LSE_REL_TOL and dead_equal):
+                        raise AssertionError(f"{label}: max_abs_err {err}, lse rel "
+                                             f"err {lse_err}, dead rows {dead_equal}")
+                    row = dict(kernel="fa2_forward_small", config=name, case=mask,
+                               kind=kind, B=b, H=h, S=s, S_pad=sp, D=d,
+                               max_abs_err=err, lse_rel_err=lse_err)
+                    row["control_rel_err" if kind == "fp16"
+                        else "control_max_abs_err"] = control_err
+                    if (kind, mask) in (("fp32", "full"), ("fp32", "causal"),
+                                        ("bf16", "causal")):
+                        causal = kw["causal"]
+                        lib_in = [t[:, :, :s].to(tile or torch.float32) for t in (q, k, v)]
+                        bound_ms, bound_by, _ = attention_bound(
+                            b, h, s, d, causal, kind, q, k, v, o_k, lse_k)
+                        row.update(
+                            ms=queued_ms(torch, lambda: fa2.fa2_forward_small_aligned(
+                                q, k, v, **kw)),
+                            plain_ms=queued_ms(torch, lambda: fa2.fa2_forward_small_plain(
+                                q, k, v, **kw), iters=5),
+                            library_ms=queued_ms(torch, lambda: F.scaled_dot_product_attention(
+                                *lib_in, is_causal=causal, scale=scale)),
+                            bound_ms=bound_ms, bound_by=bound_by)
+                    rows.append(row)
+                    del o_k, lse_k, o_p, lse_p, o_c
+            del raw
+    log("wide B8", json.dumps(dict(
+        rows=len(rows), worst={kind: max(r["max_abs_err"] for r in rows if r["kind"] == kind)
+                               for kind in ("fp32", "bf16", "fp16")},
+        timed=[{k: r[k] for k in ("D", "config", "kind", "case", "ms", "plain_ms",
+                                  "library_ms", "bound_ms")}
+               for r in rows if "ms" in r])))
+    return rows
+
+
+def phase_wide_b7(torch, F, quant, fq, fa2):
+    """B7 at D 32 and 256 (WIDE_B7_SHAPES) over every storage in bf16 and
+    fp32 compute under WIDE_B7_MASKS against its plain version (phase 28's
+    gates and controls); device time beside the bound (kept pairs), the
+    plain version and, on the causal bf16 rows, B1 and SDPA on the
+    dequantized bf16 K/V (yardsticks, not B7's function).  Then the public
+    API at both widths over the four storages, causal bf16: the Gemma-2-2B
+    attention width (B1 Hq8 Hkv4 S4096 D256) and D 32 (B4 Hq16 Hkv8
+    S2048), each output equal to the aligned kernel's; its D 32 and D 256
+    launches are the path's."""
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    rows, api_inputs = [], []
+    for d, (b, hq, hkv, s) in WIDE_B7_SHAPES.items():
+        half = torch.cat([torch.zeros(b, s // 2), torch.ones(b, s // 2)], 1).to(
+            torch.int32).cuda()
+        shifted = torch.roll(half, 1, dims=1).contiguous()
+        for storage in STORAGES:
+            for compute in ("bf16", "fp32"):
+                cdt = torch.bfloat16 if compute == "bf16" else torch.float32
+                api, args, (kd, vd) = quant_problem(torch, quant, fq, gen, storage, b,
+                                                    hq, hkv, s, d, cdt)
+                base = dict(causal=True, sm_scale=d ** -0.5, kv_len=s, compute_dtype=cdt)
+                for mask in WIDE_B7_MASKS:
+                    if mask == "causal":
+                        mkw, ckw = {}, dict(causal=False)
+                        pairs = causal_pairs(s, s, True) * b
+                    elif mask.startswith("window"):
+                        mkw, ckw = dict(window=160), dict(window=161)
+                        pairs = window_pairs(s, s, True, 160, 0) * b
+                    else:
+                        mkw = dict(q_seg=half, kv_seg=half)
+                        ckw = dict(q_seg=shifted, kv_seg=shifted)
+                        pairs = 2 * causal_pairs(s // 2, s // 2, True) * b
+                    kw = dict(base, **mkw)
+                    o_k, lse_k = fq.fa2_forward_quant_aligned(*args, **kw)
+                    o_p, lse_p = fq.fa2_forward_quant_plain(*args, **kw)
+                    o_c, _ = fq.fa2_forward_quant_plain(*args, **dict(base, **ckw))
+                    torch.cuda.synchronize()
+                    label = f"B7 D{d} {mask} {storage} {compute}"
+                    err = (o_k.float() - o_p.float()).abs().max().item()
+                    control_err = (o_k.float() - o_c.float()).abs().max().item()
+                    lse_err, dead_equal = lse_gate(torch, lse_k, lse_p)
+
+                    def passes(o):
+                        return (bf16_excess(o_k, o) <= BF16_ATOL["B7"] if compute == "bf16"
+                                else (o_k.float() - o.float()).abs().max().item()
+                                <= B7_FP32_TOL)
+
+                    if not (passes(o_p) and dead_equal and lse_err <= LSE_REL_TOL):
+                        raise AssertionError(f"{label}: max_abs_err {err}, bf16 excess "
+                                             f"{bf16_excess(o_k, o_p)}, lse {lse_err}, "
+                                             f"dead rows {dead_equal}")
+                    if passes(o_c):
+                        raise AssertionError(f"{label}: the control passes the gate "
+                                             f"({control_err})")
+                    flops = 4 * hq * pairs * d
+                    t_bytes = nbytes(*args, o_k, lse_k) / HBM_BYTES_PER_S
+                    t_ops = flops / PEAK_FLOPS[compute]
+                    ms = time_ms(lambda: fq.fa2_forward_quant_aligned(*args, **kw),
+                                 iters=5, warmup=1)
+                    row = dict(kernel="fa2_forward_quant", case=f"D{d} {mask}", B=b,
+                               Hq=hq, Hkv=hkv, S=s, D=d, storage=storage,
+                               compute=compute, max_abs_err=err,
+                               bf16_excess=bf16_excess(o_k, o_p), lse_rel_err=lse_err,
+                               control_max_abs_err=control_err, ms=ms,
+                               plain_ms=time_ms(lambda: fq.fa2_forward_quant_plain(
+                                   *args, **kw), iters=1, warmup=0),
+                               library_ms=None, bound_ms=max(t_bytes, t_ops) * 1e3,
+                               bound_by="bytes" if t_bytes > t_ops else "operations",
+                               tflops=flops / ms / 1e9)
+                    if mask == "causal" and compute == "bf16":
+                        row["b1_dequant_ms"] = time_ms(lambda: fa2.fa2_forward_aligned(
+                            args[0], kd, vd, causal=True, sm_scale=d ** -0.5, kv_len=s,
+                            tile_dtype=torch.bfloat16), iters=5, warmup=1)
+                        row["sdpa_dequant_ms"] = time_ms(
+                            lambda: F.scaled_dot_product_attention(
+                                args[0], kd, vd, is_causal=True, scale=d ** -0.5,
+                                enable_gqa=True), iters=5, warmup=1)
+                        api_inputs.append((api, o_k))
+                    rows.append(row)
+                    log("wide B7", json.dumps(row))
+                    del o_p, lse_p, o_c
+                    if not (mask == "causal" and compute == "bf16"):
+                        del o_k
+                del args, kd, vd
+            torch.cuda.empty_cache()
+    # The public API at both widths: its launches are the path's.
+    names = ("fa2_forward_quant", "fa2_forward_quant_d32", "fa2_forward_quant_d256")
+    reset_counts(names)
+    for (q, k_q, v_q), o_k in api_inputs:
+        o = fq.flash_attention_quantized_kv(q, k_q, v_q, causal=True)
+        if not torch.equal(o, o_k[:, :, :q.shape[2]]):
+            raise AssertionError(f"B7 D{q.shape[3]}: the public API differs from the "
+                                 "aligned kernel")
+    torch.cuda.synchronize()
+    launches = read_counts(names)
+    log("wide B7 public API launches", json.dumps(launches))
+    if launches != {"fa2_forward_quant": 8, "fa2_forward_quant_d32": 4,
+                    "fa2_forward_quant_d256": 4}:
+        raise AssertionError(f"B7 public API at D 32 and 256 launched {launches}")
+    del api_inputs
+    torch.cuda.empty_cache()
+    return rows, launches
+
+
+def phase_wide_harness(harness, configs, dataclasses):
+    """The harness's forward experiment (10 configs x fa2-naive, vanilla,
+    fa2) and its fa1 rows re-made at head dim 32, fp32 at tolerance 1e-3:
+    every row PASS."""
+    cfgs = [dataclasses.replace(c, head_dim=32)
+            for c in (configs.create_experiment_configs("forward")
+                      + configs.create_test_configs("forward", "fa1"))]
+    h = harness.Harness(tolerance=1e-3, iters=3, warmup=1, device="cuda")
+    results = h.run(cfgs)
+    for r in results:
+        log("harness D32 csv:", ",".join(str(x) for x in r.as_row().values()))
+    failed = [r.as_row() for r in results if not r.passed]
+    if failed or len(results) != len(cfgs):
+        raise AssertionError(f"harness D32: {len(failed)} FAIL rows of {len(results)} "
+                             f"run ({len(cfgs)} configs): {failed[:1]}")
+    return results
+
 def main() -> int:
     import torch
 
@@ -3791,44 +4165,7 @@ def main() -> int:
     log("torch", torch.__version__, "cuda", torch.version.cuda,
         "device", torch.cuda.get_device_name(0))
 
-    t0 = time.perf_counter()
-    # The longest compiles first (by their measured nvcc seconds), so that no core
-    # idles while the last long one runs.
-    build_logs = _build.build("paged_chunk", "fa2_forward_quant", "fa2_backward",
-                              "paged_chunk_d256", "fa2_backward_d256", "fa2_backward_d32",
-                              "paged_chunk_d32", "paged_decode",
-                              "fa2_forward_small", "fa2_forward", "paged_decode_d256",
-                              "paged_decode_d32", "fa2_forward_d256", "fa2_forward_d32",
-                              "r5_d128_fwd", "baselines")
-    log(f"phase 1: built {sorted(build_logs)} in {time.perf_counter() - t0:.1f} s; "
-        f"each source's nvcc seconds: "
-        f"{json.dumps({n: round(t, 1) for n, t in sorted(_build.BUILD_SECONDS.items())})}")
-    for name, text in build_logs.items():
-        for line in text.splitlines():
-            if any(w in line for w in ("registers", "spill", "error",
-                                       "Performance")):
-                log(f"  ptxas {name}: {line.strip()}")
-    bwd_log = build_logs.get("fa2_backward") or ptxas_log(_build, "fa2_backward")
-    for label, (functions, count) in BWD_FUNCTIONS.items():
-        check_ptxas(bwd_log, label, functions, count)
-    for name, (functions, count) in FP32_FUNCTIONS.items():
-        text = bwd_log if name == "fa2_backward" else (
-            build_logs.get(name) or ptxas_log(_build, name))
-        check_ptxas(text, "fp32 block", functions, count)
-    check_ptxas(build_logs.get("paged_decode") or ptxas_log(_build, "paged_decode"),
-                "B5", *B5_FUNCTIONS)
-    check_ptxas(build_logs.get("paged_chunk") or ptxas_log(_build, "paged_chunk"),
-                "B6", *B6_FUNCTIONS)
-    check_ptxas(build_logs.get("r5_d128_fwd") or ptxas_log(_build, "r5_d128_fwd"),
-                "X", *X_FUNCTIONS)
-    check_ptxas(build_logs.get("fa2_forward_quant")
-                or ptxas_log(_build, "fa2_forward_quant"), "B7", *B7_FUNCTIONS)
-    for name, (functions, count) in WIDE_FUNCTIONS.items():
-        check_ptxas(build_logs.get(name) or ptxas_log(_build, name), name, functions,
-                    count)
-    for name in WIDE_BWD_LIBRARIES:
-        check_ptxas(build_logs.get(name) or ptxas_log(_build, name), name,
-                    *BWD_WIDE_FUNCTIONS)
+    phase_build(_build)
 
     t0 = time.perf_counter()
     b1 = phase_b1(torch, fa2, b1_ab)
@@ -3854,7 +4191,8 @@ def main() -> int:
     log(f"phase 7: B2/B3/B4 and autograd ok in {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    parity = phase_train_parity(torch, np, transformer, training)
+    parity = phase_train_parity(torch, np, transformer, training,
+                                tokens_shape=(1, 129))
     log(f"phase 8: train parity ok in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     train, remat, (state, step, tokens) = phase_train(
@@ -3954,7 +4292,7 @@ def main() -> int:
     window_train = phase_window_train(torch, np, transformer, training, dataclasses)
     window_parity = {
         name: phase_train_parity(torch, np, transformer, training, label=name,
-                                 tokens_shape=(2, 257), **kw)
+                                 tokens_shape=(1, 257), **kw)
         for name, kw in (("hybrid w64", dict(attn_window=64, global_every=2)),
                          ("streaming w96 s4", dict(attn_window=96, attn_sinks=4)))}
     log(f"phase 26: windowed and packed training ok in "
@@ -3981,6 +4319,32 @@ def main() -> int:
                                                            training, common)
     log(f"phase 30: Gemma-2-2B-width training at D 256 ok in "
         f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    wide_base = phase_wide_baselines(torch, F, base)
+    wide_b8 = phase_wide_b8(torch, F, attention, fa2, common)
+    wide_b7, wide_b7_launches = phase_wide_b7(torch, F, quant, fq, fa2)
+    # The reference contract at D 32 (Stress-1's batch, heads and length at
+    # the reference's head dim) and D 256: its launches are the path's.
+    reference_wide = tuple(f"{n}_d{d}" for n in TRAIN_KERNELS + (
+        "fa2_forward_small", "fa1", "naive_fa2") for d in (32, 256))
+    reset_counts(reference_wide)
+    build_dir = str(_build.BUILD_DIR.parent)
+    phase_cli(torch, np, cli, io, reference, build_dir, shape=(8, 16, 2048, 32),
+              edge=(8, 16, 100, 32), in_subprocess=False, seed=31)
+    phase_cli(torch, np, cli, io, reference, build_dir, shape=(1, 8, 4096, 256),
+              runs=(("fp32", "forward_backward"),), methods=("fa1", "fa2-naive"),
+              edge=(8, 16, 100, 256), in_subprocess=False, seed=32)
+    phase_wide_harness(harness, configs, dataclasses)
+    wide_launches = read_counts(reference_wide)
+    log(f"phase 31: B7-B10 at D 32 and 256, the reference contract at D 32 and 256 "
+        f"and the quantized API at Gemma-2-2B's width ok in "
+        f"{time.perf_counter() - t0:.1f} s; launches of the contract: "
+        f"{json.dumps(wide_launches)}")
+    if not all(wide_launches[f"{n}_d{d}"] for n in ("fa1", "naive_fa2", "fa2_forward_small")
+               for d in (32, 256)):
+        raise AssertionError(f"phase 31: a kernel of the D 32 / 256 contract never "
+                             f"ran: {wide_launches}")
 
     # Representative shapes for the kernel line: the serving phase's largest
     # prefill (B4 S1536 bf16) and the int8 cache with bf16 compute.
@@ -4235,6 +4599,34 @@ def main() -> int:
                                   launches_checks=wide_bwd_launches[f"{n}_d{d}"])
             k["d256"]["launches"] = (gemma2_train["launches"][f"{n}_d256"]
                                      + gemma2_train["split_launches"][f"{n}_d256"])
+    # Phase 31: B7-B10 at D 32 and 256 (B9 and B10 at Stress-1's shape at D
+    # 32 and B1 H8 S4096 D256; B8 at Edge-NonPowerOf2 in fp32; B7 causal on
+    # int8 K/V in bf16 compute at D 32 B4 Hq16 Hkv8 S2048 and at Gemma-2's
+    # B1 Hq8 Hkv4 S4096 D256), with their launches on the path: the
+    # contract's CLI and harness runs (B8-B10), the public quantized API (B7).
+    for k in kernels:
+        n = k["name"]
+        for d in (32, 256):
+            if n in ("fa1", "naive_fa2"):
+                k[f"d{d}"] = dict(wide_row(wide_base, kernel=n, case=f"D{d}"),
+                                  launches=wide_launches[f"{n}_d{d}"])
+            elif n == "fa2_forward_small":
+                k[f"d{d}"] = dict(wide_row(wide_b8, D=d, config="Edge-NonPowerOf2",
+                                           kind="fp32", case="full"),
+                                  launches=wide_launches[f"{n}_d{d}"])
+            elif n == "fa2_forward_quant":
+                r = next(r for r in wide_b7 if (r["case"], r["storage"], r["compute"])
+                         == (f"D{d} causal", "int8", "bf16"))
+                k[f"d{d}"] = dict(wide_row(wide_b7, case=f"D{d} causal", storage="int8",
+                                           compute="bf16"),
+                                  b1_dequant_ms=r["b1_dequant_ms"],
+                                  sdpa_dequant_ms=r["sdpa_dequant_ms"],
+                                  launches=wide_b7_launches[f"{n}_d{d}"])
+    if not all(k[f"d{d}"]["launches"] for k in kernels for d in (32, 256)
+               if k["name"] in ("fa1", "naive_fa2", "fa2_forward_small",
+                                "fa2_forward_quant")):
+        raise AssertionError("phase 31: a D 32 or D 256 kernel of B7-B10 never ran "
+                             "on its path")
     log("fp16 tiles:", json.dumps({"B1 Stress-1": b1_fp16, "B2-B4": [
         {k: r[k] for k in ("kernel", "inputs", "B", "S", "causal", "ms",
                            "bound_ms", "library_ms", "rel_err")} for r in bwd_fp16]}))

@@ -39,7 +39,11 @@
 // block for one 64-row Q tile, 8 x 4 register tiles read with 128-bit loads from
 // swizzled rows, K and V by cp.async into two K stages and one V stage (at
 // D = 128 one of each), P over the K stage just read, three blocks an SM
-// at D = 64 and two at D = 128.
+// at D = 32 and 64 and two at D = 128.  At D = 256 a thread's 128
+// accumulators leave no room for a second 8 x 16 tile of P V beside them:
+// P V is formed a 64-column quarter at a time, each quarter folded into the
+// accumulators (acc * scale_old + pv * scale_pv) before the next, so every
+// element's arithmetic stays the reference's; one block an SM.
 //
 // B9's block is built for its two bounds:
 //   * 512 threads in four groups of 128, group g taking Q tiles g, g + 4,
@@ -59,6 +63,14 @@
 //     value at a time to leave registers for the 64 accumulators;
 //   * O goes back a float4 at a time (a warp writes whole 256-byte rows),
 //     m and l once per row and pair.
+// At D = 32 a thread holds two O columns (2 tx, 2 tx + 1, as
+// csrc/fma_block.cuh at D = 32) and a Q buffer is sized for P's 68-float
+// rows, not Q's 36; the layout is D = 64's.  At D = 256 one group of 128
+// threads: a 64-row Q buffer of D + 4 floats a row is 66.5 KB, so four
+// groups' beside one 132 KB K/V stage would take 400 KB of the SM's 227;
+// one group keeps the schedule (every Q tile of a KV tile in turn, O, m
+// and l through device memory) with one K/V stage and one Q buffer, and a
+// thread's 8 x 16 P V tile in registers, one block (four warps) an SM.
 // Each row's arithmetic is the reference's, in the same order: S summed
 // over d, then scaled; the max, alpha, P and its sum; l_new; O updated from
 // the two scales.
@@ -71,6 +83,14 @@
 
 #include "fma_block.cuh"  // B10's block; includes hopper.cuh
 
+// The head dims this library is built for: 64 and 128 here; a source that
+// includes this one with CFA_HEAD_DIMS defined builds others (csrc/
+// baselines_d32.cu and baselines_d256.cu, each in its own library, so that
+// nvcc compiles the widths in parallel).
+#ifndef CFA_HEAD_DIMS
+#define CFA_HEAD_DIMS(X) X(64) X(128)
+#endif
+
 namespace {
 
 constexpr int kTile = 64;  // Q and KV rows per tile
@@ -79,36 +99,39 @@ constexpr float kMaskValue = -0.7f * 3.40282347e38f;  // DEFAULT_MASK_VALUE
 // ---------------------------------------------------------------------------
 // B9.  One block of 512 threads per (batch, head): four groups of 128
 // threads (warps 4g .. 4g + 3), group g taking Q tiles g, g + 4, g + 8, ...
-// of every KV tile.  Within a group thread (ty, tx), ty = 2 * warp + lane /
+// of every KV tile (at D = 256 one group of 128 threads taking them all).
+// Within a group thread (ty, tx), ty = 2 * warp + lane /
 // 16 and tx = lane % 16, owns S rows ty + 8 i (i < 8) and columns tx + 16 j
 // (j < 4) of the 64 x 64 score tile, and O rows ty + 8 i, columns 64 h +
-// 4 tx .. + 3 (h < D / 64).  Shared memory, in floats: kKVBufs stages of K
-// (rows padded to D + 4) and V, then kQBufs Q buffers per group (rows
-// padded to D + 4; P [64][68] takes a buffer's place once S is formed),
-// then each group's two output scales per row, then the mbarriers.
+// 4 tx .. + 3 (h < D / 64; at D = 32 columns 2 tx and 2 tx + 1).  Shared
+// memory, in floats: kKVBufs stages of K (rows padded to D + 4) and V, then
+// kQBufs Q buffers per group (rows padded to D + 4; P [64][68] takes a
+// buffer's place once S is formed), then each group's two output scales per
+// row, then the mbarriers.
 // ---------------------------------------------------------------------------
 template <int D>
 struct Fa1 {
-  static constexpr int kGroups = 4;
+  static constexpr int kGroups = D > 128 ? 1 : 4;
   static constexpr int kThreads = 128 * kGroups;
-  // Two stages of K/V and two Q buffers per group at D = 64; at D = 128
-  // one of each fits in the 227 KB of shared memory.
-  static constexpr int kKVBufs = D == 64 ? 2 : 1;
-  static constexpr int kQBufs = D == 64 ? 2 : 1;
+  // Two stages of K/V and two Q buffers per group at D = 32 and 64; at D =
+  // 128 and 256 one of each fits in the 227 KB of shared memory.
+  static constexpr int kKVBufs = D <= 64 ? 2 : 1;
+  static constexpr int kQBufs = D <= 64 ? 2 : 1;
   static constexpr int LDK = D + 4;     // K and Q rows
   static constexpr int LDP = kTile + 4;  // P rows
   static constexpr int kKFloats = kTile * LDK;
   static constexpr int kKV = kKFloats + kTile * D;
-  static constexpr int kQFloats = kTile * LDK;
+  // A Q buffer holds P once S is formed: at D = 32 P's rows are the longer.
+  static constexpr int kQFloats = kTile * (LDK > LDP ? LDK : LDP);
   static constexpr int kQ = kKVBufs * kKV;
   static constexpr int kScales = kQ + kGroups * kQBufs * kQFloats;
   static constexpr int kFloats = kScales + kGroups * 2 * kTile;
   static constexpr int kSmem = kFloats * 4 + 8 * (kKVBufs + kGroups * kQBufs);
-  static_assert(kQFloats >= kTile * LDP, "P must fit in a Q buffer");
+  static_assert(kSmem <= 232448, "one block must fit the SM's 227 KB");
 };
 
 template <int D>
-__global__ void __launch_bounds__(512, 1)
+__global__ void __launch_bounds__(Fa1<D>::kThreads, 1)
 fa1_fp32(const float* __restrict__ q, const float* __restrict__ k,
          const float* __restrict__ v, float* __restrict__ o,
          float* __restrict__ m, float* __restrict__ l, int sq, int skv,
@@ -120,9 +143,10 @@ fa1_fp32(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int LDK = L::LDK;
   constexpr int LDP = L::LDP;
   constexpr int DC = D / 64;  // float4 column groups of O per thread
-  // P values per shared load in P V: a float4 at D = 64; one at D = 128,
-  // where the 8 x 8 P V tile leaves no registers for more.
-  constexpr int KP = D == 64 ? 4 : 1;
+  constexpr int kCols = D == 32 ? 2 : 4 * DC;  // O columns per thread
+  // P values per shared load in P V: a float4 at D = 32 and 64; one at D =
+  // 128 and 256, where the P V tile leaves no registers for more.
+  constexpr int KP = D <= 64 ? 4 : 1;
   constexpr int kChunks = D / 4;     // 16-byte chunks per row
   extern __shared__ __align__(16) float smem[];
   const uint32_t kv_full = smem_addr(smem + L::kFloats);  // stage s at + 8 s
@@ -289,11 +313,11 @@ fa1_fp32(const float* __restrict__ q, const float* __restrict__ k,
       group_sync();  // P and the scales are in place
 
       // P V, summed over the tile's keys in order.
-      float pv[8][4 * DC];
+      float pv[8][kCols];
 #pragma unroll
       for (int r = 0; r < 8; ++r) {
 #pragma unroll
-        for (int j = 0; j < 4 * DC; ++j) pv[r][j] = 0.f;
+        for (int j = 0; j < kCols; ++j) pv[r][j] = 0.f;
       }
 #pragma unroll 2
       for (int c = 0; c < kTile; c += KP) {
@@ -310,19 +334,28 @@ fa1_fp32(const float* __restrict__ q, const float* __restrict__ k,
         }
 #pragma unroll
         for (int e = 0; e < KP; ++e) {
-          float4 v4[DC];
+          if constexpr (D == 32) {
+            const float2 v2 = *reinterpret_cast<const float2*>(vs + (c + e) * D + 2 * tx);
 #pragma unroll
-          for (int h = 0; h < DC; ++h) {
-            v4[h] = *reinterpret_cast<const float4*>(vs + (c + e) * D + 64 * h + 4 * tx);
-          }
-#pragma unroll
-          for (int r = 0; r < 8; ++r) {
+            for (int r = 0; r < 8; ++r) {
+              pv[r][0] = fmaf(pk[r][e], v2.x, pv[r][0]);
+              pv[r][1] = fmaf(pk[r][e], v2.y, pv[r][1]);
+            }
+          } else {
+            float4 v4[DC];
 #pragma unroll
             for (int h = 0; h < DC; ++h) {
-              pv[r][4 * h] = fmaf(pk[r][e], v4[h].x, pv[r][4 * h]);
-              pv[r][4 * h + 1] = fmaf(pk[r][e], v4[h].y, pv[r][4 * h + 1]);
-              pv[r][4 * h + 2] = fmaf(pk[r][e], v4[h].z, pv[r][4 * h + 2]);
-              pv[r][4 * h + 3] = fmaf(pk[r][e], v4[h].w, pv[r][4 * h + 3]);
+              v4[h] = *reinterpret_cast<const float4*>(vs + (c + e) * D + 64 * h + 4 * tx);
+            }
+#pragma unroll
+            for (int r = 0; r < 8; ++r) {
+#pragma unroll
+              for (int h = 0; h < DC; ++h) {
+                pv[r][4 * h] = fmaf(pk[r][e], v4[h].x, pv[r][4 * h]);
+                pv[r][4 * h + 1] = fmaf(pk[r][e], v4[h].y, pv[r][4 * h + 1]);
+                pv[r][4 * h + 2] = fmaf(pk[r][e], v4[h].z, pv[r][4 * h + 2]);
+                pv[r][4 * h + 3] = fmaf(pk[r][e], v4[h].w, pv[r][4 * h + 3]);
+              }
             }
           }
         }
@@ -337,6 +370,12 @@ fa1_fp32(const float* __restrict__ q, const float* __restrict__ k,
         if (row >= sq) continue;
         const float scale_old = sc[ty + 8 * r];
         const float scale_pv = sc[kTile + ty + 8 * r];
+        if constexpr (D == 32) {
+          float2* at = reinterpret_cast<float2*>(op + static_cast<size_t>(row) * D + 2 * tx);
+          const float2 o_prev = t > 0 ? *at : make_float2(0.f, 0.f);
+          *at = make_float2(scale_old * o_prev.x + scale_pv * pv[r][0],
+                            scale_old * o_prev.y + scale_pv * pv[r][1]);
+        }
 #pragma unroll
         for (int h = 0; h < DC; ++h) {
           float4* at = reinterpret_cast<float4*>(
@@ -429,19 +468,40 @@ naive_fa2_fp32(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();  // P is in place
 
     // P V of this tile, then the eager renormalisation.
-    float pv[8][DO];
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-#pragma unroll
-      for (int c = 0; c < DO; ++c) pv[r][c] = 0.f;
-    }
     st.wait_v(t);
-    fma_pv<D>(ps, st.v(t), th, pv);
+    if constexpr (D > 128) {
+      // A 64-column quarter at a time, each folded into acc before the next.
 #pragma unroll
-    for (int r = 0; r < 8; ++r) {
+      for (int h = 0; h < D / 64; ++h) {
+        float pv[8][4];
 #pragma unroll
-      for (int c = 0; c < DO; ++c) {
-        acc[r][c] = acc[r][c] * scale_old[r] + pv[r][c] * scale_pv[r];
+        for (int r = 0; r < 8; ++r) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) pv[r][c] = 0.f;
+        }
+        fma_pv<D, false, 1>(ps, st.v(t), th, pv, h);
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            acc[r][4 * h + c] = acc[r][4 * h + c] * scale_old[r] + pv[r][c] * scale_pv[r];
+          }
+        }
+      }
+    } else {
+      float pv[8][DO];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+#pragma unroll
+        for (int c = 0; c < DO; ++c) pv[r][c] = 0.f;
+      }
+      fma_pv<D>(ps, st.v(t), th, pv);
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+#pragma unroll
+        for (int c = 0; c < DO; ++c) {
+          acc[r][c] = acc[r][c] * scale_old[r] + pv[r][c] * scale_pv[r];
+        }
       }
     }
     __syncthreads();  // K(t), V(t) and P are read: refill
@@ -481,10 +541,10 @@ cudaError_t launch_naive(const float* q, const float* k, const float* v,
 
 extern "C" {
 
-// B9.  q, o [bh, sq, head_dim]; k, v [bh, skv, head_dim]; m, l [bh, sq]
-// fp32 scratch (the running max and sum, written by the kernel).  All fp32
-// and contiguous.  Keys at or past kv_len are masked.  Returns a
-// cudaError_t.
+// B9.  q, o [bh, sq, head_dim]; k, v [bh, skv, head_dim] (head_dim one of
+// this library's, CFA_HEAD_DIMS); m, l [bh, sq] fp32 scratch (the running
+// max and sum, written by the kernel).  All fp32 and contiguous.  Keys at
+// or past kv_len are masked.  Returns a cudaError_t.
 int cfa_fa1_forward(const void* q, const void* k, const void* v, void* o,
                     void* m, void* l, int bh, int sq, int skv, int head_dim,
                     int kv_len, float sm_scale, void* stream) {
@@ -495,14 +555,14 @@ int cfa_fa1_forward(const void* q, const void* k, const void* v, void* o,
   auto* mf = static_cast<float*>(m);
   auto* lf = static_cast<float*>(l);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64) {
-    return launch_fa1<64>(qf, kf, vf, of, mf, lf, bh, sq, skv, kv_len, sm_scale,
-                          st);
+  // This library's head dims (CFA_HEAD_DIMS).
+#define CFA_CASE(D)                                                          \
+  if (head_dim == D) {                                                       \
+    return launch_fa1<D>(qf, kf, vf, of, mf, lf, bh, sq, skv, kv_len,        \
+                         sm_scale, st);                                      \
   }
-  if (head_dim == 128) {
-    return launch_fa1<128>(qf, kf, vf, of, mf, lf, bh, sq, skv, kv_len,
-                           sm_scale, st);
-  }
+  CFA_HEAD_DIMS(CFA_CASE)
+#undef CFA_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -515,12 +575,12 @@ int cfa_naive_fa2_forward(const void* q, const void* k, const void* v, void* o,
   const auto* vf = static_cast<const float*>(v);
   auto* of = static_cast<float*>(o);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64) {
-    return launch_naive<64>(qf, kf, vf, of, bh, sq, skv, kv_len, sm_scale, st);
+#define CFA_CASE(D)                                                          \
+  if (head_dim == D) {                                                       \
+    return launch_naive<D>(qf, kf, vf, of, bh, sq, skv, kv_len, sm_scale, st); \
   }
-  if (head_dim == 128) {
-    return launch_naive<128>(qf, kf, vf, of, bh, sq, skv, kv_len, sm_scale, st);
-  }
+  CFA_HEAD_DIMS(CFA_CASE)
+#undef CFA_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -74,6 +74,25 @@
 // scaled by sm_scale * log2(e) in fp32, S summed over d in order, P V over
 // the tile's keys in order, exp2 softmax; K's scale on S's columns and V's on
 // P as above.
+//
+// Head dims 32, 64, 128 and 256 (CFA_HEAD_DIMS: this library 64 and 128,
+// csrc/fa2_forward_quant_d32.cu and _d256.cu the others).  The bf16 body
+// takes B1's designs for them (csrc/fa2_forward.cu Layout): at D = 32 a
+// bf16 row is 64 bytes, so Q and the K/V stages are one box of 64-byte
+// rows with the 64-byte swizzle (the converters write that layout, the
+// wgmma descriptors read it), S is m64n128k16 over two k-steps and P V
+// m64n32k16; an int4 row is then 16 bytes, the byte map's least box width.
+// At D = 256 a stage holds 64 KV rows (Layout::kTileN): two consumers' Q
+// tiles (64 KB) and two stages of 64-row bf16 K and V (128 KB) leave room
+// for two byte stages (32 KB at one byte an element), and a consumer's O
+// accumulator (128 fp32 registers a thread) leaves room for a 64-column S
+// (32) and its P fragments (16): S is m64n64k16 and P V two m64n128k16
+// halves a k-step.  The fp32 body takes D = 32 and 256 on the FMA block as
+// it is (FmaRaw: 64-float slots at D = 32; at D = 256 the three fp32 tiles
+// take 192 KB and leave one byte stage at one byte an element, two for
+// int4, so a tile's decode waits for its load).  A dead row's lse is
+// QuantDead's at every head dim: it follows the JAX kernel's tiles, not
+// the port's.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is found at run time
 #include <cuda_bf16.h>
@@ -87,17 +106,22 @@
 
 #include "paged_kv.cuh"  // storage types and decodes; the FMA block and its ring
 
+// The head dims this library is built for: 64 and 128 here; a source that
+// includes this one with CFA_HEAD_DIMS defined builds others (D 32 and 256
+// each in their own library, so that nvcc compiles the widths in parallel).
+#ifndef CFA_HEAD_DIMS
+#define CFA_HEAD_DIMS(X) X(64) X(128)
+#endif
+
 namespace {
 
 constexpr float kMaskValue = -0.7f * 3.40282347e38f;  // DEFAULT_MASK_VALUE
 constexpr float kLn2 = 0.6931471805599453f;
 
-// bf16 compute: the block's Q rows, its consumers' Q rows, the KV rows of a
-// stage, a swizzle atom's columns (128 bytes of bf16).
+// bf16 compute: the block's Q rows and its consumers' Q rows (the KV rows of
+// a stage and a box's columns are Layout's).
 constexpr int kTileM = 128;
 constexpr int kConsumerM = 64;
-constexpr int kTileN = 128;
-constexpr int kBoxCols = 64;
 constexpr int kThreads = 384;
 // Registers per thread after setmaxnreg: 128 x 40 + 256 x 232 = 64512, the
 // 168 a thread that 384 threads start with (one block per SM).  The
@@ -127,8 +151,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // ---------------------------------------------------------------------------
-// wgmma (bf16, fp32 accumulators).
+// wgmma (bf16, fp32 accumulators).  Operand lists of the 32-column
+// accumulator (D = 32's P V; the 64- and 128-column ones are hopper.cuh's).
 // ---------------------------------------------------------------------------
+#define CFA_R16                                                              \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define CFA_ACC16(d) CFA_ACC8(d, 0), CFA_ACC8(d, 8)
 // d[64] (+)= A (64x16, shared, K-major) * B (16x128, shared, K-major).
 __device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t desc_a,
                                          uint64_t desc_b, int scale_d) {
@@ -140,7 +168,28 @@ __device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// d[32] (+)= A (64x16, shared, K-major) * B (16x64, shared, K-major).
+__device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{" CFA_R32 "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : CFA_ACC32(d)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // d += A (64x16, registers) * B (16xN, shared, MN-major: transpose bit).
+__device__ __forceinline__ void wgmma_pv(float (&d)[16], const uint32_t* a,
+                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{" CFA_R16 "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : CFA_ACC16(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 __device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t* a,
                                          uint64_t desc_b) {
   asm volatile(
@@ -163,22 +212,31 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[64], const uint32_t* a,
 
 // Shared memory of the bf16 body, from a 1024-byte-aligned base: the two
 // consumers' Q tiles, kStages bf16 K tiles, kStages bf16 V tiles (a tile of
-// R rows is D / 64 boxes of R rows x 128 bytes, 128-byte-swizzled: 16-byte
-// chunk c of row r at c ^ (r % 8)), kRawStages stored tiles (rows of kRow
-// bytes, as TMA writes them unswizzled), each K stage's scales ([kStages]
-// [K, V][kTileN] fp32) and segment ids ([kStages][kTileN] int32), then the
-// mbarriers: full and empty of each K and V stage, full of each byte
-// stage.  D 128: 32 + 128 + 48 + 3 KB.
+// R rows is D / kBoxCols boxes of R rows x kRowBytes, swizzled as TMA writes
+// B1's: 128-byte rows (D >= 64) with the 128-byte swizzle, 16-byte chunk c
+// of row r at c ^ (r % 8), or at D = 32 one box of 64-byte rows with the
+// 64-byte swizzle, chunk c of row r at c ^ ((r / 2) % 4)), kRawStages
+// stored tiles (rows of kRow bytes, as TMA writes them unswizzled), each K
+// stage's scales ([kStages][K, V][kTileN] fp32) and segment ids ([kStages]
+// [kTileN] int32), then the mbarriers: full and empty of each K and V
+// stage, full of each byte stage.  D 128: 32 + 128 + 48 + 3 KB; D 256:
+// 64 + 128 + 32 (int8) + 1.5 KB.
 template <typename Tc, int D>
 struct Layout {
-  static constexpr int kStages = D == 64 ? 3 : 2;
-  static constexpr int kRawStages = D == 64 ? 4 : 3;
+  static constexpr int kTileN = D > 128 ? 64 : 128;   // KV rows of a stage
+  static constexpr int kBoxCols = D < 64 ? D : 64;     // columns of a box row
+  static constexpr int kRowBytes = 2 * kBoxCols;       // 128, or 64 at D = 32
+  static constexpr int kChunks = kRowBytes / 16;       // 16-byte chunks a box row
+  static constexpr int kBoxes = D / kBoxCols;
+  static constexpr int kAtom = 8 * kRowBytes;          // a swizzle atom's bytes
+  static constexpr int kStages = D <= 64 ? 3 : 2;
+  static constexpr int kRawStages = D <= 64 ? 4 : D <= 128 ? 3 : 2;
   static constexpr int kRow = kRowBytesOf<Tc, D>;
   static constexpr int kRawTile = kTileN * kRow;
-  static constexpr int kQBox = kConsumerM * 128;
-  static constexpr int kKVBox = kTileN * 128;
-  static constexpr int kQBytes = kQBox * (D / kBoxCols);
-  static constexpr int kKVBytes = kKVBox * (D / kBoxCols);
+  static constexpr int kQBox = kConsumerM * kRowBytes;
+  static constexpr int kKVBox = kTileN * kRowBytes;
+  static constexpr int kQBytes = kQBox * kBoxes;
+  static constexpr int kKVBytes = kKVBox * kBoxes;
   static constexpr int kK = 2 * kQBytes;
   static constexpr int kV = kK + kStages * kKVBytes;
   static constexpr int kRaw = kV + kStages * kKVBytes;
@@ -188,6 +246,15 @@ struct Layout {
   static constexpr int kSmem = kBars + 8 * (4 * kStages + kRawStages) + 1024;
   static_assert(kRawTile % 1024 == 0, "byte stages keep 1024-byte alignment");
   static_assert(kSmem <= 232448, "one block must fit the SM's 227 KB");
+
+  // Where 16-byte chunk c of row r of a box sits in that row.
+  static __device__ __forceinline__ int chunk_at(int r, int c) {
+    return kRowBytes == 128 ? c ^ (r % 8) : c ^ ((r / 2) % 4);
+  }
+  // A wgmma descriptor of this swizzle: 8-row groups one atom apart.
+  static __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo) {
+    return kRowBytes == 128 ? sw128_desc(addr, lbo, kAtom) : sw64_desc(addr, lbo, kAtom);
+  }
 };
 
 // A consumer's 64 Q rows [row0, row0 + 64) of a [nrows, D] matrix, scaled
@@ -210,8 +277,9 @@ __device__ __forceinline__ void stage_q(unsigned char* dst, const Tin* src,
 #pragma unroll
       for (int j = 0; j < 8; ++j) x[j] = 0.f;
     }
-    const int chunk = (c % 8) ^ (r % 8);
-    *reinterpret_cast<uint4*>(dst + (c / 8) * L::kQBox + r * 128 + chunk * 16) =
+    const int chunk = L::chunk_at(r, c % L::kChunks);
+    *reinterpret_cast<uint4*>(dst + (c / L::kChunks) * L::kQBox + r * L::kRowBytes +
+                              chunk * 16) =
         make_uint4(pack_bf16(x[0] * scale, x[1] * scale),
                    pack_bf16(x[2] * scale, x[3] * scale),
                    pack_bf16(x[4] * scale, x[5] * scale),
@@ -221,17 +289,19 @@ __device__ __forceinline__ void stage_q(unsigned char* dst, const Tin* src,
 
 // One landed byte stage (kTileN stored rows) converted into a bf16 stage of
 // the K or V ring (swizzled as TMA writes B1's): thread `tid` of the 128
-// producer threads, one 16-byte piece at a time.
+// producer threads, one 16-byte piece at a time.  put's c is a 16-byte
+// (8-element) chunk of the whole row.
 template <typename Tc, int D, typename L>
 __device__ __forceinline__ void convert_tile(unsigned char* dst,
                                              const unsigned char* src, int tid) {
   constexpr int kVec = L::kRow / 16;
   auto put = [&](int r, int c, uint32_t a, uint32_t b, uint32_t x, uint32_t y) {
-    *reinterpret_cast<uint4*>(dst + (c / 8) * L::kKVBox + r * 128 +
-                              (((c % 8) ^ (r % 8)) << 4)) = make_uint4(a, b, x, y);
+    *reinterpret_cast<uint4*>(dst + (c / L::kChunks) * L::kKVBox + r * L::kRowBytes +
+                              (L::chunk_at(r, c % L::kChunks) << 4)) =
+        make_uint4(a, b, x, y);
   };
 #pragma unroll 1
-  for (int i = tid; i < kTileN * kVec; i += 128) {
+  for (int i = tid; i < L::kTileN * kVec; i += 128) {
     const int r = i / kVec;
     const int cb = (i - r * kVec) * 16;  // stored byte of the row
     const uint4 raw = *reinterpret_cast<const uint4*>(src + r * L::kRow + cb);
@@ -274,32 +344,42 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   return y;
 }
 
-// Issue S = Q K^T (not waited for): D / 16 k-steps of 32 bytes, four to a
-// 128-byte box, both operands K-major.
+// Issue S = Q K^T (not waited for): D / 16 k-steps of 32 bytes, kRowBytes /
+// 32 to a box, both operands K-major.
 template <typename L, int D>
-__device__ __forceinline__ void issue_qk(float (&s)[kTileN / 2], uint32_t qs,
+__device__ __forceinline__ void issue_qk(float (&s)[L::kTileN / 2], uint32_t qs,
                                          uint32_t ks) {
+  constexpr int kSteps = L::kRowBytes / 32;  // k-steps a box
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t off = (kk % 4) * 32;
-    wgmma_qk(s, sw128_desc(qs + (kk / 4) * L::kQBox + off, 16, 1024),
-             sw128_desc(ks + (kk / 4) * L::kKVBox + off, 16, 1024), kk > 0);
+    const uint32_t off = (kk % kSteps) * 32;
+    wgmma_qk(s, L::desc(qs + (kk / kSteps) * L::kQBox + off, 16),
+             L::desc(ks + (kk / kSteps) * L::kKVBox + off, 16), kk > 0);
   }
   wgmma_commit();
 }
 
 // Issue O += P V (not waited for): k-step kk reads V rows [16 kk, 16 kk +
-// 16), two 8-row groups 1024 bytes apart, MN-major; the 64-column boxes are
-// kKVBox apart.
+// 16), two 8-row groups an atom apart, MN-major; the boxes are kKVBox
+// apart.  At D = 256 each k-step is two n128 products, columns [0, 128)
+// and [128, 256) (boxes 0-1 and 2-3), into the two halves of the
+// accumulator.
 template <typename L, int D>
 __device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
-                                         uint32_t (&pa)[kTileN / 16][4],
+                                         uint32_t (&pa)[L::kTileN / 16][4],
                                          uint32_t vs) {
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kTileN / 16; ++kk) {
-    wgmma_pv(acc, pa[kk], sw128_desc(vs + kk * 16 * 128, L::kKVBox, 1024));
+  for (int kk = 0; kk < L::kTileN / 16; ++kk) {
+    const uint32_t v = vs + kk * 16 * L::kRowBytes;
+    if constexpr (D > 128) {
+      wgmma_pv(*reinterpret_cast<float(*)[64]>(&acc[0]), pa[kk], L::desc(v, L::kKVBox));
+      wgmma_pv(*reinterpret_cast<float(*)[64]>(&acc[64]), pa[kk],
+               L::desc(v + 2 * L::kKVBox, L::kKVBox));
+    } else {
+      wgmma_pv(acc, pa[kk], L::desc(v, L::kKVBox));
+    }
   }
   wgmma_commit();
 }
@@ -312,7 +392,7 @@ __device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
 // exp2(m_old - m_new) and leaves P times V's scale of its column in s,
 // masked entries exactly 0.  `sc` holds the tile's K scales, then its V
 // scales.
-template <bool kMask, bool kSeg>
+template <bool kMask, bool kSeg, int kTileN>
 __device__ __forceinline__ void quant_softmax(float (&s)[kTileN / 2], const float* sc,
                                               float (&m_run)[2], float (&l_run)[2],
                                               float (&alpha)[2], int k0, int row_a,
@@ -364,6 +444,7 @@ __device__ __forceinline__ void quant_softmax(float (&s)[kTileN / 2], const floa
 
 // P * v_scale in bf16: the accumulators of column groups 2 kk and 2 kk + 1
 // are exactly the register A fragment of k-step kk.
+template <int kTileN>
 __device__ __forceinline__ void pack_p(uint32_t (&pa)[kTileN / 16][4],
                                        const float (&s)[kTileN / 2]) {
 #pragma unroll
@@ -403,6 +484,7 @@ fa2_fwd_quant_wgmma(const __grid_constant__ CUtensorMap k_map,
   using L = Layout<Tc, D>;
   constexpr int kStages = L::kStages;
   constexpr int kRawStages = L::kRawStages;
+  constexpr int kTileN = L::kTileN;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -472,11 +554,12 @@ fa2_fwd_quant_wgmma(const __grid_constant__ CUtensorMap k_map,
       const int t = job_tile(j, n_tiles, is_k);
       const int st = t % kStages;
       // A K job carries tile t's K and V scales (and segment ids), one row
-      // per thread.
+      // per thread (of the first kTileN).
       float ksv = 0.f, vsv = 0.f;
       int idv = 0;
       const int row = walk.at(t) * kTileN + tid;
-      if (is_k && row < skv) {
+      const bool row_thread = kTileN == 128 || tid < kTileN;
+      if (is_k && row_thread && row < skv) {
         ksv = k_scales[scale0 + row];
         vsv = v_scales[scale0 + row];
         if (seg) idv = kv_seg[static_cast<size_t>(b) * seg_stride(skv) + row];
@@ -488,7 +571,7 @@ fa2_fwd_quant_wgmma(const __grid_constant__ CUtensorMap k_map,
       mbar_wait(full_raw + 8 * rs, (j / kRawStages) & 1);
       convert_tile<Tc, D, L>(smem + (is_k ? L::kK : L::kV) + st * L::kKVBytes,
                              smem + L::kRaw + rs * L::kRawTile, tid);
-      if (is_k) {
+      if (is_k && row_thread) {
         scl[st * 2 * kTileN + tid] = ksv;
         scl[st * 2 * kTileN + kTileN + tid] = vsv;
         sid[st * kTileN + tid] = idv;
@@ -555,14 +638,14 @@ fa2_fwd_quant_wgmma(const __grid_constant__ CUtensorMap k_map,
       // Masked element by element: the kv_len tail, the diagonal, a tile
       // some row's window edge crosses, and every tile with segment ids.
       if (seg) {
-        quant_softmax<true, true>(s, sc, m_run, l_run, alpha, k0, row_a, kv_len, causal,
+        quant_softmax<true, true, kTileN>(s, sc, m_run, l_run, alpha, k0, row_a, kv_len, causal,
                                   window, t4, kid, qid);
       } else if ((k0 + kTileN > kv_len) || (causal && k0 + kTileN - 1 > qc0) ||
                  qc0 + kConsumerM - 1 - k0 >= window) {
-        quant_softmax<true, false>(s, sc, m_run, l_run, alpha, k0, row_a, kv_len, causal,
+        quant_softmax<true, false, kTileN>(s, sc, m_run, l_run, alpha, k0, row_a, kv_len, causal,
                                    window, t4, kid, qid);
       } else {
-        quant_softmax<false, false>(s, sc, m_run, l_run, alpha, k0, row_a, kv_len, causal,
+        quant_softmax<false, false, kTileN>(s, sc, m_run, l_run, alpha, k0, row_a, kv_len, causal,
                                     window, t4, kid, qid);
       }
       release(empty_k, t);
@@ -594,7 +677,7 @@ fa2_fwd_quant_wgmma(const __grid_constant__ CUtensorMap k_map,
       wgmma_wait<0>();
       hold(s);
       softmax(0);
-      pack_p(pa, s);
+      pack_p<kTileN>(pa, s);
     }
     for (int t = 0; t + 1 < n_tiles; ++t) {
       const int st = t % kStages;
@@ -614,7 +697,7 @@ fa2_fwd_quant_wgmma(const __grid_constant__ CUtensorMap k_map,
         acc[4 * j + 2] *= alpha[1];
         acc[4 * j + 3] *= alpha[1];
       }
-      pack_p(pa, s);
+      pack_p<kTileN>(pa, s);
     }
     if (n_tiles > 0) {
       const int t = n_tiles - 1;
@@ -848,8 +931,9 @@ struct Args {
 };
 
 // A 3-D byte map over a contiguous stored [rows, skv, row_bytes] K or V:
-// boxes of kTileN whole rows, unswizzled; reads past skv give zeros.
-int raw_map(CUtensorMap* map, const void* ptr, int rows, int skv, int row_bytes) {
+// boxes of tile_rows whole rows, unswizzled; reads past skv give zeros.
+int raw_map(CUtensorMap* map, const void* ptr, int rows, int skv, int row_bytes,
+            int tile_rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return kErrNoEncoder;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(row_bytes),
@@ -857,7 +941,8 @@ int raw_map(CUtensorMap* map, const void* ptr, int rows, int skv, int row_bytes)
                               static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(row_bytes),
                                  static_cast<cuuint64_t>(skv) * row_bytes};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(row_bytes), kTileN, 1};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(row_bytes),
+                             static_cast<cuuint32_t>(tile_rows), 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(ptr),
                             dims, strides, box, elem_strides,
@@ -890,8 +975,8 @@ int launch(const Args& a, bool bf16_compute, cudaStream_t stream) {
   if (bf16_compute) {
     using L = Layout<Tc, D>;
     CUtensorMap k_map, v_map;
-    int err = raw_map(&k_map, a.k, a.batch * a.hkv, a.skv, L::kRow);
-    if (err == 0) err = raw_map(&v_map, a.v, a.batch * a.hkv, a.skv, L::kRow);
+    int err = raw_map(&k_map, a.k, a.batch * a.hkv, a.skv, L::kRow, L::kTileN);
+    if (err == 0) err = raw_map(&v_map, a.v, a.batch * a.hkv, a.skv, L::kRow, L::kTileN);
     if (err != 0) return err;
     static std::atomic<uint64_t> smem_set{0};
     cudaError_t cerr = set_smem_once(fa2_fwd_quant_wgmma<Tq, Tc, D>, L::kSmem, smem_set);
@@ -909,10 +994,13 @@ int launch(const Args& a, bool bf16_compute, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// This library's head dims (CFA_HEAD_DIMS).
 template <typename Tq, typename Tc>
 int launch_d(int head_dim, const Args& a, bool bf16c, cudaStream_t st) {
-  if (head_dim == 64) return launch<Tq, Tc, 64>(a, bf16c, st);
-  if (head_dim == 128) return launch<Tq, Tc, 128>(a, bf16c, st);
+#define CFA_CASE(D) \
+  if (head_dim == D) return launch<Tq, Tc, D>(a, bf16c, st);
+  CFA_HEAD_DIMS(CFA_CASE)
+#undef CFA_CASE
   return cudaErrorInvalidValue;
 }
 
@@ -932,7 +1020,8 @@ int launch_storage(int storage, int head_dim, const Args& a, bool bf16c,
 
 extern "C" {
 
-// q [batch, hq, sq, head_dim] (fp32, or bf16 when q_bf16); o like q; lse
+// q [batch, hq, sq, head_dim] (fp32, or bf16 when q_bf16; head_dim one of
+// this library's, CFA_HEAD_DIMS); o like q; lse
 // [batch, hq, sq] fp32.  k, v [batch, hkv, skv, row] of storage 0 = int8,
 // 1 = fp8 e4m3, 2 = fp8 e5m2 (row = head_dim bytes) or 3 = int4 split-half
 // (row = head_dim / 2 bytes); k_scales, v_scales [batch, hkv, skv] fp32.  All

@@ -46,6 +46,21 @@
 //     eight chunks a thread at a time before any of them is converted.
 // The TPU kernel's V-augmented rowsum (a v5e work-around) is left out: l
 // sums the fp32 P.
+//
+// Head dims 32, 64, 128 and 256 (CFA_HEAD_DIMS: this library 64 and 128,
+// csrc/fa2_forward_small_d32.cu and _d256.cu the others).  At D = 32 the
+// fp32 body's tiles take fma_slot(32) = 64 floats a row, so that P's 64
+// columns fit over a K stage; the mma body needs nothing new.  At D = 256:
+//   * fp32: two K, two V and one Q tile of 64 x 256 floats would take 320
+//     KB.  The block holds Q and the two K stages; once S(t) has read K(t),
+//     V(t) is loaded over it (its own mbarrier), and P takes a 32 KB region
+//     after Q: 224 KB, one block an SM.  Both S tiles are formed before any
+//     exp2, so the one-pass softmax stays;
+//   * mma: Q's fragments (64 registers), S (64) and O's accumulators (128)
+//     would pass the 255 a thread has.  Q's fragments die with S, and O is
+//     formed in two passes of 128 columns over the same P (s stays live),
+//     each normalised and stored before the next; shared memory (64 + 2 x
+//     128 rows of 264 bf16) is 165 KB, one block an SM.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -58,6 +73,13 @@
 #include <type_traits>
 
 #include "fma_block.cuh"  // the fp32 body's block; includes hopper.cuh
+
+// The head dims this library is built for: 64 and 128 here; a source that
+// includes this one with CFA_HEAD_DIMS defined builds others (D 32 and 256
+// each in their own library, so that nvcc compiles the widths in parallel).
+#ifndef CFA_HEAD_DIMS
+#define CFA_HEAD_DIMS(X) X(64) X(128)
+#endif
 
 namespace {
 
@@ -350,45 +372,49 @@ small_mma(const Tin* __restrict__ q, const Tin* __restrict__ k,
   }
 
   // O = P V: the S accumulators of n-tiles 2kk and 2kk+1 are exactly the
-  // A fragment of k-step kk; V is read transposed by ldmatrix.
-  float acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  }
-#pragma unroll
-  for (int kk = 0; kk < NT / 2; ++kk) {
-    if (kk * 16 < col_end) {
-      uint32_t pa[4];
-      pa[0] = Tile<Tt>::pack(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = Tile<Tt>::pack(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = Tile<Tt>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = Tile<Tt>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t bf[4];
-        ldmatrix_x4_trans(
-            bf, vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                    dp * 16 + (lane >> 4) * 8);
-        Tile<Tt>::mma(acc[2 * dp], pa, bf[0], bf[1]);
-        Tile<Tt>::mma(acc[2 * dp + 1], pa, bf[2], bf[3]);
-      }
-    }
-  }
-
+  // A fragment of k-step kk; V is read transposed by ldmatrix.  kOC
+  // columns of O a pass (D = 256: two passes over the same P).
+  constexpr int kOC = D > 128 ? 128 : D;
   const float inv_a = l[0] == 0.f ? 1.f : 1.f / l[0];
   const float inv_b = l[1] == 0.f ? 1.f : 1.f / l[1];
   Tin* op = o + off;
+#pragma unroll 1
+  for (int h = 0; h < D; h += kOC) {
+    float acc[kOC / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int col = j * 8 + t4 * 2;
-    if (row_a < s_pad) {
-      store2(op + static_cast<size_t>(row_a) * D + col, acc[j][0] * inv_a,
-             acc[j][1] * inv_a);
+    for (int j = 0; j < kOC / 8; ++j) {
+      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
     }
-    if (row_b < s_pad) {
-      store2(op + static_cast<size_t>(row_b) * D + col, acc[j][2] * inv_b,
-             acc[j][3] * inv_b);
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk) {
+      if (kk * 16 < col_end) {
+        uint32_t pa[4];
+        pa[0] = Tile<Tt>::pack(s[2 * kk][0], s[2 * kk][1]);
+        pa[1] = Tile<Tt>::pack(s[2 * kk][2], s[2 * kk][3]);
+        pa[2] = Tile<Tt>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+        pa[3] = Tile<Tt>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+        for (int dp = 0; dp < kOC / 16; ++dp) {
+          uint32_t bf[4];
+          ldmatrix_x4_trans(
+              bf, vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + h +
+                      dp * 16 + (lane >> 4) * 8);
+          Tile<Tt>::mma(acc[2 * dp], pa, bf[0], bf[1]);
+          Tile<Tt>::mma(acc[2 * dp + 1], pa, bf[2], bf[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kOC / 8; ++j) {
+      const int col = h + j * 8 + t4 * 2;
+      if (row_a < s_pad) {
+        store2(op + static_cast<size_t>(row_a) * D + col, acc[j][0] * inv_a,
+               acc[j][1] * inv_a);
+      }
+      if (row_b < s_pad) {
+        store2(op + static_cast<size_t>(row_b) * D + col, acc[j][2] * inv_b,
+               acc[j][3] * inv_b);
+      }
     }
   }
   if (t4 == 0) {
@@ -401,17 +427,21 @@ small_mma(const Tin* __restrict__ q, const Tin* __restrict__ k,
 // ---------------------------------------------------------------------------
 // fp32 on the FMA units: the fp32 block of csrc/fma_block.cuh over one
 // 64-row Q tile, the whole row's (<= 128) keys at once.  Shared memory as
-// FmaStages lays it out with two K and two V stages (80 KB at D = 64, two
-// blocks an SM; 160 KB at D = 128, one).
+// FmaStages lays it out with two K and two V stages (80 KB at D = 32 and 64,
+// two blocks an SM; 160 KB at D = 128, one).  At D = 256 (kVOverK) V(t)
+// takes K(t)'s stage once S(t) has read it, and the two P tiles a region of
+// their own after Q (224 KB).
 // ---------------------------------------------------------------------------
 template <int D>
 struct SmallFmaLayout {
+  static constexpr bool kVOverK = D > 128;
   static constexpr int kKStages = 2;
   static constexpr int kVStages = 2;
-  static constexpr int kTile = kFmaTile * D;
-  static constexpr int kV = kKStages * kTile;
-  static constexpr int kQ = kV + kVStages * kTile;
-  static constexpr int kFloats = kQ + kTile;
+  static constexpr int kTile = kFmaTile * fma_slot(D);
+  static constexpr int kV = kVOverK ? 0 : kKStages * kTile;
+  static constexpr int kQ = kVOverK ? kKStages * kTile : kV + kVStages * kTile;
+  static constexpr int kP = kQ + kTile;  // kVOverK: P(t) at kP + t * 64 * 64
+  static constexpr int kFloats = kP + (kVOverK ? kKStages * kFmaTile * kFmaTile : 0);
   static constexpr int kSmem = kFloats * 4 + 8 * (kKStages + kVStages);
   // The segment ids after the mbarriers (SegIds).
   static constexpr int kIds = kSmem;
@@ -438,6 +468,11 @@ small_fp32(const float* __restrict__ q, const float* __restrict__ k,
   const int kv_end = causal ? min(kv_len, q0 + kFmaTile) : kv_len;
   const int n_kv = (kv_end + kFmaTile - 1) / kFmaTile;  // 1 or 2
 
+  // P(t): over K(t), or (kVOverK) in its own region.
+  auto p_tile = [&](int t) {
+    return L::kVOverK ? smem + L::kP + t * kFmaTile * kFmaTile : st.k(t);
+  };
+
   if (threadIdx.x == 0) st.init();
   __syncthreads();  // the stages' barriers are initialised
   // Both K tiles first: the softmax needs all of S before any of V.
@@ -445,9 +480,11 @@ small_fp32(const float* __restrict__ q, const float* __restrict__ k,
   for (int t = 0; t < 2; ++t) {
     if (t < n_kv) fma_load_k<D>(st, t, k + off, s_pad);
   }
+  if constexpr (!L::kVOverK) {
 #pragma unroll
-  for (int t = 0; t < 2; ++t) {
-    if (t < n_kv) fma_load_v<D>(st, t, v + off, s_pad);
+    for (int t = 0; t < 2; ++t) {
+      if (t < n_kv) fma_load_v<D>(st, t, v + off, s_pad);
+    }
   }
   // Q scaled by sm_scale * log2(e) once, in fp32, while K and V land.
   fma_load_q<D>(st.q(), q + off, q0, s_pad, qscale);
@@ -464,6 +501,10 @@ small_fp32(const float* __restrict__ q, const float* __restrict__ k,
     if (t < n_kv) {
       st.wait_k(t);
       fma_scores<D>(st.q(), st.k(t), th, s[t]);
+      if constexpr (L::kVOverK) {
+        __syncthreads();  // K(t) is read: V(t) takes its stage
+        fma_load_v<D>(st, t, v + off, s_pad);
+      }
     }
   }
   __syncthreads();  // K is read: P takes its stages
@@ -501,7 +542,7 @@ small_fp32(const float* __restrict__ q, const float* __restrict__ k,
                               ? 0.f
                               : exp2f(s[t][r][j] - mx[r]);
           rs += p;
-          fma_store_p(st.k(t), th, r, j, p);
+          fma_store_p(p_tile(t), th, r, j, p);
         }
       }
     }
@@ -519,7 +560,7 @@ small_fp32(const float* __restrict__ q, const float* __restrict__ k,
   for (int t = 0; t < 2; ++t) {
     if (t < n_kv) {
       st.wait_v(t);
-      fma_pv<D>(st.k(t), st.v(t), th, acc);
+      fma_pv<D>(p_tile(t), st.v(t), th, acc);
     }
   }
 
@@ -617,8 +658,9 @@ cudaError_t launch_mma_tiles(const Args& a, int tiles) {
 extern "C" {
 
 // q, k, v, o [n_slots, s_pad, head_dim] (every (batch, head) pair one slot,
-// `heads` slots a batch element); lse [n_slots, s_pad] fp32.  All
-// contiguous and 16-byte aligned, s_pad <= 128.  q_seg and kv_seg [n_slots
+// `heads` slots a batch element; head_dim one of this library's, as
+// CFA_HEAD_DIMS); lse [n_slots, s_pad] fp32.  All contiguous and 16-byte
+// aligned, s_pad <= 128.  q_seg and kv_seg [n_slots
 // / heads, 128] int32 segment ids, or both null.  in_bf16: q/k/v/o are
 // bf16 (else fp32).  tiles: 0 fp32 on the FMA units (needs fp32 inputs), 1
 // bf16 or 2 fp16 on the tensor cores.  qscale = sm_scale * log2(e).
@@ -638,18 +680,17 @@ int cfa_fa2_forward_small(const void* q, const void* k, const void* v,
                static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg),
                n_slots, heads, s_pad, kv_len, qscale, causal, window, sinks,
                static_cast<cudaStream_t>(stream)};
-  if (tiles == 1 || tiles == 2) {
-    if (in_bf16) {
-      if (head_dim == 64) return launch_mma_tiles<__nv_bfloat16, 64>(a, tiles);
-      if (head_dim == 128) return launch_mma_tiles<__nv_bfloat16, 128>(a, tiles);
-    } else {
-      if (head_dim == 64) return launch_mma_tiles<float, 64>(a, tiles);
-      if (head_dim == 128) return launch_mma_tiles<float, 128>(a, tiles);
-    }
-  } else if (tiles == 0 && !in_bf16) {
-    if (head_dim == 64) return launch_fp32<64>(a);
-    if (head_dim == 128) return launch_fp32<128>(a);
+  // This library's head dims (CFA_HEAD_DIMS).
+#define CFA_CASE(D)                                                          \
+  if (head_dim == D) {                                                       \
+    if (tiles == 1 || tiles == 2) {                                          \
+      return in_bf16 ? launch_mma_tiles<__nv_bfloat16, D>(a, tiles)          \
+                     : launch_mma_tiles<float, D>(a, tiles);                 \
+    }                                                                        \
+    if (tiles == 0 && !in_bf16) return launch_fp32<D>(a);                    \
   }
+  CFA_HEAD_DIMS(CFA_CASE)
+#undef CFA_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

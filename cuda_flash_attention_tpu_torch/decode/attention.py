@@ -191,7 +191,7 @@ def _check_kernel_inputs(what: str, q, pages: KVPages, page_table, lengths,
     cache_dtype = pages.k_pages.dtype
     head_dim, page_size = q.shape[-1], pages.page_size
     if head_dim not in FORWARD_HEAD_DIMS:
-        raise head_dim_error(what, head_dim, FORWARD_HEAD_DIMS)
+        raise head_dim_error(what, head_dim)
     if (cache_dtype not in _CACHE_CODES or group > _MAX_GROUP or page_size % 128
             or q.dtype not in _COMPUTE_DTYPES
             or (cache_dtype == torch.float32 and head_dim > 128)):

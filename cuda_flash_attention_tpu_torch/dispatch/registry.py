@@ -3,13 +3,10 @@
 Counterpart of cuda_flash_attention_tpu/dispatch/registry.py: a runtime
 (method, mode, precision, head_dim) tuple resolves to a callable, with the
 same validation and the same exception types:
-  * head_dim must be one of SUPPORTED_HEAD_DIMS.  Each CUDA kernel takes
-    its own set (kernels/common.py): the FA2 forward (B1) and backward
-    (B2-B4) all four, as do the serving path's paged kernels (B5, B6);
-    the small-shape forward (B8), the baselines (B9, B10) and the
-    quantized-KV forward (B7) 64 and 128 (KERNEL_HEAD_DIMS), and raise
-    NotImplementedError on the card at 32 and 256 (ROADMAP.md Queue B 2).
-    On the CPU every head dim runs the plain versions;
+  * head_dim must be one of SUPPORTED_HEAD_DIMS.  Every CUDA kernel
+    (B1-B10) takes all four on the card (kernels/common.py
+    FORWARD_HEAD_DIMS; D 32 and 256 from libraries of their own), and on
+    the CPU every head dim runs the plain versions;
   * the baselines (fa1, fa2-naive) and the VANILLA oracle are forward-only
     and fp32-only; fa1 and fa2-naive also refuse causal and return
     lse = None;

@@ -25,7 +25,6 @@ from __future__ import annotations
 import torch
 
 from cuda_flash_attention_tpu_torch.kernels.common import (
-    KERNEL_HEAD_DIMS,
     MIN_BLOCK,
     TILE_DTYPES,
     BlockSizes,
@@ -219,11 +218,10 @@ def _segments_of(q_segment_ids, kv_segment_ids, q_pad, k_pad):
 
 def _use_small_kernel(q, k) -> bool:
     """JAX attention.py:273-277 on padded q/k: one whole tile per head
-    (Sq = Skv <= 128) and one KV head per query head take B8, at the head
-    dims B8 takes (KERNEL_HEAD_DIMS); B1 computes the same function, a dead
-    row's lse included, at the others."""
+    (Sq = Skv <= 128) and one KV head per query head take B8, at every
+    head dim."""
     return (q.shape[2] <= MIN_BLOCK and k.shape[2] == q.shape[2]
-            and k.shape[1] == q.shape[1] and q.shape[3] in KERNEL_HEAD_DIMS)
+            and k.shape[1] == q.shape[1])
 
 
 def _forward(q, k, v, kv_len, causal, sm_scale, tile_dtype, window=None,

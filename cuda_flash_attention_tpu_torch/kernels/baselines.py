@@ -5,7 +5,10 @@ FA2 (B10), with their plain PyTorch versions.
                          baselines.py::_fa1_aligned
   B10 naive_fa2_aligned  replaces ...::_naive_fa2_aligned
 The CUDA kernels are csrc/baselines.cu; its source note says what bounds them
-on the H100 and why their schedules stay as they are.  Both are forward-only,
+on the H100 and why their schedules stay as they are.  Both take head dims
+32, 64, 128 and 256 (D 32 and 256 each from a library of their own,
+common.kernel_library); a launch at D 32 or 256 also counts under
+`fa1_d32`, `naive_fa2_d256` and so on.  Both are forward-only,
 fp32-only and non-causal, like the JAX ones and the reference's (the
 registry refuses the rest).  On a CPU tensor a wrapper runs its plain
 version; on a CUDA tensor it launches its kernel or raises.
@@ -20,9 +23,10 @@ import torch
 from cuda_flash_attention_tpu_torch.kernels import _build, launches
 from cuda_flash_attention_tpu_torch.kernels.common import (
     DEFAULT_MASK_VALUE,
-    KERNEL_HEAD_DIMS,
+    FORWARD_HEAD_DIMS,
     MIN_BLOCK,
     head_dim_error,
+    kernel_library,
     pad_to_block,
 )
 
@@ -35,8 +39,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("baselines")
+def _lib(head_dim: int = 64) -> ctypes.CDLL:
+    lib = _build.load(kernel_library("baselines", head_dim))
     if lib.cfa_fa1_forward.argtypes is None:
         lib.cfa_fa1_forward.argtypes = [_P] * 6 + [_I] * 5 + [_F, _P]
         lib.cfa_naive_fa2_forward.argtypes = [_P] * 4 + [_I] * 5 + [_F, _P]
@@ -49,7 +53,7 @@ def _check(name, q, k, v):
     """What both kernels take; raises on anything else."""
     if q.dtype != torch.float32:
         raise NotImplementedError(f"{name} kernel: fp32 only; got {q.dtype}")
-    if q.shape[3] not in KERNEL_HEAD_DIMS:
+    if q.shape[3] not in FORWARD_HEAD_DIMS:
         raise head_dim_error(name, q.shape[3])
     if k.shape[1] != q.shape[1] or q.shape[0] * q.shape[1] > 65535:
         raise NotImplementedError(
@@ -77,13 +81,13 @@ def fa1_aligned(q, k, v, *, sm_scale: float, kv_len: int):
     o = torch.empty_like(q)
     m = torch.empty((b, h, sq), device=q.device, dtype=torch.float32)
     l = torch.empty_like(m)
-    lib = _lib()
+    lib = _lib(d)
     err = lib.cfa_fa1_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), m.data_ptr(),
         l.data_ptr(), b * h, sq, k.shape[2], d, kv_len, sm_scale,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, "cfa_baselines_error_string", err, "fa1")
-    launches.count("fa1")
+    launches.count("fa1", head_dim=d)
     return o
 
 
@@ -96,13 +100,13 @@ def naive_fa2_aligned(q, k, v, *, sm_scale: float, kv_len: int):
     _check("naive_fa2", q, k, v)
     b, h, sq, d = q.shape
     o = torch.empty_like(q)
-    lib = _lib()
+    lib = _lib(d)
     err = lib.cfa_naive_fa2_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b * h, sq,
         k.shape[2], d, kv_len, sm_scale,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, "cfa_baselines_error_string", err, "naive_fa2")
-    launches.count("naive_fa2")
+    launches.count("naive_fa2", head_dim=d)
     return o
 
 

@@ -23,30 +23,29 @@ DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 # below 2^-14 is subnormal, where the JAX package's fp16 emulation (a
 # 10-bit mantissa in fp32) does neither; in fp16's normal range they agree.
 TILE_DTYPES = (None, torch.bfloat16, torch.float16)
-# Head dims the CUDA kernels take; the plain versions take any.  B1 (the
-# FA2 forward), B2-B4 (its backward), B5 and B6 (paged decode and chunk
-# attention) take all four of the registry's (FORWARD_HEAD_DIMS); B7 and
-# B8-B10 take 64 and 128 (KERNEL_HEAD_DIMS), their D 32 and 256 being
-# ROADMAP.md's Queue B 2.
+# Head dims the CUDA kernels take; the plain versions take any.  Every
+# kernel (B1-B10) takes all four of the registry's (FORWARD_HEAD_DIMS).
+# KERNEL_HEAD_DIMS are those built into each source's own library; D 32 and
+# 256 are each a library of their own (kernel_library).
 FORWARD_HEAD_DIMS = (32, 64, 128, 256)
 KERNEL_HEAD_DIMS = (64, 128)
 
 
-def head_dim_error(name: str, head_dim: int, dims=KERNEL_HEAD_DIMS):
-    """What a wrapper raises on a CUDA tensor whose head dim its kernel
-    does not take (no plain-version fallback); a head dim of the registry's
-    that the kernel lacks is ROADMAP.md's Queue B 2."""
-    queue = (" (ROADMAP.md Queue B 2)"
-             if head_dim in FORWARD_HEAD_DIMS and head_dim not in dims else "")
+def head_dim_error(name: str, head_dim: int):
+    """What a wrapper raises on a CUDA tensor whose head dim no kernel
+    takes (no plain-version fallback)."""
     return NotImplementedError(
-        f"{name} kernel: head_dim {head_dim} not in {dims}{queue}")
+        f"{name} kernel: head_dim {head_dim} not in {FORWARD_HEAD_DIMS}")
 
 
 def kernel_library(name: str, head_dim: int) -> str:
     """The library of csrc/<name>.cu that holds head dim `head_dim`: D 64
     and 128 in <name> itself, D 32 and 256 each in <name>_d32 / <name>_d256
     (csrc/<name>_d<D>.cu, the same source built at that width alone, so
-    that nvcc compiles the widths in parallel)."""
+    that nvcc compiles the widths in parallel).  No library holds a head
+    dim outside FORWARD_HEAD_DIMS: that raises head_dim_error."""
+    if head_dim not in FORWARD_HEAD_DIMS:
+        raise head_dim_error(name, head_dim)
     return name if head_dim in KERNEL_HEAD_DIMS else f"{name}_d{head_dim}"
 
 

@@ -223,7 +223,7 @@ def _check(name, q, k, v, tile_dtype, same, stats):
             f"{q.dtype} with tile_dtype {tile_dtype}")
     d = q.shape[3]
     if d not in FORWARD_HEAD_DIMS:
-        raise head_dim_error(name, d, FORWARD_HEAD_DIMS)
+        raise head_dim_error(name, d)
     if q.shape[0] * max(q.shape[1], k.shape[1]) > 65535:
         raise NotImplementedError(f"{name} kernel: batch * heads > 65535")
     for t in (k, v) + same:

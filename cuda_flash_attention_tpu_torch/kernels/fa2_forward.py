@@ -16,9 +16,10 @@ common.pack_segments pads them: a row keeps only the keys of its own
 segment); a windowed launch also counts under `<name>_window`, a
 segmented one under `<name>_segments`.  A row that keeps no key gives O =
 0 and the lse of the JAX forward's tile walk (common.dead_row_lse, on the
-tiles `lse_tiles`, by default those of BlockSizes.default).  B1 takes head
+tiles `lse_tiles`, by default those of BlockSizes.default).  Both take head
 dims 32, 64, 128 and 256 (D 32 and 256 each from a library of their own,
-common.kernel_library), B8 64 and 128.
+common.kernel_library); a launch there also counts under `<name>_d32` or
+`<name>_d256`.
 """
 
 from __future__ import annotations
@@ -31,7 +32,6 @@ from cuda_flash_attention_tpu_torch.kernels import _build, launches
 from cuda_flash_attention_tpu_torch.kernels.common import (
     DEFAULT_MASK_VALUE,
     FORWARD_HEAD_DIMS,
-    KERNEL_HEAD_DIMS,
     LN2,
     LOG2E,
     MIN_BLOCK,
@@ -60,8 +60,8 @@ def _lib(head_dim: int = 64) -> ctypes.CDLL:
     return lib
 
 
-def _small_lib() -> ctypes.CDLL:
-    lib = _build.load("fa2_forward_small")
+def _small_lib(head_dim: int = 64) -> ctypes.CDLL:
+    lib = _build.load(kernel_library("fa2_forward_small", head_dim))
     fn = lib.cfa_fa2_forward_small
     if fn.argtypes is None:
         fn.argtypes = [_P] * 7 + [_I] * 5 + [_F] + [_I] * 5 + [_P]
@@ -85,16 +85,16 @@ def seg_args(q_seg, kv_seg, b: int, sq: int, skv: int):
     return (held, held[0].data_ptr(), held[1].data_ptr())
 
 
-def _check_inputs(name, q, k, v, tile_dtype, head_dims=KERNEL_HEAD_DIMS):
-    """What both kernels take (B1 every head dim of FORWARD_HEAD_DIMS, B8
-    KERNEL_HEAD_DIMS); raises on anything else."""
+def _check_inputs(name, q, k, v, tile_dtype):
+    """What both kernels take (every head dim of FORWARD_HEAD_DIMS);
+    raises on anything else."""
     if q.dtype not in (torch.float32, torch.bfloat16) or tile_dtype not in TILE_DTYPES:
         raise NotImplementedError(
             f"{name} kernel: inputs fp32/bf16 and tiles None/bf16/fp16; got "
             f"{q.dtype} with tile_dtype {tile_dtype}"
         )
-    if q.shape[3] not in head_dims:
-        raise head_dim_error(name, q.shape[3], head_dims)
+    if q.shape[3] not in FORWARD_HEAD_DIMS:
+        raise head_dim_error(name, q.shape[3])
     for t in (q, k, v):
         if t.device != q.device or t.dtype != q.dtype or not t.is_contiguous():
             raise ValueError(f"{name} kernel: q/k/v must be contiguous, on one "
@@ -125,7 +125,7 @@ def fa2_forward_aligned(q, k, v, *, causal: bool, sm_scale: float,
         raise ValueError(f"fa2_forward: unsupported device {q.device}")
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    _check_inputs("fa2_forward", q, k, v, tile_dtype, FORWARD_HEAD_DIMS)
+    _check_inputs("fa2_forward", q, k, v, tile_dtype)
     if b * hq > 65535:
         raise NotImplementedError("fa2_forward kernel: batch * heads > 65535")
     if tile_dtype not in (None, q.dtype):
@@ -175,7 +175,7 @@ def fa2_forward_small_aligned(q, k, v, *, causal: bool, sm_scale: float,
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s_pad), device=q.device, dtype=torch.float32)
     held, q_ids, kv_ids = seg_args(q_seg, kv_seg, b, s_pad, s_pad)
-    lib = _small_lib()
+    lib = _small_lib(d)
     err = lib.cfa_fa2_forward_small(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         q_ids, kv_ids, b * h, h, s_pad, d, kv_len, sm_scale * LOG2E, int(causal),
@@ -185,7 +185,7 @@ def fa2_forward_small_aligned(q, k, v, *, causal: bool, sm_scale: float,
     )
     _build.check(lib, "cfa_fa2_forward_small_error_string", err,
                  "fa2_forward_small")
-    launches.count("fa2_forward_small", window, held)
+    launches.count("fa2_forward_small", window, held, d)
     return o, lse
 
 

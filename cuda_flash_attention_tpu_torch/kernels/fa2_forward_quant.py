@@ -18,8 +18,9 @@ windowed launch also counts under `fa2_forward_quant_window`, a segmented
 one under `fa2_forward_quant_segments`.  A row that keeps no key gives O =
 0 and the lse of the JAX kernel's tile walk (common.dead_row_lse with
 single_tile_body=False, on the tiles `lse_tiles`: the call's block_q and
-block_k fitted to the padded lengths).  Head dims 64 and 128 (D 32 and 256:
-ROADMAP.md Queue B 2).
+block_k fitted to the padded lengths).  Head dims 32, 64, 128 and 256 (D 32
+and 256 each from a library of their own, common.kernel_library; a launch
+there also counts under `fa2_forward_quant_d32` or `_d256`).
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ from cuda_flash_attention_tpu_torch.kernels.attention import (
 )
 from cuda_flash_attention_tpu_torch.kernels.common import (
     DEFAULT_MASK_VALUE,
-    KERNEL_HEAD_DIMS,
+    FORWARD_HEAD_DIMS,
     LN2,
     LOG2E,
     MIN_BLOCK,
@@ -45,6 +46,7 @@ from cuda_flash_attention_tpu_torch.kernels.common import (
     fit_block,
     head_dim_error,
     is_packed_int4,
+    kernel_library,
     kv_storage_cast,
     pack_segments,
     pad_to_block,
@@ -73,8 +75,8 @@ _STORAGE = {torch.int8: 0, torch.float8_e4m3fn: 1, torch.float8_e5m2: 2}
 _PLAIN_ROWS = 1024
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("fa2_forward_quant")
+def _lib(head_dim: int = 64) -> ctypes.CDLL:
+    lib = _build.load(kernel_library("fa2_forward_quant", head_dim))
     fn = lib.cfa_fa2_forward_quant
     if fn.argtypes is None:
         fn.argtypes = ARGTYPES
@@ -124,10 +126,10 @@ def fa2_forward_quant_aligned(q, k_vals, k_scales, v_vals, v_scales, *,
             window=window, q_seg=q_seg, kv_seg=kv_seg, lse_tiles=lse_tiles)
     if q.device.type != "cuda":
         raise ValueError(f"fa2_forward_quant: unsupported device {q.device}")
-    out = quant_launch(_lib(), q, k_vals, k_scales, v_vals, v_scales, causal=causal,
+    out = quant_launch(_lib(q.shape[3]), q, k_vals, k_scales, v_vals, v_scales, causal=causal,
                        sm_scale=sm_scale, kv_len=kv_len, compute_dtype=compute_dtype,
                        window=window, q_seg=q_seg, kv_seg=kv_seg, lse_tiles=lse_tiles)
-    launches.count("fa2_forward_quant", window, q_seg)
+    launches.count("fa2_forward_quant", window, q_seg, q.shape[3])
     return out
 
 
@@ -140,7 +142,7 @@ def quant_args(q, k_vals, k_scales, v_vals, v_scales, *, causal: bool,
     b, hq, sq, d = q.shape
     hkv, skv = k_vals.shape[1], k_vals.shape[2]
     storage = _storage_code(k_vals, d)
-    if d not in KERNEL_HEAD_DIMS:
+    if d not in FORWARD_HEAD_DIMS:
         raise head_dim_error("fa2_forward_quant", d)
     if (q.dtype not in (torch.float32, torch.bfloat16)
             or v_vals.dtype != k_vals.dtype or v_vals.shape != k_vals.shape):

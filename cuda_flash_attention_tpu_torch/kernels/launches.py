@@ -7,8 +7,9 @@
   (B10), r5_d128_fwd (X).  A launch with a sliding window also counts under
   the kernel's name with `_window` appended (B1-B8), and one with segment
   ids under `_segments` (B1-B4, B7, B8).  A launch at head dim 32 or 256
-  (B1-B6) also counts under `<name>_d32` or `<name>_d256`, and a
-  windowed one there under `<name>_d256_window` too.
+  (B1-B10) also counts under `<name>_d32` or `<name>_d256`, and a
+  windowed one there under `<name>_d32_window` or `<name>_d256_window`
+  too.
 
 A wrapper adds one where it launches its kernel and nowhere else.  A
 reader sets counts to 0 (`reset`) and reads `LAUNCHES`; a missing name

@@ -79,7 +79,13 @@ the base shape (B4 Hq16 Hkv8 S2048 D64 causal) and the long one (B1
 S8192) for each storage, the base shape at D 128 (int8) and a ragged
 S1000 row (B2, phase 19's check shape); B7_FP32_CASES: the base shape in
 fp32 compute, int8 and e4m3, and int8 at D 128; X_CASES: the probe's shape once
-per variant) it prints one JSON line with b1_ab's two
+per variant; at head dims 32 and 256, built as the -wide forms of the
+backward are: B9_WIDE_CASES and B10_WIDE_CASES (b9-wide, b10-wide):
+chip_smoke phase 31's B8 H16 S2048 D32 and B1 H8 S4096 D256;
+B8_WIDE_CASES (b8-wide): B8_CASES at D 32 and 256; B7_WIDE_CASES
+(b7-wide): phase 31's causal rows, D 32 at B4 Hq16 Hkv8 S2048 and D 256 at
+B1 Hq8 Hkv4 S4096, each storage in bf16 compute and int8 in fp32) it
+prints one JSON line with b1_ab's two
 times, each read in the order parent, current, current, parent (`ms`,
 CUDA events over back-to-back calls; `device_ms`, the calls queued behind
 a sleep kernel), TFLOP/s, the bound, one PyTorch call computing the same
@@ -103,6 +109,7 @@ import ctypes
 import functools
 import hashlib
 import json
+import re
 from pathlib import Path
 
 import numpy as np
@@ -275,6 +282,20 @@ B7_CASES = (
 B7_FP32_CASES = [dict(_B7, name=f"base fp32 {st}", storage=st, dtype="fp32", tile=None)
                  for st in ("int8", "e4m3")] + [
     dict(_B7, name="base D128 fp32 int8", d=128, dtype="fp32", tile=None)]
+# B7-B10 at head dims 32 and 256 (b7-wide, b8-wide, b9-wide, b10-wide):
+# chip_smoke phase 31's shapes.
+_WIDE_BASELINE = {32: (8, 16, 2048), 256: (1, 8, 4096)}
+B9_WIDE_CASES = [dict(B9_CASES[0], name=f"D{d} B{b} H{h} S{s}", b=b, hq=h, hkv=h, s=s,
+                      d=d) for d, (b, h, s) in _WIDE_BASELINE.items()]
+B10_WIDE_CASES = B9_WIDE_CASES
+B8_WIDE_CASES = [dict(c, name=f"D{d} {c['name']}", d=d) for d in (32, 256)
+                 for c in B8_CASES]
+B7_WIDE_CASES = [dict(_B7, name=f"D{d} {st}", b=b, hq=hq, hkv=hkv, s=s, d=d, storage=st)
+                 for d, (b, hq, hkv, s) in ((32, (4, 16, 8, 2048)), (256, (1, 8, 4, 4096)))
+                 for st in B7_STORAGES] + [
+    dict(_B7, name=f"D{d} fp32 int8", b=b, hq=hq, hkv=hkv, s=s, d=d, dtype="fp32",
+         tile=None) for d, (b, hq, hkv, s) in ((32, (4, 16, 8, 2048)),
+                                               (256, (1, 8, 4, 4096)))]
 # X: the probe's shape (B4 H8 S2048 D128 bf16, not causal), once per variant.
 X_CASES = [dict(name=variant, variant=variant, b=r5.B, hq=r5.H, hkv=r5.H, s=r5.S,
                 d=r5.D, causal=False, dtype="bf16", tile="bf16")
@@ -288,7 +309,9 @@ CASES = {"b2": B2_CASES, "b3": SPLIT_CASES, "b4": SPLIT_CASES,
          "b1-fp32": B1_FP32_CASES, "b2-fp32": FP32_BWD_CASES,
          "b3-fp32": FP32_BWD_CASES, "b4-fp32": FP32_BWD_CASES,
          "b3-b4-fp32": FP32_BWD_CASES, "b8": B8_CASES, "b5": B5_CASES,
-         "b6": B6_CASES, "b7": B7_CASES, "b7-fp32": B7_FP32_CASES, "x": X_CASES}
+         "b6": B6_CASES, "b7": B7_CASES, "b7-fp32": B7_FP32_CASES, "x": X_CASES,
+         "b7-wide": B7_WIDE_CASES, "b8-wide": B8_WIDE_CASES, "b9-wide": B9_WIDE_CASES,
+         "b10-wide": B10_WIDE_CASES}
 # Matmuls of S x S x D per attending (query, key) pair and head: B3
 # recomputes S and dP for dS K, B4 for P^T dO and dS^T Q_s; the pair is
 # bounded by the function's own five, as B2.
@@ -303,7 +326,8 @@ _MASKED = {"b2-masked": "b2", "b3-masked": "b3", "b4-masked": "b4",
            "b3-b4-masked": "b3-b4"}
 # The head-dim 32 and 256 forms: the parent is built at each case's head
 # dim (wide_source).
-_WIDE = {"b2-wide": "b2", "b3-wide": "b3", "b4-wide": "b4", "b3-b4-wide": "b3-b4"}
+_WIDE = {"b2-wide": "b2", "b3-wide": "b3", "b4-wide": "b4", "b3-b4-wide": "b3-b4",
+         "b7-wide": "b7", "b8-wide": "b8", "b9-wide": "b9", "b10-wide": "b10"}
 WIDE_HEAD_DIMS = (32, 256)
 _SAME_PROBLEM = {**_FP32_BODIES, **_MASKED, **_WIDE, "b7-fp32": "b7"}
 
@@ -557,7 +581,7 @@ def bound(kernel: str, case, raw) -> tuple[float, str]:
                                                         for t in raw[1:])
                  + q[..., 0].numel() * 4)
         peak = b1_ab.PEAK_FLOPS[case["tile"] or case["dtype"]]
-    elif kernel == "b8":  # padded q, k, v, O in fp32 and lse, as chip_smoke
+    elif backward_of(kernel) == "b8":  # padded q, k, v, O in fp32 and lse, as chip_smoke
         cells = case["b"] * case["hq"] * b8_padded(case)
         moved = 4 * cells * case["d"] * 4 + cells * 4
         peak = b1_ab.PEAK_FLOPS[case["tile"] or case["dtype"]]
@@ -598,12 +622,12 @@ def library_call(kernel: str, case, raw, kw):
                                   window=kw.get("window"), sinks=kw.get("sinks", 0),
                                   q_seg=ids, kv_seg=ids)
         return fp32_bwd.masked_backward(q, k, v, do, kw["sm_scale"], mask)
-    if kernel == "b8":  # SDPA on the raw inputs in the tile type
+    if backward_of(kernel) == "b8":  # SDPA on the raw inputs in the tile type
         return lambda: F.scaled_dot_product_attention(
             *raw, is_causal=case["causal"], scale=kw["sm_scale"])
     if kernel == "x":
         return lambda: F.scaled_dot_product_attention(*raw, scale=case["d"] ** -0.5)
-    if kernel in ("b9", "b10"):
+    if backward_of(kernel) in ("b9", "b10"):
         q, k, v = raw
         return lambda: F.scaled_dot_product_attention(q, k, v, scale=kw["sm_scale"])
     if kernel == "b1-fp32":
@@ -632,14 +656,21 @@ def wide_source(path: str, head_dim: int) -> str:
     """A source beside PATH that builds it at one head dim (as
     csrc/fa2_backward_d32.cu builds csrc/fa2_backward.cu), named with the
     head dim and PATH's digest, so that an edited parent is rebuilt.  A
-    parent from before head dims 32 and 256 ignores CFA_HEAD_DIMS, and its
-    launches at those widths then fail."""
+    parent that ignores CFA_HEAD_DIMS (B1-B6 before PR 17's widths, B7-B10
+    before PR 19's) launches nothing at those widths: its calls fail."""
     src = Path(path)
     digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
     out = src.with_name(f"{src.stem}_d{head_dim}.cu")
     out.write_text(f"// {src.name} ({digest}) at head dim {head_dim}.\n"
                    f"#define CFA_HEAD_DIMS(X) X({head_dim})\n#include \"{src.name}\"\n")
     return str(out)
+
+
+def source_text(path: str) -> str:
+    """PATH's text, or for a wide_source the text of the source it builds."""
+    text = Path(path).read_text()
+    included = re.search(r'#include "(\w+\.cu)"', text)
+    return Path(path).with_name(included.group(1)).read_text() if included else text
 
 
 def build_parent(kernel: str, path: str):
@@ -653,7 +684,7 @@ def build_parent(kernel: str, path: str):
         return b1_ab.build_parent(path)
     lib = b1_ab.compile_source(path, f"{Path(path).stem}_parent")
     if kernel == "b8":  # typed by the parameter list in its source
-        params = b1_ab.entry_params(Path(path).read_text(), "cfa_fa2_forward_small")
+        params = b1_ab.entry_params(source_text(path), "cfa_fa2_forward_small")
         lib.cfa_fa2_forward_small.argtypes = [t for _, t in params]
         lib.cfa_fa2_forward_small.restype = _I
         lib.b8_params = [n for n, _ in params]
@@ -663,7 +694,7 @@ def build_parent(kernel: str, path: str):
         lib.cfa_r5_d128_fwd.restype = _I
         return lib
     if kernel == "b7":  # typed by the parameter list in its source
-        params = b1_ab.entry_params(Path(path).read_text(), "cfa_fa2_forward_quant")
+        params = b1_ab.entry_params(source_text(path), "cfa_fa2_forward_quant")
         lib.cfa_fa2_forward_quant.argtypes = [t for _, t in params]
         lib.cfa_fa2_forward_quant.restype = _I
         lib.b7_params = [n for n, _ in params]

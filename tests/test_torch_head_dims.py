@@ -17,9 +17,8 @@ decode) and B6 (paged chunk attention) take besides 64 and 128.
 * A tiny hybrid model at head_dim 256: tests/test_torch_head_dims_engine.py.
 
 The CUDA kernels are held to these plain versions on the card by
-tests/test_torch_kernels_gpu.py and chip_smoke.py phases 27 and 28; the
-kernels that keep head dims 64 and 128 raise there (Queue B 2 of
-ROADMAP.md), which tests/test_torch_kernels_gpu.py checks too.
+tests/test_torch_kernels_gpu.py and chip_smoke.py phases 27 and 28.  B7-B10
+at these widths: tests/test_torch_head_dims_reference.py.
 """
 
 import jax.numpy as jnp
@@ -147,24 +146,29 @@ def test_paged_plain_matches_jax(d, kind, chunk, cache, compute, window):
 
 
 def test_kernel_head_dim_sets():
-    """B1, B5 and B6 take the registry's four head dims, the other kernels
-    64 and 128; D 32 and 256 are libraries of their own."""
+    """Every kernel takes the registry's four head dims; D 64 and 128 are
+    each source's own library, D 32 and 256 libraries of their own.  A head
+    dim outside the registry is refused by name, with no queue to name."""
     from cuda_flash_attention_tpu_torch.dispatch import SUPPORTED_HEAD_DIMS
 
     assert common.FORWARD_HEAD_DIMS == tuple(SUPPORTED_HEAD_DIMS)
     assert common.KERNEL_HEAD_DIMS == (64, 128)
     assert [common.kernel_library("paged_chunk", d) for d in (32, 64, 128, 256)] == [
         "paged_chunk_d32", "paged_chunk", "paged_chunk", "paged_chunk_d256"]
-    err = common.head_dim_error("fa2_backward_fused", 256)
-    assert isinstance(err, NotImplementedError) and "Queue B 2" in str(err)
+    err = common.head_dim_error("fa2_backward_fused", 48)
+    assert isinstance(err, NotImplementedError)
+    assert str(err) == "fa2_backward_fused kernel: head_dim 48 not in (32, 64, 128, 256)"
+    with pytest.raises(NotImplementedError, match="fa2_forward_quant kernel: head_dim 48"):
+        common.kernel_library("fa2_forward_quant", 48)
 
 
 def test_phase_1_gates_every_wide_instantiation():
     """chip_smoke's phase 1 holds each D 32 and D 256 library's kernels
     (B1's four wgmma and two fp32 instantiations; B5's caches x q types x
     groups, six caches at D 32 and five at D 256, which takes no fp32
-    cache; B6's three bodies likewise): clean reports pass, a spilled byte
-    or a missing instantiation fails."""
+    cache; B6's three bodies likewise; B9 and B10, B8's two bodies, B7's
+    two: tests/test_torch_head_dims_reference.py): clean reports pass, a
+    spilled byte or a missing instantiation fails."""
     import chip_smoke
 
     def report(names, spill=0):
@@ -177,7 +181,8 @@ def test_phase_1_gates_every_wide_instantiation():
 
     caches = {32: 6, 256: 5}
     want = {"fa2_forward": lambda d: 6, "paged_decode": lambda d: caches[d] * 2 * 2,
-            "paged_chunk": lambda d: caches[d] * 2 * 4}
+            "paged_chunk": lambda d: caches[d] * 2 * 4, "baselines": lambda d: 2,
+            "fa2_forward_small": lambda d: 10, "fa2_forward_quant": lambda d: 24}
     for name, (functions, count) in chip_smoke.WIDE_FUNCTIONS.items():
         kernel, d = name.rsplit("_d", 1)
         assert count == want[kernel](int(d)), name

@@ -230,7 +230,7 @@ def test_use_fused_bwd_against_jax(row, jax_fused, port_fused):
 def test_kv_tiles_and_head_dims_of_the_wrappers():
     """B2's dQ slices cover 128 KV rows with 16-bit tiles (64 at D 256) and
     64 in fp32; every backward wrapper checks the four registry head dims,
-    B7-B10 keep D 64 and 128."""
+    as B7-B10 do, each width's library named by kernel_library."""
     rows = {(code, d): fa2_backward._kv_rows(code, d)
             for code in (0, 1, 2) for d in (32, 64, 128, 256)}
     assert rows == {**{(0, d): 64 for d in (32, 64, 128, 256)},
@@ -240,6 +240,9 @@ def test_kv_tiles_and_head_dims_of_the_wrappers():
     assert common.KERNEL_HEAD_DIMS == (64, 128)
     assert [common.kernel_library("fa2_backward", d) for d in (32, 64, 128, 256)] == [
         "fa2_backward_d32", "fa2_backward", "fa2_backward", "fa2_backward_d256"]
+    for name in ("baselines", "fa2_forward_small", "fa2_forward_quant"):
+        assert [common.kernel_library(name, d) for d in (32, 64, 128, 256)] == [
+            f"{name}_d32", name, name, f"{name}_d256"]
 
 
 def test_phase_1_gates_the_backward_libraries():

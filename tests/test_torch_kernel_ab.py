@@ -894,3 +894,51 @@ def test_parent_b7_calls_as_its_argtypes_declare(monkeypatch, tmp_path, kernel, 
     assert values["storage"] == 0 and values["bf16_compute"] == int(kernel == "b7")
     if source == "current":
         assert (values["q_seg"], values["kv_seg"], values["window"]) == (0, 0, 1 << 30)
+
+
+def test_b7_to_b10_wide_cases_are_chip_smokes_phase_31_shapes():
+    """The head-dim 32 and 256 forms of B7-B10 (b7-wide, b8-wide, b9-wide,
+    b10-wide): B9 and B10 at phase 31's baseline shapes, B8 at phase 16's
+    rows at each width, B7 at phase 31's causal shapes (each storage in
+    bf16, int8 in fp32); problems, bounds and wrappers are the D 64 and 128
+    kernels'."""
+    for wide, base in (("b7-wide", "b7"), ("b8-wide", "b8"), ("b9-wide", "b9"),
+                       ("b10-wide", "b10")):
+        assert kernel_ab.backward_of(wide) == base
+        assert {c["d"] for c in kernel_ab.CASES[wide]} == set(kernel_ab.WIDE_HEAD_DIMS)
+    assert [(c["b"], c["hq"], c["s"], c["d"]) for c in kernel_ab.B9_WIDE_CASES] == [
+        (*chip_smoke.WIDE_BASELINE_SHAPES[d], d) for d in (32, 256)]
+    assert kernel_ab.CASES["b10-wide"] == kernel_ab.B9_WIDE_CASES
+    assert len(kernel_ab.B8_WIDE_CASES) == 2 * len(kernel_ab.B8_CASES)
+    b7 = kernel_ab.B7_WIDE_CASES
+    for d, shape in chip_smoke.WIDE_B7_SHAPES.items():
+        rows = [c for c in b7 if c["d"] == d]
+        assert all((c["b"], c["hq"], c["hkv"], c["s"]) == shape and c["causal"]
+                   for c in rows)
+        assert sorted(c["storage"] for c in rows if c["dtype"] == "bf16") == sorted(
+            kernel_ab.B7_STORAGES)
+        assert [c["storage"] for c in rows if c["dtype"] == "fp32"] == ["int8"]
+    case = kernel_ab.B9_WIDE_CASES[0]
+    assert kernel_ab.flops("b9-wide", case) == kernel_ab.flops("b9", case)
+    raw = [torch.empty(case["b"], case["hq"], case["s"], case["d"]) for _ in range(3)]
+    assert kernel_ab.bound("b10-wide", case, raw) == kernel_ab.bound("b10", case, raw)
+    case = kernel_ab.B8_WIDE_CASES[-1]
+    assert kernel_ab.bound("b8-wide", case, None) == kernel_ab.bound("b8", case, None)
+
+
+@pytest.mark.parametrize("kernel,source", [("b7-wide", "fa2_forward_quant.cu"),
+                                           ("b8-wide", "fa2_forward_small.cu")])
+def test_b7_b8_wide_parents_are_typed_by_the_source_they_build(monkeypatch, tmp_path,
+                                                                kernel, source):
+    """A wide parent of B7 or B8 takes the entry point's parameter list from
+    the source its wide_source includes, at each head dim."""
+    csrc = Path(__file__).resolve().parents[1] / "cuda_flash_attention_tpu_torch/csrc"
+    parent = tmp_path / source
+    parent.write_text((csrc / source).read_text())
+    entry = "cfa_fa2_forward_quant" if kernel == "b7-wide" else "cfa_fa2_forward_small"
+    monkeypatch.setattr(b1_ab, "compile_source", lambda path, stem: _RecordingLib(entry))
+    libs = kernel_ab.build_parent(kernel, str(parent))
+    assert sorted(libs) == [32, 256]
+    params = [n for n, _ in b1_ab.entry_params((csrc / source).read_text(), entry)]
+    for lib in libs.values():
+        assert (lib.b7_params if kernel == "b7-wide" else lib.b8_params) == params

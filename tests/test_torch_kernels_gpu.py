@@ -827,20 +827,6 @@ def test_fa2_forward_fp32_kernel_at_the_block_edges(cuda, d, b, hq, hkv, sq,
     assert ((lse_k - lse_p).abs() / lse_p.abs().clamp_min(1)).max().item() <= 1e-5
 
 
-@pytest.mark.parametrize("call", [
-    lambda x: baselines.fa1_attention(x, x, x),
-    lambda x: baselines.naive_fa2_attention(x, x, x),
-    lambda x: fa2_forward.fa2_forward_small_aligned(x, x, x, causal=False,
-                                                    sm_scale=0.125, kv_len=64),
-], ids=["fa1", "naive_fa2", "fa2_small"])
-def test_kernels_refuse_head_dim_32(cuda, call):
-    """D = 32 passes the registry, and B1 takes it (the route sends B8's
-    shapes there), but B8, B9 and B10 have no D 32 instantiation yet (Queue
-    B 2)."""
-    with pytest.raises(NotImplementedError):
-        call(torch.zeros(1, 2, 64, 32, device=cuda))
-
-
 @pytest.mark.parametrize("method,mode,precision", [
     ("fa2", m, p) for m in ("forward", "backward", "forward_backward")
     for p in ("fp32", "fp16", "bf16")
@@ -955,9 +941,9 @@ def test_fa2_forward_quant_kernel_matches_plain(cuda, storage, q_dtype, compute,
 
 @pytest.mark.parametrize("make", [
     lambda q, k: (q.half(), k),                          # fp16 q
-    lambda q, k: (q[..., :32].contiguous(), k[..., :32].contiguous()),  # D 32
+    lambda q, k: (q[..., :48].contiguous(), k[..., :48].contiguous()),  # D 48
     lambda q, k: (q, k.to(torch.bfloat16)),              # bf16 "storage"
-], ids=["fp16-q", "d32", "bf16-storage"])
+], ids=["fp16-q", "d48", "bf16-storage"])
 def test_fa2_forward_quant_kernel_refuses_what_it_does_not_take(cuda, make):
     from cuda_flash_attention_tpu_torch.kernels import fa2_forward_quant as fq
 
@@ -1940,8 +1926,8 @@ def test_windowed_autograd_matches_plain(cuda, dtype, tile, s, window, sinks,
 # Head dims 32 and 256: B1 (every tile body and mask), B5 and B6 (every
 # cache the kernels take there, both compute types, the split and both tile
 # bodies), against their plain versions; B7 with a window and segment ids;
-# and the kernels that keep D 64 and 128 refusing the others.  Tolerances
-# as above.
+# B7-B10 at D 32 and 256, and a width outside the registry refused.
+# Tolerances as above.
 # ---------------------------------------------------------------------------
 
 WIDE_CACHES = [torch.bfloat16, torch.int8, torch.float8_e4m3fn, "int4"]
@@ -1954,13 +1940,15 @@ WIDE_CACHES = [torch.bfloat16, torch.int8, torch.float8_e4m3fn, "int4"]
     (2, 4, 2, 16, True), (2, 4, 4, 128, False),
 ])
 def test_fa2_forward_head_dims_match_plain(cuda, dtype, tile, d, b, hq, hkv, s, causal):
+    """Through the API: B1, or B8 where one tile of Hq = Hkv takes it (S
+    128 here), as in JAX at every head dim."""
     rng = np.random.default_rng(s + d)
     q, k, v = (_randn(rng, b, h, s, d).to(dtype) for h in (hq, hkv, hkv))
-    before = (LAUNCHES["fa2_forward"], LAUNCHES[f"fa2_forward_d{d}"])
+    name = "fa2_forward_small" if (s, hq) == (128, hkv) else "fa2_forward"
+    before = (LAUNCHES[name], LAUNCHES[f"{name}_d{d}"])
     o_k, lse_k = attention.flash_attention_with_lse(
         q.to(cuda), k.to(cuda), v.to(cuda), causal=causal, tile_dtype=tile)
-    assert (LAUNCHES["fa2_forward"], LAUNCHES[f"fa2_forward_d{d}"]) == (
-        before[0] + 1, before[1] + 1)
+    assert (LAUNCHES[name], LAUNCHES[f"{name}_d{d}"]) == (before[0] + 1, before[1] + 1)
     o_p, lse_p = attention.flash_attention_with_lse(q, k, v, causal=causal,
                                                     tile_dtype=tile)
     bf16 = tile is not None or dtype == torch.bfloat16
@@ -2201,16 +2189,118 @@ def test_fused_reduce_reads_no_dead_slice_at_d32_d256(cuda, dtype, tile, d):
         assert _rel_err(g, w) <= (2e-5 if tile is None else 5e-2)
 
 
+# B7, B8, B9 and B10 at head dims 32 and 256 (chip_smoke phase 31's cases
+# at small sizes): each from its own library, counted under `<name>_d32` or
+# `<name>_d256` besides its name.
+@pytest.mark.parametrize("which", ["fa1", "naive_fa2"])
 @pytest.mark.parametrize("d", [32, 256])
+@pytest.mark.parametrize("b,h,sq,skv,kv_len", [
+    (1, 2, 100, 100, 100), (2, 4, 256, 256, 200), (1, 1, 1000, 1000, 1000),
+    (1, 2, 304, 128, 100), (17, 8, 128, 192, 150)])
+def test_baseline_kernels_at_d32_d256_match_plain(cuda, which, d, b, h, sq, skv, kv_len):
+    """B9 (one group of 128 threads at D 256) and B10 (P V a 64-column
+    quarter at a time at D 256; two O columns a thread at D 32) against
+    their plain versions within 1e-5, through the aligned entry points."""
+    rng = np.random.default_rng(sq + skv + d)
+    q = _randn(rng, b, h, sq, d).to(cuda)
+    k, v = (_randn(rng, b, h, skv, d).to(cuda) for _ in range(2))
+    kw = dict(sm_scale=d ** -0.5, kv_len=kv_len)
+    before = (LAUNCHES[which], LAUNCHES[f"{which}_d{d}"])
+    o_k = getattr(baselines, f"{which}_aligned")(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert (LAUNCHES[which], LAUNCHES[f"{which}_d{d}"]) == (before[0] + 1, before[1] + 1)
+    o_p = getattr(baselines, f"{which}_plain")(q, k, v, **kw)
+    assert (o_k - o_p).abs().max().item() <= 1e-5
+
+
+@FWD_VARIANTS
+@pytest.mark.parametrize("d", [32, 256])
+@pytest.mark.parametrize("b,h,s", [(1, 1, 128), (8, 16, 100), (8, 16, 32)],
+                         ids=["Small-1", "Edge-NonPowerOf2", "Edge-SmallSeq"])
+@pytest.mark.parametrize("mask", ["full", "causal", "window 24 sinks 2", "2 segments"])
+def test_fa2_forward_small_at_d32_d256_matches_plain(cuda, dtype, tile, d, b, h, s, mask):
+    """B8 through the public API at the suite's small configs: the route
+    takes B8 at every head dim, as JAX's; O and lse against the plain
+    version (2e-2 and 1e-3 relative with 16-bit tiles or inputs, 2e-6 and
+    1e-5 in fp32)."""
+    rng = np.random.default_rng(s + d + len(mask))
+    q, k, v = (_randn(rng, b, h, s, d).to(dtype) for _ in range(3))
+    kw = dict(tile_dtype=tile, causal=mask != "full")
+    if mask.startswith("window"):
+        kw.update(window=24, sinks=2)
+    elif mask == "2 segments":
+        ids = (torch.arange(s) * 2 // s).int().expand(b, s).contiguous()
+        kw.update(q_segment_ids=ids, kv_segment_ids=ids)
+    on = {n: x.to(cuda) if torch.is_tensor(x) else x for n, x in kw.items()}
+    names = ("fa2_forward", "fa2_forward_small", f"fa2_forward_small_d{d}")
+    before = [LAUNCHES[n] for n in names]
+    o_k, lse_k = attention.flash_attention_with_lse(q.to(cuda), k.to(cuda), v.to(cuda),
+                                                    **on)
+    torch.cuda.synchronize()
+    assert [LAUNCHES[n] for n in names] == [before[0], before[1] + 1, before[2] + 1]
+    o_p, lse_p = attention.flash_attention_with_lse(q, k, v, **kw)
+    low = tile is not None or dtype == torch.bfloat16
+    err = (o_k.float().cpu() - o_p.float()).abs().max().item()
+    lse_err = ((lse_k.cpu() - lse_p).abs() / lse_p.abs().clamp_min(1)).max().item()
+    assert err <= (2e-2 if low else 2e-6), err
+    assert lse_err <= (1e-3 if low else 1e-5), lse_err
+
+
+@pytest.mark.parametrize("storage", QUANT_STORAGE, ids=str)
+@pytest.mark.parametrize("q_dtype,compute", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+    (torch.float32, torch.bfloat16),
+], ids=["bf16", "fp32", "fp32-q-bf16-compute"])
+@pytest.mark.parametrize("d", [32, 256])
+@pytest.mark.parametrize("mask", ["causal", "full", "window 160", "2 segments"])
+@pytest.mark.parametrize("b,hq,hkv,s", [(2, 8, 4, 512), (1, 4, 2, 200)])
+def test_fa2_forward_quant_at_d32_d256_matches_plain(cuda, storage, q_dtype, compute,
+                                                     d, mask, b, hq, hkv, s):
+    """B7 through the public API at D 32 (64-byte rows, m64n32k16 P V) and
+    D 256 (64-row KV stages, P V in two n128 halves; the fp32 body on one
+    byte stage), S 200 ending inside the last tile: the bf16 gate of phase
+    19 (fp32 2e-5), lse 1e-3 relative (1e-5)."""
+    from cuda_flash_attention_tpu_torch.kernels import fa2_forward_quant as fq
+    from cuda_flash_attention_tpu_torch.quant import quantize_kv
+
+    rng = np.random.default_rng(d + s + len(mask))
+    q = _randn(rng, b, hq, s, d).to(q_dtype)
+    k_q, v_q = quantize_kv(_randn(rng, b, hkv, s, d), _randn(rng, b, hkv, s, d), storage)
+    kw = dict(causal=mask != "full", compute_dtype=compute)
+    if mask == "window 160":
+        kw.update(window=160)
+    elif mask == "2 segments":
+        ids = (torch.arange(s) * 2 // s).int().expand(b, s).contiguous()
+        kw.update(q_segment_ids=ids, kv_segment_ids=ids)
+    on = {n: x.to(cuda) if torch.is_tensor(x) else x for n, x in kw.items()}
+    to = lambda t: dataclasses.replace(t, values=t.values.to(cuda),  # noqa: E731
+                                       scales=t.scales.to(cuda))
+    before = LAUNCHES[f"fa2_forward_quant_d{d}"]
+    o_k, lse_k = fq.flash_attention_quantized_kv_with_lse(q.to(cuda), to(k_q), to(v_q), **on)
+    torch.cuda.synchronize()
+    assert LAUNCHES[f"fa2_forward_quant_d{d}"] == before + 1
+    o_p, lse_p = fq.flash_attention_quantized_kv_with_lse(q, k_q, v_q, **kw)
+    o_k, lse_k = o_k.cpu(), lse_k.cpu()
+    assert o_k.dtype == q_dtype and o_k.shape == q.shape
+    bf16 = compute == torch.bfloat16
+    if bf16:
+        assert _bf16_excess(o_k, o_p) <= BF16_ATOL["B7"]
+    else:
+        assert (o_k - o_p).abs().max().item() <= 2e-5
+    lse_err = (lse_k - lse_p).abs() / (lse_p.abs().clamp_min(1.0) if bf16 else 1.0)
+    assert lse_err.max().item() <= (1e-3 if bf16 else 1e-5)
+
+
 @pytest.mark.parametrize("kernel", ["b7", "b8", "b9", "b10"])
-def test_kernels_keeping_d64_d128_refuse_the_others(cuda, kernel, d):
-    """B7, B8, B9 and B10 take D 64 and 128 only: on a CUDA tensor at D 32
-    or 256 they raise, naming Queue B 2, and fall back to nothing."""
+def test_kernels_refuse_a_width_outside_the_registry(cuda, kernel):
+    """B7, B8, B9 and B10 take head dims 32, 64, 128 and 256: at D 48 each
+    raises on a CUDA tensor and launches nothing, falling back to nothing."""
     from cuda_flash_attention_tpu_torch.kernels import fa2_forward_quant as fq
 
+    d = 48
     x = torch.zeros(1, 2, 128, d, device=cuda)
     before = dict(LAUNCHES)
-    with pytest.raises(NotImplementedError, match="Queue B 2"):
+    with pytest.raises(NotImplementedError, match="head_dim 48 not in"):
         if kernel == "b7":
             k = torch.zeros(1, 2, 128, d, dtype=torch.int8, device=cuda)
             sc = torch.ones(1, 2, 128, device=cuda)
@@ -2220,8 +2310,8 @@ def test_kernels_keeping_d64_d128_refuse_the_others(cuda, kernel, d):
             fa2_forward.fa2_forward_small_aligned(x, x, x, causal=False, sm_scale=0.125,
                                                   kv_len=128)
         elif kernel == "b9":
-            baselines.fa1_attention(x, x, x)
+            baselines.fa1_aligned(x, x, x, sm_scale=0.125, kv_len=128)
         else:
-            baselines.naive_fa2_attention(x, x, x)
+            baselines.naive_fa2_aligned(x, x, x, sm_scale=0.125, kv_len=128)
     assert dict(LAUNCHES) == before
 
