@@ -40,7 +40,7 @@ Phases (any failure raises and the script exits non-zero):
   5. serving: DecodeEngine.run at TransformerConfig.base() with an int8
      cache answers 12 requests of 64 tokens, with both kernels' launch counts;
   6. where a decode step's time goes at batch 8: host-clock step time and
-     device busy time from one torch.profiler window of five steps, the
+     device busy time from one torch.profiler window of three steps, the
      top kernels and B5's time and share of the busy time;
   7. kernels B2, B3, B4 (FA2 backward) against their plain versions at the
      train shape (B4 Hq16 Hkv8 S2048 D64 causal bf16) and at D 128, fp32 at
@@ -74,7 +74,7 @@ Phases (any failure raises and the script exits non-zero):
      the card's plain greedy tokens; B6's fp32 tile body's launches over
      the phase (the kernel line's `fp32_tile`);
  14. speculative serving at TransformerConfig.base() with an int8 cache:
-     phase 5's 12 requests (8 new tokens each) with k 4, a one-layer draft
+     phase 5's 12 requests (4 new tokens each) with k 4, a one-layer draft
      and prompt lookup:
      tokens/s, acceptance, rounds, B1/B5/B6 launches, and where a round's
      time goes (one profiled window of three rounds, as phase 6, with B6's
@@ -115,7 +115,7 @@ Phases (any failure raises and the script exits non-zero):
      against their plain versions, times (back-to-back and device) and
      bounds (int4 at 0.5 byte);
  21. quantized serving at TransformerConfig.base(): phase 5's 12 requests
-     (16 new tokens each) on an int8 cache (the control), an e4m3 cache, an int4 cache, int8
+     (6 new tokens each) on an int8 cache (the control), an e4m3 cache, an int4 cache, int8
      W8A8 weights and int4 weights (int8 caches), and chunked prefill 512
      on the int4 cache: tokens/s, mean step, TTFT, B1/B5/B6 launches; a
      profiled window of int4-weight decode steps; fp32 card-vs-CPU parity
@@ -128,12 +128,12 @@ Phases (any failure raises and the script exits non-zero):
      its plain version;
  24. the serving and training benchmarks (bench/decode_bench.py,
      bench/train_bench.py) at TransformerConfig.base(): the decode device
-     loop at batch 16, prompt 128 (a CUDA graph of one step: step_ms by
+     loop at batch 16, prompt 128, 16 new tokens (a CUDA graph of one step: step_ms by
      CUDA events, eager_step_ms, their ratio); greedy tokens of the
      burst-8 engine, the burst-1 engine and an eager decode_step loop,
      which must be bitwise equal; the engine at bursts 1 and 8 with
      engine_overhead_x; phase 5's 12 requests at bursts 1 and 8 (the same
-     tokens, graph replays, bursts, launches, 16 new tokens each; burst
+     tokens, graph replays, bursts, launches, 6 new tokens each; burst
      8 profiled as phase 6, whose burst-1 launches and idle share it prints
      beside); train
      tokens/s at B4 S2048 (one slope between chains of 2 and 10 AdamW
@@ -151,7 +151,7 @@ Phases (any failure raises and the script exits non-zero):
      the band as a boolean mask.  Then the hybrid configuration (window 128
      on every other layer, GPT-OSS's pattern) at base width on an int8
      cache, phase 5's mix with four prompts of 1024-1536 tokens, chunked
-     prefill 512, 16 new tokens each: tokens/s, TPOT, TTFT, each window
+     prefill 512, 8 new tokens each: tokens/s, TPOT, TTFT, each window
      group's peak live pages,
      no decoding slot's local group above 2 pages after any step, windowed
      launches of B1, B5 and B6; and the streaming configuration (window 512,
@@ -176,7 +176,7 @@ Phases (any failure raises and the script exits non-zero):
      version and SDPA's memory-efficient backward with the mask as its
      bias; an off-by-one window or ids shifted by one token as
      the control, enforced in fp32 (printed in bf16); (c) the hybrid and
-     streaming base configurations train 4 AdamW steps each at B4 S2048:
+     streaming base configurations train 3 AdamW steps each at B4 S2048:
      finite falling loss, step time, tokens/s, peak memory, windowed
      launches (hybrid: B3 and B4, B2 on the global layers; streaming: B2
      only); (d) one fp32 AdamW step of each (hybrid window 64, streaming
@@ -188,17 +188,19 @@ Phases (any failure raises and the script exits non-zero):
      weights random from a seed; SwiGLU for GeGLU, no soft-capping, no
      post-norms, no embedding scale) served on an int8 cache, 8 slots,
      CUDA-graph decode: 12 requests (8 of 64-1500 tokens, 4 of 4500-6000),
-     chunked prefill 512, 32 greedy tokens each: tokens/s, TPOT, TTFT, each
+     chunked prefill 512, 8 greedy tokens each: tokens/s, TPOT, TTFT, each
      window group's peak live pages (the local group within its live bound
      after every step), B1's, B5's and B6's launches at D 256, windowed and
      global; the same widths at 2 layers in fp32, card against CPU, greedy
-     tokens equal; speculation and prefix caching refused on the hybrid
-     cache;
+     tokens equal on an int8 cache and on an fp32 cache (chunked prefill
+     256, so that B5 and B6 read fp32 pages at D 256); speculation and
+     prefix caching refused on the hybrid cache;
  28. B1 at D 32 (B4 Hq16 Hkv8 S2048) and D 256 (B1 Hq8 Hkv4 S4096) in bf16
      tiles, fp16 tiles and fp32 under causal masking, window 128 with 4
      sinks, a band of offset -100 and 4 documents a row; B5 and B6 (T 5,
      T 512 in bf16 and fp32 compute) at D 32 and 256 on int8, int4, e4m3
-     and bf16 caches; B7 with window 160 and with 2 segments at B4 Hq16
+     and bf16 caches, and at D 256 on an fp32 cache (every body; B5 and the
+     split body in fp32 compute too, held to 2e-5); B7 with window 160 and with 2 segments at B4 Hq16
      Hkv8 S2048 D64 (int8, int4, e4m3; bf16 and fp32 compute) and its
      windowed and segmented launches on the public API.  Each against its
      plain version with a control that must fail the gate (the mask one
@@ -240,7 +242,33 @@ Phases (any failure raises and the script exits non-zero):
      forward_backward fp32, fa1, fa2-naive, an Edge-NonPowerOf2 D 256
      directory taking B8), every file against the fp32 oracle, and the
      harness's forward experiment and fa1 rows re-made at D 32 (every row
-     PASS); B8's, B9's and B10's D 32 and D 256 launches come from there.
+     PASS); B8's, B9's and B10's D 32 and D 256 launches come from there;
+ 32. mixture of experts at Mixtral-8x7B's widths (MIXTRAL_8X7B: d_model
+     4096, 32/8 heads of 128, d_ff 14336, vocab 32000, rope 1e6, 8 experts,
+     top 2, every layer MoE, aux 0.02; capacity factor 4.0 = E / k, so no
+     token drops; random bf16 weights drawn on the card; what the JAX block
+     cannot express printed as MIXTRAL_NOT_EXPRESSED): (a) 8 layers served
+     on an int8 cache, 8 slots, CUDA-graph decode, chunked prefill 512,
+     phase 5's 12 prompts, 24 greedy tokens each (B1, B5, B6 launched, no
+     page leaked, tokens in the vocabulary; tokens/s, TPOT, TTFT, peak
+     memory, a profiled graph decode step and the MoE ops' share of an
+     eager one); (b) 2 layers trained 4 AdamW steps (lr 1e-4) at B1 S2048:
+     falling loss, the router loss, step time, tokens/s, peak memory,
+     bf16-peak share of the routed work, backward launches; (c) 2 layers in
+     fp32 at capacity factor 1.0, card against CPU on one prefill_forward
+     of (1, 129) tokens: logits within E2E_LOGIT_TOL, routing equal but
+     under a 1e-6 top-k margin, dropped pairs counted; (d) base width B4
+     S2048 under remat "none", "dots" and "full": losses and gradients
+     bitwise equal, "dots" peak below "none"; (e) one AdamW step on int8
+     weights (base width, 2 layers, fp32) card against CPU: int values
+     unchanged, scales moved, their first moments within TRAIN_GRAD_TOL
+     (the moments negated must fail), the scales within 2e-5; (f)
+     train_loop with a checkpoint on the card at tiny(), restored onto the
+     card by default and resumed bitwise; and first, the path's kernels at
+     its shapes against their plain versions, each with a control that
+     must fail: B1 and B2 at B1 Hq32 Hkv8 S2048 D128 causal (bf16 tiles
+     and fp32), B5 and B6 T512 at D 128 Hq32 Hkv8 on its int8 cache (bf16
+     and fp32 compute; B5's group-8 instantiation, B6's tile bodies).
 Serving's decode steps run as CUDA graphs (decode/graphs.py); each
 wrapper's launch count adds what a capture recorded at every replay.
 The line before the last is the kernel JSON (eleven kernels; B1, B5, B6 and
@@ -249,7 +277,11 @@ and B4 with phase 26's windowed and segmented rows under "window" and
 "segments", B8 with its segmented row; B1-B4 and B8 with
 "launches_window" and "launches_segments"; B1's segmented row under
 "segments"; B1-B10 with their D 32 and D 256 rows under "d32" and "d256",
-the launches of those widths on their paths beside them); the
+the launches of those widths on their paths beside them; B5 and B6 with
+their fp32-cache D 256 rows under "d256_fp32_cache"; B1-B6 with their
+launches on phase 32's MoE paths under "launches_moe_serving" and
+"launches_moe_training", and B1, B2, B5 and B6 with their checks at
+the Mixtral path's shapes under "mixtral_shapes"); the
 last line is the JSON contract line {"ok": true, "device": {...}}.
 It imports torch and the port only, never jax or the JAX package.
 """
@@ -351,7 +383,7 @@ X_FUNCTIONS = (("r5_fwd",), 5)
 B7_FUNCTIONS = (("fa2_fwd_quant_wgmma", "fa2_fwd_quant_fp32"), 48)
 # The libraries of head dims 32 and 256 (csrc/<name>_d32.cu, _d256.cu):
 # B1's wgmma body (2 input types x 2 tile types) and fp32 body (with and
-# without ids); B5 and B6 over their caches (six at D 32; no fp32 cache at
+# without ids); B5 and B6 over their six caches (the fp32 cache's too at
 # D 256) x 2 q types x (B5) groups of at most 2 and 8 or (B6) the split
 # body's two compute types, the bf16 and the fp32 tile body; B9 and B10
 # (one each); B8's mma body (2 input types x 2 tile types) and fp32 body,
@@ -361,9 +393,9 @@ B1_WIDE_FUNCTIONS = (("fa2_fwd_wgmma", "fa2_fwd_fp32"), 6)
 WIDE_FUNCTIONS = {
     "fa2_forward_d32": B1_WIDE_FUNCTIONS, "fa2_forward_d256": B1_WIDE_FUNCTIONS,
     "paged_decode_d32": (("paged_decode_kernel",), 24),
-    "paged_decode_d256": (("paged_decode_kernel",), 20),
+    "paged_decode_d256": (("paged_decode_kernel",), 24),
     "paged_chunk_d32": (("paged_chunk_split", "paged_chunk_mma", "paged_chunk_fp32"), 48),
-    "paged_chunk_d256": (("paged_chunk_split", "paged_chunk_mma", "paged_chunk_fp32"), 40),
+    "paged_chunk_d256": (("paged_chunk_split", "paged_chunk_mma", "paged_chunk_fp32"), 48),
     **{f"baselines_d{d}": (("fa1_fp32", "naive_fa2_fp32"), 2) for d in (32, 256)},
     **{f"fa2_forward_small_d{d}": (("small_mma", "small_fp32"), 10) for d in (32, 256)},
     **{f"fa2_forward_quant_d{d}": (("fa2_fwd_quant_wgmma", "fa2_fwd_quant_fp32"), 24)
@@ -1335,7 +1367,7 @@ def phase_spec_serving(torch, np, transformer, decode, dataclasses):
     params = transformer.init_params(
         torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
     prompts = serving_mix(np, cfg)
-    new_tokens = 8
+    new_tokens = 4
     out = {}
     for mode in ("draft", "prompt_lookup"):
         kw = (dict(draft_params=draft_of(params),
@@ -2090,7 +2122,7 @@ def phase_quant_serving(torch, np, transformer, decode, quant):
              ("int4 weights, int8 cache", w4, torch.int8, {}),
              ("int4 cache, chunked prefill 512", params, "int4",
               dict(prefill_chunk=512))]
-    new_tokens = 16
+    new_tokens = 6
     res = {}
     for name, p, cache, kw in modes:
         eng = decode.DecodeEngine(p, cfg, max_seqs=8, max_seq_len=2048,
@@ -2301,7 +2333,7 @@ def phase_bench(torch, np, transformer, decode, decode_bench, train_bench,
     decode_step loop (bitwise equal), the engine at bursts 1 and 8 with
     engine_overhead_x and on phase 5's 12 requests, and the train step."""
     cfg = transformer.TransformerConfig.base()
-    b, p, gen = 16, 128, 32
+    b, p, gen = 16, 128, 16
     out = {}
     reset_counts(SERVING_KERNELS)
     loop = decode_bench.measure_decode_throughput(cfg, batch=b, prompt_len=p,
@@ -2353,7 +2385,7 @@ def phase_bench(torch, np, transformer, decode, decode_bench, train_bench,
 
     # Phase 5's 12 requests at bursts 1 and 8: the same tokens (32 new
     # tokens each).
-    served, served_new = {}, 16
+    served, served_new = {}, 6
     for burst in (1, 8):
         params = transformer.init_params(
             torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
@@ -2688,7 +2720,7 @@ def phase_window_serving(torch, np, transformer, decode, dataclasses):
     rng = np.random.default_rng(25)
     for i, n in zip((0, 3, 6, 9), rng.integers(1024, 1537, 4)):
         prompts[i] = rng.integers(0, cfg.vocab_size, int(n)).tolist()
-    new_tokens = 16
+    new_tokens = 8
     eng = decode.DecodeEngine(params, cfg, max_seqs=8, max_seq_len=2048,
                               page_size=128, cache_dtype=torch.int8,
                               prefill_chunk=512)
@@ -2745,7 +2777,7 @@ def phase_window_streaming(torch, np, transformer, decode, dataclasses):
     rng = np.random.default_rng(27)
     short = rng.integers(0, cfg.vocab_size, 900).tolist()
     long = rng.integers(0, cfg.vocab_size, 1300).tolist()
-    n_new = 8
+    n_new = 6
     modes = {"decode": ([short], {}),
              "speculative": ([short], dict(spec_tokens=3, draft=True)),
              "chunked_prefill": ([long], dict(prefill_chunk=512))}
@@ -3152,7 +3184,7 @@ def phase_window_train(torch, np, transformer, training, dataclasses):
         torch.cuda.reset_peak_memory_stats()
         reset_counts(MASKED_KERNELS)
         losses, times = [], []
-        for _ in range(4):
+        for _ in range(3):
             t0 = time.perf_counter()
             state, metrics = step(state, tokens)
             losses.append(metrics["loss"].item())
@@ -3212,7 +3244,7 @@ def phase_gemma2_serving(torch, np, transformer, decode, dataclasses):
     4096-token window on the even layers, the odd ones global; bf16 weights)
     served on an int8 cache, 8 slots, CUDA-graph decode: 12 requests (8
     prompts of 64-1500 tokens, 4 of 4500-6000 so that the local group
-    recycles past the window), chunked prefill 512, 32 greedy tokens each.
+    recycles past the window), chunked prefill 512, 8 greedy tokens each.
     After every step no decoding slot's local group holds more pages than
     the window's live bound; B1's, B5's and B6's launches at D 256 must be
     > 0, B5's and B6's windowed ones too (D256_NEED)."""
@@ -3226,7 +3258,7 @@ def phase_gemma2_serving(torch, np, transformer, decode, dataclasses):
                for n in rng.integers(64, 1501, 8)]
     for i, n in zip((1, 4, 7, 10), rng.integers(4500, 6001, 4)):
         prompts.insert(i, rng.integers(0, cfg.vocab_size, int(n)).tolist())
-    new_tokens = 32
+    new_tokens = 8
     eng = decode.DecodeEngine(params, cfg, max_seqs=8, max_seq_len=6144,
                               page_size=128, cache_dtype=torch.int8, prefill_chunk=512)
     bound = eng._worst_pages_for(1, 1 << 20)[0]
@@ -3273,11 +3305,17 @@ def phase_gemma2_serving(torch, np, transformer, decode, dataclasses):
     return res
 
 
+FP32_D256_KERNELS = ("paged_decode_d256", "paged_chunk_d256")
+
+
 def phase_gemma2_parity(torch, np, transformer, decode, dataclasses):
     """The Gemma-2-2B widths at 2 layers (the local one and a global one) in
-    fp32 on an int8 cache, card against CPU: greedy tokens equal over two
+    fp32 on an int8 cache and on an fp32 cache (B5 and B6 at D 256 on
+    fp32 pages), card against CPU: greedy tokens equal over two
     prompts below the window (8 new tokens each); speculation and prefix
-    caching refused on the hybrid cache, as the JAX engine refuses them."""
+    caching refused on the hybrid cache, as the JAX engine refuses them.
+    The fp32 cache's runs chunk the prefill (256), and B5's and B6's D 256
+    launches on the card are returned."""
     cfg = transformer.TransformerConfig(dtype=torch.float32, attn_tile_dtype=None,
                                         **dict(GEMMA2_2B, n_layers=2))
     params = transformer.init_params(
@@ -3295,16 +3333,30 @@ def phase_gemma2_parity(torch, np, transformer, decode, dataclasses):
                 except NotImplementedError:
                     continue
                 raise AssertionError(f"gemma2: the hybrid cache took {kw}")
-        eng = decode.DecodeEngine(p, cfg, max_seqs=2, max_seq_len=1024,
-                                  cache_dtype=torch.int8, device=dev)
-        out[dev] = [r.generated for r in eng.run(prompts, max_new_tokens=8)]
-        del eng, p
-    if out["cuda"] != out["cpu"]:
-        raise AssertionError(f"gemma2 fp32: card tokens {out['cuda']} vs CPU {out['cpu']}")
-    log("gemma2 fp32 2 layers (card vs CPU)", json.dumps(dict(equal=True, tokens=out["cuda"])))
+        for cache in (torch.int8, torch.float32):
+            # The fp32 cache's run chunks its prefill, so that B6 reads it.
+            chunk = 256 if cache == torch.float32 else None
+            eng = decode.DecodeEngine(p, cfg, max_seqs=2, max_seq_len=1024,
+                                      cache_dtype=cache, device=dev, prefill_chunk=chunk)
+            reset_counts(FP32_D256_KERNELS)
+            out[dev, cache] = [r.generated for r in eng.run(prompts, max_new_tokens=8)]
+            if dev == "cuda" and cache == torch.float32:
+                launches = read_counts(FP32_D256_KERNELS)
+            del eng
+        del p
+    for cache in (torch.int8, torch.float32):
+        if out["cuda", cache] != out["cpu", cache]:
+            raise AssertionError(f"gemma2 fp32, {cache} cache: card tokens "
+                                 f"{out['cuda', cache]} vs CPU {out['cpu', cache]}")
+    res = dict(equal=True, int8_cache_tokens=out["cuda", torch.int8],
+               fp32_cache_tokens=out["cuda", torch.float32],
+               fp32_cache_launches=launches)
+    log("gemma2 fp32 2 layers (card vs CPU)", json.dumps(res))
+    if not all(launches.values()):
+        raise AssertionError(f"gemma2 fp32 cache: B5 or B6 never ran: {launches}")
     del params
     torch.cuda.empty_cache()
-    return True
+    return res
 
 
 # Phase 28: every new instantiation against its plain version.  B1 at D 32
@@ -3322,6 +3374,11 @@ WIDE_PAGED = (("B5", 1, [6000, 1, 129, 0, 777, 1500, 128, 4500], "bf16"),
               ("B6 T5", 5, B6_SPEC_LENGTHS, "bf16"),
               ("B6 T512", 512, B6_PREFILL_LENGTHS, "bf16"),
               ("B6 T512 fp32", 512, B6_PREFILL_LENGTHS, "fp32"))
+# An fp32 cache at D 256, every body: B5 and B6's split body
+# in fp32 compute as well (the card-against-CPU path), the bf16 tile body
+# (T 512 bf16) and the fp32 one.
+WIDE_FP32_PAGED = (WIDE_PAGED[0][:3] + ("fp32",), WIDE_PAGED[0],
+                   WIDE_PAGED[1][:3] + ("fp32",), *WIDE_PAGED[1:])
 
 
 def wide_mask_kw(torch, mask, b, s, control=False, device="cuda"):
@@ -3418,10 +3475,11 @@ def phase_wide_b1(torch, F, attention, fa2, common):
 
 
 def wide_pages(torch, kv_cache, gen, cache, shape):
-    """A paged cache of one of WIDE_CACHES from random rows, written by the
-    cache's own quantizer (bf16: the rows rounded, unit scales)."""
-    if cache == "bf16":
-        return random_pages(torch, kv_cache, gen, "bf16", shape)
+    """A paged cache of one of WIDE_CACHES (or fp32) from random rows,
+    written by the cache's own quantizer (bf16 and fp32: the rows in that
+    type, unit scales)."""
+    if cache in ("bf16", "fp32"):
+        return random_pages(torch, kv_cache, gen, cache, shape)
     return quant_pages(torch, kv_cache, gen, cache, shape)
 
 
@@ -3435,79 +3493,85 @@ def slot_rel_err(torch, o_k, o_p) -> float:
     return rel.max().item()
 
 
-def phase_wide_paged(torch, dec_attn, kv_cache):
+def phase_wide_paged(torch, dec_attn, kv_cache, cases=None, seed=29):
     """B5 and B6's three bodies at D 32 and 256 on WIDE_CACHES against their
     plain versions, over all outputs (B5_TOL) and slot by slot
     (SLOT_REL_TOL); two controls must each fail that gate: the plain
     version over every length one key short, and over the longest slot's
     middle page read from page 0, which no slot owns (a wrong long walk);
-    device time beside the bound."""
-    gen = torch.Generator(device="cuda").manual_seed(29)
+    device time beside the bound.  At D 256 also on an fp32 cache
+    (WIDE_FP32_PAGED: each body, fp32 compute held to 2e-5).  `cases`, (D,
+    (Hq, Hkv), (name, T, lengths, compute), caches) each, replaces these
+    (phase 32 passes the Mixtral path's shapes)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
-    for d, (hq, hkv) in ((32, (16, 8)), (256, (8, 4))):
-        for name, chunk, lens, compute in WIDE_PAGED:
-            n, pps = len(lens), -(-max(lens) // 128)
-            num_pages = n * pps + 1
-            table = (torch.randperm(num_pages - 1, generator=gen, device="cuda") + 1
-                     ).reshape(n, pps).to(torch.int32).contiguous()
-            lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
-            cdt = torch.bfloat16 if compute == "bf16" else torch.float32
-            qshape = (n, hq, d) if chunk == 1 else (n, chunk, hq, d)
-            q = torch.randn(qshape, generator=gen, device="cuda").to(cdt)
-            kernel_fn, plain_fn = ((dec_attn.paged_decode_attention,
-                                    dec_attn.paged_decode_attention_plain) if chunk == 1
-                                   else (dec_attn.paged_chunk_attention,
-                                         dec_attn.paged_chunk_attention_plain))
-            kw = dict(sm_scale=d ** -0.5, compute_dtype=cdt)
-            # The controls: every slot one key short (a slot of length T
-            # loses its first row's only key), and the longest slot with its
-            # middle page swapped for page 0.
-            short = torch.clamp(lengths - 1, min=0)
-            longest = max(range(n), key=lambda i: lens[i])
-            wrong = table.clone()
-            wrong[longest, lens[longest] // 128 // 2] = 0
-            for cache in WIDE_CACHES:
-                pages = wide_pages(torch, kv_cache, gen, cache, (hkv, num_pages, 128, d))
-                o_k = kernel_fn(q, pages, table, lengths, **kw)
-                o_p = plain_fn(q, pages, table, lengths, **kw)
-                o_c = plain_fn(q, pages, table, short, **kw)
-                o_w = plain_fn(q, pages, wrong, lengths, **kw)
-                torch.cuda.synchronize()
-                tol, slot_tol = B5_TOL[compute], SLOT_REL_TOL[compute]
+    if cases is None:
+        cases = [(d, heads, case, WIDE_CACHES) for d, heads in ((32, (16, 8)), (256, (8, 4)))
+                 for case in WIDE_PAGED] + [(256, (8, 4), case, ("fp32",))
+                                            for case in WIDE_FP32_PAGED]
+    for d, (hq, hkv), (name, chunk, lens, compute), caches in cases:
+        n, pps = len(lens), -(-max(lens) // 128)
+        num_pages = n * pps + 1
+        table = (torch.randperm(num_pages - 1, generator=gen, device="cuda") + 1
+                 ).reshape(n, pps).to(torch.int32).contiguous()
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        cdt = torch.bfloat16 if compute == "bf16" else torch.float32
+        qshape = (n, hq, d) if chunk == 1 else (n, chunk, hq, d)
+        q = torch.randn(qshape, generator=gen, device="cuda").to(cdt)
+        kernel_fn, plain_fn = ((dec_attn.paged_decode_attention,
+                                dec_attn.paged_decode_attention_plain) if chunk == 1
+                               else (dec_attn.paged_chunk_attention,
+                                     dec_attn.paged_chunk_attention_plain))
+        kw = dict(sm_scale=d ** -0.5, compute_dtype=cdt)
+        # The controls: every slot one key short (a slot of length T
+        # loses its first row's only key), and the longest slot with its
+        # middle page swapped for page 0.
+        short = torch.clamp(lengths - 1, min=0)
+        longest = max(range(n), key=lambda i: lens[i])
+        wrong = table.clone()
+        wrong[longest, lens[longest] // 128 // 2] = 0
+        for cache in caches:
+            pages = wide_pages(torch, kv_cache, gen, cache, (hkv, num_pages, 128, d))
+            o_k = kernel_fn(q, pages, table, lengths, **kw)
+            o_p = plain_fn(q, pages, table, lengths, **kw)
+            o_c = plain_fn(q, pages, table, short, **kw)
+            o_w = plain_fn(q, pages, wrong, lengths, **kw)
+            torch.cuda.synchronize()
+            tol, slot_tol = B5_TOL[compute], SLOT_REL_TOL[compute]
 
-                def errs(o):
-                    return ((o_k.float() - o.float()).abs().max().item(),
-                            slot_rel_err(torch, o_k, o))
+            def errs(o):
+                return ((o_k.float() - o.float()).abs().max().item(),
+                        slot_rel_err(torch, o_k, o))
 
-                err, slot_err = errs(o_p)
-                control_err, control_slot = errs(o_c)
-                page_err, page_slot = errs(o_w)
-                label = f"{name} D{d} {cache} {compute}"
-                if not (err <= tol and slot_err <= slot_tol
-                        and torch.isfinite(o_k.float()).all()):
-                    raise AssertionError(f"{label}: max_abs_err {err} (tol {tol}), "
-                                         f"slot rel err {slot_err} (tol {slot_tol})")
-                for what, (c_abs, c_slot) in (("one key short", (control_err, control_slot)),
-                                              ("wrong page", (page_err, page_slot))):
-                    if c_abs <= tol and c_slot <= slot_tol:
-                        raise AssertionError(f"{label}: the {what} control passes the "
-                                             f"gate ({c_abs}, slot rel {c_slot})")
-                elem = 0.5 if cache == "int4" else pages.k_pages.element_size()
-                bound_ms, bound_by, _, moved = paged_bound(lens, chunk, hq, hkv, d, elem,
-                                                           q, o_k, compute)
-                ms = queued_ms(torch, lambda: kernel_fn(q, pages, table, lengths, **kw))
-                row = dict(kernel="paged_decode" if chunk == 1 else "paged_chunk",
-                           case=f"{name} D{d}", T=chunk, D=d, Hq=hq, Hkv=hkv,
-                           cache=cache, compute=compute, lengths=lens, max_abs_err=err,
-                           slot_rel_err=slot_err, control_max_abs_err=control_err,
-                           page_control_slot_rel_err=page_slot, ms=ms,
-                           plain_ms=time_ms(lambda: plain_fn(q, pages, table, lengths, **kw),
-                                            iters=1, warmup=1),
-                           library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
-                           gbps=moved / ms / 1e6)
-                rows.append(row)
-                log("wide paged", json.dumps(row))
-                del pages, o_k, o_p, o_c, o_w
+            err, slot_err = errs(o_p)
+            control_err, control_slot = errs(o_c)
+            page_err, page_slot = errs(o_w)
+            label = f"{name} D{d} {cache} {compute}"
+            if not (err <= tol and slot_err <= slot_tol
+                    and torch.isfinite(o_k.float()).all()):
+                raise AssertionError(f"{label}: max_abs_err {err} (tol {tol}), "
+                                     f"slot rel err {slot_err} (tol {slot_tol})")
+            for what, (c_abs, c_slot) in (("one key short", (control_err, control_slot)),
+                                          ("wrong page", (page_err, page_slot))):
+                if c_abs <= tol and c_slot <= slot_tol:
+                    raise AssertionError(f"{label}: the {what} control passes the "
+                                         f"gate ({c_abs}, slot rel {c_slot})")
+            elem = 0.5 if cache == "int4" else pages.k_pages.element_size()
+            bound_ms, bound_by, _, moved = paged_bound(lens, chunk, hq, hkv, d, elem,
+                                                       q, o_k, compute)
+            ms = queued_ms(torch, lambda: kernel_fn(q, pages, table, lengths, **kw))
+            row = dict(kernel="paged_decode" if chunk == 1 else "paged_chunk",
+                       case=f"{name} D{d}", T=chunk, D=d, Hq=hq, Hkv=hkv,
+                       cache=cache, compute=compute, lengths=lens, max_abs_err=err,
+                       slot_rel_err=slot_err, control_max_abs_err=control_err,
+                       page_control_slot_rel_err=page_slot, ms=ms,
+                       plain_ms=time_ms(lambda: plain_fn(q, pages, table, lengths, **kw),
+                                        iters=1, warmup=1),
+                       library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                       gbps=moved / ms / 1e6)
+            rows.append(row)
+            log("wide paged", json.dumps(row))
+            del pages, o_k, o_p, o_c, o_w
     return rows
 
 
@@ -4121,6 +4185,449 @@ def phase_wide_harness(harness, configs, dataclasses):
                              f"run ({len(cfgs)} configs): {failed[:1]}")
     return results
 
+
+# Phase 32: mixture of experts at Mixtral-8x7B's widths (mistralai/
+# Mixtral-8x7B-v0.1 config.json: d_model 4096, 32/8 heads of 128, d_ff 14336,
+# vocab 32000, rope_theta 1e6, 8 experts, top 2, every layer MoE, router aux
+# coefficient 0.02), depth cut (32 layers are 46.7B parameters, 93 GB in
+# bf16), random bf16 weights drawn on the card; capacity factor 4.0 =
+# n_experts / top_k makes JAX's static-capacity layer drop no token, as
+# Mixtral's routing drops none.  Then remat "dots", gradients through int8
+# weights and training checkpoints.
+MIXTRAL_8X7B = dict(vocab_size=32000, d_model=4096, n_layers=32, n_heads=32,
+                    n_kv_heads=8, head_dim=128, d_ff=14336, rope_theta=1e6,
+                    n_experts=8, expert_top_k=2, moe_every=1, router_aux_coef=0.02,
+                    capacity_factor=4.0)
+MIXTRAL_NOT_EXPRESSED = (
+    "RMSNorm eps 1e-6, not 1e-5",
+    "static capacity stands in for dropless sparse dispatch: every expert runs "
+    "on N + 1 rows (rounded up to 8), about 4x the routed work, a cost of the "
+    "JAX design, not of the port")
+MOE_MARGIN = 1e-6  # routing: a flip is allowed only under this top-k margin
+QUANT_SCALE_TOL = 2e-5
+
+
+def moe_model_flops(cfg, b: int, s: int) -> int:
+    """The routed work of a train step: 6 x (attention projections, the
+    router and top_k experts' three products per token, the head) x tokens,
+    plus attention (model_flops's term); not the static capacity's padding."""
+    per_layer = (2 * cfg.d_model * cfg.q_dim + 2 * cfg.d_model * cfg.kv_dim
+                 + cfg.d_model * cfg.n_experts
+                 + cfg.expert_top_k * 3 * cfg.d_model * cfg.d_ff)
+    matmul = cfg.n_layers * per_layer + cfg.d_model * cfg.vocab_size
+    attn = 3 * 4 * b * cfg.n_heads * causal_pairs(s, s, True) * cfg.head_dim
+    return 6 * matmul * b * s + cfg.n_layers * attn
+
+
+def moe_op_share(torch, decode, eng) -> dict:
+    """The MoE ops' device time in one eager decode step (the body the
+    engine's graph captures, decode_step over every slot, none active so
+    that nothing is written): router top-k, the scatter into the experts'
+    buffer and the gather back, the experts' batched products, against the
+    step's whole device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    n = eng.max_seqs
+    dev = torch.device("cuda")
+    args = (torch.zeros(n, dtype=torch.long, device=dev),
+            torch.zeros(n, dtype=torch.long, device=dev))
+    with torch.inference_mode():
+        step = lambda: decode.decode_step(  # noqa: E731
+            eng.params, *args, eng.caches, eng._tables_dev(),
+            torch.zeros(n, dtype=torch.bool, device=dev), eng.cfg)
+        step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+    events = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in events
+               if e.device_type == DeviceType.CUDA) / 1e3
+    groups = {"topk": ("aten::topk",), "scatter_gather": ("aten::index_copy",
+                                                           "aten::index", "aten::index_select"),
+              "bmm": ("aten::bmm",)}
+    ms = {g: sum(e.device_time_total for e in events
+                 if e.device_type != DeviceType.CUDA and e.key in keys) / 1e3
+          for g, keys in groups.items()}
+    return dict(eager_step_device_ms=busy, moe_ms=ms,
+                moe_share=sum(ms.values()) / busy if busy else None)
+
+
+def mixtral_paged_cases(np):
+    """B5 and B6 at the Mixtral path's shapes (D 128, Hq32 Hkv8: B5's
+    group-8 instantiation, B6's tile bodies at T x group 2048) on its int8
+    cache, bf16 and fp32 compute: 8 slots at phase 5's first seven prompt
+    lengths (B5 at its last decode step, prompt + 23; B6 T512 at its last
+    chunk) and one slot of T tokens, whose only key the short control
+    drops."""
+    prompts = np.random.default_rng(4).integers(64, 1501, 12)[:7].tolist()
+    cases = [("Mixtral B5", 1, [1] + [n + 23 for n in prompts]),
+             ("Mixtral B6 T512", 512, [512] + prompts)]
+    return [(128, (32, 8), (name, t, lens, compute), ("int8",))
+            for name, t, lens in cases for compute in ("bf16", "fp32")]
+
+
+def phase_mixtral_attention(torch, fa2, bwd):
+    """B1 and B2 at the Mixtral training path's shape (B1 Hq32 Hkv8 S2048
+    D128 causal, group 4) in bf16 tiles and fp32 against their plain
+    versions: B1's O within B1_TOL and its lse within LSE_REL_TOL, B2's
+    dQ, dK and dV within BWD_TOL of each output's max; each control (the
+    plain version with causal dropped) must fail its gate.  Device time
+    (queued) beside each kernel's bound: max(bytes moved, as phases 28 and
+    29 count them, over HBM_BYTES_PER_S; FLOPs over the causal pairs over
+    the peak)."""
+    gen = torch.Generator(device="cuda").manual_seed(38)
+    b, hq, hkv, s, d = 1, 32, 8, 2048, 128
+    raw = [torch.randn(b, h, s, d, generator=gen, device="cuda") for h in (hq, hkv, hkv, hq)]
+    pairs = b * causal_pairs(s, s, True)
+    rows = []
+
+    def bound(moved, flops, kind):
+        t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / PEAK_FLOPS[kind]
+        return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations"
+
+    for kind in ("bf16", "fp32"):
+        tile = tile_of(torch, kind)
+        q, k, v, do = (t.to(torch.bfloat16) if kind == "bf16" else t for t in raw)
+        kw = dict(causal=True, window=None, sinks=0, sm_scale=d ** -0.5, kv_len=s,
+                  tile_dtype=tile)
+        ckw = dict(kw, causal=False)
+        o, lse = fa2.fa2_forward_aligned(q, k, v, **kw)
+        o_p, lse_p = fa2.fa2_forward_plain(q, k, v, **kw)
+        o_c, _ = fa2.fa2_forward_plain(q, k, v, **ckw)
+        got = bwd.fa2_backward_fused_aligned(q, k, v, o, do, lse, **kw)
+        want = bwd.fa2_backward_fused_plain(q, k, v, o, do, lse, **kw)
+        control = bwd.fa2_backward_fused_plain(q, k, v, o, do, lse, **ckw)
+        torch.cuda.synchronize()
+        fwd_err = (o.float() - o_p.float()).abs().max().item()
+        fwd_control = (o.float() - o_c.float()).abs().max().item()
+        lse_err, dead_equal = lse_gate(torch, lse, lse_p)
+        bwd_err = max(rel_err(g, w) for g, w in zip(got, want[:3]))
+        bwd_control = max(rel_err(g, w) for g, w in zip(got, control[:3]))
+        io_q, io_kv, io_stat = nbytes(q), nbytes(k, v), b * hq * s * 4
+        b1_bound, b1_by = bound(2 * io_q + io_kv + io_stat, 4 * hq * pairs * d, kind)
+        b2_bound, b2_by = bound(4 * io_q + 2 * io_kv + io_stat,
+                                BWD_MATMULS["fa2_backward_fused"] * 2 * hq * pairs * d, kind)
+        row = dict(shape="B1 Hq32 Hkv8 S2048 D128 causal", kind=kind,
+                   b1_max_abs_err=fwd_err, b1_control_max_abs_err=fwd_control,
+                   b1_lse_rel_err=lse_err, b2_rel_err=bwd_err,
+                   b2_control_rel_err=bwd_control,
+                   b1_ms=queued_ms(torch, lambda: fa2.fa2_forward_aligned(q, k, v, **kw),
+                                   iters=5),
+                   b2_ms=queued_ms(torch, lambda: bwd.fa2_backward_fused_aligned(
+                       q, k, v, o, do, lse, **kw), iters=5),
+                   b1_bound_ms=b1_bound, b1_bound_by=b1_by, b2_bound_ms=b2_bound,
+                   b2_bound_by=b2_by)
+        rows.append(row)
+        log("mixtral attention", json.dumps(row))
+        if not (fwd_err <= B1_TOL[kind] and lse_err <= LSE_REL_TOL and dead_equal
+                and bwd_err <= BWD_TOL[kind]):
+            raise AssertionError(f"mixtral attention {kind}: {row}")
+        if fwd_control <= B1_TOL[kind] or bwd_control <= BWD_TOL[kind]:
+            raise AssertionError(f"mixtral attention {kind}: a control passes its "
+                                 f"gate: {row}")
+        del o, lse, o_p, lse_p, o_c, got, want, control
+    del raw
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_mixtral_serving(torch, np, transformer, decode):
+    """(a) Mixtral widths at 8 layers (bf16, ~11.9B parameters) served on an
+    int8 cache, 8 slots, CUDA-graph decode, chunked prefill 512 (an MoE
+    chunk step carries all 8 rows, JAX's): phase 5's 12 prompts, 24 greedy
+    tokens each; B1, B5 and B6 launched, no page leaked, every token in the
+    vocabulary; one profiled decode step (graph) and the MoE ops' share of
+    an eager one."""
+    cfg = transformer.TransformerConfig(param_dtype=torch.bfloat16,
+                                        **dict(MIXTRAL_8X7B, n_layers=8))
+    log("mixtral config", json.dumps(dict(MIXTRAL_8X7B, served_layers=8,
+                                          not_expressed=MIXTRAL_NOT_EXPRESSED)))
+    params = transformer.init_params(
+        torch.Generator(device="cuda").manual_seed(32), cfg, device="cuda")
+    n_params = sum(p.numel() for p in transformer.tree_leaves(params))
+    prompts = serving_mix(np, cfg)
+    new_tokens = 24
+    eng = decode.DecodeEngine(params, cfg, max_seqs=8, max_seq_len=2048, page_size=128,
+                              cache_dtype=torch.int8, prefill_chunk=512)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(SERVING_KERNELS)
+    t0 = time.perf_counter()
+    reqs = eng.run(prompts, max_new_tokens=new_tokens)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = read_counts(SERVING_KERNELS)
+    check_served("mixtral", reqs, eng, launches, SERVING_KERNELS, cfg.vocab_size,
+                 new_tokens)
+    total = sum(len(r.generated) for r in reqs)
+    res = dict(config="mixtral-8x7b widths, 8 layers, bf16", params=n_params,
+               requests=len(reqs), tokens=total, seconds=elapsed,
+               tokens_per_s=total / elapsed,
+               tpot_ms_median=statistics.median(r.tpot_s for r in reqs) * 1e3,
+               ttft_ms_median=statistics.median(r.ttft_s for r in reqs) * 1e3,
+               steps=eng.stats["steps"], prefill_chunks=eng.stats["prefill_chunks"],
+               launches=launches,
+               max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    res["profile"] = phase_profile(torch, np, eng, label="mixtral decode profile",
+                                   new_tokens=8, steps=1)
+    res["moe_ops"] = moe_op_share(torch, decode, eng)
+    log("mixtral serving", json.dumps(res))
+    del eng
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_mixtral_train(torch, np, transformer, training):
+    """(b) Mixtral widths at 2 layers (~3.2B parameters, bf16 weights and
+    tiles), AdamW lr 1e-4, 4 steps on one seeded batch of B1 S2048: a
+    finite, falling loss, the router's aux loss finite; B1 and the
+    backward (B2, or B3 and B4) launched; step time, tokens/s, peak memory
+    and the share of the bf16 peak (routed work, moe_model_flops)."""
+    cfg = transformer.TransformerConfig(param_dtype=torch.bfloat16,
+                                        **dict(MIXTRAL_8X7B, n_layers=2))
+    b, s = 1, 2048
+    params = transformer.init_params(
+        torch.Generator(device="cuda").manual_seed(33), cfg, device="cuda")
+    tokens = np.random.default_rng(33).integers(0, cfg.vocab_size, (b, s + 1))
+    opt = training.make_optimizer(learning_rate=1e-4, warmup_steps=1, decay_steps=100)
+    step = training.make_optax_train_step(cfg, opt)
+    state = training.init_train_state(params, opt)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(TRAIN_KERNELS)
+    losses, times = [], []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        state, metrics = step(state, tokens)
+        losses.append(metrics["loss"].item())
+        times.append(time.perf_counter() - t0)
+    launches = read_counts(TRAIN_KERNELS)
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        tok = torch.as_tensor(tokens[:, :-1], device="cuda")
+        _, aux = transformer.forward(state.params, tok, cfg, return_aux=True)
+    aux = float(aux)
+    backward = launches["fa2_backward_fused"] or (
+        launches["fa2_backward_dq"] and launches["fa2_backward_dkv"])
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0] and np.isfinite(aux)
+            and launches["fa2_forward"] and backward):
+        raise AssertionError(f"mixtral train: losses {losses}, aux {aux}, "
+                             f"launches {launches}")
+    median = statistics.median(times[1:])
+    flops = moe_model_flops(cfg, b, s)
+    res = dict(config="mixtral-8x7b widths, 2 layers, bf16", batch=b, seq=s,
+               losses=losses, aux_loss=aux, step_ms=[t * 1e3 for t in times],
+               step_ms_median=median * 1e3, tokens_per_s=b * s / median,
+               max_memory_allocated_gib=peak / 2 ** 30,
+               params=sum(p.numel() for p in transformer.tree_leaves(state.params)),
+               routed_flops_per_step=flops,
+               bf16_peak_share=flops / median / PEAK_FLOPS["bf16"], launches=launches)
+    log("mixtral train", json.dumps(res))
+    del state, step
+    torch.cuda.empty_cache()
+    return res
+
+
+def record_routing(transformer, moe, calls):
+    """transformer.moe_ffn wrapped to append each call's routing (fp32
+    probabilities, top-k experts, ranks, kept) to `calls`, on the CPU."""
+    def recorded(h, layer, cfg):
+        x = h.reshape(-1, h.shape[-1])
+        probs, _, idx, _ = moe._route(x, layer, cfg)
+        rank = moe._ranks(idx, cfg.n_experts)
+        cap = moe.expert_capacity(len(x), cfg.n_experts, cfg.expert_top_k,
+                                  cfg.capacity_factor)
+        calls.append(tuple(t.cpu() for t in (probs, idx, rank, rank < cap)))
+        return moe.moe_ffn(h, layer, cfg)
+    return recorded
+
+
+def phase_mixtral_parity(torch, np, transformer, decode, moe):
+    """(c) Mixtral widths at 2 layers in fp32 with capacity factor 1.0 (so
+    that the capacity binds), card against CPU on one prefill_forward of
+    tokens (1, 129): logits within E2E_LOGIT_TOL; each layer's routing equal
+    but where a token's top-k margin is below MOE_MARGIN; the dropped
+    (token, choice) pairs counted."""
+    cfg = transformer.TransformerConfig(dtype=torch.float32, attn_tile_dtype=None,
+                                        **dict(MIXTRAL_8X7B, n_layers=2,
+                                               capacity_factor=1.0))
+    params = transformer.init_params(
+        torch.Generator(device="cuda").manual_seed(34), cfg, device="cuda")
+    tokens = torch.as_tensor(np.random.default_rng(34).integers(0, cfg.vocab_size, (1, 129)))
+    out, routing = {}, {}
+    inner = transformer.moe_ffn
+    try:
+        for dev in ("cuda", "cpu"):
+            p = params if dev == "cuda" else transformer.tree_map(lambda w: w.cpu(), params)
+            routing[dev] = []
+            transformer.moe_ffn = record_routing(transformer, moe, routing[dev])
+            with torch.inference_mode():
+                logits, _ = decode.prefill_forward(p, tokens.to(dev), cfg)
+            out[dev] = logits.cpu()
+            del p
+    finally:
+        transformer.moe_ffn = inner
+    diff = (out["cuda"] - out["cpu"]).abs().max().item()
+    flips, dropped = [], []
+    for (pg, ig, rg, vg), (pc, ic, rc, vc) in zip(routing["cuda"], routing["cpu"]):
+        top = torch.sort(pc, dim=-1, descending=True).values
+        margin = torch.stack([top[:, k] - top[:, k + 1]
+                              for k in range(cfg.expert_top_k)], 1).amin(1)
+        differ = (ig != ic).any(1)
+        if (differ & (margin >= MOE_MARGIN)).any():
+            raise AssertionError(f"mixtral parity: tokens "
+                                 f"{torch.nonzero(differ & (margin >= MOE_MARGIN)).ravel()} "
+                                 f"route differently with a top-k margin >= {MOE_MARGIN}")
+        flips.append(int(differ.sum()))
+        dropped.append(dict(cuda=int((~vg).sum()), cpu=int((~vc).sum())))
+    res = dict(config="mixtral-8x7b widths, 2 layers, fp32, capacity factor 1.0",
+               tokens=list(tokens.shape), logits_max_abs_diff=diff,
+               routing_flips_under_margin=flips, dropped_pairs=dropped)
+    log("mixtral fp32 parity (card vs CPU)", json.dumps(res))
+    if not diff <= E2E_LOGIT_TOL:
+        raise AssertionError(f"mixtral parity: logits differ by {diff} "
+                             f"(tol {E2E_LOGIT_TOL})")
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_remat_dots(torch, np, transformer):
+    """(d) One base-width value_and_grad at B4 S2048 under remat "none",
+    "dots" and "full": losses and gradients bitwise equal to "none"'s (the
+    recomputed kernels are deterministic), each one's peak memory, "dots"
+    below "none"."""
+    import dataclasses
+
+    cfg = transformer.TransformerConfig.base()
+    params = transformer.init_params(torch.Generator().manual_seed(35), cfg, device="cuda")
+    tokens = torch.as_tensor(np.random.default_rng(35).integers(0, cfg.vocab_size,
+                                                                 (4, 2049)), device="cuda")
+    res, ref = {}, None
+    for remat in ("none", "dots", "full"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        loss, grads = transformer.value_and_grad(
+            params, tokens, dataclasses.replace(cfg, remat=remat))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() - base
+        leaves = transformer.tree_leaves(grads)
+        if ref is None:
+            ref = (loss, leaves)
+        diff = max((a.float() - b.float()).abs().max().item()
+                   for a, b in zip(leaves, ref[1]))
+        res[remat] = dict(loss=loss.item(), loss_equal=bool(loss == ref[0]),
+                          grad_max_abs_diff=diff, peak_gib=peak / 2 ** 30, ms=ms)
+        del grads, leaves
+    log("remat dots (base B4 S2048)", json.dumps(res))
+    if not all(r["loss_equal"] and r["grad_max_abs_diff"] == 0 for r in res.values()):
+        raise AssertionError(f"remat: a policy's loss or gradients differ: {res}")
+    if not res["dots"]["peak_gib"] < res["none"]["peak_gib"]:
+        raise AssertionError(f"remat: dots peak {res['dots']['peak_gib']} GiB not below "
+                             f"none's {res['none']['peak_gib']}")
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_quant_grads(torch, np, transformer, training, quant):
+    """(e) One AdamW step (lr 5e-6, no warmup) at base width, 2 layers,
+    fp32, on int8 weights (quantize_transformer_params), card against CPU:
+    the int8 values unchanged on both and the scales moved.  The gate on
+    the gradients is the scales' first moments (after one step, (1 - b1)
+    times the gradient), card within TRAIN_GRAD_TOL of each leaf's max
+    |CPU value|; its control, the CPU's moments negated (the gradient's
+    sign flipped), must fail it.  The scales after the step are printed
+    and held within QUANT_SCALE_TOL of the CPU's, which is no check of
+    the gradients: Adam's first step moves an element by at most lr,
+    whatever its gradient, so two devices are at most 2 lr = 1e-5 apart."""
+    import dataclasses
+
+    cfg = dataclasses.replace(transformer.TransformerConfig.base(
+        dtype=torch.float32, attn_tile_dtype=None), n_layers=2)
+    params = quant.quantize_transformer_params(
+        transformer.init_params(torch.Generator().manual_seed(36), cfg, device="cpu"),
+        torch.int8)
+    tokens = np.random.default_rng(36).integers(0, cfg.vocab_size, (1, 129))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = transformer.array_map(lambda t: t.to(dev), params)
+        opt = training.make_optimizer(learning_rate=5e-6, warmup_steps=0, decay_steps=10)
+        out[dev] = training.make_optax_train_step(cfg, opt)(
+            training.init_train_state(p, opt), tokens)
+    (s_g, m_g), (s_c, _) = out["cuda"], out["cpu"]
+    before = [x for x in transformer.tree_leaves(params) if hasattr(x, "scales")]
+    after = {dev: [x for x in transformer.tree_leaves(out[dev][0].params)
+                   if hasattr(x, "scales")] for dev in out}
+    mus = {dev: [x for x in transformer.tree_leaves(out[dev][0].opt_state.mu)
+                 if hasattr(x, "scales")] for dev in out}
+    values_same = all(torch.equal(a.values.cpu(), b.values) for dev in out
+                      for a, b in zip(after[dev], before))
+    moved = max((a.scales.cpu() - b.scales).abs().max().item()
+                for a, b in zip(after["cuda"], before))
+    scale_diff = max((a.scales.cpu() - b.scales).abs().max().item()
+                     for a, b in zip(after["cuda"], after["cpu"]))
+    def mu_rel_err(sign):
+        return max(((a.scales.cpu() - sign * b.scales).abs().max()
+                    / b.scales.abs().max().clamp_min(1e-30)).item()
+                   for a, b in zip(mus["cuda"], mus["cpu"]))
+
+    mu_err, mu_control = mu_rel_err(1), mu_rel_err(-1)
+    res = dict(config="base widths, 2 layers, fp32, int8 weights", quantized=len(before),
+               int_values_unchanged=values_same, scales_max_move=moved,
+               scales_card_cpu_max_abs_diff=scale_diff, scale_mu_rel_err=mu_err,
+               scale_mu_control_rel_err=mu_control, loss=m_g["loss"].item())
+    log("quantized-weight gradients (card vs CPU)", json.dumps(res))
+    if not (values_same and moved > 0 and scale_diff <= QUANT_SCALE_TOL
+            and mu_err <= TRAIN_GRAD_TOL):
+        raise AssertionError(f"quantized gradients: {res}")
+    if mu_control <= TRAIN_GRAD_TOL:
+        raise AssertionError(f"quantized gradients: the negated control passes the "
+                             f"gate: {res}")
+    return res
+
+
+def phase_checkpoint(torch, np, transformer, training, checkpoint):
+    """(f) train_loop with checkpoint_dir on the card at tiny(): one step
+    saved, restored onto the card (restore_checkpoint's default device),
+    one step resumed; parameters and first moments bitwise equal to two
+    uninterrupted steps."""
+    import tempfile
+
+    cfg = transformer.TransformerConfig.tiny()
+    batches = [np.random.default_rng(37 + i).integers(0, cfg.vocab_size, (2, 129))
+               for i in range(2)]
+    opt = training.make_optimizer(learning_rate=1e-3, warmup_steps=0, decay_steps=10)
+    full = training.train_loop(cfg, iter(batches), num_steps=2, optimizer=opt,
+                               log_every=0, device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        training.train_loop(cfg, iter(batches[:1]), num_steps=1, optimizer=opt,
+                            log_every=0, device="cuda", checkpoint_dir=tmp,
+                            checkpoint_every=1)
+        saved = checkpoint.restore_checkpoint(tmp)
+    on_card = all(t.is_cuda for t in transformer.array_leaves(saved["params"]))
+    state = training.TrainState(saved["params"], saved["opt_state"], saved["step"])
+    resumed, _ = training.make_optax_train_step(cfg, opt)(state, batches[1])
+    equal = all(torch.equal(a, b) for a, b in zip(
+        transformer.array_leaves([resumed.params, resumed.opt_state.mu]),
+        transformer.array_leaves([full.params, full.opt_state.mu])))
+    res = dict(config="tiny, 2 AdamW steps", restored_on_card=on_card,
+               resumed_step=resumed.step, bitwise_equal=equal)
+    log("checkpoint resume (card)", json.dumps(res))
+    if not (on_card and equal and resumed.step == full.step == 2):
+        raise AssertionError(f"checkpoint: {res}")
+    return res
+
+
+
 def main() -> int:
     import torch
 
@@ -4151,11 +4658,11 @@ def main() -> int:
     from cuda_flash_attention_tpu_torch.kernels.common import BlockSizes
     from cuda_flash_attention_tpu_torch.kernels import fa2_forward_quant as fq
     from cuda_flash_attention_tpu_torch import quant
-    from cuda_flash_attention_tpu_torch.models import lora, training, transformer
+    from cuda_flash_attention_tpu_torch.models import lora, moe, training, transformer
     from cuda_flash_attention_tpu_torch.ops import reference
     from cuda_flash_attention_tpu_torch.scripts import b1_ab, fp32_bwd, kernel_ab
     from cuda_flash_attention_tpu_torch.scripts import r5_d128_fwd as r5
-    from cuda_flash_attention_tpu_torch.utils import io
+    from cuda_flash_attention_tpu_torch.utils import checkpoint, io
 
     # fp32 means fp32: no TF32 in the plain versions' matmuls.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4180,7 +4687,7 @@ def main() -> int:
     serve, eng = phase_serving(torch, np, transformer, decode)
     log(f"phase 5: serving ok in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    serve_profile = phase_profile(torch, np, eng)
+    serve_profile = phase_profile(torch, np, eng, new_tokens=16, steps=3)
     log(f"phase 6: profile ok in {time.perf_counter() - t0:.1f} s")
     del eng
     torch.cuda.empty_cache()
@@ -4345,6 +4852,21 @@ def main() -> int:
                for d in (32, 256)):
         raise AssertionError(f"phase 31: a kernel of the D 32 / 256 contract never "
                              f"ran: {wide_launches}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    moe_attention = phase_mixtral_attention(torch, fa2, bwd)
+    moe_paged = phase_wide_paged(torch, dec_attn, kv_cache, cases=mixtral_paged_cases(np),
+                                 seed=32)
+    moe_serve = phase_mixtral_serving(torch, np, transformer, decode)
+    moe_train = phase_mixtral_train(torch, np, transformer, training)
+    moe_parity = phase_mixtral_parity(torch, np, transformer, decode, moe)
+    remat_dots = phase_remat_dots(torch, np, transformer)
+    quant_grads = phase_quant_grads(torch, np, transformer, training, quant)
+    ckpt = phase_checkpoint(torch, np, transformer, training, checkpoint)
+    log(f"phase 32: Mixtral-8x7B-width kernels at the path's shapes, MoE serving and "
+        f"training, its fp32 parity, remat dots, int8-weight gradients and "
+        f"checkpoints ok in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # Representative shapes for the kernel line: the serving phase's largest
     # prefill (B4 S1536 bf16) and the int8 cache with bf16 compute.
@@ -4627,6 +5149,33 @@ def main() -> int:
                                 "fa2_forward_quant")):
         raise AssertionError("phase 31: a D 32 or D 256 kernel of B7-B10 never ran "
                              "on its path")
+    # Phase 32: B1, B5 and B6 launches on the Mixtral-width serving path,
+    # B1 and the backward's on its training, and their checks at the path's
+    # shapes; B5 and B6 on an fp32 cache at D 256 (phase 28's rows in fp32
+    # compute, the bf16 tile body's in bf16) with their launches on phase
+    # 27's fp32-cache parity run.
+    for k in kernels:
+        n = k["name"]
+        if n in ("fa2_forward", "fa2_backward_fused"):
+            k["mixtral_shapes"] = moe_attention
+        if n in ("paged_decode", "paged_chunk"):
+            k["mixtral_shapes"] = [{f: r[f] for f in (
+                "case", "compute", "max_abs_err", "slot_rel_err", "control_max_abs_err",
+                "page_control_slot_rel_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+                for r in moe_paged if r["kernel"] == n]
+        if n in moe_serve["launches"]:
+            k["launches_moe_serving"] = moe_serve["launches"][n]
+        if n in moe_train["launches"]:
+            k["launches_moe_training"] = moe_train["launches"][n]
+        if n in ("paged_decode", "paged_chunk"):
+            case = "B5" if n == "paged_decode" else "B6 T5"
+            k["d256_fp32_cache"] = dict(
+                wide_row(wide_paged, case=f"{case} D256", cache="fp32", compute="fp32"),
+                launches=gemma2_parity["fp32_cache_launches"][f"{n}_d256"])
+            if n == "paged_chunk":
+                k["d256_fp32_cache"]["tiles"] = {
+                    c: wide_row(wide_paged, case=f"B6 {c} D256", cache="fp32")
+                    for c in ("T512", "T512 fp32")}
     log("fp16 tiles:", json.dumps({"B1 Stress-1": b1_fp16, "B2-B4": [
         {k: r[k] for k in ("kernel", "inputs", "B", "S", "causal", "ms",
                            "bound_ms", "library_ms", "rel_err")} for r in bwd_fp16]}))
@@ -4639,7 +5188,15 @@ def main() -> int:
                         "tokens_per_s", "tpot_ms_median", "ttft_ms_median",
                         "peak_live_pages_local", "peak_live_pages_global",
                         "d256_launches")},
-                    "gemma2_fp32_card_cpu_equal": gemma2_parity,
+                    "gemma2_fp32_card_cpu_equal": gemma2_parity["equal"],
+                    "mixtral_serving": {k: moe_serve[k] for k in (
+                        "tokens_per_s", "tpot_ms_median", "ttft_ms_median",
+                        "max_memory_allocated_gib", "moe_ops")},
+                    "mixtral_train": {k: moe_train[k] for k in (
+                        "losses", "aux_loss", "step_ms_median", "tokens_per_s",
+                        "max_memory_allocated_gib", "bf16_peak_share")},
+                    "mixtral_parity": moe_parity, "remat_dots": remat_dots,
+                    "quant_grads": quant_grads, "checkpoint": ckpt,
                     "gemma2_train": {k: gemma2_train[k] for k in (
                         "losses", "step_ms_median", "tokens_per_s",
                         "max_memory_allocated_gib", "mfu_bf16_peak", "split_loss")},

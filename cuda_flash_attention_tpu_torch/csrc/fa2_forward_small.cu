@@ -143,10 +143,6 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
       : "r"(smem_addr(p)));
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 // The first `rows` rows of a [*, D] matrix into a 16-bit shared tile of
 // type Tt with leading dimension LD, each multiplied by `scale` in fp32
 // before the rounding; rows at or past `n_valid` are zeros (P is 0 there,

@@ -171,6 +171,11 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
                : "memory");
 }
 
+// Wait until every cp.async this thread has issued so far has landed.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 // Arrive on `bar` once every cp.async this thread has issued so far has
 // landed (the arrival is counted in the barrier's initial count).
 __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {

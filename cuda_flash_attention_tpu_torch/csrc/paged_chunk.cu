@@ -92,9 +92,13 @@
 // one bf16 K/V pair (two would not fit beside the ring); the fp32 tile body
 // holds sixteen O columns a thread (one block an SM) and, where no stored-
 // width stage fits beside its fp32 tiles (bf16 rows), decodes each tile
-// from device memory (FmaRaw::kStages 0).  An fp32 cache is refused at D =
-// 256.  At D = 32 a lane of the split body owns one output column and the
-// FMA block's threads two.
+// from device memory (FmaRaw::kStages 0).  An fp32 cache at D = 256 (1 KB
+// rows): the split body's stage holds a chunk's K alone and each warp lands
+// its V rows over its K rows once read (kVOverK), the bf16 tile body's raw
+// stage holds 32 tokens, two a tile (kParts), and the fp32 tile body
+// streams fp32 K and V straight into its fp32 stages, as at every width.
+// At D = 32 a lane of the split body owns one output column and the FMA
+// block's threads two.
 //
 // (c) T * group > kSplitRows with fp32 compute: IEEE fp32 on the FMA units,
 //     bound by their 67 TFLOP/s at chunked prefill's T.  The block is the
@@ -252,14 +256,19 @@ __device__ __forceinline__ void decode16(__nv_bfloat16* dst, const unsigned char
 // [32][D + 8]) and one mbarrier per stage; RT = kRowTile.  The warps'
 // states are folded through the ring once it is drained.  At D = 256 a
 // warp's K rows and then its V rows take one bf16 buffer in turn (kKVBufs
-// 1): two would not fit beside a bf16 cache's 136 KB chunk.
+// 1): two would not fit beside a bf16 cache's 136 KB chunk.  An fp32
+// chunk's K and V (266 KB) fit no block: with kVOverK a stage holds the K
+// chunk alone, and each warp lands its 32 V rows over its 32 K rows once
+// it has read them (B5's remedy, csrc/paged_decode.cu load_warp_v).
 template <typename Tc, int D, bool MMA>
 struct SplitLayout {
   static constexpr int RT = kRowTile;
   static constexpr int kRowBytes = kRowBytesOf<Tc, D>;
   static constexpr int kStride = kRowBytes + 16;
   static constexpr int kTileBytes = kThreads * kStride;
-  static constexpr int kScaleOff = 2 * kTileBytes;
+  static constexpr bool kVOverK = kRowBytes > 512;
+  static constexpr int kVOff = kVOverK ? 0 : kTileBytes;
+  static constexpr int kScaleOff = (kVOverK ? 1 : 2) * kTileBytes;
   static constexpr int kStageBytes = kScaleOff + 2 * kThreads * 4;
   static constexpr int kLD = D + 8;  // bf16 row stride: conflict-free ldmatrix
   static constexpr int kKVBufs = D > 128 ? 1 : 2;
@@ -299,8 +308,10 @@ __device__ __forceinline__ void load_split_chunk(unsigned char* stage, uint32_t 
     const bool full = r < n_valid;
     cp_async16(smem_addr(stage + r * L::kStride + cb), ksrc + static_cast<size_t>(i) * 16,
                full);
-    cp_async16(smem_addr(stage + L::kTileBytes + r * L::kStride + cb),
-               vsrc + static_cast<size_t>(i) * 16, full);
+    if constexpr (!L::kVOverK) {
+      cp_async16(smem_addr(stage + L::kTileBytes + r * L::kStride + cb),
+                 vsrc + static_cast<size_t>(i) * 16, full);
+    }
   }
   const int t = threadIdx.x;
   if (t < 32) {
@@ -311,6 +322,30 @@ __device__ __forceinline__ void load_split_chunk(unsigned char* stage, uint32_t 
                v_scales + row0 + 4 * (t - 32), 4 * (t - 32) < n_valid);
   }
   cp_async_arrive(bar);
+}
+
+// kVOverK: warp `warp`'s 32 V rows of the chunk at token tok0 of page
+// `pid` (KV head hk; rows at or past n_valid zero-filled, not read) into
+// its 32 K rows of `stage`, which its lanes have read; the warp waits for
+// them.
+template <typename L>
+__device__ __forceinline__ void load_warp_v(unsigned char* stage,
+                                            const unsigned char* v_pages, int hk,
+                                            int num_pages, int pid, int page_size,
+                                            int tok0, int n_valid, int warp, int lane) {
+  constexpr int kVec = L::kRowBytes / 16;
+  const size_t row0 = (static_cast<size_t>(hk) * num_pages + pid) * page_size +
+                      tok0 % page_size;
+  const unsigned char* vsrc = v_pages + (row0 + warp * 32) * L::kRowBytes;
+  unsigned char* dst = stage + warp * 32 * L::kStride;
+  __syncwarp();  // every lane has read its K row
+  for (int i = lane; i < 32 * kVec; i += 32) {
+    const int r = i / kVec;
+    cp_async16(smem_addr(dst + r * L::kStride + (i - r * kVec) * 16),
+               vsrc + static_cast<size_t>(i) * 16, warp * 32 + r < n_valid);
+  }
+  cp_async_wait_all();
+  __syncwarp();  // the warp's V rows have landed
 }
 
 // s[r] += Q[r][d0 + j] K[row][d0 + j] for j < 4, in order, for the tile's
@@ -612,6 +647,10 @@ paged_chunk_split(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
               decode16<Tc, D, LD>(vst, stage + L::kTileBytes + t * L::kStride + cb, lane, cb);
             }
           }
+          if constexpr (L::kVOverK) {
+            load_warp_v<L>(smem + (c % S) * L::kStageBytes, vp, hk, num_pages, page_of(c),
+                           page_size, tok0, kv_end - tok0, warp, lane);
+          }
           __syncwarp();
           float s[4][4];
 #pragma unroll
@@ -635,7 +674,7 @@ paged_chunk_split(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
             __syncwarp();
 #pragma unroll
             for (int cb = 0; cb < L::kRowBytes; cb += 16) {
-              decode16<Tc, D, LD>(vst, stage + L::kTileBytes + t * L::kStride + cb, lane, cb);
+              decode16<Tc, D, LD>(vst, stage + L::kVOff + t * L::kStride + cb, lane, cb);
             }
             __syncwarp();
           }
@@ -708,6 +747,10 @@ paged_chunk_split(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
 #pragma unroll
           for (int r = 0; r < RT; ++r) s[r] = 0.f;
           score_row<Tc, D, RT>(stage + t * L::kStride, qf, n_rows, s);
+          if constexpr (L::kVOverK) {
+            load_warp_v<L>(smem + (c % S) * L::kStageBytes, vp, hk, num_pages, page_of(c),
+                           page_size, tok0, kv_end - tok0, warp, lane);
+          }
           const float col_scale = ksc[t] * sm_scale;
           const float v_scale = vsc[t];
 #pragma unroll
@@ -733,7 +776,7 @@ paged_chunk_split(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
           __syncwarp();
           // P V over the warp's 32 tokens, in order, four at a time: the
           // four V rows' elements once, then each row's four P values.
-          const unsigned char* vbase = stage + L::kTileBytes + warp * 32 * L::kStride;
+          const unsigned char* vbase = stage + L::kVOff + warp * 32 * L::kStride;
 #pragma unroll 1
           for (int t0 = 0; t0 < 32; t0 += 4) {
             if constexpr (kE > 4) {
@@ -900,11 +943,15 @@ paged_chunk_split(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
 // raw stage, and the warps read Q's fragments from shared memory per
 // k-step: two pairs (135 KB) and the Q tile (34 KB) would not fit beside
 // the ring, nor Q's fragments (64 registers) beside the 128 O accumulators.
+// An fp32 cache's 64-token stage at D = 256 (257 KB) fits no block: its
+// raw stages hold kRawN = 32 tokens, a tile lands in kParts = 2 of them.
 template <typename Tc, int D>
 struct TileLayout {
   static constexpr int kRowBytes = kRowBytesOf<Tc, D>;
-  static constexpr int kRawTile = kBlockN * kRowBytes;
-  static constexpr int kRawStage = 2 * kRawTile + 2 * kBlockN * 4;
+  static constexpr int kRawN = kRowBytes > 512 ? 32 : kBlockN;  // tokens a raw stage
+  static constexpr int kParts = kBlockN / kRawN;
+  static constexpr int kRawTile = kRawN * kRowBytes;
+  static constexpr int kRawStage = 2 * kRawTile + 2 * kRawN * 4;
   static constexpr int kStages =
       std::min(3, std::max(D > 128 ? 1 : 2, kRawBudget / kRawStage));
   static constexpr int kBufs = D > 128 ? 1 : 2;
@@ -1049,6 +1096,9 @@ paged_chunk_mma(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
   // walk.at(it), in raw stage it % S.
   const KvWalk walk(pos_first - window + 1, kv_end, sinks, kBlockN);
   const int n_it = walk.n;
+  constexpr int P = L::kParts;  // raw steps u = it P + part a tile
+  constexpr int kRawN = L::kRawN;
+  const int n_u = n_it * P;
   const size_t pt_row = static_cast<size_t>(slot) * pages_per_seq;
   auto qrow = [&](int r) {  // element offset of the tile's row r in q / out
     const int rr = r0 + r;
@@ -1061,32 +1111,33 @@ paged_chunk_mma(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
   auto page_of = [&](int it) {
     return page_table[pt_row + walk.at(it) * kBlockN / page_size];
   };
-  // Step `it` (64 tokens of one page) into raw stage it % S; tokens at or
-  // past kv_end are zero-filled and not read.
-  auto issue = [&](int it, int pid) {
-    const int c0 = walk.at(it) * kBlockN;
+  // Raw step `u` (kRawN tokens of one page: part u % P of tile u / P) into
+  // raw stage u % S; tokens at or past kv_end are zero-filled and not read.
+  auto issue = [&](int u, int pid) {
+    const int c0 = walk.at(u / P) * kBlockN + (u % P) * kRawN;
     const int page = c0 / page_size;
     const size_t row0 = (static_cast<size_t>(hk) * num_pages + pid) * page_size +
                         (c0 - page * page_size);
     const int valid = kv_end - c0;
-    unsigned char* stage = smem + (it % S) * L::kRawStage;
-    for (int i = tid; i < kBlockN * kVec; i += 128) {
+    unsigned char* stage = smem + (u % S) * L::kRawStage;
+    for (int i = tid; i < kRawN * kVec; i += 128) {
       const bool full = i / kVec < valid;
       cp_async16(smem_addr(stage + 16 * i), kp + row0 * L::kRowBytes + 16 * static_cast<size_t>(i),
                  full);
       cp_async16(smem_addr(stage + L::kRawTile + 16 * i),
                  vp + row0 * L::kRowBytes + 16 * static_cast<size_t>(i), full);
     }
-    if (tid < 16) {
+    if (tid < kRawN / 4) {
       cp_async16(smem_addr(stage + 2 * L::kRawTile + 16 * tid), k_scales + row0 + 4 * tid,
                  4 * tid < valid);
-    } else if (tid < 32) {
-      cp_async16(smem_addr(stage + 2 * L::kRawTile + kBlockN * 4 + 16 * (tid - 16)),
-                 v_scales + row0 + 4 * (tid - 16), 4 * (tid - 16) < valid);
+    } else if (tid < kRawN / 2) {
+      const int j = tid - kRawN / 4;
+      cp_async16(smem_addr(stage + 2 * L::kRawTile + kRawN * 4 + 16 * j),
+                 v_scales + row0 + 4 * j, 4 * j < valid);
     }
-    cp_async_arrive(bar0 + 8 * (it % S));
+    cp_async_arrive(bar0 + 8 * (u % S));
   };
-  for (int it = 0; it < S && it < n_it; ++it) issue(it, page_of(it));
+  for (int u = 0; u < S && u < n_u; ++u) issue(u, page_of(u / P));
 
   // Q tile, rounded to bf16 (no scale: sm_scale goes on the scores).
   for (int i = tid; i < kBlockM * (D / 8); i += 128) {
@@ -1131,33 +1182,41 @@ paged_chunk_mma(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
 
   for (int it = 0; it < n_it; ++it) {
     const int c0 = walk.at(it) * kBlockN;
-    // The page that refills this raw stage, read before the wait.
-    const int next_pid = it + S < n_it ? page_of(it + S) : 0;
-    const unsigned char* raw = smem + (it % S) * L::kRawStage;
     const int buf = L::kBufs == 1 ? 0 : it & 1;
     __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem + L::kBf + buf * 2 * L::kBfTile);
     __nv_bfloat16* vs = ks + kBlockN * LD;
     float* ksc = reinterpret_cast<float*>(smem + L::kScl) + buf * 2 * kBlockN;
     float* vsc = ksc + kBlockN;
-    mbar_wait(bar0 + 8 * (it % S), (it / S) & 1);
-    // One pair: tile it - 1's products read it until here.
-    if constexpr (L::kBufs == 1) __syncthreads();
-    // Decode the landed stage into bf16 tile it & 1, whose last readers
-    // (tile it - 2's products) passed the barrier of tile it - 1.
-    for (int i = tid; i < kBlockN * kVec; i += 128) {
-      const int r = i / kVec;
-      const int cb = (i - r * kVec) * 16;
-      decode16<Tc, D, LD>(ks, raw + 16 * i, r, cb);
-      decode16<Tc, D, LD>(vs, raw + L::kRawTile + 16 * i, r, cb);
+#pragma unroll
+    for (int part = 0; part < P; ++part) {
+      const int u = it * P + part;
+      // The page that refills this raw stage, read before the wait.
+      const int next_pid = u + S < n_u ? page_of((u + S) / P) : 0;
+      const unsigned char* raw = smem + (u % S) * L::kRawStage;
+      mbar_wait(bar0 + 8 * (u % S), (u / S) & 1);
+      // One pair: tile it - 1's products read it until here.
+      if constexpr (L::kBufs == 1) {
+        if (part == 0) __syncthreads();
+      }
+      // Decode the landed stage into rows [part kRawN, (part + 1) kRawN)
+      // of bf16 tile it & 1, whose last readers (tile it - 2's products)
+      // passed the barrier of tile it - 1.
+      for (int i = tid; i < kRawN * kVec; i += 128) {
+        const int r = i / kVec;
+        const int cb = (i - r * kVec) * 16;
+        decode16<Tc, D, LD>(ks, raw + 16 * i, part * kRawN + r, cb);
+        decode16<Tc, D, LD>(vs, raw + L::kRawTile + 16 * i, part * kRawN + r, cb);
+      }
+      if (tid < kRawN) {
+        const float* rs = reinterpret_cast<const float*>(raw + 2 * L::kRawTile);
+        const int col = part * kRawN + tid;
+        const bool in = c0 + col < kv_end;
+        ksc[col] = in ? rs[tid] * sm_scale * kLog2e : 0.f;
+        vsc[col] = in ? rs[kRawN + tid] : 0.f;
+      }
+      __syncthreads();  // the part is decoded; raw stage u % S is free
+      if (u + S < n_u) issue(u + S, next_pid);
     }
-    if (tid < kBlockN) {
-      const float* rs = reinterpret_cast<const float*>(raw + 2 * L::kRawTile);
-      const bool in = c0 + tid < kv_end;
-      ksc[tid] = in ? rs[tid] * sm_scale * kLog2e : 0.f;
-      vsc[tid] = in ? rs[kBlockN + tid] : 0.f;
-    }
-    __syncthreads();  // tile it is decoded; raw stage it % S is free
-    if (it + S < n_it) issue(it + S, next_pid);
 
     float s[kBlockN / 8][4];
 #pragma unroll
@@ -1598,22 +1657,10 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
-// An fp32 cache at D = 256 is refused: the split body's 128-token K and V
-// chunks (266 KB) do not fit a block's shared memory, nor does the bf16 tile
-// body's 64-token stage (131 KB) beside its tiles.
-template <typename Tq, typename Tc, int D>
-cudaError_t launch_dim(const Args& a) {
-  if constexpr (std::is_same<Tc, float>::value && D > 128) {
-    return cudaErrorInvalidValue;
-  } else {
-    return launch<Tq, Tc, D>(a);
-  }
-}
-
 template <typename Tq, typename Tc>
 cudaError_t launch_d(int head_dim, const Args& a) {
 #define CFA_CASE(D) \
-  if (head_dim == D) return launch_dim<Tq, Tc, D>(a);
+  if (head_dim == D) return launch<Tq, Tc, D>(a);
   CFA_HEAD_DIMS(CFA_CASE)
 #undef CFA_CASE
   return cudaErrorInvalidValue;

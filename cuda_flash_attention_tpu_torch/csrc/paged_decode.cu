@@ -69,8 +69,10 @@
 //     and _d256.cu build 32 and 256): a lane owns D / 32 output columns, one
 //     at D = 32 and eight at D = 256 (two 4-byte words of a 1-byte V
 //     row); at D = 256 a bf16 chunk takes the ring's one stage (136 KB) and
-//     the warps' fold of 33 KB the drained ring, and an fp32 cache, whose
-//     chunks (266 KB) fit no block, is refused.
+//     the warps' fold of 33 KB the drained ring.  An fp32 chunk's K and V
+//     (266 KB) fit no block: the stage then holds K's 128 rows (133 KB),
+//     and each warp lands its own 32 V rows over its 32 K rows once its
+//     lanes have scored them (kVOverK), so the sums run in the same order.
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
@@ -115,13 +117,17 @@ __device__ __forceinline__ float cache_value(Tc x, bool bf16_compute) {
 // chunk, a V chunk and their scales; rows padded by 16 bytes, so lane t's
 // 16-byte reads of row t are conflict-free), Q [kMaxGroup][D] fp32, the
 // warps' P [kWarps][kMaxGroup][32] fp32 and one mbarrier per stage.  The
-// warps' states are folded through the ring once it is drained.
+// warps' states are folded through the ring once it is drained.  With
+// kVOverK (fp32 at D = 256) a stage holds the K chunk alone and V lands
+// over it (kVOff 0), warp by warp.
 template <typename Tc, int D>
 struct DecodeLayout {
   static constexpr int kRowBytes = kRowBytesOf<Tc, D>;
   static constexpr int kStride = kRowBytes + 16;
   static constexpr int kTileBytes = kThreads * kStride;
-  static constexpr int kScaleOff = 2 * kTileBytes;
+  static constexpr bool kVOverK = kRowBytes > 512;
+  static constexpr int kVOff = kVOverK ? 0 : kTileBytes;
+  static constexpr int kScaleOff = (kVOverK ? 1 : 2) * kTileBytes;
   static constexpr int kStageBytes = kScaleOff + 2 * kThreads * 4;
   static constexpr int kStages =
       std::min(3, std::max(1, kRingBudget / kStageBytes));
@@ -138,6 +144,7 @@ struct DecodeLayout {
 // Chunk `row0` (128 rows of one KV head's page, contiguous) of K and V and
 // their scales into `stage` by cp.async: this thread's share, then its
 // arrival on `bar`.  Every thread calls it for every chunk it waits on.
+// With kVOverK, V is left to load_warp_v.
 template <typename Tc, int D>
 __device__ __forceinline__ void load_chunk(unsigned char* stage, uint32_t bar,
                                            const unsigned char* k_pages,
@@ -153,8 +160,10 @@ __device__ __forceinline__ void load_chunk(unsigned char* stage, uint32_t bar,
     const int cb = (i - r * kVec) * 16;
     cp_async16(smem_addr(stage + r * L::kStride + cb), ksrc + static_cast<size_t>(i) * 16,
                true);
-    cp_async16(smem_addr(stage + L::kTileBytes + r * L::kStride + cb),
-               vsrc + static_cast<size_t>(i) * 16, true);
+    if constexpr (!L::kVOverK) {
+      cp_async16(smem_addr(stage + L::kTileBytes + r * L::kStride + cb),
+                 vsrc + static_cast<size_t>(i) * 16, true);
+    }
   }
   const int t = threadIdx.x;
   if (t < 32) {
@@ -164,6 +173,29 @@ __device__ __forceinline__ void load_chunk(unsigned char* stage, uint32_t bar,
                v_scales + row0 + 4 * (t - 32), true);
   }
   cp_async_arrive(bar);
+}
+
+// kVOverK: warp `warp`'s 32 V rows of the chunk at token tok0 of page
+// `pid` (KV head hk) into its 32 K rows of `stage`, which its lanes have
+// read; the warp waits for them.
+template <typename L>
+__device__ __forceinline__ void load_warp_v(unsigned char* stage,
+                                            const unsigned char* v_pages, int hk,
+                                            int num_pages, int pid, int page_size,
+                                            int tok0, int warp, int lane) {
+  constexpr int kVec = L::kRowBytes / 16;
+  const size_t row0 = (static_cast<size_t>(hk) * num_pages + pid) * page_size +
+                      tok0 % page_size;
+  const unsigned char* vsrc = v_pages + (row0 + warp * 32) * L::kRowBytes;
+  unsigned char* dst = stage + warp * 32 * L::kStride;
+  __syncwarp();  // every lane has read its K row
+  for (int i = lane; i < 32 * kVec; i += 32) {
+    const int r = i / kVec;
+    cp_async16(smem_addr(dst + r * L::kStride + (i - r * kVec) * 16),
+               vsrc + static_cast<size_t>(i) * 16, true);
+  }
+  cp_async_wait_all();
+  __syncwarp();  // the warp's V rows have landed
 }
 
 // s[g] += Q[g][d0 + j] K[row][d0 + j] for j < 4, in order, for the
@@ -393,6 +425,10 @@ paged_decode_kernel(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
 #pragma unroll
         for (int g = 0; g < G; ++g) s[g] = 0.f;
         score_row<Tc, D, G>(stage + t * L::kStride, qf, group, bf16c, s);
+        if constexpr (L::kVOverK) {
+          load_warp_v<L>(smem + (c % S) * L::kStageBytes, vp, hk, num_pages, page_of(c),
+                         page_size, tok0, warp, lane);
+        }
         const float col_scale = ksc[t] * sm_scale;
         const float v_scale = vsc[t];
 #pragma unroll
@@ -418,7 +454,7 @@ paged_decode_kernel(const Tq* __restrict__ q, const Tc* __restrict__ k_pages,
         // P V over the warp's 32 tokens, in order (four at a time; two such
         // steps in flight where the group is small, one where it is not,
         // which kept fp32 pages at D 64 from spilling).
-        const unsigned char* vbase = stage + L::kTileBytes + warp * 32 * L::kStride;
+        const unsigned char* vbase = stage + L::kVOff + warp * 32 * L::kStride;
 #pragma unroll(G > 2 ? 1 : 2)
         for (int t0 = 0; t0 < 32; t0 += 4) {
           float4 p4[G];
@@ -565,21 +601,10 @@ cudaError_t launch(const Args& a) {
                                        : launch_g<Tq, Tc, D, kMaxGroup>(a);
 }
 
-// An fp32 cache at D = 256 is refused: its 128-token K and V chunks (266
-// KB) do not fit a block's shared memory.
-template <typename Tq, typename Tc, int D>
-cudaError_t launch_dim(const Args& a) {
-  if constexpr (std::is_same<Tc, float>::value && D > 128) {
-    return cudaErrorInvalidValue;
-  } else {
-    return launch<Tq, Tc, D>(a);
-  }
-}
-
 template <typename Tq, typename Tc>
 cudaError_t launch_d(int head_dim, const Args& a) {
 #define CFA_CASE(D) \
-  if (head_dim == D) return launch_dim<Tq, Tc, D>(a);
+  if (head_dim == D) return launch<Tq, Tc, D>(a);
   CFA_HEAD_DIMS(CFA_CASE)
 #undef CFA_CASE
   return cudaErrorInvalidValue;

@@ -100,7 +100,8 @@ __device__ __forceinline__ void decode4(uint32_t w, float (&f)[4]) {
   }
 }
 
-// N bytes (1, 2, 4, 8 or 16, aligned to N) of shared memory in one load.
+// N bytes (1, 2, 4, 8 or 16, aligned to N) of shared memory in one load;
+// 32 (an fp32 V row's eight elements a lane at D = 256) in two.
 template <int N>
 struct Bytes;
 template <>
@@ -122,6 +123,13 @@ struct Bytes<8> {
 template <>
 struct Bytes<16> {
   using T = uint4;
+};
+struct alignas(16) Uint4x2 {
+  uint4 lo, hi;
+};
+template <>
+struct Bytes<32> {
+  using T = Uint4x2;
 };
 
 // ---------------------------------------------------------------------------

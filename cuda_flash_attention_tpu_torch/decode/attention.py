@@ -14,8 +14,8 @@ counts under `paged_decode_window` or `paged_chunk_window`.
 
 Caches are int8, fp8 (e4m3 / e5m2), bf16, fp32 or packed int4 (int8 pages
 of width head_dim // 2, split-half), at head dims 32, 64, 128 and 256 (an
-fp32 cache at 64 and 128 only: its D 256 chunks do not fit a block's shared
-memory); D 32 and 256 come from libraries of their own
+fp32 cache at D 256 too: its chunks' V lands over K, and the bf16 tile
+body stages 32 tokens; csrc/paged_decode.cu and paged_chunk.cu say how); D 32 and 256 come from libraries of their own
 (common.kernel_library), and their launches also count under
 `<name>_d32` / `<name>_d256`.  The JAX kernels decode fp8 pages with
 a flush-to-zero bit path, exact on every code the writer emits because the
@@ -193,13 +193,12 @@ def _check_kernel_inputs(what: str, q, pages: KVPages, page_table, lengths,
     if head_dim not in FORWARD_HEAD_DIMS:
         raise head_dim_error(what, head_dim)
     if (cache_dtype not in _CACHE_CODES or group > _MAX_GROUP or page_size % 128
-            or q.dtype not in _COMPUTE_DTYPES
-            or (cache_dtype == torch.float32 and head_dim > 128)):
+            or q.dtype not in _COMPUTE_DTYPES):
         raise NotImplementedError(
             f"{what} kernel: cache {cache_dtype}, head_dim {head_dim}, "
             f"group {group}, page {page_size}, q {q.dtype} "
-            f"(takes int8/int4/fp8/bf16 caches, and fp32 up to head_dim 128; "
-            f"group <= {_MAX_GROUP}, page_size a multiple of 128, bf16/fp32 q)"
+            f"(takes fp32/bf16/int8/int4/fp8 caches; group <= {_MAX_GROUP}, "
+            f"page_size a multiple of 128, bf16/fp32 q)"
         )
     tensors = (q, pages.k_pages, pages.k_scales, pages.v_pages,
                pages.v_scales, page_table, lengths)

@@ -46,6 +46,13 @@ Counterpart of cuda_flash_attention_tpu/decode/engine.py:
     so its pages per request are bounded by the window, and admission
     reserves per group by that bound (`_worst_pages_for`).  The hybrid
     cache refuses speculation and prefix caching, as the JAX engine does.
+  * Mixture-of-experts models (cfg.n_experts > 0): the capacity of a layer
+    couples every token of a call, so each call carries the JAX engine's
+    rows: a chunked-prefill step runs all max_seqs rows (idle ones masked,
+    their tokens 0), a bucket prefill its prompts padded with token 0, a
+    decode step every slot with its last token, a prefix suffix its one
+    row.  Speculation with an MoE target or draft is refused: its rows are
+    not held to JAX's yet.
 
 Entry points run on the CUDA card unless `device="cpu"` is given, which
 runs the kernels' plain versions.  Not ported yet (and refused): meshes.
@@ -178,6 +185,17 @@ class DecodeEngine:
                  decode_burst: int = 1, prefill_burst_cap: int = 8):
         if mesh is not None:
             raise _not_ported("a mesh")
+        if spec_tokens and (cfg.n_experts or (draft_cfg is not None
+                                              and draft_cfg.n_experts)):
+            raise NotImplementedError(
+                "speculative decoding with a mixture-of-experts target or "
+                "draft: verify_step's rows are not held to the JAX engine's")
+        if scan_layers and any(set(layer) != set(params["layers"][0])
+                               for layer in params["layers"]):
+            # JAX's stack_layer_params refuses a heterogeneous stack.
+            raise ValueError(
+                "stack_layer_params needs homogeneous layers (same param "
+                "keys); MoE-interleaved models (moe_every>1) cannot stack")
         if cfg.attn_sinks and cfg.attn_window is None:
             raise ValueError("attn_sinks require attn_window")
         # Window groups (the hybrid KV cache, JAX engine.py:188-228): layers
@@ -985,14 +1003,16 @@ class DecodeEngine:
             self._prefix_maps.pop(key, None)
 
     def _chunk_forward(self, slots: list[int], tokens: np.ndarray,
-                       first_pos: np.ndarray):
+                       first_pos: np.ndarray, live: np.ndarray):
         """verify_step with page-granular writes for the rows of `slots`
         (chunked prefill and prefix suffixes), mirrored into the draft's
-        caches under speculation.  Returns the target's logits [rows, T, V]."""
+        caches under speculation; `live` (a bool per row) masks idle rows,
+        which write and attend nothing.  Returns the target's logits
+        [rows, T, V]."""
         with torch.inference_mode():
             args = (self._dev(tokens), self._dev(first_pos))
             table = self._tables_dev(slots)
-            mask = torch.ones(len(slots), dtype=torch.bool, device=self.device)
+            mask = self._dev(np.asarray(live, bool))
             logits, _ = verify_step(self.params, *args, self.caches, table,
                                     mask, self.cfg, paged_write=True)
             if self._use_draft:
@@ -1016,7 +1036,8 @@ class DecodeEngine:
         self.page_table[slot, :len(pages)] = pages
         tokens = np.zeros((1, pad_len), np.int64)
         tokens[0, :len(suffix)] = suffix
-        logits = self._chunk_forward([slot], tokens, np.array([prefix_len]))
+        logits = self._chunk_forward([slot], tokens, np.array([prefix_len]),
+                                     np.ones(1, bool))
         firsts, lps = self._sample(self._with_bias(logits[:, len(suffix) - 1],
                                                    [slot]))
         self._start_decoding(req, slot, int(firsts[0]),
@@ -1058,13 +1079,24 @@ class DecodeEngine:
                     else cdiv(rem, self.page_size) * self.page_size)
             by_size.setdefault(size, []).append(s)
         for size, slots in by_size.items():
-            tokens = np.zeros((len(slots), size), np.int64)
             starts = [int(self._prefill_pos[s]) for s in slots]
+            # A dense model runs the chunk's slots alone; an MoE model the
+            # JAX engine's max_seqs rows (idle rows masked, tokens 0), since
+            # the capacity couples the call's tokens.
+            rows = list(range(self.max_seqs)) if self.cfg.n_experts else slots
+            row = {s: i for i, s in enumerate(rows)}
+            tokens = np.zeros((len(rows), size), np.int64)
+            first_pos = np.zeros(len(rows), np.int64)
+            live = np.zeros(len(rows), bool)
             for i, s in enumerate(slots):
                 part = self._slot_req[s].prompt[starts[i]:starts[i] + size]
-                tokens[i, :len(part)] = part
+                tokens[row[s], :len(part)] = part
+                first_pos[row[s]] = starts[i]
+                live[row[s]] = True
                 self._ensure_pages_upto(s, starts[i] + size)
-            logits = self._chunk_forward(slots, tokens, np.array(starts))
+            logits = self._chunk_forward(rows, tokens, first_pos, live)
+            if rows is not slots:
+                logits = logits[[row[s] for s in slots]]
             self.stats["prefill_chunks"] += 1
             done = []
             for i, s in enumerate(slots):

@@ -4,6 +4,10 @@ from cuda_flash_attention_tpu_torch.models.lora import (  # noqa: F401
     lora_trainable_mask,
     merge_lora,
 )
+from cuda_flash_attention_tpu_torch.models.moe import (  # noqa: F401
+    init_moe_layer,
+    moe_ffn,
+)
 from cuda_flash_attention_tpu_torch.models.training import (  # noqa: F401
     LoRAOptimizer,
     Optimizer,

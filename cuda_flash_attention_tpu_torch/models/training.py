@@ -13,8 +13,14 @@ with optax's formulas, so that the same gradients give the same updates:
   add_decayed_weights:     u + weight_decay * p, on every leaf
   scale_by_learning_rate:  -lr(count) * u, the schedule read at the count
                            BEFORE the increment (the first step has lr 0)
-make_lora_optimizer trains only LoRA adapters (models/lora.py).  Meshes
-are not ported; orbax checkpoints wait for utils/checkpoint.py.
+make_lora_optimizer trains only LoRA adapters (models/lora.py).  The
+optimizer walks the arrays of the tree as JAX's pytree flattens it
+(transformer.array_map): a QuantizedTensor's scales and fp8 values are
+trained like any floating-point leaf, its integer values stay frozen (zero
+gradient and zero update: JAX's allow_int path gives them zero gradients,
+and its optax step cannot clip an integer leaf).  An fp8 leaf's moments and
+update are computed in fp32 and stored in fp8.  train_loop saves
+checkpoints with utils/checkpoint.py.  Meshes are not ported.
 """
 
 from __future__ import annotations
@@ -31,12 +37,15 @@ from cuda_flash_attention_tpu_torch.models.lora import (
 )
 from cuda_flash_attention_tpu_torch.models.transformer import (
     TransformerConfig,
+    array_leaves,
+    array_map,
     init_params,
     loss_fn,
     tree_leaves,
-    tree_map,
     value_and_grad,
 )
+
+_FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
 
 
 class TrainState(NamedTuple):
@@ -72,8 +81,8 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in fp32 (optax.global_norm)."""
-    return torch.sqrt(sum(torch.sum(g.float().square()) for g in tree_leaves(tree)))
+    """sqrt of the sum of squares of every array, in fp32 (optax.global_norm)."""
+    return torch.sqrt(sum(torch.sum(g.float().square()) for g in array_leaves(tree)))
 
 
 class Optimizer:
@@ -92,34 +101,52 @@ class Optimizer:
         def zeros(p):
             return torch.zeros_like(p)
 
-        return AdamWState(0, tree_map(zeros, params), tree_map(zeros, params))
+        return AdamWState(0, array_map(zeros, params), array_map(zeros, params))
 
     def update(self, grads, state: AdamWState, params):
         b1, b2, c = self.b1, self.b2, self.clip_norm
         g_norm = global_norm(grads)
         keep = g_norm < c
-
-        def clip(g):
-            return torch.where(keep, g, (g / g_norm.to(g.dtype)) * c)
-
-        grads = tree_map(clip, grads)
-        mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, grads, state.mu)
-        nu = tree_map(lambda g, v: (1 - b2) * g.square() + b2 * v, grads, state.nu)
         count = state.count + 1
         bc1 = 1 - b1 ** count
         bc2 = 1 - b2 ** count
         step_size = -self.schedule(state.count)
         wd = self.weight_decay
 
-        def adamw(m, v, p):
+        def leaf(g, m, v, p):
+            """(update, mu, nu) of one array."""
+            if not p.is_floating_point():  # frozen integer values
+                return torch.zeros_like(p), m, v
+            dtype = p.dtype
+            if dtype in _FP8:
+                g, m, v, p = (t.float() for t in (g, m, v, p))
+            g = torch.where(keep, g, (g / g_norm.to(g.dtype)) * c)
+            m = (1 - b1) * g + b1 * m
+            v = (1 - b2) * g.square() + b2 * v
             u = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
-            return (u + wd * p) * step_size
+            u = (u + wd * p) * step_size
+            if dtype in _FP8:
+                return u.to(dtype), m.to(dtype), v.to(dtype)
+            return u, m, v
 
-        return tree_map(adamw, mu, nu, params), AdamWState(count, mu, nu)
+        out = []
+        array_map(lambda *a: out.append(leaf(*a)), grads, state.mu, state.nu, params)
+        trees = []
+        for i in range(3):
+            it = iter([o[i] for o in out])
+            trees.append(array_map(lambda _: next(it), params))
+        return trees[0], AdamWState(count, trees[1], trees[2])
 
     @staticmethod
     def apply_updates(params, updates):
-        return tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)
+        def apply(p, u):
+            if not p.is_floating_point():
+                return p
+            if p.dtype in _FP8:
+                return (p.float() + u.float()).to(p.dtype)
+            return (p + u).to(p.dtype)
+
+        return array_map(apply, params, updates)
 
     @staticmethod
     def trainable(params):
@@ -214,15 +241,15 @@ def make_optax_train_step(cfg: TransformerConfig, optimizer: Optimizer,
                              f"{grad_accum} microbatches")
         wrt = optimizer.trainable(params)
         loss_sum = 0.0
-        g_sum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                               device=p.device), wrt)
+        g_sum = array_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                device=p.device), wrt)
         for mb in tokens.reshape(grad_accum, b // grad_accum, *tokens.shape[1:]):
             loss, g = optimizer.value_and_grad(params, mb, cfg)
-            g_sum = tree_map(lambda a, x: a + x.float(), g_sum, g)
+            g_sum = array_map(lambda a, x: a + x.float(), g_sum, g)
             loss_sum = loss_sum + loss
         inv = 1.0 / grad_accum
-        return loss_sum * inv, tree_map(lambda g, p: (g * inv).to(p.dtype),
-                                        g_sum, wrt)
+        return loss_sum * inv, array_map(lambda g, p: (g * inv).to(p.dtype),
+                                         g_sum, wrt)
 
     def step(state: TrainState, tokens) -> tuple[TrainState, dict]:
         device = tree_leaves(optimizer.trainable(state.params))[0].device
@@ -240,13 +267,16 @@ def make_optax_train_step(cfg: TransformerConfig, optimizer: Optimizer,
 
 def train_loop(cfg: TransformerConfig, data_iter, *, num_steps: int,
                params=None, optimizer: Optimizer | None = None,
-               checkpoint_dir: str | None = None, log_every: int = 10, seed: int = 0, device=None) -> TrainState:
+               checkpoint_dir: str | None = None, checkpoint_every: int = 0,
+               log_every: int = 10, seed: int = 0, device=None) -> TrainState:
     """Host loop over a token iterator; returns the final TrainState.  New
     parameters come from a CPU generator seeded with `seed` and go to
-    `device` (None means the card)."""
-    if checkpoint_dir is not None:
-        raise NotImplementedError(
-            "checkpoints are not ported yet (utils/checkpoint.py)")
+    `device` (None means the card).  With checkpoint_dir and
+    checkpoint_every, every checkpoint_every-th step saves (params,
+    opt_state, step) there (utils/checkpoint.py), after a finiteness check
+    of its loss."""
+    from cuda_flash_attention_tpu_torch.utils.checkpoint import save_checkpoint
+
     if optimizer is None:
         optimizer = make_optimizer(decay_steps=max(num_steps, 2))
     if params is None:
@@ -270,6 +300,10 @@ def train_loop(cfg: TransformerConfig, data_iter, *, num_steps: int,
             check_finite(metrics)
             print(f"step {metrics['step']}: loss={float(metrics['loss']):.4f} "
                   f"gnorm={float(metrics['grad_norm']):.3f}")
+        if checkpoint_dir and checkpoint_every and (i + 1) % checkpoint_every == 0:
+            check_finite(metrics)
+            save_checkpoint(checkpoint_dir, state.params, state.opt_state,
+                            step=state.step)
     if metrics is not None:
         check_finite(metrics)
     return state

@@ -6,9 +6,14 @@ parameter tree (a dict with "embed", "layers" (a list of dicts),
 "final_norm" and "lm_head"; weights are [in, out] and used as x @ W), the
 same RMSNorm, half-rotation RoPE and SwiGLU.  Attention runs the FA2 kernels
 (forward B1; backward B2, or B3 + B4) through the differentiable
-`flash_attention`.  Remat "full" is torch.utils.checkpoint around each
-layer.  Mixture-of-experts layers, meshes and remat "dots" are not ported
-yet.
+`flash_attention`.  Mixture-of-experts layers (n_experts > 0: every
+moe_every-th layer's feed-forward) run models/moe.py.  Remat "full" is
+torch.utils.checkpoint around each layer; "dots" the same with a selective
+policy that keeps the products without batch dimensions (JAX's
+checkpoint_dots_with_no_batch_dims).  value_and_grad differentiates every
+floating-point array of the tree, a QuantizedTensor's scales (and fp8
+values) included; integer arrays get zero gradients, as JAX's allow_int.
+Meshes are not ported.
 """
 
 from __future__ import annotations
@@ -18,11 +23,17 @@ import functools
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from cuda_flash_attention_tpu_torch._device import resolve_device
 from cuda_flash_attention_tpu_torch.kernels.attention import flash_attention
+from cuda_flash_attention_tpu_torch.models.moe import init_moe_layer, moe_ffn
 from cuda_flash_attention_tpu_torch.quant.linear import dense
+from cuda_flash_attention_tpu_torch.quant.qtensor import QuantizedTensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,6 +49,14 @@ class TransformerConfig:
     dtype: torch.dtype = torch.bfloat16        # activation dtype
     param_dtype: torch.dtype = torch.float32
     attn_tile_dtype: torch.dtype | None = torch.bfloat16  # kernel tile precision
+    # Mixture of experts (models/moe.py): n_experts 0 keeps every layer's
+    # dense SwiGLU; n_experts > 0 replaces the feed-forward of every
+    # moe_every-th layer (the odd layers at moe_every 2).
+    n_experts: int = 0
+    expert_top_k: int = 2
+    capacity_factor: float = 1.25
+    moe_every: int = 2
+    router_aux_coef: float = 0.01
     # Sliding-window attention: attn_window None keeps every layer global;
     # attn_window=W restricts each query to the last W keys, and
     # global_every > 0 keeps every global_every-th layer global.  With a
@@ -51,7 +70,10 @@ class TransformerConfig:
     rope_scale_factor: float = 1.0
     # Rematerialization of each layer under autograd: "none" keeps every
     # activation; "full" recomputes the whole layer (the attention forward
-    # included) in the backward.  The JAX "dots" policy is not ported yet.
+    # included) in the backward; "dots" keeps the outputs of the products
+    # without batch dimensions (every dense projection, the router) and
+    # recomputes the rest (attention, norms, RoPE, SwiGLU, the experts'
+    # batched products).
     remat: str = "none"
 
     def __post_init__(self):
@@ -60,6 +82,9 @@ class TransformerConfig:
                 f"n_heads ({self.n_heads}) must be a multiple of n_kv_heads "
                 f"({self.n_kv_heads})"
             )
+
+    def is_moe_layer(self, i: int) -> bool:
+        return self.n_experts > 0 and i % self.moe_every == self.moe_every - 1
 
     @property
     def rope_args(self) -> tuple[float, float]:
@@ -102,6 +127,11 @@ class TransformerConfig:
         return cls(vocab_size=32768, d_model=1024, n_layers=12, n_heads=16,
                    n_kv_heads=8, head_dim=64, d_ff=4096, **kw)
 
+    @classmethod
+    def tiny_moe(cls, n_experts: int = 4, **kw) -> "TransformerConfig":
+        """Tiny MoE config (layer 1 is MoE) for CPU tests."""
+        return cls.tiny(n_experts=n_experts, **kw)
+
 
 def init_params(generator: torch.Generator, cfg: TransformerConfig,
                 device=None) -> dict:
@@ -123,18 +153,24 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig,
         return torch.ones(n, device=device, dtype=cfg.param_dtype)
 
     layers = []
-    for _ in range(cfg.n_layers):
-        layers.append({
+    for i in range(cfg.n_layers):
+        layer = {
             "attn_norm": ones(cfg.d_model),
             "wq": normal((cfg.d_model, cfg.q_dim)),
             "wk": normal((cfg.d_model, cfg.kv_dim)),
             "wv": normal((cfg.d_model, cfg.kv_dim)),
             "wo": normal((cfg.q_dim, cfg.d_model)),
-            "mlp_norm": ones(cfg.d_model),
-            "w_gate": normal((cfg.d_model, cfg.d_ff)),
-            "w_up": normal((cfg.d_model, cfg.d_ff)),
-            "w_down": normal((cfg.d_ff, cfg.d_model)),
-        })
+        }
+        if cfg.is_moe_layer(i):
+            layer.update(init_moe_layer(generator, cfg, device))
+        else:
+            layer.update({
+                "mlp_norm": ones(cfg.d_model),
+                "w_gate": normal((cfg.d_model, cfg.d_ff)),
+                "w_up": normal((cfg.d_model, cfg.d_ff)),
+                "w_down": normal((cfg.d_ff, cfg.d_model)),
+            })
+        layers.append(layer)
     return {
         "embed": normal((cfg.vocab_size, cfg.d_model), scale=1.0),
         "layers": layers,
@@ -206,11 +242,13 @@ def attention_block(x, layer, positions, cfg: TransformerConfig,
 
 
 def ffn_block(x, layer, cfg: TransformerConfig):
-    """Residual dense SwiGLU.  Returns (x, aux) with aux = 0.0, as the JAX
-    function does for a dense layer."""
-    if "router" in layer:
-        raise NotImplementedError("mixture-of-experts layers are not ported yet")
+    """Residual FFN: dense SwiGLU, or MoE where the layer carries a router.
+    Returns (x, aux): the router's load-balance loss, 0.0 for a dense
+    layer."""
     h = rms_norm(x, layer["mlp_norm"])
+    if "router" in layer:
+        y, aux = moe_ffn(h, layer, cfg)
+        return x + y, aux
     gate = F.silu(dense(h, layer["w_gate"]))
     up = dense(h, layer["w_up"])
     return x + dense(gate * up, layer["w_down"]).to(x.dtype), 0.0
@@ -221,13 +259,28 @@ def _layer(x, layer, positions, cfg: TransformerConfig, window):
     return ffn_block(x, layer, cfg)
 
 
+# The products remat "dots" keeps: those without batch dimensions (a
+# [..., d] activation times a 2-D weight goes to mm).  bmm (the experts'
+# batched products), the attention kernels and everything elementwise are
+# recomputed.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten._int_mm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
 def forward(params, tokens, cfg: TransformerConfig, return_aux: bool = False):
     """Causal LM forward: tokens [B, S] int -> logits [B, S, vocab] fp32.
     With return_aux=True returns (logits, aux), aux being the summed router
-    loss of mixture-of-experts layers (0.0: dense layers only here)."""
-    if cfg.remat == "dots":
-        raise NotImplementedError('remat="dots" is not ported yet')
-    if cfg.remat not in ("none", "full"):
+    loss of the mixture-of-experts layers (0.0 for a dense model)."""
+    if cfg.remat not in ("none", "full", "dots"):
         raise ValueError(f"unknown remat policy {cfg.remat!r}")
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
@@ -238,6 +291,9 @@ def forward(params, tokens, cfg: TransformerConfig, return_aux: bool = False):
         if cfg.remat == "full" and torch.is_grad_enabled():
             x, aux = checkpoint(_layer, x, layer, positions, cfg, window,
                                 use_reentrant=False)
+        elif cfg.remat == "dots" and torch.is_grad_enabled():
+            x, aux = checkpoint(_layer, x, layer, positions, cfg, window,
+                                use_reentrant=False, context_fn=_dots_context)
         else:
             x, aux = _layer(x, layer, positions, cfg, window)
         aux_total = aux_total + aux
@@ -249,14 +305,17 @@ def forward(params, tokens, cfg: TransformerConfig, return_aux: bool = False):
 def loss_fn(params, tokens, cfg: TransformerConfig):
     """Next-token cross entropy (tokens [B, S + 1] serve as both input and
     target), in the fused form logsumexp(logits) - logits[target], which
-    reduces straight off the logits instead of materialising log-softmax.
-    The JAX loss adds the mixture-of-experts router loss; dense layers have
-    none, and MoE layers raise here."""
-    logits = forward(params, tokens[:, :-1], cfg)
+    reduces straight off the logits instead of materialising log-softmax,
+    plus router_aux_coef times the router loss where the model has
+    experts."""
+    logits, aux = forward(params, tokens[:, :-1], cfg, return_aux=True)
     targets = tokens[:, 1:]
     lse = torch.logsumexp(logits, dim=-1)
     target_logit = torch.gather(logits, -1, targets[..., None])[..., 0]
-    return torch.mean(lse - target_logit)
+    loss = torch.mean(lse - target_logit)
+    if cfg.n_experts:
+        loss = loss + cfg.router_aux_coef * aux
+    return loss
 
 
 def tree_map(fn, tree, *rest):
@@ -275,21 +334,49 @@ def tree_leaves(tree) -> list:
     return out
 
 
+def array_map(fn, tree, *rest):
+    """fn over the arrays of a parameter tree as the JAX pytree flattens
+    it: a QuantizedTensor is a node of (values, scales), a LoRATensor of
+    (base, a, b); the result keeps the classes and their metadata."""
+    from cuda_flash_attention_tpu_torch.models.lora import LoRATensor
+
+    if isinstance(tree, QuantizedTensor):
+        return dataclasses.replace(
+            tree, values=array_map(fn, tree.values, *(r.values for r in rest)),
+            scales=array_map(fn, tree.scales, *(r.scales for r in rest)))
+    if isinstance(tree, LoRATensor):
+        return dataclasses.replace(
+            tree, base=array_map(fn, tree.base, *(r.base for r in rest)),
+            a=array_map(fn, tree.a, *(r.a for r in rest)),
+            b=array_map(fn, tree.b, *(r.b for r in rest)))
+    if isinstance(tree, dict):
+        return {k: array_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [array_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def array_leaves(tree) -> list:
+    out = []
+    array_map(out.append, tree)
+    return out
+
+
 def value_and_grad(params, tokens, cfg: TransformerConfig):
-    """(loss, grads): grads is a tree like params, each leaf in its
-    parameter's dtype."""
-    leaves = tree_leaves(params)
-    if not all(isinstance(p, torch.Tensor) for p in leaves):
-        raise NotImplementedError(
-            "gradients through QuantizedTensor or LoRATensor leaves: train "
-            "LoRA adapters with training.make_lora_optimizer; quantized "
-            "weights outside a LoRA base are not trainable in the port yet")
+    """(loss, grads): grads is a tree like params (array_map's), each array
+    in its parameter's dtype.  Floating-point arrays are differentiated (a
+    QuantizedTensor's fp32 scales, an fp8 weight's values); integer arrays
+    (int8 and packed int4 values) get zeros, as JAX's allow_int gives them
+    float0 tangents that the JAX step replaces with zeros."""
     with torch.enable_grad():
-        wrt = [p.detach().requires_grad_(True) for p in leaves]
+        arrays = array_leaves(params)
+        wrt = [p.detach().requires_grad_(True) for p in arrays if p.is_floating_point()]
         it = iter(wrt)
-        loss = loss_fn(tree_map(lambda _: next(it), params), tokens, cfg)
+        loss = loss_fn(array_map(lambda p: next(it) if p.is_floating_point() else p,
+                                 params), tokens, cfg)
         grads = iter(torch.autograd.grad(loss, wrt))
-    return loss.detach(), tree_map(lambda _: next(grads), params)
+    return loss.detach(), array_map(
+        lambda p: next(grads) if p.is_floating_point() else torch.zeros_like(p), params)
 
 
 def make_train_step(cfg: TransformerConfig, learning_rate=1e-3):

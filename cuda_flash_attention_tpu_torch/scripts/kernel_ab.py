@@ -84,7 +84,9 @@ backward are: B9_WIDE_CASES and B10_WIDE_CASES (b9-wide, b10-wide):
 chip_smoke phase 31's B8 H16 S2048 D32 and B1 H8 S4096 D256;
 B8_WIDE_CASES (b8-wide): B8_CASES at D 32 and 256; B7_WIDE_CASES
 (b7-wide): phase 31's causal rows, D 32 at B4 Hq16 Hkv8 S2048 and D 256 at
-B1 Hq8 Hkv4 S4096, each storage in bf16 compute and int8 in fp32) it
+B1 Hq8 Hkv4 S4096, each storage in bf16 compute and int8 in fp32);
+B5_WIDE_CASES and B6_WIDE_CASES (b5-wide, b6-wide): phase 28's paged
+shapes on int8, int4 (B5) and bf16 caches in bf16 and fp32 compute) it
 prints one JSON line with b1_ab's two
 times, each read in the order parent, current, current, parent (`ms`,
 CUDA events over back-to-back calls; `device_ms`, the calls queued behind
@@ -296,6 +298,20 @@ B7_WIDE_CASES = [dict(_B7, name=f"D{d} {st}", b=b, hq=hq, hkv=hkv, s=s, d=d, sto
     dict(_B7, name=f"D{d} fp32 int8", b=b, hq=hq, hkv=hkv, s=s, d=d, dtype="fp32",
          tile=None) for d, (b, hq, hkv, s) in ((32, (4, 16, 8, 2048)),
                                                (256, (1, 8, 4, 4096)))]
+# B5 and B6 at head dims 32 and 256 (b5-wide, b6-wide): chip_smoke phase
+# 28's shapes (B4 Hq16 Hkv8 at D 32, Hq8 Hkv4 at D 256; phase 3's lengths,
+# T 5 and T 512 at phase 12's) on int8, int4 and bf16 caches, bf16 and fp32
+# compute.  No fp32 cache: an older parent (5cf8bdd's) refuses it at D 256.
+_WIDE_PAGED_HEADS = {32: (16, 8), 256: (8, 4)}
+B5_WIDE_CASES = [dict(_B5, name=f"D{d} {cache} {compute}", d=d, hq=hq, hkv=hkv,
+                      cache=cache, compute=compute)
+                 for d, (hq, hkv) in _WIDE_PAGED_HEADS.items()
+                 for cache in ("int8", "int4", "bf16") for compute in ("bf16", "fp32")]
+B6_WIDE_CASES = [dict(base, name=f"D{d} T{base['T']} {cache} {compute}", d=d, hq=hq,
+                      hkv=hkv, cache=cache, compute=compute)
+                 for d, (hq, hkv) in _WIDE_PAGED_HEADS.items()
+                 for base in (_B6, _B6_PREFILL)
+                 for cache in ("int8", "bf16") for compute in ("bf16", "fp32")]
 # X: the probe's shape (B4 H8 S2048 D128 bf16, not causal), once per variant.
 X_CASES = [dict(name=variant, variant=variant, b=r5.B, hq=r5.H, hkv=r5.H, s=r5.S,
                 d=r5.D, causal=False, dtype="bf16", tile="bf16")
@@ -311,7 +327,8 @@ CASES = {"b2": B2_CASES, "b3": SPLIT_CASES, "b4": SPLIT_CASES,
          "b3-b4-fp32": FP32_BWD_CASES, "b8": B8_CASES, "b5": B5_CASES,
          "b6": B6_CASES, "b7": B7_CASES, "b7-fp32": B7_FP32_CASES, "x": X_CASES,
          "b7-wide": B7_WIDE_CASES, "b8-wide": B8_WIDE_CASES, "b9-wide": B9_WIDE_CASES,
-         "b10-wide": B10_WIDE_CASES}
+         "b10-wide": B10_WIDE_CASES, "b5-wide": B5_WIDE_CASES,
+         "b6-wide": B6_WIDE_CASES}
 # Matmuls of S x S x D per attending (query, key) pair and head: B3
 # recomputes S and dP for dS K, B4 for P^T dO and dS^T Q_s; the pair is
 # bounded by the function's own five, as B2.
@@ -327,7 +344,8 @@ _MASKED = {"b2-masked": "b2", "b3-masked": "b3", "b4-masked": "b4",
 # The head-dim 32 and 256 forms: the parent is built at each case's head
 # dim (wide_source).
 _WIDE = {"b2-wide": "b2", "b3-wide": "b3", "b4-wide": "b4", "b3-b4-wide": "b3-b4",
-         "b7-wide": "b7", "b8-wide": "b8", "b9-wide": "b9", "b10-wide": "b10"}
+         "b7-wide": "b7", "b8-wide": "b8", "b9-wide": "b9", "b10-wide": "b10",
+         "b5-wide": "b5", "b6-wide": "b6"}
 WIDE_HEAD_DIMS = (32, 256)
 _SAME_PROBLEM = {**_FP32_BODIES, **_MASKED, **_WIDE, "b7-fp32": "b7"}
 
@@ -536,7 +554,7 @@ def attended_columns(lengths, chunk: int) -> int:
 
 
 def flops(kernel: str, case) -> int:
-    if kernel in ("b5", "b6"):  # 4 D FLOPs per (query head, attended column)
+    if backward_of(kernel) in ("b5", "b6"):  # 4 D FLOPs per (query head, attended column)
         return 4 * case["d"] * case["hq"] * attended_columns(case["lengths"],
                                                              case.get("T", 1))
     if kernel in _MASKED:
@@ -572,7 +590,7 @@ def bound(kernel: str, case, raw) -> tuple[float, str]:
     B6: paged_bytes; B7: q, K/V in their stored width and their scales in,
     O and lse out, all padded as the API pads), or the FLOPs at the compute
     type's peak."""
-    if kernel in ("b5", "b6"):
+    if backward_of(kernel) in ("b5", "b6"):
         moved = paged_bytes(case)
         peak = b1_ab.PEAK_FLOPS[case["compute"]]
     elif backward_of(kernel) == "b7":  # chip_smoke.attention_bound's tensors
@@ -968,7 +986,7 @@ def calls(kernel: str):
     the parent's library of q's head dim."""
     if kernel in _WIDE:
         parent, current = calls(backward_of(kernel))
-        return (lambda libs, q, *x, **kw: parent(libs[q.shape[3]], q, *x, **kw),
+        return (lambda libs, q, *x, **kw: parent(libs[q.shape[-1]], q, *x, **kw),
                 current)
     return {
         "b2": (parent_b2, bwd.fa2_backward_fused_aligned),
@@ -988,7 +1006,7 @@ def calls(kernel: str):
 
 def shape_of(kernel: str, case) -> dict:
     """The case's shape as its JSON line reports it."""
-    if kernel in ("b5", "b6"):
+    if backward_of(kernel) in ("b5", "b6"):
         return dict(slots=len(case["lengths"]), T=case.get("T", 1), Hq=case["hq"],
                     Hkv=case["hkv"], D=case["d"], pages_per_seq=case["pps"],
                     lengths=case["lengths"], cache=case["cache"],

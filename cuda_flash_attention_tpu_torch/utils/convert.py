@@ -3,8 +3,9 @@
 The caller turns the JAX arrays into numpy arrays (np.asarray on each leaf)
 and the JAX package's QuantizedTensor / LoRATensor leaves into the port's
 classes holding those numpy arrays; this module needs neither JAX nor its
-package, only the tree's structure: dicts, lists, arrays and the port's
-QuantizedTensor and LoRATensor, converted field by field."""
+package, only the tree's structure: dicts, lists, arrays of any rank (a
+mixture-of-experts layer's [E, d, f] expert weights among them) and the
+port's QuantizedTensor and LoRATensor, converted field by field."""
 
 from __future__ import annotations
 

@@ -165,8 +165,7 @@ def test_kernel_head_dim_sets():
 def test_phase_1_gates_every_wide_instantiation():
     """chip_smoke's phase 1 holds each D 32 and D 256 library's kernels
     (B1's four wgmma and two fp32 instantiations; B5's caches x q types x
-    groups, six caches at D 32 and five at D 256, which takes no fp32
-    cache; B6's three bodies likewise; B9 and B10, B8's two bodies, B7's
+    groups, six caches at each width; B6's three bodies likewise; B9 and B10, B8's two bodies, B7's
     two: tests/test_torch_head_dims_reference.py): clean reports pass, a
     spilled byte or a missing instantiation fails."""
     import chip_smoke
@@ -179,7 +178,7 @@ def test_phase_1_gates_every_wide_instantiation():
                 f"    0 bytes stack frame, {spill} bytes spill stores, {spill} bytes "
                 "spill loads", "ptxas info    : Used 200 registers"))
 
-    caches = {32: 6, 256: 5}
+    caches = {32: 6, 256: 6}
     want = {"fa2_forward": lambda d: 6, "paged_decode": lambda d: caches[d] * 2 * 2,
             "paged_chunk": lambda d: caches[d] * 2 * 4, "baselines": lambda d: 2,
             "fa2_forward_small": lambda d: 10, "fa2_forward_quant": lambda d: 24}

@@ -161,9 +161,10 @@ def test_current_wrapper_takes_the_problem_as_kernel_ab_calls_it(kernel):
     first = x[1] if kernel_ab.backward_of(kernel) == "b4" else x[0]  # B4's: dK
     assert isinstance(out, tuple) and out[0].shape == first.shape
     # raw[0] is q: [B, H, S, D] (S 64; B7's padded to the 128 block grid),
-    # or B5's [n, Hq, D] and B6's [n, T, Hq, D] (D 64).
-    want = 128 if kernel_ab.backward_of(kernel) == "b7" else 64
-    assert torch.isfinite(out[0]).all() and raw[0].shape[-1 if kernel == "b6" else 2] == want
+    # or B5's [n, Hq, D] and B6's [n, T, Hq, D] (the case's D).
+    base = kernel_ab.backward_of(kernel)
+    want = 128 if base == "b7" else case["d"] if base in ("b5", "b6") else 64
+    assert torch.isfinite(out[0]).all() and raw[0].shape[-1 if base == "b6" else 2] == want
 
 
 @pytest.mark.parametrize("case", kernel_ab.SPLIT_CASES, ids=lambda c: c["name"])
@@ -942,3 +943,23 @@ def test_b7_b8_wide_parents_are_typed_by_the_source_they_build(monkeypatch, tmp_
     params = [n for n, _ in b1_ab.entry_params((csrc / source).read_text(), entry)]
     for lib in libs.values():
         assert (lib.b7_params if kernel == "b7-wide" else lib.b8_params) == params
+
+
+def test_b5_b6_wide_cases_are_chip_smokes_phase_28_shapes():
+    """b5-wide and b6-wide: phase 28's heads at D 32 (Hq16 Hkv8) and 256
+    (Hq8 Hkv4), B5 on phase 3's lengths, B6 at T 5 and 512 on phase 12's;
+    int8, int4 (B5) and bf16 caches in bf16 and fp32 compute; no fp32
+    cache (an older parent, 5cf8bdd's, refuses it at D 256); the problems,
+    bounds and FLOPs are b5's and b6's."""
+    for wide, base in (("b5-wide", "b5"), ("b6-wide", "b6")):
+        cases = kernel_ab.CASES[wide]
+        assert kernel_ab.backward_of(wide) == base
+        assert {c["d"] for c in cases} == set(kernel_ab.WIDE_HEAD_DIMS)
+        assert "fp32" not in {c["cache"] for c in cases}
+        for c in cases:
+            assert (c["hq"], c["hkv"]) == {32: (16, 8), 256: (8, 4)}[c["d"]]
+            assert kernel_ab.flops(wide, c) == kernel_ab.flops(base, c)
+            assert kernel_ab.bound(wide, c, None) == kernel_ab.bound(base, c, None)
+            assert kernel_ab.shape_of(wide, c) == kernel_ab.shape_of(base, c)
+    assert {c["T"] for c in kernel_ab.B6_WIDE_CASES} == {5, 512}
+    assert len(kernel_ab.B5_WIDE_CASES) == 12 and len(kernel_ab.B6_WIDE_CASES) == 16

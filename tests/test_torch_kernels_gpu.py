@@ -1363,6 +1363,75 @@ def test_graph_burst_matches_an_eager_decode_loop(cuda, scan_layers):
     assert torch.equal(graph.history, loop.history)
 
 
+def test_moe_decode_step_replays_in_a_cuda_graph(cuda):
+    """tiny_moe's decode step over 16 slots (6 of them inactive, carrying
+    their last tokens as the engine feeds them; 16 tokens overflow the
+    capacity at factor 0.6) captured in a CUDA graph and replayed on new
+    tokens: bitwise the eager step's logits and appended K/V."""
+    from cuda_flash_attention_tpu_torch.decode.model import decode_step
+
+    cfg = TransformerConfig.tiny_moe(capacity_factor=0.6)
+    params = init_params(torch.Generator().manual_seed(0), cfg, device=cuda)
+    params = {k: ([{n: w.to(cfg.dtype) if w.ndim >= 2 else w for n, w in layer.items()}
+                   for layer in v] if k == "layers" else v.to(cfg.dtype) if v.ndim >= 2
+                  else v) for k, v in params.items()}
+    n, pps = 16, 2
+    rng = np.random.default_rng(32)
+    table = torch.arange(1, n * pps + 1, dtype=torch.int32, device=cuda).reshape(n, pps)
+    active = torch.from_numpy(rng.random(n) < 0.7).to(cuda)
+    positions = torch.from_numpy(rng.integers(0, 200, n)).to(cuda)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, n)).to(cuda)
+
+    def caches():
+        return [kv_cache.init_kv_pages(cfg.n_kv_heads, n * pps + 1, 128, cfg.head_dim,
+                                       torch.int8, device=cuda) for _ in range(cfg.n_layers)]
+
+    c_graph, c_eager = caches(), caches()
+    with torch.inference_mode():
+        decode_step(params, tokens, positions, c_graph, table, active, cfg)  # warm-up
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            logits, _ = decode_step(params, tokens, positions, c_graph, table, active, cfg)
+        for seed in range(3):
+            tokens.copy_(torch.from_numpy(np.random.default_rng(seed).integers(
+                0, cfg.vocab_size, n)))
+            graph.replay()
+            want, _ = decode_step(params, tokens, positions, c_eager, table, active, cfg)
+            torch.cuda.synchronize()
+            assert torch.equal(logits, want), seed
+    for a, b in zip(c_graph, c_eager):
+        assert torch.equal(a.k_pages, b.k_pages) and torch.equal(a.v_pages, b.v_pages)
+
+
+@pytest.mark.parametrize("cf", [1.25, 0.6])
+def test_moe_ffn_on_the_card_matches_the_cpu(cuda, cf):
+    """models/moe.py's layer (scatter, batched products, gather) in fp32 on
+    the card against the CPU: routing equal but under a 1e-6 top-k margin,
+    outputs within 2e-5 and the router loss within 1e-6 where no token's
+    routing differs; at factor 0.6 tokens drop."""
+    from cuda_flash_attention_tpu_torch.models import moe
+
+    cfg = TransformerConfig.tiny_moe(dtype=torch.float32, capacity_factor=cf)
+    layer = moe.init_moe_layer(torch.Generator().manual_seed(1), cfg, "cpu")
+    x = _randn(np.random.default_rng(2), 2, 96, cfg.d_model)
+    got = moe.moe_ffn(x.to(cuda), {k: v.to(cuda) for k, v in layer.items()}, cfg)
+    want = moe.moe_ffn(x, layer, cfg)
+    probs, _, idx_c, _ = moe._route(x.reshape(-1, cfg.d_model), layer, cfg)
+    _, _, idx_g, _ = moe._route(x.to(cuda).reshape(-1, cfg.d_model),
+                                {k: v.to(cuda) for k, v in layer.items()}, cfg)
+    top = torch.sort(probs, dim=-1, descending=True).values
+    margin = torch.stack([top[:, k] - top[:, k + 1] for k in range(2)], 1).amin(1)
+    differ = (idx_g.cpu() != idx_c).any(1)
+    assert not (differ & (margin >= 1e-6)).any()
+    rank = moe._ranks(idx_c, cfg.n_experts)
+    cap = moe.expert_capacity(192, cfg.n_experts, 2, cf)
+    assert bool((rank >= cap).any()) == (cf < 1)
+    if not differ.any():
+        assert (got[0].cpu() - want[0]).abs().max().item() <= 2e-5
+        assert abs(float(got[1]) - float(want[1])) <= 1e-6
+
+
 def test_graph_replays_after_the_table_grows_and_a_slot_retires(cuda):
     """Bursts cross page boundaries (the table grows between replays), a
     short request retires mid-run and a queued one takes its slot: the
@@ -1997,18 +2066,8 @@ def test_fa2_forward_head_dims_masked_match_plain(cuda, dtype, tile, d, mask):
 def test_paged_head_dims_match_plain(cuda, d, window, chunk, group, cache, compute):
     """B5 (chunk 1) and B6 (T 5: the split body; T 512: the bf16 and fp32
     tile bodies) at D 32 and 256, globally and under window 128 with 4
-    sinks; an fp32 cache at D 256 is refused."""
-    if cache == torch.float32 and d == 256:
-        q, pages, table, lengths = _b6_problem(torch.int8, d, group, chunk, compute,
-                                               _b6_lengths(chunk), 4)
-        fp32_pages = kv_cache.KVPages(pages.k_pages.float(), pages.k_scales,
-                                      pages.v_pages.float(), pages.v_scales)
-        fn = (dec_attention.paged_decode_attention if chunk == 1
-              else dec_attention.paged_chunk_attention)
-        with pytest.raises(NotImplementedError):
-            fn(q[:, 0] if chunk == 1 else q, fp32_pages, table, lengths,
-               compute_dtype=compute)
-        return
+    sinks, every cache (at D 256 an fp32 cache's V lands over K in B5 and
+    the split body, and the bf16 tile body stages 32 tokens at a time)."""
     q, pages, table, lengths = _b6_problem(cache, d, group, chunk, compute,
                                            _b6_lengths(chunk), 12)
     kw = dict(compute_dtype=compute)
@@ -2028,6 +2087,39 @@ def test_paged_head_dims_match_plain(cuda, d, window, chunk, group, cache, compu
     torch.cuda.synchronize()
     assert o_k.dtype == compute and not o_k[0].any()
     assert torch.isfinite(o_k.float()).all()
+    err = (o_k.float() - o_p.float()).abs().max().item()
+    assert err <= (2e-2 if compute == torch.bfloat16 else 2e-5), err
+
+
+@pytest.mark.parametrize("compute", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("chunk", [1, 5, 33, 512])
+@pytest.mark.parametrize("group", [1, 2, 8])
+@pytest.mark.parametrize("window,sinks", [(None, 0), (128, 4), (300, 0)], ids=str)
+def test_paged_fp32_cache_d256_matches_plain(cuda, window, sinks, group, chunk, compute):
+    """B5 and B6's three bodies on an fp32 cache at D 256 (T 1: B5; T 5 and
+    33: the split body below 64 rows, the tile bodies above; T 512: the tile
+    bodies) against their plain versions at groups 1, 2 and 8, globally,
+    under window 128 with 4 sinks and under window 300, on lengths at a
+    page's and a split's edges and an inactive slot; fp32 compute within
+    2e-5, bf16 within 2e-2."""
+    q, pages, table, lengths = _b6_problem(torch.float32, 256, group, chunk, compute,
+                                           _b6_lengths(chunk), 12)
+    kw = dict(compute_dtype=compute)
+    if window is not None:
+        kw.update(window=window, sinks=sinks)
+    if chunk == 1:
+        q = q[:, 0].contiguous()
+        fn, plain, name = (dec_attention.paged_decode_attention,
+                           dec_attention.paged_decode_attention_plain, "paged_decode")
+    else:
+        fn, plain, name = (dec_attention.paged_chunk_attention,
+                           dec_attention.paged_chunk_attention_plain, "paged_chunk")
+    before = LAUNCHES[f"{name}_d256"]
+    o_k = fn(q, pages, table, lengths, **kw)
+    assert LAUNCHES[f"{name}_d256"] == before + 1
+    o_p = plain(q, pages, table, lengths, sm_scale=256 ** -0.5, **kw)
+    torch.cuda.synchronize()
+    assert not o_k[0].any() and torch.isfinite(o_k.float()).all()
     err = (o_k.float() - o_p.float()).abs().max().item()
     assert err <= (2e-2 if compute == torch.bfloat16 else 2e-5), err
 

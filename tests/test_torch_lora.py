@@ -157,12 +157,16 @@ def test_merge_lora_matches_jax_bytes(tiny, base):
 
 
 def test_full_training_refuses_quantized_leaves(tiny):
-    """Only the LoRA optimizer trains a tree with quantized or LoRA leaves."""
+    """Full training of an int8 tree differentiates what JAX's allow_int
+    path does: the scales get gradients, the int8 values zeros (frozen).
+    The LoRA optimizer still refuses a tree without adapters."""
     _, cfg_t, params_j = tiny
     params_t = params_from_numpy(jax.tree.map(np.asarray, params_j), "cpu")
     qp = linear.quantize_transformer_params(params_t, torch.int8)
     tokens = torch.zeros(1, 9, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="make_lora_optimizer"):
-        transformer.value_and_grad(qp, tokens, cfg_t)
+    _, grads = transformer.value_and_grad(qp, tokens, cfg_t)
+    g = grads["layers"][0]["wq"]
+    assert isinstance(g, QuantizedTensor) and g.values.dtype == torch.int8
+    assert not g.values.any() and g.scales.abs().sum() > 0
     with pytest.raises(ValueError, match="no LoRATensor"):
         training.make_lora_optimizer(training.make_optimizer(), params_t)
