@@ -34,9 +34,10 @@ Phases (any failure raises and the script exits non-zero):
   3. kernel B5 (paged decode) against its plain version on int8 and bf16
      caches, each with bf16 and fp32 compute, ragged lengths and an
      inactive slot, device time (back-to-back time beside it) and bound;
-  4. end to end at the base model's width in fp32: prefill logits and four
-     greedy decode steps through DecodeEngine on the card (kernels) and on
-     the CPU (plain versions), with the same seeded weights;
+  4. end to end at the base model's width in fp32 (4 layers): prefill
+     logits and four greedy decode steps through DecodeEngine on the card
+     (kernels) and on the CPU (plain versions), with the same seeded
+     weights;
   5. serving: DecodeEngine.run at TransformerConfig.base() with an int8
      cache answers 12 requests of 64 tokens, with both kernels' launch counts;
   6. where a decode step's time goes at batch 8: host-clock step time and
@@ -52,9 +53,9 @@ Phases (any failure raises and the script exits non-zero):
      torch.autograd.grad of flash_attention on both routes (fused B2;
      split B3 + B4, forced by 128-row BlockSizes) against the plain
      versions, and bitwise-equal gradients from two runs of each;
-  8. one AdamW train step at the base width in fp32 on the card (kernels)
-     and on the CPU (plain versions) from the same seeded weights, tokens
-     (1, 129);
+  8. one AdamW train step at the base width in fp32 (4 layers) on the card
+     (kernels) and on the CPU (plain versions) from the same seeded
+     weights, tokens (1, 129);
   9. training TransformerConfig.base() (bf16) at B4 S2048: 2 warm-up and 3
      timed steps on one batch, tokens/s over the timed steps, mean and
      median step time, peak memory, the loss
@@ -68,7 +69,8 @@ Phases (any failure raises and the script exits non-zero):
      slot; int8 and bf16 caches, bf16 and fp32 compute) and the chunked-
      prefill shape (T 512, total lengths 512-2048), time and bound; T = 1
      against B5;
- 13. fp32 at base width: verify_step logits on the card against the CPU;
+ 13. fp32 at base width (4 layers): verify_step logits on the card against
+     the CPU;
      speculative greedy (k 3, a one-layer draft), a prefix-cache hit and
      chunked prefill (chunk 512, a 1300-token prompt) each give exactly
      the card's plain greedy tokens; B6's fp32 tile body's launches over
@@ -119,7 +121,7 @@ Phases (any failure raises and the script exits non-zero):
      W8A8 weights and int4 weights (int8 caches), and chunked prefill 512
      on the int4 cache: tokens/s, mean step, TTFT, B1/B5/B6 launches; a
      profiled window of int4-weight decode steps; fp32 card-vs-CPU parity
-     of an int4 cache with int4 weights at base width;
+     of an int4 cache with int4 weights at base width (4 layers);
  22. QLoRA: two LoRA AdamW steps at base width, B4 S2048, on an int4 base
      (finite loss, base bytes unchanged, adapters moved, merge_lora logits
      within the int4 requantization budget);
@@ -155,7 +157,8 @@ Phases (any failure raises and the script exits non-zero):
      group's peak live pages,
      no decoding slot's local group above 2 pages after any step, windowed
      launches of B1, B5 and B6; and the streaming configuration (window 512,
-     4 sinks, every layer) in fp32 at base width, card against CPU, greedy
+     4 sinks, every layer) in fp32 at base width (4 layers), card against
+     CPU, greedy
      tokens bitwise equal for engine decode, speculation (k 3, a one-layer
      windowed draft) and chunked prefill (chunk 512, a 1300-token prompt),
      the sink page resident to the end;
@@ -180,8 +183,8 @@ Phases (any failure raises and the script exits non-zero):
      finite falling loss, step time, tokens/s, peak memory, windowed
      launches (hybrid: B3 and B4, B2 on the global layers; streaming: B2
      only); (d) one fp32 AdamW step of each (hybrid window 64, streaming
-     window 96 with 4 sinks) on tokens (1, 257), card against CPU, as
-     phase 8.
+     window 96 with 4 sinks; 4 layers) on tokens (1, 257), card against
+     CPU, as phase 8.
  27. a Gemma-2-2B-width hybrid model at head_dim 256 (google/gemma-2-2b's
      published widths: d_model 2304, 8/4 heads of 256, d_ff 9216, vocab
      256000, a 4096-token window on every other layer, 26 layers, bf16
@@ -269,6 +272,29 @@ Phases (any failure raises and the script exits non-zero):
      must fail: B1 and B2 at B1 Hq32 Hkv8 S2048 D128 causal (bf16 tiles
      and fp32), B5 and B6 T512 at D 128 Hq32 Hkv8 on its int8 cache (bf16
      and fp32 compute; B5's group-8 instantiation, B6's tile bodies).
+     The profiler windows of phases 6, 10, 30 and 32 run through
+     utils/profiling.trace; phases 30 and 32 print their training step's
+     top 10 kernels, each with the op that launched it;
+ 33. the slice of profiling, the Hugging Face import and the token loader:
+     (a) prompt-lookup speculation (k 4) with an MoE target, phase 32's
+     2-layer fp32 Mixtral-width model at capacity factor 1.0 on the card
+     and on the CPU, 4 slots: greedy tokens equal, routing compared call
+     by call as phase 32 compares it, the capacity binding; (b)
+     meta-llama/Meta-Llama-3-8B's config.json widths (LLAMA3_8B: d_model
+     4096, 32 layers, 32/8 heads of 128, d_ff 14336, vocab 128256, rope
+     500000, untied embeddings; what the port cannot express in
+     LLAMA3_NOT_EXPRESSED) as a seeded random bf16 state dict in Hugging
+     Face's key names and [out, in] layout on the card (8.03B parameters),
+     converted there by utils/hf_convert.params_from_hf (its peak memory
+     printed), served at 32 layers on an int8 cache, 8 slots, CUDA-graph
+     decode, chunked prefill 512, phase 5's first 8 prompts, 24 greedy
+     tokens each (tokens/s, TPOT, TTFT, peak memory, B1/B5/B6 launches at D
+     128 Hq32 Hkv8), one profiled graph step with its top kernels beside
+     the step's roofline and B5's (utils/profiling.roofline_time); (c) the
+     same widths at 2 layers trained 3 AdamW steps at B1 S2048 on batches
+     of utils/data.TokenLoader(native=True) (cpp/dataloader.cpp built by
+     g++) over a shard that write_token_file wrote, each batch equal to
+     the Python engine's, the losses finite, B1 and B2 launched.
 Serving's decode steps run as CUDA graphs (decode/graphs.py); each
 wrapper's launch count adds what a capture recorded at every replay.
 The line before the last is the kernel JSON (eleven kernels; B1, B5, B6 and
@@ -281,13 +307,19 @@ the launches of those widths on their paths beside them; B5 and B6 with
 their fp32-cache D 256 rows under "d256_fp32_cache"; B1-B6 with their
 launches on phase 32's MoE paths under "launches_moe_serving" and
 "launches_moe_training", and B1, B2, B5 and B6 with their checks at
-the Mixtral path's shapes under "mixtral_shapes"); the
+the Mixtral path's shapes under "mixtral_shapes"; B1, B5 and B6 with their
+launches on phase 33's Llama-3-8B-width serving under
+"launches_llama3_serving", B1 and B2 on its training under
+"launches_llama3_training", B1 and B6 on its MoE speculation under
+"launches_moe_speculation"); the
 last line is the JSON contract line {"ok": true, "device": {...}}.
 It imports torch and the port only, never jax or the JAX package.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import os
 import re
@@ -603,9 +635,10 @@ def phase_b5(torch, dec_attn, kv_cache):
 
 
 def phase_e2e(torch, np, transformer, decode):
-    """Base width in fp32: CUDA (kernels) against CPU (plain versions)."""
-    cfg = transformer.TransformerConfig.base(dtype=torch.float32,
-                                             attn_tile_dtype=None)
+    """Base width in fp32, cut to 4 layers: CUDA (kernels) against CPU
+    (plain versions)."""
+    cfg = dataclasses.replace(transformer.TransformerConfig.base(
+        dtype=torch.float32, attn_tile_dtype=None), n_layers=4)
     params = transformer.init_params(torch.Generator().manual_seed(0), cfg,
                                      device="cpu")
     prompt = np.random.default_rng(3).integers(0, cfg.vocab_size, 128).tolist()
@@ -694,10 +727,11 @@ def phase_profile(torch, np, eng, label="profile", new_tokens=24, steps=5):
     """Where a decode step's time goes: eight running requests, `steps`
     steps (speculative rounds, for a speculative engine; bursts, for a
     bursting one: `new_tokens` keeps them busy through the window) under
-    torch.profiler, timed on the host clock over the same window (so the
-    step time includes the profiler's own host overhead)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    torch.profiler (utils/profiling.trace), timed on the host clock over the
+    same window (so the step time includes the profiler's own host
+    overhead).  `lengths` are the slots' cached lengths as the window
+    starts."""
+    from cuda_flash_attention_tpu_torch.utils import profiling
 
     rng = np.random.default_rng(5)
     prompts = [rng.integers(0, eng.cfg.vocab_size, int(n)).tolist()
@@ -707,39 +741,31 @@ def phase_profile(torch, np, eng, label="profile", new_tokens=24, steps=5):
         eng.step()
     torch.cuda.synchronize()
     tokens0 = eng.stats["tokens"]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            eng.step()
-        torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - t0) / steps * 1e3
-    events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / steps / 1e3
-    if not busy_ms > 0:
-        raise AssertionError("profile: no device time recorded")
+    lengths = [int(n) for n in eng.lengths[eng.active]]
+    t = profiling.trace(eng.step, iters=steps, warmup=0)
+    step_ms = t.wall_ms / steps
+    busy_ms = t.busy_ms
     # The host's launch calls: kernels launched one by one, and graph
     # replays (each one launch of a whole captured step).
-    host_calls = {e.key: e.count / steps for e in events
-                  if e.device_type != DeviceType.CUDA
-                  and ("LaunchKernel" in e.key or "GraphLaunch" in e.key)}
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    host_calls = {o.name: o.count / steps for o in t.ops
+                  if "LaunchKernel" in o.name or "GraphLaunch" in o.name}
     # B5's and B6's kernels (csrc/paged_decode.cu, csrc/paged_chunk.cu) and
     # their shares of the busy time.
-    b5_ms, b6_ms = (sum(e.self_device_time_total for e in kernels if name in e.key)
-                    / steps / 1e3 for name in ("paged_decode_kernel", "paged_chunk_"))
+    b5_ms, b6_ms = (sum(k.total_ms for k in t.kernels if name in k.name) / steps
+                    for name in ("paged_decode_kernel", "paged_chunk_"))
     res = dict(
         batch=len(reqs), decode_step_ms=step_ms,
         tokens_per_step=(eng.stats["tokens"] - tokens0) / steps,
         device_busy_ms_per_step=busy_ms,
         device_idle_share=1 - busy_ms / step_ms,
-        kernel_launches_per_step=sum(e.count for e in kernels) / steps,
+        kernel_launches_per_step=sum(k.count for k in t.kernels) / steps,
         host_launch_calls_per_step=sum(host_calls.values()),
         host_launch_calls=host_calls,
         b5_ms_per_step=b5_ms, b5_share_of_busy=b5_ms / busy_ms,
         b6_ms_per_step=b6_ms, b6_share_of_busy=b6_ms / busy_ms,
-        top_kernels_ms_per_step={e.key[:48]: e.self_device_time_total / steps / 1e3
-                                 for e in top})
+        top_kernels_ms_per_step={k.name[:48]: k.total_ms / steps
+                                 for k in t.kernels[:8]},
+        lengths=lengths)
     log(label, json.dumps(res))
     return res
 
@@ -956,16 +982,17 @@ def tree_rel_err(torch, tree_leaves, a, b) -> float:
 
 
 def phase_train_parity(torch, np, transformer, training, label="base",
-                       tokens_shape=(2, 129), cfg=None, **cfg_kw):
-    """One AdamW step at the base width in fp32: card (kernels) against CPU
-    (plain versions).  The first Adam moment is (1 - b1) times the clipped
-    gradient, so it holds each gradient leaf to the tolerance; the global
-    gradient norm, taken before clipping, is held on its own.  cfg_kw: the
-    configuration's window, global_every and sinks (phase 26 (d)); `cfg`
-    another fp32 configuration in place of the base one (phase 30)."""
+                       tokens_shape=(2, 129), cfg=None, n_layers=4, **cfg_kw):
+    """One AdamW step at the base width in fp32, cut to `n_layers` layers:
+    card (kernels) against CPU (plain versions).  The first Adam moment is
+    (1 - b1) times the clipped gradient, so it holds each gradient leaf to
+    the tolerance; the global gradient norm, taken before clipping, is held
+    on its own.  cfg_kw: the configuration's window, global_every and sinks
+    (phase 26 (d)); `cfg` another fp32 configuration in place of the base
+    one (phase 30)."""
     if cfg is None:
-        cfg = transformer.TransformerConfig.base(dtype=torch.float32,
-                                                 attn_tile_dtype=None, **cfg_kw)
+        cfg = dataclasses.replace(transformer.TransformerConfig.base(
+            dtype=torch.float32, attn_tile_dtype=None, **cfg_kw), n_layers=n_layers)
     params = transformer.init_params(torch.Generator().manual_seed(0), cfg,
                                      device="cpu")
     tokens = np.random.default_rng(8).integers(0, cfg.vocab_size, tokens_shape)
@@ -1098,44 +1125,56 @@ def phase_train_split(torch, np, transformer, training):
     return res
 
 
-def phase_train_profile(torch, state, step, tokens, label="train profile"):
+def phase_train_profile(torch, state, step, tokens, label="train profile",
+                        by_source=False):
     """Where a train step's time goes (phase 10 at B4 S2048, phase 30 at
-    the Gemma-2 widths): one step under torch.profiler, timed on the host
-    clock over the same window."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    the Gemma-2 widths, phase 32 at Mixtral's): one step under
+    torch.profiler (utils/profiling.trace), timed on the host clock over
+    the same window; device time by kind and by part of the step.  With
+    `by_source`, one more line: the top 10 kernels, each with the ops that
+    launched it (the outermost op or range around its launch and the
+    innermost op)."""
+    from cuda_flash_attention_tpu_torch.utils import profiling
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _, m = step(state, tokens)
-        m["loss"].item()
-        torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    if not busy_ms > 0:
-        raise AssertionError("train profile: no device time recorded")
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    t = profiling.trace(lambda: step(state, tokens)[1]["loss"].item(), iters=1,
+                        warmup=0)
     by_kind = {"attention (this port's kernels)": 0.0, "matmul (cuBLAS)": 0.0,
                "other (elementwise, reductions, copies)": 0.0}
-    for e in kernels:
-        if any(n in e.key for n in ("fa2_fwd_", "bwd_kv_", "bwd_dq_",
-                                    "bwd_fused_wgmma", "bwd_prologue",
-                                    "dq_reduce")):
+    for k in t.kernels:
+        if any(n in k.name for n in ("fa2_fwd_", "bwd_kv_", "bwd_dq_",
+                                     "bwd_fused_wgmma", "bwd_prologue",
+                                     "dq_reduce")):
             kind = "attention (this port's kernels)"
-        elif any(n in e.key for n in ("nvjet", "gemm", "cutlass")):
+        elif any(n in k.name for n in ("nvjet", "gemm", "cutlass")):
             kind = "matmul (cuBLAS)"
         else:
             kind = "other (elementwise, reductions, copies)"
-        by_kind[kind] += e.self_device_time_total / 1e3
-    res = dict(step_ms=step_ms, device_busy_ms=busy_ms,
-               device_idle_share=1 - busy_ms / step_ms,
-               kernel_launches=sum(e.count for e in kernels),
-               device_ms_by_kind=by_kind,
-               top_kernels_ms={e.key[:48]: e.self_device_time_total / 1e3
-                               for e in top})
+        by_kind[kind] += k.total_ms
+    # The step's parts by the ops around each launch: the forward and loss
+    # and the AdamW update (models/training.py's two ranges), the backward
+    # (autograd's thread).
+    by_part = {"forward and loss": 0.0, "backward": 0.0,
+               "AdamW update and grad norm": 0.0, "other": 0.0}
+    for chains in t.sources.values():
+        for chain, ms in chains:
+            part = ("forward and loss" if chain.startswith("train_step.value_and_grad")
+                    else "AdamW update and grad norm"
+                    if chain.startswith("train_step.update")
+                    else "backward" if chain.startswith("autograd::engine")
+                    else "other")
+            by_part[part] += ms
+    res = dict(step_ms=t.wall_ms, device_busy_ms=t.busy_ms,
+               device_idle_share=1 - t.busy_ms / t.wall_ms,
+               kernel_launches=sum(k.count for k in t.kernels),
+               device_ms_by_kind=by_kind, device_ms_by_part=by_part,
+               top_kernels_ms={k.name[:48]: k.total_ms for k in t.kernels[:10]})
     log(label, json.dumps(res))
+    if by_source:
+        res["top_kernels_by_source"] = [
+            dict(kernel=name[:64], ms=ms, share_of_busy=ms / t.busy_ms, op=op)
+            for name, ms, op in t.top(10)]
+        log(f"{label} by source op", json.dumps(res["top_kernels_by_source"]))
     return res
 
 
@@ -1260,13 +1299,14 @@ def draft_of(params):
 
 
 def phase_spec_parity(torch, np, transformer, decode, dataclasses):
-    """fp32 at base width: verify_step on the card against the CPU, then
-    speculative greedy, a prefix-cache hit and chunked prefill each against
-    the card's plain greedy tokens.  The path's chunks of more than 64 rows
-    run B6's fp32 tile body: its launches are counted over the phase."""
+    """fp32 at base width, cut to 4 layers: verify_step on the card against
+    the CPU, then speculative greedy, a prefix-cache hit and chunked
+    prefill each against the card's plain greedy tokens.  The path's chunks
+    of more than 64 rows run B6's fp32 tile body: its launches are counted
+    over the phase."""
     reset_counts(["paged_chunk_fp32_tile"])
-    cfg = transformer.TransformerConfig.base(dtype=torch.float32,
-                                             attn_tile_dtype=None)
+    cfg = dataclasses.replace(transformer.TransformerConfig.base(
+        dtype=torch.float32, attn_tile_dtype=None), n_layers=4)
     params = transformer.init_params(torch.Generator().manual_seed(0), cfg,
                                      device="cpu")
     rng = np.random.default_rng(12)
@@ -2153,8 +2193,10 @@ def phase_quant_serving(torch, np, transformer, decode, quant):
     del params, w8a8, w4
     torch.cuda.empty_cache()
 
-    # (b) + (d) in fp32 at base width: the card against the CPU.
-    cfg32 = transformer.TransformerConfig.base(dtype=torch.float32, attn_tile_dtype=None)
+    # (b) + (d) in fp32 at base width, cut to 4 layers: the card against
+    # the CPU.
+    cfg32 = dataclasses.replace(transformer.TransformerConfig.base(
+        dtype=torch.float32, attn_tile_dtype=None), n_layers=4)
     w4 = quant.quantize_transformer_params(transformer.init_params(
         torch.Generator().manual_seed(0), cfg32, device="cpu"), "int4")
     prompt = np.random.default_rng(3).integers(0, cfg32.vocab_size, 128).tolist()
@@ -2765,13 +2807,14 @@ def phase_window_serving(torch, np, transformer, decode, dataclasses):
 
 def phase_window_streaming(torch, np, transformer, decode, dataclasses):
     """The streaming configuration (StreamingLLM: window 512 with 4 sink
-    tokens on every layer) at base width in fp32, card against CPU, greedy
+    tokens on every layer) at base width in fp32, cut to 4 layers, card
+    against CPU, greedy
     tokens bitwise equal: engine decode, speculation (k 3, a one-layer
     windowed draft) and chunked prefill (chunk 512, a 1300-token prompt).
     The sink page must still be resident when each request ends."""
     cfg = dataclasses.replace(
         transformer.TransformerConfig.base(dtype=torch.float32, attn_tile_dtype=None),
-        attn_window=512, attn_sinks=SINKS)
+        attn_window=512, attn_sinks=SINKS, n_layers=4)
     params = transformer.init_params(torch.Generator().manual_seed(0), cfg,
                                      device="cpu")
     rng = np.random.default_rng(27)
@@ -3870,7 +3913,7 @@ def phase_gemma2_train(torch, np, transformer, training, common):
                model_flops_per_step=flops,
                mfu_bf16_peak=flops / median / PEAK_FLOPS["bf16"], launches=launches)
     res["profile"] = phase_train_profile(torch, state, step, tokens,
-                                         label="gemma2 train profile")
+                                         label="gemma2 train profile", by_source=True)
     # The other route: 128-row blocks give 16 KV slices of block_k_dkv rows.
     split_blocks = common.BlockSizes(*(128,) * 6)
     flash = transformer.flash_attention
@@ -4224,34 +4267,25 @@ def moe_op_share(torch, decode, eng) -> dict:
     engine's graph captures, decode_step over every slot, none active so
     that nothing is written): router top-k, the scatter into the experts'
     buffer and the gather back, the experts' batched products, against the
-    step's whole device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    step's whole device time (utils/profiling.trace: the device time each
+    op launched)."""
+    from cuda_flash_attention_tpu_torch.utils import profiling
 
     n = eng.max_seqs
     dev = torch.device("cuda")
     args = (torch.zeros(n, dtype=torch.long, device=dev),
             torch.zeros(n, dtype=torch.long, device=dev))
     with torch.inference_mode():
-        step = lambda: decode.decode_step(  # noqa: E731
+        t = profiling.trace(lambda: decode.decode_step(
             eng.params, *args, eng.caches, eng._tables_dev(),
-            torch.zeros(n, dtype=torch.bool, device=dev), eng.cfg)
-        step()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            step()
-            torch.cuda.synchronize()
-    events = prof.key_averages()
-    busy = sum(e.self_device_time_total for e in events
-               if e.device_type == DeviceType.CUDA) / 1e3
+            torch.zeros(n, dtype=torch.bool, device=dev), eng.cfg), iters=1, warmup=1)
     groups = {"topk": ("aten::topk",), "scatter_gather": ("aten::index_copy",
                                                            "aten::index", "aten::index_select"),
               "bmm": ("aten::bmm",)}
-    ms = {g: sum(e.device_time_total for e in events
-                 if e.device_type != DeviceType.CUDA and e.key in keys) / 1e3
+    ms = {g: sum(o.total_ms for o in t.ops if o.name in keys)
           for g, keys in groups.items()}
-    return dict(eager_step_device_ms=busy, moe_ms=ms,
-                moe_share=sum(ms.values()) / busy if busy else None)
+    return dict(eager_step_device_ms=t.busy_ms, moe_ms=ms,
+                moe_share=sum(ms.values()) / t.busy_ms)
 
 
 def mixtral_paged_cases(np):
@@ -4268,7 +4302,7 @@ def mixtral_paged_cases(np):
             for name, t, lens in cases for compute in ("bf16", "fp32")]
 
 
-def phase_mixtral_attention(torch, fa2, bwd):
+def phase_mixtral_attention(torch, F, fp32_bwd, fa2, bwd):
     """B1 and B2 at the Mixtral training path's shape (B1 Hq32 Hkv8 S2048
     D128 causal, group 4) in bf16 tiles and fp32 against their plain
     versions: B1's O within B1_TOL and its lse within LSE_REL_TOL, B2's
@@ -4276,7 +4310,8 @@ def phase_mixtral_attention(torch, fa2, bwd):
     plain version with causal dropped) must fail its gate.  Device time
     (queued) beside each kernel's bound: max(bytes moved, as phases 28 and
     29 count them, over HBM_BYTES_PER_S; FLOPs over the causal pairs over
-    the peak)."""
+    the peak), the plain versions' times and the library's: SDPA, and its
+    flash backward in bf16 or its memory-efficient backward in fp32."""
     gen = torch.Generator(device="cuda").manual_seed(38)
     b, hq, hkv, s, d = 1, 32, 8, 2048, 128
     raw = [torch.randn(b, h, s, d, generator=gen, device="cuda") for h in (hq, hkv, hkv, hq)]
@@ -4318,7 +4353,18 @@ def phase_mixtral_attention(torch, fa2, bwd):
                    b2_ms=queued_ms(torch, lambda: bwd.fa2_backward_fused_aligned(
                        q, k, v, o, do, lse, **kw), iters=5),
                    b1_bound_ms=b1_bound, b1_bound_by=b1_by, b2_bound_ms=b2_bound,
-                   b2_bound_by=b2_by)
+                   b2_bound_by=b2_by,
+                   b1_plain_ms=time_ms(lambda: fa2.fa2_forward_plain(q, k, v, **kw),
+                                       iters=1, warmup=1),
+                   b2_plain_ms=time_ms(lambda: bwd.fa2_backward_fused_plain(
+                       q, k, v, o, do, lse, **kw), iters=1, warmup=1),
+                   # SDPA (causal by its flag, GQA by enable_gqa) and its
+                   # backward (library_backward_ms) on the same inputs.
+                   b1_library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                       q, k, v, is_causal=True, scale=kw["sm_scale"], enable_gqa=True),
+                       iters=5),
+                   b2_library_ms=library_backward_ms(torch, fp32_bwd, q, k, v, do,
+                                                     kw["sm_scale"])[0])
         rows.append(row)
         log("mixtral attention", json.dumps(row))
         if not (fwd_err <= B1_TOL[kind] and lse_err <= LSE_REL_TOL and dead_equal
@@ -4426,6 +4472,8 @@ def phase_mixtral_train(torch, np, transformer, training):
                params=sum(p.numel() for p in transformer.tree_leaves(state.params)),
                routed_flops_per_step=flops,
                bf16_peak_share=flops / median / PEAK_FLOPS["bf16"], launches=launches)
+    res["profile"] = phase_train_profile(torch, state, step, tokens,
+                                         label="mixtral train profile", by_source=True)
     log("mixtral train", json.dumps(res))
     del state, step
     torch.cuda.empty_cache()
@@ -4458,32 +4506,21 @@ def phase_mixtral_parity(torch, np, transformer, decode, moe):
     params = transformer.init_params(
         torch.Generator(device="cuda").manual_seed(34), cfg, device="cuda")
     tokens = torch.as_tensor(np.random.default_rng(34).integers(0, cfg.vocab_size, (1, 129)))
+    models = {"cuda": params, "cpu": transformer.tree_map(lambda w: w.cpu(), params)}
     out, routing = {}, {}
     inner = transformer.moe_ffn
     try:
-        for dev in ("cuda", "cpu"):
-            p = params if dev == "cuda" else transformer.tree_map(lambda w: w.cpu(), params)
+        for dev, p in models.items():
             routing[dev] = []
             transformer.moe_ffn = record_routing(transformer, moe, routing[dev])
             with torch.inference_mode():
                 logits, _ = decode.prefill_forward(p, tokens.to(dev), cfg)
             out[dev] = logits.cpu()
-            del p
     finally:
         transformer.moe_ffn = inner
     diff = (out["cuda"] - out["cpu"]).abs().max().item()
-    flips, dropped = [], []
-    for (pg, ig, rg, vg), (pc, ic, rc, vc) in zip(routing["cuda"], routing["cpu"]):
-        top = torch.sort(pc, dim=-1, descending=True).values
-        margin = torch.stack([top[:, k] - top[:, k + 1]
-                              for k in range(cfg.expert_top_k)], 1).amin(1)
-        differ = (ig != ic).any(1)
-        if (differ & (margin >= MOE_MARGIN)).any():
-            raise AssertionError(f"mixtral parity: tokens "
-                                 f"{torch.nonzero(differ & (margin >= MOE_MARGIN)).ravel()} "
-                                 f"route differently with a top-k margin >= {MOE_MARGIN}")
-        flips.append(int(differ.sum()))
-        dropped.append(dict(cuda=int((~vg).sum()), cpu=int((~vc).sum())))
+    flips, dropped = routing_flips(torch, cfg, routing["cuda"], routing["cpu"],
+                                   "mixtral parity")
     res = dict(config="mixtral-8x7b widths, 2 layers, fp32, capacity factor 1.0",
                tokens=list(tokens.shape), logits_max_abs_diff=diff,
                routing_flips_under_margin=flips, dropped_pairs=dropped)
@@ -4491,9 +4528,27 @@ def phase_mixtral_parity(torch, np, transformer, decode, moe):
     if not diff <= E2E_LOGIT_TOL:
         raise AssertionError(f"mixtral parity: logits differ by {diff} "
                              f"(tol {E2E_LOGIT_TOL})")
-    del params
-    torch.cuda.empty_cache()
-    return res
+    return res, (cfg, models)
+
+
+def routing_flips(torch, cfg, card_calls, cpu_calls, what):
+    """Each MoE call's routing on the card against the CPU's, call by call:
+    a token may route differently only where its top-k margin (on the CPU)
+    is below MOE_MARGIN, else this raises.  Returns the flips and the
+    dropped (token, choice) pairs of each call."""
+    flips, dropped = [], []
+    for (pg, ig, rg, vg), (pc, ic, rc, vc) in zip(card_calls, cpu_calls):
+        top = torch.sort(pc, dim=-1, descending=True).values
+        margin = torch.stack([top[:, k] - top[:, k + 1]
+                              for k in range(cfg.expert_top_k)], 1).amin(1)
+        differ = (ig != ic).any(1)
+        if (differ & (margin >= MOE_MARGIN)).any():
+            raise AssertionError(f"{what}: tokens "
+                                 f"{torch.nonzero(differ & (margin >= MOE_MARGIN)).ravel()} "
+                                 f"route differently with a top-k margin >= {MOE_MARGIN}")
+        flips.append(int(differ.sum()))
+        dropped.append(dict(cuda=int((~vg).sum()), cpu=int((~vc).sum())))
+    return flips, dropped
 
 
 def phase_remat_dots(torch, np, transformer):
@@ -4628,6 +4683,260 @@ def phase_checkpoint(torch, np, transformer, training, checkpoint):
 
 
 
+# Phase 33: meta-llama/Meta-Llama-3-8B's config.json, as the object
+# utils/hf_convert.config_from_hf reads (LlamaConfig's attribute names).
+# No weights are downloaded: a seeded random bf16 state dict in Hugging
+# Face's key names and [out, in] layout stands in for the checkpoint.
+LLAMA3_8B = dict(vocab_size=128256, hidden_size=4096, num_hidden_layers=32,
+                 num_attention_heads=32, num_key_value_heads=8, head_dim=128,
+                 intermediate_size=14336, rope_theta=500000.0, rms_norm_eps=1e-5,
+                 tie_word_embeddings=False, max_position_embeddings=8192)
+LLAMA3_NOT_EXPRESSED = (
+    "RMSNorm eps 1e-5 (config.json rms_norm_eps); both packages' rms_norm use 1e-6",)
+
+
+def llama_state_dict(torch, hf, n_layers: int, seed: int) -> dict:
+    """A random Llama state dict on the card in Hugging Face's key names
+    and layout (nn.Linear's [out, in]), bf16: projections N(0, 1/in), the
+    embedding N(0, 1), norm scales 1."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    d, f, v = hf.hidden_size, hf.intermediate_size, hf.vocab_size
+    q, kv = hf.num_attention_heads * hf.head_dim, hf.num_key_value_heads * hf.head_dim
+
+    def normal(out, inp, scale=None):
+        w = torch.randn(out, inp, generator=gen, device="cuda", dtype=torch.bfloat16)
+        return w.mul_(inp ** -0.5 if scale is None else scale)
+
+    def ones(n):
+        return torch.ones(n, device="cuda", dtype=torch.bfloat16)
+
+    sd = {"model.embed_tokens.weight": normal(v, d, scale=1.0),
+          "model.norm.weight": ones(d), "lm_head.weight": normal(v, d)}
+    for i in range(n_layers):
+        pre = f"model.layers.{i}."
+        sd.update({pre + "input_layernorm.weight": ones(d),
+                   pre + "post_attention_layernorm.weight": ones(d),
+                   pre + "self_attn.q_proj.weight": normal(q, d),
+                   pre + "self_attn.k_proj.weight": normal(kv, d),
+                   pre + "self_attn.v_proj.weight": normal(kv, d),
+                   pre + "self_attn.o_proj.weight": normal(d, q),
+                   pre + "mlp.gate_proj.weight": normal(f, d),
+                   pre + "mlp.up_proj.weight": normal(f, d),
+                   pre + "mlp.down_proj.weight": normal(d, f)})
+    return sd
+
+
+def llama_from_hf(torch, hf_convert, n_layers: int, seed: int):
+    """Llama-3-8B's widths at `n_layers`: the HF-layout state dict drawn on
+    the card, converted there by params_from_hf, the dict freed.  Returns
+    (params, cfg, conversion figures: parameters, the dict's and the
+    tree's GiB, the card's allocation as the conversion starts (the dict),
+    the conversion's peak and its ms)."""
+    import types
+
+    hf = types.SimpleNamespace(**dict(LLAMA3_8B, num_hidden_layers=n_layers))
+    cfg = hf_convert.config_from_hf(hf, param_dtype=torch.bfloat16)
+    sd = llama_state_dict(torch, hf, n_layers, seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = hf_convert.params_from_hf(sd, cfg)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    leaves = [t for layer in params["layers"] for t in layer.values()] + [
+        params[k] for k in ("embed", "final_norm", "lm_head")]
+    figures = dict(params=sum(t.numel() for t in sd.values()),
+                   state_dict_gib=sum(nbytes(t) for t in sd.values()) / 2 ** 30,
+                   tree_gib=nbytes(*leaves) / 2 ** 30,
+                   allocated_before_gib=before / 2 ** 30,
+                   conversion_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   conversion_ms=ms)
+    wq = sd["model.layers.0.self_attn.q_proj.weight"]
+    if not torch.equal(params["layers"][0]["wq"], wq.t()):
+        raise AssertionError("llama3: wq is not the transposed q_proj")
+    del sd, wq, leaves
+    torch.cuda.empty_cache()
+    return params, cfg, figures
+
+
+def phase_llama3_serving(torch, np, decode, hf_convert, profiling):
+    """(a) Llama-3-8B's widths at all 32 layers (8.03B parameters, bf16),
+    converted from an HF-layout state dict on the card, served through
+    DecodeEngine on an int8 cache, 8 slots, CUDA-graph decode, chunked
+    prefill 512: phase 5's first 8 prompt lengths, 24 greedy tokens each
+    (B1, B5 and B6 launched at D 128 Hq32 Hkv8, no page leaked, tokens in
+    the vocabulary); tokens/s, TPOT, TTFT, peak memory; one profiled graph
+    decode step (phase 6's window) with its top kernels, beside the step's
+    roofline (every weight byte and each slot's cached K/V read once) and
+    B5's share of the busy time beside B5's own roofline."""
+    params, cfg, conv = llama_from_hf(torch, hf_convert, 32, seed=33)
+    log("llama3 config", json.dumps(dict(LLAMA3_8B, not_expressed=LLAMA3_NOT_EXPRESSED,
+                                         **conv)))
+    prompts = serving_mix(np, cfg)[:8]
+    new_tokens = 24
+    eng = decode.DecodeEngine(params, cfg, max_seqs=8, max_seq_len=2048, page_size=128,
+                              cache_dtype=torch.int8, prefill_chunk=512)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(SERVING_KERNELS)
+    t0 = time.perf_counter()
+    reqs = eng.run(prompts, max_new_tokens=new_tokens)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = read_counts(SERVING_KERNELS)
+    check_served("llama3", reqs, eng, launches, SERVING_KERNELS, cfg.vocab_size,
+                 new_tokens)
+    total = sum(len(r.generated) for r in reqs)
+    res = dict(config="meta-llama-3-8b widths, 32 layers, bf16", params=conv["params"],
+               requests=len(reqs), tokens=total, seconds=elapsed,
+               tokens_per_s=total / elapsed,
+               tpot_ms_median=statistics.median(r.tpot_s for r in reqs) * 1e3,
+               ttft_ms_median=statistics.median(r.ttft_s for r in reqs) * 1e3,
+               steps=eng.stats["steps"], prefill_chunks=eng.stats["prefill_chunks"],
+               launches=launches,
+               max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    prof = phase_profile(torch, np, eng, label="llama3 decode profile", new_tokens=8,
+                         steps=1)
+    # Rooflines of that step: each matmul weight read once (the embedding's
+    # rows are gathered, not read whole) and 2 FLOPs a weight a token; B5's
+    # bytes and FLOPs as paged_bound counts them (int8 K/V, fp32 scales,
+    # bf16 q and out), over every layer.
+    peaks = profiling.chip_peaks()
+    n, lens = len(prof["lengths"]), [x + 1 for x in prof["lengths"]]
+    weights = sum(t.numel() for t in [eng.params["lm_head"]] + [
+        w for layer in eng.params["layers"] for k, w in layer.items() if w.ndim == 2])
+    kv_bytes = 2 * sum(lens) * cfg.kv_dim * (1 + 4 / cfg.head_dim) * cfg.n_layers
+    step_roof = profiling.roofline_time(2 * weights * n, 2 * weights + kv_bytes,
+                                        peaks=peaks)
+    b5_bytes = cfg.n_layers * (2 * sum(lens) * cfg.n_kv_heads * (cfg.head_dim + 4)
+                               + 2 * 2 * n * cfg.q_dim + 4 * sum(-(-x // 128) for x in lens)
+                               + 4 * n)
+    b5_roof = profiling.roofline_time(4 * cfg.head_dim * cfg.n_heads * sum(lens)
+                                      * cfg.n_layers, b5_bytes, peaks=peaks)
+    res["profile"] = prof
+    res["roofline"] = dict(
+        chip=peaks.name, step_ms=step_roof["t_ideal_s"] * 1e3, step_bound=step_roof["bound"],
+        step_share_of_busy=step_roof["t_ideal_s"] * 1e3 / prof["device_busy_ms_per_step"],
+        b5_ms=b5_roof["t_ideal_s"] * 1e3, b5_bound=b5_roof["bound"],
+        b5_measured_ms=prof["b5_ms_per_step"],
+        b5_share_of_busy=prof["b5_share_of_busy"])
+    log("llama3 serving", json.dumps(res))
+    del eng
+    gc.collect()  # the engine's captured graphs hold it in reference cycles
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_llama3_train(torch, np, training, hf_convert, data):
+    """(b) Llama-3-8B's widths at 2 layers (1.49B parameters, bf16 weights
+    and tiles), converted from an HF-layout state dict on the card, train 3
+    AdamW steps (lr 1e-4) at B1 S2048 on batches of TokenLoader(native=True)
+    over a shard that write_token_file wrote (the loader built by g++ from
+    cpp/dataloader.cpp): each native batch equal to the Python engine's,
+    the losses finite, B1 and the backward launched."""
+    import tempfile
+
+    params, cfg, conv = llama_from_hf(torch, hf_convert, 2, seed=34)
+    b, s = 1, 2048
+    opt = training.make_optimizer(learning_rate=1e-4, warmup_steps=1, decay_steps=100)
+    step = training.make_optax_train_step(cfg, opt)
+    state = training.init_train_state(params, opt)
+    del params
+    losses, times, equal = [], [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        shard = os.path.join(tmp, "tokens.bin")
+        data.write_token_file(shard, np.random.default_rng(34).integers(
+            0, cfg.vocab_size, 4 * b * (s + 1)))
+        kw = dict(batch=b, seq_len=s, seed=34)
+        with data.TokenLoader(shard, native=True, **kw) as nat, \
+                data.TokenLoader(shard, native=False, **kw) as py:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(TRAIN_KERNELS)
+            for _ in range(3):
+                batch = next(nat)
+                equal.append(bool(np.array_equal(batch, next(py))))
+                t0 = time.perf_counter()
+                state, metrics = step(state, batch)
+                losses.append(metrics["loss"].item())
+                times.append(time.perf_counter() - t0)
+            native = nat.native
+    launches = read_counts(TRAIN_KERNELS)
+    backward = launches["fa2_backward_fused"] or (
+        launches["fa2_backward_dq"] and launches["fa2_backward_dkv"])
+    res = dict(config="meta-llama-3-8b widths, 2 layers, bf16", batch=b, seq=s,
+               params=conv["params"], conversion=conv, loader_native=native,
+               loader_library=data.library_path().name,
+               batches_equal=equal, losses=losses, step_ms=[t * 1e3 for t in times],
+               step_ms_median=statistics.median(times[1:]) * 1e3,
+               tokens_per_s=b * s / statistics.median(times[1:]),
+               max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launches=launches)
+    log("llama3 train", json.dumps(res))
+    if not (native and all(equal) and all(np.isfinite(losses))
+            and launches["fa2_forward"] and backward):
+        raise AssertionError(f"llama3 train: {res}")
+    del state, step
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_moe_speculation(torch, np, transformer, decode, moe, cfg, models):
+    """(c) Prompt-lookup speculation (k 4) with an MoE target: phase 32's
+    2-layer fp32 Mixtral-width model at capacity factor 1.0 on the card and
+    on the CPU, 4 slots, 4 prompts that repeat themselves, 6 greedy tokens
+    each.  The gate: equal tokens; each MoE call's routing is compared as
+    phase 32 compares it, and the tokens may differ only after a call whose
+    routing flipped under MOE_MARGIN (a flip at a wider margin raises)."""
+    rng = np.random.default_rng(35)
+    prompts = [(rng.integers(0, cfg.vocab_size, int(n)).tolist() * 4)[:int(m)]
+               for n, m in ((12, 40), (7, 33), (20, 64), (9, 50))]
+    out, routing, stats = {}, {}, {}
+    inner = transformer.moe_ffn
+    try:
+        for dev, p in models.items():
+            routing[dev] = []
+            transformer.moe_ffn = record_routing(transformer, moe, routing[dev])
+            eng = decode.DecodeEngine(p, cfg, max_seqs=4, max_seq_len=512,
+                                      cache_dtype=torch.float32, spec_tokens=4,
+                                      spec_mode="prompt_lookup", device=dev)
+            reset_counts(SERVING_KERNELS)
+            reqs = eng.run(prompts, max_new_tokens=6)
+            # Prompt lookup runs no draft model: B1 prefills, B6 verifies.
+            check_served(f"moe speculation {dev}", reqs, eng,
+                         read_counts(SERVING_KERNELS),
+                         ("fa2_forward", "paged_chunk") if dev == "cuda" else (),
+                         cfg.vocab_size, 6)
+            out[dev] = [r.generated for r in reqs]
+            stats[dev] = dict(eng.stats, launches=read_counts(SERVING_KERNELS))
+            del eng
+    finally:
+        transformer.moe_ffn = inner
+    first_flip = None
+    for i, (card, cpu) in enumerate(zip(routing["cuda"], routing["cpu"])):
+        if card[1].shape != cpu[1].shape:
+            break
+        flips, _ = routing_flips(torch, cfg, [card], [cpu], "moe speculation")
+        if flips[0]:
+            first_flip = i
+            break
+    res = dict(config="mixtral-8x7b widths, 2 layers, fp32, capacity factor 1.0",
+               spec_tokens=4, equal=out["cuda"] == out["cpu"], tokens=out["cuda"],
+               calls=len(routing["cuda"]), first_flip_under_margin=first_flip,
+               dropped_pairs=sum(int((~c[3]).sum()) for c in routing["cuda"]),
+               card_stats=stats["cuda"], cpu_stats=stats["cpu"])
+    log("moe speculation (card vs CPU)", json.dumps(res))
+    if not (res["equal"] or first_flip is not None):
+        raise AssertionError(f"moe speculation: tokens differ with no routing flip: "
+                             f"{out}")
+    if not (stats["cuda"]["spec_rounds"] and res["dropped_pairs"]):
+        raise AssertionError(f"moe speculation: no round, or the capacity never "
+                             f"bound: {res}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -4662,7 +4971,13 @@ def main() -> int:
     from cuda_flash_attention_tpu_torch.ops import reference
     from cuda_flash_attention_tpu_torch.scripts import b1_ab, fp32_bwd, kernel_ab
     from cuda_flash_attention_tpu_torch.scripts import r5_d128_fwd as r5
-    from cuda_flash_attention_tpu_torch.utils import checkpoint, io
+    from cuda_flash_attention_tpu_torch.utils import (
+        checkpoint,
+        data,
+        hf_convert,
+        io,
+        profiling,
+    )
 
     # fp32 means fp32: no TF32 in the plain versions' matmuls.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4854,19 +5169,31 @@ def main() -> int:
                              f"ran: {wide_launches}")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    moe_attention = phase_mixtral_attention(torch, fa2, bwd)
+    moe_attention = phase_mixtral_attention(torch, F, fp32_bwd, fa2, bwd)
     moe_paged = phase_wide_paged(torch, dec_attn, kv_cache, cases=mixtral_paged_cases(np),
                                  seed=32)
     moe_serve = phase_mixtral_serving(torch, np, transformer, decode)
     moe_train = phase_mixtral_train(torch, np, transformer, training)
-    moe_parity = phase_mixtral_parity(torch, np, transformer, decode, moe)
     remat_dots = phase_remat_dots(torch, np, transformer)
     quant_grads = phase_quant_grads(torch, np, transformer, training, quant)
     ckpt = phase_checkpoint(torch, np, transformer, training, checkpoint)
+    # The fp32 parity model (card and CPU copies) is phase 33's MoE target.
+    moe_parity, (moe_cfg, moe_models) = phase_mixtral_parity(torch, np, transformer,
+                                                             decode, moe)
     log(f"phase 32: Mixtral-8x7B-width kernels at the path's shapes, MoE serving and "
-        f"training, its fp32 parity, remat dots, int8-weight gradients and "
-        f"checkpoints ok in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"training, remat dots, int8-weight gradients, checkpoints and the fp32 "
+        f"parity ok in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    moe_spec = phase_moe_speculation(torch, np, transformer, decode, moe, moe_cfg,
+                                     moe_models)
+    del moe_models
+    gc.collect()  # the engines' reference cycles hold the parity model
+    torch.cuda.empty_cache()
+    llama_serve = phase_llama3_serving(torch, np, decode, hf_convert, profiling)
+    llama_train = phase_llama3_train(torch, np, training, hf_convert, data)
+    log(f"phase 33: MoE prompt-lookup speculation card vs CPU, Llama-3-8B's layout "
+        f"imported, served at 32 layers and trained at 2 from native-loader batches "
+        f"ok in {time.perf_counter() - t0:.1f} s")
 
     # Representative shapes for the kernel line: the serving phase's largest
     # prefill (B4 S1536 bf16) and the int8 cache with bf16 compute.
@@ -5167,6 +5494,14 @@ def main() -> int:
             k["launches_moe_serving"] = moe_serve["launches"][n]
         if n in moe_train["launches"]:
             k["launches_moe_training"] = moe_train["launches"][n]
+        # Phase 33: the Llama-3-8B-width serving and training paths, and MoE
+        # speculation on the card.
+        if n in llama_serve["launches"]:
+            k["launches_llama3_serving"] = llama_serve["launches"][n]
+        if n in llama_train["launches"]:
+            k["launches_llama3_training"] = llama_train["launches"][n]
+        if n in moe_spec["card_stats"]["launches"]:
+            k["launches_moe_speculation"] = moe_spec["card_stats"]["launches"][n]
         if n in ("paged_decode", "paged_chunk"):
             case = "B5" if n == "paged_decode" else "B6 T5"
             k["d256_fp32_cache"] = dict(
@@ -5196,6 +5531,13 @@ def main() -> int:
                         "losses", "aux_loss", "step_ms_median", "tokens_per_s",
                         "max_memory_allocated_gib", "bf16_peak_share")},
                     "mixtral_parity": moe_parity, "remat_dots": remat_dots,
+                    "llama3_serving": {k: llama_serve[k] for k in (
+                        "tokens_per_s", "tpot_ms_median", "ttft_ms_median",
+                        "max_memory_allocated_gib", "roofline")},
+                    "llama3_train": {k: llama_train[k] for k in (
+                        "losses", "step_ms_median", "tokens_per_s", "batches_equal",
+                        "max_memory_allocated_gib")},
+                    "moe_speculation_equal": moe_spec["equal"],
                     "quant_grads": quant_grads, "checkpoint": ckpt,
                     "gemma2_train": {k: gemma2_train[k] for k in (
                         "losses", "step_ms_median", "tokens_per_s",

@@ -51,8 +51,10 @@ Counterpart of cuda_flash_attention_tpu/decode/engine.py:
     rows: a chunked-prefill step runs all max_seqs rows (idle ones masked,
     their tokens 0), a bucket prefill its prompts padded with token 0, a
     decode step every slot with its last token, a prefix suffix its one
-    row.  Speculation with an MoE target or draft is refused: its rows are
-    not held to JAX's yet.
+    row, and a speculative round every slot in the draft's k + 1 steps and
+    the target's verify call (an idle slot with its stale last token at
+    length 0, and zeros for lookup drafts), as JAX's _spec_round feeds
+    them.
 
 Entry points run on the CUDA card unless `device="cpu"` is given, which
 runs the kernels' plain versions.  Not ported yet (and refused): meshes.
@@ -185,11 +187,6 @@ class DecodeEngine:
                  decode_burst: int = 1, prefill_burst_cap: int = 8):
         if mesh is not None:
             raise _not_ported("a mesh")
-        if spec_tokens and (cfg.n_experts or (draft_cfg is not None
-                                              and draft_cfg.n_experts)):
-            raise NotImplementedError(
-                "speculative decoding with a mixture-of-experts target or "
-                "draft: verify_step's rows are not held to the JAX engine's")
         if scan_layers and any(set(layer) != set(params["layers"][0])
                                for layer in params["layers"]):
             # JAX's stack_layer_params refuses a heterogeneous stack.

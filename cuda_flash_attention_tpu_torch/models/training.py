@@ -29,6 +29,7 @@ import math
 from typing import Any, Callable, NamedTuple
 
 import torch
+from torch.profiler import record_function
 
 from cuda_flash_attention_tpu_torch._device import resolve_device
 from cuda_flash_attention_tpu_torch.models.lora import (
@@ -252,14 +253,18 @@ def make_optax_train_step(cfg: TransformerConfig, optimizer: Optimizer,
                                          g_sum, wrt)
 
     def step(state: TrainState, tokens) -> tuple[TrainState, dict]:
+        # The two ranges name the step's parts in a profiler trace (the
+        # backward's ops run on autograd's own thread, outside both).
         device = tree_leaves(optimizer.trainable(state.params))[0].device
         tokens = torch.as_tensor(tokens).to(device=device, dtype=torch.long)
-        loss, grads = grads_of(state.params, tokens)
-        updates, opt_state = optimizer.update(grads, state.opt_state,
-                                              state.params)
-        params = optimizer.apply_updates(state.params, updates)
-        metrics = {"loss": loss, "grad_norm": global_norm(grads),
-                   "step": state.step + 1}
+        with record_function("train_step.value_and_grad"):
+            loss, grads = grads_of(state.params, tokens)
+        with record_function("train_step.update"):
+            updates, opt_state = optimizer.update(grads, state.opt_state,
+                                                  state.params)
+            params = optimizer.apply_updates(state.params, updates)
+            metrics = {"loss": loss, "grad_norm": global_norm(grads),
+                       "step": state.step + 1}
         return TrainState(params, opt_state, state.step + 1), metrics
 
     return step

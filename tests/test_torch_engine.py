@@ -180,7 +180,8 @@ def test_import_check_covers_the_reference_contract_modules():
               "kernels.baselines", "kernels.fa2_forward",
               "kernels.fa2_forward_quant", "quant", "quant.qtensor",
               "quant.linear", "models.lora", "utils.convert", "scripts",
-              "scripts.r5_d128_fwd"):
+              "scripts.r5_d128_fwd", "utils.profiling", "utils.hf_convert",
+              "utils.data", "examples.serve", "examples.finetune_lora"):
         assert f"cuda_flash_attention_tpu_torch.{m}" in mods, m
 
 

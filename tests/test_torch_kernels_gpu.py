@@ -2407,3 +2407,33 @@ def test_kernels_refuse_a_width_outside_the_registry(cuda, kernel):
             baselines.naive_fa2_aligned(x, x, x, sm_scale=0.125, kv_len=128)
     assert dict(LAUNCHES) == before
 
+
+
+def test_profile_ops_records_the_port_kernels_on_the_card(cuda):
+    """utils/profiling on the card: B1 through the public API and a matmul
+    under torch.profiler give nonzero device time by kernel name (B1's
+    fa2_fwd kernel and cuBLAS's), counted once a call; kernel_device_time
+    with a match keeps only B1's."""
+    from cuda_flash_attention_tpu_torch.utils import profiling
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn(2, 4, 512, 64, generator=gen, device=cuda,
+                           dtype=torch.bfloat16) for _ in range(3))
+    w = torch.randn(512, 512, generator=gen, device=cuda)
+
+    def step(q, k, v, w):
+        return attention.flash_attention(q, k, v, causal=True), w @ w
+
+    ops = profiling.profile_ops(step, q, k, v, w, iters=3, warmup=1)
+    assert ops and all(o.total_ms >= 0 for o in ops) and sum(o.total_ms for o in ops) > 0
+    b1 = [o for o in ops if "fa2_fwd" in o.name]
+    assert b1 and sum(o.count for o in b1) == 3, [o.name for o in ops]
+    assert any(o.count >= 3 and o.total_ms > 0 for o in ops if "fa2_fwd" not in o.name)
+    t = profiling.trace(step, q, k, v, w, iters=2, warmup=0)
+    assert t.device.startswith("cuda") and t.busy_ms > 0 and t.wall_ms > 0
+    assert any(op for _, _, op in t.top(5)), t.sources
+    only_b1 = profiling.kernel_device_time(step, q, k, v, w, match="fa2_fwd", iters=3)
+    whole = profiling.kernel_device_time(step, q, k, v, w, iters=3)
+    assert 0 < only_b1 < whole
+    assert "h100" not in profiling.chip_peaks(cuda).name.lower() or (
+        profiling.chip_peaks(cuda).bf16_tflops == 989.0)

@@ -6,7 +6,8 @@ tokens must be equal, in three setups: two prompts of different lengths in
 one prefill bucket; chunked prefill beside a decoding slot (JAX's chunk
 step carries all max_seqs rows); 16 slots, 12 of them busy, where a decode
 step's 16 tokens overflow the capacity (inactive slots carry their last
-token, as the JAX step feeds them)."""
+token, as the JAX step feeds them).  Speculation with an MoE model is
+held to JAX's in tests/test_torch_moe_speculative.py."""
 
 import dataclasses
 
@@ -83,12 +84,17 @@ def test_moe_engine_greedy_tokens_match_jax(tiny_moe, setup, monkeypatch):
 
 
 def test_moe_engine_refuses_speculation_and_a_ragged_scan(tiny_moe):
-    """Speculation with an MoE target is refused (its verify rows are not
-    held to JAX's); scan_layers over tiny_moe's interleave is refused as
-    JAX's stack_layer_params refuses it."""
+    """Speculation with an MoE target is taken (its rows are JAX's:
+    tests/test_torch_moe_speculative.py), and refused on a hybrid cache as
+    JAX's engine refuses it; scan_layers over tiny_moe's interleave is
+    refused as JAX's stack_layer_params refuses it."""
     _, _, cfg, params = tiny_moe
-    with pytest.raises(NotImplementedError, match="mixture-of-experts"):
-        DecodeEngine(params, cfg, spec_tokens=2, spec_mode="prompt_lookup",
+    eng = DecodeEngine(params, cfg, spec_tokens=2, spec_mode="prompt_lookup",
+                       device="cpu")
+    assert eng.spec_tokens == 2
+    hybrid = dataclasses.replace(cfg, attn_window=64, global_every=2)
+    with pytest.raises(NotImplementedError, match="hybrid cache"):
+        DecodeEngine(params, hybrid, spec_tokens=2, spec_mode="prompt_lookup",
                      device="cpu")
     with pytest.raises(ValueError, match="homogeneous"):
         DecodeEngine(params, cfg, scan_layers=True, device="cpu")
