@@ -34,7 +34,7 @@ Phases (any failure raises and the script exits non-zero):
   3. kernel B5 (paged decode) against its plain version on int8 and bf16
      caches, each with bf16 and fp32 compute, ragged lengths and an
      inactive slot, device time (back-to-back time beside it) and bound;
-  4. end to end at the base model's width in fp32 (4 layers): prefill
+  4. end to end at the base model's width in fp32 (2 layers): prefill
      logits and four greedy decode steps through DecodeEngine on the card
      (kernels) and on the CPU (plain versions), with the same seeded
      weights;
@@ -53,7 +53,7 @@ Phases (any failure raises and the script exits non-zero):
      torch.autograd.grad of flash_attention on both routes (fused B2;
      split B3 + B4, forced by 128-row BlockSizes) against the plain
      versions, and bitwise-equal gradients from two runs of each;
-  8. one AdamW train step at the base width in fp32 (4 layers) on the card
+  8. one AdamW train step at the base width in fp32 (2 layers) on the card
      (kernels) and on the CPU (plain versions) from the same seeded
      weights, tokens (1, 129);
   9. training TransformerConfig.base() (bf16) at B4 S2048: 2 warm-up and 3
@@ -69,7 +69,7 @@ Phases (any failure raises and the script exits non-zero):
      slot; int8 and bf16 caches, bf16 and fp32 compute) and the chunked-
      prefill shape (T 512, total lengths 512-2048), time and bound; T = 1
      against B5;
- 13. fp32 at base width (4 layers): verify_step logits on the card against
+ 13. fp32 at base width (2 layers): verify_step logits on the card against
      the CPU;
      speculative greedy (k 3, a one-layer draft), a prefix-cache hit and
      chunked prefill (chunk 512, a 1300-token prompt) each give exactly
@@ -121,7 +121,7 @@ Phases (any failure raises and the script exits non-zero):
      W8A8 weights and int4 weights (int8 caches), and chunked prefill 512
      on the int4 cache: tokens/s, mean step, TTFT, B1/B5/B6 launches; a
      profiled window of int4-weight decode steps; fp32 card-vs-CPU parity
-     of an int4 cache with int4 weights at base width (4 layers);
+     of an int4 cache with int4 weights at base width (2 layers);
  22. QLoRA: two LoRA AdamW steps at base width, B4 S2048, on an int4 base
      (finite loss, base bytes unchanged, adapters moved, merge_lora logits
      within the int4 requantization budget);
@@ -157,7 +157,7 @@ Phases (any failure raises and the script exits non-zero):
      group's peak live pages,
      no decoding slot's local group above 2 pages after any step, windowed
      launches of B1, B5 and B6; and the streaming configuration (window 512,
-     4 sinks, every layer) in fp32 at base width (4 layers), card against
+     4 sinks, every layer) in fp32 at base width (2 layers), card against
      CPU, greedy
      tokens bitwise equal for engine decode, speculation (k 3, a one-layer
      windowed draft) and chunked prefill (chunk 512, a 1300-token prompt),
@@ -183,7 +183,7 @@ Phases (any failure raises and the script exits non-zero):
      finite falling loss, step time, tokens/s, peak memory, windowed
      launches (hybrid: B3 and B4, B2 on the global layers; streaming: B2
      only); (d) one fp32 AdamW step of each (hybrid window 64, streaming
-     window 96 with 4 sinks; 4 layers) on tokens (1, 257), card against
+     window 96 with 4 sinks; 2 layers) on tokens (1, 129), card against
      CPU, as phase 8.
  27. a Gemma-2-2B-width hybrid model at head_dim 256 (google/gemma-2-2b's
      published widths: d_model 2304, 8/4 heads of 256, d_ff 9216, vocab
@@ -196,7 +196,7 @@ Phases (any failure raises and the script exits non-zero):
      after every step), B1's, B5's and B6's launches at D 256, windowed and
      global; the same widths at 2 layers in fp32, card against CPU, greedy
      tokens equal on an int8 cache and on an fp32 cache (chunked prefill
-     256, so that B5 and B6 read fp32 pages at D 256); speculation and
+     128, so that B5 and B6 read fp32 pages at D 256); speculation and
      prefix caching refused on the hybrid cache;
  28. B1 at D 32 (B4 Hq16 Hkv8 S2048) and D 256 (B1 Hq8 Hkv4 S4096) in bf16
      tiles, fp16 tiles and fp32 under causal masking, window 128 with 4
@@ -295,6 +295,26 @@ Phases (any failure raises and the script exits non-zero):
      of utils/data.TokenLoader(native=True) (cpp/dataloader.cpp built by
      g++) over a shard that write_token_file wrote, each batch equal to
      the Python engine's, the losses finite, B1 and B2 launched.
+ 34. training on a device mesh (parallel/): (a) one NCCL rank
+     (initialize_distributed from the variables the phase sets, world
+     size 1) on a {data 1, model 1, ctx 1} mesh: the base model's two AdamW
+     steps at B4 S2048 bitwise equal to the steps without a mesh; (b) 4
+     gloo ranks sharing the card (parallel/launch.py, mesh_rank): ring
+     attention at Llama-3-8B's attention width (B1 Hq32 Hkv8 D128, S 32768,
+     8192 a rank, bf16; causal and window 4096) forward and gradients
+     against flash_attention on the whole sequence (B1's and B2-B4's gates
+     of the output's max), with the last live rotation dropped and dK/dV
+     not sent home as controls that must fail; the quantized ring (int8,
+     int4, e4m3) against B7 on the whole sequence (B1's gate) and against
+     the bf16 ring (a mean relative error per storage), each with the ring
+     without its own shard's step as the control; the base model trained 2
+     AdamW steps on {ctx 4} (8192 inputs) and on {data 2, model 2} (B4
+     S2048) beside the unsharded steps; fp32 parity at 4 layers on both
+     layouts (loss and grad_norm rtol 2e-4, each gradient leaf 2e-4 of its
+     max, every parameter 1e-4) with controls; the scaling benchmark's
+     three layouts (4 ranks on one card, not multi-GPU scaling).  The
+     ranks' launches of B1, B1 windowed,
+     B2, B3, B4 and B7 are summed into the kernel line ("launches_mesh").
 Serving's decode steps run as CUDA graphs (decode/graphs.py); each
 wrapper's launch count adds what a capture recorded at every replay.
 The line before the last is the kernel JSON (eleven kernels; B1, B5, B6 and
@@ -311,7 +331,8 @@ the Mixtral path's shapes under "mixtral_shapes"; B1, B5 and B6 with their
 launches on phase 33's Llama-3-8B-width serving under
 "launches_llama3_serving", B1 and B2 on its training under
 "launches_llama3_training", B1 and B6 on its MoE speculation under
-"launches_moe_speculation"); the
+"launches_moe_speculation"; B1-B4 and B7 with phase 34's under
+"launches_mesh", B1's windowed ones under "launches_mesh_window"); the
 last line is the JSON contract line {"ok": true, "device": {...}}.
 It imports torch and the port only, never jax or the JAX package.
 """
@@ -321,6 +342,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import statistics
@@ -635,10 +657,10 @@ def phase_b5(torch, dec_attn, kv_cache):
 
 
 def phase_e2e(torch, np, transformer, decode):
-    """Base width in fp32, cut to 4 layers: CUDA (kernels) against CPU
+    """Base width in fp32, cut to 2 layers: CUDA (kernels) against CPU
     (plain versions)."""
     cfg = dataclasses.replace(transformer.TransformerConfig.base(
-        dtype=torch.float32, attn_tile_dtype=None), n_layers=4)
+        dtype=torch.float32, attn_tile_dtype=None), n_layers=2)
     params = transformer.init_params(torch.Generator().manual_seed(0), cfg,
                                      device="cpu")
     prompt = np.random.default_rng(3).integers(0, cfg.vocab_size, 128).tolist()
@@ -982,7 +1004,7 @@ def tree_rel_err(torch, tree_leaves, a, b) -> float:
 
 
 def phase_train_parity(torch, np, transformer, training, label="base",
-                       tokens_shape=(2, 129), cfg=None, n_layers=4, **cfg_kw):
+                       tokens_shape=(2, 129), cfg=None, n_layers=2, **cfg_kw):
     """One AdamW step at the base width in fp32, cut to `n_layers` layers:
     card (kernels) against CPU (plain versions).  The first Adam moment is
     (1 - b1) times the clipped gradient, so it holds each gradient leaf to
@@ -1299,14 +1321,14 @@ def draft_of(params):
 
 
 def phase_spec_parity(torch, np, transformer, decode, dataclasses):
-    """fp32 at base width, cut to 4 layers: verify_step on the card against
+    """fp32 at base width, cut to 2 layers: verify_step on the card against
     the CPU, then speculative greedy, a prefix-cache hit and chunked
     prefill each against the card's plain greedy tokens.  The path's chunks
     of more than 64 rows run B6's fp32 tile body: its launches are counted
     over the phase."""
     reset_counts(["paged_chunk_fp32_tile"])
     cfg = dataclasses.replace(transformer.TransformerConfig.base(
-        dtype=torch.float32, attn_tile_dtype=None), n_layers=4)
+        dtype=torch.float32, attn_tile_dtype=None), n_layers=2)
     params = transformer.init_params(torch.Generator().manual_seed(0), cfg,
                                      device="cpu")
     rng = np.random.default_rng(12)
@@ -1437,7 +1459,7 @@ def phase_spec_serving(torch, np, transformer, decode, dataclasses):
         log(f"spec serving {mode}", json.dumps(out[mode]))
         if mode == "draft":
             phase_profile(torch, np, eng, "spec profile (draft, k 4)",
-                          new_tokens=32, steps=3)
+                          new_tokens=32, steps=2)
         del eng
     return out
 
@@ -1810,24 +1832,38 @@ def phase_cli(torch, np, cli, io, reference, build_dir, shape=(8, 16, 2048, 64),
                    "forward_backward": ("O.bin", "logsumexp.bin", "dQ.bin",
                                         "dK.bin", "dV.bin")}
         paths = {}
-        for precision, mode in runs:
-            if precision not in paths:
-                paths[precision] = data_dir(precision, stress)
-            path = paths[precision]
-            argv = ["fa2", mode, precision, path]
-            if in_subprocess and (precision, mode) == ("fp32", "forward"):
-                proc = subprocess.run(
-                    [sys.executable, "-m", "cuda_flash_attention_tpu_torch.cli",
-                     *argv], cwd=root, capture_output=True, text=True,
-                    timeout=600, env=dict(os.environ, PYTHONPATH=root))
-                if proc.returncode != 0:
-                    raise AssertionError(f"cli subprocess: {proc.returncode}\n"
-                                         f"{proc.stdout}\n{proc.stderr}")
-                log("cli subprocess:", proc.stdout.strip().splitlines()[-1])
-            elif cli.main(argv) != 0:
-                raise AssertionError(f"cli {argv}: non-zero exit")
-            check(path, ref, outputs[mode], precision, f"fa2 {mode} {precision}",
-                  mode)
+        sub = None
+        if in_subprocess and ("fp32", "forward") in runs:
+            # fp32 forward once more through `python -m`, in a directory of
+            # its own, started first so that its start-up overlaps the runs
+            # below (backward reads the forward's files from its directory).
+            paths["subprocess"] = data_dir("subprocess", stress)
+            sub = subprocess.Popen(
+                [sys.executable, "-m", "cuda_flash_attention_tpu_torch.cli", "fa2",
+                 "forward", "fp32", paths["subprocess"]], cwd=root,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                env=dict(os.environ, PYTHONPATH=root))
+        try:
+            for precision, mode in runs:
+                if precision not in paths:
+                    paths[precision] = data_dir(precision, stress)
+                path = paths[precision]
+                if cli.main(["fa2", mode, precision, path]) != 0:
+                    raise AssertionError(f"cli fa2 {mode} {precision}: non-zero exit")
+                check(path, ref, outputs[mode], precision, f"fa2 {mode} {precision}",
+                      mode)
+            if sub is not None:
+                stdout, stderr = sub.communicate(timeout=600)
+                if sub.returncode != 0:
+                    raise AssertionError(f"cli subprocess: {sub.returncode}\n"
+                                         f"{stdout}\n{stderr}")
+                log("cli subprocess:", stdout.strip().splitlines()[-1])
+                check(paths["subprocess"], ref, outputs["forward"], "fp32",
+                      "fa2 forward fp32 (python -m)")
+        finally:
+            if sub is not None and sub.poll() is None:
+                sub.kill()
+                sub.wait()
         # fp16 files against fp16's own gates, the bf16 run's same file as
         # the control.
         for (precision, mode, name), err in rel.items():
@@ -2188,15 +2224,16 @@ def phase_quant_serving(torch, np, transformer, decode, quant):
         log("quant serving", name, json.dumps(res[name]))
         if name.startswith("int4 weights"):
             res[name]["profile"] = phase_profile(torch, np, eng,
-                                                 "quant profile (int4 weights)")
+                                                 "quant profile (int4 weights)",
+                                                 steps=2)
         del eng
     del params, w8a8, w4
     torch.cuda.empty_cache()
 
-    # (b) + (d) in fp32 at base width, cut to 4 layers: the card against
+    # (b) + (d) in fp32 at base width, cut to 2 layers: the card against
     # the CPU.
     cfg32 = dataclasses.replace(transformer.TransformerConfig.base(
-        dtype=torch.float32, attn_tile_dtype=None), n_layers=4)
+        dtype=torch.float32, attn_tile_dtype=None), n_layers=2)
     w4 = quant.quantize_transformer_params(transformer.init_params(
         torch.Generator().manual_seed(0), cfg32, device="cpu"), "int4")
     prompt = np.random.default_rng(3).integers(0, cfg32.vocab_size, 128).tolist()
@@ -2456,7 +2493,7 @@ def phase_bench(torch, np, transformer, decode, decode_bench, train_bench,
         if burst == 8:
             out["profile_burst8"] = phase_profile(torch, np, eng,
                                                   "bench profile (burst 8)",
-                                                  new_tokens=8 * 8 + 1)
+                                                  new_tokens=8 * 8 + 1, steps=2)
         del eng, params
     if served[1] != served[8]:
         raise AssertionError("bench: phase 5's requests differ between bursts 1 and 8")
@@ -2807,14 +2844,14 @@ def phase_window_serving(torch, np, transformer, decode, dataclasses):
 
 def phase_window_streaming(torch, np, transformer, decode, dataclasses):
     """The streaming configuration (StreamingLLM: window 512 with 4 sink
-    tokens on every layer) at base width in fp32, cut to 4 layers, card
+    tokens on every layer) at base width in fp32, cut to 2 layers, card
     against CPU, greedy
     tokens bitwise equal: engine decode, speculation (k 3, a one-layer
     windowed draft) and chunked prefill (chunk 512, a 1300-token prompt).
     The sink page must still be resident when each request ends."""
     cfg = dataclasses.replace(
         transformer.TransformerConfig.base(dtype=torch.float32, attn_tile_dtype=None),
-        attn_window=512, attn_sinks=SINKS, n_layers=4)
+        attn_window=512, attn_sinks=SINKS, n_layers=2)
     params = transformer.init_params(torch.Generator().manual_seed(0), cfg,
                                      device="cpu")
     rng = np.random.default_rng(27)
@@ -3357,14 +3394,15 @@ def phase_gemma2_parity(torch, np, transformer, decode, dataclasses):
     fp32 pages), card against CPU: greedy tokens equal over two
     prompts below the window (8 new tokens each); speculation and prefix
     caching refused on the hybrid cache, as the JAX engine refuses them.
-    The fp32 cache's runs chunk the prefill (256), and B5's and B6's D 256
+    The fp32 cache's runs chunk the prefill (128), and B5's and B6's D 256
     launches on the card are returned."""
     cfg = transformer.TransformerConfig(dtype=torch.float32, attn_tile_dtype=None,
                                         **dict(GEMMA2_2B, n_layers=2))
     params = transformer.init_params(
         torch.Generator(device="cuda").manual_seed(1), cfg, device="cuda")
     rng = np.random.default_rng(28)
-    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (300, 700)]
+    # The fp32 cache's prompts prefill in 2 and 4 chunks of at most 128.
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (200, 400)]
     out = {}
     for dev in ("cuda", "cpu"):
         p = transformer.tree_map(lambda w: w.to(dev), params)
@@ -3378,7 +3416,7 @@ def phase_gemma2_parity(torch, np, transformer, decode, dataclasses):
                 raise AssertionError(f"gemma2: the hybrid cache took {kw}")
         for cache in (torch.int8, torch.float32):
             # The fp32 cache's run chunks its prefill, so that B6 reads it.
-            chunk = 256 if cache == torch.float32 else None
+            chunk = 128 if cache == torch.float32 else None
             eng = decode.DecodeEngine(p, cfg, max_seqs=2, max_seq_len=1024,
                                       cache_dtype=cache, device=dev, prefill_chunk=chunk)
             reset_counts(FP32_D256_KERNELS)
@@ -3504,7 +3542,7 @@ def phase_wide_b1(torch, F, attention, fa2, common):
                                             iters=1, warmup=1),
                            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                                *lib_in, scale=scale, enable_gqa=True, **sdpa_kw),
-                               iters=3, warmup=1),
+                               iters=1, warmup=1),
                            bound_ms=max(t_bytes, t_ops) * 1e3,
                            bound_by="bytes" if t_bytes > t_ops else "operations",
                            tflops=flops / ms / 1e9)
@@ -4937,6 +4975,541 @@ def phase_moe_speculation(torch, np, transformer, decode, moe, cfg, models):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 34: training on a device mesh (parallel/).
+# ---------------------------------------------------------------------------
+
+# The kernels of the mesh path whose launches the ranks sum: B1 (and its
+# windowed launches), B2, B3, B4 and B7.
+MESH_KERNELS = ("fa2_forward", "fa2_forward_window", "fa2_backward_fused",
+                "fa2_backward_dq", "fa2_backward_dkv", "fa2_forward_quant")
+# Ring attention at Llama-3-8B's attention width: B1 Hq32 Hkv8 D128, 32768
+# tokens over 4 ctx ranks; the windowed case skips rotations and leaves
+# dead rows in its band step.
+MESH_RING = dict(b=1, hq=32, hkv=8, s=32768, d=128)
+MESH_RING_WINDOW = 4096
+# Queries scaled by 4 for the gated ring checks: sharper softmax rows, so
+# that a dropped shard moves O by a large share of its max (at the unscaled
+# inputs O averages thousands of keys and a dropped quarter moves it below
+# B1's gate).  The quantized ring runs the unscaled inputs, as the JAX tests'.
+MESH_PEAKY = 4.0
+MESH_QUANT = (("int8", True), ("int4", True), ("float8_e4m3fn", False))
+# The quantized ring's two checks, each with the ring without its own
+# shard's step as the control that must fail it.  (1) On the peaky queries, against
+# B7 on the whole sequence over the same per-token quantization (a rank's
+# shard quantizes to the same values as the whole sequence's, so only the
+# ring's merge differs): B1's gate of the reference's max |O|.  (2) On the
+# unscaled inputs (the JAX tests' regime), against the bf16 ring: the mean
+# |error| relative to the bf16 ring's mean |O|, per storage, each limit set
+# between the sound reading and the control's on the H100 (PERF.md, PR 22).
+# Peaky queries magnify the quantization error itself (a logit moves by the
+# query's scale times the key's rounding), which is why (2) runs unscaled.
+QUANT_RING_MEAN_TOL = {"int8": 5e-2, "int4": 3e-1, "float8_e4m3fn": 1e-1}
+MESH_LOSS_RTOL = 2e-4  # tests/test_training.py's sharded-step tolerances
+MESH_PARAM_ATOL = 1e-4
+# The first Adam moment after one step is (1 - b1) times the clipped
+# gradient: each gathered leaf is held to the unsharded step's, relative to
+# that leaf's max (as phase 8 holds card against CPU), and grad_norm at the
+# loss's rtol.
+MESH_GRAD_TOL = 2e-4
+MESH_TIMEOUT = 300  # seconds: the 4 ranks' run and gloo's collectives
+
+
+def _rel_err(torch, got, want, world) -> float:
+    """max |got - want| / max |want| over every rank's block."""
+    import torch.distributed as dist
+
+    e = torch.stack([(got.float() - want.float()).abs().max(), want.float().abs().max()])
+    dist.all_reduce(e, op=dist.ReduceOp.MAX)
+    return float(e[0] / e[1])
+
+
+def _mean_rel_err(torch, got, want) -> float:
+    """mean |got - want| / mean |want| over every rank's block."""
+    import torch.distributed as dist
+
+    s = torch.stack([(got.float() - want.float()).abs().sum(), want.float().abs().sum()])
+    dist.all_reduce(s)
+    return float(s[0] / s[1])
+
+
+def mesh_rank() -> dict:
+    """One of phase 34's 4 gloo ranks, every one on cuda:0: the ring at
+    Llama-3-8B's attention width with its controls, the quantized ring
+    with its controls, the base model trained on {ctx 4} and {data 2,
+    model 2}, fp32 parity at 4 layers with controls, and the scaling
+    benchmark's layouts.  Every rank returns its launch counts on the
+    path; rank 0 also the checks and times."""
+    import collections
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from cuda_flash_attention_tpu_torch.kernels.attention import flash_attention
+    from cuda_flash_attention_tpu_torch.kernels.fa2_forward_quant import (
+        flash_attention_quantized_kv,
+    )
+    from cuda_flash_attention_tpu_torch.kernels.launches import LAUNCHES, reset
+    from cuda_flash_attention_tpu_torch.models import training, transformer
+    from cuda_flash_attention_tpu_torch.parallel import ring
+    from cuda_flash_attention_tpu_torch.parallel.collectives import Exchange
+    from cuda_flash_attention_tpu_torch.parallel.distributed import scaling_rank
+    from cuda_flash_attention_tpu_torch.parallel.mesh import (
+        CTX_AXIS,
+        DATA_AXIS,
+        make_device_mesh,
+    )
+    from cuda_flash_attention_tpu_torch.parallel.sharded import shard
+    from cuda_flash_attention_tpu_torch.quant.qtensor import quantize_kv
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank, world = dist.get_rank(), dist.get_world_size()
+    launches = collections.Counter()
+    out = {"seconds": {}}
+    t_section = [time.perf_counter()]
+
+    def section(name):
+        now = time.perf_counter()
+        out["seconds"][name] = now - t_section[0]
+        t_section[0] = now
+
+    def counted(fn):
+        """fn() on the mesh path: its launches join the phase's counts."""
+        reset()
+        res = fn()
+        torch.cuda.synchronize()
+        for name in MESH_KERNELS:
+            launches[name] += LAUNCHES[name]
+        return res
+
+    def wall(fn):
+        """(fn(), wall ms) with every rank starting together."""
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    def max_over_ranks(x: float) -> float:
+        t = torch.tensor([x], device="cuda")
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return float(t[0])
+
+    # (a) The ring at Llama-3-8B's attention width, forward and gradients,
+    # against flash_attention on the whole sequence.
+    ctx = make_device_mesh({CTX_AXIS: world}, device="cuda")
+    spec = (None, None, CTX_AXIS, None)
+    c = MESH_RING
+    g = torch.Generator(device="cuda").manual_seed(22)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda", dtype=torch.bfloat16)
+
+    q = randn(c["b"], c["hq"], c["s"], c["d"])
+    k, v = randn(c["b"], c["hkv"], c["s"], c["d"]), randn(c["b"], c["hkv"], c["s"], c["d"])
+    do = randn(c["b"], c["hq"], c["s"], c["d"])
+    peaky = q * MESH_PEAKY
+
+    def ring_call(qq, causal, window, backward=True):
+        ql, kl, vl = (shard(x, ctx, spec).requires_grad_(backward) for x in (qq, k, v))
+
+        def run():
+            o = ring.ring_attention(ctx, ql, kl, vl, causal=causal, window=window)
+            if backward:
+                o.backward(shard(do, ctx, spec))
+            return o.detach()
+
+        o, ms = wall(run)
+        return (o, ql.grad, kl.grad, vl.grad), ms
+
+    def reference(causal, window):
+        qr, kr, vr = (x.detach().requires_grad_(True) for x in (peaky, k, v))
+        o, fwd_ms = wall_solo(torch, lambda: flash_attention(
+            qr, kr, vr, causal=causal, window=window))
+        _, bwd_ms = wall_solo(torch, lambda: o.backward(do))
+        return ([shard(t, ctx, spec) for t in (o.detach(), qr.grad, kr.grad, vr.grad)],
+                fwd_ms, fwd_ms + bwd_ms)
+
+    # gloo opens a pair's connection at its first message: open them here,
+    # outside the timed calls.
+    Exchange([torch.zeros(1, device="cuda")], ctx, CTX_AXIS).wait()
+    ring_rows = []
+    for window in (None, MESH_RING_WINDOW):
+        route = ring.backward_route(shard(q, ctx, spec), shard(k, ctx, spec),
+                                    causal=True, window=window)
+        blocks = [shard(x, ctx, spec) for x in (peaky, k, v)]
+        fwd = counted(lambda: wall(lambda: ring.ring_attention(
+            ctx, *blocks, causal=True, window=window)))[1]
+        del blocks
+        got, total = counted(lambda: ring_call(peaky, True, window))
+        # The reference in one rank at a time: rank 0's alone is timed.
+        ref = None
+        for r in range(world):
+            dist.barrier()
+            if r == rank:
+                ref = reference(True, window)
+        want, ref_fwd, ref_total = ref
+        errs = {n: _rel_err(torch, a, b, world)
+                for n, a, b in zip(("o", "dq", "dk", "dv"), got, want)}
+        # Control 1: the last live rotation dropped (forward).
+        steps = ring._live_ring_steps
+        ring._live_ring_steps = lambda *a: steps(*a) - 1
+        try:
+            ctrl, _ = ring_call(peaky, True, window, backward=False)
+        finally:
+            ring._live_ring_steps = steps
+        ctrl_o = _rel_err(torch, ctrl[0], want[0], world)
+        row = dict(case="causal" if window is None else f"causal window {window}",
+                   S=c["s"], S_per_rank=c["s"] // world, backward_route=route,
+                   live_steps=steps(world, True, window, c["s"] // world),
+                   rel_err=errs, control_last_rotation_dropped_rel_err=ctrl_o,
+                   ring_fwd_ms=max_over_ranks(fwd),
+                   ring_fwd_bwd_ms=max_over_ranks(total),
+                   whole_sequence_fwd_ms=ref_fwd, whole_sequence_fwd_bwd_ms=ref_total)
+        if window is not None:
+            # Control 2: dK/dV not sent home (a 3-hop exchange after the
+            # window's 2 live steps; the 1-hop one of the global ring would
+            # cost a second global backward).
+            home = ring._send_home
+            ring._send_home = lambda dk, dv, *a: (dk, dv)
+            try:
+                ctrl2, _ = ring_call(peaky, True, window)
+            finally:
+                ring._send_home = home
+            row["control_no_home_hop_rel_err"] = {
+                n: _rel_err(torch, ctrl2[i], want[i], world)
+                for i, n in ((2, "dk"), (3, "dv"))}
+        ring_rows.append(row)
+        del got, want, ref, ctrl
+    out["ring"] = ring_rows
+    section("ring")
+
+    # (b) The quantized ring (B7) at the same shape: on the peaky queries
+    # against B7 on the whole sequence, on the unscaled inputs against the
+    # bf16 ring (B1) on the same blocks; each with the ring without its
+    # first step (each rank's own shard: the diagonal, when causal) as the
+    # control.
+    kind = ring._step_kind
+
+    def quant_ring(blocks, kv_dtype, causal, control=False):
+        if control:
+            ring._step_kind = lambda causal, idx, step, n: (
+                "skip" if step == 0 else kind(causal, idx, step, n))
+        try:
+            return ring.ring_attention_quantized(ctx, *blocks, kv_dtype=kv_dtype,
+                                                 causal=causal)
+        finally:
+            ring._step_kind = kind
+
+    sharp = [shard(x, ctx, spec) for x in (peaky, k, v)]
+    unscaled = [shard(x, ctx, spec) for x in (q, k, v)]
+    bf16 = {}
+    quant_rows = []
+    for name, causal in MESH_QUANT:
+        kv_dtype = name if name == "int4" else getattr(torch, name)
+        if causal not in bf16:
+            bf16[causal] = wall(lambda: ring.ring_attention(ctx, *unscaled, causal=causal))
+        oq, ms = counted(lambda: wall(lambda: quant_ring(unscaled, kv_dtype, causal)))
+        o_sharp = counted(lambda: quant_ring(sharp, kv_dtype, causal))
+        kq, vq = quantize_kv(k, v, kv_dtype)
+        whole = shard(flash_attention_quantized_kv(peaky, kq, vq, causal=causal),
+                      ctx, spec)
+        del kq, vq
+        ctrl_sharp = quant_ring(sharp, kv_dtype, causal, control=True)
+        ctrl_unscaled = quant_ring(unscaled, kv_dtype, causal, control=True)
+        o_bf16, bf16_ms = bf16[causal]
+        quant_rows.append(dict(
+            kv_dtype=name, causal=causal,
+            whole_sequence_rel_err=_rel_err(torch, o_sharp, whole, world),
+            control_whole_sequence_rel_err=_rel_err(torch, ctrl_sharp, whole, world),
+            bf16_ring_mean_rel_err=_mean_rel_err(torch, oq, o_bf16),
+            control_bf16_ring_mean_rel_err=_mean_rel_err(torch, ctrl_unscaled, o_bf16),
+            bf16_ring_rel_err=_rel_err(torch, oq, o_bf16, world),
+            ms=max_over_ranks(ms), bf16_ring_ms=max_over_ranks(bf16_ms)))
+        del oq, o_sharp, whole, ctrl_sharp, ctrl_unscaled
+    out["quant_ring"] = quant_rows
+    del q, k, v, do, peaky, bf16, sharp, unscaled
+    torch.cuda.empty_cache()
+    section("quant_ring")
+
+    # (c) TransformerConfig.base() trained two AdamW steps (no warmup, so
+    # the second loss reads moved weights) on {ctx 4} (8192 inputs, 2048 a
+    # rank) and on {data 2, model 2} (B4 S2048), beside the unsharded steps.
+    cfg = transformer.TransformerConfig.base()
+    full = transformer.init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                                   device="cuda")
+    opt = training.make_optimizer(learning_rate=1e-3, warmup_steps=0, decay_steps=100)
+    train_rows = {}
+    for layout, shape, tshape in (("ctx4", {CTX_AXIS: world}, (1, 8193)),
+                                  ("dp2_tp2", {DATA_AXIS: 2, "model": 2}, (4, 2049))):
+        mesh = make_device_mesh(shape, device="cuda")
+        tokens = torch.from_numpy(np.random.default_rng(34).integers(
+            0, cfg.vocab_size, tshape)).cuda()
+        state = training.init_train_state(transformer.shard_params(full, mesh, cfg), opt)
+        step = training.make_optax_train_step(cfg, opt, mesh=mesh)
+        losses, times = [], []
+        for _ in range(2):
+            (state, m), ms = counted(lambda: wall(lambda: step(state, tokens)))
+            losses.append(float(m["loss"]))
+            times.append(ms)
+        del state
+        torch.cuda.empty_cache()
+        row = dict(tokens=list(tshape), losses=losses,
+                   step_ms=[max_over_ranks(t) for t in times],
+                   peak_gib=max_over_ranks(torch.cuda.max_memory_allocated() / 2 ** 30))
+        dist.barrier()
+        if rank == 0:
+            state1 = training.init_train_state(full, opt)
+            step1 = training.make_optax_train_step(cfg, opt)
+            ref, ref_ms = [], []
+            for _ in range(2):
+                (state1, m), ms = wall_solo(torch, lambda: step1(state1, tokens))
+                ref.append(float(m["loss"]))
+                ref_ms.append(ms)
+            row.update(unsharded_losses=ref, unsharded_step_ms=ref_ms)
+            del state1
+            torch.cuda.empty_cache()
+        dist.barrier()
+        train_rows[layout] = row
+    out["train"] = train_rows
+    del full
+    torch.cuda.empty_cache()
+    section("train")
+
+    # (d) fp32 parity at 4 layers of the same width: two AdamW steps (no
+    # warmup) on each layout against the unsharded steps: the losses and
+    # grad_norms, the first step's gradients (its first Adam moment) and
+    # the parameters after the second.  The step size is 1e-4: at 1e-3
+    # ctx4's parameters read 1.03e-4 off (atol 1e-4) with the loss 8.7e-8
+    # off.  Adam moves an element by lr * g / (|g| + eps), which turns the
+    # fp32 reassociation of a sharded sum into up to a whole step where |g|
+    # is near eps; the worst element's gradient is printed to show it.
+    # Each layout's control must fail: one step, its gradients checked.
+    cfg32 = dataclasses.replace(transformer.TransformerConfig.base(
+        dtype=torch.float32, attn_tile_dtype=None), n_layers=4)
+    p32 = transformer.init_params(torch.Generator(device="cuda").manual_seed(1), cfg32,
+                                  device="cuda")
+    opt32 = training.make_optimizer(learning_rate=1e-4, warmup_steps=0, decay_steps=10)
+    tokens32 = torch.from_numpy(np.random.default_rng(35).integers(
+        0, cfg32.vocab_size, (2, 257))).cuda()
+
+    def steps32(mesh, n=2):
+        params = p32 if mesh is None else transformer.shard_params(p32, mesh, cfg32)
+        state = training.init_train_state(params, opt32)
+        step = training.make_optax_train_step(cfg32, opt32, mesh=mesh)
+        res = dict(losses=[], grad_norms=[])
+        for i in range(n):
+            state, m = step(state, tokens32)
+            res["losses"].append(float(m["loss"]))
+            res["grad_norms"].append(float(m["grad_norm"]))
+            trees = dict(mu=state.opt_state.mu) if i == 0 else {}
+            if i == n - 1:
+                trees["params"] = state.params
+            for key, tree in trees.items():
+                res[key] = transformer.tree_leaves(
+                    tree if mesh is None else transformer.gather_params(tree, mesh, cfg32))
+        return res
+
+    summed = transformer.all_reduce_coalesced
+
+    parity = {}
+    for layout, shape in (("ctx4", {CTX_AXIS: world}),
+                          ("dp2_tp2", {DATA_AXIS: 2, "model": 2})):
+        mesh = make_device_mesh(shape, device="cuda")
+        res = counted(lambda: steps32(mesh))
+        if layout == "ctx4":
+            steps = ring._live_ring_steps
+            ring._live_ring_steps = lambda *a: steps(*a) - 1
+            try:
+                ctrl = steps32(mesh, n=1)
+            finally:
+                ring._live_ring_steps = steps
+        else:
+            # value_and_grad's sum of the gradients over data left out.
+            transformer.all_reduce_coalesced = lambda grads, *a: list(grads)
+            try:
+                ctrl = steps32(mesh, n=1)
+            finally:
+                transformer.all_reduce_coalesced = summed
+        parity[layout] = (res, ctrl)
+    dist.barrier()
+    if rank == 0:
+        ref = steps32(None)
+        b1 = opt32.b1
+
+        def compare(res):
+            n = len(res["losses"])
+            row = dict(
+                loss_rel_err=max(abs(a - b) / abs(b)
+                                 for a, b in zip(res["losses"], ref["losses"][:n])),
+                grad_norm_rel_err=max(abs(a - b) / abs(b) for a, b in
+                                      zip(res["grad_norms"], ref["grad_norms"][:n])),
+                grad_rel_err=max(float((a - b).abs().max() / b.abs().max())
+                                 for a, b in zip(res["mu"], ref["mu"])))
+            if "params" in res:
+                diffs = [(a - b).abs() for a, b in zip(res["params"], ref["params"])]
+                i = max(range(len(diffs)), key=lambda j: float(diffs[j].max()))
+                at = int(diffs[i].argmax())
+                # The worst element's clipped gradient on each side (the
+                # first moment over 1 - b1) and its leaf's largest.
+                g_mesh, g_ref = (float(t["mu"][i].flatten()[at]) / (1 - b1)
+                                 for t in (res, ref))
+                row.update(param_max_abs_err=float(diffs[i].max()),
+                           worst_param=dict(
+                               leaf=i, shape=list(diffs[i].shape), index=at,
+                               grad=g_mesh, unsharded_grad=g_ref,
+                               leaf_max_abs_grad=float(ref["mu"][i].abs().max())
+                               / (1 - b1)))
+            return row
+
+        out["fp32_parity"] = {
+            layout: dict(**compare(res), control=compare(ctrl),
+                         control_kind="ring's last live rotation dropped"
+                         if layout == "ctx4" else "gradients not summed over data")
+            for layout, (res, ctrl) in parity.items()}
+    dist.barrier()
+    del p32, parity
+    torch.cuda.empty_cache()
+    section("fp32_parity")
+
+    # (e) The scaling benchmark's three layouts (tiny model, batch 8, 512).
+    out["scaling"] = scaling_rank("cuda", 8, 512, 2, transformer.TransformerConfig.tiny())
+    section("scaling")
+    out["launches"] = dict(launches)
+    return out if rank == 0 else {"launches": dict(launches)}
+
+
+def wall_solo(torch, fn):
+    """(fn(), wall ms) in one rank while the others wait."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, (time.perf_counter() - t0) * 1e3
+
+
+def phase_mesh_nccl(torch, np, transformer, training, distributed, mesh_mod):
+    """Phase 34 (a): one rank on NCCL.  initialize_distributed from the
+    environment this phase sets (world size 1), a {data 1, model 1, ctx 1}
+    mesh on cuda:0, and the base model's AdamW steps (B4 S2048, bf16) on it
+    against the steps without a mesh from the same weights: with every axis
+    of size 1 each collective is the identity and attention takes the
+    head-parallel route (flash_attention), so losses and every parameter
+    must be bitwise equal."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(MASTER_ADDR="localhost", MASTER_PORT=str(port), WORLD_SIZE="1",
+               RANK="0", LOCAL_RANK="0")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        if not distributed.initialize_distributed():
+            raise AssertionError("phase 34: initialize_distributed did not start")
+        backend = dist.get_backend()
+        mesh = mesh_mod.make_device_mesh({"data": 1, "model": 1, "ctx": 1})
+        cfg = transformer.TransformerConfig.base()
+        params = transformer.init_params(torch.Generator(device="cuda").manual_seed(3),
+                                         cfg, device="cuda")
+        tokens = np.random.default_rng(36).integers(0, cfg.vocab_size, (4, 2049))
+        opt = training.make_optimizer(learning_rate=1e-3, warmup_steps=1,
+                                      decay_steps=100)
+        runs = {}
+        for name, m in (("no_mesh", None), ("mesh", mesh)):
+            state = training.init_train_state(params, opt)
+            step = training.make_optax_train_step(cfg, opt, mesh=m)
+            reset_counts(TRAIN_KERNELS)
+            losses = []
+            for _ in range(2):
+                state, metrics = step(state, tokens)
+                losses.append(metrics["loss"].item())
+            runs[name] = (losses, transformer.tree_leaves(state.params),
+                          read_counts(TRAIN_KERNELS))
+        equal = runs["mesh"][0] == runs["no_mesh"][0] and all(
+            torch.equal(a, b) for a, b in zip(runs["mesh"][1], runs["no_mesh"][1]))
+        res = dict(backend=backend, mesh=mesh.shape, losses=runs["mesh"][0],
+                   no_mesh_losses=runs["no_mesh"][0], bitwise_equal=equal,
+                   launches=runs["mesh"][2])
+        log("mesh one rank (NCCL)", json.dumps(res))
+        if backend != "nccl" or not equal:
+            raise AssertionError(f"phase 34 (a): {res}")
+        return res
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_mesh_ranks(launch):
+    """Phase 34 (b): mesh_rank on 4 gloo ranks sharing the card; the gates
+    checked here on rank 0's results (every row logged first), the
+    launches summed over the ranks."""
+    results = launch.run("chip_smoke:mesh_rank", 4, timeout=MESH_TIMEOUT)
+    out = results[0]
+    launches = {n: sum(r["launches"].get(n, 0) for r in results) for n in MESH_KERNELS}
+    out["launches"] = launches
+    card = card_line()
+    for row in out["ring"]:
+        log("mesh ring (4 ranks on one card)", card, json.dumps(row))
+    for row in out["quant_ring"]:
+        log("mesh quantized ring (4 ranks on one card)", card, json.dumps(row))
+    for layout, row in out["train"].items():
+        log(f"mesh base training {layout} (4 ranks on one card)", card, json.dumps(row))
+    for layout, row in out["fp32_parity"].items():
+        log(f"mesh fp32 parity {layout}", json.dumps(row))
+    log("mesh scaling layouts: 4 ranks on one H100, not multi-GPU scaling", card,
+        json.dumps(out["scaling"]))
+    log("mesh launches (summed over the 4 ranks)", json.dumps(launches))
+    log("mesh rank 0's seconds by part", json.dumps(out["seconds"]))
+
+    for row in out["ring"]:
+        gates = dict(o=B1_TOL["bf16"], dq=BWD_TOL["bf16"], dk=BWD_TOL["bf16"],
+                     dv=BWD_TOL["bf16"])
+        if any(row["rel_err"][n] > t for n, t in gates.items()):
+            raise AssertionError(f"phase 34: the ring disagrees: {row}")
+        if row["control_last_rotation_dropped_rel_err"] <= B1_TOL["bf16"]:
+            raise AssertionError(f"phase 34: the dropped-rotation control passed: {row}")
+        if "control_no_home_hop_rel_err" in row and min(
+                row["control_no_home_hop_rel_err"].values()) <= BWD_TOL["bf16"]:
+            raise AssertionError(f"phase 34: the no-home-hop control passed: {row}")
+    for row in out["quant_ring"]:
+        tol = QUANT_RING_MEAN_TOL[row["kv_dtype"]]
+        if not (row["whole_sequence_rel_err"] <= B1_TOL["bf16"]
+                and row["bf16_ring_mean_rel_err"] <= tol):
+            raise AssertionError(f"phase 34: the quantized ring disagrees: {row}")
+        if (row["control_whole_sequence_rel_err"] <= B1_TOL["bf16"]
+                or row["control_bf16_ring_mean_rel_err"] <= tol):
+            raise AssertionError(f"phase 34: a quantized ring's control passed: {row}")
+    for layout, row in out["train"].items():
+        if not all(math.isfinite(x) for x in row["losses"]):
+            raise AssertionError(f"phase 34: {layout} loss not finite: {row}")
+
+    def grads_ok(row):
+        return (row["loss_rel_err"] <= MESH_LOSS_RTOL
+                and row["grad_norm_rel_err"] <= MESH_LOSS_RTOL
+                and row["grad_rel_err"] <= MESH_GRAD_TOL)
+
+    for layout, row in out["fp32_parity"].items():
+        if not (grads_ok(row) and row["param_max_abs_err"] <= MESH_PARAM_ATOL) \
+                or grads_ok(row["control"]):
+            raise AssertionError(f"phase 34: fp32 parity {layout}: {row}")
+    if not (launches["fa2_forward"] and launches["fa2_forward_window"]
+            and launches["fa2_backward_fused"] and launches["fa2_backward_dq"]
+            and launches["fa2_backward_dkv"] and launches["fa2_forward_quant"]):
+        raise AssertionError(f"phase 34: a kernel of the mesh path never ran: {launches}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4969,6 +5542,9 @@ def main() -> int:
     from cuda_flash_attention_tpu_torch import quant
     from cuda_flash_attention_tpu_torch.models import lora, moe, training, transformer
     from cuda_flash_attention_tpu_torch.ops import reference
+    from cuda_flash_attention_tpu_torch.parallel import distributed as par_dist
+    from cuda_flash_attention_tpu_torch.parallel import launch
+    from cuda_flash_attention_tpu_torch.parallel import mesh as par_mesh
     from cuda_flash_attention_tpu_torch.scripts import b1_ab, fp32_bwd, kernel_ab
     from cuda_flash_attention_tpu_torch.scripts import r5_d128_fwd as r5
     from cuda_flash_attention_tpu_torch.utils import (
@@ -5114,7 +5690,7 @@ def main() -> int:
     window_train = phase_window_train(torch, np, transformer, training, dataclasses)
     window_parity = {
         name: phase_train_parity(torch, np, transformer, training, label=name,
-                                 tokens_shape=(1, 257), **kw)
+                                 tokens_shape=(1, 129), **kw)
         for name, kw in (("hybrid w64", dict(attn_window=64, global_every=2)),
                          ("streaming w96 s4", dict(attn_window=96, attn_sinks=4)))}
     log(f"phase 26: windowed and packed training ok in "
@@ -5194,6 +5770,14 @@ def main() -> int:
     log(f"phase 33: MoE prompt-lookup speculation card vs CPU, Llama-3-8B's layout "
         f"imported, served at 32 layers and trained at 2 from native-loader batches "
         f"ok in {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh_one = phase_mesh_nccl(torch, np, transformer, training, par_dist, par_mesh)
+    mesh_run = phase_mesh_ranks(launch)
+    log(f"phase 34: training on a mesh (one NCCL rank; 4 gloo ranks on the card: "
+        f"ring, quantized ring, base model on ctx 4 and data 2 x model 2, fp32 "
+        f"parity, scaling layouts) ok in {time.perf_counter() - t0:.1f} s")
 
     # Representative shapes for the kernel line: the serving phase's largest
     # prefill (B4 S1536 bf16) and the int8 cache with bf16 compute.
@@ -5511,6 +6095,14 @@ def main() -> int:
                 k["d256_fp32_cache"]["tiles"] = {
                     c: wide_row(wide_paged, case=f"B6 {c} D256", cache="fp32")
                     for c in ("T512", "T512 fp32")}
+    # Phase 34: the mesh path's launches summed over the 4 ranks (the
+    # rings, the quantized rings, the base model's steps on both layouts
+    # and the fp32 parity steps), B1's windowed launches beside them.
+    for k in kernels:
+        if k["name"] in mesh_run["launches"]:
+            k["launches_mesh"] = mesh_run["launches"][k["name"]]
+        if k["name"] == "fa2_forward":
+            k["launches_mesh_window"] = mesh_run["launches"]["fa2_forward_window"]
     log("fp16 tiles:", json.dumps({"B1 Stress-1": b1_fp16, "B2-B4": [
         {k: r[k] for k in ("kernel", "inputs", "B", "S", "causal", "ms",
                            "bound_ms", "library_ms", "rel_err")} for r in bwd_fp16]}))
@@ -5539,6 +6131,8 @@ def main() -> int:
                         "max_memory_allocated_gib")},
                     "moe_speculation_equal": moe_spec["equal"],
                     "quant_grads": quant_grads, "checkpoint": ckpt,
+                    "mesh_one_rank_nccl": mesh_one,
+                    "mesh_fp32_parity": mesh_run["fp32_parity"],
                     "gemma2_train": {k: gemma2_train[k] for k in (
                         "losses", "step_ms_median", "tokens_per_s",
                         "max_memory_allocated_gib", "mfu_bf16_peak", "split_loss")},

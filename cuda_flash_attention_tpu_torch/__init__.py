@@ -15,7 +15,10 @@ AdamW train steps) and the reference contract (the dispatch registry, the
 CLI, the accuracy and benchmark harness, the small-shape FA2 forward and
 the FA1 / naive-FA2 baseline kernels), and the quantized path (the
 quantized-KV FA2 forward, fp8 and int4 paged caches, int8/fp8/int4 and W8A8
-weights, LoRA).  This package imports torch and numpy, never jax.
+weights, LoRA), and training on a device mesh over torch.distributed
+(parallel/: ring attention, head-parallel attention, data x model x
+context-parallel train steps).  This package imports torch and numpy,
+never jax.
 """
 
 __version__ = "0.1.0"

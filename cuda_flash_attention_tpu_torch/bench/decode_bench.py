@@ -271,8 +271,10 @@ def measure_engine_throughput(cfg: TransformerConfig, batch: int = 16,
     from cuda_flash_attention_tpu_torch.decode.engine import DecodeEngine
 
     if mesh is not None:
-        raise NotImplementedError("tensor-parallel serving (meshes) is not "
-                                  "ported yet")
+        raise NotImplementedError(
+            "tensor-parallel serving is not ported yet: serving on a mesh "
+            "(decode/sharded.py, the engine's DP/TP path) is a later slice of "
+            "the port")
     device = resolve_device(device)
     params = init_params(torch.Generator(device=device).manual_seed(0), cfg,
                          device=device)
@@ -328,9 +330,11 @@ def measure_engine_throughput(cfg: TransformerConfig, batch: int = 16,
 
 def tp_decode_dryrun(cfg: TransformerConfig, tp: int = 2, batch: int = 4,
                      gen_tokens: int = 4) -> dict:
-    """The JAX package's tensor-parallel serving dry run: meshes are not
-    ported yet."""
-    raise NotImplementedError("tensor-parallel serving (meshes) is not ported yet")
+    """The JAX package's tensor-parallel serving dry run: serving on a mesh
+    is not ported yet (training on one is, parallel/)."""
+    raise NotImplementedError(
+        "tensor-parallel serving is not ported yet: serving on a mesh "
+        "(decode/sharded.py, the engine's DP/TP path) is a later slice of the port")
 
 
 def _cache_dtype(args):

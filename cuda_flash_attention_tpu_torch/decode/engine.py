@@ -57,7 +57,8 @@ Counterpart of cuda_flash_attention_tpu/decode/engine.py:
     them.
 
 Entry points run on the CUDA card unless `device="cpu"` is given, which
-runs the kernels' plain versions.  Not ported yet (and refused): meshes.
+runs the kernels' plain versions.  Not ported yet (and refused): serving on
+a mesh (decode/sharded.py; training on a mesh is ported, parallel/).
 """
 
 from __future__ import annotations
@@ -150,10 +151,6 @@ def _stop_hit(tokens: list[int], stop) -> bool:
                for s in stop)
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"DecodeEngine: {what} is not ported yet")
-
-
 class DecodeEngine:
     """Continuous-batching generation over a quantized paged KV cache.
     ``cache_dtype`` (target and draft caches) is torch.int8, "int4",
@@ -186,7 +183,10 @@ class DecodeEngine:
                  prefill_chunk: int | None = None, scan_layers: bool = False,
                  decode_burst: int = 1, prefill_burst_cap: int = 8):
         if mesh is not None:
-            raise _not_ported("a mesh")
+            raise NotImplementedError(
+                "DecodeEngine: serving on a mesh (decode/sharded.py, the "
+                "engine's DP/TP path) is a later slice of the port; training "
+                "on a mesh is ported (parallel/)")
         if scan_layers and any(set(layer) != set(params["layers"][0])
                                for layer in params["layers"]):
             # JAX's stack_layer_params refuses a heterogeneous stack.

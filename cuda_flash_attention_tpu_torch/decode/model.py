@@ -9,8 +9,8 @@ is not kept: JAX scans it to compile one layer body, and eager PyTorch
 compiles nothing, so the engine's scan_layers runs this list form.  Each
 layer attends with its own window (cfg.layer_window(i)) and, where it has
 one, the config's sinks; `page_table` is one table, or a per-layer list
-under the engine's hybrid window-group cache (`_table_for`).  Not ported
-yet (and refused): meshes.
+under the engine's hybrid window-group cache (`_table_for`).  Serving on a
+mesh (decode/sharded.py) is not ported yet; DecodeEngine refuses a mesh.
 """
 
 from __future__ import annotations

@@ -20,6 +20,7 @@ exception.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -79,9 +80,19 @@ def build(*names: str) -> dict[str, str]:
     lists the longest first keeps every core busy to the end instead of
     sharing them among all the compilers at once).  Returns each new
     build's compiler log (ptxas register and shared-memory report); raises
-    with the log of any source that failed."""
-    pending = []
+    with the log of any source that failed.  Processes that build at once
+    take turns (a file lock in the build directory)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # One builder at a time across processes (the ranks of a mesh on one
+    # host load the same libraries): a second caller waits here, then finds
+    # what the first built.
+    with open(BUILD_DIR / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        return _build_locked(names)
+
+
+def _build_locked(names) -> dict[str, str]:
+    pending = []
     slots = threading.Semaphore(os.cpu_count() or 1)
     outputs, threads = {}, []
 

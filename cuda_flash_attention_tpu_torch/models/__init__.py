@@ -22,11 +22,14 @@ from cuda_flash_attention_tpu_torch.models.transformer import (  # noqa: F401
     TransformerConfig,
     ffn_block,
     forward,
+    gather_params,
     gqa_flash_attention,
     init_opt_state,
     init_params,
     loss_fn,
     make_train_step,
+    param_split_dims,
     rms_norm,
     rope,
+    shard_params,
 )

@@ -20,7 +20,15 @@ trained like any floating-point leaf, its integer values stay frozen (zero
 gradient and zero update: JAX's allow_int path gives them zero gradients,
 and its optax step cannot clip an integer leaf).  An fp8 leaf's moments and
 update are computed in fp32 and stored in fp8.  train_loop saves
-checkpoints with utils/checkpoint.py.  Meshes are not ported.
+checkpoints with utils/checkpoint.py.
+
+With a mesh (`mesh=`; parallel/mesh.py) the step is this rank's part of a
+data x model x context-parallel step: the parameters and the optimizer
+state are the rank's blocks (transformer.shard_params), the tokens the
+global batch on every rank, the gradients arrive summed over data and ctx
+(transformer.value_and_grad), the global norm sums the squares of the
+model-split leaves over "model" once (so it equals the unsharded norm), and
+AdamW runs on the local blocks.  The LoRA optimizer takes no mesh.
 """
 
 from __future__ import annotations
@@ -42,9 +50,14 @@ from cuda_flash_attention_tpu_torch.models.transformer import (
     array_map,
     init_params,
     loss_fn,
+    param_split_dims,
+    shard_params,
     tree_leaves,
+    tree_map,
     value_and_grad,
 )
+from cuda_flash_attention_tpu_torch.parallel.collectives import all_reduce_coalesced
+from cuda_flash_attention_tpu_torch.parallel.mesh import MODEL_AXIS
 
 _FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
 
@@ -81,9 +94,22 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
     return schedule
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every array, in fp32 (optax.global_norm)."""
-    return torch.sqrt(sum(torch.sum(g.float().square()) for g in array_leaves(tree)))
+def global_norm(tree, mesh=None, cfg: TransformerConfig | None = None) -> torch.Tensor:
+    """sqrt of the sum of squares of every array, in fp32 (optax.global_norm).
+    With a mesh, `tree` holds this rank's blocks (a gradient tree shaped
+    like the parameters of `cfg`) and each model-split leaf's sum of
+    squares is summed over "model" first: the norm of the full tree."""
+    if mesh is None or mesh.size(MODEL_AXIS) == 1:
+        return torch.sqrt(sum(torch.sum(g.float().square())
+                              for g in array_leaves(tree)))
+
+    # Each leaf's sum of squares; the model-split leaves' summed over
+    # "model" in one collective.
+    replicated, split = [], []
+    tree_map(lambda g, dim: (replicated if dim is None else split).append(
+        torch.sum(g.float().square())), tree, param_split_dims(cfg))
+    split = all_reduce_coalesced(split, mesh, MODEL_AXIS)
+    return torch.sqrt(sum(replicated) + sum(split))
 
 
 class Optimizer:
@@ -104,9 +130,12 @@ class Optimizer:
 
         return AdamWState(0, array_map(zeros, params), array_map(zeros, params))
 
-    def update(self, grads, state: AdamWState, params):
+    def update(self, grads, state: AdamWState, params, g_norm=None):
+        """`g_norm`: the gradients' global norm where the caller has it
+        (a mesh step's, over every rank's blocks); else global_norm."""
         b1, b2, c = self.b1, self.b2, self.clip_norm
-        g_norm = global_norm(grads)
+        if g_norm is None:
+            g_norm = global_norm(grads)
         keep = g_norm < c
         count = state.count + 1
         bc1 = 1 - b1 ** count
@@ -155,8 +184,8 @@ class Optimizer:
         return params
 
     @staticmethod
-    def value_and_grad(params, tokens, cfg: TransformerConfig):
-        return value_and_grad(params, tokens, cfg)
+    def value_and_grad(params, tokens, cfg: TransformerConfig, mesh=None):
+        return value_and_grad(params, tokens, cfg, mesh)
 
 
 class LoRAOptimizer:
@@ -172,8 +201,8 @@ class LoRAOptimizer:
     def init(self, params) -> AdamWState:
         return self.inner.init(lora_adapters(params))
 
-    def update(self, grads, state: AdamWState, params):
-        return self.inner.update(grads, state, lora_adapters(params))
+    def update(self, grads, state: AdamWState, params, g_norm=None):
+        return self.inner.update(grads, state, lora_adapters(params), g_norm)
 
     @staticmethod
     def apply_updates(params, updates):
@@ -223,7 +252,7 @@ def init_train_state(params, optimizer: Optimizer) -> TrainState:
 
 
 def make_optax_train_step(cfg: TransformerConfig, optimizer: Optimizer,
-                          grad_accum: int = 1):
+                          grad_accum: int = 1, mesh=None):
     """Returns step(state, tokens) -> (state, metrics), metrics holding
     "loss", "grad_norm" (before clipping, over what the optimizer trains:
     every leaf, or a LoRA optimizer's adapters) and "step".  Tokens [B, S + 1]
@@ -231,11 +260,17 @@ def make_optax_train_step(cfg: TransformerConfig, optimizer: Optimizer,
 
     ``grad_accum`` > 1 splits the batch into that many microbatches run one
     after another; their fp32 gradients and losses are averaged, so the
-    step equals the full-batch step at one microbatch's activation memory."""
+    step equals the full-batch step at one microbatch's activation memory.
+
+    ``mesh``: the step of one rank of a mesh (the module's note); the
+    microbatches split the global batch, each as the JAX step splits it."""
+    if mesh is not None and not isinstance(optimizer, Optimizer):
+        raise NotImplementedError("the LoRA optimizer takes no mesh")
+    kw = {} if mesh is None else {"mesh": mesh}
 
     def grads_of(params, tokens):
         if grad_accum <= 1:
-            return optimizer.value_and_grad(params, tokens, cfg)
+            return optimizer.value_and_grad(params, tokens, cfg, **kw)
         b = tokens.shape[0]
         if b % grad_accum:
             raise ValueError(f"batch {b} must divide into grad_accum="
@@ -245,7 +280,7 @@ def make_optax_train_step(cfg: TransformerConfig, optimizer: Optimizer,
         g_sum = array_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                 device=p.device), wrt)
         for mb in tokens.reshape(grad_accum, b // grad_accum, *tokens.shape[1:]):
-            loss, g = optimizer.value_and_grad(params, mb, cfg)
+            loss, g = optimizer.value_and_grad(params, mb, cfg, **kw)
             g_sum = array_map(lambda a, x: a + x.float(), g_sum, g)
             loss_sum = loss_sum + loss
         inv = 1.0 / grad_accum
@@ -260,10 +295,11 @@ def make_optax_train_step(cfg: TransformerConfig, optimizer: Optimizer,
         with record_function("train_step.value_and_grad"):
             loss, grads = grads_of(state.params, tokens)
         with record_function("train_step.update"):
+            g_norm = global_norm(grads, mesh, cfg)
             updates, opt_state = optimizer.update(grads, state.opt_state,
-                                                  state.params)
+                                                  state.params, g_norm)
             params = optimizer.apply_updates(state.params, updates)
-            metrics = {"loss": loss, "grad_norm": global_norm(grads),
+            metrics = {"loss": loss, "grad_norm": g_norm,
                        "step": state.step + 1}
         return TrainState(params, opt_state, state.step + 1), metrics
 
@@ -273,10 +309,12 @@ def make_optax_train_step(cfg: TransformerConfig, optimizer: Optimizer,
 def train_loop(cfg: TransformerConfig, data_iter, *, num_steps: int,
                params=None, optimizer: Optimizer | None = None,
                checkpoint_dir: str | None = None, checkpoint_every: int = 0,
-               log_every: int = 10, seed: int = 0, device=None) -> TrainState:
+               log_every: int = 10, seed: int = 0, device=None,
+               mesh=None) -> TrainState:
     """Host loop over a token iterator; returns the final TrainState.  New
     parameters come from a CPU generator seeded with `seed` and go to
-    `device` (None means the card).  With checkpoint_dir and
+    `device` (None means the card); with a mesh, a rank keeps its blocks of
+    them (and `params`, when given, are its blocks).  With checkpoint_dir and
     checkpoint_every, every checkpoint_every-th step saves (params,
     opt_state, step) there (utils/checkpoint.py), after a finiteness check
     of its loss."""
@@ -287,8 +325,10 @@ def train_loop(cfg: TransformerConfig, data_iter, *, num_steps: int,
     if params is None:
         params = init_params(torch.Generator().manual_seed(seed), cfg,
                              device=resolve_device(device))
+        if mesh is not None:
+            params = shard_params(params, mesh, cfg)
     state = init_train_state(params, optimizer)
-    step_fn = make_optax_train_step(cfg, optimizer)
+    step_fn = make_optax_train_step(cfg, optimizer, mesh=mesh)
 
     def check_finite(metrics):
         # Abort before a poisoned step goes further; checked only at log

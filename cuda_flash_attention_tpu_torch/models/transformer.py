@@ -13,7 +13,17 @@ policy that keeps the products without batch dimensions (JAX's
 checkpoint_dots_with_no_batch_dims).  value_and_grad differentiates every
 floating-point array of the tree, a QuantizedTensor's scales (and fp8
 values) included; integer arrays get zero gradients, as JAX's allow_int.
-Meshes are not ported.
+
+With a mesh (parallel/mesh.py) the same functions run this rank's part of
+a data x model x context-parallel step, and the collectives that GSPMD
+inserts for the JAX package are explicit (parallel/collectives.py): the
+projections into the heads and the feed-forward's columns take their
+input through `copy_to` (identity; the gradient all-reduced over "model"),
+the output and down projections' partial sums through `reduce_from`
+(all-reduce over "model"; identity backward), attention goes to the ring
+(ctx > 1) or to the local heads, RoPE takes the span's global positions,
+and the loss is the token mean over data x ctx.  shard_params and
+gather_params move a tree between its full form and a rank's blocks.
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ import dataclasses
 import functools
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import (
     CheckpointPolicy,
@@ -32,6 +43,26 @@ from torch.utils.checkpoint import (
 from cuda_flash_attention_tpu_torch._device import resolve_device
 from cuda_flash_attention_tpu_torch.kernels.attention import flash_attention
 from cuda_flash_attention_tpu_torch.models.moe import init_moe_layer, moe_ffn
+from cuda_flash_attention_tpu_torch.parallel.collectives import (
+    all_gather,
+    all_reduce,
+    all_reduce_coalesced,
+    copy_to,
+    gather_from,
+    local_slice,
+    reduce_from,
+)
+from cuda_flash_attention_tpu_torch.parallel.mesh import (
+    CTX_AXIS,
+    DATA_AXIS,
+    EXPERT_AXIS,
+    MODEL_AXIS,
+)
+from cuda_flash_attention_tpu_torch.parallel.ring import ring_attention
+from cuda_flash_attention_tpu_torch.parallel.sharded import (
+    head_parallel_attention,
+    shard,
+)
 from cuda_flash_attention_tpu_torch.quant.linear import dense
 from cuda_flash_attention_tpu_torch.quant.qtensor import QuantizedTensor
 
@@ -213,50 +244,116 @@ def rope(x, positions, theta: float, pos_scale: float = 1.0):
 
 
 def gqa_flash_attention(q, k, v, *, cfg: TransformerConfig,
-                        causal: bool = True, window: int | None = None):
-    """Grouped-query attention over the FA2 forward kernel: q [B, Hq, S, D],
-    k/v [B, Hkv, S, D]; query head h reads KV head h // (Hq // Hkv) inside
-    the kernel (no repeated KV).  The single-device branch of the JAX
-    function; meshes are not ported yet."""
+                        causal: bool = True, window: int | None = None,
+                        mesh=None):
+    """Grouped-query attention over the FA2 kernels: q [B, Hq, S, D], k/v
+    [B, Hkv, S, D]; query head h reads KV head h // (Hq // Hkv) inside the
+    kernel (no repeated KV).  With a mesh, q/k/v are this rank's blocks and
+    the call routes as the JAX function does: a ctx axis of size > 1 to
+    ring attention (the global window decomposed into a windowed diagonal
+    step and recency bands, rotations behind it skipped), otherwise to
+    head-parallel attention on the local heads (a mesh whose model axis
+    does not divide Hkv gets repeated KV from attention_block)."""
     sinks = cfg.attn_sinks if window is not None else 0
-    return flash_attention(q, k, v, causal=causal, tile_dtype=cfg.attn_tile_dtype,
-                           window=window, sinks=sinks)
+    tile = cfg.attn_tile_dtype
+    if mesh is None:
+        return flash_attention(q, k, v, causal=causal, tile_dtype=tile,
+                               window=window, sinks=sinks)
+    if mesh.size(CTX_AXIS) > 1:
+        if sinks:
+            raise NotImplementedError(
+                "attention sinks + context parallelism: the sink shard's "
+                "position in the ring varies per device (non-static) — use "
+                "a mesh without a ctx axis for sink layers")
+        return ring_attention(mesh, q, k, v, causal=causal, tile_dtype=tile,
+                              window=window)
+    return head_parallel_attention(mesh, q, k, v, causal=causal,
+                                   tile_dtype=tile, window=window, sinks=sinks)
+
+
+def _kv_heads(h, w, cfg: TransformerConfig, mesh):
+    """K or V [B, S, heads, D] for this rank's query heads: its own KV heads
+    where the model axis divides Hkv; otherwise every KV head (the column
+    blocks gathered over "model") repeated to the query heads, this rank's
+    query heads kept (JAX's repeated-KV branch)."""
+    b, s, _ = h.shape
+    y = dense(h, w)
+    tp = 1 if mesh is None else mesh.size(MODEL_AXIS)
+    if cfg.n_kv_heads % tp == 0:
+        return y.reshape(b, s, -1, cfg.head_dim)
+    y = gather_from(y, mesh, MODEL_AXIS, 2).reshape(b, s, cfg.n_kv_heads,
+                                                   cfg.head_dim)
+    y = y.repeat_interleave(cfg.n_heads // cfg.n_kv_heads, dim=2)
+    return local_slice(y, mesh, MODEL_AXIS, 2)
 
 
 def attention_block(x, layer, positions, cfg: TransformerConfig,
-                    window: int | None = None):
+                    window: int | None = None, mesh=None):
     """Residual attention sub-layer.  Returns (x, (k, v)) with k/v post-RoPE
-    [B, S, Hkv, D], which is what a KV cache stores."""
+    [B, S, Hkv, D], which is what a KV cache stores.  With a mesh the
+    projections are this rank's column blocks (heads over "model"), the
+    output projection its row block, and its partial sums are all-reduced
+    over "model"."""
     b, s, _ = x.shape
     h = rms_norm(x, layer["attn_norm"])
-    q = dense(h, layer["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = dense(h, layer["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = dense(h, layer["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    if mesh is not None:
+        h = copy_to(h, mesh, MODEL_AXIS)
+    q = dense(h, layer["wq"]).reshape(b, s, -1, cfg.head_dim)
+    k = _kv_heads(h, layer["wk"], cfg, mesh)
+    v = _kv_heads(h, layer["wv"], cfg, mesh)
     q = rope(q, positions, *cfg.rope_args)
     k = rope(k, positions, *cfg.rope_args)
     o = gqa_flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), cfg=cfg, causal=True,
-                            window=window)
-    o = o.transpose(1, 2).reshape(b, s, cfg.q_dim)
-    return x + dense(o, layer["wo"]), (k, v)
+                            window=window, mesh=mesh)
+    o = dense(o.transpose(1, 2).reshape(b, s, -1), layer["wo"])
+    if mesh is not None:
+        o = reduce_from(o, mesh, MODEL_AXIS)
+    return x + o, (k, v)
 
 
-def ffn_block(x, layer, cfg: TransformerConfig):
+def _moe_on_mesh(h, layer, cfg: TransformerConfig, mesh):
+    """The MoE layer on a mesh of data and ctx axes, experts replicated:
+    every rank routes the whole batch (the tokens gathered over ctx, then
+    data, in the global [B, S] order, so the capacity couples the same
+    tokens as one device's call) and keeps its own block of the output."""
+    for axis in (MODEL_AXIS, EXPERT_AXIS):
+        if mesh.size(axis) > 1:
+            raise NotImplementedError(
+                f"mixture-of-experts layers on a mesh with a {axis!r} axis: "
+                "expert parallelism (JAX moe_layer_shardings) is the "
+                "expert-parallel slice of the port, not ported yet; use a "
+                "mesh of data and ctx axes (experts replicated)")
+    full = gather_from(gather_from(h, mesh, CTX_AXIS, 1), mesh, DATA_AXIS, 0)
+    y, aux = moe_ffn(full, layer, cfg)
+    return local_slice(local_slice(y, mesh, DATA_AXIS, 0), mesh, CTX_AXIS, 1), aux
+
+
+def ffn_block(x, layer, cfg: TransformerConfig, mesh=None):
     """Residual FFN: dense SwiGLU, or MoE where the layer carries a router.
     Returns (x, aux): the router's load-balance loss, 0.0 for a dense
-    layer."""
+    layer.  With a mesh, gate and up are this rank's column blocks over
+    "model", down its row block, and its partial sums are all-reduced."""
     h = rms_norm(x, layer["mlp_norm"])
     if "router" in layer:
-        y, aux = moe_ffn(h, layer, cfg)
+        if mesh is None:
+            y, aux = moe_ffn(h, layer, cfg)
+        else:
+            y, aux = _moe_on_mesh(h, layer, cfg, mesh)
         return x + y, aux
+    if mesh is not None:
+        h = copy_to(h, mesh, MODEL_AXIS)
     gate = F.silu(dense(h, layer["w_gate"]))
     up = dense(h, layer["w_up"])
-    return x + dense(gate * up, layer["w_down"]).to(x.dtype), 0.0
+    y = dense(gate * up, layer["w_down"])
+    if mesh is not None:
+        y = reduce_from(y, mesh, MODEL_AXIS)
+    return x + y.to(x.dtype), 0.0
 
 
-def _layer(x, layer, positions, cfg: TransformerConfig, window):
-    x, _ = attention_block(x, layer, positions, cfg, window=window)
-    return ffn_block(x, layer, cfg)
+def _layer(x, layer, positions, cfg: TransformerConfig, window, mesh=None):
+    x, _ = attention_block(x, layer, positions, cfg, window=window, mesh=mesh)
+    return ffn_block(x, layer, cfg, mesh)
 
 
 # The products remat "dots" keeps: those without batch dimensions (a
@@ -276,46 +373,174 @@ def _dots_context():
     return create_selective_checkpoint_contexts(_dots_policy)
 
 
-def forward(params, tokens, cfg: TransformerConfig, return_aux: bool = False):
-    """Causal LM forward: tokens [B, S] int -> logits [B, S, vocab] fp32.
-    With return_aux=True returns (logits, aux), aux being the summed router
-    loss of the mixture-of-experts layers (0.0 for a dense model)."""
+def _local_tokens(tokens, mesh):
+    """This rank's block of global tokens [B, S]: rows over data, the span
+    over ctx, with its positions (the span's first global position on)."""
+    b, s = tokens.shape
+    for axis, dim, n in ((DATA_AXIS, 0, b), (CTX_AXIS, 1, s)):
+        if n % mesh.size(axis):
+            raise ValueError(
+                f"tokens {tuple(tokens.shape)} on the mesh {mesh.shape}: "
+                f"the sharding over {axis!r} implies that the global size of "
+                f"dimension {dim} should be divisible by {mesh.size(axis)}, "
+                f"but it is equal to {n}")
+    local = shard(tokens, mesh, (DATA_AXIS, CTX_AXIS))
+    span = local.shape[1]
+    start = mesh.index(CTX_AXIS) * span
+    positions = torch.arange(start, start + span, device=tokens.device)
+    return local, positions.expand(local.shape[0], span)
+
+
+def _forward(params, tokens, positions, cfg: TransformerConfig, mesh):
+    """(logits fp32, aux) of local tokens at `positions`; with a mesh the
+    logits are this rank's vocab block."""
     if cfg.remat not in ("none", "full", "dots"):
         raise ValueError(f"unknown remat policy {cfg.remat!r}")
-    b, s = tokens.shape
-    positions = torch.arange(s, device=tokens.device).expand(b, s)
     x = params["embed"][tokens].to(cfg.dtype)
     aux_total = 0.0
     for i, layer in enumerate(params["layers"]):
         window = cfg.layer_window(i)
         if cfg.remat == "full" and torch.is_grad_enabled():
-            x, aux = checkpoint(_layer, x, layer, positions, cfg, window,
+            x, aux = checkpoint(_layer, x, layer, positions, cfg, window, mesh,
                                 use_reentrant=False)
         elif cfg.remat == "dots" and torch.is_grad_enabled():
-            x, aux = checkpoint(_layer, x, layer, positions, cfg, window,
+            x, aux = checkpoint(_layer, x, layer, positions, cfg, window, mesh,
                                 use_reentrant=False, context_fn=_dots_context)
         else:
-            x, aux = _layer(x, layer, positions, cfg, window)
+            x, aux = _layer(x, layer, positions, cfg, window, mesh)
         aux_total = aux_total + aux
     x = rms_norm(x, params["final_norm"])
-    logits = dense(x, params["lm_head"]).float()
-    return (logits, aux_total) if return_aux else logits
+    if mesh is not None:
+        x = copy_to(x, mesh, MODEL_AXIS)
+    return dense(x, params["lm_head"]).float(), aux_total
 
 
-def loss_fn(params, tokens, cfg: TransformerConfig):
+def forward(params, tokens, cfg: TransformerConfig, return_aux: bool = False,
+            mesh=None):
+    """Causal LM forward: tokens [B, S] int -> logits [B, S, vocab] fp32.
+    With return_aux=True returns (logits, aux), aux being the summed router
+    loss of the mixture-of-experts layers (0.0 for a dense model).
+
+    With a mesh, `params` are this rank's blocks (shard_params) and
+    `tokens` the global batch, the same on every rank (as a JAX program
+    sees the global array); the logits returned are this rank's block of
+    the global logits: its rows over "data", its span over "ctx" (RoPE at
+    the span's global positions) and its vocab columns over "model"."""
+    if mesh is None:
+        b, s = tokens.shape
+        positions = torch.arange(s, device=tokens.device).expand(b, s)
+    else:
+        tokens, positions = _local_tokens(tokens, mesh)
+    logits, aux = _forward(params, tokens, positions, cfg, mesh)
+    return (logits, aux) if return_aux else logits
+
+
+def _vocab_parallel_ce(logits, targets, mesh):
+    """(logsumexp, target logit) of logits split by vocab columns over
+    "model": the max and the sum of exponentials reduced over the axis, the
+    target's logit from the rank that holds its column."""
+    m = all_reduce(logits.detach().amax(dim=-1), mesh, MODEL_AXIS,
+                   op=dist.ReduceOp.MAX)
+    sumexp = reduce_from(torch.exp(logits - m[..., None]).sum(dim=-1), mesh,
+                         MODEL_AXIS)
+    lse = m + torch.log(sumexp)
+    v_local = logits.shape[-1]
+    local = targets - mesh.index(MODEL_AXIS) * v_local
+    mine = (local >= 0) & (local < v_local)
+    picked = torch.gather(logits, -1, local.clamp(0, v_local - 1)[..., None])[..., 0]
+    return lse, reduce_from(torch.where(mine, picked, 0.0), mesh, MODEL_AXIS)
+
+
+def loss_fn(params, tokens, cfg: TransformerConfig, mesh=None):
     """Next-token cross entropy (tokens [B, S + 1] serve as both input and
     target), in the fused form logsumexp(logits) - logits[target], which
     reduces straight off the logits instead of materialising log-softmax,
     plus router_aux_coef times the router loss where the model has
-    experts."""
-    logits, aux = forward(params, tokens[:, :-1], cfg, return_aux=True)
-    targets = tokens[:, 1:]
-    lse = torch.logsumexp(logits, dim=-1)
-    target_logit = torch.gather(logits, -1, targets[..., None])[..., 0]
-    loss = torch.mean(lse - target_logit)
+    experts.
+
+    With a mesh (params this rank's blocks, tokens the global batch on
+    every rank) the tokens shift before the split, each rank takes its
+    block of the inputs and targets, the logsumexp and target logit reduce
+    over "model" (the vocab split) and the loss is the token mean over data
+    x ctx: the global loss on every rank, whose gradient on each rank is
+    that of its own tokens' share (value_and_grad sums them)."""
+    if mesh is None:
+        logits, aux = forward(params, tokens[:, :-1], cfg, return_aux=True)
+        targets = tokens[:, 1:]
+        lse = torch.logsumexp(logits, dim=-1)
+        target_logit = torch.gather(logits, -1, targets[..., None])[..., 0]
+        loss = torch.mean(lse - target_logit)
+        if cfg.n_experts:
+            loss = loss + cfg.router_aux_coef * aux
+        return loss
+    inputs, positions = _local_tokens(tokens[:, :-1], mesh)
+    targets, _ = _local_tokens(tokens[:, 1:], mesh)
+    logits, aux = _forward(params, inputs, positions, cfg, mesh)
+    if mesh.size(MODEL_AXIS) == 1:
+        lse = torch.logsumexp(logits, dim=-1)
+        target_logit = torch.gather(logits, -1, targets[..., None])[..., 0]
+    else:
+        lse, target_logit = _vocab_parallel_ce(logits, targets, mesh)
+    ranks = mesh.size(DATA_AXIS) * mesh.size(CTX_AXIS)
+    loss = torch.mean(lse - target_logit) / ranks
     if cfg.n_experts:
-        loss = loss + cfg.router_aux_coef * aux
-    return loss
+        # Every rank routed the whole batch: each carries 1/ranks of it.
+        loss = loss + cfg.router_aux_coef * aux / ranks
+    return reduce_from(loss, mesh, DATA_AXIS, CTX_AXIS)
+
+
+def param_split_dims(cfg: TransformerConfig) -> dict:
+    """The tree of parameters with, at each leaf, the dim the "model" axis
+    splits (None: replicated), as JAX's param_shardings places them: wq,
+    wk, wv, w_gate, w_up and lm_head by columns (1), wo and w_down by rows
+    (0), norms, the embedding and the MoE layers' weights replicated (the
+    expert-parallel layout is not ported)."""
+    attn = {"attn_norm": None, "wq": 1, "wk": 1, "wv": 1, "wo": 0}
+    dense_mlp = {"mlp_norm": None, "w_gate": 1, "w_up": 1, "w_down": 0}
+    moe = {"mlp_norm": None, "router": None, "moe_gate": None,
+           "moe_up": None, "moe_down": None}
+    layers = [{**attn, **(moe if cfg.is_moe_layer(i) else dense_mlp)}
+              for i in range(cfg.n_layers)]
+    return {"embed": None, "layers": layers, "final_norm": None,
+            "lm_head": 1}
+
+
+def _split(x, dim, mesh):
+    """This rank's block of x (a tensor or numpy array) split along `dim`
+    over "model"."""
+    tp = mesh.size(MODEL_AXIS)
+    if dim is None or tp == 1:
+        return x
+    if isinstance(x, QuantizedTensor):
+        raise NotImplementedError("quantized weights on a model axis are "
+                                  "not ported")
+    n = x.shape[dim]
+    if n % tp:
+        raise ValueError(
+            f"a weight of shape {tuple(x.shape)} split over 'model': the "
+            f"global size of its dimension {dim} should be divisible by "
+            f"{tp}, but it is equal to {n}")
+    step = n // tp
+    lo = mesh.index(MODEL_AXIS) * step
+    return x[(slice(None),) * dim + (slice(lo, lo + step),)]
+
+
+def shard_params(params, mesh, cfg: TransformerConfig):
+    """This rank's blocks of a full parameter tree under `param_split_dims`
+    (copies, contiguous; numpy arrays are sliced the same way)."""
+    def take(x, dim):
+        y = _split(x, dim, mesh)
+        return y.contiguous() if isinstance(y, torch.Tensor) and y is not x else y
+
+    return tree_map(take, params, param_split_dims(cfg))
+
+
+def gather_params(params, mesh, cfg: TransformerConfig):
+    """The full parameter tree from every rank's blocks (the inverse of
+    shard_params)."""
+    return tree_map(lambda x, dim: x if dim is None
+                    else all_gather(x, mesh, MODEL_AXIS, dim),
+                    params, param_split_dims(cfg))
 
 
 def tree_map(fn, tree, *rest):
@@ -362,30 +587,36 @@ def array_leaves(tree) -> list:
     return out
 
 
-def value_and_grad(params, tokens, cfg: TransformerConfig):
+def value_and_grad(params, tokens, cfg: TransformerConfig, mesh=None):
     """(loss, grads): grads is a tree like params (array_map's), each array
     in its parameter's dtype.  Floating-point arrays are differentiated (a
     QuantizedTensor's fp32 scales, an fp8 weight's values); integer arrays
     (int8 and packed int4 values) get zeros, as JAX's allow_int gives them
-    float0 tangents that the JAX step replaces with zeros."""
+    float0 tangents that the JAX step replaces with zeros.  With a mesh
+    (loss_fn's) each rank's gradients are summed over data and ctx, so
+    every rank holds the gradient of its own parameter blocks."""
     with torch.enable_grad():
         arrays = array_leaves(params)
         wrt = [p.detach().requires_grad_(True) for p in arrays if p.is_floating_point()]
         it = iter(wrt)
         loss = loss_fn(array_map(lambda p: next(it) if p.is_floating_point() else p,
-                                 params), tokens, cfg)
-        grads = iter(torch.autograd.grad(loss, wrt))
+                                 params), tokens, cfg, mesh)
+        grads = torch.autograd.grad(loss, wrt)
+    if mesh is not None:
+        grads = all_reduce_coalesced(grads, mesh, DATA_AXIS, CTX_AXIS)
+    grads = iter(grads)
     return loss.detach(), array_map(
         lambda p: next(grads) if p.is_floating_point() else torch.zeros_like(p), params)
 
 
-def make_train_step(cfg: TransformerConfig, learning_rate=1e-3):
+def make_train_step(cfg: TransformerConfig, learning_rate=1e-3, mesh=None):
     """SGD-with-momentum train step (optimizer state = momentum tree):
     step(params, opt_state, tokens) -> (params, opt_state, loss), each tree
-    new, as the JAX step returns them."""
+    new, as the JAX step returns them.  With a mesh, params and opt_state
+    are this rank's blocks and tokens the global batch (loss_fn)."""
 
     def train_step(params, opt_state, tokens):
-        loss, grads = value_and_grad(params, tokens, cfg)
+        loss, grads = value_and_grad(params, tokens, cfg, mesh)
         new_opt = tree_map(lambda m, g: 0.9 * m + g.float(), opt_state, grads)
         new_params = tree_map(lambda p, m: (p - learning_rate * m).to(p.dtype),
                               params, new_opt)

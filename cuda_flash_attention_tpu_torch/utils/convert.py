@@ -5,7 +5,10 @@ and the JAX package's QuantizedTensor / LoRATensor leaves into the port's
 classes holding those numpy arrays; this module needs neither JAX nor its
 package, only the tree's structure: dicts, lists, arrays of any rank (a
 mixture-of-experts layer's [E, d, f] expert weights among them) and the
-port's QuantizedTensor and LoRATensor, converted field by field."""
+port's QuantizedTensor and LoRATensor, converted field by field.  With a
+mesh, a rank converts only its own blocks: the slices of the JAX tree that
+JAX's param_shardings places on the device at its mesh coordinate
+(transformer.shard_params)."""
 
 from __future__ import annotations
 
@@ -33,12 +36,18 @@ def _to_tensor(a: np.ndarray, device, dtype) -> torch.Tensor:
     return t.to(device=device, dtype=dtype if dtype is not None else t.dtype)
 
 
-def params_from_numpy(tree, device, dtype: torch.dtype | None = None):
+def params_from_numpy(tree, device, dtype: torch.dtype | None = None, *,
+                      mesh=None, cfg=None):
     """The same tree with every numpy array as a torch tensor on `device`
     (cast to `dtype` when given).  Lists and tuples become
-    lists.  A QuantizedTensor's values and scales keep their types (fp8
+    lists.  With `mesh` (and the model's `cfg`) the tree is first cut to
+    this rank's blocks, so only they are copied.  A QuantizedTensor's values and scales keep their types (fp8
     values through a uint8 view); a LoRATensor's base converts as a leaf of
     its own and its adapters like any array."""
+    if mesh is not None:
+        from cuda_flash_attention_tpu_torch.models.transformer import shard_params
+
+        tree = shard_params(tree, mesh, cfg)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -170,9 +170,9 @@ def _port_modules():
 
 
 def test_import_check_covers_the_reference_contract_modules():
-    """The dispatch, CLI, harness and baseline modules, and the quantized
-    path's (B7, quantization, LoRA, the X probe), are among those the two
-    checks below import and parse."""
+    """The dispatch, CLI, harness and baseline modules, the quantized
+    path's (B7, quantization, LoRA, the X probe) and the parallel layer's
+    are among those the two checks below import and parse."""
     mods = set(_port_modules())
     for m in ("dispatch", "dispatch.registry", "dispatch.types", "cli",
               "bench", "bench.__main__", "bench.configs", "bench.harness",
@@ -181,7 +181,10 @@ def test_import_check_covers_the_reference_contract_modules():
               "kernels.fa2_forward_quant", "quant", "quant.qtensor",
               "quant.linear", "models.lora", "utils.convert", "scripts",
               "scripts.r5_d128_fwd", "utils.profiling", "utils.hf_convert",
-              "utils.data", "examples.serve", "examples.finetune_lora"):
+              "utils.data", "examples.serve", "examples.finetune_lora",
+              "parallel", "parallel.mesh", "parallel.collectives",
+              "parallel.sharded", "parallel.ring", "parallel.distributed",
+              "parallel.launch", "models.transformer", "models.training"):
         assert f"cuda_flash_attention_tpu_torch.{m}" in mods, m
 
 

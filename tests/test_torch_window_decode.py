@@ -222,7 +222,21 @@ def test_hybrid_refusals_are_jax(hybrid, kw):
     assert errors[0] == errors[1]
 
 
-def test_local_group_recycles_global_keeps(hybrid):
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for an engine loop of a few hundred tiny steps.
+    Each step is some 300 small ops; with torch's default of one thread a
+    core in every test worker, a suite run's workers oversubscribe the
+    cores and each op's thread team waits on the others (the rolling-cache
+    loop: 0.64 s alone, about 60 s beside 5 busy processes, 1 s a step).
+    The ops compute the same on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_local_group_recycles_global_keeps(hybrid, one_thread):
     """Mid-generation of ~650 tokens the local group's live pages stay
     within the window's bound while the global group holds every page;
     both pools drain at the end."""
@@ -244,7 +258,7 @@ def test_local_group_recycles_global_keeps(hybrid):
         assert a.available == a.num_pages - 1
 
 
-def test_rolling_cache_bounded_and_sink_resident(streaming):
+def test_rolling_cache_bounded_and_sink_resident(streaming, one_thread):
     """A 256-token prompt and 300 new tokens need 5 pages unrecycled, but
     the pool has 4 usable: only the rolling cache finishes.  The sink page
     stays resident while the middle pages are recycled."""
