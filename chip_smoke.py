@@ -34,7 +34,7 @@ Phases (any failure raises and the script exits non-zero):
   3. kernel B5 (paged decode) against its plain version on int8 and bf16
      caches, each with bf16 and fp32 compute, ragged lengths and an
      inactive slot, device time (back-to-back time beside it) and bound;
-  4. end to end at the base model's width in fp32 (2 layers): prefill
+  4. end to end at the base model's width in fp32 (1 layer): prefill
      logits and four greedy decode steps through DecodeEngine on the card
      (kernels) and on the CPU (plain versions), with the same seeded
      weights;
@@ -53,7 +53,7 @@ Phases (any failure raises and the script exits non-zero):
      torch.autograd.grad of flash_attention on both routes (fused B2;
      split B3 + B4, forced by 128-row BlockSizes) against the plain
      versions, and bitwise-equal gradients from two runs of each;
-  8. one AdamW train step at the base width in fp32 (2 layers) on the card
+  8. one AdamW train step at the base width in fp32 (1 layer) on the card
      (kernels) and on the CPU (plain versions) from the same seeded
      weights, tokens (1, 129);
   9. training TransformerConfig.base() (bf16) at B4 S2048: 2 warm-up and 3
@@ -121,7 +121,7 @@ Phases (any failure raises and the script exits non-zero):
      W8A8 weights and int4 weights (int8 caches), and chunked prefill 512
      on the int4 cache: tokens/s, mean step, TTFT, B1/B5/B6 launches; a
      profiled window of int4-weight decode steps; fp32 card-vs-CPU parity
-     of an int4 cache with int4 weights at base width (2 layers);
+     of an int4 cache with int4 weights at base width (1 layer);
  22. QLoRA: two LoRA AdamW steps at base width, B4 S2048, on an int4 base
      (finite loss, base bytes unchanged, adapters moved, merge_lora logits
      within the int4 requantization budget);
@@ -182,9 +182,9 @@ Phases (any failure raises and the script exits non-zero):
      streaming base configurations train 3 AdamW steps each at B4 S2048:
      finite falling loss, step time, tokens/s, peak memory, windowed
      launches (hybrid: B3 and B4, B2 on the global layers; streaming: B2
-     only); (d) one fp32 AdamW step of each (hybrid window 64, streaming
-     window 96 with 4 sinks; 2 layers) on tokens (1, 129), card against
-     CPU, as phase 8.
+     only); (d) one fp32 AdamW step of each (hybrid window 64 at 2
+     layers, a local and a global one; streaming window 96 with 4 sinks at
+     1) on tokens (1, 129), card against CPU, as phase 8.
  27. a Gemma-2-2B-width hybrid model at head_dim 256 (google/gemma-2-2b's
      published widths: d_model 2304, 8/4 heads of 256, d_ff 9216, vocab
      256000, a 4096-token window on every other layer, 26 layers, bf16
@@ -257,13 +257,13 @@ Phases (any failure raises and the script exits non-zero):
      memory, a profiled graph decode step and the MoE ops' share of an
      eager one); (b) 2 layers trained 4 AdamW steps (lr 1e-4) at B1 S2048:
      falling loss, the router loss, step time, tokens/s, peak memory,
-     bf16-peak share of the routed work, backward launches; (c) 2 layers in
+     bf16-peak share of the routed work, backward launches; (c) 1 layer in
      fp32 at capacity factor 1.0, card against CPU on one prefill_forward
      of (1, 129) tokens: logits within E2E_LOGIT_TOL, routing equal but
      under a 1e-6 top-k margin, dropped pairs counted; (d) base width B4
      S2048 under remat "none", "dots" and "full": losses and gradients
      bitwise equal, "dots" peak below "none"; (e) one AdamW step on int8
-     weights (base width, 2 layers, fp32) card against CPU: int values
+     weights (base width, 1 layer, fp32) card against CPU: int values
      unchanged, scales moved, their first moments within TRAIN_GRAD_TOL
      (the moments negated must fail), the scales within 2e-5; (f)
      train_loop with a checkpoint on the card at tiny(), restored onto the
@@ -277,7 +277,7 @@ Phases (any failure raises and the script exits non-zero):
      top 10 kernels, each with the op that launched it;
  33. the slice of profiling, the Hugging Face import and the token loader:
      (a) prompt-lookup speculation (k 4) with an MoE target, phase 32's
-     2-layer fp32 Mixtral-width model at capacity factor 1.0 on the card
+     1-layer fp32 Mixtral-width model at capacity factor 1.0 on the card
      and on the CPU, 4 slots: greedy tokens equal, routing compared call
      by call as phase 32 compares it, the capacity binding; (b)
      meta-llama/Meta-Llama-3-8B's config.json widths (LLAMA3_8B: d_model
@@ -309,12 +309,27 @@ Phases (any failure raises and the script exits non-zero):
      the bf16 ring (a mean relative error per storage), each with the ring
      without its own shard's step as the control; the base model trained 2
      AdamW steps on {ctx 4} (8192 inputs) and on {data 2, model 2} (B4
-     S2048) beside the unsharded steps; fp32 parity at 4 layers on both
+     S2048) beside the unsharded steps; fp32 parity at 2 layers on both
      layouts (loss and grad_norm rtol 2e-4, each gradient leaf 2e-4 of its
      max, every parameter 1e-4) with controls; the scaling benchmark's
      three layouts (4 ranks on one card, not multi-GPU scaling).  The
      ranks' launches of B1, B1 windowed,
      B2, B3, B4 and B7 are summed into the kernel line ("launches_mesh").
+     Serving on the mesh (decode/sharded.py, DecodeEngine(mesh=)): (a)'s
+     rank serves the base model on its mesh with CUDA graphs captured,
+     tokens, logprobs and prefill logits bitwise equal to the engine
+     without a mesh; (b)'s ranks serve Llama-3-8B's widths (seeded random
+     weights): fp32 parity at 2 layers on {model 4} and {data 2, model 2}
+     (4 prompts, one prefilled in chunks, greedy; and on {data 2, model 2}
+     with a 1-layer draft at spec 2) against the engine without a mesh,
+     tokens equal and every
+     decode step's and verification's logits within MESH_SERVE_LOGIT_TOL
+     of their max, each layout with a control that must fail both (the
+     all-reduce after wo left out; query heads on the wrong KV heads);
+     bf16 weights on an int8 cache at 4 layers on {model 4}: tokens/s and
+     TPOT (4 gloo ranks on one card, eager steps: not multi-GPU tensor
+     parallelism).  Their B1 (or B8), B5 and B6 launches go into the
+     kernel line ("launches_mesh_serving").
 Serving's decode steps run as CUDA graphs (decode/graphs.py); each
 wrapper's launch count adds what a capture recorded at every replay.
 The line before the last is the kernel JSON (eleven kernels; B1, B5, B6 and
@@ -332,7 +347,8 @@ launches on phase 33's Llama-3-8B-width serving under
 "launches_llama3_serving", B1 and B2 on its training under
 "launches_llama3_training", B1 and B6 on its MoE speculation under
 "launches_moe_speculation"; B1-B4 and B7 with phase 34's under
-"launches_mesh", B1's windowed ones under "launches_mesh_window"); the
+"launches_mesh", B1's windowed ones under "launches_mesh_window"; B1,
+B5, B6 and B8 with phase 34's serving ones under "launches_mesh_serving"); the
 last line is the JSON contract line {"ok": true, "device": {...}}.
 It imports torch and the port only, never jax or the JAX package.
 """
@@ -657,10 +673,10 @@ def phase_b5(torch, dec_attn, kv_cache):
 
 
 def phase_e2e(torch, np, transformer, decode):
-    """Base width in fp32, cut to 2 layers: CUDA (kernels) against CPU
+    """Base width in fp32, cut to 1 layer: CUDA (kernels) against CPU
     (plain versions)."""
     cfg = dataclasses.replace(transformer.TransformerConfig.base(
-        dtype=torch.float32, attn_tile_dtype=None), n_layers=2)
+        dtype=torch.float32, attn_tile_dtype=None), n_layers=1)
     params = transformer.init_params(torch.Generator().manual_seed(0), cfg,
                                      device="cpu")
     prompt = np.random.default_rng(3).integers(0, cfg.vocab_size, 128).tolist()
@@ -2230,10 +2246,10 @@ def phase_quant_serving(torch, np, transformer, decode, quant):
     del params, w8a8, w4
     torch.cuda.empty_cache()
 
-    # (b) + (d) in fp32 at base width, cut to 2 layers: the card against
+    # (b) + (d) in fp32 at base width, cut to 1 layer: the card against
     # the CPU.
     cfg32 = dataclasses.replace(transformer.TransformerConfig.base(
-        dtype=torch.float32, attn_tile_dtype=None), n_layers=2)
+        dtype=torch.float32, attn_tile_dtype=None), n_layers=1)
     w4 = quant.quantize_transformer_params(transformer.init_params(
         torch.Generator().manual_seed(0), cfg32, device="cpu"), "int4")
     prompt = np.random.default_rng(3).integers(0, cfg32.vocab_size, 128).tolist()
@@ -4533,13 +4549,13 @@ def record_routing(transformer, moe, calls):
 
 
 def phase_mixtral_parity(torch, np, transformer, decode, moe):
-    """(c) Mixtral widths at 2 layers in fp32 with capacity factor 1.0 (so
+    """(c) Mixtral widths at 1 layer in fp32 with capacity factor 1.0 (so
     that the capacity binds), card against CPU on one prefill_forward of
     tokens (1, 129): logits within E2E_LOGIT_TOL; each layer's routing equal
     but where a token's top-k margin is below MOE_MARGIN; the dropped
     (token, choice) pairs counted."""
     cfg = transformer.TransformerConfig(dtype=torch.float32, attn_tile_dtype=None,
-                                        **dict(MIXTRAL_8X7B, n_layers=2,
+                                        **dict(MIXTRAL_8X7B, n_layers=1,
                                                capacity_factor=1.0))
     params = transformer.init_params(
         torch.Generator(device="cuda").manual_seed(34), cfg, device="cuda")
@@ -4559,7 +4575,7 @@ def phase_mixtral_parity(torch, np, transformer, decode, moe):
     diff = (out["cuda"] - out["cpu"]).abs().max().item()
     flips, dropped = routing_flips(torch, cfg, routing["cuda"], routing["cpu"],
                                    "mixtral parity")
-    res = dict(config="mixtral-8x7b widths, 2 layers, fp32, capacity factor 1.0",
+    res = dict(config="mixtral-8x7b widths, 1 layer, fp32, capacity factor 1.0",
                tokens=list(tokens.shape), logits_max_abs_diff=diff,
                routing_flips_under_margin=flips, dropped_pairs=dropped)
     log("mixtral fp32 parity (card vs CPU)", json.dumps(res))
@@ -4645,7 +4661,7 @@ def phase_quant_grads(torch, np, transformer, training, quant):
     import dataclasses
 
     cfg = dataclasses.replace(transformer.TransformerConfig.base(
-        dtype=torch.float32, attn_tile_dtype=None), n_layers=2)
+        dtype=torch.float32, attn_tile_dtype=None), n_layers=1)
     params = quant.quantize_transformer_params(
         transformer.init_params(torch.Generator().manual_seed(36), cfg, device="cpu"),
         torch.int8)
@@ -4674,7 +4690,7 @@ def phase_quant_grads(torch, np, transformer, training, quant):
                    for a, b in zip(mus["cuda"], mus["cpu"]))
 
     mu_err, mu_control = mu_rel_err(1), mu_rel_err(-1)
-    res = dict(config="base widths, 2 layers, fp32, int8 weights", quantized=len(before),
+    res = dict(config="base widths, 1 layer, fp32, int8 weights", quantized=len(before),
                int_values_unchanged=values_same, scales_max_move=moved,
                scales_card_cpu_max_abs_diff=scale_diff, scale_mu_rel_err=mu_err,
                scale_mu_control_rel_err=mu_control, loss=m_g["loss"].item())
@@ -4923,7 +4939,7 @@ def phase_llama3_train(torch, np, training, hf_convert, data):
 
 def phase_moe_speculation(torch, np, transformer, decode, moe, cfg, models):
     """(c) Prompt-lookup speculation (k 4) with an MoE target: phase 32's
-    2-layer fp32 Mixtral-width model at capacity factor 1.0 on the card and
+    1-layer fp32 Mixtral-width model at capacity factor 1.0 on the card and
     on the CPU, 4 slots, 4 prompts that repeat themselves, 6 greedy tokens
     each.  The gate: equal tokens; each MoE call's routing is compared as
     phase 32 compares it, and the tokens may differ only after a call whose
@@ -4960,7 +4976,7 @@ def phase_moe_speculation(torch, np, transformer, decode, moe, cfg, models):
         if flips[0]:
             first_flip = i
             break
-    res = dict(config="mixtral-8x7b widths, 2 layers, fp32, capacity factor 1.0",
+    res = dict(config="mixtral-8x7b widths, 1 layer, fp32, capacity factor 1.0",
                spec_tokens=4, equal=out["cuda"] == out["cpu"], tokens=out["cuda"],
                calls=len(routing["cuda"]), first_flip_under_margin=first_flip,
                dropped_pairs=sum(int((~c[3]).sum()) for c in routing["cuda"]),
@@ -5037,7 +5053,7 @@ def mesh_rank() -> dict:
     """One of phase 34's 4 gloo ranks, every one on cuda:0: the ring at
     Llama-3-8B's attention width with its controls, the quantized ring
     with its controls, the base model trained on {ctx 4} and {data 2,
-    model 2}, fp32 parity at 4 layers with controls, and the scaling
+    model 2}, fp32 parity at 2 layers with controls, and the scaling
     benchmark's layouts.  Every rank returns its launch counts on the
     path; rank 0 also the checks and times."""
     import collections
@@ -5278,7 +5294,7 @@ def mesh_rank() -> dict:
     torch.cuda.empty_cache()
     section("train")
 
-    # (d) fp32 parity at 4 layers of the same width: two AdamW steps (no
+    # (d) fp32 parity at 2 layers of the same width: two AdamW steps (no
     # warmup) on each layout against the unsharded steps: the losses and
     # grad_norms, the first step's gradients (its first Adam moment) and
     # the parameters after the second.  The step size is 1e-4: at 1e-3
@@ -5288,7 +5304,7 @@ def mesh_rank() -> dict:
     # is near eps; the worst element's gradient is printed to show it.
     # Each layout's control must fail: one step, its gradients checked.
     cfg32 = dataclasses.replace(transformer.TransformerConfig.base(
-        dtype=torch.float32, attn_tile_dtype=None), n_layers=4)
+        dtype=torch.float32, attn_tile_dtype=None), n_layers=2)
     p32 = transformer.init_params(torch.Generator(device="cuda").manual_seed(1), cfg32,
                                   device="cuda")
     opt32 = training.make_optimizer(learning_rate=1e-4, warmup_steps=0, decay_steps=10)
@@ -5377,8 +5393,280 @@ def mesh_rank() -> dict:
     # (e) The scaling benchmark's three layouts (tiny model, batch 8, 512).
     out["scaling"] = scaling_rank("cuda", 8, 512, 2, transformer.TransformerConfig.tiny())
     section("scaling")
+
+    # (f) Serving on the mesh (mesh_serving), its launches apart.
+    serve_launches = collections.Counter()
+
+    def counted_serving(fn):
+        reset()
+        res = fn()
+        torch.cuda.synchronize()
+        for name in MESH_SERVE_KERNELS:
+            serve_launches[name] += LAUNCHES[name]
+        return res
+
+    out["serving"] = mesh_serving(rank, counted_serving)
+    section("serving")
     out["launches"] = dict(launches)
-    return out if rank == 0 else {"launches": dict(launches)}
+    out["serve_launches"] = dict(serve_launches)
+    keep = ("launches", "serve_launches")
+    return out if rank == 0 else {k: out[k] for k in keep}
+
+
+# Phase 34's serving on the mesh: Llama-3-8B's widths (LLAMA3_8B) with
+# seeded random weights.  fp32 parity at 2 layers on {model 4} and {data 2,
+# model 2}: 4 prompts (300 tokens, prefilled in 128-token chunks, and 37,
+# 100 and 5 tokens, one bucket prefill), 6 greedy tokens each, and on {data
+# 2, model 2} the same with a 1-layer draft at spec 2, against the engine
+# without a mesh on the card (the same weights; eager, so that each of its
+# steps' logits can be read).  Gates: the tokens equal, and every decode
+# step's and speculative verification's logits within MESH_SERVE_LOGIT_TOL
+# of their max, a limit between the readings and the controls' (PERF.md
+# §6).  Controls that must fail both gates: on {model 4} the
+# all-reduce after wo left out (each rank keeps its partial sums), on
+# {data 2, model 2} every query head attending the next KV head's pages.
+# Then bf16 weights on an int8 cache at 4 layers on {model 4}: 8 prompts
+# of 128 tokens, 16 tokens each, tokens/s and TPOT, beside the same run of
+# the engine without a mesh on rank 0 (its steps captured, and eager).
+MESH_SERVE_KERNELS = ("fa2_forward", "fa2_forward_small", "paged_decode",
+                      "paged_chunk")
+MESH_SERVE_LOGIT_TOL = 1e-3
+MESH_SERVE_PROMPTS = (300, 37, 100, 5)
+MESH_SERVE_LAYERS = {"fp32": 2, "bf16": 4}
+
+
+def mesh_serving(rank: int, counted) -> dict:
+    """Phase 34 (b)'s serving part in one of the 4 gloo ranks (the module
+    note above MESH_SERVE_KERNELS); `counted(fn)` runs fn on the counted
+    path.  Rank 0 also runs the unsharded references and holds the gates'
+    readings."""
+    import contextlib
+    import types
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from cuda_flash_attention_tpu_torch.decode import engine as eng_mod
+    from cuda_flash_attention_tpu_torch.decode import model as model_mod
+    from cuda_flash_attention_tpu_torch.models import transformer
+    from cuda_flash_attention_tpu_torch.parallel.collectives import all_gather
+    from cuda_flash_attention_tpu_torch.parallel.mesh import (
+        DATA_AXIS,
+        MODEL_AXIS,
+        make_device_mesh,
+    )
+    from cuda_flash_attention_tpu_torch.utils import hf_convert
+
+    def config(layers, **kw):
+        hf = types.SimpleNamespace(**dict(LLAMA3_8B, num_hidden_layers=layers))
+        return hf_convert.config_from_hf(hf, **kw)
+
+    cfg = config(MESH_SERVE_LAYERS["fp32"], dtype=torch.float32,
+                 attn_tile_dtype=None)
+    params = transformer.init_params(torch.Generator(device="cuda").manual_seed(37),
+                                     cfg, device="cuda")
+    draft_cfg = dataclasses.replace(cfg, n_layers=1)
+    rng = np.random.default_rng(37)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in MESH_SERVE_PROMPTS]
+    new = 6
+    record = {"target": None, "mesh": None, "logits": []}
+
+    def recorded(fn):
+        """The engine's decode_step / verify_step, keeping the target's
+        logits of every decode step and speculative verification (on a
+        mesh every slot's rows and the whole vocabulary: gathered over data
+        and model)."""
+        def call(p, *a, **kw):
+            logits, caches = fn(p, *a, **kw)
+            if p is record["target"] and not kw.get("paged_write"):
+                full, mesh = logits, record["mesh"]
+                if mesh is not None:
+                    full = all_gather(all_gather(logits, mesh, MODEL_AXIS, -1), mesh,
+                                      DATA_AXIS, 0)
+                if rank == 0:
+                    record["logits"].append(full.clone())
+            return logits, caches
+        return call
+
+    step_graph = eng_mod.StepGraph
+
+    class EagerStep(step_graph):
+        """A step that runs eagerly on the card too (the reference's, so
+        that each step's logits can be read)."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **dict(kw, eager=True))
+
+    @contextlib.contextmanager
+    def eager_steps(eager: bool):
+        """The engines made and run inside step eagerly, with `eager`."""
+        eng_mod.StepGraph = EagerStep if eager else step_graph
+        try:
+            yield
+        finally:
+            eng_mod.StepGraph = step_graph
+
+    def serve(mesh, spec: bool, eager=False):
+        kw = dict(draft_params=dict(params, layers=params["layers"][:1]),
+                  draft_cfg=draft_cfg, spec_tokens=2) if spec else {}
+        with eager_steps(eager):
+            eng = eng_mod.DecodeEngine(params, cfg, max_seqs=4, max_seq_len=512,
+                                       cache_dtype=torch.float32, prefill_chunk=128,
+                                       mesh=mesh, **kw)
+            record.update(target=eng.params, mesh=mesh, logits=[])
+            reqs = eng.run(prompts, max_new_tokens=new)
+        tokens = [r.generated for r in reqs]
+        if mesh is not None:
+            every = [None] * dist.get_world_size()
+            dist.all_gather_object(every, tokens)
+            if any(t != tokens for t in every):
+                raise AssertionError(f"phase 34 serving: the ranks disagree: {every}")
+        ok = all(r.done for r in reqs) and all(
+            a.available == a.num_pages - 1 for a in eng._group_allocs)
+        stats = dict(eng.stats)
+        del eng
+        gc.collect()
+        return tokens, record["logits"], ok, stats
+
+    saved = {n: getattr(eng_mod, n) for n in ("decode_step", "verify_step")}
+    for n, fn in saved.items():
+        setattr(eng_mod, n, recorded(fn))
+    out = {}
+    try:
+        ref = {}
+        dist.barrier()
+        if rank == 0:
+            for spec in (False, True):
+                ref[spec] = serve(None, spec, eager=True)
+        dist.barrier()
+
+        def compare(run, spec):
+            tokens, logits, ok, stats = run
+            if rank != 0:
+                return {}
+            want_tokens, want_logits = ref[spec][0], ref[spec][1]
+            errs = [float((a - b).abs().max() / b.abs().max())
+                    for a, b in zip(logits, want_logits)]
+            return dict(tokens_equal=tokens == want_tokens, steps=len(logits),
+                        ref_steps=len(want_logits), logits_rel_err=max(errs),
+                        drained=ok, graphs=stats["graphs"],
+                        spec_rounds=stats["spec_rounds"],
+                        prefill_chunks=stats["prefill_chunks"])
+
+        attn_out = model_mod._attn_out
+        rolled = {n: getattr(model_mod, n)
+                  for n in ("paged_decode_attention", "paged_chunk_attention")}
+
+        def roll(fn):  # each query head attends the next KV head's pages
+            def call(q, pages, *a, **kw):
+                group = q.shape[-2] // pages.k_pages.shape[0]
+                return fn(q.roll(group, dims=-2), pages, *a, **kw)
+            return call
+
+        for layout, shape in (("model4", {MODEL_AXIS: 4}),
+                              ("dp2_tp2", {DATA_AXIS: 2, MODEL_AXIS: 2})):
+            mesh = make_device_mesh(shape, device="cuda")
+            row = {"greedy": compare(counted(lambda: serve(mesh, False)), False)}
+            if layout == "dp2_tp2":  # the speculative run
+                row["spec"] = compare(counted(lambda: serve(mesh, True)), True)
+            if layout == "model4":
+                model_mod._attn_out = lambda x, o, layer, m: attn_out(x, o, layer, None)
+                kind = "the all-reduce after wo left out"
+            else:
+                for n, fn in rolled.items():
+                    setattr(model_mod, n, roll(fn))
+                kind = "each query head attending the next KV head's pages"
+            try:
+                row["control"] = dict(compare(serve(mesh, False), False), kind=kind)
+            finally:
+                model_mod._attn_out = attn_out
+                for n, fn in rolled.items():
+                    setattr(model_mod, n, fn)
+            out[layout] = row
+    finally:
+        for n, fn in saved.items():
+            setattr(eng_mod, n, fn)
+    del params, ref
+    torch.cuda.empty_cache()
+
+    # bf16 weights, int8 cache, 4 layers on {model 4}: tokens/s and TPOT.
+    cfg16 = config(MESH_SERVE_LAYERS["bf16"], param_dtype=torch.bfloat16)
+    p16 = transformer.init_params(torch.Generator(device="cuda").manual_seed(38),
+                                  cfg16, device="cuda")
+    mix = np.random.default_rng(38).integers(0, cfg16.vocab_size, (8, 128)).tolist()
+
+    def timed(mesh, run=lambda fn: fn(), eager=False):
+        """The mix's tokens/s, TPOT and step time on `mesh` (None: the
+        engine without one), after one short run for the kernels' first
+        calls."""
+        with eager_steps(eager):
+            eng = eng_mod.DecodeEngine(p16, cfg16, max_seqs=8, max_seq_len=2048,
+                                       cache_dtype=torch.int8, prefill_chunk=512,
+                                       mesh=mesh)
+            eng.run([mix[0][:64]], max_new_tokens=2)
+            torch.cuda.synchronize()
+            if mesh is not None:
+                dist.barrier()
+            steps0 = eng.stats["steps"]
+            t0 = time.perf_counter()
+            reqs = run(lambda: eng.run(mix, max_new_tokens=16))
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+        total = sum(len(r.generated) for r in reqs)
+        steps = eng.stats["steps"] - steps0
+        res = dict(
+            layers=cfg16.n_layers, requests=len(reqs), tokens=total,
+            seconds=elapsed, tokens_per_s=total / elapsed,
+            tpot_ms_median=statistics.median(r.tpot_s for r in reqs) * 1e3,
+            ttft_ms_median=statistics.median(r.ttft_s for r in reqs) * 1e3,
+            engine_step_ms=elapsed / max(steps, 1) * 1e3, steps=steps,
+            graphs=eng.stats["graphs"] and not eager,
+            graph_replays=eng.graph_replays, done=all(r.done for r in reqs),
+            drained=eng.allocator.available == eng.num_pages - 1)
+        del eng
+        gc.collect()  # captured graphs hold their engine in reference cycles
+        torch.cuda.empty_cache()
+        return res
+
+    mesh = make_device_mesh({MODEL_AXIS: 4}, device="cuda")
+    out["bf16_int8"] = dict(
+        timed(mesh, counted),
+        logits_gather_bytes_per_step=8 * cfg16.vocab_size * 4)
+    if rank == 0:
+        out["bf16_int8_no_mesh"] = {k: timed(None, eager=k == "eager")
+                                    for k in ("graphs", "eager")}
+    del p16
+    dist.barrier()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh_serving_gates(out):
+    """Phase 34 (b)'s serving gates on rank 0's readings."""
+    if not out["dp2_tp2"]["spec"]["spec_rounds"]:
+        raise AssertionError(f"phase 34 serving: no speculative round: {out}")
+    for layout in ("model4", "dp2_tp2"):
+        row = out[layout]
+        for run in ("greedy", "spec"):
+            r = row.get(run)
+            if r is not None and not (
+                    r["tokens_equal"] and r["steps"] == r["ref_steps"] and r["drained"]
+                    and r["logits_rel_err"] <= MESH_SERVE_LOGIT_TOL):
+                raise AssertionError(f"phase 34 serving {layout} {run}: {r}")
+        if not row["greedy"]["prefill_chunks"]:
+            raise AssertionError(f"phase 34 serving {layout}: a path did not run: {row}")
+        c = row["control"]
+        if c["tokens_equal"] or c["logits_rel_err"] <= MESH_SERVE_LOGIT_TOL:
+            raise AssertionError(f"phase 34 serving {layout}: the control passed: {c}")
+    b = out["bf16_int8"]
+    if not (b["done"] and b["drained"] and not b["graphs"]):
+        raise AssertionError(f"phase 34 serving bf16/int8: {b}")
+    for name, r in out["bf16_int8_no_mesh"].items():
+        if not (r["done"] and r["drained"] and r["tokens"] == b["tokens"]
+                and r["graphs"] == (name == "graphs")
+                and (r["graph_replays"] > 0) == r["graphs"]):
+            raise AssertionError(f"phase 34 serving bf16/int8 without a mesh: {out}")
 
 
 def wall_solo(torch, fn):
@@ -5436,8 +5724,10 @@ def phase_mesh_nccl(torch, np, transformer, training, distributed, mesh_mod):
         res = dict(backend=backend, mesh=mesh.shape, losses=runs["mesh"][0],
                    no_mesh_losses=runs["no_mesh"][0], bitwise_equal=equal,
                    launches=runs["mesh"][2])
+        del state, runs
+        res["serving"] = mesh_nccl_serving(torch, np, cfg, params, mesh)
         log("mesh one rank (NCCL)", json.dumps(res))
-        if backend != "nccl" or not equal:
+        if backend != "nccl" or not equal or not res["serving"]["bitwise_equal"]:
             raise AssertionError(f"phase 34 (a): {res}")
         return res
     finally:
@@ -5450,6 +5740,58 @@ def phase_mesh_nccl(torch, np, transformer, training, distributed, mesh_mod):
                 os.environ[k] = v
 
 
+def mesh_nccl_serving(torch, np, cfg, params, mesh) -> dict:
+    """Phase 34 (a)'s serving: the base model (bf16 serving copy, int8
+    cache, chunked prefill 512, logprobs) on the world-1 NCCL mesh with its
+    decode steps captured as CUDA graphs, against the engine without a
+    mesh: 4 of phase 5's prompts, 16 greedy tokens each.  The tokens, every
+    token's logprob (read off each step's logits inside the graph) and the
+    logits of every prefill and prefill chunk must be bitwise equal."""
+    from cuda_flash_attention_tpu_torch.decode import engine as eng_mod
+
+    prompts = serving_mix(np, cfg)[:4]
+    runs = {}
+    for name, m in (("no_mesh", None), ("mesh", mesh)):
+        logits = []
+
+        def kept(fn):
+            def call(*a, **kw):
+                out = fn(*a, **kw)
+                logits.append(out[0].clone())
+                return out
+            return call
+
+        saved = {n: getattr(eng_mod, n) for n in ("prefill_forward", "verify_step")}
+        for n, fn in saved.items():
+            setattr(eng_mod, n, kept(fn))
+        try:
+            eng = eng_mod.DecodeEngine(params, cfg, max_seqs=4, max_seq_len=2048,
+                                       cache_dtype=torch.int8, prefill_chunk=512,
+                                       logprobs=True, mesh=m)
+            reset_counts(SERVING_KERNELS)
+            reqs = eng.run(prompts, max_new_tokens=16)
+            torch.cuda.synchronize()
+            runs[name] = dict(tokens=[r.generated for r in reqs],
+                              logprobs=[r.logprobs for r in reqs], logits=logits,
+                              graphs=eng.stats["graphs"], replays=eng.graph_replays,
+                              launches=read_counts(SERVING_KERNELS))
+        finally:
+            for n, fn in saved.items():
+                setattr(eng_mod, n, fn)
+        del eng
+        gc.collect()  # the engine's captured graphs hold it in reference cycles
+    a, b = runs["mesh"], runs["no_mesh"]
+    equal = (a["tokens"] == b["tokens"] and a["logprobs"] == b["logprobs"]
+             and len(a["logits"]) == len(b["logits"])
+             and all(torch.equal(x, y) for x, y in zip(a["logits"], b["logits"])))
+    torch.cuda.empty_cache()
+    return dict(bitwise_equal=equal and a["graphs"] and a["replays"] > 0,
+                tokens_logprobs_logits_equal=equal,
+                graphs=a["graphs"], graph_replays=a["replays"],
+                logits_calls=len(a["logits"]),
+                tokens=sum(len(t) for t in a["tokens"]), launches=a["launches"])
+
+
 def phase_mesh_ranks(launch):
     """Phase 34 (b): mesh_rank on 4 gloo ranks sharing the card; the gates
     checked here on rank 0's results (every row logged first), the
@@ -5458,6 +5800,8 @@ def phase_mesh_ranks(launch):
     out = results[0]
     launches = {n: sum(r["launches"].get(n, 0) for r in results) for n in MESH_KERNELS}
     out["launches"] = launches
+    out["serve_launches"] = {n: sum(r["serve_launches"].get(n, 0) for r in results)
+                             for n in MESH_SERVE_KERNELS}
     card = card_line()
     for row in out["ring"]:
         log("mesh ring (4 ranks on one card)", card, json.dumps(row))
@@ -5470,6 +5814,17 @@ def phase_mesh_ranks(launch):
     log("mesh scaling layouts: 4 ranks on one H100, not multi-GPU scaling", card,
         json.dumps(out["scaling"]))
     log("mesh launches (summed over the 4 ranks)", json.dumps(launches))
+    serving = out["serving"]
+    for layout in ("model4", "dp2_tp2"):
+        log(f"mesh serving fp32 parity {layout} (Llama-3-8B widths, 2 layers)",
+            json.dumps(serving[layout]))
+    log("mesh serving bf16 weights, int8 cache, 4 layers, {model 4}: 4 gloo ranks on "
+        "one H100, not multi-GPU tensor parallelism", card, json.dumps(serving["bf16_int8"]))
+    for name, row in serving["bf16_int8_no_mesh"].items():
+        log(f"mesh serving's bf16/int8 run without a mesh ({name} steps), rank 0 alone",
+            card, json.dumps(row))
+    log("mesh serving launches (summed over the 4 ranks)",
+        json.dumps(out["serve_launches"]))
     log("mesh rank 0's seconds by part", json.dumps(out["seconds"]))
 
     for row in out["ring"]:
@@ -5507,6 +5862,11 @@ def phase_mesh_ranks(launch):
             and launches["fa2_backward_fused"] and launches["fa2_backward_dq"]
             and launches["fa2_backward_dkv"] and launches["fa2_forward_quant"]):
         raise AssertionError(f"phase 34: a kernel of the mesh path never ran: {launches}")
+    phase_mesh_serving_gates(serving)
+    served = out["serve_launches"]
+    if not (served["paged_decode"] and served["paged_chunk"]
+            and served["fa2_forward"] + served["fa2_forward_small"]):
+        raise AssertionError(f"phase 34: a kernel of the serving mesh never ran: {served}")
     return out
 
 
@@ -5590,7 +5950,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     parity = phase_train_parity(torch, np, transformer, training,
-                                tokens_shape=(1, 129))
+                                tokens_shape=(1, 129), n_layers=1)
     log(f"phase 8: train parity ok in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     train, remat, (state, step, tokens) = phase_train(
@@ -5692,7 +6052,8 @@ def main() -> int:
         name: phase_train_parity(torch, np, transformer, training, label=name,
                                  tokens_shape=(1, 129), **kw)
         for name, kw in (("hybrid w64", dict(attn_window=64, global_every=2)),
-                         ("streaming w96 s4", dict(attn_window=96, attn_sinks=4)))}
+                         ("streaming w96 s4", dict(attn_window=96, attn_sinks=4,
+                                                   n_layers=1)))}
     log(f"phase 26: windowed and packed training ok in "
         f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
@@ -5775,9 +6136,10 @@ def main() -> int:
     t0 = time.perf_counter()
     mesh_one = phase_mesh_nccl(torch, np, transformer, training, par_dist, par_mesh)
     mesh_run = phase_mesh_ranks(launch)
-    log(f"phase 34: training on a mesh (one NCCL rank; 4 gloo ranks on the card: "
-        f"ring, quantized ring, base model on ctx 4 and data 2 x model 2, fp32 "
-        f"parity, scaling layouts) ok in {time.perf_counter() - t0:.1f} s")
+    log(f"phase 34: training and serving on a mesh (one NCCL rank; 4 gloo ranks on "
+        f"the card: ring, quantized ring, base model on ctx 4 and data 2 x model 2, "
+        f"fp32 parity, scaling layouts, Llama-3-8B-width serving on model 4 and "
+        f"data 2 x model 2) ok in {time.perf_counter() - t0:.1f} s")
 
     # Representative shapes for the kernel line: the serving phase's largest
     # prefill (B4 S1536 bf16) and the int8 cache with bf16 compute.
@@ -6103,6 +6465,12 @@ def main() -> int:
             k["launches_mesh"] = mesh_run["launches"][k["name"]]
         if k["name"] == "fa2_forward":
             k["launches_mesh_window"] = mesh_run["launches"]["fa2_forward_window"]
+        # Serving on the mesh: the 4 ranks' parity and bf16 runs, and the
+        # NCCL rank's mesh engine.
+        if k["name"] in mesh_run["serve_launches"]:
+            k["launches_mesh_serving"] = (mesh_run["serve_launches"][k["name"]]
+                                          + mesh_one["serving"]["launches"].get(
+                                              k["name"], 0))
     log("fp16 tiles:", json.dumps({"B1 Stress-1": b1_fp16, "B2-B4": [
         {k: r[k] for k in ("kernel", "inputs", "B", "S", "causal", "ms",
                            "bound_ms", "library_ms", "rel_err")} for r in bwd_fp16]}))

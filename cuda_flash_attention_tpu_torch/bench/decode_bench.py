@@ -14,13 +14,18 @@ are not device numbers ("platform": "cpu").
 
 `measure_engine_throughput` is the end-to-end DecodeEngine number (host
 scheduler included); `--device-ratio` divides its per-token-step time by
-the device loop's step to give `engine_overhead_x`.
+the device loop's step to give `engine_overhead_x`.  With `mesh=` every
+rank of the mesh calls it and times its own run of the sharded engine.
+`--tp-dryrun TP` (`tp_decode_dryrun`) runs that engine on a {model TP}
+mesh of TP gloo ranks on the CPU: it shows that the tensor-parallel
+serving path runs end to end; its times are CPU times of one host.
 
 Usage (on the card; add `--device cpu` for the CPU):
     python -m cuda_flash_attention_tpu_torch.bench.decode_bench \\
         --batch 16 --prompt-len 128 --gen 64
     python -m cuda_flash_attention_tpu_torch.bench.decode_bench --config base \\
         --engine --burst 8 --device-ratio
+    python -m cuda_flash_attention_tpu_torch.bench.decode_bench --tp-dryrun 2
 """
 
 from __future__ import annotations
@@ -267,15 +272,13 @@ def measure_engine_throughput(cfg: TransformerConfig, batch: int = 16,
     prompts of prompt_len tokens, gen_tokens each, timed from after the
     first decode step (the graph's capture) to the last.  The draft of
     `spec_tokens` is the target's first `draft_layers` layers.  The JAX
-    function's keys, plus `burst_dispatches` and `graph_replays`."""
+    function's keys ("tp" is the mesh's rank count, as JAX counts its
+    devices), plus `burst_dispatches`, `graph_replays` and `graphs`.  With
+    a mesh, every rank calls this with the same arguments (the engine takes
+    the full weights and keeps its blocks) and runs on the mesh's device."""
     from cuda_flash_attention_tpu_torch.decode.engine import DecodeEngine
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "tensor-parallel serving is not ported yet: serving on a mesh "
-            "(decode/sharded.py, the engine's DP/TP path) is a later slice of "
-            "the port")
-    device = resolve_device(device)
+    device = resolve_device(device) if mesh is None else mesh.device
     params = init_params(torch.Generator(device=device).manual_seed(0), cfg,
                          device=device)
     max_len = prompt_len + gen_tokens + 1 + spec_tokens
@@ -292,7 +295,9 @@ def measure_engine_throughput(cfg: TransformerConfig, batch: int = 16,
             spec_tokens=spec_tokens)
     eng = DecodeEngine(params, cfg, max_seqs=batch, max_seq_len=max_len,
                        cache_dtype=cache_dtype, prefill_chunk=prefill_chunk,
-                       decode_burst=decode_burst, device=device, **spec_kw)
+                       decode_burst=decode_burst, device=device, mesh=mesh,
+                       **spec_kw)
+    del params, spec_kw
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (batch, prompt_len)).tolist()
     reqs = eng.submit_many(prompts, max_new_tokens=gen_tokens)
@@ -317,7 +322,7 @@ def measure_engine_throughput(cfg: TransformerConfig, batch: int = 16,
         "steps": steps,
         "timed_tokens": timed_tokens,
         "cache_dtype": _dtype_name(cache_dtype),
-        "tp": 1,
+        "tp": 1 if mesh is None else int(np.prod(list(mesh.shape.values()))),
         "spec_tokens": spec_tokens,
         "spec_mode": spec_mode if spec_tokens else None,
         "spec_acceptance": eng.acceptance_rate,
@@ -325,16 +330,38 @@ def measure_engine_throughput(cfg: TransformerConfig, batch: int = 16,
         "prefill_chunks_run": eng.stats["prefill_chunks"],
         "burst_dispatches": eng.stats.get("burst_dispatches", 0),
         "graph_replays": eng.graph_replays,
+        "graphs": eng.stats["graphs"],
     }
+
+
+def _dryrun_rank(cfg: TransformerConfig, tp: int, batch: int,
+                 gen_tokens: int) -> dict:
+    """One rank of tp_decode_dryrun."""
+    from cuda_flash_attention_tpu_torch.parallel.mesh import (
+        MODEL_AXIS,
+        make_device_mesh,
+    )
+
+    mesh = make_device_mesh({MODEL_AXIS: tp}, device="cpu")
+    return measure_engine_throughput(cfg, batch=batch, prompt_len=128,
+                                     gen_tokens=gen_tokens,
+                                     cache_dtype=torch.int8, mesh=mesh)
 
 
 def tp_decode_dryrun(cfg: TransformerConfig, tp: int = 2, batch: int = 4,
                      gen_tokens: int = 4) -> dict:
-    """The JAX package's tensor-parallel serving dry run: serving on a mesh
-    is not ported yet (training on one is, parallel/)."""
-    raise NotImplementedError(
-        "tensor-parallel serving is not ported yet: serving on a mesh "
-        "(decode/sharded.py, the engine's DP/TP path) is a later slice of the port")
+    """Tensor-parallel serving dry run (JAX bench/decode_bench.py:315-336):
+    the engine with KV pages and heads split over a {model tp} mesh of tp
+    gloo ranks on the CPU (parallel.launch; JAX uses tp virtual CPU
+    devices) runs a short generation.  Returns rank 0's
+    measure_engine_throughput dict with `dryrun` True: it proves that the
+    path runs, and its times are the CPU's."""
+    from cuda_flash_attention_tpu_torch.parallel import launch
+
+    out = launch.run("cuda_flash_attention_tpu_torch.bench.decode_bench:_dryrun_rank",
+                     tp, args=(cfg, tp, batch, gen_tokens))[0]
+    out["dryrun"] = True
+    return out
 
 
 def _cache_dtype(args):
@@ -379,13 +406,15 @@ def main(argv=None):
                    help="with --engine: also run the device loop on the same "
                         "config and emit engine_ms_per_token_step / step_ms")
     p.add_argument("--tp-dryrun", type=int, default=0, metavar="TP",
-                   help="tensor-parallel serving dry run (not ported: raises)")
+                   help="tensor-parallel serving dry run on TP gloo ranks on "
+                        "the CPU")
     p.add_argument("--repeats", type=int, default=5,
                    help="device-loop slopes; the median is reported with the "
                         "min/max spread")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = p.parse_args(argv)
-    device = resolve_device(args.device)
+    # The dry run's ranks are gloo ranks on the CPU whatever --device says.
+    device = torch.device("cpu") if args.tp_dryrun else resolve_device(args.device)
 
     name = args.config or ("flagship" if args.flagship else "tiny")
     cfg = {

@@ -33,3 +33,8 @@ from cuda_flash_attention_tpu_torch.decode.sampling import (  # noqa: F401
     speculative_accept,
     warp_logits,
 )
+from cuda_flash_attention_tpu_torch.decode.sharded import (  # noqa: F401
+    shard_kv_pages,
+    tp_chunk_append_attend,
+    tp_paged_decode_attention,
+)

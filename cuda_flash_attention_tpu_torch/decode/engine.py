@@ -56,9 +56,34 @@ Counterpart of cuda_flash_attention_tpu/decode/engine.py:
     length 0, and zeros for lookup drafts), as JAX's _spec_round feeds
     them.
 
+Serving on a mesh (`mesh=`, JAX engine.py:238-341): KV heads and the
+projections split over "model" and, under "data", slots and the page pool
+over "data", each data shard with its own allocators over a private slice
+of the pool (page ids local to it) and its own prefix map.  JAX's single
+controller sees every slot; here every rank is a process
+(parallel/mesh.py), and every rank runs this same host scheduler on the
+same requests, with all dp allocators on the host, so that admission, page
+ids and finishing agree on every rank.  Each rank holds device pages only
+for its own data shard and its own KV heads, runs the model on its own
+slots' rows (decode/model.py's mesh note) and samples them, and the tokens
+each data shard sampled are gathered over "data" before the host reads
+them.  The ranks of one data shard sample from the same logits (gathered
+over "model") with the same generator state (seeded with seed plus the
+shard's index).  Bucket prefills run each shard's own requests (rows
+padded to the busiest shard's count); under "data", chunked prefill and
+prefix suffixes run every slot, as the JAX engine's mesh calls do.
+Under gloo (host-memory collectives, which no CUDA graph can capture) the
+decode steps run eagerly; under NCCL they are captured as without a mesh;
+`stats["graphs"]` reports which.  Captured NCCL steps have run only on a
+world-1 mesh, whose collectives move no data: a captured step that holds
+a real multi-rank NCCL collective is unverified (it needs several
+cards).  A hybrid multi-window-group cache refuses a mesh as JAX's does,
+and so does a mesh that splits the sequence ("ctx" or "pipe"); an MoE
+layer on a "model" or "expert" axis raises (models/transformer.py
+`_moe_on_mesh`: expert parallelism is not ported).
+
 Entry points run on the CUDA card unless `device="cpu"` is given, which
-runs the kernels' plain versions.  Not ported yet (and refused): serving on
-a mesh (decode/sharded.py; training on a mesh is ported, parallel/).
+runs the kernels' plain versions; with a mesh, on the mesh's device.
 """
 
 from __future__ import annotations
@@ -70,6 +95,7 @@ from collections import deque
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from cuda_flash_attention_tpu_torch._device import resolve_device
 from cuda_flash_attention_tpu_torch.decode.graphs import StepGraph
@@ -90,9 +116,20 @@ from cuda_flash_attention_tpu_torch.decode.sampling import (
     speculative_accept,
     warp_logits,
 )
+from cuda_flash_attention_tpu_torch.decode.sharded import init_local_kv_pages
 from cuda_flash_attention_tpu_torch.kernels.common import cdiv
 from cuda_flash_attention_tpu_torch.models.lora import LoRATensor
-from cuda_flash_attention_tpu_torch.models.transformer import TransformerConfig
+from cuda_flash_attention_tpu_torch.models.transformer import (
+    TransformerConfig,
+    shard_params,
+)
+from cuda_flash_attention_tpu_torch.parallel.collectives import all_gather
+from cuda_flash_attention_tpu_torch.parallel.mesh import (
+    CTX_AXIS,
+    DATA_AXIS,
+    MODEL_AXIS,
+    PIPE_AXIS,
+)
 from cuda_flash_attention_tpu_torch.quant.qtensor import QuantizedTensor
 
 
@@ -182,11 +219,6 @@ class DecodeEngine:
                  lookup_ngram: int = 2, prefix_cache: bool = False,
                  prefill_chunk: int | None = None, scan_layers: bool = False,
                  decode_burst: int = 1, prefill_burst_cap: int = 8):
-        if mesh is not None:
-            raise NotImplementedError(
-                "DecodeEngine: serving on a mesh (decode/sharded.py, the "
-                "engine's DP/TP path) is a later slice of the port; training "
-                "on a mesh is ported (parallel/)")
         if scan_layers and any(set(layer) != set(params["layers"][0])
                                for layer in params["layers"]):
             # JAX's stack_layer_params refuses a heterogeneous stack.
@@ -208,6 +240,10 @@ class DecodeEngine:
             self._layer_group.append(self._group_windows.index(w))
         self.n_groups = len(self._group_windows)
         if self.n_groups > 1:
+            if mesh is not None:
+                raise NotImplementedError(
+                    "hybrid (multi-window-group) cache is single-host: "
+                    "per-group tables are not sharded yet")
             if spec_tokens:
                 raise NotImplementedError(
                     "hybrid cache + speculation: the draft's group "
@@ -222,7 +258,20 @@ class DecodeEngine:
         self.sinks = cfg.attn_sinks if cfg.attn_window is not None else 0
         if page_size % 128 != 0:
             raise ValueError(f"page_size must be a multiple of 128; got {page_size}")
+        self.mesh = mesh
+        self.dp = self.tp = 1
+        if mesh is not None:
+            self._check_mesh(mesh, cfg, max_seqs)
+            if device is not None and torch.device(device) not in (
+                    mesh.device, torch.device(mesh.device.type)):
+                raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+            device = mesh.device
         self.device = resolve_device(device)
+        # This rank's data shard and its slots (every slot without "data").
+        self._slots_per_shard = max_seqs // self.dp
+        self._shard = mesh.index(DATA_AXIS) if mesh is not None else 0
+        self._rows = slice(self._shard * self._slots_per_shard,
+                           (self._shard + 1) * self._slots_per_shard)
         self.cfg = cfg
         self.params = self._serving_copy(params, cfg)
         self.max_seqs = max_seqs
@@ -234,13 +283,20 @@ class DecodeEngine:
         self.min_p = min_p
         self.want_logprobs = bool(logprobs)
         if num_pages is None:
-            num_pages = max_seqs * self.pages_per_seq + 1  # + the null page
+            # + a null page for each data shard (local page 0 of its pool).
+            num_pages = max_seqs * self.pages_per_seq + self.dp
+        if num_pages % self.dp:
+            raise ValueError(
+                f"num_pages ({num_pages}) must divide over the data axis "
+                f"({self.dp}): each shard owns a private pool slice")
         self.num_pages = num_pages
-        self.allocator = PageAllocator(num_pages)
-        # Group 0's allocator is `allocator`; each further group allocates
-        # ids into its own layers' pools.
-        self._group_allocs = [self.allocator] + [
-            PageAllocator(num_pages) for _ in range(self.n_groups - 1)]
+        self.shard_pages = num_pages // self.dp
+        # One allocator per (window group, data shard), group-major: group
+        # 0's are `allocators`; each further group allocates ids into its
+        # own layers' pools.
+        self._group_allocs = [PageAllocator(self.shard_pages)
+                              for _ in range(self.n_groups * self.dp)]
+        self.allocators = self._group_allocs[:self.dp]
         self.caches = self._new_caches(cfg, cache_dtype)
         # Chunked prefill: prompts longer than this advance one chunk per
         # step (a multiple of the page size, so every chunk write is whole
@@ -272,19 +328,26 @@ class DecodeEngine:
                 raise ValueError("spec_tokens > 0 requires draft_params and draft_cfg")
             if draft_cfg.vocab_size != cfg.vocab_size:
                 raise ValueError("draft and target must share the vocab")
+            if draft_cfg.n_kv_heads % self.tp or draft_cfg.n_heads % self.tp:
+                raise ValueError(
+                    f"the '{MODEL_AXIS}' mesh axis ({self.tp}) must divide the "
+                    f"DRAFT model's n_kv_heads ({draft_cfg.n_kv_heads}) and "
+                    f"n_heads ({draft_cfg.n_heads}) too")
             self.draft_cfg = draft_cfg
             self.draft_params = self._serving_copy(draft_params, draft_cfg)
             self.draft_caches = self._new_caches(draft_cfg, cache_dtype)
 
         # Prefix caching: full prompt pages registered under their token
-        # prefix.  The port has one data shard, so one map each way (the JAX
-        # engine keeps one per shard under the same names); the allocator's
-        # on_last_free hook drops the entry of a page that died.
+        # prefix, per data shard (page ids are local to a shard's pool, and
+        # a prompt hits only pages of its slot's shard): the JAX engine's
+        # per-shard maps, as one map each way keyed by (shard, ...).  Each
+        # allocator's on_last_free hook drops the entry of a page that died.
         self.prefix_cache = bool(prefix_cache)
         if self.prefix_cache:
             self._prefix_maps: dict[tuple, int] = {}
-            self._page_keys: dict[int, tuple] = {}
-            self.allocator.on_last_free = self._drop_prefix_entry
+            self._page_keys: dict[tuple, tuple] = {}
+            for sh, alloc in enumerate(self.allocators):
+                alloc.on_last_free = functools.partial(self._drop_prefix_entry, sh)
 
         # Host-side slot state (numpy; copied to the device each step).
         # page_table IS group 0's table; further window groups have their own.
@@ -311,10 +374,15 @@ class DecodeEngine:
         self._pending: deque[Request] = deque()
         self._next_uid = 0
         self._generator = torch.Generator(device=self.device)
-        self._generator.manual_seed(seed)
+        self._generator.manual_seed(seed + self._shard)
+        # Decode steps replay captured CUDA graphs on the card, except under
+        # gloo, whose collectives cross host memory and cannot be captured:
+        # there they run eagerly.
+        self._eager = self.device.type != "cuda" or (
+            mesh is not None and "nccl" not in dist.get_backend())
         self.stats = {"steps": 0, "tokens": 0, "spec_rounds": 0,
                       "spec_proposed": 0, "spec_accepted": 0,
-                      "prefill_chunks": 0}
+                      "prefill_chunks": 0, "graphs": not self._eager}
 
         # Per-slot logit-bias matrix [max_seqs, vocab] on the host, made at
         # the first biased request and dropped when the last one retires;
@@ -350,15 +418,66 @@ class DecodeEngine:
         # One graph per (bias, penalties) (sampling and logprobs are fixed
         # per engine), sharing one memory pool.
         self._graphs: dict[tuple[bool, bool], StepGraph] = {}
-        self._graph_pool = (torch.cuda.graph_pool_handle()
-                            if dev.type == "cuda" else None)
+        self._graph_pool = (None if self._eager
+                            else torch.cuda.graph_pool_handle())
+
+    def _check_mesh(self, mesh, cfg: TransformerConfig, max_seqs: int):
+        """Set dp and tp from a serving mesh, with JAX's divisibility errors;
+        an axis that splits the sequence or the layers is refused."""
+        for axis in (CTX_AXIS, PIPE_AXIS):
+            if mesh.size(axis) > 1:
+                raise NotImplementedError(
+                    f"serving on a mesh splits slots over '{DATA_AXIS}' and "
+                    f"heads over '{MODEL_AXIS}'; a '{axis}' axis of size "
+                    f"{mesh.size(axis)} splits the sequence or the layers")
+        self.dp, self.tp = mesh.size(DATA_AXIS), mesh.size(MODEL_AXIS)
+        if self.tp > 1 and (cfg.n_kv_heads % self.tp or cfg.n_heads % self.tp):
+            raise ValueError(
+                f"the '{MODEL_AXIS}' mesh axis ({self.tp}) must divide both "
+                f"n_kv_heads ({cfg.n_kv_heads}) and n_heads ({cfg.n_heads}) "
+                f"for tensor-parallel serving: KV pages are head-sharded and "
+                f"must stay device-local")
+        if max_seqs % self.dp:
+            raise ValueError(
+                f"max_seqs ({max_seqs}) must divide over the '{DATA_AXIS}' "
+                f"axis ({self.dp}): slots are sharded")
+
+    @property
+    def allocator(self) -> PageAllocator:
+        """The page allocator of a single data shard."""
+        if self.dp != 1:
+            raise AttributeError(
+                "data-parallel engine has one allocator per shard: use "
+                ".allocators[shard]")
+        return self.allocators[0]
+
+    def _galloc(self, shard: int, g: int) -> PageAllocator:
+        return self._group_allocs[g * self.dp + shard]
+
+    def _slot_shard(self, slot: int) -> int:
+        return slot // self._slots_per_shard
+
+    def _local(self, x):
+        """This rank's data shard's rows of a slot-indexed tensor."""
+        return x if self.dp == 1 else x[self._rows]
+
+    def _gather(self, x):
+        """The rows of every data shard, in slot order, from this rank's."""
+        return x if self.dp == 1 else all_gather(x, self.mesh, DATA_AXIS, 0)
+
+    def _vocab(self, logits):
+        """Logits over the whole vocabulary from this rank's lm-head
+        columns (the model's mesh note): gathered over "model"."""
+        return logits if self.tp == 1 else all_gather(logits, self.mesh,
+                                                      MODEL_AXIS, -1)
 
     def _serving_copy(self, params, cfg: TransformerConfig):
         """A compute-dtype copy of the 2-D weights on the engine's device
         (decode needs no fp32 master); norm scales keep their dtype.  A
         QuantizedTensor is a leaf: its values and fp32 scales move to the
         device unchanged, as the JAX engine keeps them (engine.py:157-174);
-        a LoRATensor's base and adapters follow the same rules."""
+        a LoRATensor's base and adapters follow the same rules.  With a
+        mesh, this rank's blocks (shard_params) of the full tree."""
         def copy(p):
             if isinstance(p, QuantizedTensor):
                 return p.to(self.device)
@@ -369,9 +488,16 @@ class DecodeEngine:
                 return p.to(self.device, cfg.dtype)
             return p.to(self.device)
 
+        if self.mesh is not None:
+            params = shard_params(params, self.mesh, cfg)
         return _map_params(params, copy)
 
     def _new_caches(self, cfg: TransformerConfig, cache_dtype):
+        if self.mesh is not None:
+            return [init_local_kv_pages(self.mesh, cfg.n_kv_heads, self.num_pages,
+                                        self.page_size, cfg.head_dim, cache_dtype,
+                                        data_axis=DATA_AXIS)
+                    for _ in range(cfg.n_layers)]
         return [init_kv_pages(cfg.n_kv_heads, self.num_pages, self.page_size,
                               cfg.head_dim, cache_dtype, device=self.device)
                 for _ in range(cfg.n_layers)]
@@ -402,13 +528,16 @@ class DecodeEngine:
     def _device_propose(self, tokens, positions, table, active):
         """k+1 greedy draft steps: proposes d1..dk and runs the extra step
         that feeds dk, so the draft cache holds K/V for every chunk position
-        before the next round (its output is discarded).  Returns [n, k]."""
+        before the next round (its output is discarded).  Returns [n, k].
+        The _device_* functions of speculation take and return this rank's
+        data shard's rows."""
         k = self.spec_tokens
         tok, out = tokens, []
         for i in range(k + 1):
             logits, _ = decode_step(self.draft_params, tok, positions + i,
                                     self.draft_caches, table, active,
-                                    self.draft_cfg)
+                                    self.draft_cfg, mesh=self.mesh)
+            logits = self._vocab(logits)
             tok = torch.argmax(logits, dim=-1)
             out.append(tok)
         return torch.stack(out[:k], dim=1)
@@ -423,7 +552,8 @@ class DecodeEngine:
         for i in range(k + 1):
             logits, _ = decode_step(self.draft_params, tok, positions + i,
                                     self.draft_caches, table, active,
-                                    self.draft_cfg)
+                                    self.draft_cfg, mesh=self.mesh)
+            logits = self._vocab(logits)
             warped = warp_logits(logits, temperature=self.temperature,
                                  top_k=self.top_k, top_p=self.top_p,
                                  min_p=self.min_p)
@@ -439,10 +569,11 @@ class DecodeEngine:
         also log_softmax at each argmax (an accepted draft i equals
         greedy[i]; the correction or bonus is greedy[m])."""
         logits, _ = verify_step(self.params, chunk, positions, self.caches,
-                                table, active, self.cfg)
+                                table, active, self.cfg, mesh=self.mesh)
+        logits = self._vocab(logits)
         bias = self._bias_dev()
         if bias is not None:
-            logits = logits + bias[:, None, :]
+            logits = logits + self._local(bias)[:, None, :]
         greedy = torch.argmax(logits, dim=-1)
         lp = None
         if self.want_logprobs:
@@ -457,10 +588,11 @@ class DecodeEngine:
         (prompt lookup) passes draft_probs None: pd is one-hot at the draft,
         and the rule stays exact."""
         logits, _ = verify_step(self.params, chunk, positions, self.caches,
-                                table, active, self.cfg)
+                                table, active, self.cfg, mesh=self.mesh)
+        logits = self._vocab(logits)
         bias = self._bias_dev()
         if bias is not None:
-            logits = logits + bias[:, None, :]
+            logits = logits + self._local(bias)[:, None, :]
         warped = warp_logits(logits.reshape(-1, logits.shape[-1]),
                              temperature=self.temperature, top_k=self.top_k,
                              top_p=self.top_p, min_p=self.min_p)
@@ -486,27 +618,29 @@ class DecodeEngine:
         bias rows are added to the logits; with penalties, so is
         -presence * (sampled in this burst, not before) - frequency *
         (times sampled in this burst), the uploaded bias carrying every
-        earlier token's penalties."""
+        earlier token's penalties.  The buffers hold every slot; the model
+        runs this rank's data shard's rows, whose tokens are gathered over
+        "data" into every slot's."""
         b = self._buf
         i = b["i"]
         act = b["active"] & (b["remaining"] > i)
-        logits, _ = decode_step(self.params, b["tokens"], b["positions"] + i,
-                                self.caches, self._layer_tables(b["tables"]),
-                                act, self.cfg)
+        loc = self._local
+        logits, _ = decode_step(self.params, loc(b["tokens"]),
+                                loc(b["positions"]) + i, self.caches,
+                                self._layer_tables([loc(t) for t in b["tables"]]),
+                                loc(act), self.cfg, mesh=self.mesh)
+        logits = self._vocab(logits)
         if bias:
-            logits = logits + b["bias"]
+            logits = logits + loc(b["bias"])
         if penalties:
             counts = b["counts"]
-            newly = (counts > 0) & ~b["pre_seen"]
-            logits = (logits - b["presence"][:, None] * newly
-                      - b["frequency"][:, None] * counts)
-        kw = dict(temperature=self.temperature, top_k=self.top_k,
-                  top_p=self.top_p, min_p=self.min_p)
-        if self.want_logprobs:
-            nxt, lp = sample_with_logprob(logits, self._generator, **kw)
-            b["lps"].index_copy_(0, i, lp[None])
-        else:
-            nxt = sample_tokens(logits, self._generator, **kw)
+            newly = (loc(counts) > 0) & ~loc(b["pre_seen"])
+            logits = (logits - loc(b["presence"])[:, None] * newly
+                      - loc(b["frequency"])[:, None] * loc(counts))
+        nxt, lp = self._sample_dev(logits)
+        nxt = self._gather(nxt)
+        if lp is not None:
+            b["lps"].index_copy_(0, i, self._gather(lp)[None])
         tokens = torch.where(act, nxt.long(), b["tokens"])
         b["toks"].index_copy_(0, i, tokens[None])
         b["tokens"].copy_(tokens)
@@ -531,7 +665,7 @@ class DecodeEngine:
             g = StepGraph(step, self.device,
                           warmup=functools.partial(self._warmup_step, step),
                           generator=self._generator if self.temperature > 0 else None,
-                          pool=self._graph_pool)
+                          pool=self._graph_pool, eager=self._eager)
             self._graphs[(bias, penalties)] = g
         return g
 
@@ -646,11 +780,11 @@ class DecodeEngine:
                 f"{self.pages_per_seq * self.page_size}"
             )
         worst = max(self._worst_pages_for(len(prompt), max_new_tokens))
-        if worst > self.num_pages - 1:  # page 0 is the null page
+        if worst > self.shard_pages - 1:  # page 0 of each pool is the null page
             raise ValueError(
-                f"request needs up to {worst} KV pages but the pool has only "
-                f"{self.num_pages - 1} allocatable pages; raise num_pages or "
-                f"shorten prompt/max_new_tokens"
+                f"request needs up to {worst} KV pages but each shard pool "
+                f"has only {self.shard_pages - 1} allocatable pages; raise "
+                f"num_pages or shorten prompt/max_new_tokens"
             )
 
     def _validate_bias(self, logit_bias):
@@ -759,7 +893,7 @@ class DecodeEngine:
                     continue
                 if pi * self.page_size < self.sinks:
                     continue  # attention-sink pages stay resident
-                self._group_allocs[g].free([pid])
+                self._galloc(self._slot_shard(slot), g).free([pid])
                 pages[pi] = None
                 self._tables[g][slot, pi] = 0
 
@@ -771,37 +905,43 @@ class DecodeEngine:
             return None
         return self.stats["spec_accepted"] / self.stats["spec_proposed"]
 
-    def _budgets(self) -> list[int]:
-        """Allocatable pages per window group minus those promised to
-        running slots but not allocated yet (live pages only: recycled
-        pages are back in the pool)."""
-        budgets = [a.available for a in self._group_allocs]
+    def _budgets(self) -> list[list[int]]:
+        """Allocatable pages per data shard and window group minus those
+        promised to the shard's running slots but not allocated yet (live
+        pages only: recycled pages are back in the pool)."""
+        budgets = [[self._galloc(sh, g).available for g in range(self.n_groups)]
+                   for sh in range(self.dp)]
         for s in range(self.max_seqs):
+            sh = self._slot_shard(s)
             for g in range(self.n_groups):
-                budgets[g] -= max(0, self._slot_worst[s][g]
-                                  - self._live_page_count(s, g))
+                budgets[sh][g] -= max(0, self._slot_worst[s][g]
+                                      - self._live_page_count(s, g))
         return budgets
 
     def _admit(self):
-        """Admit pending requests in FIFO order while a slot is free and
-        every window group's page budget covers the head request's worst
-        case there.  Prefix hits prefill their suffix alone, long prompts
-        (or long suffixes) start chunked prefill, and the rest prefill by
-        length bucket."""
+        """Admit pending requests in FIFO order while a slot is free whose
+        data shard's page budget covers the head request's worst case in
+        every window group (the first such slot).  Prefix hits prefill
+        their suffix alone, long prompts (or long suffixes) start chunked
+        prefill, and the rest prefill by length bucket."""
         free = self._free_slots()
         budgets = self._budgets()
         take: list[tuple[Request, int]] = []
         while self._pending and free:
             req = self._pending[0]
             worst = self._worst_pages_for(len(req.prompt), req.max_new_tokens)
-            if any(b < w for b, w in zip(budgets, worst)):
+            slot = next((s for s in free if all(
+                b >= w for b, w in zip(budgets[self._slot_shard(s)], worst))), None)
+            if slot is None:
                 break
-            budgets = [b - w for b, w in zip(budgets, worst)]
-            take.append((self._pending.popleft(), free.pop(0)))
+            free.remove(slot)
+            sh = self._slot_shard(slot)
+            budgets[sh] = [b - w for b, w in zip(budgets[sh], worst)]
+            take.append((self._pending.popleft(), slot))
         if self.prefix_cache:
             missed = []
             for r, slot in take:
-                hits = self._prefix_hits(r.prompt)
+                hits = self._prefix_hits(r.prompt, self._slot_shard(slot))
                 suffix_len = len(r.prompt) - len(hits) * self.page_size
                 if not hits:
                     missed.append((r, slot))
@@ -831,14 +971,41 @@ class DecodeEngine:
             self._prefill_batch([r for r, _ in pairs], [s for _, s in pairs],
                                 pad_len)
 
-    def _sample(self, logits):
-        """One token per row; returns (tokens on the host, logprobs or None)."""
+    def _sample_dev(self, logits):
+        """One token per row; returns (tokens, logprobs or None) on the
+        device."""
         kw = dict(temperature=self.temperature, top_k=self.top_k,
                   top_p=self.top_p, min_p=self.min_p)
         if self.want_logprobs:
-            tok, lp = sample_with_logprob(logits, self._generator, **kw)
-            return tok.cpu().numpy(), lp.cpu().numpy()
-        return sample_tokens(logits, self._generator, **kw).cpu().numpy(), None
+            return sample_with_logprob(logits, self._generator, **kw)
+        return sample_tokens(logits, self._generator, **kw), None
+
+    def _sample_slots(self, slots: list[int], row_of):
+        """One token for each of `slots` from its logits row plus its bias
+        row; returns (tokens, logprobs or None) on the host, in the order of
+        `slots`.  `row_of(i)` is slots[i]'s row (this rank's vocab columns
+        on a mesh) and is asked only for the slots of this rank's data
+        shard; the rows are gathered over "model" here, so only they cross
+        ranks.  Under "data" each shard samples its own slots, its rows
+        padded to the busiest shard's count, and the tokens are gathered
+        over "data"."""
+        per = [[i for i, s in enumerate(slots) if self._slot_shard(s) == d]
+               for d in range(self.dp)]
+        n, mine = max(len(p) for p in per), per[self._shard]
+        logits = torch.zeros(n, self.cfg.vocab_size // self.tp, device=self.device)
+        if mine:
+            logits[:len(mine)] = torch.stack([row_of(i) for i in mine])
+        logits = self._vocab(logits)
+        if mine:
+            logits[:len(mine)] = self._with_bias(logits[:len(mine)],
+                                                 [slots[i] for i in mine])
+        tok, lp = (self._gather(x) if x is not None else None
+                   for x in self._sample_dev(logits))
+        order = [i for p in per for i in p + [None] * (n - len(p))]
+        keep = [j for j, i in enumerate(order) if i is not None]
+        inverse = np.argsort([order[j] for j in keep])
+        tok = tok.cpu().numpy()[keep][inverse]
+        return tok, (None if lp is None else lp.cpu().numpy()[keep][inverse])
 
     def _ensure_bias(self) -> np.ndarray:
         if self._bias is None:
@@ -930,51 +1097,61 @@ class DecodeEngine:
         prompts zero-padded to pad_len.  The padded tail's logits are unused
         under causal masking and its K/V is never attended (the lengths gate
         it); decode appends overwrite it.  A draft model prefills the same
-        tokens into its own caches under the same page ids."""
-        tokens = np.zeros((len(reqs), pad_len), np.int64)
-        for i, r in enumerate(reqs):
-            tokens[i, :len(r.prompt)] = r.prompt
+        tokens into its own caches under the same page ids.  Under "data"
+        each shard runs the requests of its own slots, its rows padded to
+        the busiest shard's count (the MoE layers gather equal blocks), and
+        writes their K/V into its own pool."""
+        per = [[i for i, s in enumerate(slots) if self._slot_shard(s) == d]
+               for d in range(self.dp)]
+        mine = per[self._shard]
+        row = {i: j for j, i in enumerate(mine)}
+        tokens = np.zeros((max(len(p) for p in per), pad_len), np.int64)
+        for j, i in enumerate(mine):
+            tokens[j, :len(reqs[i].prompt)] = reqs[i].prompt
         for req, slot in zip(reqs, slots):
             self._bind_bias(req, slot)
         with torch.inference_mode():
             tokens_dev = self._dev(tokens)
-            logits, kv = prefill_forward(self.params, tokens_dev, self.cfg)
+            logits, kv = prefill_forward(self.params, tokens_dev, self.cfg,
+                                         mesh=self.mesh)
             if self._use_draft:
                 _, draft_kv = prefill_forward(self.draft_params, tokens_dev,
-                                              self.draft_cfg)
-            last = self._dev([len(r.prompt) - 1 for r in reqs])
-            last_logits = logits[torch.arange(len(reqs), device=self.device), last]
-            firsts, first_lps = self._sample(self._with_bias(last_logits, slots))
+                                              self.draft_cfg, mesh=self.mesh)
+            firsts, first_lps = self._sample_slots(
+                slots, lambda i: logits[row[i], len(reqs[i].prompt) - 1])
             for i, (req, slot) in enumerate(zip(reqs, slots)):
                 n_pages = cdiv(len(req.prompt), self.page_size)
                 ids = []  # per window group
                 for g in range(self.n_groups):
-                    page_ids = self._group_allocs[g].alloc(n_pages)
+                    page_ids = self._galloc(self._slot_shard(slot), g).alloc(n_pages)
                     self._group_pages[g][slot] = list(page_ids)
                     self._tables[g][slot, :] = 0
                     self._tables[g][slot, :n_pages] = page_ids
-                    ids.append(self._dev(page_ids))
-                kv_len = n_pages * self.page_size
-                for li, (pages, (k, v)) in enumerate(zip(self.caches, kv)):
-                    write_prompt_kv(pages, k[i, :kv_len], v[i, :kv_len],
-                                    ids[self._layer_group[li]])
-                if self._use_draft:
-                    for pages, (k, v) in zip(self.draft_caches, draft_kv):
-                        write_prompt_kv(pages, k[i, :kv_len], v[i, :kv_len], ids[0])
+                    ids.append(page_ids)
+                if i in row:  # the request's K/V is this rank's to write
+                    ids = [self._dev(x) for x in ids]
+                    j, kv_len = row[i], n_pages * self.page_size
+                    for li, (pages, (k, v)) in enumerate(zip(self.caches, kv)):
+                        write_prompt_kv(pages, k[j, :kv_len], v[j, :kv_len],
+                                        ids[self._layer_group[li]])
+                    if self._use_draft:
+                        for pages, (k, v) in zip(self.draft_caches, draft_kv):
+                            write_prompt_kv(pages, k[j, :kv_len], v[j, :kv_len],
+                                            ids[0])
                 self._start_decoding(req, slot, int(firsts[i]),
                                      first_lps[i] if first_lps is not None else None)
 
-    def _prefix_hits(self, prompt: list[int]) -> list[int]:
-        """The longest chain of cached pages covering this prompt's head.
-        Always leaves at least one suffix token, whose logits give the first
-        generated token."""
+    def _prefix_hits(self, prompt: list[int], shard: int = 0) -> list[int]:
+        """The longest chain of the shard's cached pages covering this
+        prompt's head.  Always leaves at least one suffix token, whose
+        logits give the first generated token."""
         ps = self.page_size
         n_full = len(prompt) // ps
         if n_full and len(prompt) == n_full * ps:
             n_full -= 1
         hits: list[int] = []
         for i in range(n_full):
-            pid = self._prefix_maps.get(tuple(prompt[:(i + 1) * ps]))
+            pid = self._prefix_maps.get((shard, tuple(prompt[:(i + 1) * ps])))
             if pid is None:
                 break
             hits.append(pid)
@@ -984,38 +1161,56 @@ class DecodeEngine:
         """Publish the slot's pages that the prompt covers fully: all later
         writes land at positions >= the prompt length, so their content is
         fixed for the page's lifetime."""
-        ps = self.page_size
+        ps, shard = self.page_size, self._slot_shard(slot)
         pages = self._slot_pages[slot]
         for i in range(min(len(req.prompt) // ps, len(pages))):
             pid = pages[i]
-            key = tuple(req.prompt[:(i + 1) * ps])
-            if pid is None or pid in self._page_keys or key in self._prefix_maps:
+            key = (shard, tuple(req.prompt[:(i + 1) * ps]))
+            if pid is None or (shard, pid) in self._page_keys or key in self._prefix_maps:
                 continue
             self._prefix_maps[key] = pid
-            self._page_keys[pid] = key
+            self._page_keys[(shard, pid)] = key
 
-    def _drop_prefix_entry(self, pid: int):
-        key = self._page_keys.pop(pid, None)
+    def _drop_prefix_entry(self, shard: int, pid: int):
+        key = self._page_keys.pop((shard, pid), None)
         if key is not None:
             self._prefix_maps.pop(key, None)
 
-    def _chunk_forward(self, slots: list[int], tokens: np.ndarray,
-                       first_pos: np.ndarray, live: np.ndarray):
-        """verify_step with page-granular writes for the rows of `slots`
+    def _chunk_forward(self, slots: list[int], parts, starts, size: int,
+                       full_width: bool = False):
+        """verify_step with page-granular writes of `parts[i]` (tokens,
+        zero-padded to `size`) at position starts[i] for each of `slots`
         (chunked prefill and prefix suffixes), mirrored into the draft's
-        caches under speculation; `live` (a bool per row) masks idle rows,
-        which write and attend nothing.  Returns the target's logits
-        [rows, T, V]."""
+        caches under speculation.  The call's rows are the slots alone, or
+        every slot (idle ones masked: they write and attend nothing) with
+        `full_width` or a "data" axis, as the JAX engine's mesh calls run; a
+        rank runs its own data shard's rows.  Returns the target's logits
+        [rows, size, V] (this rank's vocab columns on a mesh) and each of
+        this rank's `slots`'s row in them."""
+        rows = (list(range(self.max_seqs)) if full_width or self.dp > 1
+                else list(slots))
+        rows = rows[self._rows] if self.dp > 1 else rows
+        at = {s: r for r, s in enumerate(rows)}
+        tokens = np.zeros((len(rows), size), np.int64)
+        first_pos = np.zeros(len(rows), np.int64)
+        live = np.zeros(len(rows), bool)
+        for s, part, start in zip(slots, parts, starts):
+            if s in at:
+                tokens[at[s], :len(part)] = part
+                first_pos[at[s]] = start
+                live[at[s]] = True
         with torch.inference_mode():
             args = (self._dev(tokens), self._dev(first_pos))
-            table = self._tables_dev(slots)
-            mask = self._dev(np.asarray(live, bool))
+            table = self._tables_dev(rows)
+            mask = self._dev(live)
             logits, _ = verify_step(self.params, *args, self.caches, table,
-                                    mask, self.cfg, paged_write=True)
+                                    mask, self.cfg, paged_write=True,
+                                    mesh=self.mesh)
             if self._use_draft:
                 verify_step(self.draft_params, *args, self.draft_caches, table,
-                            mask, self.draft_cfg, paged_write=True)
-        return logits
+                            mask, self.draft_cfg, paged_write=True,
+                            mesh=self.mesh)
+        return logits, {s: at[s] for s in slots if s in at}
 
     def _prefill_with_prefix(self, req: Request, slot: int, hits: list[int]):
         """Admission of a prefix-cache hit: share the cached pages and push
@@ -1026,17 +1221,15 @@ class DecodeEngine:
         suffix = req.prompt[prefix_len:]
         pad_len = cdiv(len(suffix), ps) * ps
         self._bind_bias(req, slot)
-        self.allocator.share(hits)
-        pages = list(hits) + self.allocator.alloc(pad_len // ps)
+        alloc = self.allocators[self._slot_shard(slot)]
+        alloc.share(hits)
+        pages = list(hits) + alloc.alloc(pad_len // ps)
         self._slot_pages[slot] = pages
         self.page_table[slot, :] = 0
         self.page_table[slot, :len(pages)] = pages
-        tokens = np.zeros((1, pad_len), np.int64)
-        tokens[0, :len(suffix)] = suffix
-        logits = self._chunk_forward([slot], tokens, np.array([prefix_len]),
-                                     np.ones(1, bool))
-        firsts, lps = self._sample(self._with_bias(logits[:, len(suffix) - 1],
-                                                   [slot]))
+        logits, at = self._chunk_forward([slot], [suffix], [prefix_len], pad_len)
+        firsts, lps = self._sample_slots(
+            [slot], lambda i: logits[at[slot], len(suffix) - 1])
         self._start_decoding(req, slot, int(firsts[0]),
                              lps[0] if lps is not None else None)
 
@@ -1051,7 +1244,7 @@ class DecodeEngine:
             self._tables[g][slot, :] = 0
             self._group_pages[g][slot] = []
         if hits:  # prefix caching: one window group
-            self.allocator.share(hits)
+            self.allocators[self._slot_shard(slot)].share(hits)
             self._slot_pages[slot] = list(hits)
             self.page_table[slot, :len(hits)] = hits
         req.slot = slot
@@ -1077,23 +1270,15 @@ class DecodeEngine:
             by_size.setdefault(size, []).append(s)
         for size, slots in by_size.items():
             starts = [int(self._prefill_pos[s]) for s in slots]
-            # A dense model runs the chunk's slots alone; an MoE model the
-            # JAX engine's max_seqs rows (idle rows masked, tokens 0), since
-            # the capacity couples the call's tokens.
-            rows = list(range(self.max_seqs)) if self.cfg.n_experts else slots
-            row = {s: i for i, s in enumerate(rows)}
-            tokens = np.zeros((len(rows), size), np.int64)
-            first_pos = np.zeros(len(rows), np.int64)
-            live = np.zeros(len(rows), bool)
-            for i, s in enumerate(slots):
-                part = self._slot_req[s].prompt[starts[i]:starts[i] + size]
-                tokens[row[s], :len(part)] = part
-                first_pos[row[s]] = starts[i]
-                live[row[s]] = True
-                self._ensure_pages_upto(s, starts[i] + size)
-            logits = self._chunk_forward(rows, tokens, first_pos, live)
-            if rows is not slots:
-                logits = logits[[row[s] for s in slots]]
+            parts = [self._slot_req[s].prompt[start:start + size]
+                     for s, start in zip(slots, starts)]
+            for s, start in zip(slots, starts):
+                self._ensure_pages_upto(s, start + size)
+            # A dense model runs the chunk's slots alone (every slot under
+            # "data"); an MoE model every slot, since the capacity couples
+            # the call's tokens (the JAX engine's rows).
+            logits, at = self._chunk_forward(slots, parts, starts, size,
+                                             full_width=bool(self.cfg.n_experts))
             self.stats["prefill_chunks"] += 1
             done = []
             for i, s in enumerate(slots):
@@ -1107,13 +1292,11 @@ class DecodeEngine:
                     self._recycle_stale(s)
             if not done:
                 continue
-            rows = [logits[i, len(self._slot_req[slots[i]].prompt) - 1 - starts[i]]
-                    for i in done]
-            toks, lps = self._sample(self._with_bias(torch.stack(rows),
-                                                     [slots[i] for i in done]))
-            for j, i in enumerate(done):
-                self._start_decoding(self._slot_req[slots[i]], slots[i],
-                                     int(toks[j]),
+            done_slots = [slots[i] for i in done]
+            toks, lps = self._sample_slots(done_slots, lambda j: logits[
+                at[done_slots[j]], len(parts[done[j]]) - 1])
+            for j, s in enumerate(done_slots):
+                self._start_decoding(self._slot_req[s], s, int(toks[j]),
                                      lps[j] if lps is not None else None)
 
     def _ensure_pages_upto(self, slot: int, end_pos: int):
@@ -1127,7 +1310,7 @@ class DecodeEngine:
         for g in range(self.n_groups):
             pages = self._group_pages[g][slot]
             while len(pages) < needed:
-                (pid,) = self._group_allocs[g].alloc(1)
+                (pid,) = self._galloc(self._slot_shard(slot), g).alloc(1)
                 pages.append(pid)
                 self._tables[g][slot, len(pages) - 1] = pid
 
@@ -1149,7 +1332,7 @@ class DecodeEngine:
     def _retire(self, slot: int) -> Request:
         req = self._slot_req[slot]
         for g in range(self.n_groups):
-            self._group_allocs[g].free(
+            self._galloc(self._slot_shard(slot), g).free(
                 [p for p in self._group_pages[g][slot] if p is not None])
             self._group_pages[g][slot] = []
             self._tables[g][slot, :] = 0
@@ -1287,11 +1470,16 @@ class DecodeEngine:
             self._recycle_stale(slot)
             self._ensure_page(slot, extra=k)
         sampled = self.temperature > 0.0
+
+        def host(x):  # every data shard's rows, on the host
+            return self._gather(x).cpu().numpy()
+
         with torch.inference_mode():
-            positions = self._dev(self.lengths).long()
-            table = self._dev(self.page_table)
-            act = self._dev(self.active)
-            last = self._dev(self.last_token).long()
+            loc = self._local
+            positions = loc(self._dev(self.lengths).long())
+            table = loc(self._dev(self.page_table))
+            act = loc(self._dev(self.active))
+            last = loc(self._dev(self.last_token).long())
             draft_probs = None
             if self._use_draft and sampled:
                 drafts_dev, draft_probs = self._device_propose_sampled(
@@ -1299,20 +1487,20 @@ class DecodeEngine:
             elif self._use_draft:
                 drafts_dev = self._device_propose(last, positions, table, act)
             else:
-                drafts_dev = self._dev(self._lookup_proposals(k))
+                drafts_dev = loc(self._dev(self._lookup_proposals(k)))
             chunk = torch.cat([last[:, None], drafts_dev], dim=1)
-            drafts = drafts_dev.cpu().numpy()
+            drafts = host(drafts_dev)
             if sampled:
                 m_d, final_d, lp_d, lp_f = self._device_verify_sampled(
                     chunk, positions, table, act, draft_probs)
-                m_all, final_all = m_d.cpu().numpy(), final_d.cpu().numpy()
+                m_all, final_all = host(m_d), host(final_d)
                 if self.want_logprobs:
-                    lp_drafts, lp_final = lp_d.cpu().numpy(), lp_f.cpu().numpy()
+                    lp_drafts, lp_final = host(lp_d), host(lp_f)
             else:
                 greedy_d, lp_all_d = self._device_verify(chunk, positions, table, act)
-                greedy = greedy_d.cpu().numpy()
+                greedy = host(greedy_d)
                 if self.want_logprobs:
-                    lp_all = lp_all_d.cpu().numpy()
+                    lp_all = host(lp_all_d)
         self.stats["steps"] += 1
         self.stats["spec_rounds"] += 1
 

@@ -9,7 +9,9 @@ persistent device buffers is captured once and replayed.  The step reads
 a device step index and advances it, so one capture serves a burst of any
 length, as the JAX body compiles once whatever n is.  On the CPU the same
 step function runs eagerly n times; on the card it is captured or the call
-raises: nothing falls back to eager launches.
+raises: nothing falls back to eager launches.  A step whose owner asks for
+eager runs (`eager=True`: a serving mesh under gloo, whose collectives
+cross host memory and cannot be captured) runs eagerly on the card too.
 
 Launch counts.  The kernel wrappers count launches on the host
 (kernels/launches.py), so a replay adds nothing to them by itself.  A
@@ -36,11 +38,13 @@ class StepGraph:
     given, is registered with the graph (CUDAGraph.register_generator_state)
     so that each replay draws the next numbers of its stream.  `pool` is a
     graph memory pool several graphs of one owner may share (their replays
-    never overlap).  On the CPU: the step runs eagerly."""
+    never overlap).  On the CPU, or with `eager`: the step runs eagerly."""
 
     def __init__(self, step, device: torch.device, *, warmup,
-                 generator: torch.Generator | None = None, pool=None):
+                 generator: torch.Generator | None = None, pool=None,
+                 eager: bool = False):
         self.step = step
+        self.eager = eager
         self.device = device
         self.warmup = warmup
         self.generator = generator
@@ -80,7 +84,7 @@ class StepGraph:
     def run(self, n: int) -> None:
         """The step n times: n replays on the card, n eager calls on the
         CPU."""
-        if self.device.type == "cpu":
+        if self.device.type == "cpu" or self.eager:
             for _ in range(n):
                 self.step()
             return

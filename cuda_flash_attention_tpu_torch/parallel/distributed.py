@@ -127,7 +127,7 @@ def make_hybrid_mesh(ici_shape: dict[str, int],
 
 def two_host_serving_mesh(tp: int, *, device=None) -> Mesh:
     """Data parallel across hosts, tensor parallel inside each: the layout
-    of the serving configuration (serving on a mesh is not ported yet)."""
+    of the serving configuration, which DecodeEngine(mesh=) serves."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     n_hosts = _n_hosts()
     per_host = world // n_hosts

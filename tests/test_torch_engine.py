@@ -108,7 +108,15 @@ def test_greedy_sampling_and_logprob_match_jax():
         np.asarray(jax_sampling.sample_tokens(jnp.asarray(logits), None)))
 
 
-@pytest.mark.parametrize("kwargs", [dict(mesh=object())])
+class _CtxMesh:
+    """A mesh that splits the sequence over ctx: serving refuses it before
+    reading anything else of the mesh."""
+
+    def size(self, axis):
+        return 2 if axis == "ctx" else 1
+
+
+@pytest.mark.parametrize("kwargs", [dict(mesh=_CtxMesh())])
 def test_unported_engine_options_raise(tiny, kwargs):
     with pytest.raises(NotImplementedError):
         _port_engine(tiny, **kwargs)
@@ -184,7 +192,8 @@ def test_import_check_covers_the_reference_contract_modules():
               "utils.data", "examples.serve", "examples.finetune_lora",
               "parallel", "parallel.mesh", "parallel.collectives",
               "parallel.sharded", "parallel.ring", "parallel.distributed",
-              "parallel.launch", "models.transformer", "models.training"):
+              "parallel.launch", "models.transformer", "models.training",
+              "decode.sharded"):
         assert f"cuda_flash_attention_tpu_torch.{m}" in mods, m
 
 

@@ -2437,3 +2437,47 @@ def test_profile_ops_records_the_port_kernels_on_the_card(cuda):
     assert 0 < only_b1 < whole
     assert "h100" not in profiling.chip_peaks(cuda).name.lower() or (
         profiling.chip_peaks(cuda).bf16_tflops == 989.0)
+
+
+@pytest.mark.parametrize("hq,hkv,slots", [(8, 2, 8), (16, 4, 4)], ids=["tp4", "dp2-tp2"])
+@pytest.mark.parametrize("cache", [torch.int8, torch.float32], ids=str)
+@pytest.mark.parametrize("compute", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("chunk", [0, 3, 128], ids=["B5", "B6-T3", "B6-T128"])
+def test_paged_kernels_at_llama3_head_local_shapes(cuda, hq, hkv, slots, cache,
+                                                   compute, chunk):
+    """B5 (chunk 0) and B6 on one rank's block of Llama-3-8B's serving on a
+    mesh (Hq 32, Hkv 8, D 128; decode/sharded.py): tp 4 leaves a rank 8
+    query heads on 2 KV heads of every slot; dp 2 x tp 2 16 on 4 of its
+    data shard's 4 slots, over its half of the page pool.  Ragged lengths
+    with an inactive slot."""
+    rng = np.random.default_rng(hq + chunk)
+    lengths = torch.tensor([300, 37, 0, 777, 5, 129, 1, 128][:slots],
+                           dtype=torch.int32) + chunk * (torch.arange(slots) != 2)
+    pps = -(-int(lengths.max()) // 128)
+    num_pages = slots * pps + 1
+    table = torch.from_numpy(rng.permutation(np.arange(1, num_pages)).astype(
+        np.int32)).reshape(slots, pps)
+    pages = kv_cache.init_kv_pages(hkv, num_pages, 128, 128, cache, device="cpu")
+    for slot in range(slots):
+        kv_cache.write_prompt_kv(pages, _randn(rng, pps * 128, hkv, 128),
+                                 _randn(rng, pps * 128, hkv, 128), table[slot])
+    pages = kv_cache.KVPages(*(t.to(cuda) for t in (
+        pages.k_pages, pages.k_scales, pages.v_pages, pages.v_scales)))
+    q_dtype = torch.bfloat16 if compute == torch.bfloat16 else torch.float32
+    q = _randn(rng, slots, max(chunk, 1), hq, 128).to(q_dtype).to(cuda)
+    table, lengths = table.to(cuda), lengths.to(torch.int32).to(cuda)
+    name = "paged_decode" if chunk == 0 else "paged_chunk"
+    before = LAUNCHES[name]
+    if chunk == 0:
+        o_k = dec_attention.paged_decode_attention(q[:, 0], pages, table, lengths,
+                                                   compute_dtype=compute)[:, None]
+    else:
+        o_k = dec_attention.paged_chunk_attention(q, pages, table, lengths,
+                                                  compute_dtype=compute)
+    assert LAUNCHES[name] == before + 1
+    o_p = dec_attention.paged_chunk_attention_plain(
+        q, pages, table, lengths, sm_scale=128 ** -0.5, compute_dtype=compute)
+    torch.cuda.synchronize()
+    assert not o_k[2].any() and torch.isfinite(o_k.float()).all()
+    err = (o_k.float() - o_p.float()).abs().max().item()
+    assert err <= (2e-2 if compute == torch.bfloat16 else 2e-5), err
