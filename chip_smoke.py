@@ -219,7 +219,7 @@ Phases (any failure raises and the script exits non-zero):
      versions' times and SDPA's backward (flash under causal masking with
      16-bit tiles, else memory-efficient with the mask as its bias);
  30. the Gemma-2-2B widths (phase 27's, 26 layers, bf16 weights and tiles)
-     train 4 AdamW steps on one seeded batch of B1 S2048 (every layer
+     train 3 AdamW steps on one seeded batch of B1 S2048 (every layer
      global: the 4096 window covers it): a finite, falling loss, step ms,
      tokens/s, peak memory, the bf16-peak share, B1's and B2's D 256
      launches, one profiled step as phase 10's; one more step with 128-row
@@ -307,9 +307,9 @@ Phases (any failure raises and the script exits non-zero):
      not sent home as controls that must fail; the quantized ring (int8,
      int4, e4m3) against B7 on the whole sequence (B1's gate) and against
      the bf16 ring (a mean relative error per storage), each with the ring
-     without its own shard's step as the control; the base model trained 2
-     AdamW steps on {ctx 4} (8192 inputs) and on {data 2, model 2} (B4
-     S2048) beside the unsharded steps; fp32 parity at 2 layers on both
+     without its own shard's step as the control; the base model trained
+     one AdamW step on {ctx 4} (8192 inputs) and on {data 2, model 2} (B4
+     S2048) beside the unsharded step; fp32 parity at 2 layers on both
      layouts (loss and grad_norm rtol 2e-4, each gradient leaf 2e-4 of its
      max, every parameter 1e-4) with controls; the scaling benchmark's
      three layouts (4 ranks on one card, not multi-GPU scaling).  The
@@ -329,7 +329,22 @@ Phases (any failure raises and the script exits non-zero):
      bf16 weights on an int8 cache at 4 layers on {model 4}: tokens/s and
      TPOT (4 gloo ranks on one card, eager steps: not multi-GPU tensor
      parallelism).  Their B1 (or B8), B5 and B6 launches go into the
-     kernel line ("launches_mesh_serving").
+     kernel line ("launches_mesh_serving").  Pipeline and expert
+     parallelism in the same 4 ranks (mesh_pp_ep): (f) Llama-3-8B's widths
+     at 4 layers trained by make_pp_train_step on {pipe 4} and {pipe 2,
+     model 2} (B4 S1024, 4 microbatches): finite, falling losses, the
+     first and last stages' weights moved; (g) the pipeline's fp32 parity
+     at the base width on {pipe 4} against the unsharded model forwarded
+     over all S tokens, with a dropped shift as the control; (h)
+     Mixtral-8x7B's widths served on {expert 4} and {expert 2, model 2}:
+     fp32 parity at 2 layers against the engine without a mesh (tokens,
+     logits; one rank's experts zeroed as the control) and bf16 weights on
+     an int8 cache at 8 layers timed beside rank 0's engine without a
+     mesh; (i) Mixtral's widths trained at 1 layer (B1 S2048, AdamW) on
+     both meshes and a small-width 8-expert model's fp32 parity (the
+     expert outputs' gradient summed over "expert" as the control).  Their
+     launches are also in the kernel line apart ("launches_mesh_pipeline",
+     "launches_mesh_expert_training", "launches_mesh_expert_serving").
 Serving's decode steps run as CUDA graphs (decode/graphs.py); each
 wrapper's launch count adds what a capture recorded at every replay.
 The line before the last is the kernel JSON (eleven kernels; B1, B5, B6 and
@@ -355,6 +370,7 @@ It imports torch and the port only, never jax or the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -3914,7 +3930,7 @@ def phase_wide_bwd(torch, fp32_bwd, fa2, bwd, common):
 
 def phase_gemma2_train(torch, np, transformer, training, common):
     """Phase 30: the Gemma-2-2B widths (GEMMA2_2B, 26 layers, bf16 weights
-    and tiles) train 4 AdamW steps on one seeded batch of B1 S2048, whose
+    and tiles) train 3 AdamW steps on one seeded batch of B1 S2048, whose
     rows the 4096 window covers (every layer runs global; phase 29 runs the
     windowed D 256 backward): a finite, falling loss; step ms, tokens/s,
     peak memory, the share of the bf16 peak; B2's D 256 launches (the
@@ -3945,7 +3961,7 @@ def phase_gemma2_train(torch, np, transformer, training, common):
     torch.cuda.reset_peak_memory_stats()
     reset_counts(names)
     losses, times = [], []
-    for _ in range(4):
+    for _ in range(3):
         t0 = time.perf_counter()
         state, metrics = step(state, tokens)
         losses.append(metrics["loss"].item())  # waits for the step
@@ -5029,6 +5045,7 @@ MESH_PARAM_ATOL = 1e-4
 # loss's rtol.
 MESH_GRAD_TOL = 2e-4
 MESH_TIMEOUT = 300  # seconds: the 4 ranks' run and gloo's collectives
+MESH_BASE_STEPS = 1  # (c)'s AdamW steps a layout
 
 
 def _rel_err(torch, got, want, world) -> float:
@@ -5047,6 +5064,57 @@ def _mean_rel_err(torch, got, want) -> float:
     s = torch.stack([(got.float() - want.float()).abs().sum(), want.float().abs().sum()])
     dist.all_reduce(s)
     return float(s[0] / s[1])
+
+
+def mesh_adamw_steps(transformer, training, cfg, params, opt, tokens, mesh, n=2):
+    """n AdamW steps (training.make_optax_train_step) from the full tree
+    `params` (with a mesh, this rank's blocks of it): each step's loss and
+    grad_norm, the first step's first Adam moment and the parameters after
+    the last step, every leaf gathered whole."""
+    state = training.init_train_state(
+        params if mesh is None else transformer.shard_params(params, mesh, cfg), opt)
+    step = training.make_optax_train_step(cfg, opt, mesh=mesh)
+    res = dict(losses=[], grad_norms=[])
+    for i in range(n):
+        state, m = step(state, tokens)
+        res["losses"].append(float(m["loss"]))
+        res["grad_norms"].append(float(m["grad_norm"]))
+        trees = dict(mu=state.opt_state.mu) if i == 0 else {}
+        if i == n - 1:
+            trees["params"] = state.params
+        for key, tree in trees.items():
+            res[key] = transformer.tree_leaves(
+                tree if mesh is None else transformer.gather_params(tree, mesh, cfg))
+    return res
+
+
+def compare_adamw_steps(res, ref, b1) -> dict:
+    """mesh_adamw_steps' readings against the unsharded ones: the losses'
+    and grad norms' relative errors, the first moments' (the clipped
+    gradient times 1 - b1) error relative to each leaf's max, and, after
+    the last step, the parameters' largest error with its element's
+    gradient on both sides."""
+    n = len(res["losses"])
+    row = dict(
+        loss_rel_err=max(abs(a - b) / abs(b)
+                         for a, b in zip(res["losses"], ref["losses"][:n])),
+        grad_norm_rel_err=max(abs(a - b) / abs(b) for a, b in
+                              zip(res["grad_norms"], ref["grad_norms"][:n])),
+        grad_rel_err=max(float((a - b).abs().max() / b.abs().max())
+                         for a, b in zip(res["mu"], ref["mu"])))
+    if "params" in res:
+        diffs = [(a - b).abs() for a, b in zip(res["params"], ref["params"])]
+        i = max(range(len(diffs)), key=lambda j: float(diffs[j].max()))
+        at = int(diffs[i].argmax())
+        # The worst element's clipped gradient on each side (the first
+        # moment over 1 - b1) and its leaf's largest.
+        g_mesh, g_ref = (float(t["mu"][i].flatten()[at]) / (1 - b1) for t in (res, ref))
+        row.update(param_max_abs_err=float(diffs[i].max()),
+                   worst_param=dict(
+                       leaf=i, shape=list(diffs[i].shape), index=at, grad=g_mesh,
+                       unsharded_grad=g_ref,
+                       leaf_max_abs_grad=float(ref["mu"][i].abs().max()) / (1 - b1)))
+    return row
 
 
 def mesh_rank() -> dict:
@@ -5250,9 +5318,9 @@ def mesh_rank() -> dict:
     torch.cuda.empty_cache()
     section("quant_ring")
 
-    # (c) TransformerConfig.base() trained two AdamW steps (no warmup, so
-    # the second loss reads moved weights) on {ctx 4} (8192 inputs, 2048 a
-    # rank) and on {data 2, model 2} (B4 S2048), beside the unsharded steps.
+    # (c) TransformerConfig.base() trained one AdamW step on {ctx 4} (8192
+    # inputs, 2048 a rank) and on {data 2, model 2} (B4 S2048), beside the
+    # unsharded step ((d) holds two steps' values).
     cfg = transformer.TransformerConfig.base()
     full = transformer.init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
                                    device="cuda")
@@ -5266,7 +5334,7 @@ def mesh_rank() -> dict:
         state = training.init_train_state(transformer.shard_params(full, mesh, cfg), opt)
         step = training.make_optax_train_step(cfg, opt, mesh=mesh)
         losses, times = [], []
-        for _ in range(2):
+        for _ in range(MESH_BASE_STEPS):
             (state, m), ms = counted(lambda: wall(lambda: step(state, tokens)))
             losses.append(float(m["loss"]))
             times.append(ms)
@@ -5280,7 +5348,7 @@ def mesh_rank() -> dict:
             state1 = training.init_train_state(full, opt)
             step1 = training.make_optax_train_step(cfg, opt)
             ref, ref_ms = [], []
-            for _ in range(2):
+            for _ in range(MESH_BASE_STEPS):
                 (state1, m), ms = wall_solo(torch, lambda: step1(state1, tokens))
                 ref.append(float(m["loss"]))
                 ref_ms.append(ms)
@@ -5312,21 +5380,8 @@ def mesh_rank() -> dict:
         0, cfg32.vocab_size, (2, 257))).cuda()
 
     def steps32(mesh, n=2):
-        params = p32 if mesh is None else transformer.shard_params(p32, mesh, cfg32)
-        state = training.init_train_state(params, opt32)
-        step = training.make_optax_train_step(cfg32, opt32, mesh=mesh)
-        res = dict(losses=[], grad_norms=[])
-        for i in range(n):
-            state, m = step(state, tokens32)
-            res["losses"].append(float(m["loss"]))
-            res["grad_norms"].append(float(m["grad_norm"]))
-            trees = dict(mu=state.opt_state.mu) if i == 0 else {}
-            if i == n - 1:
-                trees["params"] = state.params
-            for key, tree in trees.items():
-                res[key] = transformer.tree_leaves(
-                    tree if mesh is None else transformer.gather_params(tree, mesh, cfg32))
-        return res
+        return mesh_adamw_steps(transformer, training, cfg32, p32, opt32, tokens32,
+                                mesh, n)
 
     summed = transformer.all_reduce_coalesced
 
@@ -5353,32 +5408,9 @@ def mesh_rank() -> dict:
     dist.barrier()
     if rank == 0:
         ref = steps32(None)
-        b1 = opt32.b1
 
         def compare(res):
-            n = len(res["losses"])
-            row = dict(
-                loss_rel_err=max(abs(a - b) / abs(b)
-                                 for a, b in zip(res["losses"], ref["losses"][:n])),
-                grad_norm_rel_err=max(abs(a - b) / abs(b) for a, b in
-                                      zip(res["grad_norms"], ref["grad_norms"][:n])),
-                grad_rel_err=max(float((a - b).abs().max() / b.abs().max())
-                                 for a, b in zip(res["mu"], ref["mu"])))
-            if "params" in res:
-                diffs = [(a - b).abs() for a, b in zip(res["params"], ref["params"])]
-                i = max(range(len(diffs)), key=lambda j: float(diffs[j].max()))
-                at = int(diffs[i].argmax())
-                # The worst element's clipped gradient on each side (the
-                # first moment over 1 - b1) and its leaf's largest.
-                g_mesh, g_ref = (float(t["mu"][i].flatten()[at]) / (1 - b1)
-                                 for t in (res, ref))
-                row.update(param_max_abs_err=float(diffs[i].max()),
-                           worst_param=dict(
-                               leaf=i, shape=list(diffs[i].shape), index=at,
-                               grad=g_mesh, unsharded_grad=g_ref,
-                               leaf_max_abs_grad=float(ref["mu"][i].abs().max())
-                               / (1 - b1)))
-            return row
+            return compare_adamw_steps(res, ref, opt32.b1)
 
         out["fp32_parity"] = {
             layout: dict(**compare(res), control=compare(ctrl),
@@ -5390,11 +5422,12 @@ def mesh_rank() -> dict:
     torch.cuda.empty_cache()
     section("fp32_parity")
 
-    # (e) The scaling benchmark's three layouts (tiny model, batch 8, 512).
-    out["scaling"] = scaling_rank("cuda", 8, 512, 2, transformer.TransformerConfig.tiny())
+    # (e) The scaling benchmark's three layouts (tiny model, batch 8, 512;
+    # one timed step after the warm-up).
+    out["scaling"] = scaling_rank("cuda", 8, 512, 1, transformer.TransformerConfig.tiny())
     section("scaling")
 
-    # (f) Serving on the mesh (mesh_serving), its launches apart.
+    # Serving on the mesh (mesh_serving), its launches apart.
     serve_launches = collections.Counter()
 
     def counted_serving(fn):
@@ -5407,9 +5440,13 @@ def mesh_rank() -> dict:
 
     out["serving"] = mesh_serving(rank, counted_serving)
     section("serving")
+    # (f)-(i) Pipeline and expert parallelism (mesh_pp_ep).
+    out["pp_ep"] = mesh_pp_ep(rank, counted, counted_serving, wall, max_over_ranks)
+    section("pp_ep")
+    out["pp_ep_launches"] = out["pp_ep"].pop("launches")
     out["launches"] = dict(launches)
     out["serve_launches"] = dict(serve_launches)
-    keep = ("launches", "serve_launches")
+    keep = ("launches", "serve_launches", "pp_ep_launches")
     return out if rank == 0 else {k: out[k] for k in keep}
 
 
@@ -5669,6 +5706,626 @@ def phase_mesh_serving_gates(out):
             raise AssertionError(f"phase 34 serving bf16/int8 without a mesh: {out}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 34 (f)-(i): pipeline parallelism (models/pipeline.py) and expert
+# parallelism (models/moe.py), in the same spawn of the 4 gloo ranks on the
+# card (4 ranks on one H100, not multi-GPU scaling).
+#   (f) Llama-3-8B's widths (LLAMA3_8B) at 4 layers, bf16 activations on
+#       fp32 weights, trained by make_pp_train_step (SGD with momentum) on
+#       {pipe 4} and {pipe 2, model 2}: B4 S1024 in 4 microbatches, two
+#       steps on one batch.  Each rank draws only its stage (its layers'
+#       blocks, the embedding on stage 0, the head on the last).  Gates:
+#       finite losses that fall, stage 0's and the last stage's weights
+#       moved (JAX test_pp_train_step_runs_and_learns).
+#   (g) The pipeline's fp32 parity at the base width, 4 layers on {pipe 4},
+#       4 microbatches: the loss and every stage's gradients
+#       (pp_value_and_grad) and one step's parameters against the
+#       unsharded model forwarded over all S tokens with JAX
+#       make_pp_loss_fn's NLL; control: one microbatch's shift delivered
+#       as zeros.
+#   (h) Mixtral-8x7B's widths (MIXTRAL_8X7B) served on {expert 4} and
+#       {expert 2, model 2}, each rank drawing only its blocks (the
+#       engine's shard_params then keeps them as they are): fp32 at 2
+#       layers on an fp32 cache (MESH_SERVE_PROMPTS, chunked prefill 128,
+#       6 greedy tokens) against the engine without a mesh on rank 0 (the
+#       same draws): tokens equal and every decode step's logits within
+#       MESH_SERVE_LOGIT_TOL of their max; control: one rank's expert
+#       outputs zeroed.  bf16 weights on an int8 cache at 8 layers, 8
+#       prompts of 64 tokens, 16 each: tokens/s, TPOT and step time beside
+#       rank 0's engine without a mesh.
+#   (i) Mixtral's widths trained at 1 layer, B1 S2048, AdamW on bf16
+#       weights (phase 32's; fp32 weights with AdamW's state, held twice
+#       while the functional update builds the new trees, passed 18 GiB a
+#       rank, more than 4 ranks fit on the card), two steps on {expert 4}
+#       and {expert 2, model 2}: finite losses, step time, peak memory.  The fp32 parity of a small-width MoE model (8 experts in
+#       every layer) against the unsharded steps under (d)'s gates;
+#       control: the expert outputs gathered by gather_from, which sums
+#       their gradient over "expert" (counting the one combine once a
+#       rank).
+MESH_PP = dict(layers=4, batch=4, seq=1024, micro=4, steps=2, lr=1e-2)
+MESH_PP_PARITY = dict(layers=4, batch=4, seq=257, micro=4, lr=1e-3)
+MESH_EP_SERVE_LAYERS = {"fp32": 2, "bf16": 8}
+MESH_EP_MIX = (8, 64)  # bf16 timing: 8 prompts of 64 tokens
+MESH_EP_TRAIN = dict(layers=1, batch=1, seq=2048, steps=2)
+MESH_EP_PARITY = dict(vocab_size=4096, d_model=512, n_layers=2, n_heads=8,
+                      n_kv_heads=4, head_dim=64, d_ff=1024, n_experts=8,
+                      moe_every=1)
+
+
+def draw_layer(torch, transformer, cfg, i: int, seed: int, mesh=None) -> dict:
+    """Layer i of cfg drawn on the card on its own, as this rank's blocks
+    with a mesh (param_split_dims; whole without one).  Its attention, norms
+    and dense SwiGLU come from init_params' 1-layer, 8-token-vocabulary
+    dense twin (its layer draws come first) with a generator seeded seed +
+    i; an MoE layer's router from that generator next, and each expert's
+    gate, up and down from a generator of its own, so that a rank draws only
+    its own experts and the model without a mesh draws the same values."""
+    specs = transformer.param_split_dims(cfg, mesh)["layers"][i]
+
+    def cut(x, spec):
+        return x if mesh is None else transformer._split(x, spec, mesh).contiguous()
+
+    one = dataclasses.replace(cfg, n_layers=1, vocab_size=8, n_experts=0)
+    g = torch.Generator(device="cuda").manual_seed(seed + i)
+    layer = transformer.init_params(g, one, device="cuda")["layers"][0]
+    if not cfg.is_moe_layer(i):
+        return {k: cut(v, specs[k]) for k, v in layer.items()}
+    out = {k: cut(layer[k], specs[k]) for k in ("attn_norm", "wq", "wk", "wv", "wo",
+                                                 "mlp_norm")}
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.d_ff
+    out["router"] = (torch.randn((d, e), generator=g, device="cuda")
+                     * d ** -0.5).to(cfg.param_dtype)
+    for n, (k, shape) in enumerate((("moe_gate", (d, f)), ("moe_up", (d, f)),
+                                    ("moe_down", (f, d)))):
+        ep = 1 if mesh is None or specs[k][0] is None else mesh.size(specs[k][0])
+        first = 0 if ep == 1 else mesh.index(specs[k][0]) * (e // ep)
+        experts = []
+        for x in range(first, first + e // ep):
+            ge = torch.Generator(device="cuda").manual_seed(seed * 10_000 + i * 100 + x * 3 + n)
+            w = (torch.randn(shape, generator=ge, device="cuda") * shape[0] ** -0.5).to(
+                cfg.param_dtype)
+            experts.append(cut(w, specs[k][1:]))
+        out[k] = torch.stack(experts)
+    return out
+
+
+def draw_embed_head(torch, cfg, seed: int):
+    """An N(0, 1) embedding and an N(0, 1/d) head, whole, from seed - 1."""
+    g = torch.Generator(device="cuda").manual_seed(seed - 1)
+    d, v = cfg.d_model, cfg.vocab_size
+    embed = torch.randn((v, d), generator=g, device="cuda").to(cfg.param_dtype)
+    head = (torch.randn((d, v), generator=g, device="cuda") * d ** -0.5).to(cfg.param_dtype)
+    return embed, head
+
+
+def draw_layers(torch, transformer, cfg, seed: int, mesh, layers) -> list:
+    """draw_layer's layers `layers` (this rank's blocks with a mesh), the
+    draws' spare memory handed back."""
+    out = [draw_layer(torch, transformer, cfg, i, seed, mesh) for i in layers]
+    torch.cuda.empty_cache()
+    return out
+
+
+def draw_model(torch, transformer, cfg, seed: int, mesh=None) -> dict:
+    """The model of draw_layer's layers and draw_embed_head's embedding and
+    head; with a mesh, this rank's blocks of it, drawn leaf by leaf."""
+    embed, head = draw_embed_head(torch, cfg, seed)
+    if mesh is not None:
+        head = transformer._split(head, transformer.param_split_dims(cfg)["lm_head"],
+                                  mesh).contiguous()
+    return {"embed": embed,
+            "layers": draw_layers(torch, transformer, cfg, seed, mesh, range(cfg.n_layers)),
+            "final_norm": torch.ones(cfg.d_model, device="cuda", dtype=cfg.param_dtype),
+            "lm_head": head}
+
+
+def pp_stage(torch, transformer, cfg, mesh, seed: int) -> dict:
+    """This rank's pipeline stage of draw_model's model: its layers' blocks
+    over "model", the embedding on stage 0, the final norm and the (whole)
+    head on the last (pipeline.shard_pipeline_params' layout)."""
+    n, me = mesh.size("pipe"), mesh.index("pipe")
+    per = cfg.n_layers // n
+    stage = {"layers": draw_layers(torch, transformer, cfg, seed, mesh,
+                                   range(me * per, (me + 1) * per))}
+    if me in (0, n - 1):
+        embed, head = draw_embed_head(torch, cfg, seed)
+        if me == 0:
+            stage["embed"] = embed
+        if me == n - 1:
+            stage.update(final_norm=torch.ones(cfg.d_model, device="cuda",
+                                               dtype=cfg.param_dtype), lm_head=head)
+    return stage
+
+
+def pp_reference(torch, transformer, cfg, params, tokens):
+    """make_pp_loss_fn's loss of the unsharded model (the mean next-token
+    NLL over all S tokens; a dense model's aux is 0) and its gradient tree."""
+    leaves = [p.detach().requires_grad_(True) for p in transformer.tree_leaves(params)]
+    it = iter(leaves)
+    wrt = transformer.tree_map(lambda _: next(it), params)
+    logits = transformer.forward(wrt, tokens, cfg)[:, :-1]
+    nll = torch.logsumexp(logits, -1) - torch.gather(
+        logits, -1, tokens[:, 1:, None])[..., 0]
+    loss = nll.sum() / nll.numel()
+    grads = iter(torch.autograd.grad(loss, leaves))
+    return loss.detach(), transformer.tree_map(lambda _: next(grads), params)
+
+
+class MeshPart:
+    """What phase 34's parts (f)-(i) share inside a gloo rank: the rank,
+    mesh_rank's `counted` / `counted_serving` runners (each part's launches
+    also kept apart, by name), `wall` and `max_over_ranks`."""
+
+    def __init__(self, rank: int, counted, counted_serving, wall, max_over_ranks):
+        import collections
+
+        self.rank, self.wall, self.max_over_ranks = rank, wall, max_over_ranks
+        self._counted, self._counted_serving = counted, counted_serving
+        self.launches = collections.defaultdict(collections.Counter)
+
+    def run(self, name: str, fn, serving: bool = False):
+        """fn() on the counted path, its launches also under `name`."""
+        from cuda_flash_attention_tpu_torch.kernels.launches import LAUNCHES
+
+        res = (self._counted_serving if serving else self._counted)(fn)
+        for k in MESH_SERVE_KERNELS if serving else MESH_KERNELS:
+            self.launches[name][k] += LAUNCHES[k]
+        return res
+
+    @staticmethod
+    def every_rank(obj) -> list:
+        import torch.distributed as dist
+
+        objs = [None] * dist.get_world_size()
+        dist.all_gather_object(objs, obj)
+        return objs
+
+    @staticmethod
+    @contextlib.contextmanager
+    def patched(module, **attrs):
+        """module's attributes set to `attrs` inside the block."""
+        saved = {k: getattr(module, k) for k in attrs}
+        for k, v in attrs.items():
+            setattr(module, k, v)
+        try:
+            yield
+        finally:
+            for k, v in saved.items():
+                setattr(module, k, v)
+
+
+def mesh_pp_llama(mp: MeshPart, lr: float = MESH_PP["lr"]) -> dict:
+    """(f): the pipeline at Llama-3-8B's widths on {pipe 4} and {pipe 2,
+    model 2} (the note above MESH_PP)."""
+    import types
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from cuda_flash_attention_tpu_torch.models import pipeline, transformer
+    from cuda_flash_attention_tpu_torch.parallel.mesh import MODEL_AXIS, make_device_mesh
+    from cuda_flash_attention_tpu_torch.utils import hf_convert
+
+    hf = types.SimpleNamespace(**dict(LLAMA3_8B, num_hidden_layers=MESH_PP["layers"]))
+    cfg = hf_convert.config_from_hf(hf)
+    tokens = torch.from_numpy(np.random.default_rng(40).integers(
+        0, cfg.vocab_size, (MESH_PP["batch"], MESH_PP["seq"]))).cuda()
+    pp_rows = {}
+    for layout, shape in (("pipe4", {"pipe": 4}), ("pipe2_tp2", {"pipe": 2, MODEL_AXIS: 2})):
+        mesh = make_device_mesh(shape, device="cuda")
+        n, me = mesh.size("pipe"), mesh.index("pipe")
+        stage = pp_stage(torch, transformer, cfg, mesh, seed=400)
+        before = stage["layers"][0]["wq"].clone()
+        opt = transformer.init_opt_state(stage)
+        step = pipeline.make_pp_train_step(cfg, mesh, n, MESH_PP["micro"],
+                                           learning_rate=lr)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        for _ in range(MESH_PP["steps"]):
+            (stage, opt, loss), ms = mp.run("pipeline", lambda: mp.wall(
+                lambda: step(stage, opt, tokens)))
+            losses.append(float(loss))
+            times.append(mp.max_over_ranks(ms))
+        ranks = mp.every_rank(dict(
+            stage=me, moved=float((stage["layers"][0]["wq"] - before).abs().max()),
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30))
+        del stage, opt, before, step
+        torch.cuda.empty_cache()
+        median = statistics.median(times)
+        pp_rows[layout] = dict(
+            layers=cfg.n_layers, tokens=list(tokens.shape), n_micro=MESH_PP["micro"],
+            learning_rate=lr, losses=losses, step_ms=times,
+            tokens_per_s=tokens.numel() / median * 1e3, ranks=ranks,
+            first_stage_moved=min(r["moved"] for r in ranks if r["stage"] == 0),
+            last_stage_moved=min(r["moved"] for r in ranks if r["stage"] == n - 1))
+    return pp_rows
+
+
+
+def mesh_pp_parity(mp: MeshPart) -> dict:
+    """(g): the pipeline's fp32 parity at the base width on {pipe 4}, with
+    its control."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from cuda_flash_attention_tpu_torch.models import pipeline, transformer
+    from cuda_flash_attention_tpu_torch.parallel.mesh import make_device_mesh
+
+    c = MESH_PP_PARITY
+    cfg32 = dataclasses.replace(transformer.TransformerConfig.base(
+        dtype=torch.float32, attn_tile_dtype=None), n_layers=c["layers"])
+    p32 = transformer.init_params(torch.Generator(device="cuda").manual_seed(41),
+                                  cfg32, device="cuda")
+    tok32 = torch.from_numpy(np.random.default_rng(41).integers(
+        0, cfg32.vocab_size, (c["batch"], c["seq"]))).cuda()
+    mesh = make_device_mesh({"pipe": 4}, device="cuda")
+    stage = pipeline.shard_pipeline_params(pipeline.stack_pipeline_params(p32, 4), mesh)
+    ref_loss, ref_grads = pp_reference(torch, transformer, cfg32, p32, tok32)
+    ref_grads = pipeline.shard_pipeline_params(
+        pipeline.stack_pipeline_params(ref_grads, 4), mesh)
+    ref_new = transformer.tree_map(lambda p, g: p - c["lr"] * g, stage, ref_grads)
+
+    def pp_errors(loss, grads, new=None):
+        leaf = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(
+            transformer.tree_leaves(grads), transformer.tree_leaves(ref_grads))]
+        row = dict(loss_rel_err=abs(float(loss) - float(ref_loss)) / abs(float(ref_loss)),
+                   grad_rel_err=mp.max_over_ranks(max(leaf)))
+        if new is not None:
+            row["param_max_abs_err"] = mp.max_over_ranks(max(
+                float((a - b).abs().max()) for a, b in zip(
+                    transformer.tree_leaves(new), transformer.tree_leaves(ref_new))))
+        return row
+
+    loss, grads = mp.run("pipeline", lambda: pipeline.pp_value_and_grad(
+        stage, tok32, cfg32, mesh, c["micro"]))
+    new, _, _ = mp.run("pipeline", lambda: pipeline.make_pp_train_step(
+        cfg32, mesh, 4, c["micro"], learning_rate=c["lr"])(
+            stage, transformer.init_opt_state(stage), tok32))
+    row = pp_errors(loss, grads, new)
+    shift, dropped = pipeline.Shift, []
+
+    def dropped_shift(tensors, mesh, axis, hops=1, **kw):
+        """The first microbatch a stage receives in the forward, as zeros."""
+        s = shift(tensors, mesh, axis, hops, **kw)
+        if hops == 1 and s.recv and not dropped:
+            dropped.append(True)
+            wait = s.wait
+            s.wait = lambda: [torch.zeros_like(t) for t in wait()]
+        return s
+
+    with mp.patched(pipeline, Shift=dropped_shift):
+        row["control"] = dict(pp_errors(*pipeline.pp_value_and_grad(
+            stage, tok32, cfg32, mesh, c["micro"])),
+            kind="one microbatch's shift delivered as zeros")
+    del p32, stage, ref_grads, ref_new, grads, new
+    torch.cuda.empty_cache()
+    return dict(row, tokens=list(tok32.shape), n_micro=c["micro"])
+
+
+
+def _own_blocks(params, mesh, cfg):
+    """The engine's shard_params for a tree that is already this rank's
+    blocks (draw_model with the mesh)."""
+    return params
+
+
+def _eager_step_class(eng_mod):
+    """decode/graphs.py's StepGraph with eager=True: steps run eagerly on
+    the card too, so that each one's logits can be read."""
+    class EagerStep(eng_mod.StepGraph):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **dict(kw, eager=True))
+
+    return EagerStep
+
+
+def mesh_ep_serving(mp: MeshPart) -> dict:
+    """(h)'s fp32 parity: expert-parallel serving at Mixtral-8x7B's widths
+    on {expert 4} and {expert 2, model 2} against the engine without a
+    mesh, with its control."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from cuda_flash_attention_tpu_torch.decode import engine as eng_mod
+    from cuda_flash_attention_tpu_torch.models import moe as moe_mod
+    from cuda_flash_attention_tpu_torch.models import transformer
+    from cuda_flash_attention_tpu_torch.parallel.collectives import all_gather
+    from cuda_flash_attention_tpu_torch.parallel.mesh import MODEL_AXIS, make_device_mesh
+
+    keep = dict(shard_params=_own_blocks)
+    eager = _eager_step_class(eng_mod)
+
+    def serve(params, cfg, mesh, prompts, new, **kw):
+        """Greedy tokens, every decode step's logits (the whole vocabulary,
+        on rank 0) and whether the pages drained."""
+        logits, decode = [], eng_mod.decode_step
+
+        def recorded(p, *a, **k):
+            out_, caches = decode(p, *a, **k)
+            full = out_ if mesh is None else all_gather(out_, mesh, MODEL_AXIS, -1)
+            if mp.rank == 0:
+                logits.append(full.clone())
+            return out_, caches
+
+        with mp.patched(eng_mod, decode_step=recorded, StepGraph=eager, **keep):
+            eng = eng_mod.DecodeEngine(params, cfg, mesh=mesh, **kw)
+            reqs = eng.run(prompts, max_new_tokens=new)
+        tokens = [r.generated for r in reqs]
+        drained = all(a.available == a.num_pages - 1 for a in eng._group_allocs)
+        del eng
+        gc.collect()
+        return tokens, logits, drained
+
+    cfg = transformer.TransformerConfig(dtype=torch.float32, attn_tile_dtype=None, **dict(
+        MIXTRAL_8X7B, n_layers=MESH_EP_SERVE_LAYERS["fp32"]))
+    rng = np.random.default_rng(42)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in MESH_SERVE_PROMPTS]
+    kw = dict(max_seqs=4, max_seq_len=512, cache_dtype=torch.float32, prefill_chunk=128)
+    ref = None
+    dist.barrier()
+    if mp.rank == 0:
+        ref = serve(draw_model(torch, transformer, cfg, seed=420), cfg, None, prompts, 6,
+                    **kw)
+        torch.cuda.empty_cache()
+    dist.barrier()
+
+    def compare(run):
+        tokens, logits, drained = run
+        if any(t != tokens for t in mp.every_rank(tokens)):
+            raise AssertionError(f"phase 34 (h): the ranks disagree: {tokens}")
+        if mp.rank != 0:
+            return {}
+        errs = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(logits, ref[1])]
+        return dict(tokens_equal=tokens == ref[0], steps=len(logits),
+                    ref_steps=len(ref[1]), logits_rel_err=max(errs), drained=drained)
+
+    ep_serve = {}
+    for layout, shape in (("expert4", {"expert": 4}),
+                          ("ep2_tp2", {"expert": 2, MODEL_AXIS: 2})):
+        mesh = make_device_mesh(shape, device="cuda")
+        params = draw_model(torch, transformer, cfg, seed=420, mesh=mesh)
+        row = dict(local_experts=params["layers"][0]["moe_gate"].shape[0],
+                   local_d_ff=params["layers"][0]["moe_gate"].shape[2])
+        row.update(compare(mp.run("expert_serving", lambda: serve(
+            params, cfg, mesh, prompts, 6, **kw), serving=True)))
+        if layout == "expert4":
+            ffn = moe_mod._expert_ffn
+
+            def zeroed(*a, **k):  # rank 1's experts answer zeros
+                y = ffn(*a, **k)
+                return torch.zeros_like(y) if mp.rank == 1 else y
+
+            with mp.patched(moe_mod, _expert_ffn=zeroed):
+                row["control"] = dict(compare(serve(params, cfg, mesh, prompts, 6, **kw)),
+                                      kind="rank 1's expert outputs zeroed")
+        ep_serve[layout] = row
+        del params
+        torch.cuda.empty_cache()
+    del ref
+    torch.cuda.empty_cache()
+    return ep_serve
+
+
+def mesh_ep_serving_timed(mp: MeshPart) -> dict:
+    """(h)'s timing: bf16 weights on an int8 cache at Mixtral-8x7B's widths
+    on {expert 4} and {expert 2, model 2}, beside rank 0's engine without a
+    mesh."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from cuda_flash_attention_tpu_torch.decode import engine as eng_mod
+    from cuda_flash_attention_tpu_torch.models import transformer
+    from cuda_flash_attention_tpu_torch.parallel.mesh import MODEL_AXIS, make_device_mesh
+
+    keep = dict(shard_params=_own_blocks)
+    ep_serve = {}
+    cfg16 = transformer.TransformerConfig(param_dtype=torch.bfloat16, **dict(
+        MIXTRAL_8X7B, n_layers=MESH_EP_SERVE_LAYERS["bf16"]))
+    mix = np.random.default_rng(43).integers(0, cfg16.vocab_size, MESH_EP_MIX).tolist()
+
+    def timed(mesh, eager=False):
+        """The mix's tokens/s, TPOT and step time, after one short run for
+        the kernels' first calls."""
+        torch.cuda.reset_peak_memory_stats()
+        params = draw_model(torch, transformer, cfg16, seed=430, mesh=mesh)
+        attrs = dict(keep, StepGraph=_eager_step_class(eng_mod)) if eager else keep
+        with mp.patched(eng_mod, **attrs):
+            eng = eng_mod.DecodeEngine(params, cfg16, max_seqs=8, max_seq_len=1024,
+                                       cache_dtype=torch.int8, prefill_chunk=512,
+                                       mesh=mesh)
+            del params
+            eng.run([mix[0][:32]], max_new_tokens=2)
+            torch.cuda.synchronize()
+            if mesh is not None:
+                dist.barrier()
+            steps0 = eng.stats["steps"]
+            t0 = time.perf_counter()
+            reqs = eng.run(mix, max_new_tokens=16)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+        total = sum(len(r.generated) for r in reqs)
+        steps = eng.stats["steps"] - steps0
+        res = dict(layers=cfg16.n_layers, requests=len(reqs), tokens=total,
+                   seconds=elapsed, tokens_per_s=total / elapsed,
+                   tpot_ms_median=statistics.median(r.tpot_s for r in reqs) * 1e3,
+                   ttft_ms_median=statistics.median(r.ttft_s for r in reqs) * 1e3,
+                   engine_step_ms=elapsed / max(steps, 1) * 1e3, steps=steps,
+                   graphs=eng.stats["graphs"] and not eager,
+                   done=all(r.done for r in reqs),
+                   drained=eng.allocator.available == eng.num_pages - 1,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        return res
+
+    for layout, shape in (("expert4", {"expert": 4}),
+                          ("ep2_tp2", {"expert": 2, MODEL_AXIS: 2})):
+        mesh = make_device_mesh(shape, device="cuda")
+        ep_serve[layout] = mp.run("expert_serving", lambda: timed(mesh), serving=True)
+    dist.barrier()
+    if mp.rank == 0:
+        ep_serve["no_mesh"] = {k: timed(None, eager=k == "eager")
+                               for k in ("graphs", "eager")}
+    dist.barrier()
+    return ep_serve
+
+
+
+def mesh_ep_training(mp: MeshPart) -> tuple:
+    """(i): expert-parallel training at Mixtral-8x7B's widths on {expert 4}
+    and {expert 2, model 2}, and a small-width MoE model's fp32 parity with
+    its control: (training rows, parity rows on rank 0)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from cuda_flash_attention_tpu_torch.models import moe as moe_mod
+    from cuda_flash_attention_tpu_torch.models import training, transformer
+    from cuda_flash_attention_tpu_torch.parallel.mesh import MODEL_AXIS, make_device_mesh
+
+    c = MESH_EP_TRAIN
+    cfg = transformer.TransformerConfig(param_dtype=torch.bfloat16,
+                                        **dict(MIXTRAL_8X7B, n_layers=c["layers"]))
+    tokens = torch.from_numpy(np.random.default_rng(44).integers(
+        0, cfg.vocab_size, (c["batch"], c["seq"] + 1))).cuda()
+    opt = training.make_optimizer(learning_rate=1e-4, warmup_steps=0, decay_steps=100)
+    ep_train = {}
+    for layout, shape in (("expert4", {"expert": 4}),
+                          ("ep2_tp2", {"expert": 2, MODEL_AXIS: 2})):
+        mesh = make_device_mesh(shape, device="cuda")
+        state = training.init_train_state(
+            draw_model(torch, transformer, cfg, seed=440, mesh=mesh), opt)
+        step = training.make_optax_train_step(cfg, opt, mesh=mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        for _ in range(c["steps"]):
+            (state, m), ms = mp.run("expert_training", lambda: mp.wall(lambda: step(state, tokens)))
+            losses.append(float(m["loss"]))
+            times.append(mp.max_over_ranks(ms))
+        del state, step
+        torch.cuda.empty_cache()
+        ep_train[layout] = dict(
+            layers=cfg.n_layers, tokens=list(tokens.shape), losses=losses, step_ms=times,
+            tokens_per_s=c["batch"] * c["seq"] / statistics.median(times) * 1e3,
+            peak_gib=[r for r in mp.every_rank(torch.cuda.max_memory_allocated() / 2 ** 30)])
+    del tokens
+
+    cfgp = transformer.TransformerConfig(dtype=torch.float32, attn_tile_dtype=None,
+                                         **MESH_EP_PARITY)
+    pp = transformer.init_params(torch.Generator(device="cuda").manual_seed(45), cfgp,
+                                 device="cuda")
+    optp = training.make_optimizer(learning_rate=1e-4, warmup_steps=0, decay_steps=10)
+    tokp = torch.from_numpy(np.random.default_rng(45).integers(
+        0, cfgp.vocab_size, (2, 257))).cuda()
+    parity = {}
+    for layout, shape in (("expert4", {"expert": 4}),
+                          ("ep2_tp2", {"expert": 2, MODEL_AXIS: 2})):
+        mesh = make_device_mesh(shape, device="cuda")
+        res = mp.run("expert_training", lambda: mesh_adamw_steps(
+            transformer, training, cfgp, pp, optp, tokp, mesh))
+        with mp.patched(moe_mod, gather_replicated=moe_mod.gather_from):
+            ctrl = mesh_adamw_steps(transformer, training, cfgp, pp, optp, tokp, mesh, n=1)
+        parity[layout] = (res, ctrl)
+    dist.barrier()
+    rows = None
+    if mp.rank == 0:
+        ref = mesh_adamw_steps(transformer, training, cfgp, pp, optp, tokp, None)
+        rows = {
+            layout: dict(**compare_adamw_steps(res, ref, optp.b1),
+                         control=compare_adamw_steps(ctrl, ref, optp.b1),
+                         control_kind="expert outputs gathered by gather_from")
+            for layout, (res, ctrl) in parity.items()}
+    dist.barrier()
+    del pp, parity
+    torch.cuda.empty_cache()
+    return ep_train, rows
+
+
+def mesh_pp_ep(rank: int, counted, counted_serving, wall, max_over_ranks) -> dict:
+    """Phase 34 (f)-(i) in one of the 4 gloo ranks (the note above
+    MESH_PP); `counted(fn)` / `counted_serving(fn)` run fn on the counted
+    training or serving path.  Every rank returns each part's launches;
+    rank 0 also the readings."""
+    import torch
+
+    mp = MeshPart(rank, counted, counted_serving, wall, max_over_ranks)
+    out = {}
+    for key, part in (("pp_llama3", mesh_pp_llama), ("pp_fp32_parity", mesh_pp_parity),
+                      ("ep_serving", mesh_ep_serving),
+                      ("ep_serving_bf16", mesh_ep_serving_timed),
+                      ("ep_train", mesh_ep_training)):
+        # Every rank hands its spare memory back first: the 4 ranks share
+        # the card, and each part fills most of it.
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[key] = part(mp)
+    out["ep_train"], out["ep_fp32_parity"] = out["ep_train"]
+    out["launches"] = {k: dict(v) for k, v in mp.launches.items()}
+    return out
+
+
+def phase_mesh_pp_ep_gates(out):
+    """Phase 34 (f)-(i)'s gates on rank 0's readings and the launches summed
+    over the ranks."""
+    for layout, row in out["pp_llama3"].items():
+        losses = row["losses"]
+        if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+                and row["first_stage_moved"] > 0 and row["last_stage_moved"] > 0):
+            raise AssertionError(f"phase 34 (f) {layout}: {row}")
+    row = out["pp_fp32_parity"]
+
+    def pp_ok(r):
+        return r["loss_rel_err"] <= MESH_LOSS_RTOL and r["grad_rel_err"] <= MESH_GRAD_TOL
+
+    if not (pp_ok(row) and row["param_max_abs_err"] <= MESH_PARAM_ATOL) \
+            or pp_ok(row["control"]):
+        raise AssertionError(f"phase 34 (g): {row}")
+    for layout in ("expert4", "ep2_tp2"):
+        row = out["ep_serving"][layout]
+        if not (row["tokens_equal"] and row["steps"] == row["ref_steps"] and row["drained"]
+                and row["logits_rel_err"] <= MESH_SERVE_LOGIT_TOL):
+            raise AssertionError(f"phase 34 (h) {layout}: {row}")
+        b = out["ep_serving_bf16"][layout]
+        if not (b["done"] and b["drained"] and not b["graphs"]):
+            raise AssertionError(f"phase 34 (h) {layout} bf16/int8: {b}")
+    ctrl = out["ep_serving"]["expert4"]["control"]
+    if ctrl["tokens_equal"] and ctrl["logits_rel_err"] <= MESH_SERVE_LOGIT_TOL:
+        raise AssertionError(f"phase 34 (h): the control passed: {ctrl}")
+    for name, r in out["ep_serving_bf16"]["no_mesh"].items():
+        if not (r["done"] and r["drained"]
+                and r["tokens"] == out["ep_serving_bf16"]["expert4"]["tokens"]
+                and r["graphs"] == (name == "graphs")):
+            raise AssertionError(f"phase 34 (h) bf16/int8 without a mesh: {r}")
+    for layout, row in out["ep_train"].items():
+        if not all(math.isfinite(x) for x in row["losses"]):
+            raise AssertionError(f"phase 34 (i) {layout}: {row}")
+
+    def grads_ok(r):
+        return (r["loss_rel_err"] <= MESH_LOSS_RTOL and r["grad_norm_rel_err"] <= MESH_LOSS_RTOL
+                and r["grad_rel_err"] <= MESH_GRAD_TOL)
+
+    for layout, row in out["ep_fp32_parity"].items():
+        if not (grads_ok(row) and row["param_max_abs_err"] <= MESH_PARAM_ATOL) \
+                or grads_ok(row["control"]):
+            raise AssertionError(f"phase 34 (i) fp32 parity {layout}: {row}")
+    launches = out["launches"]
+    pp, ept, eps = (launches[k] for k in ("pipeline", "expert_training", "expert_serving"))
+
+    def backward(c):
+        return c["fa2_backward_fused"] or (c["fa2_backward_dq"] and c["fa2_backward_dkv"])
+
+    if not (pp["fa2_forward"] and backward(pp) and ept["fa2_forward"] and backward(ept)
+            and eps["fa2_forward"] and eps["paged_decode"] and eps["paged_chunk"]):
+        raise AssertionError(f"phase 34 (f)-(i): a kernel of the path never ran: {launches}")
+
+
 def wall_solo(torch, fn):
     """(fn(), wall ms) in one rank while the others wait."""
     torch.cuda.synchronize()
@@ -5796,12 +6453,31 @@ def phase_mesh_ranks(launch):
     """Phase 34 (b): mesh_rank on 4 gloo ranks sharing the card; the gates
     checked here on rank 0's results (every row logged first), the
     launches summed over the ranks."""
-    results = launch.run("chip_smoke:mesh_rank", 4, timeout=MESH_TIMEOUT)
+    # The ranks' allocators grow their segments in place: (f)'s pipeline
+    # steps at Llama-3-8B's widths need ~15 GB a rank at once, and with
+    # fixed segments the blocks freed by the earlier parts left ~4 GB a
+    # rank unusable, more than the 4 ranks' share of the card allows.  The
+    # spawned ranks read the setting at their first allocation; this
+    # process's allocator is already made.
+    saved = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        results = launch.run("chip_smoke:mesh_rank", 4, timeout=MESH_TIMEOUT)
+    finally:
+        if saved is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = saved
     out = results[0]
     launches = {n: sum(r["launches"].get(n, 0) for r in results) for n in MESH_KERNELS}
     out["launches"] = launches
     out["serve_launches"] = {n: sum(r["serve_launches"].get(n, 0) for r in results)
                              for n in MESH_SERVE_KERNELS}
+    pp_ep = out["pp_ep"]
+    pp_ep["launches"] = {
+        part: {n: sum(r["pp_ep_launches"].get(part, {}).get(n, 0) for r in results)
+               for n in (MESH_SERVE_KERNELS if part == "expert_serving" else MESH_KERNELS)}
+        for part in ("pipeline", "expert_training", "expert_serving")}
     card = card_line()
     for row in out["ring"]:
         log("mesh ring (4 ranks on one card)", card, json.dumps(row))
@@ -5825,6 +6501,28 @@ def phase_mesh_ranks(launch):
             card, json.dumps(row))
     log("mesh serving launches (summed over the 4 ranks)",
         json.dumps(out["serve_launches"]))
+    for layout, row in pp_ep["pp_llama3"].items():
+        log(f"mesh pipeline training {layout} (Llama-3-8B widths, 4 layers): 4 gloo "
+            "ranks on one H100, not multi-GPU scaling", card, json.dumps(row))
+    log("mesh pipeline fp32 parity pipe4 (base width, 4 layers)",
+        json.dumps(pp_ep["pp_fp32_parity"]))
+    for layout in ("expert4", "ep2_tp2"):
+        log(f"mesh expert-parallel serving fp32 parity {layout} (Mixtral-8x7B widths, "
+            "2 layers)", json.dumps(pp_ep["ep_serving"][layout]))
+        log(f"mesh expert-parallel serving bf16 weights, int8 cache, 8 layers, {layout} "
+            "(Mixtral-8x7B widths): 4 gloo ranks on one H100, not multi-GPU expert "
+            "parallelism", card, json.dumps(pp_ep["ep_serving_bf16"][layout]))
+    for name, row in pp_ep["ep_serving_bf16"]["no_mesh"].items():
+        log(f"mesh expert-parallel serving's bf16/int8 run without a mesh ({name} "
+            "steps), rank 0 alone", card, json.dumps(row))
+    for layout, row in pp_ep["ep_train"].items():
+        log(f"mesh expert-parallel training {layout} (Mixtral-8x7B widths, 1 layer): "
+            "4 gloo ranks on one H100, not multi-GPU scaling", card, json.dumps(row))
+    for layout, row in pp_ep["ep_fp32_parity"].items():
+        log(f"mesh expert-parallel fp32 parity {layout} (8 experts, d_model 512)",
+            json.dumps(row))
+    log("mesh pipeline and expert-parallel launches (summed over the 4 ranks)",
+        json.dumps(pp_ep["launches"]))
     log("mesh rank 0's seconds by part", json.dumps(out["seconds"]))
 
     for row in out["ring"]:
@@ -5863,6 +6561,7 @@ def phase_mesh_ranks(launch):
             and launches["fa2_backward_dkv"] and launches["fa2_forward_quant"]):
         raise AssertionError(f"phase 34: a kernel of the mesh path never ran: {launches}")
     phase_mesh_serving_gates(serving)
+    phase_mesh_pp_ep_gates(pp_ep)
     served = out["serve_launches"]
     if not (served["paged_decode"] and served["paged_chunk"]
             and served["fa2_forward"] + served["fa2_forward_small"]):
@@ -6135,11 +6834,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     mesh_one = phase_mesh_nccl(torch, np, transformer, training, par_dist, par_mesh)
+    gc.collect()  # the card is the 4 ranks' from here
+    torch.cuda.empty_cache()
     mesh_run = phase_mesh_ranks(launch)
     log(f"phase 34: training and serving on a mesh (one NCCL rank; 4 gloo ranks on "
         f"the card: ring, quantized ring, base model on ctx 4 and data 2 x model 2, "
         f"fp32 parity, scaling layouts, Llama-3-8B-width serving on model 4 and "
-        f"data 2 x model 2) ok in {time.perf_counter() - t0:.1f} s")
+        f"data 2 x model 2, Llama-3-8B-width pipeline training on pipe 4 and pipe 2 x "
+        f"model 2, Mixtral-8x7B-width serving and training on expert 4 and expert 2 x "
+        f"model 2) ok in {time.perf_counter() - t0:.1f} s")
 
     # Representative shapes for the kernel line: the serving phase's largest
     # prefill (B4 S1536 bf16) and the int8 cache with bf16 compute.
@@ -6471,6 +7174,10 @@ def main() -> int:
             k["launches_mesh_serving"] = (mesh_run["serve_launches"][k["name"]]
                                           + mesh_one["serving"]["launches"].get(
                                               k["name"], 0))
+        # Of those, the pipeline's and expert parallelism's parts (f)-(i).
+        for part, counts in mesh_run["pp_ep"]["launches"].items():
+            if k["name"] in counts:
+                k[f"launches_mesh_{part}"] = counts[k["name"]]
     log("fp16 tiles:", json.dumps({"B1 Stress-1": b1_fp16, "B2-B4": [
         {k: r[k] for k in ("kernel", "inputs", "B", "S", "causal", "ms",
                            "bound_ms", "library_ms", "rel_err")} for r in bwd_fp16]}))

@@ -57,9 +57,10 @@ Counterpart of cuda_flash_attention_tpu/decode/engine.py:
     them.
 
 Serving on a mesh (`mesh=`, JAX engine.py:238-341): KV heads and the
-projections split over "model" and, under "data", slots and the page pool
-over "data", each data shard with its own allocators over a private slice
-of the pool (page ids local to it) and its own prefix map.  JAX's single
+projections split over "model", an MoE layer's experts over "expert" and,
+under "data", slots and the page pool over "data", each data shard with
+its own allocators over a private slice of the pool (page ids local to
+it) and its own prefix map.  JAX's single
 controller sees every slot; here every rank is a process
 (parallel/mesh.py), and every rank runs this same host scheduler on the
 same requests, with all dp allocators on the host, so that admission, page
@@ -77,10 +78,14 @@ decode steps run eagerly; under NCCL they are captured as without a mesh;
 `stats["graphs"]` reports which.  Captured NCCL steps have run only on a
 world-1 mesh, whose collectives move no data: a captured step that holds
 a real multi-rank NCCL collective is unverified (it needs several
-cards).  A hybrid multi-window-group cache refuses a mesh as JAX's does,
-and so does a mesh that splits the sequence ("ctx" or "pipe"); an MoE
-layer on a "model" or "expert" axis raises (models/transformer.py
-`_moe_on_mesh`: expert parallelism is not ported).
+cards).  An MoE model's experts split over "expert" and their d_ff over
+"model" (models/moe.py; JAX engine.py:242-264 places them by
+param_shardings): slots shard over "data" only, so the expert ranks of one
+data shard serve the same slots, and each MoE layer routes every slot's
+tokens (gathered over "data") on every rank.  A hybrid
+multi-window-group cache refuses a mesh as JAX's does, and so does a mesh
+that splits the sequence or the layers ("ctx" or "pipe"; the JAX engine
+serves no pipeline either).
 
 Entry points run on the CUDA card unless `device="cpu"` is given, which
 runs the kernels' plain versions; with a mesh, on the mesh's device.

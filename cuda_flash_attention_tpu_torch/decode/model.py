@@ -11,14 +11,15 @@ layer attends with its own window (cfg.layer_window(i)) and, where it has
 one, the config's sinks; `page_table` is one table, or a per-layer list
 under the engine's hybrid window-group cache (`_table_for`).
 
-With a mesh (JAX's mesh=, a "data" and a "model" axis) every function
-takes this rank's block and returns its block of the logits: the
+With a mesh (JAX's mesh=: "data", "model" and "expert" axes) every
+function takes this rank's block and returns its block of the logits: the
 slot-indexed inputs (tokens, positions, page table, active) are the rows of
 this rank's data shard (every row without "data"), the caches its pages
 (decode/sharded.py), the parameters its blocks (models.transformer.
 shard_params).  The projections are the tensor-parallel blocks of
 training (copy_to before wq/wk/wv and w_gate/w_up, reduce_from after wo
-and w_down).  Attention runs head-local: prefill through head-parallel
+and w_down); an MoE layer runs models/moe.py's expert-parallel form, which
+gathers every slot's tokens over "data" and routes them all.  Attention runs head-local: prefill through head-parallel
 attention; decode and verification are the same appends and B5/B6 calls
 as without a mesh, on this rank's heads and pages, which is all that
 decode/sharded.py's local bodies do.  The lm head is split by columns over

@@ -7,6 +7,13 @@ from cuda_flash_attention_tpu_torch.models.lora import (  # noqa: F401
 from cuda_flash_attention_tpu_torch.models.moe import (  # noqa: F401
     init_moe_layer,
     moe_ffn,
+    moe_layer_shardings,
+)
+from cuda_flash_attention_tpu_torch.models.pipeline import (  # noqa: F401
+    make_pp_loss_fn,
+    make_pp_train_step,
+    pipeline_param_shardings,
+    stack_pipeline_params,
 )
 from cuda_flash_attention_tpu_torch.models.training import (  # noqa: F401
     LoRAOptimizer,

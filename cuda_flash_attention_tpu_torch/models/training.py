@@ -23,12 +23,13 @@ update are computed in fp32 and stored in fp8.  train_loop saves
 checkpoints with utils/checkpoint.py.
 
 With a mesh (`mesh=`; parallel/mesh.py) the step is this rank's part of a
-data x model x context-parallel step: the parameters and the optimizer
+data x model x context x expert-parallel step: the parameters and the optimizer
 state are the rank's blocks (transformer.shard_params), the tokens the
 global batch on every rank, the gradients arrive summed over data and ctx
-(transformer.value_and_grad), the global norm sums the squares of the
-model-split leaves over "model" once (so it equals the unsharded norm), and
-AdamW runs on the local blocks.  The LoRA optimizer takes no mesh.
+(transformer.value_and_grad), the global norm sums the squares of each
+split leaf over the axes that split it ("model", and "expert" for an MoE
+layer's experts) once, so it equals the unsharded norm, and AdamW runs on
+the local blocks.  The LoRA optimizer takes no mesh.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ from cuda_flash_attention_tpu_torch.models.lora import (
 )
 from cuda_flash_attention_tpu_torch.models.transformer import (
     TransformerConfig,
+    _split_axes,
     array_leaves,
     array_map,
     init_params,
@@ -57,7 +59,6 @@ from cuda_flash_attention_tpu_torch.models.transformer import (
     value_and_grad,
 )
 from cuda_flash_attention_tpu_torch.parallel.collectives import all_reduce_coalesced
-from cuda_flash_attention_tpu_torch.parallel.mesh import MODEL_AXIS
 
 _FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
 
@@ -97,19 +98,25 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
 def global_norm(tree, mesh=None, cfg: TransformerConfig | None = None) -> torch.Tensor:
     """sqrt of the sum of squares of every array, in fp32 (optax.global_norm).
     With a mesh, `tree` holds this rank's blocks (a gradient tree shaped
-    like the parameters of `cfg`) and each model-split leaf's sum of
-    squares is summed over "model" first: the norm of the full tree."""
-    if mesh is None or mesh.size(MODEL_AXIS) == 1:
+    like the parameters of `cfg`) and each split leaf's sum of squares is
+    summed over the axes that split it ("model", "expert" or both) first:
+    the norm of the full tree."""
+    if mesh is None:
         return torch.sqrt(sum(torch.sum(g.float().square())
                               for g in array_leaves(tree)))
 
-    # Each leaf's sum of squares; the model-split leaves' summed over
-    # "model" in one collective.
-    replicated, split = [], []
-    tree_map(lambda g, dim: (replicated if dim is None else split).append(
-        torch.sum(g.float().square())), tree, param_split_dims(cfg))
-    split = all_reduce_coalesced(split, mesh, MODEL_AXIS)
-    return torch.sqrt(sum(replicated) + sum(split))
+    # Each leaf's sum of squares, grouped by the axes that split it; each
+    # group summed over its axes in one collective an axis.
+    groups: dict[tuple, list] = {}
+
+    def add(g, spec):
+        axes = tuple(axis for _, axis in _split_axes(spec, mesh))
+        groups.setdefault(axes, []).extend(
+            torch.sum(a.float().square()) for a in array_leaves(g))
+
+    tree_map(add, tree, param_split_dims(cfg, mesh))
+    return torch.sqrt(sum(sum(all_reduce_coalesced(sums, mesh, *axes))
+                          for axes, sums in groups.items()))
 
 
 class Optimizer:

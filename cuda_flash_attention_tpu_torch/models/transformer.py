@@ -15,15 +15,17 @@ floating-point array of the tree, a QuantizedTensor's scales (and fp8
 values) included; integer arrays get zero gradients, as JAX's allow_int.
 
 With a mesh (parallel/mesh.py) the same functions run this rank's part of
-a data x model x context-parallel step, and the collectives that GSPMD
+a data x model x context x expert-parallel step, and the collectives that GSPMD
 inserts for the JAX package are explicit (parallel/collectives.py): the
 projections into the heads and the feed-forward's columns take their
 input through `copy_to` (identity; the gradient all-reduced over "model"),
 the output and down projections' partial sums through `reduce_from`
 (all-reduce over "model"; identity backward), attention goes to the ring
 (ctx > 1) or to the local heads, RoPE takes the span's global positions,
+an MoE layer splits its experts over "expert" and "model" (models/moe.py),
 and the loss is the token mean over data x ctx.  shard_params and
 gather_params move a tree between its full form and a rank's blocks.
+models/pipeline.py runs the layers as stages over "pipe".
 """
 
 from __future__ import annotations
@@ -42,7 +44,11 @@ from torch.utils.checkpoint import (
 
 from cuda_flash_attention_tpu_torch._device import resolve_device
 from cuda_flash_attention_tpu_torch.kernels.attention import flash_attention
-from cuda_flash_attention_tpu_torch.models.moe import init_moe_layer, moe_ffn
+from cuda_flash_attention_tpu_torch.models.moe import (
+    init_moe_layer,
+    moe_ffn,
+    moe_layer_shardings,
+)
 from cuda_flash_attention_tpu_torch.parallel.collectives import (
     all_gather,
     all_reduce,
@@ -55,7 +61,6 @@ from cuda_flash_attention_tpu_torch.parallel.collectives import (
 from cuda_flash_attention_tpu_torch.parallel.mesh import (
     CTX_AXIS,
     DATA_AXIS,
-    EXPERT_AXIS,
     MODEL_AXIS,
 )
 from cuda_flash_attention_tpu_torch.parallel.ring import ring_attention
@@ -312,34 +317,16 @@ def attention_block(x, layer, positions, cfg: TransformerConfig,
     return x + o, (k, v)
 
 
-def _moe_on_mesh(h, layer, cfg: TransformerConfig, mesh):
-    """The MoE layer on a mesh of data and ctx axes, experts replicated:
-    every rank routes the whole batch (the tokens gathered over ctx, then
-    data, in the global [B, S] order, so the capacity couples the same
-    tokens as one device's call) and keeps its own block of the output."""
-    for axis in (MODEL_AXIS, EXPERT_AXIS):
-        if mesh.size(axis) > 1:
-            raise NotImplementedError(
-                f"mixture-of-experts layers on a mesh with a {axis!r} axis: "
-                "expert parallelism (JAX moe_layer_shardings) is the "
-                "expert-parallel slice of the port, not ported yet; use a "
-                "mesh of data and ctx axes (experts replicated)")
-    full = gather_from(gather_from(h, mesh, CTX_AXIS, 1), mesh, DATA_AXIS, 0)
-    y, aux = moe_ffn(full, layer, cfg)
-    return local_slice(local_slice(y, mesh, DATA_AXIS, 0), mesh, CTX_AXIS, 1), aux
-
-
 def ffn_block(x, layer, cfg: TransformerConfig, mesh=None):
     """Residual FFN: dense SwiGLU, or MoE where the layer carries a router.
     Returns (x, aux): the router's load-balance loss, 0.0 for a dense
     layer.  With a mesh, gate and up are this rank's column blocks over
-    "model", down its row block, and its partial sums are all-reduced."""
+    "model", down its row block, and its partial sums are all-reduced; an
+    MoE layer runs models/moe.py's expert-parallel form."""
     h = rms_norm(x, layer["mlp_norm"])
     if "router" in layer:
-        if mesh is None:
-            y, aux = moe_ffn(h, layer, cfg)
-        else:
-            y, aux = _moe_on_mesh(h, layer, cfg, mesh)
+        y, aux = (moe_ffn(h, layer, cfg) if mesh is None
+                  else moe_ffn(h, layer, cfg, mesh=mesh))
         return x + y, aux
     if mesh is not None:
         h = copy_to(h, mesh, MODEL_AXIS)
@@ -373,6 +360,23 @@ def _dots_context():
     return create_selective_checkpoint_contexts(_dots_policy)
 
 
+def _apply_layer(x, layer, positions, cfg: TransformerConfig, window, mesh):
+    """_layer under cfg.remat while autograd records (the pipeline's
+    stages run their layers through it too)."""
+    if cfg.remat == "full" and torch.is_grad_enabled():
+        return checkpoint(_layer, x, layer, positions, cfg, window, mesh,
+                          use_reentrant=False)
+    if cfg.remat == "dots" and torch.is_grad_enabled():
+        return checkpoint(_layer, x, layer, positions, cfg, window, mesh,
+                          use_reentrant=False, context_fn=_dots_context)
+    return _layer(x, layer, positions, cfg, window, mesh)
+
+
+def _check_remat(cfg: TransformerConfig) -> None:
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"unknown remat policy {cfg.remat!r}")
+
+
 def _local_tokens(tokens, mesh):
     """This rank's block of global tokens [B, S]: rows over data, the span
     over ctx, with its positions (the span's first global position on)."""
@@ -394,20 +398,11 @@ def _local_tokens(tokens, mesh):
 def _forward(params, tokens, positions, cfg: TransformerConfig, mesh):
     """(logits fp32, aux) of local tokens at `positions`; with a mesh the
     logits are this rank's vocab block."""
-    if cfg.remat not in ("none", "full", "dots"):
-        raise ValueError(f"unknown remat policy {cfg.remat!r}")
+    _check_remat(cfg)
     x = params["embed"][tokens].to(cfg.dtype)
     aux_total = 0.0
     for i, layer in enumerate(params["layers"]):
-        window = cfg.layer_window(i)
-        if cfg.remat == "full" and torch.is_grad_enabled():
-            x, aux = checkpoint(_layer, x, layer, positions, cfg, window, mesh,
-                                use_reentrant=False)
-        elif cfg.remat == "dots" and torch.is_grad_enabled():
-            x, aux = checkpoint(_layer, x, layer, positions, cfg, window, mesh,
-                                use_reentrant=False, context_fn=_dots_context)
-        else:
-            x, aux = _layer(x, layer, positions, cfg, window, mesh)
+        x, aux = _apply_layer(x, layer, positions, cfg, cfg.layer_window(i), mesh)
         aux_total = aux_total + aux
     x = rms_norm(x, params["final_norm"])
     if mesh is not None:
@@ -489,58 +484,66 @@ def loss_fn(params, tokens, cfg: TransformerConfig, mesh=None):
     return reduce_from(loss, mesh, DATA_AXIS, CTX_AXIS)
 
 
-def param_split_dims(cfg: TransformerConfig) -> dict:
-    """The tree of parameters with, at each leaf, the dim the "model" axis
-    splits (None: replicated), as JAX's param_shardings places them: wq,
-    wk, wv, w_gate, w_up and lm_head by columns (1), wo and w_down by rows
-    (0), norms, the embedding and the MoE layers' weights replicated (the
-    expert-parallel layout is not ported)."""
-    attn = {"attn_norm": None, "wq": 1, "wk": 1, "wv": 1, "wo": 0}
-    dense_mlp = {"mlp_norm": None, "w_gate": 1, "w_up": 1, "w_down": 0}
-    moe = {"mlp_norm": None, "router": None, "moe_gate": None,
-           "moe_up": None, "moe_down": None}
+def param_split_dims(cfg: TransformerConfig, mesh=None) -> dict:
+    """The tree of parameters with, at each leaf, the mesh axis that splits
+    each of its dims (None: not split), as JAX's param_shardings places
+    them: wq, wk, wv, w_gate, w_up and lm_head by columns over "model", wo
+    and w_down by rows; an MoE layer's experts over "expert" and their d_ff
+    over "model" where `mesh`'s sizes divide them (moe_layer_shardings);
+    norms, the embedding and the router replicated."""
+    col, row = (None, MODEL_AXIS), (MODEL_AXIS, None)
+    attn = {"attn_norm": (None,), "wq": col, "wk": col, "wv": col, "wo": row}
+    dense_mlp = {"mlp_norm": (None,), "w_gate": col, "w_up": col, "w_down": row}
+    moe = moe_layer_shardings(mesh, cfg)
     layers = [{**attn, **(moe if cfg.is_moe_layer(i) else dense_mlp)}
               for i in range(cfg.n_layers)]
-    return {"embed": None, "layers": layers, "final_norm": None,
-            "lm_head": 1}
+    return {"embed": (None, None), "layers": layers, "final_norm": (None,),
+            "lm_head": col}
 
 
-def _split(x, dim, mesh):
-    """This rank's block of x (a tensor or numpy array) split along `dim`
-    over "model"."""
-    tp = mesh.size(MODEL_AXIS)
-    if dim is None or tp == 1:
-        return x
-    if isinstance(x, QuantizedTensor):
-        raise NotImplementedError("quantized weights on a model axis are "
-                                  "not ported")
-    n = x.shape[dim]
-    if n % tp:
-        raise ValueError(
-            f"a weight of shape {tuple(x.shape)} split over 'model': the "
-            f"global size of its dimension {dim} should be divisible by "
-            f"{tp}, but it is equal to {n}")
-    step = n // tp
-    lo = mesh.index(MODEL_AXIS) * step
-    return x[(slice(None),) * dim + (slice(lo, lo + step),)]
+def _split_axes(spec, mesh) -> list:
+    """(dim, axis) of each split of a leaf's spec that the mesh makes."""
+    return [(dim, axis) for dim, axis in enumerate(spec)
+            if axis is not None and mesh.size(axis) > 1]
+
+
+def _split(x, spec, mesh):
+    """This rank's block of x (a tensor or numpy array) under `spec`."""
+    for dim, axis in _split_axes(spec, mesh):
+        if isinstance(x, QuantizedTensor):
+            raise NotImplementedError(f"quantized weights on a {axis} axis "
+                                      "are not ported")
+        n, size = x.shape[dim], mesh.size(axis)
+        if n % size:
+            raise ValueError(
+                f"a weight of shape {tuple(x.shape)} split over {axis!r}: the "
+                f"global size of its dimension {dim} should be divisible by "
+                f"{size}, but it is equal to {n}")
+        step = n // size
+        lo = mesh.index(axis) * step
+        x = x[(slice(None),) * dim + (slice(lo, lo + step),)]
+    return x
 
 
 def shard_params(params, mesh, cfg: TransformerConfig):
     """This rank's blocks of a full parameter tree under `param_split_dims`
     (copies, contiguous; numpy arrays are sliced the same way)."""
-    def take(x, dim):
-        y = _split(x, dim, mesh)
+    def take(x, spec):
+        y = _split(x, spec, mesh)
         return y.contiguous() if isinstance(y, torch.Tensor) and y is not x else y
 
-    return tree_map(take, params, param_split_dims(cfg))
+    return tree_map(take, params, param_split_dims(cfg, mesh))
 
 
 def gather_params(params, mesh, cfg: TransformerConfig):
     """The full parameter tree from every rank's blocks (the inverse of
     shard_params)."""
-    return tree_map(lambda x, dim: x if dim is None
-                    else all_gather(x, mesh, MODEL_AXIS, dim),
-                    params, param_split_dims(cfg))
+    def whole(x, spec):
+        for dim, axis in _split_axes(spec, mesh):
+            x = all_gather(x, mesh, axis, dim)
+        return x
+
+    return tree_map(whole, params, param_split_dims(cfg, mesh))
 
 
 def tree_map(fn, tree, *rest):

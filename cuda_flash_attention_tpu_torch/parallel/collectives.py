@@ -16,18 +16,25 @@ axis group of a parallel.mesh.Mesh:
                                 sum over ranks)
   gather_from(x, mesh, axis, d) all-gather along dim d forward, the sum of
                                 every rank's gradient for this rank's slice
-                                backward
+                                backward (each rank's consumer differs)
+  gather_replicated(x, mesh,    all-gather along dim d forward, this rank's
+                    axis, d)    own gradient for its slice backward (every
+                                rank of the axis runs the same consumer:
+                                the expert outputs of models/moe.py)
   Exchange                      a posted point-to-point rotation around an
                                 axis (ring attention's K/V and dK/dV), waited
                                 on later
+  Shift                         a posted truncated shift along an axis (the
+                                pipeline's stage-to-stage transfers: rank i
+                                to i + hops, no wrap)
 
 Sums run in fp32 (a 16-bit tensor is widened for the reduction and
 narrowed after).  Gathers and rotations move 16-bit and 8-bit tensors as
-the bytes of a 16-bit or 8-bit integer view, which every backend takes.
+their bytes (a uint8 view), which every backend takes.
 Under the gloo backend a point-to-point message must lie in host memory
 (gloo's send and recv do not take CUDA tensors), so `Exchange` copies a CUDA
-tensor to pinned host memory before the send and the received one back to
-the card after the wait; that is transport only, and under NCCL CUDA
+tensor (`Exchange`, `Shift`) to pinned host memory before the send and the
+received one back to the card after the wait; that is transport only, and under NCCL CUDA
 tensors go directly.  gloo's all-reduce and all-gather take CUDA tensors.
 """
 
@@ -36,13 +43,15 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-_WIRE = {torch.bfloat16: torch.int16, torch.float16: torch.int16,
-         torch.float8_e4m3fn: torch.uint8, torch.float8_e5m2: torch.uint8}
+_BYTES = (torch.bfloat16, torch.float16, torch.float8_e4m3fn, torch.float8_e5m2)
 
 
 def _wire(x: torch.Tensor) -> torch.Tensor:
+    """x, or for a 16-bit or 8-bit float its bytes (the last dim times the
+    element size): gloo's and NCCL's collectives take no int16, and a byte
+    view keeps each element's bytes together along any dim."""
     x = x.contiguous()
-    return x.view(_WIRE[x.dtype]) if x.dtype in _WIRE else x
+    return x.view(torch.uint8) if x.dtype in _BYTES else x
 
 
 def all_reduce(x: torch.Tensor, mesh, *axes: str,
@@ -132,6 +141,17 @@ class _GatherFrom(torch.autograd.Function):
         return local_slice(g, ctx.mesh, ctx.axis, ctx.dim).contiguous(), None, None, None
 
 
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return all_gather(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return local_slice(g, ctx.mesh, ctx.axis, ctx.dim).contiguous(), None, None, None
+
+
 def copy_to(x, mesh, axis: str):
     """Identity; the gradient is summed over `axis` (each rank of the
     tensor-parallel region contributes the part its shard of the weights
@@ -150,6 +170,16 @@ def gather_from(x, mesh, axis: str, dim: int):
     """The concatenation of every rank's x along `dim`; the gradient of this
     rank's slice is the sum of every rank's gradient for it."""
     return x if mesh.size(axis) == 1 else _GatherFrom.apply(x, mesh, axis, dim)
+
+
+def gather_replicated(x, mesh, axis: str, dim: int):
+    """The concatenation of every rank's x along `dim`, for a consumer that
+    every rank of `axis` computes alike (so each already holds the whole
+    gradient): the gradient of this rank's slice is its own, not summed
+    (gather_from's sum would count the one consumer once a rank)."""
+    if mesh.size(axis) == 1:
+        return x
+    return _GatherReplicated.apply(x, mesh, axis, dim)
 
 
 class Exchange:
@@ -192,6 +222,54 @@ class Exchange:
             r = r.view(t.dtype)
             out.append(r.to(t.device, non_blocking=True) if t.is_cuda else r)
         return out
+
+
+class Shift:
+    """Send each tensor `hops` ranks along `axis` (rank i to i + hops) and
+    receive the tensors of the rank `hops` behind, posted at construction,
+    without wrapping: the last `hops` ranks send nothing and the first
+    receive nothing (JAX's truncated ppermute; `hops` -1 runs it back, as
+    the backward pipeline does).  `send` / `recv` False leave a rank's side
+    out (a pipeline stage idle on a tick).  `wait()` returns the received
+    tensors, each like the one given, and zeros where nothing was received.
+    Under gloo a CUDA tensor crosses through pinned host memory (the
+    module's note)."""
+
+    def __init__(self, tensors, mesh, axis: str, hops: int = 1, *,
+                 send: bool = True, recv: bool = True):
+        self.tensors = list(tensors)
+        n = mesh.size(axis)
+        group = mesh.group(axis) if n > 1 else None
+        me = mesh.index(axis)
+        send = send and 0 <= me + hops < n
+        self.recv = recv and 0 <= me - hops < n
+        self.works, self.received = [], []
+        if not (send or self.recv):
+            return
+        ranks = dist.get_process_group_ranks(group)
+        host = dist.get_backend(group) == "gloo"
+        ops = []
+        for tag, t in enumerate(self.tensors):
+            w = _wire(t)
+            if host and w.is_cuda:
+                w = _pinned_copy(w)
+            if send:
+                ops.append(dist.P2POp(dist.isend, w, ranks[me + hops], group, tag))
+            if self.recv:
+                r = torch.empty(w.shape, dtype=w.dtype, device=w.device,
+                                pin_memory=w.device.type == "cpu" and t.is_cuda)
+                self.received.append(r)
+                ops.append(dist.P2POp(dist.irecv, r, ranks[me - hops], group, tag))
+        self.ops = ops  # the staged send buffers live until the wait
+        self.works = dist.batch_isend_irecv(ops)
+
+    def wait(self) -> list:
+        for w in self.works:
+            w.wait()
+        if not self.recv:
+            return [torch.zeros_like(t) for t in self.tensors]
+        return [r.view(t.dtype).to(t.device, non_blocking=True) if t.is_cuda
+                else r.view(t.dtype) for t, r in zip(self.tensors, self.received)]
 
 
 def _pinned_copy(x: torch.Tensor) -> torch.Tensor:

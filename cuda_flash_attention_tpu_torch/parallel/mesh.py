@@ -11,8 +11,8 @@ on one device, and a Mesh arranges the ranks of the default process group
   "data"      batch dim                     DP
   "model"     heads / d_ff / vocab          TP (attention runs head-local)
   "ctx"       sequence dim of Q, K and V    SP / ring attention
-  "expert"    MoE expert dim                EP (not ported)
-  "pipe"      layer-stage dim               PP (not ported)
+  "expert"    MoE expert dim                EP (models/moe.py)
+  "pipe"      layer-stage dim               PP (models/pipeline.py)
 
 The process group must exist before a mesh is made:
 `parallel.distributed.initialize_distributed`, or `parallel.launch` (which

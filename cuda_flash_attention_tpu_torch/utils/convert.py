@@ -8,7 +8,10 @@ mixture-of-experts layer's [E, d, f] expert weights among them) and the
 port's QuantizedTensor and LoRATensor, converted field by field.  With a
 mesh, a rank converts only its own blocks: the slices of the JAX tree that
 JAX's param_shardings places on the device at its mesh coordinate
-(transformer.shard_params)."""
+(transformer.shard_params: the dense weights over "model", an MoE layer's
+experts over "expert" and their d_ff over "model").  A pipeline's stacked
+tree (JAX's stack_pipeline_params) converts to a rank's stage in the port's
+per-layer form (`pipeline_params_from_numpy`)."""
 
 from __future__ import annotations
 
@@ -60,3 +63,16 @@ def params_from_numpy(tree, device, dtype: torch.dtype | None = None, *,
                                    a=_to_tensor(tree.a, device, dtype),
                                    b=_to_tensor(tree.b, device, dtype))
     return _to_tensor(tree, device, dtype)
+
+
+def pipeline_params_from_numpy(tree, device, dtype: torch.dtype | None = None, *,
+                               mesh):
+    """This rank's stage of JAX's stacked pipeline tree (stack_pipeline_params'
+    leaves [n_stages, layers_per_stage, ...] as numpy arrays) as the port's
+    per-layer list on `device`, cut to its blocks over "model", with the
+    embedding on stage 0 and the final norm and head on the last
+    (models/pipeline.py shard_pipeline_params).  Only that stage is
+    copied."""
+    from cuda_flash_attention_tpu_torch.models.pipeline import shard_pipeline_params
+
+    return params_from_numpy(shard_pipeline_params(tree, mesh), device, dtype)

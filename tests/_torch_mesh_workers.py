@@ -157,9 +157,9 @@ def train_cases(params_np, tokens, layouts: dict, moe: bool = False,
 
 
 def refusals(tokens) -> dict | None:
-    """The mesh path's refusals on {model 2} / {ctx 2} (2 ranks): MoE on a
-    model axis, sinks on a ctx axis, an input length that does not split
-    over ctx.  Returns each error's type and message."""
+    """The mesh path's refusals on {ctx 2} (2 ranks): sinks on a ctx axis,
+    an input length that does not split over ctx.  Returns each error's
+    type and message."""
     from cuda_flash_attention_tpu_torch.models import transformer
 
     tok = torch.from_numpy(np.array(tokens)).long()
@@ -172,13 +172,7 @@ def refusals(tokens) -> dict | None:
         except (NotImplementedError, ValueError) as e:
             out[name] = (type(e).__name__, str(e))
 
-    model2 = make_device_mesh({"model": 2}, device="cpu")
     ctx2 = make_device_mesh({"ctx": 2}, device="cpu")
-    cfg_moe = _tiny(moe=True)
-    p_moe = transformer.init_params(torch.Generator().manual_seed(0), cfg_moe,
-                                    device="cpu")
-    catch("moe_model", lambda: transformer.loss_fn(
-        transformer.shard_params(p_moe, model2, cfg_moe), tok, cfg_moe, model2))
     cfg_sink = transformer.TransformerConfig.tiny(
         dtype=torch.float32, attn_tile_dtype=None, attn_window=16, attn_sinks=4)
     p = transformer.init_params(torch.Generator().manual_seed(0), cfg_sink,

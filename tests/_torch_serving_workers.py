@@ -223,14 +223,10 @@ def _refusals(params, meshes) -> dict:
 
     bf16 = params_from_numpy(params["bf16"], "cpu")
     fp32 = params_from_numpy(params["fp32"], "cpu")
-    moe = params_from_numpy(params["moe"], "cpu")
     kw = dict(max_seq_len=256, cache_dtype=torch.float32)
     hybrid = _cfg("bf16", attn_window=64, global_every=2)
     catch("hybrid", lambda: DecodeEngine(bf16, hybrid, mesh=meshes["model4"],
                                          max_seqs=2, **kw))
-    catch("moe_model", lambda: DecodeEngine(
-        moe, _cfg("moe"), mesh=meshes["dp2_tp2"], max_seqs=2, **kw).run(
-            [[1, 2, 3]], max_new_tokens=1))
     catch("heads", lambda: DecodeEngine(bf16, _cfg("bf16"), mesh=meshes["model4"],
                                         max_seqs=2, **kw))
     catch("max_seqs", lambda: DecodeEngine(bf16, _cfg("bf16"),

@@ -2481,3 +2481,102 @@ def test_paged_kernels_at_llama3_head_local_shapes(cuda, hq, hkv, slots, cache,
     assert not o_k[2].any() and torch.isfinite(o_k.float()).all()
     err = (o_k.float() - o_p.float()).abs().max().item()
     assert err <= (2e-2 if compute == torch.bfloat16 else 2e-5), err
+
+
+@pytest.fixture
+def nccl_world1(cuda):
+    """A world-1 NCCL process group on the card for the test's duration
+    (address tcp://localhost at a free port)."""
+    import socket
+
+    import torch.distributed as dist
+
+    if not dist.is_nccl_available():
+        pytest.skip("needs NCCL")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def test_pp_step_on_world1_nccl_mesh_equals_unsharded(cuda, nccl_world1):
+    """make_pp_train_step on a world-1 NCCL {pipe 1} mesh (one stage, one
+    microbatch: no transfer, every sum over "pipe" the identity) against
+    the same SGD-momentum step written out on the unsharded model
+    (transformer.forward over all S tokens, JAX make_pp_loss_fn's NLL):
+    the loss and every parameter and momentum leaf bitwise equal, B1 and
+    B2 (or B3 + B4) launched."""
+    from cuda_flash_attention_tpu_torch.models import pipeline, transformer
+    from cuda_flash_attention_tpu_torch.parallel.mesh import make_device_mesh
+
+    cfg = TransformerConfig(vocab_size=4096, d_model=512, n_layers=4, n_heads=8,
+                            n_kv_heads=4, head_dim=64, d_ff=1024)
+    params = init_params(torch.Generator(device="cuda").manual_seed(24), cfg,
+                         device="cuda")
+    tokens = torch.from_numpy(np.random.default_rng(24).integers(
+        0, cfg.vocab_size, (2, 257))).cuda()
+    mesh = make_device_mesh({"pipe": 1}, device="cuda")
+    stage = pipeline.shard_pipeline_params(
+        pipeline.stack_pipeline_params(params, 1), mesh)
+    step = pipeline.make_pp_train_step(cfg, mesh, 1, 1, learning_rate=1e-3)
+    before = {n: LAUNCHES[n] for n in ("fa2_forward", "fa2_backward_fused",
+                                       "fa2_backward_dq")}
+    got, got_opt, got_loss = step(stage, transformer.init_opt_state(stage), tokens)
+    launched = {n: LAUNCHES[n] - v for n, v in before.items()}
+
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    it = iter(leaves)
+    wrt = transformer.tree_map(lambda _: next(it), params)
+    logits = transformer.forward(wrt, tokens, cfg)[:, :-1]
+    nll = torch.logsumexp(logits, -1) - torch.gather(
+        logits, -1, tokens[:, 1:, None])[..., 0]
+    loss = nll.sum() / (2 * 256) + cfg.router_aux_coef * torch.zeros((), device="cuda")
+    grads = torch.autograd.grad(loss, leaves)
+    it = iter(grads)
+    opt = transformer.tree_map(lambda p: 0.9 * torch.zeros_like(p, dtype=torch.float32)
+                               + next(it).float(), params)
+    want = transformer.tree_map(lambda p, m: (p - 1e-3 * m).to(p.dtype), params, opt)
+    torch.cuda.synchronize()
+    assert torch.equal(got_loss, loss.detach())
+    for k in ("embed", "final_norm", "lm_head"):  # the one stage holds them all
+        assert torch.equal(got[k], want[k]), k
+    for i, layer in enumerate(want["layers"]):
+        for k, v in layer.items():
+            assert torch.equal(got["layers"][i][k], v), (i, k)
+            assert torch.equal(got_opt["layers"][i][k], opt["layers"][i][k]), (i, k)
+    assert launched["fa2_forward"] == 4
+    assert launched["fa2_backward_fused"] + launched["fa2_backward_dq"] == 4
+
+
+def test_ep_layer_on_world1_nccl_mesh_equals_unsharded(cuda, nccl_world1):
+    """moe_ffn(mesh=) on a world-1 NCCL {data 1, expert 1, model 1} mesh
+    (every gather and sum over an axis of size 1 the identity) against
+    moe_ffn without a mesh, bf16 activations at 8 experts top 2 and a
+    binding capacity: the output, the aux loss and the gradients of the
+    input and of every weight bitwise equal."""
+    from cuda_flash_attention_tpu_torch.models import moe
+    from cuda_flash_attention_tpu_torch.parallel.mesh import make_device_mesh
+
+    cfg = TransformerConfig(d_model=1024, d_ff=2048, n_experts=8, capacity_factor=1.0)
+    layer = moe.init_moe_layer(torch.Generator().manual_seed(24), cfg, cuda)
+    x = torch.randn(2, 256, 1024, generator=torch.Generator().manual_seed(25)).to(
+        cuda, torch.bfloat16)
+    mesh = make_device_mesh({"data": 1, "expert": 1, "model": 1}, device="cuda")
+    dy = torch.randn(2, 256, 1024, generator=torch.Generator().manual_seed(26)).to(
+        cuda, torch.bfloat16)
+    outs = []
+    for m in (None, mesh):
+        h = x.clone().requires_grad_(True)
+        w = {k: v.clone().requires_grad_(True) for k, v in layer.items()}
+        y, aux = moe.moe_ffn(h, w, cfg, mesh=m)
+        torch.autograd.backward([y, aux], [dy, torch.ones_like(aux)])
+        outs.append([y.detach(), aux.detach(), h.grad,
+                     *(w[k].grad for k in ("router", "moe_gate", "moe_up", "moe_down"))])
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)

@@ -23,7 +23,8 @@ prompt in 128-token chunks) and DP 2 ({data 2}; 6 requests on 2 slots, a
 prefix-cache hit inside one data shard beside a miss in the other,
 tiny_moe at capacity 0.6, whose layer couples every slot's tokens).  Then
 all four form {data 2, model 2} (greedy with every shard's allocator
-drained; speculation with chunked prefill) and {model 4}.  The bf16 cases
+drained; speculation with chunked prefill; tiny_moe with its experts'
+d_ff split over "model") and {model 4}.  The bf16 cases
 are the JAX test's (tests/test_decode_sharded.py: TransformerConfig.tiny,
 a bf16 cache); the speculative, chunked and prefix cases run in fp32 with
 an fp32 cache (the one-shot and chunked paths are different programs,
@@ -81,6 +82,9 @@ WORLD_CASES = {
     "dp2_tp2_spec_chunked": _case("fp32", FP32, 4, "dp2_tp2", max_seqs=4,
                                   draft=True, spec_tokens=2, prefill_chunk=128),
     "tp4": _case("fp32", FP32, 4, "model4", max_seqs=4),
+    # tiny_moe's experts' d_ff split over "model" (the port refused this
+    # mesh before expert parallelism).
+    "dp2_tp2_moe": _case("moe", SHORT, 4, "dp2_tp2", max_seqs=4),
 }
 
 
@@ -192,7 +196,6 @@ def test_prefix_hit_stays_in_its_data_shard(results):
 @pytest.mark.parametrize("case,error,words", [
     ("hybrid", "NotImplementedError", "hybrid (multi-window-group) cache is "
                                       "single-host"),
-    ("moe_model", "NotImplementedError", "expert-parallel slice"),
     ("heads", "ValueError", "the 'model' mesh axis (4) must divide both "
                             "n_kv_heads (2) and n_heads (4)"),
     ("max_seqs", "ValueError", "max_seqs (3) must divide over the 'data' axis (2)"),

@@ -4,15 +4,17 @@ models/training.py, parallel/launch.py).
 
 tiny_moe in fp32 (the JAX init_params tree carried into the ranks by
 params_from_numpy with the mesh, tokens (4, 129) from a seed with numpy)
-on {data 2}: the experts replicated, every rank routing the whole batch
-(so the capacity couples the tokens one device's call couples), two AdamW
-steps equal the unsharded steps within tests/test_training.py's
-tolerances (loss rtol 2e-4, every leaf atol 1e-4).  The dense tiny model
+on {data 2} (the experts replicated) and on {model 2} (each expert's d_ff
+split over "model": gate and up by columns, down by rows), every rank
+routing the whole batch (so the capacity couples the tokens one device's
+call couples): two AdamW steps equal the unsharded steps within
+tests/test_training.py's tolerances (loss rtol 2e-4, every leaf atol
+1e-4).  The dense tiny model
 on {data 2} with grad_accum 2 (each microbatch a slice of the global batch,
 its rows split over data) equals the unsharded one-batch steps the same
 way.  The refusals carry
-JAX's messages: MoE on a model axis (the expert-parallel slice), sinks on
-a ctx axis, an input length that the ctx axis does not divide.
+JAX's messages: sinks on a ctx axis, an input length that the ctx axis
+does not divide.
 """
 
 import jax
@@ -33,8 +35,8 @@ from _mesh_training_parity import (
 def results():
     params = jax_tf.init_params(jax.random.PRNGKey(1), config(moe=True))
     moe = launch.start("_torch_mesh_workers:train_cases", 2,
-                       args=(numpy_tree(params), tokens(), {"dp2": {"data": 2}},
-                             True))
+                       args=(numpy_tree(params), tokens(),
+                             {"dp2": {"data": 2}, "tp2": {"model": 2}}, True))
     refused = launch.start("_torch_mesh_workers:refusals", 2, args=(tokens(),))
     dense = jax_tf.init_params(jax.random.PRNGKey(0), config())
     accum = launch.start("_torch_mesh_workers:train_cases", 2,
@@ -57,8 +59,16 @@ def test_moe_on_data_axis_matches_unsharded(results):
     assert_leaves_close(got["params"], ref["params"])
 
 
+def test_moe_on_model_axis_matches_unsharded(results):
+    """The experts' d_ff split over "model" (moe_layer_shardings; the
+    port refused this mesh before expert parallelism)."""
+    got, ref = results[0]["tp2"], results[0]["unsharded"]
+    np.testing.assert_allclose(got["loss"], ref["loss"], rtol=2e-4)
+    np.testing.assert_allclose(got["grad_norm"], ref["grad_norm"], rtol=2e-4)
+    assert_leaves_close(got["params"], ref["params"])
+
+
 @pytest.mark.parametrize("case,error,words", [
-    ("moe_model", "NotImplementedError", "expert-parallel slice"),
     ("sinks_ctx", "NotImplementedError", "attention sinks + context parallelism"),
     ("odd_ctx", "ValueError", "should be divisible by 2, but it is equal to 127"),
 ])
