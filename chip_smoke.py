@@ -23,8 +23,13 @@ Phases (any failure raises and the script exits non-zero):
      256 instantiation (B1's wgmma and fp32 bodies, B5, B6's three bodies,
      the backward's, csrc/fa2_backward_d32.cu and _d256.cu: 22 kernels
      each; B9 and B10, B8's two bodies and B7's two: WIDE_FUNCTIONS) and
-     of X's five variants, failing on a
-     spilled byte, a wgmma serialisation note or a missing instantiation;
+     of X's five variants, and of the fp16-input libraries
+     (csrc/<name>_fp16in.cu: B1, B8, B2-B4, B7, B9 and B10 at every head
+     dim, FP16IN_FUNCTIONS), failing on a spilled byte, a wgmma
+     serialisation note or a missing instantiation; the autotune's tile
+     variants of B1 and B2 at D 64 (phase 35 b) build among them, where a
+     variant that the source, nvcc or ptxas refuses is a failed row of
+     phase 35, not a failure here;
   2. kernel B1 (FA2 forward) against its plain PyTorch version at the
      serving prefill shapes (the serving run's largest, B4 S1536, included)
      and at the train shape (B4 S2048), and at the edges of its 128-row
@@ -138,7 +143,7 @@ Phases (any failure raises and the script exits non-zero):
      tokens, graph replays, bursts, launches, 6 new tokens each; burst
      8 profiled as phase 6, whose burst-1 launches and idle share it prints
      beside); train
-     tokens/s at B4 S2048 (one slope between chains of 2 and 10 AdamW
+     tokens/s at B4 S2048 (one slope between chains of 1 and 5 AdamW
      steps);
  25. sliding windows and attention sinks on the serving path: B1 (bf16
      tiles and fp32) at B4 Hq16 Hkv8 S1536 D64, window 128 with and
@@ -179,8 +184,8 @@ Phases (any failure raises and the script exits non-zero):
      version and SDPA's memory-efficient backward with the mask as its
      bias; an off-by-one window or ids shifted by one token as
      the control, enforced in fp32 (printed in bf16); (c) the hybrid and
-     streaming base configurations train 3 AdamW steps each at B4 S2048:
-     finite falling loss, step time, tokens/s, peak memory, windowed
+     streaming base configurations train 2 AdamW steps each at B4 S2048:
+     finite falling loss, the warm step's time and tokens/s, peak memory, windowed
      launches (hybrid: B3 and B4, B2 on the global layers; streaming: B2
      only); (d) one fp32 AdamW step of each (hybrid window 64 at 2
      layers, a local and a global one; streaming window 96 with 4 sinks at
@@ -309,7 +314,7 @@ Phases (any failure raises and the script exits non-zero):
      the bf16 ring (a mean relative error per storage), each with the ring
      without its own shard's step as the control; the base model trained
      one AdamW step on {ctx 4} (8192 inputs) and on {data 2, model 2} (B4
-     S2048) beside the unsharded step; fp32 parity at 2 layers on both
+     S2048) beside the unsharded step; fp32 parity at 1 layer on both
      layouts (loss and grad_norm rtol 2e-4, each gradient leaf 2e-4 of its
      max, every parameter 1e-4) with controls; the scaling benchmark's
      three layouts (4 ranks on one card, not multi-GPU scaling).  The
@@ -319,7 +324,7 @@ Phases (any failure raises and the script exits non-zero):
      rank serves the base model on its mesh with CUDA graphs captured,
      tokens, logprobs and prefill logits bitwise equal to the engine
      without a mesh; (b)'s ranks serve Llama-3-8B's widths (seeded random
-     weights): fp32 parity at 2 layers on {model 4} and {data 2, model 2}
+     weights): fp32 parity at 1 layer on {model 4} and {data 2, model 2}
      (4 prompts, one prefilled in chunks, greedy; and on {data 2, model 2}
      with a 1-layer draft at spec 2) against the engine without a mesh,
      tokens equal and every
@@ -339,12 +344,31 @@ Phases (any failure raises and the script exits non-zero):
      Mixtral-8x7B's widths served on {expert 4} and {expert 2, model 2}:
      fp32 parity at 2 layers against the engine without a mesh (tokens,
      logits; one rank's experts zeroed as the control) and bf16 weights on
-     an int8 cache at 8 layers timed beside rank 0's engine without a
-     mesh; (i) Mixtral's widths trained at 1 layer (B1 S2048, AdamW) on
+     an int8 cache at 4 layers timed beside rank 0's engine without a
+     mesh (captured); (i) Mixtral's widths trained at 1 layer (B1 S2048, AdamW) on
      both meshes and a small-width 8-expert model's fp32 parity (the
      expert outputs' gradient summed over "expert" as the control).  Their
      launches are also in the kernel line apart ("launches_mesh_pipeline",
      "launches_mesh_expert_training", "launches_mesh_expert_serving").
+ 35. (run before phase 34, which hands the card to its ranks) (a) fp16
+     inputs in every attention kernel against its plain version: B1 at
+     Stress-1, Llama-3-8B's attention shape (B1 Hq32 Hkv8 S8192 D128
+     causal), D 32 and D 256; B8 at Edge-NonPowerOf2; B2 and B3 + B4 at
+     the train shape, B2 at D 32 and 256; B7 on fp16 q over int8 K/V (bf16
+     and fp32 compute); B9 and B10 on bf16 and fp16 inputs at Small-1.
+     Each within its fp16-tile gate plus one fp16 step of the output's
+     max (B9/B10: 1e-3 plus one step of the input type), with a control
+     that must fail (the bf16-tile instantiation on the same inputs; B7 q's
+     bits read as bf16; B9/B10 one key short), timed beside its plain
+     version, its bound and SDPA on the same 16-bit inputs; then the public
+     API on 16-bit inputs (both backward routes), whose `<name>_fp16in`
+     (B9/B10 also `_bf16in`) launches go into the kernel line; (b)
+     bench/autotune.py's sweep of B1 and B2 at the train shape in bf16
+     tiles, every candidate from its own library, each held against the
+     plain version (a failed row only where the source, nvcc or ptxas
+     refused the variant's build; a launch error fails the phase); (c) the extended sequence-length sweep's LongCtx points
+     (S 8192, 16384, 32768) in the forward mode, fp32 and bf16 tiles, every
+     row PASS.
 Serving's decode steps run as CUDA graphs (decode/graphs.py); each
 wrapper's launch count adds what a capture recorded at every replay.
 The line before the last is the kernel JSON (eleven kernels; B1, B5, B6 and
@@ -363,7 +387,11 @@ launches on phase 33's Llama-3-8B-width serving under
 "launches_llama3_training", B1 and B6 on its MoE speculation under
 "launches_moe_speculation"; B1-B4 and B7 with phase 34's under
 "launches_mesh", B1's windowed ones under "launches_mesh_window"; B1,
-B5, B6 and B8 with phase 34's serving ones under "launches_mesh_serving"); the
+B5, B6 and B8 with phase 34's serving ones under "launches_mesh_serving";
+B1-B4, B7 and B8 with phase 35's fp16-input rows and launches under
+"fp16_inputs", B9 and B10 under "bf16_inputs" and "fp16_inputs"; B1 and
+B2 with the autotune rows under "autotune", B1 with the LongCtx rows
+under "longctx"); the
 last line is the JSON contract line {"ok": true, "device": {...}}.
 It imports torch and the port only, never jax or the JAX package.
 """
@@ -552,25 +580,60 @@ def check_ptxas(text: str, label: str, functions, at_least: int) -> None:
 
 
 # Every source, the longest compiles first (by their measured nvcc seconds),
-# so that no core idles while the last long one runs.
-BUILD_ORDER = ("paged_chunk", "fa2_forward_quant", "fa2_backward", "paged_chunk_d256",
-               "fa2_forward_quant_d256", "fa2_forward_quant_d32", "fa2_backward_d256",
-               "fa2_backward_d32", "paged_chunk_d32", "paged_decode", "fa2_forward_small",
-               "fa2_forward", "fa2_forward_small_d256", "fa2_forward_small_d32",
-               "paged_decode_d256", "paged_decode_d32", "fa2_forward_d256",
-               "fa2_forward_d32", "r5_d128_fwd", "baselines", "baselines_d256",
-               "baselines_d32")
+# so that no core idles while the last long one runs; the fp16-input
+# libraries (csrc/<name>_fp16in.cu, every head dim) among them.
+BUILD_ORDER = ("paged_chunk", "fa2_forward_quant", "fa2_forward_quant_fp16in",
+               "paged_chunk_d256", "fa2_backward", "fa2_backward_fp16in",
+               "paged_chunk_d32", "fa2_forward_quant_d256", "fa2_forward_quant_d32",
+               "fa2_forward_small_fp16in", "paged_decode", "fa2_forward_small",
+               "fa2_backward_d32", "fa2_forward", "fa2_forward_fp16in",
+               "fa2_forward_small_d256", "paged_decode_d256", "fa2_backward_d256",
+               "paged_decode_d32", "baselines_fp16in", "fa2_forward_small_d32",
+               "fa2_forward_d256", "fa2_forward_d32", "r5_d128_fwd", "baselines_d256",
+               "baselines", "baselines_d32")
+# The fp16-input libraries' kernels and their instantiations at the four
+# head dims: B1's wgmma body (2 tile types), B8's mma body (2 tile types x
+# with and without ids), the backward's prologue, KV-major kernel (with and
+# without dQ) and B3's kernel (2 tile types each) and the fp16 dQ reduce,
+# B7's wgmma body (4 storages) and fp32 body (4 storages x with and without
+# ids), B9 and B10.
+FP16IN_FUNCTIONS = {
+    "fa2_forward_fp16in": (("fa2_fwd_wgmma",), 8),
+    "fa2_forward_small_fp16in": (("small_mma",), 16),
+    "fa2_backward_fp16in": (("bwd_fused_wgmma", "bwd_dq_wgmma", "bwd_prologue",
+                             "dq_reduce"), 33),
+    "fa2_forward_quant_fp16in": (("fa2_fwd_quant_wgmma", "fa2_fwd_quant_fp32"), 48),
+    "baselines_fp16in": (("fa1_fp32", "naive_fa2_fp32"), 8),
+}
 
 
-def phase_build(_build) -> dict:
+def autotune_candidates(autotune, torch):
+    """Phase 35 (b)'s candidates: B1 (fwd) and B2 (fused) at D 64 in bf16
+    tiles, every tile shape."""
+    return [c for kernel in ("fwd", "fused")
+            for c in autotune.candidates(kernel, 64, torch.bfloat16)]
+
+
+def phase_build(_build, autotune=None, torch=None):
     """Phase 1's build and ptxas gates: every source of BUILD_ORDER built in
-    parallel, then every gated instantiation's registers, spills and wgmma
-    notes.  Returns the new builds' compiler logs by source."""
+    parallel, with the autotune variants of phase 35 (b) among them, then
+    every gated instantiation's registers, spills and wgmma notes.  Returns
+    (the new builds' compiler logs by source, the failed variants'
+    reasons); a variant the compiler or ptxas refuses is a failed row of
+    phase 35 (b), not a failure here."""
     t0 = time.perf_counter()
-    build_logs = _build.build(*BUILD_ORDER)
+    tune = autotune_candidates(autotune, torch) if autotune else []
+    variants = autotune.variant_keys(tune) if autotune else []
+    failures = {}
+    build_logs = _build.build(*BUILD_ORDER, *variants, failures=failures)
     log(f"phase 1: built {sorted(build_logs)} in {time.perf_counter() - t0:.1f} s; "
         f"each source's nvcc seconds: "
         f"{json.dumps({n: round(t, 1) for n, t in sorted(_build.BUILD_SECONDS.items())})}")
+    shipped = {k: v for k, v in failures.items() if k not in variants}
+    if shipped:
+        raise RuntimeError("\n".join(f"nvcc failed for {k}:\n{v}" for k, v in shipped.items()))
+    reasons = autotune.reasons_of(tune, build_logs, failures) if autotune else {}
+    log(f"phase 1: autotune variants refused: {json.dumps(reasons)}")
     for name, text in build_logs.items():
         for line in text.splitlines():
             if any(w in line for w in ("registers", "spill", "error",
@@ -597,7 +660,10 @@ def phase_build(_build) -> dict:
     for name in WIDE_BWD_LIBRARIES:
         check_ptxas(build_logs.get(name) or ptxas_log(_build, name), name,
                     *BWD_WIDE_FUNCTIONS)
-    return build_logs
+    for name, (functions, count) in FP16IN_FUNCTIONS.items():
+        check_ptxas(build_logs.get(name) or ptxas_log(_build, name), name, functions,
+                    count)
+    return build_logs, reasons
 
 
 def phase_b1(torch, fa2, b1_ab):
@@ -934,9 +1000,11 @@ def bwd_rows(torch, fp32_bwd, attention, fa2, bwd, gen, kind, dtype, b, s,
             kw["tile_dtype"] = torch.bfloat16
             control = [rel_err(g, w) for g, w in zip(kernel(), want)]
             kw["tile_dtype"] = torch.float16
-            for i, (err, c) in enumerate(zip(errs, control)):
+            # fp16 inputs give fp16 gradients: one fp16 step of each
+            # output's max besides (0 on fp32 inputs).
+            for i, (err, c, w) in enumerate(zip(errs, control, want)):
                 fp16_gate(f"{name} output {i} B{b} S{s}", err, c,
-                          FP16_REL_TOL["bwd"])
+                          FP16_REL_TOL["bwd"] + step_rel(w))
         elif not max(errs) <= BWD_TOL[kind]:
             raise AssertionError(f"{name} {kind} B{b} S{s}: relative errors "
                                  f"{errs} (tol {BWD_TOL[kind]})")
@@ -2444,7 +2512,7 @@ def phase_bench(torch, np, transformer, decode, decode_bench, train_bench,
     decode_step loop (bitwise equal), the engine at bursts 1 and 8 with
     engine_overhead_x and on phase 5's 12 requests, and the train step."""
     cfg = transformer.TransformerConfig.base()
-    b, p, gen = 16, 128, 16
+    b, p, gen = 16, 128, 8
     out = {}
     reset_counts(SERVING_KERNELS)
     loop = decode_bench.measure_decode_throughput(cfg, batch=b, prompt_len=p,
@@ -2537,7 +2605,7 @@ def phase_bench(torch, np, transformer, decode, decode_bench, train_bench,
 
     torch.cuda.empty_cache()
     reset_counts(TRAIN_KERNELS)
-    train = train_bench.measure_train_throughput(cfg, 4, 2048, iters=2, repeats=1)
+    train = train_bench.measure_train_throughput(cfg, 4, 2048, iters=1, repeats=1)
     train["launches"] = read_counts(TRAIN_KERNELS)
     out["train"] = train
     log("bench train", json.dumps(train))
@@ -3276,10 +3344,13 @@ def phase_masked_kernels(torch, np, F, fp32_bwd, kernel_ab, attention, common,
 def phase_window_train(torch, np, transformer, training, dataclasses):
     """Phase 26 (c): the hybrid (window 128, global_every 2: GPT-OSS's
     pattern) and streaming (window 512, 4 sinks on every layer) base
-    configurations train 4 AdamW steps each on one batch of B4 S2048 bf16:
-    a finite, falling loss; step time (median of the last 3), tokens/s,
-    peak memory; launches (hybrid: B3 and B4 windowed, B2 on the global
-    layers; streaming: B2 windowed, no split launch)."""
+    configurations train 2 AdamW steps each on one batch of B4 S2048 bf16
+    (lr 1e-3 from the first step: no warmup step, whose zero rate would
+    leave the second loss equal to the first): a finite, falling loss;
+    the warm (second) step's time and tokens/s (the first step is cold),
+    peak memory; launches (hybrid:
+    B3 and B4 windowed, B2 on the global layers; streaming: B2 windowed, no
+    split launch)."""
     b, s = 4, 2048
     tokens = np.random.default_rng(26).integers(0, 32768, (b, s + 1))
     out = {}
@@ -3288,7 +3359,7 @@ def phase_window_train(torch, np, transformer, training, dataclasses):
         cfg = dataclasses.replace(transformer.TransformerConfig.base(), **kw)
         params = transformer.init_params(
             torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
-        opt = training.make_optimizer(learning_rate=1e-3, warmup_steps=1,
+        opt = training.make_optimizer(learning_rate=1e-3, warmup_steps=0,
                                       decay_steps=100)
         step = training.make_optax_train_step(cfg, opt)
         state = training.init_train_state(params, opt)
@@ -3296,16 +3367,15 @@ def phase_window_train(torch, np, transformer, training, dataclasses):
         torch.cuda.reset_peak_memory_stats()
         reset_counts(MASKED_KERNELS)
         losses, times = [], []
-        for _ in range(3):
+        for _ in range(2):
             t0 = time.perf_counter()
             state, metrics = step(state, tokens)
             losses.append(metrics["loss"].item())
             times.append(time.perf_counter() - t0)
         launches = read_counts(MASKED_KERNELS)
-        median = statistics.median(times[-3:])
         res = dict(config=name, batch=b, seq=s, losses=losses,
-                   step_ms=[t * 1e3 for t in times], step_ms_median=median * 1e3,
-                   tokens_per_s=b * s / median,
+                   step_ms=[t * 1e3 for t in times], step_ms_warm=times[-1] * 1e3,
+                   tokens_per_s=b * s / times[-1],
                    max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                    launches={n: c for n, c in launches.items() if c})
         log("window train", json.dumps(res))
@@ -5121,7 +5191,7 @@ def mesh_rank() -> dict:
     """One of phase 34's 4 gloo ranks, every one on cuda:0: the ring at
     Llama-3-8B's attention width with its controls, the quantized ring
     with its controls, the base model trained on {ctx 4} and {data 2,
-    model 2}, fp32 parity at 2 layers with controls, and the scaling
+    model 2}, fp32 parity at 1 layer with controls, and the scaling
     benchmark's layouts.  Every rank returns its launch counts on the
     path; rank 0 also the checks and times."""
     import collections
@@ -5362,7 +5432,7 @@ def mesh_rank() -> dict:
     torch.cuda.empty_cache()
     section("train")
 
-    # (d) fp32 parity at 2 layers of the same width: two AdamW steps (no
+    # (d) fp32 parity at 1 layer of the same width: two AdamW steps (no
     # warmup) on each layout against the unsharded steps: the losses and
     # grad_norms, the first step's gradients (its first Adam moment) and
     # the parameters after the second.  The step size is 1e-4: at 1e-3
@@ -5372,7 +5442,7 @@ def mesh_rank() -> dict:
     # is near eps; the worst element's gradient is printed to show it.
     # Each layout's control must fail: one step, its gradients checked.
     cfg32 = dataclasses.replace(transformer.TransformerConfig.base(
-        dtype=torch.float32, attn_tile_dtype=None), n_layers=2)
+        dtype=torch.float32, attn_tile_dtype=None), n_layers=1)
     p32 = transformer.init_params(torch.Generator(device="cuda").manual_seed(1), cfg32,
                                   device="cuda")
     opt32 = training.make_optimizer(learning_rate=1e-4, warmup_steps=0, decay_steps=10)
@@ -5451,7 +5521,7 @@ def mesh_rank() -> dict:
 
 
 # Phase 34's serving on the mesh: Llama-3-8B's widths (LLAMA3_8B) with
-# seeded random weights.  fp32 parity at 2 layers on {model 4} and {data 2,
+# seeded random weights.  fp32 parity at 1 layer on {model 4} and {data 2,
 # model 2}: 4 prompts (300 tokens, prefilled in 128-token chunks, and 37,
 # 100 and 5 tokens, one bucket prefill), 6 greedy tokens each, and on {data
 # 2, model 2} the same with a 1-layer draft at spec 2, against the engine
@@ -5469,7 +5539,7 @@ MESH_SERVE_KERNELS = ("fa2_forward", "fa2_forward_small", "paged_decode",
                       "paged_chunk")
 MESH_SERVE_LOGIT_TOL = 1e-3
 MESH_SERVE_PROMPTS = (300, 37, 100, 5)
-MESH_SERVE_LAYERS = {"fp32": 2, "bf16": 4}
+MESH_SERVE_LAYERS = {"fp32": 1, "bf16": 4}
 
 
 def mesh_serving(rank: int, counted) -> dict:
@@ -5730,7 +5800,7 @@ def phase_mesh_serving_gates(out):
 #       6 greedy tokens) against the engine without a mesh on rank 0 (the
 #       same draws): tokens equal and every decode step's logits within
 #       MESH_SERVE_LOGIT_TOL of their max; control: one rank's expert
-#       outputs zeroed.  bf16 weights on an int8 cache at 8 layers, 8
+#       outputs zeroed.  bf16 weights on an int8 cache at 4 layers, 8
 #       prompts of 64 tokens, 16 each: tokens/s, TPOT and step time beside
 #       rank 0's engine without a mesh.
 #   (i) Mixtral's widths trained at 1 layer, B1 S2048, AdamW on bf16
@@ -5744,7 +5814,7 @@ def phase_mesh_serving_gates(out):
 #       rank).
 MESH_PP = dict(layers=4, batch=4, seq=1024, micro=4, steps=2, lr=1e-2)
 MESH_PP_PARITY = dict(layers=4, batch=4, seq=257, micro=4, lr=1e-3)
-MESH_EP_SERVE_LAYERS = {"fp32": 2, "bf16": 8}
+MESH_EP_SERVE_LAYERS = {"fp32": 2, "bf16": 4}
 MESH_EP_MIX = (8, 64)  # bf16 timing: 8 prompts of 64 tokens
 MESH_EP_TRAIN = dict(layers=1, batch=1, seq=2048, steps=2)
 MESH_EP_PARITY = dict(vocab_size=4096, d_model=512, n_layers=2, n_heads=8,
@@ -6113,7 +6183,7 @@ def mesh_ep_serving(mp: MeshPart) -> dict:
 def mesh_ep_serving_timed(mp: MeshPart) -> dict:
     """(h)'s timing: bf16 weights on an int8 cache at Mixtral-8x7B's widths
     on {expert 4} and {expert 2, model 2}, beside rank 0's engine without a
-    mesh."""
+    mesh (its steps captured)."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -6128,13 +6198,12 @@ def mesh_ep_serving_timed(mp: MeshPart) -> dict:
         MIXTRAL_8X7B, n_layers=MESH_EP_SERVE_LAYERS["bf16"]))
     mix = np.random.default_rng(43).integers(0, cfg16.vocab_size, MESH_EP_MIX).tolist()
 
-    def timed(mesh, eager=False):
+    def timed(mesh):
         """The mix's tokens/s, TPOT and step time, after one short run for
         the kernels' first calls."""
         torch.cuda.reset_peak_memory_stats()
         params = draw_model(torch, transformer, cfg16, seed=430, mesh=mesh)
-        attrs = dict(keep, StepGraph=_eager_step_class(eng_mod)) if eager else keep
-        with mp.patched(eng_mod, **attrs):
+        with mp.patched(eng_mod, **keep):
             eng = eng_mod.DecodeEngine(params, cfg16, max_seqs=8, max_seq_len=1024,
                                        cache_dtype=torch.int8, prefill_chunk=512,
                                        mesh=mesh)
@@ -6155,8 +6224,7 @@ def mesh_ep_serving_timed(mp: MeshPart) -> dict:
                    tpot_ms_median=statistics.median(r.tpot_s for r in reqs) * 1e3,
                    ttft_ms_median=statistics.median(r.ttft_s for r in reqs) * 1e3,
                    engine_step_ms=elapsed / max(steps, 1) * 1e3, steps=steps,
-                   graphs=eng.stats["graphs"] and not eager,
-                   done=all(r.done for r in reqs),
+                   graphs=eng.stats["graphs"], done=all(r.done for r in reqs),
                    drained=eng.allocator.available == eng.num_pages - 1,
                    peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
         del eng
@@ -6170,8 +6238,7 @@ def mesh_ep_serving_timed(mp: MeshPart) -> dict:
         ep_serve[layout] = mp.run("expert_serving", lambda: timed(mesh), serving=True)
     dist.barrier()
     if mp.rank == 0:
-        ep_serve["no_mesh"] = {k: timed(None, eager=k == "eager")
-                               for k in ("graphs", "eager")}
+        ep_serve["no_mesh"] = {"graphs": timed(None)}
     dist.barrier()
     return ep_serve
 
@@ -6492,7 +6559,8 @@ def phase_mesh_ranks(launch):
     log("mesh launches (summed over the 4 ranks)", json.dumps(launches))
     serving = out["serving"]
     for layout in ("model4", "dp2_tp2"):
-        log(f"mesh serving fp32 parity {layout} (Llama-3-8B widths, 2 layers)",
+        log(f"mesh serving fp32 parity {layout} (Llama-3-8B widths, "
+            f"{MESH_SERVE_LAYERS['fp32']} layer)",
             json.dumps(serving[layout]))
     log("mesh serving bf16 weights, int8 cache, 4 layers, {model 4}: 4 gloo ranks on "
         "one H100, not multi-GPU tensor parallelism", card, json.dumps(serving["bf16_int8"]))
@@ -6569,6 +6637,293 @@ def phase_mesh_ranks(launch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 35: fp16 inputs in every attention kernel, a small sweep of the
+# autotune's tile variants, the long-context sweep's forward points.
+# ---------------------------------------------------------------------------
+# fp16 inputs give fp16 outputs: each is held to the fp16-tile gate of its
+# kernel (FP16_REL_TOL, of the plain output's max) plus one fp16 step of
+# that max, the output's own rounding (step_rel).  B9 and B10 on 16-bit
+# inputs compute in fp32 and round P and O where their plain versions do:
+# BASELINE_16_TOL of the max plus one step of the input type.
+BASELINE_16_TOL = 1e-3
+FP16_INPUT_KERNELS = ("fa2_forward", "fa2_forward_small", "fa2_backward_fused",
+                      "fa2_backward_dq", "fa2_backward_dkv", "fa2_forward_quant")
+BASELINE_16_LAUNCHES = tuple(f"{n}_{t}in" for n in ("fa1", "naive_fa2")
+                             for t in ("bf16", "fp16"))
+# B1's fp16-input cases: Stress-1, Llama-3-8B's attention shape, and one
+# case each at D 32 and 256 (name, B, Hq, Hkv, S, D, causal).
+B1_FP16_CASES = (("Stress-1", 8, 16, 16, 2048, 64, False),
+                 ("Llama-3-8B", 1, 32, 8, 8192, 128, True),
+                 ("D32", 4, 16, 8, 2048, 32, True),
+                 ("D256", 1, 8, 4, 4096, 256, True))
+# The LongCtx points of the extended sequence-length sweep (phase 35 c).
+LONGCTX = (8192, 16384, 32768)
+
+
+def step_rel(t) -> float:
+    """One step of t's type at its largest |value|, relative to that value
+    (fp16 2^-10 to 2^-11, bf16 2^-7 to 2^-8; fp32 0)."""
+    import math
+
+    import torch
+
+    m = t.float().abs().max().item()
+    bits = {torch.float16: 10, torch.bfloat16: 7}.get(t.dtype)
+    if bits is None or m == 0:
+        return 0.0
+    return 2.0 ** (math.floor(math.log2(m)) - bits) / m
+
+
+def input_gate(label: str, err: float, control_err: float, tol: float) -> None:
+    """A 16-bit-input kernel's relative error `err` within `tol`, and its
+    control's on the same inputs beyond it."""
+    log("fp16 input gate", json.dumps(dict(label=label, rel_err=err,
+                                           control_rel_err=control_err, tol=tol)))
+    if not err <= tol:
+        raise AssertionError(f"{label}: relative error {err} (tol {tol})")
+    if not control_err > tol:
+        raise AssertionError(f"{label}: the control's relative error {control_err} "
+                             f"passes the gate {tol}")
+
+
+def fp16_forward_row(torch, F, fa2, kernel, plain, q, k, v, kw, name, tol_key,
+                     b, hq, s, d):
+    """One 16-bit-input forward (B1 or B8) against its plain version, its
+    bf16-tile instantiation on the same fp16 inputs as the control (and,
+    against the plain version in bf16 tiles, at B1's bf16 gate), timed
+    beside its plain version, SDPA on the same fp16 inputs and its bound."""
+    o_k, lse_k = kernel(q, k, v, **kw)
+    o_p, lse_p = plain(q, k, v, **kw)
+    bf16_kw = dict(kw, tile_dtype=torch.bfloat16)
+    o_c, _ = kernel(q, k, v, **bf16_kw)
+    o_cp, _ = plain(q, k, v, **bf16_kw)
+    torch.cuda.synchronize()
+    if o_k.dtype != torch.float16 or lse_k.dtype != torch.float32:
+        raise AssertionError(f"{name}: outputs {o_k.dtype}, {lse_k.dtype}")
+    tol = FP16_REL_TOL[tol_key] + step_rel(o_p)
+    input_gate(name, rel_err(o_k, o_p), rel_err(o_c, o_p), tol)
+    lse_err = ((lse_k - lse_p).abs() / lse_p.abs().clamp_min(1.0)).max().item()
+    bf16_err = (o_c.float() - o_cp.float()).abs().max().item()
+    if not (lse_err <= LSE_REL_TOL and bf16_err <= B1_TOL["bf16"]):
+        raise AssertionError(f"{name}: lse rel err {lse_err}, bf16 tiles on fp16 "
+                             f"inputs max_abs_err {bf16_err} (tol {B1_TOL['bf16']})")
+    del o_c, o_cp
+    bound_ms, bound_by, flops = attention_bound(b, hq, s, d, kw["causal"], "fp16",
+                                                q, k, v, o_k, lse_k)
+    n = kw["kv_len"]
+    ms = time_ms(lambda: kernel(q, k, v, **kw), iters=10)
+    row = dict(kernel="fa2_forward" if tol_key == "B1" else "fa2_forward_small",
+               case=name, inputs="fp16", B=b, Hq=hq, Hkv=k.shape[1], S=s, D=d,
+               causal=kw["causal"], max_abs_err=(o_k.float() - o_p.float()).abs().max().item(),
+               rel_err=rel_err(o_k, o_p), tol=tol, lse_rel_err=lse_err,
+               bf16_tiles_max_abs_err=bf16_err, ms=ms,
+               plain_ms=time_ms(lambda: plain(q, k, v, **kw), iters=2, warmup=1),
+               library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                   q[:, :, :s], k[:, :, :n], v[:, :, :n], is_causal=kw["causal"],
+                   scale=kw["sm_scale"], enable_gqa=hq != k.shape[1]), iters=10),
+               bound_ms=bound_ms, bound_by=bound_by, tflops=flops / ms / 1e9)
+    log("fp16 inputs", json.dumps(row))
+    return row
+
+
+def phase_fp16_inputs(torch, F, fp32_bwd, attention, fa2, bwd, base, quant, fq):
+    """Phase 35 (a): fp16 inputs in every attention kernel against its plain
+    version, each with a control that must fail and timed beside its bound
+    and SDPA on the same fp16 inputs: B1 at B1_FP16_CASES, B8 at
+    Edge-NonPowerOf2, B2 and B3 + B4 at the train shape (B4 Hq16 Hkv8 S2048
+    D64 causal) and B2 at D 32 and 256, B7 on fp16 q over int8 K/V in bf16
+    and fp32 compute, B9 and B10 at Small-1 on bf16 and fp16 inputs.  Then
+    the public API on 16-bit inputs, whose launches (`<name>_fp16in`,
+    `<name>_bf16in`) are the path's.  Returns (rows, launches)."""
+    gen = torch.Generator(device="cuda").manual_seed(35)
+    rows = []
+    for name, b, hq, hkv, s, d, causal in B1_FP16_CASES:
+        q = torch.randn(b, hq, s, d, generator=gen, device="cuda").half()
+        k, v = (torch.randn(b, hkv, s, d, generator=gen, device="cuda").half()
+                for _ in range(2))
+        q, k, v, scale, _, kv_len = attention._prepare(q, k, v, causal, None, None,
+                                                       None, None, None, 0)
+        kw = dict(causal=causal, sm_scale=scale, kv_len=kv_len, tile_dtype=None)
+        rows.append(fp16_forward_row(torch, F, fa2, fa2.fa2_forward_aligned,
+                                     fa2.fa2_forward_plain, q, k, v, kw, f"B1 {name}",
+                                     "B1", b, hq, s, d))
+        del q, k, v
+    b, h, s = SUITE["Edge-NonPowerOf2"]
+    raw = [torch.randn(b, h, s, 64, generator=gen, device="cuda").half() for _ in range(3)]
+    q, k, v, scale, _, kv_len = attention._prepare(*raw, False, None, None, None,
+                                                   None, None, 0)
+    if not attention._use_small_kernel(q, k):
+        raise AssertionError("B8 fp16 inputs: the route does not take B8")
+    rows.append(fp16_forward_row(
+        torch, F, fa2, fa2.fa2_forward_small_aligned, fa2.fa2_forward_small_plain, q,
+        k, v, dict(causal=False, sm_scale=scale, kv_len=kv_len, tile_dtype=None),
+        "B8 Edge-NonPowerOf2", "B8", b, h, s, 64))
+    # B2 and B3 + B4 at the train shape, B2 at D 32 and 256 (bwd_rows: the
+    # bf16-tile instantiation on the same fp16 inputs is the control).
+    every = ("fa2_backward_fused", "fa2_backward_dq", "fa2_backward_dkv")
+    for names, b, s, problem in ((every, 4, 2048, {}),
+                                 (every[:1], 4, 2048, dict(d=32)),
+                                 (every[:1], 1, 4096, dict(d=256, hq=8, hkv=4))):
+        rows += [dict(r, case=f"train D{r['D']}" if b == 4 else "B1 S4096 D256")
+                 for r in bwd_rows(torch, fp32_bwd, attention, fa2, bwd, gen, "fp16",
+                                   torch.float16, b, s, names, tile=None, **problem)]
+    # B7: fp16 q over int8 K/V; the control reads q's fp16 bits as bf16 (q
+    # passed as the other 16-bit type).
+    _, args, deq = quant_problem(torch, quant, fq, gen, "int8", 4, 16, 8, 2048, 64,
+                                 torch.float16)
+    for kind, cdt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        kw = dict(causal=True, sm_scale=0.125, kv_len=2048, compute_dtype=cdt)
+        o_k, lse_k = fq.fa2_forward_quant_aligned(*args, **kw)
+        o_p, _ = fq.fa2_forward_quant_plain(*args, **kw)
+        o_c, _ = fq.fa2_forward_quant_aligned(args[0].view(torch.bfloat16), *args[1:], **kw)
+        torch.cuda.synchronize()
+        if o_k.dtype != torch.float16:
+            raise AssertionError(f"B7 fp16 q: output {o_k.dtype}")
+        step = step_rel(o_p) * o_p.float().abs().max().item()
+        if kind == "bf16":
+            err, control, tol = bf16_excess(o_k, o_p), bf16_excess(o_c, o_p), BF16_ATOL["B7"] + step
+        else:
+            err = (o_k.float() - o_p.float()).abs().max().item()
+            control = (o_c.float() - o_p.float()).abs().max().item()
+            tol = B7_FP32_TOL + step
+        input_gate(f"B7 fp16 q {kind} compute", err, control, tol)
+        bound_ms, bound_by, flops = attention_bound(4, 16, 2048, 64, True, kind, *args,
+                                                    o_k, lse_k)
+        ms = time_ms(lambda: fq.fa2_forward_quant_aligned(*args, **kw), iters=10)
+        row = dict(kernel="fa2_forward_quant", case=f"train int8 {kind} compute",
+                   inputs="fp16", B=4, Hq=16, Hkv=8, S=2048, D=64, causal=True,
+                   max_abs_err=(o_k.float() - o_p.float()).abs().max().item(),
+                   gate_err=err, tol=tol, control=control, ms=ms,
+                   plain_ms=time_ms(lambda: fq.fa2_forward_quant_plain(*args, **kw),
+                                    iters=2, warmup=1),
+                   library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                   sdpa_dequant_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                       args[0], deq[0].half(), deq[1].half(), is_causal=True,
+                       scale=0.125, enable_gqa=True), iters=10),
+                   tflops=flops / ms / 1e9)
+        rows.append(row)
+        log("fp16 inputs", json.dumps(row))
+        del o_k, o_p, o_c
+    # B9 and B10 at Small-1 on bf16 and fp16 inputs; the control drops the
+    # last key (kv_len one short).
+    b, h, s = SUITE["Small-1"]
+    for dtype in (torch.bfloat16, torch.float16):
+        q, k, v = (torch.randn(b, h, s, 64, generator=gen, device="cuda").to(dtype)
+                   for _ in range(3))
+        kw = dict(sm_scale=0.125, kv_len=s)
+        for which, kernel, plain in (("fa1", base.fa1_aligned, base.fa1_plain),
+                                     ("naive_fa2", base.naive_fa2_aligned,
+                                      base.naive_fa2_plain)):
+            o_k, o_p = kernel(q, k, v, **kw), plain(q, k, v, **kw)
+            o_c = kernel(q, k, v, sm_scale=0.125, kv_len=s - 1)
+            torch.cuda.synchronize()
+            if o_k.dtype != dtype:
+                raise AssertionError(f"{which} {dtype}: output {o_k.dtype}")
+            tag = str(dtype)[6:]
+            tol = BASELINE_16_TOL + step_rel(o_p)
+            input_gate(f"{which} Small-1 {tag}", rel_err(o_k, o_p), rel_err(o_c, o_p), tol)
+            bound_ms, bound_by, flops = attention_bound(b, h, s, 64, False,
+                                                        "bf16" if tag == "bfloat16" else "fp16",
+                                                        q, k, v, o_k)
+            ms = queued_ms(torch, lambda: kernel(q, k, v, **kw))
+            row = dict(kernel=which, case="Small-1", inputs=tag, B=b, H=h, S=s, D=64,
+                       max_abs_err=(o_k.float() - o_p.float()).abs().max().item(),
+                       rel_err=rel_err(o_k, o_p), tol=tol, ms=ms,
+                       plain_ms=queued_ms(torch, lambda: plain(q, k, v, **kw)),
+                       library_ms=queued_ms(torch, lambda: F.scaled_dot_product_attention(
+                           q, k, v, scale=0.125)),
+                       bound_ms=bound_ms, bound_by=bound_by, tflops=flops / ms / 1e9)
+            rows.append(row)
+            log("fp16 inputs", json.dumps(row))
+    # The public API on 16-bit inputs: B1 and B2 (the fused route), B3 + B4
+    # (the split route, 128-row BlockSizes), B8, B7 on fp16 q, B9 and B10.
+    names = tuple(f"{n}_fp16in" for n in FP16_INPUT_KERNELS) + BASELINE_16_LAUNCHES
+    reset_counts(names)
+    q = torch.randn(4, 16, 2048, 64, generator=gen, device="cuda").half().requires_grad_()
+    k, v = (torch.randn(4, 8, 2048, 64, generator=gen, device="cuda").half()
+            .requires_grad_() for _ in range(2))
+    from cuda_flash_attention_tpu_torch.kernels.common import BlockSizes
+
+    for blocks in (None, BlockSizes(*[128] * 6)):
+        o = attention.flash_attention(q, k, v, causal=True, block_sizes=blocks)
+        grads = torch.autograd.grad(o.float().square().sum(), (q, k, v))
+        if not all(g.dtype == torch.float16 and torch.isfinite(g).all() for g in grads):
+            raise AssertionError("fp16 inputs: the API's gradients are not finite fp16")
+    qs = torch.randn(8, 16, 100, 64, generator=gen, device="cuda").half()
+    o, lse = attention.flash_attention_with_lse(qs, qs, qs)
+    o7 = fq.flash_attention_int8_kv(q.detach(), k.detach(), v.detach(), causal=True)
+    for dtype in (torch.bfloat16, torch.float16):
+        x = torch.randn(1, 1, 128, 64, generator=gen, device="cuda").to(dtype)
+        outs = [base.fa1_attention(x, x, x), base.naive_fa2_attention(x, x, x)]
+        if not all(t.dtype == dtype and torch.isfinite(t).all() for t in outs):
+            raise AssertionError(f"B9/B10 API on {dtype}: outputs not finite")
+    if not (o.dtype == o7.dtype == torch.float16 and torch.isfinite(o7).all()):
+        raise AssertionError("fp16 inputs: the API's forward outputs")
+    api = read_counts(names)
+    log("fp16 inputs: the public API's launches", json.dumps(api))
+    if not all(api.values()):
+        raise AssertionError(f"fp16 inputs: a kernel never ran on the API: {api}")
+    return rows, api
+
+
+def phase_autotune(torch, autotune, fa2, bwd, reasons):
+    """Phase 35 (b): bench/autotune.py's sweep of B1 (fwd) and B2 (fused)
+    at the train shape (B4 Hq16 Hkv8 S2048 D64 causal bf16), every
+    candidate tile shape from its variant library (built in phase 1), each
+    output held against the plain version (B1 O at B1_TOL, B2 dQ at
+    BWD_TOL, bf16).  A candidate whose build phase 1 refused (the source's
+    static_assert, nvcc or ptxas: `reasons`) or that the source cannot
+    build at all (autotune's fixed rows) is a failed row with its reason;
+    any other error, a launch the card refused included, fails the phase."""
+    def plain_fwd(q, k, v, do, stats, common):
+        return fa2.fa2_forward_plain(q, k, v, **common)[0]
+
+    def plain_fused(q, k, v, do, stats, common):
+        o, lse, _ = stats
+        return torch.cat([bwd.fa2_backward_fused_plain(
+            q[i:i + 1], k[i:i + 1], v[i:i + 1], o[i:i + 1], do[i:i + 1], lse[i:i + 1],
+            **common)[0] for i in range(q.shape[0])])
+
+    rows = []
+    for kernel, plain in (("fwd", plain_fwd), ("fused", plain_fused)):
+        got = autotune.sweep(kernel, b=4, h=16, kv_heads=8, s=2048, d=64,
+                             tile=torch.bfloat16, causal=True, iters=10,
+                             reasons=reasons, reference=plain, strict=True)
+        for r in got:
+            if "error" in r:
+                continue
+            bad = (r["max_abs_diff"] > B1_TOL["bf16"] if kernel == "fwd"
+                   else r["rel_diff"] > BWD_TOL["bf16"])
+            if bad:
+                raise AssertionError(f"autotune {kernel} {r}: differs from the plain "
+                                     f"version (B1 {B1_TOL['bf16']}, B2 {BWD_TOL['bf16']})")
+        if not any(r["default"] and "error" not in r for r in got):
+            raise AssertionError(f"autotune {kernel}: the shipped tiles did not run")
+        rows += got
+        log(autotune.winners_line(got[0], "bf16"))
+    return rows
+
+
+def phase_longctx(harness, configs):
+    """Phase 35 (c): the extended sequence-length sweep's LongCtx points
+    (B1 H8 D64, S 8192, 16384, 32768) in --mode forward, fp32 and bf16
+    tiles, against the Q-chunked fp32 oracle; every row must PASS."""
+    rows = []
+    for precision in ("fp32", "bf16"):
+        cfgs = [c for c in configs.create_sequence_length_experiment_configs(
+            "forward", precision, 1e-3, extended=True) if c.name.startswith("LongCtx")]
+        h = harness.Harness(tolerance=1e-3, stop_on_failure=False, time_oracle=False,
+                            verbose=False)
+        for r in h.run(cfgs):
+            row = dict(r.as_row(), precision=precision)
+            rows.append(row)
+            log("LongCtx", json.dumps(row))
+            if row["Status"] != "PASS":
+                raise AssertionError(f"LongCtx {row}")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -6587,6 +6942,7 @@ def main() -> int:
     from cuda_flash_attention_tpu_torch.decode import kv_cache
     from cuda_flash_attention_tpu_torch import cli
     from cuda_flash_attention_tpu_torch.bench import (
+        autotune,
         configs,
         decode_bench,
         harness,
@@ -6622,7 +6978,7 @@ def main() -> int:
     log("torch", torch.__version__, "cuda", torch.version.cuda,
         "device", torch.cuda.get_device_name(0))
 
-    phase_build(_build)
+    _, tune_reasons = phase_build(_build, autotune, torch)
 
     t0 = time.perf_counter()
     b1 = phase_b1(torch, fa2, b1_ab)
@@ -6831,6 +7187,15 @@ def main() -> int:
         f"imported, served at 32 layers and trained at 2 from native-loader batches "
         f"ok in {time.perf_counter() - t0:.1f} s")
     gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fp16_rows, fp16_api = phase_fp16_inputs(torch, F, fp32_bwd, attention, fa2, bwd,
+                                            base, quant, fq)
+    torch.cuda.empty_cache()
+    tune_rows = phase_autotune(torch, autotune, fa2, bwd, tune_reasons)
+    longctx = phase_longctx(harness, configs)
+    log(f"phase 35: fp16 inputs in every attention kernel, the autotune sweep of B1 "
+        f"and B2 and the LongCtx forward points ok in {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     mesh_one = phase_mesh_nccl(torch, np, transformer, training, par_dist, par_mesh)
@@ -7178,6 +7543,26 @@ def main() -> int:
         for part, counts in mesh_run["pp_ep"]["launches"].items():
             if k["name"] in counts:
                 k[f"launches_mesh_{part}"] = counts[k["name"]]
+    # Phase 35: each kernel's rows on 16-bit inputs with their launches on
+    # the public API (`<name>_fp16in`; B9 and B10 also `_bf16in`), B1's and
+    # B2's autotune rows, B1's LongCtx rows.
+    row_keys = ("case", "inputs", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err", "tflops")
+    for k in kernels:
+        n = k["name"]
+        mine = [{f: r.get(f) for f in row_keys} for r in fp16_rows if r["kernel"] == n]
+        if n in ("fa1", "naive_fa2"):
+            for tag, dtype in (("bf16", "bfloat16"), ("fp16", "float16")):
+                k[f"{tag}_inputs"] = dict(next(r for r in mine if r["inputs"] == dtype),
+                                          launches=fp16_api[f"{n}_{tag}in"])
+        elif mine:
+            k["fp16_inputs"] = {"rows": mine, "launches": fp16_api[f"{n}_fp16in"]}
+        if n in ("fa2_forward", "fa2_backward_fused"):
+            k["autotune"] = [r for r in tune_rows
+                             if r["kernel"] == ("fwd" if n == "fa2_forward" else "fused")]
+        if n == "fa2_forward":
+            k["longctx"] = [{f: r[f] for f in ("Test", "precision", "Status", "MaxError",
+                                               "KernelTime_ms", "TFLOPS")} for r in longctx]
     log("fp16 tiles:", json.dumps({"B1 Stress-1": b1_fp16, "B2-B4": [
         {k: r[k] for k in ("kernel", "inputs", "B", "S", "causal", "ms",
                            "bound_ms", "library_ms", "rel_err")} for r in bwd_fp16]}))
@@ -7213,7 +7598,7 @@ def main() -> int:
                         "max_memory_allocated_gib", "mfu_bf16_peak", "split_loss")},
                     "gemma2_train_parity": gemma2_train_parity,
                     "window_train": {n: {k: r[k] for k in (
-                        "losses", "step_ms_median", "tokens_per_s",
+                        "losses", "step_ms_warm", "tokens_per_s",
                         "max_memory_allocated_gib")} for n, r in window_train.items()},
                     "bench": {k: bench[k] for k in ("greedy_bitwise_equal",)},
                     "paged_quant_rows": len(paged_quant)}))

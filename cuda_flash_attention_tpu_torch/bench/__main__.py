@@ -2,17 +2,40 @@
 
   python -m cuda_flash_attention_tpu_torch.bench --mode forward --kernel fa2
   python -m cuda_flash_attention_tpu_torch.bench --experiment
-  python -m cuda_flash_attention_tpu_torch.bench --seqlen-experiment
+  python -m cuda_flash_attention_tpu_torch.bench --seqlen-experiment [--extended]
 
-It runs on the CUDA card unless `--device cpu` asks for the CPU (where no
-time is taken).  `--save-results` writes the CSV; plots are not drawn (they
-need matplotlib).  Exit code 1 when any config failed.
+`--extended` adds the long-context points (LongCtx-S8192/16384/32768, B1 H8
+D64, fa2 only, against the Q-chunked oracles).  It runs on the CUDA card
+unless `--device cpu` asks for the CPU (where no time is taken).
+`--save-results` writes the CSV and draws the plots of bench/plots.py
+where matplotlib imports; where it does not, one line says that the plots
+were not drawn and why.  Exit code 1 when any config failed.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+
+
+def save_plots(rows, output_dir: str, prefix: str, device: str = "cuda") -> list[str]:
+    """bench/plots.py's figures of the rows, or one line saying why none
+    was drawn (a CPU run has no device times; matplotlib does not
+    import)."""
+    if device == "cpu":
+        print("Plots not drawn: a CPU run takes no device times")
+        return []
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError as e:
+        print(f"Plots not drawn: matplotlib does not import ({e})")
+        return []
+    from cuda_flash_attention_tpu_torch.bench.plots import generate_plots
+
+    paths = generate_plots(rows, output_dir, prefix=prefix)
+    for path in paths:
+        print(f"Saved plot: {path}")
+    return paths
 
 
 def main(argv=None):
@@ -81,6 +104,8 @@ def main(argv=None):
         csv_path = os.path.join(args.output_dir, f"{prefix}experiment_results.csv")
         h.save_csv(csv_path)
         print(f"\nSaved results to: {csv_path}")
+        save_plots([r.as_row() for r in h.results], args.output_dir, prefix,
+                   args.device)
 
     n_fail = sum(not r.passed for r in h.results)
     raise SystemExit(1 if n_fail else 0)

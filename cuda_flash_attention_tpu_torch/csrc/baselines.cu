@@ -1,7 +1,14 @@
 // The two baseline attention kernels of the reference suite on Hopper
-// (sm_90a), plain C interface for ctypes.  Both are forward-only, fp32-only
-// and non-causal, as the reference's; their schedules are what they measure,
-// so they are kept, not tuned.  Each runs them on a block built for Hopper's
+// (sm_90a), plain C interface for ctypes.  Both are forward-only and
+// non-causal, as the reference's; their schedules are what they measure,
+// so they are kept, not tuned.  They take fp32, bf16 and fp16 inputs (the
+// JAX kernels take any floating input) and compute in fp32 on the FMA
+// units: 16-bit inputs are widened to fp32 as they land in shared memory
+// (exact), S is their fp32 product, and P is rounded to the input type
+// before P V, where the JAX kernels round it (`p.astype(v_ref.dtype)`).
+// B9 keeps FA1's running O in device memory in the input type, so a 16-bit
+// O is re-rounded at every KV tile, as the JAX kernel's revisited 16-bit
+// output block is; B10 rounds its fp32 O once at the end.  Each runs them on a block built for Hopper's
 // FMA units (B9 its own; B10 the fp32 block of csrc/fma_block.cuh, shared
 // with B1's fp32 body): the block changed, not the schedule.
 //
@@ -80,13 +87,16 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 #include "fma_block.cuh"  // B10's block; includes hopper.cuh
 
 // The head dims this library is built for: 64 and 128 here; a source that
 // includes this one with CFA_HEAD_DIMS defined builds others (csrc/
 // baselines_d32.cu and baselines_d256.cu, each in its own library, so that
-// nvcc compiles the widths in parallel).
+// nvcc compiles the widths in parallel).  The input types: fp32 and bf16
+// here, fp16 alone with CFA_FP16_INPUTS (csrc/baselines_fp16in.cu, every
+// head dim).
 #ifndef CFA_HEAD_DIMS
 #define CFA_HEAD_DIMS(X) X(64) X(128)
 #endif
@@ -130,12 +140,21 @@ struct Fa1 {
   static_assert(kSmem <= 232448, "one block must fit the SM's 227 KB");
 };
 
-template <int D>
+// Four values of a 16-bit row widened into shared memory (B9's 16-bit
+// inputs: cp.async copies bytes and cannot widen); rows past the input are
+// zeros.
+template <typename T16>
+__device__ __forceinline__ void fa1_widen4(float* dst, const T16* src, bool in) {
+  *reinterpret_cast<float4*>(dst) = in ? fma_load4(src) : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+template <typename Tin, int D>
 __global__ void __launch_bounds__(Fa1<D>::kThreads, 1)
-fa1_fp32(const float* __restrict__ q, const float* __restrict__ k,
-         const float* __restrict__ v, float* __restrict__ o,
+fa1_fp32(const Tin* __restrict__ q, const Tin* __restrict__ k,
+         const Tin* __restrict__ v, Tin* __restrict__ o,
          float* __restrict__ m, float* __restrict__ l, int sq, int skv,
          int kv_len, float sm_scale) {
+  constexpr bool k32 = std::is_same<Tin, float>::value;
   using L = Fa1<D>;
   constexpr int kGroups = L::kGroups;
   constexpr int kQBufs = L::kQBufs;
@@ -158,10 +177,10 @@ fa1_fp32(const float* __restrict__ q, const float* __restrict__ k,
   const int tx = lane & 15;
   const int ty = ((gt >> 5) << 1) | (lane >> 4);
   const size_t bh = blockIdx.x;
-  const float* qp = q + bh * sq * D;
-  const float* kp = k + bh * skv * D;
-  const float* vp = v + bh * skv * D;
-  float* op = o + bh * sq * D;
+  const Tin* qp = q + bh * sq * D;
+  const Tin* kp = k + bh * skv * D;
+  const Tin* vp = v + bh * skv * D;
+  Tin* op = o + bh * sq * D;
   float* mp = m + bh * sq;
   float* lp = l + bh * sq;
   float* sc = smem + L::kScales + group * 2 * kTile;  // [scale_old, scale_pv][row]
@@ -178,7 +197,8 @@ fa1_fp32(const float* __restrict__ q, const float* __restrict__ k,
   __syncthreads();
 
   // K and V of KV tile t into stage t % kKVBufs, by every thread; rows
-  // past skv are zeros.
+  // past skv are zeros.  16-bit rows are widened on the way (fa1_widen4)
+  // and the arrival follows the stores.
   auto load_kv = [&](int t) {
     float* ks = smem + (t % kKVBufs) * L::kKV;
     float* vs = ks + L::kKFloats;
@@ -188,10 +208,19 @@ fa1_fp32(const float* __restrict__ q, const float* __restrict__ k,
       const int c = (i - r * kChunks) * 4;
       const bool in = k0 + r < skv;
       const size_t at = static_cast<size_t>(in ? k0 + r : 0) * D + c;
-      cp_async16(smem_addr(ks + r * LDK + c), kp + at, in);
-      cp_async16(smem_addr(vs + r * D + c), vp + at, in);
+      if constexpr (k32) {
+        cp_async16(smem_addr(ks + r * LDK + c), kp + at, in);
+        cp_async16(smem_addr(vs + r * D + c), vp + at, in);
+      } else {
+        fa1_widen4(ks + r * LDK + c, kp + at, in);
+        fa1_widen4(vs + r * D + c, vp + at, in);
+      }
     }
-    cp_async_arrive(kv_full + 8 * (t % kKVBufs));
+    if constexpr (k32) {
+      cp_async_arrive(kv_full + 8 * (t % kKVBufs));
+    } else {
+      mbar_arrive(kv_full + 8 * (t % kKVBufs));
+    }
   };
   // The Q tile of this group's pair p into buffer p % kQBufs, by the
   // group; rows past sq are zeros.
@@ -203,10 +232,19 @@ fa1_fp32(const float* __restrict__ q, const float* __restrict__ k,
       const int r = i / kChunks;
       const int c = (i - r * kChunks) * 4;
       const bool in = q0 + r < sq;
-      cp_async16(smem_addr(qs + r * LDK + c),
-                 qp + static_cast<size_t>(in ? q0 + r : 0) * D + c, in);
+      if constexpr (k32) {
+        cp_async16(smem_addr(qs + r * LDK + c),
+                   qp + static_cast<size_t>(in ? q0 + r : 0) * D + c, in);
+      } else {
+        fa1_widen4(qs + r * LDK + c, qp + static_cast<size_t>(in ? q0 + r : 0) * D + c,
+                   in);
+      }
     }
-    cp_async_arrive(q_full + 8 * buf);
+    if constexpr (k32) {
+      cp_async_arrive(q_full + 8 * buf);
+    } else {
+      mbar_arrive(q_full + 8 * buf);
+    }
   };
   auto group_sync = [&] {
     asm volatile("bar.sync %0, 128;\n" ::"r"(1 + group) : "memory");
@@ -293,7 +331,7 @@ fa1_fp32(const float* __restrict__ q, const float* __restrict__ k,
         for (int j = 0; j < 4; ++j) {
           const float pj = expf(s[r][j] - m_new);
           rs += pj;
-          ps[(ty + 8 * r) * LDP + tx + 16 * j] = pj;
+          ps[(ty + 8 * r) * LDP + tx + 16 * j] = round_as<Tin>(pj);
         }
 #pragma unroll
         for (int off = 1; off < 16; off <<= 1) {
@@ -363,7 +401,8 @@ fa1_fp32(const float* __restrict__ q, const float* __restrict__ k,
       group_sync();  // P is read: the buffer takes the next Q tile
       if (p + kQBufs < n_pairs) load_q(p + kQBufs);
 
-      // O = scale_old * O_prev + scale_pv * P V, a float4 at a time.
+      // O = scale_old * O_prev + scale_pv * P V, a float4 at a time (in
+      // the input type: a 16-bit O is rounded at every KV tile).
 #pragma unroll
       for (int r = 0; r < 8; ++r) {
         const int row = q0 + ty + 8 * r;
@@ -371,22 +410,21 @@ fa1_fp32(const float* __restrict__ q, const float* __restrict__ k,
         const float scale_old = sc[ty + 8 * r];
         const float scale_pv = sc[kTile + ty + 8 * r];
         if constexpr (D == 32) {
-          float2* at = reinterpret_cast<float2*>(op + static_cast<size_t>(row) * D + 2 * tx);
-          const float2 o_prev = t > 0 ? *at : make_float2(0.f, 0.f);
-          *at = make_float2(scale_old * o_prev.x + scale_pv * pv[r][0],
-                            scale_old * o_prev.y + scale_pv * pv[r][1]);
+          Tin* at = op + static_cast<size_t>(row) * D + 2 * tx;
+          const float2 o_prev = t > 0 ? load2(at) : make_float2(0.f, 0.f);
+          store2(at, scale_old * o_prev.x + scale_pv * pv[r][0],
+                 scale_old * o_prev.y + scale_pv * pv[r][1]);
         }
 #pragma unroll
         for (int h = 0; h < DC; ++h) {
-          float4* at = reinterpret_cast<float4*>(
-              op + static_cast<size_t>(row) * D + 64 * h + 4 * tx);
-          const float4 o_prev = t > 0 ? *at : make_float4(0.f, 0.f, 0.f, 0.f);
+          Tin* at = op + static_cast<size_t>(row) * D + 64 * h + 4 * tx;
+          const float4 o_prev = t > 0 ? fma_load4(at) : make_float4(0.f, 0.f, 0.f, 0.f);
           float4 o_new;
           o_new.x = scale_old * o_prev.x + scale_pv * pv[r][4 * h];
           o_new.y = scale_old * o_prev.y + scale_pv * pv[r][4 * h + 1];
           o_new.z = scale_old * o_prev.z + scale_pv * pv[r][4 * h + 2];
           o_new.w = scale_old * o_prev.w + scale_pv * pv[r][4 * h + 3];
-          *at = o_new;
+          fma_store4(at, o_new);
         }
       }
     }
@@ -399,10 +437,10 @@ fa1_fp32(const float* __restrict__ q, const float* __restrict__ k,
 // (csrc/fma_block.cuh has the block: thread layout, rings, loads and the
 // two products).
 // ---------------------------------------------------------------------------
-template <int D>
+template <typename Tin, int D>
 __global__ void __launch_bounds__(kFmaThreads, FmaBlock<D>::kBlocksPerSm)
-naive_fa2_fp32(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, float* __restrict__ o, int sq,
+naive_fa2_fp32(const Tin* __restrict__ q, const Tin* __restrict__ k,
+               const Tin* __restrict__ v, Tin* __restrict__ o, int sq,
                int skv, int kv_len, float sm_scale) {
   using L = FmaBlock<D>;
   constexpr int DO = D / 16;  // output columns per thread
@@ -411,8 +449,8 @@ naive_fa2_fp32(const float* __restrict__ q, const float* __restrict__ k,
   const FmaThread th = fma_thread();
   const size_t bh = blockIdx.y;
   const int q0 = blockIdx.x * kTile;
-  const float* kp = k + bh * skv * D;
-  const float* vp = v + bh * skv * D;
+  const Tin* kp = k + bh * skv * D;
+  const Tin* vp = v + bh * skv * D;
   float* qs = st.q();
   const int n_kv = (kv_len + kTile - 1) / kTile;
 
@@ -457,7 +495,7 @@ naive_fa2_fp32(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const float p = expf(s[r][j] - m_new);
         rs += p;
-        fma_store_p(ps, th, r, j, p);
+        fma_store_p(ps, th, r, j, round_as<Tin>(p));  // P V takes P in q's type
       }
       const float l_new = alpha * l_run[r] + fma_row_sum(rs);
       scale_pv[r] = l_new == 0.f ? 1.f : __frcp_rn(l_new);  // = 1 / l_new
@@ -512,54 +550,66 @@ naive_fa2_fp32(const float* __restrict__ q, const float* __restrict__ k,
   fma_store_o<D>(o + bh * sq * D, q0, sq, th, acc, one);
 }
 
-template <int D>
-cudaError_t launch_fa1(const float* q, const float* k, const float* v,
-                       float* o, float* m, float* l, int bh, int sq, int skv,
-                       int kv_len, float sm_scale, cudaStream_t stream) {
+template <typename Tin, int D>
+cudaError_t launch_fa1(const void* q, const void* k, const void* v, void* o,
+                       float* m, float* l, int bh, int sq, int skv, int kv_len,
+                       float sm_scale, cudaStream_t stream) {
   static std::atomic<uint64_t> smem_set{0};
-  cudaError_t err = set_smem_once(fa1_fp32<D>, Fa1<D>::kSmem, smem_set);
+  cudaError_t err = set_smem_once(fa1_fp32<Tin, D>, Fa1<D>::kSmem, smem_set);
   if (err != cudaSuccess) return err;
-  fa1_fp32<D><<<bh, Fa1<D>::kThreads, Fa1<D>::kSmem, stream>>>(
-      q, k, v, o, m, l, sq, skv, kv_len, sm_scale);
+  fa1_fp32<Tin, D><<<bh, Fa1<D>::kThreads, Fa1<D>::kSmem, stream>>>(
+      static_cast<const Tin*>(q), static_cast<const Tin*>(k),
+      static_cast<const Tin*>(v), static_cast<Tin*>(o), m, l, sq, skv, kv_len,
+      sm_scale);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_naive(const float* q, const float* k, const float* v,
-                         float* o, int bh, int sq, int skv, int kv_len,
-                         float sm_scale, cudaStream_t stream) {
+template <typename Tin, int D>
+cudaError_t launch_naive(const void* q, const void* k, const void* v, void* o,
+                         int bh, int sq, int skv, int kv_len, float sm_scale,
+                         cudaStream_t stream) {
   using L = FmaBlock<D>;
   static std::atomic<uint64_t> smem_set{0};
-  cudaError_t err = set_smem_once(naive_fa2_fp32<D>, L::kSmem, smem_set);
+  cudaError_t err = set_smem_once(naive_fa2_fp32<Tin, D>, L::kSmem, smem_set);
   if (err != cudaSuccess) return err;
   const dim3 grid((sq + kTile - 1) / kTile, bh);
-  naive_fa2_fp32<D><<<grid, kFmaThreads, L::kSmem, stream>>>(
-      q, k, v, o, sq, skv, kv_len, sm_scale);
+  naive_fa2_fp32<Tin, D><<<grid, kFmaThreads, L::kSmem, stream>>>(
+      static_cast<const Tin*>(q), static_cast<const Tin*>(k),
+      static_cast<const Tin*>(v), static_cast<Tin*>(o), sq, skv, kv_len,
+      sm_scale);
   return cudaGetLastError();
 }
+
+// This library's input types (in_type 0 fp32, 1 bf16, 2 fp16): the launch
+// X<type, D>(args...) of the one in_type names.
+#ifdef CFA_FP16_INPUTS
+#define CFA_TYPES(X, D, ...) \
+  if (in_type == 2) return X<__half, D>(__VA_ARGS__)
+#else
+#define CFA_TYPES(X, D, ...)                                                 \
+  if (in_type == 0) return X<float, D>(__VA_ARGS__);                         \
+  if (in_type == 1) return X<__nv_bfloat16, D>(__VA_ARGS__)
+#endif
 }  // namespace
 
 extern "C" {
 
 // B9.  q, o [bh, sq, head_dim]; k, v [bh, skv, head_dim] (head_dim one of
-// this library's, CFA_HEAD_DIMS); m, l [bh, sq] fp32 scratch (the running
-// max and sum, written by the kernel).  All fp32 and contiguous.  Keys at
-// or past kv_len are masked.  Returns a cudaError_t.
+// this library's, CFA_HEAD_DIMS), of input type in_type (0 fp32, 1 bf16, 2
+// fp16; this library's types); m, l [bh, sq] fp32 scratch (the running max
+// and sum, written by the kernel).  All contiguous.  Keys at or past kv_len
+// are masked.  Returns a cudaError_t.
 int cfa_fa1_forward(const void* q, const void* k, const void* v, void* o,
                     void* m, void* l, int bh, int sq, int skv, int head_dim,
-                    int kv_len, float sm_scale, void* stream) {
-  const auto* qf = static_cast<const float*>(q);
-  const auto* kf = static_cast<const float*>(k);
-  const auto* vf = static_cast<const float*>(v);
-  auto* of = static_cast<float*>(o);
+                    int kv_len, float sm_scale, int in_type, void* stream) {
   auto* mf = static_cast<float*>(m);
   auto* lf = static_cast<float*>(l);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // This library's head dims (CFA_HEAD_DIMS).
 #define CFA_CASE(D)                                                          \
   if (head_dim == D) {                                                       \
-    return launch_fa1<D>(qf, kf, vf, of, mf, lf, bh, sq, skv, kv_len,        \
-                         sm_scale, st);                                      \
+    CFA_TYPES(launch_fa1, D, q, k, v, o, mf, lf, bh, sq, skv, kv_len,        \
+              sm_scale, st);                                                 \
   }
   CFA_HEAD_DIMS(CFA_CASE)
 #undef CFA_CASE
@@ -569,15 +619,11 @@ int cfa_fa1_forward(const void* q, const void* k, const void* v, void* o,
 // B10.  As B9 without the m and l scratch.
 int cfa_naive_fa2_forward(const void* q, const void* k, const void* v, void* o,
                           int bh, int sq, int skv, int head_dim, int kv_len,
-                          float sm_scale, void* stream) {
-  const auto* qf = static_cast<const float*>(q);
-  const auto* kf = static_cast<const float*>(k);
-  const auto* vf = static_cast<const float*>(v);
-  auto* of = static_cast<float*>(o);
+                          float sm_scale, int in_type, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define CFA_CASE(D)                                                          \
   if (head_dim == D) {                                                       \
-    return launch_naive<D>(qf, kf, vf, of, bh, sq, skv, kv_len, sm_scale, st); \
+    CFA_TYPES(launch_naive, D, q, k, v, o, bh, sq, skv, kv_len, sm_scale, st); \
   }
   CFA_HEAD_DIMS(CFA_CASE)
 #undef CFA_CASE

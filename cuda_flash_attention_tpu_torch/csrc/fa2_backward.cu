@@ -166,13 +166,33 @@
 // The head dims this library is built for: 64 and 128 here; a source that
 // includes this one with CFA_HEAD_DIMS defined builds others (D 32 and 256
 // each in their own library, csrc/fa2_backward_d32.cu and _d256.cu, so
-// that nvcc compiles the widths in parallel).
+// that nvcc compiles the widths in parallel), and -DCFA_HEAD_DIM=<D> one
+// (bench/autotune.py's tile variants).  The input types: fp32 and bf16
+// here, fp16 alone with CFA_FP16_INPUTS (csrc/fa2_backward_fp16in.cu, every
+// head dim).
 #ifndef CFA_HEAD_DIMS
+#ifdef CFA_HEAD_DIM
+#define CFA_HEAD_DIMS(X) X(CFA_HEAD_DIM)
+#else
 #define CFA_HEAD_DIMS(X) X(64) X(128)
+#endif
+#endif
+
+// bench/autotune.py's variants time bf16 inputs alone: -DCFA_BF16_INPUTS_ONLY
+// leaves the fp32-input instantiations out of such a library.
+#ifdef CFA_BF16_INPUTS_ONLY
+#define CFA_FP32_INPUTS(...)
+#else
+#define CFA_FP32_INPUTS(...) __VA_ARGS__
 #endif
 
 namespace {
 
+// Tile constants that a library built at one head dim may replace
+// (bench/autotune.py's candidates): CFA_BWD_Q_ROWS (BwdLayout::BQ) for B2
+// and B4, CFA_DQ_KV_ROWS (DqLayout::BN) and CFA_DQ_STAGES
+// (DqLayout::kStages) for B3.  -DCFA_BWD_DKV_ONLY leaves B2 out, so that a
+// B4 variant is not refused for B2's larger layout (its dS^T buffers).
 constexpr int kKvRows = 128;  // KV rows per block of B2/B4 with bf16 tiles
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -1143,7 +1163,12 @@ bwd_dq_fp32_wide(const float* __restrict__ qs_plane, const float* __restrict__ k
 // 64 atoms of 128 rows x 64 q columns.
 template <int D, bool DQ>
 struct BwdLayout {
+#ifdef CFA_BWD_Q_ROWS
+  static constexpr int BQ = CFA_BWD_Q_ROWS;
+#else
   static constexpr int BQ = D == 128 ? 64 : 128;  // Q rows per step of the walk
+#endif
+  static_assert(BQ == 64 || BQ == 128, "Q rows a step: one or two 64-column dS^T atoms");
   static constexpr int kKv = kKvRows;
   static constexpr int kStages = 2;
   static constexpr int kBoxes = Rows<D>::kBoxes;
@@ -1163,6 +1188,7 @@ struct BwdLayout {
   static constexpr int kBars = kStats + kStages * kStatBytes;
   // full K/V, full and empty of each stage, and alignment slack.
   static constexpr int kSmem = kBars + 8 * (1 + 2 * kStages) + 1024;
+  static_assert(kSmem <= 232448, "one block must fit the SM's 227 KB");
 };
 
 // Shared memory of the KV-major kernel at D = 256 (B2 with DQ, B4
@@ -1849,8 +1875,16 @@ dq_reduce(const float* __restrict__ dq_part, Tout* __restrict__ dq, int sq,
 template <int D>
 struct DqLayout {
   static constexpr int BQ = 128;  // Q rows per block
+#ifdef CFA_DQ_KV_ROWS
+  static constexpr int BN = CFA_DQ_KV_ROWS;
+#else
   static constexpr int BN = D == 64 ? 128 : D == 256 ? 32 : 64;  // KV rows per ring stage
+#endif
+#ifdef CFA_DQ_STAGES
+  static constexpr int kStages = CFA_DQ_STAGES;
+#else
   static constexpr int kStages = 3;  // 1.08-1.23x faster than 2 (PERF.md)
+#endif
   static constexpr int kBoxes = Rows<D>::kBoxes;
   static constexpr int kQBox = BQ * Rows<D>::kRowBytes;
   static constexpr int kKVBox = BN * Rows<D>::kRowBytes;
@@ -2459,7 +2493,11 @@ template <typename Tin, typename Tt, int D>
 int launch_16bit(BwdKernel kernel, const Args& a, int tiles, void* workspace) {
   if (kernel == BwdKernel::kDq) return launch_dq_wgmma<Tin, Tt, D>(a, tiles, workspace);
   if (kernel == BwdKernel::kFused) {
+#ifdef CFA_BWD_DKV_ONLY
+    return static_cast<int>(cudaErrorInvalidValue);
+#else
     return launch_kv_wgmma<Tin, Tt, D, true>(a, tiles, workspace);
+#endif
   }
   return launch_kv_wgmma<Tin, Tt, D, false>(a, tiles, workspace);
 }
@@ -2479,19 +2517,33 @@ int launch_fp32(BwdKernel kernel, const Args& a, void* workspace) {
 }
 
 // The instantiations of every kernel at this library's head dims
-// (CFA_HEAD_DIMS).  in_bf16: q/k/v/o/dO and the gradients are bf16 (else
-// fp32).  tiles: 0 fp32 on the FMA units (needs fp32 inputs), 1 bf16 or 2
-// fp16 on the tensor cores.
-int dispatch(BwdKernel kernel, const Args& a, int head_dim, int in_bf16,
+// (CFA_HEAD_DIMS) and input types.  in_type: q/k/v/o/dO and the gradients
+// are 0 fp32, 1 bf16 or 2 fp16 (fp16 in csrc/fa2_backward_fp16in.cu).
+// tiles: 0 fp32 on the FMA units (needs fp32 inputs), 1 bf16 or 2 fp16 on
+// the tensor cores.
+int dispatch(BwdKernel kernel, const Args& a, int head_dim, int in_type,
              int tiles, void* workspace) {
+#ifdef CFA_FP16_INPUTS
+#define CFA_CASE(D)                                                            \
+  if (head_dim == D && in_type == 2 && (tiles == 1 || tiles == 2)) {           \
+    return launch_tiles<__half, D>(kernel, a, tiles, workspace);               \
+  }
+#else
 #define CFA_CASE(D)                                                            \
   if (head_dim == D) {                                                         \
     if (tiles == 1 || tiles == 2) {                                            \
-      return in_bf16 ? launch_tiles<__nv_bfloat16, D>(kernel, a, tiles, workspace) \
-                     : launch_tiles<float, D>(kernel, a, tiles, workspace);    \
+      if (in_type == 1) {                                                      \
+        return launch_tiles<__nv_bfloat16, D>(kernel, a, tiles, workspace);    \
+      }                                                                        \
+      CFA_FP32_INPUTS(if (in_type == 0) {                                      \
+        return launch_tiles<float, D>(kernel, a, tiles, workspace);            \
+      })                                                                       \
     }                                                                          \
-    if (tiles == 0 && !in_bf16) return launch_fp32<D>(kernel, a, workspace);   \
+    CFA_FP32_INPUTS(if (tiles == 0 && in_type == 0) {                          \
+      return launch_fp32<D>(kernel, a, workspace);                             \
+    })                                                                         \
   }
+#endif
   CFA_HEAD_DIMS(CFA_CASE)
 #undef CFA_CASE
   return static_cast<int>(cudaErrorInvalidValue);
@@ -2512,18 +2564,18 @@ int cfa_fa2_backward_kv_tile(int tiles, int head_dim) {
 int cfa_fa2_backward_masks() { return 1; }
 
 // Bytes of the workspace of B2, B3 and B4 for these shapes and types (0
-// for a pair of them that no kernel takes).
+// for a pair of them that no kernel takes).  dO, K and V get buffers of
+// their own only where the inputs are not in the tile type already.
 long long cfa_fa2_backward_workspace(int batch, int hq, int hkv, int sq,
-                                     int skv, int head_dim, int in_bf16,
+                                     int skv, int head_dim, int in_type,
                                      int tiles) {
-  if (tiles == 0 && !in_bf16) {
+  if (tiles == 0 && in_type == 0) {
     return static_cast<long long>(
         bwd_workspace(batch, hq, hkv, sq, skv, head_dim, 4, false).total);
   }
   if (tiles != 1 && tiles != 2) return 0;
   return static_cast<long long>(
-      bwd_workspace(batch, hq, hkv, sq, skv, head_dim, 2, !(in_bf16 && tiles == 1))
-          .total);
+      bwd_workspace(batch, hq, hkv, sq, skv, head_dim, 2, in_type != tiles).total);
 }
 
 // B2.  q, o, dout [batch, hq, sq, head_dim]; k, v, dk, dv [batch, hkv, skv,
@@ -2542,7 +2594,7 @@ int cfa_fa2_backward_fused(const void* q, const void* k, const void* v,
                            int hq, int hkv, int sq, int skv, int head_dim,
                            int kv_len, float qscale, int causal, int window,
                            int sinks, const void* q_seg, const void* kv_seg,
-                           int in_bf16, int tiles, void* workspace,
+                           int in_type, int tiles, void* workspace,
                            void* stream) {
   if ((q_seg == nullptr) != (kv_seg == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -2552,17 +2604,17 @@ int cfa_fa2_backward_fused(const void* q, const void* k, const void* v,
                causal, window, sinks, static_cast<const int*>(q_seg),
                static_cast<const int*>(kv_seg),
                static_cast<cudaStream_t>(stream)};
-  return dispatch(BwdKernel::kFused, a, head_dim, in_bf16, tiles, workspace);
+  return dispatch(BwdKernel::kFused, a, head_dim, in_type, tiles, workspace);
 }
 
-// B2's dQ from its slices: dq [batch, hq, sq, head_dim] (bf16 when
-// out_bf16, else fp32) = sm_scale * the ordered sum of the slices of
-// dq_part that each row's walk reaches (tile code `tiles`, window and
-// sinks as the fused launch's).  Returns a cudaError_t.
+// B2's dQ from its slices: dq [batch, hq, sq, head_dim] (out_type 0 fp32,
+// 1 bf16, 2 fp16) = sm_scale * the ordered sum of the slices of dq_part
+// that each row's walk reaches (tile code `tiles`, window and sinks as the
+// fused launch's).  Returns a cudaError_t.
 int cfa_fa2_backward_dq_reduce(const void* dq_part, void* dq, int batch, int hq,
                                int sq, int skv, int head_dim, int kv_len,
                                int causal, int window, int sinks,
-                               float sm_scale, int out_bf16, int tiles,
+                               float sm_scale, int out_type, int tiles,
                                void* stream) {
   const int tile = cfa_fa2_backward_kv_tile(tiles, head_dim);
   const int n_slices = (skv + tile - 1) / tile;
@@ -2570,15 +2622,27 @@ int cfa_fa2_backward_dq_reduce(const void* dq_part, void* dq, int batch, int hq,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* src = static_cast<const float*>(dq_part);
   const int kv = std::min(kv_len, skv);
-  if (out_bf16) {
+#ifdef CFA_FP16_INPUTS
+  if (out_type == 2) {
+    dq_reduce<__half><<<grid, 256, 0, st>>>(
+        src, static_cast<__half*>(dq), sq, head_dim, n_slices, kv, tile, causal,
+        window, sinks, sm_scale);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+#else
+  if (out_type == 1) {
     dq_reduce<__nv_bfloat16><<<grid, 256, 0, st>>>(
         src, static_cast<__nv_bfloat16*>(dq), sq, head_dim, n_slices, kv, tile,
         causal, window, sinks, sm_scale);
+  } else if (out_type != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
   } else {
     dq_reduce<float><<<grid, 256, 0, st>>>(
         src, static_cast<float*>(dq), sq, head_dim, n_slices, kv, tile, causal,
         window, sinks, sm_scale);
   }
+#endif
   return cudaGetLastError();
 }
 
@@ -2589,7 +2653,7 @@ int cfa_fa2_backward_dkv(const void* q, const void* k, const void* v,
                          void* dk, void* dv, int batch, int hq, int hkv,
                          int sq, int skv, int head_dim, int kv_len,
                          float qscale, int causal, int window, int sinks,
-                         const void* q_seg, const void* kv_seg, int in_bf16,
+                         const void* q_seg, const void* kv_seg, int in_type,
                          int tiles, void* workspace, void* stream) {
   if ((q_seg == nullptr) != (kv_seg == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -2599,7 +2663,7 @@ int cfa_fa2_backward_dkv(const void* q, const void* k, const void* v,
                sq, skv, kv_len, qscale, 0.f, causal, window, sinks,
                static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg),
                static_cast<cudaStream_t>(stream)};
-  return dispatch(BwdKernel::kDkv, a, head_dim, in_bf16, tiles, workspace);
+  return dispatch(BwdKernel::kDkv, a, head_dim, in_type, tiles, workspace);
 }
 
 // B3.  As B4, with dq like q, scaled by sm_scale.
@@ -2608,7 +2672,7 @@ int cfa_fa2_backward_dq(const void* q, const void* k, const void* v,
                         void* dq, int batch, int hq, int hkv, int sq, int skv,
                         int head_dim, int kv_len, float qscale, float sm_scale,
                         int causal, int window, int sinks, const void* q_seg,
-                        const void* kv_seg, int in_bf16, int tiles,
+                        const void* kv_seg, int in_type, int tiles,
                         void* workspace, void* stream) {
   if ((q_seg == nullptr) != (kv_seg == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -2618,7 +2682,7 @@ int cfa_fa2_backward_dq(const void* q, const void* k, const void* v,
                hkv, sq, skv, kv_len, qscale, sm_scale, causal, window, sinks,
                static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg),
                static_cast<cudaStream_t>(stream)};
-  return dispatch(BwdKernel::kDq, a, head_dim, in_bf16, tiles, workspace);
+  return dispatch(BwdKernel::kDq, a, head_dim, in_type, tiles, workspace);
 }
 
 const char* cfa_fa2_backward_error_string(int err) {

@@ -114,9 +114,24 @@
 
 // The head dims this library is built for: 64 and 128 here; a source that
 // includes this one with CFA_HEAD_DIMS defined builds others (D 32 and 256
-// each in their own library, so that nvcc compiles the widths in parallel).
+// each in their own library, so that nvcc compiles the widths in parallel),
+// and -DCFA_HEAD_DIM=<D> one (bench/autotune.py's tile variants).  The
+// input types: fp32 and bf16 here, fp16 alone with CFA_FP16_INPUTS
+// (csrc/fa2_forward_fp16in.cu, every head dim).
 #ifndef CFA_HEAD_DIMS
+#ifdef CFA_HEAD_DIM
+#define CFA_HEAD_DIMS(X) X(CFA_HEAD_DIM)
+#else
 #define CFA_HEAD_DIMS(X) X(64) X(128)
+#endif
+#endif
+
+// bench/autotune.py's variants time bf16 inputs alone: -DCFA_BF16_INPUTS_ONLY
+// leaves the fp32-input instantiations out of such a library.
+#ifdef CFA_BF16_INPUTS_ONLY
+#define CFA_FP32_INPUTS(...)
+#else
+#define CFA_FP32_INPUTS(...) __VA_ARGS__
 #endif
 
 namespace {
@@ -258,15 +273,25 @@ struct Tile<__half> {
 // KB, and each consumer's O accumulator (128 fp32 registers a thread) leaves
 // room for a 64-column S (32) and its P fragments (16), not a 128-column one.
 // ---------------------------------------------------------------------------
+// CFA_FWD_TILE_N and CFA_FWD_STAGES replace kTileN and kStages in a
+// library built at one head dim (bench/autotune.py's candidates).
 template <int D>
 struct Layout {
+#ifdef CFA_FWD_TILE_N
+  static constexpr int kTileN = CFA_FWD_TILE_N;
+#else
   static constexpr int kTileN = D > 128 ? 64 : 128;   // KV rows of a stage
+#endif
   static constexpr int kBoxCols = D < 64 ? D : 64;     // columns of a box row
   static constexpr int kRowBytes = 2 * kBoxCols;       // 128, or 64 at D = 32
   static constexpr int kChunks = kRowBytes / 16;       // 16-byte chunks a box row
   static constexpr int kBoxes = D / kBoxCols;
   static constexpr int kAtom = 8 * kRowBytes;          // a swizzle atom's bytes
+#ifdef CFA_FWD_STAGES
+  static constexpr int kStages = CFA_FWD_STAGES;
+#else
   static constexpr int kStages = D > 64 ? 2 : 3;
+#endif
   static constexpr int kQBox = kConsumerM * kRowBytes;  // bytes of one Q box
   static constexpr int kKVBox = kTileN * kRowBytes;     // bytes of one K or V box
   static constexpr int kQBytes = kQBox * kBoxes;
@@ -981,9 +1006,10 @@ extern "C" {
 // q [batch, hq, sq, head_dim]; k, v [batch, hkv, skv, head_dim]; o like q;
 // lse [batch, hq, sq] fp32.  All contiguous and 16-byte aligned.  q_seg
 // [batch, seg_stride(sq)] and kv_seg [batch, seg_stride(skv)] int32
-// segment ids, or both null.  in_bf16: q and o are bf16 (else fp32).
-// tiles: 0 fp32 on the FMA units (k and v fp32 too), 1 bf16 or 2 fp16 on
-// the tensor cores, with k and v already in the tile type.  qscale =
+// segment ids, or both null.  in_type: q and o are 0 fp32, 1 bf16 or 2
+// fp16 (this library's input types; csrc/fa2_forward_fp16in.cu holds
+// fp16).  tiles: 0 fp32 on the FMA units (fp32 inputs only), 1 bf16 or 2
+// fp16 on the tensor cores, with k and v already in the tile type.  qscale =
 // sm_scale * log2(e).  window: a row keeps keys with row - col < window
 // (kNoWindow: no window; without causal a band, any value); sinks:
 // columns below it are kept besides.  dead_bq x dead_bk: the tiles whose
@@ -993,7 +1019,7 @@ int cfa_fa2_forward(const void* q, const void* k, const void* v, void* o,
                     void* lse, const void* q_seg, const void* kv_seg,
                     int batch, int hq, int hkv, int sq, int skv, int head_dim,
                     int kv_len, float qscale, int causal, int window,
-                    int sinks, int dead_bq, int dead_bk, int in_bf16,
+                    int sinks, int dead_bq, int dead_bk, int in_type,
                     int tiles, void* stream) {
   if ((q_seg == nullptr) != (kv_seg == nullptr) || dead_bq < 1 || dead_bk < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1004,14 +1030,22 @@ int cfa_fa2_forward(const void* q, const void* k, const void* v, void* o,
                static_cast<cudaStream_t>(stream)};
   // This library's head dims (CFA_HEAD_DIMS; csrc/fa2_forward_d32.cu and
   // fa2_forward_d256.cu build the others).
+#ifdef CFA_FP16_INPUTS
+#define CFA_CASE(D)                                                          \
+  if (head_dim == D && in_type == 2 && (tiles == 1 || tiles == 2)) {         \
+    return launch_tiles<__half, D>(tiles, a);                                \
+  }
+#else
 #define CFA_CASE(D)                                                          \
   if (head_dim == D) {                                                       \
     if (tiles == 1 || tiles == 2) {                                          \
-      return in_bf16 ? launch_tiles<__nv_bfloat16, D>(tiles, a)             \
-                     : launch_tiles<float, D>(tiles, a);                     \
+      if (in_type == 1) return launch_tiles<__nv_bfloat16, D>(tiles, a);     \
+      CFA_FP32_INPUTS(                                                       \
+          if (in_type == 0) return launch_tiles<float, D>(tiles, a);)        \
     }                                                                        \
-    if (tiles == 0 && !in_bf16) return launch_fp32<D>(a);                    \
+    CFA_FP32_INPUTS(if (tiles == 0 && in_type == 0) return launch_fp32<D>(a);) \
   }
+#endif
   CFA_HEAD_DIMS(CFA_CASE)
 #undef CFA_CASE
   return static_cast<int>(cudaErrorInvalidValue);

@@ -109,6 +109,8 @@
 // The head dims this library is built for: 64 and 128 here; a source that
 // includes this one with CFA_HEAD_DIMS defined builds others (D 32 and 256
 // each in their own library, so that nvcc compiles the widths in parallel).
+// The q types: fp32 and bf16 here, fp16 alone with CFA_FP16_INPUTS
+// (csrc/fa2_forward_quant_fp16in.cu, every head dim).
 #ifndef CFA_HEAD_DIMS
 #define CFA_HEAD_DIMS(X) X(64) X(128)
 #endif
@@ -1020,8 +1022,9 @@ int launch_storage(int storage, int head_dim, const Args& a, bool bf16c,
 
 extern "C" {
 
-// q [batch, hq, sq, head_dim] (fp32, or bf16 when q_bf16; head_dim one of
-// this library's, CFA_HEAD_DIMS); o like q; lse
+// q [batch, hq, sq, head_dim] (q_type 0 fp32, 1 bf16 or 2 fp16, one of
+// this library's types; head_dim one of its head dims, CFA_HEAD_DIMS); o
+// like q; lse
 // [batch, hq, sq] fp32.  k, v [batch, hkv, skv, row] of storage 0 = int8,
 // 1 = fp8 e4m3, 2 = fp8 e5m2 (row = head_dim bytes) or 3 = int4 split-half
 // (row = head_dim / 2 bytes); k_scales, v_scales [batch, hkv, skv] fp32.  All
@@ -1038,7 +1041,7 @@ int cfa_fa2_forward_quant(const void* q, const void* k, const void* k_scales,
                           const void* q_seg, const void* kv_seg, int batch, int hq,
                           int hkv, int sq, int skv, int head_dim, int kv_len,
                           float qscale, int causal, int window, int dead_bq,
-                          int dead_bk, int q_bf16, int storage, int bf16_compute,
+                          int dead_bk, int q_type, int storage, int bf16_compute,
                           void* stream) {
   if (hkv < 1 || hq % hkv != 0 || batch * hq > 65535 ||
       (q_seg == nullptr) != (kv_seg == nullptr) || dead_bq < 1 || dead_bk < 1) {
@@ -1049,10 +1052,17 @@ int cfa_fa2_forward_quant(const void* q, const void* k, const void* k_scales,
                static_cast<const int*>(kv_seg), batch, hq, hkv, sq, skv,
                kv_len, qscale,  causal,   window,  dead_bq, dead_bk};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (q_bf16) {
+#ifdef CFA_FP16_INPUTS
+  if (q_type == 2) {
+    return launch_storage<__half>(storage, head_dim, a, bf16_compute != 0, st);
+  }
+#else
+  if (q_type == 1) {
     return launch_storage<__nv_bfloat16>(storage, head_dim, a, bf16_compute != 0, st);
   }
-  return launch_storage<float>(storage, head_dim, a, bf16_compute != 0, st);
+  if (q_type == 0) return launch_storage<float>(storage, head_dim, a, bf16_compute != 0, st);
+#endif
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 const char* cfa_fa2_forward_quant_error_string(int err) {

@@ -1,0 +1,6 @@
+// The quantized-KV FA2 forward B7 (csrc/fa2_forward_quant.cu) on fp16 q, at
+// every head dim, built as a library of its own so that nvcc compiles these
+// instantiations in parallel with the fp32 and bf16 ones.
+#define CFA_FP16_INPUTS
+#define CFA_HEAD_DIMS(X) X(32) X(64) X(128) X(256)
+#include "fa2_forward_quant.cu"

@@ -77,6 +77,8 @@
 // The head dims this library is built for: 64 and 128 here; a source that
 // includes this one with CFA_HEAD_DIMS defined builds others (D 32 and 256
 // each in their own library, so that nvcc compiles the widths in parallel).
+// The input types: fp32 and bf16 here, fp16 alone with CFA_FP16_INPUTS
+// (csrc/fa2_forward_small_fp16in.cu, every head dim).
 #ifndef CFA_HEAD_DIMS
 #define CFA_HEAD_DIMS(X) X(64) X(128)
 #endif
@@ -657,16 +659,16 @@ extern "C" {
 // `heads` slots a batch element; head_dim one of this library's, as
 // CFA_HEAD_DIMS); lse [n_slots, s_pad] fp32.  All contiguous and 16-byte
 // aligned, s_pad <= 128.  q_seg and kv_seg [n_slots
-// / heads, 128] int32 segment ids, or both null.  in_bf16: q/k/v/o are
-// bf16 (else fp32).  tiles: 0 fp32 on the FMA units (needs fp32 inputs), 1
-// bf16 or 2 fp16 on the tensor cores.  qscale = sm_scale * log2(e).
+// / heads, 128] int32 segment ids, or both null.  in_type: q/k/v/o are 0
+// fp32, 1 bf16 or 2 fp16 (this library's input types).  tiles: 0 fp32 on
+// the FMA units (needs fp32 inputs), 1 bf16 or 2 fp16 on the tensor cores.  qscale = sm_scale * log2(e).
 // window and sinks as cfa_fa2_forward's (kNoWindow: no window).  Returns a
 // cudaError_t.
 int cfa_fa2_forward_small(const void* q, const void* k, const void* v,
                           void* o, void* lse, const void* q_seg,
                           const void* kv_seg, int n_slots, int heads,
                           int s_pad, int head_dim, int kv_len, float qscale,
-                          int causal, int window, int sinks, int in_bf16,
+                          int causal, int window, int sinks, int in_type,
                           int tiles, void* stream) {
   if (s_pad < 1 || s_pad > kMaxRows || n_slots < 1 || heads < 1 ||
       (q_seg == nullptr) != (kv_seg == nullptr)) {
@@ -677,14 +679,21 @@ int cfa_fa2_forward_small(const void* q, const void* k, const void* v,
                n_slots, heads, s_pad, kv_len, qscale, causal, window, sinks,
                static_cast<cudaStream_t>(stream)};
   // This library's head dims (CFA_HEAD_DIMS).
+#ifdef CFA_FP16_INPUTS
+#define CFA_CASE(D)                                                          \
+  if (head_dim == D && in_type == 2 && (tiles == 1 || tiles == 2)) {         \
+    return launch_mma_tiles<__half, D>(a, tiles);                            \
+  }
+#else
 #define CFA_CASE(D)                                                          \
   if (head_dim == D) {                                                       \
     if (tiles == 1 || tiles == 2) {                                          \
-      return in_bf16 ? launch_mma_tiles<__nv_bfloat16, D>(a, tiles)          \
-                     : launch_mma_tiles<float, D>(a, tiles);                 \
+      if (in_type == 1) return launch_mma_tiles<__nv_bfloat16, D>(a, tiles); \
+      if (in_type == 0) return launch_mma_tiles<float, D>(a, tiles);         \
     }                                                                        \
-    if (tiles == 0 && !in_bf16) return launch_fp32<D>(a);                    \
+    if (tiles == 0 && in_type == 0) return launch_fp32<D>(a);                \
   }
+#endif
   CFA_HEAD_DIMS(CFA_CASE)
 #undef CFA_CASE
   return static_cast<int>(cudaErrorInvalidValue);

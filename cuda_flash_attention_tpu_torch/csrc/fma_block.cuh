@@ -158,29 +158,7 @@ __device__ __forceinline__ void fma_copy_tile(float* dst, const float* src,
   }
 }
 
-// fma_copy_tile of K or V (K swizzled, V by rows), then this thread's
-// arrival on `bar`.  Every thread of the block calls it for every tile of
-// the ring.
-template <int D, bool kSwizzle>
-__device__ __forceinline__ void fma_load_tile(float* dst, uint32_t bar,
-                                              const float* src, int t, int n) {
-  fma_copy_tile<D, kSwizzle>(dst, src, t, n);
-  cp_async_arrive(bar);
-}
-
-template <int D, typename L>
-__device__ __forceinline__ void fma_load_k(const FmaStages<L>& st, int t,
-                                           const float* kp, int n) {
-  fma_load_tile<D, true>(st.k(t), st.k_bar(t), kp, t, n);
-}
-
-template <int D, typename L>
-__device__ __forceinline__ void fma_load_v(const FmaStages<L>& st, int t,
-                                           const float* vp, int n) {
-  fma_load_tile<D, false>(st.v(t), st.v_bar(t), vp, t, n);
-}
-
-// Four neighbouring values of an fp32 or bf16 row as fp32, and back.
+// Four neighbouring values of an fp32, bf16 or fp16 row as fp32, and back.
 __device__ __forceinline__ float4 fma_load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -192,6 +170,60 @@ __device__ __forceinline__ float4 fma_load4(const __nv_bfloat16* p) {
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
+__device__ __forceinline__ float4 fma_load4(const __half* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&raw.x));
+  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&raw.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// fma_copy_tile of a 16-bit (bf16 or fp16) [n, D] tile (B9's and B10's
+// 16-bit inputs): cp.async copies
+// bytes and cannot widen, so each thread loads four values at a time,
+// widens them to fp32 (exact) and stores them where cp.async would have.
+template <int D, bool kSwizzle, typename T16>
+__device__ __forceinline__ void fma_copy_tile16(float* dst, const T16* src,
+                                                int t, int n) {
+  constexpr int kChunks = D / 4;
+  const int k0 = t * kFmaTile;
+  for (int i = threadIdx.x; i < kFmaTile * kChunks; i += kFmaThreads) {
+    const int r = i / kChunks;
+    const int c = i - r * kChunks;
+    const float4 x = k0 + r < n
+                         ? fma_load4(src + static_cast<size_t>(k0 + r) * D + 4 * c)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+    *reinterpret_cast<float4*>(dst + (kSwizzle ? fma_swz<D>(r, c) : r * D + 4 * c)) = x;
+  }
+}
+
+// fma_copy_tile of K or V (K swizzled, V by rows), then this thread's
+// arrival on `bar`: once its cp.asyncs have landed (fp32), or at once after
+// its stores (16-bit rows; the arrival releases them).  Every thread of the
+// block calls it for every tile of the ring.
+template <int D, bool kSwizzle, typename Tin>
+__device__ __forceinline__ void fma_load_tile(float* dst, uint32_t bar,
+                                              const Tin* src, int t, int n) {
+  if constexpr (std::is_same<Tin, float>::value) {
+    fma_copy_tile<D, kSwizzle>(dst, src, t, n);
+    cp_async_arrive(bar);
+  } else {
+    fma_copy_tile16<D, kSwizzle>(dst, src, t, n);
+    mbar_arrive(bar);
+  }
+}
+
+template <int D, typename L, typename Tin>
+__device__ __forceinline__ void fma_load_k(const FmaStages<L>& st, int t,
+                                           const Tin* kp, int n) {
+  fma_load_tile<D, true>(st.k(t), st.k_bar(t), kp, t, n);
+}
+
+template <int D, typename L, typename Tin>
+__device__ __forceinline__ void fma_load_v(const FmaStages<L>& st, int t,
+                                           const Tin* vp, int n) {
+  fma_load_tile<D, false>(st.v(t), st.v_bar(t), vp, t, n);
+}
+
 __device__ __forceinline__ void fma_store4(float* p, float4 x) {
   *reinterpret_cast<float4*>(p) = x;
 }
@@ -199,6 +231,13 @@ __device__ __forceinline__ void fma_store4(float* p, float4 x) {
 __device__ __forceinline__ void fma_store4(__nv_bfloat16* p, float4 x) {
   const __nv_bfloat162 a = __floats2bfloat162_rn(x.x, x.y);
   const __nv_bfloat162 b = __floats2bfloat162_rn(x.z, x.w);
+  *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<const uint32_t*>(&a),
+                                            *reinterpret_cast<const uint32_t*>(&b));
+}
+
+__device__ __forceinline__ void fma_store4(__half* p, float4 x) {
+  const __half2 a = __floats2half2_rn(x.x, x.y);
+  const __half2 b = __floats2half2_rn(x.z, x.w);
   *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<const uint32_t*>(&a),
                                             *reinterpret_cast<const uint32_t*>(&b));
 }
@@ -367,7 +406,7 @@ __device__ __forceinline__ float fma_row_sum(float x) {
   return x;
 }
 
-// A thread's D / 16 O columns of one row (fp32 or bf16, `row` its first
+// A thread's D / 16 O columns of one row (fp32, bf16 or fp16, `row` its first
 // element) from a[] * scale, at any head dim: 64 h + 4 tx .. + 3, or at
 // D = 32 columns 2 tx and 2 tx + 1.
 template <int D, typename Tout>
@@ -385,7 +424,7 @@ __device__ __forceinline__ void fma_store_cols(Tout* row, const FmaThread& th,
   }
 }
 
-// O rows q0 + ty + 8 r (those before n) of one head ([n, D], fp32 or bf16)
+// O rows q0 + ty + 8 r (those before n) of one head ([n, D], fp32, bf16 or fp16)
 // from acc * scale[r], four values at a time: DC 64-column blocks from
 // block h0; at D = 32 a thread's two columns (fma_store_cols).
 template <int D, int DC = D / 64, typename Tout>

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's hand-written
-// kernels: 16-bit and fp32 row loads, wgmma issue/commit/wait and the
+// kernels: 16-bit (bf16, fp16) and fp32 row loads and stores, rounding to
+// an input type, wgmma issue/commit/wait and the
 // 128- and 64-byte-swizzle shared-memory descriptors, mbarriers, cp.async into an
 // mbarrier, TMA loads (3-D tensor maps and 1-D bulk copies), the tensor-map
 // encoder looked up in libcuda at run time, and the once-per-device
@@ -16,6 +17,7 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 namespace {
 
@@ -25,6 +27,17 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* x) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     float2 f = __bfloat1622float2(h[i]);
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void load8(const __half* p, float* x) {
+  uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __half2* h = reinterpret_cast<const __half2*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float2 f = __half22float2(h[i]);
     x[2 * i] = f.x;
     x[2 * i + 1] = f.y;
   }
@@ -41,8 +54,38 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
+__device__ __forceinline__ void store2(__half* p, float a, float b) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
+}
+
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+// Two neighbouring values of an fp32, bf16 or fp16 row as fp32.
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+__device__ __forceinline__ float2 load2(const __half* p) {
+  return __half22float2(*reinterpret_cast<const __half2*>(p));
+}
+
+// x rounded to the input type T (to nearest even) and back to fp32: the
+// value a 16-bit input's P takes before P V; fp32 keeps x.
+template <typename T>
+__device__ __forceinline__ float round_as(float x) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  } else if constexpr (std::is_same<T, __half>::value) {
+    return __half2float(__float2half_rn(x));
+  } else {
+    return x;
+  }
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {

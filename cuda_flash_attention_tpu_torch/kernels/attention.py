@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from cuda_flash_attention_tpu_torch.kernels.common import (
+    INPUT_DTYPES,
     MIN_BLOCK,
     TILE_DTYPES,
     BlockSizes,
@@ -75,8 +76,6 @@ def _use_fused_bwd(q, k, bk_dkv: int, tile_dtype=None, window=None,
     return dq_part_bytes <= _FUSED_BWD_MAX_DQPART_BYTES
 
 
-_IN_DTYPES = (torch.float32, torch.bfloat16)
-
 
 def _validate_shapes(q, k, v):
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
@@ -99,9 +98,9 @@ def _validate_shapes(q, k, v):
 
 
 def _validate_dtypes(q, k, v, tile_dtype):
-    if q.dtype not in _IN_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in INPUT_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise NotImplementedError(
-            f"q/k/v must share one dtype of {_IN_DTYPES}; got {q.dtype}, "
+            f"q/k/v must share one dtype of {INPUT_DTYPES}; got {q.dtype}, "
             f"{k.dtype}, {v.dtype}"
         )
     if tile_dtype not in TILE_DTYPES:

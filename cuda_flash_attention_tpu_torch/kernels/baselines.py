@@ -8,10 +8,16 @@ The CUDA kernels are csrc/baselines.cu; its source note says what bounds them
 on the H100 and why their schedules stay as they are.  Both take head dims
 32, 64, 128 and 256 (D 32 and 256 each from a library of their own,
 common.kernel_library); a launch at D 32 or 256 also counts under
-`fa1_d32`, `naive_fa2_d256` and so on.  Both are forward-only,
-fp32-only and non-causal, like the JAX ones and the reference's (the
-registry refuses the rest).  On a CPU tensor a wrapper runs its plain
-version; on a CUDA tensor it launches its kernel or raises.
+`fa1_d32`, `naive_fa2_d256` and so on.  Both are forward-only and
+non-causal, like the JAX ones and the reference's (the registry refuses
+the rest).  They take fp32, bf16 and fp16 inputs as the JAX kernels take
+any floating input: S in fp32 from the inputs' values, P rounded to the
+input type before P V (JAX's `p.astype(v_ref.dtype)`), O in q's type (FA1
+re-rounds its running O to it at every KV tile, as the JAX kernel's
+revisited output block does); fp16 from the library `baselines_fp16in`.
+A 16-bit launch also counts under `fa1_bf16in`, `naive_fa2_fp16in` and so
+on.  On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
+launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -24,8 +30,10 @@ from cuda_flash_attention_tpu_torch.kernels import _build, launches
 from cuda_flash_attention_tpu_torch.kernels.common import (
     DEFAULT_MASK_VALUE,
     FORWARD_HEAD_DIMS,
+    INPUT_DTYPES,
     MIN_BLOCK,
     head_dim_error,
+    in_type,
     kernel_library,
     pad_to_block,
 )
@@ -39,11 +47,17 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 
-def _lib(head_dim: int = 64) -> ctypes.CDLL:
-    lib = _build.load(kernel_library("baselines", head_dim))
+# The entry points (csrc/baselines.cu): pointers, sizes, sm_scale, the
+# input type, the stream.
+ARGTYPES = {"cfa_fa1_forward": [_P] * 6 + [_I] * 5 + [_F, _I, _P],
+            "cfa_naive_fa2_forward": [_P] * 4 + [_I] * 5 + [_F, _I, _P]}
+
+
+def _lib(head_dim: int = 64, in_dtype=None) -> ctypes.CDLL:
+    lib = _build.load(kernel_library("baselines", head_dim, in_dtype))
     if lib.cfa_fa1_forward.argtypes is None:
-        lib.cfa_fa1_forward.argtypes = [_P] * 6 + [_I] * 5 + [_F, _P]
-        lib.cfa_naive_fa2_forward.argtypes = [_P] * 4 + [_I] * 5 + [_F, _P]
+        for name, argtypes in ARGTYPES.items():
+            getattr(lib, name).argtypes = argtypes
         lib.cfa_fa1_forward.restype = _I
         lib.cfa_naive_fa2_forward.restype = _I
     return lib
@@ -51,8 +65,9 @@ def _lib(head_dim: int = 64) -> ctypes.CDLL:
 
 def _check(name, q, k, v):
     """What both kernels take; raises on anything else."""
-    if q.dtype != torch.float32:
-        raise NotImplementedError(f"{name} kernel: fp32 only; got {q.dtype}")
+    if q.dtype not in INPUT_DTYPES:
+        raise NotImplementedError(
+            f"{name} kernel: fp32, bf16 or fp16 inputs; got {q.dtype}")
     if q.shape[3] not in FORWARD_HEAD_DIMS:
         raise head_dim_error(name, q.shape[3])
     if k.shape[1] != q.shape[1] or q.shape[0] * q.shape[1] > 65535:
@@ -68,6 +83,11 @@ def _check(name, q, k, v):
                              "(cp.async copies 16 bytes at a time)")
 
 
+def _tag(dtype: torch.dtype):
+    """The launch-count tag of a 16-bit input ("bf16", "fp16"), else None."""
+    return {torch.bfloat16: "bf16", torch.float16: "fp16"}.get(dtype)
+
+
 def fa1_aligned(q, k, v, *, sm_scale: float, kv_len: int):
     """B9: FA1 over q [B, H, Sq, D] and k/v [B, H, Skv, D]; keys at or past
     kv_len are masked.  Returns O like q (the running m and l are kernel
@@ -81,13 +101,13 @@ def fa1_aligned(q, k, v, *, sm_scale: float, kv_len: int):
     o = torch.empty_like(q)
     m = torch.empty((b, h, sq), device=q.device, dtype=torch.float32)
     l = torch.empty_like(m)
-    lib = _lib(d)
+    lib = _lib(d, q.dtype)
     err = lib.cfa_fa1_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), m.data_ptr(),
         l.data_ptr(), b * h, sq, k.shape[2], d, kv_len, sm_scale,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        in_type(q.dtype), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, "cfa_baselines_error_string", err, "fa1")
-    launches.count("fa1", head_dim=d)
+    launches.count("fa1", head_dim=d, inputs=_tag(q.dtype))
     return o
 
 
@@ -100,13 +120,13 @@ def naive_fa2_aligned(q, k, v, *, sm_scale: float, kv_len: int):
     _check("naive_fa2", q, k, v)
     b, h, sq, d = q.shape
     o = torch.empty_like(q)
-    lib = _lib(d)
+    lib = _lib(d, q.dtype)
     err = lib.cfa_naive_fa2_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b * h, sq,
-        k.shape[2], d, kv_len, sm_scale,
+        k.shape[2], d, kv_len, sm_scale, in_type(q.dtype),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, "cfa_baselines_error_string", err, "naive_fa2")
-    launches.count("naive_fa2", head_dim=d)
+    launches.count("naive_fa2", head_dim=d, inputs=_tag(q.dtype))
     return o
 
 
@@ -122,35 +142,44 @@ def _tiles(q, k, v, sm_scale, kv_len):
         yield s, vf[:, :, k0:k0 + KV_TILE]
 
 
-def _update(s, v, m_prev, l_prev):
+def _update(s, v, m_prev, l_prev, p_dtype):
     """One tile of the running softmax (baselines.py:84-101): the new max
-    and sum, and the scales of the old output and of P V."""
+    and sum, and the scales of the old output and of P V, P rounded to
+    `p_dtype` (the input type) before the product."""
     m_new = torch.maximum(m_prev, s.amax(dim=-1, keepdim=True))
     alpha = torch.exp(m_prev - m_new)
     p = torch.exp(s - m_new)
     l_new = alpha * l_prev + p.sum(dim=-1, keepdim=True)
     inv = torch.where(l_new == 0.0, 1.0, 1.0 / l_new)
-    return m_new, l_new, l_prev * alpha * inv, inv, p @ v
+    return m_new, l_new, l_prev * alpha * inv, inv, p.to(p_dtype).float() @ v
 
 
-def fa1_plain(q, k, v, *, sm_scale: float, kv_len: int):
-    """B9's function: the FA1 update per KV tile, O renormalised and
-    re-rounded to fp32 at every tile (baselines.py:84-104)."""
+def _running(q, k, v, sm_scale, kv_len, o_dtype):
+    """The running output over the KV tiles, rounded to `o_dtype` after
+    every tile (fp32: not rounded)."""
     rows = q.shape[:3] + (1,)
     m = torch.full(rows, float("-inf"), device=q.device)
     l = torch.zeros(rows, device=q.device)
     o = torch.zeros(q.shape, device=q.device)
     for s, vt in _tiles(q, k, v, sm_scale, kv_len):
-        m, l, scale_old, scale_pv, pv = _update(s, vt, m, l)
-        o = scale_old * o + scale_pv * pv
+        m, l, scale_old, scale_pv, pv = _update(s, vt, m, l, q.dtype)
+        o = (scale_old * o + scale_pv * pv).to(o_dtype).float()
     return o.to(q.dtype)
+
+
+def fa1_plain(q, k, v, *, sm_scale: float, kv_len: int):
+    """B9's function: the FA1 update per KV tile, O renormalised and
+    re-rounded to q's type at every tile (baselines.py:84-104: the JAX
+    kernel's running O is its output block, in q's type)."""
+    return _running(q, k, v, sm_scale, kv_len, q.dtype)
 
 
 def naive_fa2_plain(q, k, v, *, sm_scale: float, kv_len: int):
     """B10's function: FA2 with the output renormalised eagerly at every
-    KV tile (baselines.py:202-222).  Written per tile, its arithmetic is
-    FA1's; the two kernels differ in schedule, not in values."""
-    return fa1_plain(q, k, v, sm_scale=sm_scale, kv_len=kv_len)
+    KV tile (baselines.py:202-222) in fp32 scratch, rounded to q's type
+    once at the end.  Per tile its arithmetic is FA1's; on fp32 inputs the
+    two give the same values."""
+    return _running(q, k, v, sm_scale, kv_len, torch.float32)
 
 
 def _pad_and_call(aligned, q, k, v, sm_scale):
@@ -170,5 +199,5 @@ def fa1_attention(q, k, v, *, sm_scale: float | None = None):
 
 
 def naive_fa2_attention(q, k, v, *, sm_scale: float | None = None):
-    """Untuned FA2 baseline (forward only, fp32 only), q/k/v [B, H, S, D]."""
+    """Untuned FA2 baseline (forward only), q/k/v [B, H, S, D]."""
     return _pad_and_call(naive_fa2_aligned, q, k, v, sm_scale)

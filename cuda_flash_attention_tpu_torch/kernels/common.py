@@ -23,6 +23,17 @@ DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 # below 2^-14 is subnormal, where the JAX package's fp16 emulation (a
 # 10-bit mantissa in fp32) does neither; in fp16's normal range they agree.
 TILE_DTYPES = (None, torch.bfloat16, torch.float16)
+# Input types of the attention kernels and their code in the C entry
+# points' in_type argument (0 and 1 read as the in_bf16 flag they replace).
+# O and the gradients come out in q's type; lse and the statistics stay
+# fp32.  fp16 inputs run from a library of their own (kernel_library).
+INPUT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+_IN_TYPE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def in_type(dtype: torch.dtype) -> int:
+    """The C entry points' in_type code of an input dtype."""
+    return _IN_TYPE[dtype]
 # Head dims the CUDA kernels take; the plain versions take any.  Every
 # kernel (B1-B10) takes all four of the registry's (FORWARD_HEAD_DIMS).
 # KERNEL_HEAD_DIMS are those built into each source's own library; D 32 and
@@ -38,14 +49,18 @@ def head_dim_error(name: str, head_dim: int):
         f"{name} kernel: head_dim {head_dim} not in {FORWARD_HEAD_DIMS}")
 
 
-def kernel_library(name: str, head_dim: int) -> str:
+def kernel_library(name: str, head_dim: int, in_dtype=None) -> str:
     """The library of csrc/<name>.cu that holds head dim `head_dim`: D 64
     and 128 in <name> itself, D 32 and 256 each in <name>_d32 / <name>_d256
     (csrc/<name>_d<D>.cu, the same source built at that width alone, so
-    that nvcc compiles the widths in parallel).  No library holds a head
-    dim outside FORWARD_HEAD_DIMS: that raises head_dim_error."""
+    that nvcc compiles the widths in parallel).  fp16 inputs (`in_dtype`)
+    at every head dim in <name>_fp16in (csrc/<name>_fp16in.cu).  No library
+    holds a head dim outside FORWARD_HEAD_DIMS: that raises
+    head_dim_error."""
     if head_dim not in FORWARD_HEAD_DIMS:
         raise head_dim_error(name, head_dim)
+    if in_dtype == torch.float16:
+        return f"{name}_fp16in"
     return name if head_dim in KERNEL_HEAD_DIMS else f"{name}_d{head_dim}"
 
 

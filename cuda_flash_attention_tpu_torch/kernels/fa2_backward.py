@@ -36,7 +36,10 @@ writing dQ.  fp32 tiles run on the FMA units with 64-row Q and KV tiles
 128 and 256 (FORWARD_HEAD_DIMS; D 32 and 256 in libraries of their own,
 common.kernel_library); at D 256 B2's and B4's blocks own 64 KV rows and
 B3 walks 32-row KV tiles with bf16 or fp16 tiles, and a launch there or at
-D 32 also counts under `<name>_d256` or `<name>_d32`.
+D 32 also counts under `<name>_d256` or `<name>_d32`.  Every kernel takes
+fp32, bf16 and fp16 inputs (fp16 from the library `fa2_backward_fp16in`; a
+launch on them also counts under `<name>_fp16in`); the gradients come out
+in the inputs' type.
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ import torch
 from cuda_flash_attention_tpu_torch.kernels import _build, launches
 from cuda_flash_attention_tpu_torch.kernels.common import (
     FORWARD_HEAD_DIMS,
+    INPUT_DTYPES,
     LN2,
     LOG2E,
     NO_WINDOW,
@@ -55,12 +59,13 @@ from cuda_flash_attention_tpu_torch.kernels.common import (
     build_element_mask,
     cdiv,
     head_dim_error,
+    in_type,
     kernel_library,
     tile_code,
     window_q_tiles,
     window_tiles,
 )
-from cuda_flash_attention_tpu_torch.kernels.fa2_forward import seg_args
+from cuda_flash_attention_tpu_torch.kernels.fa2_forward import fp16_tag, seg_args
 
 _SOURCE = "fa2_backward"
 # Rows of the KV tile that owns one dQ slice in B2, by tile code (the CUDA
@@ -97,12 +102,13 @@ ARGTYPES = {
 }
 
 
-def _lib(head_dim: int) -> ctypes.CDLL:
-    """The library of csrc/fa2_backward.cu that holds `head_dim`."""
-    lib = _build.load(kernel_library(_SOURCE, head_dim))
+def _lib(head_dim: int, in_dtype=None) -> ctypes.CDLL:
+    """The library of csrc/fa2_backward.cu that holds `head_dim` and
+    `in_dtype`."""
+    lib = _build.load(kernel_library(_SOURCE, head_dim, in_dtype))
     if lib.cfa_fa2_backward_fused.argtypes is None:
-        for name, argtypes in ARGTYPES.items():
-            getattr(lib, name).argtypes = argtypes
+        for fn, argtypes in ARGTYPES.items():
+            getattr(lib, fn).argtypes = argtypes
         lib.cfa_fa2_backward_kv_tile.restype = _I
         for code in _FUSED_KV_TILE:
             if lib.cfa_fa2_backward_kv_tile(code, head_dim) != _kv_rows(code, head_dim):
@@ -206,20 +212,20 @@ def dq_kv_tiles(sq: int, kv_len: int, causal: bool, head_dim: int,
     return tiles
 
 
-def _workspace(lib, q, k, in_bf16: int, tiles: int) -> torch.Tensor:
+def _workspace(lib, q, k, in_code: int, tiles: int) -> torch.Tensor:
     """The prologue's workspace for B2, B3 or B4."""
     b, hq, sq, d = q.shape
     n = lib.cfa_fa2_backward_workspace(b, hq, k.shape[1], sq, k.shape[2], d,
-                                       in_bf16, tiles)
+                                       in_code, tiles)
     return torch.empty(n, device=q.device, dtype=torch.uint8)
 
 
 def _check(name, q, k, v, tile_dtype, same, stats):
     """What every kernel takes; raises on anything else.  `same` must share
     q's dtype; `stats` are fp32."""
-    if q.dtype not in (torch.float32, torch.bfloat16) or tile_dtype not in TILE_DTYPES:
+    if q.dtype not in INPUT_DTYPES or tile_dtype not in TILE_DTYPES:
         raise NotImplementedError(
-            f"{name} kernel: inputs fp32/bf16 and tiles None/bf16/fp16; got "
+            f"{name} kernel: inputs fp32/bf16/fp16 and tiles None/bf16/fp16; got "
             f"{q.dtype} with tile_dtype {tile_dtype}")
     d = q.shape[3]
     if d not in FORWARD_HEAD_DIMS:
@@ -247,7 +253,7 @@ def _common_args(q, k, kv_len, sm_scale, causal, tile_dtype, window, sinks,
     held, q_ids, kv_ids = seg_args(q_seg, kv_seg, b, sq, skv)
     return ((b, hq, hkv, sq, skv, d, kv_len, sm_scale * LOG2E),
             (int(causal), NO_WINDOW if window is None else int(window),
-             int(sinks), q_ids, kv_ids, int(q.dtype == torch.bfloat16),
+             int(sinks), q_ids, kv_ids, in_type(q.dtype),
              tile_code(q.dtype, tile_dtype),
              torch.cuda.current_stream(q.device).cuda_stream), held)
 
@@ -284,11 +290,11 @@ def fa2_backward_fused_aligned(q, k, v, o, do, lse, *, causal: bool,
     dq = torch.empty_like(q)
     ints, tail, held = _common_args(q, k, kv_len, sm_scale, causal, tile_dtype,
                                     **mask_kw)
-    causal_i, window_i, sinks_i, _, _, in_bf16, tiles, stream = tail
-    lib = _lib(d)
+    causal_i, window_i, sinks_i, _, _, in_code, tiles, stream = tail
+    lib = _lib(d, q.dtype)
     # Q_s, D_i and lse * log2(e) (and dO, K, V in the tile type where the
     # inputs are not in it), formed once by the kernel's prologue.
-    workspace = _workspace(lib, q, k, in_bf16, tiles)
+    workspace = _workspace(lib, q, k, in_code, tiles)
     err = lib.cfa_fa2_backward_fused(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), dk.data_ptr(), dv.data_ptr(), dq_part.data_ptr(),
@@ -298,9 +304,9 @@ def fa2_backward_fused_aligned(q, k, v, o, do, lse, *, causal: bool,
     # the unscaled sum takes sm_scale and q's dtype, as the JAX wrapper does.
     err = lib.cfa_fa2_backward_dq_reduce(
         dq_part.data_ptr(), dq.data_ptr(), b, hq, sq, skv, d, kv_len, causal_i,
-        window_i, sinks_i, sm_scale, in_bf16, tiles, stream)
+        window_i, sinks_i, sm_scale, in_code, tiles, stream)
     _build.check(lib, "cfa_fa2_backward_error_string", err, "fa2_backward_fused")
-    launches.count("fa2_backward_fused", window, held, head_dim=d)
+    launches.count("fa2_backward_fused", window, held, d, fp16_tag(q.dtype))
     return dq, dk, dv
 
 
@@ -322,14 +328,14 @@ def fa2_backward_dq_aligned(q, k, v, do, lse, di, *, causal: bool,
     dq = torch.empty_like(q)
     ints, tail, held = _common_args(q, k, kv_len, sm_scale, causal, tile_dtype,
                                     **mask_kw)
-    lib = _lib(q.shape[3])
+    lib = _lib(q.shape[3], q.dtype)
     workspace = _workspace(lib, q, k, tail[5], tail[6])
     err = lib.cfa_fa2_backward_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), di.data_ptr(), dq.data_ptr(), *ints, sm_scale,
         *tail[:7], workspace.data_ptr(), tail[7])
     _build.check(lib, "cfa_fa2_backward_error_string", err, "fa2_backward_dq")
-    launches.count("fa2_backward_dq", window, held, head_dim=q.shape[3])
+    launches.count("fa2_backward_dq", window, held, q.shape[3], fp16_tag(q.dtype))
     return dq
 
 
@@ -353,14 +359,14 @@ def fa2_backward_dkv_aligned(q, k, v, do, lse, di, *, causal: bool,
     dv = torch.empty_like(v)
     ints, tail, held = _common_args(q, k, kv_len, sm_scale, causal, tile_dtype,
                                     **mask_kw)
-    lib = _lib(q.shape[3])
+    lib = _lib(q.shape[3], q.dtype)
     workspace = _workspace(lib, q, k, tail[5], tail[6])
     err = lib.cfa_fa2_backward_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(), *ints,
         *tail[:7], workspace.data_ptr(), tail[7])
     _build.check(lib, "cfa_fa2_backward_error_string", err, "fa2_backward_dkv")
-    launches.count("fa2_backward_dkv", window, held, head_dim=q.shape[3])
+    launches.count("fa2_backward_dkv", window, held, q.shape[3], fp16_tag(q.dtype))
     return dk, dv
 
 

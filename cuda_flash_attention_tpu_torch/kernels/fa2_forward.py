@@ -19,7 +19,9 @@ segmented one under `<name>_segments`.  A row that keeps no key gives O =
 tiles `lse_tiles`, by default those of BlockSizes.default).  Both take head
 dims 32, 64, 128 and 256 (D 32 and 256 each from a library of their own,
 common.kernel_library); a launch there also counts under `<name>_d32` or
-`<name>_d256`.
+`<name>_d256`.  Both take fp32, bf16 and fp16 inputs (fp16 from a library
+of their own, `<name>_fp16in`; such a launch also counts under
+`<name>_fp16in`); O comes out in q's type, lse in fp32.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from cuda_flash_attention_tpu_torch.kernels import _build, launches
 from cuda_flash_attention_tpu_torch.kernels.common import (
     DEFAULT_MASK_VALUE,
     FORWARD_HEAD_DIMS,
+    INPUT_DTYPES,
     LN2,
     LOG2E,
     MIN_BLOCK,
@@ -40,6 +43,7 @@ from cuda_flash_attention_tpu_torch.kernels.common import (
     build_element_mask,
     dead_row_lse,
     head_dim_error,
+    in_type,
     kernel_library,
     reference_tiles,
     round_up,
@@ -51,8 +55,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 
-def _lib(head_dim: int = 64) -> ctypes.CDLL:
-    lib = _build.load(kernel_library("fa2_forward", head_dim))
+def _lib(head_dim: int = 64, in_dtype=None) -> ctypes.CDLL:
+    lib = _build.load(kernel_library("fa2_forward", head_dim, in_dtype))
     fn = lib.cfa_fa2_forward
     if fn.argtypes is None:
         fn.argtypes = [_P] * 7 + [_I] * 7 + [_F] + [_I] * 7 + [_P]
@@ -60,13 +64,18 @@ def _lib(head_dim: int = 64) -> ctypes.CDLL:
     return lib
 
 
-def _small_lib(head_dim: int = 64) -> ctypes.CDLL:
-    lib = _build.load(kernel_library("fa2_forward_small", head_dim))
+def _small_lib(head_dim: int = 64, in_dtype=None) -> ctypes.CDLL:
+    lib = _build.load(kernel_library("fa2_forward_small", head_dim, in_dtype))
     fn = lib.cfa_fa2_forward_small
     if fn.argtypes is None:
         fn.argtypes = [_P] * 7 + [_I] * 5 + [_F] + [_I] * 5 + [_P]
         fn.restype = _I
     return lib
+
+
+def fp16_tag(dtype: torch.dtype):
+    """The launch-count tag of an fp16-input launch ("fp16"), else None."""
+    return "fp16" if dtype == torch.float16 else None
 
 
 def seg_args(q_seg, kv_seg, b: int, sq: int, skv: int):
@@ -88,9 +97,9 @@ def seg_args(q_seg, kv_seg, b: int, sq: int, skv: int):
 def _check_inputs(name, q, k, v, tile_dtype):
     """What both kernels take (every head dim of FORWARD_HEAD_DIMS);
     raises on anything else."""
-    if q.dtype not in (torch.float32, torch.bfloat16) or tile_dtype not in TILE_DTYPES:
+    if q.dtype not in INPUT_DTYPES or tile_dtype not in TILE_DTYPES:
         raise NotImplementedError(
-            f"{name} kernel: inputs fp32/bf16 and tiles None/bf16/fp16; got "
+            f"{name} kernel: inputs fp32/bf16/fp16 and tiles None/bf16/fp16; got "
             f"{q.dtype} with tile_dtype {tile_dtype}"
         )
     if q.shape[3] not in FORWARD_HEAD_DIMS:
@@ -136,16 +145,16 @@ def fa2_forward_aligned(q, k, v, *, causal: bool, sm_scale: float,
     o = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), device=q.device, dtype=torch.float32)
     held, q_ids, kv_ids = seg_args(q_seg, kv_seg, b, sq, skv)
-    lib = _lib(d)
+    lib = _lib(d, q.dtype)
     err = lib.cfa_fa2_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         q_ids, kv_ids, b, hq, hkv, sq, skv, d, kv_len, sm_scale * LOG2E,
         int(causal), NO_WINDOW if window is None else int(window), int(sinks),
-        *lse_tiles, int(q.dtype == torch.bfloat16), tile_code(q.dtype, tile_dtype),
+        *lse_tiles, in_type(q.dtype), tile_code(q.dtype, tile_dtype),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, "cfa_fa2_forward_error_string", err, "fa2_forward")
-    launches.count("fa2_forward", window, held, d)
+    launches.count("fa2_forward", window, held, d, fp16_tag(q.dtype))
     return o, lse
 
 
@@ -175,17 +184,17 @@ def fa2_forward_small_aligned(q, k, v, *, causal: bool, sm_scale: float,
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s_pad), device=q.device, dtype=torch.float32)
     held, q_ids, kv_ids = seg_args(q_seg, kv_seg, b, s_pad, s_pad)
-    lib = _small_lib(d)
+    lib = _small_lib(d, q.dtype)
     err = lib.cfa_fa2_forward_small(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         q_ids, kv_ids, b * h, h, s_pad, d, kv_len, sm_scale * LOG2E, int(causal),
         NO_WINDOW if window is None else int(window), int(sinks),
-        int(q.dtype == torch.bfloat16), tile_code(q.dtype, tile_dtype),
+        in_type(q.dtype), tile_code(q.dtype, tile_dtype),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, "cfa_fa2_forward_small_error_string", err,
                  "fa2_forward_small")
-    launches.count("fa2_forward_small", window, held, d)
+    launches.count("fa2_forward_small", window, held, d, fp16_tag(q.dtype))
     return o, lse
 
 

@@ -20,7 +20,10 @@ one under `fa2_forward_quant_segments`.  A row that keeps no key gives O =
 single_tile_body=False, on the tiles `lse_tiles`: the call's block_q and
 block_k fitted to the padded lengths).  Head dims 32, 64, 128 and 256 (D 32
 and 256 each from a library of their own, common.kernel_library; a launch
-there also counts under `fa2_forward_quant_d32` or `_d256`).
+there also counts under `fa2_forward_quant_d32` or `_d256`).  q may be
+fp32, bf16 or fp16 (fp16 from the library `fa2_forward_quant_fp16in`; such
+a launch also counts under `fa2_forward_quant_fp16in`); O comes out in q's
+type.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from cuda_flash_attention_tpu_torch.kernels.attention import (
 from cuda_flash_attention_tpu_torch.kernels.common import (
     DEFAULT_MASK_VALUE,
     FORWARD_HEAD_DIMS,
+    INPUT_DTYPES,
     LN2,
     LOG2E,
     MIN_BLOCK,
@@ -45,13 +49,14 @@ from cuda_flash_attention_tpu_torch.kernels.common import (
     dead_row_lse,
     fit_block,
     head_dim_error,
+    in_type,
     is_packed_int4,
     kernel_library,
     kv_storage_cast,
     pack_segments,
     pad_to_block,
 )
-from cuda_flash_attention_tpu_torch.kernels.fa2_forward import seg_args
+from cuda_flash_attention_tpu_torch.kernels.fa2_forward import fp16_tag, seg_args
 from cuda_flash_attention_tpu_torch.quant.qtensor import (
     QuantizedTensor,
     quantize_kv,
@@ -75,8 +80,8 @@ _STORAGE = {torch.int8: 0, torch.float8_e4m3fn: 1, torch.float8_e5m2: 2}
 _PLAIN_ROWS = 1024
 
 
-def _lib(head_dim: int = 64) -> ctypes.CDLL:
-    lib = _build.load(kernel_library("fa2_forward_quant", head_dim))
+def _lib(head_dim: int = 64, q_dtype=None) -> ctypes.CDLL:
+    lib = _build.load(kernel_library("fa2_forward_quant", head_dim, q_dtype))
     fn = lib.cfa_fa2_forward_quant
     if fn.argtypes is None:
         fn.argtypes = ARGTYPES
@@ -126,10 +131,11 @@ def fa2_forward_quant_aligned(q, k_vals, k_scales, v_vals, v_scales, *,
             window=window, q_seg=q_seg, kv_seg=kv_seg, lse_tiles=lse_tiles)
     if q.device.type != "cuda":
         raise ValueError(f"fa2_forward_quant: unsupported device {q.device}")
-    out = quant_launch(_lib(q.shape[3]), q, k_vals, k_scales, v_vals, v_scales, causal=causal,
-                       sm_scale=sm_scale, kv_len=kv_len, compute_dtype=compute_dtype,
-                       window=window, q_seg=q_seg, kv_seg=kv_seg, lse_tiles=lse_tiles)
-    launches.count("fa2_forward_quant", window, q_seg, q.shape[3])
+    out = quant_launch(_lib(q.shape[3], q.dtype), q, k_vals, k_scales, v_vals,
+                       v_scales, causal=causal, sm_scale=sm_scale, kv_len=kv_len,
+                       compute_dtype=compute_dtype, window=window, q_seg=q_seg,
+                       kv_seg=kv_seg, lse_tiles=lse_tiles)
+    launches.count("fa2_forward_quant", window, q_seg, q.shape[3], fp16_tag(q.dtype))
     return out
 
 
@@ -144,10 +150,10 @@ def quant_args(q, k_vals, k_scales, v_vals, v_scales, *, causal: bool,
     storage = _storage_code(k_vals, d)
     if d not in FORWARD_HEAD_DIMS:
         raise head_dim_error("fa2_forward_quant", d)
-    if (q.dtype not in (torch.float32, torch.bfloat16)
+    if (q.dtype not in INPUT_DTYPES
             or v_vals.dtype != k_vals.dtype or v_vals.shape != k_vals.shape):
         raise NotImplementedError(
-            f"fa2_forward_quant kernel: q fp32/bf16, K and V of one type and "
+            f"fa2_forward_quant kernel: q fp32/bf16/fp16, K and V of one type and "
             f"shape; got q {q.dtype} {tuple(q.shape)}, K {k_vals.dtype} "
             f"{tuple(k_vals.shape)}, V {v_vals.dtype} {tuple(v_vals.shape)}")
     if b * hq > 65535:
@@ -171,7 +177,7 @@ def quant_args(q, k_vals, k_scales, v_vals, v_scales, *, causal: bool,
         hq=hq, hkv=hkv, sq=sq, skv=skv, head_dim=d, kv_len=kv_len,
         qscale=sm_scale * LOG2E, causal=int(causal),
         window=NO_WINDOW if window is None else int(window), dead_bq=dead_bq,
-        dead_bk=dead_bk, q_bf16=int(q.dtype == torch.bfloat16), storage=storage,
+        dead_bk=dead_bk, q_type=in_type(q.dtype), storage=storage,
         bf16_compute=int(compute_dtype == torch.bfloat16),
         stream=torch.cuda.current_stream(q.device).cuda_stream)
     return values, o, lse, held

@@ -9,7 +9,8 @@
   ids under `_segments` (B1-B4, B7, B8).  A launch at head dim 32 or 256
   (B1-B10) also counts under `<name>_d32` or `<name>_d256`, and a
   windowed one there under `<name>_d32_window` or `<name>_d256_window`
-  too.
+  too.  A launch on fp16 inputs (B1-B8; fp16 q in B7) also counts under
+  `<name>_fp16in`, and B9's and B10's on bf16 inputs under `<name>_bf16in`.
 
 A wrapper adds one where it launches its kernel and nowhere else.  A
 reader sets counts to 0 (`reset`) and reads `LAUNCHES`; a missing name
@@ -23,10 +24,14 @@ import collections
 LAUNCHES: collections.Counter[str] = collections.Counter()
 
 
-def count(name: str, window=None, segments=None, head_dim=None) -> None:
+def count(name: str, window=None, segments=None, head_dim=None,
+          inputs: str | None = None) -> None:
     """One launch of kernel `name`, with a sliding window unless `window`
-    is None, with segment ids unless `segments` is None, at `head_dim`."""
+    is None, with segment ids unless `segments` is None, at `head_dim`, on
+    `inputs` ("fp16", "bf16") where the caller counts its input type."""
     LAUNCHES[name] += 1
+    if inputs is not None:
+        LAUNCHES[f"{name}_{inputs}in"] += 1
     if window is not None:
         LAUNCHES[name + "_window"] += 1
     if segments is not None:

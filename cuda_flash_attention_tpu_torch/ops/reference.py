@@ -10,7 +10,9 @@ duration of each call), so on the card it is as exact as on the CPU:
   * `vanilla_attention_chunked`: the same, Q-chunked at 512 rows, each chunk
     under torch.utils.checkpoint so that its gradient never holds S x S;
   * `reference_attention_grads`: (dQ, dK, dV) by torch.autograd through
-    either, with dO = 1 by default;
+    either, with dO = 1 by default (the row max detached: at S 32768 on an
+    H100 its gradient path put 1.6e-3 of fp32 error into dK against an
+    fp64 reference, scripts/longctx_grads.py of this package);
   * `sdpa_attention(_grads)`: the independent second oracle,
     torch.nn.functional.scaled_dot_product_attention under its math backend.
     It is an oracle only: no attention path of the port calls it.
@@ -62,7 +64,11 @@ def _attention_core(q, k, v, *, causal, sm_scale, compute_dtype,
     if q_segment_ids is not None:
         seg = q_segment_ids[:, None, :, None] == kv_segment_ids[:, None, None, :]
         s = torch.where(seg, s, float("-inf"))
-    m = s.amax(dim=-1, keepdim=True)
+    # The row max only shifts the exponent: O and lse do not depend on it,
+    # so it carries no gradient (detached).  Through autograd it would
+    # route a sum that is zero only in exact arithmetic to each row's
+    # argmax key, an fp32 error in dK that grows with the row's length.
+    m = s.amax(dim=-1, keepdim=True).detach()
     m_safe = torch.where(torch.isfinite(m), m, 0.0)
     p = torch.exp(s - m_safe)
     l = p.sum(dim=-1, keepdim=True)
@@ -118,7 +124,7 @@ def vanilla_attention_chunked(q, k, v, *, causal: bool = False,
             row = torch.arange(row0, row0 + qi.shape[2], device=s.device)[:, None]
             col = torch.arange(kv_len, device=s.device)[None, :]
             s = torch.where(col <= row, s, float("-inf"))
-        m = s.amax(dim=-1, keepdim=True)
+        m = s.amax(dim=-1, keepdim=True).detach()  # no gradient: _attention_core
         m_safe = torch.where(torch.isfinite(m), m, 0.0)
         p = torch.exp(s - m_safe)
         l = p.sum(dim=-1, keepdim=True)

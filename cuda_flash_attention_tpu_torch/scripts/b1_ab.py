@@ -4,8 +4,10 @@ timed in turns on one card.
     python -m cuda_flash_attention_tpu_torch.scripts.b1_ab --parent PATH
 
 PATH is an earlier fa2_forward.cu (cfa_fa2_forward); its parameter list is
-read from the source (before windows none; then window and sinks; now
-segment ids and the dead rows' tiles too), and the call passes no window,
+read from the source (before windows none; then window and sinks; then
+segment ids and the dead rows' tiles too; the input flag in_bf16 became
+the input type code in_type, whose 0 and 1 it reads alike), and the call
+passes no window,
 sinks or ids; K and V go in the input type, or in the tile type to a
 source that loads them by TMA (the wgmma design on), as the current
 wrapper casts them (e.g. `git show <commit>:cuda_flash_attention_tpu_torch/
@@ -46,6 +48,7 @@ from cuda_flash_attention_tpu_torch.kernels import fa2_forward as fa2
 from cuda_flash_attention_tpu_torch.kernels.common import (
     LOG2E,
     NO_WINDOW,
+    in_type,
     reference_tiles,
     tile_code,
 )
@@ -230,8 +233,8 @@ def parent_forward(lib, q, k, v, *, causal, sm_scale, kv_len, tile_dtype):
         lse=lse.data_ptr(), q_seg=None, kv_seg=None, batch=b, hq=hq,
         hkv=k.shape[1], sq=sq, skv=k.shape[2], head_dim=d, kv_len=kv_len,
         qscale=sm_scale * LOG2E, causal=int(causal), window=NO_WINDOW, sinks=0,
-        dead_bq=dead_bq, dead_bk=dead_bk, in_bf16=int(q.dtype == torch.bfloat16),
-        tiles=tile_code(q.dtype, tile_dtype),
+        dead_bq=dead_bq, dead_bk=dead_bk, in_type=in_type(q.dtype),
+        in_bf16=int(q.dtype == torch.bfloat16), tiles=tile_code(q.dtype, tile_dtype),
         stream=torch.cuda.current_stream(q.device).cuda_stream)
     err = lib.cfa_fa2_forward(*(values[n] for n in lib.b1_params))
     _build.check(lib, "cfa_fa2_forward_error_string", err, "parent fa2_forward")

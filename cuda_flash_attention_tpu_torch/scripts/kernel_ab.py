@@ -128,6 +128,7 @@ from cuda_flash_attention_tpu_torch.kernels import fa2_forward_quant as fq
 from cuda_flash_attention_tpu_torch.kernels.common import (
     LOG2E,
     NO_WINDOW,
+    in_type,
     build_element_mask,
     kv_storage_cast,
     seq_pad_quantum,
@@ -751,11 +752,12 @@ def build_parent(kernel: str, path: str):
             lib.cfa_fa2_backward_dkv.argtypes = [_P] * 8 + [_I] * 7 + [_F] + [_I] * 3 + [_P]
             lib.cfa_fa2_backward_dq.restype = _I
             lib.cfa_fa2_backward_dkv.restype = _I
-    else:
-        lib.cfa_fa1_forward.argtypes = [_P] * 6 + [_I] * 5 + [_F, _P]
-        lib.cfa_fa1_forward.restype = _I
-        lib.cfa_naive_fa2_forward.argtypes = [_P] * 4 + [_I] * 5 + [_F, _P]
-        lib.cfa_naive_fa2_forward.restype = _I
+    else:  # typed by the parameter lists in its source (with or without in_type)
+        for name in baselines.ARGTYPES:
+            params = b1_ab.entry_params(source_text(path), name)
+            getattr(lib, name).argtypes = [t for _, t in params]
+            getattr(lib, name).restype = _I
+        lib.takes_in_type = len(lib.cfa_fa1_forward.argtypes) == 14
     return lib
 
 
@@ -869,6 +871,13 @@ def current_b3(*args, **kw):
     return (bwd.fa2_backward_dq_aligned(*args, **kw),)
 
 
+def _baseline_tail(lib, q):
+    """The arguments after sm_scale: the input type where the parent's
+    entry points take one (fp32 before), then the stream."""
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    return (in_type(q.dtype), stream) if lib.takes_in_type else (stream,)
+
+
 def parent_b9(lib, q, k, v, *, sm_scale, kv_len):
     b, h, sq, d = q.shape
     o = torch.empty_like(q)
@@ -877,7 +886,7 @@ def parent_b9(lib, q, k, v, *, sm_scale, kv_len):
     err = lib.cfa_fa1_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), m.data_ptr(),
         l.data_ptr(), b * h, sq, k.shape[2], d, kv_len, sm_scale,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        *_baseline_tail(lib, q))
     _build.check(lib, "cfa_baselines_error_string", err, "parent fa1")
     return (o,)
 
@@ -887,8 +896,7 @@ def parent_b10(lib, q, k, v, *, sm_scale, kv_len):
     o = torch.empty_like(q)
     err = lib.cfa_naive_fa2_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b * h, sq,
-        k.shape[2], d, kv_len, sm_scale,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        k.shape[2], d, kv_len, sm_scale, *_baseline_tail(lib, q))
     _build.check(lib, "cfa_baselines_error_string", err, "parent naive_fa2")
     return (o,)
 
@@ -907,7 +915,8 @@ def parent_b8(lib, q, k, v, *, causal, sm_scale, kv_len, tile_dtype):
         lse=lse.data_ptr(), q_seg=None, kv_seg=None, n_slots=b * h, heads=h,
         s_pad=s_pad, head_dim=d, kv_len=kv_len, qscale=sm_scale * LOG2E,
         causal=int(causal), window=NO_WINDOW, sinks=0,
-        in_bf16=int(q.dtype == torch.bfloat16), tiles=tile_code(q.dtype, tile_dtype),
+        in_type=in_type(q.dtype), in_bf16=int(q.dtype == torch.bfloat16),
+        tiles=tile_code(q.dtype, tile_dtype),
         stream=torch.cuda.current_stream(q.device).cuda_stream)
     err = lib.cfa_fa2_forward_small(*(values[n] for n in lib.b8_params))
     _build.check(lib, "cfa_fa2_forward_small_error_string", err,
@@ -970,6 +979,7 @@ def parent_b7(lib, *x, **kw):
     parameters its source declares (before windows and segment ids: no
     q_seg, kv_seg, window or dead-row tiles); no window or ids."""
     values, o, lse, _held = fq.quant_args(*x, **kw)
+    values["q_bf16"] = int(x[0].dtype == torch.bfloat16)  # before q_type
     err = lib.cfa_fa2_forward_quant(*(values[n] for n in lib.b7_params))
     _build.check(lib, "cfa_fa2_forward_quant_error_string", err,
                  "parent fa2_forward_quant")

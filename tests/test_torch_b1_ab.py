@@ -68,8 +68,9 @@ def test_device_timers_refuse_a_machine_without_a_card(name):
 def test_parent_forward_passes_the_parents_own_parameters(monkeypatch, commit, extra):
     """b1_ab reads the parent's cfa_fa2_forward parameter list from its
     source (3cb91e6's without a window, 2e67868's with window and sinks,
-    the current one with segment ids and the dead rows' tiles) and passes
-    exactly those arguments."""
+    the current one with segment ids and the dead rows' tiles, and the
+    input type code in_type where the earlier ones take the in_bf16 flag)
+    and passes exactly those arguments."""
     import subprocess
     from pathlib import Path
 
@@ -85,5 +86,6 @@ def test_parent_forward_passes_the_parents_own_parameters(monkeypatch, commit, e
         pytest.skip("the parent commit is not in this checkout")
     names = [n for n, _ in b1_ab.entry_params(source, "cfa_fa2_forward")]
     base = ["q", "k", "v", "o", "lse", "batch", "hq", "hkv", "sq", "skv",
-            "head_dim", "kv_len", "qscale", "causal", "in_bf16", "tiles", "stream"]
+            "head_dim", "kv_len", "qscale", "causal",
+            "in_bf16" if commit else "in_type", "tiles", "stream"]
     assert sorted(names) == sorted(base + extra)

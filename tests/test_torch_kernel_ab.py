@@ -963,3 +963,53 @@ def test_b5_b6_wide_cases_are_chip_smokes_phase_28_shapes():
             assert kernel_ab.shape_of(wide, c) == kernel_ab.shape_of(base, c)
     assert {c["T"] for c in kernel_ab.B6_WIDE_CASES} == {5, 512}
     assert len(kernel_ab.B5_WIDE_CASES) == 12 and len(kernel_ab.B6_WIDE_CASES) == 16
+
+
+@pytest.mark.parametrize("name", ["cfa_fa1_forward", "cfa_naive_fa2_forward"])
+def test_baseline_argtypes_match_the_c_entry_points(name):
+    """B9's and B10's wrappers type their entry points as csrc/baselines.cu
+    declares them (the input type code before the stream)."""
+    from cuda_flash_attention_tpu_torch.kernels import baselines
+
+    assert [t.__name__ for t in baselines.ARGTYPES[name]] == _c_signature(
+        name, "baselines.cu")
+
+
+# 7d0d66c's baselines entry points (up to ab11413): fp32 only, no input type.
+_BASELINES_FP32 = (
+    "int cfa_fa1_forward(const void* q, const void* k, const void* v, void* o,"
+    " void* m, void* l, int bh, int sq, int skv, int head_dim, int kv_len,"
+    " float sm_scale, void* stream) {\n"
+    "int cfa_naive_fa2_forward(const void* q, const void* k, const void* v, void* o,"
+    " int bh, int sq, int skv, int head_dim, int kv_len, float sm_scale,"
+    " void* stream) {\n")
+
+
+@pytest.mark.parametrize("kernel", ["b9", "b10"])
+@pytest.mark.parametrize("source", ["fp32 only", "current"])
+def test_parent_baselines_call_as_their_argtypes_declare(monkeypatch, tmp_path, kernel,
+                                                         source):
+    """build_parent types a parent's B9 and B10 entry points by the
+    parameter lists in its source: an earlier one (fp32 only) takes no
+    input type and is called without one, the current one with q's."""
+    if source == "current":
+        path = Path(__file__).resolve().parents[1] / \
+            "cuda_flash_attention_tpu_torch/csrc/baselines.cu"
+    else:
+        path = tmp_path / "baselines.cu"
+        path.write_text(_BASELINES_FP32)
+    lib = _RecordingLib("cfa_fa1_forward", "cfa_naive_fa2_forward")
+    monkeypatch.setattr(b1_ab, "compile_source", lambda path, stem: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    assert kernel_ab.build_parent(kernel, str(path)) is lib
+    x, kw, _ = kernel_ab.problem(kernel, dict(kernel_ab.CASES[kernel][0], b=1, h=2, s=128),
+                                 torch.Generator().manual_seed(0))
+    parent, _ = kernel_ab.calls(kernel)
+    (o,) = parent(lib, *x, **kw)
+    assert o.shape == x[0].shape
+    (name, args), = lib.calls
+    assert len(args) == len(getattr(lib, name).argtypes) == (
+        {"b9": 13, "b10": 11}[kernel] + (source == "current"))
+    if source == "current":
+        assert args[-2] == 0  # fp32 inputs: in_type 0

@@ -12,7 +12,10 @@ JAX gates, tests/test_fa2_forward.py); B5 and B6 2e-2 with bf16 compute and
 B3 and B4 within 5e-2 with bf16 or fp16 tiles (the JAX bf16-tile grad gate,
 tests/test_fa2_backward.py) and 2e-5 in fp32, each error relative to the
 plain output's own max |value|.  B9 and B10 within 1e-5 (FA1 re-rounds O to
-fp32 at every KV tile).
+fp32 at every KV tile).  On fp16 inputs (B1-B8) and bf16 or fp16 inputs
+(B9, B10) the outputs come out in the inputs' type: the same gates plus one
+step of that type at the output's max; the autotune's tile variants of B1
+and B2 are held to the shipped tiles' outputs at the bf16 gates.
 """
 
 import dataclasses
@@ -133,7 +136,7 @@ def test_fa2_forward_kernel_bitwise_deterministic(cuda, dtype, tile):
 
 @pytest.mark.parametrize("kwargs", [
     dict(shape=(1, 2, 64, 96), dtype=torch.bfloat16),   # head_dim 96 (no kernel)
-    dict(shape=(1, 2, 64, 64), dtype=torch.float16),
+    dict(shape=(1, 2, 64, 64), dtype=torch.float64),    # fp16 inputs run
 ])
 def test_fa2_forward_kernel_refuses_what_it_does_not_take(cuda, kwargs):
     x = torch.zeros(kwargs["shape"], dtype=kwargs["dtype"], device=cuda)
@@ -940,10 +943,10 @@ def test_fa2_forward_quant_kernel_matches_plain(cuda, storage, q_dtype, compute,
 
 
 @pytest.mark.parametrize("make", [
-    lambda q, k: (q.half(), k),                          # fp16 q
+    lambda q, k: (q.double(), k),                        # fp64 q (fp16 runs)
     lambda q, k: (q[..., :48].contiguous(), k[..., :48].contiguous()),  # D 48
     lambda q, k: (q, k.to(torch.bfloat16)),              # bf16 "storage"
-], ids=["fp16-q", "d48", "bf16-storage"])
+], ids=["fp64-q", "d48", "bf16-storage"])
 def test_fa2_forward_quant_kernel_refuses_what_it_does_not_take(cuda, make):
     from cuda_flash_attention_tpu_torch.kernels import fa2_forward_quant as fq
 
@@ -2580,3 +2583,141 @@ def test_ep_layer_on_world1_nccl_mesh_equals_unsharded(cuda, nccl_world1):
     torch.cuda.synchronize()
     for a, b in zip(*outs):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# 16-bit inputs (fp16 in B1-B8, bf16 and fp16 in B9 and B10) and the
+# autotune's tile variants.
+# ---------------------------------------------------------------------------
+
+
+def _step(t) -> float:
+    """One step of t's 16-bit type at its largest |value| (0 for fp32)."""
+    m = t.float().abs().max().item()
+    bits = {torch.float16: 10, torch.bfloat16: 7}.get(t.dtype)
+    return 0.0 if bits is None or m == 0 else 2.0 ** (np.floor(np.log2(m)) - bits)
+
+
+@pytest.mark.parametrize("tile", [None, torch.bfloat16], ids=["fp16-tiles", "bf16-tiles"])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("b,hq,hkv,s,causal,window", [
+    (1, 4, 2, 300, True, None), (2, 4, 4, 100, False, None),
+    (1, 4, 2, 1000, True, 128), (1, 2, 1, 2048, False, None),
+])
+def test_fp16_inputs_forward_kernels_match_plain(cuda, tile, d, b, hq, hkv, s, causal,
+                                                  window):
+    """B1 (and B8 at S 100 with one KV head per query head) on fp16 inputs
+    in fp16 and bf16 tiles: O in fp16, lse fp32, `_fp16in` launches."""
+    rng = np.random.default_rng(s + d)
+    q, k, v = (_randn(rng, b, h, s, d).half() for h in (hq, hkv, hkv))
+    name = "fa2_forward_small" if s <= 128 and hq == hkv else "fa2_forward"
+    before = LAUNCHES[f"{name}_fp16in"]
+    o_k, lse_k = attention.flash_attention_with_lse(
+        q.to(cuda), k.to(cuda), v.to(cuda), causal=causal, tile_dtype=tile,
+        window=window)
+    assert LAUNCHES[f"{name}_fp16in"] == before + 1
+    o_p, lse_p = attention.flash_attention_with_lse(q, k, v, causal=causal,
+                                                    tile_dtype=tile, window=window)
+    assert o_k.dtype == torch.float16 and lse_k.dtype == torch.float32
+    err = (o_k.float().cpu() - o_p.float()).abs().max().item()
+    assert err <= 2e-2 + _step(o_p), err
+    assert ((lse_k.cpu() - lse_p).abs() / lse_p.abs().clamp_min(1)).max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("tile", [None, torch.bfloat16], ids=["fp16-tiles", "bf16-tiles"])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("route", ["fused", "split"])
+def test_fp16_inputs_backward_kernels_match_plain(cuda, tile, d, route):
+    """B2 (fused) and B3 + B4 (split: 128-row BlockSizes over 9 KV slices,
+    S 1100 padded to 1152) on fp16 inputs, GQA 4/2, causal: fp16 gradients
+    within 5e-2 of the plain ones' max, plus one fp16 step."""
+    rng = np.random.default_rng(d + (route == "split"))
+    q, do = (_randn(rng, 1, 4, 1100, d).half() for _ in range(2))
+    k, v = (_randn(rng, 1, 2, 1100, d).half() for _ in range(2))
+    blocks = BlockSizes(*[128] * 6) if route == "split" else None
+    names = (["fa2_backward_fused"] if route == "fused"
+             else ["fa2_backward_dq", "fa2_backward_dkv"])
+    before = [LAUNCHES[f"{n}_fp16in"] for n in names]
+
+    def grads(*xs):
+        xs = [x.clone().requires_grad_() for x in xs[:3]] + [xs[3]]
+        o = attention.flash_attention(*xs[:3], causal=True, tile_dtype=tile,
+                                      block_sizes=blocks)
+        return torch.autograd.grad((o.float() * xs[3].float()).sum(), xs[:3])
+
+    got = grads(*(t.to(cuda) for t in (q, k, v, do)))
+    assert [LAUNCHES[f"{n}_fp16in"] for n in names] == [x + 1 for x in before]
+    want = grads(q, k, v, do)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float16
+        err = (g.float().cpu() - w.float()).abs().max().item()
+        assert err <= 5e-2 * w.float().abs().max().item() + _step(w), err
+
+
+@pytest.mark.parametrize("storage", [torch.int8, torch.float8_e4m3fn, "int4"])
+@pytest.mark.parametrize("compute", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+def test_fp16_q_quantized_kernel_matches_plain(cuda, storage, compute, d):
+    """B7 on fp16 q over 1-byte and packed int4 K/V: fp16 O."""
+    from cuda_flash_attention_tpu_torch import quant
+    from cuda_flash_attention_tpu_torch.kernels import fa2_forward_quant as fq
+
+    rng = np.random.default_rng(d)
+    q = _randn(rng, 1, 4, 300, d).half()
+    k_q, v_q = quant.quantize_kv(_randn(rng, 1, 2, 300, d), _randn(rng, 1, 2, 300, d),
+                                 storage)
+    before = LAUNCHES["fa2_forward_quant_fp16in"]
+    o_k = fq.flash_attention_quantized_kv(
+        q.to(cuda), *(dataclasses.replace(t, values=t.values.to(cuda),
+                                          scales=t.scales.to(cuda)) for t in (k_q, v_q)),
+        causal=True, compute_dtype=compute)
+    assert LAUNCHES["fa2_forward_quant_fp16in"] == before + 1
+    o_p = fq.flash_attention_quantized_kv(q, k_q, v_q, causal=True, compute_dtype=compute)
+    assert o_k.dtype == torch.float16
+    err = (o_k.float().cpu() - o_p.float()).abs().max().item()
+    tol = (2e-2 if compute == torch.bfloat16 else 2e-5) + _step(o_p)
+    assert err <= tol, err
+
+
+@pytest.mark.parametrize("which", ["fa1", "naive_fa2"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("s", [100, 256])
+def test_16bit_inputs_baseline_kernels_match_plain(cuda, which, dtype, d, s):
+    """B9 and B10 on bf16 and fp16 inputs: S in fp32, P rounded to the input
+    type, O in it (FA1 re-rounded at every KV tile): within 1e-3 of the
+    output's max plus one step of the type."""
+    rng = np.random.default_rng(d + s)
+    q, k, v = (torch.from_numpy(rng.random((2, 3, s, d), dtype=np.float32)).to(dtype)
+               for _ in range(3))
+    fn = getattr(baselines, f"{which}_attention")
+    tag = "bf16" if dtype == torch.bfloat16 else "fp16"
+    before = LAUNCHES[f"{which}_{tag}in"]
+    o_k = fn(q.to(cuda), k.to(cuda), v.to(cuda))
+    assert LAUNCHES[f"{which}_{tag}in"] == before + 1
+    o_p = fn(q, k, v)
+    assert o_k.dtype == dtype
+    err = (o_k.float().cpu() - o_p.float()).abs().max().item()
+    assert err <= 1e-3 * o_p.float().abs().max().item() + _step(o_p), err
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "fused", "dq", "dkv"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_autotune_variants_match_the_shipped_tiles(cuda, kernel, d):
+    """Every candidate tile shape that builds (bench/autotune.py), run from
+    its own library, against the shipped tiles' output on the same inputs
+    at the bf16 gates (B1 O 2e-2; B2's dQ, B3's dQ, B4's dK 5e-2 of the max);
+    one whose build the source or ptxas refuses is a failed row with its
+    reason, and a launch error fails (strict)."""
+    from cuda_flash_attention_tpu_torch.bench import autotune
+
+    rows = autotune.sweep(kernel, b=1, h=4, kv_heads=2, s=1024, d=d, tile=torch.bfloat16,
+                          causal=True, iters=1, strict=True)
+    ok = [r for r in rows if "error" not in r]
+    assert any(r["default"] for r in ok)
+    for r in ok:
+        if kernel == "fwd":
+            assert r["max_abs_diff"] <= 2e-2, r
+        else:
+            assert r["rel_diff"] <= 5e-2, r
+    assert all(r["error"] for r in rows if r["ms"] == float("inf"))
